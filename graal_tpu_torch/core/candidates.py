@@ -1,0 +1,78 @@
+"""Build the 13 candidate genomes of (fragment, neighbour) proposals.
+
+PyTorch counterpart of ``graal_tpu.core.candidates`` (EM catalogue):
+
+====  =======================================  =============================
+mode  operation                                built from
+====  =======================================  =============================
+0     eject fragment                           pop_out
+1     flip fragment                            flip
+2/3   pop out, split-insert left of B (+/-)    pop_out then pop_in_1
+4/5   pop out, split-insert right of B (+/-)   pop_out then pop_in_2
+6/7   pop out, insert right of B (+/-)         pop_out then pop_in_3
+8     swap activity (repeats only)             pop_out then swap_activity
+9-12  translocation (4 cut-direction combos)   split(A) o split(B) o paste
+====  =======================================  =============================
+
+The m neighbours of one step are the batch dimension of every op, so the
+whole (m, 13) catalogue is built by one pass over the primitives.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from graal_tpu_torch.core import ops
+from graal_tpu_torch.core.state import GenomeState
+
+N_CANDIDATES = 13
+
+
+def build_candidates(state: GenomeState, f_a, f_b: torch.Tensor,
+                     max_id=None) -> GenomeState:
+    """Candidate genomes for moving fragment ``f_a`` relative to each of the
+    neighbours ``f_b`` (shape ``(m,)``).
+
+    ``state`` is one genome (fields of shape ``(n,)``); ``f_a`` a Python
+    int or 0-d tensor. Returns a state whose fields have shape
+    ``(m, 13, n)``. ``max_id``: the maximum contig id in use (defaults to
+    the state's own maximum).
+    """
+    m = f_b.shape[0]
+    n = state.n_frags
+    dev = state.pos.device
+    batch = GenomeState(*[x.expand(m, n) for x in state])
+    # int64 indices once, rather than a cast at every field gather
+    f_b = f_b.long()
+    if isinstance(f_a, torch.Tensor):
+        fa = f_a.to(dev).long().reshape(()).expand(m)
+    else:
+        fa = torch.full((m,), f_a, dtype=torch.int64, device=dev)
+    if max_id is None:
+        max_id = state.id_c.amax()
+    max_id = torch.as_tensor(max_id, device=dev).expand(m)
+    popped = ops.pop_out(batch, fa, max_id)
+    m2 = torch.maximum(popped.id_c.amax(-1), max_id)
+
+    cands = [
+        popped,                                           # 0: eject
+        ops.flip(batch, fa),                              # 1: flip
+        ops.pop_in_1(popped, fa, f_b, 1, m2),             # 2
+        ops.pop_in_1(popped, fa, f_b, -1, m2),            # 3
+        ops.pop_in_2(popped, fa, f_b, 1, m2),             # 4
+        ops.pop_in_2(popped, fa, f_b, -1, m2),            # 5
+        ops.pop_in_3(popped, fa, f_b, 1, m2),             # 6
+        ops.pop_in_3(popped, fa, f_b, -1, m2),            # 7
+        ops.swap_activity(popped, fa, m2),                # 8
+    ]
+    # Translocations: split at A (down/up-stream), split at B, paste A-B
+    # (loop order upstream-A outer, upstream-B inner; upstream=0 cuts after).
+    for up_a in (0, 1):
+        t1 = ops.split(batch, fa, up_a, max_id)
+        m1 = torch.maximum(t1.id_c.amax(-1), max_id)
+        for up_b in (0, 1):
+            t2 = ops.split(t1, f_b, up_b, m1)
+            mt = torch.maximum(t2.id_c.amax(-1), m1)
+            cands.append(ops.paste(t2, fa, f_b, mt))
+    return GenomeState(*[torch.stack(fields, dim=1)
+                         for fields in zip(*cands)])

@@ -1,0 +1,529 @@
+"""The MCMC / simulated-annealing sampler on the device.
+
+PyTorch counterpart of ``graal_tpu.core.mcmc``. One EM step: for fragment
+fA, sample <= delta neighbours from a contacts^3-weighted distribution,
+build 13 candidate genomes per neighbour, score them all in one batched
+call, filter / temper / sample a score slot, commit the winner. A cycle is
+a Python loop of steps (the JAX package's ``lax.scan``), optionally
+followed at every step by one nuisance-parameter Metropolis step.
+
+The loop never reads a device value on the host: indices, scores and
+parameters stay tensors, and decisions are ``torch.where`` selects. The
+only host syncs are where a caller reads the cycle's metrics.
+
+Randomness: every stochastic function takes either a ``torch.Generator``
+or its random inputs as tensors (:class:`StepDraws`), so that tests can
+feed it the draws the JAX package consumed. A cycle draws all its random
+inputs in a few bulk calls.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from graal_tpu_torch.core.candidates import N_CANDIDATES, build_candidates
+from graal_tpu_torch.core.likelihood import log_likelihood
+from graal_tpu_torch.core.model import RippeParams
+from graal_tpu_torch.core.state import GenomeState
+from graal_tpu_torch.core.subfrags import SubFragTable
+
+# Score window below the best candidate kept for sampling.
+THRESH_OVERFLOW = 30.0
+
+
+class NeighbourTable(NamedTuple):
+    """Static proposal-distribution tables: per bin, the ``n_top`` strongest
+    contact partners with probability proportional to contacts^3, plus the
+    bin -> copy dispatcher for repeat expansion."""
+
+    xk: torch.Tensor          # (n_bins, n_top) int32 candidate partner bins
+    pk: torch.Tensor          # (n_bins, n_top) float32 probabilities
+    dispatcher: torch.Tensor  # (n_bins, max_copies) int32 copy ids, -1 padded
+    blacklist: torch.Tensor   # (n_frags,) bool
+    n_bins: int
+    max_copies: int
+
+
+def _matrix_to_coo(matrix):
+    """(rows, cols, vals, n) triplets of a dense array or scipy.sparse
+    matrix, off-diagonal positive entries only."""
+    import scipy.sparse as sp
+
+    if sp.issparse(matrix):
+        coo = matrix.tocoo()
+        rows, cols, vals = coo.row, coo.col, coo.data.astype(np.float64)
+        n = coo.shape[0]
+    else:
+        m = np.asarray(matrix, np.float64)
+        n = m.shape[0]
+        rows, cols = np.nonzero(m)
+        vals = m[rows, cols]
+    keep = (rows != cols) & (vals > 0)
+    return rows[keep], cols[keep], vals[keep], n
+
+
+def topk_rows(rows, cols, vals, n_rows, k):
+    """Per-row top-``k`` entries of COO triplets (one lexsort). Returns
+    (idx (n_rows, k) int32, val (n_rows, k) f64), zero-padded."""
+    idx = np.zeros((n_rows, k), np.int32)
+    val = np.zeros((n_rows, k), np.float64)
+    if len(rows) == 0:
+        return idx, val
+    order = np.lexsort((-vals, rows))
+    r, c, v = rows[order], cols[order], vals[order]
+    new_seg = np.empty(len(r), bool)
+    new_seg[0] = True
+    new_seg[1:] = r[1:] != r[:-1]
+    seg_id = np.cumsum(new_seg) - 1
+    starts = np.nonzero(new_seg)[0]
+    pos_in_seg = np.arange(len(r)) - starts[seg_id]
+    sel = pos_in_seg < k
+    idx[r[sel], pos_in_seg[sel]] = c[sel]
+    val[r[sel], pos_in_seg[sel]] = v[sel]
+    return idx, val
+
+
+def build_dispatcher(id_d, n_bins):
+    """(n_bins, max_copies) bin -> copy-fragment ids, -1 padded."""
+    id_d = np.asarray(id_d)
+    order = np.argsort(id_d, kind="stable")
+    sorted_bins = id_d[order]
+    counts = np.bincount(id_d, minlength=n_bins)
+    max_copies = int(counts.max()) if len(counts) else 1
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    pos_in_bin = np.arange(len(order)) - starts[sorted_bins]
+    dispatcher = np.full((n_bins, max_copies), -1, np.int32)
+    dispatcher[sorted_bins, pos_in_bin] = order
+    return dispatcher, max_copies
+
+
+def build_neighbour_table(bin_matrix, id_d, n_frags, blacklisted=(),
+                          n_top=10, fact=3.0, device=None) -> NeighbourTable:
+    """Host-side construction of the proposal tables (dense or
+    scipy.sparse ``bin_matrix``, O(nnz log nnz))."""
+    rows, cols, vals, n_bins = _matrix_to_coo(bin_matrix)
+    n_top = max(1, min(n_top, n_bins - 1))   # tiny coarse levels
+    xk, topv = topk_rows(rows, cols, vals, n_bins, n_top)
+    w = np.where(topv > 0, topv, 0.0) ** fact
+    tot = w.sum(axis=1, keepdims=True)
+    pk = np.divide(w, tot, out=np.zeros_like(w), where=tot > 0)
+    # contact-free rows: uniform over the highest bin ids
+    empty = tot[:, 0] <= 0
+    if empty.any():
+        xk[empty] = (n_bins - 1 - np.arange(n_top))[None, :]
+        pk[empty] = 1.0 / n_top
+    pk = pk.astype(np.float32)
+
+    dispatcher, max_copies = build_dispatcher(id_d, n_bins)
+
+    bl = np.zeros(n_frags, bool)
+    bl[list(blacklisted)] = True
+    return NeighbourTable(
+        xk=torch.as_tensor(xk, device=device),
+        pk=torch.as_tensor(pk, device=device),
+        dispatcher=torch.as_tensor(dispatcher, device=device),
+        blacklist=torch.as_tensor(bl, device=device),
+        n_bins=n_bins, max_copies=max_copies)
+
+
+# ---------------------------------------------------------------------------
+# Random inputs
+# ---------------------------------------------------------------------------
+
+class StepDraws(NamedTuple):
+    """The random inputs of one EM step (+ nuisance step); a leading axis
+    holds the draws of a whole cycle."""
+
+    u_nb: torch.Tensor      # (..., n_top) uniforms of the Gumbel top-k
+    gumbel: torch.Tensor    # (..., n_slots) Gumbel noise of the slot draw
+    id_modif: torch.Tensor  # (...,) int64 nuisance parameter in [0, 4)
+    eps: torch.Tensor       # (...,) standard normal perturbation
+    u_acc: torch.Tensor     # (...,) uniform of the Metropolis test
+
+
+def n_slots(nb: NeighbourTable, delta: int) -> int:
+    """Score slots per step: 13 candidates x (delta + 1) copy-expanded
+    neighbour slots."""
+    return N_CANDIDATES * (delta * nb.max_copies + nb.max_copies)
+
+
+def draw_step_inputs(gen: torch.Generator, nb: NeighbourTable, delta: int,
+                     shape=()) -> StepDraws:
+    """Draw the random inputs of ``shape`` steps from ``gen`` (on the
+    generator's device)."""
+    dev = gen.device
+    shape = tuple(shape)
+    u_nb = torch.rand(shape + (nb.pk.shape[1],), generator=gen, device=dev)
+    u_g = torch.rand(shape + (n_slots(nb, delta),), generator=gen, device=dev)
+    tiny = torch.finfo(torch.float32).tiny
+    gumbel = -torch.log(-torch.log(u_g.clamp_min(tiny)))
+    id_modif = torch.randint(0, 4, shape, generator=gen, device=dev)
+    eps = torch.randn(shape, generator=gen, device=dev)
+    u_acc = torch.rand(shape, generator=gen, device=dev)
+    return StepDraws(u_nb, gumbel, id_modif, eps, u_acc)
+
+
+def _take(x, i):
+    """x[i] for a 0-d index tensor, without a host read of ``i``."""
+    return x.index_select(0, i.reshape(1).long())[0]
+
+
+# ---------------------------------------------------------------------------
+# EM step
+# ---------------------------------------------------------------------------
+
+def sample_neighbours(u, f_a, state: GenomeState, nb: NeighbourTable,
+                      delta: int):
+    """Sample <= delta partner bins without replacement (p prop
+    contacts^3) by Gumbel top-k on the uniforms ``u`` (shape (n_top,), or a
+    Generator to draw them), expand to repeat copies, add the other copies
+    of fA's own bin, mask blacklisted / self entries. Returns (ids, valid)
+    of static length delta * max_copies + max_copies, sorted by id with
+    invalid entries last."""
+    if isinstance(u, torch.Generator):
+        u = torch.rand(nb.pk.shape[1], generator=u, device=u.device)
+    f_a = torch.as_tensor(f_a, device=state.pos.device)
+    bin_a = _take(state.id_d, f_a)
+    pk_row = _take(nb.pk, bin_a)
+    xk_row = _take(nb.xk, bin_a)
+    g = torch.where(pk_row > 0, torch.log(pk_row), -math.inf)
+    g = g - torch.log(-torch.log(u + 1e-20) + 1e-20)
+    # top-k by a stable sort: ties (the -inf entries) keep the lower index
+    top = torch.sort(-g, stable=True).indices[:delta]
+    bins = xk_row[top].long()
+    bin_valid = pk_row[top] > 0
+
+    # repeat expansion: (delta, max_copies) copy ids
+    exp = nb.dispatcher[bins]
+    exp_valid = (exp >= 0) & bin_valid[:, None]
+    # other copies of fA's own bin
+    own = _take(nb.dispatcher, bin_a)
+    own_valid = (own >= 0) & (own != f_a) & (_take(state.rep, f_a) == 1)
+
+    ids = torch.cat([own, exp.reshape(-1)])
+    valid = torch.cat([own_valid, exp_valid.reshape(-1)])
+    valid = valid & ~nb.blacklist[ids.clamp_min(0).long()] & (ids != f_a)
+    ids = ids.clamp_min(0)
+    # deterministic order: ids ascending, invalid entries last
+    sort_key = torch.where(valid, ids, 2 ** 30)
+    order = torch.sort(sort_key, stable=True).indices
+    return ids[order], valid[order]
+
+
+def select_score_slot(gumbel, score, valid_nb, f_t, slot_valid=None,
+                      thresh_overflow=THRESH_OVERFLOW):
+    """Filter / temper / sample one (neighbour, op) slot: drop duplicate
+    eject/flip slots beyond the first neighbour, shift by the minimum,
+    clamp to a 30-window below the max, normalise, raise to 1/F_t, draw by
+    argmax(log w + Gumbel); argmax of the scores when <= 1 candidate
+    survives. ``gumbel``: (m * n_ops,) noise, or a Generator to draw it."""
+    m, n_ops = score.shape
+    dev = score.device
+    if isinstance(gumbel, torch.Generator):
+        u = torch.rand(m * n_ops, generator=gumbel, device=dev)
+        gumbel = -torch.log(-torch.log(u.clamp_min(torch.finfo(torch.float32).tiny)))
+    op_idx = torch.arange(n_ops, device=dev)[None, :]
+    nb_idx = torch.arange(m, device=dev)[:, None]
+    dup = (op_idx < 2) & (nb_idx > 0)
+    valid_op = valid_nb[:, None] | ((nb_idx == 0) & (op_idx < 2))
+    if slot_valid is not None:
+        valid_op = valid_op & slot_valid
+    flat = score.reshape(-1)
+    valid_flat = (valid_op & ~dup).reshape(-1)
+
+    score_min = torch.where(valid_flat, flat, math.inf).amin()
+    filtered = torch.where(valid_flat, flat - score_min, 0.0)
+    max_score = filtered.amax()
+    filtered = torch.clamp_min(filtered - (max_score - thresh_overflow), 0.0)
+    filtered = torch.where(valid_flat, filtered, 0.0)
+
+    n_pos = (filtered > 0).sum()
+    p = filtered / filtered.sum()
+    # the p > 0 guard also maps the NaN of an all-zero sum to -inf
+    logw = torch.where(p > 0, torch.log(p) / f_t, -math.inf)
+    cat = torch.argmax(logw + gumbel)
+    best = torch.argmax(torch.where(valid_flat, flat, -math.inf))
+    return torch.where(n_pos <= 1, best, cat)
+
+
+def _default_scorer(table: SubFragTable, obs, ll_dtype):
+    obs = torch.as_tensor(obs, dtype=torch.float32, device=table.owner.device)
+
+    def score(states: GenomeState, params: RippeParams):
+        return log_likelihood(states, table, obs, params, dtype=ll_dtype)
+
+    return score
+
+
+def make_em_step(table: SubFragTable, obs, nb: NeighbourTable, delta: int,
+                 ll_dtype=torch.float32, scorer=None,
+                 thresh_overflow=THRESH_OVERFLOW):
+    """Build the single-fragment EM step.
+
+    Returns step(state, rng, params, f_a, f_t) ->
+    (new_state, (score_sel, op_sel, fb_sel)), where ``rng`` is a Generator
+    or one step's :class:`StepDraws`.
+
+    ``scorer``: batched likelihood ``(GenomeState (B, n), params) -> (B,)``
+    (e.g. :func:`graal_tpu_torch.ops.likelihood_cuda.make_dense_scorer`);
+    defaults to the dense tensor implementation.
+    """
+    if scorer is None:
+        scorer = _default_scorer(table, obs, ll_dtype)
+
+    def step(state: GenomeState, rng, params: RippeParams, f_a, f_t):
+        if isinstance(rng, torch.Generator):
+            rng = draw_step_inputs(rng, nb, delta)
+        f_a = torch.as_tensor(f_a, device=state.pos.device)
+        ids, valid = sample_neighbours(rng.u_nb, f_a, state, nb, delta)
+
+        cands = build_candidates(state, f_a, ids)
+        m = ids.shape[0]
+        n = state.n_frags
+        flat = GenomeState(*[x.reshape(m * N_CANDIDATES, n) for x in cands])
+        ll = scorer(flat, params).reshape(m, N_CANDIDATES)
+
+        sel = select_score_slot(rng.gumbel, ll.float(), valid, f_t,
+                                thresh_overflow=thresh_overflow)
+        sel_nb = sel // N_CANDIDATES
+        sel_op = sel % N_CANDIDATES
+        new_state = [_take(x, sel) for x in flat]
+
+        # blacklisted fragments are skipped entirely
+        skip = _take(nb.blacklist, f_a)
+        new_state = GenomeState(*[torch.where(skip, a, b)
+                                  for a, b in zip(state, new_state)])
+        score_sel = torch.where(skip, -math.inf, _take(ll.reshape(-1), sel))
+        return new_state, (score_sel, torch.where(skip, -1, sel_op),
+                           torch.where(skip, f_a, _take(ids, sel_nb)))
+
+    return step
+
+
+# ---------------------------------------------------------------------------
+# Nuisance-parameter step
+# ---------------------------------------------------------------------------
+
+def _device_peval(s, params: RippeParams):
+    """Rippe curve without the v_inter clamp / range gate — the raw model
+    value used for nuisance re-derivations."""
+    n = s * params.lm / params.kuhn
+    return (params.fact * 0.53 * torch.pow(params.kuhn, -3.0)
+            * torch.pow(n, params.slope)
+            * torch.exp((params.d - 2.0) / (n * n + params.d)))
+
+
+def solve_d_max(params: RippeParams, v_inter, lo=1e-2, hi=1e6, passes=5,
+                width=64):
+    """Log-space multisection solve of rippe(s) == v_inter on the
+    decreasing branch: each pass evaluates the curve at ``width``
+    geometrically spaced points and shrinks the bracket (width-1)x.
+
+    ``params`` and ``v_inter`` may carry a leading batch shape; the solve
+    is elementwise over it."""
+    dev = v_inter.device
+    llo = torch.full(v_inter.shape, float(np.float32(np.log(lo))), device=dev)
+    lhi = torch.full(v_inter.shape, float(np.float32(np.log(hi))), device=dev)
+    frac = torch.arange(width, dtype=torch.float32, device=dev) / np.float32(width - 1)
+    p_col = RippeParams(*[x[..., None] for x in params])
+    for _ in range(passes):
+        xs = torch.exp(llo[..., None] + (lhi - llo)[..., None] * frac)
+        above = _device_peval(xs, p_col) > v_inter[..., None]
+        idx = (above.int().sum(-1) - 1).clamp(0, width - 2)
+        step = (lhi - llo) / np.float32(width - 1)
+        llo = llo + idx.float() * step
+        lhi = llo + step
+    return torch.exp((llo + lhi) * 0.5)
+
+
+def make_nuisance_proposer(d_max_cap: float | None = None):
+    """Parameter-proposal half of the nuisance Metropolis step.
+
+    Returns ``propose(id_modif, eps, params) -> (test_params, in_support)``.
+    One of {fact, slope, d_max, v_inter} (``id_modif`` 0..3) is perturbed
+    by ``eps`` times the reference's per-parameter sigma, dependent
+    parameters are re-derived, and the proposal is in support when the
+    perturbed parameter stays in its declared range. All four proposals
+    are built as one batch of four parameter sets and ``id_modif`` selects
+    one on the device.
+    """
+    sigma_slope = 0.05
+    sigma_d_max = 100.0
+    sigma_d_nuc = 0.5
+    slope_range = (-2.0, -0.5)
+    d_max_range = (0.0, 10000.0)
+    d_nuc_range = (0.0, 100.0)
+
+    def propose(id_modif, eps, params: RippeParams):
+        p = params
+        new_fact = p.fact + eps * torch.pow(10.0, torch.log10(p.fact) - 2.0)
+        new_slope = p.slope + eps * sigma_slope
+        c1_slope = (0.53 * torch.pow(p.lm / p.kuhn, new_slope)
+                    * torch.pow(p.kuhn, -3.0))
+        new_d_max = p.d_max + eps * sigma_d_max
+        v_d_max = _device_peval(new_d_max, p)
+        new_v = p.v_inter + eps * sigma_d_nuc
+
+        # rows: 0 fact, 1 slope, 2 d_max, 3 v_inter
+        fact4 = torch.stack([new_fact, p.fact, p.fact, p.fact])
+        slope4 = torch.stack([p.slope, new_slope, p.slope, p.slope])
+        c1_4 = torch.stack([p.c1, c1_slope, p.c1, p.c1])
+        v4 = torch.stack([p.v_inter, p.v_inter, v_d_max, new_v])
+        four = p._replace(c1=c1_4, slope=slope4, fact=fact4, v_inter=v4)
+        solved = solve_d_max(four, v4)
+        d_max4 = torch.stack([solved[0], solved[1], new_d_max, solved[3]])
+        valid4 = torch.stack([
+            new_fact > 0.0,
+            (new_slope >= slope_range[0]) & (new_slope <= slope_range[1]),
+            (new_d_max > d_max_range[0]) & (new_d_max <= d_max_range[1]),
+            (new_v > d_nuc_range[0]) & (new_v <= d_nuc_range[1])])
+
+        test_params = p._replace(c1=_take(c1_4, id_modif),
+                                 slope=_take(slope4, id_modif),
+                                 d_max=_take(d_max4, id_modif),
+                                 fact=_take(fact4, id_modif),
+                                 v_inter=_take(v4, id_modif))
+        in_support = _take(valid4, id_modif)
+        if d_max_cap is not None:
+            in_support = in_support & (test_params.d_max <= d_max_cap)
+        return test_params, in_support
+
+    return propose
+
+
+def nuisance_accept(u, test_params: RippeParams, params: RippeParams,
+                    l_star, l_t, f_t, in_support):
+    """Metropolis accept/reject half of the nuisance step."""
+    ratio = torch.exp((l_star.float() - l_t) / f_t)
+    accept = in_support & (ratio >= u)
+    out = RippeParams(*[torch.where(accept, a, b)
+                        for a, b in zip(test_params, params)])
+    l_out = torch.where(accept, l_star.float(), l_t)
+    return out, l_out, accept
+
+
+def make_nuisance_step(table: SubFragTable, obs, ll_dtype=torch.float32,
+                       scorer=None, d_max_cap: float | None = None):
+    """Nuisance-parameter Metropolis step: perturb one of {fact, slope,
+    d_max, v_inter}, re-derive dependents, accept with probability
+    exp((L* - L_t) / F_t). The test-parameter likelihood goes through
+    ``scorer`` (the EM step's batched scorer) at batch size 1.
+
+    Returns step(state, rng, params, l_t, f_t) -> (params, l_t, accepted),
+    where ``rng`` is a Generator or a :class:`StepDraws` (its id_modif, eps
+    and u_acc are used).
+    """
+    if scorer is None:
+        scorer = _default_scorer(table, obs, ll_dtype)
+    propose = make_nuisance_proposer(d_max_cap=d_max_cap)
+
+    def step(state: GenomeState, rng, params: RippeParams, l_t, f_t):
+        if isinstance(rng, torch.Generator):
+            dev = rng.device
+            id_modif = torch.randint(0, 4, (), generator=rng, device=dev)
+            eps = torch.randn((), generator=rng, device=dev)
+            u = torch.rand((), generator=rng, device=dev)
+        else:
+            id_modif, eps, u = rng.id_modif, rng.eps, rng.u_acc
+        test_params, in_support = propose(id_modif, eps, params)
+        l_star = scorer(GenomeState(*[x[None] for x in state]), test_params)[0]
+        return nuisance_accept(u, test_params, params, l_star, l_t, f_t,
+                               in_support)
+
+    return step
+
+
+# ---------------------------------------------------------------------------
+# EM cycle
+# ---------------------------------------------------------------------------
+
+class CycleMetrics(NamedTuple):
+    likelihood: torch.Tensor
+    n_contigs: torch.Tensor
+    mean_len: torch.Tensor      # mean contig length in bp
+    op_sampled: torch.Tensor
+    id_f_sampled: torch.Tensor
+    id_f_a: torch.Tensor
+    fact: torch.Tensor
+    slope: torch.Tensor
+    d_max: torch.Tensor
+    v_inter: torch.Tensor
+    success: torch.Tensor
+
+
+def make_em_cycle(table: SubFragTable, obs, nb: NeighbourTable, delta: int,
+                  sample_param: bool = True, ll_dtype=torch.float32,
+                  scorer=None, thresh_overflow=THRESH_OVERFLOW):
+    """One EM cycle over the fragments of ``frag_order``.
+
+    Returns cycle(state, rng, params, frag_order, l_t, f_t) ->
+    (state, params, l_t, CycleMetrics), where ``rng`` is a Generator or a
+    :class:`StepDraws` with a leading axis of len(frag_order). Metric
+    fields are per-step tensors stacked at the end of the cycle.
+    """
+    if scorer is None:
+        scorer = _default_scorer(table, obs, ll_dtype)
+    em_step = make_em_step(table, obs, nb, delta, ll_dtype, scorer=scorer,
+                           thresh_overflow=thresh_overflow)
+    nuis_step = make_nuisance_step(table, obs, ll_dtype, scorer=scorer)
+
+    def cycle(state: GenomeState, rng, params: RippeParams, frag_order, l_t,
+              f_t):
+        frag_order = torch.as_tensor(frag_order, device=state.pos.device).long()
+        n_steps = frag_order.shape[0]
+        if isinstance(rng, torch.Generator):
+            rng = draw_step_inputs(rng, nb, delta, (n_steps,))
+        always = torch.ones((), dtype=torch.bool, device=state.pos.device)
+        rows = []
+        for i in range(n_steps):
+            f_a = frag_order[i]
+            draws = StepDraws(*[x[i] for x in rng])
+            state, (score, op, fb) = em_step(state, draws, params, f_a, f_t)
+            l_t = torch.where(torch.isfinite(score), score, l_t)
+            if sample_param:
+                params, l_t, success = nuis_step(state, draws, params, l_t, f_t)
+            else:
+                success = always
+            n_contigs = state.n_contigs()
+            # mean contig length over *active* fragments only
+            active_bp = torch.where(state.activ == 1, state.len_bp, 0).sum()
+            rows.append(CycleMetrics(
+                likelihood=l_t, n_contigs=n_contigs,
+                mean_len=active_bp.float() / n_contigs,
+                op_sampled=op, id_f_sampled=fb, id_f_a=f_a,
+                fact=params.fact, slope=params.slope, d_max=params.d_max,
+                v_inter=params.v_inter, success=success))
+        metrics = CycleMetrics(*[torch.stack(col) for col in zip(*rows)])
+        return state, params, l_t, metrics
+
+    return cycle
+
+
+def explode_genome(state: GenomeState) -> GenomeState:
+    """Scramble to the worst-case start: every fragment a singleton contig."""
+    n = state.n_frags
+    dev = state.pos.device
+    shape = state.pos.shape
+    zeros = torch.zeros(shape, dtype=torch.int32, device=dev)
+    return state._replace(
+        pos=zeros,
+        id_c=torch.arange(n, dtype=torch.int32, device=dev).expand(shape).clone(),
+        start_bp=zeros.clone(),
+        circ=zeros.clone(),
+        l_cont=torch.ones(shape, dtype=torch.int32, device=dev),
+        l_cont_bp=state.len_bp.clone(),
+        ori=torch.ones(shape, dtype=torch.int32, device=dev),
+    )
+
+
+def apply_mutation(state: GenomeState, f_a, f_b, mode) -> GenomeState:
+    """Apply one recorded mutation — the replay primitive."""
+    dev = state.pos.device
+    f_b = torch.as_tensor(f_b, dtype=torch.int32, device=dev).reshape(1)
+    mode = torch.as_tensor(mode, device=dev)
+    cands = build_candidates(state, f_a, f_b)
+    return GenomeState(*[_take(x[0], mode) for x in cands])

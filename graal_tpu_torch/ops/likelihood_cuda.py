@@ -1,0 +1,256 @@
+"""Batched dense candidate scorer: a hand-written CUDA kernel for Hopper.
+
+The port of the Pallas candidate scorer ``make_pallas_scorer``
+(``_ll_kernel`` / ``_tile_body``, graal_tpu/ops/likelihood_pallas.py):
+score a batch of candidate genomes against the observed contact matrix,
+with the same log-space Rippe math and the genome-independent
+``-sum log(ob!)`` folded into a host constant. The kernel source is
+``graal_tpu_torch/csrc/ll_dense.cu``; its header comment says what bounds
+it on the card and how the design answers that.
+
+Build: at first use, ``nvcc`` compiles the source for ``sm_90a`` into
+``build/graal_tpu_torch/libll_dense-<sha16>.so`` under the checkout (keyed
+by a hash of the source and flags, written by atomic rename), loaded with
+``ctypes``. A missing ``nvcc`` or a failed build raises.
+
+Dispatch: :func:`make_dense_scorer` returns a :class:`DenseScorer`. On
+CUDA tensors it launches the kernel (or raises); on CPU tensors it runs
+:func:`score_dense_plain`, the same per-cell math in plain torch.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import math
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from graal_tpu_torch.core.model import RippeParams
+from graal_tpu_torch.core.state import GenomeState
+from graal_tpu_torch.core.subfrags import SubFragTable
+
+SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "ll_dense.cu"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "graal_tpu_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+N_PARAMS = 10
+
+
+def obs_constant(obs) -> float:
+    """Setup-time constant: -sum_{s<t} log(ob!) with the reference's branch
+    structure (exact factorial < 10, Stirling >= 10, Stirling expansion
+    >= 15), in f64."""
+    obs = np.asarray(obs, np.float64)
+    iu, ju = np.triu_indices(obs.shape[0], k=1)
+    ob = obs[iu, ju]
+    out = np.zeros_like(ob)
+    big = ob >= 15
+    out[big] = -(ob[big] * np.log(ob[big]) - ob[big]
+                 + np.log(np.sqrt(ob[big] * 2 * np.pi)))
+    mid = (ob >= 10) & ~big
+    n = np.floor(ob[mid])
+    out[mid] = -(n * np.log(n) - n + 0.5 * np.log(2 * np.pi * n))
+    small = (ob > 0) & (ob < 10)
+    out[small] = -np.array([math.lgamma(math.floor(x) + 1) for x in ob[small]])
+    return float(out.sum())
+
+
+def _find_nvcc() -> str:
+    nvcc = shutil.which("nvcc")
+    if nvcc is None:
+        home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+        cand = Path(home) / "bin" / "nvcc"
+        nvcc = str(cand) if cand.exists() else None
+    if nvcc is None:
+        raise RuntimeError("nvcc not found (PATH, CUDA_HOME, /usr/local/cuda): "
+                           "cannot build the ll_dense CUDA kernel")
+    return nvcc
+
+
+@functools.cache
+def load_library():
+    """Build (if needed) and load the kernel library. Returns (lib, path);
+    the compiler's output (registers, spills) is kept beside it as .log."""
+    src = SOURCE.read_bytes()
+    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    so = BUILD_DIR / f"libll_dense-{tag}.so"
+    if not so.exists():
+        nvcc = _find_nvcc()
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
+        r = subprocess.run(cmd, capture_output=True, text=True)
+        if r.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stderr}")
+        so.with_suffix(".log").write_text(r.stdout + r.stderr)
+        os.replace(tmp, so)
+    lib = ctypes.CDLL(str(so))
+    ptr = ctypes.c_void_p
+    lib.ll_dense_n_tiles.argtypes = [ctypes.c_int]
+    lib.ll_dense_n_tiles.restype = ctypes.c_int
+    lib.ll_dense_score.argtypes = [ptr] * 9 + [ctypes.c_int, ctypes.c_int,
+                                               ctypes.c_double, ptr]
+    lib.ll_dense_score.restype = ctypes.c_int
+    return lib, so
+
+
+def params_vector(p: RippeParams, log_nfpb: torch.Tensor) -> torch.Tensor:
+    """The kernel's 10 f32 parameters, computed on the device: [log_c1fact,
+    slope, d, d_max, lm/kuhn, log_v_inter, v_inter, log_norm_circ,
+    log_k3fact, log_nfpb]."""
+    log_c1fact = torch.log(p.c1 * p.fact)
+    log_k3fact = torch.log(torch.pow(p.kuhn, -3.0) * p.fact)
+    nmax = p.lm / p.kuhn
+    log_norm_circ = (log_k3fact + p.slope * torch.log(nmax)
+                     + (p.d - 2.0) / (nmax * nmax + p.d))
+    return torch.stack([
+        log_c1fact, p.slope, p.d, p.d_max, p.lm / p.kuhn,
+        torch.log(p.v_inter), p.v_inter, log_norm_circ, log_k3fact,
+        log_nfpb]).float()
+
+
+def score_dense_plain(mid, idc, circ, stot, la, obs, pvec, obs_const,
+                      max_cells=1 << 24):
+    """Plain torch version of the kernel: the same per-cell math over the
+    full K x K grid, masked to s < t, each candidate's sum taken in f64.
+    Candidates are processed in chunks of about ``max_cells`` cells so that
+    memory stays bounded at K ~ 6,000. Returns (B,) f32."""
+    B, K = mid.shape
+    (log_c1fact, slope, d, d_max, lmk, log_v, _v_inter, log_norm_circ,
+     log_k3fact, log_nfpb) = pvec.unbind()
+    mask = torch.ones((K, K), dtype=torch.bool, device=mid.device).triu(1)
+    la_pair = (la[:, None] + la[None, :]) - log_nfpb
+    chunk = max(1, max_cells // (K * K))
+    out = []
+    for b0 in range(0, B, chunk):
+        sl = slice(b0, b0 + chunk)
+        s = torch.abs(mid[sl, :, None] - mid[sl, None, :])
+        same = idc[sl, :, None] == idc[sl, None, :]
+        safe_s = torch.clamp_min(s, 1e-9)
+        n_lin = safe_s * lmk
+        log_lin = log_c1fact + slope * torch.log(safe_s) + (d - 2.0) / (n_lin * n_lin + d)
+        in_range = (s > 0.0) & (s < d_max)
+        st = stot[sl, :, None]
+        n_circ = lmk * safe_s * torch.clamp_min(st - s, 1e-9) / torch.clamp_min(st, 1e-9)
+        log_val_circ = log_k3fact + slope * torch.log(n_circ) + (d - 2.0) / (n_circ * n_circ + d)
+        log_norm_lin = torch.where(in_range, torch.maximum(log_lin, log_v), log_v)
+        log_circ = log_val_circ + log_norm_lin - log_norm_circ
+        log_cis = torch.where(circ[sl, :, None] == 1, log_circ, log_lin)
+        log_cis = torch.where(in_range, log_cis, -math.inf)
+        log_cis = torch.maximum(log_cis, log_v)
+        log_e = torch.where(same, log_cis, log_v) + la_pair
+        contrib = obs * log_e - torch.exp(log_e)
+        out.append(torch.where(mask, contrib, 0.0).sum(dim=(1, 2), dtype=torch.float64))
+    return (torch.cat(out) + obs_const).float()
+
+
+class DenseScorer:
+    """``score(states (B, n), params) -> (B,) f32`` log-likelihoods of a
+    repeat-free table, the counterpart of ``make_pallas_scorer``. A repeat
+    table raises NotImplementedError (kernel B3 is not ported yet).
+
+    ``n_launches`` counts the calls that launched the CUDA kernel.
+    """
+
+    def __init__(self, table: SubFragTable, obs, device):
+        device = torch.device(device)
+        if table.has_repeats:
+            raise NotImplementedError(
+                "repeat tables need the copy-summing scorer (B3, "
+                "_repeat_kernel), which is not yet ported; score them with "
+                "core.likelihood.log_likelihood")
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        if isinstance(obs, torch.Tensor):
+            obs = obs.detach().cpu().numpy()
+        obs = np.asarray(obs, np.float32)
+        self.table = table
+        self.device = device
+        self.obs = torch.as_tensor(obs, device=device).contiguous()
+        self.obs_const = obs_constant(obs)
+        self.k = table.n_subs
+        self.owner = table.owner.long().to(device)
+        self.prefix = table.prefix_kb.to(device)
+        self.suffix = table.suffix_kb.to(device)
+        self.len_half = table.len_kb.to(device) * 0.5
+        self.la = torch.log(table.accu.to(device)).contiguous()
+        self.log_nfpb = torch.tensor(np.float32(np.log(table.n_frags_per_bins)),
+                                     device=device)
+        self.n_launches = 0
+
+    def sub_vectors(self, states: GenomeState):
+        """Per-candidate O(K) vectors (mid, idc, circ, stot), shape (B, K)."""
+        own = self.owner
+        start_kb = states.start_bp[:, own].float() / 1000.0
+        ori = states.ori[:, own]
+        mid = start_kb + torch.where(ori == 1, self.prefix, self.suffix) + self.len_half
+        idc = states.id_c[:, own]
+        circ = states.circ[:, own].float()
+        stot = states.l_cont_bp[:, own].float() / 1000.0
+        return mid, idc, circ, stot
+
+    def _check(self, states: GenomeState):
+        for name, x in zip(states._fields, states):
+            if x.device != self.device:
+                raise ValueError(f"state field {name} on {x.device}, "
+                                 f"scorer on {self.device}")
+            if x.dtype != torch.int32 or x.dim() != 2:
+                raise ValueError(f"state field {name} must be (B, n) int32, "
+                                 f"got {tuple(x.shape)} {x.dtype}")
+
+    def launch(self, mid, idc, circ, stot, pvec) -> torch.Tensor:
+        """Launch the kernel on the vectors of B candidates; (B,) f32."""
+        if self.device.type != "cuda":
+            raise ValueError(f"the CUDA kernel needs a CUDA scorer, not {self.device}")
+        B, K = mid.shape
+        if K != self.k:
+            raise ValueError(f"vectors have K={K}, table has K={self.k}")
+        for name, x, dt in (("mid", mid, torch.float32), ("idc", idc, torch.int32),
+                            ("circ", circ, torch.float32),
+                            ("stot", stot, torch.float32),
+                            ("pvec", pvec, torch.float32)):
+            if x.device != self.device or x.dtype != dt or not x.is_contiguous():
+                raise ValueError(f"{name}: need contiguous {dt} on {self.device}, "
+                                 f"got {x.dtype} on {x.device}")
+            if name != "pvec" and tuple(x.shape) != (B, K):
+                raise ValueError(f"{name}: need shape {(B, K)}, got {tuple(x.shape)}")
+        if pvec.shape != (N_PARAMS,):
+            raise ValueError(f"pvec: need shape ({N_PARAMS},), got {tuple(pvec.shape)}")
+        lib, _ = load_library()
+        partial = torch.empty((B, lib.ll_dense_n_tiles(K)), dtype=torch.float32,
+                              device=self.device)
+        out = torch.empty(B, dtype=torch.float32, device=self.device)
+        rc = lib.ll_dense_score(
+            mid.data_ptr(), idc.data_ptr(), circ.data_ptr(), stot.data_ptr(),
+            self.la.data_ptr(), self.obs.data_ptr(), pvec.data_ptr(),
+            partial.data_ptr(), out.data_ptr(), B, K, self.obs_const,
+            torch.cuda.current_stream(self.device).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"ll_dense_score launch failed: cudaError {rc}")
+        self.n_launches += 1
+        return out
+
+    def plain(self, mid, idc, circ, stot, pvec) -> torch.Tensor:
+        """The plain torch version on the same vectors; (B,) f32."""
+        return score_dense_plain(mid, idc, circ, stot, self.la, self.obs,
+                                 pvec, self.obs_const)
+
+    def __call__(self, states: GenomeState, params: RippeParams) -> torch.Tensor:
+        self._check(states)
+        vecs = self.sub_vectors(states)
+        pvec = params_vector(params, self.log_nfpb)
+        if self.device.type == "cuda":
+            return self.launch(*vecs, pvec)
+        return self.plain(*vecs, pvec)
+
+
+def make_dense_scorer(table: SubFragTable, obs, device) -> DenseScorer:
+    """Build ``score(states_batch, params) -> (B,)`` on ``device``."""
+    return DenseScorer(table, obs, device)
