@@ -9,22 +9,42 @@ Phases, in order; any failure raises and exits non-zero:
 
 1. Device: refuse to run without CUDA; print the card (nvidia-smi name and
    power limit), torch's and nvcc's versions.
-2. Build: compile graal_tpu_torch/csrc/ll_dense.cu with nvcc (sm_90a) and
-   print the build time and the compiler's register / spill report.
-3. Kernel vs plain: the dense scorer kernel against its plain torch
-   version on the same inputs, rtol 1e-4 (bench.py's standard), at the
-   flagship K = 1,152 on 65-candidate batches built on the true genome, on
-   its exploded start and on a state with a circularised contig; at B = 1
-   (the nuisance shape); and at K = 6,000 on a 13-candidate batch. Each
-   candidate's score must be bit-identical alone and in any batch. The
-   kernel is also held to the direct-pmf oracle (rtol 1e-4) and, on a
-   small problem, to the f64 loop oracle (rtol 5e-5, atol 0.5).
-4. Main path: 3 EM cycles of the flagship problem from its exploded
+2. Build: compile every kernel library (graal_tpu_torch/csrc/*.cu, sm_90a),
+   one nvcc process each, all started together; print the build times and
+   the compiler's register / spill report.
+3. Dense kernel B1 (ll_dense) vs plain: the dense scorer kernel against its
+   plain torch version on the same inputs, rtol 1e-4 (bench.py's
+   standard), at the flagship K = 1,152 on 65-candidate batches built on
+   the true genome, on its exploded start and on a state with a
+   circularised contig; at B = 1 (the nuisance shape); and at K = 6,000 on
+   a 13-candidate batch. Each candidate's score must be bit-identical alone
+   and in any batch. The kernel is also held to the direct-pmf oracle
+   (rtol 1e-4) and, on a small problem, to the f64 loop oracle (rtol 5e-5,
+   atol 0.5).
+4. Dense main path: 3 EM cycles of the flagship problem from its exploded
    start, nuisance sampling on, every score through the kernel. Checks the
    launch count, the invariants, that the carried likelihood equals the
    kernel's rescoring bit for bit, that the likelihood rose, and that a
    second run with the same seed is identical.
-5. Last lines: the nvidia-smi line, one JSON line per the kernels run, and
+5. Delta kernels B4 (obsgrid) and B2 (ll_mini) vs plain, on the real step
+   inputs of the chr1-class problem (100,000 fragments, full coverage,
+   shuffled into 400 pieces) at f_max 1,024 for the 5 neighbour slots of a
+   few fragments: B4 bit-identical; B2's scores within rtol 1e-4 and its
+   deltas within DLL_ATOL; every genome's B2 score bit-identical alone and
+   in its batch. Timed against the plain versions with CUDA events: B2 at
+   R = 1,024 and at R = 4,096 (the top tier), B4 at R = 1,024.
+6. Per-step exactness at 20,000 fragments: 10 single delta steps at f_max
+   1,024; after each, the carried likelihood must be within
+   max(0.5, 1e-6 |L|) of a full sparse re-anchor.
+7. Delta main path at 100,000 fragments: ScaleRunner.cycle_for(1024, 4)
+   for 256 steps from the shuffled start under
+   torch.cuda.set_sync_debug_mode("error"). The carried likelihood must
+   stay within 4e-6 |L| of a re-anchor, each step must launch B2 and B4
+   once, and a second seeded run must be identical.
+8. ScaleRunner.run at 100,000 fragments: 2 cycles of 512 extremity-first
+   steps from f_max 256 up the tier ladder, nuisance sampling on; the
+   invariants hold and the likelihood rises.
+9. Last lines: the nvidia-smi line, one JSON line per the kernels run, and
    {"ok": true, "device": {...}}.
 """
 
@@ -38,6 +58,17 @@ REF_RTOL, REF_ATOL = 5e-5, 0.5   # vs the f64 loop oracle (tests/test_parity.py)
 N_CYCLES = 3
 SEED = 0
 LARGE_BINS = 2000           # K = 6,000: the largest table scored densely
+SCALE_BINS = 100_000        # the chr1-class problem (bench_scale.py)
+EXACT_BINS = 20_000         # benchmarks/check_exactness.py's size
+F_MAX = 1024                # the flagship delta bucket
+TOP_F_MAX = 4096            # the top tier of the shuffled 100k start
+DELTA = 4
+MAIN_STEPS = 256            # bench_scale.py's timed chunk
+# B2 deltas, kernel vs plain: both sum f32 cells in f64, so they differ by
+# the cells' last-ulp differences only; 0.05 is 10x below the 0.5 floor of
+# the per-step exactness gate (phase 6) that a delta error would break.
+DLL_ATOL = 0.05
+DRIFT_REL = 4e-6            # carried vs re-anchored, 256 steps (bench.py:231)
 
 
 class SmokeFailure(RuntimeError):
@@ -83,26 +114,31 @@ def phase_device():
     if not torch.cuda.is_available():
         raise SmokeFailure("torch.cuda.is_available() is false: this check "
                            "runs on a GPU only")
-    from graal_tpu_torch.ops.likelihood_cuda import _find_nvcc
+    from graal_tpu_torch.ops.build import find_nvcc
 
     print(f"gpu: {gpu_line()}")
     print(f"torch {torch.__version__} (CUDA {torch.version.cuda}), "
           f"{torch.cuda.get_device_name(0)}, {torch.cuda.device_count()} device(s)")
-    print(f"nvcc: {run_cmd([_find_nvcc(), '--version']).splitlines()[-1]}")
+    print(f"nvcc: {run_cmd([find_nvcc(), '--version']).splitlines()[-1]}")
     return torch.device("cuda", 0)
 
 
 def phase_build():
-    from graal_tpu_torch.ops.likelihood_cuda import load_library
+    from graal_tpu_torch.ops import build
 
     t0 = time.perf_counter()
-    _, so = load_library()
-    print(f"build: {so.name} in {time.perf_counter() - t0:.2f} s")
-    log = so.with_suffix(".log")
-    if log.exists():
-        for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas: {line.strip()}")
+    seconds = build.build()
+    print(f"build: {len(seconds)} of {len(build.KERNELS)} libraries compiled in "
+          f"parallel, {time.perf_counter() - t0:.2f} s wall")
+    for name in build.KERNELS:
+        so = build.library_path(name)
+        check(so.exists(), f"{so} was not built")
+        print(f"  {so.name}: {seconds.get(name, 0.0):.2f} s")
+        log = so.with_suffix(".log")
+        if log.exists():
+            for line in log.read_text().splitlines():
+                if "registers" in line or "spill" in line or "Compiling entry" in line:
+                    print(f"    ptxas: {line.strip()}")
 
 
 def candidate_batch(state, nb, f_a, gen, n_nb=None):
@@ -349,24 +385,272 @@ def phase_main(device, n_bins=384):
     return r["launches"]
 
 
+def scale_setup(device, n_bins=SCALE_BINS):
+    """The chr1-class problem on the card and its runner."""
+    import torch
+    from graal_tpu_torch.entry import scale_problem
+    from graal_tpu_torch.scale import ScaleRunner, max_contig_subs
+
+    t0 = time.perf_counter()
+    truth, shuf, table, params, sobs = scale_problem(n_bins, device=device)
+    runner = ScaleRunner(table, sobs, params)
+    torch.cuda.synchronize()
+    print(f"chr1-scale problem: {n_bins} fragments, {sobs.rows.shape[0]} symmetric "
+          f"nnz, row_cap {sobs.row_cap}, band w {runner.w}, largest shuffled contig "
+          f"{max_contig_subs(shuf, table)} subs, set-up {time.perf_counter() - t0:.1f} s")
+    return dict(truth=truth, shuf=shuf, table=table, params=params, sobs=sobs,
+                runner=runner, n=n_bins)
+
+
+def delta_inputs(sc, scorer, f_a, gen):
+    """The B4 and B2 inputs of one step of fragment f_a at the scorer's
+    bucket, as the delta step builds them."""
+    import torch
+    from graal_tpu_torch.core import delta, mcmc
+
+    shuf = sc["shuf"]
+    f_a = torch.tensor(f_a, device=shuf.pos.device)
+    ids, _ = mcmc.sample_neighbours(gen, f_a, shuf, sc["runner"].nb, DELTA)
+    rows, valid, _ = delta.extract_rows_union(shuf, f_a, ids, scorer.f_max)
+    subs, sub_valid = scorer.sub_rows(rows, valid)
+    windows = scorer.windows(subs, sub_valid)
+    _, geo, ob, accu_sub, pvec = scorer.inputs(shuf, f_a, ids, rows, valid, sc["params"],
+                                               shuf.id_c.amax())
+    return windows, scorer.mini_grid_args(geo, ob, accu_sub, pvec)
+
+
+def b2_vs_plain(grid, args, label):
+    """B2 kernel and plain version on the same inputs; returns (max abs
+    score error, max abs dll error)."""
+    import torch
+
+    s_k, d_k = grid.launch(*args)
+    s_p, d_p = grid.plain(*args)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(s_k).all() & torch.isfinite(d_k).all()),
+          f"{label}: non-finite B2 scores")
+    err = (s_k.double() - s_p.double()).abs()
+    rel = (err / s_p.double().abs().clamp_min(1e-30)).max().item()
+    dll_err = (d_k.double() - d_p.double()).abs().max().item()
+    m, c, r = args[0].shape
+    print(f"  B2 {label}: M={m} C={c} R={r} max_abs_err={err.max().item():.6g} "
+          f"max_rel_err={rel:.3g} dll max_abs_err={dll_err:.6g} "
+          f"(|score| up to {s_p.abs().max().item():.6g})")
+    check(rel <= RTOL, f"{label}: B2 kernel vs plain rel err {rel} > {RTOL}")
+    check(dll_err <= DLL_ATOL, f"{label}: B2 dll error {dll_err} > {DLL_ATOL}")
+    return s_k, err.max().item()
+
+
+def phase_delta_kernels(device, sc, frags=(7, 31_337, 77_777)):
+    import numpy as np
+    import torch
+    from graal_tpu_torch.core import delta
+    from graal_tpu_torch.scale import contig_frags_per_frag
+
+    print(f"delta kernels vs plain ({sc['n']} fragments, shuffled start):")
+    # a scorer with its own kernel wrappers: these launches are not the
+    # main path's
+    scorer = delta.make_delta_scorer(sc["table"], None, F_MAX, sobs=sc["sobs"])
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    b2_err, b4_err, first = 0.0, 0.0, None
+    for f_a in frags:
+        win, args = delta_inputs(sc, scorer, f_a, gen)
+        ob_k = scorer.obs_grid_kernel.launch(*win)
+        ob_p = scorer.obs_grid_kernel.plain(*win)
+        torch.cuda.synchronize()
+        check(torch.equal(ob_k, ob_p), f"f_a={f_a}: B4 kernel differs from its plain version")
+        b4_err = max(b4_err, (ob_k - ob_p).abs().max().item())
+        print(f"  B4 f_a={f_a}: M={win[0].shape[0]} R={win[0].shape[1]} "
+              f"cap={win[0].shape[2]}: bit-identical, {int((ob_k > 0).sum())} nonzero cells, "
+              f"sum {ob_k.sum().item():.0f}")
+        s_k, err = b2_vs_plain(scorer.mini_grid, args, f"f_a={f_a}")
+        b2_err = max(b2_err, err)
+        if first is None:
+            first = (win, args, s_k)
+    # each genome alone, and each neighbour alone, as in its batch
+    win, args, s_k = first
+    m, c, _ = args[0].shape
+    for a in range(m):
+        alone = scorer.mini_grid.launch(*[x[a:a + 1].contiguous() for x in args[:6]], args[6])[0]
+        check(torch.equal(alone, s_k[a:a + 1]), f"neighbour {a} alone differs from its batch")
+    for g in range(c):
+        alone = scorer.mini_grid.launch(*[x[:1, g:g + 1].contiguous() for x in args[:5]],
+                                        args[5][:1].contiguous(), args[6])[0]
+        check(torch.equal(alone, s_k[:1, g:g + 1]), f"genome {g} alone differs from its batch")
+    print(f"  B2: {m} neighbours and {c} genomes bit-identical alone and in the batch")
+
+    k_ms = cuda_ms(lambda: scorer.mini_grid.launch(*args), 50)
+    p_ms = cuda_ms(lambda: scorer.mini_grid.plain(*args), 5, n_warm=1)
+    print(f"  time B2 R={args[0].shape[2]} M={m} C={c}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
+    o_ms = cuda_ms(lambda: scorer.obs_grid_kernel.launch(*win), 50)
+    op_ms = cuda_ms(lambda: scorer.obs_grid_kernel.plain(*win), 10, n_warm=1)
+    print(f"  time B4 R={win[0].shape[1]} cap={win[0].shape[2]} M={win[0].shape[0]}: "
+          f"kernel {o_ms:.4f} ms, plain {op_ms:.4f} ms")
+
+    # the top tier: a fragment of the largest contig at f_max 4,096
+    top = delta.make_delta_scorer(sc["table"], None, TOP_F_MAX, sobs=sc["sobs"])
+    f_big = int(np.argmax(contig_frags_per_frag(sc["shuf"])))
+    _, args4 = delta_inputs(sc, top, f_big, gen)
+    _, err4 = b2_vs_plain(top.mini_grid, args4, f"top tier f_a={f_big}")
+    k4_ms = cuda_ms(lambda: top.mini_grid.launch(*args4), 10)
+    p4_ms = cuda_ms(lambda: top.mini_grid.plain(*args4), 2, n_warm=1)
+    print(f"  time B2 R={args4[0].shape[2]} M={args4[0].shape[0]}: kernel {k4_ms:.4f} ms, "
+          f"plain {p4_ms:.4f} ms")
+    return dict(ll_mini=dict(max_abs_err=max(b2_err, err4), ms=k_ms, plain_ms=p_ms),
+                obsgrid=dict(max_abs_err=b4_err, ms=o_ms, plain_ms=op_ms))
+
+
+def phase_exactness(device, n_bins=EXACT_BINS, steps=10):
+    """Twin of benchmarks/check_exactness.py: single delta steps, each
+    followed by a full sparse re-anchor. The steps are taken at contig
+    extremities of the shuffled start, where a step joins pieces and
+    commits a likelihood change well above the gate's tolerance; the phase
+    fails unless some step does."""
+    import numpy as np
+    import torch
+    from graal_tpu_torch.core import delta
+    from graal_tpu_torch.entry import scale_problem
+    from graal_tpu_torch.scale import ScaleRunner
+
+    _, shuf, table, params, sobs = scale_problem(n_bins, device=device)
+    runner = ScaleRunner(table, sobs, params)
+    step = delta.make_delta_em_step(table, None, runner.nb, DELTA, F_MAX, sobs=sobs,
+                                    band_w=runner.w)
+    anchor = runner.anchor_fn()
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    pos, l_cont = shuf.pos.cpu().numpy(), shuf.l_cont.cpu().numpy()
+    ext = np.nonzero((pos == 0) | (pos == l_cont - 1))[0]
+    order = torch.as_tensor(ext, device=device)[
+        torch.randperm(len(ext), generator=gen, device=device)[:steps]]
+    cur, l_t = shuf, anchor(shuf, params)
+    worst, bad, moved, above_tol, max_dl = 0.0, 0, 0, 0, 0.0
+    for i in range(steps):
+        new, l_new, (op, _, _) = step(cur, gen, params, l_t, order[i], 1.0)
+        l_re = anchor(new, params)
+        err = abs(l_new.item() - l_re.item())
+        tol = max(0.5, 1e-6 * abs(l_re.item()))
+        dl = abs(l_new.item() - l_t.item())
+        bad += err > tol
+        worst = max(worst, err)
+        moved += int(op) >= 0
+        above_tol += dl > tol
+        max_dl = max(max_dl, dl)
+        cur, l_t = new, l_re   # re-anchor: isolate each step's error
+    print(f"per-step exactness: {json.dumps(dict(n_fragments=n_bins, f_max=F_MAX, steps=steps, moves=moved, steps_dl_above_tol=int(above_tol), max_abs_dl=max_dl, bad_steps=int(bad), worst_err=worst, L=l_t.item()))}")
+    check(bad == 0, f"{bad} of {steps} delta steps drifted beyond max(0.5, 1e-6 |L|)")
+    check(above_tol > 0, "no step committed a likelihood change above the gate's "
+          "tolerance: the exactness gate was not exercised")
+
+
+def scale_main_run(sc):
+    """One seeded run of the delta main path: cycle_for(1024, 4) for
+    MAIN_STEPS steps from the shuffled start, no synchronising call."""
+    import torch
+
+    runner, shuf, params = sc["runner"], sc["shuf"], sc["params"]
+    device = shuf.pos.device
+    cycle = runner.cycle_for(F_MAX, DELTA)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    order = torch.randperm(sc["n"], generator=gen, device=device)[:MAIN_STEPS]
+    l0 = runner.anchor_fn()(shuf, params)
+    torch.cuda.synchronize()
+    runner.obs_grid.n_launches = runner.mini_grid.n_launches = 0
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        cur, l_t, out = cycle(shuf, gen, params, order, l0, 1.0)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return dict(cur=cur, l0=l0, l_t=l_t, out=out, seconds=seconds,
+                launches=(runner.mini_grid.n_launches, runner.obs_grid.n_launches))
+
+
+def phase_scale_main(sc):
+    import torch
+
+    print(f"delta main path: cycle_for({F_MAX}, {DELTA}), {MAIN_STEPS} steps from the "
+          f"shuffled {sc['n']}-fragment start")
+    r = scale_main_run(sc)
+    l_re = sc["runner"].anchor_fn()(r["cur"], sc["params"])
+    drift = abs(r["l_t"].item() - l_re.item())
+    ops = r["out"][1]
+    print(f"  l_t {r['l0'].item():.3f} -> {r['l_t'].item():.3f}, re-anchored {l_re.item():.3f}, "
+          f"drift {drift:.6g} (bound {DRIFT_REL} |L| = {DRIFT_REL * abs(l_re.item()):.3f})")
+    check(drift < DRIFT_REL * abs(l_re.item()), f"carried l_t drifted {drift} from the re-anchor")
+    print(f"  moves committed {int((ops >= 0).sum())}/{MAIN_STEPS}, overflowed slots "
+          f"{int(r['out'][3].sum())}, n_contigs {int(r['out'][4][-1])}")
+    print(f"  launches: ll_mini {r['launches'][0]}, obsgrid {r['launches'][1]} "
+          f"(path implies one of each per step: {MAIN_STEPS})")
+    check(r["launches"] == (MAIN_STEPS, MAIN_STEPS), f"launches {r['launches']}")
+    ms = r["seconds"] * 1e3 / MAIN_STEPS
+    print(f"  {ms:.4f} ms/step, {13 * (DELTA + 1) * MAIN_STEPS / r['seconds']:.1f} candidate "
+          f"genomes/s (13 x 5 per step; first run)")
+    r2 = scale_main_run(sc)
+    same = all(torch.equal(a, b) for a, b in zip(r["cur"], r2["cur"])) and \
+        torch.equal(r["l_t"], r2["l_t"]) and \
+        all(torch.equal(a, b) for a, b in zip(r["out"], r2["out"]))
+    check(same, "a second run with the same seed gave a different result")
+    ms2 = r2["seconds"] * 1e3 / MAIN_STEPS
+    print(f"  second run with the same seed: identical; {ms2:.4f} ms/step, "
+          f"{13 * (DELTA + 1) * MAIN_STEPS / r2['seconds']:.1f} candidate genomes/s")
+    return r["launches"]
+
+
+def phase_runner(sc, n_cycles=2, steps=512):
+    import torch
+    from graal_tpu_torch.scale import ScaleRunner
+
+    print(f"ScaleRunner.run: {n_cycles} cycles x {steps} extremity-first steps, "
+          f"f_max_min 256, nuisance sampling on")
+    # a fresh runner (same neighbour table): its kernel counts are this run's
+    runner = ScaleRunner(sc["table"], sc["sobs"], sc["params"], nb=sc["runner"].nb)
+    l0 = runner.anchor_fn()(sc["shuf"], sc["params"]).item()
+    t0 = time.perf_counter()
+    final, params, m = runner.run(sc["shuf"], n_cycles=n_cycles, steps_per_cycle=steps,
+                                  order_mode="extremity", f_max_min=256, sample_param=True,
+                                  init_truth=sc["truth"], seed=SEED + 1)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    print(f"  likelihood {l0:.3f} -> {m['likelihood']}, n_contigs "
+          f"{int(sc['shuf'].n_contigs())} -> {m['n_contigs']}, tiers {m['tiers']}, "
+          f"overflow {m['overflow']}, dist_init_genome {m['dist_init_genome']}")
+    print(f"  params fact {m['fact']}, slope {m['slope']}, d_max {m['d_max']}, "
+          f"v_inter {m['v_inter']}")
+    print(f"  launches: ll_mini {runner.mini_grid.n_launches}, obsgrid "
+          f"{runner.obs_grid.n_launches}; {seconds:.1f} s in all")
+    check(m["likelihood"][-1] > l0, f"likelihood did not rise: {l0} -> {m['likelihood']}")
+    check(runner.mini_grid.n_launches > 0 and runner.obs_grid.n_launches > 0,
+          "the runner launched no delta kernel")
+    check(all(abs(x) < float("inf") for x in m["likelihood"]), "non-finite likelihood")
+    del final, params
+
+
 def main():
     device = phase_device()
     import torch
 
     phase_build()
-    timing = phase_kernel(device)
-    launches = phase_main(device)
+    dense = phase_kernel(device)
+    dense_launches = phase_main(device)
+    sc = scale_setup(device)
+    delta_timing = phase_delta_kernels(device, sc)
+    phase_exactness(device)
+    mini_launches, obs_launches = phase_scale_main(sc)
+    phase_runner(sc)
     line = gpu_line()
-    kernels = {"kernels": [{
-        "name": "ll_dense",
-        "route": "cuda",
-        "source": "graal_tpu_torch/csrc/ll_dense.cu",
-        "replaces": "graal_tpu/ops/likelihood_pallas.py:65",
-        "launches": launches,
-        "max_abs_err": timing["max_abs_err"],
-        "ms": timing["ms"],
-        "plain_ms": timing["plain_ms"],
-    }]}
+    kernels = {"kernels": [
+        dict(name="ll_dense", route="cuda", source="graal_tpu_torch/csrc/ll_dense.cu",
+             replaces="graal_tpu/ops/likelihood_pallas.py:65", launches=dense_launches,
+             **dense),
+        dict(name="ll_mini", route="cuda", source="graal_tpu_torch/csrc/ll_mini.cu",
+             replaces="graal_tpu/ops/likelihood_pallas.py:340", launches=mini_launches,
+             **delta_timing["ll_mini"]),
+        dict(name="obsgrid", route="cuda", source="graal_tpu_torch/csrc/obsgrid.cu",
+             replaces="graal_tpu/ops/obsgrid_pallas.py:52", launches=obs_launches,
+             **delta_timing["obsgrid"]),
+    ]}
     print(line)
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {

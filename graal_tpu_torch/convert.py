@@ -1,7 +1,7 @@
 """Carry objects between the JAX package and this one, through numpy.
 
 The JAX package's NamedTuples (``GenomeState``, ``SubFragTable``,
-``RippeParams``, ``NeighbourTable``) are passed here as numpy-convertible
+``RippeParams``, ``NeighbourTable``, ``SparseObs``) are passed here as numpy-convertible
 fields (``obj._asdict()`` of the JAX object works, since ``np.asarray``
 reads a JAX array); the result is the port's object on ``device``.
 :func:`to_numpy` goes the other way. Nothing here imports JAX.
@@ -14,6 +14,7 @@ import torch
 
 from graal_tpu_torch.core.mcmc import NeighbourTable
 from graal_tpu_torch.core.model import RippeParams
+from graal_tpu_torch.core.sparse import SparseObs
 from graal_tpu_torch.core.state import GenomeState
 from graal_tpu_torch.core.subfrags import SubFragTable
 
@@ -66,6 +67,20 @@ def neighbour_table_from_numpy(d, device=None) -> NeighbourTable:
         blacklist=torch.as_tensor(np.asarray(d["blacklist"]).astype(bool),
                                   device=device),
         n_bins=int(d["n_bins"]), max_copies=int(d["max_copies"]))
+
+
+def sparse_from_numpy(d, device=None) -> SparseObs:
+    """SparseObs from a mapping of the JAX ``SparseObs`` fields; its
+    TPU-only ``packed`` window storage is dropped."""
+    d = _fields(d)
+
+    def t(f, dt):
+        return torch.as_tensor(np.asarray(d[f]).astype(dt), device=device)
+
+    return SparseObs(rows=t("rows", np.int32), cols=t("cols", np.int32),
+                     vals=t("vals", np.float32), row_start=t("row_start", np.int64),
+                     row_cap=int(d["row_cap"]), n=int(d["n"]),
+                     logfact_const=float(d["logfact_const"]))
 
 
 def to_numpy(obj) -> dict:

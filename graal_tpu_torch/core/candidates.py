@@ -33,10 +33,14 @@ def build_candidates(state: GenomeState, f_a, f_b: torch.Tensor,
     """Candidate genomes for moving fragment ``f_a`` relative to each of the
     neighbours ``f_b`` (shape ``(m,)``).
 
-    ``state`` is one genome (fields of shape ``(n,)``); ``f_a`` a Python
-    int or 0-d tensor. Returns a state whose fields have shape
+    ``state`` is one genome (fields of shape ``(n,)``) shared by the m
+    neighbours, or one genome per neighbour (``(m, n)``, the delta engine's
+    mini-states); ``f_a`` a Python int, a 0-d tensor or one index per
+    neighbour (``(m,)``). Returns a state whose fields have shape
     ``(m, 13, n)``. ``max_id``: the maximum contig id in use (defaults to
-    the state's own maximum).
+    the state's own maximum; pass the whole genome's maximum when ``state``
+    holds mini-states, so that fresh contig ids never collide with contigs
+    outside the view).
     """
     m = f_b.shape[0]
     n = state.n_frags
@@ -45,12 +49,12 @@ def build_candidates(state: GenomeState, f_a, f_b: torch.Tensor,
     # int64 indices once, rather than a cast at every field gather
     f_b = f_b.long()
     if isinstance(f_a, torch.Tensor):
-        fa = f_a.to(dev).long().reshape(()).expand(m)
+        fa = f_a.to(dev).long().reshape(-1).expand(m)
     else:
         fa = torch.full((m,), f_a, dtype=torch.int64, device=dev)
     if max_id is None:
         max_id = state.id_c.amax()
-    max_id = torch.as_tensor(max_id, device=dev).expand(m)
+    max_id = torch.as_tensor(max_id, dtype=state.id_c.dtype, device=dev).expand(m)
     popped = ops.pop_out(batch, fa, max_id)
     m2 = torch.maximum(popped.id_c.amax(-1), max_id)
 

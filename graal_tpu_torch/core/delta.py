@@ -1,0 +1,524 @@
+"""Incremental (delta) candidate scoring on the affected-contig mini-state.
+
+PyTorch counterpart of ``graal_tpu.core.delta``. Let D be the fragments of
+contig(fA) and contig(fB) in the base genome. Every candidate mutation
+only relabels fragments inside D, so a pair with one end outside D is
+trans in both genomes with an unchanged expectation: only pairs within
+D x D change, and
+
+    dL = sum over pairs u < v in D of [g_cand(u, v) - g_base(u, v)]
+
+with g the Poisson log-pmf (its log(ob!) term cancels). That is O(|D|^2)
+per candidate, independent of the genome size.
+
+A step gathers the <= f_max member fragments of the m neighbours' contig
+pairs into mini-states (one per neighbour), applies the 13 mutations to
+each, scores base + 13 candidates on the neighbour's sub-row grid, and
+writes the winner back. Candidates whose contigs exceed ``f_max`` are
+excluded from selection through the validity mask; callers grow f_max
+between cycles as contigs coalesce.
+
+Two kernels carry the step on the card, each behind a wrapper that runs
+its plain torch version on CPU tensors:
+
+- the window obs grid (:class:`graal_tpu_torch.ops.obsgrid_cuda.WindowObsGrid`):
+  the D rows' CSR windows made dense over the D sub rows;
+- the mini-grid scorer (:class:`graal_tpu_torch.ops.mini_grid_cuda.MiniGridScorer`):
+  the observed term and the expected mass of the 14 genomes per
+  neighbour, with the deltas taken in f64.
+
+The circular / linear specialisation of the JAX package (a ``lax.cond`` on
+a device flag) is not a branch here: the kernel branches per cell and the
+plain version evaluates the circular-aware formula, which equals the
+linear one on a linear row. Nothing in a step reads a device value on the
+host. Repeat tables raise ``NotImplementedError`` (ROADMAP A10).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from graal_tpu_torch.core.candidates import N_CANDIDATES, build_candidates
+from graal_tpu_torch.core.mcmc import (THRESH_OVERFLOW, StepDraws, _take,
+                                       draw_step_inputs, sample_neighbours,
+                                       select_score_slot)
+from graal_tpu_torch.core.model import RippeParams
+from graal_tpu_torch.core.sparse import SparseObs, lexsort2
+from graal_tpu_torch.core.state import MUTABLE_FIELDS, GenomeState
+from graal_tpu_torch.core.subfrags import SubFragTable
+from graal_tpu_torch.ops import mini_grid_cuda
+from graal_tpu_torch.ops.likelihood_cuda import params_vector
+from graal_tpu_torch.ops.mini_grid_cuda import MiniGridScorer, log_cis_plain
+from graal_tpu_torch.ops.obsgrid_cuda import WindowObsGrid
+
+_NO_REPEATS = ("the delta engine of repeat (copy-expanded) tables is not "
+               "ported yet (ROADMAP A10, core/delta_repeats.py)")
+
+
+class MiniTable(NamedTuple):
+    """Static fragment -> sub-fragment row ranges of a repeat-free table."""
+
+    sub_start: torch.Tensor   # (n_frags,) int64: first sub row of fragment f
+    sub_count: torch.Tensor   # (n_frags,) int64: number of subs (<= 3)
+    s_max: int                # max subs per fragment
+    n_frags: int
+
+
+def build_mini_table(table: SubFragTable, allow_repeats: bool = False) -> MiniTable:
+    """Per-fragment sub ranges (owner rows are in fragment order, so the
+    ranges are contiguous). ``allow_repeats`` opts in to copy-expanded
+    tables, which only a repeat-aware scorer may score."""
+    if table.has_repeats and not allow_repeats:
+        raise ValueError("plain delta scoring requires a repeat-free table")
+    owner = table.owner.cpu().numpy()
+    if np.any(np.diff(owner) < 0):
+        raise ValueError("owner rows must be sorted")
+    n_frags = int(owner.max()) + 1 if len(owner) else 0
+    counts = np.bincount(owner, minlength=n_frags)
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    dev = table.owner.device
+    return MiniTable(sub_start=torch.as_tensor(starts, dtype=torch.int64, device=dev),
+                     sub_count=torch.as_tensor(counts, dtype=torch.int64, device=dev),
+                     s_max=int(counts.max()) if len(counts) else 1, n_frags=n_frags)
+
+
+def _member_key(member, n):
+    """Sort key putting members first, in ascending index order."""
+    idx = torch.arange(n, device=member.device)
+    return torch.where(member, 2 * n - idx, -idx - 1)
+
+
+def extract_rows(state: GenomeState, f_a, f_b, f_max: int):
+    """Member fragments of contig(fA) u contig(fB), padded to ``f_max``.
+
+    Returns (rows (f_max,) int64, valid (f_max,), overflow ()) with the valid
+    member rows forming an ascending prefix."""
+    dev = state.pos.device
+    c_a = _take(state.id_c, torch.as_tensor(f_a, device=dev))
+    c_b = _take(state.id_c, torch.as_tensor(f_b, device=dev))
+    member = (state.id_c == c_a) | (state.id_c == c_b)
+    overflow = member.sum() > f_max
+    rows = torch.topk(_member_key(member, state.n_frags), f_max, sorted=True).indices
+    return rows, member[rows], overflow
+
+
+def extract_rows_union(state: GenomeState, f_a, ids, f_max: int):
+    """Member rows of every neighbour through one genome-length top-k.
+
+    All m neighbours share contig(fA), so the union of the m + 1 contigs'
+    members (contigs larger than f_max left out: their pairs overflow
+    anyway) is gathered once, then each neighbour's rows are selected from
+    the union. Returns (rows (m, f_max), valid (m, f_max), overflow (m,))
+    with the member sets and order of :func:`extract_rows`; overflow comes
+    from counted membership."""
+    n = state.n_frags
+    dev = state.pos.device
+    m = ids.shape[0]
+    u_cap = min(n, (m + 1) * f_max)
+    c_a = _take(state.id_c, torch.as_tensor(f_a, device=dev))
+    c_bs = state.id_c[ids.long()]                              # (m,)
+    memb_a = state.id_c == c_a                                 # (n,)
+    raw_memb_b = state.id_c[:, None] == c_bs[None, :]          # (n, m)
+    cnt_a = memb_a.sum()
+    cnt_b = raw_memb_b.sum(0)                                  # (m,)
+    memb_b = raw_memb_b & (cnt_b <= f_max)[None, :]
+    member_u = (memb_a & (cnt_a <= f_max)) | memb_b.any(1)
+    rows_u = torch.topk(_member_key(member_u, n), u_cap, sorted=True).indices
+    valid_u = member_u[rows_u]
+    idc_u = torch.where(valid_u, state.id_c[rows_u], -1)
+    overflow = torch.where(c_bs == c_a, cnt_a, cnt_a + cnt_b) > f_max
+    memb = (idc_u[None, :] == c_a) | (idc_u[None, :] == c_bs[:, None])   # (m, u_cap)
+    uidx = torch.arange(u_cap, device=dev)
+    key = torch.where(memb, 2 * u_cap - uidx, -uidx - 1)
+    sel = torch.topk(key, min(f_max, u_cap), dim=1, sorted=True).indices
+    return rows_u[sel], memb.gather(1, sel), overflow
+
+
+_PAD_FIELDS = dict(pos=0, start_bp=0, l_cont=1, l_cont_bp=1, circ=0, ori=1,
+                   activ=0, rep=0)
+
+
+def gather_mini(state: GenomeState, rows, valid) -> GenomeState:
+    """Gather mini-states at ``rows`` (any leading shape); padding rows
+    become inert inactive singletons with unique negative contig ids. All
+    11 fields ride one gather of a stacked (n, 11) matrix."""
+    f_max = rows.shape[-1]
+    got = torch.stack(list(state), dim=1)[rows]             # (..., f_max, 11)
+    mini = GenomeState(*got.unbind(-1))
+    pad_idc = -(torch.arange(f_max, dtype=torch.int32, device=rows.device) + 2)
+    repl = {"id_c": torch.where(valid, mini.id_c, pad_idc)}
+    for f, fill in _PAD_FIELDS.items():
+        repl[f] = torch.where(valid, getattr(mini, f), fill)
+    return mini._replace(**repl)
+
+
+def scatter_mini(state: GenomeState, mini: GenomeState, rows, valid) -> GenomeState:
+    """Write a mini-state's mutable fields back into the full state through
+    an f_max-element inverse slot map (padding rows target the dropped
+    entry n) and one gather."""
+    n = state.n_frags
+    f_max = rows.shape[0]
+    vrows = torch.where(valid, rows, n)
+    inv = torch.full((n + 1,), -1, dtype=torch.int64, device=rows.device)
+    inv[vrows] = torch.arange(f_max, device=rows.device)
+    inv = inv[:n]
+    in_d = inv >= 0
+    got = torch.stack([getattr(mini, f) for f in MUTABLE_FIELDS], dim=1)[inv.clamp_min(0)]
+    return state._replace(**{f: torch.where(in_d, got[:, k], getattr(state, f))
+                             for k, f in enumerate(MUTABLE_FIELDS)})
+
+
+def effective_band_w(band_w: int | None, table: SubFragTable, f_max: int) -> int | None:
+    """Keep the banded expected-mass path only when the band is at most
+    1/8 of the mini-grid edge; otherwise the dense (R, R) grid is cheaper
+    (None)."""
+    if band_w is None:
+        return None
+    mt = build_mini_table(table, allow_repeats=True)
+    r_max = min(f_max, mt.n_frags) * mt.s_max
+    return band_w if 8 * band_w <= r_max else None
+
+
+class Geometry(NamedTuple):
+    """Per-sub-row vectors of a batch of mini genomes, shape (m, C, R)."""
+
+    mid: torch.Tensor
+    idc: torch.Tensor
+    act: torch.Tensor
+    circ: torch.Tensor
+    stot: torch.Tensor
+
+
+class DeltaScorer:
+    """The per-neighbour delta scorer (``make_delta_scorer``).
+
+    ``scorer(state, f_a, f_b, params, max_id) -> (dll (13,), candidates
+    (13, f_max), rows, valid, overflow)`` scores one neighbour like the JAX
+    ``dscore``; :meth:`score` scores the m neighbours of a step at once.
+    dll is log_likelihood(candidate) - log_likelihood(base) whenever
+    overflow is False.
+
+    ``obs``: dense observed matrix (small problems); ``sobs``: a
+    :class:`SparseObs` (chr1 scale), whose CSR windows are read for the D
+    rows. ``band_w``: when set, the expected mass is the analytic trans mass
+    plus a banded cis correction over the (contig, midpoint)-sorted rows
+    (plain torch; the JAX package has no kernel for it). ``obs_grid`` and
+    ``mini_grid``: the kernel wrappers to launch through (new ones by
+    default), shared by a caller that counts launches.
+    """
+
+    def __init__(self, table: SubFragTable, obs, f_max: int, sobs: SparseObs | None = None,
+                 band_w: int | None = None, obs_grid: WindowObsGrid | None = None,
+                 mini_grid: MiniGridScorer | None = None,
+                 _off_chunk: int | None = None):
+        if table.has_repeats:
+            raise NotImplementedError(_NO_REPEATS)
+        self.mt = build_mini_table(table)
+        self.f_max = min(f_max, self.mt.n_frags)    # top-k cannot exceed the genome
+        self.s_max = self.mt.s_max
+        self.r_max = self.f_max * self.s_max
+        self.k_subs = table.n_subs
+        self.device = table.owner.device
+        self.table = table
+        self.nfpb = float(np.float32(table.n_frags_per_bins))
+        self.log_nfpb = torch.tensor(np.float32(np.log(table.n_frags_per_bins)),
+                                     device=self.device)
+        self.sobs = sobs
+        if sobs is None:
+            self.obs = torch.as_tensor(obs, dtype=torch.float32, device=self.device)
+            self.upper = torch.ones((self.r_max, self.r_max), dtype=torch.bool,
+                                    device=self.device).triu(1)
+        self.obs_grid_kernel = WindowObsGrid() if obs_grid is None else obs_grid
+        self.mini_grid = MiniGridScorer() if mini_grid is None else mini_grid
+        self.band_w = band_w
+        if band_w is not None:
+            self.off_chunk = _off_chunk if _off_chunk is not None else \
+                max(8, min(band_w, (1 << 20) // max(self.r_max, 1)))
+        self.owner_slot = torch.arange(self.f_max, device=self.device) \
+            .repeat_interleave(self.s_max)                       # (R,)
+
+    # ---- the D sub rows and their observed grid ---------------------------
+    def sub_rows(self, rows, valid):
+        """Global sub rows of the mini fragments, (m, R), and their
+        validity."""
+        m = rows.shape[0]
+        start = self.mt.sub_start[rows]                          # (m, f_max)
+        count = self.mt.sub_count[rows]
+        slot = torch.arange(self.s_max, device=rows.device)
+        subs = (start[..., None] + slot).reshape(m, self.r_max)
+        sub_valid = (valid[..., None] & (slot < count[..., None])).reshape(m, self.r_max)
+        return subs, sub_valid
+
+    def windows(self, subs, sub_valid):
+        """CSR windows of the D sub rows: (cols, vals) of shape (m, R, cap),
+        -2 / 0 on unused slots, and the keys (m, R) the columns are matched
+        against (-1 on padding slots)."""
+        sobs = self.sobs
+        nnz = sobs.cols.shape[0]
+        rc = subs.clamp(0, self.k_subs - 1)
+        start = sobs.row_start[rc]
+        end = sobs.row_start[rc + 1]
+        win = start[..., None] + torch.arange(sobs.row_cap, device=subs.device)
+        ok = (win < end[..., None]) & sub_valid[..., None]
+        wc = win.clamp_max(nnz - 1)
+        cols = torch.where(ok, sobs.cols[wc], -2)
+        vals = torch.where(ok, sobs.vals[wc], 0.0)
+        keys = torch.where(sub_valid, subs, -1).int()
+        return cols, vals, keys
+
+    def obs_grid(self, subs, sub_valid):
+        """(m, R, R) strict-upper observed grid of the D sub rows."""
+        if self.sobs is not None:
+            return self.obs_grid_kernel(*self.windows(subs, sub_valid))
+        sc = subs.clamp(0, self.k_subs - 1)
+        ob = self.obs[sc[:, :, None], sc[:, None, :]]
+        ok = self.upper & sub_valid[:, :, None] & sub_valid[:, None, :]
+        return torch.where(ok, ob, 0.0)
+
+    def geometry(self, genomes: GenomeState, subs_c, sub_valid) -> Geometry:
+        """Sub-row vectors (m, C, R) of genomes (m, C, f_max)."""
+        os_ = self.owner_slot
+        t = self.table
+        ori = genomes.ori[..., os_]
+        mid = genomes.start_bp[..., os_].float() / 1000.0 \
+            + torch.where(ori == 1, t.prefix_kb[subs_c][:, None, :],
+                          t.suffix_kb[subs_c][:, None, :]) \
+            + t.len_kb[subs_c][:, None, :] * 0.5
+        return Geometry(
+            mid=mid, idc=genomes.id_c[..., os_],
+            act=(genomes.activ[..., os_] == 1) & sub_valid[:, None, :],
+            circ=genomes.circ[..., os_],
+            stot=genomes.l_cont_bp[..., os_].float() / 1000.0)
+
+    # ---- scoring -----------------------------------------------------------
+    def inputs(self, state: GenomeState, f_a, ids, rows, valid, params: RippeParams,
+               max_id):
+        """The candidates of the m neighbours ``ids`` of ``f_a`` on their
+        member rows (:func:`extract_rows_union`), and what scoring them
+        takes: (candidates (m, 13, f_max), geometry of base + candidates
+        (m, 14, R), observed grid (m, R, R), accu of the sub rows (m, R),
+        kernel parameter vector)."""
+        mini = gather_mini(state, rows, valid)                    # (m, f_max)
+        f_a = torch.as_tensor(f_a, device=rows.device)
+        lf_a = (rows == f_a).int().argmax(-1)
+        lf_b = (rows == ids[:, None]).int().argmax(-1)
+        cands = build_candidates(mini, lf_a, lf_b, max_id=max_id)  # (m, 13, f_max)
+
+        subs, sub_valid = self.sub_rows(rows, valid)
+        subs_c = subs.clamp(0, self.k_subs - 1)
+        full = GenomeState(*[torch.cat([a[:, None], b], 1) for a, b in zip(mini, cands)])
+        geo = self.geometry(full, subs_c, sub_valid)
+        # ob is zeroed on inactive rows / columns: the expected side is
+        # masked through la = -1e9, but an unmasked ob there would add
+        # ob * (-1e9) to every score and the base / candidate difference
+        # would lose all precision. Base activity is the right mask: the
+        # table is repeat-free, so activity is the same in all 14 genomes.
+        act0 = geo.act[:, 0]
+        ob = torch.where(act0[:, :, None] & act0[:, None, :],
+                         self.obs_grid(subs, sub_valid), 0.0)
+        return cands, geo, ob, self.table.accu[subs_c], params_vector(params, self.log_nfpb)
+
+    @staticmethod
+    def mini_grid_args(geo: Geometry, ob, accu_sub, pvec):
+        """The mini-grid kernel's arguments (mid, idc, circ, stot, la, ob,
+        pvec); la is log accu, -1e9 on padding and inactive rows."""
+        la = torch.where(geo.act, torch.log(accu_sub)[:, None, :], -1e9)
+        return (geo.mid.contiguous(), geo.idc.contiguous(), geo.circ.float(),
+                geo.stot.contiguous(), la, ob.contiguous(), pvec)
+
+    def score(self, state: GenomeState, f_a, ids, rows, valid, overflow,
+              params: RippeParams, max_id):
+        """Score the m neighbours ``ids`` of ``f_a`` on their member rows.
+        Returns (dll (m, 13), candidates (m, 13, f_max), rows, valid,
+        overflow)."""
+        cands, geo, ob, accu_sub, pvec = self.inputs(state, f_a, ids, rows, valid,
+                                                     params, max_id)
+        if self.band_w is None:
+            _, dll = self.mini_grid(*self.mini_grid_args(geo, ob, accu_sub, pvec))
+        else:
+            dll = self._banded_dll(geo, ob, accu_sub, params, pvec)
+        return dll, cands, rows, valid, overflow
+
+    def __call__(self, state: GenomeState, f_a, f_b, params: RippeParams, max_id):
+        dev = state.pos.device
+        f_b = torch.as_tensor(f_b, device=dev)
+        rows, valid, overflow = extract_rows(state, f_a, f_b, self.f_max)
+        dll, cands, *_ = self.score(state, f_a, f_b.reshape(1), rows[None], valid[None],
+                                    overflow[None], params, max_id)
+        return dll[0], GenomeState(*[x[0] for x in cands]), rows, valid, overflow
+
+    # ---- banded expected mass (plain torch) --------------------------------
+    def _banded_dll(self, geo: Geometry, ob, accu_sub, params, pvec):
+        """Scores with the expected mass as analytic trans mass + banded cis
+        correction over the (contig, midpoint)-sorted rows; deltas in f64.
+        Slabs are bounded by ``mini_grid_cuda.MAX_CELLS``."""
+        max_cells = mini_grid_cuda.MAX_CELLS
+        m, c, r = geo.mid.shape
+        g = m * c
+        log_v = pvec[5]
+        flat = [x.reshape(g, r) for x in geo]
+        mid, idc, act, circ, stot = flat
+        nbr = torch.arange(m, device=mid.device).repeat_interleave(c)
+        accu_g = accu_sub[nbr]                                      # (g, r)
+        log_a = torch.log(accu_g)
+        # observed term: sum over u < v of ob * log e (ob is strict upper)
+        chunk = max(1, max_cells // (r * r))
+        obs_terms = []
+        for g0 in range(0, g, chunk):
+            sl = slice(g0, g0 + chunk)
+            s = torch.abs(mid[sl, :, None] - mid[sl, None, :])
+            same = idc[sl, :, None] == idc[sl, None, :]
+            log_e = torch.where(same, log_cis_plain(s, (circ[sl] == 1)[:, :, None],
+                                                    stot[sl, :, None], pvec), log_v) \
+                + ((log_a[sl, :, None] + log_a[sl, None, :]) - pvec[9])
+            pair = act[sl, :, None] & act[sl, None, :]
+            obs_terms.append(torch.where(pair, ob[nbr[sl]] * log_e, 0.0)
+                             .sum(dim=(1, 2), dtype=torch.float64))
+        w = torch.cat(obs_terms)
+
+        # expected mass: analytic trans + banded cis correction
+        a = torch.where(act, accu_g, 0.0)
+        a64 = a.double()
+        sa = a64.sum(-1)
+        mass = params.v_inter.double() * (sa * sa - (a64 * a64).sum(-1)) * 0.5 / self.nfpb
+        order = lexsort2(idc, mid)
+        mid_s, idc_s, circ_s, stot_s, a_s = [x.gather(-1, order) for x in (mid, idc, circ, stot, a)]
+        rows_i = torch.arange(r, device=mid.device)[:, None]
+        off_chunk = max(1, min(self.off_chunk, max_cells // max(g * r, 1)))
+        corr = torch.zeros(g, dtype=torch.float64, device=mid.device)
+        for off0 in range(1, self.band_w + 1, off_chunk):
+            offs = torch.arange(off0, min(off0 + off_chunk, self.band_w + 1), device=mid.device)
+            j = rows_i + offs[None, :]
+            jc = j.clamp_max(r - 1)
+            s = torch.abs(mid_s[:, :, None] - mid_s[:, jc])
+            same = (idc_s[:, :, None] == idc_s[:, jc]) & (j < r)
+            na = a_s[:, :, None] * a_s[:, jc] / self.nfpb
+            log_cis = log_cis_plain(s, (circ_s == 1)[:, :, None], stot_s[:, :, None], pvec)
+            cis = torch.where(same, torch.clamp_min(torch.exp(log_cis) - params.v_inter, 0.0),
+                              0.0) * na
+            corr = corr + cis.sum(dim=(1, 2), dtype=torch.float64)
+        tot = (w - (mass + corr)).reshape(m, c)
+        return (tot[:, 1:] - tot[:, :1]).float()
+
+
+def make_delta_scorer(table: SubFragTable, obs, f_max: int, sobs=None,
+                      band_w: int | None = None, obs_grid=None, mini_grid=None,
+                      _off_chunk: int | None = None) -> DeltaScorer:
+    """Build the per-neighbour delta scorer (see :class:`DeltaScorer`).
+    ``band_w`` is honoured literally; production entries apply
+    :func:`effective_band_w` first."""
+    return DeltaScorer(table, obs, f_max, sobs=sobs, band_w=band_w, obs_grid=obs_grid,
+                       mini_grid=mini_grid, _off_chunk=_off_chunk)
+
+
+def make_delta_em_step(table: SubFragTable, obs, nb, delta: int, f_max: int,
+                       sobs=None, band_w: int | None = None,
+                       thresh_overflow: float | None = None,
+                       obs_grid=None, mini_grid=None):
+    """EM step with delta scoring (the selection filter is shift-invariant,
+    so deltas select like absolute scores). Returns
+    ``step(state, rng, params, l_t, f_a, f_t) -> (state, l_t + dL,
+    (op, fb, n_overflow))`` where ``rng`` is a Generator or one step's
+    :class:`StepDraws` (its ``u_nb`` and ``gumbel`` are used). When every
+    selectable slot overflows, or fA is blacklisted, the step is a no-op
+    with op -1."""
+    if table.has_repeats:
+        raise NotImplementedError(_NO_REPEATS)
+    if thresh_overflow is None:
+        thresh_overflow = THRESH_OVERFLOW
+    scorer = make_delta_scorer(table, obs, f_max, sobs=sobs,
+                               band_w=effective_band_w(band_w, table, f_max),
+                               obs_grid=obs_grid, mini_grid=mini_grid)
+
+    def step(state: GenomeState, rng, params: RippeParams, l_t, f_a, f_t):
+        if isinstance(rng, torch.Generator):
+            rng = draw_step_inputs(rng, nb, delta)
+        dev = state.pos.device
+        f_a = torch.as_tensor(f_a, device=dev)
+        ids, valid = sample_neighbours(rng.u_nb, f_a, state, nb, delta)
+        max_id = state.id_c.amax()
+        rows_b, valid_b, over_b = extract_rows_union(state, f_a, ids, scorer.f_max)
+        dll, minis, rows, rows_valid, overflow = scorer.score(
+            state, f_a, ids, rows_b, valid_b, over_b, params, max_id)
+        m = ids.shape[0]
+        slot_ok = (~overflow)[:, None].expand(m, N_CANDIDATES)
+        sel = select_score_slot(rng.gumbel, dll, valid, f_t, slot_valid=slot_ok,
+                                thresh_overflow=thresh_overflow)
+        sel_nb = sel // N_CANDIDATES
+        sel_op = sel % N_CANDIDATES
+        sel_mini = GenomeState(*[_take(x.reshape(m * N_CANDIDATES, -1), sel) for x in minis])
+        new_state = scatter_mini(state, sel_mini, _take(rows, sel_nb), _take(rows_valid, sel_nb))
+
+        # no-op when every selectable slot overflows
+        op_idx = torch.arange(N_CANDIDATES, device=dev)[None, :]
+        nb_idx = torch.arange(m, device=dev)[:, None]
+        base_ok = (valid[:, None] | ((nb_idx == 0) & (op_idx < 2))) \
+            & ~((op_idx < 2) & (nb_idx > 0))
+        skip = _take(nb.blacklist, f_a) | ~(base_ok & slot_ok).any()
+        new_state = GenomeState(*[torch.where(skip, a, b) for a, b in zip(state, new_state)])
+        d_sel = torch.where(skip, 0.0, _take(dll.reshape(-1), sel))
+        return new_state, l_t + d_sel, (torch.where(skip, -1, sel_op),
+                                        torch.where(skip, f_a, _take(ids, sel_nb)),
+                                        overflow.sum())
+
+    return step
+
+
+def make_delta_em_cycle(table: SubFragTable, obs, nb, delta: int, f_max: int,
+                        sobs=None, anchor_fn=None, band_w: int | None = None,
+                        thresh_overflow: float | None = None,
+                        obs_grid=None, mini_grid=None):
+    """A delta-scored EM cycle (a Python loop of steps) with a final full
+    re-anchoring of the likelihood.
+
+    Returns ``cycle(state, rng, params, frag_order, l_t, f_t) -> (state,
+    l_anchor, (lls, ops, fbs, overs, ncs))`` with per-step metric tensors;
+    ``rng`` is a Generator or :class:`StepDraws` with a leading axis of
+    len(frag_order).
+
+    ``anchor_fn(state, params) -> 0-d``: the full evaluation that re-anchors
+    l_t; None uses the dense likelihood of ``obs``; False skips the
+    re-anchor (chunked callers anchor once per cycle).
+
+    The carry is Kahan-compensated: each step runs with l_t = 0 and returns
+    its raw increment, summed here in a two-f32 compensated sum (a plain f32
+    carry quantises every add to the ulp of |L|).
+    """
+    step = make_delta_em_step(table, obs, nb, delta, f_max, sobs=sobs, band_w=band_w,
+                              thresh_overflow=thresh_overflow, obs_grid=obs_grid,
+                              mini_grid=mini_grid)
+    if anchor_fn is None:
+        from graal_tpu_torch.core.likelihood import log_likelihood
+
+        obs_t = torch.as_tensor(obs, dtype=torch.float32, device=table.owner.device)
+
+        def anchor_fn(state, params):
+            return log_likelihood(state, table, obs_t, params)
+
+    def cycle(state: GenomeState, rng, params: RippeParams, frag_order, l_t, f_t):
+        dev = state.pos.device
+        frag_order = torch.as_tensor(frag_order, device=dev).long()
+        n_steps = frag_order.shape[0]
+        if isinstance(rng, torch.Generator):
+            rng = draw_step_inputs(rng, nb, delta, (n_steps,))
+        zero = torch.zeros((), dtype=torch.float32, device=dev)
+        l_hi = torch.as_tensor(l_t, dtype=torch.float32, device=dev)
+        l_c = zero
+        rows = []
+        for i in range(n_steps):
+            draws = StepDraws(*[None if x is None else x[i] for x in rng])
+            state, d_sel, (op, fb, n_over) = step(state, draws, params, zero,
+                                                  frag_order[i], f_t)
+            y = d_sel - l_c
+            t = l_hi + y
+            l_c = (t - l_hi) - y
+            l_hi = t
+            rows.append((l_hi, op, fb, n_over, state.n_contigs()))
+        outs = tuple(torch.stack(col) for col in zip(*rows))
+        l_anchor = l_hi if anchor_fn is False else anchor_fn(state, params)
+        return state, l_anchor, outs
+
+    return cycle

@@ -30,6 +30,11 @@ import numpy as np
 import torch
 
 
+# Fields a mutation may change; the others are fixed per fragment.
+MUTABLE_FIELDS = ("pos", "id_c", "start_bp", "circ", "l_cont", "l_cont_bp",
+                  "ori", "activ")
+
+
 class GenomeState(NamedTuple):
     pos: torch.Tensor
     id_c: torch.Tensor

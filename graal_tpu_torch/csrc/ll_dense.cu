@@ -41,7 +41,8 @@
 //    position in the batch.
 
 #include <cuda_runtime.h>
-#include <math.h>
+
+#include "scorer_common.cuh"
 
 namespace {
 
@@ -51,24 +52,6 @@ constexpr int ROW_GROUPS = THREADS / TILE;            // 4
 constexpr int ROWS_PER_THREAD = TILE / ROW_GROUPS;    // 16
 constexpr int CAND_CHUNK = 13;      // candidates per block (EM batches are 13 m)
 constexpr int REDUCE_THREADS = 256;
-
-// params vector layout (params_vector in ops/likelihood_cuda.py)
-enum {
-  P_LOG_C1FACT = 0, P_SLOPE, P_D, P_D_MAX, P_LMK, P_LOG_V, P_V_INTER,
-  P_LOG_NORM_CIRC, P_LOG_K3FACT, P_LOG_NFPB, N_PARAMS
-};
-
-__device__ __forceinline__ void tile_coords(int t, int n_rb, int* bi, int* bj) {
-  // row-major enumeration of the upper-triangle tiles (i <= j)
-  int i = 0;
-  int rem = t;
-  while (rem >= n_rb - i) {
-    rem -= n_rb - i;
-    ++i;
-  }
-  *bi = i;
-  *bj = i + rem;
-}
 
 __global__ void __launch_bounds__(THREADS)
 ll_dense_tiles(const float* __restrict__ mid,    // (B, K) sub-frag midpoints (kb)
@@ -99,15 +82,7 @@ ll_dense_tiles(const float* __restrict__ mid,    // (B, K) sub-frag midpoints (k
   const int col_g = j0 + col;
   const bool col_ok = col_g < K;
 
-  const float log_c1fact = pvec[P_LOG_C1FACT];
-  const float slope = pvec[P_SLOPE];
-  const float d = pvec[P_D];
-  const float d_max = pvec[P_D_MAX];
-  const float lmk = pvec[P_LMK];
-  const float log_v = pvec[P_LOG_V];
-  const float log_norm_circ = pvec[P_LOG_NORM_CIRC];
-  const float log_k3fact = pvec[P_LOG_K3FACT];
-  const float log_nfpb = pvec[P_LOG_NFPB];
+  const RippeCell p(pvec);
 
   // the obs tile and the (genome-independent) log accu rows, once per block
   for (int e = tid; e < TILE * TILE; e += THREADS) {
@@ -143,27 +118,10 @@ ll_dense_tiles(const float* __restrict__ mid,    // (B, K) sub-frag midpoints (k
       const int r = rg + ROW_GROUPS * k;
       const int row_g = i0 + r;
       if (!(col_g > row_g && row_g < K && col_ok)) continue;
-      const float la_pair = (s_la[r] + la_c) - log_nfpb;
-      float log_e0 = log_v;
-      if (s_idc[r] == idc_c) {
-        const float s = fabsf(s_mid[r] - mc);
-        const float safe_s = fmaxf(s, 1e-9f);
-        const float n_lin = safe_s * lmk;
-        const float log_lin = log_c1fact + slope * logf(safe_s)
-                              + (d - 2.0f) / (n_lin * n_lin + d);
-        const bool in_range = (s > 0.0f) && (s < d_max);
-        float log_cis = log_lin;
-        if (s_circ[r] == 1.0f) {
-          const float st = s_stot[r];
-          const float n_circ = lmk * safe_s * fmaxf(st - s, 1e-9f) / fmaxf(st, 1e-9f);
-          const float log_val_circ = log_k3fact + slope * logf(n_circ)
-                                     + (d - 2.0f) / (n_circ * n_circ + d);
-          // the reference normalises by the *clamped* linear value
-          const float log_norm_lin = in_range ? fmaxf(log_lin, log_v) : log_v;
-          log_cis = log_val_circ + log_norm_lin - log_norm_circ;
-        }
-        log_e0 = in_range ? fmaxf(log_cis, log_v) : log_v;
-      }
+      const float la_pair = (s_la[r] + la_c) - p.log_nfpb;
+      const float log_e0 = (s_idc[r] == idc_c)
+          ? p.log_cis(fabsf(s_mid[r] - mc), s_circ[r] == 1.0f, s_stot[r])
+          : p.log_v;
       const float log_e = log_e0 + la_pair;
       acc += s_obs[r][col] * log_e - expf(log_e);
     }

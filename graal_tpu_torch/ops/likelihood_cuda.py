@@ -8,10 +8,9 @@ with the same log-space Rippe math and the genome-independent
 ``graal_tpu_torch/csrc/ll_dense.cu``; its header comment says what bounds
 it on the card and how the design answers that.
 
-Build: at first use, ``nvcc`` compiles the source for ``sm_90a`` into
-``build/graal_tpu_torch/libll_dense-<sha16>.so`` under the checkout (keyed
-by a hash of the source and flags, written by atomic rename), loaded with
-``ctypes``. A missing ``nvcc`` or a failed build raises.
+Build: at first use, ``nvcc`` compiles the source for ``sm_90a`` and it is
+loaded with ``ctypes`` (:mod:`graal_tpu_torch.ops.build`). A missing
+``nvcc`` or a failed build raises.
 
 Dispatch: :func:`make_dense_scorer` returns a :class:`DenseScorer`. On
 CUDA tensors it launches the kernel (or raises); on CPU tensors it runs
@@ -22,12 +21,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
 import math
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import numpy as np
 import torch
@@ -35,11 +29,8 @@ import torch
 from graal_tpu_torch.core.model import RippeParams
 from graal_tpu_torch.core.state import GenomeState
 from graal_tpu_torch.core.subfrags import SubFragTable
+from graal_tpu_torch.ops import build
 
-SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "ll_dense.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "graal_tpu_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 N_PARAMS = 10
 
 
@@ -62,43 +53,17 @@ def obs_constant(obs) -> float:
     return float(out.sum())
 
 
-def _find_nvcc() -> str:
-    nvcc = shutil.which("nvcc")
-    if nvcc is None:
-        home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-        cand = Path(home) / "bin" / "nvcc"
-        nvcc = str(cand) if cand.exists() else None
-    if nvcc is None:
-        raise RuntimeError("nvcc not found (PATH, CUDA_HOME, /usr/local/cuda): "
-                           "cannot build the ll_dense CUDA kernel")
-    return nvcc
-
-
 @functools.cache
 def load_library():
-    """Build (if needed) and load the kernel library. Returns (lib, path);
-    the compiler's output (registers, spills) is kept beside it as .log."""
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    so = BUILD_DIR / f"libll_dense-{tag}.so"
-    if not so.exists():
-        nvcc = _find_nvcc()
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-        r = subprocess.run(cmd, capture_output=True, text=True)
-        if r.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stderr}")
-        so.with_suffix(".log").write_text(r.stdout + r.stderr)
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
+    """The kernel library (built at first use), its C functions typed."""
+    lib = build.load("ll_dense")
     ptr = ctypes.c_void_p
     lib.ll_dense_n_tiles.argtypes = [ctypes.c_int]
     lib.ll_dense_n_tiles.restype = ctypes.c_int
     lib.ll_dense_score.argtypes = [ptr] * 9 + [ctypes.c_int, ctypes.c_int,
                                                ctypes.c_double, ptr]
     lib.ll_dense_score.restype = ctypes.c_int
-    return lib, so
+    return lib
 
 
 def params_vector(p: RippeParams, log_nfpb: torch.Tensor) -> torch.Tensor:
@@ -223,7 +188,7 @@ class DenseScorer:
                 raise ValueError(f"{name}: need shape {(B, K)}, got {tuple(x.shape)}")
         if pvec.shape != (N_PARAMS,):
             raise ValueError(f"pvec: need shape ({N_PARAMS},), got {tuple(pvec.shape)}")
-        lib, _ = load_library()
+        lib = load_library()
         partial = torch.empty((B, lib.ll_dense_n_tiles(K)), dtype=torch.float32,
                               device=self.device)
         out = torch.empty(B, dtype=torch.float32, device=self.device)

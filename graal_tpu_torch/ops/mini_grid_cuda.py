@@ -1,0 +1,151 @@
+"""Mini-grid candidate scorer of the delta engine: a hand-written CUDA
+kernel for Hopper.
+
+The port of the Pallas kernel ``make_mini_grid_scorer`` / ``_mini_kernel``
+(graal_tpu/ops/likelihood_pallas.py): M neighbour slots, each with C
+genomes (the base mini-state and its 13 candidates) on its own R x R
+sub-row grid,
+
+    score[m, c] = sum_{u<v} ob[m,u,v] * log_e - exp(log_e)
+    log_e = (same contig ? log_cis : log v_inter) + la_u + la_v - log nfpb
+
+and the deltas dll[m, c-1] = score[m, c] - score[m, 0] taken in f64. The
+kernel source is ``graal_tpu_torch/csrc/ll_mini.cu``; its header says what
+bounds it on the card and how the design answers that.
+
+Dispatch is by device: on CUDA tensors :class:`MiniGridScorer` launches the
+kernel (or raises); on CPU tensors it runs :func:`mini_grid_plain`, the
+same per-cell math in plain torch (the circular-aware formula on every
+row, which equals the linear one on a linear row).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+
+import torch
+
+from graal_tpu_torch.ops import build
+from graal_tpu_torch.ops.likelihood_cuda import N_PARAMS
+
+# Working-set bound of the plain versions: the mini-grid scorer takes its
+# genomes, and the banded mass of core/delta.py its genomes and band
+# offsets, in chunks of about this many cells.
+MAX_CELLS = 1 << 24
+
+@functools.cache
+def load_library():
+    """The kernel library (built at first use), its C functions typed."""
+    lib = build.load("ll_mini")
+    ptr = ctypes.c_void_p
+    lib.ll_mini_n_tiles.argtypes = [ctypes.c_int]
+    lib.ll_mini_n_tiles.restype = ctypes.c_int
+    lib.ll_mini_max_candidates.argtypes = []
+    lib.ll_mini_max_candidates.restype = ctypes.c_int
+    lib.ll_mini_score.argtypes = [ptr] * 10 + [ctypes.c_int] * 3 + [ptr]
+    lib.ll_mini_score.restype = ctypes.c_int
+    return lib
+
+
+def log_cis_plain(s, circ_row, stot, pvec):
+    """The kernel's per-cell log expectation of a same-contig pair (before
+    the accumulation term): circular formula on circular rows, clamped
+    below by log v_inter, log v_inter outside (0, d_max)."""
+    (log_c1fact, slope, d, d_max, lmk, log_v, _v_inter, log_norm_circ,
+     log_k3fact, _log_nfpb) = pvec.unbind()
+    safe_s = torch.clamp_min(s, 1e-9)
+    n_lin = safe_s * lmk
+    log_lin = log_c1fact + slope * torch.log(safe_s) + (d - 2.0) / (n_lin * n_lin + d)
+    in_range = (s > 0.0) & (s < d_max)
+    n_circ = lmk * safe_s * torch.clamp_min(stot - s, 1e-9) / torch.clamp_min(stot, 1e-9)
+    log_val_circ = log_k3fact + slope * torch.log(n_circ) + (d - 2.0) / (n_circ * n_circ + d)
+    log_norm_lin = torch.where(in_range, torch.maximum(log_lin, log_v), log_v)
+    log_cis = torch.where(circ_row, log_val_circ + log_norm_lin - log_norm_circ, log_lin)
+    log_cis = torch.where(in_range, log_cis, -math.inf)
+    return torch.maximum(log_cis, log_v)
+
+
+def mini_grid_plain(mid, idc, circ, stot, la, ob, pvec):
+    """Plain torch version of the kernel on (M, C, R) vectors and (M, R, R)
+    grids: the same per-cell math over the pairs u < v, each genome's sum
+    taken in f64, genomes in chunks of about ``MAX_CELLS`` pairs. Returns
+    (scores (M, C) f32, dll (M, C - 1) f32)."""
+    m, c, r = mid.shape
+    log_v, log_nfpb = pvec[5], pvec[9]
+    iu, ju = torch.triu_indices(r, r, 1, device=mid.device)
+    ob_pairs = ob[:, iu, ju]                                     # (M, P)
+    flat = [x.reshape(m * c, r) for x in (mid, idc, circ, stot, la)]
+    nbr = torch.arange(m, device=mid.device).repeat_interleave(c)
+    chunk = max(1, MAX_CELLS // max(iu.shape[0], 1))
+    sums = []
+    for g0 in range(0, m * c, chunk):
+        g_mid, g_idc, g_circ, g_stot, g_la = [x[g0:g0 + chunk] for x in flat]
+        s = torch.abs(g_mid[:, iu] - g_mid[:, ju])
+        log_cis = log_cis_plain(s, g_circ[:, iu] == 1, g_stot[:, iu], pvec)
+        log_e = torch.where(g_idc[:, iu] == g_idc[:, ju], log_cis, log_v) \
+            + ((g_la[:, iu] + g_la[:, ju]) - log_nfpb)
+        contrib = ob_pairs[nbr[g0:g0 + chunk]] * log_e - torch.exp(log_e)
+        sums.append(contrib.sum(dim=1, dtype=torch.float64))
+    tot = torch.cat(sums).reshape(m, c)
+    return tot.float(), (tot[:, 1:] - tot[:, :1]).float()
+
+
+class MiniGridScorer:
+    """``score(mid, idc, circ, stot, la, ob, pvec) -> (scores (M, C),
+    dll (M, C - 1))``: ``mid``, ``circ``, ``stot``, ``la`` (M, C, R) f32,
+    ``idc`` (M, C, R) int32, ``ob`` (M, R, R) f32, ``pvec`` the (10,) f32
+    parameter vector of :func:`graal_tpu_torch.ops.likelihood_cuda.params_vector`.
+
+    ``n_launches`` counts the calls that launched the CUDA kernel.
+    """
+
+    def __init__(self):
+        self.n_launches = 0
+
+    def launch(self, mid, idc, circ, stot, la, ob, pvec):
+        """Launch the kernel; (scores, dll) on the inputs' card."""
+        dev = mid.device
+        if dev.type != "cuda":
+            raise ValueError(f"the CUDA kernel needs CUDA tensors, not {dev}")
+        if mid.dim() != 3:
+            raise ValueError(f"mid: need (M, C, R), got {tuple(mid.shape)}")
+        m, c, r = mid.shape
+        for name, x, dt, shape in (("mid", mid, torch.float32, (m, c, r)),
+                                   ("idc", idc, torch.int32, (m, c, r)),
+                                   ("circ", circ, torch.float32, (m, c, r)),
+                                   ("stot", stot, torch.float32, (m, c, r)),
+                                   ("la", la, torch.float32, (m, c, r)),
+                                   ("ob", ob, torch.float32, (m, r, r)),
+                                   ("pvec", pvec, torch.float32, (N_PARAMS,))):
+            if x.device != dev or x.dtype != dt or not x.is_contiguous():
+                raise ValueError(f"{name}: need contiguous {dt} on {dev}, "
+                                 f"got {x.dtype} on {x.device}")
+            if tuple(x.shape) != shape:
+                raise ValueError(f"{name}: need shape {shape}, got {tuple(x.shape)}")
+        lib = load_library()
+        if c > lib.ll_mini_max_candidates():
+            raise ValueError(f"{c} candidates per neighbour > "
+                             f"{lib.ll_mini_max_candidates()}")
+        partial = torch.empty((m, c, lib.ll_mini_n_tiles(r)), dtype=torch.float32,
+                              device=dev)
+        scores = torch.empty((m, c), dtype=torch.float32, device=dev)
+        dll = torch.empty((m, c - 1), dtype=torch.float32, device=dev)
+        rc = lib.ll_mini_score(
+            mid.data_ptr(), idc.data_ptr(), circ.data_ptr(), stot.data_ptr(),
+            la.data_ptr(), ob.data_ptr(), pvec.data_ptr(), partial.data_ptr(),
+            scores.data_ptr(), dll.data_ptr(), m, c, r,
+            torch.cuda.current_stream(dev).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"ll_mini_score launch failed: cudaError {rc}")
+        self.n_launches += 1
+        return scores, dll
+
+    def plain(self, mid, idc, circ, stot, la, ob, pvec):
+        return mini_grid_plain(mid, idc, circ, stot, la, ob, pvec)
+
+    def __call__(self, mid, idc, circ, stot, la, ob, pvec):
+        if mid.device.type == "cuda":
+            return self.launch(mid, idc, circ, stot, la, ob, pvec)
+        return self.plain(mid, idc, circ, stot, la, ob, pvec)

@@ -1,0 +1,277 @@
+"""Chr1-scale assembly: sparse observed contacts and delta scoring end to end.
+
+PyTorch counterpart of ``graal_tpu.scale`` (``ScaleRunner.run`` and its
+compiled pieces). The observed map stays a :class:`core.sparse.SparseObs`;
+candidates are scored by the mini-state delta engine (:mod:`core.delta`)
+at a contig-capacity bucket ``f_max`` chosen per step from a ladder of
+tiers; the carried likelihood is re-anchored once per cycle by the sparse
+banded full evaluation, which also scores the optional per-cycle
+nuisance-parameter step.
+
+The device work of a chunk of steps is enqueued without a host read; the
+host reads the chunk's operations and overflow counts only between chunks.
+One :class:`WindowObsGrid` and one :class:`MiniGridScorer` serve every
+bucket, so their launch counts cover the whole run.
+
+Not ported here: the multi-device anchor (ROADMAP A12), checkpoint /
+resume and ``from_dataset`` (A7), snapshots and the live view (A13),
+``run_mtm`` / ``run_chains`` and ``run_multilevel`` (A11 / A12), repeat
+tables (A10).
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from graal_tpu_torch.core import delta as delta_mod
+from graal_tpu_torch.core import mcmc, sparse
+from graal_tpu_torch.core.model import RippeParams
+from graal_tpu_torch.core.state import (GenomeState, check_invariants,
+                                        derive_prev_next, dist_inter_genome)
+from graal_tpu_torch.core.subfrags import SubFragTable
+from graal_tpu_torch.ops.mini_grid_cuda import MiniGridScorer
+from graal_tpu_torch.ops.obsgrid_cuda import WindowObsGrid
+
+
+def _next_pow2(x: int) -> int:
+    return 1 << max(int(np.ceil(np.log2(max(x, 1)))), 0)
+
+
+def max_contig_subs(state: GenomeState, table: SubFragTable) -> int:
+    """Largest contig size measured in sub-fragments (host)."""
+    id_c = state.id_c.cpu().numpy()
+    counts = delta_mod.build_mini_table(table, allow_repeats=True).sub_count.cpu().numpy()
+    _, inv = np.unique(id_c, return_inverse=True)
+    return int(np.bincount(inv, weights=counts.astype(np.float64)).max())
+
+
+def contig_frags_per_frag(state: GenomeState) -> np.ndarray:
+    """(n,) fragment count of each fragment's contig (host)."""
+    _, inv = np.unique(state.id_c.cpu().numpy(), return_inverse=True)
+    return np.bincount(inv)[inv]
+
+
+class ScaleRunner:
+    """One configured chr1-scale assembly run on the device of ``table``
+    (``sobs`` and ``params`` live there too)."""
+
+    def __init__(self, table: SubFragTable, sobs: sparse.SparseObs,
+                 params: RippeParams, nb: mcmc.NeighbourTable | None = None,
+                 band_margin: float = 2.0):
+        import scipy.sparse as sp
+
+        if table.has_repeats:
+            raise NotImplementedError("chr1-scale repeat tables are not ported "
+                                      "yet (ROADMAP A10)")
+        self.table = table
+        self.sobs = sobs
+        self.params = params
+        self.device = table.owner.device
+        if nb is None:
+            n = sobs.n
+            m = sp.coo_matrix((sobs.vals.cpu().numpy(),
+                               (sobs.rows.cpu().numpy(), sobs.cols.cpu().numpy())),
+                              shape=(n, n)).tocsr()
+            nb = mcmc.build_neighbour_table(m, np.arange(n), n, device=self.device)
+        self.nb = nb
+        self.w = sparse.band_width(table.len_kb, float(params.d_max), margin=band_margin)
+        # nuisance d_max proposals must stay inside the band coverage; when
+        # the band spans every pair the banded evaluation is exact for any
+        # d_max
+        if self.w >= table.n_subs - 1:
+            self.max_covered_d_max = float("inf")
+        else:
+            self.max_covered_d_max = float(
+                np.sort(table.len_kb.cpu().numpy())[: self.w].sum())
+        self.obs_grid = WindowObsGrid()
+        self.mini_grid = MiniGridScorer()
+        self._anchor = None
+        self._cycles = {}      # (f_max, delta) -> cycle
+        self._nuis = None
+
+    # ---- pieces ------------------------------------------------------------
+    def anchor_fn(self):
+        """Full sparse likelihood ``fn(state, params) -> 0-d f32``."""
+        if self._anchor is None:
+            self._anchor = sparse.make_sparse_loglik(self.table, self.sobs, self.w)
+        return self._anchor
+
+    def scorer(self):
+        """Batched sparse full-likelihood scorer ``(states (B, n), params)
+        -> (B,)`` (the nuisance step's)."""
+        anchor = self.anchor_fn()
+
+        def score(states: GenomeState, params: RippeParams):
+            return torch.stack([anchor(GenomeState(*[x[i] for x in states]), params)
+                                for i in range(states.pos.shape[0])])
+
+        return score
+
+    def cycle_for(self, f_max: int, delta: int):
+        """The delta cycle of bucket ``f_max``, without an internal re-anchor
+        (the runner anchors once per cycle)."""
+        if (f_max, delta) not in self._cycles:
+            self._cycles[(f_max, delta)] = delta_mod.make_delta_em_cycle(
+                self.table, None, self.nb, delta=delta, f_max=f_max, sobs=self.sobs,
+                anchor_fn=False, band_w=self.w, obs_grid=self.obs_grid,
+                mini_grid=self.mini_grid)
+        return self._cycles[(f_max, delta)]
+
+    def nuisance_step(self):
+        if self._nuis is None:
+            self._nuis = mcmc.make_nuisance_step(
+                self.table, None, scorer=self.scorer(),
+                d_max_cap=self.max_covered_d_max)
+        return self._nuis
+
+    # ---- run ---------------------------------------------------------------
+    def run(self, state0: GenomeState, n_cycles: int, delta: int = 4,
+            steps_per_cycle: int | None = None, f_max_min: int = 256,
+            f_max_cap: int = 1 << 14, f_t: float = 1.0,
+            sample_param: bool = False, seed: int = 1, progress: bool = True,
+            init_truth: GenomeState | None = None, chunk_steps: int = 512,
+            order_mode: str = "random"):
+        """Assemble from ``state0``; returns (state, params, metrics).
+
+        ``steps_per_cycle`` caps the fragment steps per cycle (default every
+        fragment once); ``init_truth`` enables the dist_init_genome series.
+        ``order_mode``: which fragments a subsampled cycle visits, "random"
+        (a shuffled sweep truncated) or "extremity" (contig extremities
+        first, shuffled, then interior fragments): repairs happen at
+        extremities.
+
+        Steps run on a ladder of capacity tiers per cycle (f_max_min,
+        2 f_max_min, ... up to the bucket of the biggest contig): each step
+        pays the bucket its own contig needs, and a step that overflowed its
+        tier (the partner's contig was bigger) retries at the top tier.
+        ``chunk_steps`` bounds the steps enqueued between two host reads;
+        the last chunk of a tier wraps around its fragment order.
+
+        Randomness comes from one ``torch.Generator`` seeded with ``seed``
+        on the runner's device: the same seed gives the same run."""
+        if order_mode not in ("random", "extremity"):
+            raise ValueError(f"unknown order_mode {order_mode!r}")
+        n = state0.n_frags
+        dev = self.device
+        steps = steps_per_cycle or n
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        state = state0
+        params = self.params
+        anchor = self.anchor_fn()
+        l_t = anchor(state, params)
+        mt = delta_mod.build_mini_table(self.table, allow_repeats=True)
+        s_max = mt.s_max
+
+        dist_ref = None
+        if init_truth is not None:
+            ip, inx = derive_prev_next(init_truth)
+            id_d = init_truth.id_d.cpu().numpy()
+            ip = np.where(ip != -1, id_d[np.clip(ip, 0, None)], -1)
+            inx = np.where(inx != -1, id_d[np.clip(inx, 0, None)], -1)
+            # single-sub bins carry no orientation signal -> unorientable
+            orientable = mt.sub_count.cpu().numpy() > 1
+            dist_ref = (ip, inx, init_truth.ori.cpu().numpy(), orientable,
+                        np.zeros(n, bool))
+
+        ladder = sorted({c for c in (chunk_steps, 128, 32) if c <= chunk_steps},
+                        reverse=True)
+
+        def run_tier(state, l_t, bucket, order_np):
+            """``order_np`` steps at one bucket, in chunks of the ladder."""
+            cycle = self.cycle_for(bucket, delta)
+            outs = []
+            i = 0
+            while i < len(order_np):
+                rem = len(order_np) - i
+                chunk = next((c for c in ladder if c <= rem), ladder[-1])
+                seg = order_np[i:i + chunk]
+                if len(seg) < chunk:   # wrap-pad the tail
+                    seg = np.concatenate([seg, order_np[: chunk - len(seg)]])
+                state, l_t, out = cycle(state, gen, params,
+                                        torch.as_tensor(seg, device=dev), l_t, f_t)
+                outs.append([x.cpu().numpy() for x in out])   # host read between chunks
+                i += chunk
+            return state, l_t, outs
+
+        metrics = {"likelihood": [], "n_contigs": [], "overflow": [],
+                   "dist_init_genome": [], "f_max": [], "tiers": [], "cycle_s": [],
+                   "fact": [], "slope": [], "d_max": [], "v_inter": []}
+        t0 = time.time()
+        for j in range(n_cycles):
+            big_bucket = _next_pow2(2 * max_contig_subs(state, self.table) + 2 * s_max)
+            big_bucket = int(np.clip(big_bucket, f_max_min, f_max_cap))
+            big_bucket = min(big_bucket, _next_pow2(n))
+            small_bucket = min(f_max_min, big_bucket)
+            perm = torch.randperm(n, generator=gen, device=dev).cpu().numpy()
+            if order_mode == "extremity" and steps < n:
+                pos_np = state.pos.cpu().numpy()
+                lc_np = state.l_cont.cpu().numpy()
+                ext = (state.activ.cpu().numpy() == 1) & (
+                    (pos_np == 0) | (pos_np == lc_np - 1))
+                order = np.concatenate([perm[ext[perm]], perm[~ext[perm]]])[:steps]
+            else:
+                order = perm[:steps]
+            tc = time.time()
+            cfrag = contig_frags_per_frag(state)
+            # per-step tier: the bucket the step's own contig needs (the
+            # partner's contig is budgeted by the same doubling; a true
+            # overflow retries at the top tier below)
+            need = np.clip(2 * cfrag[order] + 2 * s_max + 2, small_bucket, big_bucket)
+            tier_of = np.minimum(
+                np.left_shift(1, np.ceil(np.log2(need)).astype(np.int64)), big_bucket)
+            tiers = sorted(set(tier_of.tolist()))
+            outs = []
+            retry = np.zeros(0, order.dtype)
+            for t_ix, tier in enumerate(tiers):
+                tier_order = order[tier_of == tier]
+                if t_ix == len(tiers) - 1:   # top tier absorbs retries
+                    tier_order = np.concatenate([tier_order, retry])
+                    retry = np.zeros(0, order.dtype)
+                if not len(tier_order):
+                    continue
+                state, l_t, outs_t = run_tier(state, l_t, int(tier), tier_order)
+                outs.extend(outs_t)
+                # fully-overflowed steps (op == -1 with overflow counted) go
+                # around again at the top tier
+                ops_t = np.concatenate([o[1] for o in outs_t])
+                overs_t = np.concatenate([o[3] for o in outs_t])
+                src = tier_order if len(ops_t) == len(tier_order) else \
+                    np.concatenate([tier_order, tier_order[: len(ops_t) - len(tier_order)]])
+                retry = np.concatenate([retry, src[(ops_t == -1) & (overs_t > 0)]])
+            if len(retry):   # retries from the top tier itself
+                state, l_t, outs_r = run_tier(state, l_t, big_bucket, retry)
+                outs.extend(outs_r)
+            overs = np.concatenate([o[3] for o in outs])
+            ncs = np.concatenate([o[4] for o in outs])
+            l_t = anchor(state, params)   # one re-anchor per cycle
+            if sample_param:
+                params, l_t, _ = self.nuisance_step()(state, gen, params, l_t, f_t)
+            l_t_host = float(l_t)
+            cycle_s = time.time() - tc
+            n_over = int(overs.sum())
+            nc = int(ncs[-1])
+            metrics["likelihood"].append(l_t_host)
+            metrics["n_contigs"].append(nc)
+            metrics["overflow"].append(n_over)
+            metrics["f_max"].append(big_bucket)
+            metrics["tiers"].append([int(t) for t in tiers])
+            metrics["cycle_s"].append(cycle_s)
+            for pname in ("fact", "slope", "d_max", "v_inter"):
+                metrics[pname].append(float(getattr(params, pname)))
+            dist = None
+            if dist_ref is not None:
+                dist = dist_inter_genome(state, *dist_ref)
+                metrics["dist_init_genome"].append(dist)
+            if progress:
+                msg = (f"scale cycle {j}: loglik={l_t_host:.1f} n_contigs={nc} "
+                       f"f_max={big_bucket} tiers={tiers} overflow={n_over} "
+                       f"({cycle_s:.1f}s, total {time.time() - t0:.1f}s)")
+                if dist is not None:
+                    msg += f" dist={dist:.3f}"
+                print(msg, flush=True)
+        check_invariants(state)
+        self.params = params
+        return state, params, metrics
