@@ -26,6 +26,18 @@ Phases, in order; any failure raises and exits non-zero:
    launch count, the invariants, that the carried likelihood equals the
    kernel's rescoring bit for bit, that the likelihood rose, and that a
    second run with the same seed is identical.
+4a. Repeat kernel B3 (ll_repeat) vs plain on the flagship repeat problem
+   (entry.repeat_problem: 12 bins duplicated, K = 1,188 copy rows on
+   S = 1,152 data subs): a step's 130 candidates built on the true genome,
+   on a genome with one copy deactivated, on the exploded start and on a
+   circularised contig holding a repeat copy, rtol 1e-4; at B = 1 (the
+   nuisance shape, also held to the dense oracle); every candidate
+   bit-identical alone and in its batch; the f64 loop oracle on a small
+   repeat problem; and B = 13 on the largest dense repeat table
+   (S = 6,000). Timed against the plain version with CUDA events.
+4b. Dense repeat main path: 2 EM cycles of the repeat problem from its
+   exploded start, nuisance sampling on, as in phase 4 (launches
+   1 + 2 x steps, carried == rescored, invariants, a second run identical).
 5. Delta kernels B4 (obsgrid) and B2 (ll_mini) vs plain, on the real step
    inputs of the chr1-class problem (100,000 fragments, full coverage,
    shuffled into 400 pieces) at f_max 1,024 for the 5 neighbour slots of a
@@ -36,16 +48,35 @@ Phases, in order; any failure raises and exits non-zero:
 6. Per-step exactness at 20,000 fragments: 10 single delta steps at f_max
    1,024; after each, the carried likelihood must be within
    max(0.5, 1e-6 |L|) of a full sparse re-anchor.
+6a. The same on the repeat twin (entry.scale_repeat_problem with 12
+   duplicated bins, the repeat engine v2 and the copy-summing anchor),
+   stepping at repeat copies, originals of duplicated bins and contig
+   extremities; fails unless a committed step at a repeat fragment moves
+   the likelihood by more than the tolerance.
 7. Delta main path at 100,000 fragments: ScaleRunner.cycle_for(1024, 4)
    for 256 steps from the shuffled start under
    torch.cuda.set_sync_debug_mode("error"). The carried likelihood must
    stay within 4e-6 |L| of a re-anchor, each step must launch B2 and B4
    once, and a second seeded run must be identical.
+7a. Delta kernels B4 and B2 vs plain on the repeat delta path's own inputs
+   (20,000 data bins, 200 of them duplicated: benchmarks/
+   bench_scale_repeats.py's problem): the single-copy part of the repeat
+   engine v2, whose windows are keyed by data bin (two copies of a bin
+   share a key), member rows extracted per neighbour, 10 neighbour slots;
+   at a repeat copy, an original of a duplicated bin and a contig
+   extremity, with the checks and times of phase 5 at R = 1,024.
+7b. Repeat delta main path on that problem: cycle_for(1024, 4) for 256
+   steps as in phase 7, with the drift bound max(2, 1e-5 |L|).
 8. ScaleRunner.run at 100,000 fragments: 2 cycles of 512 extremity-first
    steps from f_max 256 up the tier ladder, nuisance sampling on; the
    invariants hold and the likelihood rises.
-9. Last lines: the nvidia-smi line, one JSON line per the kernels run, and
-   {"ok": true, "device": {...}}.
+8a. ScaleRunner.run with id_d on the 200-dup problem: 1 cycle of 512
+   extremity-first steps, the same checks.
+9. Last lines: the nvidia-smi line, one JSON line on the kernels run, and
+   {"ok": true, "device": {...}}. A kernel's max_abs_err and times are
+   those of its flagship shape (B1: K = 1,152; B3: S = 1,152; B2 / B4: the
+   100k path), the largest dense table's error has its own key, and B2 /
+   B4 give their launches and repeat-path checks under "by_path".
 """
 
 import json
@@ -69,6 +100,9 @@ MAIN_STEPS = 256            # bench_scale.py's timed chunk
 # the per-step exactness gate (phase 6) that a delta error would break.
 DLL_ATOL = 0.05
 DRIFT_REL = 4e-6            # carried vs re-anchored, 256 steps (bench.py:231)
+REPEAT_CYCLES = 2
+REPEAT_DUPS = 200           # benchmarks/bench_scale_repeats.py
+EXACT_REPEAT_DUPS = 12      # benchmarks/check_exactness_repeats.py
 
 
 class SmokeFailure(RuntimeError):
@@ -159,15 +193,15 @@ def candidate_batch(state, nb, f_a, gen, n_nb=None):
     return GenomeState(*[x.reshape(m * N_CANDIDATES, -1).contiguous() for x in cands])
 
 
-def circularised(state):
-    """The true genome with contig 0 circularised (its ends pasted)."""
+def circularised(state, contig=0):
+    """The genome with contig ``contig`` circularised (its ends pasted)."""
     import numpy as np
     import torch
     from graal_tpu_torch.core import ops
     from graal_tpu_torch.core.state import GenomeState
 
     s = state.to_numpy()
-    members = np.nonzero(s["id_c"] == 0)[0]
+    members = np.nonzero(s["id_c"] == contig)[0]
     order = members[np.argsort(s["pos"][members])]
     dev = state.pos.device
     one = GenomeState(*[x[None] for x in state])
@@ -218,11 +252,83 @@ def batch_invariance(scorer, batch, params, scores, label):
     print(f"  {label}: {batch.pos.shape[0]} candidates bit-identical alone and in batch")
 
 
+def check_bases(scorer, table, params, nb, bases, gen):
+    """The kernel against its plain version on the candidates of one step
+    of each base genome (``bases``: (name, genome, f_a, with_oracle)) and
+    on the genome alone (B = 1), that one also held to the dense oracle
+    ``log_likelihood`` where ``with_oracle``; every candidate bit-identical
+    alone and in its batch, and all batches in one. Returns (max abs error,
+    the candidate batches)."""
+    import torch
+    from graal_tpu_torch.core.likelihood import log_likelihood
+    from graal_tpu_torch.core.state import GenomeState
+
+    max_err = 0.0
+    batches, scores = [], []
+    for name, base, f_a, with_oracle in bases:
+        batch = candidate_batch(base, nb, f_a, gen)
+        got, err = kernel_vs_plain(scorer, batch, params, f"{name} candidates (f_a={f_a})")
+        max_err = max(max_err, err)
+        batches.append(batch)
+        scores.append(got)
+        got1, err = kernel_vs_plain(scorer, GenomeState(*[x[None] for x in base]), params,
+                                    f"{name} genome (B=1)")
+        max_err = max(max_err, err)
+        if with_oracle:
+            want = log_likelihood(base, table, scorer.obs, params)
+            rel = abs(got1.item() - want.item()) / abs(want.item())
+            print(f"    vs dense oracle log_likelihood: rel err {rel:.3g}")
+            check(rel <= RTOL, f"{name}: kernel vs log_likelihood {rel} > {RTOL}")
+    for batch, got, (name, *_) in zip(batches, scores, bases):
+        batch_invariance(scorer, batch, params, got, f"{name} candidates")
+    got_all = scorer(stack(batches), params)
+    check(torch.equal(got_all, torch.cat(scores)),
+          f"a {got_all.shape[0]}-candidate batch differs from its {len(batches)} batches")
+    print(f"  {got_all.shape[0]} candidates in one batch: bit-identical")
+    return max_err, batches
+
+
+def check_small_oracle(build, device):
+    """The kernel against the f64 loop oracle on a small problem."""
+    from graal_tpu_torch.core import mcmc
+    from graal_tpu_torch.core.likelihood import log_likelihood_ref
+    from graal_tpu_torch.core.state import GenomeState
+    from graal_tpu_torch.ops.likelihood_cuda import make_dense_scorer
+
+    state, table, params, obs, _ = build(device)
+    scorer = make_dense_scorer(table, obs, device)
+    for name, st in (("true", state), ("exploded", mcmc.explode_genome(state))):
+        got = scorer(GenomeState(*[x[None] for x in st]), params)[0].item()
+        ref = log_likelihood_ref(st, table, obs, params)
+        print(f"  small S={table.n_data_sub} K={table.n_subs} {name}: kernel {got:.6f} "
+              f"vs f64 oracle {ref:.6f}")
+        check(abs(got - ref) <= REF_ATOL + REF_RTOL * abs(ref),
+              f"small {name}: kernel {got} vs f64 oracle {ref}")
+
+
+def check_large(build, device, f_a, gen):
+    """One 13-candidate batch of the largest dense table: the kernel
+    against its plain version, batch invariance and both times. Returns
+    the max abs error."""
+    from graal_tpu_torch.ops.likelihood_cuda import make_dense_scorer, params_vector
+
+    state, table, params, obs, nb = build(device)
+    scorer = make_dense_scorer(table, obs, device)
+    batch = candidate_batch(state, nb, f_a, gen, n_nb=1)
+    got, err = kernel_vs_plain(scorer, batch, params, "large candidates")
+    batch_invariance(scorer, batch, params, got, "large candidates")
+    vecs = scorer.sub_vectors(batch)
+    pvec = params_vector(params, scorer.log_nfpb)
+    k_ms = cuda_ms(lambda: scorer.launch(*vecs, pvec), 20)
+    p_ms = cuda_ms(lambda: scorer.plain(*vecs, pvec), 2, n_warm=1)
+    print(f"  time B=13 S={table.n_data_sub} K={scorer.k}: kernel {k_ms:.4f} ms, "
+          f"plain {p_ms:.4f} ms")
+    return err
+
+
 def phase_kernel(device, n_bins=384, large_bins=LARGE_BINS):
     import torch
     from graal_tpu_torch.core import mcmc
-    from graal_tpu_torch.core.likelihood import log_likelihood, log_likelihood_ref
-    from graal_tpu_torch.core.state import GenomeState
     from graal_tpu_torch.entry import problem
     from graal_tpu_torch.ops.likelihood_cuda import make_dense_scorer, params_vector
 
@@ -230,35 +336,13 @@ def phase_kernel(device, n_bins=384, large_bins=LARGE_BINS):
     state, table, params, obs, nb = problem(n_bins=n_bins, device=device)
     scorer = make_dense_scorer(table, obs, device)
     gen = torch.Generator(device=device).manual_seed(SEED)
-    bases = {"true": state, "exploded": mcmc.explode_genome(state),
-             "circular": circularised(state)}
-    max_err = 0.0
-    batches, scores = [], []
-    for i, (name, base) in enumerate(bases.items()):
-        batch = candidate_batch(base, nb, (7 + 100 * i) % state.n_frags, gen)
-        got, err = kernel_vs_plain(scorer, batch, params, f"{name} candidates")
-        max_err = max(max_err, err)
-        batches.append(batch)
-        scores.append(got)
-        one = GenomeState(*[x[None] for x in base])
-        got1, err = kernel_vs_plain(scorer, one, params, f"{name} genome (B=1)")
-        max_err = max(max_err, err)
-        if name != "circular":
-            want = log_likelihood(base, table, scorer.obs, params)
-            rel = abs(got1.item() - want.item()) / abs(want.item())
-            print(f"    vs dense oracle log_likelihood: rel err {rel:.3g}")
-            check(rel <= RTOL, f"{name}: kernel vs log_likelihood {rel} > {RTOL}")
-    for batch, got, name in zip(batches, scores, bases):
-        batch_invariance(scorer, batch, params, got, f"{name} candidates")
-    all_batch = stack(batches)
-    got_all = scorer(all_batch, params)
-    check(torch.equal(got_all, torch.cat(scores)),
-          "a 195-candidate batch differs from its three 65-candidate batches")
-    print(f"  {all_batch.pos.shape[0]} candidates in one batch: bit-identical")
+    n = state.n_frags
+    bases = [("true", state, 7, True), ("exploded", mcmc.explode_genome(state), 107 % n, True),
+             ("circular", circularised(state), 207 % n, False)]
+    max_err, batches = check_bases(scorer, table, params, nb, bases, gen)
 
     # timing at the main path's shape: 65 candidates of the true genome
     # (every cell cis-or-trans as in an assembled map) and of the start
-    vecs = scorer.sub_vectors(batches[0])
     pvec = params_vector(params, scorer.log_nfpb)
     timing = {}
     for name, b in (("true", batches[0]), ("exploded", batches[1])):
@@ -268,45 +352,26 @@ def phase_kernel(device, n_bins=384, large_bins=LARGE_BINS):
         timing[name] = (k_ms, p_ms)
         print(f"  time B=65 K={scorer.k} ({name} candidates): kernel {k_ms:.4f} ms, "
               f"plain {p_ms:.4f} ms")
-    k1_ms = cuda_ms(lambda: scorer.launch(*[x[:1].contiguous() for x in vecs], pvec), 50)
-    print(f"  time B=1 K={scorer.k}: kernel {k1_ms:.4f} ms")
+    one = [x[:1].contiguous() for x in scorer.sub_vectors(batches[0])]
+    print(f"  time B=1 K={scorer.k}: kernel {cuda_ms(lambda: scorer.launch(*one, pvec), 50):.4f} ms")
 
-    # the f64 loop oracle on a small problem
-    s_state, s_table, s_params, s_obs, _ = problem(n_bins=24, n_contigs=3,
-                                                   device=device)
-    s_scorer = make_dense_scorer(s_table, s_obs, device)
-    for name, st in (("true", s_state), ("exploded", mcmc.explode_genome(s_state))):
-        got = s_scorer(GenomeState(*[x[None] for x in st]), s_params)[0].item()
-        ref = log_likelihood_ref(st, s_table, s_obs, s_params)
-        print(f"  small K={s_table.n_subs} {name}: kernel {got:.6f} vs f64 oracle {ref:.6f}")
-        check(abs(got - ref) <= REF_ATOL + REF_RTOL * abs(ref),
-              f"small {name}: kernel {got} vs f64 oracle {ref}")
-
-    # the largest dense table: K ~ 6,000, one 13-candidate batch
-    l_state, l_table, l_params, l_obs, l_nb = problem(n_bins=large_bins,
-                                                      device=device)
-    l_scorer = make_dense_scorer(l_table, l_obs, device)
-    l_batch = candidate_batch(l_state, l_nb, 11, gen, n_nb=1)
-    l_got, err = kernel_vs_plain(l_scorer, l_batch, l_params, "large candidates")
-    batch_invariance(l_scorer, l_batch, l_params, l_got, "large candidates")
-    lv = l_scorer.sub_vectors(l_batch)
-    lp = params_vector(l_params, l_scorer.log_nfpb)
-    lk_ms = cuda_ms(lambda: l_scorer.launch(*lv, lp), 20)
-    lp_ms = cuda_ms(lambda: l_scorer.plain(*lv, lp), 2, n_warm=1)
-    print(f"  time B=13 K={l_scorer.k}: kernel {lk_ms:.4f} ms, plain {lp_ms:.4f} ms")
-    return dict(max_abs_err=max_err, ms=timing["true"][0], plain_ms=timing["true"][1])
+    check_small_oracle(lambda dev: problem(n_bins=24, n_contigs=3, device=dev), device)
+    err = check_large(lambda dev: problem(n_bins=large_bins, device=dev), device, 11, gen)
+    return dict(max_abs_err=max_err, max_abs_err_k6000=err, ms=timing["true"][0],
+                plain_ms=timing["true"][1])
 
 
-def main_path_run(device, n_bins):
-    """One seeded run: explode, then N_CYCLES EM cycles through the
-    kernel. Returns the final state, params, l_t and what was measured."""
+def main_path_run(device, build, n_cycles):
+    """One seeded run: explode the problem ``build(device)`` returns, then
+    ``n_cycles`` EM cycles through its dense scorer's kernel. Returns the
+    final state, params, l_t and what was measured."""
     import torch
     from graal_tpu_torch.core import mcmc
     from graal_tpu_torch.core.state import GenomeState
-    from graal_tpu_torch.entry import DELTA, problem
+    from graal_tpu_torch.entry import DELTA
     from graal_tpu_torch.ops.likelihood_cuda import make_dense_scorer
 
-    state, table, params, obs, nb = problem(n_bins=n_bins, device=device)
+    state, table, params, obs, nb = build(device)
     scorer = make_dense_scorer(table, obs, device)
     cycle = mcmc.make_em_cycle(table, obs, nb, DELTA, sample_param=True,
                                scorer=scorer)
@@ -318,7 +383,7 @@ def main_path_run(device, n_bins):
     l0 = scorer(GenomeState(*[x[None] for x in cur]), params)[0]
     l_t, par = l0, params
     seconds = []
-    for c in range(N_CYCLES):
+    for c in range(n_cycles):
         order = torch.randperm(n, generator=gen, device=device)
         t0 = time.perf_counter()
         # the cycle must never wait for the device: any synchronising call
@@ -335,20 +400,19 @@ def main_path_run(device, n_bins):
               f"{int(m.success.sum())}/{n}")
     launches = scorer.n_launches
     return dict(state=state, scorer=scorer, cur=cur, par=par, l0=l0, l_t=l_t,
-                seconds=seconds, launches=launches, n=n)
+                seconds=seconds, launches=launches, n=n, nb=nb)
 
 
-def phase_main(device, n_bins=384):
-    import numpy as np
+def dense_main_checks(r, n_cycles):
+    """Launch count, invariants, carried == rescored, a rising likelihood;
+    prints the step rates."""
     import torch
-    from graal_tpu_torch.core.state import (GenomeState, check_invariants,
-                                            derive_prev_next, dist_inter_genome)
+    from graal_tpu_torch.core import mcmc
+    from graal_tpu_torch.core.state import GenomeState, check_invariants
     from graal_tpu_torch.entry import DELTA
 
-    print(f"main path: {N_CYCLES} EM cycles, nuisance sampling on, f_t = 1")
-    r = main_path_run(device, n_bins)
     n, scorer = r["n"], r["scorer"]
-    steps = N_CYCLES * n
+    steps = n_cycles * n
     want_launches = 1 + 2 * steps
     print(f"  kernel launches: {r['launches']} (path implies 1 + 2 x {steps} = "
           f"{want_launches})")
@@ -361,27 +425,116 @@ def phase_main(device, n_bins=384):
           f"carried l_t {r['l_t'].item()!r} != rescored {rescored.item()!r}")
     check(r["l_t"].item() > r["l0"].item(),
           f"likelihood did not rise: {r['l0'].item()} -> {r['l_t'].item()}")
-    init_prev, init_next = derive_prev_next(r["state"])
-    # every bin has 3 sub-fragments (orientable); nothing is skipped
-    dist = dist_inter_genome(r["cur"], init_prev, init_next, np.ones(n, np.int32),
-                             np.ones(n, bool), np.zeros(n, bool))
     total_s = sum(r["seconds"])
     steady_s = sum(r["seconds"][1:])
-    per_step = 13 * (DELTA + 1)
+    per_step = mcmc.n_slots(r["nb"], DELTA)
     print(f"  l_t {r['l0'].item():.3f} -> {r['l_t'].item():.3f} "
           f"(carried == rescored, bit for bit)")
-    print(f"  n_contigs {int(r['cur'].n_contigs())} (true 16), "
-          f"dist_inter_genome vs truth {dist:.4f}")
     print(f"  ms/step {total_s * 1e3 / steps:.4f} (all cycles), "
-          f"{steady_s * 1e3 / (steps - n):.4f} (cycles 2-{N_CYCLES})")
-    print(f"  candidate genomes scored per second: {per_step * steps / total_s:.1f} "
-          f"(all), {per_step * (steps - n) / steady_s:.1f} (cycles 2-{N_CYCLES})")
+          f"{steady_s * 1e3 / (steps - n):.4f} (cycles 2-{n_cycles})")
+    print(f"  candidate genomes scored per second ({per_step} per step): "
+          f"{per_step * steps / total_s:.1f} (all), "
+          f"{per_step * (steps - n) / steady_s:.1f} (cycles 2-{n_cycles})")
 
-    r2 = main_path_run(device, n_bins)
+
+def check_same_run(r, r2):
+    import torch
+
     same = all(torch.equal(a, b) for a, b in zip(r["cur"], r2["cur"]))
     check(same and torch.equal(r["l_t"], r2["l_t"]),
           "a second run with the same seed gave a different result")
     print("  second run with the same seed: identical final state and l_t")
+
+
+def phase_main(device, n_bins=384):
+    import numpy as np
+    from graal_tpu_torch.core.state import derive_prev_next, dist_inter_genome
+    from graal_tpu_torch.entry import problem
+
+    print(f"main path: {N_CYCLES} EM cycles, nuisance sampling on, f_t = 1")
+
+    def build(dev):
+        return problem(n_bins=n_bins, device=dev)
+
+    r = main_path_run(device, build, N_CYCLES)
+    n = r["n"]
+    dense_main_checks(r, N_CYCLES)
+    init_prev, init_next = derive_prev_next(r["state"])
+    # every bin has 3 sub-fragments (orientable); nothing is skipped
+    dist = dist_inter_genome(r["cur"], init_prev, init_next, np.ones(n, np.int32),
+                             np.ones(n, bool), np.zeros(n, bool))
+    print(f"  n_contigs {int(r['cur'].n_contigs())} (true 16), "
+          f"dist_inter_genome vs truth {dist:.4f}")
+    check_same_run(r, main_path_run(device, build, N_CYCLES))
+    return r["launches"]
+
+
+def with_inactive_copy(state, f):
+    """``state`` with the repeat copy ``f`` deactivated."""
+    activ = state.activ.clone()
+    activ[f] = 0
+    return state._replace(activ=activ)
+
+
+def phase_repeat_kernel(device, n_bins=384, large_bins=LARGE_BINS, small_bins=24):
+    import torch
+    from graal_tpu_torch.core import mcmc
+    from graal_tpu_torch.entry import repeat_problem
+    from graal_tpu_torch.ops.likelihood_cuda import make_dense_scorer, params_vector
+    from graal_tpu_torch.ops.repeat_cuda import RepeatScorer
+
+    print("repeat kernel B3 vs plain:")
+    state, table, params, obs, nb = repeat_problem(n_bins=n_bins, device=device)
+    scorer = make_dense_scorer(table, obs, device)
+    check(isinstance(scorer, RepeatScorer), "a repeat table did not get the B3 scorer")
+    print(f"  repeat problem: {state.n_frags} fragments, K = {table.n_subs} copy rows on "
+          f"S = {table.n_data_sub} data subs, max_copies {nb.max_copies}, "
+          f"{mcmc.n_slots(nb, DELTA)} candidates per step")
+    rep = state.rep.cpu()
+    frag = torch.arange(state.n_frags)
+    copies = torch.nonzero((rep == 1) & (frag >= n_bins))[:, 0].tolist()
+    originals = torch.nonzero((rep == 1) & (frag < n_bins))[:, 0].tolist()
+    circ = circularised(state, int(state.id_c[originals[0]]))
+    check(int(circ.circ[originals[0]]) == 1, "the circularised contig holds no repeat copy")
+    bases = [("true", state, copies[0], True),
+             ("deactivated copy", with_inactive_copy(state, copies[1]), copies[1], True),
+             ("exploded", mcmc.explode_genome(state), originals[3], True),
+             ("circular holding a copy", circ, originals[0], True)]
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    max_err, batches = check_bases(scorer, table, params, nb, bases, gen)
+
+    pvec = params_vector(params, scorer.log_nfpb)
+    vecs = scorer.sub_vectors(batches[0])
+    k_ms = cuda_ms(lambda: scorer.launch(*vecs, pvec), 50)
+    p_ms = cuda_ms(lambda: scorer.plain(*vecs, pvec), 3, n_warm=1)
+    print(f"  time B={batches[0].pos.shape[0]} S={scorer.s} K={scorer.k}: kernel {k_ms:.4f} ms, "
+          f"plain {p_ms:.4f} ms")
+    one = [x[:1].contiguous() for x in vecs]
+    k1_ms = cuda_ms(lambda: scorer.launch(*one, pvec), 50)
+    p1_ms = cuda_ms(lambda: scorer.plain(*one, pvec), 5, n_warm=1)
+    print(f"  time B=1 S={scorer.s}: kernel {k1_ms:.4f} ms, plain {p1_ms:.4f} ms")
+
+    check_small_oracle(lambda dev: repeat_problem(n_bins=small_bins, n_contigs=3, n_dups=3,
+                                                  device=dev), device)
+    # f_a of the large batch: the first repeat copy
+    err = check_large(lambda dev: repeat_problem(n_bins=large_bins, device=dev), device,
+                      large_bins, gen)
+    return dict(max_abs_err=max_err, max_abs_err_s6000=err, ms=k_ms, plain_ms=p_ms)
+
+
+def phase_repeat_main(device, n_bins=384):
+    from graal_tpu_torch.entry import repeat_problem
+
+    print(f"dense repeat main path: {REPEAT_CYCLES} EM cycles, nuisance sampling on, f_t = 1")
+
+    def build(dev):
+        return repeat_problem(n_bins=n_bins, device=dev)
+
+    r = main_path_run(device, build, REPEAT_CYCLES)
+    dense_main_checks(r, REPEAT_CYCLES)
+    print(f"  n_contigs {int(r['cur'].n_contigs())}, active fragments "
+          f"{int(r['cur'].activ.sum())}/{r['n']}")
+    check_same_run(r, main_path_run(device, build, REPEAT_CYCLES))
     return r["launches"]
 
 
@@ -399,19 +552,42 @@ def scale_setup(device, n_bins=SCALE_BINS):
           f"nnz, row_cap {sobs.row_cap}, band w {runner.w}, largest shuffled contig "
           f"{max_contig_subs(shuf, table)} subs, set-up {time.perf_counter() - t0:.1f} s")
     return dict(truth=truth, shuf=shuf, table=table, params=params, sobs=sobs,
-                runner=runner, n=n_bins)
+                runner=runner, n=n_bins, runner_kw={}, drift_bound=(0.0, DRIFT_REL))
 
 
-def delta_inputs(sc, scorer, f_a, gen):
-    """The B4 and B2 inputs of one step of fragment f_a at the scorer's
-    bucket, as the delta step builds them."""
+def scale_repeat_setup(device, n_bins=EXACT_BINS, n_dups=REPEAT_DUPS):
+    """The chr1-scale repeat problem on the card and its runner."""
     import torch
-    from graal_tpu_torch.core import delta, mcmc
+    from graal_tpu_torch.entry import scale_repeat_problem
+    from graal_tpu_torch.scale import ScaleRunner
+
+    t0 = time.perf_counter()
+    truth, shuf, table, params, sobs, id_d = scale_repeat_problem(n_bins, n_dups,
+                                                                  device=device)
+    runner_kw = dict(id_d=id_d)
+    runner = ScaleRunner(table, sobs, params, **runner_kw)
+    torch.cuda.synchronize()
+    print(f"chr1-scale repeat problem: {n_bins} data bins, {n_dups} duplicated, "
+          f"{truth.n_frags} fragments, {sobs.rows.shape[0]} symmetric nnz, set-up "
+          f"{time.perf_counter() - t0:.1f} s")
+    # drift bound of benchmarks/bench_scale_repeats.py: max(2, 1e-5 |L|)
+    return dict(truth=truth, shuf=shuf, table=table, params=params, sobs=sobs,
+                runner=runner, n=truth.n_frags, n_bins=n_bins, runner_kw=runner_kw,
+                drift_bound=(2.0, 1e-5))
+
+
+def delta_inputs(sc, scorer, extract, f_a, gen):
+    """The B4 and B2 inputs of one step of fragment f_a at the scorer's
+    bucket, as the delta step builds them: the neighbours drawn as the step
+    draws them, their member rows by ``extract`` (the step's row
+    extraction)."""
+    import torch
+    from graal_tpu_torch.core import mcmc
 
     shuf = sc["shuf"]
     f_a = torch.tensor(f_a, device=shuf.pos.device)
     ids, _ = mcmc.sample_neighbours(gen, f_a, shuf, sc["runner"].nb, DELTA)
-    rows, valid, _ = delta.extract_rows_union(shuf, f_a, ids, scorer.f_max)
+    rows, valid, _ = extract(shuf, f_a, ids, scorer.f_max)
     subs, sub_valid = scorer.sub_rows(rows, valid)
     windows = scorer.windows(subs, sub_valid)
     _, geo, ob, accu_sub, pvec = scorer.inputs(shuf, f_a, ids, rows, valid, sc["params"],
@@ -441,28 +617,29 @@ def b2_vs_plain(grid, args, label):
     return s_k, err.max().item()
 
 
-def phase_delta_kernels(device, sc, frags=(7, 31_337, 77_777)):
-    import numpy as np
+def check_delta_kernels(sc, scorer, extract, frags, gen, want_m):
+    """B4 bit-identical and B2 within RTOL / DLL_ATOL of their plain
+    versions on the step inputs of the fragments ``frags``; every B2
+    neighbour and genome bit-identical alone and in its batch; both timed
+    at f_max 1,024. Returns (the kernels' results, the first step's B2
+    inputs)."""
     import torch
-    from graal_tpu_torch.core import delta
-    from graal_tpu_torch.scale import contig_frags_per_frag
 
-    print(f"delta kernels vs plain ({sc['n']} fragments, shuffled start):")
-    # a scorer with its own kernel wrappers: these launches are not the
-    # main path's
-    scorer = delta.make_delta_scorer(sc["table"], None, F_MAX, sobs=sc["sobs"])
-    gen = torch.Generator(device=device).manual_seed(SEED)
     b2_err, b4_err, first = 0.0, 0.0, None
     for f_a in frags:
-        win, args = delta_inputs(sc, scorer, f_a, gen)
+        win, args = delta_inputs(sc, scorer, extract, f_a, gen)
+        check(args[0].shape[0] == want_m,
+              f"f_a={f_a}: {args[0].shape[0]} neighbour slots, the path has {want_m}")
         ob_k = scorer.obs_grid_kernel.launch(*win)
         ob_p = scorer.obs_grid_kernel.plain(*win)
         torch.cuda.synchronize()
         check(torch.equal(ob_k, ob_p), f"f_a={f_a}: B4 kernel differs from its plain version")
         b4_err = max(b4_err, (ob_k - ob_p).abs().max().item())
+        keys = win[2]
+        shared = sum(int((k >= 0).sum()) - len(torch.unique(k[k >= 0])) for k in keys)
         print(f"  B4 f_a={f_a}: M={win[0].shape[0]} R={win[0].shape[1]} "
               f"cap={win[0].shape[2]}: bit-identical, {int((ob_k > 0).sum())} nonzero cells, "
-              f"sum {ob_k.sum().item():.0f}")
+              f"sum {ob_k.sum().item():.0f}, {shared} keys shared by copies")
         s_k, err = b2_vs_plain(scorer.mini_grid, args, f"f_a={f_a}")
         b2_err = max(b2_err, err)
         if first is None:
@@ -486,46 +663,87 @@ def phase_delta_kernels(device, sc, frags=(7, 31_337, 77_777)):
     op_ms = cuda_ms(lambda: scorer.obs_grid_kernel.plain(*win), 10, n_warm=1)
     print(f"  time B4 R={win[0].shape[1]} cap={win[0].shape[2]} M={win[0].shape[0]}: "
           f"kernel {o_ms:.4f} ms, plain {op_ms:.4f} ms")
+    return dict(ll_mini=dict(max_abs_err=b2_err, ms=k_ms, plain_ms=p_ms),
+                obsgrid=dict(max_abs_err=b4_err, ms=o_ms, plain_ms=op_ms))
+
+
+def phase_delta_kernels(device, sc, frags=(7, 31_337, 77_777)):
+    """B4 and B2 on the repeat-free delta path's inputs: one genome-length
+    extraction for the 5 neighbour slots (extract_rows_union), windows keyed
+    by sub row; and B2 at the top tier."""
+    import numpy as np
+    import torch
+    from graal_tpu_torch.core import delta
+    from graal_tpu_torch.scale import contig_frags_per_frag
+
+    print(f"delta kernels vs plain ({sc['n']} fragments, shuffled start):")
+    # a scorer with its own kernel wrappers: these launches are not the
+    # main path's
+    scorer = delta.make_delta_scorer(sc["table"], None, F_MAX, sobs=sc["sobs"])
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    out = check_delta_kernels(sc, scorer, delta.extract_rows_union, frags, gen,
+                              want_m=sc["runner"].nb.max_copies * (DELTA + 1))
 
     # the top tier: a fragment of the largest contig at f_max 4,096
     top = delta.make_delta_scorer(sc["table"], None, TOP_F_MAX, sobs=sc["sobs"])
     f_big = int(np.argmax(contig_frags_per_frag(sc["shuf"])))
-    _, args4 = delta_inputs(sc, top, f_big, gen)
+    _, args4 = delta_inputs(sc, top, delta.extract_rows_union, f_big, gen)
     _, err4 = b2_vs_plain(top.mini_grid, args4, f"top tier f_a={f_big}")
     k4_ms = cuda_ms(lambda: top.mini_grid.launch(*args4), 10)
     p4_ms = cuda_ms(lambda: top.mini_grid.plain(*args4), 2, n_warm=1)
     print(f"  time B2 R={args4[0].shape[2]} M={args4[0].shape[0]}: kernel {k4_ms:.4f} ms, "
           f"plain {p4_ms:.4f} ms")
-    return dict(ll_mini=dict(max_abs_err=max(b2_err, err4), ms=k_ms, plain_ms=p_ms),
-                obsgrid=dict(max_abs_err=b4_err, ms=o_ms, plain_ms=op_ms))
+    out["ll_mini"]["max_abs_err"] = max(out["ll_mini"]["max_abs_err"], err4)
+    return out
 
 
-def phase_exactness(device, n_bins=EXACT_BINS, steps=10):
-    """Twin of benchmarks/check_exactness.py: single delta steps, each
-    followed by a full sparse re-anchor. The steps are taken at contig
-    extremities of the shuffled start, where a step joins pieces and
-    commits a likelihood change well above the gate's tolerance; the phase
-    fails unless some step does."""
+def phase_repeat_delta_kernels(device, sc):
+    """B4 and B2 on the repeat delta path's own inputs: the single-copy
+    part of the repeat engine v2 (its plain scorer: windows of the
+    single-copy map keyed by data bin, so two copies of a bin share a key),
+    member rows extracted per neighbour (extract_rows_each), 10 neighbour
+    slots a step (max_copies 2); at a repeat copy, an original of a
+    duplicated bin and a contig extremity of the shuffled start."""
     import numpy as np
     import torch
-    from graal_tpu_torch.core import delta
-    from graal_tpu_torch.entry import scale_problem
-    from graal_tpu_torch.scale import ScaleRunner
+    from graal_tpu_torch.core import delta, delta_repeats
 
-    _, shuf, table, params, sobs = scale_problem(n_bins, device=device)
-    runner = ScaleRunner(table, sobs, params)
-    step = delta.make_delta_em_step(table, None, runner.nb, DELTA, F_MAX, sobs=sobs,
-                                    band_w=runner.w)
-    anchor = runner.anchor_fn()
+    shuf, n_bins = sc["shuf"], sc["n_bins"]
+    print(f"repeat delta kernels vs plain ({sc['n']} fragments, shuffled start):")
+    # a repeat engine with its own kernel wrappers: these launches are not
+    # the main path's
+    engine = delta_repeats.make_repeat_delta_scorer_v2(sc["table"], F_MAX, sc["sobs"],
+                                                       shuf.rep)
+    rep = shuf.rep.cpu().numpy()
+    rng = np.random.default_rng(SEED)
+    frags = (n_bins + 7, int(np.nonzero(rep[:n_bins] == 1)[0][3]),
+             int(rng.permutation(extremities(shuf))[0]))
     gen = torch.Generator(device=device).manual_seed(SEED)
-    pos, l_cont = shuf.pos.cpu().numpy(), shuf.l_cont.cpu().numpy()
-    ext = np.nonzero((pos == 0) | (pos == l_cont - 1))[0]
-    order = torch.as_tensor(ext, device=device)[
-        torch.randperm(len(ext), generator=gen, device=device)[:steps]]
+    return check_delta_kernels(sc, engine.plain, delta.extract_rows_each, frags, gen,
+                               want_m=sc["runner"].nb.max_copies * (DELTA + 1))
+
+
+def extremities(state):
+    import numpy as np
+
+    pos, l_cont = state.pos.cpu().numpy(), state.l_cont.cpu().numpy()
+    return np.nonzero((pos == 0) | (pos == l_cont - 1))[0]
+
+
+def exactness_steps(label, step, anchor, shuf, params, order, rep=None):
+    """Single delta steps at the fragments ``order``, each followed by a
+    full sparse re-anchor: the carried likelihood must be within
+    max(0.5, 1e-6 |L|) of it (benchmarks/check_exactness.py:55), and some
+    committed step must move it by more than that, or the gate was not
+    exercised. With ``rep``, some such step must have a repeat fragment as
+    fA or fB."""
+    import torch
+
+    gen = torch.Generator(device=shuf.pos.device).manual_seed(SEED)
     cur, l_t = shuf, anchor(shuf, params)
-    worst, bad, moved, above_tol, max_dl = 0.0, 0, 0, 0, 0.0
-    for i in range(steps):
-        new, l_new, (op, _, _) = step(cur, gen, params, l_t, order[i], 1.0)
+    worst, bad, moved, above_tol, rep_above, max_dl = 0.0, 0, 0, 0, 0, 0.0
+    for f_a in order:
+        new, l_new, (op, fb, _) = step(cur, gen, params, l_t, int(f_a), 1.0)
         l_re = anchor(new, params)
         err = abs(l_new.item() - l_re.item())
         tol = max(0.5, 1e-6 * abs(l_re.item()))
@@ -534,12 +752,61 @@ def phase_exactness(device, n_bins=EXACT_BINS, steps=10):
         worst = max(worst, err)
         moved += int(op) >= 0
         above_tol += dl > tol
+        if rep is not None and int(op) >= 0 and dl > tol:
+            rep_above += int(rep[int(f_a)]) == 1 or int(rep[int(fb)]) == 1
         max_dl = max(max_dl, dl)
         cur, l_t = new, l_re   # re-anchor: isolate each step's error
-    print(f"per-step exactness: {json.dumps(dict(n_fragments=n_bins, f_max=F_MAX, steps=steps, moves=moved, steps_dl_above_tol=int(above_tol), max_abs_dl=max_dl, bad_steps=int(bad), worst_err=worst, L=l_t.item()))}")
-    check(bad == 0, f"{bad} of {steps} delta steps drifted beyond max(0.5, 1e-6 |L|)")
+    stats = dict(n_fragments=shuf.n_frags, f_max=F_MAX, steps=len(order), moves=moved,
+                 steps_dl_above_tol=int(above_tol), max_abs_dl=max_dl, bad_steps=int(bad),
+                 worst_err=worst, L=l_t.item())
+    if rep is not None:
+        stats["repeat_steps_dl_above_tol"] = rep_above
+    print(f"{label}: {json.dumps(stats)}")
+    check(bad == 0, f"{bad} of {len(order)} delta steps drifted beyond max(0.5, 1e-6 |L|)")
     check(above_tol > 0, "no step committed a likelihood change above the gate's "
           "tolerance: the exactness gate was not exercised")
+    check(rep is None or rep_above > 0, "no committed step at a repeat fragment moved the "
+          "likelihood above the gate's tolerance")
+
+
+def phase_exactness(device, n_bins=EXACT_BINS, steps=10):
+    """Twin of benchmarks/check_exactness.py, stepping at contig
+    extremities of the shuffled start, where a step joins pieces."""
+    import numpy as np
+    from graal_tpu_torch.core import delta
+    from graal_tpu_torch.entry import scale_problem
+    from graal_tpu_torch.scale import ScaleRunner
+
+    _, shuf, table, params, sobs = scale_problem(n_bins, device=device)
+    runner = ScaleRunner(table, sobs, params)
+    step = delta.make_delta_em_step(table, None, runner.nb, DELTA, F_MAX, sobs=sobs,
+                                    band_w=runner.w)
+    order = np.random.default_rng(SEED).permutation(extremities(shuf))[:steps]
+    exactness_steps("per-step exactness", step, runner.anchor_fn(), shuf, params, order)
+
+
+def phase_repeat_exactness(device, n_bins=EXACT_BINS, n_dups=EXACT_REPEAT_DUPS):
+    """Twin of benchmarks/check_exactness_repeats.py, stepping where a move
+    changes something: 4 repeat copies, 3 originals of duplicated bins and
+    3 contig extremities of the shuffled start."""
+    import numpy as np
+    from graal_tpu_torch.core import delta
+    from graal_tpu_torch.entry import scale_repeat_problem
+    from graal_tpu_torch.scale import ScaleRunner
+
+    truth, shuf, table, params, sobs, id_d = scale_repeat_problem(n_bins, n_dups,
+                                                                  device=device)
+    runner = ScaleRunner(table, sobs, params, id_d=id_d)
+    step = delta.make_delta_em_step(table, None, runner.nb, DELTA, F_MAX, sobs=sobs,
+                                    rep=truth.rep)
+    rep = truth.rep.cpu().numpy()
+    rng = np.random.default_rng(SEED)
+    copies = np.arange(n_bins, truth.n_frags)
+    originals = np.nonzero(rep[:n_bins] == 1)[0]
+    order = np.concatenate([rng.permutation(copies)[:4], rng.permutation(originals)[:3],
+                            rng.permutation(extremities(shuf))[:3]])
+    exactness_steps("repeat per-step exactness", step, runner.anchor_fn(), shuf, params,
+                    order, rep=rep)
 
 
 def scale_main_run(sc):
@@ -549,7 +816,7 @@ def scale_main_run(sc):
 
     runner, shuf, params = sc["runner"], sc["shuf"], sc["params"]
     device = shuf.pos.device
-    cycle = runner.cycle_for(F_MAX, DELTA)
+    cycle = runner.cycle_for(F_MAX, DELTA, rep=shuf.rep)
     gen = torch.Generator(device=device).manual_seed(SEED)
     order = torch.randperm(sc["n"], generator=gen, device=device)[:MAIN_STEPS]
     l0 = runner.anchor_fn()(shuf, params)
@@ -567,26 +834,30 @@ def scale_main_run(sc):
                 launches=(runner.mini_grid.n_launches, runner.obs_grid.n_launches))
 
 
-def phase_scale_main(sc):
+def phase_scale_main(sc, label="delta main path"):
     import torch
+    from graal_tpu_torch.core.mcmc import n_slots
 
-    print(f"delta main path: cycle_for({F_MAX}, {DELTA}), {MAIN_STEPS} steps from the "
+    print(f"{label}: cycle_for({F_MAX}, {DELTA}), {MAIN_STEPS} steps from the "
           f"shuffled {sc['n']}-fragment start")
     r = scale_main_run(sc)
     l_re = sc["runner"].anchor_fn()(r["cur"], sc["params"])
     drift = abs(r["l_t"].item() - l_re.item())
+    floor, rel = sc["drift_bound"]
+    bound = max(floor, rel * abs(l_re.item()))
     ops = r["out"][1]
     print(f"  l_t {r['l0'].item():.3f} -> {r['l_t'].item():.3f}, re-anchored {l_re.item():.3f}, "
-          f"drift {drift:.6g} (bound {DRIFT_REL} |L| = {DRIFT_REL * abs(l_re.item()):.3f})")
-    check(drift < DRIFT_REL * abs(l_re.item()), f"carried l_t drifted {drift} from the re-anchor")
+          f"drift {drift:.6g} (bound max({floor}, {rel} |L|) = {bound:.3f})")
+    check(drift < bound, f"carried l_t drifted {drift} from the re-anchor")
     print(f"  moves committed {int((ops >= 0).sum())}/{MAIN_STEPS}, overflowed slots "
           f"{int(r['out'][3].sum())}, n_contigs {int(r['out'][4][-1])}")
     print(f"  launches: ll_mini {r['launches'][0]}, obsgrid {r['launches'][1]} "
           f"(path implies one of each per step: {MAIN_STEPS})")
     check(r["launches"] == (MAIN_STEPS, MAIN_STEPS), f"launches {r['launches']}")
+    per_step = n_slots(sc["runner"].nb, DELTA)
     ms = r["seconds"] * 1e3 / MAIN_STEPS
-    print(f"  {ms:.4f} ms/step, {13 * (DELTA + 1) * MAIN_STEPS / r['seconds']:.1f} candidate "
-          f"genomes/s (13 x 5 per step; first run)")
+    print(f"  {ms:.4f} ms/step, {per_step * MAIN_STEPS / r['seconds']:.1f} candidate "
+          f"genomes/s ({per_step} per step; first run)")
     r2 = scale_main_run(sc)
     same = all(torch.equal(a, b) for a, b in zip(r["cur"], r2["cur"])) and \
         torch.equal(r["l_t"], r2["l_t"]) and \
@@ -594,7 +865,7 @@ def phase_scale_main(sc):
     check(same, "a second run with the same seed gave a different result")
     ms2 = r2["seconds"] * 1e3 / MAIN_STEPS
     print(f"  second run with the same seed: identical; {ms2:.4f} ms/step, "
-          f"{13 * (DELTA + 1) * MAIN_STEPS / r2['seconds']:.1f} candidate genomes/s")
+          f"{per_step * MAIN_STEPS / r2['seconds']:.1f} candidate genomes/s")
     return r["launches"]
 
 
@@ -602,10 +873,11 @@ def phase_runner(sc, n_cycles=2, steps=512):
     import torch
     from graal_tpu_torch.scale import ScaleRunner
 
-    print(f"ScaleRunner.run: {n_cycles} cycles x {steps} extremity-first steps, "
-          f"f_max_min 256, nuisance sampling on")
+    print(f"ScaleRunner.run ({sc['n']} fragments): {n_cycles} cycle(s) x {steps} "
+          f"extremity-first steps, f_max_min 256, nuisance sampling on")
     # a fresh runner (same neighbour table): its kernel counts are this run's
-    runner = ScaleRunner(sc["table"], sc["sobs"], sc["params"], nb=sc["runner"].nb)
+    runner = ScaleRunner(sc["table"], sc["sobs"], sc["params"], nb=sc["runner"].nb,
+                         **sc["runner_kw"])
     l0 = runner.anchor_fn()(sc["shuf"], sc["params"]).item()
     t0 = time.perf_counter()
     final, params, m = runner.run(sc["shuf"], n_cycles=n_cycles, steps_per_cycle=steps,
@@ -634,22 +906,39 @@ def main():
     phase_build()
     dense = phase_kernel(device)
     dense_launches = phase_main(device)
+    repeat = phase_repeat_kernel(device)
+    repeat_launches = phase_repeat_main(device)
     sc = scale_setup(device)
     delta_timing = phase_delta_kernels(device, sc)
     phase_exactness(device)
+    phase_repeat_exactness(device)
     mini_launches, obs_launches = phase_scale_main(sc)
+    rsc = scale_repeat_setup(device)
+    repeat_delta_timing = phase_repeat_delta_kernels(device, rsc)
+    r_mini, r_obs = phase_scale_main(rsc, "repeat delta main path")
     phase_runner(sc)
+    del sc
+    phase_runner(rsc, n_cycles=1)
     line = gpu_line()
     kernels = {"kernels": [
         dict(name="ll_dense", route="cuda", source="graal_tpu_torch/csrc/ll_dense.cu",
              replaces="graal_tpu/ops/likelihood_pallas.py:65", launches=dense_launches,
              **dense),
         dict(name="ll_mini", route="cuda", source="graal_tpu_torch/csrc/ll_mini.cu",
-             replaces="graal_tpu/ops/likelihood_pallas.py:340", launches=mini_launches,
-             **delta_timing["ll_mini"]),
+             replaces="graal_tpu/ops/likelihood_pallas.py:340",
+             launches=mini_launches + r_mini, **delta_timing["ll_mini"],
+             by_path={"delta_100k": dict(launches=mini_launches),
+                      "repeat_delta_20k": dict(launches=r_mini,
+                                               **repeat_delta_timing["ll_mini"])}),
         dict(name="obsgrid", route="cuda", source="graal_tpu_torch/csrc/obsgrid.cu",
-             replaces="graal_tpu/ops/obsgrid_pallas.py:52", launches=obs_launches,
-             **delta_timing["obsgrid"]),
+             replaces="graal_tpu/ops/obsgrid_pallas.py:52",
+             launches=obs_launches + r_obs, **delta_timing["obsgrid"],
+             by_path={"delta_100k": dict(launches=obs_launches),
+                      "repeat_delta_20k": dict(launches=r_obs,
+                                               **repeat_delta_timing["obsgrid"])}),
+        dict(name="ll_repeat", route="cuda", source="graal_tpu_torch/csrc/ll_repeat.cu",
+             replaces="graal_tpu/ops/likelihood_pallas.py:514", launches=repeat_launches,
+             **repeat),
     ]}
     print(line)
     print(json.dumps(kernels))

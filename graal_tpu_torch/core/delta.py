@@ -31,7 +31,13 @@ The circular / linear specialisation of the JAX package (a ``lax.cond`` on
 a device flag) is not a branch here: the kernel branches per cell and the
 plain version evaluates the circular-aware formula, which equals the
 linear one on a linear row. Nothing in a step reads a device value on the
-host. Repeat tables raise ``NotImplementedError`` (ROADMAP A10).
+host.
+
+This module scores repeat-free geometry (copy rows == data rows). A
+copy-expanded (repeat) table, where an observed count's expectation sums
+over repeat copies, goes to :mod:`graal_tpu_torch.core.delta_repeats`,
+which :func:`make_delta_em_step` routes it to; that engine runs its
+single-copy majority through :class:`DeltaScorer` with ``data_keys``.
 """
 
 from __future__ import annotations
@@ -53,10 +59,6 @@ from graal_tpu_torch.ops import mini_grid_cuda
 from graal_tpu_torch.ops.likelihood_cuda import params_vector
 from graal_tpu_torch.ops.mini_grid_cuda import MiniGridScorer, log_cis_plain
 from graal_tpu_torch.ops.obsgrid_cuda import WindowObsGrid
-
-_NO_REPEATS = ("the delta engine of repeat (copy-expanded) tables is not "
-               "ported yet (ROADMAP A10, core/delta_repeats.py)")
-
 
 class MiniTable(NamedTuple):
     """Static fragment -> sub-fragment row ranges of a repeat-free table."""
@@ -96,13 +98,22 @@ def extract_rows(state: GenomeState, f_a, f_b, f_max: int):
 
     Returns (rows (f_max,) int64, valid (f_max,), overflow ()) with the valid
     member rows forming an ascending prefix."""
+    f_b = torch.as_tensor(f_b, device=state.pos.device).reshape(1)
+    rows, valid, overflow = extract_rows_each(state, f_a, f_b, f_max)
+    return rows[0], valid[0], overflow[0]
+
+
+def extract_rows_each(state: GenomeState, f_a, ids, f_max: int):
+    """:func:`extract_rows` of every neighbour ``ids`` at once: (rows (m,
+    f_max), valid (m, f_max), overflow (m,)), each row equal to
+    ``extract_rows(state, f_a, ids[i], f_max)``, padding included."""
     dev = state.pos.device
     c_a = _take(state.id_c, torch.as_tensor(f_a, device=dev))
-    c_b = _take(state.id_c, torch.as_tensor(f_b, device=dev))
-    member = (state.id_c == c_a) | (state.id_c == c_b)
-    overflow = member.sum() > f_max
-    rows = torch.topk(_member_key(member, state.n_frags), f_max, sorted=True).indices
-    return rows, member[rows], overflow
+    c_b = state.id_c[ids.long()]
+    member = (state.id_c[None, :] == c_a) | (state.id_c[None, :] == c_b[:, None])
+    overflow = member.sum(1) > f_max
+    rows = torch.topk(_member_key(member, state.n_frags), f_max, dim=1, sorted=True).indices
+    return rows, member.gather(1, rows), overflow
 
 
 def extract_rows_union(state: GenomeState, f_a, ids, f_max: int):
@@ -208,15 +219,22 @@ class DeltaScorer:
     (plain torch; the JAX package has no kernel for it). ``obs_grid`` and
     ``mini_grid``: the kernel wrappers to launch through (new ones by
     default), shared by a caller that counts launches.
+
+    ``data_keys``: an optional (n_subs,) map from copy rows to data subs.
+    When set, ``sobs`` lies on the data grid and the CSR windows are fetched
+    and matched by ``data_keys[sub]`` instead of the sub row itself: the
+    repeat engine (:mod:`core.delta_repeats`) scores its single-copy
+    majority through here, copy rows keyed by their data bin. The caller
+    owns the exactness contract: every window entry's expectation must be
+    one in-D copy pair, i.e. ``sobs`` holds no entry that touches a
+    multi-copy bin. Without ``data_keys`` a repeat table raises ValueError.
     """
 
     def __init__(self, table: SubFragTable, obs, f_max: int, sobs: SparseObs | None = None,
                  band_w: int | None = None, obs_grid: WindowObsGrid | None = None,
-                 mini_grid: MiniGridScorer | None = None,
+                 mini_grid: MiniGridScorer | None = None, data_keys=None,
                  _off_chunk: int | None = None):
-        if table.has_repeats:
-            raise NotImplementedError(_NO_REPEATS)
-        self.mt = build_mini_table(table)
+        self.mt = build_mini_table(table, allow_repeats=data_keys is not None)
         self.f_max = min(f_max, self.mt.n_frags)    # top-k cannot exceed the genome
         self.s_max = self.mt.s_max
         self.r_max = self.f_max * self.s_max
@@ -227,6 +245,11 @@ class DeltaScorer:
         self.log_nfpb = torch.tensor(np.float32(np.log(table.n_frags_per_bins)),
                                      device=self.device)
         self.sobs = sobs
+        self.key_of = None
+        if data_keys is not None:
+            if sobs is None:
+                raise ValueError("data_keys needs a sparse observed map (sobs)")
+            self.key_of = torch.as_tensor(data_keys, device=self.device).long()
         if sobs is None:
             self.obs = torch.as_tensor(obs, dtype=torch.float32, device=self.device)
             self.upper = torch.ones((self.r_max, self.r_max), dtype=torch.bool,
@@ -255,10 +278,13 @@ class DeltaScorer:
     def windows(self, subs, sub_valid):
         """CSR windows of the D sub rows: (cols, vals) of shape (m, R, cap),
         -2 / 0 on unused slots, and the keys (m, R) the columns are matched
-        against (-1 on padding slots)."""
+        against (-1 on padding slots). Rows and keys are the sub rows, or
+        their data subs under ``data_keys``."""
         sobs = self.sobs
         nnz = sobs.cols.shape[0]
         rc = subs.clamp(0, self.k_subs - 1)
+        if self.key_of is not None:
+            rc = self.key_of[rc]
         start = sobs.row_start[rc]
         end = sobs.row_start[rc + 1]
         win = start[..., None] + torch.arange(sobs.row_cap, device=subs.device)
@@ -266,7 +292,7 @@ class DeltaScorer:
         wc = win.clamp_max(nnz - 1)
         cols = torch.where(ok, sobs.cols[wc], -2)
         vals = torch.where(ok, sobs.vals[wc], 0.0)
-        keys = torch.where(sub_valid, subs, -1).int()
+        keys = torch.where(sub_valid, rc, -1).int()
         return cols, vals, keys
 
     def obs_grid(self, subs, sub_valid):
@@ -314,8 +340,12 @@ class DeltaScorer:
         # ob is zeroed on inactive rows / columns: the expected side is
         # masked through la = -1e9, but an unmasked ob there would add
         # ob * (-1e9) to every score and the base / candidate difference
-        # would lose all precision. Base activity is the right mask: the
-        # table is repeat-free, so activity is the same in all 14 genomes.
+        # would lose all precision. Base activity is the right mask because
+        # no window entry touches a row whose activity a candidate toggles:
+        # on a repeat-free table activity never changes (swap_activity is a
+        # no-op at rep == 0), and under data_keys the windows hold no entry
+        # of a multi-copy bin, while only rep-flagged fragments, whose bins
+        # are all multi-copy (core/delta_repeats.py), change activity.
         act0 = geo.act[:, 0]
         ob = torch.where(act0[:, :, None] & act0[:, None, :],
                          self.obs_grid(subs, sub_valid), 0.0)
@@ -406,32 +436,49 @@ class DeltaScorer:
 
 def make_delta_scorer(table: SubFragTable, obs, f_max: int, sobs=None,
                       band_w: int | None = None, obs_grid=None, mini_grid=None,
-                      _off_chunk: int | None = None) -> DeltaScorer:
+                      data_keys=None, _off_chunk: int | None = None) -> DeltaScorer:
     """Build the per-neighbour delta scorer (see :class:`DeltaScorer`).
     ``band_w`` is honoured literally; production entries apply
     :func:`effective_band_w` first."""
     return DeltaScorer(table, obs, f_max, sobs=sobs, band_w=band_w, obs_grid=obs_grid,
-                       mini_grid=mini_grid, _off_chunk=_off_chunk)
+                       mini_grid=mini_grid, data_keys=data_keys, _off_chunk=_off_chunk)
 
 
 def make_delta_em_step(table: SubFragTable, obs, nb, delta: int, f_max: int,
                        sobs=None, band_w: int | None = None,
                        thresh_overflow: float | None = None,
-                       obs_grid=None, mini_grid=None):
+                       obs_grid=None, mini_grid=None, rep=None):
     """EM step with delta scoring (the selection filter is shift-invariant,
     so deltas select like absolute scores). Returns
     ``step(state, rng, params, l_t, f_a, f_t) -> (state, l_t + dL,
     (op, fb, n_overflow))`` where ``rng`` is a Generator or one step's
     :class:`StepDraws` (its ``u_nb`` and ``gumbel`` are used). When every
     selectable slot overflows, or fA is blacklisted, the step is a no-op
-    with op -1."""
-    if table.has_repeats:
-        raise NotImplementedError(_NO_REPEATS)
+    with op -1.
+
+    A repeat (copy-expanded) table is scored by the repeat engine v2
+    (:func:`core.delta_repeats.make_repeat_delta_scorer_v2`, on the data
+    grid: ``obs`` is made sparse if no ``sobs`` is given; ``band_w`` does
+    not apply) with each neighbour's rows extracted on their own
+    (:func:`extract_rows_each`). ``rep``, the genome's (immutable) repeat
+    flags, is then required: the engine checks its exactness contract
+    against it."""
     if thresh_overflow is None:
         thresh_overflow = THRESH_OVERFLOW
-    scorer = make_delta_scorer(table, obs, f_max, sobs=sobs,
-                               band_w=effective_band_w(band_w, table, f_max),
-                               obs_grid=obs_grid, mini_grid=mini_grid)
+    if table.has_repeats:
+        from graal_tpu_torch.core import delta_repeats
+        from graal_tpu_torch.core.sparse import sparse_from_dense
+
+        if sobs is None:
+            sobs = sparse_from_dense(obs, device=table.owner.device)
+        scorer = delta_repeats.make_repeat_delta_scorer_v2(
+            table, f_max, sobs, rep, obs_grid=obs_grid, mini_grid=mini_grid)
+        extract = extract_rows_each
+    else:
+        scorer = make_delta_scorer(table, obs, f_max, sobs=sobs,
+                                   band_w=effective_band_w(band_w, table, f_max),
+                                   obs_grid=obs_grid, mini_grid=mini_grid)
+        extract = extract_rows_union
 
     def step(state: GenomeState, rng, params: RippeParams, l_t, f_a, f_t):
         if isinstance(rng, torch.Generator):
@@ -440,7 +487,7 @@ def make_delta_em_step(table: SubFragTable, obs, nb, delta: int, f_max: int,
         f_a = torch.as_tensor(f_a, device=dev)
         ids, valid = sample_neighbours(rng.u_nb, f_a, state, nb, delta)
         max_id = state.id_c.amax()
-        rows_b, valid_b, over_b = extract_rows_union(state, f_a, ids, scorer.f_max)
+        rows_b, valid_b, over_b = extract(state, f_a, ids, scorer.f_max)
         dll, minis, rows, rows_valid, overflow = scorer.score(
             state, f_a, ids, rows_b, valid_b, over_b, params, max_id)
         m = ids.shape[0]
@@ -470,7 +517,7 @@ def make_delta_em_step(table: SubFragTable, obs, nb, delta: int, f_max: int,
 def make_delta_em_cycle(table: SubFragTable, obs, nb, delta: int, f_max: int,
                         sobs=None, anchor_fn=None, band_w: int | None = None,
                         thresh_overflow: float | None = None,
-                        obs_grid=None, mini_grid=None):
+                        obs_grid=None, mini_grid=None, rep=None):
     """A delta-scored EM cycle (a Python loop of steps) with a final full
     re-anchoring of the likelihood.
 
@@ -481,7 +528,8 @@ def make_delta_em_cycle(table: SubFragTable, obs, nb, delta: int, f_max: int,
 
     ``anchor_fn(state, params) -> 0-d``: the full evaluation that re-anchors
     l_t; None uses the dense likelihood of ``obs``; False skips the
-    re-anchor (chunked callers anchor once per cycle).
+    re-anchor (chunked callers anchor once per cycle). ``rep``: as
+    :func:`make_delta_em_step` takes it (repeat tables).
 
     The carry is Kahan-compensated: each step runs with l_t = 0 and returns
     its raw increment, summed here in a two-f32 compensated sum (a plain f32
@@ -489,7 +537,7 @@ def make_delta_em_cycle(table: SubFragTable, obs, nb, delta: int, f_max: int,
     """
     step = make_delta_em_step(table, obs, nb, delta, f_max, sobs=sobs, band_w=band_w,
                               thresh_overflow=thresh_overflow, obs_grid=obs_grid,
-                              mini_grid=mini_grid)
+                              mini_grid=mini_grid, rep=rep)
     if anchor_fn is None:
         from graal_tpu_torch.core.likelihood import log_likelihood
 

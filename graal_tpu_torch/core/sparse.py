@@ -20,6 +20,11 @@ instead of ~15 per offset. Elementwise math is f32 as in the JAX package;
 every sum is taken in f64 and the result rounded to f32 once, so the port
 agrees with JAX to f32 summation error (rtol 1e-5 in the tests).
 
+Copy-expanded (repeat) tables evaluate the same decomposition with the
+expectation of each observed data pair summed over its copy pairs, and
+same-data-bin copy pairs left out of the mass (:func:`make_sparse_loglik`
+routes them).
+
 The TPU-only ``packed`` window storage of the JAX ``SparseObs`` is not
 carried over: CSR windows are read from ``cols`` / ``vals`` directly.
 """
@@ -98,6 +103,31 @@ def sparse_from_coo(rows, cols, vals, n: int, device=None) -> SparseObs:
         logfact_const=float(-logfact_entries(sp.triu(sym, k=1).tocoo().data).sum()))
 
 
+def sparse_directed(rows, cols, vals, n: int, device=None) -> SparseObs:
+    """Directed (one-orientation) CSR windows in the SparseObs layout: the
+    entries are kept as given (sorted by (row, col), duplicates summed, no
+    symmetrisation; the caller keeps the diagonal out). The repeat delta
+    engine's mixed-pair side table, where each (single-copy, multi-copy)
+    observed pair is listed once from its single-copy end.
+    ``logfact_const`` is not meaningful here (0)."""
+    import scipy.sparse as sp
+
+    m = sp.coo_matrix((np.asarray(vals, np.float64),
+                       (np.asarray(rows), np.asarray(cols))), shape=(n, n)).tocsr()
+    m.sum_duplicates()
+    m.sort_indices()
+    counts = np.diff(m.indptr)
+    coo = m.tocoo()
+
+    def t(x, dt):
+        return torch.as_tensor(np.asarray(x).astype(dt), device=device)
+
+    return SparseObs(
+        rows=t(coo.row, np.int32), cols=t(coo.col, np.int32),
+        vals=t(coo.data, np.float32), row_start=t(m.indptr, np.int64),
+        row_cap=max(int(counts.max()) if counts.size else 1, 1), n=n, logfact_const=0.0)
+
+
 def sparse_from_dense(obs, device=None) -> SparseObs:
     obs = np.asarray(obs)
     iu, ju = np.nonzero(np.triu(obs, 1))
@@ -150,13 +180,12 @@ def make_sparse_loglik(table: SubFragTable, sobs: SparseObs, w: int,
                        max_cells: int = 1 << 24):
     """Build ``fn(state, params) -> 0-d f32`` - the full Poisson
     log-likelihood, sparse and banded, equal to the dense
-    ``core.likelihood.log_likelihood`` of a repeat-free table.
+    ``core.likelihood.log_likelihood``. Repeat tables route to the
+    copy-summing variant (:func:`_make_sparse_loglik_repeats`).
 
     ``max_cells`` bounds each band slab (K x chunk offsets)."""
     if table.has_repeats:
-        raise NotImplementedError(
-            "the copy-summing sparse likelihood of repeat tables is not ported "
-            "yet (ROADMAP A10)")
+        return _make_sparse_loglik_repeats(table, sobs, w, max_cells)
     k = table.n_subs
     if sobs.n != k:
         raise ValueError(f"sparse map has {sobs.n} rows, table has {k} subs")
@@ -206,6 +235,98 @@ def make_sparse_loglik(table: SubFragTable, sobs: SparseObs, w: int,
             corr = torch.where(same, e_cis - params.v_inter * na, 0.0)
             cis_corr = cis_corr + corr.sum(dtype=torch.float64)
         return (term1 - (trans_mass + cis_corr) + sobs.logfact_const).float()
+
+    return fn
+
+
+def _make_sparse_loglik_repeats(table: SubFragTable, sobs: SparseObs, w: int,
+                                max_cells: int):
+    """Copy-expanded sparse likelihood. The expectation of an observed data
+    pair sums over its active copy pairs (c_max x c_max blocks per nnz
+    entry, in chunks of about ``max_cells`` pairs); the expected mass stays
+    pairwise over copy rows (analytic trans + banded cis) with same-data-bin
+    pairs left out, since they feed the data-grid diagonal, which the
+    likelihood masks.
+
+    There is no global log-factorial constant: each entry's log(ob!) sits
+    inside the E > 0 indicator, because a state can drive a pair's
+    expectation to zero (every copy inactive), and then the whole pmf term
+    drops out."""
+    from graal_tpu_torch.core.delta_repeats import build_copy_table
+
+    ct = build_copy_table(table)
+    k = table.n_subs
+    s_dim = table.n_data_sub
+    if sobs.n != s_dim:
+        raise ValueError(f"sparse map has {sobs.n} rows, the data grid {s_dim}")
+    owner = table.owner.long()
+    accu = table.accu
+    data_id = table.data_id.long()
+    nfpb = float(np.float32(table.n_frags_per_bins))
+    dev = accu.device
+    ci = torch.arange(ct.c_max, device=dev)
+
+    def copies_of(bins):
+        b0 = ct.copy_start[bins]
+        rows = ct.copy_rows[(b0[..., None] + ci).clamp(0, k - 1)]
+        return rows, ci < (ct.copy_start[bins + 1] - b0)[..., None]
+
+    u_rows, u_ok = copies_of(sobs.rows.long())
+    v_rows, v_ok = copies_of(sobs.cols.long())
+    lf = torch.as_tensor(logfact_entries(sobs.vals.cpu().numpy()).astype(np.float32),
+                         device=dev)
+    b_rows, b_ok = copies_of(torch.arange(s_dim, device=dev))
+    nnz = sobs.vals.shape[0]
+    e_chunk = max(1, max_cells // (ct.c_max * ct.c_max))
+    chunk = max(1, min(w, max_cells // max(k, 1)))
+    rows_i = torch.arange(k, device=dev)[:, None]
+
+    def fn(state: GenomeState, params: RippeParams):
+        order, mid = genome_sort_order(state, table)
+        idc = state.id_c[owner]
+        circ = state.circ[owner]
+        stot = state.l_cont_bp[owner].float() / 1000.0
+        a = torch.where(state.activ[owner] == 1, accu, 0.0)
+
+        # ---- observed pairs, copy-summed ----
+        term1 = torch.zeros((), dtype=torch.float64, device=dev)
+        for e0 in range(0, nnz, e_chunk):
+            sl = slice(e0, e0 + e_chunk)
+            ur, vr = u_rows[sl], v_rows[sl]
+            s = torch.abs(mid[ur][:, :, None] - mid[vr][:, None, :])
+            same = idc[ur][:, :, None] == idc[vr][:, None, :]
+            na = a[ur][:, :, None] * a[vr][:, None, :] / nfpb
+            e = expected_contacts(s, same, (circ[ur] == 1)[:, :, None],
+                                  stot[ur][:, :, None], na, params)
+            ok = u_ok[sl][:, :, None] & v_ok[sl][:, None, :]
+            e_data = torch.where(ok, e, 0.0).sum(dim=(1, 2))
+            term = sobs.vals[sl] * torch.log(torch.where(e_data > 0.0, e_data, 1.0)) - lf[sl]
+            term1 = term1 + torch.where(e_data > 0.0, term, 0.0).sum(dtype=torch.float64)
+        term1 = 0.5 * term1
+
+        # ---- analytic trans mass, same-bin pairs excluded ----
+        a64 = a.double()
+        a_sum, a_sq = a64.sum(), (a64 * a64).sum()
+        b_sums = torch.where(b_ok, a64[b_rows], 0.0).sum(1)
+        same_bin = ((b_sums * b_sums).sum() - a_sq) * 0.5
+        trans_mass = params.v_inter.double() / nfpb * ((a_sum * a_sum - a_sq) * 0.5 - same_bin)
+
+        # ---- banded cis correction, same-bin pairs excluded ----
+        mid_s, idc_s, circ_s = mid[order], idc[order], circ[order]
+        stot_s, a_s, db_s = stot[order], a[order], data_id[order]
+        cis_corr = torch.zeros((), dtype=torch.float64, device=dev)
+        for off0 in range(1, w + 1, chunk):
+            offs = torch.arange(off0, min(off0 + chunk, w + 1), device=dev)
+            j = rows_i + offs[None, :]
+            jc = j.clamp_max(k - 1)
+            s = torch.abs(mid_s[:, None] - mid_s[jc])
+            same = (idc_s[:, None] == idc_s[jc]) & (j < k) & (db_s[:, None] != db_s[jc])
+            na = a_s[:, None] * a_s[jc] / nfpb
+            e_cis = expected_contacts(s, same, (circ_s == 1)[:, None], stot_s[:, None], na,
+                                      params)
+            corr = torch.where(same, e_cis - params.v_inter * na, 0.0)
+            cis_corr = cis_corr + corr.sum(dtype=torch.float64)
+        return (term1 - (trans_mass + cis_corr)).float()
 
     return fn
 

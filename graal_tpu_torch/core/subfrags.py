@@ -32,6 +32,17 @@ class SubFragTable(NamedTuple):
         return self.owner.shape[0]
 
 
+def copy_csr(data_id, n_data_sub: int):
+    """The data sub -> copy rows CSR of a table (the reference's dispatcher
+    direction): (copy_start (S + 1,), copy_rows (K,), c_max) as numpy, the
+    copy rows sorted by data sub (stable: a sub's copies keep row order),
+    c_max the most copies of any data sub."""
+    data_id = np.asarray(data_id)
+    counts = np.bincount(data_id, minlength=n_data_sub)
+    return (np.concatenate([[0], np.cumsum(counts)]), np.argsort(data_id, kind="stable"),
+            int(counts.max()) if len(counts) else 1)
+
+
 def build_sub_frag_table(sub_ids, sub_len_kb, sub_accu, id_d,
                          device=None) -> SubFragTable:
     """Build the flattened table.

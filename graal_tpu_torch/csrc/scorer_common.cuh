@@ -1,6 +1,7 @@
-// Shared by the candidate scorers ll_dense.cu and ll_mini.cu: the per-cell
-// Rippe math of the Pallas `_tile_body` (graal_tpu/ops/likelihood_pallas.py)
-// -- the log-space expectation of a same-contig sub-fragment pair -- and the
+// Shared by the candidate scorers ll_dense.cu, ll_mini.cu and ll_repeat.cu:
+// the per-cell Rippe math of the Pallas `_tile_body` and `_repeat_kernel`
+// (graal_tpu/ops/likelihood_pallas.py) -- the expectation of a same-contig
+// sub-fragment pair, in log space and in linear space -- and the
 // enumeration of the upper-triangle tiles of a pair grid.
 #pragma once
 
@@ -13,36 +14,49 @@ enum {
 };
 
 struct RippeCell {
-  float log_c1fact, slope, d, d_max, lmk, log_v, log_norm_circ, log_k3fact,
-      log_nfpb;
+  float log_c1fact, slope, d, d_max, lmk, log_v, v_inter, log_norm_circ,
+      log_k3fact, log_nfpb;
 
   __device__ __forceinline__ explicit RippeCell(const float* __restrict__ pvec)
       : log_c1fact(pvec[P_LOG_C1FACT]), slope(pvec[P_SLOPE]), d(pvec[P_D]),
         d_max(pvec[P_D_MAX]), lmk(pvec[P_LMK]), log_v(pvec[P_LOG_V]),
-        log_norm_circ(pvec[P_LOG_NORM_CIRC]), log_k3fact(pvec[P_LOG_K3FACT]),
-        log_nfpb(pvec[P_LOG_NFPB]) {}
+        v_inter(pvec[P_V_INTER]), log_norm_circ(pvec[P_LOG_NORM_CIRC]),
+        log_k3fact(pvec[P_LOG_K3FACT]), log_nfpb(pvec[P_LOG_NFPB]) {}
 
-  // log E / (accu_u accu_v / nfpb) of a same-contig pair at midpoint
-  // distance s (kb): the linear model, or on a circular row (circ_row) the
-  // circular one normalised by the clamped linear value; clamped below by
-  // log v_inter and equal to it outside (0, d_max).
-  __device__ __forceinline__ float log_cis(float s, bool circ_row,
-                                           float stot) const {
+  // Unclamped log of the same-contig model at midpoint distance s (kb):
+  // the linear curve, or on a circular row (circ_row) the circular one
+  // normalised by the clamped linear value. *in_range: 0 < s < d_max.
+  __device__ __forceinline__ float log_cis_raw(float s, bool circ_row,
+                                               float stot, bool* in_range) const {
     const float safe_s = fmaxf(s, 1e-9f);
     const float n_lin = safe_s * lmk;
     const float log_lin = log_c1fact + slope * logf(safe_s)
                           + (d - 2.0f) / (n_lin * n_lin + d);
-    const bool in_range = (s > 0.0f) && (s < d_max);
-    float out = log_lin;
-    if (circ_row) {
-      const float n_circ = lmk * safe_s * fmaxf(stot - s, 1e-9f) / fmaxf(stot, 1e-9f);
-      const float log_val_circ = log_k3fact + slope * logf(n_circ)
-                                 + (d - 2.0f) / (n_circ * n_circ + d);
-      // the reference normalises by the *clamped* linear value
-      const float log_norm_lin = in_range ? fmaxf(log_lin, log_v) : log_v;
-      out = log_val_circ + log_norm_lin - log_norm_circ;
-    }
+    *in_range = (s > 0.0f) && (s < d_max);
+    if (!circ_row) return log_lin;
+    const float n_circ = lmk * safe_s * fmaxf(stot - s, 1e-9f) / fmaxf(stot, 1e-9f);
+    const float log_val_circ = log_k3fact + slope * logf(n_circ)
+                               + (d - 2.0f) / (n_circ * n_circ + d);
+    // the reference normalises by the *clamped* linear value
+    const float log_norm_lin = *in_range ? fmaxf(log_lin, log_v) : log_v;
+    return log_val_circ + log_norm_lin - log_norm_circ;
+  }
+
+  // log E / (accu_u accu_v / nfpb) of a same-contig pair: log_cis_raw
+  // clamped below by log v_inter and equal to it outside (0, d_max).
+  __device__ __forceinline__ float log_cis(float s, bool circ_row,
+                                           float stot) const {
+    bool in_range;
+    const float out = log_cis_raw(s, circ_row, stot, &in_range);
     return in_range ? fmaxf(out, log_v) : log_v;
+  }
+
+  // The same in linear space, as the copy-summing scorer takes it:
+  // max(exp(raw), v_inter) inside (0, d_max), v_inter outside.
+  __device__ __forceinline__ float cis(float s, bool circ_row, float stot) const {
+    bool in_range;
+    const float out = log_cis_raw(s, circ_row, stot, &in_range);
+    return in_range ? fmaxf(expf(out), v_inter) : v_inter;
   }
 };
 

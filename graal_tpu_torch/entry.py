@@ -6,10 +6,18 @@
   observed map and neighbour table, and one EM step over it (delta = 4, 65
   candidates per step) scored by the dense scorer, which launches the CUDA
   kernel when ``device`` is a GPU.
+- :func:`repeat_problem`: the flagship genome with 12 bins duplicated
+  once (the recipe of the JAX package's repeat scorer tests at the
+  flagship width): K = 1,188 copy rows on S = 1,152 data subs, 396
+  fragments, 130 candidates per EM step, scored by the copy-summing
+  scorer.
 - :func:`scale_problem`: the chr1-class sparse problem of the chr1-scale
   path (``scale.ScaleRunner``), the recipe of the JAX package's
   ``benchmarks/bench_scale.py``: 100,000 fragments with one sub each over
   20 contigs at full coverage, shuffled into 400 pieces.
+- :func:`scale_repeat_problem`: the same chr1-scale recipe with repeat
+  copies, as the JAX package's ``benchmarks/bench_scale_repeats.py``
+  builds it (20,000 fragments, 200 duplicated bins).
 """
 
 from __future__ import annotations
@@ -18,10 +26,14 @@ import numpy as np
 import torch
 
 from graal_tpu_torch.core import mcmc
+from graal_tpu_torch.core.state import GenomeState
+from graal_tpu_torch.core.subfrags import SubFragTable, build_sub_frag_table
 from graal_tpu_torch.ops.likelihood_cuda import make_dense_scorer
+from graal_tpu_torch.pipeline import extend_with_repeats
 from graal_tpu_torch.utils.synthetic import (bin_level_matrix, default_params,
                                              make_genome, simulate_contacts)
-from graal_tpu_torch.utils.synthetic_sparse import (make_scale_genome, scale_params,
+from graal_tpu_torch.utils.synthetic_sparse import (add_scale_repeats,
+                                                    make_scale_genome, scale_params,
                                                     shuffle_genome,
                                                     simulate_sparse_contacts)
 
@@ -54,6 +66,46 @@ def entry(device="cpu", **problem_kw):
     return step, (state, gen, params, f_a, 1.0)
 
 
+def copy_expanded_table(table: SubFragTable, id_d, device=None) -> SubFragTable:
+    """The sub-fragment table of a repeat-free ``table`` rebuilt for the
+    copy-fragments ``id_d`` (each copy gets its bin's sub rows)."""
+    owner = table.owner.cpu().numpy()
+    n_bins = int(owner.max()) + 1
+    counts = np.bincount(owner, minlength=n_bins)
+    slot = np.arange(len(owner)) - (np.cumsum(counts) - counts)[owner]
+    sub_ids = np.zeros((n_bins, 4), np.int64)
+    sub_len = np.zeros((n_bins, 3))
+    sub_acc = np.zeros((n_bins, 3))
+    sub_ids[owner, slot] = table.data_id.cpu().numpy()
+    sub_ids[:, 3] = counts
+    sub_len[owner, slot] = table.len_kb.cpu().numpy()
+    sub_acc[owner, slot] = table.accu.cpu().numpy()
+    return build_sub_frag_table(sub_ids, sub_len, sub_acc, id_d, device=device)
+
+
+def repeat_problem(n_bins=384, n_contigs=16, n_dups=12, seed=0, device="cpu"):
+    """(state, table, params, obs, nb) of a copy-expanded genome: the
+    :func:`problem` genome with ``n_dups`` bins, evenly spread over
+    [5, n_bins - 6], duplicated once as fresh singleton contigs
+    (``pipeline.extend_with_repeats``), its copy-expanded table, the
+    observed map simulated on the copy-expanded state (numpy f32), and the
+    neighbour table drawn from the data bins' contacts."""
+    base, base_table = make_genome(n_bins, n_contigs, subs_per_bin=3, seed=seed)
+    soa = base.to_numpy()
+    soa["n_accu"] = np.ones(n_bins, np.int64)
+    dup_bins = np.linspace(5, n_bins - 6, n_dups).astype(int)
+    soa = extend_with_repeats(soa, [(int(b), 1) for b in dup_bins])
+    state = GenomeState.from_soa(soa, device=device)
+    table = copy_expanded_table(base_table, soa["id_d"], device=device)
+    params = default_params(device=device)
+    obs = simulate_contacts(state, table, params, seed=seed)
+    # the bins' contacts come from the repeat-free base table: its owner
+    # maps data subs to bins (on the copy-expanded table it would not)
+    bins = bin_level_matrix(obs, base_table)
+    nb = mcmc.build_neighbour_table(bins, soa["id_d"], state.n_frags, device=device)
+    return state, table, params, obs, nb
+
+
 def scale_problem(n_bins=100_000, n_contigs=None, n_pieces=None, seed=31,
                   shuffle_seed=32, device="cpu"):
     """(truth, shuffled, table, params, sobs): the true genome, its shuffled
@@ -70,3 +122,21 @@ def scale_problem(n_bins=100_000, n_contigs=None, n_pieces=None, seed=31,
     sobs = simulate_sparse_contacts(truth, table, params, seed=seed)
     shuffled = shuffle_genome(truth, n_pieces, seed=shuffle_seed)
     return truth, shuffled, table, params, sobs
+
+
+def scale_repeat_problem(n_bins=20_000, n_dups=200, seed=31, shuffle_seed=32,
+                         device="cpu"):
+    """(truth, shuffled, table, params, sobs, id_d): the chr1-scale recipe
+    of :func:`scale_problem` with ``n_dups`` bins, evenly spread over
+    [11, n_bins - 17], duplicated once (``add_scale_repeats``); contacts
+    are simulated on the repeat-free base genome, then the copy-expanded
+    genome is shuffled into max(n_bins // 250, 8) pieces. ``id_d`` maps
+    each copy-fragment to its data bin."""
+    params = scale_params(device=device)
+    base, base_table = make_scale_genome(n_bins, max(n_bins // 5000, 4), seed=seed,
+                                         device=device)
+    sobs = simulate_sparse_contacts(base, base_table, params, seed=seed)
+    dup_bins = tuple(int(b) for b in np.linspace(11, n_bins - 17, n_dups).astype(int))
+    truth, table, id_d = add_scale_repeats(base, base_table, dup_bins)
+    shuffled = shuffle_genome(truth, max(n_bins // 250, 8), seed=shuffle_seed)
+    return truth, shuffled, table, params, sobs, id_d

@@ -12,9 +12,12 @@ Build: at first use, ``nvcc`` compiles the source for ``sm_90a`` and it is
 loaded with ``ctypes`` (:mod:`graal_tpu_torch.ops.build`). A missing
 ``nvcc`` or a failed build raises.
 
-Dispatch: :func:`make_dense_scorer` returns a :class:`DenseScorer`. On
-CUDA tensors it launches the kernel (or raises); on CPU tensors it runs
-:func:`score_dense_plain`, the same per-cell math in plain torch.
+Dispatch: :func:`make_dense_scorer` returns a :class:`DenseScorer` for a
+repeat-free table and the copy-summing
+:class:`graal_tpu_torch.ops.repeat_cuda.RepeatScorer` for a repeat table.
+On CUDA tensors a scorer launches its kernel (or raises); on CPU tensors
+it runs its plain version (here :func:`score_dense_plain`, the same
+per-cell math in plain torch).
 """
 
 from __future__ import annotations
@@ -116,41 +119,61 @@ def score_dense_plain(mid, idc, circ, stot, la, obs, pvec, obs_const,
     return (torch.cat(out) + obs_const).float()
 
 
-class DenseScorer:
-    """``score(states (B, n), params) -> (B,) f32`` log-likelihoods of a
-    repeat-free table, the counterpart of ``make_pallas_scorer``. A repeat
-    table raises NotImplementedError (kernel B3 is not ported yet).
+def scorer_device(device) -> torch.device:
+    """``device`` with a CUDA index filled in (the current card)."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def host_obs(obs) -> np.ndarray:
+    """The observed matrix as a host f32 array."""
+    if isinstance(obs, torch.Tensor):
+        obs = obs.detach().cpu().numpy()
+    return np.asarray(obs, np.float32)
+
+
+def check_states(states: GenomeState, device):
+    """Raise ValueError unless every field of ``states`` is a (B, n) int32
+    tensor on ``device``."""
+    for name, x in zip(states._fields, states):
+        if x.device != device:
+            raise ValueError(f"state field {name} on {x.device}, scorer on {device}")
+        if x.dtype != torch.int32 or x.dim() != 2:
+            raise ValueError(f"state field {name} must be (B, n) int32, "
+                             f"got {tuple(x.shape)} {x.dtype}")
+
+
+class CopyRowScorer:
+    """What the dense scorers share: per-candidate vectors of the table's
+    sub rows (in the order ``rows``, default table order), the checks of a
+    kernel launch's arguments, and the dispatch of ``score(states (B, n),
+    params) -> (B,) f32``: on a CUDA scorer :meth:`launch`, on a CPU one
+    :meth:`plain`, both over the vectors :meth:`sub_vectors` returns.
 
     ``n_launches`` counts the calls that launched the CUDA kernel.
     """
 
-    def __init__(self, table: SubFragTable, obs, device):
-        device = torch.device(device)
-        if table.has_repeats:
-            raise NotImplementedError(
-                "repeat tables need the copy-summing scorer (B3, "
-                "_repeat_kernel), which is not yet ported; score them with "
-                "core.likelihood.log_likelihood")
-        if device.type == "cuda" and device.index is None:
-            device = torch.device("cuda", torch.cuda.current_device())
-        if isinstance(obs, torch.Tensor):
-            obs = obs.detach().cpu().numpy()
-        obs = np.asarray(obs, np.float32)
+    VECTORS = ("mid", "idc", "circ", "stot")
+
+    def __init__(self, table: SubFragTable, obs, device, rows=None):
+        device = scorer_device(device)
         self.table = table
         self.device = device
-        self.obs = torch.as_tensor(obs, device=device).contiguous()
-        self.obs_const = obs_constant(obs)
+        self.obs = torch.as_tensor(host_obs(obs), device=device).contiguous()
         self.k = table.n_subs
-        self.owner = table.owner.long().to(device)
-        self.prefix = table.prefix_kb.to(device)
-        self.suffix = table.suffix_kb.to(device)
-        self.len_half = table.len_kb.to(device) * 0.5
-        self.la = torch.log(table.accu.to(device)).contiguous()
+        rows = torch.arange(self.k) if rows is None else torch.as_tensor(rows)
+        rows = rows.to(device)
+        self.owner = table.owner.to(device).long()[rows]
+        self.prefix = table.prefix_kb.to(device)[rows]
+        self.suffix = table.suffix_kb.to(device)[rows]
+        self.len_half = table.len_kb.to(device)[rows] * 0.5
         self.log_nfpb = torch.tensor(np.float32(np.log(table.n_frags_per_bins)),
                                      device=device)
         self.n_launches = 0
 
-    def sub_vectors(self, states: GenomeState):
+    def geometry(self, states: GenomeState):
         """Per-candidate O(K) vectors (mid, idc, circ, stot), shape (B, K)."""
         own = self.owner
         start_kb = states.start_bp[:, own].float() / 1000.0
@@ -161,26 +184,21 @@ class DenseScorer:
         stot = states.l_cont_bp[:, own].float() / 1000.0
         return mid, idc, circ, stot
 
-    def _check(self, states: GenomeState):
-        for name, x in zip(states._fields, states):
-            if x.device != self.device:
-                raise ValueError(f"state field {name} on {x.device}, "
-                                 f"scorer on {self.device}")
-            if x.dtype != torch.int32 or x.dim() != 2:
-                raise ValueError(f"state field {name} must be (B, n) int32, "
-                                 f"got {tuple(x.shape)} {x.dtype}")
+    def sub_vectors(self, states: GenomeState):
+        return self.geometry(states)
 
-    def launch(self, mid, idc, circ, stot, pvec) -> torch.Tensor:
-        """Launch the kernel on the vectors of B candidates; (B,) f32."""
+    def check_launch(self, vecs, pvec) -> int:
+        """Raise ValueError unless this scorer lies on a card and ``vecs``
+        (named by ``VECTORS``) and ``pvec`` are what its kernel reads;
+        returns B."""
         if self.device.type != "cuda":
             raise ValueError(f"the CUDA kernel needs a CUDA scorer, not {self.device}")
-        B, K = mid.shape
+        B, K = vecs[0].shape
         if K != self.k:
             raise ValueError(f"vectors have K={K}, table has K={self.k}")
-        for name, x, dt in (("mid", mid, torch.float32), ("idc", idc, torch.int32),
-                            ("circ", circ, torch.float32),
-                            ("stot", stot, torch.float32),
-                            ("pvec", pvec, torch.float32)):
+        named = list(zip(self.VECTORS, vecs)) + [("pvec", pvec)]
+        for name, x in named:
+            dt = torch.int32 if name == "idc" else torch.float32
             if x.device != self.device or x.dtype != dt or not x.is_contiguous():
                 raise ValueError(f"{name}: need contiguous {dt} on {self.device}, "
                                  f"got {x.dtype} on {x.device}")
@@ -188,14 +206,44 @@ class DenseScorer:
                 raise ValueError(f"{name}: need shape {(B, K)}, got {tuple(x.shape)}")
         if pvec.shape != (N_PARAMS,):
             raise ValueError(f"pvec: need shape ({N_PARAMS},), got {tuple(pvec.shape)}")
+        return B
+
+    def __call__(self, states: GenomeState, params: RippeParams) -> torch.Tensor:
+        check_states(states, self.device)
+        vecs = self.sub_vectors(states)
+        pvec = params_vector(params, self.log_nfpb)
+        if self.device.type == "cuda":
+            return self.launch(*vecs, pvec)
+        return self.plain(*vecs, pvec)
+
+
+class DenseScorer(CopyRowScorer):
+    """``score(states (B, n), params) -> (B,) f32`` log-likelihoods of a
+    repeat-free table, the counterpart of ``make_pallas_scorer``. A repeat
+    table raises ValueError: its scorer is ``RepeatScorer``, which
+    :func:`make_dense_scorer` picks.
+    """
+
+    def __init__(self, table: SubFragTable, obs, device):
+        if table.has_repeats:
+            raise ValueError("a repeat table needs the copy-summing scorer "
+                             "(ops.repeat_cuda.RepeatScorer)")
+        obs = host_obs(obs)
+        super().__init__(table, obs, device)
+        self.obs_const = obs_constant(obs)
+        self.la = torch.log(table.accu.to(self.device)).contiguous()
+
+    def launch(self, mid, idc, circ, stot, pvec) -> torch.Tensor:
+        """Launch the kernel on the vectors of B candidates; (B,) f32."""
+        B = self.check_launch((mid, idc, circ, stot), pvec)
         lib = load_library()
-        partial = torch.empty((B, lib.ll_dense_n_tiles(K)), dtype=torch.float32,
+        partial = torch.empty((B, lib.ll_dense_n_tiles(self.k)), dtype=torch.float32,
                               device=self.device)
         out = torch.empty(B, dtype=torch.float32, device=self.device)
         rc = lib.ll_dense_score(
             mid.data_ptr(), idc.data_ptr(), circ.data_ptr(), stot.data_ptr(),
             self.la.data_ptr(), self.obs.data_ptr(), pvec.data_ptr(),
-            partial.data_ptr(), out.data_ptr(), B, K, self.obs_const,
+            partial.data_ptr(), out.data_ptr(), B, self.k, self.obs_const,
             torch.cuda.current_stream(self.device).cuda_stream)
         if rc != 0:
             raise RuntimeError(f"ll_dense_score launch failed: cudaError {rc}")
@@ -207,15 +255,13 @@ class DenseScorer:
         return score_dense_plain(mid, idc, circ, stot, self.la, self.obs,
                                  pvec, self.obs_const)
 
-    def __call__(self, states: GenomeState, params: RippeParams) -> torch.Tensor:
-        self._check(states)
-        vecs = self.sub_vectors(states)
-        pvec = params_vector(params, self.log_nfpb)
-        if self.device.type == "cuda":
-            return self.launch(*vecs, pvec)
-        return self.plain(*vecs, pvec)
 
+def make_dense_scorer(table: SubFragTable, obs, device):
+    """Build ``score(states_batch, params) -> (B,)`` on ``device``: a
+    :class:`DenseScorer`, or for a repeat table the copy-summing
+    ``RepeatScorer`` (kernel B3), as ``make_pallas_scorer`` dispatches."""
+    if table.has_repeats:
+        from graal_tpu_torch.ops.repeat_cuda import RepeatScorer
 
-def make_dense_scorer(table: SubFragTable, obs, device) -> DenseScorer:
-    """Build ``score(states_batch, params) -> (B,)`` on ``device``."""
+        return RepeatScorer(table, obs, device)
     return DenseScorer(table, obs, device)

@@ -1,0 +1,164 @@
+"""Where a step's time goes on the card, for each main path of the port.
+
+Run from the repository root on a GPU:
+
+    python -m graal_tpu_torch.profile_paths [PATH ...] [--warm 64] [--steps 48]
+        [--table-dir DIR]
+
+PATH is any of ``dense`` (the flagship dense EM path, nuisance sampling on),
+``dense_repeat`` (the same on ``entry.repeat_problem``), ``delta`` (the
+100k chr1-class delta path, ``ScaleRunner.cycle_for(1024, 4)``) and
+``delta_repeat`` (the 20k chr1-scale repeat delta path, 200 duplicated
+bins); all four by default. Each path runs ``--warm`` steps, then a window
+of ``--steps`` steps timed on the host clock (after a device sync), then
+another window of ``--steps`` steps under ``torch.profiler``.
+
+Prints one JSON line per path:
+
+- ``wall_ms_per_step``: the unprofiled window's host time per step;
+- ``device_ms_per_step``: the profiled window's device time per step, the
+  sum of the self device times of the device-side events (kernels,
+  memcpy, memset; user annotations left out). The rows of host operators
+  (``aten::...``) also carry the device time of the kernels they launched;
+  they are not added, or every kernel would count twice. This is the
+  "Self CUDA time total" of the profiler's table;
+- ``device_busy``: device_ms_per_step / wall_ms_per_step, so the device's
+  idle share is 1 - device_busy;
+- ``aten_calls_per_step``: host operator calls per step, views included;
+- ``top``: the largest device-side rows, (name, ms per step, calls per
+  step).
+
+``--table-dir`` also writes each path's ``key_averages`` table there.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import time
+from pathlib import Path
+
+import torch
+
+from graal_tpu_torch.entry import DELTA
+
+F_MAX = 1024
+PATHS = ("dense", "dense_repeat", "delta", "delta_repeat")
+
+
+def dense_runner(device, repeat: bool):
+    """``run(order) -> None``: EM steps of the flagship dense problem (or
+    its repeat twin) from the exploded start, scored by the dense kernel."""
+    from graal_tpu_torch.core import mcmc
+    from graal_tpu_torch.core.state import GenomeState
+    from graal_tpu_torch.entry import problem, repeat_problem
+    from graal_tpu_torch.ops.likelihood_cuda import make_dense_scorer
+
+    state, table, params, obs, nb = (repeat_problem if repeat else problem)(device=device)
+    scorer = make_dense_scorer(table, obs, device)
+    cycle = mcmc.make_em_cycle(table, obs, nb, DELTA, sample_param=True, scorer=scorer)
+    gen = torch.Generator(device=device).manual_seed(0)
+    cur = mcmc.explode_genome(state)
+    carry = dict(state=cur, params=params,
+                 l_t=scorer(GenomeState(*[x[None] for x in cur]), params)[0])
+
+    def run(order):
+        carry["state"], carry["params"], carry["l_t"], _ = cycle(
+            carry["state"], gen, carry["params"], order, carry["l_t"], 1.0)
+
+    return run, torch.randperm(state.n_frags, generator=gen, device=device)
+
+
+def delta_runner(device, repeat: bool):
+    """``run(order) -> None``: delta steps of cycle_for(1024, 4) from the
+    shuffled start of the chr1-class problem (or the 20k repeat problem)."""
+    from graal_tpu_torch.entry import scale_problem, scale_repeat_problem
+    from graal_tpu_torch.scale import ScaleRunner
+
+    if repeat:
+        _, shuf, table, params, sobs, id_d = scale_repeat_problem(device=device)
+        runner = ScaleRunner(table, sobs, params, id_d=id_d)
+    else:
+        _, shuf, table, params, sobs = scale_problem(device=device)
+        runner = ScaleRunner(table, sobs, params)
+    cycle = runner.cycle_for(F_MAX, DELTA, rep=shuf.rep)
+    gen = torch.Generator(device=device).manual_seed(0)
+    carry = dict(state=shuf, l_t=runner.anchor_fn()(shuf, params))
+
+    def run(order):
+        carry["state"], carry["l_t"], _ = cycle(carry["state"], gen, params, order,
+                                                carry["l_t"], 1.0)
+
+    return run, torch.randperm(shuf.n_frags, generator=gen, device=device)
+
+
+def device_rows(averages):
+    """The device-side rows of ``key_averages()``: kernels, memcpy and
+    memset, without user annotations."""
+    from torch.autograd import DeviceType
+
+    return [e for e in averages
+            if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
+
+
+def self_device_us(e) -> float:
+    t = getattr(e, "self_device_time_total", None)
+    return float(e.self_cuda_time_total if t is None else t)
+
+
+def profile_path(name: str, device, warm: int, steps: int, table_dir: Path | None):
+    from torch.profiler import ProfilerActivity, profile
+
+    repeat = name.endswith("_repeat")
+    run, order = (delta_runner if name.startswith("delta") else dense_runner)(device, repeat)
+    if warm + 2 * steps > order.shape[0]:
+        raise ValueError(f"{name}: warm + 2 x steps exceeds the {order.shape[0]} fragments")
+    run(order[:warm])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run(order[warm:warm + steps])
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run(order[warm + steps:warm + 2 * steps])
+        torch.cuda.synchronize()
+    avgs = prof.key_averages()
+    dev_rows = device_rows(avgs)
+    # None when the profiler traced no device activity
+    device_ms = sum(self_device_us(e) for e in dev_rows) / 1e3 / steps if dev_rows else None
+    aten = sum(e.count for e in avgs if e.key.startswith("aten::")) / steps
+    top = sorted(dev_rows, key=self_device_us, reverse=True)[:15]
+    if table_dir is not None:
+        table_dir.mkdir(parents=True, exist_ok=True)
+        key = "self_device_time_total" if hasattr(avgs[0], "self_device_time_total") \
+            else "self_cuda_time_total"
+        (table_dir / f"profile_{name}.txt").write_text(
+            avgs.table(sort_by=key, row_limit=60, max_name_column_width=60))
+    return {"path": name, "steps": steps, "wall_ms_per_step": round(wall_ms, 4),
+            "device_ms_per_step": device_ms and round(device_ms, 4),
+            "device_busy": device_ms and round(device_ms / wall_ms, 4),
+            "aten_calls_per_step": round(aten, 1),
+            "top": [[e.key[:70], round(self_device_us(e) / 1e3 / steps, 4),
+                     round(e.count / steps, 2)] for e in top]}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("paths", nargs="*", metavar="PATH", help=f"any of {', '.join(PATHS)}")
+    ap.add_argument("--warm", type=int, default=64)
+    ap.add_argument("--steps", type=int, default=48)
+    ap.add_argument("--table-dir", type=Path, default=None)
+    args = ap.parse_args(argv)
+    unknown = sorted(set(args.paths) - set(PATHS))
+    if unknown:
+        ap.error(f"unknown path(s) {unknown}: choose from {PATHS}")
+    if not torch.cuda.is_available():
+        raise SystemExit("torch.cuda.is_available() is false: profiling needs a GPU")
+    device = torch.device("cuda", 0)
+    for name in args.paths or PATHS:
+        print(json.dumps(profile_path(name, device, args.warm, args.steps, args.table_dir)),
+              flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -13,10 +13,16 @@ host reads the chunk's operations and overflow counts only between chunks.
 One :class:`WindowObsGrid` and one :class:`MiniGridScorer` serve every
 bucket, so their launch counts cover the whole run.
 
+Repeat (copy-expanded) tables run the same loop: the delta step routes
+them to the repeat engine (:mod:`core.delta_repeats`) and the anchor to the
+copy-summing sparse likelihood; the runner then needs ``id_d`` (the data
+bin of each copy-fragment, for the neighbour tables). The repeat engine's
+exactness contract is checked against the repeat flags of the genome a
+cycle runs on (``run``'s ``state0``, ``cycle_for``'s ``rep``).
+
 Not ported here: the multi-device anchor (ROADMAP A12), checkpoint /
 resume and ``from_dataset`` (A7), snapshots and the live view (A13),
-``run_mtm`` / ``run_chains`` and ``run_multilevel`` (A11 / A12), repeat
-tables (A10).
+``run_mtm`` / ``run_chains`` and ``run_multilevel`` (A11 / A12).
 """
 
 from __future__ import annotations
@@ -56,16 +62,17 @@ def contig_frags_per_frag(state: GenomeState) -> np.ndarray:
 
 class ScaleRunner:
     """One configured chr1-scale assembly run on the device of ``table``
-    (``sobs`` and ``params`` live there too)."""
+    (``sobs`` and ``params`` live there too). A repeat table needs ``id_d``
+    (see the module docstring); ``sobs`` then lies on the data grid."""
 
     def __init__(self, table: SubFragTable, sobs: sparse.SparseObs,
                  params: RippeParams, nb: mcmc.NeighbourTable | None = None,
-                 band_margin: float = 2.0):
+                 band_margin: float = 2.0, id_d=None):
         import scipy.sparse as sp
 
-        if table.has_repeats:
-            raise NotImplementedError("chr1-scale repeat tables are not ported "
-                                      "yet (ROADMAP A10)")
+        if table.has_repeats and id_d is None and nb is None:
+            raise ValueError("a repeat table needs id_d (the data bin of each "
+                             "copy-fragment) for its neighbour tables")
         self.table = table
         self.sobs = sobs
         self.params = params
@@ -75,7 +82,8 @@ class ScaleRunner:
             m = sp.coo_matrix((sobs.vals.cpu().numpy(),
                                (sobs.rows.cpu().numpy(), sobs.cols.cpu().numpy())),
                               shape=(n, n)).tocsr()
-            nb = mcmc.build_neighbour_table(m, np.arange(n), n, device=self.device)
+            id_d = np.arange(n) if id_d is None else np.asarray(id_d)
+            nb = mcmc.build_neighbour_table(m, id_d, len(id_d), device=self.device)
         self.nb = nb
         self.w = sparse.band_width(table.len_kb, float(params.d_max), margin=band_margin)
         # nuisance d_max proposals must stay inside the band coverage; when
@@ -110,14 +118,23 @@ class ScaleRunner:
 
         return score
 
-    def cycle_for(self, f_max: int, delta: int):
+    def cycle_for(self, f_max: int, delta: int, rep=None):
         """The delta cycle of bucket ``f_max``, without an internal re-anchor
-        (the runner anchors once per cycle)."""
+        (the runner anchors once per cycle). On a repeat table ``rep``, the
+        repeat flags of the genome the cycle will run on, is required: the
+        repeat engine's exactness contract is checked against it (host)
+        on every call, the cycle itself built once."""
+        if self.table.has_repeats:
+            from graal_tpu_torch.core.delta_repeats import check_exactness_contract
+
+            if rep is None:
+                raise ValueError("a repeat table's cycle needs the genome's rep flags")
+            check_exactness_contract(self.table, rep)
         if (f_max, delta) not in self._cycles:
             self._cycles[(f_max, delta)] = delta_mod.make_delta_em_cycle(
                 self.table, None, self.nb, delta=delta, f_max=f_max, sobs=self.sobs,
                 anchor_fn=False, band_w=self.w, obs_grid=self.obs_grid,
-                mini_grid=self.mini_grid)
+                mini_grid=self.mini_grid, rep=rep)
         return self._cycles[(f_max, delta)]
 
     def nuisance_step(self):
@@ -155,6 +172,7 @@ class ScaleRunner:
         if order_mode not in ("random", "extremity"):
             raise ValueError(f"unknown order_mode {order_mode!r}")
         n = state0.n_frags
+        rep = state0.rep.cpu().numpy()   # fixed for the run: no move changes rep
         dev = self.device
         steps = steps_per_cycle or n
         gen = torch.Generator(device=dev).manual_seed(seed)
@@ -181,7 +199,7 @@ class ScaleRunner:
 
         def run_tier(state, l_t, bucket, order_np):
             """``order_np`` steps at one bucket, in chunks of the ladder."""
-            cycle = self.cycle_for(bucket, delta)
+            cycle = self.cycle_for(bucket, delta, rep)
             outs = []
             i = 0
             while i < len(order_np):

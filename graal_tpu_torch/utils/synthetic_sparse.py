@@ -126,6 +126,36 @@ def simulate_sparse_contacts(state: GenomeState, table: SubFragTable,
                            device=table.owner.device)
 
 
+def add_scale_repeats(state: GenomeState, table: SubFragTable, dup_bins):
+    """Append one repeat copy of each bin of ``dup_bins`` as a fresh
+    singleton contig (originals flagged as repeats too) and rebuild the
+    one-sub-per-bin table copy-expanded. Returns (state, table, id_d)."""
+    s = state.to_numpy()
+    n = len(s["pos"])
+    dup = np.asarray(dup_bins, np.int64).reshape(-1)
+    m = len(dup)
+    ones = np.ones(m, np.int64)
+    ext = dict(pos=0 * ones, id_c=int(s["id_c"].max()) + 1 + np.arange(m),
+               start_bp=0 * ones, len_bp=s["len_bp"][dup], circ=0 * ones, l_cont=ones,
+               l_cont_bp=s["len_bp"][dup], ori=ones, rep=ones, activ=ones, id_d=dup)
+    soa = {k: np.concatenate([s[k].astype(np.int64), ext[k]]) for k in s}
+    soa["rep"][dup] = 1
+    id_d = soa["id_d"]
+    n_frags = len(id_d)
+    dev = table.owner.device
+
+    def t(x, dt):
+        return torch.as_tensor(np.asarray(x, dt), device=dev)
+
+    table2 = SubFragTable(
+        owner=t(np.arange(n_frags), np.int32), data_id=t(id_d, np.int32),
+        len_kb=t(table.len_kb.cpu().numpy()[id_d], np.float32),
+        accu=t(np.ones(n_frags), np.float32), prefix_kb=t(np.zeros(n_frags), np.float32),
+        suffix_kb=t(np.zeros(n_frags), np.float32),
+        n_data_sub=n, n_frags_per_bins=1.0, has_repeats=True)
+    return GenomeState.from_soa(soa, device=state.pos.device), table2, id_d
+
+
 def shuffle_genome(state: GenomeState, n_pieces: int, seed: int = 0) -> GenomeState:
     """Scramble the ground truth into ``n_pieces`` random contigs of
     shuffled, randomly oriented chunks (chunks keep local order)."""

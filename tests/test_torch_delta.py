@@ -227,21 +227,28 @@ def test_inactive_rows_masked_before_obs_term(problem):
 
 
 def test_repeat_table_raises(problem):
-    from graal_tpu.core.subfrags import build_sub_frag_table
+    """A repeat table is refused by the plain delta scorer (the JAX
+    package's build_mini_table asserts the same) and by make_delta_em_step
+    without the genome's rep flags; with them the step routes it to the
+    repeat engine v2 and runs."""
+    from graal_tpu_torch.utils import synthetic_sparse as tss
 
-    id_d = np.concatenate([np.arange(20), [3, 3, 7, 11]])
-    sub_ids = np.zeros((20, 4), np.int64)
-    sub_ids[:, 0] = np.arange(20)
-    sub_ids[:, 3] = 1
-    sub_len = np.zeros((20, 3))
-    sub_len[:, 0] = 5.0
-    table = build_sub_frag_table(sub_ids, sub_len, np.ones((20, 3)), id_d)
-    tt = convert.table_from_numpy(table._asdict())
+    base, base_table = tss.make_scale_genome(20, 2, seed=3)
+    state, tt, id_d = tss.add_scale_repeats(base, base_table, (3, 3, 7, 11))
+    np.testing.assert_array_equal(id_d, np.concatenate([np.arange(20), [3, 3, 7, 11]]))
     assert tt.has_repeats
-    with pytest.raises(NotImplementedError):
-        td.make_delta_em_step(tt, np.zeros((20, 20), np.float32), problem["t_nb"], DELTA, 8)
-    with pytest.raises(NotImplementedError):
-        td.make_delta_scorer(tt, np.zeros((20, 20), np.float32), 8)
+    obs = np.ones((20, 20), np.float32) - np.eye(20, dtype=np.float32)
+    nb = tm.build_neighbour_table(obs, id_d, len(id_d))
+    with pytest.raises(ValueError):
+        td.make_delta_scorer(tt, obs, 8)
+    with pytest.raises(ValueError, match="rep flags"):
+        td.make_delta_em_step(tt, obs, nb, DELTA, 8)
+    step = td.make_delta_em_step(tt, obs, nb, DELTA, 8, rep=state.rep)
+    new, l_new, (op, fb, n_over) = step(state, torch.Generator().manual_seed(2),
+                                        tss.scale_params(), torch.tensor(0.0),
+                                        torch.tensor(21), 1.0)
+    check_invariants(new)
+    assert torch.isfinite(l_new) and -1 <= int(op) < 13
 
 
 @functools.partial(jax.jit, static_argnums=(1, 2, 3))

@@ -170,10 +170,16 @@ def test_scorer_guards(problem):
     with pytest.raises(ValueError):        # the kernel launch is CUDA-only
         scorer.launch(*scorer.sub_vectors(one),
                       lc.params_vector(tp, scorer.log_nfpb))
-    # repeat tables are refused, never scored by the repeat-free math
-    # (kernel B3 is not ported yet)
+    # a repeat table is never scored by the repeat-free math: the repeat-free
+    # scorer refuses it, and make_dense_scorer dispatches it to the
+    # copy-summing scorer (kernel B3), whose CPU path is its plain version
     rstate, rtable, rparams, robs = _repeat_problem()
-    _, rtt, _ = port_problem(rstate, rtable, rparams)
-    for device in ("cuda", "cpu"):
-        with pytest.raises(NotImplementedError, match="B3"):
-            lc.make_dense_scorer(rtt, robs, device)
+    rts, rtt, rtp = port_problem(rstate, rtable, rparams)
+    with pytest.raises(ValueError, match="copy-summing"):
+        lc.DenseScorer(rtt, robs, "cpu")
+    rscorer = lc.make_dense_scorer(rtt, robs, "cpu")
+    assert type(rscorer).__name__ == "RepeatScorer"
+    got = rscorer(TState(*[x[None] for x in rts]), rtp)[0].item()
+    want = float(jl.log_likelihood(rstate, rtable, robs, rparams))
+    np.testing.assert_allclose(got, want, rtol=SCORER_RTOL)
+    assert rscorer.n_launches == 0

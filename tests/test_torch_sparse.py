@@ -136,14 +136,22 @@ def test_genome_sort_order_and_obs_fn_match():
 
 
 def test_repeat_tables_raise():
-    """The copy-summing sparse likelihood and the chr1-scale runner of
-    repeat tables wait for ROADMAP A10: both refuse a repeat table."""
-    from graal_tpu_torch.core.subfrags import trivial_table
+    """The copy-summing sparse likelihood scores a repeat table (equal to
+    the dense likelihood at the JAX test's tolerance), and the chr1-scale
+    runner refuses one without id_d."""
     from graal_tpu_torch.scale import ScaleRunner
 
-    table = trivial_table(np.full(6, 3000.0))._replace(has_repeats=True)
-    sobs = ts.sparse_from_dense(np.ones((6, 6), np.float32) - np.eye(6, dtype=np.float32))
-    with pytest.raises(NotImplementedError):
-        ts.make_sparse_loglik(table, sobs, 4)
-    with pytest.raises(NotImplementedError):
-        ScaleRunner(table, sobs, tss.scale_params())
+    base, base_table = tss.make_scale_genome(60, 2, seed=5)
+    params = tss.scale_params()
+    sobs = tss.simulate_sparse_contacts(base, base_table, params, seed=5)
+    state, table, id_d = tss.add_scale_repeats(base, base_table, (7, 30))
+    w = ts.band_width(table.len_kb, float(params.d_max))
+    obs = np.zeros((60, 60), np.float32)
+    obs[sobs.rows.numpy(), sobs.cols.numpy()] = sobs.vals.numpy()
+    for st in (state, tss.shuffle_genome(state, 6, seed=1)):
+        got = float(ts.make_sparse_loglik(table, sobs, w)(st, params))
+        dense = float(tl.log_likelihood(st, table, torch.as_tensor(obs), params))
+        np.testing.assert_allclose(got, dense, rtol=2e-4, atol=0.5)
+    with pytest.raises(ValueError):
+        ScaleRunner(table, sobs, params)
+    ScaleRunner(table, sobs, params, id_d=id_d)
