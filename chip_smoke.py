@@ -5,7 +5,21 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-Phases, in order; any failure raises and exits non-zero:
+Phases, in order; any failure raises and exits non-zero. Every kernel is
+timed at the shapes its path gives it twice, with CUDA events around many
+calls: as called ("ms", which at a few microseconds a call times the
+host's enqueue) and on the device alone ("device_ms": the calls queued
+behind a spin kernel that outlasts their enqueue, so they run back to
+back). No time is taken from torch.profiler: its kernel durations drift
+against the events' in a long process. A kernel's bound is the least time
+the card could take for the same work, max(bytes / 3.35 TB/s, FP32
+operations / 67 TFLOP/s, special-function operations /
+(132 x 16 x the SM's maximum clock)), from this run's inputs: 6 FP32
+operations per cell a candidate evaluates and, per same-contig pair inside
+(0, d_max) (counted on the card), 10 more and 3 special-function ones (B3:
+one more per data cell with more than one active copy pair and ob > 0); the
+scorers read the strict upper triangle of their observed planes only; B4
+moves bytes only. "share" is the bound over the device time.
 
 1. Device: refuse to run without CUDA; print the card (nvidia-smi name and
    power limit), torch's and nvcc's versions.
@@ -32,9 +46,13 @@ Phases, in order; any failure raises and exits non-zero:
    on a genome with one copy deactivated, on the exploded start and on a
    circularised contig holding a repeat copy, rtol 1e-4; at B = 1 (the
    nuisance shape, also held to the dense oracle); every candidate
-   bit-identical alone and in its batch; the f64 loop oracle on a small
-   repeat problem; and B = 13 on the largest dense repeat table
-   (S = 6,000). Timed against the plain version with CUDA events.
+   bit-identical alone and in its batch; the same on a table where one bin
+   is duplicated twice (3 copy rows a data sub); on a copy-dense table
+   (about 1,000 copy rows in a block of 64 data subs, so an item's copy
+   records cap the candidate chunk below 13): 13 candidates and B = 1; the
+   f64 loop oracle on a small repeat problem; and B = 13 on the largest
+   dense repeat table (S = 6,000). Timed against the plain version at
+   B = 130, 1 and 13.
 4b. Dense repeat main path: 2 EM cycles of the repeat problem from its
    exploded start, nuisance sampling on, as in phase 4 (launches
    1 + 2 x steps, carried == rescored, invariants, a second run identical).
@@ -43,8 +61,9 @@ Phases, in order; any failure raises and exits non-zero:
    shuffled into 400 pieces) at f_max 1,024 for the 5 neighbour slots of a
    few fragments: B4 bit-identical; B2's scores within rtol 1e-4 and its
    deltas within DLL_ATOL; every genome's B2 score bit-identical alone and
-   in its batch. Timed against the plain versions with CUDA events: B2 at
-   R = 1,024 and at R = 4,096 (the top tier), B4 at R = 1,024.
+   in its batch. Timed against the plain versions: B4 (its time includes
+   the wrapper's torch.sort of the keys) at R = 1,024, B2 at every tier of
+   the ladder, R = 256 to 4,096, each also held to its plain version.
 6. Per-step exactness at 20,000 fragments: 10 single delta steps at f_max
    1,024; after each, the carried likelihood must be within
    max(0.5, 1e-6 |L|) of a full sparse re-anchor.
@@ -73,12 +92,16 @@ Phases, in order; any failure raises and exits non-zero:
 8a. ScaleRunner.run with id_d on the 200-dup problem: 1 cycle of 512
    extremity-first steps, the same checks.
 9. Last lines: the nvidia-smi line, one JSON line on the kernels run, and
-   {"ok": true, "device": {...}}. A kernel's max_abs_err and times are
-   those of its flagship shape (B1: K = 1,152; B3: S = 1,152; B2 / B4: the
-   100k path), the largest dense table's error has its own key, and B2 /
-   B4 give their launches and repeat-path checks under "by_path".
+   {"ok": true, "device": {...}}. Each kernel's entry has the contract's
+   keys (launches, max_abs_err, ms, plain_ms, bound_ms, bound_by,
+   library_ms: null, as no single PyTorch call computes any of the four)
+   and device_ms and share, at its flagship shape (B1: K = 1,152; B3:
+   S = 1,152; B2 / B4: the 100k path at R = 1,024); the other shapes sit
+   under "by_shape" (B1, B3), "tiers" (B2) and "by_path" (B2 / B4, with
+   each path's launches).
 """
 
+import functools
 import json
 import subprocess
 import sys
@@ -93,6 +116,7 @@ SCALE_BINS = 100_000        # the chr1-class problem (bench_scale.py)
 EXACT_BINS = 20_000         # benchmarks/check_exactness.py's size
 F_MAX = 1024                # the flagship delta bucket
 TOP_F_MAX = 4096            # the top tier of the shuffled 100k start
+TIERS = (256, 512, 1024, 2048, TOP_F_MAX)   # ScaleRunner.run's ladder from f_max 256
 DELTA = 4
 MAIN_STEPS = 256            # bench_scale.py's timed chunk
 # B2 deltas, kernel vs plain: both sum f32 cells in f64, so they differ by
@@ -126,7 +150,9 @@ def gpu_line():
 
 
 def cuda_ms(fn, n_iter, n_warm=2):
-    """Mean device time of fn() in ms (CUDA events around n_iter calls)."""
+    """Mean time of fn() in ms between CUDA events around n_iter calls. At
+    a few microseconds a call this times the host's enqueue, not the
+    kernel: :func:`device_ms` reads the kernels' own time."""
     import torch
 
     for _ in range(n_warm):
@@ -140,6 +166,165 @@ def cuda_ms(fn, n_iter, n_warm=2):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / n_iter
+
+
+def device_ms(fn, n_iter, n_warm=2):
+    """ms per call of fn() on the device alone: CUDA events around n_iter
+    calls queued behind a spin kernel (torch.cuda._sleep) that outlasts
+    their enqueue on the host, so the calls run back to back and no host
+    time is counted."""
+    import torch
+
+    for _ in range(n_warm):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_iter):
+        fn()
+    host_s = time.perf_counter() - t0
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int((2.0 * host_s + 1e-3) * max_sm_clock_hz()))
+    start.record()
+    for _ in range(n_iter):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / n_iter
+
+
+def timed(fn, n_iter, plain=None, n_plain=3):
+    """ms per call of fn(): event-timed as called (host enqueue included)
+    and on the device alone; and the plain version's event-timed ms."""
+    out = dict(ms=cuda_ms(fn, n_iter), device_ms=device_ms(fn, n_iter))
+    if plain is not None:
+        out["plain_ms"] = cuda_ms(plain, n_plain, n_warm=1)
+    return out
+
+
+@functools.cache
+def max_sm_clock_hz():
+    return float(run_cmd(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"]).splitlines()[0]) * 1e6
+
+
+# Peak rates of one H100 SXM (NVIDIA's published figures): HBM
+# bytes/s and FP32 FLOP/s outside the tensor cores; the special-function
+# units issue 16 operations per clock on each of the 132 SMs.
+HBM_BYTES_PER_S = 3.35e12
+FP32_PER_S = 67e12
+SFU_PER_SM_CLOCK = 16
+N_SM = 132
+
+
+def bound(n_bytes, fp32_ops=0.0, sfu_ops=0.0):
+    """The least time (ms) the card could take for this work, and what sets
+    it: max(bytes / HBM rate, FP32 operations / FP32 rate, special-function
+    operations / (132 x 16 x the SM's maximum clock)). ``bound_by`` is
+    "bytes" or "operations", ``bound_term`` which of the three."""
+    terms = {"bytes": n_bytes / HBM_BYTES_PER_S, "fp32": fp32_ops / FP32_PER_S,
+             "sfu": sfu_ops / (N_SM * SFU_PER_SM_CLOCK * max_sm_clock_hz())}
+    term = max(terms, key=terms.get)
+    return dict(bound_ms=terms[term] * 1e3, bound_by="bytes" if term == "bytes" else "operations",
+                bound_term=term, n_bytes=int(n_bytes), fp32_ops=int(fp32_ops),
+                sfu_ops=int(sfu_ops))
+
+
+def with_share(t, b):
+    """Timing ``t`` and bound ``b`` in one record, with the share of the
+    bound in the device time."""
+    return dict(t, **b, share=b["bound_ms"] / t["device_ms"])
+
+
+def in_range_pairs(mid, idc, d_max, pairs, active=None):
+    """Same-contig pairs with 0 < |mid_u - mid_v| < d_max among the (N, N)
+    bool mask ``pairs``, summed over the genomes of (G, N) vectors, one
+    genome at a time on the card; ``active`` (G, N) keeps only pairs of two
+    active rows."""
+    total = 0
+    for g in range(mid.shape[0]):
+        s = (mid[g, :, None] - mid[g, None, :]).abs()
+        ok = pairs & (idc[g, :, None] == idc[g, None, :]) & (s > 0) & (s < d_max)
+        if active is not None:
+            ok &= active[g, :, None] & active[g, None, :]
+        total += int(ok.sum())
+    return total
+
+
+def scorer_counts(n_cells, n_cis, extra_sfu=0):
+    """FP32 and special-function operations of a scorer call: 6 per cell a
+    candidate evaluates, 10 FP32 and 3 special-function per same-contig
+    pair inside (0, d_max), plus ``extra_sfu``."""
+    return dict(fp32_ops=6.0 * n_cells + 10.0 * n_cis, sfu_ops=3.0 * n_cis + extra_sfu)
+
+
+def upper_mask(n, device):
+    import torch
+
+    return torch.ones((n, n), dtype=torch.bool, device=device).triu(1)
+
+
+def upper_cells(n):
+    """Cells u < v of an n x n plane: all a scorer reads of it."""
+    return n * (n - 1) // 2
+
+
+def dense_bound(vecs, pvec):
+    """Bound of a B1 call on (B, K) vectors: obs (its upper triangle), the
+    four vectors and log accu read once, the scores written once."""
+    mid, idc = vecs[0], vecs[1]
+    b, k = mid.shape
+    cis = in_range_pairs(mid, idc, pvec[3].item(), upper_mask(k, mid.device))
+    return bound(4 * (upper_cells(k) + 4 * b * k + k + b),
+                 **scorer_counts(b * upper_cells(k), cis))
+
+
+def repeat_bound(scorer, vecs, pvec):
+    """Bound of a B3 call on (B, K) copy vectors: obs and lf (their upper
+    triangles), the five vectors and the copy ranges read once, the scores
+    written once; same-contig
+    copy pairs of two active copies on two data subs, and the data cells
+    with more than one active copy pair and ob > 0 (one logf of E each)."""
+    import torch
+
+    mid, idc, a = vecs[0], vecs[1], vecs[4]
+    b, k = mid.shape
+    s = scorer.s
+    dev = mid.device
+    data = torch.repeat_interleave(torch.arange(s, device=dev),
+                                   torch.diff(scorer.copy_start.long()))
+    active = a > 0
+    cis = in_range_pairs(mid, idc, pvec[3].item(), data[:, None] < data[None, :], active)
+    n_act = torch.zeros((b, s), device=dev).index_add_(1, data, active.float())
+    cells = upper_mask(s, dev) & (scorer.obs > 0)
+    multi = sum(int(((n_act[g, :, None] * n_act[g, None, :] > 1) & cells).sum())
+                for g in range(b))
+    return bound(4 * (2 * upper_cells(s) + 5 * b * k + s + 1 + b),
+                 **scorer_counts(b * upper_cells(s), cis, multi))
+
+
+def mini_bound(args):
+    """Bound of a B2 call: the observed grids (their upper triangles) and
+    the five (M, C, R) vectors read once, scores and deltas written once."""
+    mid, idc, pvec = args[0], args[1], args[6]
+    m, c, r = mid.shape
+    cis = in_range_pairs(mid.reshape(m * c, r), idc.reshape(m * c, r), pvec[3].item(),
+                         upper_mask(r, mid.device))
+    return bound(4 * (m * upper_cells(r) + 5 * m * c * r + m * c + m * (c - 1)),
+                 **scorer_counts(m * c * upper_cells(r), cis))
+
+
+def obsgrid_bound(win):
+    """Bound of a B4 call: per neighbour R x cap window columns and values
+    and R keys read, the R x R grid written."""
+    m, r, cap = win[0].shape
+    return bound(m * (r * cap * 8 + r * 4 + r * r * 4))
+
+
+def fmt_bound(t):
+    return (f"bound {t['bound_ms']:.6f} ms ({t['bound_term']}: {t['n_bytes']} bytes, "
+            f"{t['fp32_ops']} fp32, {t['sfu_ops']} sfu ops), share {t['share']:.4f}")
 
 
 def phase_device():
@@ -309,7 +494,7 @@ def check_small_oracle(build, device):
 def check_large(build, device, f_a, gen):
     """One 13-candidate batch of the largest dense table: the kernel
     against its plain version, batch invariance and both times. Returns
-    the max abs error."""
+    (the max abs error, the shape: scorer, vectors, pvec, timing)."""
     from graal_tpu_torch.ops.likelihood_cuda import make_dense_scorer, params_vector
 
     state, table, params, obs, nb = build(device)
@@ -319,11 +504,15 @@ def check_large(build, device, f_a, gen):
     batch_invariance(scorer, batch, params, got, "large candidates")
     vecs = scorer.sub_vectors(batch)
     pvec = params_vector(params, scorer.log_nfpb)
-    k_ms = cuda_ms(lambda: scorer.launch(*vecs, pvec), 20)
-    p_ms = cuda_ms(lambda: scorer.plain(*vecs, pvec), 2, n_warm=1)
-    print(f"  time B=13 S={table.n_data_sub} K={scorer.k}: kernel {k_ms:.4f} ms, "
-          f"plain {p_ms:.4f} ms")
-    return err
+    t = timed(lambda: scorer.launch(*vecs, pvec), 20,
+              lambda: scorer.plain(*vecs, pvec), n_plain=2)
+    print(f"  time B=13 S={table.n_data_sub} K={scorer.k}: {fmt_time(t)}")
+    return err, dict(scorer=scorer, vecs=vecs, pvec=pvec, timing=t)
+
+
+def fmt_time(t):
+    out = f"kernel {t['ms']:.4f} ms (as called), {t['device_ms']:.4f} ms (device)"
+    return out + (f", plain {t['plain_ms']:.4f} ms" if "plain_ms" in t else "")
 
 
 def phase_kernel(device, n_bins=384, large_bins=LARGE_BINS):
@@ -347,18 +536,20 @@ def phase_kernel(device, n_bins=384, large_bins=LARGE_BINS):
     timing = {}
     for name, b in (("true", batches[0]), ("exploded", batches[1])):
         v = scorer.sub_vectors(b)
-        k_ms = cuda_ms(lambda: scorer.launch(*v, pvec), 50)
-        p_ms = cuda_ms(lambda: scorer.plain(*v, pvec), 5, n_warm=1)
-        timing[name] = (k_ms, p_ms)
-        print(f"  time B=65 K={scorer.k} ({name} candidates): kernel {k_ms:.4f} ms, "
-              f"plain {p_ms:.4f} ms")
+        t = timed(lambda: scorer.launch(*v, pvec), 50, lambda: scorer.plain(*v, pvec), 5)
+        timing[name] = with_share(t, dense_bound(v, pvec))
+        print(f"  time B=65 K={scorer.k} ({name} candidates): {fmt_time(t)}; "
+              f"{fmt_bound(timing[name])}")
     one = [x[:1].contiguous() for x in scorer.sub_vectors(batches[0])]
-    print(f"  time B=1 K={scorer.k}: kernel {cuda_ms(lambda: scorer.launch(*one, pvec), 50):.4f} ms")
+    t1 = timed(lambda: scorer.launch(*one, pvec), 50)
+    print(f"  time B=1 K={scorer.k}: {fmt_time(t1)}")
 
     check_small_oracle(lambda dev: problem(n_bins=24, n_contigs=3, device=dev), device)
-    err = check_large(lambda dev: problem(n_bins=large_bins, device=dev), device, 11, gen)
-    return dict(max_abs_err=max_err, max_abs_err_k6000=err, ms=timing["true"][0],
-                plain_ms=timing["true"][1])
+    err, large = check_large(lambda dev: problem(n_bins=large_bins, device=dev), device, 11,
+                             gen)
+    return dict(max_abs_err=max_err, max_abs_err_k6000=err, **timing["true"],
+                by_shape={"B1_K6000": with_share(
+                    large["timing"], dense_bound(large["vecs"], large["pvec"]))})
 
 
 def main_path_run(device, build, n_cycles):
@@ -505,21 +696,81 @@ def phase_repeat_kernel(device, n_bins=384, large_bins=LARGE_BINS, small_bins=24
 
     pvec = params_vector(params, scorer.log_nfpb)
     vecs = scorer.sub_vectors(batches[0])
-    k_ms = cuda_ms(lambda: scorer.launch(*vecs, pvec), 50)
-    p_ms = cuda_ms(lambda: scorer.plain(*vecs, pvec), 3, n_warm=1)
-    print(f"  time B={batches[0].pos.shape[0]} S={scorer.s} K={scorer.k}: kernel {k_ms:.4f} ms, "
-          f"plain {p_ms:.4f} ms")
-    one = [x[:1].contiguous() for x in vecs]
-    k1_ms = cuda_ms(lambda: scorer.launch(*one, pvec), 50)
-    p1_ms = cuda_ms(lambda: scorer.plain(*one, pvec), 5, n_warm=1)
-    print(f"  time B=1 S={scorer.s}: kernel {k1_ms:.4f} ms, plain {p1_ms:.4f} ms")
+    timing = {}
+    for v in (vecs, [x[:1].contiguous() for x in vecs]):
+        label = f"B={v[0].shape[0]} S={scorer.s}"
+        t = timed(lambda: scorer.launch(*v, pvec), 50, lambda: scorer.plain(*v, pvec), 3)
+        timing[label] = with_share(t, repeat_bound(scorer, v, pvec))
+        print(f"  time {label} K={scorer.k}: {fmt_time(t)}; {fmt_bound(timing[label])}")
 
+    check_three_copies(device, n_bins, gen)
+    err_dense = check_copy_dense(device, gen)
     check_small_oracle(lambda dev: repeat_problem(n_bins=small_bins, n_contigs=3, n_dups=3,
                                                   device=dev), device)
     # f_a of the large batch: the first repeat copy
-    err = check_large(lambda dev: repeat_problem(n_bins=large_bins, device=dev), device,
-                      large_bins, gen)
-    return dict(max_abs_err=max_err, max_abs_err_s6000=err, ms=k_ms, plain_ms=p_ms)
+    err, large = check_large(lambda dev: repeat_problem(n_bins=large_bins, device=dev), device,
+                             large_bins, gen)
+    label = f"B={large['vecs'][0].shape[0]} S={large['scorer'].s}"
+    timing[label] = with_share(large["timing"],
+                               repeat_bound(large["scorer"], large["vecs"], large["pvec"]))
+    print(f"  {label}: {fmt_bound(timing[label])}")
+    return dict(max_abs_err=max_err, max_abs_err_s6000=err, max_abs_err_copy_dense=err_dense,
+                **timing[f"B={vecs[0].shape[0]} S={scorer.s}"], by_shape=timing)
+
+
+def check_three_copies(device, n_bins, gen):
+    """B3 on a table where one bin is duplicated twice (a data sub with 3
+    copy rows, so the general path sums 3 x 3 copy pairs): a step's
+    candidates at a copy of that bin on the true and exploded genomes and
+    with one of its copies deactivated, rtol 1e-4 against plain and
+    bit-identical alone and in batch."""
+    import numpy as np
+    from graal_tpu_torch.core import mcmc
+    from graal_tpu_torch.entry import repeat_problem
+    from graal_tpu_torch.ops.likelihood_cuda import make_dense_scorer
+
+    copies = [2] + [1] * 11
+    state, table, params, obs, nb = repeat_problem(n_bins=n_bins, copies=copies, device=device)
+    scorer = make_dense_scorer(table, obs, device)
+    per_sub = np.diff(scorer.copy_start.cpu().numpy())
+    check(per_sub.max() == 3, f"the 3-copy table has at most {per_sub.max()} copies a sub")
+    print(f"  3-copy table: K = {table.n_subs} copy rows on S = {scorer.s} data subs, "
+          f"{int((per_sub == 3).sum())} subs with 3 copies")
+    twice = n_bins                     # the first copy-fragment: bin 5's first extra copy
+    bases = [("3-copy true", state, twice, False),
+             ("3-copy, one copy deactivated", with_inactive_copy(state, twice + 1), twice,
+              False),
+             ("3-copy exploded", mcmc.explode_genome(state), twice + 1, False)]
+    check_bases(scorer, table, params, nb, bases, gen)
+
+
+def check_copy_dense(device, gen, n_bins=48, copies=15):
+    """B3 on a copy-dense table: bins 5 to n_bins - 6 with ``copies`` extra
+    copies each, about 1,000 copy rows in the densest block of 64 data
+    subs, so that an item of 13 candidates would overflow a block's shared
+    memory and the wrapper caps the chunk: a step's 13 candidates at a copy
+    (several chunks) and the exploded genome alone, rtol 1e-4 against
+    plain, each candidate bit-identical alone and in the batch. Returns the
+    max abs error."""
+    from graal_tpu_torch.core import mcmc
+    from graal_tpu_torch.core.state import GenomeState
+    from graal_tpu_torch.entry import repeat_problem
+    from graal_tpu_torch.ops.likelihood_cuda import make_dense_scorer
+
+    state, table, params, obs, nb = repeat_problem(n_bins=n_bins, n_contigs=3,
+                                                   n_dups=n_bins - 10, copies=copies,
+                                                   device=device)
+    scorer = make_dense_scorer(table, obs, device)
+    batch = candidate_batch(state, nb, n_bins, gen, n_nb=1)
+    got, err = kernel_vs_plain(scorer, batch, params, "copy-dense candidates")
+    print(f"  copy-dense table: K = {table.n_subs} copy rows on S = {scorer.s} data subs, "
+          f"{scorer.max_blk} in the densest 64-sub block: chunk capped at {scorer.chunk_max}")
+    check(scorer.chunk_max < got.shape[0],
+          f"the copy-dense table kept chunks of {scorer.chunk_max}: the cap was not exercised")
+    batch_invariance(scorer, batch, params, got, "copy-dense candidates")
+    _, err1 = kernel_vs_plain(scorer, GenomeState(*[x[None] for x in mcmc.explode_genome(state)]),
+                              params, "copy-dense exploded genome (B=1)")
+    return max(err, err1)
 
 
 def phase_repeat_main(device, n_bins=384):
@@ -656,25 +907,25 @@ def check_delta_kernels(sc, scorer, extract, frags, gen, want_m):
         check(torch.equal(alone, s_k[:1, g:g + 1]), f"genome {g} alone differs from its batch")
     print(f"  B2: {m} neighbours and {c} genomes bit-identical alone and in the batch")
 
-    k_ms = cuda_ms(lambda: scorer.mini_grid.launch(*args), 50)
-    p_ms = cuda_ms(lambda: scorer.mini_grid.plain(*args), 5, n_warm=1)
-    print(f"  time B2 R={args[0].shape[2]} M={m} C={c}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
-    o_ms = cuda_ms(lambda: scorer.obs_grid_kernel.launch(*win), 50)
-    op_ms = cuda_ms(lambda: scorer.obs_grid_kernel.plain(*win), 10, n_warm=1)
-    print(f"  time B4 R={win[0].shape[1]} cap={win[0].shape[2]} M={win[0].shape[0]}: "
-          f"kernel {o_ms:.4f} ms, plain {op_ms:.4f} ms")
-    return dict(ll_mini=dict(max_abs_err=b2_err, ms=k_ms, plain_ms=p_ms),
-                obsgrid=dict(max_abs_err=b4_err, ms=o_ms, plain_ms=op_ms))
+    t2 = with_share(timed(lambda: scorer.mini_grid.launch(*args), 50,
+                          lambda: scorer.mini_grid.plain(*args), 5), mini_bound(args))
+    print(f"  time B2 R={args[0].shape[2]} M={m} C={c}: {fmt_time(t2)}; {fmt_bound(t2)}")
+    # the wrapper sorts the keys (torch.sort) before it launches the kernel:
+    # both times include the sort
+    t4 = with_share(timed(lambda: scorer.obs_grid_kernel.launch(*win), 50,
+                          lambda: scorer.obs_grid_kernel.plain(*win), 10), obsgrid_bound(win))
+    print(f"  time B4 R={win[0].shape[1]} cap={win[0].shape[2]} M={win[0].shape[0]} "
+          f"(with the wrapper's sort): {fmt_time(t4)}; {fmt_bound(t4)}")
+    return dict(ll_mini=dict(max_abs_err=b2_err, **t2),
+                obsgrid=dict(max_abs_err=b4_err, **t4))
 
 
 def phase_delta_kernels(device, sc, frags=(7, 31_337, 77_777)):
     """B4 and B2 on the repeat-free delta path's inputs: one genome-length
     extraction for the 5 neighbour slots (extract_rows_union), windows keyed
-    by sub row; and B2 at the top tier."""
-    import numpy as np
+    by sub row; and B2 at every tier of the ladder."""
     import torch
     from graal_tpu_torch.core import delta
-    from graal_tpu_torch.scale import contig_frags_per_frag
 
     print(f"delta kernels vs plain ({sc['n']} fragments, shuffled start):")
     # a scorer with its own kernel wrappers: these launches are not the
@@ -683,18 +934,40 @@ def phase_delta_kernels(device, sc, frags=(7, 31_337, 77_777)):
     gen = torch.Generator(device=device).manual_seed(SEED)
     out = check_delta_kernels(sc, scorer, delta.extract_rows_union, frags, gen,
                               want_m=sc["runner"].nb.max_copies * (DELTA + 1))
-
-    # the top tier: a fragment of the largest contig at f_max 4,096
-    top = delta.make_delta_scorer(sc["table"], None, TOP_F_MAX, sobs=sc["sobs"])
-    f_big = int(np.argmax(contig_frags_per_frag(sc["shuf"])))
-    _, args4 = delta_inputs(sc, top, delta.extract_rows_union, f_big, gen)
-    _, err4 = b2_vs_plain(top.mini_grid, args4, f"top tier f_a={f_big}")
-    k4_ms = cuda_ms(lambda: top.mini_grid.launch(*args4), 10)
-    p4_ms = cuda_ms(lambda: top.mini_grid.plain(*args4), 2, n_warm=1)
-    print(f"  time B2 R={args4[0].shape[2]} M={args4[0].shape[0]}: kernel {k4_ms:.4f} ms, "
-          f"plain {p4_ms:.4f} ms")
-    out["ll_mini"]["max_abs_err"] = max(out["ll_mini"]["max_abs_err"], err4)
+    out["ll_mini"]["tiers"] = b2_tiers(sc, gen, out["ll_mini"])
+    out["ll_mini"]["max_abs_err"] = max([out["ll_mini"]["max_abs_err"]] + [
+        t["max_abs_err"] for t in out["ll_mini"]["tiers"].values()])
     return out
+
+
+def b2_tiers(sc, gen, at_flagship):
+    """B2 against its plain version and timed at every tier R of the
+    ScaleRunner ladder (5 neighbour slots, 14 genomes), on the step inputs
+    of the fragment whose contig is the largest that half the tier holds
+    (at the top tier the largest contig), so the mini grid is mostly
+    real rows. Returns {R: record}, the flagship tier's from its phase."""
+    import numpy as np
+    from graal_tpu_torch.core import delta
+    from graal_tpu_torch.scale import contig_frags_per_frag
+
+    sizes = contig_frags_per_frag(sc["shuf"])
+    tiers = {}
+    for r in TIERS:
+        if r == F_MAX:
+            tiers[r] = dict(at_flagship)
+            continue
+        fits = np.where(sizes <= r // 2, sizes, -1)
+        f_a = int(np.argmax(fits))
+        sc_r = delta.make_delta_scorer(sc["table"], None, r, sobs=sc["sobs"])
+        _, args = delta_inputs(sc, sc_r, delta.extract_rows_union, f_a, gen)
+        _, err = b2_vs_plain(sc_r.mini_grid, args, f"tier R={r} f_a={f_a} (contig of "
+                                                    f"{sizes[f_a]} fragments)")
+        n_iter = max(5, 200 * 1024 * 1024 // (r * r))
+        t = with_share(timed(lambda: sc_r.mini_grid.launch(*args), min(n_iter, 200),
+                             lambda: sc_r.mini_grid.plain(*args), 2), mini_bound(args))
+        print(f"  time B2 R={r} M={args[0].shape[0]}: {fmt_time(t)}; {fmt_bound(t)}")
+        tiers[r] = dict(max_abs_err=err, **t)
+    return tiers
 
 
 def phase_repeat_delta_kernels(device, sc):
@@ -899,6 +1172,35 @@ def phase_runner(sc, n_cycles=2, steps=512):
     del final, params
 
 
+def kernel_record(name, source, replaces, launches, record):
+    """One entry of the kernels line: every key of the contract, the
+    flagship shape's numbers, and the rest under their own keys."""
+    return dict(name=name, route="cuda", source=f"graal_tpu_torch/csrc/{source}",
+                replaces=replaces, launches=launches, library_ms=None, **record)
+
+
+def kernels_line(dense, dense_launches, repeat, repeat_launches, delta, mini_launches,
+                 repeat_delta, obs_launches):
+    """The {"kernels": [...]} line from the phases' records; the B2 / B4
+    launches are (100k path, 20k repeat path)."""
+    def by_path(launches, record):
+        return {"delta_100k": dict(launches=launches[0]),
+                "repeat_delta_20k": dict(launches=launches[1], **record)}
+
+    return {"kernels": [
+        kernel_record("ll_dense", "ll_dense.cu", "graal_tpu/ops/likelihood_pallas.py:65",
+                      dense_launches, dense),
+        kernel_record("ll_mini", "ll_mini.cu", "graal_tpu/ops/likelihood_pallas.py:340",
+                      sum(mini_launches), dict(delta["ll_mini"], by_path=by_path(
+                          mini_launches, repeat_delta["ll_mini"]))),
+        kernel_record("obsgrid", "obsgrid.cu", "graal_tpu/ops/obsgrid_pallas.py:52",
+                      sum(obs_launches), dict(delta["obsgrid"], by_path=by_path(
+                          obs_launches, repeat_delta["obsgrid"]))),
+        kernel_record("ll_repeat", "ll_repeat.cu", "graal_tpu/ops/likelihood_pallas.py:514",
+                      repeat_launches, repeat),
+    ]}
+
+
 def main():
     device = phase_device()
     import torch
@@ -920,26 +1222,8 @@ def main():
     del sc
     phase_runner(rsc, n_cycles=1)
     line = gpu_line()
-    kernels = {"kernels": [
-        dict(name="ll_dense", route="cuda", source="graal_tpu_torch/csrc/ll_dense.cu",
-             replaces="graal_tpu/ops/likelihood_pallas.py:65", launches=dense_launches,
-             **dense),
-        dict(name="ll_mini", route="cuda", source="graal_tpu_torch/csrc/ll_mini.cu",
-             replaces="graal_tpu/ops/likelihood_pallas.py:340",
-             launches=mini_launches + r_mini, **delta_timing["ll_mini"],
-             by_path={"delta_100k": dict(launches=mini_launches),
-                      "repeat_delta_20k": dict(launches=r_mini,
-                                               **repeat_delta_timing["ll_mini"])}),
-        dict(name="obsgrid", route="cuda", source="graal_tpu_torch/csrc/obsgrid.cu",
-             replaces="graal_tpu/ops/obsgrid_pallas.py:52",
-             launches=obs_launches + r_obs, **delta_timing["obsgrid"],
-             by_path={"delta_100k": dict(launches=obs_launches),
-                      "repeat_delta_20k": dict(launches=r_obs,
-                                               **repeat_delta_timing["obsgrid"])}),
-        dict(name="ll_repeat", route="cuda", source="graal_tpu_torch/csrc/ll_repeat.cu",
-             replaces="graal_tpu/ops/likelihood_pallas.py:514", launches=repeat_launches,
-             **repeat),
-    ]}
+    kernels = kernels_line(dense, dense_launches, repeat, repeat_launches, delta_timing,
+                           (mini_launches, r_mini), repeat_delta_timing, (obs_launches, r_obs))
     print(line)
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {

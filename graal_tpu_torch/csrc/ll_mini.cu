@@ -16,26 +16,53 @@
 // candidates differ in few cells, and an f32 difference of two f32 sums
 // would lose those cells to cancellation.
 //
-// What bounds it on the card. As in ll_dense.cu, the per-cell
-// transcendental sequences (a logf, a divide and an expf on a same-contig
-// cell, an expf on a trans cell; built without --use_fast_math), not
-// memory: at the flagship bucket (R = 1,024, M = 5, C = 14) a call covers
-// 36.7 M upper-triangle cells against 21 MB of observed grids.
+// What bounds it on the card. No design avoids the same-contig power law:
+// a logf, a divide and an expf per same-contig pair inside (0, d_max)
+// (accurate libm sequences: no --use_fast_math). A mini grid holds the two
+// contigs a move touches, so a large share of its cells are same-contig.
+// Every other cell is a few FP32 operations, and the observed grids (21 MB
+// at R = 1,024, M = 5) are read once. There is no product of matrices, so
+// the tensor cores have nothing to do.
 //
 // What the design does about it.
-//  - One block per (upper-triangle 64 x 64 tile, neighbour). The block
-//    loads the neighbour's obs tile into shared memory once and reuses it
-//    for all C candidates, so each grid is read from device memory once per
-//    call.
-//  - Loops are bounded by R and mask the ragged edge: no padding.
-//  - Trans cells skip the log / divide path, circular rows take the
-//    circular formula: both branch per cell (the TPU kernel specialised
-//    whole tiles instead).
-//  - Blocks run in any order, so nothing is accumulated across blocks: each
-//    block writes one f32 partial per (neighbour, candidate, tile) after a
-//    fixed-shape reduction, and a second kernel sums each candidate's
-//    partials in f64 in a fixed order. A candidate's score depends only on
-//    its own inputs, in any batch.
+//  - Only the same-contig pairs inside (0, d_max) pay the logf, the
+//    divide and the expf (circular rows take the circular formula); every
+//    other cell has e0 = v_inter and pays no transcendental: with A =
+//    exp(la) computed once per row and candidate when the item is staged,
+//    E = (v_inter A_u / nfpb) A_v is a product of a row factor and a column
+//    factor and log E a sum. Padding and inactive rows (la = -1e9) give
+//    A = 0, so E = 0, and ob = 0 there.
+//  - A persistent grid (schedule.cuh) over the items
+//    (neighbour, candidate chunk, half tile): the wrapper sizes it once per
+//    process from cudaOccupancyMaxActiveBlocksPerMultiprocessor x the SM
+//    count and plans the chunk from the shapes on the host, so that the
+//    low tiers (R = 256, 512: 20-72 half tiles a neighbour) fill the card
+//    and R = 1,024 loses its tail wave. Blocks draw items from a ticket
+//    counter, since an item of same-contig cells costs about ten of trans
+//    cells.
+//  - No barrier per candidate: a block stages the obs rows of its item
+//    once and the row and column values of all the chunk's candidates
+//    (with their factors) in shared memory at once, as one record per row
+//    and per column, so a warp reaches every field of its rows at a
+//    constant offset from one address per candidate. Shared-memory loads,
+//    not arithmetic, set the pace of a trans cell, so each warp takes the
+//    candidates in turn, keeps its lanes' two columns in registers for
+//    its 4 rows, and reads each row's values (one broadcast load a field)
+//    for two cells a lane: a cell costs one load of ob and half a row.
+//    Looping cells outside and candidates inside would read ob once but
+//    the column values once per cell and candidate, and hold 14
+//    accumulators. Each warp reduces its cells per candidate into shared
+//    memory; the barrier that opens the next item also orders the one sum
+//    per candidate of the 8 warp sums. The staging is not double-buffered:
+//    a second buffer would cost a resident block, and the other resident
+//    blocks' work covers one block's loads. 48 registers, no spills: 5
+//    blocks an SM.
+//  - Nothing is accumulated across blocks: one f32 partial per (neighbour,
+//    candidate, tile, half), and a second kernel, one warp per candidate,
+//    sums them in f64 in a fixed order. A candidate's score depends only on
+//    its own inputs, in any batch, whichever block computed it; a cell
+//    where base and candidate agree gives the same value in both, so it
+//    cancels exactly in the delta.
 
 #include <cuda_runtime.h>
 
@@ -43,122 +70,151 @@
 
 namespace {
 
-constexpr int TILE = 64;            // tile edge (cells)
-constexpr int THREADS = 256;        // threads per block
-constexpr int ROW_GROUPS = THREADS / TILE;            // 4
-constexpr int ROWS_PER_THREAD = TILE / ROW_GROUPS;    // 16
-constexpr int REDUCE_THREADS = 256;
-constexpr int MAX_C = 64;           // candidates per neighbour (EM: 14)
+using namespace persistent;
 
-__global__ void __launch_bounds__(THREADS)
-ll_mini_tiles(const float* __restrict__ mid,    // (M, C, R) sub-row midpoints (kb)
+constexpr int CAND_MAX = 14;        // candidates per item (base + 13)
+constexpr int MAX_C = 64;           // candidates per neighbour (EM: 14)
+constexpr int MIN_BLOCKS = 5;       // resident blocks per SM the registers must allow
+constexpr int Q_UNROLL = 2;         // rows of a warp in flight together
+
+// A candidate's values of one row of an item and of one column, as the
+// block stages them: one base address per candidate, each field and each
+// row of a warp at a constant offset from it.
+struct RowVals {
+  float mid, cst, la, rt;   // cst: contig length on a circular row, else -1
+  int idc;                  // rt: v_inter exp(la) / nfpb
+};
+struct __align__(16) ColVals {
+  float mid, la, a;         // a: exp(la)
+  int idc;
+};
+
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+ll_mini_items(const float* __restrict__ mid,    // (M, C, R) sub-row midpoints (kb)
               const int* __restrict__ idc,      // (M, C, R) contig id
               const float* __restrict__ circ,   // (M, C, R) 1.0 on circular contigs
               const float* __restrict__ stot,   // (M, C, R) contig length (kb)
               const float* __restrict__ la,     // (M, C, R) log accu, -1e9 if inactive
               const float* __restrict__ ob,     // (M, R, R) observed grid
               const float* __restrict__ pvec,   // (N_PARAMS,)
-              float* __restrict__ partial,      // (M, C, n_tri)
-              int C, int R, int n_rb, int n_tri) {
-  __shared__ float s_ob[TILE][TILE];
-  __shared__ float s_mid[TILE];
-  __shared__ int s_idc[TILE];
-  __shared__ float s_circ[TILE];
-  __shared__ float s_stot[TILE];
-  __shared__ float s_la[TILE];
-  __shared__ float s_red[THREADS / 32];
-
-  const int t = blockIdx.x;
-  const int nbr = blockIdx.y;
-  int bi, bj;
-  tile_coords(t, n_rb, &bi, &bj);
-  const int i0 = bi * TILE;
-  const int j0 = bj * TILE;
-  const int tid = threadIdx.x;
-  const int col = tid % TILE;
-  const int rg = tid / TILE;
-  const int col_g = j0 + col;
-  const bool col_ok = col_g < R;
+              float* __restrict__ partial,      // (M, C, n_tri * SLOTS)
+              int* __restrict__ next_item,      // ticket counter, 0 at launch
+              int C, int R, int n_rb, int n_tri, int cs, int n_chunks, int n_items) {
+  __shared__ float s_ob[ROWS * TILE];
+  __shared__ RowVals s_row[CAND_MAX][ROWS];
+  __shared__ ColVals s_col[CAND_MAX][TILE];
+  __shared__ float s_warp[CAND_MAX][WARPS];  // warp sums of the last item
+  __shared__ int s_item;
 
   const RippeCell p(pvec);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const float* ob_lane = s_ob + warp * TILE + lane;   // this lane's cells of row q: + 8q TILE + 32j
+  // the item whose warp sums wait in s_warp: where its first candidate's
+  // partial goes, its candidate count
+  size_t last_part = 0;
+  int last_nc = 0;
 
-  // the neighbour's obs tile, once per block
-  const float* obn = ob + (size_t)nbr * R * R;
-  for (int e = tid; e < TILE * TILE; e += THREADS) {
-    const int r = e / TILE;
-    const int c = e % TILE;
-    const int rgl = i0 + r;
-    const int cgl = j0 + c;
-    s_ob[r][c] = (rgl < R && cgl < R) ? obn[(size_t)rgl * R + cgl] : 0.0f;
-  }
-
-  for (int c = 0; c < C; ++c) {
-    const size_t base = ((size_t)nbr * C + c) * R;
-    __syncthreads();  // previous candidate's readers are done with s_*
-    if (tid < TILE) {
-      const int rgl = i0 + tid;
-      const bool ok = rgl < R;
-      s_mid[tid] = ok ? mid[base + rgl] : 0.0f;
-      s_idc[tid] = ok ? idc[base + rgl] : 0;
-      s_circ[tid] = ok ? circ[base + rgl] : 0.0f;
-      s_stot[tid] = ok ? stot[base + rgl] : 1.0f;
-      s_la[tid] = ok ? la[base + rgl] : -1e9f;
+  for (;;) {
+    if (tid == 0) s_item = atomicAdd(next_item, 1);
+    __syncthreads();   // the previous item's readers are done with shared memory
+    const int item = s_item;
+    if (tid < last_nc)
+      flush_partial(s_warp[tid], partial + last_part + (size_t)tid * n_tri * SLOTS);
+    if (item >= n_items) break;
+    const Item it = decode_item(item, n_tri, n_chunks, cs);
+    const int half = it.half;
+    const int t = it.tile;
+    const int c0 = it.first;
+    const int nbr = it.group;
+    const int nc = min(cs, C - c0);
+    int bi, bj;
+    tile_coords(t, n_rb, &bi, &bj);
+    const int i0 = bi * TILE + half * ROWS;         // first row of the item
+    const int j0 = bj * TILE;
+    const float* obn = ob + (size_t)nbr * R * R;
+    for (int e = tid; e < ROWS * TILE; e += THREADS) {
+      const int rg = i0 + e / TILE;
+      const int cg = j0 + e % TILE;
+      s_ob[e] = (rg < R && cg < R) ? obn[(size_t)rg * R + cg] : 0.0f;
     }
-    const float mc = col_ok ? mid[base + col_g] : 0.0f;
-    const int idc_c = col_ok ? idc[base + col_g] : 0;
-    const float la_c = col_ok ? la[base + col_g] : -1e9f;
+    for (int e = tid; e < nc * ROWS; e += THREADS) {
+      const int k = e / ROWS;
+      const int u = e - k * ROWS;
+      const int rg = i0 + u;
+      if (rg < R) {
+        const size_t o = ((size_t)nbr * C + c0 + k) * R + rg;
+        const float lau = la[o];
+        s_row[k][u] = RowVals{mid[o], circ[o] == 1.0f ? stot[o] : -1.0f, lau,
+                              p.v_inter * expf(lau - p.log_nfpb), idc[o]};
+      }
+    }
+    for (int e = tid; e < nc * TILE; e += THREADS) {
+      const int k = e / TILE;
+      const int v = e - k * TILE;
+      const int cg = j0 + v;
+      if (cg < R) {
+        const size_t o = ((size_t)nbr * C + c0 + k) * R + cg;
+        const float lav = la[o];
+        s_col[k][v] = ColVals{mid[o], lav, expf(lav), idc[o]};
+      }
+    }
     __syncthreads();
 
-    float acc = 0.0f;
-#pragma unroll 4
-    for (int k = 0; k < ROWS_PER_THREAD; ++k) {
-      const int r = rg + ROW_GROUPS * k;
-      const int row_g = i0 + r;
-      if (!(col_g > row_g && row_g < R && col_ok)) continue;
-      const float la_pair = (s_la[r] + la_c) - p.log_nfpb;
-      const float log_e0 = (s_idc[r] == idc_c)
-          ? p.log_cis(fabsf(s_mid[r] - mc), s_circ[r] == 1.0f, s_stot[r])
-          : p.log_v;
-      const float log_e = log_e0 + la_pair;
-      acc += s_ob[r][col] * log_e - expf(log_e);
+    for (int k = 0; k < nc; ++k) {
+      ColVals cv[COLS_PER_LANE];
+#pragma unroll
+      for (int j = 0; j < COLS_PER_LANE; ++j)
+        cv[j] = j0 + lane + 32 * j < R ? s_col[k][lane + 32 * j] : ColVals{0.0f, 0.0f, 0.0f, 0};
+      const RowVals* rows = &s_row[k][warp];
+      float acc = 0.0f;
+#pragma unroll Q_UNROLL
+      for (int q = 0; q < ROWS_PER_WARP; ++q) {
+        const int row_g = i0 + warp + WARPS * q;
+        const RowVals* u = rows + WARPS * q;
+#pragma unroll
+        for (int j = 0; j < COLS_PER_LANE; ++j) {
+          const int col_g = j0 + lane + 32 * j;
+          if (!(col_g < R && col_g > row_g)) continue;
+          const float la_pair = (u->la + cv[j].la) - p.log_nfpb;
+          const float s = fabsf(u->mid - cv[j].mid);
+          float log_e, e;
+          if (u->idc == cv[j].idc && s > 0.0f && s < p.d_max) {
+            log_e = p.log_cis(s, u->cst >= 0.0f, u->cst) + la_pair;
+            e = expf(log_e);
+          } else {   // trans, or same contig outside (0, d_max): e0 = v_inter
+            log_e = p.log_v + la_pair;
+            e = u->rt * cv[j].a;
+          }
+          acc += ob_lane[WARPS * TILE * q + 32 * j] * log_e - e;
+        }
+      }
+      acc = warp_sum(acc);
+      if (lane == 0) s_warp[k][warp] = acc;
     }
-
-    // fixed-shape block reduction: warp butterfly, then warp sums in order
-    for (int off = 16; off > 0; off >>= 1)
-      acc += __shfl_down_sync(0xffffffffu, acc, off);
-    if ((tid & 31) == 0) s_red[tid >> 5] = acc;
-    __syncthreads();
-    if (tid == 0) {
-      float tot = 0.0f;
-      for (int w = 0; w < THREADS / 32; ++w) tot += s_red[w];
-      partial[((size_t)nbr * C + c) * n_tri + t] = tot;
-    }
+    last_part = ((size_t)nbr * C + c0) * n_tri * SLOTS + t * SLOTS + half;
+    last_nc = nc;
   }
 }
 
-// One block per neighbour: each candidate's partials summed in f64 in a
-// fixed tree, then scores and deltas against candidate 0 (the base).
-__global__ void __launch_bounds__(REDUCE_THREADS)
-ll_mini_reduce(const float* __restrict__ partial, int C, int n_tri,
+// One block per neighbour, one warp per candidate: each candidate's
+// partials summed in f64 in a fixed order, then scores and deltas against
+// candidate 0 (the base).
+__global__ void __launch_bounds__(REDUCE_WARPS * 32)
+ll_mini_reduce(const float* __restrict__ partial, int C, int n_part,
                float* __restrict__ scores,      // (M, C)
-               float* __restrict__ dll) {       // (M, C - 1)
-  __shared__ double s_acc[REDUCE_THREADS];
+               float* __restrict__ dll,         // (M, C - 1)
+               int* __restrict__ next_item) {   // reset for the next launch
   __shared__ double s_tot[MAX_C];
   const int nbr = blockIdx.x;
   const int tid = threadIdx.x;
-  for (int c = 0; c < C; ++c) {
-    const float* pc = partial + ((size_t)nbr * C + c) * n_tri;
-    double acc = 0.0;
-    for (int t = tid; t < n_tri; t += REDUCE_THREADS) acc += (double)pc[t];
-    s_acc[tid] = acc;
-    __syncthreads();
-    for (int w = REDUCE_THREADS / 2; w > 0; w >>= 1) {
-      if (tid < w) s_acc[tid] += s_acc[tid + w];
-      __syncthreads();
-    }
-    if (tid == 0) s_tot[c] = s_acc[0];
-    __syncthreads();
+  if (nbr == 0 && tid == 0) *next_item = 0;
+  for (int c = tid >> 5; c < C; c += REDUCE_WARPS) {
+    const double tot = warp_sum_f64(partial + ((size_t)nbr * C + c) * n_part, n_part);
+    if ((tid & 31) == 0) s_tot[c] = tot;
   }
+  __syncthreads();
   if (tid < C) {
     scores[(size_t)nbr * C + tid] = (float)s_tot[tid];
     if (tid > 0) dll[(size_t)nbr * (C - 1) + tid - 1] = (float)(s_tot[tid] - s_tot[0]);
@@ -171,30 +227,51 @@ int row_blocks(int R) { return (R + TILE - 1) / TILE; }
 
 extern "C" {
 
-// Number of f32 partials per (neighbour, candidate) for grid size R.
+// Upper-triangle tiles of an R x R grid.
 int ll_mini_n_tiles(int R) {
   const int n_rb = row_blocks(R);
   return n_rb * (n_rb + 1) / 2;
 }
 
+int ll_mini_slots() { return SLOTS; }
+
 int ll_mini_max_candidates() { return MAX_C; }
 
-// Score M x C mini-grid genomes: partial is (M, C, ll_mini_n_tiles(R)) f32
-// scratch, scores (M, C) and dll (M, C - 1) f32 outputs. Launches on
-// `stream`, does not synchronise, returns the cudaError_t of the launches.
+int ll_mini_max_chunk() { return CAND_MAX; }
+
+// Once per process: prefer shared memory over L1 and write the blocks of
+// ll_mini_items that stay resident on one SM.
+int ll_mini_configure(int* blocks_per_sm) {
+  const cudaError_t err = prefer_shared(ll_mini_items);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, ll_mini_items,
+                                                            THREADS, 0);
+}
+
+// Score M x C mini-grid genomes: partial is (M, C, ll_mini_n_tiles(R) *
+// ll_mini_slots()) f32 scratch, scores (M, C) and dll (M, C - 1) f32 outputs,
+// next_item a device int that is 0 before the launch (and is 0 again after
+// it: launches that share it must be ordered on one stream). `cs`
+// candidates per item and `grid` persistent blocks come from the caller's
+// plan (ops/persistent.py). Launches on `stream`, does not synchronise,
+// returns the cudaError_t of the launches.
 int ll_mini_score(const float* mid, const int* idc, const float* circ,
                   const float* stot, const float* la, const float* ob,
                   const float* pvec, float* partial, float* scores, float* dll,
-                  int M, int C, int R, void* stream) {
-  if (M <= 0 || C < 1 || C > MAX_C || R <= 0) return (int)cudaErrorInvalidValue;
+                  int* next_item, int M, int C, int R, int cs, int grid, void* stream) {
+  if (M <= 0 || C < 1 || C > MAX_C || R <= 0 || cs < 1 || cs > CAND_MAX || grid < 1)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int n_rb = row_blocks(R);
   const int n_tri = n_rb * (n_rb + 1) / 2;
-  ll_mini_tiles<<<dim3(n_tri, M), THREADS, 0, s>>>(mid, idc, circ, stot, la, ob,
-                                                   pvec, partial, C, R, n_rb, n_tri);
+  const int n_chunks = (C + cs - 1) / cs;
+  const int n_items = M * n_chunks * n_tri * SLOTS;
+  ll_mini_items<<<grid, THREADS, 0, s>>>(mid, idc, circ, stot, la, ob, pvec, partial,
+                                         next_item, C, R, n_rb, n_tri, cs, n_chunks, n_items);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  ll_mini_reduce<<<M, REDUCE_THREADS, 0, s>>>(partial, C, n_tri, scores, dll);
+  ll_mini_reduce<<<M, REDUCE_WARPS * 32, 0, s>>>(partial, C, n_tri * SLOTS, scores, dll,
+                                                 next_item);
   return (int)cudaGetLastError();
 }
 

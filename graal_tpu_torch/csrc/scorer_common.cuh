@@ -2,10 +2,15 @@
 // the per-cell Rippe math of the Pallas `_tile_body` and `_repeat_kernel`
 // (graal_tpu/ops/likelihood_pallas.py) -- the expectation of a same-contig
 // sub-fragment pair, in log space and in linear space -- and the
-// enumeration of the upper-triangle tiles of a pair grid.
+// enumeration of the upper-triangle tiles of a pair grid; for ll_mini.cu
+// and ll_repeat.cu also their persistent schedule (schedule.cuh) and
+// fixed-order sums.
 #pragma once
 
+#include <cuda_runtime.h>
 #include <math.h>
+
+#include "schedule.cuh"
 
 // params vector layout (params_vector in ops/likelihood_cuda.py)
 enum {
@@ -71,4 +76,36 @@ __device__ __forceinline__ void tile_coords(int t, int n_rb, int* bi, int* bj) {
   }
   *bi = i;
   *bj = i + rem;
+}
+
+// Let the kernel's blocks use the most shared memory an SM has, so the
+// blocks that cudaOccupancyMaxActiveBlocksPerMultiprocessor counts are
+// resident together and a persistent grid of that size runs in one round.
+template <class Kernel>
+__host__ cudaError_t prefer_shared(Kernel kernel) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                              (int)cudaSharedmemCarveoutMaxShared);
+}
+
+// Sum over the 32 lanes in a fixed butterfly; lane 0 holds the total.
+__device__ __forceinline__ float warp_sum(float x) {
+  for (int off = 16; off > 0; off >>= 1) x += __shfl_down_sync(0xffffffffu, x, off);
+  return x;
+}
+
+// One item's partial of one candidate: its 8 warp sums added in warp order.
+__device__ __forceinline__ void flush_partial(const float* warp_sums, float* out) {
+  float tot = 0.0f;
+  for (int w = 0; w < persistent::WARPS; ++w) tot += warp_sums[w];
+  *out = tot;
+}
+
+// Sum of partial[0 .. n) in f64 by one warp in a fixed order: lane l adds
+// the elements l, l + 32, ..., then a fixed tree; lane 0 holds the total.
+__device__ __forceinline__ double warp_sum_f64(const float* __restrict__ partial, int n) {
+  const int lane = threadIdx.x & 31;
+  double acc = 0.0;
+  for (int e = lane; e < n; e += 32) acc += (double)partial[e];
+  for (int off = 16; off > 0; off >>= 1) acc += __shfl_down_sync(0xffffffffu, acc, off);
+  return acc;
 }

@@ -1,5 +1,8 @@
 """The flagship problems and the dense EM step, built on a given device.
 
+Every function here puts its tensors on the card unless ``device`` asks
+for another (the CPU tests pass ``device="cpu"``).
+
 - :func:`problem` / :func:`entry`, counterparts of
   ``__graft_entry__._problem`` / ``entry()``: a synthetic S1-pyramid-4-scale
   genome (384 bins x 3 sub-fragments, K = 1,152, 16 contigs) with its
@@ -40,7 +43,7 @@ from graal_tpu_torch.utils.synthetic_sparse import (add_scale_repeats,
 DELTA = 4
 
 
-def problem(n_bins=384, n_contigs=16, seed=0, device="cpu"):
+def problem(n_bins=384, n_contigs=16, seed=0, device="cuda"):
     """(state, table, params, obs, nb): the true genome, its table and
     params on ``device``, the observed map as numpy f32, the neighbour
     table on ``device``."""
@@ -54,7 +57,7 @@ def problem(n_bins=384, n_contigs=16, seed=0, device="cpu"):
     return state, table, params, obs, nb
 
 
-def entry(device="cpu", **problem_kw):
+def entry(device="cuda", **problem_kw):
     """(step, example_args): one EM step on the flagship problem (or the
     :func:`problem` that ``problem_kw`` asks for), with the dense scorer,
     and arguments for one call (state, generator, params, f_a, f_t)."""
@@ -83,18 +86,21 @@ def copy_expanded_table(table: SubFragTable, id_d, device=None) -> SubFragTable:
     return build_sub_frag_table(sub_ids, sub_len, sub_acc, id_d, device=device)
 
 
-def repeat_problem(n_bins=384, n_contigs=16, n_dups=12, seed=0, device="cpu"):
+def repeat_problem(n_bins=384, n_contigs=16, n_dups=12, seed=0, copies=1, device="cuda"):
     """(state, table, params, obs, nb) of a copy-expanded genome: the
     :func:`problem` genome with ``n_dups`` bins, evenly spread over
-    [5, n_bins - 6], duplicated once as fresh singleton contigs
+    [5, n_bins - 6], duplicated as fresh singleton contigs
     (``pipeline.extend_with_repeats``), its copy-expanded table, the
     observed map simulated on the copy-expanded state (numpy f32), and the
-    neighbour table drawn from the data bins' contacts."""
+    neighbour table drawn from the data bins' contacts. ``copies``: the
+    extra copies of each duplicated bin, one count for all or one per bin
+    (2 gives a bin three copies)."""
     base, base_table = make_genome(n_bins, n_contigs, subs_per_bin=3, seed=seed)
     soa = base.to_numpy()
     soa["n_accu"] = np.ones(n_bins, np.int64)
     dup_bins = np.linspace(5, n_bins - 6, n_dups).astype(int)
-    soa = extend_with_repeats(soa, [(int(b), 1) for b in dup_bins])
+    copies = np.broadcast_to(np.asarray(copies, np.int64), (n_dups,))
+    soa = extend_with_repeats(soa, [(int(b), int(c)) for b, c in zip(dup_bins, copies)])
     state = GenomeState.from_soa(soa, device=device)
     table = copy_expanded_table(base_table, soa["id_d"], device=device)
     params = default_params(device=device)
@@ -107,7 +113,7 @@ def repeat_problem(n_bins=384, n_contigs=16, n_dups=12, seed=0, device="cpu"):
 
 
 def scale_problem(n_bins=100_000, n_contigs=None, n_pieces=None, seed=31,
-                  shuffle_seed=32, device="cpu"):
+                  shuffle_seed=32, device="cuda"):
     """(truth, shuffled, table, params, sobs): the true genome, its shuffled
     start, the one-sub-per-bin table, the full-coverage params and the
     sparse observed map, all on ``device``. ``n_contigs`` defaults to
@@ -125,7 +131,7 @@ def scale_problem(n_bins=100_000, n_contigs=None, n_pieces=None, seed=31,
 
 
 def scale_repeat_problem(n_bins=20_000, n_dups=200, seed=31, shuffle_seed=32,
-                         device="cpu"):
+                         device="cuda"):
     """(truth, shuffled, table, params, sobs, id_d): the chr1-scale recipe
     of :func:`scale_problem` with ``n_dups`` bins, evenly spread over
     [11, n_bins - 17], duplicated once (``add_scale_repeats``); contacts

@@ -13,6 +13,10 @@ and the deltas dll[m, c-1] = score[m, c] - score[m, 0] taken in f64. The
 kernel source is ``graal_tpu_torch/csrc/ll_mini.cu``; its header says what
 bounds it on the card and how the design answers that.
 
+The kernel's persistent grid is sized once per process
+(:mod:`graal_tpu_torch.ops.persistent`); each launch plans its candidate
+chunk from the shapes alone, so a launch never waits for the device.
+
 Dispatch is by device: on CUDA tensors :class:`MiniGridScorer` launches the
 kernel (or raises); on CPU tensors it runs :func:`mini_grid_plain`, the
 same per-cell math in plain torch (the circular-aware formula on every
@@ -27,7 +31,7 @@ import math
 
 import torch
 
-from graal_tpu_torch.ops import build
+from graal_tpu_torch.ops import build, persistent
 from graal_tpu_torch.ops.likelihood_cuda import N_PARAMS
 
 # Working-set bound of the plain versions: the mini-grid scorer takes its
@@ -35,18 +39,28 @@ from graal_tpu_torch.ops.likelihood_cuda import N_PARAMS
 # offsets, in chunks of about this many cells.
 MAX_CELLS = 1 << 24
 
+
 @functools.cache
 def load_library():
     """The kernel library (built at first use), its C functions typed."""
     lib = build.load("ll_mini")
     ptr = ctypes.c_void_p
-    lib.ll_mini_n_tiles.argtypes = [ctypes.c_int]
-    lib.ll_mini_n_tiles.restype = ctypes.c_int
-    lib.ll_mini_max_candidates.argtypes = []
-    lib.ll_mini_max_candidates.restype = ctypes.c_int
-    lib.ll_mini_score.argtypes = [ptr] * 10 + [ctypes.c_int] * 3 + [ptr]
+    for fn, args in ((lib.ll_mini_n_tiles, [ctypes.c_int]), (lib.ll_mini_slots, []),
+                     (lib.ll_mini_max_candidates, []), (lib.ll_mini_max_chunk, []),
+                     (lib.ll_mini_configure, [ctypes.POINTER(ctypes.c_int)])):
+        fn.argtypes = args
+        fn.restype = ctypes.c_int
+    lib.ll_mini_score.argtypes = [ptr] * 11 + [ctypes.c_int] * 5 + [ptr]
     lib.ll_mini_score.restype = ctypes.c_int
+    if lib.ll_mini_slots() != persistent.SLOTS:
+        raise RuntimeError("ll_mini.cu and ops/persistent.py disagree on SLOTS")
     return lib
+
+
+@functools.cache
+def resident_blocks(device) -> int:
+    """Persistent blocks of the kernel on ``device``, asked once per process."""
+    return persistent.resident_blocks(load_library().ll_mini_configure, device)
 
 
 def log_cis_plain(s, circ_row, stot, pvec):
@@ -103,6 +117,7 @@ class MiniGridScorer:
 
     def __init__(self):
         self.n_launches = 0
+        self.tickets = persistent.Tickets()
 
     def launch(self, mid, idc, circ, stot, la, ob, pvec):
         """Launch the kernel; (scores, dll) on the inputs' card."""
@@ -128,15 +143,19 @@ class MiniGridScorer:
         if c > lib.ll_mini_max_candidates():
             raise ValueError(f"{c} candidates per neighbour > "
                              f"{lib.ll_mini_max_candidates()}")
-        partial = torch.empty((m, c, lib.ll_mini_n_tiles(r)), dtype=torch.float32,
+        n_tri = lib.ll_mini_n_tiles(r)
+        cs, grid, _ = persistent.plan(n_tri, c, m, resident_blocks(dev),
+                                      lib.ll_mini_max_chunk())
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        partial = torch.empty((m, c, n_tri * persistent.SLOTS), dtype=torch.float32,
                               device=dev)
         scores = torch.empty((m, c), dtype=torch.float32, device=dev)
         dll = torch.empty((m, c - 1), dtype=torch.float32, device=dev)
         rc = lib.ll_mini_score(
             mid.data_ptr(), idc.data_ptr(), circ.data_ptr(), stot.data_ptr(),
             la.data_ptr(), ob.data_ptr(), pvec.data_ptr(), partial.data_ptr(),
-            scores.data_ptr(), dll.data_ptr(), m, c, r,
-            torch.cuda.current_stream(dev).cuda_stream)
+            scores.data_ptr(), dll.data_ptr(), self.tickets.get(dev, stream).data_ptr(), m, c,
+            r, cs, grid, stream)
         if rc != 0:
             raise RuntimeError(f"ll_mini_score launch failed: cudaError {rc}")
         self.n_launches += 1

@@ -13,7 +13,11 @@ the card and how the design answers that.
 
 Build: at first use, ``nvcc`` compiles the source for ``sm_90a`` and it is
 loaded with ``ctypes`` (:mod:`graal_tpu_torch.ops.build`). A missing
-``nvcc`` or a failed build raises.
+``nvcc`` or a failed build raises. The kernel's persistent grid is sized
+at a scorer's first launch (:mod:`graal_tpu_torch.ops.persistent`); each
+launch plans its candidate chunk from the shapes alone, at most as many
+candidates as the card's shared memory holds for the table's densest
+block of copy rows.
 
 Dispatch: ``make_dense_scorer`` returns a :class:`RepeatScorer` for a
 repeat table. On CUDA tensors it launches the kernel (or raises); on CPU
@@ -30,7 +34,7 @@ import torch
 
 from graal_tpu_torch.core.state import GenomeState
 from graal_tpu_torch.core.subfrags import SubFragTable, copy_csr
-from graal_tpu_torch.ops import build
+from graal_tpu_torch.ops import build, persistent
 from graal_tpu_torch.ops.likelihood_cuda import CopyRowScorer, host_obs
 
 TILE = 64          # the kernel's tile edge (data subs)
@@ -59,12 +63,26 @@ def load_library():
     """The kernel library (built at first use), its C functions typed."""
     lib = build.load("ll_repeat")
     ptr = ctypes.c_void_p
-    lib.ll_repeat_n_tiles.argtypes = [ctypes.c_int]
-    lib.ll_repeat_n_tiles.restype = ctypes.c_int
-    lib.ll_repeat_score.argtypes = [ptr] * 9 + [ctypes.c_float, ptr, ptr] \
-        + [ctypes.c_int] * 4 + [ptr]
+    for fn, args in ((lib.ll_repeat_n_tiles, [ctypes.c_int]), (lib.ll_repeat_slots, []),
+                     (lib.ll_repeat_max_chunk, []),
+                     (lib.ll_repeat_smem_bytes, [ctypes.c_int] * 3),
+                     (lib.ll_repeat_smem_limit, [ctypes.c_int]),
+                     (lib.ll_repeat_configure, [ctypes.c_int, ctypes.POINTER(ctypes.c_int)])):
+        fn.argtypes = args
+        fn.restype = ctypes.c_int
+    lib.ll_repeat_score.argtypes = [ptr] * 9 + [ctypes.c_float, ptr, ptr, ptr] \
+        + [ctypes.c_int] * 7 + [ptr]
     lib.ll_repeat_score.restype = ctypes.c_int
+    if lib.ll_repeat_slots() != persistent.SLOTS:
+        raise RuntimeError("ll_repeat.cu and ops/persistent.py disagree on SLOTS")
     return lib
+
+
+def block_max(start: np.ndarray, s_dim: int, width: int) -> int:
+    """The largest copy count of the aligned blocks of ``width`` data subs
+    (``start`` the (S + 1,) copy ranges)."""
+    edges = start[np.minimum(np.arange(0, s_dim + width, width), s_dim)]
+    return int(np.diff(edges).max())
 
 
 def score_repeat_plain(mid, idc, circ, stot, a, slots, slot_ok, obs, lf, pvec,
@@ -143,10 +161,15 @@ class RepeatScorer(CopyRowScorer):
         self.s = s_dim
         self.lf = torch.as_tensor(log_factorial_np(obs), device=device).contiguous()
         self.copy_start = torch.as_tensor(start.astype(np.int32), device=device)
-        # the copies of each block of TILE data subs are one contiguous run;
-        # the kernel's shared memory is sized for the largest
-        edges = start[np.minimum(np.arange(0, s_dim + TILE, TILE), s_dim)]
-        self.max_blk = int(np.diff(edges).max())
+        # the copies of each block of data subs are one contiguous run; the
+        # kernel's shared memory is sized for the largest item rows (32 subs)
+        # and columns (64 subs)
+        self.max_blk = block_max(start, s_dim, TILE)
+        self.max_hblk = block_max(start, s_dim, TILE // persistent.HALVES)
+        # asked of the card at the first launch: the most candidates an item
+        # may stage in shared memory, and the persistent blocks at that size
+        self.chunk_max = self.resident = None
+        self.tickets = persistent.Tickets()
         pos_in = np.arange(k) - start[data_id[order]]
         slots = np.zeros((s_dim, mc), np.int64)
         slot_ok = np.zeros((s_dim, mc), bool)
@@ -167,15 +190,26 @@ class RepeatScorer(CopyRowScorer):
         """Launch the kernel on the copy vectors of B candidates; (B,) f32."""
         B = self.check_launch((mid, idc, circ, stot, a), pvec)
         lib = load_library()
-        partial = torch.empty((B, lib.ll_repeat_n_tiles(self.s)), dtype=torch.float32,
+        if self.resident is None:
+            def smem(cs):
+                return lib.ll_repeat_smem_bytes(cs, self.max_hblk, self.max_blk)
+            self.chunk_max = persistent.fit_chunk(
+                smem, lib.ll_repeat_smem_limit(self.device.index), lib.ll_repeat_max_chunk())
+            self.resident = persistent.resident_blocks(
+                lambda per_sm: lib.ll_repeat_configure(smem(self.chunk_max), per_sm),
+                self.device)
+        n_tri = lib.ll_repeat_n_tiles(self.s)
+        cs, grid, _ = persistent.plan(n_tri, B, 1, self.resident, self.chunk_max)
+        stream = torch.cuda.current_stream(self.device).cuda_stream
+        partial = torch.empty((B, n_tri * persistent.SLOTS), dtype=torch.float32,
                               device=self.device)
         out = torch.empty(B, dtype=torch.float32, device=self.device)
         rc = lib.ll_repeat_score(
             mid.data_ptr(), idc.data_ptr(), circ.data_ptr(), stot.data_ptr(),
             a.data_ptr(), self.copy_start.data_ptr(), self.obs.data_ptr(),
             self.lf.data_ptr(), pvec.data_ptr(), self.nfpb, partial.data_ptr(),
-            out.data_ptr(), B, self.s, self.k, self.max_blk,
-            torch.cuda.current_stream(self.device).cuda_stream)
+            out.data_ptr(), self.tickets.get(self.device, stream).data_ptr(), B, self.s,
+            self.k, self.max_hblk, self.max_blk, cs, grid, stream)
         if rc != 0:
             raise RuntimeError(f"ll_repeat_score launch failed: cudaError {rc}")
         self.n_launches += 1

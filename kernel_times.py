@@ -1,0 +1,124 @@
+#!/usr/bin/env python3
+"""Time the port's four CUDA kernels at the shapes their paths give them,
+to hold one tree's kernels against another's on one GPU.
+
+    python3 kernel_times.py [--tree DIR]
+
+DIR holds a tree's ``graal_tpu_torch`` package (default: this checkout's).
+That tree's wrappers build and launch its kernels, and its own problem
+builders make the inputs from fixed seeds, so two trees whose builders
+agree score the same inputs: the "check" sums of the scores then agree to
+rtol 1e-4. To time an earlier commit's kernels against this tree's, unpack
+its package into an ignored directory and run the trees in turns (earlier,
+this, this, earlier) in one command on one card:
+
+    mkdir -p build/earlier && git archive REV graal_tpu_torch | tar -x -C build/earlier
+    for t in build/earlier . . build/earlier; do python3 kernel_times.py --tree $t; done
+
+Each run prints, as its last line, one JSON object: the tree, the card
+(nvidia-smi name and power limit) and, per shape, ms per call as called
+and on the device alone (``chip_smoke.cuda_ms`` / ``device_ms``). The
+shapes are those of ``chip_smoke.py``: B1 at B = 65, K = 1,152 and B = 13,
+K = 6,000; B3 at B = 130 and 1 on S = 1,152 and B = 13 on S = 6,000; B2 at
+M = 5 on every tier R = 256-4,096 of the 100k problem and at M = 10,
+R = 1,024 on the 20k repeat problem; B4 at R = 1,024 on both.
+"""
+
+import json
+import sys
+from pathlib import Path
+
+import chip_smoke as smoke
+
+
+def times(fn, check_of):
+    """ms per call of fn() as called and on the device, and a checksum."""
+    import torch
+
+    out = fn()
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    stop.record()
+    torch.cuda.synchronize()
+    n_iter = max(10, min(200, int(50 / max(start.elapsed_time(stop), 0.01))))
+    return dict(ms=smoke.cuda_ms(fn, n_iter), device_ms=smoke.device_ms(fn, n_iter),
+                check=float(check_of(out).double().sum()))
+
+
+def dense_shapes(device, gen, build, name):
+    """B1 or B3 (whichever the table gets) on a step's candidates of the
+    ``build(n_bins)`` problem: at its flagship size, the whole batch at
+    fragment 7 and its first candidate; at 2,000 bins, the 13 candidates of
+    fragment 11 against one neighbour."""
+    from graal_tpu_torch.ops.likelihood_cuda import make_dense_scorer, params_vector
+
+    out = {}
+    for n_bins, f_a, n_nb in ((384, 7, None), (smoke.LARGE_BINS, 11, 1)):
+        state, table, params, obs, nb = build(n_bins)
+        scorer = make_dense_scorer(table, obs, device)
+        batch = smoke.candidate_batch(state, nb, f_a, gen, n_nb)
+        vecs = scorer.sub_vectors(batch)
+        pvec = params_vector(params, scorer.log_nfpb)
+        shapes = [vecs] if n_nb else [vecs, [x[:1].contiguous() for x in vecs]]
+        for v in shapes:
+            out[f"{name} B={v[0].shape[0]} K={scorer.k}"] = times(
+                lambda: scorer.launch(*v, pvec), lambda res: res)
+    return out
+
+
+def delta_shapes(sc, scorer, extract, f_a, gen, label):
+    """B2 and B4 on one step's inputs at the scorer's bucket."""
+    win, args = smoke.delta_inputs(sc, scorer, extract, f_a, gen)
+    m, _, r = args[0].shape
+    return {f"B2 {label} R={r} M={m}": times(lambda: scorer.mini_grid.launch(*args),
+                                             lambda res: res[0]),
+            f"B4 {label} R={r} M={m}": times(lambda: scorer.obs_grid_kernel.launch(*win),
+                                             lambda res: res)}
+
+
+def main(argv):
+    tree = Path(argv[1] if len(argv) == 2 and argv[0] == "--tree" else ".").resolve()
+    smoke.check(len(argv) in (0, 2), f"usage: kernel_times.py [--tree DIR], not {argv}")
+    sys.path.insert(0, str(tree))
+    import numpy as np
+    import torch
+    from graal_tpu_torch.core import delta, delta_repeats
+    from graal_tpu_torch.entry import problem, repeat_problem
+    from graal_tpu_torch.scale import contig_frags_per_frag
+
+    device = smoke.phase_device()
+    import graal_tpu_torch
+    smoke.check(Path(graal_tpu_torch.__file__).resolve().parent.parent == tree,
+                f"graal_tpu_torch came from {graal_tpu_torch.__file__}, not {tree}")
+    smoke.phase_build()
+    gen = torch.Generator(device=device).manual_seed(smoke.SEED)
+    out = dense_shapes(device, gen, lambda n: problem(n_bins=n, device=device), "B1")
+    out.update(dense_shapes(device, gen, lambda n: repeat_problem(n_bins=n, device=device),
+                            "B3"))
+
+    sc = smoke.scale_setup(device)
+    sizes = contig_frags_per_frag(sc["shuf"])
+    for r in smoke.TIERS:
+        # the flagship fragment at R = 1,024; elsewhere the largest contig
+        # that half the tier holds, as chip_smoke.b2_tiers picks it
+        f_a = 7 if r == smoke.F_MAX else int(np.argmax(np.where(sizes <= r // 2, sizes, -1)))
+        scorer = delta.make_delta_scorer(sc["table"], None, r, sobs=sc["sobs"])
+        got = delta_shapes(sc, scorer, delta.extract_rows_union, f_a, gen, "100k")
+        out.update({k: v for k, v in got.items() if k.startswith("B2") or r == smoke.F_MAX})
+    del sc
+    rsc = smoke.scale_repeat_setup(device)
+    engine = delta_repeats.make_repeat_delta_scorer_v2(rsc["table"], smoke.F_MAX, rsc["sobs"],
+                                                       rsc["shuf"].rep)
+    out.update(delta_shapes(rsc, engine.plain, delta.extract_rows_each, rsc["n_bins"] + 7, gen,
+                            "20k repeat"))
+    print(json.dumps({"tree": str(tree), "gpu": smoke.gpu_line(), "shapes": out}))
+
+
+if __name__ == "__main__":
+    try:
+        main(sys.argv[1:])
+    except smoke.SmokeFailure as e:
+        print(f"kernel_times: FAILED: {e}", file=sys.stderr)
+        sys.exit(1)

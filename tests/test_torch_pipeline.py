@@ -52,7 +52,7 @@ def _outlier_matrix():
 def _flagship_matrix():
     """The flagship problem's bin matrix with bin 100's contacts amplified
     14-fold."""
-    _, table, _, obs, _ = tentry.problem()
+    _, table, _, obs, _ = tentry.problem(device="cpu")
     m = bin_level_matrix(obs, table).astype(np.float64)
     m[100, :] *= 14
     m[:, 100] *= 14
@@ -113,7 +113,8 @@ def _jax_repeat_problem(n_bins, n_contigs, n_dups, seed):
 
 def test_repeat_problem_matches_jax_recipe():
     n_bins, n_contigs, n_dups = 40, 4, 4
-    state, table, params, obs, nb = tentry.repeat_problem(n_bins, n_contigs, n_dups, seed=2)
+    state, table, params, obs, nb = tentry.repeat_problem(n_bins, n_contigs, n_dups, seed=2,
+                                                          device="cpu")
     j_state, j_table, j_base = _jax_repeat_problem(n_bins, n_contigs, n_dups, seed=2)
     assert_states_equal(state, j_state)
     assert_tables_equal(table, j_table)
@@ -131,7 +132,7 @@ def test_repeat_problem_matches_jax_recipe():
 
 def test_scale_repeat_problem_matches_jax_recipe():
     n, n_dups = 400, 6
-    truth, shuf, table, params, sobs, id_d = tentry.scale_repeat_problem(n, n_dups)
+    truth, shuf, table, params, sobs, id_d = tentry.scale_repeat_problem(n, n_dups, device="cpu")
     j_base, j_btable = jss.make_scale_genome(n, 4, seed=31)
     j_params = jss.scale_params()
     dup_bins = tuple(int(b) for b in np.linspace(11, n - 17, n_dups).astype(int))

@@ -37,7 +37,8 @@ SWAP_ACTIVITY = 8
 @pytest.fixture(scope="module")
 def problem():
     n_bins, n_contigs, n_dups, seed = 30, 3, 3, 4
-    state, table, params, obs, nb = tentry.repeat_problem(n_bins, n_contigs, n_dups, seed=seed)
+    state, table, params, obs, nb = tentry.repeat_problem(n_bins, n_contigs, n_dups, seed=seed,
+                                                          device="cpu")
     j_state, j_table, _ = _jax_repeat_problem(n_bins, n_contigs, n_dups, seed)
     # the neighbour tables are numpy-built on both sides (test_torch_pipeline
     # holds them equal); the JAX one is the port's, carried over

@@ -30,11 +30,12 @@ from tests.test_torch_state import assert_states_equal
 
 @pytest.fixture(scope="module")
 def problem():
-    return tentry.scale_problem(200, n_contigs=2, n_pieces=10, seed=41, shuffle_seed=42)
+    return tentry.scale_problem(200, n_contigs=2, n_pieces=10, seed=41, shuffle_seed=42,
+                               device="cpu")
 
 
 def test_scale_problem_matches_jax_recipe():
-    truth, shuf, table, params, sobs = tentry.scale_problem(400)
+    truth, shuf, table, params, sobs = tentry.scale_problem(400, device="cpu")
     j_truth, j_table = jss.make_scale_genome(400, 4, seed=31)
     j_params = jss.scale_params()
     assert_states_equal(truth, j_truth)

@@ -1,7 +1,7 @@
 """The port's slice as a whole, against the JAX package, on the CPU.
 
-- No file of graal_tpu_torch/ (nor chip_smoke.py) imports jax or
-  graal_tpu: the port must run where neither is installed.
+- No file of graal_tpu_torch/ (nor chip_smoke.py or kernel_times.py)
+  imports jax or graal_tpu: the port must run where neither is installed.
 - ``graal_tpu_torch.entry.problem`` builds the same problem as
   ``__graft_entry__._problem`` (states, table, observed map, neighbour
   table bit for bit; params f32-equal).
@@ -10,14 +10,18 @@
   the carried likelihood agrees at rtol 1e-4, the scorer tolerance (the
   scorer's log-space math vs the JAX jnp pmf). The scorer never launches
   the CUDA kernel on the CPU.
+- The entry points build on the card unless asked for the CPU: without a
+  card, their default raises instead of falling back.
 """
 
 import ast
+import inspect
 from pathlib import Path
 
 import numpy as np
 import jax
 import jax.numpy as jnp
+import pytest
 import torch
 
 import __graft_entry__ as graft
@@ -46,7 +50,8 @@ def _imported_modules(path):
 
 
 def test_port_imports_neither_jax_nor_graal_tpu():
-    files = sorted((ROOT / "graal_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted((ROOT / "graal_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                                                ROOT / "kernel_times.py"]
     assert len(files) > 10
     for path in files:
         for mod in _imported_modules(path):
@@ -57,7 +62,7 @@ def test_port_imports_neither_jax_nor_graal_tpu():
 
 def test_problem_matches_graft_entry():
     js, jt, jp, jobs, jnb = graft._problem(n_bins=30, n_contigs=4, seed=1)
-    ts, tt, tp, tobs, tnb = tentry.problem(n_bins=30, n_contigs=4, seed=1)
+    ts, tt, tp, tobs, tnb = tentry.problem(n_bins=30, n_contigs=4, seed=1, device="cpu")
     assert_states_equal(ts, js)
     for f in ("owner", "data_id", "len_kb", "accu", "prefix_kb", "suffix_kb"):
         np.testing.assert_array_equal(getattr(tt, f).numpy(), np.asarray(getattr(jt, f)))
@@ -70,7 +75,7 @@ def test_problem_matches_graft_entry():
 
 def test_em_cycles_through_dense_scorer_match_jax():
     js, jt, jp, obs, jnb = graft._problem(n_bins=32, n_contigs=4, seed=3)
-    ts, tt, tp, _, tnb = tentry.problem(n_bins=32, n_contigs=4, seed=3)
+    ts, tt, tp, _, tnb = tentry.problem(n_bins=32, n_contigs=4, seed=3, device="cpu")
     delta = tentry.DELTA
     n = js.n_frags
     scorer = make_dense_scorer(tt, obs, "cpu")
@@ -143,3 +148,25 @@ def test_synthetic_matches():
     np.testing.assert_array_equal(
         tsyn.simulate_contacts(to_port(jcirc), tt, tp, seed=3),
         jsyn.simulate_contacts(jcirc, jt, jp, seed=3))
+
+
+SMALL_ENTRY = {
+    "problem": dict(n_bins=24, n_contigs=3),
+    "entry": dict(n_bins=24, n_contigs=3),
+    "repeat_problem": dict(n_bins=24, n_contigs=3, n_dups=2),
+    "scale_problem": dict(n_bins=200, n_contigs=2, n_pieces=8),
+    "scale_repeat_problem": dict(n_bins=400, n_dups=4),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SMALL_ENTRY))
+def test_entry_points_default_to_the_card(name):
+    fn = getattr(tentry, name)
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if torch.cuda.is_available():
+        out = fn(**SMALL_ENTRY[name])
+        state = out[1][0] if name == "entry" else out[0]
+        assert state.pos.device.type == "cuda"
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):   # no fallback to the CPU
+            fn(**SMALL_ENTRY[name])
