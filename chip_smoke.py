@@ -18,8 +18,15 @@ operations / 67 TFLOP/s, special-function operations /
 operations per cell a candidate evaluates and, per same-contig pair inside
 (0, d_max) (counted on the card), 10 more and 3 special-function ones (B3:
 one more per data cell with more than one active copy pair and ob > 0); the
-scorers read the strict upper triangle of their observed planes only; B4
-moves bytes only. "share" is the bound over the device time.
+scorers read the strict upper triangle of their observed planes only. B1
+counts what its inputs need: a trans cell's term does not depend on the
+genome, so the sum of the trans form over every cell is one constant per
+scorer, and a score is that constant plus, over the same-contig pairs
+inside (0, d_max), the cis term less the trans term; so B1 counts one cell
+and one such pair for each of them (16 FP32, 3 special-function
+operations), the observed cells of those pairs once, the vectors, factors
+and scores. B4 moves bytes only: the CSR entries of the rows read, the
+keys and the grid written. "share" is the bound over the device time.
 
 1. Device: refuse to run without CUDA; print the card (nvidia-smi name and
    power limit), torch's and nvcc's versions.
@@ -34,7 +41,8 @@ moves bytes only. "share" is the bound over the device time.
    a 13-candidate batch. Each candidate's score must be bit-identical alone
    and in any batch. The kernel is also held to the direct-pmf oracle
    (rtol 1e-4) and, on a small problem, to the f64 loop oracle (rtol 5e-5,
-   atol 0.5).
+   atol 0.5). Timed against the plain version at B = 65 (true and
+   exploded candidates), B = 1 and K = 6,000.
 4. Dense main path: 3 EM cycles of the flagship problem from its exploded
    start, nuisance sampling on, every score through the kernel. Checks the
    launch count, the invariants, that the carried likelihood equals the
@@ -59,11 +67,14 @@ moves bytes only. "share" is the bound over the device time.
 5. Delta kernels B4 (obsgrid) and B2 (ll_mini) vs plain, on the real step
    inputs of the chr1-class problem (100,000 fragments, full coverage,
    shuffled into 400 pieces) at f_max 1,024 for the 5 neighbour slots of a
-   few fragments: B4 bit-identical; B2's scores within rtol 1e-4 and its
-   deltas within DLL_ATOL; every genome's B2 score bit-identical alone and
-   in its batch. Timed against the plain versions: B4 (its time includes
-   the wrapper's torch.sort of the keys) at R = 1,024, B2 at every tier of
-   the ladder, R = 256 to 4,096, each also held to its plain version.
+   few fragments: B4 bit-identical on the CSR map and the step's keys
+   (activity folded in), and equal to the step's observed grid; B2's scores
+   within rtol 1e-4 and its deltas within DLL_ATOL; every genome's B2 score
+   bit-identical alone and in its batch; B4 bit-identical on keys that
+   crowd a few buckets of its table. Timed against the plain versions at
+   R = 1,024 (B4 also as the whole production of the step's masked grid:
+   keys and kernel), and both, each held to its plain version, at every
+   tier of the ladder, R = 256 to 4,096.
 6. Per-step exactness at 20,000 fragments: 10 single delta steps at f_max
    1,024; after each, the carried likelihood must be within
    max(0.5, 1e-6 |L|) of a full sparse re-anchor.
@@ -80,7 +91,7 @@ moves bytes only. "share" is the bound over the device time.
 7a. Delta kernels B4 and B2 vs plain on the repeat delta path's own inputs
    (20,000 data bins, 200 of them duplicated: benchmarks/
    bench_scale_repeats.py's problem): the single-copy part of the repeat
-   engine v2, whose windows are keyed by data bin (two copies of a bin
+   engine v2, whose CSR rows are keyed by data bin (two copies of a bin
    share a key), member rows extracted per neighbour, 10 neighbour slots;
    at a repeat copy, an original of a duplicated bin and a contig
    extremity, with the checks and times of phase 5 at R = 1,024.
@@ -95,9 +106,11 @@ moves bytes only. "share" is the bound over the device time.
    {"ok": true, "device": {...}}. Each kernel's entry has the contract's
    keys (launches, max_abs_err, ms, plain_ms, bound_ms, bound_by,
    library_ms: null, as no single PyTorch call computes any of the four)
-   and device_ms and share, at its flagship shape (B1: K = 1,152; B3:
-   S = 1,152; B2 / B4: the 100k path at R = 1,024); the other shapes sit
-   under "by_shape" (B1, B3), "tiers" (B2) and "by_path" (B2 / B4, with
+   and device_ms and share, at its flagship shape (B1: B = 65, K = 1,152,
+   true candidates; B3: S = 1,152; B2 / B4: the 100k path at R = 1,024;
+   B4 also grid_ms / grid_device_ms, the step's whole observed-grid
+   production); the other shapes sit under "by_shape" (B1: exploded,
+   B = 1, K = 6,000; B3), "tiers" (B2, B4) and "by_path" (B2 / B4, with
    each path's launches).
 """
 
@@ -237,19 +250,21 @@ def with_share(t, b):
     return dict(t, **b, share=b["bound_ms"] / t["device_ms"])
 
 
-def in_range_pairs(mid, idc, d_max, pairs, active=None):
-    """Same-contig pairs with 0 < |mid_u - mid_v| < d_max among the (N, N)
-    bool mask ``pairs``, summed over the genomes of (G, N) vectors, one
-    genome at a time on the card; ``active`` (G, N) keeps only pairs of two
-    active rows."""
-    total = 0
+def in_range_masks(mid, idc, d_max, pairs, active=None):
+    """For each genome of (G, N) vectors in turn, the (N, N) bool mask of
+    its same-contig pairs with 0 < |mid_u - mid_v| < d_max among ``pairs``;
+    ``active`` (G, N) keeps only pairs of two active rows."""
     for g in range(mid.shape[0]):
         s = (mid[g, :, None] - mid[g, None, :]).abs()
         ok = pairs & (idc[g, :, None] == idc[g, None, :]) & (s > 0) & (s < d_max)
         if active is not None:
             ok &= active[g, :, None] & active[g, None, :]
-        total += int(ok.sum())
-    return total
+        yield ok
+
+
+def in_range_pairs(mid, idc, d_max, pairs, active=None):
+    """The pairs of :func:`in_range_masks`, summed over the genomes."""
+    return sum(int(ok.sum()) for ok in in_range_masks(mid, idc, d_max, pairs, active))
 
 
 def scorer_counts(n_cells, n_cis, extra_sfu=0):
@@ -271,13 +286,26 @@ def upper_cells(n):
 
 
 def dense_bound(vecs, pvec):
-    """Bound of a B1 call on (B, K) vectors: obs (its upper triangle), the
-    four vectors and log accu read once, the scores written once."""
+    """Bound of a B1 call on (B, K) vectors, counting what these inputs
+    need. A trans cell's term, ob (log_v + la_pair) - v_inter accu_u accu_v
+    / nfpb, does not depend on the genome, so its sum over every cell u < v
+    is one constant per scorer, and a candidate's score is that constant
+    plus, over its same-contig pairs inside (0, d_max), the cis term less
+    the trans term: the operations of :func:`scorer_counts` for one cell
+    and one such pair each, and no test (finding the pairs is a pass over
+    the vectors, whose bytes are counted). Bytes: the four vectors, the
+    three (K,) factors and the scores once, and the observed cell of every
+    such pair of some candidate once."""
+    import torch
+
     mid, idc = vecs[0], vecs[1]
     b, k = mid.shape
-    cis = in_range_pairs(mid, idc, pvec[3].item(), upper_mask(k, mid.device))
-    return bound(4 * (upper_cells(k) + 4 * b * k + k + b),
-                 **scorer_counts(b * upper_cells(k), cis))
+    need = torch.zeros((k, k), dtype=torch.bool, device=mid.device)
+    cis = 0
+    for ok in in_range_masks(mid, idc, pvec[3].item(), upper_mask(k, mid.device)):
+        cis += int(ok.sum())
+        need |= ok
+    return bound(4 * (int(need.sum()) + 4 * b * k + 3 * k + b), **scorer_counts(cis, cis))
 
 
 def repeat_bound(scorer, vecs, pvec):
@@ -315,11 +343,19 @@ def mini_bound(args):
                  **scorer_counts(m * c * upper_cells(r), cis))
 
 
-def obsgrid_bound(win):
-    """Bound of a B4 call: per neighbour R x cap window columns and values
-    and R keys read, the R x R grid written."""
-    m, r, cap = win[0].shape
-    return bound(m * (r * cap * 8 + r * 4 + r * r * 4))
+def obsgrid_bound(b4):
+    """Bound of a B4 call on (row_start, cols, vals, keys): the CSR entries
+    of the rows read (a column and a count, 8 bytes each) and their two row
+    offsets, the M x R keys, and the M x R x R grid written."""
+    import torch
+
+    row_start, _, _, keys = b4
+    m, r = keys.shape
+    k = keys.long()
+    ok = k >= 0
+    kc = k.clamp_min(0)
+    entries = int(torch.where(ok, row_start[kc + 1] - row_start[kc], 0).sum())
+    return bound(8 * entries + 16 * int(ok.sum()) + 4 * m * r + 4 * m * r * r)
 
 
 def fmt_bound(t):
@@ -530,26 +566,28 @@ def phase_kernel(device, n_bins=384, large_bins=LARGE_BINS):
              ("circular", circularised(state), 207 % n, False)]
     max_err, batches = check_bases(scorer, table, params, nb, bases, gen)
 
-    # timing at the main path's shape: 65 candidates of the true genome
-    # (every cell cis-or-trans as in an assembled map) and of the start
+    # timing at the main path's shapes: 65 candidates of the true genome
+    # (most half tiles far from the diagonal pure-trans) and of the
+    # exploded start (nearly all of them), and the nuisance call's B = 1
     pvec = params_vector(params, scorer.log_nfpb)
     timing = {}
-    for name, b in (("true", batches[0]), ("exploded", batches[1])):
-        v = scorer.sub_vectors(b)
+    vecs = {name: scorer.sub_vectors(b) for name, b in (("true", batches[0]),
+                                                        ("exploded", batches[1]))}
+    vecs["B=1"] = [x[:1].contiguous() for x in vecs["true"]]
+    for name, v in vecs.items():
         t = timed(lambda: scorer.launch(*v, pvec), 50, lambda: scorer.plain(*v, pvec), 5)
         timing[name] = with_share(t, dense_bound(v, pvec))
-        print(f"  time B=65 K={scorer.k} ({name} candidates): {fmt_time(t)}; "
+        print(f"  time B={v[0].shape[0]} K={scorer.k} ({name}): {fmt_time(t)}; "
               f"{fmt_bound(timing[name])}")
-    one = [x[:1].contiguous() for x in scorer.sub_vectors(batches[0])]
-    t1 = timed(lambda: scorer.launch(*one, pvec), 50)
-    print(f"  time B=1 K={scorer.k}: {fmt_time(t1)}")
 
     check_small_oracle(lambda dev: problem(n_bins=24, n_contigs=3, device=dev), device)
     err, large = check_large(lambda dev: problem(n_bins=large_bins, device=dev), device, 11,
                              gen)
+    timing["K6000"] = with_share(large["timing"], dense_bound(large["vecs"], large["pvec"]))
+    print(f"  B=13 K={large['scorer'].k}: {fmt_bound(timing['K6000'])}")
     return dict(max_abs_err=max_err, max_abs_err_k6000=err, **timing["true"],
-                by_shape={"B1_K6000": with_share(
-                    large["timing"], dense_bound(large["vecs"], large["pvec"]))})
+                by_shape={"B1_B65_exploded": timing["exploded"], "B1_B1": timing["B=1"],
+                          "B1_K6000": timing["K6000"]})
 
 
 def main_path_run(device, build, n_cycles):
@@ -831,7 +869,9 @@ def delta_inputs(sc, scorer, extract, f_a, gen):
     """The B4 and B2 inputs of one step of fragment f_a at the scorer's
     bucket, as the delta step builds them: the neighbours drawn as the step
     draws them, their member rows by ``extract`` (the step's row
-    extraction)."""
+    extraction). Returns (B4's arguments (row_start, cols, vals, keys), the
+    D sub rows and their base activity (subs, act0) from which the step
+    makes its observed grid, B2's arguments)."""
     import torch
     from graal_tpu_torch.core import mcmc
 
@@ -839,11 +879,33 @@ def delta_inputs(sc, scorer, extract, f_a, gen):
     f_a = torch.tensor(f_a, device=shuf.pos.device)
     ids, _ = mcmc.sample_neighbours(gen, f_a, shuf, sc["runner"].nb, DELTA)
     rows, valid, _ = extract(shuf, f_a, ids, scorer.f_max)
-    subs, sub_valid = scorer.sub_rows(rows, valid)
-    windows = scorer.windows(subs, sub_valid)
+    subs, _ = scorer.sub_rows(rows, valid)
     _, geo, ob, accu_sub, pvec = scorer.inputs(shuf, f_a, ids, rows, valid, sc["params"],
                                                shuf.id_c.amax())
-    return windows, scorer.mini_grid_args(geo, ob, accu_sub, pvec)
+    act0 = geo.act[:, 0]
+    sobs = scorer.sobs
+    b4 = (sobs.row_start, sobs.cols, sobs.vals, scorer.obs_keys(subs, act0))
+    return b4, (subs, act0), scorer.mini_grid_args(geo, ob, accu_sub, pvec)
+
+
+def b4_vs_plain(grid, b4, label):
+    """B4 kernel and plain version on the same inputs: bit-identical.
+    Returns the kernel's grid and the largest absolute difference (0.0)."""
+    import torch
+
+    ob_k = grid.launch(*b4)
+    ob_p = grid.plain(*b4)
+    torch.cuda.synchronize()
+    check(torch.equal(ob_k, ob_p), f"{label}: B4 kernel differs from its plain version")
+    err = (ob_k - ob_p).abs().max().item()
+    keys = b4[3]
+    live = keys >= 0
+    shared = sum(int(row.sum()) - len(torch.unique(k[row])) for k, row in zip(keys, live))
+    m, r = keys.shape
+    print(f"  B4 {label}: M={m} R={r}, {int(live.sum())} keys with a window: bit-identical, "
+          f"{int((ob_k > 0).sum())} nonzero cells, sum {ob_k.sum().item():.0f}, "
+          f"{shared} keys shared by copies")
+    return ob_k, err
 
 
 def b2_vs_plain(grid, args, label):
@@ -870,33 +932,28 @@ def b2_vs_plain(grid, args, label):
 
 def check_delta_kernels(sc, scorer, extract, frags, gen, want_m):
     """B4 bit-identical and B2 within RTOL / DLL_ATOL of their plain
-    versions on the step inputs of the fragments ``frags``; every B2
-    neighbour and genome bit-identical alone and in its batch; both timed
-    at f_max 1,024. Returns (the kernels' results, the first step's B2
-    inputs)."""
+    versions on the step inputs of the fragments ``frags``, and the step's
+    observed grid equal to B4's; every B2 neighbour and genome
+    bit-identical alone and in its batch; both timed at f_max 1,024, B4
+    also as the whole production of the step's masked observed grid from
+    the D rows and their activity (keys and kernel). Returns the kernels'
+    records."""
     import torch
 
     b2_err, b4_err, first = 0.0, 0.0, None
     for f_a in frags:
-        win, args = delta_inputs(sc, scorer, extract, f_a, gen)
+        b4, rows_act, args = delta_inputs(sc, scorer, extract, f_a, gen)
         check(args[0].shape[0] == want_m,
               f"f_a={f_a}: {args[0].shape[0]} neighbour slots, the path has {want_m}")
-        ob_k = scorer.obs_grid_kernel.launch(*win)
-        ob_p = scorer.obs_grid_kernel.plain(*win)
-        torch.cuda.synchronize()
-        check(torch.equal(ob_k, ob_p), f"f_a={f_a}: B4 kernel differs from its plain version")
-        b4_err = max(b4_err, (ob_k - ob_p).abs().max().item())
-        keys = win[2]
-        shared = sum(int((k >= 0).sum()) - len(torch.unique(k[k >= 0])) for k in keys)
-        print(f"  B4 f_a={f_a}: M={win[0].shape[0]} R={win[0].shape[1]} "
-              f"cap={win[0].shape[2]}: bit-identical, {int((ob_k > 0).sum())} nonzero cells, "
-              f"sum {ob_k.sum().item():.0f}, {shared} keys shared by copies")
+        ob_k, err = b4_vs_plain(scorer.obs_grid_kernel, b4, f"f_a={f_a}")
+        b4_err = max(b4_err, err)
+        check(torch.equal(args[5], ob_k), f"f_a={f_a}: the step's observed grid is not B4's")
         s_k, err = b2_vs_plain(scorer.mini_grid, args, f"f_a={f_a}")
         b2_err = max(b2_err, err)
         if first is None:
-            first = (win, args, s_k)
+            first = (b4, rows_act, args, s_k)
     # each genome alone, and each neighbour alone, as in its batch
-    win, args, s_k = first
+    b4, rows_act, args, s_k = first
     m, c, _ = args[0].shape
     for a in range(m):
         alone = scorer.mini_grid.launch(*[x[a:a + 1].contiguous() for x in args[:6]], args[6])[0]
@@ -910,20 +967,47 @@ def check_delta_kernels(sc, scorer, extract, frags, gen, want_m):
     t2 = with_share(timed(lambda: scorer.mini_grid.launch(*args), 50,
                           lambda: scorer.mini_grid.plain(*args), 5), mini_bound(args))
     print(f"  time B2 R={args[0].shape[2]} M={m} C={c}: {fmt_time(t2)}; {fmt_bound(t2)}")
-    # the wrapper sorts the keys (torch.sort) before it launches the kernel:
-    # both times include the sort
-    t4 = with_share(timed(lambda: scorer.obs_grid_kernel.launch(*win), 50,
-                          lambda: scorer.obs_grid_kernel.plain(*win), 10), obsgrid_bound(win))
-    print(f"  time B4 R={win[0].shape[1]} cap={win[0].shape[2]} M={win[0].shape[0]} "
-          f"(with the wrapper's sort): {fmt_time(t4)}; {fmt_bound(t4)}")
+    t4 = with_share(timed(lambda: scorer.obs_grid_kernel.launch(*b4), 50,
+                          lambda: scorer.obs_grid_kernel.plain(*b4), 10), obsgrid_bound(b4))
+    grid = timed(lambda: scorer.obs_grid(*rows_act), 50)
+    r = b4[3].shape[1]
+    print(f"  time B4 R={r} M={m}: {fmt_time(t4)}; {fmt_bound(t4)}")
+    print(f"  time of the step's masked observed grid (keys + B4): {fmt_time(grid)}")
     return dict(ll_mini=dict(max_abs_err=b2_err, **t2),
-                obsgrid=dict(max_abs_err=b4_err, **t4))
+                obsgrid=dict(max_abs_err=b4_err, **t4, grid_ms=grid["ms"],
+                             grid_device_ms=grid["device_ms"]))
+
+
+def check_b4_collisions(sc, r=F_MAX):
+    """B4 bit-identical to plain on R keys of the observed map of which
+    half crowd the fullest buckets of the kernel's table (long probe runs,
+    for inserts and lookups) and half are a run of consecutive rows, so
+    that their windows hit many keys."""
+    import numpy as np
+    import torch
+    from graal_tpu_torch.ops import obsgrid_cuda
+    from graal_tpu_torch.ops.obsgrid_cuda import WindowObsGrid
+
+    sobs = sc["sobs"]
+    n = sobs.n
+    log2cap = obsgrid_cuda.log2_capacity(r)
+    buckets = obsgrid_cuda.bucket(np.arange(n, dtype=np.int64), log2cap)
+    fill = np.bincount(buckets, minlength=1 << log2cap)
+    run = np.arange(n // 2, n // 2 + r // 2)
+    by_fill = np.lexsort((buckets, -fill[buckets]))   # the fullest buckets' keys, bucket by bucket
+    pool = by_fill[~np.isin(by_fill, run)][: r - len(run)]
+    keys = np.random.default_rng(SEED).permutation(np.concatenate([run, pool])).astype(np.int32)
+    keys = torch.as_tensor(keys, device=sobs.cols.device)[None]
+    b4_vs_plain(WindowObsGrid(), (sobs.row_start, sobs.cols, sobs.vals, keys),
+                f"colliding keys ({len(pool)} keys in {len(np.unique(buckets[pool]))} of "
+                f"{1 << log2cap} buckets)")
 
 
 def phase_delta_kernels(device, sc, frags=(7, 31_337, 77_777)):
     """B4 and B2 on the repeat-free delta path's inputs: one genome-length
-    extraction for the 5 neighbour slots (extract_rows_union), windows keyed
-    by sub row; and B2 at every tier of the ladder."""
+    extraction for the 5 neighbour slots (extract_rows_union), keys of the
+    CSR map by sub row; B4 on colliding keys; and both at every tier of the
+    ladder."""
     import torch
     from graal_tpu_torch.core import delta
 
@@ -934,45 +1018,55 @@ def phase_delta_kernels(device, sc, frags=(7, 31_337, 77_777)):
     gen = torch.Generator(device=device).manual_seed(SEED)
     out = check_delta_kernels(sc, scorer, delta.extract_rows_union, frags, gen,
                               want_m=sc["runner"].nb.max_copies * (DELTA + 1))
-    out["ll_mini"]["tiers"] = b2_tiers(sc, gen, out["ll_mini"])
+    check_b4_collisions(sc)
+    b2, b4 = tiers(sc, gen, out)
+    out["ll_mini"]["tiers"] = b2
+    out["obsgrid"]["tiers"] = b4
     out["ll_mini"]["max_abs_err"] = max([out["ll_mini"]["max_abs_err"]] + [
-        t["max_abs_err"] for t in out["ll_mini"]["tiers"].values()])
+        t["max_abs_err"] for t in b2.values()])
     return out
 
 
-def b2_tiers(sc, gen, at_flagship):
-    """B2 against its plain version and timed at every tier R of the
-    ScaleRunner ladder (5 neighbour slots, 14 genomes), on the step inputs
-    of the fragment whose contig is the largest that half the tier holds
-    (at the top tier the largest contig), so the mini grid is mostly
-    real rows. Returns {R: record}, the flagship tier's from its phase."""
+def tiers(sc, gen, at_flagship):
+    """B2 and B4 against their plain versions (B4 bit-identical) and timed
+    at every tier R of the ScaleRunner ladder (5 neighbour slots, 14
+    genomes), on the step inputs of the fragment whose contig is the
+    largest that half the tier holds (at the top tier the largest contig),
+    so the mini grid is mostly real rows. Returns ({R: B2 record}, {R: B4
+    record}), the flagship tier's from its phase."""
     import numpy as np
     from graal_tpu_torch.core import delta
     from graal_tpu_torch.scale import contig_frags_per_frag
 
     sizes = contig_frags_per_frag(sc["shuf"])
-    tiers = {}
+    b2, b4 = {}, {}
     for r in TIERS:
         if r == F_MAX:
-            tiers[r] = dict(at_flagship)
+            b2[r] = dict(at_flagship["ll_mini"])
+            b4[r] = {k: v for k, v in at_flagship["obsgrid"].items() if k != "tiers"}
             continue
         fits = np.where(sizes <= r // 2, sizes, -1)
         f_a = int(np.argmax(fits))
         sc_r = delta.make_delta_scorer(sc["table"], None, r, sobs=sc["sobs"])
-        _, args = delta_inputs(sc, sc_r, delta.extract_rows_union, f_a, gen)
-        _, err = b2_vs_plain(sc_r.mini_grid, args, f"tier R={r} f_a={f_a} (contig of "
-                                                    f"{sizes[f_a]} fragments)")
-        n_iter = max(5, 200 * 1024 * 1024 // (r * r))
-        t = with_share(timed(lambda: sc_r.mini_grid.launch(*args), min(n_iter, 200),
+        b4_args, _, args = delta_inputs(sc, sc_r, delta.extract_rows_union, f_a, gen)
+        label = f"tier R={r} f_a={f_a} (contig of {sizes[f_a]} fragments)"
+        _, err4 = b4_vs_plain(sc_r.obs_grid_kernel, b4_args, label)
+        _, err = b2_vs_plain(sc_r.mini_grid, args, label)
+        n_iter = min(200, max(5, 200 * 1024 * 1024 // (r * r)))
+        t = with_share(timed(lambda: sc_r.mini_grid.launch(*args), n_iter,
                              lambda: sc_r.mini_grid.plain(*args), 2), mini_bound(args))
         print(f"  time B2 R={r} M={args[0].shape[0]}: {fmt_time(t)}; {fmt_bound(t)}")
-        tiers[r] = dict(max_abs_err=err, **t)
-    return tiers
+        b2[r] = dict(max_abs_err=err, **t)
+        t = with_share(timed(lambda: sc_r.obs_grid_kernel.launch(*b4_args), n_iter),
+                       obsgrid_bound(b4_args))
+        print(f"  time B4 R={r} M={args[0].shape[0]}: {fmt_time(t)}; {fmt_bound(t)}")
+        b4[r] = dict(max_abs_err=err4, **t)
+    return b2, b4
 
 
 def phase_repeat_delta_kernels(device, sc):
     """B4 and B2 on the repeat delta path's own inputs: the single-copy
-    part of the repeat engine v2 (its plain scorer: windows of the
+    part of the repeat engine v2 (its plain scorer: CSR rows of the
     single-copy map keyed by data bin, so two copies of a bin share a key),
     member rows extracted per neighbour (extract_rows_each), 10 neighbour
     slots a step (max_copies 2); at a repeat copy, an original of a

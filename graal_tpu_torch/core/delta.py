@@ -22,7 +22,8 @@ Two kernels carry the step on the card, each behind a wrapper that runs
 its plain torch version on CPU tensors:
 
 - the window obs grid (:class:`graal_tpu_torch.ops.obsgrid_cuda.WindowObsGrid`):
-  the D rows' CSR windows made dense over the D sub rows;
+  the D rows' CSR windows, read from the observed map in place, made dense
+  over the D sub rows, with base activity folded into the keys;
 - the mini-grid scorer (:class:`graal_tpu_torch.ops.mini_grid_cuda.MiniGridScorer`):
   the observed term and the expected mass of the 14 genomes per
   neighbour, with the deltas taken in f64.
@@ -213,9 +214,10 @@ class DeltaScorer:
     overflow is False.
 
     ``obs``: dense observed matrix (small problems); ``sobs``: a
-    :class:`SparseObs` (chr1 scale), whose CSR windows are read for the D
-    rows. ``band_w``: when set, the expected mass is the analytic trans mass
-    plus a banded cis correction over the (contig, midpoint)-sorted rows
+    :class:`SparseObs` (chr1 scale), whose CSR windows the obs-grid kernel
+    reads for the D rows. ``band_w``: when set, the expected mass is the
+    analytic trans mass plus a banded cis correction over the (contig,
+    midpoint)-sorted rows
     (plain torch; the JAX package has no kernel for it). ``obs_grid`` and
     ``mini_grid``: the kernel wrappers to launch through (new ones by
     default), shared by a caller that counts launches.
@@ -275,34 +277,25 @@ class DeltaScorer:
         sub_valid = (valid[..., None] & (slot < count[..., None])).reshape(m, self.r_max)
         return subs, sub_valid
 
-    def windows(self, subs, sub_valid):
-        """CSR windows of the D sub rows: (cols, vals) of shape (m, R, cap),
-        -2 / 0 on unused slots, and the keys (m, R) the columns are matched
-        against (-1 on padding slots). Rows and keys are the sub rows, or
-        their data subs under ``data_keys``."""
-        sobs = self.sobs
-        nnz = sobs.cols.shape[0]
+    def obs_keys(self, subs, act):
+        """(m, R) int32 keys of the D sub rows' CSR windows: the sub row,
+        or its data sub under ``data_keys``, where ``act`` holds, and -1
+        (no window, matching no column) elsewhere."""
         rc = subs.clamp(0, self.k_subs - 1)
         if self.key_of is not None:
             rc = self.key_of[rc]
-        start = sobs.row_start[rc]
-        end = sobs.row_start[rc + 1]
-        win = start[..., None] + torch.arange(sobs.row_cap, device=subs.device)
-        ok = (win < end[..., None]) & sub_valid[..., None]
-        wc = win.clamp_max(nnz - 1)
-        cols = torch.where(ok, sobs.cols[wc], -2)
-        vals = torch.where(ok, sobs.vals[wc], 0.0)
-        keys = torch.where(sub_valid, rc, -1).int()
-        return cols, vals, keys
+        return torch.where(act, rc, -1).int()
 
-    def obs_grid(self, subs, sub_valid):
-        """(m, R, R) strict-upper observed grid of the D sub rows."""
+    def obs_grid(self, subs, act):
+        """(m, R, R) strict-upper observed grid of the D sub rows, zero on
+        the rows and columns where ``act`` does not hold."""
         if self.sobs is not None:
-            return self.obs_grid_kernel(*self.windows(subs, sub_valid))
+            sobs = self.sobs
+            return self.obs_grid_kernel(sobs.row_start, sobs.cols, sobs.vals,
+                                        self.obs_keys(subs, act))
         sc = subs.clamp(0, self.k_subs - 1)
         ob = self.obs[sc[:, :, None], sc[:, None, :]]
-        ok = self.upper & sub_valid[:, :, None] & sub_valid[:, None, :]
-        return torch.where(ok, ob, 0.0)
+        return torch.where(self.upper & act[:, :, None] & act[:, None, :], ob, 0.0)
 
     def geometry(self, genomes: GenomeState, subs_c, sub_valid) -> Geometry:
         """Sub-row vectors (m, C, R) of genomes (m, C, f_max)."""
@@ -337,18 +330,17 @@ class DeltaScorer:
         subs_c = subs.clamp(0, self.k_subs - 1)
         full = GenomeState(*[torch.cat([a[:, None], b], 1) for a, b in zip(mini, cands)])
         geo = self.geometry(full, subs_c, sub_valid)
-        # ob is zeroed on inactive rows / columns: the expected side is
-        # masked through la = -1e9, but an unmasked ob there would add
-        # ob * (-1e9) to every score and the base / candidate difference
-        # would lose all precision. Base activity is the right mask because
-        # no window entry touches a row whose activity a candidate toggles:
-        # on a repeat-free table activity never changes (swap_activity is a
-        # no-op at rep == 0), and under data_keys the windows hold no entry
-        # of a multi-copy bin, while only rep-flagged fragments, whose bins
-        # are all multi-copy (core/delta_repeats.py), change activity.
-        act0 = geo.act[:, 0]
-        ob = torch.where(act0[:, :, None] & act0[:, None, :],
-                         self.obs_grid(subs, sub_valid), 0.0)
+        # ob is zeroed on inactive rows / columns (base activity is folded
+        # into the keys): the expected side is masked through la = -1e9,
+        # but an unmasked ob there would add ob * (-1e9) to every score and
+        # the base / candidate difference would lose all precision. Base
+        # activity is the right mask because no window entry touches a row
+        # whose activity a candidate toggles: on a repeat-free table
+        # activity never changes (swap_activity is a no-op at rep == 0),
+        # and under data_keys the windows hold no entry of a multi-copy
+        # bin, while only rep-flagged fragments, whose bins are all
+        # multi-copy (core/delta_repeats.py), change activity.
+        ob = self.obs_grid(subs, geo.act[:, 0])
         return cands, geo, ob, self.table.accu[subs_c], params_vector(params, self.log_nfpb)
 
     @staticmethod

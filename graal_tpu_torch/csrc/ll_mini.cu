@@ -39,7 +39,7 @@
 //    low tiers (R = 256, 512: 20-72 half tiles a neighbour) fill the card
 //    and R = 1,024 loses its tail wave. Blocks draw items from a ticket
 //    counter, since an item of same-contig cells costs about ten of trans
-//    cells.
+//    cells, and heaviest first (tiles by diagonal offset, tile-major).
 //  - No barrier per candidate: a block stages the obs rows of its item
 //    once and the row and column values of all the chunk's candidates
 //    (with their factors) in shared memory at once, as one record per row
@@ -99,7 +99,7 @@ ll_mini_items(const float* __restrict__ mid,    // (M, C, R) sub-row midpoints (
               const float* __restrict__ pvec,   // (N_PARAMS,)
               float* __restrict__ partial,      // (M, C, n_tri * SLOTS)
               int* __restrict__ next_item,      // ticket counter, 0 at launch
-              int C, int R, int n_rb, int n_tri, int cs, int n_chunks, int n_items) {
+              int M, int C, int R, int n_rb, int n_tri, int cs, int n_chunks, int n_items) {
   __shared__ float s_ob[ROWS * TILE];
   __shared__ RowVals s_row[CAND_MAX][ROWS];
   __shared__ ColVals s_col[CAND_MAX][TILE];
@@ -123,14 +123,14 @@ ll_mini_items(const float* __restrict__ mid,    // (M, C, R) sub-row midpoints (
     if (tid < last_nc)
       flush_partial(s_warp[tid], partial + last_part + (size_t)tid * n_tri * SLOTS);
     if (item >= n_items) break;
-    const Item it = decode_item(item, n_tri, n_chunks, cs);
+    const Item it = decode_item(item, M, n_chunks, cs);
     const int half = it.half;
     const int t = it.tile;
     const int c0 = it.first;
     const int nbr = it.group;
     const int nc = min(cs, C - c0);
     int bi, bj;
-    tile_coords(t, n_rb, &bi, &bj);
+    band_coords(t, n_rb, &bi, &bj);
     const int i0 = bi * TILE + half * ROWS;         // first row of the item
     const int j0 = bj * TILE;
     const float* obn = ob + (size_t)nbr * R * R;
@@ -267,7 +267,7 @@ int ll_mini_score(const float* mid, const int* idc, const float* circ,
   const int n_chunks = (C + cs - 1) / cs;
   const int n_items = M * n_chunks * n_tri * SLOTS;
   ll_mini_items<<<grid, THREADS, 0, s>>>(mid, idc, circ, stot, la, ob, pvec, partial,
-                                         next_item, C, R, n_rb, n_tri, cs, n_chunks, n_items);
+                                         next_item, M, C, R, n_rb, n_tri, cs, n_chunks, n_items);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   ll_mini_reduce<<<M, REDUCE_WARPS * 32, 0, s>>>(partial, C, n_tri * SLOTS, scores, dll,

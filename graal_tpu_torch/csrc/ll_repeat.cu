@@ -55,7 +55,8 @@
 //    host so that the items (half tile, chunk) fill whole rounds of the
 //    resident blocks: no tail wave, and the B = 1 nuisance call (342 half
 //    tiles) reaches every SM. Blocks draw items from a ticket counter,
-//    since an item of same-contig cells costs about ten of trans cells.
+//    since an item of same-contig cells costs about ten of trans cells,
+//    and heaviest first (tiles by diagonal offset, tile-major).
 //  - Copy-dense tables. An item's staged records grow with the copy rows
 //    of its 64 data subs (36 bytes a row and candidate at most), so the
 //    wrapper caps the chunk at the most candidates whose records fit the
@@ -73,7 +74,7 @@
 //    memory; the barrier that opens the next item also orders the one sum
 //    per candidate of the 8 warp sums. The staging is not double-buffered:
 //    a second buffer would halve the resident blocks, and the other
-//    resident blocks' work covers one block's loads. 60 registers, no
+//    resident blocks' work covers one block's loads. 62 registers, no
 //    spills: 4 blocks an SM (48 registers spilled).
 //  - Nothing is accumulated across blocks: one f32 partial per (candidate,
 //    tile, half), and a second kernel, one warp per candidate, sums them
@@ -158,13 +159,13 @@ ll_repeat_items(const float* __restrict__ mid,   // (B, K) copy-row midpoints (k
     if (tid < last_nb)
       flush_partial(s_warp[tid], partial + (size_t)(last_b0 + tid) * n_part + last_slot);
     if (item >= n_items) break;
-    const Item it = decode_item(item, n_tri, n_chunks, cs);
+    const Item it = decode_item(item, 1, n_chunks, cs);
     const int half = it.half;
     const int t = it.tile;
     const int b0 = it.first;
     const int nb = min(cs, B - b0);
     int bi, bj;
-    tile_coords(t, n_rb, &bi, &bj);
+    band_coords(t, n_rb, &bi, &bj);
     const int i0 = bi * TILE + half * ROWS;         // first row of the item
     const int j0 = bj * TILE;
     const int r_base = copy_start[min(i0, S)];

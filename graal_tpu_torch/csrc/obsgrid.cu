@@ -5,78 +5,148 @@
 // For each of M neighbour slots it densifies the CSR windows of the R mini
 // sub rows into the R x R observed grid,
 //
-//     ob[m, r, j] = sum_w vals[m, r, w] * (cols[m, r, w] == keys[m, j])
+//     ob[m, r, j] = sum_{e in window(keys[m, r])} vals[e] * (cols[e] == keys[m, j])
 //
-// and writes its strict upper triangle (j > r; zeros elsewhere), the only
-// part the scorer reads. Valid keys are distinct sub rows >= 0, invalid
-// slots are -1, and window columns are >= 0 or -2 (no entry), so an entry
-// matches at most one key and a negative column matches none.
+// where the window of key k is the CSR row [row_start[k], row_start[k+1])
+// of the observed map and a key of -1 has no window and matches no column.
+// It writes the strict upper triangle (j > r) and zeros elsewhere: the
+// mini-grid scorer reads the upper triangle (and the diagonal tiles' lower
+// cells before it masks them), so the lower part is written too. The
+// caller folds activity into the keys (an inactive sub row gets -1), so
+// the grid comes out masked.
 //
 // What bounds it on the card. The TPU kernel compares every window entry
 // with every key: R * cap * R compare-adds (190 M per neighbour at R =
-// 1,024, cap = 180). The useful work is R * cap entries, each matching at
-// most one key. What is left is moving bytes: reading the windows
-// (R * cap * 8 bytes) and writing the dense grid (R * R * 4 bytes, 4 MB per
+// 1,024, cap = 180). The useful work is one lookup per entry of the R
+// windows. What is left is moving bytes: reading those CSR entries (8
+// bytes each) and writing the dense grid (R * R * 4 bytes, 4 MB per
 // neighbour at R = 1,024), which bounds the kernel.
 //
 // What the design does about it.
-//  - The wrapper hands over each neighbour's keys sorted, with their slots
-//    (torch.sort as glue). A block of ROWS_PER_BLOCK rows of one neighbour
-//    loads them into shared memory once; each window entry binary-searches
-//    its column there (log2 R steps) instead of comparing with all R keys.
-//  - A row is accumulated in a shared buffer of R floats with shared-memory
-//    atomics, then written out coalesced (one float per thread and step).
-//  - Observed counts are integers held in f32, far below 2^24, so the sum
-//    is exact in any order: atomics and duplicate columns cannot change a
-//    bit, and the result equals the one-hot contraction exactly.
+//  - The CSR map is read in place: a row's window is a contiguous run of
+//    (cols, vals), read coalesced by its warp. No (M, R, cap) window
+//    tensors are gathered beforehand and no keys are sorted.
+//  - Each block owns one neighbour and a range of rows, and first builds
+//    a key -> slot map of its neighbour in shared memory: an open-
+//    addressing table of 16-bit slots (at least 2R entries, multiplicative
+//    hashing, linear probing) filled with atomicCAS, the key of a slot read
+//    from the staged keys. Keys may repeat (under the repeat engine's
+//    data_keys two copies of a bin share one); a repeated key keeps one
+//    entry, which ends up holding its smallest slot whatever the order of
+//    the inserts, so the table never overflows or loops and a lookup is
+//    deterministic: an entry whose column equals a repeated key goes to the
+//    key's first slot, as in the plain version. The callers never send one
+//    (the observed map of the single-copy rows holds no entry of a
+//    multi-copy bin), so an entry still matches every slot of its key. The wrapper sizes the row ranges from
+//    the shapes so that the blocks fill the card once, each warp taking at
+//    least two rows, and the map is built once per block.
+//  - One warp per row, no block barrier per row: the warp clears its own
+//    row buffer in shared memory, adds its window's entries into it with
+//    shared atomics and writes the row out with 16-byte stores, ordered by
+//    its own __syncwarp()s. Observed counts are integers held in f32, far
+//    below 2^24, so the sums are exact in any order: atomics cannot change
+//    a bit, and the result equals the one-hot contraction exactly.
+//  - At large R the map and the row buffers outgrow shared memory: the
+//    wrapper gives a block as many row buffers (warps at work) as fit,
+//    down to one (R = 16,384 fits), and refuses what does not.
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int ROWS_PER_BLOCK = 8;
+constexpr int WARPS = THREADS / 32;
+constexpr unsigned short EMPTY = 0xffff;     // a free table entry
+constexpr unsigned HASH_MUL = 0x9E3779B1u;   // Fibonacci hashing
+
+__device__ __forceinline__ unsigned bucket(int key, int shift) {
+  return ((unsigned)key * HASH_MUL) >> shift;
+}
 
 __global__ void __launch_bounds__(THREADS)
-obsgrid_rows(const int* __restrict__ cols,    // (M, R, cap) window column ids
-             const float* __restrict__ vals,  // (M, R, cap) window counts (0 if unused)
-             const int* __restrict__ skeys,   // (M, R) keys sorted ascending
-             const int* __restrict__ slots,   // (M, R) slot of each sorted key
-             float* __restrict__ out,         // (M, R, R)
-             int R, int cap) {
-  extern __shared__ int smem[];
-  int* s_keys = smem;                                       // R
-  int* s_slot = smem + R;                                   // R
-  float* s_row = reinterpret_cast<float*>(smem + 2 * R);    // R
+obsgrid_rows(const long long* __restrict__ row_start,   // (n + 1,) CSR row offsets
+             const int* __restrict__ cols,               // (nnz,) column ids
+             const float* __restrict__ vals,             // (nnz,) counts
+             const int* __restrict__ keys,               // (M, R) CSR row of each slot, or -1
+             float* __restrict__ out,                    // (M, R, R)
+             int R, int rows_per_block, int n_bufs, int log2cap) {
+  extern __shared__ float4 smem4[];
+  const int r4 = (R + 3) & ~3;
+  float* s_rows = reinterpret_cast<float*>(smem4);                  // (n_bufs, r4)
+  int* s_keys = reinterpret_cast<int*>(s_rows + n_bufs * r4);       // (R,)
+  unsigned short* s_tab = reinterpret_cast<unsigned short*>(s_keys + R);   // (1 << log2cap,)
+  const unsigned mask = (1u << log2cap) - 1u;
+  const int shift = 32 - log2cap;
 
   const int nbr = blockIdx.y;
-  const int r0 = blockIdx.x * ROWS_PER_BLOCK;
+  const int r0 = blockIdx.x * rows_per_block;
+  const int r1 = min(R, r0 + rows_per_block);
   const int tid = threadIdx.x;
-  for (int j = tid; j < R; j += THREADS) {
-    s_keys[j] = skeys[(size_t)nbr * R + j];
-    s_slot[j] = slots[(size_t)nbr * R + j];
-  }
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
 
-  const int r_end = min(R, r0 + ROWS_PER_BLOCK);
-  for (int r = r0; r < r_end; ++r) {
-    for (int j = tid; j < R; j += THREADS) s_row[j] = 0.0f;
-    __syncthreads();  // keys loaded, row buffer cleared
-    const size_t wb = ((size_t)nbr * R + r) * cap;
-    for (int w = tid; w < cap; w += THREADS) {
-      const int col = cols[wb + w];
-      if (col < 0) continue;
-      int lo = 0;
-      int hi = R;
-      while (lo < hi) {  // first key >= col
-        const int mid = (lo + hi) >> 1;
-        if (s_keys[mid] < col) lo = mid + 1; else hi = mid;
+  // the neighbour's key -> slot map
+  const int* keys_n = keys + (size_t)nbr * R;
+  for (int j = tid; j < R; j += THREADS) s_keys[j] = keys_n[j];
+  for (int h = tid; h <= (int)mask; h += THREADS) s_tab[h] = EMPTY;
+  __syncthreads();
+  for (int j = tid; j < R; j += THREADS) {
+    const int k = s_keys[j];
+    if (k < 0) continue;
+    for (unsigned h = bucket(k, shift);; h = (h + 1) & mask) {
+      unsigned short prev = atomicCAS(&s_tab[h], EMPTY, (unsigned short)j);
+      if (prev == EMPTY) break;                   // placed
+      if (s_keys[prev] != k) continue;            // another key's entry: probe on
+      // a repeated key (rare): an entry keeps its key, so it only ever
+      // goes down to a smaller slot of the same key
+      while (prev > j) {
+        const unsigned short seen = atomicCAS(&s_tab[h], prev, (unsigned short)j);
+        if (seen == prev) break;
+        prev = seen;
       }
-      if (lo < R && s_keys[lo] == col) atomicAdd(&s_row[s_slot[lo]], vals[wb + w]);
+      break;
     }
-    __syncthreads();
+  }
+  __syncthreads();
+  if (warp >= n_bufs) return;
+
+  float* buf = s_rows + warp * r4;
+  float4* buf4 = reinterpret_cast<float4*>(buf);
+  for (int r = r0 + warp; r < r1; r += n_bufs) {
+    for (int i = lane; i < r4 / 4; i += 32) buf4[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    __syncwarp();
+    const int key = s_keys[r];
+    if (key >= 0) {
+      const long long e1 = row_start[key + 1];
+      for (long long e = row_start[key] + lane; e < e1; e += 32) {
+        const int c = cols[e];
+        for (unsigned h = bucket(c, shift);; h = (h + 1) & mask) {
+          const unsigned short s = s_tab[h];
+          if (s == EMPTY) break;                            // no slot holds this column
+          if (s_keys[s] == c) {
+            atomicAdd(&buf[s], vals[e]);
+            break;
+          }
+        }
+      }
+    }
+    __syncwarp();
     float* orow = out + ((size_t)nbr * R + r) * R;
-    for (int j = tid; j < R; j += THREADS) orow[j] = j > r ? s_row[j] : 0.0f;
-    __syncthreads();  // row written before the next row clears the buffer
+    if ((R & 3) == 0) {
+      float4* o4 = reinterpret_cast<float4*>(orow);
+      for (int i = lane; i < R / 4; i += 32) {
+        float4 x = buf4[i];
+        const int j = 4 * i;
+        x.x = j > r ? x.x : 0.0f;
+        x.y = j + 1 > r ? x.y : 0.0f;
+        x.z = j + 2 > r ? x.z : 0.0f;
+        x.w = j + 3 > r ? x.w : 0.0f;
+        o4[i] = x;
+      }
+    } else {
+      for (int j = lane; j < R; j += 32) orow[j] = j > r ? buf[j] : 0.0f;
+    }
+    __syncwarp();   // the row is read out before the next row clears the buffer
   }
 }
 
@@ -84,21 +154,56 @@ obsgrid_rows(const int* __restrict__ cols,    // (M, R, cap) window column ids
 
 extern "C" {
 
-// Dynamic shared memory the kernel needs for grid size R (bytes).
-int obsgrid_smem_bytes(int R) { return 3 * R * (int)sizeof(int); }
+// Dynamic shared memory (bytes) of a block with `n_bufs` row buffers on a
+// grid of size R and a table of 1 << log2cap entries.
+int obsgrid_smem_bytes(int R, int n_bufs, int log2cap) {
+  return n_bufs * ((R + 3) & ~3) * (int)sizeof(float) + R * (int)sizeof(int) +
+         (1 << log2cap) * (int)sizeof(unsigned short);
+}
 
-// Densify M neighbours' windows into out (M, R, R) f32. Launches on
-// `stream`, does not synchronise, returns the cudaError_t of the launch.
-int obsgrid(const int* cols, const float* vals, const int* skeys,
-            const int* slots, float* out, int M, int R, int cap, void* stream) {
-  if (M <= 0 || R <= 0 || cap <= 0) return (int)cudaErrorInvalidValue;
-  const int smem = obsgrid_smem_bytes(R);
-  cudaError_t err = cudaFuncSetAttribute(
-      obsgrid_rows, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+int obsgrid_warps() { return WARPS; }
+
+// Once per process: allow obsgrid_rows all the dynamic shared memory a
+// block of `device` may have, prefer shared memory over L1, and write that
+// limit (bytes) to *smem_max.
+int obsgrid_configure(int device, int* smem_max) {
+  int optin = 0;
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, obsgrid_rows);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((R + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK, M);
-  obsgrid_rows<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      cols, vals, skeys, slots, out, R, cap);
+  const int limit = optin - (int)attr.sharedSizeBytes;
+  err = cudaFuncSetAttribute(obsgrid_rows, cudaFuncAttributeMaxDynamicSharedMemorySize, limit);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(obsgrid_rows, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return (int)err;
+  *smem_max = limit;
+  return 0;
+}
+
+// The blocks of obsgrid_rows resident on one SM with `smem` bytes of
+// dynamic shared memory each.
+int obsgrid_occupancy(int smem, int* blocks_per_sm) {
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, obsgrid_rows, THREADS,
+                                                            smem);
+}
+
+// Densify the windows of M neighbours' R keys into out (M, R, R) f32: a
+// grid of ceil(R / rows_per_block) x M blocks, each with n_bufs row buffers
+// and a table of 1 << log2cap entries (more than R), after
+// obsgrid_configure. Launches on `stream`, does not synchronise, returns
+// the cudaError_t of the launch.
+int obsgrid(const long long* row_start, const int* cols, const float* vals, const int* keys,
+            float* out, int M, int R, int rows_per_block, int n_bufs, int log2cap,
+            void* stream) {
+  if (M <= 0 || R <= 0 || R >= EMPTY || rows_per_block < 1 || n_bufs < 1 || n_bufs > WARPS ||
+      log2cap < 1 || log2cap > 16 || (1 << log2cap) <= R)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((R + rows_per_block - 1) / rows_per_block, M);
+  obsgrid_rows<<<grid, THREADS, obsgrid_smem_bytes(R, n_bufs, log2cap),
+                 static_cast<cudaStream_t>(stream)>>>(row_start, cols, vals, keys, out, R,
+                                                      rows_per_block, n_bufs, log2cap);
   return (int)cudaGetLastError();
 }
 

@@ -2,9 +2,8 @@
 // the per-cell Rippe math of the Pallas `_tile_body` and `_repeat_kernel`
 // (graal_tpu/ops/likelihood_pallas.py) -- the expectation of a same-contig
 // sub-fragment pair, in log space and in linear space -- and the
-// enumeration of the upper-triangle tiles of a pair grid; for ll_mini.cu
-// and ll_repeat.cu also their persistent schedule (schedule.cuh) and
-// fixed-order sums.
+// enumeration of the upper-triangle tiles of a pair grid, and their
+// persistent schedule (schedule.cuh) and fixed-order sums.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -65,17 +64,18 @@ struct RippeCell {
   }
 };
 
-// Row-major enumeration of the upper-triangle tiles (i <= j) of an
-// n_rb x n_rb tile grid: tile t -> (bi, bj).
-__device__ __forceinline__ void tile_coords(int t, int n_rb, int* bi, int* bj) {
-  int i = 0;
+// The upper-triangle tiles of an n_rb x n_rb tile grid by diagonal: the
+// n_rb diagonal tiles (i, i), then the n_rb - 1 tiles (i, i + 1), and so
+// on: tile t -> (bi, bj).
+__device__ __forceinline__ void band_coords(int t, int n_rb, int* bi, int* bj) {
+  int d = 0;
   int rem = t;
-  while (rem >= n_rb - i) {
-    rem -= n_rb - i;
-    ++i;
+  while (rem >= n_rb - d) {
+    rem -= n_rb - d;
+    ++d;
   }
-  *bi = i;
-  *bj = i + rem;
+  *bi = rem;
+  *bj = rem + d;
 }
 
 // Let the kernel's blocks use the most shared memory an SM has, so the

@@ -10,7 +10,11 @@ it on the card and how the design answers that.
 
 Build: at first use, ``nvcc`` compiles the source for ``sm_90a`` and it is
 loaded with ``ctypes`` (:mod:`graal_tpu_torch.ops.build`). A missing
-``nvcc`` or a failed build raises.
+``nvcc`` or a failed build raises. The kernel's persistent grid is sized
+once per process (:mod:`graal_tpu_torch.ops.persistent`); each launch plans
+its candidate chunk from the shapes alone. A scorer computes once what does
+not depend on the genome: the accumulation factors and the pure-trans sums
+of every half tile (:func:`trans_constants`).
 
 Dispatch: :func:`make_dense_scorer` returns a :class:`DenseScorer` for a
 repeat-free table and the copy-summing
@@ -32,9 +36,10 @@ import torch
 from graal_tpu_torch.core.model import RippeParams
 from graal_tpu_torch.core.state import GenomeState
 from graal_tpu_torch.core.subfrags import SubFragTable
-from graal_tpu_torch.ops import build
+from graal_tpu_torch.ops import build, persistent
 
 N_PARAMS = 10
+ROWS = persistent.TILE // persistent.HALVES   # rows of a half tile
 
 
 def obs_constant(obs) -> float:
@@ -56,17 +61,69 @@ def obs_constant(obs) -> float:
     return float(out.sum())
 
 
+def band_tiles(n_rb: int):
+    """The upper-triangle tiles (bi, bj) of an n_rb x n_rb tile grid in the
+    kernel's order (``band_coords``): by diagonal offset bj - bi, then by
+    row."""
+    return [(i, i + d) for d in range(n_rb) for i in range(n_rb - d)]
+
+
+def trans_constants(obs, accu, nfpb: float) -> np.ndarray:
+    """The pure-trans sums of every half tile, (n_tiles(K) * SLOTS, 3) f64,
+    in the kernel's slot order (tile * SLOTS + half, tiles as
+    :func:`band_tiles` orders them): over the cells s < t < K of the half
+    tile, [sum ob, sum ob (la_s + la_t - log nfpb), sum accu_s accu_t /
+    nfpb], summed in f64 as ``make_pallas_scorer`` sums its per-tile ``tc``
+    (likelihood_pallas.py:232-254). A half tile with no same-contig pair
+    then contributes log_v tc0 + tc1 - v_inter tc2."""
+    obs = host_obs(obs)
+    k = obs.shape[0]
+    tile = persistent.TILE
+    n_rb = -(-k // tile)
+    kp = n_rb * tile
+    acc = np.zeros(kp, np.float64)
+    acc[:k] = np.asarray(accu, np.float64)
+    la = np.zeros(kp, np.float64)
+    la[:k] = np.log(acc[:k])
+    cols = np.arange(kp)
+    sums = np.zeros((n_rb, persistent.HALVES, n_rb, 3))   # (bi, half, bj, term)
+    for bi in range(n_rb):
+        for half in range(persistent.HALVES):
+            i0 = bi * tile + half * ROWS
+            rows = np.arange(i0, i0 + ROWS)
+            ob = np.zeros((ROWS, kp), np.float64)
+            nr = max(0, min(ROWS, k - i0))
+            ob[:nr, :k] = obs[i0:i0 + nr]
+            m = (cols[None, :] > rows[:, None]) & (rows < k)[:, None] & (cols < k)[None, :]
+            lap = la[rows][:, None] + la[None, :] - np.log(nfpb)
+            prod = acc[rows][:, None] * acc[None, :] / nfpb
+            for term, x in enumerate((ob * m, ob * np.where(m, lap, 0.0), prod * m)):
+                sums[bi, half, :, term] = x.reshape(ROWS, n_rb, tile).sum(axis=(0, 2))
+    return np.concatenate([sums[bi, :, bj] for bi, bj in band_tiles(n_rb)])
+
+
 @functools.cache
 def load_library():
     """The kernel library (built at first use), its C functions typed."""
     lib = build.load("ll_dense")
     ptr = ctypes.c_void_p
-    lib.ll_dense_n_tiles.argtypes = [ctypes.c_int]
-    lib.ll_dense_n_tiles.restype = ctypes.c_int
-    lib.ll_dense_score.argtypes = [ptr] * 9 + [ctypes.c_int, ctypes.c_int,
-                                               ctypes.c_double, ptr]
+    for fn, args in ((lib.ll_dense_n_tiles, [ctypes.c_int]), (lib.ll_dense_slots, []),
+                     (lib.ll_dense_max_chunk, []),
+                     (lib.ll_dense_configure, [ctypes.POINTER(ctypes.c_int)])):
+        fn.argtypes = args
+        fn.restype = ctypes.c_int
+    lib.ll_dense_score.argtypes = [ptr] * 13 + [ctypes.c_int, ctypes.c_int, ctypes.c_double,
+                                                ctypes.c_int, ctypes.c_int, ptr]
     lib.ll_dense_score.restype = ctypes.c_int
+    if lib.ll_dense_slots() != persistent.SLOTS:
+        raise RuntimeError("ll_dense.cu and ops/persistent.py disagree on SLOTS")
     return lib
+
+
+@functools.cache
+def resident_blocks(device) -> int:
+    """Persistent blocks of the kernel on ``device``, asked once per process."""
+    return persistent.resident_blocks(load_library().ll_dense_configure, device)
 
 
 def params_vector(p: RippeParams, log_nfpb: torch.Tensor) -> torch.Tensor:
@@ -231,20 +288,44 @@ class DenseScorer(CopyRowScorer):
         obs = host_obs(obs)
         super().__init__(table, obs, device)
         self.obs_const = obs_constant(obs)
-        self.la = torch.log(table.accu.to(self.device)).contiguous()
+        accu = table.accu.to(self.device)
+        self.la = torch.log(accu).contiguous()
+        # the kernel's genome-independent factors: a trans cell's E is
+        # (v_inter accu_u / nfpb) accu_v, and a half tile with no
+        # same-contig pair is the affine form over its sums tc
+        self.ra = torch.exp(self.la - self.log_nfpb).contiguous()
+        self.accu = torch.exp(self.la).contiguous()
+        self.tc = torch.as_tensor(trans_constants(obs, table.accu.cpu().numpy(),
+                                                  float(table.n_frags_per_bins)),
+                                  device=self.device)
+        self.tickets = persistent.Tickets()
+        self.scratch = {}      # cuda_stream -> (B_max, n_part) f32 partials
+
+    def partials(self, b: int, n_part: int, stream: int) -> torch.Tensor:
+        """The kernel's (b, n_part) partial scratch on ``stream``, kept
+        between launches and grown to the largest batch seen."""
+        buf = self.scratch.get(stream)
+        if buf is None or buf.shape[0] < b:
+            buf = torch.empty((b, n_part), dtype=torch.float32, device=self.device)
+            self.scratch[stream] = buf
+        return buf[:b]
 
     def launch(self, mid, idc, circ, stot, pvec) -> torch.Tensor:
         """Launch the kernel on the vectors of B candidates; (B,) f32."""
         B = self.check_launch((mid, idc, circ, stot), pvec)
         lib = load_library()
-        partial = torch.empty((B, lib.ll_dense_n_tiles(self.k)), dtype=torch.float32,
-                              device=self.device)
+        n_tri = lib.ll_dense_n_tiles(self.k)
+        cs, grid, _ = persistent.plan(n_tri, B, 1, resident_blocks(self.device),
+                                      lib.ll_dense_max_chunk())
+        stream = torch.cuda.current_stream(self.device).cuda_stream
+        partial = self.partials(B, n_tri * persistent.SLOTS, stream)
         out = torch.empty(B, dtype=torch.float32, device=self.device)
         rc = lib.ll_dense_score(
             mid.data_ptr(), idc.data_ptr(), circ.data_ptr(), stot.data_ptr(),
-            self.la.data_ptr(), self.obs.data_ptr(), pvec.data_ptr(),
-            partial.data_ptr(), out.data_ptr(), B, self.k, self.obs_const,
-            torch.cuda.current_stream(self.device).cuda_stream)
+            self.la.data_ptr(), self.ra.data_ptr(), self.accu.data_ptr(), self.tc.data_ptr(),
+            self.obs.data_ptr(), pvec.data_ptr(), partial.data_ptr(), out.data_ptr(),
+            self.tickets.get(self.device, stream).data_ptr(), B, self.k, self.obs_const, cs,
+            grid, stream)
         if rc != 0:
             raise RuntimeError(f"ll_dense_score launch failed: cudaError {rc}")
         self.n_launches += 1

@@ -1,12 +1,13 @@
-"""The persistent schedule of the copy-summing (B3) and mini-grid (B2)
-kernels, on the host.
+"""The persistent schedule of the candidate scorers, dense (B1),
+mini-grid (B2) and copy-summing (B3), on the host.
 
-Both kernels (``csrc/ll_repeat.cu``, ``csrc/ll_mini.cu``; the device side
-and the one decode of an item are in ``csrc/schedule.cuh``) cut their work
-into items: one half (32 rows x 64 columns) of an upper-triangle 64 x 64
-tile of the pair grid, for one chunk of candidates (and, in B2, one
-neighbour). A grid of ``G`` resident blocks takes them in increasing order
-from a ticket counter, a device int the wrapper keeps (:class:`Tickets`)
+The kernels (``csrc/ll_dense.cu``, ``csrc/ll_mini.cu``,
+``csrc/ll_repeat.cu``; the device side and the one decode of an item are
+in ``csrc/schedule.cuh``) cut their work into items: one half (32 rows x 64
+columns) of an upper-triangle 64 x 64 tile of the pair grid, for one chunk
+of candidates (and, in B2, one neighbour). A grid of ``G`` resident
+blocks takes them in increasing order from a ticket counter, a device int
+the wrapper keeps (:class:`Tickets`)
 and the kernel's reduction resets to 0: an item of same-contig cells costs
 about ten of trans cells, so a block that drew cheap items draws more.
 Each of a block's 8 warps sums its fixed cells of the item per candidate,

@@ -18,10 +18,14 @@ this, this, earlier) in one command on one card:
 Each run prints, as its last line, one JSON object: the tree, the card
 (nvidia-smi name and power limit) and, per shape, ms per call as called
 and on the device alone (``chip_smoke.cuda_ms`` / ``device_ms``). The
-shapes are those of ``chip_smoke.py``: B1 at B = 65, K = 1,152 and B = 13,
-K = 6,000; B3 at B = 130 and 1 on S = 1,152 and B = 13 on S = 6,000; B2 at
-M = 5 on every tier R = 256-4,096 of the 100k problem and at M = 10,
-R = 1,024 on the 20k repeat problem; B4 at R = 1,024 on both.
+shapes are those of ``chip_smoke.py``: B1 at B = 65 (true and exploded
+candidates) and B = 1 on K = 1,152 and B = 13 on K = 6,000; B3 at B = 130
+and 1 on S = 1,152 and B = 13 on S = 6,000; B2 at M = 5 on every tier
+R = 256-4,096 of the 100k problem and at M = 10, R = 1,024 on the 20k
+repeat problem; B4 at R = 1,024 on both, as the kernel alone and as the
+step's whole production of its masked observed grid ("B4 grid"), through
+whichever interface the tree has (gathered windows, or the CSR map and
+keys), so that trees on either side of that change time the same work.
 """
 
 import json
@@ -50,32 +54,69 @@ def times(fn, check_of):
 def dense_shapes(device, gen, build, name):
     """B1 or B3 (whichever the table gets) on a step's candidates of the
     ``build(n_bins)`` problem: at its flagship size, the whole batch at
-    fragment 7 and its first candidate; at 2,000 bins, the 13 candidates of
-    fragment 11 against one neighbour."""
+    fragment 7 of the true genome, its first candidate alone and the batch
+    at fragment 107 of the exploded start; at 2,000 bins, the 13 candidates
+    of fragment 11 against one neighbour."""
+    from graal_tpu_torch.core import mcmc
     from graal_tpu_torch.ops.likelihood_cuda import make_dense_scorer, params_vector
 
     out = {}
     for n_bins, f_a, n_nb in ((384, 7, None), (smoke.LARGE_BINS, 11, 1)):
         state, table, params, obs, nb = build(n_bins)
         scorer = make_dense_scorer(table, obs, device)
-        batch = smoke.candidate_batch(state, nb, f_a, gen, n_nb)
-        vecs = scorer.sub_vectors(batch)
         pvec = params_vector(params, scorer.log_nfpb)
-        shapes = [vecs] if n_nb else [vecs, [x[:1].contiguous() for x in vecs]]
-        for v in shapes:
-            out[f"{name} B={v[0].shape[0]} K={scorer.k}"] = times(
-                lambda: scorer.launch(*v, pvec), lambda res: res)
+        vecs = scorer.sub_vectors(smoke.candidate_batch(state, nb, f_a, gen, n_nb))
+        shapes = {f"B={vecs[0].shape[0]}": vecs}
+        if not n_nb:
+            shapes["B=1"] = [x[:1].contiguous() for x in vecs]
+            start = mcmc.explode_genome(state)
+            shapes[f"B={vecs[0].shape[0]} exploded"] = scorer.sub_vectors(
+                smoke.candidate_batch(start, nb, 107 % state.n_frags, gen))
+        for label, v in shapes.items():
+            out[f"{name} {label} K={scorer.k}"] = times(lambda: scorer.launch(*v, pvec),
+                                                        lambda res: res)
     return out
 
 
 def delta_shapes(sc, scorer, extract, f_a, gen, label):
-    """B2 and B4 on one step's inputs at the scorer's bucket."""
-    win, args = smoke.delta_inputs(sc, scorer, extract, f_a, gen)
+    """B2 and B4 on one step's inputs at the scorer's bucket; B4 alone and
+    as the step's production of its masked observed grid from the D rows
+    and their base activity: in a tree whose B4 takes gathered windows,
+    the windows, the wrapper's sort of the keys, the kernel and the
+    activity mask; in one whose B4 reads the CSR map, the keys (activity
+    folded in) and the kernel."""
+    import torch
+    from graal_tpu_torch.core import mcmc
+
+    shuf = sc["shuf"]
+    f_a = torch.tensor(f_a, device=shuf.pos.device)
+    ids, _ = mcmc.sample_neighbours(gen, f_a, shuf, sc["runner"].nb, smoke.DELTA)
+    rows, valid, _ = extract(shuf, f_a, ids, scorer.f_max)
+    subs, sub_valid = scorer.sub_rows(rows, valid)
+    _, geo, ob, accu_sub, pvec = scorer.inputs(shuf, f_a, ids, rows, valid, sc["params"],
+                                               shuf.id_c.amax())
+    args = scorer.mini_grid_args(geo, ob, accu_sub, pvec)
+    act0 = geo.act[:, 0]
+    grid = scorer.obs_grid_kernel
+    # B4 on gathered windows: trees from before B4 read the CSR map; drop
+    # this branch once no such tree needs timing
+    if hasattr(scorer, "windows"):
+        b4 = scorer.windows(subs, sub_valid)
+
+        def production():
+            return torch.where(act0[:, :, None] & act0[:, None, :],
+                               scorer.obs_grid(subs, sub_valid), 0.0)
+    else:                                # B4 on the CSR map and keys
+        sobs = scorer.sobs
+        b4 = (sobs.row_start, sobs.cols, sobs.vals, scorer.obs_keys(subs, act0))
+
+        def production():
+            return scorer.obs_grid(subs, act0)
     m, _, r = args[0].shape
     return {f"B2 {label} R={r} M={m}": times(lambda: scorer.mini_grid.launch(*args),
                                              lambda res: res[0]),
-            f"B4 {label} R={r} M={m}": times(lambda: scorer.obs_grid_kernel.launch(*win),
-                                             lambda res: res)}
+            f"B4 {label} R={r} M={m}": times(lambda: grid.launch(*b4), lambda res: res),
+            f"B4 grid {label} R={r} M={m}": times(production, lambda res: res)}
 
 
 def main(argv):
@@ -102,7 +143,7 @@ def main(argv):
     sizes = contig_frags_per_frag(sc["shuf"])
     for r in smoke.TIERS:
         # the flagship fragment at R = 1,024; elsewhere the largest contig
-        # that half the tier holds, as chip_smoke.b2_tiers picks it
+        # that half the tier holds, as chip_smoke.tiers picks it
         f_a = 7 if r == smoke.F_MAX else int(np.argmax(np.where(sizes <= r // 2, sizes, -1)))
         scorer = delta.make_delta_scorer(sc["table"], None, r, sobs=sc["sobs"])
         got = delta_shapes(sc, scorer, delta.extract_rows_union, f_a, gen, "100k")

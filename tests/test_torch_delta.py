@@ -226,6 +226,56 @@ def test_inactive_rows_masked_before_obs_term(problem):
                                    rtol=0, atol=1e-6)
 
 
+def windows_grid_masked(sobs, subs, sub_valid, act0, k_subs):
+    """The observed grid as the delta scorer built it before the obs-grid
+    kernel read the CSR map in place: the D rows' windows gathered into
+    (m, R, row_cap) columns and counts (keys -1 on padding slots only),
+    densified by the one-hot contraction, strict upper triangle, then
+    masked by base activity."""
+    nnz = sobs.cols.shape[0]
+    rc = subs.clamp(0, k_subs - 1)
+    start, end = sobs.row_start[rc], sobs.row_start[rc + 1]
+    win = start[..., None] + torch.arange(sobs.row_cap)
+    ok = (win < end[..., None]) & sub_valid[..., None]
+    wc = win.clamp_max(nnz - 1)
+    cols = torch.where(ok, sobs.cols[wc], -2)
+    vals = torch.where(ok, sobs.vals[wc], 0.0)
+    keys = torch.where(sub_valid, rc, -1)
+    onehot = (cols[..., None] == keys[:, None, None, :]).float()
+    grid = torch.einsum("mrw,mrwj->mrj", vals, onehot)
+    r = subs.shape[1]
+    upper = torch.ones((r, r), dtype=torch.bool).triu(1)
+    return torch.where(upper & act0[:, :, None] & act0[:, None, :], grid, 0.0)
+
+
+def test_activity_folded_into_obs_keys(problem):
+    """inputs()' observed grid, with base activity folded into the keys
+    (no mask pass afterwards), equals the grid of the windows gathered and
+    densified as before and then masked by base activity, bit for bit, on
+    a state with inactive rows (those of test_inactive_rows_masked_before_
+    obs_term)."""
+    p = problem
+    state = _case_states(p, "inactive")
+    ts_ = to_port(state)
+    scorer = td.make_delta_scorer(p["t_table"], None, F_MAX, sobs=p["t_sobs"])
+    max_id = ts_.id_c.amax()
+    n_checked = 0
+    for f_a, ids in ((2, [5, 20, 2, 30, 11]), (20, [21, 19, 3, 2, 20]), (1, [2, 7, 8, 9, 10])):
+        ids = torch.as_tensor(ids)
+        rows, valid, _ = td.extract_rows_union(ts_, torch.tensor(f_a), ids, scorer.f_max)
+        _, geo, ob, _, _ = scorer.inputs(ts_, torch.tensor(f_a), ids, rows, valid,
+                                         p["t_params"], max_id)
+        subs, sub_valid = scorer.sub_rows(rows, valid)
+        act0 = geo.act[:, 0]
+        n_checked += int((sub_valid & ~act0).sum())
+        want = windows_grid_masked(p["t_sobs"], subs, sub_valid, act0, scorer.k_subs)
+        assert torch.equal(ob, want)
+        assert ob.sum() > 0
+        keys = scorer.obs_keys(subs, act0)
+        assert keys.dtype == torch.int32 and bool(((keys >= 0) == act0).all())
+    assert n_checked > 0                   # inactive rows inside D were masked
+
+
 def test_repeat_table_raises(problem):
     """A repeat table is refused by the plain delta scorer (the JAX
     package's build_mini_table asserts the same) and by make_delta_em_step

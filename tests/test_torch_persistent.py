@@ -1,4 +1,4 @@
-"""The persistent schedule of kernels B2 and B3 (graal_tpu_torch.ops.persistent),
+"""The persistent schedule of kernels B1, B2 and B3 (graal_tpu_torch.ops.persistent),
 on the host: the items the blocks draw from the ticket counter (0, 1, ...,
 n_items - 1) score every (candidate, tile, half) exactly once, whatever the
 batch, the chunk and the grid; a candidate's partials lie at the same
@@ -25,8 +25,8 @@ CSRC = Path(persistent.__file__).resolve().parent.parent / "csrc"
 SHIM = """
 #include "schedule.cuh"
 extern "C" int schedule_slots() { return persistent::SLOTS; }
-extern "C" void schedule_decode(int item, int n_tri, int n_chunks, int cs, int* out) {
-  const persistent::Item it = persistent::decode_item(item, n_tri, n_chunks, cs);
+extern "C" void schedule_decode(int item, int n_groups, int n_chunks, int cs, int* out) {
+  const persistent::Item it = persistent::decode_item(item, n_groups, n_chunks, cs);
   out[0] = it.group; out[1] = it.first; out[2] = it.tile; out[3] = it.half;
 }
 """
@@ -34,8 +34,8 @@ extern "C" void schedule_decode(int item, int n_tri, int n_chunks, int cs, int* 
 
 @pytest.fixture(scope="module")
 def decode(tmp_path_factory):
-    """decode(item, n_tri, n_chunks, cs) -> (group, first candidate, tile,
-    half), as the kernels decode an item."""
+    """decode(item, n_groups, n_chunks, cs) -> (group, first candidate,
+    tile, half), as the kernels decode an item."""
     cxx = shutil.which("c++") or shutil.which("g++")
     assert cxx, "a C++ compiler is needed to build the schedule's decode"
     d = tmp_path_factory.mktemp("schedule")
@@ -47,8 +47,8 @@ def decode(tmp_path_factory):
     assert lib.schedule_slots() == persistent.SLOTS
     out = (ctypes.c_int * 4)()
 
-    def fn(item, n_tri, n_chunks, cs):
-        lib.schedule_decode(item, n_tri, n_chunks, cs, out)
+    def fn(item, n_groups, n_chunks, cs):
+        lib.schedule_decode(item, n_groups, n_chunks, cs, out)
         return tuple(out)
     return fn
 
@@ -61,7 +61,8 @@ def covered(decode, n_tri, n_cand, n_groups, resident, chunk_max):
     assert n_items == n_groups * n_chunks * n_tri * persistent.HALVES
     seen = Counter()
     for item in range(n_items):
-        g, c0, t, half = decode(item, n_tri, n_chunks, cs)
+        g, c0, t, half = decode(item, n_groups, n_chunks, cs)
+        assert 0 <= t < n_tri and 0 <= c0 < n_cand and 0 <= g < n_groups
         for c in range(c0, min(c0 + cs, n_cand)):
             seen[g, c, t, half] += 1
     return seen, (cs, grid, n_items)
@@ -69,6 +70,7 @@ def covered(decode, n_tri, n_cand, n_groups, resident, chunk_max):
 
 @pytest.mark.parametrize("n_tri,n_cand,n_groups,resident,chunk_max", [
     (171, 130, 1, RESIDENT, 13),      # B3: a dense repeat step's candidates, S = 1,152
+    (171, 65, 1, RESIDENT, 13),       # B1: a dense step's candidates, K = 1,152
     (171, 1, 1, RESIDENT, 13),        # B3: the nuisance call
     (4465, 13, 1, RESIDENT, 13),      # B3: S = 6,000
     (171, 131, 1, 7, 13),             # a ragged last chunk on a small grid
@@ -83,6 +85,27 @@ def test_every_cell_block_scored_once(decode, n_tri, n_cand, n_groups, resident,
             for t in range(n_tri) for h in range(persistent.HALVES)}
     assert set(seen) == want and set(seen.values()) == {1}
     assert 1 <= cs <= chunk_max and 1 <= grid <= min(resident, n_items)
+
+
+@pytest.mark.parametrize("n_tri,n_cand,n_groups,chunk_max", [
+    (171, 65, 1, 13),    # B1: a dense step's candidates, K = 1,152
+    (171, 1, 1, 13),     # B1: the nuisance call
+    (4465, 13, 1, 13),   # B1 / B3: K = 6,000
+    (21, 29, 1, 4),      # ragged last chunk
+    (136, 14, 5, 14),    # B2: R = 1,024, 5 neighbour slots
+])
+def test_tile_major_items_score_every_cell_block_once(decode, n_tri, n_cand, n_groups,
+                                                      chunk_max):
+    """The items are tile-major: every (group, candidate, tile, half) once,
+    and the tiles (heaviest first in the kernels' band order) in increasing
+    order across the chunks and groups."""
+    seen, (cs, _, n_items) = covered(decode, n_tri, n_cand, n_groups, RESIDENT, chunk_max)
+    want = {(g, c, t, h) for g in range(n_groups) for c in range(n_cand)
+            for t in range(n_tri) for h in range(persistent.HALVES)}
+    assert set(seen) == want and set(seen.values()) == {1}
+    n_chunks = -(-n_cand // cs)
+    tiles = [decode(i, n_groups, n_chunks, cs)[2] for i in range(0, n_items, 7)]
+    assert tiles == sorted(tiles)
 
 
 @pytest.mark.parametrize("n_cand", [1, 13, 65, 130, 520])
@@ -109,6 +132,21 @@ def test_plan_fills_the_card_at_the_path_shapes():
     assert (cs, grid) == (14, RESIDENT)
     with pytest.raises(ValueError):
         persistent.plan(0, 14, 5, RESIDENT, 14)
+
+
+@pytest.mark.parametrize("k,b", [(1152, 65), (1152, 1), (6000, 13)])
+def test_plan_fills_the_card_at_b1_shapes(k, b):
+    """B1's calls (a dense step's 65 candidates, the nuisance B = 1, the
+    largest dense table's 13) reach every SM, and a call with more items
+    than resident blocks keeps every resident block busy."""
+    n_tri = persistent.n_tiles(k)
+    cs, grid, n_items = persistent.plan(n_tri, b, 1, RESIDENT, 13)
+    assert n_items == -(-b // cs) * n_tri * persistent.HALVES
+    assert grid == min(n_items, RESIDENT) and grid >= 2 * 132
+    if b == 65:
+        assert cs == 13                 # the EM step's chunks of 13 stay whole
+    # the rounds of items per block: at most one more than the even share
+    assert -(-n_items // grid) <= n_items / RESIDENT + 1
 
 
 def b3_smem(cs, max_hblk, max_blk):
