@@ -102,7 +102,41 @@ keys and the grid written. "share" is the bound over the device time.
    invariants hold and the likelihood rises.
 8a. ScaleRunner.run with id_d on the 200-dup problem: 1 cycle of 512
    extremity-first steps, the same checks.
-9. Last lines: the nvidia-smi line, one JSON line on the kernels run, and
+9. The CLI on a dataset directory, in this process through
+   ``graal_tpu_torch.cli`` (a temporary directory, removed at the end):
+   ``simulate`` 3,456 level-0 fragments on 16 contigs, ``pyramid --size 3``
+   (the low-coverage filter keeps ~2,900: level 1 ~972 fragments, level 2
+   ~329 bins of up to 3, near the flagship width); the pyramid build must
+   load the native contact parser.
+9a. ``run`` at level 2, 2 EM cycles, nuisance sampling on: B1 launches
+   1 + 2 x steps, the invariants, a rising likelihood, the carried
+   likelihood equal to B1's rescoring bit for bit, every output file (9
+   series, the mutation log, params.json, genome.fasta, info_frags.txt,
+   assembly_stats.json, checkpoint.npz); wall s/cycle. Then the run's own
+   scorer (B1 on its table and observed map) against its plain version,
+   rtol 1e-4, on one step's candidates of the final genome and of the
+   exploded start and on each genome alone (also held to the dense
+   likelihood), each candidate bit-identical alone and in its batch.
+9b. ``run --cycles 1`` then ``run --cycles 2 --resume``: the checkpoint
+   equals 9a's bit for bit (state, params, generator state, l_t, metrics).
+9c. ``replay`` of 9a's mutation log: the state equals 9a's final state,
+   genome.fasta byte for byte.
+9d. ``run --scoring delta``, 1 cycle, no nuisance: B2 and B4 launch once
+   a step, B1 twice (anchors); the carried likelihood within 4e-6 |L| of
+   the cycle's re-anchor; the invariants and outputs. Then the run's own
+   B2 and B4 wrappers against their plain versions (B4 bit-identical, B2
+   within rtol 1e-4 and DLL_ATOL) at every bucket the run used (f_max 64,
+   R = 192 sub rows), on one step's inputs of the exploded start and of
+   the final genome, and B1 on the final genome (B = 1).
+9e. ``scale`` at level 1 (~972 bins over ~2,900 data subs), 1 cycle of
+   512 extremity-first steps from f_max 64: B2 and B4 launch, a finite
+   final likelihood, the invariants and outputs; then the runner's B2 and
+   B4 against their plain versions as in 9d, at every tier the run used.
+9f. ``run --allow-repeats`` on a copy of the dataset with fragment 1,500's
+   contacts amplified tenfold: the repeat table goes to B3, 1 + 2 x steps
+   launches, the invariants and outputs; then B3 against its plain
+   version as in 9a, with the first repeat copy as fA.
+10. Last lines: the nvidia-smi line, one JSON line on the kernels run, and
    {"ok": true, "device": {...}}. Each kernel's entry has the contract's
    keys (launches, max_abs_err, ms, plain_ms, bound_ms, bound_by,
    library_ms: null, as no single PyTorch call computes any of the four)
@@ -110,12 +144,15 @@ keys and the grid written. "share" is the bound over the device time.
    true candidates; B3: S = 1,152; B2 / B4: the 100k path at R = 1,024;
    B4 also grid_ms / grid_device_ms, the step's whole observed-grid
    production); the other shapes sit under "by_shape" (B1: exploded,
-   B = 1, K = 6,000; B3), "tiers" (B2, B4) and "by_path" (B2 / B4, with
-   each path's launches).
+   B = 1, K = 6,000; B3), "tiers" (B2, B4) and "by_path" (each path's
+   launches: the main paths of phases 4-8 and the CLI runs cli_run,
+   cli_run_delta, cli_scale, cli_run_repeats, each CLI run's entry with
+   the max abs error of its kernel against the plain version there).
 """
 
 import functools
 import json
+import os
 import subprocess
 import sys
 import time
@@ -140,6 +177,10 @@ DRIFT_REL = 4e-6            # carried vs re-anchored, 256 steps (bench.py:231)
 REPEAT_CYCLES = 2
 REPEAT_DUPS = 200           # benchmarks/bench_scale_repeats.py
 EXACT_REPEAT_DUPS = 12      # benchmarks/check_exactness_repeats.py
+DATASET_BINS = 3456         # level 0 of the CLI phases (level 1 ~972, level 2 ~329 bins)
+DATASET_CONTIGS = 16        # the flagship's contigs (__graft_entry__._problem)
+CLI_CYCLES = 2
+AMPLIFIED_FRAG = 1500       # 1-based level-0 fragment made a repeat in phase 9f
 
 
 class SmokeFailure(RuntimeError):
@@ -865,23 +906,22 @@ def scale_repeat_setup(device, n_bins=EXACT_BINS, n_dups=REPEAT_DUPS):
                 drift_bound=(2.0, 1e-5))
 
 
-def delta_inputs(sc, scorer, extract, f_a, gen):
-    """The B4 and B2 inputs of one step of fragment f_a at the scorer's
-    bucket, as the delta step builds them: the neighbours drawn as the step
-    draws them, their member rows by ``extract`` (the step's row
-    extraction). Returns (B4's arguments (row_start, cols, vals, keys), the
-    D sub rows and their base activity (subs, act0) from which the step
-    makes its observed grid, B2's arguments)."""
+def delta_inputs(state, nb, params, scorer, extract, f_a, gen):
+    """The B4 and B2 inputs of one step of fragment f_a of ``state`` at the
+    scorer's bucket, as the delta step builds them: the neighbours drawn
+    from ``nb`` as the step draws them, their member rows by ``extract``
+    (the step's row extraction). Returns (B4's arguments (row_start, cols,
+    vals, keys), the D sub rows and their base activity (subs, act0) from
+    which the step makes its observed grid, B2's arguments)."""
     import torch
     from graal_tpu_torch.core import mcmc
 
-    shuf = sc["shuf"]
-    f_a = torch.tensor(f_a, device=shuf.pos.device)
-    ids, _ = mcmc.sample_neighbours(gen, f_a, shuf, sc["runner"].nb, DELTA)
-    rows, valid, _ = extract(shuf, f_a, ids, scorer.f_max)
+    f_a = torch.tensor(f_a, device=state.pos.device)
+    ids, _ = mcmc.sample_neighbours(gen, f_a, state, nb, DELTA)
+    rows, valid, _ = extract(state, f_a, ids, scorer.f_max)
     subs, _ = scorer.sub_rows(rows, valid)
-    _, geo, ob, accu_sub, pvec = scorer.inputs(shuf, f_a, ids, rows, valid, sc["params"],
-                                               shuf.id_c.amax())
+    _, geo, ob, accu_sub, pvec = scorer.inputs(state, f_a, ids, rows, valid, params,
+                                               state.id_c.amax())
     act0 = geo.act[:, 0]
     sobs = scorer.sobs
     b4 = (sobs.row_start, sobs.cols, sobs.vals, scorer.obs_keys(subs, act0))
@@ -942,7 +982,8 @@ def check_delta_kernels(sc, scorer, extract, frags, gen, want_m):
 
     b2_err, b4_err, first = 0.0, 0.0, None
     for f_a in frags:
-        b4, rows_act, args = delta_inputs(sc, scorer, extract, f_a, gen)
+        b4, rows_act, args = delta_inputs(sc["shuf"], sc["runner"].nb, sc["params"],
+                                          scorer, extract, f_a, gen)
         check(args[0].shape[0] == want_m,
               f"f_a={f_a}: {args[0].shape[0]} neighbour slots, the path has {want_m}")
         ob_k, err = b4_vs_plain(scorer.obs_grid_kernel, b4, f"f_a={f_a}")
@@ -1027,6 +1068,37 @@ def phase_delta_kernels(device, sc, frags=(7, 31_337, 77_777)):
     return out
 
 
+def frag_fitting(state, r):
+    """The fragment whose contig is the largest that half of bucket ``r``
+    holds, so that a step's mini grid at R = r is mostly real rows."""
+    import numpy as np
+    from graal_tpu_torch.scale import contig_frags_per_frag
+
+    sizes = contig_frags_per_frag(state)
+    return int(np.argmax(np.where(sizes <= r // 2, sizes, -1)))
+
+
+def delta_path_vs_plain(label, scorer, extract, bases, nb, params):
+    """B4 (bit-identical) and B2 (RTOL, DLL_ATOL) against their plain
+    versions through the wrappers a path ran (``scorer``'s), on one step's
+    inputs at the scorer's bucket for each of ``bases`` ((name, genome,
+    f_a)); the step's observed grid must be B4's. Returns (B2's max abs
+    score error, B4's max abs error)."""
+    import torch
+
+    gen = torch.Generator(device=bases[0][1].pos.device).manual_seed(SEED)
+    b2_err = b4_err = 0.0
+    for name, base, f_a in bases:
+        b4, _, args = delta_inputs(base, nb, params, scorer, extract, f_a, gen)
+        tag = f"{label}, {name}, f_max={scorer.f_max} f_a={f_a}"
+        ob_k, err = b4_vs_plain(scorer.obs_grid_kernel, b4, tag)
+        b4_err = max(b4_err, err)
+        check(torch.equal(args[5], ob_k), f"{tag}: the step's observed grid is not B4's")
+        _, err = b2_vs_plain(scorer.mini_grid, args, tag)
+        b2_err = max(b2_err, err)
+    return b2_err, b4_err
+
+
 def tiers(sc, gen, at_flagship):
     """B2 and B4 against their plain versions (B4 bit-identical) and timed
     at every tier R of the ScaleRunner ladder (5 neighbour slots, 14
@@ -1034,7 +1106,6 @@ def tiers(sc, gen, at_flagship):
     largest that half the tier holds (at the top tier the largest contig),
     so the mini grid is mostly real rows. Returns ({R: B2 record}, {R: B4
     record}), the flagship tier's from its phase."""
-    import numpy as np
     from graal_tpu_torch.core import delta
     from graal_tpu_torch.scale import contig_frags_per_frag
 
@@ -1045,10 +1116,10 @@ def tiers(sc, gen, at_flagship):
             b2[r] = dict(at_flagship["ll_mini"])
             b4[r] = {k: v for k, v in at_flagship["obsgrid"].items() if k != "tiers"}
             continue
-        fits = np.where(sizes <= r // 2, sizes, -1)
-        f_a = int(np.argmax(fits))
+        f_a = frag_fitting(sc["shuf"], r)
         sc_r = delta.make_delta_scorer(sc["table"], None, r, sobs=sc["sobs"])
-        b4_args, _, args = delta_inputs(sc, sc_r, delta.extract_rows_union, f_a, gen)
+        b4_args, _, args = delta_inputs(sc["shuf"], sc["runner"].nb, sc["params"], sc_r,
+                                        delta.extract_rows_union, f_a, gen)
         label = f"tier R={r} f_a={f_a} (contig of {sizes[f_a]} fragments)"
         _, err4 = b4_vs_plain(sc_r.obs_grid_kernel, b4_args, label)
         _, err = b2_vs_plain(sc_r.mini_grid, args, label)
@@ -1266,6 +1337,279 @@ def phase_runner(sc, n_cycles=2, steps=512):
     del final, params
 
 
+def cli(argv):
+    """One command of the port's CLI, in this process (``cli.execute`` is
+    the body of ``cli.main``; it returns what the command drove, so the
+    kernels' launch counts can be read). Each command builds its own
+    scorers, whose counts start at 0."""
+    from graal_tpu_torch import cli as cli_mod
+
+    print(f"  $ python -m graal_tpu_torch.cli {' '.join(argv)}", flush=True)
+    return cli_mod.execute(argv)
+
+
+def run_argv(ds, out, *extra):
+    return ["run", ds, "--size", "3", "--level", "2", "--fasta", os.path.join(ds, "genome.fa"),
+            "--out", out, *extra]
+
+
+def check_outputs(out, names):
+    missing = [n for n in names if not os.path.exists(os.path.join(out, n))]
+    check(not missing, f"{out}: missing outputs {missing}")
+
+
+RUN_OUTPUTS = ["0list_likelihood.txt", "0list_n_contigs.txt", "0list_dist_init_genome.txt",
+               "0list_fact.txt", "0list_slope.txt", "0list_d_max.txt", "0list_d_nuc.txt",
+               "0list_success.txt", "0list_mean_len.txt", "0list_mutations.txt",
+               "params.json", "genome.fasta", "info_frags.txt", "assembly_stats.json",
+               "checkpoint.npz"]
+
+
+def dense_path_vs_plain(label, runner, asm, f_a):
+    """The kernel of a run's dense scorer (B1, or B3 for a repeat table)
+    against its plain version on the run's own table and observed map, at
+    rtol 1e-4: the candidates of one step at ``f_a`` of the run's final
+    genome and of its exploded start, and each genome alone (B = 1, also
+    held to the dense likelihood); each candidate bit-identical alone and
+    in its batch. Returns the max abs error."""
+    import torch
+    from graal_tpu_torch.core import mcmc
+
+    gen = torch.Generator(device=asm.state.pos.device).manual_seed(SEED)
+    bases = [(f"{label} final", asm.state, f_a, True),
+             (f"{label} exploded start", mcmc.explode_genome(asm.state), f_a, True)]
+    err, _ = check_bases(runner.scorer, runner.table, asm.params, runner.nb, bases, gen)
+    return err
+
+
+def phase_dataset(root):
+    """9. A synthetic dataset at the flagship width and its pyramid."""
+    from graal_tpu_torch.io import native_io
+
+    print(f"dataset: simulate {DATASET_BINS} level-0 fragments on {DATASET_CONTIGS} "
+          f"contigs, pyramid of 3 levels")
+    ds = os.path.join(root, "ds")
+    t0 = time.perf_counter()
+    cli(["simulate", ds, "--bins", str(DATASET_BINS), "--contigs", str(DATASET_CONTIGS),
+         "--seed", str(SEED)])
+    t1 = time.perf_counter()
+    pyr = cli(["pyramid", ds, "--size", "3"])
+    t2 = time.perf_counter()
+    for lv in range(3):
+        lev = pyr.get_level(lv)
+        print(f"  level {lv}: {lev.n_frags} fragments, {lev.sparse.nnz} nnz")
+    check(native_io.load.cache_info().currsize == 1,
+          "the pyramid build did not load the native contact parser")
+    print(f"  native parser {native_io.library_path().name} loaded; simulate {t1 - t0:.1f} s, "
+          f"pyramid {t2 - t1:.1f} s")
+    # the low-coverage filter removes ~16% of the level-0 fragments
+    n1, n2 = pyr.get_level(1).n_frags, pyr.get_level(2).n_frags
+    check(n1 >= 0.75 * DATASET_BINS / 3 and n2 >= 0.75 * DATASET_BINS / 9,
+          f"level sizes {n1}, {n2}")
+    return ds
+
+
+def phase_cli_run(ds, root):
+    """9a-9c. Dense run through B1, resume, replay."""
+    import filecmp
+
+    import numpy as np
+    import torch
+    from graal_tpu_torch.core.state import GenomeState, check_invariants
+
+    print(f"cli run (dense, B1): {CLI_CYCLES} EM cycles at level 2, nuisance sampling on")
+    o1 = os.path.join(root, "o1")
+    t0 = time.perf_counter()
+    runner, asm = cli(run_argv(ds, o1, "--cycles", str(CLI_CYCLES)))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = runner.state.n_frags
+    launches = runner.scorer.n_launches
+    want = 1 + 2 * CLI_CYCLES * n
+    print(f"  K = {runner.table.n_subs} subs, {n} bins; ll_dense launches {launches} "
+          f"(path implies 1 + 2 x {CLI_CYCLES * n} = {want})")
+    check(launches == want, f"ll_dense launches {launches} != {want}")
+    check(check_invariants(asm.state, raise_on_error=False) == [], "final state invariants")
+    lik = asm.metrics["likelihood"]
+    rescored = runner.scorer(GenomeState(*[x[None] for x in asm.state]), asm.params)[0].item()
+    check(rescored == lik[-1], f"carried l_t {lik[-1]!r} != rescored {rescored!r}")
+    check(lik[-1] > lik[0], f"likelihood did not rise: {lik[0]} -> {lik[-1]}")
+    check_outputs(o1, RUN_OUTPUTS)
+    cycle_s = runner.timer.report()["em_cycle"]["mean_ms"] / 1e3
+    print(f"  l_t {lik[0]:.3f} -> {lik[-1]:.3f} (carried == rescored), n_contigs "
+          f"{asm.metrics['n_contigs'][-1]}, dist {asm.metrics['dist_init_genome'][-1]:.4f}")
+    print(f"  wall {cycle_s:.3f} s/cycle ({cycle_s * 1e3 / n:.3f} ms/step); whole command "
+          f"{wall:.1f} s; {len(RUN_OUTPUTS)} output files")
+    err = dense_path_vs_plain("cli run", runner, asm, 7 % n)
+
+    print("cli run --resume: 1 cycle, then resumed to 2")
+    o2 = os.path.join(root, "o2")
+    cli(run_argv(ds, o2, "--cycles", "1"))
+    r2, _ = cli(run_argv(ds, o2, "--cycles", str(CLI_CYCLES), "--resume"))
+    check(r2.scorer.n_launches == 2 * n, f"resumed run launches {r2.scorer.n_launches}")
+    with np.load(os.path.join(o1, "checkpoint.npz")) as a, \
+            np.load(os.path.join(o2, "checkpoint.npz")) as b:
+        check(sorted(a.files) == sorted(b.files), "checkpoint entries differ")
+        diff = [k for k in a.files if not np.array_equal(a[k], b[k])]
+    check(not diff, f"resumed checkpoint differs from the uninterrupted run's: {diff}")
+    print(f"  checkpoint of the resumed run == uninterrupted run's, bit for bit "
+          f"({len(a.files)} entries: state, params, generator, l_t, metrics)")
+
+    print("cli replay of the run's mutation log")
+    o3 = os.path.join(root, "o3")
+    _, state, ll = cli(["replay", ds, os.path.join(o1, "0list_mutations.txt"), "--size", "3",
+                        "--level", "2", "--fasta", os.path.join(ds, "genome.fa"),
+                        "--out", o3])
+    check(all(torch.equal(a, b) for a, b in zip(state, asm.state)),
+          "replayed state != the run's final state")
+    check(filecmp.cmp(os.path.join(o1, "genome.fasta"), os.path.join(o3, "genome.fasta"),
+                      shallow=False), "replayed genome.fasta differs from the run's")
+    print(f"  replayed state == final state; genome.fasta byte-identical; replayed "
+          f"loglik {ll.item():.3f} (fitted params)")
+    return dict(launches=launches, cycle_s=cycle_s, max_abs_err=err)
+
+
+def phase_cli_delta(ds, root):
+    """9d. Delta run through B2 + B4, anchored by B1."""
+    import torch
+    from graal_tpu_torch.core import delta, mcmc, sparse
+    from graal_tpu_torch.core.state import GenomeState, check_invariants
+
+    print("cli run --scoring delta (B2 + B4, B1 anchor): 1 cycle, no nuisance")
+    o4 = os.path.join(root, "o4")
+    t0 = time.perf_counter()
+    runner, asm = cli(run_argv(ds, o4, "--cycles", "1", "--scoring", "delta",
+                               "--no-sample-param"))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = runner.state.n_frags
+    got = (runner.mini_grid.n_launches, runner.obs_grid.n_launches, runner.scorer.n_launches)
+    print(f"  launches: ll_mini {got[0]}, obsgrid {got[1]}, ll_dense {got[2]} "
+          f"(path implies {n}, {n}, 2)")
+    check(got == (n, n, 2), f"delta run launches {got}")
+    lls, anchor = asm.metrics["likelihood"][-1], asm.metrics["anchor"][-1]
+    drift = abs(lls - anchor)
+    print(f"  carried {lls:.3f}, re-anchored {anchor:.3f}, drift {drift:.6g} "
+          f"(bound {DRIFT_REL} |L| = {DRIFT_REL * abs(anchor):.3f})")
+    check(drift <= DRIFT_REL * abs(anchor), f"delta run drifted {drift}")
+    check(check_invariants(asm.state, raise_on_error=False) == [], "final state invariants")
+    check_outputs(o4, RUN_OUTPUTS)
+    cycle_s = runner.timer.report()["em_cycle"]["mean_ms"] / 1e3
+    print(f"  wall {cycle_s:.3f} s/cycle ({cycle_s * 1e3 / n:.3f} ms/step); whole command "
+          f"{wall:.1f} s")
+    # the run's wrappers against their plain versions at each bucket it ran,
+    # on its own observed map, on the exploded start and the final genome
+    sobs = sparse.sparse_from_dense(runner.obs, device=runner.device)
+    b2_err = b4_err = 0.0
+    for bucket in runner.delta_buckets:
+        scorer = delta.make_delta_scorer(runner.table, runner.obs, bucket, sobs=sobs,
+                                         obs_grid=runner.obs_grid, mini_grid=runner.mini_grid)
+        bases = [("exploded start", mcmc.explode_genome(asm.state), 7 % n),
+                 ("final", asm.state, frag_fitting(asm.state, scorer.f_max))]
+        errs = delta_path_vs_plain("cli run --scoring delta", scorer, delta.extract_rows_union,
+                                   bases, runner.nb, asm.params)
+        b2_err, b4_err = max(b2_err, errs[0]), max(b4_err, errs[1])
+    _, dense_err = kernel_vs_plain(runner.scorer, GenomeState(*[x[None] for x in asm.state]),
+                                   asm.params, "cli run --scoring delta, B1 anchor (B=1)")
+    return dict(mini=got[0], obs=got[1], dense=got[2], cycle_s=cycle_s, mini_err=b2_err,
+                obs_err=b4_err, dense_err=dense_err)
+
+
+def phase_cli_scale(ds, root):
+    """9e. The scale command (from_dataset + ScaleRunner.run) through B2 + B4."""
+    import math
+
+    from graal_tpu_torch.core import delta, mcmc
+    from graal_tpu_torch.core.state import check_invariants
+
+    print("cli scale: level 1, 1 cycle of 512 extremity-first steps, f_max_min 64")
+    o5 = os.path.join(root, "o5")
+    runner, final, m = cli(["scale", ds, "--size", "3", "--level", "1", "--cycles", "1",
+                            "--steps-per-cycle", "512", "--order", "extremity",
+                            "--f-max-min", "64", "--fasta", os.path.join(ds, "genome.fa"),
+                            "--out", o5])
+    got = (runner.mini_grid.n_launches, runner.obs_grid.n_launches)
+    print(f"  {final.n_frags} bins over {runner.table.n_data_sub} data subs; launches: "
+          f"ll_mini {got[0]}, obsgrid {got[1]}; tiers {m['tiers']}")
+    check(got[0] > 0 and got[1] > 0, "the scale command launched no delta kernel")
+    check(math.isfinite(m["likelihood"][-1]), f"final_loglik {m['likelihood'][-1]}")
+    check(check_invariants(final, raise_on_error=False) == [], "final state invariants")
+    check_outputs(o5, ["0list_likelihood.txt", "0list_f_max.txt", "0list_d_nuc.txt",
+                       "genome.fasta", "info_frags.txt", "assembly_stats.json",
+                       "checkpoint.npz"])
+    print(f"  final_loglik {m['likelihood'][-1]:.3f}, n_contigs {m['n_contigs'][-1]}, "
+          f"wall {m['cycle_s'][-1]:.3f} s/cycle")
+    # the runner's wrappers against their plain versions at every tier the
+    # run used, each scorer built as the runner's cycle builds it
+    b2_err = b4_err = 0.0
+    for tier in sorted({t for ts in m["tiers"] for t in ts}):
+        scorer = delta.make_delta_scorer(
+            runner.table, None, tier, sobs=runner.sobs,
+            band_w=delta.effective_band_w(runner.w, runner.table, tier),
+            obs_grid=runner.obs_grid, mini_grid=runner.mini_grid)
+        bases = [("exploded start", mcmc.explode_genome(final), 7),
+                 ("final", final, frag_fitting(final, scorer.f_max))]
+        errs = delta_path_vs_plain("cli scale", scorer, delta.extract_rows_union, bases,
+                                   runner.nb, runner.params)
+        b2_err, b4_err = max(b2_err, errs[0]), max(b4_err, errs[1])
+    return dict(mini=got[0], obs=got[1], cycle_s=m["cycle_s"][-1], mini_err=b2_err,
+                obs_err=b4_err)
+
+
+def phase_cli_repeats(ds, root):
+    """9f. A dense run with --allow-repeats on the dataset with one
+    fragment's contacts amplified tenfold: B3 scores it."""
+    import shutil
+
+    from graal_tpu_torch.core.state import check_invariants
+
+    print("cli run --allow-repeats (B3): 1 EM cycle on the dataset with fragment "
+          f"{AMPLIFIED_FRAG}'s contacts amplified tenfold")
+    dsr = os.path.join(root, "ds_rep")
+    shutil.copytree(ds, dsr, ignore=shutil.ignore_patterns("pyramids"))
+    amplify_fragment(os.path.join(dsr, "abs_fragments_contacts_weighted.txt"),
+                     AMPLIFIED_FRAG, 9)
+    o6 = os.path.join(root, "o6")
+    runner, asm = cli(run_argv(dsr, o6, "--cycles", "1", "--allow-repeats"))
+    n = runner.state.n_frags
+    launches = runner.scorer.n_launches
+    print(f"  {len(runner.duplications)} repeated bins, {n} fragments on "
+          f"{runner.table.n_data_sub} data subs; ll_repeat launches {launches} "
+          f"(path implies 1 + 2 x {n})")
+    check(runner.table.has_repeats, "no repeat detected on the amplified dataset")
+    check(type(runner.scorer).__name__ == "RepeatScorer", "the repeat table is not on B3")
+    check(launches == 1 + 2 * n, f"ll_repeat launches {launches}")
+    check(check_invariants(asm.state, raise_on_error=False) == [], "final state invariants")
+    check_outputs(o6, RUN_OUTPUTS)
+    # f_a: the first repeat copy
+    err = dense_path_vs_plain("cli run --allow-repeats", runner, asm, runner.n_bins)
+    return dict(launches=launches, max_abs_err=err)
+
+
+def amplify_fragment(pairs, frag, extra):
+    """Append ``extra`` more copies of every raw contact pair of 1-based
+    fragment ``frag`` (tests/test_pipeline.py's repeat recipe)."""
+    with open(pairs) as fh:
+        lines = fh.readlines()
+    key = str(frag)
+    hits = [ln for ln in lines[1:] if key in ln.split("\t")[:2]]
+    with open(pairs, "a") as fh:
+        fh.writelines(hits * extra)
+
+
+def phase_cli(device):
+    """Phases 9-9f in a temporary directory that is removed afterwards."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="graal_cli_") as root:
+        ds = phase_dataset(root)
+        dense = phase_cli_run(ds, root)
+        delta = phase_cli_delta(ds, root)
+        scale = phase_cli_scale(ds, root)
+        rep = phase_cli_repeats(ds, root)
+    return dict(dense=dense, delta=delta, scale=scale, repeat=rep)
+
+
 def kernel_record(name, source, replaces, launches, record):
     """One entry of the kernels line: every key of the contract, the
     flagship shape's numbers, and the rest under their own keys."""
@@ -1274,24 +1618,41 @@ def kernel_record(name, source, replaces, launches, record):
 
 
 def kernels_line(dense, dense_launches, repeat, repeat_launches, delta, mini_launches,
-                 repeat_delta, obs_launches):
+                 repeat_delta, obs_launches, cli_runs):
     """The {"kernels": [...]} line from the phases' records; the B2 / B4
-    launches are (100k path, 20k repeat path)."""
-    def by_path(launches, record):
+    launches are (100k path, 20k repeat path); ``cli_runs`` is
+    :func:`phase_cli`'s record, whose counts and errors against the plain
+    versions go under each kernel's "by_path" (cli_run, cli_run_delta,
+    cli_scale, cli_run_repeats)."""
+    c = cli_runs
+
+    def by_path(launches, record, key):
         return {"delta_100k": dict(launches=launches[0]),
-                "repeat_delta_20k": dict(launches=launches[1], **record)}
+                "repeat_delta_20k": dict(launches=launches[1], **record),
+                "cli_run_delta": dict(launches=c["delta"][key],
+                                      max_abs_err=c["delta"][f"{key}_err"]),
+                "cli_scale": dict(launches=c["scale"][key],
+                                  max_abs_err=c["scale"][f"{key}_err"])}
 
     return {"kernels": [
         kernel_record("ll_dense", "ll_dense.cu", "graal_tpu/ops/likelihood_pallas.py:65",
-                      dense_launches, dense),
+                      dense_launches, dict(dense, by_path={
+                          "dense_main": dict(launches=dense_launches),
+                          "cli_run": dict(launches=c["dense"]["launches"],
+                                          max_abs_err=c["dense"]["max_abs_err"]),
+                          "cli_run_delta": dict(launches=c["delta"]["dense"],
+                                                max_abs_err=c["delta"]["dense_err"])})),
         kernel_record("ll_mini", "ll_mini.cu", "graal_tpu/ops/likelihood_pallas.py:340",
                       sum(mini_launches), dict(delta["ll_mini"], by_path=by_path(
-                          mini_launches, repeat_delta["ll_mini"]))),
+                          mini_launches, repeat_delta["ll_mini"], "mini"))),
         kernel_record("obsgrid", "obsgrid.cu", "graal_tpu/ops/obsgrid_pallas.py:52",
                       sum(obs_launches), dict(delta["obsgrid"], by_path=by_path(
-                          obs_launches, repeat_delta["obsgrid"]))),
+                          obs_launches, repeat_delta["obsgrid"], "obs"))),
         kernel_record("ll_repeat", "ll_repeat.cu", "graal_tpu/ops/likelihood_pallas.py:514",
-                      repeat_launches, repeat),
+                      repeat_launches, dict(repeat, by_path={
+                          "dense_repeat_main": dict(launches=repeat_launches),
+                          "cli_run_repeats": dict(launches=c["repeat"]["launches"],
+                                                  max_abs_err=c["repeat"]["max_abs_err"])})),
     ]}
 
 
@@ -1315,9 +1676,12 @@ def main():
     phase_runner(sc)
     del sc
     phase_runner(rsc, n_cycles=1)
+    del rsc
+    cli_runs = phase_cli(device)
     line = gpu_line()
     kernels = kernels_line(dense, dense_launches, repeat, repeat_launches, delta_timing,
-                           (mini_launches, r_mini), repeat_delta_timing, (obs_launches, r_obs))
+                           (mini_launches, r_mini), repeat_delta_timing, (obs_launches, r_obs),
+                           cli_runs)
     print(line)
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,389 @@
+"""Command-line interface of the PyTorch port.
+
+Counterpart of ``graal_tpu.cli``. Usage:
+
+    python -m graal_tpu_torch.cli simulate OUT_DIR [--bins 120 --contigs 4]
+    python -m graal_tpu_torch.cli pyramid  DATASET_DIR [--size 4 --factor 3]
+    python -m graal_tpu_torch.cli run      DATASET_DIR --fasta GENOME.FA [options]
+    python -m graal_tpu_torch.cli replay   DATASET_DIR MUTATION_LOG [options]
+    python -m graal_tpu_torch.cli scale    DATASET_DIR [options]
+    python -m graal_tpu_torch.cli probe    DATASET_DIR FRAGMENT [options]
+
+Every command that samples runs on ``--device`` (default ``cuda``): without
+a card it exits with a message unless ``--device cpu`` is given. Options
+whose module is not ported yet are refused with the ROADMAP item that
+ports them.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+
+import numpy as np
+
+
+def refuse(what: str, item: str):
+    raise SystemExit(f"graal_tpu_torch: {what} is not ported yet (ROADMAP {item})")
+
+
+def _check_device(args):
+    from graal_tpu_torch.config import resolve_device
+
+    try:
+        return resolve_device(args.device)
+    except RuntimeError as e:
+        raise SystemExit(f"graal_tpu_torch: {e}") from None
+
+
+def _add_run_opts(p):
+    p.add_argument("--size", type=int, default=4, help="pyramid levels")
+    p.add_argument("--factor", type=int, default=3)
+    p.add_argument("--ref-quirks", action="store_true",
+                   help="replicate two upstream pyramid-build defects so "
+                        "COO triplets diff bit-exact against a reference-"
+                        "built pyramid (parity runs only)")
+    p.add_argument("--level", type=int, default=None,
+                   help="sampling level (default: size-1)")
+    p.add_argument("--to-level", type=int, default=None,
+                   help="multilevel refinement (not ported: ROADMAP A11)")
+    p.add_argument("--cycles", type=int, default=10)
+    p.add_argument("--neighbours", type=int, default=4)
+    p.add_argument("--no-sample-param", action="store_true")
+    p.add_argument("--no-scramble", action="store_true")
+    p.add_argument("--allow-repeats", action="store_true")
+    p.add_argument("--blacklist", type=int, nargs="*", default=[])
+    p.add_argument("--seed", type=int, default=1)
+    p.add_argument("--t0", type=float, default=1.0)
+    p.add_argument("--tf", type=float, default=1.0)
+    p.add_argument("--resume", action="store_true",
+                   help="resume the EM stage from <out>/checkpoint.npz")
+    p.add_argument("--sub-sample", type=float, default=0.0,
+                   help="Poisson sub-sampling factor in (0,1] for coverage-"
+                        "robustness experiments")
+    p.add_argument("--snapshots", action="store_true",
+                   help="matrix snapshots (not ported: ROADMAP A13)")
+    p.add_argument("--snapshot-every", type=int, default=0,
+                   help="matrix snapshots every N cycles (not ported: ROADMAP A13)")
+    p.add_argument("--watch", action="store_true",
+                   help="live view (not ported: ROADMAP A13)")
+    p.add_argument("--polish", action="store_true",
+                   help="resolve unorientable-fragment orientations by "
+                        "neighbourhood consensus before the FASTA export")
+    p.add_argument("--model", default="rippe", choices=["rippe", "hic"],
+                   help="contact model: Rippe polymer (the HiC broken power "
+                        "law is not ported: ROADMAP A11)")
+    p.add_argument("--sampler", default="em",
+                   help="sampler stages; 'em' (tempered, mtm and mh are not "
+                        "ported: ROADMAP A11)")
+    p.add_argument("--out", default="graal_out")
+    p.add_argument("--device", default="cuda",
+                   help="torch device of the run (default cuda; cpu on request)")
+    p.add_argument("--config", default="", help="TOML config file")
+    p.add_argument("--profile", action="store_true",
+                   help="profiler trace (not ported: ROADMAP A13)")
+    p.add_argument("--scoring", default="auto", choices=["auto", "full", "delta"],
+                   help="candidate scoring: full-matrix, incremental "
+                        "(delta, the chr1-scale engine), or auto by size")
+
+
+def _refuse_unported_run_opts(args):
+    if args.model != "rippe":
+        refuse("--model hic (the broken power-law model)", "A11")
+    stages = args.sampler.split(",")
+    for stage in stages:
+        if stage in ("tempered", "mtm", "mh"):
+            refuse(f"the {stage!r} sampler stage", "A11")
+        if stage != "em":
+            raise SystemExit(f"unknown sampler stage: {stage!r} (expected em, "
+                             "tempered, mtm or mh)")
+    if args.to_level is not None:
+        refuse("--to-level (multilevel refinement)", "A11")
+    for flag, on in (("--profile", args.profile), ("--snapshots", args.snapshots),
+                     ("--snapshot-every", args.snapshot_every), ("--watch", args.watch)):
+        if on:
+            refuse(flag, "A13")
+
+
+def _config_from_args(args):
+    from graal_tpu_torch.config import RunConfig
+
+    cfg = RunConfig.from_toml(args.config) if args.config else RunConfig()
+    cfg.dataset_dir = args.dataset
+    cfg.output_dir = args.out
+    cfg.device = args.device
+    cfg.pyramid.size = args.size
+    cfg.pyramid.factor = args.factor
+    cfg.pyramid.ref_quirks = args.ref_quirks
+    cfg.sampler.level = args.level if args.level is not None else args.size - 1
+    cfg.sampler.n_cycles = args.cycles
+    cfg.sampler.n_neighbours = args.neighbours
+    cfg.sampler.sample_param = not args.no_sample_param
+    cfg.sampler.scrambled = not args.no_scramble
+    cfg.sampler.allow_repeats = args.allow_repeats
+    cfg.sampler.blacklist_contigs = tuple(args.blacklist)
+    cfg.sampler.seed = args.seed
+    cfg.sampler.t0 = args.t0
+    cfg.sampler.tf = args.tf
+    cfg.sampler.sub_sample_factor = args.sub_sample
+    cfg.sampler.scoring = args.scoring
+    return cfg
+
+
+def _runner(args):
+    """The Runner of a run / replay / probe command, after the checks."""
+    from graal_tpu_torch.pipeline import Runner
+
+    _refuse_unported_run_opts(args)
+    _check_device(args)
+    return Runner(_config_from_args(args))
+
+
+def cmd_pyramid(args):
+    from graal_tpu_torch.io.pyramid import build_and_filter
+
+    p = build_and_filter(args.dataset, args.size, args.factor, ref_quirks=args.ref_quirks)
+    for lv in range(args.size):
+        level = p.get_level(lv)
+        print(f"level {lv}: {level.n_frags} fragments, {level.sparse.nnz} non-zero contacts")
+    print(f"pyramid at {p.folder}")
+    return p
+
+
+def cmd_run(args):
+    """Full assembly run; returns (runner, assembly)."""
+    runner = _runner(args)
+    cfg = runner.cfg
+    print(f"level {runner.level.level}: {runner.level.n_frags} bins, "
+          f"{runner.state.n_frags} fragments ({len(runner.duplications)} repeated) "
+          f"on {runner.device}")
+    print("fitted params:", json.dumps({k: float(v) for k, v in zip(
+        runner.params._fields, runner.params)}))
+    assembly = runner.run_em(resume=args.resume, scoring=cfg.sampler.scoring)
+    runner.save_behaviour(assembly)
+    if args.fasta:
+        if args.polish:
+            assembly.state = runner.polish_orientations(assembly.state)
+        contigs = runner.export_fasta(assembly, args.fasta)
+        print(f"wrote {len(contigs)} contigs to "
+              f"{os.path.join(cfg.output_dir, 'genome.fasta')}")
+    print(f"outputs in {cfg.output_dir}")
+    return runner, assembly
+
+
+def cmd_simulate(args):
+    """Generate a synthetic ground-truth dataset in reference format."""
+    from graal_tpu_torch.utils.dataset import write_synthetic_dataset
+
+    info = write_synthetic_dataset(args.out, n_bins=args.bins, n_contigs=args.contigs,
+                                   seed=args.seed)
+    print(json.dumps(info))
+    return info
+
+
+def cmd_probe(args):
+    """Likelihood landscape of one fragment: all 13 ops against every
+    neighbour (test_model / new_test_model, main_gl.py:414-661). Returns
+    (runner, ids, valid, scores)."""
+    from graal_tpu_torch.core.candidates import MODIFICATION_STR
+
+    runner = _runner(args)
+    ids, valid, ll = runner.probe_fragment(args.fragment)
+    best = ll.reshape(-1).argmax()
+    print(f"fragment {args.fragment}: {int(valid.sum())} valid neighbours")
+    for k, fb in enumerate(ids):
+        if not valid[k]:
+            continue
+        print(f"  vs {int(fb):5d}: " + " ".join(f"{x:9.1f}" for x in ll[k]))
+    print(f"best slot: neighbour {int(ids[best // 13])}, op {int(best % 13)} "
+          f"({MODIFICATION_STR[best % 13]}), score {float(ll.reshape(-1)[best]):.1f}")
+    return runner, ids, valid, ll
+
+
+def cmd_scale(args):
+    """Chr1-scale sparse assembly: pyramid level -> ScaleRunner without
+    densifying the observed matrix. Returns (runner, final state, metrics)."""
+    from graal_tpu_torch import scale as scale_mod
+    from graal_tpu_torch.core import mcmc
+    from graal_tpu_torch.io import fasta as fasta_io
+
+    if args.to_level is not None:
+        refuse("--to-level (multilevel scale assembly)", "A11")
+    if args.chains > 1:
+        refuse("--chains > 1 (chains over the device mesh)", "A12")
+    if args.mtm_cycles > 0:
+        refuse("--mtm-cycles (MTM refinement)", "A11")
+    for flag, on in (("--profile", args.profile), ("--snapshot-every", args.snapshot_every),
+                     ("--watch", args.watch)):
+        if on:
+            refuse(flag, "A13")
+    dev = _check_device(args)
+    runner, state0, lev, _ = scale_mod.from_dataset(
+        args.dataset, args.size, args.factor, level=args.level,
+        max_fit_bins=args.max_fit_bins, allow_repeats=args.allow_repeats,
+        sub_sample=args.sub_sample, sub_sample_seed=args.seed,
+        ref_quirks=args.ref_quirks, device=dev)
+    state = state0 if args.no_scramble else mcmc.explode_genome(state0)
+    os.makedirs(args.out, exist_ok=True)
+    final, params, metrics = runner.run(
+        state, n_cycles=args.cycles, delta=args.neighbours,
+        steps_per_cycle=args.steps_per_cycle, f_max_min=args.f_max_min, f_t=args.t0,
+        sample_param=not args.no_sample_param, seed=args.seed, init_truth=state0,
+        checkpoint_path=os.path.join(args.out, "checkpoint.npz"),
+        checkpoint_every=args.checkpoint_every, resume=args.resume,
+        order_mode=args.order)
+    for name, key in (("list_likelihood", "likelihood"), ("list_n_contigs", "n_contigs"),
+                      ("list_dist_init_genome", "dist_init_genome"),
+                      ("list_overflow", "overflow"), ("list_f_max", "f_max"),
+                      ("list_fact", "fact"), ("list_slope", "slope"),
+                      ("list_d_max", "d_max"), ("list_d_nuc", "v_inter")):
+        with open(os.path.join(args.out, f"0{name}.txt"), "w") as fh:
+            for v in metrics.get(key, []):
+                fh.write(f"{v}\n")
+    if args.fasta:
+        f = lev.frags
+        contigs = fasta_io.export_assembly(
+            final, f.chrom, f.start_pos, f.end_pos, fasta_io.load_fasta(args.fasta),
+            os.path.join(args.out, "genome.fasta"), os.path.join(args.out, "info_frags.txt"))
+        print(f"wrote {len(contigs)} contigs to {os.path.join(args.out, 'genome.fasta')}")
+    print(json.dumps({
+        "final_loglik": metrics["likelihood"][-1],
+        "n_contigs": metrics["n_contigs"][-1],
+        "dist_init_genome": (metrics["dist_init_genome"] or [None])[-1],
+        "cycle_s": metrics["cycle_s"],
+    }))
+    print(f"outputs in {args.out}")
+    return runner, final, metrics
+
+
+def cmd_replay(args):
+    """Re-apply a recorded mutation log (replay_simu, main_gl.py:140-207)
+    to the exploded genome. Returns (runner, state, log-likelihood)."""
+    from graal_tpu_torch.core import mcmc
+    from graal_tpu_torch.pipeline import Assembly
+
+    runner = _runner(args)
+    muts = np.loadtxt(args.log, dtype=np.int64, skiprows=1, ndmin=2)
+    state = mcmc.explode_genome(runner.state)
+    for fa, fb, op in muts:
+        if op < 0:
+            continue
+        state = mcmc.apply_mutation(state, int(fa), int(fb), int(op))
+    ll = runner._initial_likelihood(state, runner.params)
+    print(f"replayed {len(muts)} mutations, final loglik = {float(ll):.2f}")
+    runner.state = state
+    if args.fasta:
+        assembly = Assembly(state=state, params=runner.params, table=runner.table,
+                            obs=runner.obs, metrics={}, level=runner.level)
+        runner.export_fasta(assembly, args.fasta)
+    return runner, state, ll
+
+
+def parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(prog="graal_tpu_torch", description=__doc__,
+                                 formatter_class=argparse.RawDescriptionHelpFormatter)
+    sub = ap.add_subparsers(dest="cmd", required=True)
+
+    p = sub.add_parser("pyramid", help="build the contact-map pyramid")
+    p.add_argument("dataset")
+    p.add_argument("--size", type=int, default=4)
+    p.add_argument("--factor", type=int, default=3)
+    p.add_argument("--ref-quirks", action="store_true",
+                   help="replicate two upstream pyramid-build defects so "
+                        "COO triplets diff bit-exact against a reference-"
+                        "built pyramid (parity runs only)")
+    p.set_defaults(fn=cmd_pyramid)
+
+    p = sub.add_parser("run", help="full assembly run")
+    p.add_argument("dataset")
+    p.add_argument("--fasta", default="", help="reference genome FASTA")
+    _add_run_opts(p)
+    p.set_defaults(fn=cmd_run)
+
+    p = sub.add_parser("simulate", help="write a synthetic dataset")
+    p.add_argument("out")
+    p.add_argument("--bins", type=int, default=120)
+    p.add_argument("--contigs", type=int, default=4)
+    p.add_argument("--seed", type=int, default=0)
+    p.set_defaults(fn=cmd_simulate)
+
+    p = sub.add_parser("probe", help="likelihood landscape of one fragment")
+    p.add_argument("dataset")
+    p.add_argument("fragment", type=int)
+    _add_run_opts(p)
+    p.set_defaults(fn=cmd_probe)
+
+    p = sub.add_parser("scale", help="chr1-scale sparse assembly "
+                                     "(never densifies the contact matrix)")
+    p.add_argument("dataset")
+    p.add_argument("--fasta", default="", help="reference genome FASTA")
+    p.add_argument("--size", type=int, default=4)
+    p.add_argument("--factor", type=int, default=3)
+    p.add_argument("--level", type=int, default=None)
+    p.add_argument("--to-level", type=int, default=None,
+                   help="multilevel refinement (not ported: ROADMAP A11)")
+    p.add_argument("--cycles", type=int, default=10)
+    p.add_argument("--neighbours", type=int, default=4)
+    p.add_argument("--f-max-min", type=int, default=256,
+                   help="small-tier contig capacity bucket")
+    p.add_argument("--max-fit-bins", type=int, default=2048,
+                   help="cap on the Rippe fit window, in distance bins")
+    p.add_argument("--allow-repeats", action="store_true",
+                   help="duplicate coverage-outlier bins (copy-expanded "
+                        "geometry; routes to the repeat-aware scorer)")
+    p.add_argument("--ref-quirks", action="store_true",
+                   help="replicate two upstream pyramid-build defects (parity runs only)")
+    p.add_argument("--chains", type=int, default=1,
+                   help="parallel-tempered chains (> 1 not ported: ROADMAP A12)")
+    p.add_argument("--mtm-cycles", type=int, default=0,
+                   help="MTM refinement cycles (not ported: ROADMAP A11)")
+    p.add_argument("--no-sample-param", action="store_true")
+    p.add_argument("--no-scramble", action="store_true")
+    p.add_argument("--steps-per-cycle", type=int, default=None,
+                   help="cap fragment steps per cycle (default: every fragment once)")
+    p.add_argument("--order", default="random", choices=("random", "extremity"),
+                   help="subsampled-cycle schedule: random truncated sweep, or "
+                        "contig extremities first")
+    p.add_argument("--seed", type=int, default=1)
+    p.add_argument("--t0", type=float, default=1.0)
+    p.add_argument("--sub-sample", type=float, default=0.0,
+                   help="Poisson-resample contacts by this factor")
+    p.add_argument("--resume", action="store_true",
+                   help="resume from <out>/checkpoint.npz if present")
+    p.add_argument("--checkpoint-every", type=int, default=1,
+                   help="checkpoint every N cycles (0 disables)")
+    p.add_argument("--snapshot-every", type=int, default=0,
+                   help="genome-layout paintings (not ported: ROADMAP A13)")
+    p.add_argument("--watch", action="store_true", help="live view (not ported: ROADMAP A13)")
+    p.add_argument("--profile", action="store_true",
+                   help="profiler trace (not ported: ROADMAP A13)")
+    p.add_argument("--out", default="graal_scale_out")
+    p.add_argument("--device", default="cuda",
+                   help="torch device of the run (default cuda; cpu on request)")
+    p.set_defaults(fn=cmd_scale)
+
+    p = sub.add_parser("replay", help="re-apply a recorded mutation log")
+    p.add_argument("dataset")
+    p.add_argument("log")
+    p.add_argument("--fasta", default="")
+    _add_run_opts(p)
+    p.set_defaults(fn=cmd_replay)
+    return ap
+
+
+def execute(argv=None):
+    """Parse ``argv`` and run its command; returns what the command drove
+    (the runner and its results: see each ``cmd_*``)."""
+    args = parser().parse_args(argv)
+    return args.fn(args)
+
+
+def main(argv=None) -> int:
+    execute(argv)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -27,6 +27,17 @@ from graal_tpu_torch.core.state import GenomeState
 
 N_CANDIDATES = 13
 
+# Names of the 13 modes, as the reference prints them.
+MODIFICATION_STR = [
+    "eject frag",
+    "flip frag",
+    "pop out split insert @ left or 1", "pop out split insert @ left or -1",
+    "pop out split insert @ right or 1", "pop out split insert @ right or -1",
+    "pop out insert @ right or 1", "pop out insert @ right or -1",
+    "swap activity",
+    "transloc_1", "transloc_2", "transloc_3", "transloc_4",
+]
+
 
 def build_candidates(state: GenomeState, f_a, f_b: torch.Tensor,
                      max_id=None) -> GenomeState:

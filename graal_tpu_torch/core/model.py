@@ -4,8 +4,9 @@ PyTorch counterpart of ``graal_tpu.core.model``: the expected cis contact
 count vs genomic distance (linear and circular contigs), the per-pixel
 Poisson log-pmf with the reference's Stirling branches, and the host-side
 least-squares fit of (kuhn, lm, slope, A) with the cis/trans cross-over
-solve. Device code is plain f32 tensor math; the fit is numpy/scipy at
-setup time.
+solve, from a dense matrix or from COO triplets (the chr1-scale fit, never
+densifying). Device code is plain f32 tensor math; the fit is numpy/scipy
+at setup time.
 """
 
 from __future__ import annotations
@@ -233,6 +234,129 @@ def fit_rippe_from_matrix(hic_matrix, sub_frags, mean_value_trans,
     bins, mean_contacts = bin_cis_contacts(
         hic_matrix, sub_frags["id_c"], sub_frags["start_bp"], sub_frags["len_bp"],
         sub_frags["pos"], max_dist_kb, size_bin_kb)
+    fit_param, y_estim = estimate_param_rippe(mean_contacts, bins)
+    d_max = estimate_max_dist_intra(fit_param, mean_value_trans)
+    kuhn, lm, slope, d, fact = fit_param
+    params = RippeParams.create(kuhn=kuhn, lm=lm, slope=slope, d=d, fact=fact,
+                                d_max=d_max, v_inter=mean_value_trans,
+                                device=device)
+    return params, bins, mean_contacts, y_estim
+
+
+def bin_cis_contacts_coo(rows, cols, vals, sub_id_c, sub_start_bp,
+                         sub_len_bp, sub_pos, max_dist_kb, size_bin_kb,
+                         edge_chunk: int = 64):
+    """Mean cis contact count per genomic-distance bin from COO triplets —
+    :func:`bin_cis_contacts` without ever densifying (the chr1-scale fit
+    path; a dense S x S matrix is ~10^12 cells at 500k sub-fragments).
+
+    Numerator: observed counts binned directly from the nnz entries.
+    Denominator (all same-contig pairs per distance bin, zero entries
+    included — the reference's host double loop enumerates every pair,
+    cuda_lib_gl.py:1242-1270): pairs within the ``max_dist_kb`` window
+    are enumerated explicitly per contig over the sorted midpoints
+    (window found by one searchsorted), in bounded chunks, with the SAME
+    float expression as the numerator and the dense function — a
+    cumulative-searchsorted count disagrees with floor binning at exact
+    bin edges, which regular fragment sizes hit constantly.
+    O(nnz + pairs-in-window), independent of the genome-squared size.
+
+    ``rows/cols/vals`` may be upper-triangular or symmetric; both
+    orientations of a pair are halved when present twice.
+
+    Returns (bins, mean_contacts) identical to the dense function.
+    """
+    id_c = np.asarray(sub_id_c)
+    start = np.asarray(sub_start_bp, np.float64)
+    length = np.asarray(sub_len_bp, np.float64)
+    mid = (start + length / 2.0) / 1000.0
+    rows = np.asarray(rows)
+    cols = np.asarray(cols)
+    vals = np.asarray(vals, np.float64)
+
+    bins = np.arange(size_bin_kb, max_dist_kb + size_bin_kb, size_bin_kb)
+    n_bins = len(bins)
+
+    # ---- numerator: observed sums over nnz cis entries ---------------------
+    upper = rows < cols      # one orientation (symmetric input stores both)
+    r, c, v = rows[upper], cols[upper], vals[upper]
+    cis = id_c[r] == id_c[c]
+    r, c, v = r[cis], c[cis], v[cis]
+    d = np.abs(mid[c] - mid[r])
+    keep = d < max_dist_kb
+    id_bin = np.clip((d[keep] / size_bin_kb).astype(np.int64), 0, n_bins - 1)
+    sums = np.bincount(id_bin, weights=v[keep], minlength=n_bins)
+
+    # ---- denominator: ALL cis pairs per distance bin ------------------------
+    pair_chunk = edge_chunk * 1024 * 1024 // 16    # pairs per block
+    nums = np.zeros(n_bins, np.float64)
+    for cid in np.unique(id_c):
+        m = np.sort(mid[id_c == cid])
+        k = len(m)
+        if k < 2:
+            continue
+        # window end per row (+1 ulp margin: the explicit d < max_dist
+        # filter below is the authoritative cut)
+        hi = np.searchsorted(m, m + max_dist_kb * (1.0 + 1e-12),
+                             side="right")
+        lens = np.maximum(hi - np.arange(1, k + 1, dtype=np.int64), 0)
+        row_chunk = max(1, int(pair_chunk // max(int(lens.max()), 1)))
+        for lo in range(0, k, row_chunk):
+            ls = lens[lo:lo + row_chunk]
+            tot = int(ls.sum())
+            if tot == 0:
+                continue
+            i_rep = np.repeat(np.arange(lo, lo + len(ls)), ls)
+            off = np.arange(tot) - np.repeat(np.cumsum(ls) - ls, ls)
+            j = i_rep + 1 + off
+            dp = np.abs(m[j] - m[i_rep])
+            kp = dp < max_dist_kb
+            bb = np.clip((dp[kp] / size_bin_kb).astype(np.int64),
+                         0, n_bins - 1)
+            nums += np.bincount(bb, minlength=n_bins)
+
+    mean_contacts = np.full(n_bins, 1e-10, np.float64)
+    nz = nums > 0
+    mean_contacts[nz] = sums[nz] / nums[nz]
+    mean_contacts[mean_contacts == 0] = 1e-10
+    return bins, mean_contacts
+
+
+def mean_value_trans_from_coo(rows, cols, vals, chrom) -> float:
+    """Mean inter-contig contact value from COO triplets
+    (pyramid_sparse.py:1350-1373 without densifying): trans sum over nnz
+    entries divided by the ANALYTIC trans pair count (zero cells count).
+    Single-chromosome fallback mirrors Level.mean_value_trans: the most
+    distant decile of cis pairs approximates the background, floored at
+    1e-6."""
+    chrom = np.asarray(chrom)
+    n = len(chrom)
+    rows = np.asarray(rows)
+    cols = np.asarray(cols)
+    vals = np.asarray(vals, np.float64)
+    upper = rows < cols
+    r, c, v = rows[upper], cols[upper], vals[upper]
+    _, counts = np.unique(chrom, return_counts=True)
+    total_pairs = n * (n - 1) // 2
+    cis_pairs = int(np.sum(counts * (counts - 1) // 2))
+    trans_pairs = total_pairs - cis_pairs
+    if trans_pairs > 0:
+        trans_sum = float(v[chrom[r] != chrom[c]].sum())
+        # dense counterpart averages over the full (asymmetric) trans block;
+        # upper-triangle sum / upper-triangle count is the same ratio
+        return trans_sum / trans_pairs
+    k = max(1, int(0.9 * n))
+    far_pairs = (n - k) * (n - k + 1) // 2
+    far_sum = float(v[(c - r) >= k].sum())
+    return float(max(far_sum / far_pairs if far_pairs else 0.0, 1e-6))
+
+
+def fit_rippe_from_coo(rows, cols, vals, sub_frags, mean_value_trans,
+                       max_dist_kb, size_bin_kb, device=None):
+    """:func:`fit_rippe_from_matrix` from COO triplets (no densification)."""
+    bins, mean_contacts = bin_cis_contacts_coo(
+        rows, cols, vals, sub_frags["id_c"], sub_frags["start_bp"],
+        sub_frags["len_bp"], sub_frags["pos"], max_dist_kb, size_bin_kb)
     fit_param, y_estim = estimate_param_rippe(mean_contacts, bins)
     d_max = estimate_max_dist_intra(fit_param, mean_value_trans)
     kuhn, lm, slope, d, fact = fit_param

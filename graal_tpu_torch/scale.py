@@ -20,13 +20,19 @@ bin of each copy-fragment, for the neighbour tables). The repeat engine's
 exactness contract is checked against the repeat flags of the genome a
 cycle runs on (``run``'s ``state0``, ``cycle_for``'s ``rep``).
 
-Not ported here: the multi-device anchor (ROADMAP A12), checkpoint /
-resume and ``from_dataset`` (A7), snapshots and the live view (A13),
-``run_mtm`` / ``run_chains`` and ``run_multilevel`` (A11 / A12).
+``run`` checkpoints every few cycles (state, params, the generator's
+state and the metric history: ``utils.checkpoint``) and resumes from the
+file bit for bit. :func:`from_dataset` builds a runner straight from a
+dataset directory without ever densifying the map.
+
+Not ported here: the multi-device anchor (ROADMAP A12), snapshots and the
+live view (A13), ``run_mtm`` / ``run_chains`` and ``run_multilevel`` (A11 /
+A12).
 """
 
 from __future__ import annotations
 
+import os
 import time
 
 import numpy as np
@@ -40,6 +46,7 @@ from graal_tpu_torch.core.state import (GenomeState, check_invariants,
 from graal_tpu_torch.core.subfrags import SubFragTable
 from graal_tpu_torch.ops.mini_grid_cuda import MiniGridScorer
 from graal_tpu_torch.ops.obsgrid_cuda import WindowObsGrid
+from graal_tpu_torch.utils import checkpoint as ckpt_io
 
 
 def _next_pow2(x: int) -> int:
@@ -63,11 +70,13 @@ def contig_frags_per_frag(state: GenomeState) -> np.ndarray:
 class ScaleRunner:
     """One configured chr1-scale assembly run on the device of ``table``
     (``sobs`` and ``params`` live there too). A repeat table needs ``id_d``
-    (see the module docstring); ``sobs`` then lies on the data grid."""
+    (see the module docstring); ``sobs`` then lies on the data grid.
+    ``bin_csr`` / ``bin_norm``: the bin-grid contact matrix and per-bin
+    accu normaliser, kept for the MTM jump tables (ROADMAP A11)."""
 
     def __init__(self, table: SubFragTable, sobs: sparse.SparseObs,
                  params: RippeParams, nb: mcmc.NeighbourTable | None = None,
-                 band_margin: float = 2.0, id_d=None):
+                 band_margin: float = 2.0, id_d=None, bin_csr=None, bin_norm=None):
         import scipy.sparse as sp
 
         if table.has_repeats and id_d is None and nb is None:
@@ -94,6 +103,8 @@ class ScaleRunner:
         else:
             self.max_covered_d_max = float(
                 np.sort(table.len_kb.cpu().numpy())[: self.w].sum())
+        self.bin_csr = bin_csr
+        self.bin_norm = bin_norm
         self.obs_grid = WindowObsGrid()
         self.mini_grid = MiniGridScorer()
         self._anchor = None
@@ -150,7 +161,8 @@ class ScaleRunner:
             f_max_cap: int = 1 << 14, f_t: float = 1.0,
             sample_param: bool = False, seed: int = 1, progress: bool = True,
             init_truth: GenomeState | None = None, chunk_steps: int = 512,
-            order_mode: str = "random"):
+            order_mode: str = "random", checkpoint_path: str | None = None,
+            checkpoint_every: int = 1, resume: bool = False):
         """Assemble from ``state0``; returns (state, params, metrics).
 
         ``steps_per_cycle`` caps the fragment steps per cycle (default every
@@ -168,7 +180,12 @@ class ScaleRunner:
         the last chunk of a tier wraps around its fragment order.
 
         Randomness comes from one ``torch.Generator`` seeded with ``seed``
-        on the runner's device: the same seed gives the same run."""
+        on the runner's device: the same seed gives the same run.
+
+        ``checkpoint_path``: npz checkpoint written every
+        ``checkpoint_every`` cycles (state, params, cycle, the generator's
+        state, the metric history); with ``resume`` the run picks up from
+        the file, when it exists, bit for bit."""
         if order_mode not in ("random", "extremity"):
             raise ValueError(f"unknown order_mode {order_mode!r}")
         n = state0.n_frags
@@ -178,6 +195,17 @@ class ScaleRunner:
         gen = torch.Generator(device=dev).manual_seed(seed)
         state = state0
         params = self.params
+        start_cycle = 0
+        metrics = {"likelihood": [], "n_contigs": [], "overflow": [],
+                   "dist_init_genome": [], "f_max": [], "tiers": [], "cycle_s": [],
+                   "fact": [], "slope": [], "d_max": [], "v_inter": []}
+        if resume and checkpoint_path and os.path.exists(checkpoint_path):
+            state, params, start_cycle, gen_state, extra = ckpt_io.load_checkpoint(
+                checkpoint_path, dev)
+            gen.set_state(gen_state)
+            metrics.update(ckpt_io.metrics_from_extra(extra))
+            if progress:
+                print(f"resumed from {checkpoint_path} at cycle {start_cycle}", flush=True)
         anchor = self.anchor_fn()
         l_t = anchor(state, params)
         mt = delta_mod.build_mini_table(self.table, allow_repeats=True)
@@ -214,11 +242,8 @@ class ScaleRunner:
                 i += chunk
             return state, l_t, outs
 
-        metrics = {"likelihood": [], "n_contigs": [], "overflow": [],
-                   "dist_init_genome": [], "f_max": [], "tiers": [], "cycle_s": [],
-                   "fact": [], "slope": [], "d_max": [], "v_inter": []}
         t0 = time.time()
-        for j in range(n_cycles):
+        for j in range(start_cycle, n_cycles):
             big_bucket = _next_pow2(2 * max_contig_subs(state, self.table) + 2 * s_max)
             big_bucket = int(np.clip(big_bucket, f_max_min, f_max_cap))
             big_bucket = min(big_bucket, _next_pow2(n))
@@ -290,6 +315,115 @@ class ScaleRunner:
                 if dist is not None:
                     msg += f" dist={dist:.3f}"
                 print(msg, flush=True)
+            if checkpoint_path and checkpoint_every and (j + 1) % checkpoint_every == 0:
+                ckpt_io.save_checkpoint(checkpoint_path, state, params, j + 1, gen,
+                                        extra=ckpt_io.metrics_extra(metrics))
         check_invariants(state)
         self.params = params
         return state, params, metrics
+
+
+def from_dataset(dataset_dir: str, size: int, factor: int = 3,
+                 level: int | None = None, min_bin_per_contig: int = 1,
+                 max_fit_bins: int = 2048, max_dist_bins_factor: float = 1.0,
+                 allow_repeats: bool = False, sub_sample: float = 0.0,
+                 sub_sample_seed: int = 0, progress: bool = True,
+                 ref_quirks: bool = False, device="cuda"):
+    """Build a :class:`ScaleRunner` on ``device`` straight from a
+    reference-format dataset directory, never densifying the map:
+
+    - observed contacts: the sub-level's COO triplets -> SparseObs,
+    - Rippe fit: ``model.fit_rippe_from_coo`` on the same triplets, window
+      = mean source-contig length * ``max_dist_bins_factor``, capped at
+      ``max_fit_bins`` distance bins,
+    - v_inter: ``model.mean_value_trans_from_coo``,
+    - ``allow_repeats``: coverage-outlier bins are duplicated into
+      copy-expanded geometry (sparse coverage; the delta engine routes the
+      table to the repeat engine),
+    - neighbour proposals on the bin grid (the level matrix).
+
+    Returns (runner, state0, level_handle, extras) where ``state0`` is the
+    file-order genome and ``extras`` carries the fit curve."""
+    import scipy.sparse as spsp
+
+    from graal_tpu_torch.config import resolve_device
+    from graal_tpu_torch.core.model import fit_rippe_from_coo, mean_value_trans_from_coo
+    from graal_tpu_torch.core.subfrags import table_from_level
+    from graal_tpu_torch.io import pyramid as pyramid_io
+    from graal_tpu_torch.pipeline import detect_repeats_coverage, extend_with_repeats
+
+    dev = resolve_device(device)
+    pyr = pyramid_io.build_and_filter(dataset_dir, size, factor, min_bin_per_contig,
+                                      ref_quirks=ref_quirks)
+    lev, sub, bin_to_subs = pyr.sampling_level(level)
+    lvl = lev.level
+    soa = lev.genome_soa()
+    sub_soa = sub.genome_soa()
+
+    # repeat detection from sparse coverage (scale-invariant, so the raw
+    # one-orientation row + column sums work)
+    duplications = []
+    if allow_repeats:
+        raw = lev.sparse
+        cov = (np.asarray(raw.sum(axis=0)).ravel() + np.asarray(raw.sum(axis=1)).ravel()
+               - 2.0 * raw.diagonal())
+        duplications = detect_repeats_coverage(cov, True)
+        soa = extend_with_repeats(soa, duplications)
+        if progress and duplications:
+            print(f"{len(duplications)} repeated bins, "
+                  f"{sum(d for _, d in duplications)} extra copies", flush=True)
+    table = table_from_level(
+        soa, {"len_bp": sub_soa["len_bp"], "n_accu": sub_soa["n_accu"]},
+        bin_to_subs, id_d=soa["id_d"], device=dev)
+
+    coo = sub.sparse.tocoo()
+    sobs = sparse.sparse_from_coo(coo.row, coo.col, coo.data, sub.n_frags, device=dev)
+    if 0.0 < sub_sample <= 1.0:
+        # Poisson sub-sampling before the fit, so the parameters are
+        # estimated from what is scored
+        sobs = sparse.subsample_sparse(sobs, sub_sample, sub_sample_seed)
+        if progress:
+            print(f"sub-sampled contacts by {sub_sample}: "
+                  f"{sobs.vals.shape[0]} symmetric nnz", flush=True)
+    sr, sc, sv = (x.cpu().numpy() for x in (sobs.rows, sobs.cols, sobs.vals))
+
+    v_inter = mean_value_trans_from_coo(sr, sc, sv, np.asarray(sub.frags.chrom))
+    starts = sub_soa["pos"] == 0
+    mean_dist_kb = float(np.mean(sub_soa["l_cont_bp"][starts])) / 1000.0
+    size_bin_kb = float(np.mean(sub_soa["len_bp"])) / 1000.0
+    max_dist_kb = min(mean_dist_kb * max_dist_bins_factor, max_fit_bins * size_bin_kb)
+    if progress:
+        print(f"scale level {lvl}: {lev.n_frags} bins, {sub.n_frags} data subs, "
+              f"{sv.shape[0]} symmetric nnz; fitting over {max_dist_kb:.0f} kb in "
+              f"{size_bin_kb:.1f} kb bins", flush=True)
+    params, bins, mean_contacts, y_estim = fit_rippe_from_coo(
+        sr, sc, sv, sub_soa, v_inter, max_dist_kb, size_bin_kb, device=dev)
+    if progress:
+        print("fitted params:", {f: round(float(getattr(params, f)), 5)
+                                 for f in params._fields}, flush=True)
+
+    state0 = GenomeState.from_soa(soa, device=dev)
+    # neighbour proposals live on the bin grid (the level matrix), not on
+    # the data grid; the two coincide only with one sub-fragment per bin
+    m_bin = (lev.sparse + lev.sparse.T).tocsr()
+    m_bin.setdiag(0)
+    m_bin.eliminate_zeros()
+    if 0.0 < sub_sample <= 1.0:
+        up = spsp.triu(m_bin, k=1).tocoo()
+        rng = np.random.default_rng(sub_sample_seed + 1)
+        drawn = rng.poisson(np.maximum(up.data * sub_sample, 0.0))
+        half = spsp.coo_matrix((drawn.astype(np.float64), (up.row, up.col)),
+                               shape=m_bin.shape)
+        m_bin = (half + half.T).tocsr()
+        m_bin.eliminate_zeros()
+    nb = mcmc.build_neighbour_table(m_bin, soa["id_d"], len(soa["id_d"]), device=dev)
+    # MTM jump-table normaliser: per-bin accu mass summed over the bin's
+    # data subs
+    cs = np.concatenate([[0.0], np.cumsum(np.asarray(sub_soa["n_accu"], np.float64))])
+    bin_norm = cs[bin_to_subs[:, 1] + 1] - cs[bin_to_subs[:, 0]]
+    runner = ScaleRunner(table, sobs, params, nb=nb, id_d=soa["id_d"],
+                         bin_csr=m_bin, bin_norm=bin_norm)
+    extras = {"fit_bins": bins, "fit_contacts": mean_contacts, "fit_estim": y_estim,
+              "v_inter": v_inter, "duplications": duplications, "pyramid": pyr,
+              "level_soa": soa}
+    return runner, state0, lev, extras

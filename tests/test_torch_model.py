@@ -110,3 +110,41 @@ def test_fit_rippe_from_matrix():
     assert pt.astuple_np() == pj.astuple_np()
     for a, b in zip(rest_t, rest_j):
         np.testing.assert_array_equal(a, b)
+
+
+@pytest.fixture(scope="module")
+def dataset_coo(tmp_path_factory):
+    """Level-0 COO triplets and genome of a synthetic dataset (3 contigs)."""
+    from graal_tpu.io import pyramid as jpyr
+    from graal_tpu.utils.dataset import write_synthetic_dataset
+
+    d = str(tmp_path_factory.mktemp("tmodel") / "ds")
+    write_synthetic_dataset(d, n_bins=90, n_contigs=3, seed=2)
+    lev = jpyr.build_and_filter(d, 2, 3).get_level(0)
+    coo = lev.sparse.tocoo()
+    return coo.row, coo.col, coo.data, lev.genome_soa(), np.asarray(lev.frags.chrom)
+
+
+@pytest.mark.parametrize("symmetric", [False, True])
+def test_coo_fits_match_jax(dataset_coo, symmetric):
+    """bin_cis_contacts_coo, mean_value_trans_from_coo (several contigs and
+    the single-contig fallback) and fit_rippe_from_coo equal the JAX ones
+    exactly, on upper-triangular and on symmetric triplets."""
+    rows, cols, vals, soa, chrom = dataset_coo
+    if symmetric:
+        rows, cols, vals = (np.concatenate([rows, cols]), np.concatenate([cols, rows]),
+                            np.concatenate([vals, vals]))
+    args = (rows, cols, vals, soa["id_c"], soa["start_bp"], soa["len_bp"], soa["pos"],
+            6.0, 0.3)
+    for a, b in zip(tm.bin_cis_contacts_coo(*args), jm.bin_cis_contacts_coo(*args)):
+        np.testing.assert_array_equal(a, b)
+    v_t = tm.mean_value_trans_from_coo(rows, cols, vals, chrom)
+    assert v_t == jm.mean_value_trans_from_coo(rows, cols, vals, chrom) and v_t > 0
+    one = np.zeros(len(chrom), np.int64)
+    assert tm.mean_value_trans_from_coo(rows, cols, vals, one) == \
+        jm.mean_value_trans_from_coo(rows, cols, vals, one)
+    pt, *rest_t = tm.fit_rippe_from_coo(rows, cols, vals, soa, v_t, 6.0, 0.3)
+    pj, *rest_j = jm.fit_rippe_from_coo(rows, cols, vals, soa, v_t, 6.0, 0.3)
+    assert pt.astuple_np() == pj.astuple_np()
+    for a, b in zip(rest_t, rest_j):
+        np.testing.assert_array_equal(a, b)

@@ -1,7 +1,8 @@
 """The port's slice as a whole, against the JAX package, on the CPU.
 
-- No file of graal_tpu_torch/ (nor chip_smoke.py or kernel_times.py)
-  imports jax or graal_tpu: the port must run where neither is installed.
+- No file of graal_tpu_torch/ (its io/ package included; nor chip_smoke.py
+  or kernel_times.py) imports jax, graal_tpu or h5py: the port must run
+  where none of them is installed.
 - ``graal_tpu_torch.entry.problem`` builds the same problem as
   ``__graft_entry__._problem`` (states, table, observed map, neighbour
   table bit for bit; params f32-equal).
@@ -53,10 +54,12 @@ def test_port_imports_neither_jax_nor_graal_tpu():
     files = sorted((ROOT / "graal_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py",
                                                                 ROOT / "kernel_times.py"]
     assert len(files) > 10
+    assert {"pyramid.py", "native_io.py", "formats.py", "fasta.py"} <= \
+        {p.name for p in files if p.parent.name == "io"}
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
-            assert top not in ("jax", "jaxlib", "graal_tpu"), \
+            assert top not in ("jax", "jaxlib", "graal_tpu", "h5py"), \
                 f"{path.relative_to(ROOT)} imports {mod}"
 
 
