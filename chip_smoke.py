@@ -132,11 +132,46 @@ keys and the grid written. "share" is the bound over the device time.
    512 extremity-first steps from f_max 64: B2 and B4 launch, a finite
    final likelihood, the invariants and outputs; then the runner's B2 and
    B4 against their plain versions as in 9d, at every tier the run used.
-9f. ``run --allow-repeats`` on a copy of the dataset with fragment 1,500's
-   contacts amplified tenfold: the repeat table goes to B3, 1 + 2 x steps
-   launches, the invariants and outputs; then B3 against its plain
-   version as in 9a, with the first repeat copy as fA.
-10. Last lines: the nvidia-smi line, one JSON line on the kernels run, and
+9f. ``run --allow-repeats --sampler em,mtm`` on a copy of the dataset with
+   fragment 1,500's contacts amplified tenfold: the repeat table goes to
+   B3, 1 + 2 x steps launches a stage (each MTM pass one launch at B = 91),
+   each stage's carried likelihood equal to B3's rescoring bit for bit, the
+   invariants and outputs; then B3 against its plain version as in 9a and
+   on an MTM pass's candidates, with the first repeat copy as fA.
+10a. ``run --sampler em,mtm,mh`` at level 2, 1 cycle a stage: B1 launches
+   1 + 2 x steps a stage (EM at B = 65 and 1, every MTM / MH pass one
+   launch at B = 91 = 7 neighbour slots x 13), after each stage the carried
+   likelihood equal to B1's rescoring bit for bit, the invariants and
+   outputs; s/cycle and accept rate per stage; B1 against its plain version
+   on an MTM pass's candidates, timed at B = 91.
+10b. ``run --sampler tempered --chains 4``, 1 cycle: one B1 launch a step
+   at B = 260 for all chains (1 + steps), the cold genome's carried
+   likelihood equal to B1's rescoring, every chain's genome valid, the swap
+   count; B1 against its plain version on the 4 chains' candidates, timed
+   at B = 260.
+10c. ``run --level 2 --to-level 1``, 1 cycle a level: B1 at K = 972 and
+   then K = 2,901 (1 + 2 x steps each), the projected warm start valid and
+   above the exploded level-1 genome, carried == rescored at each level,
+   genome.fasta; B1 against its plain version at K = 2,901 at B = 65 and 1
+   (and the dense oracle), timed at B = 65.
+10d. ``run --model hic``, 1 cycle: no B1 or B3 launch, nuisance sampling
+   off, a rising likelihood, the invariants and outputs; one 65-candidate
+   batch scored by the HiC scorer on the card and on the CPU, rtol 1e-5.
+10e. ``scale --level 2 --steps-per-cycle 256 --mtm-cycles 1``: B2 and B4
+   launch twice a delta MTM step (329 steps, MH catalogue, M = 7
+   neighbour slots), a finite final likelihood, the invariants and
+   outputs; the runner's B2 / B4 against their plain versions on an MTM
+   pass (B2 timed at that shape) and at every tier of the run.
+10f. On the 20k exactness twin and its 12-dup repeat twin (phase 6's
+   set-ups): 10 single delta MTM and 10 delta MH steps each at f_max 1,024,
+   B2 and B4 twice a step; after each step the carried likelihood within
+   max(0.5, 1e-6 |L|) of a full sparse re-anchor (``bad_steps: 0``) and
+   the committed genome valid.
+10g. ``scale --level 2 --to-level 1``, 1 cycle a level: B2 and B4 launch
+   at both levels, each level's final likelihood finite, the invariants,
+   genome.fasta; the last runner's B2 / B4 against their plain versions at
+   every tier it used.
+11. Last lines: the nvidia-smi line, one JSON line on the kernels run, and
    {"ok": true, "device": {...}}. Each kernel's entry has the contract's
    keys (launches, max_abs_err, ms, plain_ms, bound_ms, bound_by,
    library_ms: null, as no single PyTorch call computes any of the four)
@@ -144,12 +179,17 @@ keys and the grid written. "share" is the bound over the device time.
    true candidates; B3: S = 1,152; B2 / B4: the 100k path at R = 1,024;
    B4 also grid_ms / grid_device_ms, the step's whole observed-grid
    production); the other shapes sit under "by_shape" (B1: exploded,
-   B = 1, K = 6,000; B3), "tiers" (B2, B4) and "by_path" (each path's
-   launches: the main paths of phases 4-8 and the CLI runs cli_run,
-   cli_run_delta, cli_scale, cli_run_repeats, each CLI run's entry with
-   the max abs error of its kernel against the plain version there).
+   B = 1, K = 6,000, and the new paths' B = 91, B = 260 and K = 2,901; B3;
+   B2's MTM shape), "tiers" (B2, B4) and "by_path" (each path's launches:
+   the main paths of phases 4-8 and the CLI runs cli_run, cli_run_delta,
+   cli_scale, cli_run_repeats, cli_run_mtm, cli_run_tempered,
+   cli_run_multilevel, cli_run_hic (0 launches), cli_scale_mtm,
+   cli_scale_multilevel, each CLI run's entry with the max abs error of its
+   kernel against the plain version there, and delta_mtm_exactness with its
+   bad steps).
 """
 
+import contextlib
 import functools
 import json
 import os
@@ -181,6 +221,10 @@ DATASET_BINS = 3456         # level 0 of the CLI phases (level 1 ~972, level 2 ~
 DATASET_CONTIGS = 16        # the flagship's contigs (__graft_entry__._problem)
 CLI_CYCLES = 2
 AMPLIFIED_FRAG = 1500       # 1-based level-0 fragment made a repeat in phase 9f
+CHAINS = 4                  # tempered chains of phase 10b (the CLI's default)
+MTM_DELTA = 5               # the MTM / MH stages' jump-table partners (Runner.run_mtm)
+MTM_SLOTS = 13 * (MTM_DELTA + 2)   # candidates of one MTM / MH pass (B = 91)
+MTM_EXACT_STEPS = 10
 
 
 class SmokeFailure(RuntimeError):
@@ -1563,27 +1607,33 @@ def phase_cli_repeats(ds, root):
 
     from graal_tpu_torch.core.state import check_invariants
 
-    print("cli run --allow-repeats (B3): 1 EM cycle on the dataset with fragment "
-          f"{AMPLIFIED_FRAG}'s contacts amplified tenfold")
+    print("cli run --allow-repeats --sampler em,mtm (B3): 1 cycle a stage on the dataset "
+          f"with fragment {AMPLIFIED_FRAG}'s contacts amplified tenfold")
     dsr = os.path.join(root, "ds_rep")
     shutil.copytree(ds, dsr, ignore=shutil.ignore_patterns("pyramids"))
     amplify_fragment(os.path.join(dsr, "abs_fragments_contacts_weighted.txt"),
                      AMPLIFIED_FRAG, 9)
     o6 = os.path.join(root, "o6")
-    runner, asm = cli(run_argv(dsr, o6, "--cycles", "1", "--allow-repeats"))
+    with launch_shapes("RepeatScorer") as shapes:
+        runner, asm = cli(run_argv(dsr, o6, "--cycles", "1", "--allow-repeats", "--sampler",
+                                   "em,mtm"))
     n = runner.state.n_frags
     launches = runner.scorer.n_launches
     print(f"  {len(runner.duplications)} repeated bins, {n} fragments on "
           f"{runner.table.n_data_sub} data subs; ll_repeat launches {launches} "
-          f"(path implies 1 + 2 x {n})")
+          f"(path implies 1 + 2 x {n} a stage), batch sizes {dict(shapes)}")
     check(runner.table.has_repeats, "no repeat detected on the amplified dataset")
     check(type(runner.scorer).__name__ == "RepeatScorer", "the repeat table is not on B3")
-    check(launches == 1 + 2 * n, f"ll_repeat launches {launches}")
-    check(check_invariants(asm.state, raise_on_error=False) == [], "final state invariants")
+    check(launches == 2 * (1 + 2 * n), f"ll_repeat launches {launches}")
+    check(shapes[(MTM_SLOTS, runner.table.n_subs)] == 2 * n,
+          f"the MTM passes did not each launch B3 once at B = {MTM_SLOTS}")
+    stages = check_stages(runner, n)
     check_outputs(o6, RUN_OUTPUTS)
     # f_a: the first repeat copy
     err = dense_path_vs_plain("cli run --allow-repeats", runner, asm, runner.n_bins)
-    return dict(launches=launches, max_abs_err=err)
+    err_mtm, _ = mtm_pass_vs_plain("cli run --allow-repeats, MTM pass", runner, asm,
+                                   runner.n_bins)
+    return dict(launches=launches, max_abs_err=max(err, err_mtm), stages=stages)
 
 
 def amplify_fragment(pairs, frag, extra):
@@ -1597,8 +1647,450 @@ def amplify_fragment(pairs, frag, extra):
         fh.writelines(hits * extra)
 
 
+@contextlib.contextmanager
+def launch_shapes(name):
+    """Count the (B, K) shape of every kernel launch of the scorer class
+    ``name`` (DenseScorer or RepeatScorer) while the block runs; the
+    launches themselves are unchanged."""
+    import collections
+
+    from graal_tpu_torch.ops import likelihood_cuda, repeat_cuda
+
+    cls = {"DenseScorer": likelihood_cuda.DenseScorer,
+           "RepeatScorer": repeat_cuda.RepeatScorer}[name]
+    seen = collections.Counter()
+    launch = cls.launch
+
+    def counted(self, *args):
+        seen[tuple(args[0].shape)] += 1
+        return launch(self, *args)
+
+    cls.launch = counted
+    try:
+        yield seen
+    finally:
+        cls.launch = launch
+
+
+def check_stages(runner, n):
+    """Every sampler stage of a CLI run: 1 + 2 x steps launches of the
+    run's scorer, the invariants, and the carried likelihood equal to the
+    scorer's rescoring of the stage's genome bit for bit. Returns each
+    stage's wall s/cycle and accept rate."""
+    import torch
+    from graal_tpu_torch.core.state import GenomeState, check_invariants
+
+    out, prev = {}, 0
+    for st in runner.stages:
+        launches, prev = st["launches"] - prev, st["launches"]
+        asm = st["assembly"]
+        check(launches == 1 + 2 * n, f"{st['name']}: {launches} launches != 1 + 2 x {n}")
+        check(check_invariants(asm.state, raise_on_error=False) == [],
+              f"{st['name']}: final state invariants")
+        rescored = runner.scorer(GenomeState(*[x[None] for x in asm.state]), asm.params)[0]
+        check(torch.equal(rescored, st["l_t"]),
+              f"{st['name']}: carried l_t {st['l_t'].item()!r} != rescored {rescored.item()!r}")
+        acc = asm.metrics.get("accepts")
+        rate = sum(acc) / len(acc) if acc else None
+        out[st["name"]] = dict(s_per_cycle=st["seconds"], accept_rate=rate)
+        print(f"  {st['name']}: {launches} launches, l_t {st['l_t'].item():.3f} (carried == "
+              f"rescored), {st['seconds']:.3f} s/cycle ({st['seconds'] * 1e3 / n:.3f} ms/step)"
+              + ("" if rate is None else f", accept rate {rate:.4f}"))
+    return out
+
+
+def mtm_batch(state, jump, f_a):
+    """Flat (delta + 2) x 13 batch of one MTM / MH pass: the MH catalogue
+    of f_a against its neighbour set."""
+    import torch
+    from graal_tpu_torch.core import mtm
+    from graal_tpu_torch.core.candidates import N_CANDIDATES, mh_candidates
+    from graal_tpu_torch.core.state import GenomeState
+
+    f_a = torch.tensor(f_a, device=state.pos.device)
+    ids, _ = mtm._neighbour_set(state, f_a, jump)
+    cands = mh_candidates(state, f_a, ids)
+    m = ids.shape[0]
+    return GenomeState(*[x.reshape(m * N_CANDIDATES, -1).contiguous() for x in cands])
+
+
+def mtm_pass_vs_plain(label, runner, asm, f_a, n_time=0):
+    """The run's dense kernel (B1 or B3) against its plain version on one
+    MTM pass's candidates of the final genome (B = 91), each candidate
+    bit-identical alone and in the batch; timed when ``n_time``. Returns
+    (max abs error, timing or None)."""
+    from graal_tpu_torch.ops.likelihood_cuda import params_vector
+
+    scorer = runner.scorer
+    batch = mtm_batch(asm.state, runner.jump_table(MTM_DELTA), f_a)
+    got, err = kernel_vs_plain(scorer, batch, asm.params, f"{label} (f_a={f_a})")
+    batch_invariance(scorer, batch, asm.params, got, label)
+    if not n_time:
+        return err, None
+    vecs = scorer.sub_vectors(batch)
+    pvec = params_vector(asm.params, scorer.log_nfpb)
+    t = with_share(timed(lambda: scorer.launch(*vecs, pvec), n_time,
+                         lambda: scorer.plain(*vecs, pvec), 5), dense_bound(vecs, pvec))
+    print(f"  time B={got.shape[0]} K={scorer.k}: {fmt_time(t)}; {fmt_bound(t)}")
+    return err, t
+
+
+def phase_cli_stages(ds, root):
+    """10a. run --sampler em,mtm,mh: EM, MTM and MH on B1."""
+    from graal_tpu_torch.core.mcmc import n_slots
+
+    print("cli run --sampler em,mtm,mh (B1): 1 cycle a stage at level 2, nuisance on in EM")
+    out = os.path.join(root, "o10a")
+    with launch_shapes("DenseScorer") as shapes:
+        runner, asm = cli(run_argv(ds, out, "--cycles", "1", "--sampler", "em,mtm,mh"))
+    n, k = runner.state.n_frags, runner.table.n_subs
+    launches = runner.scorer.n_launches
+    em_b = n_slots(runner.nb, runner.cfg.sampler.n_neighbours)
+    want = {(1, k): 3 + n, (em_b, k): n, (MTM_SLOTS, k): 4 * n}
+    print(f"  K = {k}, {n} bins; ll_dense launches {launches} (path implies 3 + 6 x {n} = "
+          f"{3 + 6 * n}); batch sizes {dict(shapes)}")
+    check(launches == 3 + 6 * n, f"ll_dense launches {launches}")
+    check(dict(shapes) == want, f"launch shapes {dict(shapes)} != {want}")
+    stages = check_stages(runner, n)
+    check_outputs(out, RUN_OUTPUTS)
+    err, t = mtm_pass_vs_plain("cli run MTM pass", runner, asm, 7 % n, n_time=50)
+    return dict(launches=launches, max_abs_err=err, B91=t, stages=stages)
+
+
+def phase_cli_tempered(ds, root):
+    """10b. run --sampler tempered --chains 4: every chain scored in one B1
+    launch a step."""
+    import torch
+    from graal_tpu_torch.core.mcmc import n_slots
+    from graal_tpu_torch.core.state import GenomeState, check_invariants
+    from graal_tpu_torch.ops.likelihood_cuda import params_vector
+
+    print(f"cli run --sampler tempered --chains {CHAINS} (B1): 1 cycle at level 2")
+    out = os.path.join(root, "o10b")
+    with launch_shapes("DenseScorer") as shapes:
+        runner, asm = cli(run_argv(ds, out, "--cycles", "1", "--sampler", "tempered",
+                                   "--chains", str(CHAINS)))
+    scorer = runner.scorer
+    n, k = runner.state.n_frags, runner.table.n_subs
+    launches = scorer.n_launches
+    b = CHAINS * n_slots(runner.nb, runner.cfg.sampler.n_neighbours)
+    print(f"  ll_dense launches {launches} (path implies 1 + {n}); batch sizes {dict(shapes)}")
+    check(launches == 1 + n, f"ll_dense launches {launches}")
+    check(dict(shapes) == {(1, k): 1, (b, k): n}, f"launch shapes {dict(shapes)}")
+    rescored = scorer(GenomeState(*[x[None] for x in asm.state]), asm.params)[0]
+    check(torch.equal(rescored, runner.l_t),
+          f"cold chain's carried l_t {runner.l_t.item()!r} != rescored {rescored.item()!r}")
+    chains = [GenomeState(*[x[c] for x in runner.chain_states]) for c in range(CHAINS)]
+    for c, st in enumerate(chains):
+        check(check_invariants(st, raise_on_error=False) == [], f"chain {c} invariants")
+    check_outputs(out, [f for f in RUN_OUTPUTS if f != "checkpoint.npz"])
+    cycle_s = runner.timer.report()["tempered_cycles"]["mean_ms"] / 1e3
+    print(f"  cold l_t {runner.l_t.item():.3f} (carried == rescored), chains "
+          f"{[round(x, 3) for x in asm.metrics['likelihood_all_chains'][-1]]}, swaps "
+          f"{asm.metrics['swap_accepts']}; {cycle_s:.3f} s/cycle "
+          f"({cycle_s * 1e3 / n:.3f} ms/step)")
+    # B1 vs plain on one step's candidates of the 4 chains (B = 260), timed
+    gen = torch.Generator(device=asm.state.pos.device).manual_seed(SEED)
+    batch = stack([candidate_batch(st, runner.nb, 7 % n, gen) for st in chains])
+    got, err = kernel_vs_plain(scorer, batch, asm.params, f"{CHAINS} chains' candidates")
+    batch_invariance(scorer, batch, asm.params, got, f"{CHAINS} chains' candidates")
+    vecs = scorer.sub_vectors(batch)
+    pvec = params_vector(asm.params, scorer.log_nfpb)
+    t = with_share(timed(lambda: scorer.launch(*vecs, pvec), 50,
+                         lambda: scorer.plain(*vecs, pvec), 5), dense_bound(vecs, pvec))
+    print(f"  time B={b} K={k}: {fmt_time(t)}; {fmt_bound(t)}")
+    return dict(launches=launches, max_abs_err=err, B260=t, cycle_s=cycle_s,
+                swaps=asm.metrics["swap_accepts"])
+
+
+def phase_cli_multilevel(ds, root):
+    """10c. run --level 2 --to-level 1: B1 at K = 972, then K = 2,901 from
+    the projected warm start."""
+    import torch
+    from graal_tpu_torch.core import mcmc
+    from graal_tpu_torch.core.state import GenomeState, check_invariants
+    from graal_tpu_torch.ops.likelihood_cuda import params_vector
+
+    print("cli run --level 2 --to-level 1 (B1): 1 EM cycle a level, nuisance on")
+    out = os.path.join(root, "o10c")
+    with launch_shapes("DenseScorer") as shapes:
+        runner, asm = cli(run_argv(ds, out, "--cycles", "1", "--to-level", "1"))
+    (_, r2, a2, _), (_, r1, a1, warm) = runner.levels
+    n2, n1 = r2.state.n_frags, r1.state.n_frags
+    k2, k1 = r2.scorer.k, r1.scorer.k
+    got = (r2.scorer.n_launches, r1.scorer.n_launches)
+    b2 = mcmc.n_slots(r2.nb, 4)
+    want = {(1, k2): 1 + n2, (b2, k2): n2, (1, k1): 1 + n1, (b2, k1): n1}
+    print(f"  level 2: {n2} bins, K = {k2}; level 1: {n1} bins, K = {k1}; ll_dense launches "
+          f"{got} (path implies {(1 + 2 * n2, 1 + 2 * n1)}); batch sizes {dict(shapes)}")
+    check(got == (1 + 2 * n2, 1 + 2 * n1), f"ll_dense launches {got}")
+    check(k1 > k2 and dict(shapes) == want, f"launch shapes {dict(shapes)}")
+    check(check_invariants(warm, raise_on_error=False) == [], "warm start invariants")
+    l_warm = r1.scorer(GenomeState(*[x[None] for x in warm]), a1.params)[0].item()
+    l_expl = r1.scorer(GenomeState(*[x[None] for x in mcmc.explode_genome(warm)]),
+                       a1.params)[0].item()
+    print(f"  warm start {l_warm:.3f} vs exploded level-1 genome {l_expl:.3f}")
+    check(l_warm > l_expl, "the projected warm start scores below the exploded genome")
+    check(check_invariants(asm.state, raise_on_error=False) == [], "final state invariants")
+    for r, a in ((r2, a2), (r1, a1)):
+        rescored = r.scorer(GenomeState(*[x[None] for x in a.state]), a.params)[0]
+        check(torch.equal(rescored, r.l_t), f"K={r.scorer.k}: carried != rescored")
+    check_outputs(out, RUN_OUTPUTS)
+    cycle_s = [r.timer.report()["em_cycle"]["mean_ms"] / 1e3 for r in (r2, r1)]
+    print(f"  s/cycle {cycle_s[0]:.3f} (level 2), {cycle_s[1]:.3f} (level 1); l_t "
+          f"{r2.l_t.item():.3f} -> level 1 {r1.l_t.item():.3f} (carried == rescored)")
+    # B1 vs plain at K = 2,901 at B = 65 and B = 1, timed at B = 65
+    gen = torch.Generator(device=asm.state.pos.device).manual_seed(SEED)
+    err, batches = check_bases(r1.scorer, r1.table, a1.params, r1.nb,
+                               [("level-1 final", a1.state, 7 % n1, True)], gen)
+    vecs = r1.scorer.sub_vectors(batches[0])
+    pvec = params_vector(a1.params, r1.scorer.log_nfpb)
+    t = with_share(timed(lambda: r1.scorer.launch(*vecs, pvec), 20,
+                         lambda: r1.scorer.plain(*vecs, pvec), 2), dense_bound(vecs, pvec))
+    print(f"  time B={vecs[0].shape[0]} K={k1}: {fmt_time(t)}; {fmt_bound(t)}")
+    return dict(launches=sum(got), max_abs_err=err, K2901=t, cycle_s=cycle_s)
+
+
+def phase_cli_hic(ds, root):
+    """10d. run --model hic: the broken power law in plain torch on the
+    card; no kernel launches."""
+    import torch
+    from graal_tpu_torch.core.model_hic import HiCParams, make_hic_scorer
+    from graal_tpu_torch.core.state import GenomeState, check_invariants
+
+    print("cli run --model hic: 1 EM cycle at level 2 (plain torch scorer, no nuisance)")
+    out = os.path.join(root, "o10d")
+    with launch_shapes("DenseScorer") as b1, launch_shapes("RepeatScorer") as b3:
+        runner, asm = cli(run_argv(ds, out, "--cycles", "1", "--model", "hic"))
+    n = runner.state.n_frags
+    print(f"  launches: ll_dense {sum(b1.values())}, ll_repeat {sum(b3.values())}")
+    check(not b1 and not b3, "a kernel launched in the HiC run")
+    check(isinstance(asm.params, HiCParams) and not runner.sample_param,
+          "the HiC run sampled nuisance parameters")
+    check(len(set(asm.metrics["fact"])) == 1, "a parameter moved in the HiC run")
+    lik = asm.metrics["likelihood"]
+    check(lik[-1] > lik[0], f"likelihood did not rise: {lik[0]} -> {lik[-1]}")
+    check(check_invariants(asm.state, raise_on_error=False) == [], "final state invariants")
+    check_outputs(out, RUN_OUTPUTS)
+    cycle_s = runner.timer.report()["em_cycle"]["mean_ms"] / 1e3
+    print(f"  l_t {lik[0]:.3f} -> {lik[-1]:.3f}; {cycle_s:.3f} s/cycle "
+          f"({cycle_s * 1e3 / n:.3f} ms/step)")
+    # one 65-candidate batch on the card and on the CPU
+    gen = torch.Generator(device=asm.state.pos.device).manual_seed(SEED)
+    batch = candidate_batch(asm.state, runner.nb, 7 % n, gen)
+    got = runner.scorer(batch, asm.params)
+    cpu_table = runner.table._replace(**{f: getattr(runner.table, f).cpu() for f in (
+        "owner", "data_id", "len_kb", "accu", "prefix_kb", "suffix_kb")})
+    want = make_hic_scorer(cpu_table, runner.obs)(GenomeState(*[x.cpu() for x in batch]),
+                                                  HiCParams(*[x.cpu() for x in asm.params]))
+    err = (got.cpu().double() - want.double()).abs()
+    rel = (err / want.double().abs()).max().item()
+    t = timed(lambda: runner.scorer(batch, asm.params), 10)
+    print(f"  HiC scorer B={got.shape[0]} K={runner.table.n_subs}: card vs CPU max_abs_err "
+          f"{err.max().item():.6g}, max_rel_err {rel:.3g}; {t['ms']:.4f} ms a call (as "
+          f"called), {t['device_ms']:.4f} ms (device)")
+    check(rel <= 1e-5, f"HiC scores on the card vs the CPU: rel err {rel}")
+    return dict(launches=0, max_abs_err_cpu=err.max().item(), hic_ms=t, cycle_s=cycle_s)
+
+
+def mtm_delta_vs_plain(label, runner, state, bucket, f_a, n_time=0):
+    """The runner's B4 (bit-identical) and B2 (RTOL, DLL_ATOL) against their
+    plain versions on one delta MTM pass's inputs at ``bucket``: the MH
+    catalogue of f_a against its neighbour set, each neighbour on its own
+    member rows. Returns (B2 error, B4 error, B2 timing or None)."""
+    import torch
+    from graal_tpu_torch.core import delta, mtm
+    from graal_tpu_torch.core.candidates import mh_candidates
+
+    scorer = delta.make_delta_scorer(runner.table, None, bucket, sobs=runner.sobs,
+                                     obs_grid=runner.obs_grid, mini_grid=runner.mini_grid,
+                                     catalogue=mh_candidates)
+    f_a = torch.tensor(f_a, device=state.pos.device)
+    ids, _ = mtm._neighbour_set(state, f_a, runner.jump_table(MTM_DELTA, state.n_frags))
+    rows, valid, _ = delta.extract_rows_each(state, f_a, ids, scorer.f_max)
+    subs, _ = scorer.sub_rows(rows, valid)
+    _, geo, ob, accu_sub, pvec = scorer.inputs(state, f_a, ids, rows, valid, runner.params,
+                                               state.id_c.amax())
+    b4 = (runner.sobs.row_start, runner.sobs.cols, runner.sobs.vals,
+          scorer.obs_keys(subs, geo.act[:, 0]))
+    args = scorer.mini_grid_args(geo, ob, accu_sub, pvec)
+    tag = f"{label}, f_max={scorer.f_max} f_a={int(f_a)}"
+    ob_k, err4 = b4_vs_plain(scorer.obs_grid_kernel, b4, tag)
+    check(torch.equal(args[5], ob_k), f"{tag}: the step's observed grid is not B4's")
+    _, err2 = b2_vs_plain(scorer.mini_grid, args, tag)
+    if not n_time:
+        return err2, err4, None
+    t = with_share(timed(lambda: scorer.mini_grid.launch(*args), n_time,
+                         lambda: scorer.mini_grid.plain(*args), 3), mini_bound(args))
+    m, c, r = args[0].shape
+    print(f"  time B2 R={r} M={m} C={c}: {fmt_time(t)}; {fmt_bound(t)}")
+    return err2, err4, dict(R=r, M=m, C=c, **t)
+
+
+def scale_run_vs_plain(label, runner, final, tiers_used):
+    """The runner's B2 and B4 against their plain versions at every tier a
+    run used, each scorer built as the runner's cycle builds it, on the
+    exploded start and the final genome. Returns (B2 error, B4 error)."""
+    from graal_tpu_torch.core import delta, mcmc
+
+    b2_err = b4_err = 0.0
+    for tier in sorted(set(tiers_used)):
+        scorer = delta.make_delta_scorer(
+            runner.table, None, tier, sobs=runner.sobs,
+            band_w=delta.effective_band_w(runner.w, runner.table, tier),
+            obs_grid=runner.obs_grid, mini_grid=runner.mini_grid)
+        bases = [("exploded start", mcmc.explode_genome(final), 7),
+                 ("final", final, frag_fitting(final, scorer.f_max))]
+        errs = delta_path_vs_plain(label, scorer, delta.extract_rows_union, bases,
+                                   runner.nb, runner.params)
+        b2_err, b4_err = max(b2_err, errs[0]), max(b4_err, errs[1])
+    return b2_err, b4_err
+
+
+def phase_cli_scale_mtm(ds, root):
+    """10e. scale --mtm-cycles 1: delta MTM on B2 + B4 with the MH
+    catalogue after a run."""
+    import math
+
+    from graal_tpu_torch.core import delta
+    from graal_tpu_torch.core.state import check_invariants
+
+    print("cli scale --mtm-cycles 1: level 2, 1 cycle of 256 steps, then 1 MTM cycle")
+    out = os.path.join(root, "o10e")
+    runner, final, m = cli(["scale", ds, "--size", "3", "--level", "2", "--cycles", "1",
+                            "--steps-per-cycle", "256", "--mtm-cycles", "1", "--f-max-min",
+                            "64", "--fasta", os.path.join(ds, "genome.fa"), "--out", out])
+    n = final.n_frags
+    mm = m["mtm"]
+    bucket = mm["f_max"][0]
+    banded = delta.effective_band_w(runner.w, runner.table, bucket) is not None
+    got = (mm["launches"]["ll_mini"], mm["launches"]["obsgrid"])
+    want = (0 if banded else 2 * n, 2 * n)
+    total = (runner.mini_grid.n_launches, runner.obs_grid.n_launches)
+    print(f"  {n} bins; MTM at f_max {bucket}: launches ll_mini {got[0]}, obsgrid {got[1]} "
+          f"(path implies two a step: {want}); the run before it {total[0] - got[0]}, "
+          f"{total[1] - got[1]} on tiers {m['tiers']}")
+    check(got == want and got[0] > 0, f"MTM launches {got} != {want}")
+    check(math.isfinite(m["likelihood"][-1]), f"final_loglik {m['likelihood'][-1]}")
+    check(check_invariants(final, raise_on_error=False) == [], "final state invariants")
+    check_outputs(out, ["0list_likelihood.txt", "0list_f_max.txt", "genome.fasta",
+                        "info_frags.txt", "assembly_stats.json", "checkpoint.npz"])
+    print(f"  final_loglik {m['likelihood'][-1]:.3f}, accept rate {mm['accept_rate'][0]:.4f}, "
+          f"MTM {mm['cycle_s'][0]:.3f} s/cycle ({mm['cycle_s'][0] * 1e3 / n:.3f} ms/step), "
+          f"run {m['cycle_s'][0]:.3f} s/cycle")
+    e2, e4, t = mtm_delta_vs_plain("cli scale MTM pass", runner, final, bucket, 7 % n,
+                                   n_time=50)
+    e2b, e4b = scale_run_vs_plain("cli scale --mtm-cycles run", runner, final, m["tiers"][0])
+    return dict(mini=total[0], obs=total[1], mtm=got, mini_err=max(e2, e2b),
+                obs_err=max(e4, e4b), mtm_shape=t, cycle_s=mm["cycle_s"][0],
+                accept_rate=mm["accept_rate"][0])
+
+
+def phase_cli_scale_multilevel(ds, root):
+    """10g. scale --level 2 --to-level 1: B2 + B4 at both levels."""
+    import math
+
+    from graal_tpu_torch.core.state import check_invariants
+
+    print("cli scale --level 2 --to-level 1: 1 cycle a level, f_max_min 64")
+    out = os.path.join(root, "o10g")
+    runner, final, per_level = cli(["scale", ds, "--size", "3", "--level", "2", "--to-level",
+                                    "1", "--cycles", "1", "--f-max-min", "64", "--fasta",
+                                    os.path.join(ds, "genome.fa"), "--out", out])
+    for lv in per_level:
+        la = lv["launches"]
+        print(f"  level {lv['level']}: final_loglik {lv['likelihood'][-1]:.3f}, n_contigs "
+              f"{lv['n_contigs'][-1]}, tiers {lv['tiers']}, launches {la}, "
+              f"{lv['cycle_s'][-1]:.3f} s/cycle")
+        check(la["ll_mini"] > 0 and la["obsgrid"] > 0,
+              f"level {lv['level']}: B2 / B4 did not launch")
+        check(math.isfinite(lv["likelihood"][-1]), f"level {lv['level']}: final_loglik")
+    check([lv["level"] for lv in per_level] == [2, 1], "levels run")
+    check(check_invariants(final, raise_on_error=False) == [], "final state invariants")
+    check_outputs(out, ["genome.fasta", "info_frags.txt", "assembly_stats.json"])
+    e2, e4 = scale_run_vs_plain("cli scale --to-level 1, level 1", runner, final,
+                                per_level[-1]["tiers"][0])
+    return dict(mini=sum(lv["launches"]["ll_mini"] for lv in per_level),
+                obs=sum(lv["launches"]["obsgrid"] for lv in per_level), mini_err=e2,
+                obs_err=e4, cycle_s=[lv["cycle_s"][-1] for lv in per_level])
+
+
+def mtm_exactness_steps(label, step, anchor, shuf, params, order):
+    """Single delta MTM / MH steps at the fragments ``order``, each followed
+    by a full sparse re-anchor: the carried likelihood within max(0.5,
+    1e-6 |L|) of it (check_exactness.py:55), and every committed genome
+    valid. Returns the stats."""
+    import torch
+    from graal_tpu_torch.core.state import check_invariants
+
+    gen = torch.Generator(device=shuf.pos.device).manual_seed(SEED)
+    cur, l_t = shuf, anchor(shuf, params)
+    worst, bad, invalid, accepted, max_dl = 0.0, 0, 0, 0, 0.0
+    for f_a in order:
+        new, l_new, acc, _ = step(cur, gen, params, l_t, int(f_a), 1.0)
+        l_re = anchor(new, params)
+        err = abs(l_new.item() - l_re.item())
+        bad += err > max(0.5, 1e-6 * abs(l_re.item()))
+        worst = max(worst, err)
+        accepted += bool(acc)
+        max_dl = max(max_dl, abs(l_new.item() - l_t.item()))
+        invalid += check_invariants(new, raise_on_error=False) != []
+        cur, l_t = new, l_re
+    stats = dict(n_fragments=shuf.n_frags, f_max=F_MAX, steps=len(order), accepted=accepted,
+                 max_abs_dl=max_dl, bad_steps=int(bad), invalid_states=invalid,
+                 worst_err=worst, L=l_t.item())
+    print(f"{label}: {json.dumps(stats)}")
+    check(bad == 0, f"{bad} of {len(order)} steps drifted beyond max(0.5, 1e-6 |L|)")
+    check(invalid == 0, f"{invalid} committed genomes violate the invariants")
+    return stats
+
+
+def phase_mtm_exactness(device, n_bins=EXACT_BINS, steps=MTM_EXACT_STEPS):
+    """10f. Delta MTM and MH steps at f_max 1,024 on the 20k exactness twin
+    and its 12-dup repeat twin (phase 6's set-ups), each re-anchored."""
+    import numpy as np
+    from graal_tpu_torch.core import mtm
+    from graal_tpu_torch.entry import scale_problem, scale_repeat_problem
+    from graal_tpu_torch.ops.mini_grid_cuda import MiniGridScorer
+    from graal_tpu_torch.ops.obsgrid_cuda import WindowObsGrid
+    from graal_tpu_torch.scale import ScaleRunner
+
+    rng = np.random.default_rng(SEED)
+    _, shuf, table, params, sobs = scale_problem(n_bins, device=device)
+    runner = ScaleRunner(table, sobs, params)
+    jump = runner.jump_table(MTM_DELTA, shuf.n_frags)
+    order = rng.permutation(extremities(shuf))[:steps]
+    setups = [("", shuf, table, sobs, runner, dict(band_w=runner.w), order)]
+    truth, shuf_r, table_r, params_r, sobs_r, id_d = scale_repeat_problem(
+        n_bins, EXACT_REPEAT_DUPS, device=device)
+    runner_r = ScaleRunner(table_r, sobs_r, params_r, id_d=id_d)
+    rep = truth.rep.cpu().numpy()
+    order_r = np.concatenate([rng.permutation(np.arange(n_bins, truth.n_frags))[:4],
+                              rng.permutation(np.nonzero(rep[:n_bins] == 1)[0])[:3],
+                              rng.permutation(extremities(shuf_r))[:3]])
+    setups.append(("repeat ", shuf_r, table_r, sobs_r, runner_r, dict(rep=truth.rep), order_r))
+    stats, launches = {}, [0, 0]
+    for kind, st, tb, so, rn, kw, od in setups:
+        jmp = jump if not kind else rn.jump_table(MTM_DELTA, st.n_frags)
+        for variant, make in (("mtm", mtm.make_delta_mtm_step), ("mh", mtm.make_delta_mh_step)):
+            grid, mini = WindowObsGrid(), MiniGridScorer()
+            step = make(tb, jmp, F_MAX, so, obs_grid=grid, mini_grid=mini, **kw)
+            key = f"{kind}{variant}"
+            stats[key] = mtm_exactness_steps(f"{kind}delta {variant} per-step exactness", step,
+                                             rn.anchor_fn(), st, rn.params, od)
+            check(mini.n_launches == 2 * len(od) and grid.n_launches == 2 * len(od),
+                  f"{key}: launches {mini.n_launches}, {grid.n_launches} != two a step")
+            launches[0] += mini.n_launches
+            launches[1] += grid.n_launches
+    check(max(s["max_abs_dl"] for s in stats.values()) > 0.5,
+          "no accepted delta MTM / MH step moved the likelihood beyond the gate's floor: "
+          "the exactness gate was not exercised")
+    return dict(stats=stats, mini=launches[0], obs=launches[1])
+
+
 def phase_cli(device):
-    """Phases 9-9f in a temporary directory that is removed afterwards."""
+    """Phases 9-9f and 10a-10e, 10g in a temporary directory that is removed
+    afterwards (10f, the exactness twins, runs after it)."""
     import tempfile
 
     with tempfile.TemporaryDirectory(prefix="graal_cli_") as root:
@@ -1607,7 +2099,15 @@ def phase_cli(device):
         delta = phase_cli_delta(ds, root)
         scale = phase_cli_scale(ds, root)
         rep = phase_cli_repeats(ds, root)
-    return dict(dense=dense, delta=delta, scale=scale, repeat=rep)
+        stages = phase_cli_stages(ds, root)
+        tempered = phase_cli_tempered(ds, root)
+        multilevel = phase_cli_multilevel(ds, root)
+        hic = phase_cli_hic(ds, root)
+        scale_mtm = phase_cli_scale_mtm(ds, root)
+        scale_ml = phase_cli_scale_multilevel(ds, root)
+    return dict(dense=dense, delta=delta, scale=scale, repeat=rep, stages=stages,
+                tempered=tempered, multilevel=multilevel, hic=hic, scale_mtm=scale_mtm,
+                scale_multilevel=scale_ml)
 
 
 def kernel_record(name, source, replaces, launches, record):
@@ -1618,41 +2118,57 @@ def kernel_record(name, source, replaces, launches, record):
 
 
 def kernels_line(dense, dense_launches, repeat, repeat_launches, delta, mini_launches,
-                 repeat_delta, obs_launches, cli_runs):
+                 repeat_delta, obs_launches, cli_runs, mtm_exact):
     """The {"kernels": [...]} line from the phases' records; the B2 / B4
     launches are (100k path, 20k repeat path); ``cli_runs`` is
     :func:`phase_cli`'s record, whose counts and errors against the plain
     versions go under each kernel's "by_path" (cli_run, cli_run_delta,
-    cli_scale, cli_run_repeats)."""
+    cli_scale, cli_run_repeats, cli_run_mtm, cli_run_tempered,
+    cli_run_multilevel, cli_run_hic, cli_scale_mtm, cli_scale_multilevel),
+    with ``mtm_exact`` (phase 10f) as delta_mtm_exactness."""
     c = cli_runs
+
+    def entry(rec, key="launches", err="max_abs_err"):
+        return dict(launches=rec[key], max_abs_err=rec[err])
 
     def by_path(launches, record, key):
         return {"delta_100k": dict(launches=launches[0]),
                 "repeat_delta_20k": dict(launches=launches[1], **record),
-                "cli_run_delta": dict(launches=c["delta"][key],
-                                      max_abs_err=c["delta"][f"{key}_err"]),
-                "cli_scale": dict(launches=c["scale"][key],
-                                  max_abs_err=c["scale"][f"{key}_err"])}
+                "cli_run_delta": entry(c["delta"], key, f"{key}_err"),
+                "cli_scale": entry(c["scale"], key, f"{key}_err"),
+                "cli_scale_mtm": dict(entry(c["scale_mtm"], key, f"{key}_err"),
+                                      mtm_launches=c["scale_mtm"]["mtm"][key == "obs"]),
+                "cli_scale_multilevel": entry(c["scale_multilevel"], key, f"{key}_err"),
+                "delta_mtm_exactness": dict(
+                    launches=mtm_exact[key],
+                    bad_steps=sum(s["bad_steps"] for s in mtm_exact["stats"].values()))}
 
+    mini = dict(delta["ll_mini"], by_path=by_path(mini_launches, repeat_delta["ll_mini"],
+                                                  "mini"))
+    shape = c["scale_mtm"]["mtm_shape"]
+    mini["by_shape"] = {f"B2_mtm_R{shape['R']}_M{shape['M']}": shape}
     return {"kernels": [
         kernel_record("ll_dense", "ll_dense.cu", "graal_tpu/ops/likelihood_pallas.py:65",
-                      dense_launches, dict(dense, by_path={
+                      dense_launches, dict(dense, by_shape=dict(
+                          dense["by_shape"], B1_B91_mtm=c["stages"]["B91"],
+                          B1_B260_tempered=c["tempered"]["B260"],
+                          B1_K2901_B65=c["multilevel"]["K2901"]), by_path={
                           "dense_main": dict(launches=dense_launches),
-                          "cli_run": dict(launches=c["dense"]["launches"],
-                                          max_abs_err=c["dense"]["max_abs_err"]),
-                          "cli_run_delta": dict(launches=c["delta"]["dense"],
-                                                max_abs_err=c["delta"]["dense_err"])})),
+                          "cli_run": entry(c["dense"]),
+                          "cli_run_delta": entry(c["delta"], "dense", "dense_err"),
+                          "cli_run_mtm": entry(c["stages"]),
+                          "cli_run_tempered": entry(c["tempered"]),
+                          "cli_run_multilevel": entry(c["multilevel"]),
+                          "cli_run_hic": dict(launches=c["hic"]["launches"])})),
         kernel_record("ll_mini", "ll_mini.cu", "graal_tpu/ops/likelihood_pallas.py:340",
-                      sum(mini_launches), dict(delta["ll_mini"], by_path=by_path(
-                          mini_launches, repeat_delta["ll_mini"], "mini"))),
+                      sum(mini_launches), mini),
         kernel_record("obsgrid", "obsgrid.cu", "graal_tpu/ops/obsgrid_pallas.py:52",
                       sum(obs_launches), dict(delta["obsgrid"], by_path=by_path(
                           obs_launches, repeat_delta["obsgrid"], "obs"))),
         kernel_record("ll_repeat", "ll_repeat.cu", "graal_tpu/ops/likelihood_pallas.py:514",
                       repeat_launches, dict(repeat, by_path={
                           "dense_repeat_main": dict(launches=repeat_launches),
-                          "cli_run_repeats": dict(launches=c["repeat"]["launches"],
-                                                  max_abs_err=c["repeat"]["max_abs_err"])})),
+                          "cli_run_repeats": entry(c["repeat"])})),
     ]}
 
 
@@ -1678,10 +2194,11 @@ def main():
     phase_runner(rsc, n_cycles=1)
     del rsc
     cli_runs = phase_cli(device)
+    mtm_exact = phase_mtm_exactness(device)
     line = gpu_line()
     kernels = kernels_line(dense, dense_launches, repeat, repeat_launches, delta_timing,
                            (mini_launches, r_mini), repeat_delta_timing, (obs_launches, r_obs),
-                           cli_runs)
+                           cli_runs, mtm_exact)
     print(line)
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {

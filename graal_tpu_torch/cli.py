@@ -48,7 +48,9 @@ def _add_run_opts(p):
     p.add_argument("--level", type=int, default=None,
                    help="sampling level (default: size-1)")
     p.add_argument("--to-level", type=int, default=None,
-                   help="multilevel refinement (not ported: ROADMAP A11)")
+                   help="multilevel refinement: assemble at --level, then refine "
+                        "level by level down to this level (every output of the "
+                        "JAX command but its closing layout plot: ROADMAP A13)")
     p.add_argument("--cycles", type=int, default=10)
     p.add_argument("--neighbours", type=int, default=4)
     p.add_argument("--no-sample-param", action="store_true")
@@ -73,11 +75,15 @@ def _add_run_opts(p):
                    help="resolve unorientable-fragment orientations by "
                         "neighbourhood consensus before the FASTA export")
     p.add_argument("--model", default="rippe", choices=["rippe", "hic"],
-                   help="contact model: Rippe polymer (the HiC broken power "
-                        "law is not ported: ROADMAP A11)")
+                   help="contact model: Rippe polymer (default) or the "
+                        "3-segment broken power law")
     p.add_argument("--sampler", default="em",
-                   help="sampler stages; 'em' (tempered, mtm and mh are not "
-                        "ported: ROADMAP A11)")
+                   help="comma-separated stages: em, tempered, mtm, mh "
+                        "(e.g. 'em,mtm' = EM then MTM refinement)")
+    p.add_argument("--chains", type=int, default=4,
+                   help="chain count of the 'tempered' stage (batched on one device)")
+    p.add_argument("--t-max", type=float, default=4.0,
+                   help="hottest ladder temperature of 'tempered'")
     p.add_argument("--out", default="graal_out")
     p.add_argument("--device", default="cuda",
                    help="torch device of the run (default cuda; cpu on request)")
@@ -89,18 +95,14 @@ def _add_run_opts(p):
                         "(delta, the chr1-scale engine), or auto by size")
 
 
+SAMPLER_STAGES = ("em", "tempered", "mtm", "mh")
+
+
 def _refuse_unported_run_opts(args):
-    if args.model != "rippe":
-        refuse("--model hic (the broken power-law model)", "A11")
-    stages = args.sampler.split(",")
-    for stage in stages:
-        if stage in ("tempered", "mtm", "mh"):
-            refuse(f"the {stage!r} sampler stage", "A11")
-        if stage != "em":
+    for stage in args.sampler.split(","):
+        if stage not in SAMPLER_STAGES:
             raise SystemExit(f"unknown sampler stage: {stage!r} (expected em, "
                              "tempered, mtm or mh)")
-    if args.to_level is not None:
-        refuse("--to-level (multilevel refinement)", "A11")
     for flag, on in (("--profile", args.profile), ("--snapshots", args.snapshots),
                      ("--snapshot-every", args.snapshot_every), ("--watch", args.watch)):
         if on:
@@ -129,16 +131,23 @@ def _config_from_args(args):
     cfg.sampler.tf = args.tf
     cfg.sampler.sub_sample_factor = args.sub_sample
     cfg.sampler.scoring = args.scoring
+    cfg.model.use_rippe = args.model != "hic"
     return cfg
+
+
+def _checked_config(args):
+    """The run configuration of a run / replay / probe command, after the
+    checks."""
+    _refuse_unported_run_opts(args)
+    _check_device(args)
+    return _config_from_args(args)
 
 
 def _runner(args):
     """The Runner of a run / replay / probe command, after the checks."""
     from graal_tpu_torch.pipeline import Runner
 
-    _refuse_unported_run_opts(args)
-    _check_device(args)
-    return Runner(_config_from_args(args))
+    return Runner(_checked_config(args))
 
 
 def cmd_pyramid(args):
@@ -153,15 +162,50 @@ def cmd_pyramid(args):
 
 
 def cmd_run(args):
-    """Full assembly run; returns (runner, assembly)."""
-    runner = _runner(args)
-    cfg = runner.cfg
+    """Full assembly run: the ``--sampler`` stages in order, or with
+    ``--to-level`` the multilevel refinement. Returns (runner, assembly);
+    ``runner.stages`` lists each stage's name, assembly, carried
+    likelihood, wall seconds and the scorer's launches so far."""
+    import time
+
+    import torch
+
+    cfg = _checked_config(args)
+    if args.to_level is not None and args.to_level < cfg.sampler.level:
+        from graal_tpu_torch.multilevel import run_multilevel
+
+        runner, assembly = run_multilevel(cfg, cfg.sampler.level, args.to_level,
+                                          fasta=args.fasta)
+        runner.save_behaviour(assembly)
+        print(f"outputs in {cfg.output_dir}")
+        return runner, assembly
+    from graal_tpu_torch.pipeline import Runner
+
+    runner = Runner(cfg)
     print(f"level {runner.level.level}: {runner.level.n_frags} bins, "
           f"{runner.state.n_frags} fragments ({len(runner.duplications)} repeated) "
           f"on {runner.device}")
     print("fitted params:", json.dumps({k: float(v) for k, v in zip(
         runner.params._fields, runner.params)}))
-    assembly = runner.run_em(resume=args.resume, scoring=cfg.sampler.scoring)
+    assembly = None
+    merged = {}
+    runner.stages = []
+    for stage in args.sampler.split(","):
+        t0 = time.perf_counter()
+        if stage == "em":
+            assembly = runner.run_em(resume=args.resume, scoring=cfg.sampler.scoring)
+        elif stage == "tempered":
+            assembly = runner.run_tempered_em(n_chains=args.chains, t_max=args.t_max)
+        else:
+            assembly = runner.run_mtm(variant=stage, assembly=assembly)
+        if runner.device.type == "cuda":
+            torch.cuda.synchronize(runner.device)
+        runner.stages.append(dict(name=stage, assembly=assembly, l_t=runner.l_t,
+                                  seconds=time.perf_counter() - t0,
+                                  launches=getattr(runner.scorer, "n_launches", None)))
+        for k, v in assembly.metrics.items():
+            merged.setdefault(k, []).extend(v)
+    assembly.metrics = merged
     runner.save_behaviour(assembly)
     if args.fasta:
         if args.polish:
@@ -209,17 +253,17 @@ def cmd_scale(args):
     from graal_tpu_torch.core import mcmc
     from graal_tpu_torch.io import fasta as fasta_io
 
-    if args.to_level is not None:
-        refuse("--to-level (multilevel scale assembly)", "A11")
     if args.chains > 1:
         refuse("--chains > 1 (chains over the device mesh)", "A12")
-    if args.mtm_cycles > 0:
-        refuse("--mtm-cycles (MTM refinement)", "A11")
+    if args.t_max is not None:
+        refuse("--t-max (the chains' ladder over the device mesh)", "A12")
     for flag, on in (("--profile", args.profile), ("--snapshot-every", args.snapshot_every),
                      ("--watch", args.watch)):
         if on:
             refuse(flag, "A13")
     dev = _check_device(args)
+    if args.to_level is not None:
+        return _scale_multilevel(args, dev)
     runner, state0, lev, _ = scale_mod.from_dataset(
         args.dataset, args.size, args.factor, level=args.level,
         max_fit_bins=args.max_fit_bins, allow_repeats=args.allow_repeats,
@@ -234,6 +278,13 @@ def cmd_scale(args):
         checkpoint_path=os.path.join(args.out, "checkpoint.npz"),
         checkpoint_every=args.checkpoint_every, resume=args.resume,
         order_mode=args.order)
+    if args.mtm_cycles > 0:
+        final, _, m_mtm = runner.run_mtm(final, n_cycles=args.mtm_cycles,
+                                         f_max_min=args.f_max_min, f_t=args.t0,
+                                         seed=args.seed + 7)
+        for k in ("likelihood", "n_contigs", "f_max"):
+            metrics[k].extend(m_mtm[k])
+        metrics["mtm"] = m_mtm
     for name, key in (("list_likelihood", "likelihood"), ("list_n_contigs", "n_contigs"),
                       ("list_dist_init_genome", "dist_init_genome"),
                       ("list_overflow", "overflow"), ("list_f_max", "f_max"),
@@ -256,6 +307,35 @@ def cmd_scale(args):
     }))
     print(f"outputs in {args.out}")
     return runner, final, metrics
+
+
+def _scale_multilevel(args, dev):
+    """``scale --to-level``: coarse-to-fine sparse assembly from --level
+    down to --to-level. Returns (runner of the last level, final state,
+    per-level metrics)."""
+    from graal_tpu_torch import scale as scale_mod
+    from graal_tpu_torch.io import fasta as fasta_io
+
+    start = args.level if args.level is not None else args.size - 1
+    final, runner, lev, per_level = scale_mod.run_multilevel(
+        args.dataset, args.size, start, args.to_level, n_cycles=args.cycles,
+        factor=args.factor, delta=args.neighbours, f_max_min=args.f_max_min, f_t=args.t0,
+        sample_param=not args.no_sample_param, seed=args.seed,
+        max_fit_bins=args.max_fit_bins, device=dev)
+    os.makedirs(args.out, exist_ok=True)
+    if args.fasta:
+        f = lev.frags
+        contigs = fasta_io.export_assembly(
+            final, f.chrom, f.start_pos, f.end_pos, fasta_io.load_fasta(args.fasta),
+            os.path.join(args.out, "genome.fasta"), os.path.join(args.out, "info_frags.txt"))
+        print(f"wrote {len(contigs)} contigs")
+    print(json.dumps({"levels": [
+        {"level": m["level"], "final_loglik": m["likelihood"][-1],
+         "n_contigs": m["n_contigs"][-1],
+         "dist_init_genome": (m["dist_init_genome"] or [None])[-1]}
+        for m in per_level]}))
+    print(f"outputs in {args.out}")
+    return runner, final, per_level
 
 
 def cmd_replay(args):
@@ -323,7 +403,8 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--factor", type=int, default=3)
     p.add_argument("--level", type=int, default=None)
     p.add_argument("--to-level", type=int, default=None,
-                   help="multilevel refinement (not ported: ROADMAP A11)")
+                   help="multilevel refinement: assemble at --level, then refine "
+                        "level by level down to this level")
     p.add_argument("--cycles", type=int, default=10)
     p.add_argument("--neighbours", type=int, default=4)
     p.add_argument("--f-max-min", type=int, default=256,
@@ -337,8 +418,11 @@ def parser() -> argparse.ArgumentParser:
                    help="replicate two upstream pyramid-build defects (parity runs only)")
     p.add_argument("--chains", type=int, default=1,
                    help="parallel-tempered chains (> 1 not ported: ROADMAP A12)")
+    p.add_argument("--t-max", type=float, default=None,
+                   help="hottest ladder temperature of the chains (not ported: "
+                        "ROADMAP A12)")
     p.add_argument("--mtm-cycles", type=int, default=0,
-                   help="MTM refinement cycles (not ported: ROADMAP A11)")
+                   help="delta-scored MTM refinement cycles after the assembly")
     p.add_argument("--no-sample-param", action="store_true")
     p.add_argument("--no-scramble", action="store_true")
     p.add_argument("--steps-per-cycle", type=int, default=None,

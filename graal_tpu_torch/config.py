@@ -5,8 +5,8 @@ defaults, except that the JAX platform override is replaced by the torch
 ``device`` the run lives on, which defaults to the card. A run on the CPU
 must ask for it (``device = "cpu"``): :func:`resolve_device` refuses a CUDA
 device that does not exist instead of running on the CPU. The knobs of
-modules not ported yet (chains, row shards, snapshots, the live view) are
-not fields here, so a TOML file that sets them is refused.
+modules not ported yet (row shards, snapshots, the live view) are not
+fields here, so a TOML file that sets them is refused.
 """
 
 from __future__ import annotations
@@ -29,7 +29,7 @@ class PyramidConfig:
 
 @dataclasses.dataclass
 class ModelConfig:
-    use_rippe: bool = True         # False = the broken power law (not ported)
+    use_rippe: bool = True         # False = the 3-segment broken power law
     kuhn: float = 1.0              # fit initial values
     lm: float = 9.6
     slope: float = -1.5
@@ -64,6 +64,7 @@ class RunConfig:
     pyramid: PyramidConfig = dataclasses.field(default_factory=PyramidConfig)
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
     sampler: SamplerConfig = dataclasses.field(default_factory=SamplerConfig)
+    n_chains: int = 1              # chains of the tempered stage (one device)
     device: str = "cuda"           # torch device of the run; "cpu" on request
 
     @staticmethod

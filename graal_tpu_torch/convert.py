@@ -1,7 +1,8 @@
 """Carry objects between the JAX package and this one, through numpy.
 
 The JAX package's NamedTuples (``GenomeState``, ``SubFragTable``,
-``RippeParams``, ``NeighbourTable``, ``SparseObs``) are passed here as numpy-convertible
+``RippeParams``, ``HiCParams``, ``NeighbourTable``, ``JumpTable``,
+``SparseObs``) are passed here as numpy-convertible
 fields (``obj._asdict()`` of the JAX object works, since ``np.asarray``
 reads a JAX array); the result is the port's object on ``device``.
 :func:`to_numpy` goes the other way. Nothing here imports JAX.
@@ -14,6 +15,8 @@ import torch
 
 from graal_tpu_torch.core.mcmc import NeighbourTable
 from graal_tpu_torch.core.model import RippeParams
+from graal_tpu_torch.core.model_hic import HiCParams
+from graal_tpu_torch.core.mtm import JumpTable
 from graal_tpu_torch.core.sparse import SparseObs
 from graal_tpu_torch.core.state import GenomeState
 from graal_tpu_torch.core.subfrags import SubFragTable
@@ -54,6 +57,21 @@ def params_from_numpy(d, device=None) -> RippeParams:
     d = _fields(d)
     return RippeParams(*[torch.tensor(np.float32(np.asarray(d[f])), device=device)
                          for f in RippeParams._fields])
+
+
+def hic_params_from_numpy(d, device=None) -> HiCParams:
+    """HiCParams of 0-d f32 tensors from a mapping of its 8 fields."""
+    d = _fields(d)
+    return HiCParams(*[torch.tensor(np.float32(np.asarray(d[f])), device=device)
+                       for f in HiCParams._fields])
+
+
+def jump_table_from_numpy(d, device=None) -> JumpTable:
+    """JumpTable from a mapping of its fields (``frags``, ``delta``)."""
+    d = _fields(d)
+    return JumpTable(frags=torch.as_tensor(np.asarray(d["frags"]).astype(np.int32),
+                                           device=device),
+                     delta=int(d["delta"]))
 
 
 def neighbour_table_from_numpy(d, device=None) -> NeighbourTable:

@@ -1,6 +1,8 @@
 """Build the 13 candidate genomes of (fragment, neighbour) proposals.
 
-PyTorch counterpart of ``graal_tpu.core.candidates`` (EM catalogue):
+PyTorch counterpart of ``graal_tpu.core.candidates``: the EM catalogue
+(:func:`build_candidates`) and the Metropolis-Hastings / MTM one
+(:func:`mh_candidates`). The EM catalogue:
 
 ====  =======================================  =============================
 mode  operation                                built from
@@ -39,20 +41,9 @@ MODIFICATION_STR = [
 ]
 
 
-def build_candidates(state: GenomeState, f_a, f_b: torch.Tensor,
-                     max_id=None) -> GenomeState:
-    """Candidate genomes for moving fragment ``f_a`` relative to each of the
-    neighbours ``f_b`` (shape ``(m,)``).
-
-    ``state`` is one genome (fields of shape ``(n,)``) shared by the m
-    neighbours, or one genome per neighbour (``(m, n)``, the delta engine's
-    mini-states); ``f_a`` a Python int, a 0-d tensor or one index per
-    neighbour (``(m,)``). Returns a state whose fields have shape
-    ``(m, 13, n)``. ``max_id``: the maximum contig id in use (defaults to
-    the state's own maximum; pass the whole genome's maximum when ``state``
-    holds mini-states, so that fresh contig ids never collide with contigs
-    outside the view).
-    """
+def _batch(state: GenomeState, f_a, f_b: torch.Tensor, max_id):
+    """The m-genome batch of a catalogue call: (batch (m, n), f_a (m,),
+    f_b (m,), max_id (m,)), all int64 indices."""
     m = f_b.shape[0]
     n = state.n_frags
     dev = state.pos.device
@@ -66,6 +57,28 @@ def build_candidates(state: GenomeState, f_a, f_b: torch.Tensor,
     if max_id is None:
         max_id = state.id_c.amax()
     max_id = torch.as_tensor(max_id, dtype=state.id_c.dtype, device=dev).expand(m)
+    return batch, fa, f_b, max_id
+
+
+def _stack(cands) -> GenomeState:
+    return GenomeState(*[torch.stack(fields, dim=1) for fields in zip(*cands)])
+
+
+def build_candidates(state: GenomeState, f_a, f_b: torch.Tensor,
+                     max_id=None) -> GenomeState:
+    """Candidate genomes for moving fragment ``f_a`` relative to each of the
+    neighbours ``f_b`` (shape ``(m,)``).
+
+    ``state`` is one genome (fields of shape ``(n,)``) shared by the m
+    neighbours, or one genome per neighbour (``(m, n)``, the delta engine's
+    mini-states); ``f_a`` a Python int, a 0-d tensor or one index per
+    neighbour (``(m,)``). Returns a state whose fields have shape
+    ``(m, 13, n)``. ``max_id``: the maximum contig id in use (defaults to
+    the state's own maximum; pass the whole genome's maximum when ``state``
+    holds mini-states, so that fresh contig ids never collide with contigs
+    outside the view), a scalar or one value per neighbour.
+    """
+    batch, fa, f_b, max_id = _batch(state, f_a, f_b, max_id)
     popped = ops.pop_out(batch, fa, max_id)
     m2 = torch.maximum(popped.id_c.amax(-1), max_id)
 
@@ -89,5 +102,58 @@ def build_candidates(state: GenomeState, f_a, f_b: torch.Tensor,
             t2 = ops.split(t1, f_b, up_b, m1)
             mt = torch.maximum(t2.id_c.amax(-1), m1)
             cands.append(ops.paste(t2, fa, f_b, mt))
-    return GenomeState(*[torch.stack(fields, dim=1)
-                         for fields in zip(*cands)])
+    return _stack(cands)
+
+
+def mh_candidates(state: GenomeState, f_a, f_b: torch.Tensor,
+                  max_id=None) -> GenomeState:
+    """The 13-candidate catalogue of the Metropolis-Hastings / MTM samplers,
+    with the calling convention of :func:`build_candidates` (fields of
+    shape ``(m, 13, n)``).
+
+    Modes: 0 eject, 1 flip, 2/3 insert right of B (pop_in_3 +/-), 4/5
+    insert left of B (pop_in_4 +/-), 6/7 split at A (down / upstream), 8
+    paste A-B (only when both are linear-contig extremities), 9-12
+    translocations (only when B is the matching extremity of a linear
+    contig before the cuts).
+
+    ``max_id`` is used as the JAX package uses it: by eject, the
+    insertions, the splits at A and the paste; the translocations take
+    their fresh ids from the maximum of the split state itself, without
+    ``max_id``, as the JAX package does.
+    """
+    batch, fa, f_b, max_id = _batch(state, f_a, f_b, max_id)
+    popped = ops.pop_out(batch, fa, max_id)
+    m2 = torch.maximum(popped.id_c.amax(-1), max_id)
+
+    cands = [
+        popped,                                           # 0: eject
+        ops.flip(batch, fa),                              # 1: flip
+        ops.pop_in_3(popped, fa, f_b, 1, m2),             # 2
+        ops.pop_in_3(popped, fa, f_b, -1, m2),            # 3
+        ops.pop_in_4(popped, fa, f_b, 1, m2),             # 4
+        ops.pop_in_4(popped, fa, f_b, -1, m2),            # 5
+        ops.split(batch, fa, 0, max_id),                  # 6
+        ops.split(batch, fa, 1, max_id),                  # 7
+    ]
+    pos_b, lc_b = ops._at(batch.pos, f_b), ops._at(batch.l_cont, f_b)
+    lin_b = ops._at(batch.circ, f_b) == 0
+
+    def is_extremity(f):
+        pos = ops._at(batch.pos, f)
+        return ((pos == 0) | (pos == ops._at(batch.l_cont, f) - 1)) \
+            & (ops._at(batch.circ, f) == 0)
+
+    ok = is_extremity(fa) & is_extremity(f_b)
+    cands.append(ops._select(ok, ops.paste(batch, fa, f_b, max_id), batch))   # 8
+    for up_a in (0, 1):
+        t1 = ops.split(batch, fa, up_a, max_id)
+        m1 = t1.id_c.amax(-1)
+        for up_b in (0, 1):
+            # fB must be the matching extremity of a linear contig before
+            # the split (next == -1 for a cut after it, prev == -1 before)
+            valid = lin_b & ((pos_b == lc_b - 1) if up_b == 0 else (pos_b == 0))
+            t2 = ops.split(t1, f_b, up_b, m1)
+            mt = t2.id_c.amax(-1)
+            cands.append(ops._select(valid, ops.paste(t2, fa, f_b, mt), batch))   # 9-12
+    return _stack(cands)

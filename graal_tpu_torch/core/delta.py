@@ -222,6 +222,11 @@ class DeltaScorer:
     ``mini_grid``: the kernel wrappers to launch through (new ones by
     default), shared by a caller that counts launches.
 
+    ``catalogue``: the 13-candidate builder applied to the mini-states,
+    with :func:`core.candidates.build_candidates`'s calling convention
+    (the EM catalogue, the default); the MTM / MH samplers pass
+    :func:`core.candidates.mh_candidates`.
+
     ``data_keys``: an optional (n_subs,) map from copy rows to data subs.
     When set, ``sobs`` lies on the data grid and the CSR windows are fetched
     and matched by ``data_keys[sub]`` instead of the sub row itself: the
@@ -235,7 +240,8 @@ class DeltaScorer:
     def __init__(self, table: SubFragTable, obs, f_max: int, sobs: SparseObs | None = None,
                  band_w: int | None = None, obs_grid: WindowObsGrid | None = None,
                  mini_grid: MiniGridScorer | None = None, data_keys=None,
-                 _off_chunk: int | None = None):
+                 catalogue=None, _off_chunk: int | None = None):
+        self.catalogue = build_candidates if catalogue is None else catalogue
         self.mt = build_mini_table(table, allow_repeats=data_keys is not None)
         self.f_max = min(f_max, self.mt.n_frags)    # top-k cannot exceed the genome
         self.s_max = self.mt.s_max
@@ -316,7 +322,8 @@ class DeltaScorer:
     def inputs(self, state: GenomeState, f_a, ids, rows, valid, params: RippeParams,
                max_id):
         """The candidates of the m neighbours ``ids`` of ``f_a`` on their
-        member rows (:func:`extract_rows_union`), and what scoring them
+        member rows (:func:`extract_rows_union` or
+        :func:`extract_rows_each`), and what scoring them
         takes: (candidates (m, 13, f_max), geometry of base + candidates
         (m, 14, R), observed grid (m, R, R), accu of the sub rows (m, R),
         kernel parameter vector)."""
@@ -324,7 +331,7 @@ class DeltaScorer:
         f_a = torch.as_tensor(f_a, device=rows.device)
         lf_a = (rows == f_a).int().argmax(-1)
         lf_b = (rows == ids[:, None]).int().argmax(-1)
-        cands = build_candidates(mini, lf_a, lf_b, max_id=max_id)  # (m, 13, f_max)
+        cands = self.catalogue(mini, lf_a, lf_b, max_id=max_id)  # (m, 13, f_max)
 
         subs, sub_valid = self.sub_rows(rows, valid)
         subs_c = subs.clamp(0, self.k_subs - 1)
@@ -428,12 +435,14 @@ class DeltaScorer:
 
 def make_delta_scorer(table: SubFragTable, obs, f_max: int, sobs=None,
                       band_w: int | None = None, obs_grid=None, mini_grid=None,
-                      data_keys=None, _off_chunk: int | None = None) -> DeltaScorer:
+                      data_keys=None, catalogue=None,
+                      _off_chunk: int | None = None) -> DeltaScorer:
     """Build the per-neighbour delta scorer (see :class:`DeltaScorer`).
     ``band_w`` is honoured literally; production entries apply
     :func:`effective_band_w` first."""
     return DeltaScorer(table, obs, f_max, sobs=sobs, band_w=band_w, obs_grid=obs_grid,
-                       mini_grid=mini_grid, data_keys=data_keys, _off_chunk=_off_chunk)
+                       mini_grid=mini_grid, data_keys=data_keys, catalogue=catalogue,
+                       _off_chunk=_off_chunk)
 
 
 def make_delta_em_step(table: SubFragTable, obs, nb, delta: int, f_max: int,

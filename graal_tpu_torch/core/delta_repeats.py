@@ -145,17 +145,19 @@ class RepeatDeltaScorer:
     ``sobs``: the observed map on the data grid. ``rep``: the genome's
     repeat flags, against which the exactness contract is checked.
     ``obs_grid`` / ``mini_grid``: the kernel wrappers of the single-copy
-    majority (see :class:`DeltaScorer`)."""
+    majority (see :class:`DeltaScorer`). ``catalogue``: the 13-candidate
+    builder, as :class:`DeltaScorer` takes it (EM by default)."""
 
     def __init__(self, table: SubFragTable, f_max: int, sobs: SparseObs, rep,
-                 obs_grid=None, mini_grid=None):
+                 obs_grid=None, mini_grid=None, catalogue=None):
         if rep is None:
             raise ValueError("the repeat delta engine needs the genome's rep flags "
                              "to check its exactness contract")
         dup, sobs_single, mixed, dd = split_observed_for_repeats(table, sobs)
         check_exactness_contract(table, rep, dup)
         self.plain = DeltaScorer(table, None, f_max, sobs=sobs_single, obs_grid=obs_grid,
-                                 mini_grid=mini_grid, data_keys=table.data_id)
+                                 mini_grid=mini_grid, data_keys=table.data_id,
+                                 catalogue=catalogue)
         self.f_max = self.plain.f_max
         self.mt = self.plain.mt
         self.r_max = self.plain.r_max
@@ -366,7 +368,8 @@ class RepeatDeltaScorer:
 
 
 def make_repeat_delta_scorer_v2(table: SubFragTable, f_max: int, sobs: SparseObs, rep,
-                                obs_grid=None, mini_grid=None) -> RepeatDeltaScorer:
+                                obs_grid=None, mini_grid=None,
+                                catalogue=None) -> RepeatDeltaScorer:
     """Build the repeat-aware delta scorer (see :class:`RepeatDeltaScorer`)."""
     return RepeatDeltaScorer(table, f_max, sobs, rep, obs_grid=obs_grid,
-                             mini_grid=mini_grid)
+                             mini_grid=mini_grid, catalogue=catalogue)

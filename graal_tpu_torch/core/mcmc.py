@@ -183,35 +183,44 @@ def sample_neighbours(u, f_a, state: GenomeState, nb: NeighbourTable,
     Generator to draw them), expand to repeat copies, add the other copies
     of fA's own bin, mask blacklisted / self entries. Returns (ids, valid)
     of static length delta * max_copies + max_copies, sorted by id with
-    invalid entries last."""
+    invalid entries last.
+
+    With a leading chains axis (``u`` (C, n_top), ``f_a`` (C,), ``state``
+    fields (C, n)) every chain is sampled at once, row c as chain c alone."""
     if isinstance(u, torch.Generator):
         u = torch.rand(nb.pk.shape[1], generator=u, device=u.device)
-    f_a = torch.as_tensor(f_a, device=state.pos.device)
-    bin_a = _take(state.id_d, f_a)
-    pk_row = _take(nb.pk, bin_a)
-    xk_row = _take(nb.xk, bin_a)
+    f_a = torch.as_tensor(f_a, device=state.pos.device).long()
+    id_d, rep = state.id_d, state.rep
+    single = f_a.dim() == 0
+    if single:
+        u, f_a, id_d, rep = u[None], f_a[None], id_d[None], rep[None]
+    col = f_a[:, None]
+    bin_a = id_d.gather(1, col)[:, 0].long()
+    pk_row = nb.pk[bin_a]
+    xk_row = nb.xk[bin_a]
     g = torch.where(pk_row > 0, torch.log(pk_row), -math.inf)
     g = g - torch.log(-torch.log(u + 1e-20) + 1e-20)
     # top-k by a stable sort: ties (the -inf entries) keep the lower index
-    top = torch.sort(-g, stable=True).indices[:delta]
-    bins = xk_row[top].long()
-    bin_valid = pk_row[top] > 0
+    top = torch.sort(-g, dim=-1, stable=True).indices[:, :delta]
+    bins = xk_row.gather(1, top).long()
+    bin_valid = pk_row.gather(1, top) > 0
 
-    # repeat expansion: (delta, max_copies) copy ids
+    # repeat expansion: (C, delta, max_copies) copy ids
     exp = nb.dispatcher[bins]
-    exp_valid = (exp >= 0) & bin_valid[:, None]
+    exp_valid = (exp >= 0) & bin_valid[..., None]
     # other copies of fA's own bin
-    own = _take(nb.dispatcher, bin_a)
-    own_valid = (own >= 0) & (own != f_a) & (_take(state.rep, f_a) == 1)
+    own = nb.dispatcher[bin_a]
+    own_valid = (own >= 0) & (own != col) & (rep.gather(1, col) == 1)
 
-    ids = torch.cat([own, exp.reshape(-1)])
-    valid = torch.cat([own_valid, exp_valid.reshape(-1)])
-    valid = valid & ~nb.blacklist[ids.clamp_min(0).long()] & (ids != f_a)
+    c = f_a.shape[0]
+    ids = torch.cat([own, exp.reshape(c, -1)], 1)
+    valid = torch.cat([own_valid, exp_valid.reshape(c, -1)], 1)
+    valid = valid & ~nb.blacklist[ids.clamp_min(0).long()] & (ids != col)
     ids = ids.clamp_min(0)
     # deterministic order: ids ascending, invalid entries last
-    sort_key = torch.where(valid, ids, 2 ** 30)
-    order = torch.sort(sort_key, stable=True).indices
-    return ids[order], valid[order]
+    order = torch.sort(torch.where(valid, ids, 2 ** 30), dim=-1, stable=True).indices
+    ids, valid = ids.gather(1, order), valid.gather(1, order)
+    return (ids[0], valid[0]) if single else (ids, valid)
 
 
 def select_score_slot(gumbel, score, valid_nb, f_t, slot_valid=None,
@@ -220,38 +229,53 @@ def select_score_slot(gumbel, score, valid_nb, f_t, slot_valid=None,
     eject/flip slots beyond the first neighbour, shift by the minimum,
     clamp to a 30-window below the max, normalise, raise to 1/F_t, draw by
     argmax(log w + Gumbel); argmax of the scores when <= 1 candidate
-    survives. ``gumbel``: (m * n_ops,) noise, or a Generator to draw it."""
-    m, n_ops = score.shape
+    survives. ``score``: (m, n_ops); ``gumbel``: (m * n_ops,) noise, or a
+    Generator to draw it. With a leading chains axis (``score`` (C, m,
+    n_ops), ``valid_nb`` (C, m), ``gumbel`` (C, m * n_ops), ``f_t`` (C,))
+    every chain selects at once, as it would alone."""
+    m, n_ops = score.shape[-2:]
+    lead = score.shape[:-2]
     dev = score.device
     if isinstance(gumbel, torch.Generator):
-        u = torch.rand(m * n_ops, generator=gumbel, device=dev)
+        u = torch.rand(lead + (m * n_ops,), generator=gumbel, device=dev)
         gumbel = -torch.log(-torch.log(u.clamp_min(torch.finfo(torch.float32).tiny)))
     op_idx = torch.arange(n_ops, device=dev)[None, :]
     nb_idx = torch.arange(m, device=dev)[:, None]
     dup = (op_idx < 2) & (nb_idx > 0)
-    valid_op = valid_nb[:, None] | ((nb_idx == 0) & (op_idx < 2))
+    valid_op = valid_nb[..., None] | ((nb_idx == 0) & (op_idx < 2))
     if slot_valid is not None:
         valid_op = valid_op & slot_valid
-    flat = score.reshape(-1)
-    valid_flat = (valid_op & ~dup).reshape(-1)
+    flat = score.reshape(lead + (-1,))
+    valid_flat = (valid_op & ~dup).reshape(lead + (-1,))
 
-    score_min = torch.where(valid_flat, flat, math.inf).amin()
+    score_min = torch.where(valid_flat, flat, math.inf).amin(-1, keepdim=True)
     filtered = torch.where(valid_flat, flat - score_min, 0.0)
-    max_score = filtered.amax()
+    max_score = filtered.amax(-1, keepdim=True)
     filtered = torch.clamp_min(filtered - (max_score - thresh_overflow), 0.0)
     filtered = torch.where(valid_flat, filtered, 0.0)
 
-    n_pos = (filtered > 0).sum()
-    p = filtered / filtered.sum()
+    n_pos = (filtered > 0).sum(-1)
+    p = filtered / filtered.sum(-1, keepdim=True)
+    # a tensor f_t (one per chain) broadcasts over the slots; a Python
+    # float is not copied to the device (that would synchronise)
+    f_t = f_t[..., None] if isinstance(f_t, torch.Tensor) else f_t
     # the p > 0 guard also maps the NaN of an all-zero sum to -inf
     logw = torch.where(p > 0, torch.log(p) / f_t, -math.inf)
-    cat = torch.argmax(logw + gumbel)
-    best = torch.argmax(torch.where(valid_flat, flat, -math.inf))
+    cat = torch.argmax(logw + gumbel, -1)
+    best = torch.argmax(torch.where(valid_flat, flat, -math.inf), -1)
     return torch.where(n_pos <= 1, best, cat)
 
 
 def _default_scorer(table: SubFragTable, obs, ll_dtype):
-    obs = torch.as_tensor(obs, dtype=torch.float32, device=table.owner.device)
+    """The scorer of a builder called without one: on a CUDA table the
+    kernel scorer (B1, or B3 for a repeat table; f32 whatever
+    ``ll_dtype``), on the CPU the dense tensor likelihood in ``ll_dtype``."""
+    dev = table.owner.device
+    if dev.type == "cuda":
+        from graal_tpu_torch.ops.likelihood_cuda import make_dense_scorer
+
+        return make_dense_scorer(table, obs, dev)
+    obs = torch.as_tensor(obs, dtype=torch.float32, device=dev)
 
     def score(states: GenomeState, params: RippeParams):
         return log_likelihood(states, table, obs, params, dtype=ll_dtype)
@@ -266,40 +290,60 @@ def make_em_step(table: SubFragTable, obs, nb: NeighbourTable, delta: int,
 
     Returns step(state, rng, params, f_a, f_t) ->
     (new_state, (score_sel, op_sel, fb_sel)), where ``rng`` is a Generator
-    or one step's :class:`StepDraws`.
+    or one step's :class:`StepDraws` (only its ``u_nb`` and ``gumbel`` are
+    read).
+
+    With a leading chains axis (``state`` fields (C, n), ``f_a`` (C,),
+    draws (C, ...), ``f_t`` (C,) or a float) every chain takes its step at
+    once, as it would alone, and the candidates of all chains are scored in
+    one scorer call (B = C x slots); the outputs gain the chains axis.
 
     ``scorer``: batched likelihood ``(GenomeState (B, n), params) -> (B,)``
     (e.g. :func:`graal_tpu_torch.ops.likelihood_cuda.make_dense_scorer`);
-    defaults to the dense tensor implementation.
+    defaults to :func:`_default_scorer`.
     """
     if scorer is None:
         scorer = _default_scorer(table, obs, ll_dtype)
 
     def step(state: GenomeState, rng, params: RippeParams, f_a, f_t):
+        f_a = torch.as_tensor(f_a, device=state.pos.device).long()
+        single = f_a.dim() == 0
         if isinstance(rng, torch.Generator):
-            rng = draw_step_inputs(rng, nb, delta)
-        f_a = torch.as_tensor(f_a, device=state.pos.device)
+            rng = draw_step_inputs(rng, nb, delta, f_a.shape)
         ids, valid = sample_neighbours(rng.u_nb, f_a, state, nb, delta)
-
-        cands = build_candidates(state, f_a, ids)
-        m = ids.shape[0]
+        m = ids.shape[-1]
+        c = 1 if single else ids.shape[0]
         n = state.n_frags
-        flat = GenomeState(*[x.reshape(m * N_CANDIDATES, n) for x in cands])
-        ll = scorer(flat, params).reshape(m, N_CANDIDATES)
+
+        if single:
+            # one genome, broadcast over its neighbours
+            cands = build_candidates(state, f_a, ids)
+        else:
+            # one genome per (chain, neighbour), each with its chain's max id
+            per_nb = GenomeState(*[x.repeat_interleave(m, 0) for x in state])
+            cands = build_candidates(per_nb, f_a.repeat_interleave(m), ids.reshape(-1),
+                                     max_id=state.id_c.amax(-1).repeat_interleave(m))
+        flat = GenomeState(*[x.reshape(c * m * N_CANDIDATES, n) for x in cands])
+        ll = scorer(flat, params).reshape(ids.shape + (N_CANDIDATES,))
 
         sel = select_score_slot(rng.gumbel, ll.float(), valid, f_t,
                                 thresh_overflow=thresh_overflow)
         sel_nb = sel // N_CANDIDATES
         sel_op = sel % N_CANDIDATES
-        new_state = [_take(x, sel) for x in flat]
+        pick = sel.reshape(c)
+        if c > 1:
+            pick = pick + torch.arange(0, c * m * N_CANDIDATES, m * N_CANDIDATES,
+                                       device=pick.device)
+        new_state = [x.index_select(0, pick).reshape(state.pos.shape) for x in flat]
 
         # blacklisted fragments are skipped entirely
-        skip = _take(nb.blacklist, f_a)
-        new_state = GenomeState(*[torch.where(skip, a, b)
+        skip = nb.blacklist.index_select(0, f_a.reshape(c)).reshape(f_a.shape)
+        new_state = GenomeState(*[torch.where(skip[..., None], a, b)
                                   for a, b in zip(state, new_state)])
-        score_sel = torch.where(skip, -math.inf, _take(ll.reshape(-1), sel))
-        return new_state, (score_sel, torch.where(skip, -1, sel_op),
-                           torch.where(skip, f_a, _take(ids, sel_nb)))
+        score = ll.reshape(c, -1).gather(1, sel.reshape(c, 1)).reshape(sel.shape)
+        fb = ids.reshape(c, m).gather(1, sel_nb.reshape(c, 1)).reshape(sel.shape)
+        return new_state, (torch.where(skip, -math.inf, score),
+                           torch.where(skip, -1, sel_op), torch.where(skip, f_a, fb))
 
     return step
 

@@ -1,0 +1,506 @@
+"""Multiple-try Metropolis and plain Metropolis-Hastings samplers.
+
+PyTorch counterpart of ``graal_tpu.core.mtm``, the refinement samplers
+that usually run after EM:
+
+- jumping distributions (:func:`build_jump_table`, host numpy): per
+  fragment, the delta strongest partners of the accu-normalised contact
+  matrix;
+- an MTM step (:func:`make_mtm_step`): the forward pass scores the 13
+  MH-catalogue candidates (:func:`core.candidates.mh_candidates`) against
+  every fragment of fA's neighbour set (its delta partners plus its
+  current prev / next), draws a proposal from the tempered softmax and
+  applies it; the backward pass scores the same catalogue from the
+  proposal pivoted at the chosen partner f*; the ratio exp(max_f - max_b)
+  sum(w_f) / sum(w_b) decides acceptance;
+- a plain MH step (:func:`make_mh_step`) with the proposal probabilities
+  in its ratio;
+- the impossible-operation mask: a paste needs both fragments at
+  linear-contig extremities, a translocation fB at the matching one.
+
+Each pass scores its (delta + 2) x 13 candidates in one scorer call (B1,
+or B3 for a repeat table, on the card). The delta twins
+(:func:`make_delta_mtm_step`, :func:`make_delta_mh_step`) score them
+through the delta engine with the MH catalogue, each neighbour on its own
+member rows (kernels B4 and B2), and reconstruct candidate likelihoods as
+the carried l_t plus the delta: both passes compare likelihoods only
+through differences and softmax weights, so this is the absolute form.
+
+Three quirks of the JAX package are kept by default (``corrected=False``),
+for parity: the MTM backward pass pivots at f* but reuses fA's neighbour
+set; the MH ratio adds the proposal probabilities to the log-likelihoods
+inside the exponent; the MH backward pass pivots at fA (in both modes, as
+the JAX package's ``corrected=True`` changes the MH ratio only).
+``corrected=True`` gives the canonical MTM backward set and MH ratio.
+
+Randomness: a step takes a ``torch.Generator`` or its draws as tensors
+(:class:`MoveDraws`: the Gumbel noise of the categorical over the slots
+and the acceptance uniform), so that tests can feed it the draws a JAX
+step consumed. Nothing in a step reads a device value on the host.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from graal_tpu_torch.core.candidates import N_CANDIDATES, mh_candidates
+from graal_tpu_torch.core.mcmc import _default_scorer, _matrix_to_coo, _take, topk_rows
+from graal_tpu_torch.core.state import GenomeState
+from graal_tpu_torch.core.subfrags import SubFragTable
+
+MTM_THRESH_OVERFLOW = 600.0   # step_mtm (cuda_lib_gl.py:2974)
+MH_THRESH_OVERFLOW = 10.0     # step_metropolis_hastings_s_a (:2871)
+
+
+class JumpTable(NamedTuple):
+    """Top-delta jumping-distribution table (static)."""
+
+    frags: torch.Tensor   # (n_frags, delta) int32 partner ids
+    delta: int
+
+
+def build_jump_table(bin_matrix, norm_vect_accu, id_d, n_frags, delta,
+                     device=None) -> JumpTable:
+    """Accu-normalised contact matrix (dense or scipy.sparse) -> per-fragment
+    top-delta partners (set_jumping_distributions_parameters,
+    cuda_lib_gl.py:2563-2581), O(nnz log nnz) on the host."""
+    rows, cols, vals, n_bins = _matrix_to_coo(bin_matrix)
+    norm = np.asarray(norm_vect_accu, np.float64)
+    vals = vals / np.maximum(norm[rows] * norm[cols], 1e-12)
+    top_bins, topv = topk_rows(rows, cols, vals, n_bins, delta)
+    # rows with fewer than delta positive partners: pad with distinct bins
+    pad = (n_bins - 1 - np.arange(delta))[None, :].astype(np.int32)
+    top_bins = np.where(topv > 0, top_bins, pad % n_bins)
+
+    id_d = np.asarray(id_d)
+    # first copy fragment of each bin (reversed scatter: the lowest index wins)
+    first_copy = np.zeros(n_bins, np.int64)
+    n = len(id_d)
+    first_copy[id_d[::-1]] = np.arange(n - 1, -1, -1)
+    frags = first_copy[top_bins[id_d]].astype(np.int32)
+    return JumpTable(frags=torch.as_tensor(frags, device=device), delta=delta)
+
+
+class MoveDraws(NamedTuple):
+    """The random inputs of one MTM / MH step; a leading axis holds the
+    draws of a whole cycle."""
+
+    gumbel: torch.Tensor   # (..., (delta + 2) * 13) Gumbel noise of the slot draw
+    u_acc: torch.Tensor    # (...,) uniform of the acceptance test
+
+
+def n_move_slots(jump: JumpTable) -> int:
+    return (jump.delta + 2) * N_CANDIDATES
+
+
+def draw_move_inputs(gen: torch.Generator, jump: JumpTable, shape=()) -> MoveDraws:
+    """Draw the random inputs of ``shape`` steps from ``gen``."""
+    dev = gen.device
+    shape = tuple(shape)
+    u = torch.rand(shape + (n_move_slots(jump),), generator=gen, device=dev)
+    gumbel = -torch.log(-torch.log(u.clamp_min(torch.finfo(torch.float32).tiny)))
+    return MoveDraws(gumbel, torch.rand(shape, generator=gen, device=dev))
+
+
+def _prev_next(state: GenomeState, f):
+    """(prev, next) of fragment ``f`` (a 0-d tensor), -1 at linear
+    extremities, as 0-d int64 tensors (derived from (id_c, pos))."""
+    c = _take(state.id_c, f)
+    p = _take(state.pos, f)
+    in_c = state.id_c == c
+    is_prev = in_c & (state.pos == p - 1)
+    is_next = in_c & (state.pos == p + 1)
+    # circular wrap
+    l_val = _take(state.l_cont, f)
+    circ = _take(state.circ, f) == 1
+    wrap_prev = in_c & (state.pos == l_val - 1) & (p == 0) & circ
+    wrap_next = in_c & (state.pos == 0) & (p == l_val - 1) & circ
+    prev_mask = is_prev | wrap_prev
+    next_mask = is_next | wrap_next
+    prev = torch.where(prev_mask.any(), prev_mask.int().argmax(), -1)
+    nxt = torch.where(next_mask.any(), next_mask.int().argmax(), -1)
+    return prev, nxt
+
+
+def _impossibility_mask(state: GenomeState, f_a, nb_ids):
+    """(m, 13) True where the op slot must be discarded
+    (detect_impossibility, cuda_lib_gl.py:3072-3100)."""
+    ids = nb_ids.long()
+    lin_b = state.circ[ids] == 0
+    pos_b, lc_b = state.pos[ids], state.l_cont[ids]
+    fa_ok = (_take(state.circ, f_a) == 0) & (
+        (_take(state.pos, f_a) == 0) | (_take(state.pos, f_a) == _take(state.l_cont, f_a) - 1))
+    fb_ok = lin_b & ((pos_b == 0) | (pos_b == lc_b - 1))
+    fb_down = lin_b & (pos_b == lc_b - 1)   # next == -1
+    fb_up = lin_b & (pos_b == 0)            # prev == -1
+    mask = torch.zeros((ids.shape[0], N_CANDIDATES), dtype=torch.bool, device=ids.device)
+    mask[:, 8] = ~(fa_ok & fb_ok)
+    mask[:, 9] = ~fb_down
+    mask[:, 11] = ~fb_down
+    mask[:, 10] = ~fb_up
+    mask[:, 12] = ~fb_up
+    return mask
+
+
+def _neighbour_set(state: GenomeState, f_a, jump: JumpTable):
+    """V = the delta partners of fA plus its current prev / next
+    (cuda_lib_gl.py:2850-2860): fixed length delta + 2, with a validity
+    mask that drops duplicates (the first occurrence stays), fA itself and
+    missing prev / next."""
+    base = _take(jump.frags, f_a).long()
+    prev, nxt = _prev_next(state, f_a)
+    ids = torch.cat([base, torch.stack([prev, nxt])])
+    dev = ids.device
+    valid = torch.cat([torch.ones(jump.delta, dtype=torch.bool, device=dev),
+                       torch.stack([prev != -1, nxt != -1])])
+    ix = torch.arange(ids.shape[0], device=dev)
+    dup = (ids[:, None] == ids[None, :]) & (ix[None, :] < ix[:, None])
+    valid = valid & ~(dup & valid[None, :]).any(1) & (ids != f_a)
+    return ids.clamp_min(0), valid
+
+
+def _categorical(p, gumbel):
+    """The slot drawn from probabilities ``p`` by argmax(log p + Gumbel);
+    zero-probability slots get log 1e-30, as in the JAX package."""
+    return torch.argmax(torch.log(torch.where(p > 0, p, 1e-30)) + gumbel)
+
+
+def _mtm_weights(ll_flat, discard_flat, f_t, thresh=MTM_THRESH_OVERFLOW):
+    """MTM weights exp(s - max) of the tempered scores s = ll / F_t within
+    ``thresh`` of the best kept slot; discarded slots weigh 0."""
+    s = ll_flat / f_t
+    mx = torch.where(discard_flat, -math.inf, s).amax()
+    s = torch.where(s <= mx - thresh, -math.inf, s)
+    w = torch.where(discard_flat, 0.0, torch.exp(s - mx))
+    return w, mx
+
+
+def _mh_probs(ll_flat, discard_flat, f_t):
+    """MH forward proposal probabilities: tempered scores clamped to a
+    window of MH_THRESH_OVERFLOW below the best kept slot, shifted by
+    their minimum, exponentiated; returns (probabilities, their unnormalised
+    sum)."""
+    s = ll_flat / f_t
+    mx = torch.where(discard_flat, -math.inf, s).amax()
+    s = torch.maximum(s, mx - MH_THRESH_OVERFLOW)
+    s = s - s.amin()
+    w = torch.where(discard_flat, 0.0, torch.exp(s))
+    sw = w.sum()
+    return w, sw
+
+
+def _mh_return_prob(ll_b_flat, discard_b_flat, l_t, f_t, clamp_sum: bool):
+    """MH backward probability of returning to the current genome, whose
+    tempered score l_t / F_t is clamped like the backward slots'; returns
+    (p_bwd, the backward weights' sum)."""
+    sb = ll_b_flat / f_t
+    mxb = torch.where(discard_b_flat, -math.inf, sb).amax()
+    target = torch.maximum(l_t / f_t, mxb - MH_THRESH_OVERFLOW)
+    sb = torch.maximum(sb, mxb - MH_THRESH_OVERFLOW)
+    target = target - sb.amin()
+    sb = sb - sb.amin()
+    wb = torch.where(discard_b_flat, 0.0, torch.exp(sb))
+    swb = wb.sum()
+    den = swb.clamp_min(1e-30) if clamp_sum else swb
+    return torch.exp(target) / den, swb
+
+
+def _mh_ratio(ll_star, l_t, p_fwd, p_bwd, f_t, corrected: bool):
+    if corrected:
+        return torch.exp((ll_star - l_t) / f_t) * p_bwd / p_fwd.clamp_min(1e-30)
+    # the JAX package's form: probabilities added to log-likelihoods
+    return torch.exp((ll_star + p_bwd - l_t - p_fwd) / f_t)
+
+
+def _commit(accept, g_star: GenomeState, state: GenomeState, ll_star, l_t):
+    new_state = GenomeState(*[torch.where(accept, a, b) for a, b in zip(g_star, state)])
+    return new_state, torch.where(accept, ll_star, l_t), accept, new_state.n_contigs()
+
+
+def _draws(rng, jump):
+    return draw_move_inputs(rng, jump) if isinstance(rng, torch.Generator) else rng
+
+
+def _make_scores_for(table, obs, ll_dtype, scorer):
+    """Candidate scoring of one pass: the m x 13 MH-catalogue candidates of
+    ``f_a`` against ``nb_ids``, in one call of ``scorer``. Returns (flat
+    candidates (m * 13, n), scores (m, 13) f32)."""
+    if scorer is None:
+        scorer = _default_scorer(table, obs, ll_dtype)
+
+    def scores_for(state, f_a, nb_ids, params):
+        cands = mh_candidates(state, f_a, nb_ids)
+        m, n = nb_ids.shape[0], state.n_frags
+        flat = GenomeState(*[x.reshape(m * N_CANDIDATES, n) for x in cands])
+        return flat, scorer(flat, params).reshape(m, N_CANDIDATES).float()
+
+    return scores_for
+
+
+def make_mtm_step(table: SubFragTable, obs, jump: JumpTable, ll_dtype=torch.float32,
+                  scorer=None, corrected: bool = False):
+    """Build step_mtm(state, rng, params, l_t, f_a, f_t) -> (state, l_t,
+    accepted, n_contigs), where ``rng`` is a Generator or one step's
+    :class:`MoveDraws`.
+
+    ``scorer``: batched likelihood ``(GenomeState (B, n), params) -> (B,)``
+    (the run's kernel scorer; by default B1 / B3 on a CUDA table, the plain
+    dense likelihood on the CPU).
+    ``corrected=True``: the backward pass draws from f*'s own neighbour set
+    (canonical MTM) instead of reusing fA's.
+    """
+    scores_for = _make_scores_for(table, obs, ll_dtype, scorer)
+
+    def step(state: GenomeState, rng, params, l_t, f_a, f_t):
+        rng = _draws(rng, jump)
+        f_a = torch.as_tensor(f_a, device=state.pos.device)
+        nb_ids, nb_valid = _neighbour_set(state, f_a, jump)
+
+        # ---- forward pass ----
+        cands_f, ll_f = scores_for(state, f_a, nb_ids, params)
+        discard_f = _impossibility_mask(state, f_a, nb_ids) | ~nb_valid[:, None]
+        w_f, max_f = _mtm_weights(ll_f.reshape(-1), discard_f.reshape(-1), f_t)
+        omega = _categorical(w_f / w_f.sum(), rng.gumbel)
+        g_star = GenomeState(*[_take(x, omega) for x in cands_f])
+        ll_star = _take(ll_f.reshape(-1), omega)
+        f_star = _take(nb_ids, omega // N_CANDIDATES)
+
+        # ---- backward pass: pivot at f* ----
+        if corrected:
+            bk_ids, bk_valid = _neighbour_set(g_star, f_star, jump)
+        else:
+            bk_ids, bk_valid = nb_ids, nb_valid
+        _, ll_b = scores_for(g_star, f_star, bk_ids, params)
+        discard_b = _impossibility_mask(g_star, f_a, bk_ids) | ~bk_valid[:, None]
+        w_b, max_b = _mtm_weights(ll_b.reshape(-1), discard_b.reshape(-1), f_t)
+
+        ratio = torch.exp(max_f - max_b) * w_f.sum() / w_b.sum()
+        accept = ratio.clamp_max(1.0) >= rng.u_acc
+        return _commit(accept, g_star, state, ll_star, l_t)
+
+    return step
+
+
+def make_mh_step(table: SubFragTable, obs, jump: JumpTable, ll_dtype=torch.float32,
+                 scorer=None, corrected: bool = False):
+    """Build the plain Metropolis-Hastings step
+    (step_metropolis_hastings_s_a, cuda_lib_gl.py:2836-2934), with the
+    signature of :func:`make_mtm_step`. ``corrected=True`` uses the
+    canonical ratio exp((L* - L_t) / F_t) p_bwd / p_fwd."""
+    scores_for = _make_scores_for(table, obs, ll_dtype, scorer)
+
+    def step(state: GenomeState, rng, params, l_t, f_a, f_t):
+        rng = _draws(rng, jump)
+        f_a = torch.as_tensor(f_a, device=state.pos.device)
+        nb_ids, nb_valid = _neighbour_set(state, f_a, jump)
+
+        cands_f, ll_f = scores_for(state, f_a, nb_ids, params)
+        discard_f = _impossibility_mask(state, f_a, nb_ids) | ~nb_valid[:, None]
+        w, sw = _mh_probs(ll_f.reshape(-1), discard_f.reshape(-1), f_t)
+        p = w / sw
+        omega = _categorical(p, rng.gumbel)
+        g_star = GenomeState(*[_take(x, omega) for x in cands_f])
+        ll_star = _take(ll_f.reshape(-1), omega)
+        p_fwd = _take(p, omega)
+
+        # backward probability of returning to the current genome
+        _, ll_b = scores_for(g_star, f_a, nb_ids, params)
+        discard_b = _impossibility_mask(g_star, f_a, nb_ids) | ~nb_valid[:, None]
+        p_bwd, _ = _mh_return_prob(ll_b.reshape(-1), discard_b.reshape(-1), l_t, f_t,
+                                   clamp_sum=False)
+        ratio = _mh_ratio(ll_star, l_t, p_fwd, p_bwd, f_t, corrected)
+        accept = ratio.clamp_max(1.0) >= rng.u_acc
+        return _commit(accept, g_star, state, ll_star, l_t)
+
+    return step
+
+
+def make_mtm_cycle(table: SubFragTable, obs, jump: JumpTable, variant="mtm",
+                   ll_dtype=torch.float32, scorer=None, corrected: bool = False):
+    """One MTM / MH cycle over a fragment order (the start_MTM inner loop,
+    main_gl.py:361-379), a Python loop of steps.
+
+    Returns cycle(state, rng, params, frag_order, l_t, f_t) -> (state, l_t,
+    (lls, accepts, n_contigs)) with per-step tensors; ``rng`` is a
+    Generator or :class:`MoveDraws` with a leading axis of
+    len(frag_order)."""
+    if variant not in ("mtm", "mh"):
+        raise ValueError(f"unknown variant {variant!r} (expected mtm or mh)")
+    step = (make_mtm_step if variant == "mtm" else make_mh_step)(
+        table, obs, jump, ll_dtype, scorer=scorer, corrected=corrected)
+    return _loop(step, jump)
+
+
+def _loop(step, jump):
+    def cycle(state: GenomeState, rng, params, frag_order, l_t, f_t):
+        frag_order = torch.as_tensor(frag_order, device=state.pos.device).long()
+        n_steps = frag_order.shape[0]
+        if isinstance(rng, torch.Generator):
+            rng = draw_move_inputs(rng, jump, (n_steps,))
+        rows = []
+        for i in range(n_steps):
+            state, l_t, accepted, n_contigs = step(
+                state, MoveDraws(*[x[i] for x in rng]), params, l_t, frag_order[i], f_t)
+            rows.append((l_t, accepted, n_contigs))
+        lls, accepts, ncs = (torch.stack(col) for col in zip(*rows))
+        return state, l_t, (lls, accepts, ncs)
+
+    return cycle
+
+
+# ---------------------------------------------------------------------------
+# Delta-scored steps (the chr1-scale refinement samplers)
+# ---------------------------------------------------------------------------
+
+def _delta_mh_scorer(table: SubFragTable, f_max: int, sobs, band_w, rep, obs_grid,
+                     mini_grid):
+    """The delta engine with the MH catalogue: the repeat engine v2 for a
+    copy-expanded table, the plain one (band applied as the EM path does)
+    otherwise."""
+    from graal_tpu_torch.core import delta as delta_mod
+
+    if table.has_repeats:
+        from graal_tpu_torch.core import delta_repeats
+
+        return delta_repeats.make_repeat_delta_scorer_v2(
+            table, f_max, sobs, rep, obs_grid=obs_grid, mini_grid=mini_grid,
+            catalogue=mh_candidates)
+    return delta_mod.make_delta_scorer(
+        table, None, f_max, sobs=sobs, band_w=delta_mod.effective_band_w(band_w, table, f_max),
+        obs_grid=obs_grid, mini_grid=mini_grid, catalogue=mh_candidates)
+
+
+def _delta_score_set(dscore):
+    """score_set(state, pivot, nb_ids, params) -> (dll (m, 13), minis (m,
+    13, f_max), rows, valid, overflow): every neighbour on its own member
+    rows, as the JAX package's per-neighbour spec extracts them."""
+    from graal_tpu_torch.core.delta import extract_rows_each
+
+    def score_set(state, pivot, nb_ids, params):
+        rows, valid, over = extract_rows_each(state, pivot, nb_ids, dscore.f_max)
+        return dscore.score(state, pivot, nb_ids, rows, valid, over, params,
+                            state.id_c.amax())
+
+    return score_set
+
+
+def _delta_forward(state, f_a, jump, score_set, params, l_t):
+    """The forward pass shared by the delta steps: (nb_ids, nb_valid, ll_f
+    (m, 13), minis, rows, valid, overflow, discard (m, 13))."""
+    nb_ids, nb_valid = _neighbour_set(state, f_a, jump)
+    dll_f, minis_f, rows_f, rvalid_f, over_f = score_set(state, f_a, nb_ids, params)
+    discard_f = _impossibility_mask(state, f_a, nb_ids) | ~nb_valid[:, None] \
+        | over_f[:, None]
+    return nb_ids, nb_valid, l_t + dll_f, minis_f, rows_f, rvalid_f, over_f, discard_f
+
+
+def _delta_commit_candidate(state, omega, minis_f, rows_f, rvalid_f):
+    """The full genome with mini candidate ``omega`` written back."""
+    from graal_tpu_torch.core.delta import scatter_mini
+
+    m = rows_f.shape[0]
+    sel_nb = omega // N_CANDIDATES
+    sel_mini = GenomeState(*[_take(x.reshape(m * N_CANDIDATES, -1), omega) for x in minis_f])
+    return scatter_mini(state, sel_mini, _take(rows_f, sel_nb), _take(rvalid_f, sel_nb))
+
+
+def make_delta_mtm_step(table: SubFragTable, jump: JumpTable, f_max: int, sobs,
+                        band_w: int | None = None, corrected: bool = False,
+                        obs_grid=None, mini_grid=None, rep=None):
+    """MTM step with delta candidate scoring, the signature of
+    :func:`make_mtm_step` (``rng`` a Generator or :class:`MoveDraws`).
+
+    Candidate likelihoods are the carried l_t plus the engine's deltas. The
+    chosen mini candidate is written into the full genome before the
+    backward pass; a step whose chosen forward neighbour overflows
+    ``f_max``, or with no backward weight, is rejected. A repeat table goes
+    to the repeat engine v2 with the MH catalogue; ``rep``, the genome's
+    repeat flags, is then required (its exactness contract). ``obs_grid``
+    / ``mini_grid``: the kernel wrappers to launch through."""
+    dscore = _delta_mh_scorer(table, f_max, sobs, band_w, rep, obs_grid, mini_grid)
+    score_set = _delta_score_set(dscore)
+
+    def step(state: GenomeState, rng, params, l_t, f_a, f_t):
+        rng = _draws(rng, jump)
+        f_a = torch.as_tensor(f_a, device=state.pos.device)
+        nb_ids, nb_valid, ll_f, minis_f, rows_f, rvalid_f, over_f, discard_f = \
+            _delta_forward(state, f_a, jump, score_set, params, l_t)
+        w_f, max_f = _mtm_weights(ll_f.reshape(-1), discard_f.reshape(-1), f_t)
+        sw_f = w_f.sum()
+        omega = _categorical(w_f / sw_f.clamp_min(1e-30), rng.gumbel)
+        sel_nb = omega // N_CANDIDATES
+        g_star = _delta_commit_candidate(state, omega, minis_f, rows_f, rvalid_f)
+        ll_star = _take(ll_f.reshape(-1), omega)
+        f_star = _take(nb_ids, sel_nb)
+
+        # ---- backward pass: pivot at f* from the committed genome ----
+        if corrected:
+            bk_ids, bk_valid = _neighbour_set(g_star, f_star, jump)
+        else:
+            bk_ids, bk_valid = nb_ids, nb_valid
+        dll_b, _, _, _, over_b = score_set(g_star, f_star, bk_ids, params)
+        discard_b = _impossibility_mask(g_star, f_a, bk_ids) | ~bk_valid[:, None] \
+            | over_b[:, None]
+        w_b, max_b = _mtm_weights((ll_star + dll_b).reshape(-1), discard_b.reshape(-1), f_t)
+        sw_b = w_b.sum()
+
+        ratio = torch.exp(max_f - max_b) * sw_f / sw_b.clamp_min(1e-30)
+        ok = (sw_f > 0) & ~_take(over_f, sel_nb) & (sw_b > 0)
+        accept = ok & (ratio.clamp_max(1.0) >= rng.u_acc)
+        return _commit(accept, g_star, state, ll_star, l_t)
+
+    return step
+
+
+def make_delta_mh_step(table: SubFragTable, jump: JumpTable, f_max: int, sobs,
+                       band_w: int | None = None, corrected: bool = False,
+                       obs_grid=None, mini_grid=None, rep=None):
+    """Plain Metropolis-Hastings with delta candidate scoring: the delta
+    twin of :func:`make_mh_step`, with the arguments of
+    :func:`make_delta_mtm_step`. The backward pass pivots at fA."""
+    dscore = _delta_mh_scorer(table, f_max, sobs, band_w, rep, obs_grid, mini_grid)
+    score_set = _delta_score_set(dscore)
+
+    def step(state: GenomeState, rng, params, l_t, f_a, f_t):
+        rng = _draws(rng, jump)
+        f_a = torch.as_tensor(f_a, device=state.pos.device)
+        nb_ids, nb_valid, ll_f, minis_f, rows_f, rvalid_f, over_f, discard_f = \
+            _delta_forward(state, f_a, jump, score_set, params, l_t)
+        w, sw = _mh_probs(ll_f.reshape(-1), discard_f.reshape(-1), f_t)
+        p = w / sw.clamp_min(1e-30)
+        omega = _categorical(p, rng.gumbel)
+        sel_nb = omega // N_CANDIDATES
+        g_star = _delta_commit_candidate(state, omega, minis_f, rows_f, rvalid_f)
+        ll_star = _take(ll_f.reshape(-1), omega)
+        p_fwd = _take(p, omega)
+
+        # backward return probability, pivot fA
+        dll_b, _, _, _, over_b = score_set(g_star, f_a, nb_ids, params)
+        discard_b = _impossibility_mask(g_star, f_a, nb_ids) | ~nb_valid[:, None] \
+            | over_b[:, None]
+        p_bwd, swb = _mh_return_prob((ll_star + dll_b).reshape(-1), discard_b.reshape(-1),
+                                     l_t, f_t, clamp_sum=True)
+        ratio = _mh_ratio(ll_star, l_t, p_fwd, p_bwd, f_t, corrected)
+        ok = (sw > 0) & ~_take(over_f, sel_nb) & (swb > 0)
+        accept = ok & (ratio.clamp_max(1.0) >= rng.u_acc)
+        return _commit(accept, g_star, state, ll_star, l_t)
+
+    return step
+
+
+def make_delta_mtm_cycle(table: SubFragTable, jump: JumpTable, f_max: int, sobs,
+                         variant: str = "mtm", band_w: int | None = None,
+                         corrected: bool = False, obs_grid=None, mini_grid=None, rep=None):
+    """A delta-scored MTM / MH cycle (a Python loop of steps), with the
+    signature and outputs of :func:`make_mtm_cycle`; no re-anchor (the
+    caller anchors once per cycle)."""
+    if variant not in ("mtm", "mh"):
+        raise ValueError(f"unknown variant {variant!r} (expected mtm or mh)")
+    step = (make_delta_mtm_step if variant == "mtm" else make_delta_mh_step)(
+        table, jump, f_max, sobs, band_w=band_w, corrected=corrected, obs_grid=obs_grid,
+        mini_grid=mini_grid, rep=rep)
+    return _loop(step, jump)

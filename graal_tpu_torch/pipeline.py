@@ -3,24 +3,29 @@
 PyTorch counterpart of ``graal_tpu.pipeline``: the :class:`Runner` wires a
 pyramid level to the sampler (repeat detection and copy extension,
 contig blacklisting, the Rippe fit, the EM cycles with optional nuisance
-sampling and a checkpoint every cycle), writes the reference's output
-series (9 txt files, the mutation log and ``params.json``) and exports the
-assembled genome.
+sampling and a checkpoint every cycle), the sampler stages that follow
+or replace EM (parallel-tempered chains, MTM / MH refinement), writes the
+reference's output series (9 txt files, the mutation log and
+``params.json``) and exports the assembled genome.
 
 The run lives on ``cfg.device``, the card unless the caller asks for the
 CPU. On a CUDA device every candidate is scored by the dense kernel
 (``ops.likelihood_cuda.make_dense_scorer``: B1, or B3 for a
 copy-expanded table); on the CPU by the plain dense likelihood, as the
-JAX package does there. The delta path (``run_em(scoring="delta")``)
-builds one ``MiniGridScorer`` (B2) and one ``WindowObsGrid`` (B4) per run
-and anchors with the same dense scorer. Randomness comes from one
+JAX package does there. Under the broken-power-law contact model
+(``cfg.model.use_rippe = False``) every stage scores through
+``core.model_hic.make_hic_scorer`` on the run's device (the JAX package
+has no kernel for that model either), and nuisance sampling is off. The
+delta path (``run_em(scoring="delta")``) builds one ``MiniGridScorer``
+(B2) and one ``WindowObsGrid`` (B4) per run and anchors with the same
+dense scorer. Randomness comes from one
 ``torch.Generator`` on the device, seeded with ``cfg.sampler.seed``; the
 checkpoint keeps its state, the carried likelihood and the metric
 history, so a resumed run equals the uninterrupted one bit for bit. A
 cycle's metrics and state reach the host in one copy.
 
-Not ported here: the HiC model and the tempered / MTM stages (ROADMAP
-A11); matrix snapshots, the live view and the profiler trace (A13).
+Not ported here: matrix snapshots, the live view and the profiler trace
+(ROADMAP A13).
 """
 
 from __future__ import annotations
@@ -35,9 +40,11 @@ import torch
 
 from graal_tpu_torch.config import RunConfig, resolve_device, temperature_schedule
 from graal_tpu_torch.core import mcmc
+from graal_tpu_torch.core import mtm as mtm_mod
 from graal_tpu_torch.core.candidates import N_CANDIDATES, build_candidates
 from graal_tpu_torch.core.likelihood import log_likelihood
 from graal_tpu_torch.core.model import RippeParams, fit_rippe_from_matrix
+from graal_tpu_torch.core.model_hic import HiCParams, fit_hic_from_matrix, make_hic_scorer
 from graal_tpu_torch.core.state import (GenomeState, check_invariants,
                                         derive_prev_next, dist_inter_genome)
 from graal_tpu_torch.core.subfrags import SubFragTable, table_from_level
@@ -142,8 +149,6 @@ class Runner:
     def __init__(self, cfg: RunConfig, pyramid: "pyramid_io.Pyramid | None" = None):
         self.cfg = cfg
         self.device = resolve_device(cfg.device)
-        if not cfg.model.use_rippe:
-            raise ValueError("the HiC contact model is not ported yet (ROADMAP A11)")
         os.makedirs(cfg.output_dir, exist_ok=True)
         self.pyramid = pyramid or pyramid_io.build_and_filter(
             cfg.dataset_dir, cfg.pyramid.size, cfg.pyramid.factor,
@@ -156,6 +161,7 @@ class Runner:
         self.obs_grid = self.mini_grid = None    # the delta path's kernels, per run
         self.delta_buckets = []                  # the buckets the delta path ran
         self._obs_t = None
+        self.l_t = None    # the carried likelihood of the last stage's genome
 
     # ---- setup ------------------------------------------------------------
     def _setup_level(self):
@@ -225,22 +231,40 @@ class Runner:
         self.dist_skip = skip
 
     def _estimate_parameters(self):
-        """Rippe fit on the observed data (estimate_parameters,
-        cuda_lib_gl.py:1229-1294): fit window = mean contig length (kb),
-        bin width = mean bin length (kb)."""
+        """Model fit on the observed data (estimate_parameters,
+        cuda_lib_gl.py:1229-1294; estimate_parameters_rv :1296-1352 for the
+        broken power law): fit window = mean contig length (kb), bin width
+        = mean bin length (kb)."""
         soa = self.sub_soa
         mean_dist_kb = float(np.mean(soa["l_cont_bp"][soa["pos"] == 0])) / 1000.0
         size_bin_kb = float(np.mean(soa["len_bp"])) / 1000.0
-        self.params, self.fit_bins, self.fit_contacts, self.fit_estim = \
-            fit_rippe_from_matrix(
-                self.obs, soa, self.mean_value_trans,
-                mean_dist_kb * self.cfg.model.max_dist_bins_factor, size_bin_kb,
-                device=self.device)
+        max_dist_kb = mean_dist_kb * self.cfg.model.max_dist_bins_factor
+        if self.cfg.model.use_rippe:
+            self.params, self.fit_bins, self.fit_contacts, self.fit_estim = \
+                fit_rippe_from_matrix(self.obs, soa, self.mean_value_trans, max_dist_kb,
+                                      size_bin_kb, device=self.device)
+        else:
+            self.params = fit_hic_from_matrix(self.obs, soa, self.mean_value_trans,
+                                              max_dist_kb, size_bin_kb, device=self.device)
+            self.fit_bins = self.fit_contacts = self.fit_estim = None
+
+    @property
+    def is_hic(self) -> bool:
+        return isinstance(self.params, HiCParams)
+
+    @property
+    def sample_param(self) -> bool:
+        """Nuisance sampling: as configured, but always off under the HiC
+        model (its moves are Rippe-specific)."""
+        return self.cfg.sampler.sample_param and not self.is_hic
 
     def _make_scorer(self):
-        """The batched scorer ``(states (B, n), params) -> (B,)``: the dense
-        kernel on a CUDA device (B1, or B3 for a repeat table), None on the
-        CPU (the plain dense likelihood)."""
+        """The batched scorer ``(states (B, n), params) -> (B,)``: the HiC
+        model's on any device; for the Rippe model the dense kernel on a
+        CUDA device (B1, or B3 for a repeat table), None on the CPU (the
+        plain dense likelihood)."""
+        if self.is_hic:
+            return make_hic_scorer(self.table, self.obs)
         if self.device.type == "cuda":
             from graal_tpu_torch.ops.likelihood_cuda import make_dense_scorer
 
@@ -267,7 +291,8 @@ class Runner:
         path = os.path.join(self.cfg.output_dir, "checkpoint.npz")
         if not (resume and os.path.exists(path)):
             return state, params, 0, None
-        state, params, start, gen_state, extra = ckpt_io.load_checkpoint(path, self.device)
+        state, params, start, gen_state, extra = ckpt_io.load_checkpoint(
+            path, self.device, params_cls=type(params))
         gen.set_state(gen_state)
         collected.update(ckpt_io.metrics_from_extra(extra))
         l_t = torch.tensor(extra["l_t"], device=self.device)
@@ -306,7 +331,7 @@ class Runner:
         n_cycles = n_cycles or cfg.sampler.n_cycles
         cycle = mcmc.make_em_cycle(self.table, self.obs, self.nb,
                                    delta=cfg.sampler.n_neighbours,
-                                   sample_param=cfg.sampler.sample_param,
+                                   sample_param=self.sample_param,
                                    scorer=self.scorer,
                                    thresh_overflow=cfg.sampler.thresh_overflow)
         state = self.state
@@ -334,7 +359,7 @@ class Runner:
                 for k, v in zip(DENSE_SERIES, host):
                     collected[k].extend(v.tolist())
                 hstate = host_state(host[len(DENSE_SERIES):len(DENSE_SERIES) + 11])
-                hparams = RippeParams(*[torch.from_numpy(x) for x in host[-9:-1]])
+                hparams = type(params)(*[torch.from_numpy(x) for x in host[-9:-1]])
                 l_host = host[-1]
                 dist = self._dist(hstate)
                 collected["dist_init_genome"].extend([dist] * n)
@@ -348,6 +373,7 @@ class Runner:
         check_invariants(state)
         self.state = state
         self.params = params
+        self.l_t = l_t
         self.timer = timer
         return Assembly(state=state, params=params, table=self.table, obs=self.obs,
                         metrics=collected, level=self.level)
@@ -366,6 +392,9 @@ class Runner:
         from graal_tpu_torch.ops.obsgrid_cuda import WindowObsGrid
         from graal_tpu_torch.scale import _next_pow2, max_contig_subs
 
+        if self.is_hic:
+            raise ValueError("delta scoring under the HiC contact model: the delta "
+                             "engine scores the Rippe model only (use --scoring full)")
         cfg = self.cfg
         dev = self.device
         n_cycles = n_cycles or cfg.sampler.n_cycles
@@ -433,8 +462,94 @@ class Runner:
         check_invariants(state)
         self.state = state
         self.params = params
+        self.l_t = l_t
         self.timer = timer
         self.delta_buckets = sorted(cycles)
+        return Assembly(state=state, params=params, table=self.table, obs=self.obs,
+                        metrics=collected, level=self.level)
+
+    def run_tempered_em(self, n_chains=None, n_cycles=None, t_max=4.0, exchange_every=2,
+                        progress=True) -> Assembly:
+        """Parallel-tempered EM: ``n_chains`` chains (default
+        ``cfg.n_chains``) on a geometric ladder up to ``t_max``, batched on
+        the run's device (one scorer call a step for all chains), with
+        replica-exchange swaps every ``exchange_every`` cycles and a final
+        best-genome consolidation. No nuisance sampling (as in the JAX
+        package). ``self.chain_states`` keeps every chain's final genome."""
+        from graal_tpu_torch.parallel.tempering import run_tempered
+
+        cfg = self.cfg
+        n_chains = n_chains or max(cfg.n_chains, 1)
+        n_cycles = n_cycles or cfg.sampler.n_cycles
+        state = self.state
+        if cfg.sampler.scrambled:
+            state = mcmc.explode_genome(state)
+        timer = StageTimer()
+        with timer.stage("tempered_cycles"):
+            final, l_cold, pt = run_tempered(
+                self.table, self.obs, self.nb, state, self.params, n_chains=n_chains,
+                n_cycles=n_cycles, delta=cfg.sampler.n_neighbours, t_max=t_max,
+                exchange_every=exchange_every, seed=cfg.sampler.seed, scorer=self.scorer,
+                progress=progress)
+        check_invariants(final)
+        self.state = final
+        self.l_t = l_cold
+        self.chain_states = pt["chain_states"]
+        self.timer = timer
+        metrics = {"likelihood": pt["trace"][:, 0].tolist(),
+                   "likelihood_all_chains": pt["trace"].tolist(),
+                   "swap_accepts": list(pt["swaps"]),
+                   "n_contigs": pt["n_contigs"][:, 0].tolist(),
+                   "dist_init_genome": [self._dist(final)]}
+        return Assembly(state=final, params=self.params, table=self.table, obs=self.obs,
+                        metrics=metrics, level=self.level)
+
+    def jump_table(self, delta: int) -> "mtm_mod.JumpTable":
+        """The MTM jumping distributions of this level: ``bin_matrix``
+        normalised by each bin's accu mass (n_accu summed over its subs)."""
+        n_accu = np.asarray(self.sub_soa["n_accu"], np.float64)
+        norm = np.array([n_accu[lo:hi + 1].sum() for lo, hi in self.bin_to_subs])
+        return mtm_mod.build_jump_table(self.bin_matrix, norm, self.state.id_d.cpu().numpy(),
+                                        self.state.n_frags, delta, device=self.device)
+
+    def run_mtm(self, n_cycles=None, variant="mtm", delta=5, progress=True,
+                assembly: Assembly | None = None) -> Assembly:
+        """MTM (or plain MH, ``variant='mh'``) refinement cycles (start_MTM,
+        main_gl.py:344-399), usually after EM on its ``assembly``: every
+        pass of a step scores its (delta + 2) x 13 candidates in one call of
+        the run's scorer. The generator is seeded with ``seed + 1``."""
+        cfg = self.cfg
+        dev = self.device
+        n_cycles = n_cycles or cfg.sampler.n_cycles
+        cycle = mtm_mod.make_mtm_cycle(self.table, self.obs, self.jump_table(delta),
+                                       variant=variant, scorer=self.scorer)
+        state = assembly.state if assembly else self.state
+        params = assembly.params if assembly else self.params
+        gen = torch.Generator(device=dev).manual_seed(cfg.sampler.seed + 1)
+        l_t = self._initial_likelihood(state, params)
+        collected = {"likelihood": [], "n_contigs": [], "accepts": [], "dist_init_genome": []}
+        n = state.n_frags
+        timer = StageTimer()
+        t0 = time.time()
+        for j in range(n_cycles):
+            order = torch.randperm(n, generator=gen, device=dev)
+            f_t = temperature_schedule(cfg.sampler, j, n_cycles)
+            with timer.stage(f"{variant}_cycle"):
+                state, l_t, (lls, accepts, ncs) = cycle(state, gen, params, order, l_t, f_t)
+                host = host_copy(lls, accepts, ncs, *state)
+            collected["likelihood"].extend(host[0].tolist())
+            collected["accepts"].extend(host[1].tolist())
+            collected["n_contigs"].extend(host[2].tolist())
+            dist = self._dist(host_state(host[3:]))
+            collected["dist_init_genome"].extend([dist] * n)
+            if progress:
+                print(f"{variant} cycle {j}: loglik={float(host[0][-1]):.1f} "
+                      f"accepts={int(host[1].sum())}/{n} n_contigs={int(host[2][-1])} "
+                      f"dist={dist:.3f} ({time.time() - t0:.1f}s)", flush=True)
+        check_invariants(state)
+        self.state = state
+        self.l_t = l_t
+        self.timer = timer
         return Assembly(state=state, params=params, table=self.table, obs=self.obs,
                         metrics=collected, level=self.level)
 
@@ -466,6 +581,8 @@ class Runner:
             for fa, fb, op in zip(m.get("id_f_a", []), m.get("id_f_sampled", []),
                                   m.get("op_sampled", [])):
                 fh.write(f"{fa}\t{fb}\t{op}\n")
+        # the JAX package writes any model's 8 parameters under the Rippe
+        # names, the HiC model's included
         with open(os.path.join(out, "params.json"), "w") as fh:
             json.dump({k: float(v) for k, v in zip(RippeParams._fields, assembly.params)},
                       fh, indent=2)

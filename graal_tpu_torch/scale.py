@@ -25,9 +25,12 @@ state and the metric history: ``utils.checkpoint``) and resumes from the
 file bit for bit. :func:`from_dataset` builds a runner straight from a
 dataset directory without ever densifying the map.
 
-Not ported here: the multi-device anchor (ROADMAP A12), snapshots and the
-live view (A13), ``run_mtm`` / ``run_chains`` and ``run_multilevel`` (A11 /
-A12).
+``run_mtm`` refines an assembly with the delta-scored MTM / MH samplers
+(``core.mtm``, the MH catalogue through B4 + B2), and
+:func:`run_multilevel` assembles coarse-to-fine over pyramid levels.
+
+Not ported here: the multi-device anchor and ``run_chains`` (ROADMAP A12),
+snapshots and the live view (A13).
 """
 
 from __future__ import annotations
@@ -72,7 +75,9 @@ class ScaleRunner:
     (``sobs`` and ``params`` live there too). A repeat table needs ``id_d``
     (see the module docstring); ``sobs`` then lies on the data grid.
     ``bin_csr`` / ``bin_norm``: the bin-grid contact matrix and per-bin
-    accu normaliser, kept for the MTM jump tables (ROADMAP A11)."""
+    accu normaliser of the MTM jump tables (:meth:`run_mtm`); they default
+    to the data grid, valid when the two grids coincide (one sub per
+    bin)."""
 
     def __init__(self, table: SubFragTable, sobs: sparse.SparseObs,
                  params: RippeParams, nb: mcmc.NeighbourTable | None = None,
@@ -86,6 +91,7 @@ class ScaleRunner:
         self.sobs = sobs
         self.params = params
         self.device = table.owner.device
+        self.id_d = None if id_d is None else np.asarray(id_d)
         if nb is None:
             n = sobs.n
             m = sp.coo_matrix((sobs.vals.cpu().numpy(),
@@ -322,6 +328,104 @@ class ScaleRunner:
         self.params = params
         return state, params, metrics
 
+    def jump_table(self, delta: int, n_frags: int):
+        """The MTM jumping distributions on the bin grid (``bin_csr`` /
+        ``bin_norm``), or on the data grid when they were not given (one
+        sub per bin; a repeat table reads each bin's accu through any of its
+        copies)."""
+        import scipy.sparse as sp
+
+        from graal_tpu_torch.core.mtm import build_jump_table
+
+        n = n_frags
+        if self.bin_csr is not None:
+            bin_m, norm = self.bin_csr, self.bin_norm
+        else:
+            nd = self.sobs.n
+            data_id = self.table.data_id.cpu().numpy()
+            accu = self.table.accu.cpu().numpy()
+            owner = self.table.owner.cpu().numpy()
+            if self.table.has_repeats:
+                if self.table.n_data_sub != nd:
+                    raise ValueError("pass bin_csr / bin_norm when the bin and data grids "
+                                     "differ")
+                norm = np.zeros(nd, np.float64)
+                norm[data_id] = accu
+            else:
+                if self.table.n_data_sub != n or not np.array_equal(owner, data_id):
+                    raise ValueError("pass bin_csr / bin_norm when the bin and data grids "
+                                     "differ")
+                norm = np.bincount(owner, weights=accu, minlength=nd)
+            bin_m = sp.coo_matrix((self.sobs.vals.cpu().numpy(),
+                                   (self.sobs.rows.cpu().numpy(),
+                                    self.sobs.cols.cpu().numpy())), shape=(nd, nd)).tocsr()
+        id_d = self.id_d if self.id_d is not None else np.arange(n)
+        return build_jump_table(bin_m, norm, id_d, n, delta, device=self.device)
+
+    def run_mtm(self, state0: GenomeState, n_cycles: int, delta: int = 5,
+                steps_per_cycle: int | None = None, f_max_min: int = 256,
+                f_max_cap: int = 1 << 14, f_t: float = 1.0, seed: int = 1,
+                corrected: bool = False, chunk_steps: int = 512, variant: str = "mtm",
+                progress: bool = True):
+        """MTM (or plain MH, ``variant='mh'``) refinement at chr1 scale,
+        delta-scored with the MH catalogue (start_MTM's role,
+        main_gl.py:344-399), usually on :meth:`run`'s output. A repeat table
+        goes to the repeat engine v2. Each cycle runs at the bucket of its
+        largest contig, in chunks of ``chunk_steps`` steps enqueued without
+        a host read, and is re-anchored by the full sparse likelihood.
+        Randomness comes from a ``torch.Generator`` seeded with ``seed``.
+        Returns (state, l_t, metrics); ``metrics["launches"]`` counts the
+        kernel launches of the refinement (ll_mini, obsgrid)."""
+        from graal_tpu_torch.core.mtm import make_delta_mtm_cycle
+
+        n = state0.n_frags
+        dev = self.device
+        steps = steps_per_cycle or n
+        jump = self.jump_table(delta, n)
+        rep = state0.rep.cpu().numpy()   # no move changes rep
+        anchor = self.anchor_fn()
+        params = self.params
+        state = state0
+        l_t = anchor(state, params)
+        s_max = delta_mod.build_mini_table(self.table, allow_repeats=True).s_max
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        metrics = {"likelihood": [], "accept_rate": [], "n_contigs": [], "f_max": [],
+                   "cycle_s": []}
+        launches0 = (self.mini_grid.n_launches, self.obs_grid.n_launches)
+        cycles = {}
+        t0 = time.time()
+        for j in range(n_cycles):
+            bucket = _next_pow2(2 * max_contig_subs(state, self.table) + 2 * s_max)
+            bucket = int(np.clip(bucket, f_max_min, min(f_max_cap, _next_pow2(n))))
+            if bucket not in cycles:
+                cycles[bucket] = make_delta_mtm_cycle(
+                    self.table, jump, bucket, self.sobs, variant=variant, band_w=self.w,
+                    corrected=corrected, obs_grid=self.obs_grid, mini_grid=self.mini_grid,
+                    rep=rep)
+            tc = time.time()
+            order = torch.randperm(n, generator=gen, device=dev)[:steps]
+            accs = []
+            for i in range(0, steps, chunk_steps):
+                state, l_t, (_, acc, ncs) = cycles[bucket](state, gen, params,
+                                                           order[i:i + chunk_steps], l_t, f_t)
+                accs.append(acc.cpu().numpy())   # host read between chunks
+            l_t = anchor(state, params)          # re-anchor per cycle
+            acc_rate = float(np.mean(np.concatenate(accs)))
+            nc = int(ncs[-1])
+            metrics["likelihood"].append(float(l_t))
+            metrics["accept_rate"].append(acc_rate)
+            metrics["n_contigs"].append(nc)
+            metrics["f_max"].append(bucket)
+            metrics["cycle_s"].append(time.time() - tc)
+            if progress:
+                print(f"scale {variant} cycle {j}: loglik={float(l_t):.1f} "
+                      f"accept={acc_rate:.2f} n_contigs={nc} f_max={bucket} "
+                      f"({time.time() - t0:.1f}s)", flush=True)
+        check_invariants(state)
+        metrics["launches"] = {"ll_mini": self.mini_grid.n_launches - launches0[0],
+                               "obsgrid": self.obs_grid.n_launches - launches0[1]}
+        return state, float(l_t), metrics
+
 
 def from_dataset(dataset_dir: str, size: int, factor: int = 3,
                  level: int | None = None, min_bin_per_contig: int = 1,
@@ -427,3 +531,43 @@ def from_dataset(dataset_dir: str, size: int, factor: int = 3,
               "v_inter": v_inter, "duplications": duplications, "pyramid": pyr,
               "level_soa": soa}
     return runner, state0, lev, extras
+
+
+def run_multilevel(dataset_dir: str, size: int, from_level: int, to_level: int,
+                   n_cycles: int, factor: int = 3, delta: int = 4, f_max_min: int = 256,
+                   f_t: float = 1.0, sample_param: bool = False, seed: int = 1,
+                   max_fit_bins: int = 2048, progress: bool = True, device="cuda"):
+    """Coarse-to-fine sparse assembly: assemble at ``from_level`` from a
+    scrambled start, then refine level by level down to ``to_level`` from
+    orientation-aware projected warm starts
+    (``multilevel.project_state_to_sub``), never densifying.
+
+    Returns (final_state, last_runner, last_level_handle,
+    metrics_per_level); each level's metrics carry its ``level`` and the
+    ``launches`` of its runner's kernels (ll_mini, obsgrid)."""
+    from graal_tpu_torch.multilevel import project_state_to_sub
+
+    if not from_level >= to_level >= 0:
+        raise ValueError(f"need from_level {from_level} >= to_level {to_level} >= 0")
+    prev_final = None
+    all_metrics = []
+    runner = lev = None
+    for lvl in range(from_level, to_level - 1, -1):
+        runner, state0, lev, extras = from_dataset(
+            dataset_dir, size, factor, level=lvl, max_fit_bins=max_fit_bins,
+            progress=progress, device=device)
+        if prev_final is None:
+            state = mcmc.explode_genome(state0)
+        else:
+            soa = project_state_to_sub(prev_final, extras["pyramid"].sub_ranges(lvl + 1),
+                                       np.asarray(extras["level_soa"]["len_bp"]))
+            soa["id_d"] = np.arange(len(soa["pos"]))
+            state = GenomeState.from_soa(soa, device=runner.device)
+        final, _, metrics = runner.run(
+            state, n_cycles=n_cycles, delta=delta, f_max_min=f_max_min, f_t=f_t,
+            sample_param=sample_param, seed=seed + lvl, init_truth=state0, progress=progress)
+        all_metrics.append({"level": lvl, **metrics,
+                            "launches": {"ll_mini": runner.mini_grid.n_launches,
+                                         "obsgrid": runner.obs_grid.n_launches}})
+        prev_final = final
+    return prev_final, runner, lev, all_metrics

@@ -2,7 +2,7 @@
 
 Counterpart of ``graal_tpu.utils.checkpoint``: one npz per save, written
 by atomic rename, holding ``state_<field>`` (the 11 int32 arrays),
-``params`` (the 8 model floats), ``cycle`` and ``extra_<name>`` entries.
+``params`` (the 8 model floats, of either contact model), ``cycle`` and ``extra_<name>`` entries.
 Where the JAX package stores its random key, the port stores the state of
 the run's ``torch.Generator`` (``generator``), so a resumed run continues
 the same random stream and equals the uninterrupted run bit for bit.
@@ -36,15 +36,15 @@ def save_checkpoint(path: str, state: GenomeState, params: RippeParams,
     os.replace(tmp, path)
 
 
-def load_checkpoint(path: str, device=None):
+def load_checkpoint(path: str, device=None, params_cls=RippeParams):
     """-> (state, params, cycle, generator_state, extra); the state and
-    params on ``device``, the generator state as ``gen.set_state`` takes
-    it."""
+    params (a ``params_cls``, RippeParams or HiCParams) on ``device``, the
+    generator state as ``gen.set_state`` takes it."""
     with np.load(path) as data:
         state = GenomeState(*[torch.as_tensor(data[f"state_{f}"], device=device)
                               for f in GenomeState._fields])
-        params = RippeParams(*[torch.tensor(np.float32(x), device=device)
-                               for x in data["params"]])
+        params = params_cls(*[torch.tensor(np.float32(x), device=device)
+                              for x in data["params"]])
         cycle = int(data["cycle"])
         gen_state = torch.from_numpy(data["generator"].copy())
         extra = {k[len("extra_"):]: data[k] for k in data.files if k.startswith("extra_")}

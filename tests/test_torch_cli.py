@@ -1,10 +1,16 @@
 """The port's CLI (graal_tpu_torch.cli) in this process, on the CPU.
 
 - Every ported command (simulate, pyramid, run, replay, scale, probe) runs
-  with ``--device cpu`` and writes its outputs.
-- Without ``--device cpu``, on a box with no card, ``run`` exits non-zero:
-  there is no silent CPU run.
-- Every refused option names the ROADMAP item that ports it.
+  with ``--device cpu`` and writes its outputs; so do the sampler stages
+  and options (``run --sampler em,mtm,mh``, ``--sampler tempered --chains
+  3``, ``--to-level``, ``--model hic``, ``scale --mtm-cycles`` and ``scale
+  --to-level``), each writing the files the JAX command writes (but the
+  layout plot, ROADMAP A13); ``run --sampler em,mtm,mh`` writes the JAX
+  run's files and series lengths.
+- Without ``--device cpu``, on a box with no card, every sampling command
+  and stage exits non-zero: there is no silent CPU run.
+- Every refused option names the ROADMAP item that ports it (A12: the
+  chains over the device mesh; A13: the profiler, snapshots, live view).
 - The whole-run comparison: a JAX ``cli run --platform cpu`` writes its
   mutation log; the port's ``replay`` of that log gives the JAX replay's
   final state bit for bit and its likelihood at rtol 1e-5, and a
@@ -64,13 +70,32 @@ def test_commands_run_on_cpu(ds, tmp_path, capsys):
     assert ll.shape == (len(ids), 13) and np.isfinite(ll[valid]).all()
 
 
-@pytest.mark.parametrize("command", ["run", "scale", "replay"])
+def level2_args(ds, out, *extra):
+    return ["run", ds, "--size", "3", "--level", "2", "--out", out,
+            "--fasta", os.path.join(ds, "genome.fa"), *extra]
+
+
+def scale_args(ds, out, *extra):
+    return ["scale", ds, "--size", "3", "--level", "1", "--cycles", "1", "--out", out,
+            "--f-max-min", "32", "--fasta", os.path.join(ds, "genome.fa"), *extra]
+
+
+@pytest.mark.parametrize("command", ["run", "scale", "replay", "run_mtm", "run_tempered",
+                                     "run_to_level", "run_hic", "scale_mtm",
+                                     "scale_to_level"])
 def test_default_device_is_the_card(ds, tmp_path, command):
-    argv = {"run": run_args(ds, str(tmp_path / "o"), "--cycles", "1"),
+    o = str(tmp_path / "o")
+    argv = {"run": run_args(ds, o, "--cycles", "1"),
             "scale": ["scale", ds, "--size", "3", "--level", "1", "--cycles", "1",
-                      "--out", str(tmp_path / "o")],
+                      "--out", o],
             "replay": ["replay", ds, str(tmp_path / "none.txt"), "--size", "3", "--level",
-                       "1", "--out", str(tmp_path / "o")]}[command]
+                       "1", "--out", o],
+            "run_mtm": run_args(ds, o, "--cycles", "1", "--sampler", "em,mtm,mh"),
+            "run_tempered": run_args(ds, o, "--sampler", "tempered"),
+            "run_to_level": level2_args(ds, o, "--to-level", "1"),
+            "run_hic": run_args(ds, o, "--model", "hic"),
+            "scale_mtm": scale_args(ds, o, "--mtm-cycles", "1"),
+            "scale_to_level": scale_args(ds, o, "--level", "2", "--to-level", "1")}[command]
     if torch.cuda.is_available():
         assert tcli.parser().parse_args(argv).device == "cuda"
         return
@@ -81,14 +106,12 @@ def test_default_device_is_the_card(ds, tmp_path, command):
 
 
 REFUSED = [
-    (["--model", "hic"], "A11"), (["--sampler", "em,mtm"], "A11"),
-    (["--sampler", "tempered"], "A11"), (["--to-level", "0"], "A11"),
     (["--profile"], "A13"), (["--snapshots"], "A13"), (["--snapshot-every", "2"], "A13"),
     (["--watch"], "A13"),
 ]
 SCALE_REFUSED = [
-    (["--chains", "2"], "A12"), (["--mtm-cycles", "1"], "A11"), (["--to-level", "0"], "A11"),
-    (["--profile"], "A13"), (["--snapshot-every", "2"], "A13"), (["--watch"], "A13"),
+    (["--chains", "2"], "A12"), (["--t-max", "2.0"], "A12"), (["--profile"], "A13"),
+    (["--snapshot-every", "2"], "A13"), (["--watch"], "A13"),
 ]
 
 
@@ -103,6 +126,88 @@ def test_refused_options_name_their_roadmap_item(ds, tmp_path, command):
             tcli.main(base + extra + ["--device", "cpu"])
         assert f"ROADMAP {item}" in str(e.value.code), (extra, e.value.code)
     assert not os.path.exists(out)
+
+
+SERIES = ["0list_likelihood.txt", "0list_n_contigs.txt", "0list_dist_init_genome.txt",
+          "0list_fact.txt", "0list_slope.txt", "0list_d_max.txt", "0list_d_nuc.txt",
+          "0list_success.txt", "0list_mean_len.txt", "0list_mutations.txt", "params.json"]
+FASTA = ["genome.fasta", "info_frags.txt", "assembly_stats.json"]
+SCALE_SERIES = ["0list_likelihood.txt", "0list_n_contigs.txt", "0list_dist_init_genome.txt",
+                "0list_overflow.txt", "0list_f_max.txt", "0list_fact.txt", "0list_slope.txt",
+                "0list_d_max.txt", "0list_d_nuc.txt"]
+
+
+def assert_outputs(out, names):
+    missing = [f for f in names if not os.path.exists(os.path.join(out, f))]
+    assert not missing, missing
+
+
+def test_sampler_stages_run_on_cpu(ds, tmp_path):
+    """Tempered chains, multilevel refinement and the HiC model through the
+    CLI, with the JAX commands' output files."""
+    from graal_tpu_torch.core.model_hic import HiCParams
+    from graal_tpu_torch.core.state import check_invariants
+
+    out = str(tmp_path / "tempered")
+    runner, asm = tcli.execute(run_args(ds, out, "--sampler", "tempered", "--chains", "3",
+                                        "--cycles", "2", "--device", "cpu"))
+    assert runner.chain_states.pos.shape[0] == 3 and len(asm.metrics["swap_accepts"]) == 2
+    assert_outputs(out, SERIES + FASTA)
+    check_invariants(asm.state)
+
+    out = str(tmp_path / "multilevel")
+    runner, asm = tcli.execute(level2_args(ds, out, "--to-level", "1", "--cycles", "1",
+                                           "--device", "cpu"))
+    assert [lv[0] for lv in runner.levels] == [2, 1]
+    assert asm.state.n_frags == runner.pyramid.get_level(1).n_frags
+    assert_outputs(out, SERIES + FASTA + ["checkpoint.npz"])
+
+    out = str(tmp_path / "hic")
+    runner, asm = tcli.execute(run_args(ds, out, "--model", "hic", "--cycles", "1",
+                                        "--device", "cpu"))
+    assert isinstance(asm.params, HiCParams) and not runner.sample_param
+    assert_outputs(out, SERIES + FASTA + ["checkpoint.npz"])
+
+
+def test_scale_mtm_and_multilevel_run_on_cpu(ds, tmp_path, capsys):
+    out = str(tmp_path / "scale_mtm")
+    runner, final, m = tcli.execute(scale_args(ds, out, "--mtm-cycles", "1",
+                                               "--steps-per-cycle", "32", "--device", "cpu"))
+    assert len(m["mtm"]["likelihood"]) == 1 and len(m["likelihood"]) == 2
+    assert_outputs(out, SCALE_SERIES + FASTA + ["checkpoint.npz"])
+    out = str(tmp_path / "scale_ml")
+    runner, final, per_level = tcli.execute(scale_args(ds, out, "--level", "2", "--to-level",
+                                                       "1", "--steps-per-cycle", "32",
+                                                       "--device", "cpu"))
+    assert [lv["level"] for lv in per_level] == [2, 1]
+    assert_outputs(out, FASTA)
+    tail = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith('{"levels"')]
+    assert all(np.isfinite(lv["final_loglik"]) for lv in json.loads(tail[-1])["levels"])
+
+
+def test_em_mtm_mh_writes_the_jax_runs_files(ds, tmp_path):
+    """``run --sampler em,mtm,mh``: per stage the carried likelihood is the
+    final genome's, and the outputs are the JAX run's files with its series
+    lengths."""
+    from graal_tpu_torch.core.likelihood import log_likelihood
+    from graal_tpu_torch.core.state import GenomeState as TState
+
+    tout = str(tmp_path / "port")
+    runner, asm = tcli.execute(run_args(ds, tout, "--cycles", "1", "--sampler", "em,mtm,mh",
+                                        "--device", "cpu"))
+    assert [st["name"] for st in runner.stages] == ["em", "mtm", "mh"]
+    obs = torch.as_tensor(runner.obs)
+    for st in runner.stages:
+        one = TState(*[x[None] for x in st["assembly"].state])
+        want = float(log_likelihood(one, runner.table, obs, st["assembly"].params)[0])
+        np.testing.assert_allclose(float(st["l_t"]), want, rtol=RTOL, err_msg=st["name"])
+    jout = str(tmp_path / "jax")
+    assert jcli.main(run_args(ds, jout, "--cycles", "1", "--sampler", "em,mtm,mh",
+                              "--platform", "cpu")) == 0
+    assert sorted(os.listdir(tout)) == sorted(os.listdir(jout))
+    for f in SERIES[:-1]:
+        with open(os.path.join(tout, f)) as a, open(os.path.join(jout, f)) as b:
+            assert len(a.readlines()) == len(b.readlines()), f
 
 
 def test_replay_of_a_jax_run_matches_jax(ds, tmp_path):

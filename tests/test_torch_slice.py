@@ -1,8 +1,8 @@
 """The port's slice as a whole, against the JAX package, on the CPU.
 
-- No file of graal_tpu_torch/ (its io/ package included; nor chip_smoke.py
-  or kernel_times.py) imports jax, graal_tpu or h5py: the port must run
-  where none of them is installed.
+- No file of graal_tpu_torch/ (its io/ and parallel/ packages included;
+  nor chip_smoke.py or kernel_times.py) imports jax, graal_tpu, h5py or
+  matplotlib: the port must run where none of them is installed.
 - ``graal_tpu_torch.entry.problem`` builds the same problem as
   ``__graft_entry__._problem`` (states, table, observed map, neighbour
   table bit for bit; params f32-equal).
@@ -56,10 +56,11 @@ def test_port_imports_neither_jax_nor_graal_tpu():
     assert len(files) > 10
     assert {"pyramid.py", "native_io.py", "formats.py", "fasta.py"} <= \
         {p.name for p in files if p.parent.name == "io"}
+    assert {"mtm.py", "model_hic.py", "tempering.py", "multilevel.py"} <= {p.name for p in files}
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
-            assert top not in ("jax", "jaxlib", "graal_tpu", "h5py"), \
+            assert top not in ("jax", "jaxlib", "graal_tpu", "h5py", "matplotlib"), \
                 f"{path.relative_to(ROOT)} imports {mod}"
 
 
