@@ -5,6 +5,10 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
+On a host with several cards, ``python3 chip_smoke.py --cards`` runs
+instead the across-cards checks (``phase_cards``): an NCCL world of one
+rank a card, and the CLI under ``torchrun`` against one process.
+
 Phases, in order; any failure raises and exits non-zero. Every kernel is
 timed at the shapes its path gives it twice, with CUDA events around many
 calls: as called ("ms", which at a few microseconds a call times the
@@ -43,7 +47,7 @@ keys and the grid written. "share" is the bound over the device time.
    (rtol 1e-4) and, on a small problem, to the f64 loop oracle (rtol 5e-5,
    atol 0.5). Timed against the plain version at B = 65 (true and
    exploded candidates), B = 1 and K = 6,000.
-4. Dense main path: 3 EM cycles of the flagship problem from its exploded
+4. Dense main path: 2 EM cycles of the flagship problem from its exploded
    start, nuisance sampling on, every score through the kernel. Checks the
    launch count, the invariants, that the carried likelihood equals the
    kernel's rescoring bit for bit, that the likelihood rose, and that a
@@ -97,10 +101,10 @@ keys and the grid written. "share" is the bound over the device time.
    extremity, with the checks and times of phase 5 at R = 1,024.
 7b. Repeat delta main path on that problem: cycle_for(1024, 4) for 256
    steps as in phase 7, with the drift bound max(2, 1e-5 |L|).
-8. ScaleRunner.run at 100,000 fragments: 2 cycles of 512 extremity-first
+8. ScaleRunner.run at 100,000 fragments: 1 cycle of 512 extremity-first
    steps from f_max 256 up the tier ladder, nuisance sampling on; the
    invariants hold and the likelihood rises.
-8a. ScaleRunner.run with id_d on the 200-dup problem: 1 cycle of 512
+8a. ScaleRunner.run with id_d on the 200-dup problem: 1 cycle of 256
    extremity-first steps, the same checks.
 9. The CLI on a dataset directory, in this process through
    ``graal_tpu_torch.cli`` (a temporary directory, removed at the end):
@@ -171,7 +175,49 @@ keys and the grid written. "share" is the bound over the device time.
    at both levels, each level's final likelihood finite, the invariants,
    genome.fasta; the last runner's B2 / B4 against their plain versions at
    every tier it used.
-11. Last lines: the nvidia-smi line, one JSON line on the kernels run, and
+11a. Tempered chains at 100,000 fragments (``ScaleRunner.run_chains``, this
+   slice's main path): 4 chains from distinct shuffles, each with its own
+   parameters. B4 bit-identical and B2 within 0.0039 (scores and deltas)
+   of their plain versions on one chains step's inputs, M = 20 slots, B2's
+   parameters one row per slot; a (10,) vector and its (20, 10) broadcast
+   give the same bits, and so does each chain's slots alone with its own
+   vector; both timed at R = 1,024 and at the run's bucket. 4 chains steps
+   at f_max 1,024, each chain bit-identical to its single-chain step on the
+   same draws, one B2 and one B4 launch a step. A 64-step chunk of all
+   chains under sync debug mode "error", every chain within max(0.5, 1e-6
+   |L|) of its re-anchor. Then ``run_chains`` itself, counts set to 0 just
+   before: 1 cycle of 256 steps from f_max_min 1,024 (the bucket follows
+   the largest contig of any chain: 4,096 on the shuffled start, below
+   the banded tier 8,192), nuisance sampling and one swap round; launches
+   exactly one B2 and one B4 a step, every chain's carried likelihood
+   within max(0.5, 1e-6 |L|) of its re-anchor, the invariants, the best
+   likelihood above the start's.
+11b. The same on the 20k repeat twin, 3 chains (M = 30): the chains steps
+   held to single-chain steps, 10 chains steps each re-anchored
+   (``bad_steps: 0``), and ``run_chains`` for 128 steps with the drift
+   bound max(2, 1e-5 |L|).
+11c. ``scale --chains 4 --t-max 4`` at level 1, 2 cycles of 128 steps a
+   chain: one B2 and one B4 launch a step, the outputs; ``--cycles 1``
+   then ``--cycles 2 --resume`` equals the uninterrupted run (final genome,
+   genome.fasta, every checkpoint entry but the wall times); then, at 64
+   steps a cycle, with ``--snapshot-every 1 --watch --profile`` (the
+   traced cycle is one chain's): live.html, live_status.json,
+   live_particles.json and a profiler trace that names ``ll_mini_items``
+   and ``obsgrid_rows`` (paintings only where matplotlib is installed).
+   And ``run --snapshots --watch --profile --snapshot-every 1`` at level
+   2 of a 576-fragment dataset (a traced cycle costs several untraced
+   ones): the .npy snapshots, the live files, a trace that names
+   ``ll_dense_items``.
+11d. ``parallel.sharding`` on the card: a 1-rank NCCL world in this process
+   (FileStore): the sharded dense likelihood, the sharded sparse anchor (4
+   chains, their own params, the 20k problem) and a sharded delta cycle (4
+   chains, 32 steps) bit for bit the one-process results; a 2-rank gloo
+   world, both ranks on cuda:0 (two processes of this script, each with a
+   timeout): likelihood and anchor within rtol 1e-5 / 1e-6, the chains
+   split over the ranks bit for bit the one-process chains; with several
+   cards, NCCL across them too. The results go on a JSON line before the
+   nvidia-smi line.
+12. Last lines: the nvidia-smi line, one JSON line on the kernels run, and
    {"ok": true, "device": {...}}. Each kernel's entry has the contract's
    keys (launches, max_abs_err, ms, plain_ms, bound_ms, bound_by,
    library_ms: null, as no single PyTorch call computes any of the four)
@@ -184,9 +230,12 @@ keys and the grid written. "share" is the bound over the device time.
    the main paths of phases 4-8 and the CLI runs cli_run, cli_run_delta,
    cli_scale, cli_run_repeats, cli_run_mtm, cli_run_tempered,
    cli_run_multilevel, cli_run_hic (0 launches), cli_scale_mtm,
-   cli_scale_multilevel, each CLI run's entry with the max abs error of its
-   kernel against the plain version there, and delta_mtm_exactness with its
-   bad steps).
+   cli_scale_multilevel, cli_scale_chains, each CLI run's entry with the
+   max abs error of its kernel against the plain version there,
+   delta_mtm_exactness with its bad steps, run_chains_100k, whose launches
+   join the top-level count, and run_chains_repeat_20k); B2's and B4's
+   chains shapes (M = 20 at R = 1,024 and at the run's bucket) under
+   "by_shape".
 """
 
 import contextlib
@@ -199,7 +248,7 @@ import time
 
 RTOL = 1e-4                 # kernel vs plain / dense oracle (bench.py:59)
 REF_RTOL, REF_ATOL = 5e-5, 0.5   # vs the f64 loop oracle (tests/test_parity.py)
-N_CYCLES = 3
+N_CYCLES = 2
 SEED = 0
 LARGE_BINS = 2000           # K = 6,000: the largest table scored densely
 SCALE_BINS = 100_000        # the chr1-class problem (bench_scale.py)
@@ -225,6 +274,15 @@ CHAINS = 4                  # tempered chains of phase 10b (the CLI's default)
 MTM_DELTA = 5               # the MTM / MH stages' jump-table partners (Runner.run_mtm)
 MTM_SLOTS = 13 * (MTM_DELTA + 2)   # candidates of one MTM / MH pass (B = 91)
 MTM_EXACT_STEPS = 10
+CHAIN_EQ_STEPS = 4          # chains steps held to single-chain steps (11a, 11b)
+CHAIN_CHUNK = 64            # the chains' chunk run under sync debug "error" (11a)
+CHAIN_STEPS = 256           # run_chains' main path: 1 cycle of 256 steps a chain (11a)
+B2_ABS_ERR = 0.0039         # B2 vs plain at per-chain params (the CLI paths' largest B2 error)
+CLI_CHAIN_STEPS = 128       # scale --chains steps a chain a cycle (11c)
+SMALL_BINS = 576            # 11c's run --profile dataset (level 2 ~60 bins)
+CLI_WATCH_STEPS = 64        # the same with --watch --profile: a traced cycle is slow
+DIST_STEPS = 32             # the sharded delta cycle's steps (11d)
+DIST_TIMEOUT_S = 300        # each process of an 11d world
 
 
 class SmokeFailure(RuntimeError):
@@ -419,13 +477,16 @@ def repeat_bound(scorer, vecs, pvec):
 
 def mini_bound(args):
     """Bound of a B2 call: the observed grids (their upper triangles) and
-    the five (M, C, R) vectors read once, scores and deltas written once."""
-    mid, idc, pvec = args[0], args[1], args[6]
+    the five (M, C, R) vectors read once (and an (M, 10) parameter matrix,
+    whose rows give each slot its own d_max), scores and deltas written
+    once."""
+    mid, idc = args[0], args[1]
     m, c, r = mid.shape
-    cis = in_range_pairs(mid.reshape(m * c, r), idc.reshape(m * c, r), pvec[3].item(),
-                         upper_mask(r, mid.device))
-    return bound(4 * (m * upper_cells(r) + 5 * m * c * r + m * c + m * (c - 1)),
-                 **scorer_counts(m * c * upper_cells(r), cis))
+    pvec = args[6].expand(m, args[6].shape[-1])
+    pairs = upper_mask(r, mid.device)
+    cis = sum(in_range_pairs(mid[a], idc[a], pvec[a, 3].item(), pairs) for a in range(m))
+    return bound(4 * (m * upper_cells(r) + 5 * m * c * r + m * c + m * (c - 1)
+                      + pvec.numel()), **scorer_counts(m * c * upper_cells(r), cis))
 
 
 def obsgrid_bound(b4):
@@ -959,13 +1020,14 @@ def delta_inputs(state, nb, params, scorer, extract, f_a, gen):
     which the step makes its observed grid, B2's arguments)."""
     import torch
     from graal_tpu_torch.core import mcmc
+    from graal_tpu_torch.core.delta import lift_chain
 
     f_a = torch.tensor(f_a, device=state.pos.device)
     ids, _ = mcmc.sample_neighbours(gen, f_a, state, nb, DELTA)
     rows, valid, _ = extract(state, f_a, ids, scorer.f_max)
     subs, _ = scorer.sub_rows(rows, valid)
-    _, geo, ob, accu_sub, pvec = scorer.inputs(state, f_a, ids, rows, valid, params,
-                                               state.id_c.amax())
+    _, geo, ob, accu_sub, pvec = scorer.inputs(*lift_chain(state, f_a, ids, rows, valid),
+                                               params, state.id_c.amax()[None])
     act0 = geo.act[:, 0]
     sobs = scorer.sobs
     b4 = (sobs.row_start, sobs.cols, sobs.vals, scorer.obs_keys(subs, act0))
@@ -1041,11 +1103,11 @@ def check_delta_kernels(sc, scorer, extract, frags, gen, want_m):
     b4, rows_act, args, s_k = first
     m, c, _ = args[0].shape
     for a in range(m):
-        alone = scorer.mini_grid.launch(*[x[a:a + 1].contiguous() for x in args[:6]], args[6])[0]
+        alone = scorer.mini_grid.launch(*[x[a:a + 1].contiguous() for x in args])[0]
         check(torch.equal(alone, s_k[a:a + 1]), f"neighbour {a} alone differs from its batch")
     for g in range(c):
         alone = scorer.mini_grid.launch(*[x[:1, g:g + 1].contiguous() for x in args[:5]],
-                                        args[5][:1].contiguous(), args[6])[0]
+                                        args[5][:1].contiguous(), args[6][:1].contiguous())[0]
         check(torch.equal(alone, s_k[:1, g:g + 1]), f"genome {g} alone differs from its batch")
     print(f"  B2: {m} neighbours and {c} genomes bit-identical alone and in the batch")
 
@@ -1351,7 +1413,7 @@ def phase_scale_main(sc, label="delta main path"):
     return r["launches"]
 
 
-def phase_runner(sc, n_cycles=2, steps=512):
+def phase_runner(sc, n_cycles=1, steps=512):
     import torch
     from graal_tpu_torch.scale import ScaleRunner
 
@@ -1909,8 +1971,8 @@ def mtm_delta_vs_plain(label, runner, state, bucket, f_a, n_time=0):
     ids, _ = mtm._neighbour_set(state, f_a, runner.jump_table(MTM_DELTA, state.n_frags))
     rows, valid, _ = delta.extract_rows_each(state, f_a, ids, scorer.f_max)
     subs, _ = scorer.sub_rows(rows, valid)
-    _, geo, ob, accu_sub, pvec = scorer.inputs(state, f_a, ids, rows, valid, runner.params,
-                                               state.id_c.amax())
+    _, geo, ob, accu_sub, pvec = scorer.inputs(*delta.lift_chain(state, f_a, ids, rows, valid),
+                                               runner.params, state.id_c.amax()[None])
     b4 = (runner.sobs.row_start, runner.sobs.cols, runner.sobs.vals,
           scorer.obs_keys(subs, geo.act[:, 0]))
     args = scorer.mini_grid_args(geo, ob, accu_sub, pvec)
@@ -2089,25 +2151,626 @@ def phase_mtm_exactness(device, n_bins=EXACT_BINS, steps=MTM_EXACT_STEPS):
 
 
 def phase_cli(device):
-    """Phases 9-9f and 10a-10e, 10g in a temporary directory that is removed
-    afterwards (10f, the exactness twins, runs after it)."""
+    """Phases 9-9f, 10a-10e, 10g and 11c in a temporary directory that is
+    removed afterwards (10f, the exactness twins, runs after it)."""
     import tempfile
 
     with tempfile.TemporaryDirectory(prefix="graal_cli_") as root:
         ds = phase_dataset(root)
-        dense = phase_cli_run(ds, root)
-        delta = phase_cli_delta(ds, root)
-        scale = phase_cli_scale(ds, root)
-        rep = phase_cli_repeats(ds, root)
-        stages = phase_cli_stages(ds, root)
-        tempered = phase_cli_tempered(ds, root)
-        multilevel = phase_cli_multilevel(ds, root)
-        hic = phase_cli_hic(ds, root)
-        scale_mtm = phase_cli_scale_mtm(ds, root)
-        scale_ml = phase_cli_scale_multilevel(ds, root)
+        dense = phase("cli run", phase_cli_run, ds, root)
+        delta = phase("cli delta", phase_cli_delta, ds, root)
+        scale = phase("cli scale", phase_cli_scale, ds, root)
+        rep = phase("cli repeats", phase_cli_repeats, ds, root)
+        stages = phase("cli stages", phase_cli_stages, ds, root)
+        tempered = phase("cli tempered", phase_cli_tempered, ds, root)
+        multilevel = phase("cli multilevel", phase_cli_multilevel, ds, root)
+        hic = phase("cli hic", phase_cli_hic, ds, root)
+        scale_mtm = phase("cli scale_mtm", phase_cli_scale_mtm, ds, root)
+        scale_ml = phase("cli scale_multilevel", phase_cli_scale_multilevel, ds, root)
+        scale_chains = phase("cli scale_chains", phase_cli_scale_chains, ds, root)
     return dict(dense=dense, delta=delta, scale=scale, repeat=rep, stages=stages,
                 tempered=tempered, multilevel=multilevel, hic=hic, scale_mtm=scale_mtm,
-                scale_multilevel=scale_ml)
+                scale_multilevel=scale_ml, scale_chains=scale_chains)
+
+
+def chain_starts(sc, n_chains=CHAINS):
+    """Distinct chain starts: the problem's shuffled start and other
+    shuffles of its truth into as many pieces, stacked on a chains axis."""
+    import torch
+    from graal_tpu_torch.core.state import GenomeState
+    from graal_tpu_torch.utils.synthetic_sparse import shuffle_genome
+
+    pieces = int(sc["shuf"].n_contigs())
+    starts = [sc["shuf"]] + [shuffle_genome(sc["truth"], pieces, seed=SEED + 100 + c)
+                             for c in range(n_chains - 1)]
+    return GenomeState(*[torch.stack(xs) for xs in zip(*starts)])
+
+
+def chain_params(params, n_chains=CHAINS):
+    """One parameter set per chain: the problem's, scaled by 1 + 0.01 c."""
+    import torch
+    from graal_tpu_torch.core.model import RippeParams
+
+    return RippeParams(*[torch.stack([x * (1.0 + 0.01 * c) for c in range(n_chains)])
+                         for x in params])
+
+
+def chain_extremities(states, k):
+    """(C,) fA of a chains step: the k-th contig extremity of each chain
+    (cycling through them)."""
+    import torch
+
+    out = []
+    for c in range(states.pos.shape[0]):
+        ext = extremities(type(states)(*[x[c] for x in states]))
+        out.append(int(ext[k % len(ext)]))
+    return torch.tensor(out, device=states.pos.device)
+
+
+def chains_inputs(states, nb, params_c, scorer, extract, gen):
+    """B4's and B2's arguments of one chains-axis step at the scorer's
+    bucket: each chain's fA a contig extremity, its neighbours drawn as the
+    step draws them, its member rows extracted on their own; M = chains x
+    slots, and B2's parameters one row per slot."""
+    import torch
+    from graal_tpu_torch.core import mcmc
+
+    dev = states.pos.device
+    n_chains = states.pos.shape[0]
+    f_a = chain_extremities(states, 0)
+    u = torch.rand((n_chains, nb.pk.shape[1]), generator=gen, device=dev)
+    ids, _ = mcmc.sample_neighbours(u, f_a, states, nb, DELTA)
+    rows, valid, _ = extract(states, f_a, ids, scorer.f_max)
+    subs, _ = scorer.sub_rows(rows.reshape(-1, rows.shape[-1]), valid.reshape(-1, rows.shape[-1]))
+    _, geo, ob, accu_sub, pvec = scorer.inputs(states, f_a, ids, rows, valid, params_c,
+                                               states.id_c.amax(-1))
+    b4 = (scorer.sobs.row_start, scorer.sobs.cols, scorer.sobs.vals,
+          scorer.obs_keys(subs, geo.act[:, 0]))
+    return b4, scorer.mini_grid_args(geo, ob, accu_sub, pvec), ids.shape[1]
+
+
+def check_chains_kernels(label, scorer, b4, args, m_per_chain):
+    """B4 bit-identical and B2 (an (M, 10) parameter matrix) within
+    B2_ABS_ERR of their plain versions; a (10,) vector and the same vector
+    broadcast to (M, 10) give the same bits; each chain's slots alone,
+    with their own (10,) vector, give the bits of the batch. Both timed.
+    Returns (B2 record, B4 record)."""
+    import torch
+
+    m = args[0].shape[0]
+    _, err4 = b4_vs_plain(scorer.obs_grid_kernel, b4, label)
+    s_k, err = b2_vs_plain(scorer.mini_grid, args, label)
+    d_k = scorer.mini_grid.launch(*args)[1]
+    d_p = scorer.mini_grid.plain(*args)[1]
+    dll_err = (d_k.double() - d_p.double()).abs().max().item()
+    print(f"  B2 {label}: scores max_abs_err {err:.6g}, dll max_abs_err {dll_err:.6g} "
+          f"(gate {B2_ABS_ERR} on both)")
+    check(max(err, dll_err) <= B2_ABS_ERR,
+          f"{label}: B2 error {max(err, dll_err)} > {B2_ABS_ERR}")
+    one = args[6][0]
+    shared = scorer.mini_grid.launch(*args[:6], one)
+    rows = scorer.mini_grid.launch(*args[:6], one.expand(m, one.shape[0]).contiguous())
+    check(all(torch.equal(a, b) for a, b in zip(shared, rows)),
+          f"{label}: a (10,) vector and its (M, 10) broadcast differ")
+    for c in range(m // m_per_chain):
+        sl = slice(c * m_per_chain, (c + 1) * m_per_chain)
+        alone = scorer.mini_grid.launch(*[x[sl].contiguous() for x in args[:6]],
+                                        args[6][sl.start].contiguous())
+        check(torch.equal(alone[0], s_k[sl]), f"{label}: chain {c} alone differs from the batch")
+    print(f"  B2 {label}: (10,) == broadcast (M, 10) bit for bit; every chain's slots alone "
+          "with their own (10,) vector equal the batch")
+    r = args[0].shape[2]
+    n_iter = min(100, max(5, 50 * 1024 * 1024 // (r * r)))
+    t2 = with_share(timed(lambda: scorer.mini_grid.launch(*args), n_iter,
+                          lambda: scorer.mini_grid.plain(*args), 2), mini_bound(args))
+    print(f"  time B2 R={r} M={m} (per-slot params): {fmt_time(t2)}; {fmt_bound(t2)}")
+    t4 = with_share(timed(lambda: scorer.obs_grid_kernel.launch(*b4), n_iter,
+                          lambda: scorer.obs_grid_kernel.plain(*b4), 2), obsgrid_bound(b4))
+    print(f"  time B4 R={r} M={m}: {fmt_time(t4)}; {fmt_bound(t4)}")
+    return dict(max_abs_err=err, dll_max_abs_err=dll_err, M=m, R=r, **t2), \
+        dict(max_abs_err=err4, M=m, R=r, **t4)
+
+
+def chains_equal_single(label, step, states, nb, params_c, n_steps, gen):
+    """``n_steps`` chains-axis steps, each chain held to its single-chain
+    step on the same draws: states and carried deltas bit for bit, and one
+    B2 and one B4 launch a chains step."""
+    import torch
+    from graal_tpu_torch.core import mcmc
+    from graal_tpu_torch.parallel.tempering import draw_chain_inputs
+
+    n_chains = states.pos.shape[0]
+    dev = states.pos.device
+    ladder = torch.tensor([1.0, 1.5, 2.5, 4.0][:n_chains], device=dev)
+    for it in range(n_steps):
+        draws = draw_chain_inputs(gen, nb, DELTA, n_chains)
+        f_a = chain_extremities(states, it)
+        counts = step.counts()
+        new, l_new, outs = step(states, draws, params_c, torch.zeros(n_chains, device=dev),
+                                f_a, ladder)
+        check(step.counts() == tuple(x + 1 for x in counts),
+              f"{label}: a chains step launched {step.counts()} (from {counts}), not one each")
+        for c in range(n_chains):
+            one = step(type(states)(*[x[c] for x in states]),
+                       mcmc.StepDraws(draws.u_nb[c], draws.gumbel[c], None, None, None),
+                       type(params_c)(*[x[c] for x in params_c]),
+                       torch.zeros((), device=dev), f_a[c], float(ladder[c]))
+            check(all(torch.equal(a[c], b) for a, b in zip(new, one[0])) and
+                  torch.equal(l_new[c], one[1]) and
+                  all(torch.equal(a[c], b) for a, b in zip(outs, one[2])),
+                  f"{label}: step {it}, chain {c} differs from its single-chain step")
+        states = new
+    print(f"  {label}: {n_steps} chains steps, each chain bit-identical to its single-chain "
+          f"step on the same draws (states, deltas, ops); one B2 and one B4 launch a step")
+    return states
+
+
+def counting_step(runner, table, sobs, nb, f_max, rep=None):
+    """The runner's delta step at ``f_max`` (launching through its
+    wrappers), with ``counts()`` = (ll_mini, obsgrid) launches so far."""
+    from graal_tpu_torch.core import delta
+
+    step = delta.make_delta_em_step(table, None, nb, DELTA, f_max, sobs=sobs, band_w=runner.w,
+                                    obs_grid=runner.obs_grid, mini_grid=runner.mini_grid,
+                                    rep=rep)
+    step.counts = lambda: (runner.mini_grid.n_launches, runner.obs_grid.n_launches)
+    return step
+
+
+def chains_main(label, runner, state0, n_chains, steps, f_max_min, drift_bound):
+    """``ScaleRunner.run_chains`` for one cycle of ``steps`` steps a chain
+    (nuisance on, one swap round): launches one B2 and one B4 a step for
+    all chains (counts set to 0 just before, read just after), each
+    chain's carried likelihood within ``drift_bound`` of its re-anchor,
+    every chain's genome valid, the best likelihood above the start's."""
+    import torch
+    from graal_tpu_torch.core.mcmc import n_slots
+    from graal_tpu_torch.core.state import check_invariants
+
+    l0 = runner.anchor_fn()(state0, runner.params).item()
+    torch.cuda.synchronize()
+    runner.mini_grid.n_launches = runner.obs_grid.n_launches = 0
+    t0 = time.perf_counter()
+    final, best, m = runner.run_chains(state0, n_chains=n_chains, n_cycles=1,
+                                       steps_per_cycle=steps, f_max_min=f_max_min, t_max=4.0,
+                                       exchange_every=1, sample_param=True, seed=SEED + 11,
+                                       chunk_steps=steps)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = (runner.mini_grid.n_launches, runner.obs_grid.n_launches)
+    floor, rel = drift_bound
+    lls = m["likelihood"][-1]
+    drift = m["drift"][-1]
+    bad = sum(d > max(floor, rel * abs(x)) for d, x in zip(drift, lls))
+    slots = n_slots(runner.nb, DELTA) // 13
+    print(f"  {label}: {n_chains} chains x {steps} steps at f_max {m['f_max']} (M = "
+          f"{n_chains} x {slots}), launches ll_mini {launches[0]}, obsgrid {launches[1]} "
+          f"(one of each a step: {steps}); likelihood {l0:.3f} -> chains {lls}, best "
+          f"{best:.3f}; swaps {m['swaps']}; drift per chain {drift} (bound max({floor}, "
+          f"{rel} |L|)); {seconds:.2f} s, cycle {m['cycle_s'][-1]:.3f} s "
+          f"({m['cycle_s'][-1] * 1e3 / steps:.3f} ms/step for all chains)")
+    check(launches == (steps, steps), f"{label}: launches {launches} != one each a step")
+    check(bad == 0, f"{label}: {bad} chains' carried likelihood drifted beyond the bound")
+    check(best > l0, f"{label}: best likelihood {best} did not rise above {l0}")
+    for c in range(n_chains):
+        st = type(final)(*[x[c] for x in runner.chain_states])
+        check(check_invariants(st, raise_on_error=False) == [], f"{label}: chain {c} invariants")
+    rescored = runner.anchor_fn()(final, m["params"]).item()
+    check(abs(rescored - best) <= max(0.5, 1e-6 * abs(best)),
+          f"{label}: the best chain's params score its genome to {rescored}, not {best}")
+    return dict(launches=launches, steps=steps, f_max=m["f_max"][-1], drift=drift,
+                likelihood=lls, best=best, l0=l0, seconds=seconds, cycle_s=m["cycle_s"][-1],
+                swaps=m["swaps"], bad_steps=bad)
+
+
+def phase_chains(sc):
+    """11a. Tempered chains on the 100k problem (ScaleRunner.run_chains)."""
+    import torch
+    from graal_tpu_torch.core import delta
+    from graal_tpu_torch.scale import ScaleRunner
+
+    print(f"run_chains at {sc['n']} fragments: {CHAINS} chains, f_max_min {F_MAX}, delta "
+          f"{DELTA}, per-chain params")
+    runner = ScaleRunner(sc["table"], sc["sobs"], sc["params"], nb=sc["runner"].nb)
+    states = chain_starts(sc)
+    pc = chain_params(sc["params"])
+    gen = torch.Generator(device=states.pos.device).manual_seed(SEED)
+    scorer = delta.make_delta_scorer(sc["table"], None, F_MAX, sobs=sc["sobs"],
+                                     obs_grid=runner.obs_grid, mini_grid=runner.mini_grid)
+    b4, args, m = chains_inputs(states, runner.nb, pc, scorer, delta.extract_rows_union, gen)
+    check(args[0].shape[0] == CHAINS * m == 20 and args[6].shape == (20, 10),
+          f"chains step inputs: M {args[0].shape[0]}, pvec {tuple(args[6].shape)}")
+    b2_rec, b4_rec = check_chains_kernels(f"{CHAINS} chains R={F_MAX}", scorer, b4, args, m)
+    step = counting_step(runner, sc["table"], sc["sobs"], runner.nb, F_MAX)
+    chains_equal_single(f"{CHAINS} chains at f_max {F_MAX}", step, states, runner.nb, pc,
+                        CHAIN_EQ_STEPS, gen)
+    # the chains' chunk alone under sync debug "error": no host read inside
+    cycle = runner.chains_cycle_for(F_MAX, DELTA)
+    order = torch.stack([torch.randperm(sc["n"], generator=gen, device=states.pos.device)
+                         [:CHAIN_CHUNK] for _ in range(CHAINS)])
+    l0 = runner.chains_anchor_fn()(states, pc)
+    ladder = torch.tensor([1.0, 1.5, 2.5, 4.0], device=states.pos.device)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        cur, l_t, _ = cycle(states, gen, pc, order, l0, ladder)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    l_re = runner.chains_anchor_fn()(cur, pc)
+    drift = (l_t - l_re).abs().tolist()
+    print(f"  a {CHAIN_CHUNK}-step chunk of all chains under sync debug mode \"error\": carried "
+          f"{l_t.tolist()}, re-anchored {l_re.tolist()}, drift {drift}")
+    check(all(d <= max(0.5, 1e-6 * abs(x)) for d, x in zip(drift, l_re.tolist())),
+          f"chains chunk drift {drift}")
+    out = chains_main("run_chains (main path)", runner, sc["shuf"], CHAINS, CHAIN_STEPS, F_MAX,
+                      (0.5, 1e-6))
+    bucket = out["f_max"]
+    if bucket != F_MAX:   # the kernels at the bucket the run used, too
+        sc_b = delta.make_delta_scorer(sc["table"], None, bucket, sobs=sc["sobs"],
+                                       obs_grid=runner.obs_grid, mini_grid=runner.mini_grid)
+        b4_b, args_b, m = chains_inputs(states, runner.nb, pc, sc_b, delta.extract_rows_union,
+                                        gen)
+        b2_b, b4_bb = check_chains_kernels(f"{CHAINS} chains R={bucket}", sc_b, b4_b, args_b, m)
+        out.update(b2_bucket=b2_b, b4_bucket=b4_bb)
+    return dict(out, ll_mini=b2_rec, obsgrid=b4_rec)
+
+
+def phase_chains_repeats(rsc, n_chains=3, steps=128):
+    """11b. The 20k repeat twin under run_chains."""
+    import torch
+    from graal_tpu_torch.core import delta
+    from graal_tpu_torch.scale import ScaleRunner
+
+    print(f"run_chains on the repeat twin ({rsc['n']} fragments): {n_chains} chains")
+    runner = ScaleRunner(rsc["table"], rsc["sobs"], rsc["params"], nb=rsc["runner"].nb,
+                         **rsc["runner_kw"])
+    states = chain_starts(rsc, n_chains)
+    pc = chain_params(rsc["params"], n_chains)
+    anchor = runner.chains_anchor_fn()
+    step = counting_step(runner, rsc["table"], rsc["sobs"], runner.nb, F_MAX,
+                         rep=rsc["shuf"].rep)
+    gen = torch.Generator(device=states.pos.device).manual_seed(SEED)
+    states = chains_equal_single(f"repeat twin, {n_chains} chains", step, states, runner.nb, pc,
+                                 CHAIN_EQ_STEPS, gen)
+    # per-step exactness of every chain: each chains step re-anchored
+    bad, worst, moved = 0, 0.0, 0
+    l_t = anchor(states, pc)
+    ladder = torch.ones(n_chains, device=states.pos.device)
+    from graal_tpu_torch.parallel.tempering import draw_chain_inputs
+
+    for it in range(10):
+        f_a = chain_extremities(states, it + CHAIN_EQ_STEPS)
+        new, l_new, outs = step(states, draw_chain_inputs(gen, runner.nb, DELTA, n_chains), pc,
+                                l_t, f_a, ladder)
+        l_re = anchor(new, pc)
+        for c in range(n_chains):
+            err = abs(l_new[c].item() - l_re[c].item())
+            worst = max(worst, err)
+            bad += err > max(0.5, 1e-6 * abs(l_re[c].item()))
+            moved += int(outs[0][c]) >= 0
+        states, l_t = new, l_re
+    print(f"  per-step exactness: {10 * n_chains} chain steps, {moved} moves, bad_steps {bad}, "
+          f"worst {worst:.6g}")
+    check(bad == 0, f"repeat chains: {bad} steps beyond max(0.5, 1e-6 |L|)")
+    out = chains_main("run_chains (repeat twin)", runner, rsc["shuf"], n_chains, steps, F_MAX,
+                      rsc["drift_bound"])
+    # B2 / B4 at the run's bucket on the chains' inputs (the single-copy part)
+    from graal_tpu_torch.core.delta_repeats import make_repeat_delta_scorer_v2
+
+    engine = make_repeat_delta_scorer_v2(rsc["table"], out["f_max"], rsc["sobs"],
+                                         rsc["shuf"].rep, obs_grid=runner.obs_grid,
+                                         mini_grid=runner.mini_grid)
+    b4, args, m = chains_inputs(states, runner.nb, pc, engine.plain, delta.extract_rows_each,
+                                gen)
+    b2_rec, b4_rec = check_chains_kernels(f"repeat twin, {n_chains} chains R={out['f_max']}",
+                                          engine.plain, b4, args, m)
+    return dict(out, exact_bad_steps=bad, exact_worst=worst, ll_mini=b2_rec, obsgrid=b4_rec)
+
+
+def phase_cli_scale_chains(ds, root):
+    """11c. scale --chains 4 --t-max 4 at level 1, then --resume, then
+    --snapshot-every 1 --watch --profile; and run --snapshots --watch
+    --profile at level 2 of a small dataset."""
+    import importlib.util
+
+    import numpy as np
+    import torch
+    from graal_tpu_torch.core import delta
+    from graal_tpu_torch.core.state import check_invariants
+
+    has_mpl = importlib.util.find_spec("matplotlib") is not None
+
+    def argv(out, cycles, *extra, steps=CLI_CHAIN_STEPS):
+        return ["scale", ds, "--size", "3", "--level", "1", "--cycles", str(cycles),
+                "--chains", str(CHAINS), "--t-max", "4", "--steps-per-cycle", str(steps),
+                "--f-max-min", "64", "--fasta", os.path.join(ds, "genome.fa"), "--out", out,
+                *extra]
+
+    print(f"cli scale --chains {CHAINS} --t-max 4: level 1, {CLI_CHAIN_STEPS} steps a chain "
+          "a cycle, f_max_min 64")
+    full, part = os.path.join(root, "o11c"), os.path.join(root, "o11c_resumed")
+    t0 = time.perf_counter()
+    runner, final, m = cli(argv(full, 2))
+    seconds = time.perf_counter() - t0
+    ch = m["chains"]
+    launches = (runner.mini_grid.n_launches, runner.obs_grid.n_launches)
+    print(f"  launches ll_mini {launches[0]}, obsgrid {launches[1]} (one of each a step: "
+          f"{2 * CLI_CHAIN_STEPS}); best {ch['best']}, f_max {ch['f_max']}, swaps {ch['swaps']}, "
+          f"drift {ch['drift']}; {seconds:.1f} s, cycles {ch['cycle_s']} s")
+    check(launches == (2 * CLI_CHAIN_STEPS,) * 2, f"cli scale --chains launches {launches}")
+    check(check_invariants(final, raise_on_error=False) == [], "cli scale --chains invariants")
+    # the run's B2 / B4 at its bucket on one chains step of its final chains
+    bucket = ch["f_max"][-1]
+    scorer = delta.make_delta_scorer(runner.table, None, bucket, sobs=runner.sobs,
+                                     band_w=delta.effective_band_w(runner.w, runner.table,
+                                                                   bucket),
+                                     obs_grid=runner.obs_grid, mini_grid=runner.mini_grid)
+    check(scorer.band_w is None, "the chains run's bucket takes the banded path, not B2")
+    gen = torch.Generator(device=final.pos.device).manual_seed(SEED)
+    b4, args, m_slots = chains_inputs(runner.chain_states, runner.nb,
+                                      chain_params(runner.params), scorer,
+                                      delta.extract_rows_union, gen)
+    b2_rec, b4_rec = check_chains_kernels(f"cli scale --chains R={args[0].shape[2]}", scorer,
+                                          b4, args, m_slots)
+    check_outputs(full, ["0list_likelihood.txt", "0list_n_contigs.txt", "0list_f_max.txt",
+                         "0list_d_nuc.txt", "genome.fasta", "info_frags.txt",
+                         "chains_checkpoint.npz"])
+    cli(argv(part, 1))
+    _, res, _ = cli(argv(part, 2, "--resume"))
+    check(all(torch.equal(a, b) for a, b in zip(final, res)),
+          "scale --chains --resume: the final genome differs from the uninterrupted run")
+    with open(os.path.join(full, "genome.fasta")) as fa, \
+            open(os.path.join(part, "genome.fasta")) as fb:
+        check(fa.read() == fb.read(), "scale --chains --resume: genome.fasta differs")
+    with np.load(os.path.join(full, "chains_checkpoint.npz")) as a, \
+            np.load(os.path.join(part, "chains_checkpoint.npz")) as b:
+        diff = [k for k in a.files if k != "m_cycle_s" and not np.array_equal(a[k], b[k])]
+    check(not diff, f"scale --chains --resume: checkpoint entries differ: {diff}")
+    print("  --resume (1 cycle, then 2 resumed): final genome, genome.fasta and every "
+          "checkpoint entry but the wall times equal the uninterrupted run")
+    watch = os.path.join(root, "o11c_watch")
+    t0 = time.perf_counter()
+    # the traced cycle (one chain's run) takes --steps-per-cycle steps too
+    cli(argv(watch, 1, "--snapshot-every", "1", "--watch", "--profile", steps=CLI_WATCH_STEPS))
+    watch_s = time.perf_counter() - t0
+    check_outputs(watch, ["live.html", "live_status.json", "live_particles.json",
+                          "profile/trace.json"] +
+                  (["layout_0001.png", "layout_latest.png", "genome_layout.png"]
+                   if has_mpl else []))
+    with open(os.path.join(watch, "profile", "trace.json")) as fh:
+        trace = fh.read()
+    check("ll_mini_items" in trace and "obsgrid_rows" in trace,
+          "the scale profile trace does not name the B2 / B4 kernels")
+    status = json.load(open(os.path.join(watch, "live_status.json")))
+    print(f"  --snapshot-every 1 --watch --profile: live page and JSON written (stats "
+          f"{status['stats']}), trace names ll_mini_items and obsgrid_rows; matplotlib "
+          f"{'present: paintings written' if has_mpl else 'absent: no .png asked for'}; "
+          f"{watch_s:.1f} s")
+    # run --snapshots --watch --profile on B1 (the trace is the second
+    # cycle's), on a small dataset: a traced cycle costs several untraced ones
+    small = os.path.join(root, "ds_small")
+    cli(["simulate", small, "--bins", str(SMALL_BINS), "--contigs", "4", "--seed", str(SEED)])
+    cli(["pyramid", small, "--size", "3"])
+    runo = os.path.join(root, "o11c_run")
+    t0 = time.perf_counter()
+    runner_r, asm = cli(run_argv(small, runo, "--cycles", "2", "--snapshots", "--watch",
+                                 "--profile", "--snapshot-every", "1"))
+    run_s = time.perf_counter() - t0
+    check_outputs(runo, ["pre_assembly.npy", "post_assembly.npy", "snapshot_0001.npy",
+                         "snapshot_0002.npy", "live.html", "live_status.json",
+                         "live_particles.json", "profile/trace.json"] +
+                  (["genome_layout.png", "layout_latest.png"] if has_mpl else []))
+    with open(os.path.join(runo, "profile", "trace.json")) as fh:
+        check("ll_dense_items" in fh.read(), "the run profile trace does not name ll_dense")
+    snap = np.load(os.path.join(runo, "snapshot_0002.npy"))
+    check(snap.shape[0] == snap.shape[1] > 0, f"snapshot shape {snap.shape}")
+    print(f"  run --snapshots --watch --profile --snapshot-every 1: snapshots {snap.shape}, "
+          f"live files, trace names ll_dense_items; {run_s:.1f} s")
+    return dict(launches=launches, ll_mini=b2_rec, obsgrid=b4_rec, seconds=seconds,
+                cycle_s=ch["cycle_s"],
+                best=ch["best"], swaps=ch["swaps"], drift=ch["drift"], watch_s=watch_s,
+                run_s=run_s, run_launches=runner_r.scorer.n_launches)
+
+
+def dist_checks(device, world):
+    """Each sharded function of ``parallel.sharding`` against the
+    one-process result on this rank: the dense likelihood (rows split
+    over the world), the sparse anchor (4 chains with their own params)
+    and a delta cycle of 4 chains split over the world (rows = 1). Returns
+    the numbers and the bit-equality flags."""
+    import torch
+    from graal_tpu_torch.core import delta, sparse
+    from graal_tpu_torch.entry import problem, scale_problem
+    from graal_tpu_torch.parallel import sharding
+    from graal_tpu_torch.scale import ScaleRunner
+
+    state, table, params, obs, _ = problem(device=device)
+    got = sharding.sharded_log_likelihood(sharding.make_mesh(1, world), table,
+                                          obs)(state, params)
+    one = sharding._block_log_likelihood(state, table, torch.as_tensor(obs, device=device),
+                                         params, 0).float()
+    truth, shuf, stable, sparams, sobs = scale_problem(EXACT_BINS, device=device)
+    runner = ScaleRunner(stable, sobs, sparams)
+    sc = dict(truth=truth, shuf=shuf)
+    states = chain_starts(sc)
+    pc = chain_params(sparams)
+    anchor = sharding.make_sharded_sparse_anchor(sharding.make_mesh(1, world),
+                                                 stable, sobs, runner.w)(states, pc)
+    anchor_one = sparse.make_sparse_loglik(stable, sobs, runner.w)(states, pc)
+    orders = torch.stack([torch.randperm(EXACT_BINS, generator=torch.Generator(device=device)
+                                         .manual_seed(c), device=device)[:DIST_STEPS]
+                          for c in range(CHAINS)])
+    ladder = torch.tensor([1.0, 1.5, 2.5, 4.0], device=device)
+    cyc = sharding.make_sharded_delta_cycle(sharding.make_mesh(world, 1), stable,
+                                            runner.nb, DELTA, F_MAX, sobs=sobs, band_w=runner.w,
+                                            per_chain_params=True)
+    got_c = cyc(states, torch.Generator(device=device).manual_seed(3), pc, orders, anchor_one,
+                ladder)
+    one_c = delta.make_delta_em_cycle(stable, None, runner.nb, DELTA, F_MAX, sobs=sobs,
+                                      anchor_fn=False, band_w=runner.w)(
+        states, torch.Generator(device=device).manual_seed(3), pc, orders, anchor_one, ladder)
+    torch.cuda.synchronize()
+    return dict(
+        ll=got.item(), ll_one=one.item(), ll_equal=bool(torch.equal(got, one)),
+        anchor=anchor.tolist(), anchor_one=anchor_one.tolist(),
+        anchor_equal=bool(torch.equal(anchor, anchor_one)),
+        cycle_equal=all(torch.equal(a, b) for a, b in zip(got_c[0], one_c[0]))
+        and bool(torch.equal(got_c[1], one_c[1])),
+        cycle_moved=bool((got_c[0].id_c != states.id_c).any()), l_ts=got_c[1].tolist())
+
+
+def dist_child(rank, world, store, out, backend):
+    """One rank of phase 11d's worlds (``python3 chip_smoke.py --dist-child
+    ...``): joins the world, runs :func:`dist_checks` on its card, writes
+    the results."""
+    import torch
+    import torch.distributed as dist
+
+    device = torch.device("cuda", rank if backend == "nccl" else 0)
+    torch.cuda.set_device(device)
+    dist.init_process_group(backend, init_method=f"file://{store}", rank=rank,
+                            world_size=world)
+    try:
+        res = dist_checks(device, world)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as fh:
+        json.dump(res, fh)
+
+
+def dist_world(root, world, backend):
+    """Launch a ``world``-process ``backend`` world of this script's
+    :func:`dist_child`, each process with a timeout; returns every rank's
+    results."""
+    d = os.path.join(root, f"{backend}{world}")
+    os.makedirs(d)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dist-child",
+                               str(r), str(world), os.path.join(d, "store"), d, backend],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=DIST_TIMEOUT_S)[0])
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+            p.wait()
+        raise SmokeFailure(f"the {world}-rank {backend} world did not finish in "
+                           f"{DIST_TIMEOUT_S} s")
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0, f"{backend} rank {r} failed:\n{out[-3000:]}")
+    res = [json.load(open(os.path.join(d, f"rank{r}.json"))) for r in range(world)]
+    return res, time.perf_counter() - t0
+
+
+def phase_dist(device):
+    """11d. parallel.sharding on the card: a 1-rank NCCL world in this
+    process, a 2-rank gloo world with both ranks on cuda:0, and NCCL
+    across the cards when there are several."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="graal_dist_") as root:
+        t0 = time.perf_counter()
+        dist.init_process_group("nccl", init_method=f"file://{root}/store1", rank=0,
+                                world_size=1)
+        try:
+            r1 = dist_checks(device, 1)
+        finally:
+            dist.destroy_process_group()
+        out["nccl1"] = dict(r1, seconds=time.perf_counter() - t0)
+        print(f"1-rank NCCL world (FileStore): dense ll {r1['ll']} (one process "
+              f"{r1['ll_one']}), anchor {r1['anchor']}, cycle l_ts {r1['l_ts']}; "
+              f"{out['nccl1']['seconds']:.1f} s")
+        check(r1["ll_equal"] and r1["anchor_equal"] and r1["cycle_equal"],
+              "the 1-rank NCCL world differs from the one-process results")
+        check(r1["cycle_moved"], "the sharded delta cycle moved nothing")
+        worlds = [(2, "gloo")] + ([(torch.cuda.device_count(), "nccl")]
+                                  if torch.cuda.device_count() > 1 else [])
+        for world, backend in worlds:
+            out[f"{backend}{world}"] = checked_world(root, world, backend)
+    return out
+
+
+def checked_world(root, world, backend):
+    """A ``world``-rank ``backend`` world of :func:`dist_child`, held to the
+    one-process results: likelihood and anchor within rtol 1e-5 / 1e-6,
+    the chains split over the ranks bit for bit, every rank alike."""
+    import numpy as np
+
+    res, seconds = dist_world(root, world, backend)
+    for r, x in enumerate(res):
+        check(np.allclose(x["ll"], x["ll_one"], rtol=1e-5, atol=0.0),
+              f"{backend} rank {r}: sharded ll {x['ll']} vs one process {x['ll_one']}")
+        check(np.allclose(x["anchor"], x["anchor_one"], rtol=1e-6, atol=0.0),
+              f"{backend} rank {r}: sharded anchor {x['anchor']} vs {x['anchor_one']}")
+        check(x["cycle_equal"], f"{backend} rank {r}: the chains split over the ranks "
+              "differ from the one-process chains")
+        check(x == res[0], f"{backend} rank {r}'s results differ from rank 0's")
+    where = "both on cuda:0" if backend == "gloo" else "one card a rank"
+    print(f"{world}-rank {backend} world ({where}): dense ll {res[0]['ll']} (one process "
+          f"{res[0]['ll_one']}), anchor {res[0]['anchor']} (one process "
+          f"{res[0]['anchor_one']}), chains over ranks == one process bit for bit; "
+          f"{seconds:.1f} s")
+    return dict(res[0], seconds=seconds)
+
+
+def phase_cards(device):
+    """``python3 chip_smoke.py --cards``, on a host with several cards:
+    parallel.sharding in an NCCL world of one rank a card (as 11d), and the
+    CLI under ``torchrun`` across the cards (``scale --chains 4 --t-max 4``
+    at level 1, 2 cycles of 256 steps, and ``run --sampler tempered
+    --chains 4`` at level 2) against the same commands in one process on
+    one card: the likelihood series and genome.fasta must be the same."""
+    import tempfile
+
+    import torch
+
+    n = torch.cuda.device_count()
+    check(n > 1, f"--cards needs several cards, this host has {n}")
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="graal_cards_") as root:
+        out[f"nccl{n}"] = checked_world(root, n, "nccl")
+        ds = phase_dataset(root)
+        fa = os.path.join(ds, "genome.fa")
+        runs = {"scale_chains": ["scale", ds, "--size", "3", "--level", "1", "--cycles", "2",
+                                 "--chains", str(CHAINS), "--t-max", "4", "--steps-per-cycle",
+                                 str(CLI_CHAIN_STEPS), "--f-max-min", "64", "--fasta", fa],
+                "run_tempered": ["run", ds, "--size", "3", "--level", "2", "--fasta", fa,
+                                 "--cycles", "1", "--sampler", "tempered", "--chains",
+                                 str(CHAINS)]}
+        launchers = {"torchrun": [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                                  f"--nproc-per-node={n}", "-m", "graal_tpu_torch.cli"],
+                     "one_process": [sys.executable, "-m", "graal_tpu_torch.cli"]}
+        for name, args in runs.items():
+            rec = {}
+            for how, cmd in launchers.items():
+                o = os.path.join(root, f"{name}_{how}")
+                t0 = time.perf_counter()
+                r = subprocess.run(cmd + args + ["--out", o], capture_output=True, text=True,
+                                   timeout=DIST_TIMEOUT_S)
+                check(r.returncode == 0, f"{name} ({how}) failed:\n{r.stdout[-3000:]}"
+                      f"\n{r.stderr[-3000:]}")
+                with open(os.path.join(o, "0list_likelihood.txt")) as fh, \
+                        open(os.path.join(o, "genome.fasta")) as fg:
+                    rec[how] = dict(seconds=time.perf_counter() - t0, likelihood=fh.read(),
+                                    fasta=fg.read())
+            same = rec["torchrun"]["likelihood"] == rec["one_process"]["likelihood"] and \
+                rec["torchrun"]["fasta"] == rec["one_process"]["fasta"]
+            print(f"{name}: torchrun over {n} cards {rec['torchrun']['seconds']:.1f} s, one "
+                  f"process on one card {rec['one_process']['seconds']:.1f} s; likelihood "
+                  f"series and genome.fasta the same: {same}")
+            check(same, f"{name}: torchrun across the cards differs from one process")
+            out[name] = {h: dict(seconds=v["seconds"], likelihood=v["likelihood"].split())
+                         for h, v in rec.items()}
+    return out
 
 
 def kernel_record(name, source, replaces, launches, record):
@@ -2118,15 +2781,20 @@ def kernel_record(name, source, replaces, launches, record):
 
 
 def kernels_line(dense, dense_launches, repeat, repeat_launches, delta, mini_launches,
-                 repeat_delta, obs_launches, cli_runs, mtm_exact):
+                 repeat_delta, obs_launches, cli_runs, mtm_exact, chains):
     """The {"kernels": [...]} line from the phases' records; the B2 / B4
     launches are (100k path, 20k repeat path); ``cli_runs`` is
     :func:`phase_cli`'s record, whose counts and errors against the plain
     versions go under each kernel's "by_path" (cli_run, cli_run_delta,
     cli_scale, cli_run_repeats, cli_run_mtm, cli_run_tempered,
-    cli_run_multilevel, cli_run_hic, cli_scale_mtm, cli_scale_multilevel),
-    with ``mtm_exact`` (phase 10f) as delta_mtm_exactness."""
+    cli_run_multilevel, cli_run_hic, cli_scale_mtm, cli_scale_multilevel,
+    cli_scale_chains), with ``mtm_exact`` (phase 10f) as
+    delta_mtm_exactness and ``chains`` (phases 11a, 11b) as
+    run_chains_100k (this slice's main path, whose launches join the
+    top-level count) and run_chains_repeat_20k; the chains' B2 / B4 shapes
+    (M = 20) go under "by_shape"."""
     c = cli_runs
+    ch, chr_ = chains["main"], chains["repeat"]
 
     def entry(rec, key="launches", err="max_abs_err"):
         return dict(launches=rec[key], max_abs_err=rec[err])
@@ -2141,12 +2809,32 @@ def kernels_line(dense, dense_launches, repeat, repeat_launches, delta, mini_lau
                 "cli_scale_multilevel": entry(c["scale_multilevel"], key, f"{key}_err"),
                 "delta_mtm_exactness": dict(
                     launches=mtm_exact[key],
-                    bad_steps=sum(s["bad_steps"] for s in mtm_exact["stats"].values()))}
+                    bad_steps=sum(s["bad_steps"] for s in mtm_exact["stats"].values())),
+                "run_chains_100k": dict(
+                    launches=ch["launches"][key == "obs"], steps=ch["steps"], f_max=ch["f_max"],
+                    max_abs_err=ch["ll_mini" if key == "mini" else "obsgrid"]["max_abs_err"]),
+                "run_chains_repeat_20k": dict(
+                    launches=chr_["launches"][key == "obs"], steps=chr_["steps"],
+                    bad_steps=chr_["exact_bad_steps"],
+                    max_abs_err=chr_["ll_mini" if key == "mini" else "obsgrid"]["max_abs_err"]),
+                "cli_scale_chains": dict(
+                    launches=c["scale_chains"]["launches"][key == "obs"],
+                    max_abs_err=c["scale_chains"]["ll_mini" if key == "mini"
+                                                  else "obsgrid"]["max_abs_err"])}
+
+    def chain_shapes(name):
+        out = {f"{name}_chains_R{ch[name]['R']}_M{ch[name]['M']}": ch[name]}
+        bucket = ch.get("b2_bucket" if name == "ll_mini" else "b4_bucket")
+        if bucket is not None:
+            out[f"{name}_chains_R{bucket['R']}_M{bucket['M']}"] = bucket
+        for tag, rec in (("repeat", chr_[name]), ("cli", c["scale_chains"][name])):
+            out[f"{name}_chains_{tag}_R{rec['R']}_M{rec['M']}"] = rec
+        return out
 
     mini = dict(delta["ll_mini"], by_path=by_path(mini_launches, repeat_delta["ll_mini"],
                                                   "mini"))
     shape = c["scale_mtm"]["mtm_shape"]
-    mini["by_shape"] = {f"B2_mtm_R{shape['R']}_M{shape['M']}": shape}
+    mini["by_shape"] = {f"B2_mtm_R{shape['R']}_M{shape['M']}": shape, **chain_shapes("ll_mini")}
     return {"kernels": [
         kernel_record("ll_dense", "ll_dense.cu", "graal_tpu/ops/likelihood_pallas.py:65",
                       dense_launches, dict(dense, by_shape=dict(
@@ -2161,10 +2849,12 @@ def kernels_line(dense, dense_launches, repeat, repeat_launches, delta, mini_lau
                           "cli_run_multilevel": entry(c["multilevel"]),
                           "cli_run_hic": dict(launches=c["hic"]["launches"])})),
         kernel_record("ll_mini", "ll_mini.cu", "graal_tpu/ops/likelihood_pallas.py:340",
-                      sum(mini_launches), mini),
+                      sum(mini_launches) + ch["launches"][0], mini),
         kernel_record("obsgrid", "obsgrid.cu", "graal_tpu/ops/obsgrid_pallas.py:52",
-                      sum(obs_launches), dict(delta["obsgrid"], by_path=by_path(
-                          obs_launches, repeat_delta["obsgrid"], "obs"))),
+                      sum(obs_launches) + ch["launches"][1], dict(
+                          delta["obsgrid"], by_path=by_path(obs_launches, repeat_delta["obsgrid"],
+                                                            "obs"),
+                          by_shape=chain_shapes("obsgrid"))),
         kernel_record("ll_repeat", "ll_repeat.cu", "graal_tpu/ops/likelihood_pallas.py:514",
                       repeat_launches, dict(repeat, by_path={
                           "dense_repeat_main": dict(launches=repeat_launches),
@@ -2172,33 +2862,58 @@ def kernels_line(dense, dense_launches, repeat, repeat_launches, delta, mini_lau
     ]}
 
 
+PHASE_S = {}
+
+
+def phase(name, fn, *args, **kw):
+    """Run one phase; its seconds are printed and kept for the summary."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    PHASE_S[name] = round(time.perf_counter() - t0, 1)
+    print(f"[phase {name}: {PHASE_S[name]} s]", flush=True)
+    return out
+
+
 def main():
+    t_start = time.perf_counter()
     device = phase_device()
     import torch
 
-    phase_build()
-    dense = phase_kernel(device)
-    dense_launches = phase_main(device)
-    repeat = phase_repeat_kernel(device)
-    repeat_launches = phase_repeat_main(device)
-    sc = scale_setup(device)
-    delta_timing = phase_delta_kernels(device, sc)
-    phase_exactness(device)
-    phase_repeat_exactness(device)
-    mini_launches, obs_launches = phase_scale_main(sc)
-    rsc = scale_repeat_setup(device)
-    repeat_delta_timing = phase_repeat_delta_kernels(device, rsc)
-    r_mini, r_obs = phase_scale_main(rsc, "repeat delta main path")
-    phase_runner(sc)
+    phase("1 build", phase_build)
+    dense = phase("2-3 B1", phase_kernel, device)
+    dense_launches = phase("4 dense main", phase_main, device)
+    repeat = phase("4a B3", phase_repeat_kernel, device)
+    repeat_launches = phase("4b repeat main", phase_repeat_main, device)
+    sc = phase("set-up 100k", scale_setup, device)
+    delta_timing = phase("5 B2 B4", phase_delta_kernels, device, sc)
+    phase("6 exactness", phase_exactness, device)
+    phase("6a repeat exactness", phase_repeat_exactness, device)
+    mini_launches, obs_launches = phase("7 delta main", phase_scale_main, sc)
+    rsc = phase("set-up 20k repeat", scale_repeat_setup, device)
+    repeat_delta_timing = phase("7a repeat B2 B4", phase_repeat_delta_kernels, device, rsc)
+    r_mini, r_obs = phase("7b repeat delta main", phase_scale_main, rsc,
+                          "repeat delta main path")
+    phase("8 runner", phase_runner, sc)
+    chains = phase("11a chains", phase_chains, sc)
     del sc
-    phase_runner(rsc, n_cycles=1)
+    phase("8a repeat runner", phase_runner, rsc, steps=256)
+    chains_rep = phase("11b repeat chains", phase_chains_repeats, rsc)
     del rsc
-    cli_runs = phase_cli(device)
-    mtm_exact = phase_mtm_exactness(device)
+    cli_runs = phase("9-11c CLI", phase_cli, device)
+    mtm_exact = phase("10g MTM exactness", phase_mtm_exactness, device)
+    dist = phase("11d distribution", phase_dist, device)
+    print(f"smoke: {time.perf_counter() - t_start:.1f} s in all; phases {json.dumps(PHASE_S)}",
+          flush=True)
     line = gpu_line()
     kernels = kernels_line(dense, dense_launches, repeat, repeat_launches, delta_timing,
                            (mini_launches, r_mini), repeat_delta_timing, (obs_launches, r_obs),
-                           cli_runs, mtm_exact)
+                           cli_runs, mtm_exact, dict(main=chains, repeat=chains_rep))
+    kernel_keys = ("ll_mini", "obsgrid", "b2_bucket", "b4_bucket")
+    print(json.dumps({"chains": {
+        name: {k: v for k, v in rec.items() if k not in kernel_keys}
+        for name, rec in (("run_chains_100k", chains), ("run_chains_repeat_20k", chains_rep),
+                          ("cli_scale_chains", cli_runs["scale_chains"]))},
+        "distribution": dist}))
     print(line)
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {
@@ -2206,9 +2921,28 @@ def main():
         "count": torch.cuda.device_count()}}))
 
 
+def main_cards():
+    """``--cards``: the build, then :func:`phase_cards`; the same last
+    lines as :func:`main` (no kernels line: no kernel is checked here)."""
+    device = phase_device()
+    import torch
+
+    phase_build()
+    out = phase_cards(device)
+    print(json.dumps({"cards": out}))
+    print(gpu_line())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dist-child"]:   # one rank of phase 11d's worlds
+        rank, world, store, out, backend = sys.argv[2:7]
+        dist_child(int(rank), int(world), store, out, backend)
+        sys.exit(0)
     try:
-        main()
+        main_cards() if sys.argv[1:] == ["--cards"] else main()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         sys.exit(1)

@@ -10,9 +10,14 @@ Counterpart of ``graal_tpu.cli``. Usage:
     python -m graal_tpu_torch.cli probe    DATASET_DIR FRAGMENT [options]
 
 Every command that samples runs on ``--device`` (default ``cuda``): without
-a card it exits with a message unless ``--device cpu`` is given. Options
-whose module is not ported yet are refused with the ROADMAP item that
-ports them.
+a card it exits with a message unless ``--device cpu`` is given.
+
+Across cards, under a launcher (``torchrun --nproc-per-node N -m
+graal_tpu_torch.cli ...``), every rank joins the process group the
+launcher describes (NCCL, each rank on ``cuda:LOCAL_RANK``; gloo with
+``--device cpu``): ``scale --chains`` splits its chains over the ranks,
+the scale anchor its sums, ``run --sampler tempered`` its chains, and
+rank 0 writes the outputs. Without a launcher the world is one rank.
 """
 
 from __future__ import annotations
@@ -25,15 +30,16 @@ import sys
 import numpy as np
 
 
-def refuse(what: str, item: str):
-    raise SystemExit(f"graal_tpu_torch: {what} is not ported yet (ROADMAP {item})")
-
-
 def _check_device(args):
+    """The run's device: under a launcher's environment, this rank's
+    (joining the process group); else ``--device``. Exits without a card
+    when one is asked for."""
     from graal_tpu_torch.config import resolve_device
+    from graal_tpu_torch.parallel.sharding import init_from_env
 
     try:
-        return resolve_device(args.device)
+        dev = resolve_device(args.device)
+        return resolve_device(init_from_env(str(dev)))
     except RuntimeError as e:
         raise SystemExit(f"graal_tpu_torch: {e}") from None
 
@@ -49,8 +55,7 @@ def _add_run_opts(p):
                    help="sampling level (default: size-1)")
     p.add_argument("--to-level", type=int, default=None,
                    help="multilevel refinement: assemble at --level, then refine "
-                        "level by level down to this level (every output of the "
-                        "JAX command but its closing layout plot: ROADMAP A13)")
+                        "level by level down to this level")
     p.add_argument("--cycles", type=int, default=10)
     p.add_argument("--neighbours", type=int, default=4)
     p.add_argument("--no-sample-param", action="store_true")
@@ -66,11 +71,12 @@ def _add_run_opts(p):
                    help="Poisson sub-sampling factor in (0,1] for coverage-"
                         "robustness experiments")
     p.add_argument("--snapshots", action="store_true",
-                   help="matrix snapshots (not ported: ROADMAP A13)")
+                   help="save reordered matrix snapshots before / after")
     p.add_argument("--snapshot-every", type=int, default=0,
-                   help="matrix snapshots every N cycles (not ported: ROADMAP A13)")
+                   help="also snapshot every N EM cycles (animate with "
+                        "python -m graal_tpu_torch.utils.plots OUT_DIR)")
     p.add_argument("--watch", action="store_true",
-                   help="live view (not ported: ROADMAP A13)")
+                   help="refresh <out>/live.html each cycle (headless live view)")
     p.add_argument("--polish", action="store_true",
                    help="resolve unorientable-fragment orientations by "
                         "neighbourhood consensus before the FASTA export")
@@ -81,7 +87,8 @@ def _add_run_opts(p):
                    help="comma-separated stages: em, tempered, mtm, mh "
                         "(e.g. 'em,mtm' = EM then MTM refinement)")
     p.add_argument("--chains", type=int, default=4,
-                   help="chain count of the 'tempered' stage (batched on one device)")
+                   help="chain count of the 'tempered' stage (batched on one device, "
+                        "split over the ranks under torchrun)")
     p.add_argument("--t-max", type=float, default=4.0,
                    help="hottest ladder temperature of 'tempered'")
     p.add_argument("--out", default="graal_out")
@@ -89,7 +96,8 @@ def _add_run_opts(p):
                    help="torch device of the run (default cuda; cpu on request)")
     p.add_argument("--config", default="", help="TOML config file")
     p.add_argument("--profile", action="store_true",
-                   help="profiler trace (not ported: ROADMAP A13)")
+                   help="trace one EM cycle with torch.profiler into <out>/profile "
+                        "and print per-stage timing and the scorer's bandwidth")
     p.add_argument("--scoring", default="auto", choices=["auto", "full", "delta"],
                    help="candidate scoring: full-matrix, incremental "
                         "(delta, the chr1-scale engine), or auto by size")
@@ -98,15 +106,11 @@ def _add_run_opts(p):
 SAMPLER_STAGES = ("em", "tempered", "mtm", "mh")
 
 
-def _refuse_unported_run_opts(args):
+def _check_stages(args):
     for stage in args.sampler.split(","):
         if stage not in SAMPLER_STAGES:
             raise SystemExit(f"unknown sampler stage: {stage!r} (expected em, "
                              "tempered, mtm or mh)")
-    for flag, on in (("--profile", args.profile), ("--snapshots", args.snapshots),
-                     ("--snapshot-every", args.snapshot_every), ("--watch", args.watch)):
-        if on:
-            refuse(flag, "A13")
 
 
 def _config_from_args(args):
@@ -131,16 +135,19 @@ def _config_from_args(args):
     cfg.sampler.tf = args.tf
     cfg.sampler.sub_sample_factor = args.sub_sample
     cfg.sampler.scoring = args.scoring
+    cfg.sampler.snapshot_every = args.snapshot_every
+    cfg.sampler.watch = args.watch
     cfg.model.use_rippe = args.model != "hic"
     return cfg
 
 
 def _checked_config(args):
     """The run configuration of a run / replay / probe command, after the
-    checks."""
-    _refuse_unported_run_opts(args)
-    _check_device(args)
-    return _config_from_args(args)
+    checks, on this rank's device."""
+    _check_stages(args)
+    cfg = _config_from_args(args)
+    cfg.device = str(_check_device(args))
+    return cfg
 
 
 def _runner(args):
@@ -170,6 +177,10 @@ def cmd_run(args):
 
     import torch
 
+    from graal_tpu_torch.parallel.sharding import is_writer
+    from graal_tpu_torch.pipeline import Runner, chrom_index
+    from graal_tpu_torch.utils.plots import plot_genome_layout
+
     cfg = _checked_config(args)
     if args.to_level is not None and args.to_level < cfg.sampler.level:
         from graal_tpu_torch.multilevel import run_multilevel
@@ -177,23 +188,27 @@ def cmd_run(args):
         runner, assembly = run_multilevel(cfg, cfg.sampler.level, args.to_level,
                                           fasta=args.fasta)
         runner.save_behaviour(assembly)
+        if is_writer():
+            plot_genome_layout(assembly.state, chrom_index(runner.level), cfg.output_dir)
         print(f"outputs in {cfg.output_dir}")
         return runner, assembly
-    from graal_tpu_torch.pipeline import Runner
-
     runner = Runner(cfg)
     print(f"level {runner.level.level}: {runner.level.n_frags} bins, "
           f"{runner.state.n_frags} fragments ({len(runner.duplications)} repeated) "
           f"on {runner.device}")
     print("fitted params:", json.dumps({k: float(v) for k, v in zip(
         runner.params._fields, runner.params)}))
+    if args.snapshots:
+        runner.save_matrix_snapshot("pre_assembly")
+    profile_dir = os.path.join(cfg.output_dir, "profile") if args.profile else None
     assembly = None
     merged = {}
     runner.stages = []
     for stage in args.sampler.split(","):
         t0 = time.perf_counter()
         if stage == "em":
-            assembly = runner.run_em(resume=args.resume, scoring=cfg.sampler.scoring)
+            assembly = runner.run_em(resume=args.resume, scoring=cfg.sampler.scoring,
+                                     profile_dir=profile_dir)
         elif stage == "tempered":
             assembly = runner.run_tempered_em(n_chains=args.chains, t_max=args.t_max)
         else:
@@ -207,7 +222,11 @@ def cmd_run(args):
             merged.setdefault(k, []).extend(v)
     assembly.metrics = merged
     runner.save_behaviour(assembly)
-    if args.fasta:
+    if args.snapshots:
+        runner.save_matrix_snapshot("post_assembly", assembly.state)
+        if is_writer():
+            plot_genome_layout(assembly.state, chrom_index(runner.level), cfg.output_dir)
+    if args.fasta and is_writer():
         if args.polish:
             assembly.state = runner.polish_orientations(assembly.state)
         contigs = runner.export_fasta(assembly, args.fasta)
@@ -248,19 +267,18 @@ def cmd_probe(args):
 
 def cmd_scale(args):
     """Chr1-scale sparse assembly: pyramid level -> ScaleRunner without
-    densifying the observed matrix. Returns (runner, final state, metrics)."""
+    densifying the observed matrix; with ``--chains N`` > 1, N
+    parallel-tempered chains up to ``--t-max`` (``ScaleRunner.run_chains``,
+    the outputs from the best chain). Returns (runner, final state,
+    metrics)."""
     from graal_tpu_torch import scale as scale_mod
     from graal_tpu_torch.core import mcmc
     from graal_tpu_torch.io import fasta as fasta_io
+    from graal_tpu_torch.parallel.sharding import is_writer
+    from graal_tpu_torch.pipeline import chrom_index
+    from graal_tpu_torch.utils import profiling
+    from graal_tpu_torch.utils.plots import plot_genome_layout
 
-    if args.chains > 1:
-        refuse("--chains > 1 (chains over the device mesh)", "A12")
-    if args.t_max is not None:
-        refuse("--t-max (the chains' ladder over the device mesh)", "A12")
-    for flag, on in (("--profile", args.profile), ("--snapshot-every", args.snapshot_every),
-                     ("--watch", args.watch)):
-        if on:
-            refuse(flag, "A13")
     dev = _check_device(args)
     if args.to_level is not None:
         return _scale_multilevel(args, dev)
@@ -271,13 +289,28 @@ def cmd_scale(args):
         ref_quirks=args.ref_quirks, device=dev)
     state = state0 if args.no_scramble else mcmc.explode_genome(state0)
     os.makedirs(args.out, exist_ok=True)
-    final, params, metrics = runner.run(
-        state, n_cycles=args.cycles, delta=args.neighbours,
-        steps_per_cycle=args.steps_per_cycle, f_max_min=args.f_max_min, f_t=args.t0,
-        sample_param=not args.no_sample_param, seed=args.seed, init_truth=state0,
-        checkpoint_path=os.path.join(args.out, "checkpoint.npz"),
-        checkpoint_every=args.checkpoint_every, resume=args.resume,
-        order_mode=args.order)
+    chrom_idx = chrom_index(lev)
+    if args.chains > 1:
+        final, best_ll, m_chains = runner.run_chains(
+            state, n_chains=args.chains, n_cycles=args.cycles, delta=args.neighbours,
+            steps_per_cycle=args.steps_per_cycle, f_max_min=args.f_max_min, f_t=args.t0,
+            t_max=args.t_max, sample_param=not args.no_sample_param, seed=args.seed,
+            checkpoint_path=os.path.join(args.out, "chains_checkpoint.npz"),
+            checkpoint_every=args.checkpoint_every, resume=args.resume,
+            snapshot_every=args.snapshot_every, snapshot_dir=args.out, chrom_of_bin=chrom_idx,
+            watch=args.watch)
+        metrics = {"likelihood": m_chains["best"], "n_contigs": [int(final.n_contigs())],
+                   "dist_init_genome": [], "overflow": [], "f_max": m_chains["f_max"],
+                   "cycle_s": [], "chains": m_chains}
+    else:
+        final, params, metrics = runner.run(
+            state, n_cycles=args.cycles, delta=args.neighbours,
+            steps_per_cycle=args.steps_per_cycle, f_max_min=args.f_max_min, f_t=args.t0,
+            sample_param=not args.no_sample_param, seed=args.seed, init_truth=state0,
+            checkpoint_path=os.path.join(args.out, "checkpoint.npz"),
+            checkpoint_every=args.checkpoint_every, resume=args.resume,
+            order_mode=args.order, snapshot_every=args.snapshot_every,
+            snapshot_dir=args.out, chrom_of_bin=chrom_idx, watch=args.watch)
     if args.mtm_cycles > 0:
         final, _, m_mtm = runner.run_mtm(final, n_cycles=args.mtm_cycles,
                                          f_max_min=args.f_max_min, f_t=args.t0,
@@ -285,6 +318,16 @@ def cmd_scale(args):
         for k in ("likelihood", "n_contigs", "f_max"):
             metrics[k].extend(m_mtm[k])
         metrics["mtm"] = m_mtm
+    if args.profile:
+        # one more cycle of the single-chain sampler from the final genome,
+        # traced (its ll_mini / obsgrid launches name the kernels)
+        with profiling.trace(os.path.join(args.out, "profile")):
+            final, params, _ = runner.run(
+                final, n_cycles=1, delta=args.neighbours, f_max_min=args.f_max_min,
+                f_t=args.t0, sample_param=not args.no_sample_param, seed=args.seed + 1,
+                steps_per_cycle=args.steps_per_cycle)
+    if not is_writer():
+        return runner, final, metrics
     for name, key in (("list_likelihood", "likelihood"), ("list_n_contigs", "n_contigs"),
                       ("list_dist_init_genome", "dist_init_genome"),
                       ("list_overflow", "overflow"), ("list_f_max", "f_max"),
@@ -299,6 +342,7 @@ def cmd_scale(args):
             final, f.chrom, f.start_pos, f.end_pos, fasta_io.load_fasta(args.fasta),
             os.path.join(args.out, "genome.fasta"), os.path.join(args.out, "info_frags.txt"))
         print(f"wrote {len(contigs)} contigs to {os.path.join(args.out, 'genome.fasta')}")
+    plot_genome_layout(final, chrom_idx, args.out)
     print(json.dumps({
         "final_loglik": metrics["likelihood"][-1],
         "n_contigs": metrics["n_contigs"][-1],
@@ -322,8 +366,10 @@ def _scale_multilevel(args, dev):
         factor=args.factor, delta=args.neighbours, f_max_min=args.f_max_min, f_t=args.t0,
         sample_param=not args.no_sample_param, seed=args.seed,
         max_fit_bins=args.max_fit_bins, device=dev)
+    from graal_tpu_torch.parallel.sharding import is_writer
+
     os.makedirs(args.out, exist_ok=True)
-    if args.fasta:
+    if args.fasta and is_writer():
         f = lev.frags
         contigs = fasta_io.export_assembly(
             final, f.chrom, f.start_pos, f.end_pos, fasta_io.load_fasta(args.fasta),
@@ -417,10 +463,11 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--ref-quirks", action="store_true",
                    help="replicate two upstream pyramid-build defects (parity runs only)")
     p.add_argument("--chains", type=int, default=1,
-                   help="parallel-tempered chains (> 1 not ported: ROADMAP A12)")
-    p.add_argument("--t-max", type=float, default=None,
-                   help="hottest ladder temperature of the chains (not ported: "
-                        "ROADMAP A12)")
+                   help="parallel-tempered chains with adjacent-pair replica-exchange "
+                        "swaps: batched on one device (one B2 and one B4 launch a "
+                        "step for all chains), split over the ranks under torchrun")
+    p.add_argument("--t-max", type=float, default=4.0,
+                   help="hottest chain temperature of the PT ladder")
     p.add_argument("--mtm-cycles", type=int, default=0,
                    help="delta-scored MTM refinement cycles after the assembly")
     p.add_argument("--no-sample-param", action="store_true")
@@ -439,10 +486,12 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--checkpoint-every", type=int, default=1,
                    help="checkpoint every N cycles (0 disables)")
     p.add_argument("--snapshot-every", type=int, default=0,
-                   help="genome-layout paintings (not ported: ROADMAP A13)")
-    p.add_argument("--watch", action="store_true", help="live view (not ported: ROADMAP A13)")
+                   help="genome-layout painting every N cycles (where matplotlib is "
+                        "installed)")
+    p.add_argument("--watch", action="store_true",
+                   help="refresh <out>/live.html each cycle (headless live view)")
     p.add_argument("--profile", action="store_true",
-                   help="profiler trace (not ported: ROADMAP A13)")
+                   help="run one extra cycle under torch.profiler into <out>/profile")
     p.add_argument("--out", default="graal_scale_out")
     p.add_argument("--device", default="cuda",
                    help="torch device of the run (default cuda; cpu on request)")

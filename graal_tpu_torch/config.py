@@ -4,9 +4,10 @@ PyTorch counterpart of ``graal_tpu.config``: the same sections, knobs and
 defaults, except that the JAX platform override is replaced by the torch
 ``device`` the run lives on, which defaults to the card. A run on the CPU
 must ask for it (``device = "cpu"``): :func:`resolve_device` refuses a CUDA
-device that does not exist instead of running on the CPU. The knobs of
-modules not ported yet (row shards, snapshots, the live view) are not
-fields here, so a TOML file that sets them is refused.
+device that does not exist instead of running on the CPU. The JAX
+package's ``n_row_shards``, which nothing there reads, is not a field
+here (a run's rows split by the ranks of its ``torch.distributed``
+world), so a TOML file that sets it is refused.
 """
 
 from __future__ import annotations
@@ -48,6 +49,10 @@ class SamplerConfig:
     allow_repeats: bool = False    # duplicate coverage-outlier bins
     scrambled: bool = True         # explode the genome before sampling
     scoring: str = "auto"          # candidate scoring: auto | full | delta
+    snapshot_every: int = 0        # a reordered-matrix snapshot every N cycles
+                                   # (0 = only on request); animate the series
+                                   # with utils.plots.animate_snapshots
+    watch: bool = False            # refresh <out>/live.html each cycle (utils.live)
     blacklist_contigs: tuple = ()  # contig ids to freeze
     sub_sample_factor: float = 0.0 # Poisson coverage sub-sampling in (0, 1]
     seed: int = 1                  # seed of the run's torch.Generator

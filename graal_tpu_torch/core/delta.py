@@ -49,7 +49,7 @@ import numpy as np
 import torch
 
 from graal_tpu_torch.core.candidates import N_CANDIDATES, build_candidates
-from graal_tpu_torch.core.mcmc import (THRESH_OVERFLOW, StepDraws, _take,
+from graal_tpu_torch.core.mcmc import (THRESH_OVERFLOW,
                                        draw_step_inputs, sample_neighbours,
                                        select_score_slot)
 from graal_tpu_torch.core.model import RippeParams
@@ -57,7 +57,7 @@ from graal_tpu_torch.core.sparse import SparseObs, lexsort2
 from graal_tpu_torch.core.state import MUTABLE_FIELDS, GenomeState
 from graal_tpu_torch.core.subfrags import SubFragTable
 from graal_tpu_torch.ops import mini_grid_cuda
-from graal_tpu_torch.ops.likelihood_cuda import params_vector
+from graal_tpu_torch.ops.likelihood_cuda import N_PARAMS, params_vector
 from graal_tpu_torch.ops.mini_grid_cuda import MiniGridScorer, log_cis_plain
 from graal_tpu_torch.ops.obsgrid_cuda import WindowObsGrid
 
@@ -104,17 +104,30 @@ def extract_rows(state: GenomeState, f_a, f_b, f_max: int):
     return rows[0], valid[0], overflow[0]
 
 
+def _chain_args(state: GenomeState, f_a, ids):
+    """The contig ids (C, n), fA's contig (C, 1) and the neighbours (C, m)
+    of one chain (lifted to C = 1; ``single``) or of a chains axis."""
+    dev = state.pos.device
+    f_a = torch.as_tensor(f_a, device=dev).long()
+    single = f_a.dim() == 0
+    id_c, ids = (state.id_c[None], ids[None]) if single else (state.id_c, ids)
+    c_a = id_c.gather(1, f_a.reshape(-1, 1))
+    return single, id_c, c_a, ids.long()
+
+
 def extract_rows_each(state: GenomeState, f_a, ids, f_max: int):
     """:func:`extract_rows` of every neighbour ``ids`` at once: (rows (m,
     f_max), valid (m, f_max), overflow (m,)), each row equal to
-    ``extract_rows(state, f_a, ids[i], f_max)``, padding included."""
-    dev = state.pos.device
-    c_a = _take(state.id_c, torch.as_tensor(f_a, device=dev))
-    c_b = state.id_c[ids.long()]
-    member = (state.id_c[None, :] == c_a) | (state.id_c[None, :] == c_b[:, None])
-    overflow = member.sum(1) > f_max
-    rows = torch.topk(_member_key(member, state.n_frags), f_max, dim=1, sorted=True).indices
-    return rows, member.gather(1, rows), overflow
+    ``extract_rows(state, f_a, ids[i], f_max)``, padding included. With a
+    chains axis (``state`` fields (C, n), ``f_a`` (C,), ``ids`` (C, m))
+    every chain at once: (C, m, f_max), (C, m, f_max), (C, m)."""
+    single, id_c, c_a, ids = _chain_args(state, f_a, ids)
+    c_b = id_c.gather(1, ids)                                  # (C, m)
+    member = (id_c[:, None, :] == c_a[:, :, None]) | (id_c[:, None, :] == c_b[:, :, None])
+    overflow = member.sum(-1) > f_max
+    rows = torch.topk(_member_key(member, state.n_frags), f_max, dim=-1, sorted=True).indices
+    out = (rows, member.gather(-1, rows), overflow)
+    return tuple(x[0] for x in out) if single else out
 
 
 def extract_rows_union(state: GenomeState, f_a, ids, f_max: int):
@@ -125,40 +138,63 @@ def extract_rows_union(state: GenomeState, f_a, ids, f_max: int):
     anyway) is gathered once, then each neighbour's rows are selected from
     the union. Returns (rows (m, f_max), valid (m, f_max), overflow (m,))
     with the member sets and order of :func:`extract_rows`; overflow comes
-    from counted membership."""
+    from counted membership. With a chains axis, as
+    :func:`extract_rows_each` takes it, each chain's union on its own in
+    one batched top-k: (C, m, f_max), (C, m, f_max), (C, m)."""
     n = state.n_frags
     dev = state.pos.device
-    m = ids.shape[0]
+    single, id_c, c_a, ids = _chain_args(state, f_a, ids)
+    m = ids.shape[1]
     u_cap = min(n, (m + 1) * f_max)
-    c_a = _take(state.id_c, torch.as_tensor(f_a, device=dev))
-    c_bs = state.id_c[ids.long()]                              # (m,)
-    memb_a = state.id_c == c_a                                 # (n,)
-    raw_memb_b = state.id_c[:, None] == c_bs[None, :]          # (n, m)
-    cnt_a = memb_a.sum()
-    cnt_b = raw_memb_b.sum(0)                                  # (m,)
-    memb_b = raw_memb_b & (cnt_b <= f_max)[None, :]
-    member_u = (memb_a & (cnt_a <= f_max)) | memb_b.any(1)
-    rows_u = torch.topk(_member_key(member_u, n), u_cap, sorted=True).indices
-    valid_u = member_u[rows_u]
-    idc_u = torch.where(valid_u, state.id_c[rows_u], -1)
+    c_bs = id_c.gather(1, ids)                                 # (C, m)
+    memb_a = id_c == c_a                                       # (C, n)
+    raw_memb_b = id_c[:, :, None] == c_bs[:, None, :]          # (C, n, m)
+    cnt_a = memb_a.sum(-1, keepdim=True)                       # (C, 1)
+    cnt_b = raw_memb_b.sum(1)                                  # (C, m)
+    memb_b = raw_memb_b & (cnt_b <= f_max)[:, None, :]
+    member_u = (memb_a & (cnt_a <= f_max)) | memb_b.any(-1)
+    rows_u = torch.topk(_member_key(member_u, n), u_cap, dim=-1, sorted=True).indices
+    valid_u = member_u.gather(1, rows_u)
+    idc_u = torch.where(valid_u, id_c.gather(1, rows_u), -1)   # (C, u_cap)
     overflow = torch.where(c_bs == c_a, cnt_a, cnt_a + cnt_b) > f_max
-    memb = (idc_u[None, :] == c_a) | (idc_u[None, :] == c_bs[:, None])   # (m, u_cap)
+    memb = (idc_u[:, None, :] == c_a[:, :, None]) \
+        | (idc_u[:, None, :] == c_bs[:, :, None])              # (C, m, u_cap)
     uidx = torch.arange(u_cap, device=dev)
     key = torch.where(memb, 2 * u_cap - uidx, -uidx - 1)
-    sel = torch.topk(key, min(f_max, u_cap), dim=1, sorted=True).indices
-    return rows_u[sel], memb.gather(1, sel), overflow
+    sel = torch.topk(key, min(f_max, u_cap), dim=-1, sorted=True).indices
+    rows = rows_u.gather(1, sel.reshape(sel.shape[0], -1)).reshape(sel.shape)
+    out = (rows, memb.gather(-1, sel), overflow)
+    return tuple(x[0] for x in out) if single else out
 
 
 _PAD_FIELDS = dict(pos=0, start_bp=0, l_cont=1, l_cont_bp=1, circ=0, ori=1,
                    activ=0, rep=0)
 
 
+def lift_chain(*xs):
+    """One chain's arguments with a leading chains axis of one: tensors
+    ``x[None]``, tuples of tensors (a GenomeState, draws, params) field by
+    field, None kept."""
+    return tuple(type(x)(*[None if f is None else f[None] for f in x])
+                 if isinstance(x, tuple) else x[None] for x in xs)
+
+
+def drop_chain(*xs):
+    """The inverse of :func:`lift_chain`: chain 0 of each argument."""
+    return tuple(type(x)(*[None if f is None else f[0] for f in x])
+                 if isinstance(x, tuple) else x[0] for x in xs)
+
+
 def gather_mini(state: GenomeState, rows, valid) -> GenomeState:
-    """Gather mini-states at ``rows`` (any leading shape); padding rows
-    become inert inactive singletons with unique negative contig ids. All
-    11 fields ride one gather of a stacked (n, 11) matrix."""
+    """Gather each chain's mini-states at ``rows`` (C, ..., f_max) from its
+    own genome (``state`` fields (C, n); a single genome goes through
+    :func:`lift_chain`); padding rows become inert inactive singletons with
+    unique negative contig ids. All 11 fields ride one gather of a stacked
+    (C, n, 11) matrix."""
     f_max = rows.shape[-1]
-    got = torch.stack(list(state), dim=1)[rows]             # (..., f_max, 11)
+    ch = torch.arange(rows.shape[0], device=rows.device)
+    got = torch.stack(list(state), dim=-1)[ch.reshape((-1,) + (1,) * (rows.dim() - 1)),
+                                           rows]                # (C, ..., f_max, 11)
     mini = GenomeState(*got.unbind(-1))
     pad_idc = -(torch.arange(f_max, dtype=torch.int32, device=rows.device) + 2)
     repl = {"id_c": torch.where(valid, mini.id_c, pad_idc)}
@@ -168,18 +204,21 @@ def gather_mini(state: GenomeState, rows, valid) -> GenomeState:
 
 
 def scatter_mini(state: GenomeState, mini: GenomeState, rows, valid) -> GenomeState:
-    """Write a mini-state's mutable fields back into the full state through
-    an f_max-element inverse slot map (padding rows target the dropped
-    entry n) and one gather."""
+    """Write each chain's mini-state (fields, ``rows`` and ``valid`` (C,
+    f_max)) into its own genome (``state`` fields (C, n)): the mutable
+    fields through an f_max-element inverse slot map (padding rows target
+    the dropped entry n) and one gather."""
     n = state.n_frags
-    f_max = rows.shape[0]
+    f_max = rows.shape[-1]
     vrows = torch.where(valid, rows, n)
-    inv = torch.full((n + 1,), -1, dtype=torch.int64, device=rows.device)
-    inv[vrows] = torch.arange(f_max, device=rows.device)
-    inv = inv[:n]
+    slots = torch.arange(f_max, device=rows.device)
+    fields = torch.stack([getattr(mini, f) for f in MUTABLE_FIELDS], dim=-1)
+    inv = torch.full((rows.shape[0], n + 1), -1, dtype=torch.int64, device=rows.device)
+    inv.scatter_(1, vrows, slots.expand_as(vrows))
+    inv = inv[:, :n]
+    got = fields.gather(1, inv.clamp_min(0)[..., None].expand(-1, -1, fields.shape[-1]))
     in_d = inv >= 0
-    got = torch.stack([getattr(mini, f) for f in MUTABLE_FIELDS], dim=1)[inv.clamp_min(0)]
-    return state._replace(**{f: torch.where(in_d, got[:, k], getattr(state, f))
+    return state._replace(**{f: torch.where(in_d, got[..., k], getattr(state, f))
                              for k, f in enumerate(MUTABLE_FIELDS)})
 
 
@@ -321,17 +360,27 @@ class DeltaScorer:
     # ---- scoring -----------------------------------------------------------
     def inputs(self, state: GenomeState, f_a, ids, rows, valid, params: RippeParams,
                max_id):
-        """The candidates of the m neighbours ``ids`` of ``f_a`` on their
-        member rows (:func:`extract_rows_union` or
-        :func:`extract_rows_each`), and what scoring them
-        takes: (candidates (m, 13, f_max), geometry of base + candidates
-        (m, 14, R), observed grid (m, R, R), accu of the sub rows (m, R),
-        kernel parameter vector)."""
-        mini = gather_mini(state, rows, valid)                    # (m, f_max)
+        """The candidates of every chain's m neighbours ``ids`` of ``f_a``
+        on their member rows (:func:`extract_rows_union` or
+        :func:`extract_rows_each`), and what scoring them takes.
+
+        ``state`` fields (C, n), ``f_a`` and ``max_id`` (C,), ``ids`` (C,
+        m), ``rows`` and ``valid`` (C, m, f_max) (one chain through
+        :func:`lift_chain`); params shared, or one set per chain with
+        fields (C,). The C x m neighbour slots are one batch of M = C x m:
+        (candidates (M, 13, f_max), geometry of base + candidates (M, 14,
+        R), observed grid (M, R, R), accu of the sub rows (M, R), kernel
+        parameter rows (M, 10), each slot its chain's)."""
+        c, m, f_max = rows.shape
+        mini = gather_mini(state, rows, valid)
+        mini = GenomeState(*[x.reshape(c * m, f_max) for x in mini])
         f_a = torch.as_tensor(f_a, device=rows.device)
-        lf_a = (rows == f_a).int().argmax(-1)
-        lf_b = (rows == ids[:, None]).int().argmax(-1)
-        cands = self.catalogue(mini, lf_a, lf_b, max_id=max_id)  # (m, 13, f_max)
+        lf_a = (rows == f_a[:, None, None]).int().argmax(-1).reshape(-1)
+        lf_b = (rows == ids[..., None]).int().argmax(-1).reshape(-1)
+        max_id = max_id.repeat_interleave(m)
+        rows, valid = rows.reshape(c * m, f_max), valid.reshape(c * m, f_max)
+        pvec = params_vector(params, self.log_nfpb).expand(c, N_PARAMS).repeat_interleave(m, 0)
+        cands = self.catalogue(mini, lf_a, lf_b, max_id=max_id)  # (M, 13, f_max)
 
         subs, sub_valid = self.sub_rows(rows, valid)
         subs_c = subs.clamp(0, self.k_subs - 1)
@@ -348,7 +397,7 @@ class DeltaScorer:
         # bin, while only rep-flagged fragments, whose bins are all
         # multi-copy (core/delta_repeats.py), change activity.
         ob = self.obs_grid(subs, geo.act[:, 0])
-        return cands, geo, ob, self.table.accu[subs_c], params_vector(params, self.log_nfpb)
+        return cands, geo, ob, self.table.accu[subs_c], pvec
 
     @staticmethod
     def mini_grid_args(geo: Geometry, ob, accu_sub, pvec):
@@ -362,14 +411,23 @@ class DeltaScorer:
               params: RippeParams, max_id):
         """Score the m neighbours ``ids`` of ``f_a`` on their member rows.
         Returns (dll (m, 13), candidates (m, 13, f_max), rows, valid,
-        overflow)."""
-        cands, geo, ob, accu_sub, pvec = self.inputs(state, f_a, ids, rows, valid,
-                                                     params, max_id)
+        overflow). With a chains axis (see :meth:`inputs`) every chain's
+        neighbours go through one obs-grid and one mini-grid launch, and
+        dll and the candidates come back as (C, m, 13) and (C, m, 13,
+        f_max); one chain is scored as a chains axis of one."""
+        f_a = torch.as_tensor(f_a, device=rows.device)
+        args = (state, f_a, ids, rows, valid, max_id)
+        if ids.dim() == 1:
+            args = lift_chain(*args)
+        cands, geo, ob, accu_sub, pvec = self.inputs(*args[:5], params, args[5])
         if self.band_w is None:
             _, dll = self.mini_grid(*self.mini_grid_args(geo, ob, accu_sub, pvec))
         else:
-            dll = self._banded_dll(geo, ob, accu_sub, params, pvec)
-        return dll, cands, rows, valid, overflow
+            dll = self._banded_dll(geo, ob, accu_sub, pvec)
+        lead = ids.shape
+        return (dll.reshape(lead + dll.shape[1:]),
+                GenomeState(*[x.reshape(lead + x.shape[1:]) for x in cands]),
+                rows, valid, overflow)
 
     def __call__(self, state: GenomeState, f_a, f_b, params: RippeParams, max_id):
         dev = state.pos.device
@@ -380,14 +438,14 @@ class DeltaScorer:
         return dll[0], GenomeState(*[x[0] for x in cands]), rows, valid, overflow
 
     # ---- banded expected mass (plain torch) --------------------------------
-    def _banded_dll(self, geo: Geometry, ob, accu_sub, params, pvec):
+    def _banded_dll(self, geo: Geometry, ob, accu_sub, pvec):
         """Scores with the expected mass as analytic trans mass + banded cis
         correction over the (contig, midpoint)-sorted rows; deltas in f64.
-        Slabs are bounded by ``mini_grid_cuda.MAX_CELLS``."""
+        Slabs are bounded by ``mini_grid_cuda.MAX_CELLS``. ``pvec``: one
+        row per neighbour slot, (m, 10)."""
         max_cells = mini_grid_cuda.MAX_CELLS
         m, c, r = geo.mid.shape
         g = m * c
-        log_v = pvec[5]
         flat = [x.reshape(g, r) for x in geo]
         mid, idc, act, circ, stot = flat
         nbr = torch.arange(m, device=mid.device).repeat_interleave(c)
@@ -398,21 +456,24 @@ class DeltaScorer:
         obs_terms = []
         for g0 in range(0, g, chunk):
             sl = slice(g0, g0 + chunk)
+            pv = mini_grid_cuda.pvec_rows(pvec, nbr[sl], cell_dims=2)
             s = torch.abs(mid[sl, :, None] - mid[sl, None, :])
             same = idc[sl, :, None] == idc[sl, None, :]
             log_e = torch.where(same, log_cis_plain(s, (circ[sl] == 1)[:, :, None],
-                                                    stot[sl, :, None], pvec), log_v) \
-                + ((log_a[sl, :, None] + log_a[sl, None, :]) - pvec[9])
+                                                    stot[sl, :, None], pv), pv[..., 5]) \
+                + ((log_a[sl, :, None] + log_a[sl, None, :]) - pv[..., 9])
             pair = act[sl, :, None] & act[sl, None, :]
             obs_terms.append(torch.where(pair, ob[nbr[sl]] * log_e, 0.0)
                              .sum(dim=(1, 2), dtype=torch.float64))
         w = torch.cat(obs_terms)
 
         # expected mass: analytic trans + banded cis correction
+        pv = mini_grid_cuda.pvec_rows(pvec, nbr, cell_dims=2)       # (g, 1, 1, 10)
+        v_inter = pv[..., 6]
         a = torch.where(act, accu_g, 0.0)
         a64 = a.double()
         sa = a64.sum(-1)
-        mass = params.v_inter.double() * (sa * sa - (a64 * a64).sum(-1)) * 0.5 / self.nfpb
+        mass = v_inter.double().reshape(-1) * (sa * sa - (a64 * a64).sum(-1)) * 0.5 / self.nfpb
         order = lexsort2(idc, mid)
         mid_s, idc_s, circ_s, stot_s, a_s = [x.gather(-1, order) for x in (mid, idc, circ, stot, a)]
         rows_i = torch.arange(r, device=mid.device)[:, None]
@@ -425,8 +486,8 @@ class DeltaScorer:
             s = torch.abs(mid_s[:, :, None] - mid_s[:, jc])
             same = (idc_s[:, :, None] == idc_s[:, jc]) & (j < r)
             na = a_s[:, :, None] * a_s[:, jc] / self.nfpb
-            log_cis = log_cis_plain(s, (circ_s == 1)[:, :, None], stot_s[:, :, None], pvec)
-            cis = torch.where(same, torch.clamp_min(torch.exp(log_cis) - params.v_inter, 0.0),
+            log_cis = log_cis_plain(s, (circ_s == 1)[:, :, None], stot_s[:, :, None], pv)
+            cis = torch.where(same, torch.clamp_min(torch.exp(log_cis) - v_inter, 0.0),
                               0.0) * na
             corr = corr + cis.sum(dim=(1, 2), dtype=torch.float64)
         tot = (w - (mass + corr)).reshape(m, c)
@@ -445,6 +506,13 @@ def make_delta_scorer(table: SubFragTable, obs, f_max: int, sobs=None,
                        _off_chunk=_off_chunk)
 
 
+def _pick(x, idx):
+    """Entry ``idx[c]`` of each chain's ``x[c]`` (the axis after the chains
+    axis), without a host read."""
+    shape = (idx.shape[0], 1) + (1,) * (x.dim() - 2)
+    return x.gather(1, idx.reshape(shape).expand((-1, 1) + tuple(x.shape[2:])))[:, 0]
+
+
 def make_delta_em_step(table: SubFragTable, obs, nb, delta: int, f_max: int,
                        sobs=None, band_w: int | None = None,
                        thresh_overflow: float | None = None,
@@ -456,6 +524,15 @@ def make_delta_em_step(table: SubFragTable, obs, nb, delta: int, f_max: int,
     :class:`StepDraws` (its ``u_nb`` and ``gumbel`` are used). When every
     selectable slot overflows, or fA is blacklisted, the step is a no-op
     with op -1.
+
+    With a leading chains axis (``state`` fields (C, n), ``f_a`` and
+    ``l_t`` (C,), draws (C, ...), ``f_t`` (C,) or a float, params shared or
+    one set per chain with fields (C,)) every chain takes its step at once,
+    as it would alone: each chain's member rows are extracted on their own,
+    then the neighbour slots of all chains go through one obs-grid (B4) and
+    one mini-grid (B2) launch, M = C x slots. The selection, the no-op on
+    total overflow, the blacklist skip and the write-back stay per chain;
+    the outputs gain the chains axis.
 
     A repeat (copy-expanded) table is scored by the repeat engine v2
     (:func:`core.delta_repeats.make_repeat_delta_scorer_v2`, on the data
@@ -482,35 +559,45 @@ def make_delta_em_step(table: SubFragTable, obs, nb, delta: int, f_max: int,
         extract = extract_rows_union
 
     def step(state: GenomeState, rng, params: RippeParams, l_t, f_a, f_t):
-        if isinstance(rng, torch.Generator):
-            rng = draw_step_inputs(rng, nb, delta)
         dev = state.pos.device
-        f_a = torch.as_tensor(f_a, device=dev)
+        f_a = torch.as_tensor(f_a, device=dev).long()
+        if isinstance(rng, torch.Generator):
+            rng = draw_step_inputs(rng, nb, delta, f_a.shape)
+        if f_a.dim() == 0:      # one chain: a chains axis of one
+            new_state, d_sel, out = chains_step(*lift_chain(state, rng, f_a), params, f_t)
+            return drop_chain(new_state)[0], l_t + d_sel[0], drop_chain(*out)
+        new_state, d_sel, out = chains_step(state, rng, f_a, params, f_t)
+        return new_state, l_t + d_sel, out
+
+    def chains_step(state: GenomeState, rng, f_a, params: RippeParams, f_t):
+        dev = state.pos.device
         ids, valid = sample_neighbours(rng.u_nb, f_a, state, nb, delta)
-        max_id = state.id_c.amax()
+        max_id = state.id_c.amax(-1)
         rows_b, valid_b, over_b = extract(state, f_a, ids, scorer.f_max)
         dll, minis, rows, rows_valid, overflow = scorer.score(
             state, f_a, ids, rows_b, valid_b, over_b, params, max_id)
-        m = ids.shape[0]
-        slot_ok = (~overflow)[:, None].expand(m, N_CANDIDATES)
+        n_ch, m = ids.shape
+        slot_ok = (~overflow)[..., None].expand(n_ch, m, N_CANDIDATES)
         sel = select_score_slot(rng.gumbel, dll, valid, f_t, slot_valid=slot_ok,
                                 thresh_overflow=thresh_overflow)
         sel_nb = sel // N_CANDIDATES
         sel_op = sel % N_CANDIDATES
-        sel_mini = GenomeState(*[_take(x.reshape(m * N_CANDIDATES, -1), sel) for x in minis])
-        new_state = scatter_mini(state, sel_mini, _take(rows, sel_nb), _take(rows_valid, sel_nb))
+        sel_mini = GenomeState(*[_pick(x.reshape(n_ch, m * N_CANDIDATES, -1), sel)
+                                 for x in minis])
+        new_state = scatter_mini(state, sel_mini, _pick(rows, sel_nb), _pick(rows_valid, sel_nb))
 
         # no-op when every selectable slot overflows
         op_idx = torch.arange(N_CANDIDATES, device=dev)[None, :]
         nb_idx = torch.arange(m, device=dev)[:, None]
-        base_ok = (valid[:, None] | ((nb_idx == 0) & (op_idx < 2))) \
+        base_ok = (valid[..., None] | ((nb_idx == 0) & (op_idx < 2))) \
             & ~((op_idx < 2) & (nb_idx > 0))
-        skip = _take(nb.blacklist, f_a) | ~(base_ok & slot_ok).any()
-        new_state = GenomeState(*[torch.where(skip, a, b) for a, b in zip(state, new_state)])
-        d_sel = torch.where(skip, 0.0, _take(dll.reshape(-1), sel))
-        return new_state, l_t + d_sel, (torch.where(skip, -1, sel_op),
-                                        torch.where(skip, f_a, _take(ids, sel_nb)),
-                                        overflow.sum())
+        skip = nb.blacklist.index_select(0, f_a) | ~(base_ok & slot_ok).flatten(-2).any(-1)
+        new_state = GenomeState(*[torch.where(skip[..., None], a, b)
+                                  for a, b in zip(state, new_state)])
+        d_sel = torch.where(skip, 0.0, _pick(dll.reshape(n_ch, -1), sel))
+        return new_state, d_sel, (torch.where(skip, -1, sel_op),
+                                  torch.where(skip, f_a, _pick(ids, sel_nb)),
+                                  overflow.sum(-1))
 
     return step
 
@@ -535,6 +622,13 @@ def make_delta_em_cycle(table: SubFragTable, obs, nb, delta: int, f_max: int,
     The carry is Kahan-compensated: each step runs with l_t = 0 and returns
     its raw increment, summed here in a two-f32 compensated sum (a plain f32
     carry quantises every add to the ulp of |L|).
+
+    With a chains axis (``state`` fields (C, n), ``frag_order`` (C, steps),
+    ``l_t`` (C,), params shared or one set per chain, ``f_t`` (C,) or a
+    float; ``rng`` a Generator or draws with leading axes (steps, C), e.g.
+    :class:`graal_tpu_torch.parallel.tempering.ChainDraws`) every step is
+    the chains-axis step of :func:`make_delta_em_step`, each chain's carry
+    compensated on its own; the metrics gain the chains axis.
     """
     step = make_delta_em_step(table, obs, nb, delta, f_max, sobs=sobs, band_w=band_w,
                               thresh_overflow=thresh_overflow, obs_grid=obs_grid,
@@ -550,17 +644,18 @@ def make_delta_em_cycle(table: SubFragTable, obs, nb, delta: int, f_max: int,
     def cycle(state: GenomeState, rng, params: RippeParams, frag_order, l_t, f_t):
         dev = state.pos.device
         frag_order = torch.as_tensor(frag_order, device=dev).long()
-        n_steps = frag_order.shape[0]
+        n_steps = frag_order.shape[-1]
+        lead = frag_order.shape[:-1]
         if isinstance(rng, torch.Generator):
-            rng = draw_step_inputs(rng, nb, delta, (n_steps,))
-        zero = torch.zeros((), dtype=torch.float32, device=dev)
+            rng = draw_step_inputs(rng, nb, delta, (n_steps,) + lead)
+        zero = torch.zeros(lead, dtype=torch.float32, device=dev)
         l_hi = torch.as_tensor(l_t, dtype=torch.float32, device=dev)
         l_c = zero
         rows = []
         for i in range(n_steps):
-            draws = StepDraws(*[None if x is None else x[i] for x in rng])
+            draws = type(rng)(*[None if x is None else x[i] for x in rng])
             state, d_sel, (op, fb, n_over) = step(state, draws, params, zero,
-                                                  frag_order[i], f_t)
+                                                  frag_order[..., i], f_t)
             y = d_sel - l_c
             t = l_hi + y
             l_c = (t - l_hi) - y

@@ -45,7 +45,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from graal_tpu_torch.core.delta import DeltaScorer, extract_rows
+from graal_tpu_torch.core.delta import DeltaScorer, extract_rows, lift_chain
 from graal_tpu_torch.core.mcmc import _take
 from graal_tpu_torch.core.model import RippeParams
 from graal_tpu_torch.core.sparse import (SparseObs, logfact_entries, sparse_directed,
@@ -223,11 +223,40 @@ class RepeatDeltaScorer:
               params: RippeParams, max_id):
         """Score the m neighbours ``ids`` of ``f_a`` on their member rows
         (:func:`core.delta.extract_rows_each`). Returns (dll (m, 13),
-        candidates (m, 13, f_max), rows, valid, overflow)."""
+        candidates (m, 13, f_max), rows, valid, overflow).
+
+        With a chains axis (as :meth:`core.delta.DeltaScorer.score` takes
+        it) the single-copy part of every chain's neighbours goes through
+        one obs-grid and one mini-grid launch; the copy corrections are
+        taken chain by chain, each on its own genome. dll and the
+        candidates come back as (C, m, 13) and (C, m, 13, f_max)."""
         p = self.plain
-        cands, geo, ob, accu_sub, pvec = p.inputs(state, f_a, ids, rows, valid, params,
-                                                  max_id)
+        f_a = torch.as_tensor(f_a, device=rows.device)
+        args = (state, f_a, ids, rows, valid, max_id)
+        if ids.dim() == 1:      # one chain: a chains axis of one
+            args = lift_chain(*args)
+        st, fa, ids_c, rows_c, valid_c = args[:5]
+        cands, geo, ob, accu_sub, pvec = p.inputs(*args[:5], params, args[5])
         _, dll1 = p.mini_grid(*p.mini_grid_args(geo, ob, accu_sub, pvec))
+        n_ch, m = ids_c.shape
+        parts = []
+        for k in range(n_ch):
+            sl = slice(k * m, (k + 1) * m)
+            parts.append(self._corrections(
+                GenomeState(*[x[k] for x in st]), fa[k], rows_c[k], valid_c[k],
+                type(geo)(*[x[sl] for x in geo]), accu_sub[sl], pvec[k * m]))
+        corr, cross = (torch.cat(x) for x in zip(*parts))
+        dll = dll1.double() + (corr[:, 1:] - corr[:, :1]) - cross
+        lead = ids.shape
+        return (dll.float().reshape(lead + dll.shape[1:]),
+                GenomeState(*[x.reshape(lead + x.shape[1:]) for x in cands]),
+                rows, valid, overflow)
+
+    def _corrections(self, state: GenomeState, f_a, rows, valid, geo, accu_sub, pvec):
+        """The copy corrections of one chain's m neighbours on top of the
+        single-copy scores: (corr (m, 14) f64 of every genome, cross (m,
+        13) f64, swap_activity's trans mass against the frozen genome)."""
+        p = self.plain
         m, n_gen, r = geo.mid.shape
         n = state.n_frags
         dev = rows.device
@@ -355,8 +384,7 @@ class RepeatDeltaScorer:
         w_out = w_all - a_base.sum(-1, dtype=torch.float64)               # (m,)
         cross = vn.double() * ((a_g[:, 1:] - a_base[:, None]).double()
                                * (w_out[:, None] - o_same.double())[:, None]).sum(-1)
-        dll = dll1.double() + (corr[:, 1:] - corr[:, :1]) - cross
-        return dll.float(), cands, rows, valid, overflow
+        return corr, cross
 
     def __call__(self, state: GenomeState, f_a, f_b, params: RippeParams, max_id):
         dev = state.pos.device

@@ -384,6 +384,12 @@ def solve_d_max(params: RippeParams, v_inter, lo=1e-2, hi=1e6, passes=5,
     return torch.exp((llo + lhi) * 0.5)
 
 
+def _pick4(x4, id_modif):
+    """Row ``id_modif`` of the four proposals ``x4`` (4, ...): one index,
+    or one per chain ((C,) against (4, C)), without a host read."""
+    return x4.gather(0, id_modif.long().reshape((1,) + x4.shape[1:]))[0]
+
+
 def make_nuisance_proposer(d_max_cap: float | None = None):
     """Parameter-proposal half of the nuisance Metropolis step.
 
@@ -393,7 +399,9 @@ def make_nuisance_proposer(d_max_cap: float | None = None):
     parameters are re-derived, and the proposal is in support when the
     perturbed parameter stays in its declared range. All four proposals
     are built as one batch of four parameter sets and ``id_modif`` selects
-    one on the device.
+    one on the device. With a chains axis (``id_modif`` and ``eps`` (C,),
+    params fields (C,)) each chain proposes from its own parameters, as it
+    would alone (the JAX package's ``jax.vmap`` of the proposer).
     """
     sigma_slope = 0.05
     sigma_d_max = 100.0
@@ -426,12 +434,12 @@ def make_nuisance_proposer(d_max_cap: float | None = None):
             (new_d_max > d_max_range[0]) & (new_d_max <= d_max_range[1]),
             (new_v > d_nuc_range[0]) & (new_v <= d_nuc_range[1])])
 
-        test_params = p._replace(c1=_take(c1_4, id_modif),
-                                 slope=_take(slope4, id_modif),
-                                 d_max=_take(d_max4, id_modif),
-                                 fact=_take(fact4, id_modif),
-                                 v_inter=_take(v4, id_modif))
-        in_support = _take(valid4, id_modif)
+        test_params = p._replace(c1=_pick4(c1_4, id_modif),
+                                 slope=_pick4(slope4, id_modif),
+                                 d_max=_pick4(d_max4, id_modif),
+                                 fact=_pick4(fact4, id_modif),
+                                 v_inter=_pick4(v4, id_modif))
+        in_support = _pick4(valid4, id_modif)
         if d_max_cap is not None:
             in_support = in_support & (test_params.d_max <= d_max_cap)
         return test_params, in_support
@@ -441,7 +449,8 @@ def make_nuisance_proposer(d_max_cap: float | None = None):
 
 def nuisance_accept(u, test_params: RippeParams, params: RippeParams,
                     l_star, l_t, f_t, in_support):
-    """Metropolis accept/reject half of the nuisance step."""
+    """Metropolis accept/reject half of the nuisance step; elementwise, so
+    a chains axis on every argument accepts each chain on its own."""
     ratio = torch.exp((l_star.float() - l_t) / f_t)
     accept = in_support & (ratio >= u)
     out = RippeParams(*[torch.where(accept, a, b)

@@ -400,12 +400,13 @@ def _delta_forward(state, f_a, jump, score_set, params, l_t):
 
 def _delta_commit_candidate(state, omega, minis_f, rows_f, rvalid_f):
     """The full genome with mini candidate ``omega`` written back."""
-    from graal_tpu_torch.core.delta import scatter_mini
+    from graal_tpu_torch.core.delta import drop_chain, lift_chain, scatter_mini
 
     m = rows_f.shape[0]
     sel_nb = omega // N_CANDIDATES
     sel_mini = GenomeState(*[_take(x.reshape(m * N_CANDIDATES, -1), omega) for x in minis_f])
-    return scatter_mini(state, sel_mini, _take(rows_f, sel_nb), _take(rvalid_f, sel_nb))
+    return drop_chain(scatter_mini(*lift_chain(state, sel_mini, _take(rows_f, sel_nb),
+                                               _take(rvalid_f, sel_nb))))[0]
 
 
 def make_delta_mtm_step(table: SubFragTable, jump: JumpTable, f_max: int, sobs,

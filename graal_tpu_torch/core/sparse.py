@@ -167,13 +167,104 @@ def lexsort2(primary: torch.Tensor, secondary: torch.Tensor) -> torch.Tensor:
 
 def genome_sort_order(state: GenomeState, table: SubFragTable):
     """Sub rows sorted by (contig, genomic midpoint) under the current
-    genome (the band enumeration order), and the midpoints."""
+    genome (the band enumeration order), and the midpoints; with a chains
+    axis (fields (C, n)) one order per chain, (C, K)."""
     own = table.owner.long()
-    start_kb = state.start_bp[own].float() / 1000.0
-    ori = state.ori[own]
+    start_kb = state.start_bp[..., own].float() / 1000.0
+    ori = state.ori[..., own]
     mid = start_kb + torch.where(ori == 1, table.prefix_kb, table.suffix_kb) \
         + table.len_kb * 0.5
-    return lexsort2(state.id_c[own], mid), mid
+    return lexsort2(state.id_c[..., own], mid), mid
+
+
+def _chain_params(params, cell_dims: int):
+    """Parameters shaped to broadcast over a chain's cells: shared (0-d)
+    fields stay, one-per-chain (C,) fields become (C, 1, ...)."""
+    return type(params)(*[x.reshape(x.shape + (1,) * cell_dims) if x.dim() else x
+                          for x in params])
+
+
+def _span(lo_hi, total: int):
+    lo, hi = lo_hi if lo_hi is not None else (0, total)
+    return max(0, min(lo, total)), max(0, min(hi, total))
+
+
+def sparse_loglik_parts(table: SubFragTable, sobs: SparseObs, w: int,
+                        max_cells: int = 1 << 24, entries=None, left_ends=None):
+    """The two sums of the sparse likelihood that grow with the map, over a
+    part of it, and what completes them.
+
+    Returns ``(parts, finish)``: ``parts(states, params) -> (term1, cis)``,
+    f64 (C,), the observed-pair term over the symmetric entries
+    ``entries = (lo, hi)`` and the banded cis correction over the band
+    left ends ``left_ends = (lo, hi)`` of the genome-sorted order (all of
+    each by default); ``finish(states, params, term1, cis) -> (C,) f32``
+    adds the terms that do not grow with the map (the analytic trans mass,
+    the log-factorial constant) to the sums of every part. ``states`` has
+    a chains axis (fields (C, n)); params are shared or one set per chain,
+    fields (C,). A row-sharded likelihood sums ``parts`` over disjoint
+    spans and calls ``finish`` once (``parallel.sharding``). Repeat tables
+    take the copy-summing form (see :func:`make_sparse_loglik`)."""
+    if table.has_repeats:
+        return _sparse_parts_repeats(table, sobs, w, max_cells, entries, left_ends)
+    k = table.n_subs
+    if sobs.n != k:
+        raise ValueError(f"sparse map has {sobs.n} rows, table has {k} subs")
+    owner = table.owner.long()
+    accu = table.accu
+    nfpb = float(np.float32(table.n_frags_per_bins))
+    e0, e1 = _span(entries, sobs.vals.shape[0])
+    u_idx = sobs.rows[e0:e1].long()
+    v_idx = sobs.cols[e0:e1].long()
+    vals = sobs.vals[e0:e1]
+    lo, hi = _span(left_ends, k)
+    accu64 = accu.double()
+    a_sum = accu64.sum()
+    a_sq = (accu64 * accu64).sum()
+    dev = accu.device
+    rows_i = torch.arange(lo, hi, device=dev)[:, None]
+
+    def parts(states: GenomeState, params: RippeParams):
+        c = states.pos.shape[0]
+        order, mid = genome_sort_order(states, table)
+        idc = states.id_c[:, owner]
+        circ = states.circ[:, owner]
+        stot = states.l_cont_bp[:, owner].float() / 1000.0
+
+        # ---- observed pairs ----
+        p1 = _chain_params(params, 1)
+        s = torch.abs(mid[:, u_idx] - mid[:, v_idx])
+        same = idc[:, u_idx] == idc[:, v_idx]
+        na = accu[u_idx] * accu[v_idx] / nfpb
+        e_obs = expected_contacts(s, same, circ[:, u_idx] == 1, stot[:, u_idx], na, p1)
+        term1 = 0.5 * (vals * torch.log(e_obs)).sum(-1, dtype=torch.float64)
+
+        # ---- banded cis correction over the left ends, (C, L, chunk) slabs ----
+        p2 = _chain_params(params, 2)
+        mid_s, idc_s = mid.gather(1, order), idc.gather(1, order)
+        circ_s, stot_s = circ.gather(1, order), stot.gather(1, order)
+        accu_s = accu[order]
+        chunk = max(1, min(w, max_cells // max((hi - lo) * c, 1)))
+        cis_corr = torch.zeros(c, dtype=torch.float64, device=dev)
+        for off0 in range(1, w + 1, chunk):
+            offs = torch.arange(off0, min(off0 + chunk, w + 1), device=dev)
+            j = rows_i + offs[None, :]
+            valid = j < k
+            jc = j.clamp_max(k - 1)
+            s = torch.abs(mid_s[:, lo:hi, None] - mid_s[:, jc])
+            same = (idc_s[:, lo:hi, None] == idc_s[:, jc]) & valid
+            na = accu_s[:, lo:hi, None] * accu_s[:, jc] / nfpb
+            e_cis = expected_contacts(s, same, (circ_s[:, lo:hi] == 1)[:, :, None],
+                                      stot_s[:, lo:hi, None], na, p2)
+            corr = torch.where(same, e_cis - p2.v_inter * na, 0.0)
+            cis_corr = cis_corr + corr.sum(dim=(1, 2), dtype=torch.float64)
+        return term1, cis_corr
+
+    def finish(states: GenomeState, params: RippeParams, term1, cis_corr):
+        trans_mass = params.v_inter.double() * (a_sum * a_sum - a_sq) * 0.5 / nfpb
+        return (term1 - (trans_mass + cis_corr) + sobs.logfact_const).float()
+
+    return parts, finish
 
 
 def make_sparse_loglik(table: SubFragTable, sobs: SparseObs, w: int,
@@ -181,77 +272,35 @@ def make_sparse_loglik(table: SubFragTable, sobs: SparseObs, w: int,
     """Build ``fn(state, params) -> 0-d f32`` - the full Poisson
     log-likelihood, sparse and banded, equal to the dense
     ``core.likelihood.log_likelihood``. Repeat tables route to the
-    copy-summing variant (:func:`_make_sparse_loglik_repeats`).
+    copy-summing variant (:func:`_sparse_parts_repeats`): the expectation of
+    an observed data pair sums over its active copy pairs; the expected
+    mass stays pairwise over copy rows with same-data-bin pairs left out
+    (they feed the data-grid diagonal, which the likelihood masks), and
+    each entry's log(ob!) sits inside the E > 0 indicator, since a state can
+    drive a pair's expectation to zero (every copy inactive).
 
-    ``max_cells`` bounds each band slab (K x chunk offsets)."""
-    if table.has_repeats:
-        return _make_sparse_loglik_repeats(table, sobs, w, max_cells)
-    k = table.n_subs
-    if sobs.n != k:
-        raise ValueError(f"sparse map has {sobs.n} rows, table has {k} subs")
-    owner = table.owner.long()
-    accu = table.accu
-    nfpb = float(np.float32(table.n_frags_per_bins))
-    u_idx = sobs.rows.long()
-    v_idx = sobs.cols.long()
-    accu64 = accu.double()
-    a_sum = accu64.sum()
-    a_sq = (accu64 * accu64).sum()
-    chunk = max(1, min(w, max_cells // max(k, 1)))
-    dev = accu.device
-    rows_i = torch.arange(k, device=dev)[:, None]
+    With a chains axis (``state`` fields (C, n); params shared or one set
+    per chain, fields (C,)) every chain is evaluated at once and ``fn``
+    returns (C,): the JAX package's ``jax.vmap(anchor)``. ``max_cells``
+    bounds each band slab (chains x left ends x offsets)."""
+    parts, finish = sparse_loglik_parts(table, sobs, w, max_cells)
 
     def fn(state: GenomeState, params: RippeParams):
-        order, mid = genome_sort_order(state, table)
-        idc = state.id_c[owner]
-        circ = state.circ[owner]
-        stot = state.l_cont_bp[owner].float() / 1000.0
-
-        # ---- observed pairs ----
-        s = torch.abs(mid[u_idx] - mid[v_idx])
-        same = idc[u_idx] == idc[v_idx]
-        na = accu[u_idx] * accu[v_idx] / nfpb
-        e_obs = expected_contacts(s, same, circ[u_idx] == 1, stot[u_idx], na,
-                                  params)
-        term1 = 0.5 * (sobs.vals * torch.log(e_obs)).sum(dtype=torch.float64)
-
-        # ---- analytic trans mass ----
-        trans_mass = params.v_inter.double() * (a_sum * a_sum - a_sq) * 0.5 / nfpb
-
-        # ---- banded cis correction, (K, chunk) offset slabs ----
-        mid_s, idc_s = mid[order], idc[order]
-        circ_s, stot_s, accu_s = circ[order], stot[order], accu[order]
-        cis_corr = torch.zeros((), dtype=torch.float64, device=dev)
-        for off0 in range(1, w + 1, chunk):
-            offs = torch.arange(off0, min(off0 + chunk, w + 1), device=dev)
-            j = rows_i + offs[None, :]
-            valid = j < k
-            jc = j.clamp_max(k - 1)
-            s = torch.abs(mid_s[:, None] - mid_s[jc])
-            same = (idc_s[:, None] == idc_s[jc]) & valid
-            na = accu_s[:, None] * accu_s[jc] / nfpb
-            e_cis = expected_contacts(s, same, (circ_s == 1)[:, None],
-                                      stot_s[:, None], na, params)
-            corr = torch.where(same, e_cis - params.v_inter * na, 0.0)
-            cis_corr = cis_corr + corr.sum(dtype=torch.float64)
-        return (term1 - (trans_mass + cis_corr) + sobs.logfact_const).float()
+        single = state.pos.dim() == 1
+        states = GenomeState(*[x[None] for x in state]) if single else state
+        out = finish(states, params, *parts(states, params))
+        return out[0] if single else out
 
     return fn
 
 
-def _make_sparse_loglik_repeats(table: SubFragTable, sobs: SparseObs, w: int,
-                                max_cells: int):
-    """Copy-expanded sparse likelihood. The expectation of an observed data
-    pair sums over its active copy pairs (c_max x c_max blocks per nnz
-    entry, in chunks of about ``max_cells`` pairs); the expected mass stays
-    pairwise over copy rows (analytic trans + banded cis) with same-data-bin
-    pairs left out, since they feed the data-grid diagonal, which the
-    likelihood masks.
-
-    There is no global log-factorial constant: each entry's log(ob!) sits
-    inside the E > 0 indicator, because a state can drive a pair's
-    expectation to zero (every copy inactive), and then the whole pmf term
-    drops out."""
+def _sparse_parts_repeats(table: SubFragTable, sobs: SparseObs, w: int, max_cells: int,
+                          entries, left_ends):
+    """:func:`sparse_loglik_parts` of a copy-expanded table: the observed
+    term copy-summed (c_max x c_max blocks per entry, in chunks of about
+    ``max_cells`` pairs) with each entry's log(ob!) inside the E > 0
+    indicator, the banded cis correction without same-data-bin pairs, and
+    the analytic trans mass (activity-dependent) in ``finish``."""
     from graal_tpu_torch.core.delta_repeats import build_copy_table
 
     ct = build_copy_table(table)
@@ -271,64 +320,73 @@ def _make_sparse_loglik_repeats(table: SubFragTable, sobs: SparseObs, w: int,
         rows = ct.copy_rows[(b0[..., None] + ci).clamp(0, k - 1)]
         return rows, ci < (ct.copy_start[bins + 1] - b0)[..., None]
 
-    u_rows, u_ok = copies_of(sobs.rows.long())
-    v_rows, v_ok = copies_of(sobs.cols.long())
-    lf = torch.as_tensor(logfact_entries(sobs.vals.cpu().numpy()).astype(np.float32),
-                         device=dev)
+    e0, e1 = _span(entries, sobs.vals.shape[0])
+    u_rows, u_ok = copies_of(sobs.rows[e0:e1].long())
+    v_rows, v_ok = copies_of(sobs.cols[e0:e1].long())
+    vals = sobs.vals[e0:e1]
+    lf = torch.as_tensor(logfact_entries(vals.cpu().numpy()).astype(np.float32), device=dev)
     b_rows, b_ok = copies_of(torch.arange(s_dim, device=dev))
-    nnz = sobs.vals.shape[0]
-    e_chunk = max(1, max_cells // (ct.c_max * ct.c_max))
-    chunk = max(1, min(w, max_cells // max(k, 1)))
-    rows_i = torch.arange(k, device=dev)[:, None]
+    nnz = vals.shape[0]
+    lo, hi = _span(left_ends, k)
+    rows_i = torch.arange(lo, hi, device=dev)[:, None]
 
-    def fn(state: GenomeState, params: RippeParams):
-        order, mid = genome_sort_order(state, table)
-        idc = state.id_c[owner]
-        circ = state.circ[owner]
-        stot = state.l_cont_bp[owner].float() / 1000.0
-        a = torch.where(state.activ[owner] == 1, accu, 0.0)
+    def parts(states: GenomeState, params: RippeParams):
+        c = states.pos.shape[0]
+        order, mid = genome_sort_order(states, table)
+        idc = states.id_c[:, owner]
+        circ = states.circ[:, owner]
+        stot = states.l_cont_bp[:, owner].float() / 1000.0
+        a = torch.where(states.activ[:, owner] == 1, accu, 0.0)
 
         # ---- observed pairs, copy-summed ----
-        term1 = torch.zeros((), dtype=torch.float64, device=dev)
-        for e0 in range(0, nnz, e_chunk):
-            sl = slice(e0, e0 + e_chunk)
+        p3 = _chain_params(params, 3)
+        e_chunk = max(1, max_cells // (ct.c_max * ct.c_max * c))
+        term1 = torch.zeros(c, dtype=torch.float64, device=dev)
+        for q0 in range(0, nnz, e_chunk):
+            sl = slice(q0, q0 + e_chunk)
             ur, vr = u_rows[sl], v_rows[sl]
-            s = torch.abs(mid[ur][:, :, None] - mid[vr][:, None, :])
-            same = idc[ur][:, :, None] == idc[vr][:, None, :]
-            na = a[ur][:, :, None] * a[vr][:, None, :] / nfpb
-            e = expected_contacts(s, same, (circ[ur] == 1)[:, :, None],
-                                  stot[ur][:, :, None], na, params)
+            s = torch.abs(mid[:, ur][..., :, None] - mid[:, vr][..., None, :])
+            same = idc[:, ur][..., :, None] == idc[:, vr][..., None, :]
+            na = a[:, ur][..., :, None] * a[:, vr][..., None, :] / nfpb
+            e = expected_contacts(s, same, (circ[:, ur] == 1)[..., :, None],
+                                  stot[:, ur][..., :, None], na, p3)
             ok = u_ok[sl][:, :, None] & v_ok[sl][:, None, :]
-            e_data = torch.where(ok, e, 0.0).sum(dim=(1, 2))
-            term = sobs.vals[sl] * torch.log(torch.where(e_data > 0.0, e_data, 1.0)) - lf[sl]
-            term1 = term1 + torch.where(e_data > 0.0, term, 0.0).sum(dtype=torch.float64)
+            e_data = torch.where(ok, e, 0.0).sum(dim=(2, 3))
+            term = vals[sl] * torch.log(torch.where(e_data > 0.0, e_data, 1.0)) - lf[sl]
+            term1 = term1 + torch.where(e_data > 0.0, term, 0.0).sum(-1, dtype=torch.float64)
         term1 = 0.5 * term1
 
-        # ---- analytic trans mass, same-bin pairs excluded ----
-        a64 = a.double()
-        a_sum, a_sq = a64.sum(), (a64 * a64).sum()
-        b_sums = torch.where(b_ok, a64[b_rows], 0.0).sum(1)
-        same_bin = ((b_sums * b_sums).sum() - a_sq) * 0.5
-        trans_mass = params.v_inter.double() / nfpb * ((a_sum * a_sum - a_sq) * 0.5 - same_bin)
-
-        # ---- banded cis correction, same-bin pairs excluded ----
-        mid_s, idc_s, circ_s = mid[order], idc[order], circ[order]
-        stot_s, a_s, db_s = stot[order], a[order], data_id[order]
-        cis_corr = torch.zeros((), dtype=torch.float64, device=dev)
+        # ---- banded cis correction over the left ends, same-bin pairs excluded ----
+        p2 = _chain_params(params, 2)
+        mid_s, idc_s = mid.gather(1, order), idc.gather(1, order)
+        circ_s, stot_s, a_s = circ.gather(1, order), stot.gather(1, order), a.gather(1, order)
+        db_s = data_id[order]
+        chunk = max(1, min(w, max_cells // max((hi - lo) * c, 1)))
+        cis_corr = torch.zeros(c, dtype=torch.float64, device=dev)
         for off0 in range(1, w + 1, chunk):
             offs = torch.arange(off0, min(off0 + chunk, w + 1), device=dev)
             j = rows_i + offs[None, :]
             jc = j.clamp_max(k - 1)
-            s = torch.abs(mid_s[:, None] - mid_s[jc])
-            same = (idc_s[:, None] == idc_s[jc]) & (j < k) & (db_s[:, None] != db_s[jc])
-            na = a_s[:, None] * a_s[jc] / nfpb
-            e_cis = expected_contacts(s, same, (circ_s == 1)[:, None], stot_s[:, None], na,
-                                      params)
-            corr = torch.where(same, e_cis - params.v_inter * na, 0.0)
-            cis_corr = cis_corr + corr.sum(dtype=torch.float64)
+            s = torch.abs(mid_s[:, lo:hi, None] - mid_s[:, jc])
+            same = (idc_s[:, lo:hi, None] == idc_s[:, jc]) & (j < k) \
+                & (db_s[:, lo:hi, None] != db_s[:, jc])
+            na = a_s[:, lo:hi, None] * a_s[:, jc] / nfpb
+            e_cis = expected_contacts(s, same, (circ_s[:, lo:hi] == 1)[:, :, None],
+                                      stot_s[:, lo:hi, None], na, p2)
+            corr = torch.where(same, e_cis - p2.v_inter * na, 0.0)
+            cis_corr = cis_corr + corr.sum(dim=(1, 2), dtype=torch.float64)
+        return term1, cis_corr
+
+    def finish(states: GenomeState, params: RippeParams, term1, cis_corr):
+        # analytic trans mass, same-bin pairs excluded (activity-dependent)
+        a64 = torch.where(states.activ[:, owner] == 1, accu, 0.0).double()
+        a_sum, a_sq = a64.sum(-1), (a64 * a64).sum(-1)
+        b_sums = torch.where(b_ok, a64[:, b_rows], 0.0).sum(-1)
+        same_bin = ((b_sums * b_sums).sum(-1) - a_sq) * 0.5
+        trans_mass = params.v_inter.double() / nfpb * ((a_sum * a_sum - a_sq) * 0.5 - same_bin)
         return (term1 - (trans_mass + cis_corr)).float()
 
-    return fn
+    return parts, finish
 
 
 def make_sparse_obs_fn(sobs: SparseObs, r_max: int):

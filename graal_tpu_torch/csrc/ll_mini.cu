@@ -14,7 +14,9 @@
 // The delta of candidate c is dll[m, c-1] = score[m, c] - score[m, 0],
 // taken in f64 from the f64 tile sums and then rounded once: base and
 // candidates differ in few cells, and an f32 difference of two f32 sums
-// would lose those cells to cancellation.
+// would lose those cells to cancellation. The Rippe parameters are one row
+// per neighbour slot (a tempered chain carries its own); an item reads its
+// slot's row once.
 //
 // What bounds it on the card. No design avoids the same-contig power law:
 // a logf, a divide and an expf per same-contig pair inside (0, d_max)
@@ -96,7 +98,7 @@ ll_mini_items(const float* __restrict__ mid,    // (M, C, R) sub-row midpoints (
               const float* __restrict__ stot,   // (M, C, R) contig length (kb)
               const float* __restrict__ la,     // (M, C, R) log accu, -1e9 if inactive
               const float* __restrict__ ob,     // (M, R, R) observed grid
-              const float* __restrict__ pvec,   // (N_PARAMS,)
+              const float* __restrict__ pvec,   // (M, N_PARAMS), one row a mini genome
               float* __restrict__ partial,      // (M, C, n_tri * SLOTS)
               int* __restrict__ next_item,      // ticket counter, 0 at launch
               int M, int C, int R, int n_rb, int n_tri, int cs, int n_chunks, int n_items) {
@@ -106,7 +108,6 @@ ll_mini_items(const float* __restrict__ mid,    // (M, C, R) sub-row midpoints (
   __shared__ float s_warp[CAND_MAX][WARPS];  // warp sums of the last item
   __shared__ int s_item;
 
-  const RippeCell p(pvec);
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -129,6 +130,7 @@ ll_mini_items(const float* __restrict__ mid,    // (M, C, R) sub-row midpoints (
     const int c0 = it.first;
     const int nbr = it.group;
     const int nc = min(cs, C - c0);
+    const RippeCell p(pvec + (size_t)nbr * N_PARAMS);   // this neighbour's parameters
     int bi, bj;
     band_coords(t, n_rb, &bi, &bj);
     const int i0 = bi * TILE + half * ROWS;         // first row of the item
@@ -253,8 +255,10 @@ int ll_mini_configure(int* blocks_per_sm) {
 // next_item a device int that is 0 before the launch (and is 0 again after
 // it: launches that share it must be ordered on one stream). `cs`
 // candidates per item and `grid` persistent blocks come from the caller's
-// plan (ops/persistent.py). Launches on `stream`, does not synchronise,
-// returns the cudaError_t of the launches.
+// plan (ops/persistent.py). Mini genome m reads its N_PARAMS parameters at
+// pvec + m * N_PARAMS (a shared vector comes broadcast to M rows). Launches
+// on `stream`, does not synchronise, returns the cudaError_t of the
+// launches.
 int ll_mini_score(const float* mid, const int* idc, const float* circ,
                   const float* stot, const float* la, const float* ob,
                   const float* pvec, float* partial, float* scores, float* dll,

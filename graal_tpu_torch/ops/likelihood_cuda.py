@@ -129,16 +129,17 @@ def resident_blocks(device) -> int:
 def params_vector(p: RippeParams, log_nfpb: torch.Tensor) -> torch.Tensor:
     """The kernel's 10 f32 parameters, computed on the device: [log_c1fact,
     slope, d, d_max, lm/kuhn, log_v_inter, v_inter, log_norm_circ,
-    log_k3fact, log_nfpb]."""
+    log_k3fact, log_nfpb]. Parameters with a leading shape (one set per
+    chain) give one row per set, (..., 10)."""
     log_c1fact = torch.log(p.c1 * p.fact)
     log_k3fact = torch.log(torch.pow(p.kuhn, -3.0) * p.fact)
     nmax = p.lm / p.kuhn
     log_norm_circ = (log_k3fact + p.slope * torch.log(nmax)
                      + (p.d - 2.0) / (nmax * nmax + p.d))
-    return torch.stack([
+    return torch.stack(torch.broadcast_tensors(
         log_c1fact, p.slope, p.d, p.d_max, p.lm / p.kuhn,
         torch.log(p.v_inter), p.v_inter, log_norm_circ, log_k3fact,
-        log_nfpb]).float()
+        log_nfpb), dim=-1).float()
 
 
 def score_dense_plain(mid, idc, circ, stot, la, obs, pvec, obs_const,

@@ -66,9 +66,11 @@ def resident_blocks(device) -> int:
 def log_cis_plain(s, circ_row, stot, pvec):
     """The kernel's per-cell log expectation of a same-contig pair (before
     the accumulation term): circular formula on circular rows, clamped
-    below by log v_inter, log v_inter outside (0, d_max)."""
+    below by log v_inter, log v_inter outside (0, d_max). ``pvec`` is one
+    (10,) vector, or (..., 10) whose leading shape broadcasts against the
+    cells'."""
     (log_c1fact, slope, d, d_max, lmk, log_v, _v_inter, log_norm_circ,
-     log_k3fact, _log_nfpb) = pvec.unbind()
+     log_k3fact, _log_nfpb) = pvec.unbind(-1)
     safe_s = torch.clamp_min(s, 1e-9)
     n_lin = safe_s * lmk
     log_lin = log_c1fact + slope * torch.log(safe_s) + (d - 2.0) / (n_lin * n_lin + d)
@@ -81,13 +83,20 @@ def log_cis_plain(s, circ_row, stot, pvec):
     return torch.maximum(log_cis, log_v)
 
 
+def pvec_rows(pvec, nbr, cell_dims=1):
+    """Rows ``nbr`` of an (M, 10) parameter matrix, shaped (G, 1, ..., 10)
+    to broadcast over their genomes' cells (``cell_dims`` axes a genome)."""
+    return pvec[nbr].reshape((nbr.shape[0],) + (1,) * cell_dims + (pvec.shape[-1],))
+
+
 def mini_grid_plain(mid, idc, circ, stot, la, ob, pvec):
     """Plain torch version of the kernel on (M, C, R) vectors and (M, R, R)
     grids: the same per-cell math over the pairs u < v, each genome's sum
-    taken in f64, genomes in chunks of about ``MAX_CELLS`` pairs. Returns
-    (scores (M, C) f32, dll (M, C - 1) f32)."""
+    taken in f64, genomes in chunks of about ``MAX_CELLS`` pairs. ``pvec``
+    is one (10,) vector, read as its broadcast (M, 10), or one row per
+    neighbour slot. Returns (scores (M, C) f32, dll (M, C - 1) f32)."""
     m, c, r = mid.shape
-    log_v, log_nfpb = pvec[5], pvec[9]
+    pvec = pvec.expand(m, N_PARAMS)
     iu, ju = torch.triu_indices(r, r, 1, device=mid.device)
     ob_pairs = ob[:, iu, ju]                                     # (M, P)
     flat = [x.reshape(m * c, r) for x in (mid, idc, circ, stot, la)]
@@ -96,8 +105,10 @@ def mini_grid_plain(mid, idc, circ, stot, la, ob, pvec):
     sums = []
     for g0 in range(0, m * c, chunk):
         g_mid, g_idc, g_circ, g_stot, g_la = [x[g0:g0 + chunk] for x in flat]
+        pv = pvec_rows(pvec, nbr[g0:g0 + chunk])
+        log_v, log_nfpb = pv[..., 5], pv[..., 9]
         s = torch.abs(g_mid[:, iu] - g_mid[:, ju])
-        log_cis = log_cis_plain(s, g_circ[:, iu] == 1, g_stot[:, iu], pvec)
+        log_cis = log_cis_plain(s, g_circ[:, iu] == 1, g_stot[:, iu], pv)
         log_e = torch.where(g_idc[:, iu] == g_idc[:, ju], log_cis, log_v) \
             + ((g_la[:, iu] + g_la[:, ju]) - log_nfpb)
         contrib = ob_pairs[nbr[g0:g0 + chunk]] * log_e - torch.exp(log_e)
@@ -110,7 +121,9 @@ class MiniGridScorer:
     """``score(mid, idc, circ, stot, la, ob, pvec) -> (scores (M, C),
     dll (M, C - 1))``: ``mid``, ``circ``, ``stot``, ``la`` (M, C, R) f32,
     ``idc`` (M, C, R) int32, ``ob`` (M, R, R) f32, ``pvec`` the (10,) f32
-    parameter vector of :func:`graal_tpu_torch.ops.likelihood_cuda.params_vector`.
+    parameter vector of :func:`graal_tpu_torch.ops.likelihood_cuda.params_vector`
+    shared by every slot (launched as its broadcast), or (M, 10), one row
+    per neighbour slot (chains with their own parameters in one launch).
 
     ``n_launches`` counts the calls that launched the CUDA kernel.
     """
@@ -127,13 +140,14 @@ class MiniGridScorer:
         if mid.dim() != 3:
             raise ValueError(f"mid: need (M, C, R), got {tuple(mid.shape)}")
         m, c, r = mid.shape
+        pvec = pvec.expand(m, N_PARAMS).contiguous()
         for name, x, dt, shape in (("mid", mid, torch.float32, (m, c, r)),
                                    ("idc", idc, torch.int32, (m, c, r)),
                                    ("circ", circ, torch.float32, (m, c, r)),
                                    ("stot", stot, torch.float32, (m, c, r)),
                                    ("la", la, torch.float32, (m, c, r)),
                                    ("ob", ob, torch.float32, (m, r, r)),
-                                   ("pvec", pvec, torch.float32, (N_PARAMS,))):
+                                   ("pvec", pvec, torch.float32, (m, N_PARAMS))):
             if x.device != dev or x.dtype != dt or not x.is_contiguous():
                 raise ValueError(f"{name}: need contiguous {dt} on {dev}, "
                                  f"got {x.dtype} on {x.device}")

@@ -13,8 +13,9 @@ Where the JAX package vmaps the EM step over chains, the chains here are
 a leading axis of every tensor of the one EM step, ``core.mcmc.make_em_step``:
 it draws the neighbours and score slots of all chains at once (each chain
 as it would alone) and scores the candidates of all chains in one scorer
-call a step, B = chains x slots. Chains over several devices are not
-ported here (ROADMAP A12).
+call a step, B = chains x slots. Given a ``parallel.sharding.Mesh`` (the
+JAX package's ``mesh=``) the chains split over its chains axis: each rank
+steps its share batched and the ensemble is gathered after the cycle.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ import torch
 
 from graal_tpu_torch.core import mcmc
 from graal_tpu_torch.core.state import GenomeState
+from graal_tpu_torch.parallel.sharding import gather_chains
 
 
 def temperature_ladder(n_chains: int, t_min: float = 1.0, t_max: float = 4.0) -> np.ndarray:
@@ -51,13 +53,17 @@ def draw_chain_inputs(gen: torch.Generator, nb: mcmc.NeighbourTable, delta: int,
     return ChainDraws(d.u_nb, d.gumbel)
 
 
-def make_tempered_cycle(table, obs, nb: mcmc.NeighbourTable, delta: int, scorer=None):
+def make_tempered_cycle(table, obs, nb: mcmc.NeighbourTable, delta: int, scorer=None,
+                        mesh=None):
     """Build cycle(states, rng, params, frag_orders, l_ts, f_ts) ->
     (states, l_ts, n_contigs), chains on the leading axis of every
     argument (``frag_orders`` (C, steps)); ``rng`` is a Generator or
     :class:`ChainDraws` with leading axes (steps, C). Each step is
     :func:`core.mcmc.make_em_step` on the chains axis: one scorer call
-    scores every chain's candidates."""
+    scores every chain's candidates. With a ``mesh`` each rank steps the
+    chains of its chain block (drawing the whole ensemble's inputs, so the
+    split equals the one-process cycle) and the outputs are the whole
+    ensemble's, gathered over the chains axis."""
     step = mcmc.make_em_step(table, obs, nb, delta, scorer=scorer)
 
     def cycle(states: GenomeState, rng, params, frag_orders, l_ts, f_ts):
@@ -67,19 +73,25 @@ def make_tempered_cycle(table, obs, nb: mcmc.NeighbourTable, delta: int, scorer=
         f_ts = torch.as_tensor(f_ts, dtype=torch.float32, device=dev)
         if isinstance(rng, torch.Generator):
             rng = draw_chain_inputs(rng, nb, delta, c, (n_steps,))
+        lo, hi = (0, c) if mesh is None else mesh.chain_span(c)
+        states, l_ts, f_ts = GenomeState(*[x[lo:hi] for x in states]), l_ts[lo:hi], f_ts[lo:hi]
         for i in range(n_steps):
-            states, (score, _, _) = step(states, ChainDraws(*[x[i] for x in rng]), params,
-                                         frag_orders[:, i], f_ts)
+            states, (score, _, _) = step(states, ChainDraws(*[x[i, lo:hi] for x in rng]),
+                                         params, frag_orders[lo:hi, i], f_ts)
             l_ts = torch.where(torch.isfinite(score), score, l_ts)
-        return states, l_ts, states.n_contigs()
+        out = (states, l_ts, states.n_contigs())
+        return out if mesh is None else gather_chains(out, c, mesh)
 
     return cycle
 
 
 def _gather(tree, src):
+    """``x[src]`` of every tensor of a tensor, a named tuple or a plain
+    tuple of them (nested)."""
     if isinstance(tree, torch.Tensor):
         return tree[src]
-    return type(tree)(*[_gather(x, src) for x in tree])
+    items = [_gather(x, src) for x in tree]
+    return type(tree)(*items) if hasattr(tree, "_fields") else type(tree)(items)
 
 
 def exchange_best(states, l_ts):
@@ -118,18 +130,20 @@ def pt_swap(states, l_ts, ladder, u, parity: int):
 def run_tempered(table, obs, nb: mcmc.NeighbourTable, state0: GenomeState, params,
                  n_chains: int, n_cycles: int, delta: int = 4, t_max: float = 4.0,
                  exchange_every: int = 1, seed: int = 1, scorer=None,
-                 consolidate: bool = True, progress=True):
+                 consolidate: bool = True, progress=True, mesh=None):
     """A tempered run from one start genome: per-cycle replica-exchange
     swaps, optional final best-genome consolidation. Randomness comes from
     one ``torch.Generator`` seeded with ``seed`` on the genome's device.
     Returns (cold state, cold likelihood (0-d tensor), metrics) with every
     chain's likelihood per cycle (``trace``), the swap counts and the
     contig counts, and every chain's final state before the consolidation
-    (``chain_states``, (C, n))."""
+    (``chain_states``, (C, n)). ``mesh``: split the chains over the ranks
+    of a ``parallel.sharding.Mesh`` (every rank holds the whole ensemble
+    between cycles, so the swaps are computed alike on every rank)."""
     dev = state0.pos.device
     if scorer is None:   # B1 / B3 on a CUDA table
         scorer = mcmc._default_scorer(table, obs, torch.float32)
-    cycle = make_tempered_cycle(table, obs, nb, delta, scorer=scorer)
+    cycle = make_tempered_cycle(table, obs, nb, delta, scorer=scorer, mesh=mesh)
     n = state0.n_frags
     states = GenomeState(*[x.expand(n_chains, n).clone() for x in state0])
     l0 = scorer(GenomeState(*[x[None] for x in state0]), params)[0]

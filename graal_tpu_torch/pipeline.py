@@ -24,12 +24,16 @@ checkpoint keeps its state, the carried likelihood and the metric
 history, so a resumed run equals the uninterrupted one bit for bit. A
 cycle's metrics and state reach the host in one copy.
 
-Not ported here: matrix snapshots, the live view and the profiler trace
-(ROADMAP A13).
+The dense EM stage can also write reordered-matrix snapshots
+(:meth:`Runner.save_matrix_snapshot`), refresh the live page
+(``utils.live``) and trace its second cycle with ``torch.profiler``
+(``utils.profiling.trace``). Under ``torch.distributed`` the tempered
+stage splits its chains over the ranks of a ``parallel.sharding.Mesh``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -50,7 +54,9 @@ from graal_tpu_torch.core.state import (GenomeState, check_invariants,
 from graal_tpu_torch.core.subfrags import SubFragTable, table_from_level
 from graal_tpu_torch.io import fasta as fasta_io
 from graal_tpu_torch.io import pyramid as pyramid_io
+from graal_tpu_torch.parallel import sharding
 from graal_tpu_torch.utils import checkpoint as ckpt_io
+from graal_tpu_torch.utils import live, profiling
 from graal_tpu_torch.utils.profiling import StageTimer
 
 
@@ -107,6 +113,12 @@ def extend_with_repeats(soa: dict, duplications):
            for k in soa}
     out["rep"][np.asarray([b for b, _ in duplications])] = 1
     return out
+
+
+def chrom_index(level) -> np.ndarray:
+    """Source-chromosome index of each bin of a pyramid level (the colour of
+    the layout painting and the live view)."""
+    return np.unique(np.asarray(level.frags.chrom), return_inverse=True)[1]
 
 
 def host_copy(*tensors):
@@ -301,6 +313,8 @@ class Runner:
         return state, params, start, l_t
 
     def _checkpoint(self, cycle, state, params, l_t, gen, collected):
+        if not sharding.is_writer():
+            return
         ckpt_io.save_checkpoint(os.path.join(self.cfg.output_dir, "checkpoint.npz"),
                                 state, params, cycle, gen,
                                 extra={"l_t": l_t, **ckpt_io.metrics_extra(collected)})
@@ -310,14 +324,22 @@ class Runner:
                                  self.orientable, self.dist_skip)
 
     def run_em(self, n_cycles=None, progress=True, resume=False, checkpoint_every=1,
-               scoring: str = "auto") -> Assembly:
+               scoring: str = "auto", profile_dir: str | None = None) -> Assembly:
         """EM cycles from the (scrambled) initial genome.
 
         ``scoring``: 'full' scores every candidate with the full-matrix
         likelihood, 'delta' with the incremental mini-state engine (the
         chr1-scale path), 'auto' picks delta above 6,000 sub-fragments.
         ``resume``: continue from ``<out>/checkpoint.npz`` when it exists
-        (written every ``checkpoint_every`` cycles)."""
+        (written every ``checkpoint_every`` cycles).
+
+        ``profile_dir`` (full scoring): the second cycle of the call runs
+        under ``utils.profiling.trace`` into that directory, and the stage
+        times and the dense scorer's achieved bandwidth are printed at the
+        end. ``cfg.sampler.snapshot_every``: a reordered-matrix snapshot
+        (:meth:`save_matrix_snapshot`) every that many cycles;
+        ``cfg.sampler.watch``: the live page (``utils.live``) refreshed
+        every cycle."""
         if scoring == "auto":
             scoring = "delta" if self.table.n_subs > 6000 else "full"
         if scoring == "delta":
@@ -347,14 +369,19 @@ class Runner:
 
         n = state.n_frags
         timer = StageTimer()
+        cycle_times = []
         t0 = time.time()
         for j in range(start_cycle, n_cycles):
             order = torch.randperm(n, generator=gen, device=dev)
             f_t = temperature_schedule(cfg.sampler, j, n_cycles)
-            with timer.stage("em_cycle"):
-                state, params, l_t, m = cycle(state, gen, params, order, l_t, f_t)
-                # one host copy a cycle: the metrics, the state, params, l_t
-                host = host_copy(*m, *state, *params, l_t)
+            tc = time.time()
+            traced = profile_dir is not None and j == start_cycle + 1
+            with profiling.trace(profile_dir) if traced else contextlib.nullcontext():
+                with timer.stage("em_cycle"):
+                    state, params, l_t, m = cycle(state, gen, params, order, l_t, f_t)
+                    # one host copy a cycle: the metrics, the state, params, l_t
+                    host = host_copy(*m, *state, *params, l_t)
+            cycle_times.append(time.time() - tc)
             with timer.stage("metrics_host"):
                 for k, v in zip(DENSE_SERIES, host):
                     collected[k].extend(v.tolist())
@@ -370,6 +397,23 @@ class Runner:
             if checkpoint_every and (j + 1) % checkpoint_every == 0:
                 with timer.stage("checkpoint"):
                     self._checkpoint(j + 1, hstate, hparams, l_host, gen, collected)
+            snap_every = cfg.sampler.snapshot_every
+            if snap_every and (j + 1) % snap_every == 0:
+                self.save_matrix_snapshot(f"snapshot_{j + 1:04d}", hstate)
+            if cfg.sampler.watch:
+                live.refresh(cfg.output_dir, j, hstate, chrom_index(self.level),
+                             {"cycle": j, "loglik": float(l_host),
+                              "n_contigs": int(host[1][-1]), "dist": dist, "T": round(f_t, 2)},
+                             collected["likelihood"][::max(1, n // 4)], watch=True)
+        if profile_dir is not None and cycle_times:
+            timer.print_report("EM profiling")
+            steady = cycle_times[1:] or cycle_times
+            bw = profiling.bandwidth_report(
+                self.table.n_subs,
+                N_CANDIDATES * (cfg.sampler.n_neighbours * self.nb.max_copies
+                                + self.nb.max_copies),
+                n, float(np.mean(steady)))
+            print("bandwidth:", json.dumps(bw), flush=True)
         check_invariants(state)
         self.state = state
         self.params = params
@@ -469,18 +513,28 @@ class Runner:
                         metrics=collected, level=self.level)
 
     def run_tempered_em(self, n_chains=None, n_cycles=None, t_max=4.0, exchange_every=2,
-                        progress=True) -> Assembly:
+                        progress=True, mesh=None) -> Assembly:
         """Parallel-tempered EM: ``n_chains`` chains (default
         ``cfg.n_chains``) on a geometric ladder up to ``t_max``, batched on
         the run's device (one scorer call a step for all chains), with
         replica-exchange swaps every ``exchange_every`` cycles and a final
         best-genome consolidation. No nuisance sampling (as in the JAX
-        package). ``self.chain_states`` keeps every chain's final genome."""
+        package). ``self.chain_states`` keeps every chain's final genome.
+
+        ``mesh``: a ``parallel.sharding.Mesh`` to split the chains over;
+        by default, under ``torch.distributed`` with a rank count that
+        the chains divide into (the JAX package's device-count test), one
+        chain block per rank group; otherwise the chains stay on the run's
+        device."""
         from graal_tpu_torch.parallel.tempering import run_tempered
 
         cfg = self.cfg
         n_chains = n_chains or max(cfg.n_chains, 1)
         n_cycles = n_cycles or cfg.sampler.n_cycles
+        n_dev = sharding.world_size()
+        if mesh is None and n_chains > 1 and n_dev > 1 and n_dev >= n_chains \
+                and n_dev % n_chains == 0:
+            mesh = sharding.make_mesh(n_chains=n_chains, n_rows=n_dev // n_chains)
         state = self.state
         if cfg.sampler.scrambled:
             state = mcmc.explode_genome(state)
@@ -490,7 +544,7 @@ class Runner:
                 self.table, self.obs, self.nb, state, self.params, n_chains=n_chains,
                 n_cycles=n_cycles, delta=cfg.sampler.n_neighbours, t_max=t_max,
                 exchange_every=exchange_every, seed=cfg.sampler.seed, scorer=self.scorer,
-                progress=progress)
+                progress=progress, mesh=mesh)
         check_invariants(final)
         self.state = final
         self.l_t = l_cold
@@ -556,7 +610,10 @@ class Runner:
     # ---- outputs ----------------------------------------------------------
     def save_behaviour(self, assembly: Assembly):
         """The reference's 9 txt series + mutation log
-        (save_behaviour_to_txt, main_gl.py:321-342) and params.json."""
+        (save_behaviour_to_txt, main_gl.py:321-342) and params.json; on
+        rank 0 only under ``torch.distributed``."""
+        if not sharding.is_writer():
+            return
         out = self.cfg.output_dir
         m = assembly.metrics
         series = {
@@ -586,6 +643,43 @@ class Runner:
         with open(os.path.join(out, "params.json"), "w") as fh:
             json.dump({k: float(v) for k, v in zip(RippeParams._fields, assembly.params)},
                       fh, indent=2)
+
+    def save_matrix_snapshot(self, name: str, state: GenomeState | None = None):
+        """Observed bin matrix reordered by the current genome
+        (display_current_matrix, cuda_lib_gl.py:1581-1624): rows and
+        columns sorted by (contig, position), contigs with an inactive
+        fragment skipped. Saves ``<out>/<name>.npy`` (byte for byte the
+        JAX package's for the same genome) and, where matplotlib is
+        installed, ``<name>.png``; on rank 0 only under
+        ``torch.distributed``. Returns the path without extension."""
+        state = state if state is not None else self.state
+        out = os.path.join(self.cfg.output_dir, name)
+        if not sharding.is_writer():
+            return out
+        id_c, pos, activ, id_d = (x.cpu().numpy() for x in
+                                  (state.id_c, state.pos, state.activ, state.id_d))
+        order = []
+        for c in np.unique(id_c):
+            members = np.nonzero(id_c == c)[0]
+            if not np.all(activ[members] == 1):
+                continue
+            order.extend(id_d[members[np.argsort(pos[members])]].tolist())
+        m = self.bin_matrix[np.ix_(order, order)]
+        np.save(out + ".npy", m)
+        try:
+            import matplotlib
+            matplotlib.use("Agg")
+            import matplotlib.pyplot as plt
+        except ImportError:
+            return out
+        vmax = np.percentile(m[m > 0], 98) if (m > 0).any() else 1.0
+        plt.figure(figsize=(6, 6), dpi=120)
+        plt.imshow(m, vmin=0, vmax=vmax, cmap="afmhot_r", interpolation="nearest")
+        plt.title(name)
+        plt.colorbar(shrink=0.7)
+        plt.savefig(out + ".png", bbox_inches="tight")
+        plt.close()
+        return out
 
     def probe_fragment(self, f_a: int, delta: int | None = None, u=None):
         """Likelihood-landscape probe: score all 13 ops against every

@@ -7,11 +7,16 @@ Run from the repository root on a GPU:
 
 PATH is any of ``dense`` (the flagship dense EM path, nuisance sampling on),
 ``dense_repeat`` (the same on ``entry.repeat_problem``), ``delta`` (the
-100k chr1-class delta path, ``ScaleRunner.cycle_for(1024, 4)``) and
+100k chr1-class delta path, ``ScaleRunner.cycle_for(1024, 4)``),
 ``delta_repeat`` (the 20k chr1-scale repeat delta path, 200 duplicated
-bins); all four by default. Each path runs ``--warm`` steps, then a window
-of ``--steps`` steps timed on the host clock (after a device sync), then
-another window of ``--steps`` steps under ``torch.profiler``.
+bins), and ``chains`` / ``chains_repeat`` (the same two problems' tempered
+chains path, ``ScaleRunner.chains_cycle_for(1024, 4)``: 4 chains from
+distinct shuffles, each with its own parameters, on a ladder up to
+T = 4, one B2 and one B4 launch a step for all of them); all six by
+default. Each path runs ``--warm`` steps, then a window of ``--steps``
+steps timed on the host clock (after a device sync), then another window
+of ``--steps`` steps under ``torch.profiler`` (a chains step is a step of
+every chain).
 
 Prints one JSON line per path:
 
@@ -43,7 +48,8 @@ import torch
 from graal_tpu_torch.entry import DELTA
 
 F_MAX = 1024
-PATHS = ("dense", "dense_repeat", "delta", "delta_repeat")
+PATHS = ("dense", "dense_repeat", "delta", "delta_repeat", "chains", "chains_repeat")
+N_CHAINS = 4
 
 
 def dense_runner(device, repeat: bool):
@@ -92,6 +98,42 @@ def delta_runner(device, repeat: bool):
     return run, torch.randperm(shuf.n_frags, generator=gen, device=device)
 
 
+def chains_runner(device, repeat: bool):
+    """``run(orders) -> None``: steps of ``N_CHAINS`` tempered chains of
+    chains_cycle_for(1024, 4) from distinct shuffles of the chr1-class
+    problem (or the 20k repeat problem), each chain with its own
+    parameters (the problem's scaled by 1 + 0.01 c)."""
+    from graal_tpu_torch.core.model import RippeParams
+    from graal_tpu_torch.core.state import GenomeState
+    from graal_tpu_torch.entry import scale_problem, scale_repeat_problem
+    from graal_tpu_torch.parallel.tempering import temperature_ladder
+    from graal_tpu_torch.scale import ScaleRunner
+    from graal_tpu_torch.utils.synthetic_sparse import shuffle_genome
+
+    if repeat:
+        truth, shuf, table, params, sobs, id_d = scale_repeat_problem(device=device)
+        runner = ScaleRunner(table, sobs, params, id_d=id_d)
+    else:
+        truth, shuf, table, params, sobs = scale_problem(device=device)
+        runner = ScaleRunner(table, sobs, params)
+    pieces = int(shuf.n_contigs())
+    starts = [shuf] + [shuffle_genome(truth, pieces, seed=100 + c) for c in range(N_CHAINS - 1)]
+    states = GenomeState(*[torch.stack(xs) for xs in zip(*starts)])
+    params_c = RippeParams(*[torch.stack([x * (1.0 + 0.01 * c) for c in range(N_CHAINS)])
+                             for x in params])
+    ladder = torch.as_tensor(temperature_ladder(N_CHAINS, t_max=4.0), device=device)
+    cycle = runner.chains_cycle_for(F_MAX, DELTA, rep=shuf.rep)
+    gen = torch.Generator(device=device).manual_seed(0)
+    carry = dict(states=states, l_ts=runner.chains_anchor_fn()(states, params_c))
+
+    def run(orders):
+        carry["states"], carry["l_ts"], _ = cycle(carry["states"], gen, params_c, orders,
+                                                  carry["l_ts"], ladder)
+
+    return run, torch.stack([torch.randperm(shuf.n_frags, generator=gen, device=device)
+                             for _ in range(N_CHAINS)])
+
+
 def device_rows(averages):
     """The device-side rows of ``key_averages()``: kernels, memcpy and
     memset, without user annotations."""
@@ -110,17 +152,19 @@ def profile_path(name: str, device, warm: int, steps: int, table_dir: Path | Non
     from torch.profiler import ProfilerActivity, profile
 
     repeat = name.endswith("_repeat")
-    run, order = (delta_runner if name.startswith("delta") else dense_runner)(device, repeat)
-    if warm + 2 * steps > order.shape[0]:
-        raise ValueError(f"{name}: warm + 2 x steps exceeds the {order.shape[0]} fragments")
-    run(order[:warm])
+    make = {"delta": delta_runner, "chains": chains_runner}.get(name.split("_")[0],
+                                                                 dense_runner)
+    run, order = make(device, repeat)
+    if warm + 2 * steps > order.shape[-1]:
+        raise ValueError(f"{name}: warm + 2 x steps exceeds the {order.shape[-1]} fragments")
+    run(order[..., :warm])
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    run(order[warm:warm + steps])
+    run(order[..., warm:warm + steps])
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run(order[warm + steps:warm + 2 * steps])
+        run(order[..., warm + steps:warm + 2 * steps])
         torch.cuda.synchronize()
     avgs = prof.key_averages()
     dev_rows = device_rows(avgs)

@@ -29,8 +29,16 @@ dataset directory without ever densifying the map.
 (``core.mtm``, the MH catalogue through B4 + B2), and
 :func:`run_multilevel` assembles coarse-to-fine over pyramid levels.
 
-Not ported here: the multi-device anchor and ``run_chains`` (ROADMAP A12),
-snapshots and the live view (A13).
+``run_chains`` runs N parallel-tempered chains. On one device the chains
+are a leading axis of every tensor of one delta step (``core.delta``):
+each step scores every chain's neighbour slots in one B4 and one B2
+launch, the chains' sparse re-anchor is one chains-axis evaluation, and
+each chain carries its own nuisance parameters. Under ``torch.distributed``
+(more than one rank) the chains split over the ranks of a
+``parallel.sharding`` mesh and the anchor's sums over its rows; ``run``'s
+anchor and nuisance scorer then take the row-sharded anchor too.
+``run`` can paint the genome layout every few cycles and refresh the live
+page (``utils.plots``, ``utils.live``).
 """
 
 from __future__ import annotations
@@ -49,7 +57,9 @@ from graal_tpu_torch.core.state import (GenomeState, check_invariants,
 from graal_tpu_torch.core.subfrags import SubFragTable
 from graal_tpu_torch.ops.mini_grid_cuda import MiniGridScorer
 from graal_tpu_torch.ops.obsgrid_cuda import WindowObsGrid
+from graal_tpu_torch.parallel.sharding import is_writer
 from graal_tpu_torch.utils import checkpoint as ckpt_io
+from graal_tpu_torch.utils import live
 
 
 def _next_pow2(x: int) -> int:
@@ -114,26 +124,45 @@ class ScaleRunner:
         self.obs_grid = WindowObsGrid()
         self.mini_grid = MiniGridScorer()
         self._anchor = None
+        self._chains_anchor = None
         self._cycles = {}      # (f_max, delta) -> cycle
         self._nuis = None
 
     # ---- pieces ------------------------------------------------------------
+    def chains_anchor_fn(self):
+        """The chains' sparse likelihood ``fn(states (C, n), params) -> (C,)``
+        (params shared or one set per chain): with more than one rank, the
+        row-sharded anchor over all ranks
+        (``parallel.sharding.make_sharded_sparse_anchor``), else one
+        chains-axis evaluation on this device."""
+        if self._chains_anchor is None:
+            from graal_tpu_torch.parallel import sharding
+
+            n = sharding.world_size()
+            if n > 1:
+                self._chains_anchor = sharding.make_sharded_sparse_anchor(
+                    sharding.make_mesh(n_chains=1, n_rows=n),
+                    self.table, self.sobs, self.w)
+            else:
+                self._chains_anchor = sparse.make_sparse_loglik(self.table, self.sobs, self.w)
+        return self._chains_anchor
+
     def anchor_fn(self):
-        """Full sparse likelihood ``fn(state, params) -> 0-d f32``."""
+        """Full sparse likelihood ``fn(state, params) -> 0-d f32`` (row-sharded
+        with more than one rank, see :meth:`chains_anchor_fn`)."""
         if self._anchor is None:
-            self._anchor = sparse.make_sparse_loglik(self.table, self.sobs, self.w)
+            batched = self.chains_anchor_fn()
+
+            def anchor(state: GenomeState, params: RippeParams):
+                return batched(GenomeState(*[x[None] for x in state]), params)[0]
+
+            self._anchor = anchor
         return self._anchor
 
     def scorer(self):
         """Batched sparse full-likelihood scorer ``(states (B, n), params)
-        -> (B,)`` (the nuisance step's)."""
-        anchor = self.anchor_fn()
-
-        def score(states: GenomeState, params: RippeParams):
-            return torch.stack([anchor(GenomeState(*[x[i] for x in states]), params)
-                                for i in range(states.pos.shape[0])])
-
-        return score
+        -> (B,)`` (the nuisance step's): one chains-axis evaluation."""
+        return self.chains_anchor_fn()
 
     def cycle_for(self, f_max: int, delta: int, rep=None):
         """The delta cycle of bucket ``f_max``, without an internal re-anchor
@@ -168,7 +197,8 @@ class ScaleRunner:
             sample_param: bool = False, seed: int = 1, progress: bool = True,
             init_truth: GenomeState | None = None, chunk_steps: int = 512,
             order_mode: str = "random", checkpoint_path: str | None = None,
-            checkpoint_every: int = 1, resume: bool = False):
+            checkpoint_every: int = 1, resume: bool = False, snapshot_every: int = 0,
+            snapshot_dir: str | None = None, chrom_of_bin=None, watch: bool = False):
         """Assemble from ``state0``; returns (state, params, metrics).
 
         ``steps_per_cycle`` caps the fragment steps per cycle (default every
@@ -191,7 +221,14 @@ class ScaleRunner:
         ``checkpoint_path``: npz checkpoint written every
         ``checkpoint_every`` cycles (state, params, cycle, the generator's
         state, the metric history); with ``resume`` the run picks up from
-        the file, when it exists, bit for bit."""
+        the file, when it exists, bit for bit.
+
+        ``snapshot_every`` + ``chrom_of_bin`` (the source chromosome of each
+        bin): a genome-layout painting (``utils.plots.plot_genome_layout``,
+        the chr1-scale stand-in for the dense path's matrix snapshots) every
+        that many cycles into ``snapshot_dir``, where matplotlib is
+        installed. ``watch``: refresh ``<snapshot_dir>/live.html`` every
+        cycle (``utils.live``)."""
         if order_mode not in ("random", "extremity"):
             raise ValueError(f"unknown order_mode {order_mode!r}")
         n = state0.n_frags
@@ -321,12 +358,186 @@ class ScaleRunner:
                 if dist is not None:
                     msg += f" dist={dist:.3f}"
                 print(msg, flush=True)
+            if not is_writer():   # under torch.distributed rank 0 writes
+                continue
             if checkpoint_path and checkpoint_every and (j + 1) % checkpoint_every == 0:
                 ckpt_io.save_checkpoint(checkpoint_path, state, params, j + 1, gen,
                                         extra=ckpt_io.metrics_extra(metrics))
+            stats = {"cycle": j, "loglik": l_t_host, "n_contigs": nc, "f_max": big_bucket,
+                     "cycle_s": round(cycle_s, 1)}
+            if dist is not None:
+                stats["dist"] = dist
+            live.refresh(snapshot_dir or ".", j, state, chrom_of_bin, stats,
+                         metrics["likelihood"], snapshot_every, watch)
         check_invariants(state)
         self.params = params
         return state, params, metrics
+
+    # ---- tempered chains ----------------------------------------------------
+    def chains_cycle_for(self, f_max: int, delta: int, mesh=None, rep=None):
+        """The chains' delta cycle of bucket ``f_max`` (no internal
+        re-anchor): ``cycle(states, rng, params_c, orders, l_ts, f_ts) ->
+        (states, l_ts, ...)`` over a chains axis, each chain with its own
+        parameters; with a ``mesh`` the chains split over its ranks
+        (``parallel.sharding.make_sharded_delta_cycle``). Every bucket
+        launches through the runner's one B4 and one B2 wrapper. ``rep``:
+        as :meth:`cycle_for` takes it."""
+        if self.table.has_repeats:
+            from graal_tpu_torch.core.delta_repeats import check_exactness_contract
+
+            if rep is None:
+                raise ValueError("a repeat table's cycle needs the genome's rep flags")
+            check_exactness_contract(self.table, rep)
+        key = (f_max, delta, "chains", id(mesh))
+        if key not in self._cycles:
+            if mesh is None:
+                self._cycles[key] = delta_mod.make_delta_em_cycle(
+                    self.table, None, self.nb, delta=delta, f_max=f_max, sobs=self.sobs,
+                    anchor_fn=False, band_w=self.w, obs_grid=self.obs_grid,
+                    mini_grid=self.mini_grid, rep=rep)
+            else:
+                from graal_tpu_torch.parallel.sharding import make_sharded_delta_cycle
+
+                self._cycles[key] = make_sharded_delta_cycle(
+                    mesh, self.table, self.nb, delta=delta, f_max=f_max, sobs=self.sobs,
+                    band_w=self.w, per_chain_params=True, obs_grid=self.obs_grid,
+                    mini_grid=self.mini_grid, rep=rep)
+        return self._cycles[key]
+
+    def run_chains(self, state0: GenomeState, n_chains: int, n_cycles: int, delta: int = 4,
+                   steps_per_cycle: int | None = None, f_max_min: int = 256,
+                   f_max_cap: int = 1 << 14, f_t: float = 1.0, t_max: float = 4.0,
+                   exchange_every: int = 2, seed: int = 1, sample_param: bool = False,
+                   chunk_steps: int = 512, checkpoint_path: str | None = None,
+                   checkpoint_every: int = 1, resume: bool = False, progress: bool = True,
+                   snapshot_every: int = 0, snapshot_dir: str | None = None,
+                   chrom_of_bin=None, watch: bool = False):
+        """N parallel-tempered chains from ``state0``; returns (best_state,
+        best_ll, metrics).
+
+        Chain c runs at temperature ``ladder[c]``, geometric from ``f_t`` up
+        to ``t_max`` (chain 0 is the cold chain). A cycle runs every
+        chain's ``steps_per_cycle`` steps (default every fragment once, in
+        each chain's own shuffled order) at one contig-capacity bucket,
+        sized for the largest contig across the chains, in chunks of
+        ``chunk_steps`` steps enqueued without a host read; each step of
+        all chains launches B4 and B2 once. Each chain is then re-anchored
+        under its own parameters (the chains' sparse anchor, one
+        evaluation), takes its nuisance-parameter Metropolis step at its
+        own temperature when ``sample_param`` (each chain carries its own
+        parameters; the test parameters' likelihoods are one chains'
+        anchor call), and every ``exchange_every`` cycles one round of
+        adjacent-pair replica-exchange swaps
+        (``parallel.tempering.pt_swap``) moves (genome, params, likelihood)
+        as a unit. The result is the argmax-likelihood chain, whose
+        parameters come under ``metrics["params"]`` when ``sample_param``.
+        Metrics: every chain's likelihood per cycle (``likelihood``), the
+        best, the bucket (``f_max``), the accepted swaps, each chain's
+        |carried - re-anchored| likelihood before the re-anchor
+        (``drift``), ``cycle_s``.
+
+        Randomness comes from one ``torch.Generator`` seeded with ``seed``.
+        ``checkpoint_path``: an npz of the whole ensemble (every chain's
+        genome, parameters and likelihood, the cycle, the swap parity, the
+        generator's state, the metrics) written by atomic rename every
+        ``checkpoint_every`` cycles; ``resume`` continues from it bit for
+        bit. Under ``torch.distributed`` the chains split over a
+        ``parallel.sharding.chain_mesh`` (every rank holds the whole
+        ensemble between chunks, and only rank 0 writes the checkpoint).
+
+        ``snapshot_every`` / ``watch``: as :meth:`run` takes them, drawn
+        from the best chain of the cycle (the live page's series is the
+        best likelihood). The JAX package's ``run_chains`` has neither."""
+        from graal_tpu_torch.parallel import sharding
+        from graal_tpu_torch.parallel.tempering import pt_swap, temperature_ladder
+
+        n = state0.n_frags
+        dev = self.device
+        steps = steps_per_cycle or n
+        rep = state0.rep.cpu().numpy()   # no move changes rep
+        mesh = sharding.chain_mesh(n_chains) if sharding.world_size() > 1 else None
+        anchor_c = self.chains_anchor_fn()
+        states = GenomeState(*[x.expand(n_chains, n).clone() for x in state0])
+        params_c = RippeParams(*[torch.as_tensor(x, device=dev).expand(n_chains).clone()
+                                 for x in self.params])
+        l_ts = self.anchor_fn()(state0, self.params).expand(n_chains).clone()
+        ladder = torch.as_tensor(temperature_ladder(n_chains, t_min=f_t,
+                                                    t_max=max(t_max, f_t)), device=dev)
+        propose = mcmc.make_nuisance_proposer(d_max_cap=self.max_covered_d_max)
+        s_max = delta_mod.build_mini_table(self.table, allow_repeats=True).s_max
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        metrics = {"likelihood": [], "best": [], "f_max": [], "swaps": [], "drift": [],
+                   "cycle_s": []}
+        swap_round = 0
+        start_cycle = 0
+        if resume and checkpoint_path and os.path.exists(checkpoint_path):
+            (states, params_c, l_ts, start_cycle, swap_round,
+             gen_state, resumed) = load_chains_checkpoint(checkpoint_path, dev)
+            gen.set_state(gen_state)
+            metrics.update(resumed)
+            if progress:
+                print(f"resumed tempered ensemble from {checkpoint_path} at cycle "
+                      f"{start_cycle}", flush=True)
+        t0 = time.time()
+        for j in range(start_cycle, n_cycles):
+            tc = time.time()
+            big = max(max_contig_subs(GenomeState(*[x[c] for x in states]), self.table)
+                      for c in range(n_chains))
+            bucket = int(np.clip(_next_pow2(2 * big + 2 * s_max), f_max_min,
+                                 min(f_max_cap, _next_pow2(n))))
+            cycle = self.chains_cycle_for(bucket, delta, mesh=mesh, rep=rep)
+            order = torch.stack([torch.randperm(n, generator=gen, device=dev)[:steps]
+                                 for _ in range(n_chains)])
+            for i in range(0, steps, chunk_steps):
+                states, l_ts, *_ = cycle(states, gen, params_c, order[:, i:i + chunk_steps],
+                                         l_ts, ladder)
+            # re-anchor each chain under its own params (f32 drift control)
+            carried, l_ts = l_ts, anchor_c(states, params_c)
+            metrics["drift"].append((carried - l_ts).abs().tolist())
+            if sample_param:
+                id_modif = torch.randint(0, 4, (n_chains,), generator=gen, device=dev)
+                eps = torch.randn((n_chains,), generator=gen, device=dev)
+                u = torch.rand((n_chains,), generator=gen, device=dev)
+                test, ok = propose(id_modif, eps, params_c)
+                params_c, l_ts, _ = mcmc.nuisance_accept(u, test, params_c,
+                                                         anchor_c(states, test), l_ts, ladder,
+                                                         ok)
+            n_swaps = 0
+            if exchange_every and (j + 1) % exchange_every == 0 and n_chains > 1:
+                (states, params_c), l_ts, acc = pt_swap((states, params_c), l_ts, ladder, gen,
+                                                        parity=swap_round % 2)
+                swap_round += 1
+                n_swaps = int(acc.sum())
+            lls = l_ts.cpu().numpy()
+            metrics["likelihood"].append(lls.tolist())
+            metrics["best"].append(float(lls.max()))
+            metrics["f_max"].append(bucket)
+            metrics["swaps"].append(n_swaps)
+            metrics["cycle_s"].append(time.time() - tc)
+            if progress:
+                print(f"chains cycle {j}: best={lls.max():.1f} "
+                      f"spread={lls.max() - lls.min():.1f} swaps={n_swaps} f_max={bucket} "
+                      f"({time.time() - t0:.1f}s)", flush=True)
+            if not is_writer():   # under torch.distributed rank 0 writes
+                continue
+            if checkpoint_path and checkpoint_every and (j + 1) % checkpoint_every == 0:
+                save_chains_checkpoint(checkpoint_path, states, params_c, l_ts, j + 1,
+                                       swap_round, gen, metrics)
+            if watch or snapshot_every:
+                best_state = GenomeState(*[x[int(lls.argmax())] for x in states])
+                stats = {"cycle": j, "loglik": float(lls.max()),
+                         "n_contigs": int(best_state.n_contigs()), "f_max": bucket,
+                         "chains": n_chains, "swaps": n_swaps,
+                         "cycle_s": round(metrics["cycle_s"][-1], 1)}
+                live.refresh(snapshot_dir or ".", j, best_state, chrom_of_bin, stats,
+                             metrics["best"], snapshot_every, watch)
+        best = int(torch.argmax(l_ts))
+        final = GenomeState(*[x[best].clone() for x in states])
+        check_invariants(final)
+        if sample_param:
+            metrics["params"] = RippeParams(*[x[best].clone() for x in params_c])
+        self.chain_states = states
+        return final, float(l_ts[best]), metrics
 
     def jump_table(self, delta: int, n_frags: int):
         """The MTM jumping distributions on the bin grid (``bin_csr`` /
@@ -425,6 +636,40 @@ class ScaleRunner:
         metrics["launches"] = {"ll_mini": self.mini_grid.n_launches - launches0[0],
                                "obsgrid": self.obs_grid.n_launches - launches0[1]}
         return state, float(l_t), metrics
+
+
+def save_chains_checkpoint(path: str, states: GenomeState, params_c: RippeParams, l_ts,
+                           cycle: int, swap_round: int, gen: torch.Generator, metrics: dict):
+    """The tempered ensemble as one npz, written by atomic rename: every
+    chain's genome (``s_<field>``, (C, n)), parameters (``params_c``, (C,
+    8)) and likelihood (``l_ts``), the cycle, the swap parity, the
+    generator's state and the metric history (the ``m_`` / ``mlen_``
+    entries of ``utils.checkpoint.metrics_extra``)."""
+    arrays = {f"s_{f}": getattr(states, f).cpu().numpy() for f in GenomeState._fields}
+    arrays["params_c"] = np.stack([x.cpu().numpy() for x in params_c], axis=1)
+    arrays["l_ts"] = l_ts.cpu().numpy()
+    arrays["cycle"] = np.asarray(cycle, np.int64)
+    arrays["swap_round"] = np.asarray(swap_round, np.int64)
+    arrays["generator"] = gen.get_state().numpy()
+    arrays.update(ckpt_io.metrics_extra({k: v for k, v in metrics.items() if len(v)}))
+    tmp = path + ".tmp.npz"   # np.savez appends .npz unless already present
+    np.savez(tmp, **arrays)
+    os.replace(tmp, path)
+
+
+def load_chains_checkpoint(path: str, device=None):
+    """-> (states, params_c, l_ts, cycle, swap_round, generator state,
+    metrics) of :func:`save_chains_checkpoint`, the tensors on ``device``."""
+    with np.load(path) as data:
+        states = GenomeState(*[torch.as_tensor(data[f"s_{f}"], device=device)
+                               for f in GenomeState._fields])
+        params_c = RippeParams(*[torch.as_tensor(np.ascontiguousarray(x), device=device)
+                                 for x in data["params_c"].T])
+        l_ts = torch.as_tensor(data["l_ts"], device=device)
+        gen_state = torch.from_numpy(data["generator"].copy())
+        metrics = ckpt_io.metrics_from_extra({k: data[k] for k in data.files})
+        return (states, params_c, l_ts, int(data["cycle"]), int(data["swap_round"]),
+                gen_state, metrics)
 
 
 def from_dataset(dataset_dir: str, size: int, factor: int = 3,

@@ -86,15 +86,19 @@ def delta_shapes(sc, scorer, extract, f_a, gen, label):
     activity mask; in one whose B4 reads the CSR map, the keys (activity
     folded in) and the kernel."""
     import torch
-    from graal_tpu_torch.core import mcmc
+    from graal_tpu_torch.core import delta, mcmc
 
     shuf = sc["shuf"]
     f_a = torch.tensor(f_a, device=shuf.pos.device)
     ids, _ = mcmc.sample_neighbours(gen, f_a, shuf, sc["runner"].nb, smoke.DELTA)
     rows, valid, _ = extract(shuf, f_a, ids, scorer.f_max)
     subs, sub_valid = scorer.sub_rows(rows, valid)
-    _, geo, ob, accu_sub, pvec = scorer.inputs(shuf, f_a, ids, rows, valid, sc["params"],
-                                               shuf.id_c.amax())
+    one, max_id = (shuf, f_a, ids, rows, valid), shuf.id_c.amax()
+    # trees whose scorer inputs take a chains axis only: the chain lifted
+    # to a chains axis of one (the same M rows come out)
+    if hasattr(delta, "lift_chain"):
+        one, max_id = delta.lift_chain(*one), max_id[None]
+    _, geo, ob, accu_sub, pvec = scorer.inputs(*one, sc["params"], max_id)
     args = scorer.mini_grid_args(geo, ob, accu_sub, pvec)
     act0 = geo.act[:, 0]
     grid = scorer.obs_grid_kernel

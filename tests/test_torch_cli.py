@@ -4,13 +4,17 @@
   with ``--device cpu`` and writes its outputs; so do the sampler stages
   and options (``run --sampler em,mtm,mh``, ``--sampler tempered --chains
   3``, ``--to-level``, ``--model hic``, ``scale --mtm-cycles`` and ``scale
-  --to-level``), each writing the files the JAX command writes (but the
-  layout plot, ROADMAP A13); ``run --sampler em,mtm,mh`` writes the JAX
-  run's files and series lengths.
+  --to-level``), each writing the files the JAX command writes;
+  ``run --sampler em,mtm,mh`` writes the JAX run's files and series
+  lengths.
 - Without ``--device cpu``, on a box with no card, every sampling command
   and stage exits non-zero: there is no silent CPU run.
-- Every refused option names the ROADMAP item that ports it (A12: the
-  chains over the device mesh; A13: the profiler, snapshots, live view).
+- No option is refused any more: the ones that named a ROADMAP item (A12:
+  ``scale --chains`` / ``--t-max``; A13: the profiler, snapshots, live
+  view) reach the run's configuration (they are driven end to end in
+  ``tests/test_torch_host_utils.py`` and ``tests/test_torch_run_chains.py``).
+- ``scale --chains N`` hands ``--steps-per-cycle`` to ``run_chains``
+  (the JAX command drops it there; ROADMAP §C).
 - The whole-run comparison: a JAX ``cli run --platform cpu`` writes its
   mutation log; the port's ``replay`` of that log gives the JAX replay's
   final state bit for bit and its likelihood at rtol 1e-5, and a
@@ -105,27 +109,60 @@ def test_default_device_is_the_card(ds, tmp_path, command):
     assert not os.path.exists(os.path.join(str(tmp_path / "o"), "checkpoint.npz"))
 
 
-REFUSED = [
-    (["--profile"], "A13"), (["--snapshots"], "A13"), (["--snapshot-every", "2"], "A13"),
-    (["--watch"], "A13"),
-]
-SCALE_REFUSED = [
-    (["--chains", "2"], "A12"), (["--t-max", "2.0"], "A12"), (["--profile"], "A13"),
-    (["--snapshot-every", "2"], "A13"), (["--watch"], "A13"),
-]
+FORMERLY_REFUSED = [["--profile"], ["--snapshots"], ["--snapshot-every", "2"], ["--watch"]]
+SCALE_FORMERLY_REFUSED = [["--chains", "2"], ["--t-max", "2.0"], ["--profile"],
+                          ["--snapshot-every", "2"], ["--watch"]]
 
 
 @pytest.mark.parametrize("command", ["run", "replay", "probe", "scale"])
 def test_refused_options_name_their_roadmap_item(ds, tmp_path, command):
+    """The options that were refused with their ROADMAP item (A12, A13)
+    are accepted now and reach the run: the CLI has no refusal left."""
+    assert not hasattr(tcli, "refuse")
     out = str(tmp_path / "o")
     base = {"run": run_args(ds, out), "scale": ["scale", ds, "--out", out],
             "replay": ["replay", ds, "log.txt", "--out", out],
             "probe": ["probe", ds, "3", "--out", out]}[command]
-    for extra, item in SCALE_REFUSED if command == "scale" else REFUSED:
-        with pytest.raises(SystemExit) as e:
-            tcli.main(base + extra + ["--device", "cpu"])
-        assert f"ROADMAP {item}" in str(e.value.code), (extra, e.value.code)
+    for extra in SCALE_FORMERLY_REFUSED if command == "scale" else FORMERLY_REFUSED:
+        args = tcli.parser().parse_args(base + extra + ["--device", "cpu"])
+        if command == "scale":
+            got = {"--chains": args.chains, "--t-max": args.t_max, "--profile": args.profile,
+                   "--snapshot-every": args.snapshot_every, "--watch": args.watch}[extra[0]]
+            assert got == ({"--chains": 2, "--t-max": 2.0, "--snapshot-every": 2}
+                           .get(extra[0], True)), extra
+            continue
+        cfg = tcli._checked_config(args)
+        assert cfg.device == "cpu"
+        got = {"--profile": args.profile, "--snapshots": args.snapshots,
+               "--snapshot-every": cfg.sampler.snapshot_every,
+               "--watch": cfg.sampler.watch}[extra[0]]
+        assert got == (2 if extra[0] == "--snapshot-every" else True), extra
     assert not os.path.exists(out)
+
+
+class _Stop(Exception):
+    pass
+
+
+@pytest.mark.parametrize("steps", [None, 7])
+def test_scale_chains_forwards_steps_per_cycle(ds, tmp_path, monkeypatch, steps):
+    """``scale --chains N`` hands ``--steps-per-cycle`` to ``run_chains``;
+    without the flag the chains sweep every fragment, as the JAX command's
+    do (it drops the flag under ``--chains``: ROADMAP §C)."""
+    from graal_tpu_torch import scale as tscale
+
+    seen = {}
+
+    def fake(self, state, **kw):
+        seen.update(kw)
+        raise _Stop
+
+    monkeypatch.setattr(tscale.ScaleRunner, "run_chains", fake)
+    extra = [] if steps is None else ["--steps-per-cycle", str(steps)]
+    with pytest.raises(_Stop):
+        tcli.execute(scale_args(ds, str(tmp_path / "o"), "--chains", "2", "--device", "cpu",
+                                *extra))
+    assert seen["steps_per_cycle"] == steps and seen["n_chains"] == 2
 
 
 SERIES = ["0list_likelihood.txt", "0list_n_contigs.txt", "0list_dist_init_genome.txt",

@@ -111,7 +111,7 @@ def test_gather_and_scatter_mini_match():
         rows, valid, _ = jd.extract_rows(js_, f_a, f_b, 12)
         t_rows, t_valid = torch.as_tensor(np.array(rows)), torch.as_tensor(np.array(valid))
         mini_j = jd.gather_mini(js_, rows, valid)
-        mini_t = td.gather_mini(ts_, t_rows, t_valid)
+        mini_t, = td.drop_chain(td.gather_mini(*td.lift_chain(ts_, t_rows, t_valid)))
         assert_states_equal(mini_t, mini_j, f"gather {f_a} {f_b}")
         lf_a = int(np.argmax(np.asarray(rows) == f_a))
         lf_b = int(np.argmax(np.asarray(rows) == f_b))
@@ -119,7 +119,8 @@ def test_gather_and_scatter_mini_match():
         for op in (0, 3, 9, 12):
             cand = jax.tree.map(lambda x: x[op], cands)
             want = jd.scatter_mini(js_, cand, rows, valid)
-            got = td.scatter_mini(ts_, to_port(cand), t_rows, t_valid)
+            got, = td.drop_chain(td.scatter_mini(*td.lift_chain(ts_, to_port(cand), t_rows,
+                                                                t_valid)))
             assert_states_equal(got, want, f"scatter {f_a} {f_b} op {op}")
 
 
@@ -263,8 +264,8 @@ def test_activity_folded_into_obs_keys(problem):
     for f_a, ids in ((2, [5, 20, 2, 30, 11]), (20, [21, 19, 3, 2, 20]), (1, [2, 7, 8, 9, 10])):
         ids = torch.as_tensor(ids)
         rows, valid, _ = td.extract_rows_union(ts_, torch.tensor(f_a), ids, scorer.f_max)
-        _, geo, ob, _, _ = scorer.inputs(ts_, torch.tensor(f_a), ids, rows, valid,
-                                         p["t_params"], max_id)
+        _, geo, ob, _, _ = scorer.inputs(*td.lift_chain(ts_, torch.tensor(f_a), ids, rows,
+                                                        valid), p["t_params"], max_id[None])
         subs, sub_valid = scorer.sub_rows(rows, valid)
         act0 = geo.act[:, 0]
         n_checked += int((sub_valid & ~act0).sum())

@@ -85,7 +85,7 @@ def test_mh_candidates_on_mini_states_match():
         fbs = rng.integers(0, n, 4).astype(np.int32)
         max_id = jnp.max(js_.id_c)
         rows, valid, _ = td.extract_rows_each(ts_, torch.tensor(f_a), torch.as_tensor(fbs), 16)
-        minis = td.gather_mini(ts_, rows, valid)
+        minis, = td.drop_chain(td.gather_mini(*td.lift_chain(ts_, rows, valid)))
         lf_a = (rows == f_a).int().argmax(-1)
         lf_b = (rows == torch.as_tensor(fbs)[:, None]).int().argmax(-1)
         got = tc.mh_candidates(minis, lf_a, lf_b, max_id=torch.as_tensor(np.array(max_id)))
@@ -242,7 +242,7 @@ def test_mh_catalogue_id_collision_matches_reference():
     f_a, f_b = 1, 0
     rows, valid, over = td.extract_rows_each(ts_, torch.tensor(f_a), torch.tensor([f_b]), 2)
     assert not bool(over[0]) and rows[0].tolist() == [0, 1]
-    mini = td.gather_mini(ts_, rows, valid)
+    mini, = td.drop_chain(td.gather_mini(*td.lift_chain(ts_, rows, valid)))
     got = tc.mh_candidates(mini, torch.tensor([f_a]), torch.tensor([f_b]),
                            max_id=ts_.id_c.amax())
     r, v, _ = jd.extract_rows(js_, jnp.int32(f_a), jnp.int32(f_b), 2)
@@ -251,7 +251,8 @@ def test_mh_catalogue_id_collision_matches_reference():
     for op in range(13):
         assert_states_equal(TState(*[x[0, op] for x in got]),
                             jax.tree.map(lambda x: x[op], want), f"op {op}")
-    bad = td.scatter_mini(ts_, TState(*[x[0, 10] for x in got]), rows[0], valid[0])
+    bad, = td.drop_chain(td.scatter_mini(*td.lift_chain(ts_, TState(*[x[0, 10] for x in got]),
+                                                        rows[0], valid[0])))
     assert bad.id_c.tolist() == [4, 4, 4, 4] and bad.circ.tolist() == [1, 1, 0, 0]
     assert check_invariants(bad, raise_on_error=False)
     # the same move on the whole genome takes a fresh id: no collision

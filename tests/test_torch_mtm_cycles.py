@@ -95,6 +95,7 @@ def test_delta_mh_catalogue_matches_full_difference():
                          for i in range(13)])
         np.testing.assert_allclose(dll.numpy(), want, atol=2e-2, err_msg=f"{f_a} {f_b}")
         for i in range(13):
-            got = td.scatter_mini(ts_, TState(*[x[i] for x in cands]), rows, valid)
+            got, = td.drop_chain(td.scatter_mini(*td.lift_chain(
+                ts_, TState(*[x[i] for x in cands]), rows, valid)))
             assert_states_equal(got, jax.tree.map(lambda x: x[i], want_c), f"{f_a} {f_b} {i}")
 
