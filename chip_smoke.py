@@ -8,6 +8,8 @@ Run from the repository root with no arguments:
 On a host with several cards, ``python3 chip_smoke.py --cards`` runs
 instead the across-cards checks (``phase_cards``): an NCCL world of one
 rank a card, and the CLI under ``torchrun`` against one process.
+``python3 chip_smoke.py --top-tiers`` runs only the build, the 100k
+set-up and the phases of the top tiers (5, 8b, 11e, 5c).
 
 Phases, in order; any failure raises and exits non-zero. Every kernel is
 timed at the shapes its path gives it twice, with CUDA events around many
@@ -77,8 +79,20 @@ keys and the grid written. "share" is the bound over the device time.
    bit-identical alone and in its batch; B4 bit-identical on keys that
    crowd a few buckets of its table. Timed against the plain versions at
    R = 1,024 (B4 also as the whole production of the step's masked grid:
-   keys and kernel), and both, each held to its plain version, at every
-   tier of the ladder, R = 256 to 4,096.
+   keys and kernel), and both, each held to its plain version and timed
+   beside it, at every tier of the ladder, R = 256 to 16,384: up to 4,096
+   on the shuffled start, at 8,192 and 16,384 (no contig of the shuffled
+   start fills them) on the truth cut so that a piece fills each tier,
+   with the peak memory there.
+5c. The delta step's two scoring routes on the same inputs:
+   DeltaScorer.score with band_w None (B4 + B2) and with the runner's
+   band 996 (B4 + the banded expected mass in plain torch), one step of
+   the fragment whose contig fills half the tier, at R = 2,048, 4,096,
+   8,192 and 16,384 (5 slots) and for 4 chains at 8,192 (M = 20): wall and
+   device ms and peak memory of each; the two routes' deltas within the
+   reference's banded-vs-grid tolerance (rtol 1e-3, atol 0.05:
+   tests/test_delta.py); and core.delta.effective_band_w on the card
+   must route each of those tiers to the route with the lesser wall time.
 6. Per-step exactness at 20,000 fragments: 10 single delta steps at f_max
    1,024; after each, the carried likelihood must be within
    max(0.5, 1e-6 |L|) of a full sparse re-anchor.
@@ -104,6 +118,13 @@ keys and the grid written. "share" is the bound over the device time.
 8. ScaleRunner.run at 100,000 fragments: 1 cycle of 512 extremity-first
    steps from f_max 256 up the tier ladder, nuisance sampling on; the
    invariants hold and the likelihood rises.
+8b. ScaleRunner.run at the top tiers: 1 cycle of 256 extremity-first steps
+   from the truth cut into 40 pieces of 2,500 fragments (every step at
+   tier 8,192) and from the truth itself (5,000, tier 16,384), twice each:
+   one B2 and one B4 launch a step (every chunk's steps counted), no call
+   of the banded expected mass (counted), the carried likelihood within
+   4e-6 |L| of the cycle's re-anchor, the invariants, the second run
+   identical; wall s/cycle and peak memory.
 8a. ScaleRunner.run with id_d on the 200-dup problem: 1 cycle of 256
    extremity-first steps, the same checks.
 9. The CLI on a dataset directory, in this process through
@@ -188,7 +209,7 @@ keys and the grid written. "share" is the bound over the device time.
    |L|) of its re-anchor. Then ``run_chains`` itself, counts set to 0 just
    before: 1 cycle of 256 steps from f_max_min 1,024 (the bucket follows
    the largest contig of any chain: 4,096 on the shuffled start, below
-   the banded tier 8,192), nuisance sampling and one swap round; launches
+   the top tiers), nuisance sampling and one swap round; launches
    exactly one B2 and one B4 a step, every chain's carried likelihood
    within max(0.5, 1e-6 |L|) of its re-anchor, the invariants, the best
    likelihood above the start's.
@@ -217,6 +238,13 @@ keys and the grid written. "share" is the bound over the device time.
    split over the ranks bit for bit the one-process chains; with several
    cards, NCCL across them too. The results go on a JSON line before the
    nvidia-smi line.
+11e. run_chains at the top buckets: 4 chains from the truth cut into 40
+   pieces (bucket 8,192, M = 20) for 64 steps and from the truth (bucket
+   16,384, M = 20) for 8, with 11a's checks of run_chains (no rise asked
+   of the likelihood: the starts are all but assembled) and no call of the
+   banded mass, peak memory; then B4 and B2 against their plain versions
+   and timed on a chains step's inputs at each bucket (the scores held to
+   RTOL there: B2_ABS_ERR is a few ulps of the lower buckets' scores).
 12. Last lines: the nvidia-smi line, one JSON line on the kernels run, and
    {"ok": true, "device": {...}}. Each kernel's entry has the contract's
    keys (launches, max_abs_err, ms, plain_ms, bound_ms, bound_by,
@@ -233,9 +261,12 @@ keys and the grid written. "share" is the bound over the device time.
    cli_scale_multilevel, cli_scale_chains, each CLI run's entry with the
    max abs error of its kernel against the plain version there,
    delta_mtm_exactness with its bad steps, run_chains_100k, whose launches
-   join the top-level count, and run_chains_repeat_20k); B2's and B4's
-   chains shapes (M = 20 at R = 1,024 and at the run's bucket) under
-   "by_shape".
+   join the top-level count, and run_chains_repeat_20k, and the top
+   tiers' main paths run_top_8192, run_top_16384 (8b), run_chains_top_8192
+   and run_chains_top_16384 (11e), whose launches join it too); B2's and
+   B4's chains shapes (M = 20 at R = 1,024, at the run's bucket, at 8,192
+   and at 16,384) under "by_shape". Before them, a JSON line of phase 5c's
+   routes.
 """
 
 import contextlib
@@ -255,7 +286,18 @@ SCALE_BINS = 100_000        # the chr1-class problem (bench_scale.py)
 EXACT_BINS = 20_000         # benchmarks/check_exactness.py's size
 F_MAX = 1024                # the flagship delta bucket
 TOP_F_MAX = 4096            # the top tier of the shuffled 100k start
-TIERS = (256, 512, 1024, 2048, TOP_F_MAX)   # ScaleRunner.run's ladder from f_max 256
+# the tiers of assembled contigs: 2,500 fragments (half a true contig) put
+# a step at 8,192, a whole true contig of 5,000 at 16,384 (scale.py's cap)
+TOP_TIERS = (8192, 16384)
+TIERS = (256, 512, 1024, 2048, TOP_F_MAX) + TOP_TIERS   # ScaleRunner.run's ladder
+CROSS_TIERS = (2048, 4096, 8192, 16384)   # the delta routes timed against each other (5c)
+# grid route vs banded route, dll: the reference's own banded-vs-grid
+# tolerance (tests/test_delta.py:99)
+BAND_RTOL, BAND_ATOL = 1e-3, 0.05
+PLAIN_GRID_BYTES = 3 << 30  # B4's plain version: at most this much grid at once
+RUNNER_TOP_STEPS = 256      # ScaleRunner.run steps at each top tier (8b)
+TOP_CHAIN_STEPS = 64        # run_chains steps at bucket 8,192 (11e)
+TOP16_CHAIN_STEPS = 8       # and at 16,384
 DELTA = 4
 MAIN_STEPS = 256            # bench_scale.py's timed chunk
 # B2 deltas, kernel vs plain: both sum f32 cells in f64, so they differ by
@@ -502,6 +544,29 @@ def obsgrid_bound(b4):
     kc = k.clamp_min(0)
     entries = int(torch.where(ok, row_start[kc + 1] - row_start[kc], 0).sum())
     return bound(8 * entries + 16 * int(ok.sum()) + 4 * m * r + 4 * m * r * r)
+
+
+class PeakMemory:
+    """Peak device memory from here on: :meth:`read` returns
+    torch.cuda.max_memory_allocated in GB and the part of it above what
+    was held at the start, and prints them under ``label`` if given."""
+
+    def __init__(self):
+        import torch
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        self.base = torch.cuda.memory_allocated()
+
+    def read(self, label=None):
+        import torch
+
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        if label is not None:
+            print(f"  peak memory, {label}: {peak / 1e9} GB allocated ({(peak - self.base) / 1e9}"
+                  f" GB above the {self.base / 1e9} GB held before)")
+        return peak / 1e9, (peak - self.base) / 1e9
 
 
 def fmt_bound(t):
@@ -986,8 +1051,51 @@ def scale_setup(device, n_bins=SCALE_BINS):
     print(f"chr1-scale problem: {n_bins} fragments, {sobs.rows.shape[0]} symmetric "
           f"nnz, row_cap {sobs.row_cap}, band w {runner.w}, largest shuffled contig "
           f"{max_contig_subs(shuf, table)} subs, set-up {time.perf_counter() - t0:.1f} s")
+    per = n_bins // int(truth.n_contigs())
     return dict(truth=truth, shuf=shuf, table=table, params=params, sobs=sobs,
-                runner=runner, n=n_bins, runner_kw={}, drift_bound=(0.0, DRIFT_REL))
+                runner=runner, n=n_bins, runner_kw={}, drift_bound=(0.0, DRIFT_REL),
+                halves=cut_truth(truth, {c: [per // 2] for c in range(int(truth.n_contigs()))}),
+                tiered=cut_truth(truth, tier_cuts(truth, per)))
+
+
+def cut_truth(truth, cuts):
+    """The true genome (fragments in genome order, every one forward) with
+    contig c cut before each position of ``cuts[c]``: the pieces keep
+    their order and orientation."""
+    import numpy as np
+    import torch
+
+    id_c, pos, len_bp = (x.cpu().numpy().astype(np.int64)
+                         for x in (truth.id_c, truth.pos, truth.len_bp))
+    first = pos == 0
+    for c, at in cuts.items():
+        first |= (id_c == c) & np.isin(pos, at)
+    piece = np.cumsum(first) - 1
+    head = np.flatnonzero(first)[piece]          # first fragment of each one's piece
+    start = np.cumsum(len_bp) - len_bp
+    size = np.bincount(piece)[piece]
+    size_bp = np.bincount(piece, weights=len_bp).astype(np.int64)[piece]
+    dev = truth.pos.device
+
+    def t(x):
+        return torch.as_tensor(x.astype(np.int32), device=dev)
+
+    return truth._replace(id_c=t(piece), pos=t(np.arange(len(pos)) - head),
+                          start_bp=t(start - start[head]), l_cont=t(size),
+                          l_cont_bp=t(size_bp))
+
+
+def tier_cuts(truth, per):
+    """Cuts of the first true contigs (of ``per`` fragments each) that
+    leave, for each tier R of CROSS_TIERS, a piece of the largest size
+    whose step still runs at R (2 size + 4 <= R), up to a whole contig."""
+    cuts, c = {}, 0
+    for r in CROSS_TIERS:
+        size = (r - 4) // 2
+        if size < per:
+            cuts[c] = [size]
+            c += 1
+    return cuts
 
 
 def scale_repeat_setup(device, n_bins=EXACT_BINS, n_dups=REPEAT_DUPS):
@@ -1036,27 +1144,39 @@ def delta_inputs(state, nb, params, scorer, extract, f_a, gen):
 
 def b4_vs_plain(grid, b4, label):
     """B4 kernel and plain version on the same inputs: bit-identical.
-    Returns the kernel's grid and the largest absolute difference (0.0)."""
+    Returns the kernel's grid and the largest absolute difference (0.0).
+    The plain version takes the neighbours in groups of at most
+    PLAIN_GRID_BYTES of grid (a neighbour's rows depend on its own keys
+    only), so that the kernel's grid, the step's and the plain one's fit
+    together at M = 20, R = 16,384."""
     import torch
 
     ob_k = grid.launch(*b4)
-    ob_p = grid.plain(*b4)
-    torch.cuda.synchronize()
-    check(torch.equal(ob_k, ob_p), f"{label}: B4 kernel differs from its plain version")
-    err = (ob_k - ob_p).abs().max().item()
     keys = b4[3]
+    m, r = keys.shape
+    group = max(1, PLAIN_GRID_BYTES // (4 * r * r))
+    err = 0.0
+    for a in range(0, m, group):
+        ob_p = grid.plain(*b4[:3], keys[a:a + group])
+        torch.cuda.synchronize()
+        check(torch.equal(ob_k[a:a + group], ob_p),
+              f"{label}: B4 kernel differs from its plain version")
+        err = max(err, (ob_k[a:a + group] - ob_p).abs().max().item())
+        del ob_p
     live = keys >= 0
     shared = sum(int(row.sum()) - len(torch.unique(k[row])) for k, row in zip(keys, live))
-    m, r = keys.shape
+    # counted a neighbour at a time: a count over the whole (M, R, R) grid
+    # takes int64 scratch of its size
+    nonzero = sum(int(torch.count_nonzero(g)) for g in ob_k)
     print(f"  B4 {label}: M={m} R={r}, {int(live.sum())} keys with a window: bit-identical, "
-          f"{int((ob_k > 0).sum())} nonzero cells, sum {ob_k.sum().item():.0f}, "
+          f"{nonzero} nonzero cells, sum {sum(g.sum().item() for g in ob_k):.0f}, "
           f"{shared} keys shared by copies")
     return ob_k, err
 
 
 def b2_vs_plain(grid, args, label):
-    """B2 kernel and plain version on the same inputs; returns (max abs
-    score error, max abs dll error)."""
+    """B2 kernel and plain version on the same inputs; returns (the
+    kernel's scores, max abs score error, max abs dll error)."""
     import torch
 
     s_k, d_k = grid.launch(*args)
@@ -1073,7 +1193,7 @@ def b2_vs_plain(grid, args, label):
           f"(|score| up to {s_p.abs().max().item():.6g})")
     check(rel <= RTOL, f"{label}: B2 kernel vs plain rel err {rel} > {RTOL}")
     check(dll_err <= DLL_ATOL, f"{label}: B2 dll error {dll_err} > {DLL_ATOL}")
-    return s_k, err.max().item()
+    return s_k, err.max().item(), dll_err
 
 
 def check_delta_kernels(sc, scorer, extract, frags, gen, want_m):
@@ -1095,7 +1215,7 @@ def check_delta_kernels(sc, scorer, extract, frags, gen, want_m):
         ob_k, err = b4_vs_plain(scorer.obs_grid_kernel, b4, f"f_a={f_a}")
         b4_err = max(b4_err, err)
         check(torch.equal(args[5], ob_k), f"f_a={f_a}: the step's observed grid is not B4's")
-        s_k, err = b2_vs_plain(scorer.mini_grid, args, f"f_a={f_a}")
+        s_k, err, _ = b2_vs_plain(scorer.mini_grid, args, f"f_a={f_a}")
         b2_err = max(b2_err, err)
         if first is None:
             first = (b4, rows_act, args, s_k)
@@ -1200,7 +1320,7 @@ def delta_path_vs_plain(label, scorer, extract, bases, nb, params):
         ob_k, err = b4_vs_plain(scorer.obs_grid_kernel, b4, tag)
         b4_err = max(b4_err, err)
         check(torch.equal(args[5], ob_k), f"{tag}: the step's observed grid is not B4's")
-        _, err = b2_vs_plain(scorer.mini_grid, args, tag)
+        _, err, _ = b2_vs_plain(scorer.mini_grid, args, tag)
         b2_err = max(b2_err, err)
     return b2_err, b4_err
 
@@ -1209,36 +1329,133 @@ def tiers(sc, gen, at_flagship):
     """B2 and B4 against their plain versions (B4 bit-identical) and timed
     at every tier R of the ScaleRunner ladder (5 neighbour slots, 14
     genomes), on the step inputs of the fragment whose contig is the
-    largest that half the tier holds (at the top tier the largest contig),
-    so the mini grid is mostly real rows. Returns ({R: B2 record}, {R: B4
-    record}), the flagship tier's from its phase."""
+    largest that half the tier holds, so the mini grid is mostly real rows:
+    of the shuffled start up to 4,096, of the genome cut to fill each tier
+    (``sc["tiered"]``) at 8,192 and 16,384, where peak memory is printed
+    too. Returns ({R: B2 record}, {R: B4 record}), the flagship tier's
+    from its phase."""
     from graal_tpu_torch.core import delta
     from graal_tpu_torch.scale import contig_frags_per_frag
 
-    sizes = contig_frags_per_frag(sc["shuf"])
     b2, b4 = {}, {}
     for r in TIERS:
         if r == F_MAX:
             b2[r] = dict(at_flagship["ll_mini"])
             b4[r] = {k: v for k, v in at_flagship["obsgrid"].items() if k != "tiers"}
             continue
-        f_a = frag_fitting(sc["shuf"], r)
+        # the shuffled start has no contig that fills a top tier: there the
+        # genome of pieces cut to fill each tier
+        genome = sc["tiered"] if r in TOP_TIERS else sc["shuf"]
+        f_a = frag_fitting(genome, r)
         sc_r = delta.make_delta_scorer(sc["table"], None, r, sobs=sc["sobs"])
-        b4_args, _, args = delta_inputs(sc["shuf"], sc["runner"].nb, sc["params"], sc_r,
+        peak = PeakMemory()
+        b4_args, _, args = delta_inputs(genome, sc["runner"].nb, sc["params"], sc_r,
                                         delta.extract_rows_union, f_a, gen)
-        label = f"tier R={r} f_a={f_a} (contig of {sizes[f_a]} fragments)"
+        label = (f"tier R={r} f_a={f_a} (contig of "
+                 f"{contig_frags_per_frag(genome)[f_a]} fragments)")
         _, err4 = b4_vs_plain(sc_r.obs_grid_kernel, b4_args, label)
-        _, err = b2_vs_plain(sc_r.mini_grid, args, label)
+        _, err, _ = b2_vs_plain(sc_r.mini_grid, args, label)
         n_iter = min(200, max(5, 200 * 1024 * 1024 // (r * r)))
+        n_plain = 2 if r < 8192 else 1
         t = with_share(timed(lambda: sc_r.mini_grid.launch(*args), n_iter,
-                             lambda: sc_r.mini_grid.plain(*args), 2), mini_bound(args))
+                             lambda: sc_r.mini_grid.plain(*args), n_plain), mini_bound(args))
         print(f"  time B2 R={r} M={args[0].shape[0]}: {fmt_time(t)}; {fmt_bound(t)}")
         b2[r] = dict(max_abs_err=err, **t)
-        t = with_share(timed(lambda: sc_r.obs_grid_kernel.launch(*b4_args), n_iter),
+        t = with_share(timed(lambda: sc_r.obs_grid_kernel.launch(*b4_args), n_iter,
+                             lambda: sc_r.obs_grid_kernel.plain(*b4_args), n_plain),
                        obsgrid_bound(b4_args))
         print(f"  time B4 R={r} M={args[0].shape[0]}: {fmt_time(t)}; {fmt_bound(t)}")
         b4[r] = dict(max_abs_err=err4, **t)
+        if r in TOP_TIERS:
+            b2[r]["peak_gb"] = b4[r]["peak_gb"] = peak.read(f"tier R={r}")[0]
+        del b4_args, args
     return b2, b4
+
+
+def route_times(fn, budget_s=2.0):
+    """One output of fn() and its cost: ms per call as called and
+    synchronised, on the host clock ("wall_ms"), and on the device alone
+    ("device_ms", :func:`device_ms`), over as many calls as fit in about
+    ``budget_s`` (at least 1), after the first call (the warm-up); the
+    peak device memory of that first call ("peak_gb", and "call_gb" above
+    what was held before it)."""
+    import torch
+
+    mem = PeakMemory()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    peak_gb, call_gb = mem.read()
+    n_iter = max(1, min(20, int(budget_s / max(first, 1e-3))))
+    t0 = time.perf_counter()
+    for _ in range(n_iter):
+        fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / n_iter
+    return out, dict(wall_ms=wall, device_ms=device_ms(fn, n_iter, n_warm=0), n_iter=n_iter,
+                     peak_gb=peak_gb, call_gb=call_gb)
+
+
+def phase_crossover(sc):
+    """5c. The delta step's two scoring routes timed against each other on
+    the same inputs: ``DeltaScorer.score`` with band_w None (B4 + B2) and
+    with the runner's band (B4 + the banded expected mass in plain torch),
+    one step of 5 neighbour slots of the fragment whose contig fills half
+    the tier, at R = 2,048-16,384, and of 4 chains (M = 20, each chain its
+    own parameters and draws) at 8,192. Each route's wall and device ms
+    and peak memory; the deltas of the two routes within the reference's
+    banded-vs-grid tolerance; and the card's routing
+    (``core.delta.effective_band_w`` on this device) must send each tier to
+    the route whose wall time is the lesser."""
+    import torch
+    from graal_tpu_torch.core import delta, mcmc
+    from graal_tpu_torch.scale import contig_frags_per_frag
+
+    table, sobs, nb, w = sc["table"], sc["sobs"], sc["runner"].nb, sc["runner"].w
+    genome = sc["tiered"]
+    dev = genome.pos.device
+    sizes = contig_frags_per_frag(genome)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    print(f"delta routes at {sc['n']} fragments: DeltaScorer.score with band_w None "
+          f"(B4 + B2) and {w} (B4 + banded mass, plain torch)")
+    out = []
+    for r, n_chains in [(t, 1) for t in CROSS_TIERS] + [(TOP_TIERS[0], CHAINS)]:
+        f_a = frag_fitting(genome, r)
+        states = type(genome)(*[x.expand(n_chains, -1).contiguous() for x in genome])
+        params = sc["params"] if n_chains == 1 else chain_params(sc["params"], n_chains)
+        fa = torch.full((n_chains,), f_a, device=dev)
+        u = torch.rand((n_chains, nb.pk.shape[1]), generator=gen, device=dev)
+        ids, _ = mcmc.sample_neighbours(u, fa, states, nb, DELTA)
+        rows, valid, over = delta.extract_rows_union(states, fa, ids, r)
+        args = (states, fa, ids, rows, valid, over, params, states.id_c.amax(-1))
+        rec = dict(R=r, M=n_chains * ids.shape[1], f_a=f_a, contig=int(sizes[f_a]))
+        dll = {}
+        for route, band_w in (("grid", None), ("banded", w)):
+            scorer = delta.make_delta_scorer(table, None, r, sobs=sobs, band_w=band_w)
+            dll[route], rec[route] = route_times(lambda: scorer.score(*args)[0])
+            del scorer
+        diff = (dll["grid"].double() - dll["banded"].double()).abs()
+        excess = (diff - BAND_ATOL - BAND_RTOL * dll["banded"].double().abs()).max().item()
+        rec["dll_max_abs_diff"] = diff.max().item()
+        routed = "grid" if delta.effective_band_w(w, table, r) is None else "banded"
+        rec["routed"] = routed
+        g, b = rec["grid"], rec["banded"]
+        print(f"  R={r} M={rec['M']} (contig of {rec['contig']} fragments): grid wall "
+              f"{g['wall_ms']:.4f} ms, device {g['device_ms']:.4f} ms, peak {g['peak_gb']:.3f} "
+              f"GB; banded wall {b['wall_ms']:.4f} ms, device {b['device_ms']:.4f} ms, peak "
+              f"{b['peak_gb']:.3f} GB; wall ratio {b['wall_ms'] / g['wall_ms']:.2f}; dll max "
+              f"|grid - banded| {rec['dll_max_abs_diff']:.6g}; routed to {routed}")
+        print(f"    {json.dumps(rec)}")
+        check(excess <= 0, f"R={r} M={rec['M']}: grid and banded deltas differ beyond rtol "
+              f"{BAND_RTOL}, atol {BAND_ATOL} (by {excess})")
+        out.append(rec)
+        del args, dll, states, rows
+    for rec in out:
+        faster = "grid" if rec["grid"]["wall_ms"] <= rec["banded"]["wall_ms"] else "banded"
+        check(rec["routed"] == faster, f"R={rec['R']} M={rec['M']}: the card's rule routes "
+              f"to {rec['routed']}, but {faster} was faster")
+    return out
 
 
 def phase_repeat_delta_kernels(device, sc):
@@ -1441,6 +1658,121 @@ def phase_runner(sc, n_cycles=1, steps=512):
           "the runner launched no delta kernel")
     check(all(abs(x) < float("inf") for x in m["likelihood"]), "non-finite likelihood")
     del final, params
+
+
+@contextlib.contextmanager
+def banded_calls():
+    """Counts the calls of ``DeltaScorer._banded_dll`` (the plain banded
+    expected mass) inside the block, by every scorer: yields a one-item
+    list."""
+    from graal_tpu_torch.core.delta import DeltaScorer
+
+    inner = DeltaScorer._banded_dll
+    calls = [0]
+
+    def counted(self, *a):
+        calls[0] += 1
+        return inner(self, *a)
+
+    DeltaScorer._banded_dll = counted
+    try:
+        yield calls
+    finally:
+        DeltaScorer._banded_dll = inner
+
+
+def count_cycles(runner):
+    """Wrap ``runner.cycle_for`` so that every cycle chunk it hands out
+    counts its steps and tiers and keeps the carried likelihood it
+    returned: the record it returns (steps, tiers, l_t)."""
+    rec = dict(steps=0, tiers=set(), l_t=None)
+    inner = runner.cycle_for
+
+    def cycle_for(f_max, delta_, rep=None):
+        cyc = inner(f_max, delta_, rep)
+
+        def counted(state, rng, params, order, l_t, f_t):
+            out = cyc(state, rng, params, order, l_t, f_t)
+            rec["steps"] += order.shape[-1]
+            rec["tiers"].add(f_max)
+            rec["l_t"] = out[1]
+            return out
+
+        return counted
+
+    runner.cycle_for = cycle_for
+    return rec
+
+
+def top_run(sc, start, steps):
+    """One seeded ScaleRunner.run cycle of ``steps`` extremity-first steps
+    from ``start`` (no nuisance step, so the cycle ends in its re-anchor),
+    on a fresh runner whose counts are this run's."""
+    import torch
+    from graal_tpu_torch.scale import ScaleRunner
+
+    runner = ScaleRunner(sc["table"], sc["sobs"], sc["params"], nb=sc["runner"].nb)
+    rec = count_cycles(runner)
+    peak = PeakMemory()
+    t0 = time.perf_counter()
+    with banded_calls() as banded:
+        final, _, m = runner.run(start, n_cycles=1, steps_per_cycle=steps,
+                                 order_mode="extremity", f_max_min=TIERS[0], sample_param=False,
+                                 init_truth=sc["truth"], seed=SEED + 2, progress=False)
+    torch.cuda.synchronize()
+    return dict(final=final, m=m, seconds=time.perf_counter() - t0, banded=banded[0],
+                launches=(runner.mini_grid.n_launches, runner.obs_grid.n_launches),
+                peak_gb=peak.read(f"ScaleRunner.run from {int(start.n_contigs())} contigs")[0],
+                **rec)
+
+
+def phase_runner_top(sc, steps=None):
+    """8b. ScaleRunner.run at the top tiers: one cycle of ``steps``
+    extremity-first steps from the truth cut into 40 pieces of 2,500
+    fragments (tier 8,192) and from the truth itself (contigs of 5,000,
+    tier 16,384), twice each. Each run launches one B2 and one B4 a step
+    (every chunk's steps counted, retries and wrap-padding included) and
+    never the banded mass; the carried likelihood within DRIFT_REL |L| of
+    the cycle's re-anchor; the invariants; the second run identical."""
+    import torch
+    from graal_tpu_torch.core.state import check_invariants
+
+    steps = steps or RUNNER_TOP_STEPS
+    out = {}
+    for name, start, tier in (("40 pieces", sc["halves"], TOP_TIERS[0]),
+                              ("truth", sc["truth"], TOP_TIERS[1])):
+        print(f"ScaleRunner.run at {sc['n']} fragments from {name} "
+              f"({int(start.n_contigs())} contigs): 1 cycle x {steps} extremity-first steps")
+        runs = [top_run(sc, start, steps) for _ in range(2)]
+        a = runs[0]
+        m = a["m"]
+        l_re = m["likelihood"][-1]
+        drift = abs(float(a["l_t"]) - l_re)
+        bound = DRIFT_REL * abs(l_re)
+        print(f"  tiers {sorted(a['tiers'])} (metrics {m['tiers']}), {a['steps']} steps run, "
+              f"launches ll_mini {a['launches'][0]}, obsgrid {a['launches'][1]}, banded mass "
+              f"calls {a['banded']}; likelihood carried {float(a['l_t']):.3f}, re-anchored "
+              f"{l_re:.3f}, drift {drift:.6g} (bound {bound:.3f}); n_contigs "
+              f"{int(start.n_contigs())} -> {m['n_contigs']}, overflow {m['overflow']}, "
+              f"dist {m['dist_init_genome']}; cycle {m['cycle_s'][-1]:.3f} s and "
+              f"{runs[1]['m']['cycle_s'][-1]:.3f} s ({a['seconds']:.3f} s with set-up)")
+        check(sorted(a["tiers"]) == [tier], f"{name}: tiers {sorted(a['tiers'])}, not {tier}")
+        check(a["launches"] == (a["steps"], a["steps"]),
+              f"{name}: launches {a['launches']} for {a['steps']} steps")
+        check(a["banded"] == 0, f"{name}: {a['banded']} calls of the banded mass")
+        check(drift < bound, f"{name}: carried likelihood drifted {drift} > {bound}")
+        check(check_invariants(a["final"], raise_on_error=False) == [], f"{name}: invariants")
+        b = runs[1]
+        same = all(torch.equal(x, y) for x, y in zip(a["final"], b["final"])) and \
+            m["likelihood"] == b["m"]["likelihood"] and float(a["l_t"]) == float(b["l_t"])
+        check(same, f"{name}: a second run with the same seed gave a different result")
+        print("  second run with the same seed: identical")
+        out[f"run_top_{tier}"] = dict(
+            launches=a["launches"], steps=a["steps"], banded_calls=a["banded"], tier=tier,
+            drift=drift, likelihood=l_re, n_contigs=m["n_contigs"][-1],
+            cycle_s=[r["m"]["cycle_s"][-1] for r in runs], peak_gb=[r["peak_gb"] for r in runs])
+        del runs, a, b
+    return out
 
 
 def cli(argv):
@@ -1979,7 +2311,7 @@ def mtm_delta_vs_plain(label, runner, state, bucket, f_a, n_time=0):
     tag = f"{label}, f_max={scorer.f_max} f_a={int(f_a)}"
     ob_k, err4 = b4_vs_plain(scorer.obs_grid_kernel, b4, tag)
     check(torch.equal(args[5], ob_k), f"{tag}: the step's observed grid is not B4's")
-    _, err2 = b2_vs_plain(scorer.mini_grid, args, tag)
+    _, err2, _ = b2_vs_plain(scorer.mini_grid, args, tag)
     if not n_time:
         return err2, err4, None
     t = with_share(timed(lambda: scorer.mini_grid.launch(*args), n_time,
@@ -2229,24 +2561,25 @@ def chains_inputs(states, nb, params_c, scorer, extract, gen):
     return b4, scorer.mini_grid_args(geo, ob, accu_sub, pvec), ids.shape[1]
 
 
-def check_chains_kernels(label, scorer, b4, args, m_per_chain):
+def check_chains_kernels(label, scorer, b4, args, m_per_chain, abs_scores=True):
     """B4 bit-identical and B2 (an (M, 10) parameter matrix) within
-    B2_ABS_ERR of their plain versions; a (10,) vector and the same vector
-    broadcast to (M, 10) give the same bits; each chain's slots alone,
-    with their own (10,) vector, give the bits of the batch. Both timed.
-    Returns (B2 record, B4 record)."""
+    B2_ABS_ERR of their plain versions, scores and deltas (and, as
+    everywhere, the scores within RTOL and the deltas within DLL_ATOL); a
+    (10,) vector and the same vector broadcast to (M, 10) give the same
+    bits; each chain's slots alone, with their own (10,) vector, give the
+    bits of the batch. Both timed. Without ``abs_scores`` the scores are
+    held to RTOL only: B2_ABS_ERR is a few ulps of the scores of the
+    buckets up to 4,096, and at R = 16,384 the scores reach 2.6e4, whose
+    ulp is 0.002. Returns (B2 record, B4 record)."""
     import torch
 
     m = args[0].shape[0]
     _, err4 = b4_vs_plain(scorer.obs_grid_kernel, b4, label)
-    s_k, err = b2_vs_plain(scorer.mini_grid, args, label)
-    d_k = scorer.mini_grid.launch(*args)[1]
-    d_p = scorer.mini_grid.plain(*args)[1]
-    dll_err = (d_k.double() - d_p.double()).abs().max().item()
+    s_k, err, dll_err = b2_vs_plain(scorer.mini_grid, args, label)
+    gated = max(err, dll_err) if abs_scores else dll_err
     print(f"  B2 {label}: scores max_abs_err {err:.6g}, dll max_abs_err {dll_err:.6g} "
-          f"(gate {B2_ABS_ERR} on both)")
-    check(max(err, dll_err) <= B2_ABS_ERR,
-          f"{label}: B2 error {max(err, dll_err)} > {B2_ABS_ERR}")
+          f"(gate {B2_ABS_ERR} on {'both' if abs_scores else 'the deltas'})")
+    check(gated <= B2_ABS_ERR, f"{label}: B2 error {gated} > {B2_ABS_ERR}")
     one = args[6][0]
     shared = scorer.mini_grid.launch(*args[:6], one)
     rows = scorer.mini_grid.launch(*args[:6], one.expand(m, one.shape[0]).contiguous())
@@ -2261,11 +2594,14 @@ def check_chains_kernels(label, scorer, b4, args, m_per_chain):
           "with their own (10,) vector equal the batch")
     r = args[0].shape[2]
     n_iter = min(100, max(5, 50 * 1024 * 1024 // (r * r)))
+    n_plain = 2 if r < 8192 else 1
     t2 = with_share(timed(lambda: scorer.mini_grid.launch(*args), n_iter,
-                          lambda: scorer.mini_grid.plain(*args), 2), mini_bound(args))
+                          lambda: scorer.mini_grid.plain(*args), n_plain), mini_bound(args))
     print(f"  time B2 R={r} M={m} (per-slot params): {fmt_time(t2)}; {fmt_bound(t2)}")
-    t4 = with_share(timed(lambda: scorer.obs_grid_kernel.launch(*b4), n_iter,
-                          lambda: scorer.obs_grid_kernel.plain(*b4), 2), obsgrid_bound(b4))
+    plain4 = None if r * r * m * 4 > 4 * PLAIN_GRID_BYTES else \
+        (lambda: scorer.obs_grid_kernel.plain(*b4))
+    t4 = with_share(timed(lambda: scorer.obs_grid_kernel.launch(*b4), n_iter, plain4, n_plain),
+                    obsgrid_bound(b4))
     print(f"  time B4 R={r} M={m}: {fmt_time(t4)}; {fmt_bound(t4)}")
     return dict(max_abs_err=err, dll_max_abs_err=dll_err, M=m, R=r, **t2), \
         dict(max_abs_err=err4, M=m, R=r, **t4)
@@ -2317,12 +2653,14 @@ def counting_step(runner, table, sobs, nb, f_max, rep=None):
     return step
 
 
-def chains_main(label, runner, state0, n_chains, steps, f_max_min, drift_bound):
+def chains_main(label, runner, state0, n_chains, steps, f_max_min, drift_bound,
+                must_rise=True):
     """``ScaleRunner.run_chains`` for one cycle of ``steps`` steps a chain
     (nuisance on, one swap round): launches one B2 and one B4 a step for
     all chains (counts set to 0 just before, read just after), each
     chain's carried likelihood within ``drift_bound`` of its re-anchor,
-    every chain's genome valid, the best likelihood above the start's."""
+    every chain's genome valid, the best likelihood above the start's
+    (with ``must_rise``; a start at the truth need not rise)."""
     import torch
     from graal_tpu_torch.core.mcmc import n_slots
     from graal_tpu_torch.core.state import check_invariants
@@ -2351,7 +2689,7 @@ def chains_main(label, runner, state0, n_chains, steps, f_max_min, drift_bound):
           f"({m['cycle_s'][-1] * 1e3 / steps:.3f} ms/step for all chains)")
     check(launches == (steps, steps), f"{label}: launches {launches} != one each a step")
     check(bad == 0, f"{label}: {bad} chains' carried likelihood drifted beyond the bound")
-    check(best > l0, f"{label}: best likelihood {best} did not rise above {l0}")
+    check(best > l0 or not must_rise, f"{label}: best likelihood {best} did not rise above {l0}")
     for c in range(n_chains):
         st = type(final)(*[x[c] for x in runner.chain_states])
         check(check_invariants(st, raise_on_error=False) == [], f"{label}: chain {c} invariants")
@@ -2413,6 +2751,49 @@ def phase_chains(sc):
         b2_b, b4_bb = check_chains_kernels(f"{CHAINS} chains R={bucket}", sc_b, b4_b, args_b, m)
         out.update(b2_bucket=b2_b, b4_bucket=b4_bb)
     return dict(out, ll_mini=b2_rec, obsgrid=b4_rec)
+
+
+def phase_chains_top(sc):
+    """11e. run_chains at the top buckets: 4 chains from the truth cut into
+    40 pieces (bucket 8,192, M = 20) for TOP_CHAIN_STEPS steps and from the
+    truth (bucket 16,384, M = 20) for TOP16_CHAIN_STEPS, no call of the
+    banded mass, with chains_main's checks and the peak memory of each;
+    then B4 and B2 against their plain versions on a chains step's inputs
+    at each bucket (check_chains_kernels)."""
+    import torch
+    from graal_tpu_torch.core import delta
+    from graal_tpu_torch.core.state import GenomeState
+    from graal_tpu_torch.scale import ScaleRunner
+
+    runner = ScaleRunner(sc["table"], sc["sobs"], sc["params"], nb=sc["runner"].nb)
+    pc = chain_params(sc["params"])
+    gen = torch.Generator(device=sc["truth"].pos.device).manual_seed(SEED)
+    out = {}
+    for start, steps, bucket in ((sc["halves"], TOP_CHAIN_STEPS, TOP_TIERS[0]),
+                                 (sc["truth"], TOP16_CHAIN_STEPS, TOP_TIERS[1])):
+        print(f"run_chains at {sc['n']} fragments from {int(start.n_contigs())} contigs: "
+              f"{CHAINS} chains x {steps} steps")
+        peak = PeakMemory()
+        with banded_calls() as banded:
+            rec = chains_main(f"run_chains at bucket {bucket}", runner, start, CHAINS, steps,
+                              F_MAX, (0.5, 1e-6), must_rise=False)
+        rec["peak_gb"] = peak.read(f"run_chains, {CHAINS} chains at bucket {bucket}")[0]
+        check(rec["f_max"] == bucket, f"run_chains ran at bucket {rec['f_max']}, not {bucket}")
+        check(banded[0] == 0, f"run_chains at bucket {bucket}: {banded[0]} banded mass calls")
+        rec["banded_calls"] = banded[0]
+        states = GenomeState(*[x.expand(CHAINS, -1).contiguous() for x in start])
+        scorer = delta.make_delta_scorer(sc["table"], None, bucket, sobs=sc["sobs"],
+                                         obs_grid=runner.obs_grid, mini_grid=runner.mini_grid)
+        b4, args, m = chains_inputs(states, runner.nb, pc, scorer, delta.extract_rows_union,
+                                    gen)
+        peak = PeakMemory()
+        rec["ll_mini"], rec["obsgrid"] = check_chains_kernels(
+            f"{CHAINS} chains R={bucket}", scorer, b4, args, m, abs_scores=False)
+        rec["ll_mini"]["peak_gb"] = peak.read(f"B2 / B4 checks at M = {args[0].shape[0]}, "
+                                              f"R = {bucket}")[0]
+        out[bucket] = rec
+        del b4, args, states, scorer
+    return out
 
 
 def phase_chains_repeats(rsc, n_chains=3, steps=128):
@@ -2781,7 +3162,7 @@ def kernel_record(name, source, replaces, launches, record):
 
 
 def kernels_line(dense, dense_launches, repeat, repeat_launches, delta, mini_launches,
-                 repeat_delta, obs_launches, cli_runs, mtm_exact, chains):
+                 repeat_delta, obs_launches, cli_runs, mtm_exact, chains, top):
     """The {"kernels": [...]} line from the phases' records; the B2 / B4
     launches are (100k path, 20k repeat path); ``cli_runs`` is
     :func:`phase_cli`'s record, whose counts and errors against the plain
@@ -2792,9 +3173,14 @@ def kernels_line(dense, dense_launches, repeat, repeat_launches, delta, mini_lau
     delta_mtm_exactness and ``chains`` (phases 11a, 11b) as
     run_chains_100k (this slice's main path, whose launches join the
     top-level count) and run_chains_repeat_20k; the chains' B2 / B4 shapes
-    (M = 20) go under "by_shape"."""
+    (M = 20) go under "by_shape". ``top`` (phase 8b) and ``chains["top"]``
+    (phase 11e) are the main paths at the top tiers, run_top_R and
+    run_chains_top_R under "by_path", whose launches join the top-level
+    count too."""
     c = cli_runs
-    ch, chr_ = chains["main"], chains["repeat"]
+    ch, chr_, cht = chains["main"], chains["repeat"], chains["top"]
+    top_launches = [sum(r["launches"][i] for r in top.values())
+                    + sum(r["launches"][i] for r in cht.values()) for i in (0, 1)]
 
     def entry(rec, key="launches", err="max_abs_err"):
         return dict(launches=rec[key], max_abs_err=rec[err])
@@ -2820,7 +3206,15 @@ def kernels_line(dense, dense_launches, repeat, repeat_launches, delta, mini_lau
                 "cli_scale_chains": dict(
                     launches=c["scale_chains"]["launches"][key == "obs"],
                     max_abs_err=c["scale_chains"]["ll_mini" if key == "mini"
-                                                  else "obsgrid"]["max_abs_err"])}
+                                                  else "obsgrid"]["max_abs_err"]),
+                **{name: dict(launches=r["launches"][key == "obs"], steps=r["steps"],
+                              banded_calls=r["banded_calls"])
+                   for name, r in top.items()},
+                **{f"run_chains_top_{b}": dict(
+                    launches=r["launches"][key == "obs"], steps=r["steps"], f_max=r["f_max"],
+                    banded_calls=r["banded_calls"],
+                    max_abs_err=r["ll_mini" if key == "mini" else "obsgrid"]["max_abs_err"])
+                   for b, r in cht.items()}}
 
     def chain_shapes(name):
         out = {f"{name}_chains_R{ch[name]['R']}_M{ch[name]['M']}": ch[name]}
@@ -2829,6 +3223,8 @@ def kernels_line(dense, dense_launches, repeat, repeat_launches, delta, mini_lau
             out[f"{name}_chains_R{bucket['R']}_M{bucket['M']}"] = bucket
         for tag, rec in (("repeat", chr_[name]), ("cli", c["scale_chains"][name])):
             out[f"{name}_chains_{tag}_R{rec['R']}_M{rec['M']}"] = rec
+        for rec in cht.values():
+            out[f"{name}_chains_R{rec[name]['R']}_M{rec[name]['M']}"] = rec[name]
         return out
 
     mini = dict(delta["ll_mini"], by_path=by_path(mini_launches, repeat_delta["ll_mini"],
@@ -2849,9 +3245,9 @@ def kernels_line(dense, dense_launches, repeat, repeat_launches, delta, mini_lau
                           "cli_run_multilevel": entry(c["multilevel"]),
                           "cli_run_hic": dict(launches=c["hic"]["launches"])})),
         kernel_record("ll_mini", "ll_mini.cu", "graal_tpu/ops/likelihood_pallas.py:340",
-                      sum(mini_launches) + ch["launches"][0], mini),
+                      sum(mini_launches) + ch["launches"][0] + top_launches[0], mini),
         kernel_record("obsgrid", "obsgrid.cu", "graal_tpu/ops/obsgrid_pallas.py:52",
-                      sum(obs_launches) + ch["launches"][1], dict(
+                      sum(obs_launches) + ch["launches"][1] + top_launches[1], dict(
                           delta["obsgrid"], by_path=by_path(obs_launches, repeat_delta["obsgrid"],
                                                             "obs"),
                           by_shape=chain_shapes("obsgrid"))),
@@ -2886,6 +3282,7 @@ def main():
     repeat_launches = phase("4b repeat main", phase_repeat_main, device)
     sc = phase("set-up 100k", scale_setup, device)
     delta_timing = phase("5 B2 B4", phase_delta_kernels, device, sc)
+    crossover = phase("5c routes", phase_crossover, sc)
     phase("6 exactness", phase_exactness, device)
     phase("6a repeat exactness", phase_repeat_exactness, device)
     mini_launches, obs_launches = phase("7 delta main", phase_scale_main, sc)
@@ -2894,7 +3291,9 @@ def main():
     r_mini, r_obs = phase("7b repeat delta main", phase_scale_main, rsc,
                           "repeat delta main path")
     phase("8 runner", phase_runner, sc)
+    top = phase("8b runner top tiers", phase_runner_top, sc)
     chains = phase("11a chains", phase_chains, sc)
+    top_chains = phase("11e chains top buckets", phase_chains_top, sc)
     del sc
     phase("8a repeat runner", phase_runner, rsc, steps=256)
     chains_rep = phase("11b repeat chains", phase_chains_repeats, rsc)
@@ -2907,15 +3306,43 @@ def main():
     line = gpu_line()
     kernels = kernels_line(dense, dense_launches, repeat, repeat_launches, delta_timing,
                            (mini_launches, r_mini), repeat_delta_timing, (obs_launches, r_obs),
-                           cli_runs, mtm_exact, dict(main=chains, repeat=chains_rep))
+                           cli_runs, mtm_exact, dict(main=chains, repeat=chains_rep,
+                                                     top=top_chains), top)
+    print(json.dumps({"routes": crossover}))
     kernel_keys = ("ll_mini", "obsgrid", "b2_bucket", "b4_bucket")
     print(json.dumps({"chains": {
         name: {k: v for k, v in rec.items() if k not in kernel_keys}
         for name, rec in (("run_chains_100k", chains), ("run_chains_repeat_20k", chains_rep),
-                          ("cli_scale_chains", cli_runs["scale_chains"]))},
+                          ("cli_scale_chains", cli_runs["scale_chains"]),
+                          *((f"run_chains_top_{b}", r) for b, r in top_chains.items()))},
+        "run_top": top,
         "distribution": dist}))
     print(line)
     print(json.dumps(kernels))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+def main_top():
+    """``--top-tiers``: the build, the 100k set-up and the phases of the top
+    tiers (5 at every tier, 8b, 11e, 5c); their records on one JSON line,
+    then the same last lines as :func:`main` (no kernels line)."""
+    t_start = time.perf_counter()
+    device = phase_device()
+    import torch
+
+    phase("1 build", phase_build)
+    sc = phase("set-up 100k", scale_setup, device)
+    delta_timing = phase("5 B2 B4", phase_delta_kernels, device, sc)
+    top = phase("8b runner top tiers", phase_runner_top, sc)
+    top_chains = phase("11e chains top buckets", phase_chains_top, sc)
+    crossover = phase("5c routes", phase_crossover, sc)
+    print(f"smoke --top-tiers: {time.perf_counter() - t_start:.1f} s in all; phases "
+          f"{json.dumps(PHASE_S)}", flush=True)
+    print(json.dumps({"tiers": {k: delta_timing[k]["tiers"] for k in ("ll_mini", "obsgrid")},
+                      "routes": crossover, "run_top": top, "run_chains_top": top_chains}))
+    print(gpu_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -2942,7 +3369,8 @@ if __name__ == "__main__":
         dist_child(int(rank), int(world), store, out, backend)
         sys.exit(0)
     try:
-        main_cards() if sys.argv[1:] == ["--cards"] else main()
+        {("--cards",): main_cards, ("--top-tiers",): main_top}.get(tuple(sys.argv[1:]),
+                                                                   main)()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         sys.exit(1)

@@ -222,11 +222,28 @@ def scatter_mini(state: GenomeState, mini: GenomeState, rows, valid) -> GenomeSt
                              for k, f in enumerate(MUTABLE_FIELDS)})
 
 
-def effective_band_w(band_w: int | None, table: SubFragTable, f_max: int) -> int | None:
-    """Keep the banded expected-mass path only when the band is at most
-    1/8 of the mini-grid edge; otherwise the dense (R, R) grid is cheaper
-    (None)."""
+def effective_band_w(band_w: int | None, table: SubFragTable, f_max: int,
+                     device=None) -> int | None:
+    """The band a delta scorer of bucket ``f_max`` scores with on
+    ``device`` (the table's by default): ``band_w`` for the banded
+    expected-mass path, or None for the dense (R, R) grid.
+
+    On a CUDA device every bucket takes the grid, B4 + B2. B2 already pays
+    its transcendentals only on the same-contig pairs inside (0, d_max),
+    which are the band, and a product on every other cell, in one launch;
+    the banded path repeats B2's observed term in plain torch over the
+    whole grid and adds a sort and a band loop. Measured by
+    ``chip_smoke.py`` (phase 5c) on one NVIDIA H100 80GB HBM3 at a 700 W
+    power limit, scoring one step of the 100k-fragment problem (band 996),
+    in two runs: the banded path took 3.9-4.5x the grid's wall time at
+    R = 2,048, 12-16x at 4,096, 35-46x at 8,192, 102-109x at 16,384 and
+    130-136x for 4 chains at 8,192.
+
+    Elsewhere (the CPU) the reference's rule holds: the band when it is at
+    most 1/8 of the mini-grid edge."""
     if band_w is None:
+        return None
+    if torch.device(table.owner.device if device is None else device).type == "cuda":
         return None
     mt = build_mini_table(table, allow_repeats=True)
     r_max = min(f_max, mt.n_frags) * mt.s_max

@@ -59,12 +59,20 @@
 //    a second buffer would cost a resident block, and the other resident
 //    blocks' work covers one block's loads. 48 registers, no spills: 5
 //    blocks an SM.
+//  - Index widths. An item, a tile and a partial's slot are ints: at
+//    M = 20, R = 16,384 (the top tier of 4 tempered chains) there are
+//    1,315,840 items, and the launch refuses a shape whose items and
+//    tickets would pass INT_MAX. Every offset into the (M, R, R) grid,
+//    the (M, C, R) vectors and the partials is a size_t product (the grid
+//    holds 5.4e9 cells at that shape).
 //  - Nothing is accumulated across blocks: one f32 partial per (neighbour,
 //    candidate, tile, half), and a second kernel, one warp per candidate,
 //    sums them in f64 in a fixed order. A candidate's score depends only on
 //    its own inputs, in any batch, whichever block computed it; a cell
 //    where base and candidate agree gives the same value in both, so it
 //    cancels exactly in the delta.
+
+#include <climits>
 
 #include <cuda_runtime.h>
 
@@ -269,7 +277,10 @@ int ll_mini_score(const float* mid, const int* idc, const float* circ,
   const int n_rb = row_blocks(R);
   const int n_tri = n_rb * (n_rb + 1) / 2;
   const int n_chunks = (C + cs - 1) / cs;
-  const int n_items = M * n_chunks * n_tri * SLOTS;
+  // items are ints, and the blocks draw tickets up to n_items + grid
+  const long long items = (long long)M * n_chunks * n_tri * SLOTS;
+  if (items > (long long)INT_MAX - grid) return (int)cudaErrorInvalidValue;
+  const int n_items = (int)items;
   ll_mini_items<<<grid, THREADS, 0, s>>>(mid, idc, circ, stot, la, ob, pvec, partial,
                                          next_item, M, C, R, n_rb, n_tri, cs, n_chunks, n_items);
   cudaError_t err = cudaGetLastError();

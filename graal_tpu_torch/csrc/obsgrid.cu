@@ -49,6 +49,10 @@
 //  - At large R the map and the row buffers outgrow shared memory: the
 //    wrapper gives a block as many row buffers (warps at work) as fit,
 //    down to one (R = 16,384 fits), and refuses what does not.
+//  - Index widths: a slot is 16 bits (R < 65,535), a neighbour is
+//    blockIdx.y (M <= 65,535), and every offset into the (M, R, R) grid
+//    is a size_t product (5.4e9 cells at M = 20, R = 16,384); CSR offsets
+//    are 64-bit.
 
 #include <cuda_runtime.h>
 
@@ -197,7 +201,7 @@ int obsgrid_occupancy(int smem, int* blocks_per_sm) {
 int obsgrid(const long long* row_start, const int* cols, const float* vals, const int* keys,
             float* out, int M, int R, int rows_per_block, int n_bufs, int log2cap,
             void* stream) {
-  if (M <= 0 || R <= 0 || R >= EMPTY || rows_per_block < 1 || n_bufs < 1 || n_bufs > WARPS ||
+  if (M <= 0 || M > 65535 || R <= 0 || R >= EMPTY || rows_per_block < 1 || n_bufs < 1 || n_bufs > WARPS ||
       log2cap < 1 || log2cap > 16 || (1 << log2cap) <= R)
     return (int)cudaErrorInvalidValue;
   const dim3 grid((R + rows_per_block - 1) / rows_per_block, M);

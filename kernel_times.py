@@ -21,11 +21,13 @@ and on the device alone (``chip_smoke.cuda_ms`` / ``device_ms``). The
 shapes are those of ``chip_smoke.py``: B1 at B = 65 (true and exploded
 candidates) and B = 1 on K = 1,152 and B = 13 on K = 6,000; B3 at B = 130
 and 1 on S = 1,152 and B = 13 on S = 6,000; B2 at M = 5 on every tier
-R = 256-4,096 of the 100k problem and at M = 10, R = 1,024 on the 20k
-repeat problem; B4 at R = 1,024 on both, as the kernel alone and as the
-step's whole production of its masked observed grid ("B4 grid"), through
-whichever interface the tree has (gathered windows, or the CSR map and
-keys), so that trees on either side of that change time the same work.
+R = 256-16,384 of the 100k problem (the top tiers 8,192 and 16,384 on
+the genome cut to fill them, ``chip_smoke.scale_setup``'s "tiered"), at
+M = 20 (4 chains) on the buckets 8,192 and 16,384, and at M = 10, R =
+1,024 on the 20k repeat problem; B4 at R = 1,024 on both, as the kernel
+alone and as the step's whole production of its masked observed grid
+from the CSR map and the keys ("B4 grid"), and at the top tiers and
+buckets beside B2.
 """
 
 import json
@@ -46,9 +48,13 @@ def times(fn, check_of):
     fn()
     stop.record()
     torch.cuda.synchronize()
+    # the checksum a leading slice at a time: an f64 copy of a whole
+    # (20, 16384, 16384) grid would not fit beside it
+    check = sum(float(x.double().sum()) for x in check_of(out))
+    del out
     n_iter = max(10, min(200, int(50 / max(start.elapsed_time(stop), 0.01))))
     return dict(ms=smoke.cuda_ms(fn, n_iter), device_ms=smoke.device_ms(fn, n_iter),
-                check=float(check_of(out).double().sum()))
+                check=check)
 
 
 def dense_shapes(device, gen, build, name):
@@ -78,60 +84,57 @@ def dense_shapes(device, gen, build, name):
     return out
 
 
-def delta_shapes(sc, scorer, extract, f_a, gen, label):
-    """B2 and B4 on one step's inputs at the scorer's bucket; B4 alone and
-    as the step's production of its masked observed grid from the D rows
-    and their base activity: in a tree whose B4 takes gathered windows,
-    the windows, the wrapper's sort of the keys, the kernel and the
-    activity mask; in one whose B4 reads the CSR map, the keys (activity
-    folded in) and the kernel."""
+def delta_shapes(sc, genome, scorer, extract, f_a, gen, label):
+    """B2 and B4 on one step's inputs of fragment ``f_a`` of ``genome`` at
+    the scorer's bucket; B4 alone and as the step's production of its
+    masked observed grid from the D rows and their base activity (the
+    keys, activity folded in, and the kernel)."""
     import torch
     from graal_tpu_torch.core import delta, mcmc
 
-    shuf = sc["shuf"]
-    f_a = torch.tensor(f_a, device=shuf.pos.device)
-    ids, _ = mcmc.sample_neighbours(gen, f_a, shuf, sc["runner"].nb, smoke.DELTA)
-    rows, valid, _ = extract(shuf, f_a, ids, scorer.f_max)
-    subs, sub_valid = scorer.sub_rows(rows, valid)
-    one, max_id = (shuf, f_a, ids, rows, valid), shuf.id_c.amax()
-    # trees whose scorer inputs take a chains axis only: the chain lifted
-    # to a chains axis of one (the same M rows come out)
-    if hasattr(delta, "lift_chain"):
-        one, max_id = delta.lift_chain(*one), max_id[None]
-    _, geo, ob, accu_sub, pvec = scorer.inputs(*one, sc["params"], max_id)
+    f_a = torch.tensor(f_a, device=genome.pos.device)
+    ids, _ = mcmc.sample_neighbours(gen, f_a, genome, sc["runner"].nb, smoke.DELTA)
+    rows, valid, _ = extract(genome, f_a, ids, scorer.f_max)
+    subs, _ = scorer.sub_rows(rows, valid)
+    _, geo, ob, accu_sub, pvec = scorer.inputs(*delta.lift_chain(genome, f_a, ids, rows, valid),
+                                               sc["params"], genome.id_c.amax()[None])
     args = scorer.mini_grid_args(geo, ob, accu_sub, pvec)
     act0 = geo.act[:, 0]
-    grid = scorer.obs_grid_kernel
-    # B4 on gathered windows: trees from before B4 read the CSR map; drop
-    # this branch once no such tree needs timing
-    if hasattr(scorer, "windows"):
-        b4 = scorer.windows(subs, sub_valid)
-
-        def production():
-            return torch.where(act0[:, :, None] & act0[:, None, :],
-                               scorer.obs_grid(subs, sub_valid), 0.0)
-    else:                                # B4 on the CSR map and keys
-        sobs = scorer.sobs
-        b4 = (sobs.row_start, sobs.cols, sobs.vals, scorer.obs_keys(subs, act0))
-
-        def production():
-            return scorer.obs_grid(subs, act0)
+    sobs = scorer.sobs
+    b4 = (sobs.row_start, sobs.cols, sobs.vals, scorer.obs_keys(subs, act0))
     m, _, r = args[0].shape
     return {f"B2 {label} R={r} M={m}": times(lambda: scorer.mini_grid.launch(*args),
                                              lambda res: res[0]),
-            f"B4 {label} R={r} M={m}": times(lambda: grid.launch(*b4), lambda res: res),
-            f"B4 grid {label} R={r} M={m}": times(production, lambda res: res)}
+            f"B4 {label} R={r} M={m}": times(lambda: scorer.obs_grid_kernel.launch(*b4),
+                                             lambda res: res),
+            f"B4 grid {label} R={r} M={m}": times(lambda: scorer.obs_grid(subs, act0),
+                                                  lambda res: res)}
+
+
+def chains_shapes(sc, genome, r, gen):
+    """B2 and B4 on one step's inputs of 4 tempered chains from ``genome``
+    at bucket ``r`` (M = 20, B2 with a parameter row per slot)."""
+    from graal_tpu_torch.core import delta
+    from graal_tpu_torch.core.state import GenomeState
+
+    states = GenomeState(*[x.expand(smoke.CHAINS, -1).contiguous() for x in genome])
+    scorer = delta.make_delta_scorer(sc["table"], None, r, sobs=sc["sobs"])
+    b4, args, _ = smoke.chains_inputs(states, sc["runner"].nb, smoke.chain_params(sc["params"]),
+                                      scorer, delta.extract_rows_union, gen)
+    m = args[0].shape[0]
+    return {f"B2 100k chains R={r} M={m}": times(lambda: scorer.mini_grid.launch(*args),
+                                                 lambda res: res[0]),
+            f"B4 100k chains R={r} M={m}": times(lambda: scorer.obs_grid_kernel.launch(*b4),
+                                                 lambda res: res)}
 
 
 def main(argv):
     tree = Path(argv[1] if len(argv) == 2 and argv[0] == "--tree" else ".").resolve()
     smoke.check(len(argv) in (0, 2), f"usage: kernel_times.py [--tree DIR], not {argv}")
     sys.path.insert(0, str(tree))
-    import numpy as np
     import torch
     from graal_tpu_torch.core import delta, delta_repeats
     from graal_tpu_torch.entry import problem, repeat_problem
-    from graal_tpu_torch.scale import contig_frags_per_frag
 
     device = smoke.phase_device()
     import graal_tpu_torch
@@ -144,20 +147,24 @@ def main(argv):
                             "B3"))
 
     sc = smoke.scale_setup(device)
-    sizes = contig_frags_per_frag(sc["shuf"])
     for r in smoke.TIERS:
         # the flagship fragment at R = 1,024; elsewhere the largest contig
         # that half the tier holds, as chip_smoke.tiers picks it
-        f_a = 7 if r == smoke.F_MAX else int(np.argmax(np.where(sizes <= r // 2, sizes, -1)))
+        genome = sc["tiered"] if r in smoke.TOP_TIERS else sc["shuf"]
+        f_a = 7 if r == smoke.F_MAX else smoke.frag_fitting(genome, r)
         scorer = delta.make_delta_scorer(sc["table"], None, r, sobs=sc["sobs"])
-        got = delta_shapes(sc, scorer, delta.extract_rows_union, f_a, gen, "100k")
-        out.update({k: v for k, v in got.items() if k.startswith("B2") or r == smoke.F_MAX})
+        got = delta_shapes(sc, genome, scorer, delta.extract_rows_union, f_a, gen, "100k")
+        out.update({k: v for k, v in got.items() if k.startswith("B2") or r == smoke.F_MAX
+                    or (k.startswith("B4 100k") and r in smoke.TOP_TIERS)})
+        del scorer, got
+    for r, genome in zip(smoke.TOP_TIERS, (sc["halves"], sc["truth"])):
+        out.update(chains_shapes(sc, genome, r, gen))
     del sc
     rsc = smoke.scale_repeat_setup(device)
     engine = delta_repeats.make_repeat_delta_scorer_v2(rsc["table"], smoke.F_MAX, rsc["sobs"],
                                                        rsc["shuf"].rep)
-    out.update(delta_shapes(rsc, engine.plain, delta.extract_rows_each, rsc["n_bins"] + 7, gen,
-                            "20k repeat"))
+    out.update(delta_shapes(rsc, rsc["shuf"], engine.plain, delta.extract_rows_each,
+                            rsc["n_bins"] + 7, gen, "20k repeat"))
     print(json.dumps({"tree": str(tree), "gpu": smoke.gpu_line(), "shapes": out}))
 
 
