@@ -31,8 +31,12 @@ scorer, and a score is that constant plus, over the same-contig pairs
 inside (0, d_max), the cis term less the trans term; so B1 counts one cell
 and one such pair for each of them (16 FP32, 3 special-function
 operations), the observed cells of those pairs once, the vectors, factors
-and scores. B4 moves bytes only: the CSR entries of the rows read, the
-keys and the grid written. "share" is the bound over the device time.
+and scores. B2 counts what its classes of (half tile, candidate) need
+(``mini_bound``): the cell operations of the band pairs only, 576 FP32
+for a band-free pair (its 96 rows and columns), nothing for an empty one,
+and the observed cells of the half tiles some candidate's class reads. B4
+moves bytes only: the CSR entries of the rows read, the keys and the grid
+written. "share" is the bound over the device time.
 
 1. Device: refuse to run without CUDA; print the card (nvidia-smi name and
    power limit), torch's and nvcc's versions.
@@ -83,7 +87,13 @@ keys and the grid written. "share" is the bound over the device time.
    beside it, at every tier of the ladder, R = 256 to 16,384: up to 4,096
    on the shuffled start, at 8,192 and 16,384 (no contig of the shuffled
    start fills them) on the truth cut so that a piece fills each tier,
-   with the peak memory there.
+   with the peak memory there. Every B2 check prints the shares of its
+   (half tile, candidate) classes (empty, band-free, band;
+   ``tile_classes_plain``) and fails unless the kernel's own count of each
+   class equals the plain classifier's; every tier prints B4's launch plan
+   (8 warps a block, the columns of a warp's row buffer). At R = 16,384
+   B2 is also held to its plain version on the batch with f_a's contig
+   circularised (deltas to max(DLL_ATOL, one f32 ulp): they reach ~5e5).
 5c. The delta step's two scoring routes on the same inputs:
    DeltaScorer.score with band_w None (B4 + B2) and with the runner's
    band 996 (B4 + the banded expected mass in plain torch), one step of
@@ -517,18 +527,70 @@ def repeat_bound(scorer, vecs, pvec):
                  **scorer_counts(b * upper_cells(s), cis, multi))
 
 
-def mini_bound(args):
-    """Bound of a B2 call: the observed grids (their upper triangles) and
-    the five (M, C, R) vectors read once (and an (M, 10) parameter matrix,
-    whose rows give each slot its own d_max), scores and deltas written
-    once."""
-    mid, idc = args[0], args[1]
+# FP32 operations of a band-free (half tile, candidate) per row or column:
+# its share of the class test (id, min, max) and of the closed form's sums
+FREE_OPS_PER_LINE = 6
+
+
+@functools.cache
+def half_tile_cells(r, device):
+    """(n_tri, 2) cells u < v < R of each half tile of an R x R grid, tiles
+    in B2's partial order."""
+    import torch
+    from graal_tpu_torch.ops.mini_grid_cuda import tri_tiles
+
+    t = 64
+    n_rb = -(-r // t)
+    bi, bj = tri_tiles(n_rb, device)
+    u = torch.arange(t // 2, device=device)
+    v = torch.arange(t, device=device)
+    out = []
+    for half in range(2):
+        rows = (bi * t + half * t // 2)[:, None, None] + u[None, :, None]
+        cols = (bj * t)[:, None, None] + v[None, None, :]
+        out.append(((cols > rows) & (rows < r) & (cols < r)).sum((1, 2)))
+    return torch.stack(out, -1)
+
+
+def mini_classes(args):
+    """B2's class of every (half tile, candidate) of a call, by its rule in
+    plain torch (``tile_classes_plain``), and their counts (empty,
+    band-free, band)."""
+    import torch
+    from graal_tpu_torch.ops.mini_grid_cuda import tile_classes_plain
+
+    cls = tile_classes_plain(args[0], args[1], args[4], args[5], args[6])
+    return cls, torch.bincount(cls.flatten().long(), minlength=3).tolist()
+
+
+def mini_bound(args, cls=None):
+    """Bound of a B2 call, counting what these inputs need: the cell
+    operations of the band (half tile, candidate) pairs only (6 FP32 a cell,
+    and 10 FP32 and 3 special-function per same-contig pair of two live
+    rows inside (0, d_max), all of which lie in band pairs), 2 x 96 x
+    FREE_OPS_PER_LINE / 2 for a band-free pair's rows and columns, nothing
+    for an empty one; the bytes of the observed half tiles (their cells u <
+    v) some candidate's class needs, the five (M, C, R) vectors (and the
+    (M, 10) parameter rows, whose rows give each slot its own d_max) read
+    once, scores and deltas written once. ``cls`` is
+    :func:`mini_classes`' classes of the call, computed when not given."""
+    from graal_tpu_torch.ops.mini_grid_cuda import BAND, DEAD_LA, EMPTY, FREE
+
+    mid, idc, la = args[0], args[1], args[4]
     m, c, r = mid.shape
     pvec = args[6].expand(m, args[6].shape[-1])
+    if cls is None:
+        cls = mini_classes(args)[0]
+    cells = half_tile_cells(r, str(mid.device))
+    band_cells = int(((cls == BAND).long() * cells).sum())
+    n_free = int((cls == FREE).sum())
+    ob_cells = int(((cls != EMPTY).any(1).long() * cells).sum())
     pairs = upper_mask(r, mid.device)
-    cis = sum(in_range_pairs(mid[a], idc[a], pvec[a, 3].item(), pairs) for a in range(m))
-    return bound(4 * (m * upper_cells(r) + 5 * m * c * r + m * c + m * (c - 1)
-                      + pvec.numel()), **scorer_counts(m * c * upper_cells(r), cis))
+    cis = sum(in_range_pairs(mid[a], idc[a], pvec[a, 3].item(), pairs, la[a] > DEAD_LA)
+              for a in range(m))
+    counts = scorer_counts(band_cells, cis)
+    counts["fp32_ops"] += FREE_OPS_PER_LINE * 96.0 * n_free
+    return bound(4 * (ob_cells + 5 * m * c * r + m * c + m * (c - 1) + pvec.numel()), **counts)
 
 
 def obsgrid_bound(b4):
@@ -1174,26 +1236,51 @@ def b4_vs_plain(grid, b4, label):
     return ob_k, err
 
 
-def b2_vs_plain(grid, args, label):
-    """B2 kernel and plain version on the same inputs; returns (the
-    kernel's scores, max abs score error, max abs dll error)."""
+def b2_vs_plain(grid, args, label, dll_ulp=False):
+    """B2 kernel and plain version on the same inputs; the kernel's count
+    of (half tile, candidate) pairs of each class equal to the plain
+    classifier's (the empty ones past a neighbour's live extent are drawn
+    by no item); returns (the kernel's scores, max abs score error, max
+    abs dll error, the plain classes). With ``dll_ulp`` a delta may also
+    differ from the plain one by one f32 ulp of the plain delta where that
+    ulp exceeds DLL_ATOL (|dll| >= 2^19): both are f64 differences rounded
+    to f32 once, and f64 totals that differ in their last f32 partials'
+    rounding can round a delta there to neighbouring f32 values."""
+    import numpy as np
     import torch
+    from graal_tpu_torch.ops.mini_grid_cuda import EMPTY
 
-    s_k, d_k = grid.launch(*args)
+    counted = torch.zeros(3, dtype=torch.int32, device=args[0].device)
+    s_k, d_k = grid.launch(*args, class_counts=counted)
     s_p, d_p = grid.plain(*args)
+    cls, n = mini_classes(args)
     torch.cuda.synchronize()
     check(bool(torch.isfinite(s_k).all() & torch.isfinite(d_k).all()),
           f"{label}: non-finite B2 scores")
     err = (s_k.double() - s_p.double()).abs()
     rel = (err / s_p.double().abs().clamp_min(1e-30)).max().item()
-    dll_err = (d_k.double() - d_p.double()).abs().max().item()
+    dll_diff = (d_k.double() - d_p.double()).abs()
+    dll_err = dll_diff.max().item()
+    excess = dll_err - DLL_ATOL
+    if dll_ulp:
+        ulp = torch.as_tensor(np.spacing(d_p.abs().cpu().numpy()), device=d_p.device).double()
+        excess = (dll_diff - torch.clamp_min(ulp, DLL_ATOL)).max().item()
+        print(f"  B2 {label}: |dll| up to {d_p.abs().max().item():.6g}, gate max({DLL_ATOL}, "
+              f"one f32 ulp of the plain delta), largest excess over the gate {excess:.6g}")
     m, c, r = args[0].shape
+    total = sum(n)
     print(f"  B2 {label}: M={m} C={c} R={r} max_abs_err={err.max().item():.6g} "
           f"max_rel_err={rel:.3g} dll max_abs_err={dll_err:.6g} "
-          f"(|score| up to {s_p.abs().max().item():.6g})")
+          f"(|score| up to {s_p.abs().max().item():.6g}); (half tile, candidate) classes of "
+          f"{total}: empty {n[0] / total:.4f}, band-free {n[1] / total:.4f}, band "
+          f"{n[2] / total:.4f}")
     check(rel <= RTOL, f"{label}: B2 kernel vs plain rel err {rel} > {RTOL}")
-    check(dll_err <= DLL_ATOL, f"{label}: B2 dll error {dll_err} > {DLL_ATOL}")
-    return s_k, err.max().item(), dll_err
+    check(excess <= 0, f"{label}: B2 dll error {dll_err} > {DLL_ATOL}"
+          + (" and one f32 ulp" if dll_ulp else ""))
+    k = counted.tolist()
+    check(k[1:] == n[1:] and k[EMPTY] <= n[EMPTY],
+          f"{label}: the kernel's classes {k} differ from the plain classifier's {n}")
+    return s_k, err.max().item(), dll_err, cls
 
 
 def check_delta_kernels(sc, scorer, extract, frags, gen, want_m):
@@ -1215,12 +1302,12 @@ def check_delta_kernels(sc, scorer, extract, frags, gen, want_m):
         ob_k, err = b4_vs_plain(scorer.obs_grid_kernel, b4, f"f_a={f_a}")
         b4_err = max(b4_err, err)
         check(torch.equal(args[5], ob_k), f"f_a={f_a}: the step's observed grid is not B4's")
-        s_k, err, _ = b2_vs_plain(scorer.mini_grid, args, f"f_a={f_a}")
+        s_k, err, _, cls = b2_vs_plain(scorer.mini_grid, args, f"f_a={f_a}")
         b2_err = max(b2_err, err)
         if first is None:
-            first = (b4, rows_act, args, s_k)
+            first = (b4, rows_act, args, s_k, cls)
     # each genome alone, and each neighbour alone, as in its batch
-    b4, rows_act, args, s_k = first
+    b4, rows_act, args, s_k, cls = first
     m, c, _ = args[0].shape
     for a in range(m):
         alone = scorer.mini_grid.launch(*[x[a:a + 1].contiguous() for x in args])[0]
@@ -1232,7 +1319,7 @@ def check_delta_kernels(sc, scorer, extract, frags, gen, want_m):
     print(f"  B2: {m} neighbours and {c} genomes bit-identical alone and in the batch")
 
     t2 = with_share(timed(lambda: scorer.mini_grid.launch(*args), 50,
-                          lambda: scorer.mini_grid.plain(*args), 5), mini_bound(args))
+                          lambda: scorer.mini_grid.plain(*args), 5), mini_bound(args, cls))
     print(f"  time B2 R={args[0].shape[2]} M={m} C={c}: {fmt_time(t2)}; {fmt_bound(t2)}")
     t4 = with_share(timed(lambda: scorer.obs_grid_kernel.launch(*b4), 50,
                           lambda: scorer.obs_grid_kernel.plain(*b4), 10), obsgrid_bound(b4))
@@ -1240,7 +1327,7 @@ def check_delta_kernels(sc, scorer, extract, frags, gen, want_m):
     r = b4[3].shape[1]
     print(f"  time B4 R={r} M={m}: {fmt_time(t4)}; {fmt_bound(t4)}")
     print(f"  time of the step's masked observed grid (keys + B4): {fmt_time(grid)}")
-    return dict(ll_mini=dict(max_abs_err=b2_err, **t2),
+    return dict(ll_mini=dict(max_abs_err=b2_err, classes=class_shares(cls), **t2),
                 obsgrid=dict(max_abs_err=b4_err, **t4, grid_ms=grid["ms"],
                              grid_device_ms=grid["device_ms"]))
 
@@ -1320,7 +1407,7 @@ def delta_path_vs_plain(label, scorer, extract, bases, nb, params):
         ob_k, err = b4_vs_plain(scorer.obs_grid_kernel, b4, tag)
         b4_err = max(b4_err, err)
         check(torch.equal(args[5], ob_k), f"{tag}: the step's observed grid is not B4's")
-        _, err, _ = b2_vs_plain(scorer.mini_grid, args, tag)
+        _, err, _, _ = b2_vs_plain(scorer.mini_grid, args, tag)
         b2_err = max(b2_err, err)
     return b2_err, b4_err
 
@@ -1354,13 +1441,17 @@ def tiers(sc, gen, at_flagship):
         label = (f"tier R={r} f_a={f_a} (contig of "
                  f"{contig_frags_per_frag(genome)[f_a]} fragments)")
         _, err4 = b4_vs_plain(sc_r.obs_grid_kernel, b4_args, label)
-        _, err, _ = b2_vs_plain(sc_r.mini_grid, args, label)
+        print_b4_plan(sc_r.obs_grid_kernel, b4_args[3])
+        _, err, _, cls = b2_vs_plain(sc_r.mini_grid, args, label)
         n_iter = min(200, max(5, 200 * 1024 * 1024 // (r * r)))
         n_plain = 2 if r < 8192 else 1
         t = with_share(timed(lambda: sc_r.mini_grid.launch(*args), n_iter,
-                             lambda: sc_r.mini_grid.plain(*args), n_plain), mini_bound(args))
+                             lambda: sc_r.mini_grid.plain(*args), n_plain),
+                       mini_bound(args, cls))
         print(f"  time B2 R={r} M={args[0].shape[0]}: {fmt_time(t)}; {fmt_bound(t)}")
-        b2[r] = dict(max_abs_err=err, **t)
+        b2[r] = dict(max_abs_err=err, classes=class_shares(cls), **t)
+        if r == TOP_TIERS[-1]:
+            err = max(err, b2_circular(sc, genome, sc_r, f_a, gen, label))
         t = with_share(timed(lambda: sc_r.obs_grid_kernel.launch(*b4_args), n_iter,
                              lambda: sc_r.obs_grid_kernel.plain(*b4_args), n_plain),
                        obsgrid_bound(b4_args))
@@ -1370,6 +1461,39 @@ def tiers(sc, gen, at_flagship):
             b2[r]["peak_gb"] = b4[r]["peak_gb"] = peak.read(f"tier R={r}")[0]
         del b4_args, args
     return b2, b4
+
+
+def class_shares(cls):
+    """{empty, band_free, band: share of the (half tile, candidate) pairs}."""
+    import torch
+
+    n = torch.bincount(cls.flatten().long(), minlength=3).tolist()
+    return dict(zip(("empty", "band_free", "band"), (x / sum(n) for x in n)))
+
+
+def print_b4_plan(grid, keys):
+    """B4's launch plan for these keys: every warp of a block has a row
+    buffer, of ``width`` columns."""
+    m, r = keys.shape
+    rows, width, log2cap = grid.plan_for(keys.device, r, m)
+    print(f"  B4 plan R={r} M={m}: 8 warps a block, each with a row buffer of {width} "
+          f"columns ({-(-r // width)} ranges a row), {rows} rows a block, "
+          f"{-(-r // rows) * m} blocks, a table of 2^{log2cap}")
+
+
+def b2_circular(sc, genome, scorer, f_a, gen, label):
+    """B2 against its plain version (scores to RTOL, deltas to DLL_ATOL or
+    one f32 ulp, the classes) on one step's inputs of ``genome`` with
+    f_a's contig circularised, at the scorer's tier: cutting the circle of
+    5,000 fragments moves a score by ~5e5, whose f32 ulp is 0.0625. Returns
+    the max abs score error."""
+    from graal_tpu_torch.core import delta
+
+    circ = circularised(genome, int(genome.id_c[f_a]))
+    _, _, args = delta_inputs(circ, sc["runner"].nb, sc["params"], scorer,
+                              delta.extract_rows_union, f_a, gen)
+    check(bool((args[2] == 1.0).any()), f"{label}: no circular row in the circularised batch")
+    return b2_vs_plain(scorer.mini_grid, args, f"{label}, contig circularised", dll_ulp=True)[1]
 
 
 def route_times(fn, budget_s=2.0):
@@ -2311,11 +2435,11 @@ def mtm_delta_vs_plain(label, runner, state, bucket, f_a, n_time=0):
     tag = f"{label}, f_max={scorer.f_max} f_a={int(f_a)}"
     ob_k, err4 = b4_vs_plain(scorer.obs_grid_kernel, b4, tag)
     check(torch.equal(args[5], ob_k), f"{tag}: the step's observed grid is not B4's")
-    _, err2, _ = b2_vs_plain(scorer.mini_grid, args, tag)
+    _, err2, _, cls = b2_vs_plain(scorer.mini_grid, args, tag)
     if not n_time:
         return err2, err4, None
     t = with_share(timed(lambda: scorer.mini_grid.launch(*args), n_time,
-                         lambda: scorer.mini_grid.plain(*args), 3), mini_bound(args))
+                         lambda: scorer.mini_grid.plain(*args), 3), mini_bound(args, cls))
     m, c, r = args[0].shape
     print(f"  time B2 R={r} M={m} C={c}: {fmt_time(t)}; {fmt_bound(t)}")
     return err2, err4, dict(R=r, M=m, C=c, **t)
@@ -2575,7 +2699,8 @@ def check_chains_kernels(label, scorer, b4, args, m_per_chain, abs_scores=True):
 
     m = args[0].shape[0]
     _, err4 = b4_vs_plain(scorer.obs_grid_kernel, b4, label)
-    s_k, err, dll_err = b2_vs_plain(scorer.mini_grid, args, label)
+    print_b4_plan(scorer.obs_grid_kernel, b4[3])
+    s_k, err, dll_err, cls = b2_vs_plain(scorer.mini_grid, args, label)
     gated = max(err, dll_err) if abs_scores else dll_err
     print(f"  B2 {label}: scores max_abs_err {err:.6g}, dll max_abs_err {dll_err:.6g} "
           f"(gate {B2_ABS_ERR} on {'both' if abs_scores else 'the deltas'})")
@@ -2596,7 +2721,8 @@ def check_chains_kernels(label, scorer, b4, args, m_per_chain, abs_scores=True):
     n_iter = min(100, max(5, 50 * 1024 * 1024 // (r * r)))
     n_plain = 2 if r < 8192 else 1
     t2 = with_share(timed(lambda: scorer.mini_grid.launch(*args), n_iter,
-                          lambda: scorer.mini_grid.plain(*args), n_plain), mini_bound(args))
+                          lambda: scorer.mini_grid.plain(*args), n_plain), mini_bound(args, cls))
+    t2["classes"] = class_shares(cls)
     print(f"  time B2 R={r} M={m} (per-slot params): {fmt_time(t2)}; {fmt_bound(t2)}")
     plain4 = None if r * r * m * 4 > 4 * PLAIN_GRID_BYTES else \
         (lambda: scorer.obs_grid_kernel.plain(*b4))

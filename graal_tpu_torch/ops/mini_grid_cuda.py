@@ -17,6 +17,12 @@ The kernel's persistent grid is sized once per process
 (:mod:`graal_tpu_torch.ops.persistent`); each launch plans its candidate
 chunk from the shapes alone, so a launch never waits for the device.
 
+The kernel scores each (half tile, candidate) by one of three classes
+(empty, band-free, band); :func:`tile_classes_plain` decides them by the
+kernel's rule in plain torch, for the tests and the bounds of the chip
+smoke. Inputs must keep the kernel's contract: ob is zero on every row
+and column where candidate 0 has la = -1e9 (``DEAD_LA``).
+
 Dispatch is by device: on CUDA tensors :class:`MiniGridScorer` launches the
 kernel (or raises); on CPU tensors it runs :func:`mini_grid_plain`, the
 same per-cell math in plain torch (the circular-aware formula on every
@@ -38,6 +44,9 @@ from graal_tpu_torch.ops.likelihood_cuda import N_PARAMS
 # genomes, and the banded mass of core/delta.py its genomes and band
 # offsets, in chunks of about this many cells.
 MAX_CELLS = 1 << 24
+DEAD_LA = -1e9       # la of a dead row (padding, or inactive)
+ROWS = persistent.TILE // persistent.HALVES   # rows of a half tile
+EMPTY, FREE, BAND = 0, 1, 2                   # the kernel's classes of (half tile, candidate)
 
 
 @functools.cache
@@ -45,12 +54,13 @@ def load_library():
     """The kernel library (built at first use), its C functions typed."""
     lib = build.load("ll_mini")
     ptr = ctypes.c_void_p
-    for fn, args in ((lib.ll_mini_n_tiles, [ctypes.c_int]), (lib.ll_mini_slots, []),
+    for fn, args in ((lib.ll_mini_n_tiles, [ctypes.c_int]),
+                     (lib.ll_mini_n_extents, [ctypes.c_int]), (lib.ll_mini_slots, []),
                      (lib.ll_mini_max_candidates, []), (lib.ll_mini_max_chunk, []),
                      (lib.ll_mini_configure, [ctypes.POINTER(ctypes.c_int)])):
         fn.argtypes = args
         fn.restype = ctypes.c_int
-    lib.ll_mini_score.argtypes = [ptr] * 11 + [ctypes.c_int] * 5 + [ptr]
+    lib.ll_mini_score.argtypes = [ptr] * 13 + [ctypes.c_int] * 5 + [ptr]
     lib.ll_mini_score.restype = ctypes.c_int
     if lib.ll_mini_slots() != persistent.SLOTS:
         raise RuntimeError("ll_mini.cu and ops/persistent.py disagree on SLOTS")
@@ -117,6 +127,97 @@ def mini_grid_plain(mid, idc, circ, stot, la, ob, pvec):
     return tot.float(), (tot[:, 1:] - tot[:, :1]).float()
 
 
+def tri_tiles(n_rb: int, device=None):
+    """(bi, bj) of the upper-triangle tiles of an n_rb x n_rb tile grid in
+    the kernel's partial order (``tri_slot``: by column block, so the tiles
+    inside the first L row blocks come first)."""
+    bj = torch.repeat_interleave(torch.arange(n_rb, device=device),
+                                 torch.arange(1, n_rb + 1, device=device))
+    return torch.arange(bj.shape[0], device=device) - bj * (bj + 1) // 2, bj
+
+
+def _id_pair(live, ids):
+    """The kernel's ``id_pair`` over the last axis: the first live id, the
+    first other one (the first where there is none), whether each exists,
+    and whether a third is live."""
+    has_a = live.any(-1)
+    a = ids.gather(-1, live.int().argmax(-1, keepdim=True))[..., 0]
+    other = live & (ids != a[..., None])
+    has_b = other.any(-1)
+    b = torch.where(has_b, ids.gather(-1, other.int().argmax(-1, keepdim=True))[..., 0], a)
+    over = (other & (ids != b[..., None])).any(-1)
+    return (a, has_a), (b, has_b), over
+
+
+def _id_span(live, ids, mid, x):
+    """[min, max] of the live midpoints of contig id ``x`` (per leading index)."""
+    sel = live & (ids == x[..., None])
+    return (torch.where(sel, mid, math.inf).amin(-1), torch.where(sel, mid, -math.inf).amax(-1))
+
+
+def tile_classes_plain(mid, idc, la, ob, pvec):
+    """The kernel's class of every (half tile, candidate), by its rule, in
+    plain torch: (M, C, n_tri, 2) int8 of EMPTY, FREE (band-free) or BAND,
+    tiles in the kernel's partial order (:func:`tri_tiles`), on (M, C, R)
+    vectors, (M, R, R) grids and a (10,) or (M, 10) ``pvec``.
+
+    A (half tile, candidate) is empty when all its rows, or all its
+    columns, are past R or dead (la <= DEAD_LA) in the candidate and in
+    candidate 0; else band on a diagonal tile; else band-free when no row
+    or column dead in the candidate has a count in the tile, at most two
+    contig ids are live among its rows and two among its columns, and
+    every id live on both sides has its rows' and its columns' midpoints
+    d_max or more apart (f32, as the kernel tests it); else band."""
+    m_, c_, r = mid.shape
+    dev = mid.device
+    t = persistent.TILE
+    n_rb = -(-r // t)
+    rp, h_ = n_rb * t, 2 * n_rb
+    pvec = pvec.expand(m_, N_PARAMS)
+    bi, bj = tri_tiles(n_rb, dev)
+    out = torch.empty((m_, c_, bi.shape[0], 2), dtype=torch.int8, device=dev)
+    pad = rp - r
+    j_blk = torch.arange(n_rb, device=dev)
+    h_blk = torch.arange(h_, device=dev) // 2
+    for m in range(m_):
+        # rows past R behave as dead rows without counts
+        la_m = torch.nn.functional.pad(la[m], (0, pad), value=DEAD_LA)
+        mid_m = torch.nn.functional.pad(mid[m], (0, pad))
+        idc_m = torch.nn.functional.pad(idc[m], (0, pad))
+        nz = torch.nn.functional.pad(ob[m], (0, pad, 0, pad)) != 0
+        live = la_m > DEAD_LA
+        dead = ~live
+        gone = dead & dead[:1]
+        empty = gone.reshape(c_, h_, ROWS).all(-1)[:, :, None] \
+            | gone.reshape(c_, n_rb, t).all(-1)[:, None, :]
+        row_nz = nz.reshape(rp, n_rb, t).any(-1).float()                 # (Rp, n_rb)
+        col_nz = nz.reshape(h_, ROWS, rp).any(1).float()                 # (H, Rp)
+        del nz
+        dead_f = dead.float()
+        bad = torch.einsum("chu,huj->chj", dead_f.reshape(c_, h_, ROWS),
+                           row_nz.reshape(h_, ROWS, n_rb)) > 0
+        bad |= torch.einsum("cjv,hjv->chj", dead_f.reshape(c_, n_rb, t),
+                            col_nz.reshape(h_, n_rb, t)) > 0
+        rows = [x.reshape(c_, h_, ROWS) for x in (live, idc_m, mid_m)]
+        cols = [x.reshape(c_, n_rb, t) for x in (live, idc_m, mid_m)]
+        r_ids, c_ids = _id_pair(*rows[:2]), _id_pair(*cols[:2])
+        ok = ~bad & ~r_ids[2][:, :, None] & ~c_ids[2][:, None, :]
+        d_max = pvec[m, 3]
+        for xr, has_r in r_ids[:2]:
+            r_lo, r_hi = _id_span(*rows, xr)
+            for yc, has_c in c_ids[:2]:
+                c_lo, c_hi = _id_span(*cols, yc)
+                shared = has_r[:, :, None] & has_c[:, None, :] \
+                    & (xr[:, :, None] == yc[:, None, :])
+                apart = (c_lo[:, None, :] - r_hi[:, :, None] >= d_max) \
+                    | (r_lo[:, :, None] - c_hi[:, None, :] >= d_max)
+                ok &= ~shared | apart
+        ok &= j_blk[None, None, :] > h_blk[None, :, None]
+        cls = torch.where(empty, EMPTY, torch.where(ok, FREE, BAND)).to(torch.int8)
+        out[m] = torch.stack([cls[:, 2 * bi + half, bj] for half in range(2)], -1)
+    return out
+
+
 class MiniGridScorer:
     """``score(mid, idc, circ, stot, la, ob, pvec) -> (scores (M, C),
     dll (M, C - 1))``: ``mid``, ``circ``, ``stot``, ``la`` (M, C, R) f32,
@@ -132,8 +233,12 @@ class MiniGridScorer:
         self.n_launches = 0
         self.tickets = persistent.Tickets()
 
-    def launch(self, mid, idc, circ, stot, la, ob, pvec):
-        """Launch the kernel; (scores, dll) on the inputs' card."""
+    def launch(self, mid, idc, circ, stot, la, ob, pvec, class_counts=None):
+        """Launch the kernel; (scores, dll) on the inputs' card.
+        ``class_counts``, a (3,) int32 tensor on the card, gets the
+        kernel's (half tile, candidate) pairs of each class added to it
+        (EMPTY, FREE, BAND; the tiles past a neighbour's live extent are
+        drawn by no item, so not counted)."""
         dev = mid.device
         if dev.type != "cuda":
             raise ValueError(f"the CUDA kernel needs CUDA tensors, not {dev}")
@@ -153,6 +258,10 @@ class MiniGridScorer:
                                  f"got {x.dtype} on {x.device}")
             if tuple(x.shape) != shape:
                 raise ValueError(f"{name}: need shape {shape}, got {tuple(x.shape)}")
+        if class_counts is not None and (class_counts.device != dev
+                                         or class_counts.dtype != torch.int32
+                                         or tuple(class_counts.shape) != (3,)):
+            raise ValueError(f"class_counts: need (3,) int32 on {dev}")
         lib = load_library()
         if c > lib.ll_mini_max_candidates():
             raise ValueError(f"{c} candidates per neighbour > "
@@ -163,13 +272,15 @@ class MiniGridScorer:
         stream = torch.cuda.current_stream(dev).cuda_stream
         partial = torch.empty((m, c, n_tri * persistent.SLOTS), dtype=torch.float32,
                               device=dev)
+        ext = torch.empty((m, lib.ll_mini_n_extents(r)), dtype=torch.int32, device=dev)
         scores = torch.empty((m, c), dtype=torch.float32, device=dev)
         dll = torch.empty((m, c - 1), dtype=torch.float32, device=dev)
         rc = lib.ll_mini_score(
             mid.data_ptr(), idc.data_ptr(), circ.data_ptr(), stot.data_ptr(),
-            la.data_ptr(), ob.data_ptr(), pvec.data_ptr(), partial.data_ptr(),
-            scores.data_ptr(), dll.data_ptr(), self.tickets.get(dev, stream).data_ptr(), m, c,
-            r, cs, grid, stream)
+            la.data_ptr(), ob.data_ptr(), pvec.data_ptr(), partial.data_ptr(), ext.data_ptr(),
+            scores.data_ptr(), dll.data_ptr(), self.tickets.get(dev, stream).data_ptr(),
+            None if class_counts is None else class_counts.data_ptr(), m, c, r, cs, grid,
+            stream)
         if rc != 0:
             raise RuntimeError(f"ll_mini_score launch failed: cudaError {rc}")
         self.n_launches += 1

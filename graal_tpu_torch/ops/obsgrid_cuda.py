@@ -41,7 +41,8 @@ def load_library():
     ptr = ctypes.c_void_p
     for fn, args in ((lib.obsgrid_smem_bytes, [ctypes.c_int] * 3), (lib.obsgrid_warps, []),
                      (lib.obsgrid_configure, [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]),
-                     (lib.obsgrid_occupancy, [ctypes.c_int, ctypes.POINTER(ctypes.c_int)])):
+                     (lib.obsgrid_occupancy, [ctypes.c_int, ctypes.c_int,
+                                              ctypes.POINTER(ctypes.c_int)])):
         fn.argtypes = args
         fn.restype = ctypes.c_int
     lib.obsgrid.argtypes = [ptr] * 5 + [ctypes.c_int] * 5 + [ptr]
@@ -72,23 +73,26 @@ def bucket(key, log2cap: int):
 
 
 def plan(r: int, m: int, smem_max: int, smem_bytes, warps: int, resident):
-    """(rows_per_block, n_bufs, log2cap): the launch of M neighbours' R
-    rows. A block holds its neighbour's table and ``n_bufs`` row buffers,
-    as many as fit in ``smem_max`` bytes up to one per warp
-    (``smem_bytes(r, n_bufs, log2cap)`` the need); ``resident(smem)`` is
-    the number of such blocks the card holds at once. Each row-buffer warp
-    takes at least two rows, and the blocks fill the card once. Raises
-    ValueError when not even one row buffer fits."""
+    """(rows_per_block, width, log2cap): the launch of M neighbours' R
+    rows. A block holds its neighbour's keys and table and, for each of its
+    ``warps`` warps, a row buffer of ``width`` columns: the widest multiple
+    of 4 that fits in ``smem_max`` bytes (``smem_bytes(r, width, log2cap)``
+    the need), cut down to equal ranges of the row. ``resident(smem,
+    n_ranges)`` is the number of such blocks the card holds at once (the
+    kernel of one range a row and that of several differ in registers).
+    Each warp takes at least two rows, and the blocks fill the card once.
+    Raises ValueError when not even a buffer of 4 columns a warp fits."""
     log2cap = log2_capacity(r)
-    n_bufs = warps
-    while n_bufs >= 1 and smem_bytes(r, n_bufs, log2cap) > smem_max:
-        n_bufs -= 1
-    if n_bufs < 1:
+    fits = (smem_max - smem_bytes(r, 0, log2cap)) // (4 * warps) // 4 * 4
+    if fits < 4:
         raise ValueError(f"R = {r} needs more shared memory than a block has "
-                         f"({smem_bytes(r, 1, log2cap)} > {smem_max} bytes)")
-    per_nbr = max(1, resident(smem_bytes(r, n_bufs, log2cap)) // m)   # blocks a neighbour
-    rows = max(2 * n_bufs, -(-r // per_nbr))
-    return -(-rows // n_bufs) * n_bufs, n_bufs, log2cap
+                         f"({smem_bytes(r, 4, log2cap)} > {smem_max} bytes)")
+    n_ranges = -(-r // fits)
+    per_range = -(-r // n_ranges)
+    width = -(-per_range // 4) * 4
+    per_nbr = max(1, resident(smem_bytes(r, width, log2cap), n_ranges) // m)   # blocks a neighbour
+    rows = max(2 * warps, -(-r // per_nbr))
+    return -(-rows // warps) * warps, width, log2cap
 
 
 def obs_grid_plain(row_start, cols, vals, keys):
@@ -139,7 +143,7 @@ class WindowObsGrid:
 
     def __init__(self):
         self.n_launches = 0
-        self.plans = {}       # (device, R, M) -> (rows_per_block, n_bufs, log2cap)
+        self.plans = {}       # (device, R, M) -> (rows_per_block, width, log2cap)
 
     def plan_for(self, device, r: int, m: int):
         """The launch plan of (R, M) on ``device``, made once (the card's
@@ -149,9 +153,9 @@ class WindowObsGrid:
             lib = load_library()
             n_sm = torch.cuda.get_device_properties(device).multi_processor_count
 
-            def resident(smem):
+            def resident(smem, n_ranges):
                 per_sm = ctypes.c_int(0)
-                rc = lib.obsgrid_occupancy(smem, ctypes.byref(per_sm))
+                rc = lib.obsgrid_occupancy(smem, n_ranges, ctypes.byref(per_sm))
                 if rc != 0:
                     raise RuntimeError(f"obsgrid occupancy query failed: cudaError {rc}")
                 return per_sm.value * n_sm
@@ -179,10 +183,10 @@ class WindowObsGrid:
             if tuple(x.shape) != shape:
                 raise ValueError(f"{name}: need shape {shape}, got {tuple(x.shape)}")
         lib = load_library()
-        rows_per_block, n_bufs, log2cap = self.plan_for(dev, r, m)
+        rows_per_block, width, log2cap = self.plan_for(dev, r, m)
         out = torch.empty((m, r, r), dtype=torch.float32, device=dev)
         rc = lib.obsgrid(row_start.data_ptr(), cols.data_ptr(), vals.data_ptr(),
-                         keys.data_ptr(), out.data_ptr(), m, r, rows_per_block, n_bufs,
+                         keys.data_ptr(), out.data_ptr(), m, r, rows_per_block, width,
                          log2cap, torch.cuda.current_stream(dev).cuda_stream)
         if rc != 0:
             raise RuntimeError(f"obsgrid launch failed: cudaError {rc}")

@@ -14,7 +14,9 @@ Each of a block's 8 warps sums its fixed cells of the item per candidate,
 and the 8 sums are added in warp order into the candidate's f32 partial of
 the item. So a candidate owns ``SLOTS`` partials per tile whatever the
 chunk size, the grid, the batch or the block that drew the item, and its
-score, their sum in a fixed order, is the same in any batch.
+score, their sum in a fixed order, is the same in any batch. B2 draws the
+tiles inside each neighbour's live extent only, which its kernel finds
+on the card (``decode_mini_item``); the plan still counts every tile.
 
 :func:`plan` picks the chunk size and the grid from the shapes alone (no
 device read, so it is safe inside a step that must not synchronise): the

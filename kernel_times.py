@@ -17,7 +17,11 @@ this, this, earlier) in one command on one card:
 
 Each run prints, as its last line, one JSON object: the tree, the card
 (nvidia-smi name and power limit) and, per shape, ms per call as called
-and on the device alone (``chip_smoke.cuda_ms`` / ``device_ms``). The
+and on the device alone (``chip_smoke.cuda_ms`` / ``device_ms``), and for
+B2 and B4 the bound of the call and its share of the device time
+(``chip_smoke.mini_bound`` / ``obsgrid_bound``; B2's counts what its
+classes need and so only a tree whose package has ``tile_classes_plain``
+gives it, with the class shares). The
 shapes are those of ``chip_smoke.py``: B1 at B = 65 (true and exploded
 candidates) and B = 1 on K = 1,152 and B = 13 on K = 6,000; B3 at B = 130
 and 1 on S = 1,152 and B = 13 on S = 6,000; B2 at M = 5 on every tier
@@ -55,6 +59,25 @@ def times(fn, check_of):
     n_iter = max(10, min(200, int(50 / max(start.elapsed_time(stop), 0.01))))
     return dict(ms=smoke.cuda_ms(fn, n_iter), device_ms=smoke.device_ms(fn, n_iter),
                 check=check)
+
+
+def bounded(rec, b):
+    """``rec`` with the bound ``b`` (chip_smoke.bound) and its share of the
+    device time."""
+    return dict(rec, bound_ms=b["bound_ms"], bound_by=b["bound_term"],
+                share=b["bound_ms"] / rec["device_ms"])
+
+
+def b2_times(scorer, args):
+    """B2's times on ``args`` and, where this tree's package classes its
+    (half tile, candidate) pairs, its bound and class shares."""
+    from graal_tpu_torch.ops import mini_grid_cuda
+
+    rec = times(lambda: scorer.mini_grid.launch(*args), lambda res: res[0])
+    if not hasattr(mini_grid_cuda, "tile_classes_plain"):
+        return rec
+    cls, _ = smoke.mini_classes(args)
+    return dict(bounded(rec, smoke.mini_bound(args, cls)), classes=smoke.class_shares(cls))
 
 
 def dense_shapes(device, gen, build, name):
@@ -103,10 +126,9 @@ def delta_shapes(sc, genome, scorer, extract, f_a, gen, label):
     sobs = scorer.sobs
     b4 = (sobs.row_start, sobs.cols, sobs.vals, scorer.obs_keys(subs, act0))
     m, _, r = args[0].shape
-    return {f"B2 {label} R={r} M={m}": times(lambda: scorer.mini_grid.launch(*args),
-                                             lambda res: res[0]),
-            f"B4 {label} R={r} M={m}": times(lambda: scorer.obs_grid_kernel.launch(*b4),
-                                             lambda res: res),
+    return {f"B2 {label} R={r} M={m}": b2_times(scorer, args),
+            f"B4 {label} R={r} M={m}": bounded(times(lambda: scorer.obs_grid_kernel.launch(*b4),
+                                                     lambda res: res), smoke.obsgrid_bound(b4)),
             f"B4 grid {label} R={r} M={m}": times(lambda: scorer.obs_grid(subs, act0),
                                                   lambda res: res)}
 
@@ -122,10 +144,10 @@ def chains_shapes(sc, genome, r, gen):
     b4, args, _ = smoke.chains_inputs(states, sc["runner"].nb, smoke.chain_params(sc["params"]),
                                       scorer, delta.extract_rows_union, gen)
     m = args[0].shape[0]
-    return {f"B2 100k chains R={r} M={m}": times(lambda: scorer.mini_grid.launch(*args),
-                                                 lambda res: res[0]),
-            f"B4 100k chains R={r} M={m}": times(lambda: scorer.obs_grid_kernel.launch(*b4),
-                                                 lambda res: res)}
+    return {f"B2 100k chains R={r} M={m}": b2_times(scorer, args),
+            f"B4 100k chains R={r} M={m}": bounded(
+                times(lambda: scorer.obs_grid_kernel.launch(*b4), lambda res: res),
+                smoke.obsgrid_bound(b4))}
 
 
 def main(argv):

@@ -277,36 +277,41 @@ def test_wrapper_dispatch_on_cpu():
         grid.launch(*args)                     # the kernel takes CUDA tensors only
 
 
-def smem_bytes(r, n_bufs, log2cap):
-    """csrc/obsgrid.cu obsgrid_smem_bytes."""
-    return n_bufs * -(-r // 4) * 4 * 4 + r * 4 + (1 << log2cap) * 2
+def smem_bytes(r, width, log2cap):
+    """csrc/obsgrid.cu obsgrid_smem_bytes: 8 warps' row buffers of
+    ``width`` floats, the keys and the table."""
+    return 8 * width * 4 + r * 4 + (1 << log2cap) * 2
 
 
-@pytest.mark.parametrize("r,m,want_bufs", [
-    (256, 5, 8), (1024, 5, 8), (1024, 10, 8), (4096, 5, 8), (8192, 5, 5), (16384, 5, 1),
+@pytest.mark.parametrize("r,m,want_ranges", [
+    (256, 5, 1), (1024, 5, 1), (1024, 10, 1), (4096, 5, 1), (8192, 5, 2), (16384, 5, 6),
+    (16384, 20, 6),
 ])
-def test_launch_plan(r, m, want_bufs):
-    """The plan at the tiers of the ladder: as many row buffers as fit in an
-    H100 block's shared memory, each buffer's warp two rows or more, the
-    blocks within one round of the card."""
+def test_launch_plan(r, m, want_ranges):
+    """The plan at the tiers of the ladder: every warp of a block has a row
+    buffer in an H100 block's shared memory, of the widest range of
+    columns that fits (the whole row up to R = 4,096), each warp two rows
+    or more, the blocks within one round of the card."""
     limit = 227 * 1024
     per_sm = {True: 1}
 
-    def resident(smem):
+    def resident(smem, n_ranges):
         per_sm[True] = max(1, min(8, (228 * 1024) // (smem + 1024)))
         return per_sm[True] * 132
 
-    rows_per_block, n_bufs, log2cap = obsgrid_cuda.plan(r, m, limit, smem_bytes, 8, resident)
-    assert n_bufs == want_bufs
-    assert (1 << log2cap) >= 2 * r and smem_bytes(r, n_bufs, log2cap) <= limit
-    assert rows_per_block % n_bufs == 0 and rows_per_block >= 2 * n_bufs
+    rows_per_block, width, log2cap = obsgrid_cuda.plan(r, m, limit, smem_bytes, 8, resident)
+    n_ranges = -(-r // width)
+    assert n_ranges == want_ranges and width % 4 == 0
+    assert (1 << log2cap) >= 2 * r and smem_bytes(r, width, log2cap) <= limit
+    assert n_ranges == 1 or smem_bytes(r, -(-r // (n_ranges - 1)), log2cap) > limit
+    assert rows_per_block % 8 == 0 and rows_per_block >= 2 * 8
     blocks = -(-r // rows_per_block) * m
     assert blocks <= per_sm[True] * 132
 
 
 def test_launch_plan_refuses_what_cannot_fit():
     with pytest.raises(ValueError, match="shared memory"):
-        obsgrid_cuda.plan(40_000, 5, 227 * 1024, smem_bytes, 8, lambda smem: 132)
+        obsgrid_cuda.plan(40_000, 5, 227 * 1024, smem_bytes, 8, lambda smem, n_ranges: 132)
 
 
 def test_bucket_is_the_kernels_hash():

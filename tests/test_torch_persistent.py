@@ -185,3 +185,75 @@ def test_tickets_one_counter_per_stream():
 
 def test_n_tiles():
     assert [persistent.n_tiles(n) for n in (1, 64, 65, 1152, 6000)] == [1, 1, 3, 171, 4465]
+
+
+MINI_SHIM = """
+#include "schedule.cuh"
+extern "C" int mini_diag_items(int d, const int* live, int n_groups, int n_chunks) {
+  return persistent::diag_items(d, live, n_groups, n_chunks);
+}
+extern "C" void mini_decode(int item, const int* diag_start, int n_diag, const int* live,
+                            int n_chunks, int cs, int* out) {
+  const persistent::MiniItem it =
+      persistent::decode_mini_item(item, diag_start, n_diag, live, n_chunks, cs);
+  out[0] = it.group; out[1] = it.first; out[2] = it.bi; out[3] = it.bj; out[4] = it.half;
+  out[5] = persistent::tri_slot(it.bi, it.bj);
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def mini_items(tmp_path_factory):
+    """items(live, n_chunks, cs) -> [(group, first candidate, bi, bj, half,
+    partial slot of the tile)] for item 0, 1, ..., as B2 (csrc/ll_mini.cu)
+    builds its ticket table from the live row blocks of each group and
+    decodes a ticket."""
+    cxx = shutil.which("c++") or shutil.which("g++")
+    assert cxx, "a C++ compiler is needed to build the schedule's decode"
+    d = tmp_path_factory.mktemp("mini_schedule")
+    (d / "shim.cpp").write_text(MINI_SHIM)
+    so = d / "libmini_schedule.so"
+    subprocess.run([cxx, "-std=c++17", "-O1", "-shared", "-fPIC", f"-I{CSRC}",
+                    str(d / "shim.cpp"), "-o", str(so)], check=True, capture_output=True)
+    lib = ctypes.CDLL(str(so))
+    out = (ctypes.c_int * 6)()
+
+    def fn(live, n_chunks, cs):
+        n_diag = max(live)
+        c_live = (ctypes.c_int * len(live))(*live)
+        start = [0]
+        for diag in range(n_diag):
+            start.append(start[-1] + lib.mini_diag_items(diag, c_live, len(live), n_chunks))
+        c_start = (ctypes.c_int * len(start))(*start)
+        items = []
+        for item in range(start[-1]):
+            lib.mini_decode(item, c_start, n_diag, c_live, n_chunks, cs, out)
+            items.append(tuple(out))
+        return items
+    return fn
+
+
+@pytest.mark.parametrize("live,n_cand,cs", [
+    ([4] * 5, 14, 7),                 # R = 256, every row live: every tile, small chunks
+    ([16] * 5, 14, 14),               # R = 1,024
+    ([3, 16, 0, 9, 16], 14, 5),       # neighbours of other extents, one with no live row
+    ([157, 40, 79, 10], 14, 14),      # R = 16,384 of 4 chains: 10,000, 2,560, 5,000 rows
+])
+def test_b2_items_score_every_live_cell_block_once(mini_items, live, n_cand, cs):
+    """B2's items cover every (neighbour, candidate, live tile, half) once
+    and nothing past a neighbour's live row blocks, by diagonal offset
+    (heaviest first); a neighbour's live tiles take the first L (L + 1) / 2
+    partial slots, so its f64 sum over that prefix holds every partial."""
+    n_chunks = -(-n_cand // cs)
+    items = mini_items(live, n_chunks, cs)
+    seen = Counter()
+    for g, c0, bi, bj, half, slot in items:
+        assert 0 <= bi <= bj < live[g] and c0 % cs == 0 and c0 < n_cand
+        assert slot == bj * (bj + 1) // 2 + bi < live[g] * (live[g] + 1) // 2
+        for c in range(c0, min(c0 + cs, n_cand)):
+            seen[g, c, bi, bj, half] += 1
+    want = {(g, c, bi, bj, h) for g, n in enumerate(live) for c in range(n_cand)
+            for bj in range(n) for bi in range(bj + 1) for h in range(persistent.HALVES)}
+    assert set(seen) == want and set(seen.values()) == {1}
+    diags = [bj - bi for _, _, bi, bj, _, _ in items]
+    assert diags == sorted(diags)
