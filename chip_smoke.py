@@ -9,7 +9,15 @@ On a host with several cards, ``python3 chip_smoke.py --cards`` runs
 instead the across-cards checks (``phase_cards``): an NCCL world of one
 rank a card, and the CLI under ``torchrun`` against one process.
 ``python3 chip_smoke.py --top-tiers`` runs only the build, the 100k
-set-up and the phases of the top tiers (5, 8b, 11e, 5c).
+set-up and the phases of the top tiers (5, 8b, 11e, 11g, 5c).
+
+Every EM and delta cycle runs as the entry points run it: a captured CUDA
+graph replayed once a step (``graal_tpu_torch.core.graphs``). Each
+wrapper counts its launches on the card, with an add beside the launch
+that the graph captures with it (``graal_tpu_torch.ops.counts``), so a
+replay advances the counts the phases check (``n_launches``; B1's and
+B3's ``launch_shapes`` by (B, K)): phase 7g holds them, and the graphs'
+results, to the same cycles run eagerly.
 
 Phases, in order; any failure raises and exits non-zero. Every kernel is
 timed at the shapes its path gives it twice, with CUDA events around many
@@ -125,6 +133,20 @@ written. "share" is the bound over the device time.
    extremity, with the checks and times of phase 5 at R = 1,024.
 7b. Repeat delta main path on that problem: cycle_for(1024, 4) for 256
    steps as in phase 7, with the drift bound max(2, 1e-5 |L|).
+7g. Graph against eager: each main path's cycle built twice, captured
+   (the default on the card) and with capture=False (the same step body
+   run eagerly), run on the same inputs: the dense flagship (B1), 2 EM
+   cycles from the exploded start with nuisance sampling, the second at
+   f_t 0.8 on the first's parameters with fact x 1.02; the 100k delta
+   path (cycle_for(1024, 4) as the runner builds it) for MAIN_STEPS then
+   128 steps (one graph for both lengths), the second chunk at f_t 0.8
+   with fact x 1.02; the same for 4 tempered chains (M = 20, per-chain
+   parameters and temperatures); the 20k repeat delta path. States,
+   likelihoods, parameters and every per-step metric bit for bit, equal
+   launches of every wrapper (counts set to 0 before each run, none
+   zero); prints each run's wall ms a step (CUDA events around each call;
+   the graph's first call holds its eager first step and capture) and peak memory
+   (allocated; reserved, the graphs' pool included).
 8. ScaleRunner.run at 100,000 fragments: 1 cycle of 512 extremity-first
    steps from f_max 256 up the tier ladder, nuisance sampling on; the
    invariants hold and the likelihood rises.
@@ -255,6 +277,9 @@ written. "share" is the bound over the device time.
    banded mass, peak memory; then B4 and B2 against their plain versions
    and timed on a chains step's inputs at each bucket (the scores held to
    RTOL there: B2_ABS_ERR is a few ulps of the lower buckets' scores).
+11g. (``--top-tiers`` only) 7g's check on 11e's 4 chains from the truth
+   at bucket 16,384 (M = 20), 8 then 4 steps, with each run's peak memory:
+   the graph must fit where the eager run does.
 12. Last lines: the nvidia-smi line, one JSON line on the kernels run, and
    {"ok": true, "device": {...}}. Each kernel's entry has the contract's
    keys (launches, max_abs_err, ms, plain_ms, bound_ms, bound_by,
@@ -2132,11 +2157,11 @@ def phase_cli_repeats(ds, root):
     amplify_fragment(os.path.join(dsr, "abs_fragments_contacts_weighted.txt"),
                      AMPLIFIED_FRAG, 9)
     o6 = os.path.join(root, "o6")
-    with launch_shapes("RepeatScorer") as shapes:
-        runner, asm = cli(run_argv(dsr, o6, "--cycles", "1", "--allow-repeats", "--sampler",
-                                   "em,mtm"))
+    runner, asm = cli(run_argv(dsr, o6, "--cycles", "1", "--allow-repeats", "--sampler",
+                               "em,mtm"))
     n = runner.state.n_frags
     launches = runner.scorer.n_launches
+    shapes = runner.scorer.launch_shapes
     print(f"  {len(runner.duplications)} repeated bins, {n} fragments on "
           f"{runner.table.n_data_sub} data subs; ll_repeat launches {launches} "
           f"(path implies 1 + 2 x {n} a stage), batch sizes {dict(shapes)}")
@@ -2166,10 +2191,14 @@ def amplify_fragment(pairs, frag, extra):
 
 
 @contextlib.contextmanager
-def launch_shapes(name):
-    """Count the (B, K) shape of every kernel launch of the scorer class
-    ``name`` (DenseScorer or RepeatScorer) while the block runs; the
-    launches themselves are unchanged."""
+def launch_calls(name):
+    """Count the calls of ``launch`` of the scorer class ``name``
+    (DenseScorer or RepeatScorer) while the block runs, by (B, K); the
+    launches themselves are unchanged. A captured cycle calls ``launch``
+    at its eager first step and capture only, so this proves that no
+    kernel of the class ran at all (phase 10d); the counts of a run's
+    launches are its scorer's ``n_launches`` and ``launch_shapes``, which
+    replays advance."""
     import collections
 
     from graal_tpu_torch.ops import likelihood_cuda, repeat_cuda
@@ -2259,10 +2288,10 @@ def phase_cli_stages(ds, root):
 
     print("cli run --sampler em,mtm,mh (B1): 1 cycle a stage at level 2, nuisance on in EM")
     out = os.path.join(root, "o10a")
-    with launch_shapes("DenseScorer") as shapes:
-        runner, asm = cli(run_argv(ds, out, "--cycles", "1", "--sampler", "em,mtm,mh"))
+    runner, asm = cli(run_argv(ds, out, "--cycles", "1", "--sampler", "em,mtm,mh"))
     n, k = runner.state.n_frags, runner.table.n_subs
     launches = runner.scorer.n_launches
+    shapes = runner.scorer.launch_shapes
     em_b = n_slots(runner.nb, runner.cfg.sampler.n_neighbours)
     want = {(1, k): 3 + n, (em_b, k): n, (MTM_SLOTS, k): 4 * n}
     print(f"  K = {k}, {n} bins; ll_dense launches {launches} (path implies 3 + 6 x {n} = "
@@ -2285,10 +2314,10 @@ def phase_cli_tempered(ds, root):
 
     print(f"cli run --sampler tempered --chains {CHAINS} (B1): 1 cycle at level 2")
     out = os.path.join(root, "o10b")
-    with launch_shapes("DenseScorer") as shapes:
-        runner, asm = cli(run_argv(ds, out, "--cycles", "1", "--sampler", "tempered",
-                                   "--chains", str(CHAINS)))
+    runner, asm = cli(run_argv(ds, out, "--cycles", "1", "--sampler", "tempered",
+                               "--chains", str(CHAINS)))
     scorer = runner.scorer
+    shapes = scorer.launch_shapes
     n, k = runner.state.n_frags, runner.table.n_subs
     launches = scorer.n_launches
     b = CHAINS * n_slots(runner.nb, runner.cfg.sampler.n_neighbours)
@@ -2331,9 +2360,9 @@ def phase_cli_multilevel(ds, root):
 
     print("cli run --level 2 --to-level 1 (B1): 1 EM cycle a level, nuisance on")
     out = os.path.join(root, "o10c")
-    with launch_shapes("DenseScorer") as shapes:
-        runner, asm = cli(run_argv(ds, out, "--cycles", "1", "--to-level", "1"))
+    runner, asm = cli(run_argv(ds, out, "--cycles", "1", "--to-level", "1"))
     (_, r2, a2, _), (_, r1, a1, warm) = runner.levels
+    shapes = r2.scorer.launch_shapes + r1.scorer.launch_shapes
     n2, n1 = r2.state.n_frags, r1.state.n_frags
     k2, k1 = r2.scorer.k, r1.scorer.k
     got = (r2.scorer.n_launches, r1.scorer.n_launches)
@@ -2378,7 +2407,7 @@ def phase_cli_hic(ds, root):
 
     print("cli run --model hic: 1 EM cycle at level 2 (plain torch scorer, no nuisance)")
     out = os.path.join(root, "o10d")
-    with launch_shapes("DenseScorer") as b1, launch_shapes("RepeatScorer") as b3:
+    with launch_calls("DenseScorer") as b1, launch_calls("RepeatScorer") as b3:
         runner, asm = cli(run_argv(ds, out, "--cycles", "1", "--model", "hic"))
     n = runner.state.n_frags
     print(f"  launches: ll_dense {sum(b1.values())}, ll_repeat {sum(b3.values())}")
@@ -3280,6 +3309,205 @@ def phase_cards(device):
     return out
 
 
+def event_timed(fn):
+    """(fn(), ms) with the time between CUDA events around the call: the
+    card's clock from the first enqueue to the last kernel's end."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(stop)
+
+
+def trees_equal(a, b):
+    """Nested tuples of tensors equal leaf by leaf, bit for bit."""
+    import torch
+
+    if isinstance(a, tuple):
+        return (isinstance(b, tuple) and len(a) == len(b)
+                and all(trees_equal(x, y) for x, y in zip(a, b)))
+    return isinstance(b, torch.Tensor) and a.shape == b.shape and a.dtype == b.dtype \
+        and torch.equal(a, b)
+
+
+def graph_vs_eager(label, build, chunks, kernels):
+    """One path run twice on the same inputs: its cycle built with
+    ``capture=True`` (the captured graph, the default on the card) and with
+    ``capture=False`` (the same step body run eagerly). ``chunks``: the
+    calls of a run, each ``call(cycle, carry) -> (carry, outputs)`` with the
+    steps it runs; ``carry`` threads from one call to the next. Both runs
+    must give the same states, likelihoods, parameters and per-step metrics
+    bit for bit, and the same launches of every wrapper in ``kernels``
+    (counts set to 0 just before each run). Prints and returns each run's
+    ms per step (CUDA events around each call; the graph's first call
+    includes its eager first step and capture) and peak memory (allocated, and
+    reserved with the graphs' pool)."""
+    import torch
+
+    rec = {}
+    outs = {}
+    for mode, capture in (("graph", True), ("eager", False)):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for k in kernels:
+            k.n_launches = 0
+        cycle = build(capture)
+        carry, got, ms = None, [], []
+        for call, steps in chunks:
+            (carry, out), t = event_timed(lambda: call(cycle, carry))
+            got.append(out)
+            ms.append(t / steps)
+        outs[mode] = tuple(got)
+        rec[mode] = dict(ms_per_step=ms, launches=[k.n_launches for k in kernels],
+                         peak_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+                         peak_reserved_gb=torch.cuda.max_memory_reserved() / 1e9)
+        del cycle, carry, got
+    g, e = rec["graph"], rec["eager"]
+    print(f"  {label}: steps {[n for _, n in chunks]}; ms/step graph {g['ms_per_step']}, "
+          f"eager {e['ms_per_step']}; launches graph {g['launches']}, eager {e['launches']}; "
+          f"peak GB allocated / reserved graph {g['peak_allocated_gb']:.3f} / "
+          f"{g['peak_reserved_gb']:.3f}, eager {e['peak_allocated_gb']:.3f} / "
+          f"{e['peak_reserved_gb']:.3f}")
+    check(trees_equal(outs["graph"], outs["eager"]),
+          f"{label}: the graphed run differs from the eager run")
+    check(g["launches"] == e["launches"], f"{label}: launches {g['launches']} (graph) != "
+          f"{e['launches']} (eager)")
+    check(all(x > 0 for x in g["launches"]), f"{label}: a kernel of the path never launched")
+    print("    graph == eager bit for bit: states, likelihoods, parameters, metrics")
+    return rec
+
+
+def dense_graph_case(device, n_bins=384):
+    """The dense flagship (B1): 2 EM cycles from the exploded start,
+    nuisance sampling on, the second at another f_t and with the first
+    cycle's parameters perturbed (fact x 1.02)."""
+    import torch
+    from graal_tpu_torch.core import mcmc
+    from graal_tpu_torch.core.state import GenomeState
+    from graal_tpu_torch.entry import problem
+    from graal_tpu_torch.ops.likelihood_cuda import make_dense_scorer
+
+    state, table, params, obs, nb = problem(n_bins=n_bins, device=device)
+    scorer = make_dense_scorer(table, obs, device)
+    n = state.n_frags
+    gen = torch.Generator(device=device).manual_seed(SEED + 20)
+    start = mcmc.explode_genome(state)
+    l0 = scorer(GenomeState(*[x[None] for x in start]), params)[0]
+    chunks = []
+    for k, f_t in enumerate((1.0, 0.8)):
+        order = torch.randperm(n, generator=gen, device=device)
+        draws = mcmc.draw_step_inputs(gen, nb, DELTA, (n,))
+
+        def call(cycle, carry, order=order, draws=draws, f_t=f_t, k=k):
+            cur, par, l_t = carry or (start, params, l0)
+            if k:
+                par = par._replace(fact=par.fact * 1.02)
+            cur, par, l_t, m = cycle(cur, draws, par, order, l_t, f_t)
+            return (cur, par, l_t), (cur, par, l_t, m)
+
+        chunks.append((call, n))
+
+    def build(capture):
+        return mcmc.make_em_cycle(table, obs, nb, DELTA, sample_param=True, scorer=scorer,
+                                  capture=capture)
+
+    return build, chunks, [scorer]
+
+
+def delta_graph_case(sc, chains=0, f_max=F_MAX, steps=(MAIN_STEPS, 128), start=None):
+    """A delta path on B4 + B2 (as ScaleRunner.cycle_for / chains_cycle_for
+    build it): chunks of ``steps`` steps from the set-up's shuffled start
+    (or ``start``), the second at a lower f_t and with the parameters
+    perturbed (fact x 1.02), as a runner's nuisance step between cycles
+    would leave them. ``chains``: that many chains on a chains axis, each
+    with its own parameters and temperature."""
+    import torch
+    from graal_tpu_torch.core import delta
+    from graal_tpu_torch.core.mcmc import draw_step_inputs
+    from graal_tpu_torch.core.state import GenomeState
+    from graal_tpu_torch.ops.mini_grid_cuda import MiniGridScorer
+    from graal_tpu_torch.ops.obsgrid_cuda import WindowObsGrid
+
+    runner = sc["runner"]
+    start = sc["shuf"] if start is None else start
+    device = start.pos.device
+    rep = start.rep
+    grid, mini = WindowObsGrid(), MiniGridScorer()
+    gen = torch.Generator(device=device).manual_seed(SEED + 21)
+    if chains:
+        states = (chain_starts(sc, chains) if start is sc["shuf"] else
+                  GenomeState(*[x.expand(chains, -1).contiguous() for x in start]))
+        params = chain_params(sc["params"], chains)
+        l0 = runner.chains_anchor_fn()(states, params)
+        temps = [torch.linspace(1.0, 4.0, chains, device=device),
+                 torch.linspace(0.8, 3.2, chains, device=device)]
+    else:
+        states, params = start, sc["params"]
+        l0 = runner.anchor_fn()(states, params)
+        temps = [1.0, 0.8]
+    lead = (chains,) if chains else ()
+    chunks = []
+    for k, (n_steps, f_t) in enumerate(zip(steps, temps)):
+        order = torch.stack([torch.randperm(sc["n"], generator=gen, device=device)[:n_steps]
+                             for _ in range(max(chains, 1))])
+        order = order if chains else order[0]
+        draws = draw_step_inputs(gen, runner.nb, DELTA, (n_steps,) + lead)
+
+        def call(cycle, carry, order=order, draws=draws, f_t=f_t, k=k):
+            cur, l_t = carry or (states, l0)
+            par = params._replace(fact=params.fact * 1.02) if k else params
+            cur, l_t, outs = cycle(cur, draws, par, order, l_t, f_t)
+            return (cur, l_t), (cur, l_t, outs)
+
+        chunks.append((call, n_steps))
+
+    def build(capture):
+        return delta.make_delta_em_cycle(sc["table"], None, runner.nb, DELTA, f_max,
+                                         sobs=sc["sobs"], anchor_fn=False, band_w=runner.w,
+                                         obs_grid=grid, mini_grid=mini, rep=rep,
+                                         capture=capture)
+
+    return build, chunks, [mini, grid]
+
+
+def phase_graphs(device, sc, rsc):
+    """7g. Each main path's cycle as a captured graph against the same
+    cycle run eagerly (capture=False), on the same inputs: the dense
+    flagship (2 cycles, f_t and parameters changed between them), the 100k
+    delta path (cycle_for(1024, 4): MAIN_STEPS then 128 steps, one graph
+    for both lengths), its 4 tempered chains (M = 20) and the 20k repeat
+    delta path. Bit-equal states, likelihoods, metrics and launches."""
+    print("graph vs eager: the main paths' cycles captured and run eagerly on the same "
+          "inputs")
+    out = {}
+    out["dense_flagship"] = graph_vs_eager("dense flagship (B1), 2 cycles",
+                                           *dense_graph_case(device))
+    out["delta_100k"] = graph_vs_eager(f"100k delta path (B4 + B2), f_max {F_MAX}",
+                                       *delta_graph_case(sc))
+    out["chains_100k"] = graph_vs_eager(f"100k delta path, {CHAINS} chains (M = 20)",
+                                        *delta_graph_case(sc, chains=CHAINS))
+    out["repeat_delta_20k"] = graph_vs_eager(f"20k repeat delta path, f_max {F_MAX}",
+                                             *delta_graph_case(rsc))
+    return out
+
+
+def phase_graphs_top(sc):
+    """11g. Graph against eager on 11e's 4 chains at bucket 16,384 (the
+    truth, M = 20), with the peak memory of each."""
+    print(f"graph vs eager at bucket {TOP_TIERS[1]}: {CHAINS} chains from the truth")
+    return {f"chains_top_{TOP_TIERS[1]}": graph_vs_eager(
+        f"{CHAINS} chains at bucket {TOP_TIERS[1]} (M = 20)",
+        *delta_graph_case(sc, chains=CHAINS, f_max=TOP_TIERS[1],
+                          steps=(TOP16_CHAIN_STEPS, TOP16_CHAIN_STEPS // 2),
+                          start=sc["truth"]))}
+
+
 def kernel_record(name, source, replaces, launches, record):
     """One entry of the kernels line: every key of the contract, the
     flagship shape's numbers, and the rest under their own keys."""
@@ -3416,6 +3644,7 @@ def main():
     repeat_delta_timing = phase("7a repeat B2 B4", phase_repeat_delta_kernels, device, rsc)
     r_mini, r_obs = phase("7b repeat delta main", phase_scale_main, rsc,
                           "repeat delta main path")
+    graphs = phase("7g graph vs eager", phase_graphs, device, sc, rsc)
     phase("8 runner", phase_runner, sc)
     top = phase("8b runner top tiers", phase_runner_top, sc)
     chains = phase("11a chains", phase_chains, sc)
@@ -3442,7 +3671,8 @@ def main():
                           ("cli_scale_chains", cli_runs["scale_chains"]),
                           *((f"run_chains_top_{b}", r) for b, r in top_chains.items()))},
         "run_top": top,
-        "distribution": dist}))
+        "distribution": dist,
+        "graphs": graphs}))
     print(line)
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {
@@ -3463,11 +3693,13 @@ def main_top():
     delta_timing = phase("5 B2 B4", phase_delta_kernels, device, sc)
     top = phase("8b runner top tiers", phase_runner_top, sc)
     top_chains = phase("11e chains top buckets", phase_chains_top, sc)
+    graphs = phase("11g graph vs eager top", phase_graphs_top, sc)
     crossover = phase("5c routes", phase_crossover, sc)
     print(f"smoke --top-tiers: {time.perf_counter() - t_start:.1f} s in all; phases "
           f"{json.dumps(PHASE_S)}", flush=True)
     print(json.dumps({"tiers": {k: delta_timing[k]["tiers"] for k in ("ll_mini", "obsgrid")},
-                      "routes": crossover, "run_top": top, "run_chains_top": top_chains}))
+                      "routes": crossover, "run_top": top, "run_chains_top": top_chains,
+                      "graphs": graphs}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -48,6 +48,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from graal_tpu_torch.core import graphs
 from graal_tpu_torch.core.candidates import N_CANDIDATES, build_candidates
 from graal_tpu_torch.core.mcmc import (THRESH_OVERFLOW,
                                        draw_step_inputs, sample_neighbours,
@@ -622,8 +623,8 @@ def make_delta_em_step(table: SubFragTable, obs, nb, delta: int, f_max: int,
 def make_delta_em_cycle(table: SubFragTable, obs, nb, delta: int, f_max: int,
                         sobs=None, anchor_fn=None, band_w: int | None = None,
                         thresh_overflow: float | None = None,
-                        obs_grid=None, mini_grid=None, rep=None):
-    """A delta-scored EM cycle (a Python loop of steps) with a final full
+                        obs_grid=None, mini_grid=None, rep=None, capture=None):
+    """A delta-scored EM cycle (a scan of steps) with a final full
     re-anchoring of the likelihood.
 
     Returns ``cycle(state, rng, params, frag_order, l_t, f_t) -> (state,
@@ -646,6 +647,14 @@ def make_delta_em_cycle(table: SubFragTable, obs, nb, delta: int, f_max: int,
     :class:`graal_tpu_torch.parallel.tempering.ChainDraws`) every step is
     the chains-axis step of :func:`make_delta_em_step`, each chain's carry
     compensated on its own; the metrics gain the chains axis.
+
+    The steps are a :class:`graal_tpu_torch.core.graphs.Scan`: on a CUDA
+    table one captured graph replayed once a step, whatever the cycle's
+    length (what a capture fixes, the bucket ``f_max``, ``delta``, the
+    engine, the chains and their slots, is fixed by this cycle and the
+    shapes of its arguments); elsewhere the same body step by step.
+    ``capture``: as the scan takes it (False runs eagerly on the card). The
+    re-anchor runs after the scan, eagerly.
     """
     step = make_delta_em_step(table, obs, nb, delta, f_max, sobs=sobs, band_w=band_w,
                               thresh_overflow=thresh_overflow, obs_grid=obs_grid,
@@ -658,6 +667,19 @@ def make_delta_em_cycle(table: SubFragTable, obs, nb, delta: int, f_max: int,
         def anchor_fn(state, params):
             return log_likelihood(state, table, obs_t, params)
 
+    def body(carry, consts, x):
+        state, l_hi, l_c = carry
+        params, f_t = consts
+        draws, f_a = x
+        state, d_sel, (op, fb, n_over) = step(state, draws, params, torch.zeros_like(l_c),
+                                              f_a, f_t)
+        y = d_sel - l_c
+        t = l_hi + y
+        l_c = (t - l_hi) - y
+        return (state, t, l_c), (t, op, fb, n_over, state.n_contigs())
+
+    scan = graphs.Scan(body, table.owner.device, capture=capture)
+
     def cycle(state: GenomeState, rng, params: RippeParams, frag_order, l_t, f_t):
         dev = state.pos.device
         frag_order = torch.as_tensor(frag_order, device=dev).long()
@@ -665,21 +687,13 @@ def make_delta_em_cycle(table: SubFragTable, obs, nb, delta: int, f_max: int,
         lead = frag_order.shape[:-1]
         if isinstance(rng, torch.Generator):
             rng = draw_step_inputs(rng, nb, delta, (n_steps,) + lead)
-        zero = torch.zeros(lead, dtype=torch.float32, device=dev)
         l_hi = torch.as_tensor(l_t, dtype=torch.float32, device=dev)
-        l_c = zero
-        rows = []
-        for i in range(n_steps):
-            draws = type(rng)(*[None if x is None else x[i] for x in rng])
-            state, d_sel, (op, fb, n_over) = step(state, draws, params, zero,
-                                                  frag_order[..., i], f_t)
-            y = d_sel - l_c
-            t = l_hi + y
-            l_c = (t - l_hi) - y
-            l_hi = t
-            rows.append((l_hi, op, fb, n_over, state.n_contigs()))
-        outs = tuple(torch.stack(col) for col in zip(*rows))
+        l_c = torch.zeros(lead, dtype=torch.float32, device=dev)
+        # the steps' axis leads every per-step input
+        (state, l_hi, _), outs = scan((state, l_hi, l_c), (params, f_t),
+                                      (rng, frag_order.movedim(-1, 0)))
         l_anchor = l_hi if anchor_fn is False else anchor_fn(state, params)
         return state, l_anchor, outs
 
+    cycle.scan = scan
     return cycle

@@ -4,8 +4,9 @@ PyTorch counterpart of ``graal_tpu.core.mcmc``. One EM step: for fragment
 fA, sample <= delta neighbours from a contacts^3-weighted distribution,
 build 13 candidate genomes per neighbour, score them all in one batched
 call, filter / temper / sample a score slot, commit the winner. A cycle is
-a Python loop of steps (the JAX package's ``lax.scan``), optionally
-followed at every step by one nuisance-parameter Metropolis step.
+a scan of steps (:mod:`graal_tpu_torch.core.graphs`, the JAX package's
+``lax.scan``: a captured CUDA graph on the card), each optionally followed
+by one nuisance-parameter Metropolis step.
 
 The loop never reads a device value on the host: indices, scores and
 parameters stay tensors, and decisions are ``torch.where`` selects. The
@@ -25,6 +26,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from graal_tpu_torch.core import graphs
 from graal_tpu_torch.core.candidates import N_CANDIDATES, build_candidates
 from graal_tpu_torch.core.likelihood import log_likelihood
 from graal_tpu_torch.core.model import RippeParams
@@ -510,13 +512,18 @@ class CycleMetrics(NamedTuple):
 
 def make_em_cycle(table: SubFragTable, obs, nb: NeighbourTable, delta: int,
                   sample_param: bool = True, ll_dtype=torch.float32,
-                  scorer=None, thresh_overflow=THRESH_OVERFLOW):
+                  scorer=None, thresh_overflow=THRESH_OVERFLOW, capture=None):
     """One EM cycle over the fragments of ``frag_order``.
 
     Returns cycle(state, rng, params, frag_order, l_t, f_t) ->
     (state, params, l_t, CycleMetrics), where ``rng`` is a Generator or a
     :class:`StepDraws` with a leading axis of len(frag_order). Metric
-    fields are per-step tensors stacked at the end of the cycle.
+    fields are per-step tensors stacked over the cycle.
+
+    The cycle is a :class:`graal_tpu_torch.core.graphs.Scan` of the step
+    (EM step, then the nuisance step): on a CUDA table a captured graph
+    replayed once a step, elsewhere the same body run step by step.
+    ``capture``: as the scan takes it (False runs eagerly on the card).
     """
     if scorer is None:
         scorer = _default_scorer(table, obs, ll_dtype)
@@ -524,35 +531,45 @@ def make_em_cycle(table: SubFragTable, obs, nb: NeighbourTable, delta: int,
                            thresh_overflow=thresh_overflow)
     nuis_step = make_nuisance_step(table, obs, ll_dtype, scorer=scorer)
 
+    # the parameters are carried when the nuisance step moves them, else
+    # constants of the call (and the cycle returns the caller's own)
+    def body(carry, consts, x):
+        if sample_param:
+            (state, params, l_t), f_t = carry, consts
+        else:
+            (state, l_t), (params, f_t) = carry, consts
+        draws, f_a = x
+        state, (score, op, fb) = em_step(state, draws, params, f_a, f_t)
+        l_t = torch.where(torch.isfinite(score), score, l_t)
+        if sample_param:
+            params, l_t, success = nuis_step(state, draws, params, l_t, f_t)
+        else:
+            success = torch.ones((), dtype=torch.bool, device=l_t.device)
+        n_contigs = state.n_contigs()
+        # mean contig length over *active* fragments only
+        active_bp = torch.where(state.activ == 1, state.len_bp, 0).sum()
+        return (state, params, l_t) if sample_param else (state, l_t), CycleMetrics(
+            likelihood=l_t, n_contigs=n_contigs,
+            mean_len=active_bp.float() / n_contigs,
+            op_sampled=op, id_f_sampled=fb, id_f_a=f_a,
+            fact=params.fact, slope=params.slope, d_max=params.d_max,
+            v_inter=params.v_inter, success=success)
+
+    scan = graphs.Scan(body, table.owner.device, capture=capture)
+
     def cycle(state: GenomeState, rng, params: RippeParams, frag_order, l_t,
               f_t):
         frag_order = torch.as_tensor(frag_order, device=state.pos.device).long()
-        n_steps = frag_order.shape[0]
         if isinstance(rng, torch.Generator):
-            rng = draw_step_inputs(rng, nb, delta, (n_steps,))
-        always = torch.ones((), dtype=torch.bool, device=state.pos.device)
-        rows = []
-        for i in range(n_steps):
-            f_a = frag_order[i]
-            draws = StepDraws(*[x[i] for x in rng])
-            state, (score, op, fb) = em_step(state, draws, params, f_a, f_t)
-            l_t = torch.where(torch.isfinite(score), score, l_t)
-            if sample_param:
-                params, l_t, success = nuis_step(state, draws, params, l_t, f_t)
-            else:
-                success = always
-            n_contigs = state.n_contigs()
-            # mean contig length over *active* fragments only
-            active_bp = torch.where(state.activ == 1, state.len_bp, 0).sum()
-            rows.append(CycleMetrics(
-                likelihood=l_t, n_contigs=n_contigs,
-                mean_len=active_bp.float() / n_contigs,
-                op_sampled=op, id_f_sampled=fb, id_f_a=f_a,
-                fact=params.fact, slope=params.slope, d_max=params.d_max,
-                v_inter=params.v_inter, success=success))
-        metrics = CycleMetrics(*[torch.stack(col) for col in zip(*rows)])
+            rng = draw_step_inputs(rng, nb, delta, (frag_order.shape[0],))
+        xs = (rng, frag_order)
+        if sample_param:
+            (state, params, l_t), metrics = scan((state, params, l_t), f_t, xs)
+        else:
+            (state, l_t), metrics = scan((state, l_t), (params, f_t), xs)
         return state, params, l_t, metrics
 
+    cycle.scan = scan
     return cycle
 
 

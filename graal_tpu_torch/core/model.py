@@ -11,6 +11,7 @@ at setup time.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
@@ -94,12 +95,18 @@ def expected_contacts(s, same_contig, circ, s_tot, norm_accu, p: RippeParams):
     return torch.where(same_contig, cis, p.v_inter) * norm_accu
 
 
+@functools.cache
+def _log_fact_table(device: torch.device) -> torch.Tensor:
+    """The 10-entry lgamma table on ``device``, copied there once: a step
+    captured into a CUDA graph may not copy from the host."""
+    return torch.tensor(_LOG_FACT_TABLE, dtype=torch.float32, device=device)
+
+
 def _log_factorial_ref(ob: torch.Tensor) -> torch.Tensor:
     """log(factorial(ob)) with the reference's split: floor the argument,
     exact for n < 10 (a 10-entry lgamma table), Stirling otherwise."""
     n = torch.floor(ob)
-    table = torch.tensor(_LOG_FACT_TABLE, dtype=torch.float32, device=ob.device)
-    exact = table[n.int().clamp(0, 9).long()]
+    exact = _log_fact_table(ob.device)[n.int().clamp(0, 9).long()]
     stirling = n * torch.log(n) - n + 0.5 * torch.log(2.0 * np.pi * n)
     return torch.where(n < 10.0, exact, stirling)
 

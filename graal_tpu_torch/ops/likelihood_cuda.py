@@ -37,6 +37,7 @@ from graal_tpu_torch.core.model import RippeParams
 from graal_tpu_torch.core.state import GenomeState
 from graal_tpu_torch.core.subfrags import SubFragTable
 from graal_tpu_torch.ops import build, persistent
+from graal_tpu_torch.ops.counts import Counted, LaunchCount
 
 N_PARAMS = 10
 ROWS = persistent.TILE // persistent.HALVES   # rows of a half tile
@@ -203,14 +204,15 @@ def check_states(states: GenomeState, device):
                              f"got {tuple(x.shape)} {x.dtype}")
 
 
-class CopyRowScorer:
+class CopyRowScorer(Counted):
     """What the dense scorers share: per-candidate vectors of the table's
     sub rows (in the order ``rows``, default table order), the checks of a
     kernel launch's arguments, and the dispatch of ``score(states (B, n),
     params) -> (B,) f32``: on a CUDA scorer :meth:`launch`, on a CPU one
     :meth:`plain`, both over the vectors :meth:`sub_vectors` returns.
 
-    ``n_launches`` counts the calls that launched the CUDA kernel.
+    ``n_launches`` counts the kernel's launches, and ``launch_shapes`` the
+    same launches by their (B, K), on the card (``ops.counts``).
     """
 
     VECTORS = ("mid", "idc", "circ", "stot")
@@ -229,7 +231,11 @@ class CopyRowScorer:
         self.len_half = table.len_kb.to(device)[rows] * 0.5
         self.log_nfpb = torch.tensor(np.float32(np.log(table.n_frags_per_bins)),
                                      device=device)
-        self.n_launches = 0
+        self.launches = LaunchCount()
+
+    @property
+    def launch_shapes(self):
+        return self.launches.by_key()
 
     def geometry(self, states: GenomeState):
         """Per-candidate O(K) vectors (mid, idc, circ, stot), shape (B, K)."""
@@ -300,16 +306,6 @@ class DenseScorer(CopyRowScorer):
                                                   float(table.n_frags_per_bins)),
                                   device=self.device)
         self.tickets = persistent.Tickets()
-        self.scratch = {}      # cuda_stream -> (B_max, n_part) f32 partials
-
-    def partials(self, b: int, n_part: int, stream: int) -> torch.Tensor:
-        """The kernel's (b, n_part) partial scratch on ``stream``, kept
-        between launches and grown to the largest batch seen."""
-        buf = self.scratch.get(stream)
-        if buf is None or buf.shape[0] < b:
-            buf = torch.empty((b, n_part), dtype=torch.float32, device=self.device)
-            self.scratch[stream] = buf
-        return buf[:b]
 
     def launch(self, mid, idc, circ, stot, pvec) -> torch.Tensor:
         """Launch the kernel on the vectors of B candidates; (B,) f32."""
@@ -319,7 +315,8 @@ class DenseScorer(CopyRowScorer):
         cs, grid, _ = persistent.plan(n_tri, B, 1, resident_blocks(self.device),
                                       lib.ll_dense_max_chunk())
         stream = torch.cuda.current_stream(self.device).cuda_stream
-        partial = self.partials(B, n_tri * persistent.SLOTS, stream)
+        partial = torch.empty((B, n_tri * persistent.SLOTS), dtype=torch.float32,
+                              device=self.device)
         out = torch.empty(B, dtype=torch.float32, device=self.device)
         rc = lib.ll_dense_score(
             mid.data_ptr(), idc.data_ptr(), circ.data_ptr(), stot.data_ptr(),
@@ -329,7 +326,7 @@ class DenseScorer(CopyRowScorer):
             grid, stream)
         if rc != 0:
             raise RuntimeError(f"ll_dense_score launch failed: cudaError {rc}")
-        self.n_launches += 1
+        self.launches.add(self.device, (B, self.k))
         return out
 
     def plain(self, mid, idc, circ, stot, pvec) -> torch.Tensor:

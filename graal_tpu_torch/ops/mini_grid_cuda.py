@@ -38,6 +38,7 @@ import math
 import torch
 
 from graal_tpu_torch.ops import build, persistent
+from graal_tpu_torch.ops.counts import Counted, LaunchCount
 from graal_tpu_torch.ops.likelihood_cuda import N_PARAMS
 
 # Working-set bound of the plain versions: the mini-grid scorer takes its
@@ -218,7 +219,7 @@ def tile_classes_plain(mid, idc, la, ob, pvec):
     return out
 
 
-class MiniGridScorer:
+class MiniGridScorer(Counted):
     """``score(mid, idc, circ, stot, la, ob, pvec) -> (scores (M, C),
     dll (M, C - 1))``: ``mid``, ``circ``, ``stot``, ``la`` (M, C, R) f32,
     ``idc`` (M, C, R) int32, ``ob`` (M, R, R) f32, ``pvec`` the (10,) f32
@@ -226,11 +227,11 @@ class MiniGridScorer:
     shared by every slot (launched as its broadcast), or (M, 10), one row
     per neighbour slot (chains with their own parameters in one launch).
 
-    ``n_launches`` counts the calls that launched the CUDA kernel.
+    ``n_launches`` counts the kernel's launches, on the card (``ops.counts``).
     """
 
     def __init__(self):
-        self.n_launches = 0
+        self.launches = LaunchCount()
         self.tickets = persistent.Tickets()
 
     def launch(self, mid, idc, circ, stot, la, ob, pvec, class_counts=None):
@@ -283,7 +284,7 @@ class MiniGridScorer:
             stream)
         if rc != 0:
             raise RuntimeError(f"ll_mini_score launch failed: cudaError {rc}")
-        self.n_launches += 1
+        self.launches.add(dev)
         return scores, dll
 
     def plain(self, mid, idc, circ, stot, la, ob, pvec):

@@ -29,6 +29,7 @@ import functools
 import torch
 
 from graal_tpu_torch.ops import build
+from graal_tpu_torch.ops.counts import Counted, LaunchCount
 
 HASH_MUL = 0x9E3779B1    # the kernel's multiplicative hash
 MIN_LOG2CAP = 5
@@ -129,7 +130,7 @@ def obs_grid_plain(row_start, cols, vals, keys):
     return torch.where(upper, ob[:-1].reshape(m, r, r), 0.0)
 
 
-class WindowObsGrid:
+class WindowObsGrid(Counted):
     """``grid(row_start (n + 1,) int64, cols (nnz,) int32, vals (nnz,) f32,
     keys (M, R) int32) -> (M, R, R) f32``, the strict upper triangle of the
     densified CSR windows of the keys. Contract: keys are CSR rows in
@@ -138,11 +139,11 @@ class WindowObsGrid:
     would go to the key's first slot, in the kernel as in the plain
     version.
 
-    ``n_launches`` counts the calls that launched the CUDA kernel.
+    ``n_launches`` counts the kernel's launches, on the card (``ops.counts``).
     """
 
     def __init__(self):
-        self.n_launches = 0
+        self.launches = LaunchCount()
         self.plans = {}       # (device, R, M) -> (rows_per_block, width, log2cap)
 
     def plan_for(self, device, r: int, m: int):
@@ -190,7 +191,7 @@ class WindowObsGrid:
                          log2cap, torch.cuda.current_stream(dev).cuda_stream)
         if rc != 0:
             raise RuntimeError(f"obsgrid launch failed: cudaError {rc}")
-        self.n_launches += 1
+        self.launches.add(dev)
         return out
 
     def plain(self, row_start, cols, vals, keys) -> torch.Tensor:

@@ -212,7 +212,7 @@ class RepeatScorer(CopyRowScorer):
             self.k, self.max_hblk, self.max_blk, cs, grid, stream)
         if rc != 0:
             raise RuntimeError(f"ll_repeat_score launch failed: cudaError {rc}")
-        self.n_launches += 1
+        self.launches.add(self.device, (B, self.k))
         return out
 
     def plain(self, mid, idc, circ, stot, a, pvec, max_cells: int = MAX_CELLS) -> torch.Tensor:

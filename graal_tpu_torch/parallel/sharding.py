@@ -360,6 +360,7 @@ def make_sharded_delta_cycle(mesh: Mesh, table: SubFragTable, nb, delta: int, f_
                              l_ts[lo:hi], _local(f_ts, lo, hi))
         return gather_chains(st, c, mesh), gather_chains(l_loc, c, mesh)
 
+    sharded.scan = cycle.scan
     return sharded
 
 

@@ -3,7 +3,7 @@
 Run from the repository root on a GPU:
 
     python -m graal_tpu_torch.profile_paths [PATH ...] [--warm 64] [--steps 48]
-        [--table-dir DIR]
+        [--modes graph,eager] [--table-dir DIR]
 
 PATH is any of ``dense`` (the flagship dense EM path, nuisance sampling on),
 ``dense_repeat`` (the same on ``entry.repeat_problem``), ``delta`` (the
@@ -13,12 +13,15 @@ bins), and ``chains`` / ``chains_repeat`` (the same two problems' tempered
 chains path, ``ScaleRunner.chains_cycle_for(1024, 4)``: 4 chains from
 distinct shuffles, each with its own parameters, on a ladder up to
 T = 4, one B2 and one B4 launch a step for all of them); all six by
-default. Each path runs ``--warm`` steps, then a window of ``--steps``
-steps timed on the host clock (after a device sync), then another window
-of ``--steps`` steps under ``torch.profiler`` (a chains step is a step of
-every chain).
+default. Each path runs in each of ``--modes``: ``graph``, its cycle as
+the captured CUDA graph the entry points run (``core.graphs.Scan``,
+replayed once a step), and ``eager``, the same step body run eagerly
+(``capture=False``). Each run takes ``--warm`` steps (the graph's first
+step and capture among them), then a window of ``--steps`` steps timed on
+the host clock (after a device sync), then another window of ``--steps``
+steps under ``torch.profiler`` (a chains step is a step of every chain).
 
-Prints one JSON line per path:
+Prints one JSON line per path and mode (``mode``: graph or eager):
 
 - ``wall_ms_per_step``: the unprofiled window's host time per step;
 - ``device_ms_per_step``: the profiled window's device time per step, the
@@ -29,7 +32,14 @@ Prints one JSON line per path:
   "Self CUDA time total" of the profiler's table;
 - ``device_busy``: device_ms_per_step / wall_ms_per_step, so the device's
   idle share is 1 - device_busy;
-- ``aten_calls_per_step``: host operator calls per step, views included;
+- ``device_event_ms_per_step`` (graph rows): a third window's time between
+  CUDA events, the window queued behind a spin kernel that outlasts its
+  enqueue (a replay is one launch a step), so that no host time is in it:
+  the device's timeline from the first kernel to the last, the gaps
+  between kernels included (``device_ms_per_step`` sums the kernels);
+- ``aten_calls_per_step``: host operator calls per step, views included
+  (a graphed step makes none: its calls are the cycle's copies in and
+  out, spread over the window's steps);
 - ``top``: the largest device-side rows, (name, ms per step, calls per
   step).
 
@@ -50,9 +60,10 @@ from graal_tpu_torch.entry import DELTA
 F_MAX = 1024
 PATHS = ("dense", "dense_repeat", "delta", "delta_repeat", "chains", "chains_repeat")
 N_CHAINS = 4
+SPIN_HZ = 2.0e9   # torch.cuda._sleep cycles a second: above any H100 SM clock
 
 
-def dense_runner(device, repeat: bool):
+def dense_runner(device, repeat: bool, capture: bool):
     """``run(order) -> None``: EM steps of the flagship dense problem (or
     its repeat twin) from the exploded start, scored by the dense kernel."""
     from graal_tpu_torch.core import mcmc
@@ -62,7 +73,8 @@ def dense_runner(device, repeat: bool):
 
     state, table, params, obs, nb = (repeat_problem if repeat else problem)(device=device)
     scorer = make_dense_scorer(table, obs, device)
-    cycle = mcmc.make_em_cycle(table, obs, nb, DELTA, sample_param=True, scorer=scorer)
+    cycle = mcmc.make_em_cycle(table, obs, nb, DELTA, sample_param=True, scorer=scorer,
+                               capture=capture)
     gen = torch.Generator(device=device).manual_seed(0)
     cur = mcmc.explode_genome(state)
     carry = dict(state=cur, params=params,
@@ -75,7 +87,18 @@ def dense_runner(device, repeat: bool):
     return run, torch.randperm(state.n_frags, generator=gen, device=device)
 
 
-def delta_runner(device, repeat: bool):
+def runner_cycle(runner, rep, capture: bool):
+    """The cycle ``ScaleRunner.cycle_for(1024, 4)`` and ``chains_cycle_for``
+    build (no re-anchor, the runner's kernel wrappers), with ``capture``."""
+    from graal_tpu_torch.core import delta as delta_mod
+
+    return delta_mod.make_delta_em_cycle(runner.table, None, runner.nb, DELTA, F_MAX,
+                                         sobs=runner.sobs, anchor_fn=False, band_w=runner.w,
+                                         obs_grid=runner.obs_grid, mini_grid=runner.mini_grid,
+                                         rep=rep, capture=capture)
+
+
+def delta_runner(device, repeat: bool, capture: bool):
     """``run(order) -> None``: delta steps of cycle_for(1024, 4) from the
     shuffled start of the chr1-class problem (or the 20k repeat problem)."""
     from graal_tpu_torch.entry import scale_problem, scale_repeat_problem
@@ -87,7 +110,7 @@ def delta_runner(device, repeat: bool):
     else:
         _, shuf, table, params, sobs = scale_problem(device=device)
         runner = ScaleRunner(table, sobs, params)
-    cycle = runner.cycle_for(F_MAX, DELTA, rep=shuf.rep)
+    cycle = runner_cycle(runner, shuf.rep, capture)
     gen = torch.Generator(device=device).manual_seed(0)
     carry = dict(state=shuf, l_t=runner.anchor_fn()(shuf, params))
 
@@ -98,7 +121,7 @@ def delta_runner(device, repeat: bool):
     return run, torch.randperm(shuf.n_frags, generator=gen, device=device)
 
 
-def chains_runner(device, repeat: bool):
+def chains_runner(device, repeat: bool, capture: bool):
     """``run(orders) -> None``: steps of ``N_CHAINS`` tempered chains of
     chains_cycle_for(1024, 4) from distinct shuffles of the chr1-class
     problem (or the 20k repeat problem), each chain with its own
@@ -122,7 +145,7 @@ def chains_runner(device, repeat: bool):
     params_c = RippeParams(*[torch.stack([x * (1.0 + 0.01 * c) for c in range(N_CHAINS)])
                              for x in params])
     ladder = torch.as_tensor(temperature_ladder(N_CHAINS, t_max=4.0), device=device)
-    cycle = runner.chains_cycle_for(F_MAX, DELTA, rep=shuf.rep)
+    cycle = runner_cycle(runner, shuf.rep, capture)
     gen = torch.Generator(device=device).manual_seed(0)
     carry = dict(states=states, l_ts=runner.chains_anchor_fn()(states, params_c))
 
@@ -148,15 +171,16 @@ def self_device_us(e) -> float:
     return float(e.self_cuda_time_total if t is None else t)
 
 
-def profile_path(name: str, device, warm: int, steps: int, table_dir: Path | None):
+def profile_path(name: str, device, warm: int, steps: int, table_dir: Path | None,
+                 mode: str = "graph"):
     from torch.profiler import ProfilerActivity, profile
 
     repeat = name.endswith("_repeat")
     make = {"delta": delta_runner, "chains": chains_runner}.get(name.split("_")[0],
                                                                  dense_runner)
-    run, order = make(device, repeat)
-    if warm + 2 * steps > order.shape[-1]:
-        raise ValueError(f"{name}: warm + 2 x steps exceeds the {order.shape[-1]} fragments")
+    run, order = make(device, repeat, mode == "graph")
+    if warm + 3 * steps > order.shape[-1]:
+        raise ValueError(f"{name}: warm + 3 x steps exceeds the {order.shape[-1]} fragments")
     run(order[..., :warm])
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -172,15 +196,28 @@ def profile_path(name: str, device, warm: int, steps: int, table_dir: Path | Non
     device_ms = sum(self_device_us(e) for e in dev_rows) / 1e3 / steps if dev_rows else None
     aten = sum(e.count for e in avgs if e.key.startswith("aten::")) / steps
     top = sorted(dev_rows, key=self_device_us, reverse=True)[:15]
+    event_ms = None
+    if mode == "graph":
+        # a third window queued behind a spin kernel that outlasts its
+        # enqueue, so that the events time the device's timeline alone
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(4.0 * wall_ms * steps * 1e-3 * SPIN_HZ))
+        start.record()
+        run(order[..., warm + 2 * steps:warm + 3 * steps])
+        stop.record()
+        torch.cuda.synchronize()
+        event_ms = start.elapsed_time(stop) / steps
     if table_dir is not None:
         table_dir.mkdir(parents=True, exist_ok=True)
         key = "self_device_time_total" if hasattr(avgs[0], "self_device_time_total") \
             else "self_cuda_time_total"
-        (table_dir / f"profile_{name}.txt").write_text(
+        (table_dir / f"profile_{name}_{mode}.txt").write_text(
             avgs.table(sort_by=key, row_limit=60, max_name_column_width=60))
-    return {"path": name, "steps": steps, "wall_ms_per_step": round(wall_ms, 4),
+    return {"path": name, "mode": mode, "steps": steps, "wall_ms_per_step": round(wall_ms, 4),
             "device_ms_per_step": device_ms and round(device_ms, 4),
             "device_busy": device_ms and round(device_ms / wall_ms, 4),
+            "device_event_ms_per_step": event_ms and round(event_ms, 4),
             "aten_calls_per_step": round(aten, 1),
             "top": [[e.key[:70], round(self_device_us(e) / 1e3 / steps, 4),
                      round(e.count / steps, 2)] for e in top]}
@@ -191,6 +228,8 @@ def main(argv=None):
     ap.add_argument("paths", nargs="*", metavar="PATH", help=f"any of {', '.join(PATHS)}")
     ap.add_argument("--warm", type=int, default=64)
     ap.add_argument("--steps", type=int, default=48)
+    ap.add_argument("--modes", default="graph,eager",
+                    help="comma-separated: graph (captured, as the entry points run), eager")
     ap.add_argument("--table-dir", type=Path, default=None)
     args = ap.parse_args(argv)
     unknown = sorted(set(args.paths) - set(PATHS))
@@ -199,9 +238,14 @@ def main(argv=None):
     if not torch.cuda.is_available():
         raise SystemExit("torch.cuda.is_available() is false: profiling needs a GPU")
     device = torch.device("cuda", 0)
+    modes = [m for m in args.modes.split(",") if m]
+    if set(modes) - {"graph", "eager"}:
+        ap.error(f"unknown mode(s) in {args.modes!r}: choose graph, eager")
     for name in args.paths or PATHS:
-        print(json.dumps(profile_path(name, device, args.warm, args.steps, args.table_dir)),
-              flush=True)
+        for mode in modes:
+            print(json.dumps(profile_path(name, device, args.warm, args.steps, args.table_dir,
+                                          mode)), flush=True)
+            torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

@@ -183,6 +183,17 @@ class ScaleRunner:
                 mini_grid=self.mini_grid, rep=rep)
         return self._cycles[(f_max, delta)]
 
+    def release_graphs(self, keep=None):
+        """Release the captured graphs of this runner's cycles, all but
+        ``keep``'s (:meth:`core.graphs.Scan.release`): their memory goes
+        back to the allocator, and a cycle called again captures anew. A
+        run releases every cycle's when it ends, and ``run_chains`` the
+        buckets it leaves, so a run holds graph memory only for the buckets
+        it steps in, and none once it returns."""
+        for cycle in self._cycles.values():
+            if cycle is not keep:
+                cycle.scan.release()
+
     def nuisance_step(self):
         if self._nuis is None:
             self._nuis = mcmc.make_nuisance_step(
@@ -369,6 +380,7 @@ class ScaleRunner:
                 stats["dist"] = dist
             live.refresh(snapshot_dir or ".", j, state, chrom_of_bin, stats,
                          metrics["likelihood"], snapshot_every, watch)
+        self.release_graphs()
         check_invariants(state)
         self.params = params
         return state, params, metrics
@@ -486,6 +498,7 @@ class ScaleRunner:
             bucket = int(np.clip(_next_pow2(2 * big + 2 * s_max), f_max_min,
                                  min(f_max_cap, _next_pow2(n))))
             cycle = self.chains_cycle_for(bucket, delta, mesh=mesh, rep=rep)
+            self.release_graphs(keep=cycle)
             order = torch.stack([torch.randperm(n, generator=gen, device=dev)[:steps]
                                  for _ in range(n_chains)])
             for i in range(0, steps, chunk_steps):
@@ -531,6 +544,7 @@ class ScaleRunner:
                          "cycle_s": round(metrics["cycle_s"][-1], 1)}
                 live.refresh(snapshot_dir or ".", j, best_state, chrom_of_bin, stats,
                              metrics["best"], snapshot_every, watch)
+        self.release_graphs()
         best = int(torch.argmax(l_ts))
         final = GenomeState(*[x[best].clone() for x in states])
         check_invariants(final)

@@ -396,13 +396,13 @@ def test_kernel_b1_is_batch_invariant(b1_problem, decode):
         assert alone.item() == whole[i].item()
 
 
-def test_dense_scorer_keeps_its_scratch(b1_problem):
-    """The partial scratch is kept per stream and grown, never shrunk."""
+def test_dense_scorer_on_the_cpu_makes_no_launch_counter(b1_problem):
+    """The CPU path scores with the plain version and counts nothing: no
+    launch counter comes into being, so every count reads 0."""
     state, table, params, obs = b1_problem
-    _, tt, _ = port_problem(state, table, params)
+    ts, tt, tp = port_problem(state, table, params)
     scorer = lc.make_dense_scorer(tt, obs, "cpu")
-    a = scorer.partials(5, 56, stream=0)
-    assert a.shape == (5, 56) and scorer.partials(3, 56, 0).data_ptr() == a.data_ptr()
-    big = scorer.partials(9, 56, 0)
-    assert big.shape == (9, 56) and scorer.partials(5, 56, 0).data_ptr() == big.data_ptr()
-    assert scorer.partials(2, 56, 1).data_ptr() != big.data_ptr()
+    states = TState(*[torch.stack([x, x]) for x in ts])
+    assert scorer(states, tp).shape == (2,)
+    assert scorer.launches.counters == {} and not scorer.launch_shapes
+    assert scorer.n_launches == 0

@@ -31,8 +31,9 @@ from graal_tpu.core.model import RippeParams
 from graal_tpu.ops.likelihood_pallas import make_mini_grid_scorer
 from graal_tpu_torch import convert
 from graal_tpu_torch.ops.likelihood_cuda import params_vector
-from graal_tpu_torch.ops.mini_grid_cuda import (BAND, DEAD_LA, EMPTY, FREE, log_cis_plain,
-                                                mini_grid_plain, tile_classes_plain, tri_tiles)
+from graal_tpu_torch.ops.mini_grid_cuda import (BAND, DEAD_LA, EMPTY, FREE, MiniGridScorer,
+                                                log_cis_plain, mini_grid_plain,
+                                                tile_classes_plain, tri_tiles)
 from tests.test_torch_mini_grid import KERNEL_RTOL, NFPB
 import tests.test_torch_state  # noqa: F401  (one torch thread per test worker)
 
@@ -337,6 +338,24 @@ def test_tri_tiles_order():
         assert bool((bj[n_live * (n_live + 1) // 2:] >= n_live).all())
 
 
+def check_contract(args):
+    """B2's arguments ``args`` (mid, idc, circ, stot, la, ob, pvec) as the
+    delta engine built them: ob is zero on every row and column where the
+    base's la is dead (some is), and the kernel's scoring by classes equals
+    the plain version on them. Returns the band-free (half tile,
+    candidate) pairs."""
+    dead0 = args[4][:, 0] <= DEAD_LA                      # (M, R)
+    assert bool(dead0.any())
+    assert not bool(args[5][dead0[:, :, None].expand_as(args[5])].any())
+    assert not bool(args[5][dead0[:, None, :].expand_as(args[5])].any())
+    scores, dll, _ = kernel_tiles(*args[:6], args[6])
+    p_scores, p_dll = mini_grid_plain(*args)
+    np.testing.assert_allclose(scores.numpy(), p_scores.numpy(), rtol=KERNEL_RTOL)
+    np.testing.assert_allclose(dll.numpy(), p_dll.numpy(), rtol=0,
+                               atol=np.abs(p_scores.numpy()).max() * 1e-6)
+    return int((tile_classes_plain(*args[:2], args[4], args[5], args[6]) == FREE).sum())
+
+
 def test_engine_inputs_keep_the_contract():
     """The delta engine's B2 inputs (the port's ScaleRunner problem at 400
     fragments, f_max 256, one step's 5 neighbour slots, d_max cut to 60 kb
@@ -359,15 +378,69 @@ def test_engine_inputs_keep_the_contract():
         rows, valid, _ = delta.extract_rows_union(state, f_a, ids, scorer.f_max)
         _, geo, ob, accu_sub, pv = scorer.inputs(*delta.lift_chain(state, f_a, ids, rows, valid),
                                                  p, state.id_c.amax()[None])
-        args = scorer.mini_grid_args(geo, ob, accu_sub, pv)
-        dead0 = args[4][:, 0] <= DEAD_LA                      # (M, R)
-        assert bool(dead0.any())
-        assert not bool(args[5][dead0[:, :, None].expand_as(args[5])].any())
-        assert not bool(args[5][dead0[:, None, :].expand_as(args[5])].any())
-        scores, dll, _ = kernel_tiles(*args[:6], args[6])
-        p_scores, p_dll = mini_grid_plain(*args)
-        np.testing.assert_allclose(scores.numpy(), p_scores.numpy(), rtol=KERNEL_RTOL)
-        np.testing.assert_allclose(dll.numpy(), p_dll.numpy(), rtol=0,
-                                   atol=np.abs(p_scores.numpy()).max() * 1e-6)
-        n_free += int((tile_classes_plain(*args[:2], args[4], args[5], args[6]) == FREE).sum())
+        n_free += check_contract(scorer.mini_grid_args(geo, ob, accu_sub, pv))
     assert n_free > 0
+
+
+class SpyB2(MiniGridScorer):
+    """B2's wrapper, keeping the arguments of every call."""
+
+    def __init__(self):
+        super().__init__()
+        self.calls = []
+
+    def __call__(self, *args):
+        self.calls.append(args)
+        return super().__call__(*args)
+
+
+@pytest.mark.parametrize("engine", ["repeat_v2", "mh_catalogue", "chains"])
+def test_engine_inputs_keep_the_contract_on(engine):
+    """The same contract on what B2 is fed by the delta step's other
+    engines (a captured step feeds B2 the same): the v2 repeat engine's
+    single-copy majority (240 data bins, 6 duplicated, fA a repeat copy and
+    another fragment), the MH catalogue (core.candidates.mh_candidates, as
+    the delta MTM / MH samplers build their candidates) and a chains axis
+    (3 chains, one parameter row per slot, M = 15), each at d_max 60 kb."""
+    from graal_tpu_torch.core import delta, mcmc
+    from graal_tpu_torch.core.candidates import mh_candidates
+    from graal_tpu_torch.core.state import GenomeState
+    from graal_tpu_torch.entry import scale_problem, scale_repeat_problem
+    from graal_tpu_torch.scale import ScaleRunner
+
+    spy = SpyB2()
+    gen = torch.Generator().manual_seed(5)
+    if engine == "repeat_v2":
+        truth, shuf, table, p, sobs, id_d = scale_repeat_problem(240, n_dups=6, device="cpu")
+        nb = ScaleRunner(table, sobs, p, id_d=id_d).nb
+        p = p._replace(d_max=torch.tensor(60.0))
+        step = delta.make_delta_em_step(table, None, nb, 4, 256, sobs=sobs, rep=shuf.rep,
+                                        mini_grid=spy)
+        copy = int(torch.nonzero(shuf.rep == 1)[-1])
+        for state, f_a in ((shuf, copy), (truth, 17)):
+            step(state, gen, p, torch.tensor(0.0), torch.tensor(f_a), 1.0)
+    else:
+        truth, shuf, table, p, sobs = scale_problem(400, n_contigs=2, n_pieces=10,
+                                                    device="cpu")
+        nb = ScaleRunner(table, sobs, p).nb
+        p = p._replace(d_max=torch.tensor(60.0))
+        if engine == "mh_catalogue":
+            scorer = delta.make_delta_scorer(table, None, 256, sobs=sobs, mini_grid=spy,
+                                             catalogue=mh_candidates)
+            for state, f_a in ((truth, 17), (shuf, 211)):
+                f_a = torch.tensor(f_a)
+                ids, _ = mcmc.sample_neighbours(gen, f_a, state, nb, 4)
+                rows, valid, over = delta.extract_rows_union(state, f_a, ids, scorer.f_max)
+                scorer.score(state, f_a, ids, rows, valid, over, p, state.id_c.amax())
+        else:
+            states = GenomeState(*[torch.stack(xs) for xs in zip(
+                truth, shuf, mcmc.explode_genome(shuf))])
+            pc = type(p)(*[x * torch.tensor([1.0, 1.01, 0.99]) for x in p])
+            step = delta.make_delta_em_step(table, None, nb, 4, 256, sobs=sobs, mini_grid=spy)
+            step(states, gen, pc, torch.zeros(3), torch.tensor([17, 211, 5]),
+                 torch.tensor([1.0, 2.0, 4.0]))
+    assert len(spy.calls) == 2 if engine != "chains" else len(spy.calls) == 1
+    for args in spy.calls:
+        if engine == "chains":
+            assert args[0].shape[0] == 15 and args[6].shape == (15, 10)
+        check_contract(args)
