@@ -9,15 +9,16 @@ On a host with several cards, ``python3 chip_smoke.py --cards`` runs
 instead the across-cards checks (``phase_cards``): an NCCL world of one
 rank a card, and the CLI under ``torchrun`` against one process.
 ``python3 chip_smoke.py --top-tiers`` runs only the build, the 100k
-set-up and the phases of the top tiers (5, 8b, 11e, 11g, 5c).
+set-up and the phases of the top tiers (5, 8b, 11e, 11g, 11h, 5c).
 
-Every EM and delta cycle runs as the entry points run it: a captured CUDA
-graph replayed once a step (``graal_tpu_torch.core.graphs``). Each
-wrapper counts its launches on the card, with an add beside the launch
-that the graph captures with it (``graal_tpu_torch.ops.counts``), so a
-replay advances the counts the phases check (``n_launches``; B1's and
-B3's ``launch_shapes`` by (B, K)): phase 7g holds them, and the graphs'
-results, to the same cycles run eagerly.
+Every sampler cycle (EM, delta EM, tempered, MTM / MH dense and delta)
+and every ScaleRunner cycle end runs as the entry points run it: a
+captured CUDA graph replayed once a step (``graal_tpu_torch.core.graphs``).
+Each wrapper counts its launches on the card, with an add beside the
+launch that the graph captures with it (``graal_tpu_torch.ops.counts``),
+so a replay advances the counts the phases check (``n_launches``; B1's
+and B3's ``launch_shapes`` by (B, K)): phases 7g and 7h hold them, and
+the graphs' results, to the same cycles run eagerly.
 
 Phases, in order; any failure raises and exits non-zero. Every kernel is
 timed at the shapes its path gives it twice, with CUDA events around many
@@ -147,6 +148,19 @@ written. "share" is the bound over the device time.
    zero); prints each run's wall ms a step (CUDA events around each call;
    the graph's first call holds its eager first step and capture) and peak memory
    (allocated; reserved, the graphs' pool included).
+7h. The same for the other sampler cycles, each SAMPLER_STEPS then half as
+   many steps (one graph for both, the second call at a lower f_t and, for
+   MTM / MH, with fact x 1.02): the tempered dense cycle (4 chains of the
+   flagship, one B1 launch at B = 260 a step), the dense MTM and MH cycles
+   (the flagship with ``entry.problem_jump_table``, B1 at B = 91 twice a
+   step), the delta MTM cycle (the 100k problem at f_max 1,024) and the
+   delta MH cycle (the 20k repeat twin, the repeat engine v2; B4 and B2
+   twice a step, M = 7); and ScaleRunner.run's cycle end (the sparse
+   re-anchor and the nuisance step) for 4 cycles. Each run's first call
+   under sync debug mode "error"; launches also equal by key and as the
+   path implies. Then ScaleRunner.run_mtm (1 cycle of SAMPLER_STEPS steps
+   from the shuffled start): B2 and B4 twice a step, and no scan holding a
+   graph, nor 0.5 GB more allocated, once it returns.
 8. ScaleRunner.run at 100,000 fragments: 1 cycle of 512 extremity-first
    steps from f_max 256 up the tier ladder, nuisance sampling on; the
    invariants hold and the likelihood rises.
@@ -280,6 +294,8 @@ written. "share" is the bound over the device time.
 11g. (``--top-tiers`` only) 7g's check on 11e's 4 chains from the truth
    at bucket 16,384 (M = 20), 8 then 4 steps, with each run's peak memory:
    the graph must fit where the eager run does.
+11h. (``--top-tiers`` only) 7h's run_mtm check from the truth (bucket
+   16,384, two passes of M = 7 a step), 8 steps, with its peak memory.
 12. Last lines: the nvidia-smi line, one JSON line on the kernels run, and
    {"ok": true, "device": {...}}. Each kernel's entry has the contract's
    keys (launches, max_abs_err, ms, plain_ms, bound_ms, bound_by,
@@ -351,6 +367,11 @@ CHAINS = 4                  # tempered chains of phase 10b (the CLI's default)
 MTM_DELTA = 5               # the MTM / MH stages' jump-table partners (Runner.run_mtm)
 MTM_SLOTS = 13 * (MTM_DELTA + 2)   # candidates of one MTM / MH pass (B = 91)
 MTM_EXACT_STEPS = 10
+SAMPLER_STEPS = 64          # steps of each sampler cycle of phase 7h's first call
+# the CLI stages' wall s/cycle (phases 10a, 10b) on one NVIDIA H100 80GB HBM3 at
+# 700 W before the MTM, MH and tempered cycles were captured (EM already was;
+# PERF.md section 5), printed beside this run's
+EAGER_CYCLES_S = {"em": 0.979, "mtm": 11.354, "mh": 9.515, "tempered": 4.417}
 CHAIN_EQ_STEPS = 4          # chains steps held to single-chain steps (11a, 11b)
 CHAIN_CHUNK = 64            # the chains' chunk run under sync debug "error" (11a)
 CHAIN_STEPS = 256           # run_chains' main path: 1 cycle of 256 steps a chain (11a)
@@ -2219,11 +2240,12 @@ def launch_calls(name):
         cls.launch = launch
 
 
-def check_stages(runner, n):
+def check_stages(runner, n, before=None):
     """Every sampler stage of a CLI run: 1 + 2 x steps launches of the
     run's scorer, the invariants, and the carried likelihood equal to the
     scorer's rescoring of the stage's genome bit for bit. Returns each
-    stage's wall s/cycle and accept rate."""
+    stage's wall s/cycle and accept rate; ``before``: s/cycle by stage to
+    print beside them."""
     import torch
     from graal_tpu_torch.core.state import GenomeState, check_invariants
 
@@ -2242,6 +2264,8 @@ def check_stages(runner, n):
         out[st["name"]] = dict(s_per_cycle=st["seconds"], accept_rate=rate)
         print(f"  {st['name']}: {launches} launches, l_t {st['l_t'].item():.3f} (carried == "
               f"rescored), {st['seconds']:.3f} s/cycle ({st['seconds'] * 1e3 / n:.3f} ms/step)"
+              + ("" if before is None else
+                 f" against {before[st['name']]} before the sampler cycles were captured")
               + ("" if rate is None else f", accept rate {rate:.4f}"))
     return out
 
@@ -2298,7 +2322,7 @@ def phase_cli_stages(ds, root):
           f"{3 + 6 * n}); batch sizes {dict(shapes)}")
     check(launches == 3 + 6 * n, f"ll_dense launches {launches}")
     check(dict(shapes) == want, f"launch shapes {dict(shapes)} != {want}")
-    stages = check_stages(runner, n)
+    stages = check_stages(runner, n, EAGER_CYCLES_S)
     check_outputs(out, RUN_OUTPUTS)
     err, t = mtm_pass_vs_plain("cli run MTM pass", runner, asm, 7 % n, n_time=50)
     return dict(launches=launches, max_abs_err=err, B91=t, stages=stages)
@@ -2335,7 +2359,8 @@ def phase_cli_tempered(ds, root):
     print(f"  cold l_t {runner.l_t.item():.3f} (carried == rescored), chains "
           f"{[round(x, 3) for x in asm.metrics['likelihood_all_chains'][-1]]}, swaps "
           f"{asm.metrics['swap_accepts']}; {cycle_s:.3f} s/cycle "
-          f"({cycle_s * 1e3 / n:.3f} ms/step)")
+          f"({cycle_s * 1e3 / n:.3f} ms/step; {EAGER_CYCLES_S['tempered']} before the cycle was "
+          "captured)")
     # B1 vs plain on one step's candidates of the 4 chains (B = 260), timed
     gen = torch.Generator(device=asm.state.pos.device).manual_seed(SEED)
     batch = stack([candidate_batch(st, runner.nb, 7 % n, gen) for st in chains])
@@ -3309,16 +3334,23 @@ def phase_cards(device):
     return out
 
 
-def event_timed(fn):
+def event_timed(fn, sync_error=False):
     """(fn(), ms) with the time between CUDA events around the call: the
-    card's clock from the first enqueue to the last kernel's end."""
+    card's clock from the first enqueue to the last kernel's end.
+    ``sync_error``: the call runs under sync debug mode "error", so that
+    any host read of a device value inside it raises."""
     import torch
 
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     start.record()
-    out = fn()
+    if sync_error:
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
     stop.record()
     torch.cuda.synchronize()
     return out, start.elapsed_time(stop)
@@ -3335,18 +3367,21 @@ def trees_equal(a, b):
         and torch.equal(a, b)
 
 
-def graph_vs_eager(label, build, chunks, kernels):
+def graph_vs_eager(label, build, chunks, kernels, sync_error=False):
     """One path run twice on the same inputs: its cycle built with
     ``capture=True`` (the captured graph, the default on the card) and with
     ``capture=False`` (the same step body run eagerly). ``chunks``: the
     calls of a run, each ``call(cycle, carry) -> (carry, outputs)`` with the
     steps it runs; ``carry`` threads from one call to the next. Both runs
     must give the same states, likelihoods, parameters and per-step metrics
-    bit for bit, and the same launches of every wrapper in ``kernels``
-    (counts set to 0 just before each run). Prints and returns each run's
-    ms per step (CUDA events around each call; the graph's first call
-    includes its eager first step and capture) and peak memory (allocated, and
-    reserved with the graphs' pool)."""
+    bit for bit, and the same launches of every wrapper in ``kernels``, in
+    all and by launch key (B1 / B3 by (B, K)), read from the card (counts
+    set to 0 just before each run). ``sync_error``: each run's first call
+    (the graph's holds its eager first step, its capture and replays) runs
+    under sync debug mode "error". Prints and returns each run's ms per
+    step (CUDA events around each call; the graph's first call includes its
+    eager first step and capture) and peak memory (allocated, and reserved
+    with the graphs' pool)."""
     import torch
 
     rec = {}
@@ -3359,12 +3394,14 @@ def graph_vs_eager(label, build, chunks, kernels):
             k.n_launches = 0
         cycle = build(capture)
         carry, got, ms = None, [], []
-        for call, steps in chunks:
-            (carry, out), t = event_timed(lambda: call(cycle, carry))
+        for i, (call, steps) in enumerate(chunks):
+            (carry, out), t = event_timed(lambda: call(cycle, carry), sync_error and i == 0)
             got.append(out)
             ms.append(t / steps)
         outs[mode] = tuple(got)
         rec[mode] = dict(ms_per_step=ms, launches=[k.n_launches for k in kernels],
+                         by_key=[{str(key): v for key, v in k.launches.by_key().items()}
+                                 for k in kernels],
                          peak_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
                          peak_reserved_gb=torch.cuda.max_memory_reserved() / 1e9)
         del cycle, carry, got
@@ -3376,10 +3413,12 @@ def graph_vs_eager(label, build, chunks, kernels):
           f"{e['peak_reserved_gb']:.3f}")
     check(trees_equal(outs["graph"], outs["eager"]),
           f"{label}: the graphed run differs from the eager run")
-    check(g["launches"] == e["launches"], f"{label}: launches {g['launches']} (graph) != "
-          f"{e['launches']} (eager)")
+    check(g["launches"] == e["launches"] and g["by_key"] == e["by_key"],
+          f"{label}: launches {g['by_key']} (graph) != {e['by_key']} (eager)")
     check(all(x > 0 for x in g["launches"]), f"{label}: a kernel of the path never launched")
-    print("    graph == eager bit for bit: states, likelihoods, parameters, metrics")
+    print("    graph == eager bit for bit: states, likelihoods, parameters, metrics"
+          + (f"; launches by key {g['by_key']}" if kernels else "")
+          + ("; each run's first call under sync debug mode \"error\"" if sync_error else ""))
     return rec
 
 
@@ -3506,6 +3545,238 @@ def phase_graphs_top(sc):
         *delta_graph_case(sc, chains=CHAINS, f_max=TOP_TIERS[1],
                           steps=(TOP16_CHAIN_STEPS, TOP16_CHAIN_STEPS // 2),
                           start=sc["truth"]))}
+
+
+def tempered_graph_case(device, n_bins=384):
+    """The flagship dense problem's tempered cycle: CHAINS chains from the
+    exploded start, all scored in one B1 launch at B = 260 a step;
+    SAMPLER_STEPS steps on the ladder up to T = 4, then half as many at 0.8
+    x the ladder."""
+    import torch
+    from graal_tpu_torch.core import mcmc
+    from graal_tpu_torch.core.state import GenomeState
+    from graal_tpu_torch.entry import problem
+    from graal_tpu_torch.ops.likelihood_cuda import make_dense_scorer
+    from graal_tpu_torch.parallel import tempering
+
+    state, table, params, obs, nb = problem(n_bins=n_bins, device=device)
+    scorer = make_dense_scorer(table, obs, device)
+    n = state.n_frags
+    gen = torch.Generator(device=device).manual_seed(SEED + 22)
+    start = mcmc.explode_genome(state)
+    states = GenomeState(*[x.expand(CHAINS, -1).clone() for x in start])
+    l0 = scorer(GenomeState(*[x[None] for x in start]), params)[0].expand(CHAINS).clone()
+    ladder = torch.as_tensor(tempering.temperature_ladder(CHAINS, t_max=4.0), device=device)
+    chunks = []
+    for steps, scale in ((SAMPLER_STEPS, 1.0), (SAMPLER_STEPS // 2, 0.8)):
+        orders = torch.stack([torch.randperm(n, generator=gen, device=device)[:steps]
+                              for _ in range(CHAINS)])
+        draws = tempering.draw_chain_inputs(gen, nb, DELTA, CHAINS, (steps,))
+
+        def call(cycle, carry, orders=orders, draws=draws, f_ts=ladder * scale):
+            cur, l_ts = carry or (states, l0)
+            cur, l_ts, ncs = cycle(cur, draws, params, orders, l_ts, f_ts)
+            return (cur, l_ts), (cur, l_ts, ncs)
+
+        chunks.append((call, steps))
+
+    def build(capture):
+        return tempering.make_tempered_cycle(table, obs, nb, DELTA, scorer=scorer,
+                                             capture=capture)
+
+    return build, chunks, [scorer]
+
+
+def move_chunks(start, params, l0, jump, gen):
+    """The two calls of an MTM / MH path: SAMPLER_STEPS steps at f_t 1 (a
+    Python float, as the runners pass it), then half as many at f_t 0.8
+    with the parameters perturbed (fact x 1.02)."""
+    import torch
+    from graal_tpu_torch.core import mtm
+
+    device = start.pos.device
+    chunks = []
+    for k, (n_steps, f_t) in enumerate(((SAMPLER_STEPS, 1.0), (SAMPLER_STEPS // 2, 0.8))):
+        order = torch.randperm(start.n_frags, generator=gen, device=device)[:n_steps]
+        draws = mtm.draw_move_inputs(gen, jump, (n_steps,))
+
+        def call(cycle, carry, order=order, draws=draws, f_t=f_t, k=k):
+            cur, l_t = carry or (start, l0)
+            par = params._replace(fact=params.fact * 1.02) if k else params
+            cur, l_t, ys = cycle(cur, draws, par, order, l_t, f_t)
+            return (cur, l_t), (cur, l_t, ys)
+
+        chunks.append((call, n_steps))
+    return chunks
+
+
+def mtm_graph_case(device, variant, n_bins=384):
+    """The flagship dense problem's MTM (or MH) cycle from the exploded
+    start, with its jump table (``entry.problem_jump_table``, MTM_DELTA
+    partners): each pass of a step one B1 launch at B = 91."""
+    import torch
+    from graal_tpu_torch.core import mcmc, mtm
+    from graal_tpu_torch.core.state import GenomeState
+    from graal_tpu_torch.entry import problem, problem_jump_table
+    from graal_tpu_torch.ops.likelihood_cuda import make_dense_scorer
+
+    state, table, params, obs, _ = problem(n_bins=n_bins, device=device)
+    scorer = make_dense_scorer(table, obs, device)
+    jump = problem_jump_table(state, table, obs, MTM_DELTA)
+    start = mcmc.explode_genome(state)
+    l0 = scorer(GenomeState(*[x[None] for x in start]), params)[0]
+    gen = torch.Generator(device=device).manual_seed(SEED + 23)
+
+    def build(capture):
+        return mtm.make_mtm_cycle(table, obs, jump, variant=variant, scorer=scorer,
+                                  capture=capture)
+
+    return build, move_chunks(start, params, l0, jump, gen), [scorer]
+
+
+def delta_mtm_graph_case(sc, variant):
+    """A delta MTM (or MH) path on B4 + B2 as ``ScaleRunner.run_mtm`` builds
+    its cycle at f_max F_MAX (the MH catalogue, M = 7 neighbour slots, each
+    pass one B4 and one B2 launch), from the set-up's shuffled start."""
+    import torch
+    from graal_tpu_torch.core.mtm import make_delta_mtm_cycle
+    from graal_tpu_torch.ops.mini_grid_cuda import MiniGridScorer
+    from graal_tpu_torch.ops.obsgrid_cuda import WindowObsGrid
+
+    runner, start, params = sc["runner"], sc["shuf"], sc["params"]
+    jump = runner.jump_table(MTM_DELTA, start.n_frags)
+    grid, mini = WindowObsGrid(), MiniGridScorer()
+    l0 = runner.anchor_fn()(start, params)
+    gen = torch.Generator(device=start.pos.device).manual_seed(SEED + 24)
+
+    def build(capture):
+        return make_delta_mtm_cycle(sc["table"], jump, F_MAX, sc["sobs"], variant=variant,
+                                    band_w=runner.w, obs_grid=grid, mini_grid=mini,
+                                    rep=start.rep, capture=capture)
+
+    return build, move_chunks(start, params, l0, jump, gen), [mini, grid]
+
+
+def cycle_end_graph_case(sc, n_cycles=4):
+    """``ScaleRunner.run``'s cycle end (the sparse re-anchor and the
+    nuisance step, nuisance on) on the set-up's shuffled start, one call a
+    cycle for ``n_cycles`` cycles, the parameters carried from call to call
+    and f_t alternating 1 and 0.8; the draws drawn from a generator before
+    each call, as the runner draws them."""
+    import torch
+    from graal_tpu_torch.core.mcmc import draw_nuisance_inputs
+
+    runner, state, params = sc["runner"], sc["shuf"], sc["params"]
+    gen = torch.Generator(device=state.pos.device).manual_seed(SEED + 25)
+    chunks = []
+    for k in range(n_cycles):
+        def call(end, carry, draws=draw_nuisance_inputs(gen), f_t=(1.0, 0.8)[k % 2]):
+            par, l_anchor, l_t = end(state, carry or params, f_t, draws)
+            return par, (par, l_anchor, l_t)
+
+        chunks.append((call, 1))
+
+    def build(capture):
+        return runner.cycle_end(True, capture=capture)
+
+    return build, chunks, []
+
+
+def run_mtm_memory(runner, start, steps, f_max_min, label):
+    """``ScaleRunner.run_mtm``, one cycle of ``steps`` steps: B2 and B4
+    twice a step (their counts read from the card), the peak memory, and
+    no graph held once it returns (every scan of the runner released, and
+    the memory allocated after it within 0.5 GB of before). Returns the
+    record."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    peak = PeakMemory()
+    t0 = time.perf_counter()
+    final, l_t, m = runner.run_mtm(start, n_cycles=1, steps_per_cycle=steps,
+                                   f_max_min=f_max_min, progress=False)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak_gb = peak.read(f"{label}, run_mtm at bucket {m['f_max'][0]}")[0]
+    del final
+    torch.cuda.empty_cache()
+    after = torch.cuda.memory_allocated()
+    held = [k for k, c in runner._cycles.items() if c.scan.graph is not None]
+    launches = m["launches"]
+    print(f"  {label}: bucket {m['f_max'][0]}, {steps} steps, launches {launches}, "
+          f"{seconds:.3f} s; allocated {before / 1e9:.3f} GB before, {after / 1e9:.3f} after "
+          f"(reserved {torch.cuda.memory_reserved() / 1e9:.3f}); scans holding a graph {held}")
+    check(launches == {"ll_mini": 2 * steps, "obsgrid": 2 * steps},
+          f"{label}: launches {launches} != two of each a step")
+    check(not held, f"{label}: scans {held} still hold a graph after run_mtm")
+    check(after - before < 0.5e9, f"{label}: {(after - before) / 1e9:.3f} GB more allocated "
+          "after run_mtm than before")
+    return dict(f_max=m["f_max"][0], steps=steps, launches=launches, seconds=seconds,
+                peak_gb=peak_gb, allocated_before_gb=before / 1e9, allocated_after_gb=after / 1e9)
+
+
+def phase_graphs_samplers(device, sc, rsc):
+    """7h. The sampler cycles besides EM and delta EM, each built twice,
+    captured and with capture=False, and run on the same inputs: the
+    tempered dense cycle (CHAINS chains, the flagship, B1 at B = 260), the
+    dense MTM and MH cycles (the flagship with its jump table, B1 at B =
+    91), the delta MTM cycle (the 100k problem at f_max F_MAX) and the
+    delta MH cycle (the 20k repeat twin, the repeat engine v2), each
+    SAMPLER_STEPS then SAMPLER_STEPS / 2 steps (one graph for both); and
+    ScaleRunner.run's cycle end, nuisance on, 4 cycles. Bit-equal states,
+    likelihoods, accept flags, contig counts, parameters and launches (by
+    key, from the card); each run's first call under sync debug mode
+    "error"; the peak memory of each. Then ScaleRunner.run_mtm holds no
+    graph once it returns (run_mtm_memory)."""
+    print("graph vs eager: the tempered, MTM / MH and delta MTM / MH cycles and the "
+          "runner's cycle end, captured and run eagerly on the same inputs")
+    steps = SAMPLER_STEPS + SAMPLER_STEPS // 2
+    k = 3 * 384   # the flagship's K
+
+    def launched(rec, want, label):
+        got = rec["graph"]["by_key"]
+        check(got == want, f"{label}: launches by key {got} != {want}")
+
+    out = {}
+    out["tempered_flagship"] = graph_vs_eager(
+        f"tempered flagship (B1 at B = 260), {CHAINS} chains",
+        *tempered_graph_case(device), sync_error=True)
+    launched(out["tempered_flagship"], [{str((260, k)): steps}], "tempered")
+    for variant in ("mtm", "mh"):
+        out[f"{variant}_flagship"] = graph_vs_eager(
+            f"dense {variant.upper()} flagship (B1 at B = {MTM_SLOTS})",
+            *mtm_graph_case(device, variant), sync_error=True)
+        launched(out[f"{variant}_flagship"], [{str((MTM_SLOTS, k)): 2 * steps}], variant)
+    out["delta_mtm_100k"] = graph_vs_eager(
+        f"100k delta MTM (B4 + B2, M = 7), f_max {F_MAX}", *delta_mtm_graph_case(sc, "mtm"),
+        sync_error=True)
+    out["delta_mh_repeat_20k"] = graph_vs_eager(
+        f"20k repeat delta MH (B4 + B2, M = 7), f_max {F_MAX}",
+        *delta_mtm_graph_case(rsc, "mh"), sync_error=True)
+    for name in ("delta_mtm_100k", "delta_mh_repeat_20k"):
+        launched(out[name], [{"None": 2 * steps}] * 2, name)
+    out["cycle_end_100k"] = graph_vs_eager(
+        "100k ScaleRunner.run cycle end (re-anchor + nuisance step)",
+        *cycle_end_graph_case(sc), sync_error=True)
+    sc["runner"].release_graphs()
+    out["run_mtm_100k"] = run_mtm_memory(sc["runner"], sc["shuf"], SAMPLER_STEPS, F_MAX,
+                                         "100k delta MTM")
+    return out
+
+
+def phase_mtm_top(sc):
+    """11h. (``--top-tiers`` only) ScaleRunner.run_mtm from the truth
+    (bucket 16,384, M = 7 a pass, two passes a step) for TOP16_CHAIN_STEPS
+    steps: its peak memory, and no graph held once it returns."""
+    from graal_tpu_torch.scale import ScaleRunner
+
+    runner = ScaleRunner(sc["table"], sc["sobs"], sc["params"], nb=sc["runner"].nb)
+    rec = run_mtm_memory(runner, sc["truth"], TOP16_CHAIN_STEPS, F_MAX,
+                         "delta MTM from the truth")
+    check(rec["f_max"] == TOP_TIERS[1], f"run_mtm ran at bucket {rec['f_max']}")
+    return rec
 
 
 def kernel_record(name, source, replaces, launches, record):
@@ -3645,6 +3916,7 @@ def main():
     r_mini, r_obs = phase("7b repeat delta main", phase_scale_main, rsc,
                           "repeat delta main path")
     graphs = phase("7g graph vs eager", phase_graphs, device, sc, rsc)
+    graphs.update(phase("7h samplers graph vs eager", phase_graphs_samplers, device, sc, rsc))
     phase("8 runner", phase_runner, sc)
     top = phase("8b runner top tiers", phase_runner_top, sc)
     chains = phase("11a chains", phase_chains, sc)
@@ -3682,7 +3954,7 @@ def main():
 
 def main_top():
     """``--top-tiers``: the build, the 100k set-up and the phases of the top
-    tiers (5 at every tier, 8b, 11e, 5c); their records on one JSON line,
+    tiers (5 at every tier, 8b, 11e, 11g, 11h, 5c); their records on one JSON line,
     then the same last lines as :func:`main` (no kernels line)."""
     t_start = time.perf_counter()
     device = phase_device()
@@ -3694,6 +3966,7 @@ def main_top():
     top = phase("8b runner top tiers", phase_runner_top, sc)
     top_chains = phase("11e chains top buckets", phase_chains_top, sc)
     graphs = phase("11g graph vs eager top", phase_graphs_top, sc)
+    graphs["run_mtm_top"] = phase("11h run_mtm top", phase_mtm_top, sc)
     crossover = phase("5c routes", phase_crossover, sc)
     print(f"smoke --top-tiers: {time.perf_counter() - t_start:.1f} s in all; phases "
           f"{json.dumps(PHASE_S)}", flush=True)

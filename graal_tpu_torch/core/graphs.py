@@ -1,18 +1,22 @@
 """A cycle as one captured device program.
 
-PyTorch counterpart of ``jax.jit`` + ``lax.scan`` in
-``graal_tpu/core/mcmc.py`` (``make_em_cycle``) and ``graal_tpu/core/delta.py``
-(``make_delta_em_cycle``): the JAX package compiles a step into one device
-program and runs a cycle as one scan over it, so the host neither decides
-nor launches anything inside a cycle. :class:`Scan` does the same with a
-CUDA graph. Its step body reads everything from static buffers the scan
-owns and writes its results back into them in place:
+PyTorch counterpart of ``jax.jit`` + ``lax.scan`` in the JAX package's
+cycles (``core/mcmc.py`` ``make_em_cycle``, ``core/delta.py``
+``make_delta_em_cycle``, ``parallel/tempering.py`` ``make_tempered_cycle``,
+``core/mtm.py`` ``make_mtm_cycle`` and the delta MTM / MH cycle of
+``scale.py``) and of its jitted once-a-cycle anchor and nuisance step: the
+JAX package compiles a step into one device program and runs a cycle as
+one scan over it, so the host neither decides nor launches anything inside
+a cycle. :class:`Scan` does the same with a CUDA graph. Its step body reads
+everything from static buffers the scan owns and writes its results back
+into them in place:
 
 - the carry (the genome, the parameters, the carried likelihood): read
   and overwritten every step;
 - the constants of a call (parameters the step only reads, ``f_t``);
 - the per-step inputs (the draws and the fragment order) as (capacity,
-  ...) tensors, row ``idx`` taken by a gather at a device step index;
+  ...) tensors, row ``idx`` taken by a gather at a device step index (a
+  body may have none: the runners' cycle end is one step of its scan);
 - the per-step outputs (the metrics) as (capacity, ...) tensors, written
   at row ``idx``; then ``idx += 1`` on the device.
 
@@ -220,11 +224,13 @@ class Scan:
         self.graph = graph
 
     # ---- a call ---------------------------------------------------------------
-    def __call__(self, carry, consts, xs):
+    def __call__(self, carry, consts, xs, n_steps=None):
+        """``n_steps``: the number of steps of a body with no per-step
+        inputs (``xs`` None), which gets ``x = None`` every step."""
         x_leaves = _leaves(xs)
-        if not x_leaves or x_leaves[0].shape[0] < 1:
+        n = x_leaves[0].shape[0] if x_leaves else n_steps
+        if not n or n < 1:
             raise ValueError("a scan needs at least one step")
-        n = x_leaves[0].shape[0]
         if any(x.shape[0] != n for x in x_leaves):
             raise ValueError("the per-step inputs disagree on the number of steps")
         # one step's slice of the per-step inputs fixes the step's shapes

@@ -163,10 +163,27 @@ def draw_step_inputs(gen: torch.Generator, nb: NeighbourTable, delta: int,
     u_g = torch.rand(shape + (n_slots(nb, delta),), generator=gen, device=dev)
     tiny = torch.finfo(torch.float32).tiny
     gumbel = -torch.log(-torch.log(u_g.clamp_min(tiny)))
+    return StepDraws(u_nb, gumbel, *draw_nuisance_inputs(gen, shape))
+
+
+class NuisanceDraws(NamedTuple):
+    """The random inputs of a nuisance step alone (the :class:`StepDraws`
+    fields it reads), with the caller's leading axes (e.g. chains)."""
+
+    id_modif: torch.Tensor  # (...,) int64 nuisance parameter in [0, 4)
+    eps: torch.Tensor       # (...,) standard normal perturbation
+    u_acc: torch.Tensor     # (...,) uniform of the Metropolis test
+
+
+def draw_nuisance_inputs(gen: torch.Generator, shape=()) -> NuisanceDraws:
+    """Draw the inputs of ``shape`` nuisance steps from ``gen``: id_modif,
+    eps and u, in that order (the order every caller draws them in, so a
+    seeded run keeps its bits)."""
+    dev = gen.device
+    shape = tuple(shape)
     id_modif = torch.randint(0, 4, shape, generator=gen, device=dev)
     eps = torch.randn(shape, generator=gen, device=dev)
-    u_acc = torch.rand(shape, generator=gen, device=dev)
-    return StepDraws(u_nb, gumbel, id_modif, eps, u_acc)
+    return NuisanceDraws(id_modif, eps, torch.rand(shape, generator=gen, device=dev))
 
 
 def _take(x, i):
@@ -469,8 +486,8 @@ def make_nuisance_step(table: SubFragTable, obs, ll_dtype=torch.float32,
     ``scorer`` (the EM step's batched scorer) at batch size 1.
 
     Returns step(state, rng, params, l_t, f_t) -> (params, l_t, accepted),
-    where ``rng`` is a Generator or a :class:`StepDraws` (its id_modif, eps
-    and u_acc are used).
+    where ``rng`` is a Generator, a :class:`StepDraws` or a
+    :class:`NuisanceDraws` (its id_modif, eps and u_acc are used).
     """
     if scorer is None:
         scorer = _default_scorer(table, obs, ll_dtype)
@@ -478,12 +495,8 @@ def make_nuisance_step(table: SubFragTable, obs, ll_dtype=torch.float32,
 
     def step(state: GenomeState, rng, params: RippeParams, l_t, f_t):
         if isinstance(rng, torch.Generator):
-            dev = rng.device
-            id_modif = torch.randint(0, 4, (), generator=rng, device=dev)
-            eps = torch.randn((), generator=rng, device=dev)
-            u = torch.rand((), generator=rng, device=dev)
-        else:
-            id_modif, eps, u = rng.id_modif, rng.eps, rng.u_acc
+            rng = draw_nuisance_inputs(rng)
+        id_modif, eps, u = rng.id_modif, rng.eps, rng.u_acc
         test_params, in_support = propose(id_modif, eps, params)
         l_star = scorer(GenomeState(*[x[None] for x in state]), test_params)[0]
         return nuisance_accept(u, test_params, params, l_star, l_t, f_t,

@@ -36,7 +36,9 @@ the JAX package's ``corrected=True`` changes the MH ratio only).
 Randomness: a step takes a ``torch.Generator`` or its draws as tensors
 (:class:`MoveDraws`: the Gumbel noise of the categorical over the slots
 and the acceptance uniform), so that tests can feed it the draws a JAX
-step consumed. Nothing in a step reads a device value on the host.
+step consumed. Nothing in a step reads a device value on the host, so a
+cycle is a scan of steps (:mod:`graal_tpu_torch.core.graphs`, the JAX
+package's jitted ``lax.scan``): a captured CUDA graph on the card.
 """
 
 from __future__ import annotations
@@ -47,6 +49,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from graal_tpu_torch.core import graphs
 from graal_tpu_torch.core.candidates import N_CANDIDATES, mh_candidates
 from graal_tpu_torch.core.mcmc import _default_scorer, _matrix_to_coo, _take, topk_rows
 from graal_tpu_torch.core.state import GenomeState
@@ -320,35 +323,49 @@ def make_mh_step(table: SubFragTable, obs, jump: JumpTable, ll_dtype=torch.float
 
 
 def make_mtm_cycle(table: SubFragTable, obs, jump: JumpTable, variant="mtm",
-                   ll_dtype=torch.float32, scorer=None, corrected: bool = False):
+                   ll_dtype=torch.float32, scorer=None, corrected: bool = False,
+                   capture=None):
     """One MTM / MH cycle over a fragment order (the start_MTM inner loop,
-    main_gl.py:361-379), a Python loop of steps.
+    main_gl.py:361-379), a scan of steps (:func:`_scan_cycle`).
 
     Returns cycle(state, rng, params, frag_order, l_t, f_t) -> (state, l_t,
     (lls, accepts, n_contigs)) with per-step tensors; ``rng`` is a
     Generator or :class:`MoveDraws` with a leading axis of
-    len(frag_order)."""
+    len(frag_order). ``capture``: as :class:`graal_tpu_torch.core.graphs.Scan`
+    takes it (False runs eagerly on the card)."""
     if variant not in ("mtm", "mh"):
         raise ValueError(f"unknown variant {variant!r} (expected mtm or mh)")
     step = (make_mtm_step if variant == "mtm" else make_mh_step)(
         table, obs, jump, ll_dtype, scorer=scorer, corrected=corrected)
-    return _loop(step, jump)
+    return _scan_cycle(step, jump, table.owner.device, capture)
 
 
-def _loop(step, jump):
+def _scan_cycle(step, jump, device, capture):
+    """The cycle of ``step`` as a :class:`graal_tpu_torch.core.graphs.Scan`
+    (the JAX package's jitted ``lax.scan``): on a CUDA device one captured
+    graph replayed once a step, elsewhere the same body step by step.
+    Carry (state, l_t), constants (params, f_t: a Python f_t becomes a 0-d
+    f32 buffer, reloaded by every call), per-step inputs (the draws, the
+    fragment), outputs (l_t, accepted, n_contigs) stacked by the scan."""
+    def body(carry, consts, x):
+        state, l_t = carry
+        params, f_t = consts
+        draws, f_a = x
+        state, l_t, accepted, n_contigs = step(state, draws, params, l_t, f_a, f_t)
+        return (state, l_t), (l_t, accepted, n_contigs)
+
+    scan = graphs.Scan(body, device, capture=capture)
+
     def cycle(state: GenomeState, rng, params, frag_order, l_t, f_t):
-        frag_order = torch.as_tensor(frag_order, device=state.pos.device).long()
-        n_steps = frag_order.shape[0]
+        dev = state.pos.device
+        frag_order = torch.as_tensor(frag_order, device=dev).long()
         if isinstance(rng, torch.Generator):
-            rng = draw_move_inputs(rng, jump, (n_steps,))
-        rows = []
-        for i in range(n_steps):
-            state, l_t, accepted, n_contigs = step(
-                state, MoveDraws(*[x[i] for x in rng]), params, l_t, frag_order[i], f_t)
-            rows.append((l_t, accepted, n_contigs))
-        lls, accepts, ncs = (torch.stack(col) for col in zip(*rows))
-        return state, l_t, (lls, accepts, ncs)
+            rng = draw_move_inputs(rng, jump, (frag_order.shape[0],))
+        l_t = torch.as_tensor(l_t, device=dev)
+        (state, l_t), ys = scan((state, l_t), (params, f_t), (rng, frag_order))
+        return state, l_t, ys
 
+    cycle.scan = scan
     return cycle
 
 
@@ -495,13 +512,15 @@ def make_delta_mh_step(table: SubFragTable, jump: JumpTable, f_max: int, sobs,
 
 def make_delta_mtm_cycle(table: SubFragTable, jump: JumpTable, f_max: int, sobs,
                          variant: str = "mtm", band_w: int | None = None,
-                         corrected: bool = False, obs_grid=None, mini_grid=None, rep=None):
-    """A delta-scored MTM / MH cycle (a Python loop of steps), with the
-    signature and outputs of :func:`make_mtm_cycle`; no re-anchor (the
-    caller anchors once per cycle)."""
+                         corrected: bool = False, obs_grid=None, mini_grid=None, rep=None,
+                         capture=None):
+    """A delta-scored MTM / MH cycle (a scan of steps, as
+    :func:`make_mtm_cycle`'s), with its signature and outputs; no re-anchor
+    (the caller anchors once per cycle). What a capture fixes, the bucket
+    ``f_max``, the jump table's delta, the engine, is fixed by this cycle."""
     if variant not in ("mtm", "mh"):
         raise ValueError(f"unknown variant {variant!r} (expected mtm or mh)")
     step = (make_delta_mtm_step if variant == "mtm" else make_delta_mh_step)(
         table, jump, f_max, sobs, band_w=band_w, corrected=corrected, obs_grid=obs_grid,
         mini_grid=mini_grid, rep=rep)
-    return _loop(step, jump)
+    return _scan_cycle(step, jump, table.owner.device, capture)

@@ -8,7 +8,8 @@ for another (the CPU tests pass ``device="cpu"``).
   genome (384 bins x 3 sub-fragments, K = 1,152, 16 contigs) with its
   observed map and neighbour table, and one EM step over it (delta = 4, 65
   candidates per step) scored by the dense scorer, which launches the CUDA
-  kernel when ``device`` is a GPU.
+  kernel when ``device`` is a GPU; :func:`problem_jump_table`, its MTM / MH
+  jumping distributions.
 - :func:`repeat_problem`: the flagship genome with 12 bins duplicated
   once (the recipe of the JAX package's repeat scorer tests at the
   flagship width): K = 1,188 copy rows on S = 1,152 data subs, 396
@@ -55,6 +56,20 @@ def problem(n_bins=384, n_contigs=16, seed=0, device="cuda"):
     nb = mcmc.build_neighbour_table(bins, np.arange(n_bins), n_bins,
                                     device=device)
     return state, table, params, obs, nb
+
+
+def problem_jump_table(state, table, obs, delta=5):
+    """The MTM / MH jump table of a :func:`problem` (``pipeline.Runner``'s
+    recipe: the bin-level contacts, each bin normalised by its subs' accu
+    mass), on the genome's device; ``delta`` partners a fragment (the
+    refinement stages' default)."""
+    from graal_tpu_torch.core.mtm import build_jump_table
+
+    n = state.n_frags
+    norm = np.bincount(table.owner.cpu().numpy(), weights=table.accu.cpu().numpy(),
+                       minlength=n)
+    return build_jump_table(bin_level_matrix(obs, table), norm, state.id_d.cpu().numpy(), n,
+                            delta, device=state.pos.device)
 
 
 def entry(device="cuda", **problem_kw):

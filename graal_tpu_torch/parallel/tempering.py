@@ -15,7 +15,9 @@ it draws the neighbours and score slots of all chains at once (each chain
 as it would alone) and scores the candidates of all chains in one scorer
 call a step, B = chains x slots. Given a ``parallel.sharding.Mesh`` (the
 JAX package's ``mesh=``) the chains split over its chains axis: each rank
-steps its share batched and the ensemble is gathered after the cycle.
+steps its share batched and the ensemble is gathered after the cycle. A
+cycle is a scan of steps (:mod:`graal_tpu_torch.core.graphs`: a captured
+CUDA graph on the card); the swaps run between cycles.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from graal_tpu_torch.core import mcmc
+from graal_tpu_torch.core import graphs, mcmc
 from graal_tpu_torch.core.state import GenomeState
 from graal_tpu_torch.parallel.sharding import gather_chains
 
@@ -54,7 +56,7 @@ def draw_chain_inputs(gen: torch.Generator, nb: mcmc.NeighbourTable, delta: int,
 
 
 def make_tempered_cycle(table, obs, nb: mcmc.NeighbourTable, delta: int, scorer=None,
-                        mesh=None):
+                        mesh=None, capture=None):
     """Build cycle(states, rng, params, frag_orders, l_ts, f_ts) ->
     (states, l_ts, n_contigs), chains on the leading axis of every
     argument (``frag_orders`` (C, steps)); ``rng`` is a Generator or
@@ -63,8 +65,25 @@ def make_tempered_cycle(table, obs, nb: mcmc.NeighbourTable, delta: int, scorer=
     scores every chain's candidates. With a ``mesh`` each rank steps the
     chains of its chain block (drawing the whole ensemble's inputs, so the
     split equals the one-process cycle) and the outputs are the whole
-    ensemble's, gathered over the chains axis."""
+    ensemble's, gathered over the chains axis after the steps.
+
+    The steps are a :class:`graal_tpu_torch.core.graphs.Scan` (the JAX
+    package's jitted ``lax.scan``): on a CUDA table one captured graph
+    replayed once a step, elsewhere the same body step by step; carry
+    (states, l_ts), constants (params, f_ts), per-step inputs (the draws,
+    each chain's fragment). ``capture``: as the scan takes it (False runs
+    eagerly on the card)."""
     step = mcmc.make_em_step(table, obs, nb, delta, scorer=scorer)
+
+    def body(carry, consts, x):
+        states, l_ts = carry
+        params, f_ts = consts
+        draws, f_a = x
+        states, (score, _, _) = step(states, draws, params, f_a, f_ts)
+        l_ts = torch.where(torch.isfinite(score), score, l_ts)
+        return (states, l_ts), states.n_contigs()
+
+    scan = graphs.Scan(body, table.owner.device, capture=capture)
 
     def cycle(states: GenomeState, rng, params, frag_orders, l_ts, f_ts):
         dev = states.pos.device
@@ -74,14 +93,13 @@ def make_tempered_cycle(table, obs, nb: mcmc.NeighbourTable, delta: int, scorer=
         if isinstance(rng, torch.Generator):
             rng = draw_chain_inputs(rng, nb, delta, c, (n_steps,))
         lo, hi = (0, c) if mesh is None else mesh.chain_span(c)
-        states, l_ts, f_ts = GenomeState(*[x[lo:hi] for x in states]), l_ts[lo:hi], f_ts[lo:hi]
-        for i in range(n_steps):
-            states, (score, _, _) = step(states, ChainDraws(*[x[i, lo:hi] for x in rng]),
-                                         params, frag_orders[lo:hi, i], f_ts)
-            l_ts = torch.where(torch.isfinite(score), score, l_ts)
-        out = (states, l_ts, states.n_contigs())
+        (states, l_ts), ncs = scan(
+            (GenomeState(*[x[lo:hi] for x in states]), l_ts[lo:hi]), (params, f_ts[lo:hi]),
+            (ChainDraws(*[x[:, lo:hi] for x in rng]), frag_orders[lo:hi].T))
+        out = (states, l_ts, ncs[-1])
         return out if mesh is None else gather_chains(out, c, mesh)
 
+    cycle.scan = scan
     return cycle
 
 

@@ -516,7 +516,9 @@ class Runner:
                         progress=True, mesh=None) -> Assembly:
         """Parallel-tempered EM: ``n_chains`` chains (default
         ``cfg.n_chains``) on a geometric ladder up to ``t_max``, batched on
-        the run's device (one scorer call a step for all chains), with
+        the run's device (one scorer call a step for all chains; a cycle is
+        one captured graph replayed once a step on the card,
+        ``parallel.tempering.make_tempered_cycle``), with
         replica-exchange swaps every ``exchange_every`` cycles and a final
         best-genome consolidation. No nuisance sampling (as in the JAX
         package). ``self.chain_states`` keeps every chain's final genome.
@@ -571,7 +573,11 @@ class Runner:
         """MTM (or plain MH, ``variant='mh'``) refinement cycles (start_MTM,
         main_gl.py:344-399), usually after EM on its ``assembly``: every
         pass of a step scores its (delta + 2) x 13 candidates in one call of
-        the run's scorer. The generator is seeded with ``seed + 1``."""
+        the run's scorer. A cycle is one captured graph replayed once a step
+        on the card (``core.mtm.make_mtm_cycle``); each cycle's f_t (the
+        sampler's temperature schedule) is reloaded into the graph's 0-d
+        buffer, so the card divides by it as the eager body does. The
+        generator is seeded with ``seed + 1``."""
         cfg = self.cfg
         dev = self.device
         n_cycles = n_cycles or cfg.sampler.n_cycles

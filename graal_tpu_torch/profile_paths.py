@@ -12,8 +12,14 @@ PATH is any of ``dense`` (the flagship dense EM path, nuisance sampling on),
 bins), and ``chains`` / ``chains_repeat`` (the same two problems' tempered
 chains path, ``ScaleRunner.chains_cycle_for(1024, 4)``: 4 chains from
 distinct shuffles, each with its own parameters, on a ladder up to
-T = 4, one B2 and one B4 launch a step for all of them); all six by
-default. Each path runs in each of ``--modes``: ``graph``, its cycle as
+T = 4, one B2 and one B4 launch a step for all of them); ``tempered`` (4
+tempered chains of the flagship dense problem, ``parallel.tempering``'s
+cycle, one B1 launch at B = 260 a step for all of them), ``mtm`` and
+``mh`` (the flagship's dense MTM / MH cycles, ``core.mtm.make_mtm_cycle``
+with the jump table of ``entry.problem_jump_table``: two B1 launches at B
+= 91 a step) and ``delta_mtm`` (the 100k problem's delta MTM cycle at
+f_max 1,024 as ``ScaleRunner.run_mtm`` builds it: B4 and B2 twice a step,
+M = 7); all ten by default. Each path runs in each of ``--modes``: ``graph``, its cycle as
 the captured CUDA graph the entry points run (``core.graphs.Scan``,
 replayed once a step), and ``eager``, the same step body run eagerly
 (``capture=False``). Each run takes ``--warm`` steps (the graph's first
@@ -58,8 +64,10 @@ import torch
 from graal_tpu_torch.entry import DELTA
 
 F_MAX = 1024
-PATHS = ("dense", "dense_repeat", "delta", "delta_repeat", "chains", "chains_repeat")
+PATHS = ("dense", "dense_repeat", "delta", "delta_repeat", "chains", "chains_repeat",
+         "tempered", "mtm", "mh", "delta_mtm")
 N_CHAINS = 4
+MTM_DELTA = 5     # the refinement stages' jump-table partners
 SPIN_HZ = 2.0e9   # torch.cuda._sleep cycles a second: above any H100 SM clock
 
 
@@ -85,6 +93,81 @@ def dense_runner(device, repeat: bool, capture: bool):
             carry["state"], gen, carry["params"], order, carry["l_t"], 1.0)
 
     return run, torch.randperm(state.n_frags, generator=gen, device=device)
+
+
+def tempered_runner(device, capture: bool):
+    """``run(orders) -> None``: steps of ``N_CHAINS`` tempered chains of the
+    flagship dense problem from its exploded start, on a ladder up to T =
+    4, scored by the dense kernel."""
+    from graal_tpu_torch.core import mcmc
+    from graal_tpu_torch.core.state import GenomeState
+    from graal_tpu_torch.entry import problem
+    from graal_tpu_torch.ops.likelihood_cuda import make_dense_scorer
+    from graal_tpu_torch.parallel.tempering import make_tempered_cycle, temperature_ladder
+
+    state, table, params, obs, nb = problem(device=device)
+    scorer = make_dense_scorer(table, obs, device)
+    cycle = make_tempered_cycle(table, obs, nb, DELTA, scorer=scorer, capture=capture)
+    gen = torch.Generator(device=device).manual_seed(0)
+    start = mcmc.explode_genome(state)
+    l0 = scorer(GenomeState(*[x[None] for x in start]), params)[0]
+    ladder = torch.as_tensor(temperature_ladder(N_CHAINS, t_max=4.0), device=device)
+    carry = dict(states=GenomeState(*[x.expand(N_CHAINS, -1).clone() for x in start]),
+                 l_ts=l0.expand(N_CHAINS).clone())
+
+    def run(orders):
+        carry["states"], carry["l_ts"], _ = cycle(carry["states"], gen, params, orders,
+                                                  carry["l_ts"], ladder)
+
+    return run, torch.stack([torch.randperm(state.n_frags, generator=gen, device=device)
+                             for _ in range(N_CHAINS)])
+
+
+def mtm_runner(device, variant: str, capture: bool):
+    """``run(order) -> None``: dense MTM (or MH) steps of the flagship
+    problem from its exploded start, both passes of a step scored by the
+    dense kernel."""
+    from graal_tpu_torch.core import mcmc, mtm
+    from graal_tpu_torch.core.state import GenomeState
+    from graal_tpu_torch.entry import problem, problem_jump_table
+    from graal_tpu_torch.ops.likelihood_cuda import make_dense_scorer
+
+    state, table, params, obs, _ = problem(device=device)
+    scorer = make_dense_scorer(table, obs, device)
+    cycle = mtm.make_mtm_cycle(table, obs, problem_jump_table(state, table, obs, MTM_DELTA),
+                               variant=variant, scorer=scorer, capture=capture)
+    gen = torch.Generator(device=device).manual_seed(0)
+    cur = mcmc.explode_genome(state)
+    carry = dict(state=cur, l_t=scorer(GenomeState(*[x[None] for x in cur]), params)[0])
+
+    def run(order):
+        carry["state"], carry["l_t"], _ = cycle(carry["state"], gen, params, order,
+                                                carry["l_t"], 1.0)
+
+    return run, torch.randperm(state.n_frags, generator=gen, device=device)
+
+
+def delta_mtm_runner(device, capture: bool):
+    """``run(order) -> None``: delta MTM steps of the chr1-class problem
+    from its shuffled start, at f_max 1,024 (``ScaleRunner.run_mtm``'s
+    cycle: the MH catalogue through the runner's B4 and B2)."""
+    from graal_tpu_torch.core.mtm import make_delta_mtm_cycle
+    from graal_tpu_torch.entry import scale_problem
+    from graal_tpu_torch.scale import ScaleRunner
+
+    _, shuf, table, params, sobs = scale_problem(device=device)
+    runner = ScaleRunner(table, sobs, params)
+    cycle = make_delta_mtm_cycle(table, runner.jump_table(MTM_DELTA, shuf.n_frags), F_MAX,
+                                 sobs, band_w=runner.w, obs_grid=runner.obs_grid,
+                                 mini_grid=runner.mini_grid, rep=shuf.rep, capture=capture)
+    gen = torch.Generator(device=device).manual_seed(0)
+    carry = dict(state=shuf, l_t=runner.anchor_fn()(shuf, params))
+
+    def run(order):
+        carry["state"], carry["l_t"], _ = cycle(carry["state"], gen, params, order,
+                                                carry["l_t"], 1.0)
+
+    return run, torch.randperm(shuf.n_frags, generator=gen, device=device)
 
 
 def runner_cycle(runner, rep, capture: bool):
@@ -175,10 +258,16 @@ def profile_path(name: str, device, warm: int, steps: int, table_dir: Path | Non
                  mode: str = "graph"):
     from torch.profiler import ProfilerActivity, profile
 
-    repeat = name.endswith("_repeat")
-    make = {"delta": delta_runner, "chains": chains_runner}.get(name.split("_")[0],
-                                                                 dense_runner)
-    run, order = make(device, repeat, mode == "graph")
+    capture = mode == "graph"
+    if name in ("mtm", "mh"):
+        run, order = mtm_runner(device, name, capture)
+    elif name in ("tempered", "delta_mtm"):
+        run, order = {"tempered": tempered_runner, "delta_mtm": delta_mtm_runner}[name](
+            device, capture)
+    else:
+        make = {"delta": delta_runner, "chains": chains_runner}.get(name.split("_")[0],
+                                                                     dense_runner)
+        run, order = make(device, name.endswith("_repeat"), capture)
     if warm + 3 * steps > order.shape[-1]:
         raise ValueError(f"{name}: warm + 3 x steps exceeds the {order.shape[-1]} fragments")
     run(order[..., :warm])

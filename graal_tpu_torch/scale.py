@@ -6,7 +6,11 @@ candidates are scored by the mini-state delta engine (:mod:`core.delta`)
 at a contig-capacity bucket ``f_max`` chosen per step from a ladder of
 tiers; the carried likelihood is re-anchored once per cycle by the sparse
 banded full evaluation, which also scores the optional per-cycle
-nuisance-parameter step.
+nuisance-parameter step. Every cycle is a scan of steps and every cycle end
+(the re-anchor and the nuisance step, :meth:`ScaleRunner.cycle_end`) one
+step of a scan (:mod:`core.graphs`): on the card captured graphs, which a
+run releases when it ends (``run_chains`` and ``run_mtm`` also when they
+leave a bucket).
 
 The device work of a chunk of steps is enqueued without a host read; the
 host reads the chunk's operations and overflow counts only between chunks.
@@ -125,8 +129,7 @@ class ScaleRunner:
         self.mini_grid = MiniGridScorer()
         self._anchor = None
         self._chains_anchor = None
-        self._cycles = {}      # (f_max, delta) -> cycle
-        self._nuis = None
+        self._cycles = {}      # every scan of the runner: its cycles and cycle ends
 
     # ---- pieces ------------------------------------------------------------
     def chains_anchor_fn(self):
@@ -159,10 +162,16 @@ class ScaleRunner:
             self._anchor = anchor
         return self._anchor
 
-    def scorer(self):
-        """Batched sparse full-likelihood scorer ``(states (B, n), params)
-        -> (B,)`` (the nuisance step's): one chains-axis evaluation."""
-        return self.chains_anchor_fn()
+    def _check_rep(self, rep):
+        """On a repeat table, check the repeat engine's exactness contract
+        against ``rep``, the repeat flags of the genome a cycle will run on
+        (host): a cycle is built once and may run on several genomes."""
+        if self.table.has_repeats:
+            from graal_tpu_torch.core.delta_repeats import check_exactness_contract
+
+            if rep is None:
+                raise ValueError("a repeat table's cycle needs the genome's rep flags")
+            check_exactness_contract(self.table, rep)
 
     def cycle_for(self, f_max: int, delta: int, rep=None):
         """The delta cycle of bucket ``f_max``, without an internal re-anchor
@@ -170,12 +179,7 @@ class ScaleRunner:
         repeat flags of the genome the cycle will run on, is required: the
         repeat engine's exactness contract is checked against it (host)
         on every call, the cycle itself built once."""
-        if self.table.has_repeats:
-            from graal_tpu_torch.core.delta_repeats import check_exactness_contract
-
-            if rep is None:
-                raise ValueError("a repeat table's cycle needs the genome's rep flags")
-            check_exactness_contract(self.table, rep)
+        self._check_rep(rep)
         if (f_max, delta) not in self._cycles:
             self._cycles[(f_max, delta)] = delta_mod.make_delta_em_cycle(
                 self.table, None, self.nb, delta=delta, f_max=f_max, sobs=self.sobs,
@@ -183,23 +187,66 @@ class ScaleRunner:
                 mini_grid=self.mini_grid, rep=rep)
         return self._cycles[(f_max, delta)]
 
-    def release_graphs(self, keep=None):
-        """Release the captured graphs of this runner's cycles, all but
-        ``keep``'s (:meth:`core.graphs.Scan.release`): their memory goes
-        back to the allocator, and a cycle called again captures anew. A
-        run releases every cycle's when it ends, and ``run_chains`` the
-        buckets it leaves, so a run holds graph memory only for the buckets
-        it steps in, and none once it returns."""
+    def release_graphs(self, *keep):
+        """Release the captured graphs of this runner's scans (its cycles
+        and cycle ends), all but ``keep``'s
+        (:meth:`core.graphs.Scan.release`): their memory goes back to the
+        allocator, and a scan called again captures anew. A run releases
+        every scan's when it ends, and ``run_chains`` and ``run_mtm`` the
+        buckets they leave, so a run holds graph memory only for the bucket
+        it steps in (and, in ``run``, the tiers of its cycles), and none
+        once it returns."""
         for cycle in self._cycles.values():
-            if cycle is not keep:
+            if all(cycle is not k for k in keep):
                 cycle.scan.release()
 
-    def nuisance_step(self):
-        if self._nuis is None:
-            self._nuis = mcmc.make_nuisance_step(
-                self.table, None, scorer=self.scorer(),
-                d_max_cap=self.max_covered_d_max)
-        return self._nuis
+    def cycle_end(self, sample_param: bool, chains: bool = False, capture=None):
+        """The end of every cycle of :meth:`run` (one genome) or
+        :meth:`run_chains` (``chains``: a chains axis, each chain with its
+        own parameters and temperature): the re-anchor under the current
+        parameters and, with ``sample_param``, the nuisance-parameter
+        Metropolis step, its test parameters scored by the same anchor.
+        The JAX package jits each; here both are one step of a
+        :class:`core.graphs.Scan`, a captured graph replayed once a cycle
+        on the card (``capture``: as the scan takes it; False runs eagerly).
+        With more than one rank the anchor is row-sharded (an
+        ``all_reduce``) and the end runs eagerly.
+
+        Returns ``end(states, params, f_t, draws) -> (params, l_anchor,
+        l_t)``: ``draws`` the step's :class:`core.mcmc.NuisanceDraws` (None
+        without ``sample_param``), drawn by the caller from the run's
+        generator outside the graph; ``l_anchor`` the re-anchor, ``l_t``
+        the likelihood after the nuisance step."""
+        from graal_tpu_torch.core import graphs
+        from graal_tpu_torch.parallel import sharding
+
+        if sharding.world_size() > 1:
+            capture = False
+        key = ("end", sample_param, chains, capture)
+        if key not in self._cycles:
+            anchor = self.chains_anchor_fn() if chains else self.anchor_fn()
+            propose = mcmc.make_nuisance_proposer(d_max_cap=self.max_covered_d_max)
+
+            def body(params, consts, draws):
+                states, f_t = consts
+                l_anchor = anchor(states, params)
+                if not sample_param:
+                    return params, (l_anchor, l_anchor)
+                test, ok = propose(draws.id_modif, draws.eps, params)
+                params, l_t, _ = mcmc.nuisance_accept(draws.u_acc, test, params,
+                                                      anchor(states, test), l_anchor, f_t, ok)
+                return params, (l_anchor, l_t)
+
+            scan = graphs.Scan(body, self.device, capture=capture)
+
+            def end(states, params, f_t, draws):
+                draws = None if draws is None else type(draws)(*[x[None] for x in draws])
+                params, (l_anchor, l_t) = scan(params, (states, f_t), draws, n_steps=1)
+                return params, l_anchor[0], l_t[0]
+
+            end.scan = scan
+            self._cycles[key] = end
+        return self._cycles[key]
 
     # ---- run ---------------------------------------------------------------
     def run(self, state0: GenomeState, n_cycles: int, delta: int = 4,
@@ -343,9 +390,9 @@ class ScaleRunner:
                 outs.extend(outs_r)
             overs = np.concatenate([o[3] for o in outs])
             ncs = np.concatenate([o[4] for o in outs])
-            l_t = anchor(state, params)   # one re-anchor per cycle
-            if sample_param:
-                params, l_t, _ = self.nuisance_step()(state, gen, params, l_t, f_t)
+            # one re-anchor (and nuisance step) per cycle
+            draws = mcmc.draw_nuisance_inputs(gen) if sample_param else None
+            params, _, l_t = self.cycle_end(sample_param)(state, params, f_t, draws)
             l_t_host = float(l_t)
             cycle_s = time.time() - tc
             n_over = int(overs.sum())
@@ -394,12 +441,7 @@ class ScaleRunner:
         (``parallel.sharding.make_sharded_delta_cycle``). Every bucket
         launches through the runner's one B4 and one B2 wrapper. ``rep``:
         as :meth:`cycle_for` takes it."""
-        if self.table.has_repeats:
-            from graal_tpu_torch.core.delta_repeats import check_exactness_contract
-
-            if rep is None:
-                raise ValueError("a repeat table's cycle needs the genome's rep flags")
-            check_exactness_contract(self.table, rep)
+        self._check_rep(rep)
         key = (f_max, delta, "chains", id(mesh))
         if key not in self._cycles:
             if mesh is None:
@@ -468,14 +510,13 @@ class ScaleRunner:
         steps = steps_per_cycle or n
         rep = state0.rep.cpu().numpy()   # no move changes rep
         mesh = sharding.chain_mesh(n_chains) if sharding.world_size() > 1 else None
-        anchor_c = self.chains_anchor_fn()
         states = GenomeState(*[x.expand(n_chains, n).clone() for x in state0])
         params_c = RippeParams(*[torch.as_tensor(x, device=dev).expand(n_chains).clone()
                                  for x in self.params])
         l_ts = self.anchor_fn()(state0, self.params).expand(n_chains).clone()
         ladder = torch.as_tensor(temperature_ladder(n_chains, t_min=f_t,
                                                     t_max=max(t_max, f_t)), device=dev)
-        propose = mcmc.make_nuisance_proposer(d_max_cap=self.max_covered_d_max)
+        end = self.cycle_end(sample_param, chains=True)
         s_max = delta_mod.build_mini_table(self.table, allow_repeats=True).s_max
         gen = torch.Generator(device=dev).manual_seed(seed)
         metrics = {"likelihood": [], "best": [], "f_max": [], "swaps": [], "drift": [],
@@ -498,23 +539,18 @@ class ScaleRunner:
             bucket = int(np.clip(_next_pow2(2 * big + 2 * s_max), f_max_min,
                                  min(f_max_cap, _next_pow2(n))))
             cycle = self.chains_cycle_for(bucket, delta, mesh=mesh, rep=rep)
-            self.release_graphs(keep=cycle)
+            self.release_graphs(cycle, end)
             order = torch.stack([torch.randperm(n, generator=gen, device=dev)[:steps]
                                  for _ in range(n_chains)])
             for i in range(0, steps, chunk_steps):
                 states, l_ts, *_ = cycle(states, gen, params_c, order[:, i:i + chunk_steps],
                                          l_ts, ladder)
-            # re-anchor each chain under its own params (f32 drift control)
-            carried, l_ts = l_ts, anchor_c(states, params_c)
-            metrics["drift"].append((carried - l_ts).abs().tolist())
-            if sample_param:
-                id_modif = torch.randint(0, 4, (n_chains,), generator=gen, device=dev)
-                eps = torch.randn((n_chains,), generator=gen, device=dev)
-                u = torch.rand((n_chains,), generator=gen, device=dev)
-                test, ok = propose(id_modif, eps, params_c)
-                params_c, l_ts, _ = mcmc.nuisance_accept(u, test, params_c,
-                                                         anchor_c(states, test), l_ts, ladder,
-                                                         ok)
+            # re-anchor each chain under its own params (f32 drift control),
+            # then its nuisance step at its own temperature
+            draws = mcmc.draw_nuisance_inputs(gen, (n_chains,)) if sample_param else None
+            carried = l_ts
+            params_c, l_anchor, l_ts = end(states, params_c, ladder, draws)
+            metrics["drift"].append((carried - l_anchor).abs().tolist())
             n_swaps = 0
             if exchange_every and (j + 1) % exchange_every == 0 and n_chains > 1:
                 (states, params_c), l_ts, acc = pt_swap((states, params_c), l_ts, ladder, gen,
@@ -597,10 +633,14 @@ class ScaleRunner:
         main_gl.py:344-399), usually on :meth:`run`'s output. A repeat table
         goes to the repeat engine v2. Each cycle runs at the bucket of its
         largest contig, in chunks of ``chunk_steps`` steps enqueued without
-        a host read, and is re-anchored by the full sparse likelihood.
+        a host read, and is re-anchored by the full sparse likelihood. A
+        bucket's cycle is a scan of steps (:func:`core.mtm.make_delta_mtm_cycle`:
+        a captured graph on the card), whose graph is released when the run
+        leaves the bucket and when it ends (:meth:`release_graphs`).
         Randomness comes from a ``torch.Generator`` seeded with ``seed``.
         Returns (state, l_t, metrics); ``metrics["launches"]`` counts the
-        kernel launches of the refinement (ll_mini, obsgrid)."""
+        kernel launches of the refinement (ll_mini, obsgrid), read from the
+        wrappers' counts on the card after the run."""
         from graal_tpu_torch.core.mtm import make_delta_mtm_cycle
 
         n = state0.n_frags
@@ -608,33 +648,38 @@ class ScaleRunner:
         steps = steps_per_cycle or n
         jump = self.jump_table(delta, n)
         rep = state0.rep.cpu().numpy()   # no move changes rep
-        anchor = self.anchor_fn()
+        self._check_rep(rep)
+        end = self.cycle_end(False)
         params = self.params
         state = state0
-        l_t = anchor(state, params)
+        l_t = self.anchor_fn()(state, params)
         s_max = delta_mod.build_mini_table(self.table, allow_repeats=True).s_max
         gen = torch.Generator(device=dev).manual_seed(seed)
         metrics = {"likelihood": [], "accept_rate": [], "n_contigs": [], "f_max": [],
                    "cycle_s": []}
         launches0 = (self.mini_grid.n_launches, self.obs_grid.n_launches)
-        cycles = {}
         t0 = time.time()
         for j in range(n_cycles):
             bucket = _next_pow2(2 * max_contig_subs(state, self.table) + 2 * s_max)
             bucket = int(np.clip(bucket, f_max_min, min(f_max_cap, _next_pow2(n))))
-            if bucket not in cycles:
-                cycles[bucket] = make_delta_mtm_cycle(
+            # the jump table is a function of the runner's maps and delta, so
+            # a cycle built by an earlier call serves this one too
+            key = ("mtm", bucket, delta, variant, corrected)
+            if key not in self._cycles:
+                self._cycles[key] = make_delta_mtm_cycle(
                     self.table, jump, bucket, self.sobs, variant=variant, band_w=self.w,
                     corrected=corrected, obs_grid=self.obs_grid, mini_grid=self.mini_grid,
                     rep=rep)
+            cycle = self._cycles[key]
+            self.release_graphs(cycle, end)
             tc = time.time()
             order = torch.randperm(n, generator=gen, device=dev)[:steps]
             accs = []
             for i in range(0, steps, chunk_steps):
-                state, l_t, (_, acc, ncs) = cycles[bucket](state, gen, params,
-                                                           order[i:i + chunk_steps], l_t, f_t)
+                state, l_t, (_, acc, ncs) = cycle(state, gen, params, order[i:i + chunk_steps],
+                                                  l_t, f_t)
                 accs.append(acc.cpu().numpy())   # host read between chunks
-            l_t = anchor(state, params)          # re-anchor per cycle
+            _, _, l_t = end(state, params, f_t, None)   # re-anchor per cycle
             acc_rate = float(np.mean(np.concatenate(accs)))
             nc = int(ncs[-1])
             metrics["likelihood"].append(float(l_t))
@@ -646,6 +691,7 @@ class ScaleRunner:
                 print(f"scale {variant} cycle {j}: loglik={float(l_t):.1f} "
                       f"accept={acc_rate:.2f} n_contigs={nc} f_max={bucket} "
                       f"({time.time() - t0:.1f}s)", flush=True)
+        self.release_graphs()
         check_invariants(state)
         metrics["launches"] = {"ll_mini": self.mini_grid.n_launches - launches0[0],
                                "obsgrid": self.obs_grid.n_launches - launches0[1]}

@@ -394,14 +394,17 @@ class SpyB2(MiniGridScorer):
         return super().__call__(*args)
 
 
-@pytest.mark.parametrize("engine", ["repeat_v2", "mh_catalogue", "chains"])
+@pytest.mark.parametrize("engine", ["repeat_v2", "mh_catalogue", "chains", "delta_mtm_cycle"])
 def test_engine_inputs_keep_the_contract_on(engine):
     """The same contract on what B2 is fed by the delta step's other
     engines (a captured step feeds B2 the same): the v2 repeat engine's
     single-copy majority (240 data bins, 6 duplicated, fA a repeat copy and
     another fragment), the MH catalogue (core.candidates.mh_candidates, as
-    the delta MTM / MH samplers build their candidates) and a chains axis
-    (3 chains, one parameter row per slot, M = 15), each at d_max 60 kb."""
+    the delta MTM / MH samplers build their candidates), a chains axis
+    (3 chains, one parameter row per slot, M = 15) and one step of the
+    delta MTM cycle's scan body (core.mtm.make_delta_mtm_cycle with
+    capture=False: the body its graph replays; both passes, M = 7), each at
+    d_max 60 kb."""
     from graal_tpu_torch.core import delta, mcmc
     from graal_tpu_torch.core.candidates import mh_candidates
     from graal_tpu_torch.core.state import GenomeState
@@ -432,6 +435,13 @@ def test_engine_inputs_keep_the_contract_on(engine):
                 ids, _ = mcmc.sample_neighbours(gen, f_a, state, nb, 4)
                 rows, valid, over = delta.extract_rows_union(state, f_a, ids, scorer.f_max)
                 scorer.score(state, f_a, ids, rows, valid, over, p, state.id_c.amax())
+        elif engine == "delta_mtm_cycle":
+            from graal_tpu_torch.core.mtm import make_delta_mtm_cycle
+
+            runner = ScaleRunner(table, sobs, p)
+            cycle = make_delta_mtm_cycle(table, runner.jump_table(5, shuf.n_frags), 256, sobs,
+                                         mini_grid=spy, rep=shuf.rep, capture=False)
+            cycle(shuf, gen, p, torch.tensor([211]), runner.anchor_fn()(shuf, p), 1.0)
         else:
             states = GenomeState(*[torch.stack(xs) for xs in zip(
                 truth, shuf, mcmc.explode_genome(shuf))])
@@ -443,4 +453,6 @@ def test_engine_inputs_keep_the_contract_on(engine):
     for args in spy.calls:
         if engine == "chains":
             assert args[0].shape[0] == 15 and args[6].shape == (15, 10)
+        if engine == "delta_mtm_cycle":
+            assert args[0].shape[0] == 7
         check_contract(args)
