@@ -51,7 +51,27 @@ written. "share" is the bound over the device time.
    power limit), torch's and nvcc's versions.
 2. Build: compile every kernel library (graal_tpu_torch/csrc/*.cu, sm_90a),
    one nvcc process each, all started together; print the build times and
-   the compiler's register / spill report.
+   the compiler's register / spill report. Then the 100k set-up (phase 5's
+   problem).
+3c. Catalogue kernels C1 (em_catalogue, the EM catalogue) and C2
+   (mh_catalogue, the MH one; csrc/candidates.cu) against their plain
+   torch versions, all 11 fields bit for bit: the EM step's call (one
+   genome over its neighbour slots, f_a 0-d) at 8 fragments each of the
+   flagship's true genome, its exploded start and a circularised contig;
+   the repeat table active, with every other copy inactive and with a
+   circularised contig (f_a on copies: swap activity, mode 8); 4 chains'
+   rows (one genome a (chain, neighbour), each chain's maximum); MTM / MH
+   passes on entry.problem_jump_table's neighbour sets; ROADMAP section
+   C's collision input (candidate 10 relabelled 4, circular); the delta
+   engine's mini-states at R = 1,024 (M = 5) and R = 16,384 (4 chains,
+   M = 20) with the whole genome's maximum, with and without the base
+   slot. Each shape also on CAT_PAIRS random (f_a, f_b) pairs, one in ten
+   with f_a == f_b, the maximum taken from the state, given as an int and
+   as a tensor in turn. Timed against the plain versions (device ms of
+   both) at the EM step's shape (B = 5, n = 384), the tempered chains'
+   (20 rows), an MTM pass's (B = 7) and the delta shapes (base slot on),
+   with the bound: the state read once, the (11, B, 13 or 14, n) int32
+   output written once.
 3. Dense kernel B1 (ll_dense) vs plain: the dense scorer kernel against its
    plain torch version on the same inputs, rtol 1e-4 (bench.py's
    standard), at the flagship K = 1,152 on 65-candidate batches built on
@@ -64,8 +84,8 @@ written. "share" is the bound over the device time.
    exploded candidates), B = 1 and K = 6,000.
 4. Dense main path: 2 EM cycles of the flagship problem from its exploded
    start, nuisance sampling on, every score through the kernel. Checks the
-   launch count, the invariants, that the carried likelihood equals the
-   kernel's rescoring bit for bit, that the likelihood rose, and that a
+   launch count (and one C1 launch a step), the invariants, that the
+   carried likelihood equals the kernel's rescoring bit for bit, that the likelihood rose, and that a
    second run with the same seed is identical.
 4a. Repeat kernel B3 (ll_repeat) vs plain on the flagship repeat problem
    (entry.repeat_problem: 12 bins duplicated, K = 1,188 copy rows on
@@ -123,8 +143,8 @@ written. "share" is the bound over the device time.
 7. Delta main path at 100,000 fragments: ScaleRunner.cycle_for(1024, 4)
    for 256 steps from the shuffled start under
    torch.cuda.set_sync_debug_mode("error"). The carried likelihood must
-   stay within 4e-6 |L| of a re-anchor, each step must launch B2 and B4
-   once, and a second seeded run must be identical.
+   stay within 4e-6 |L| of a re-anchor, each step must launch B2, B4 and
+   C1 once, and a second seeded run must be identical.
 7a. Delta kernels B4 and B2 vs plain on the repeat delta path's own inputs
    (20,000 data bins, 200 of them duplicated: benchmarks/
    bench_scale_repeats.py's problem): the single-copy part of the repeat
@@ -138,7 +158,9 @@ written. "share" is the bound over the device time.
    (the default on the card) and with capture=False (the same step body
    run eagerly), run on the same inputs: the dense flagship (B1), 2 EM
    cycles from the exploded start with nuisance sampling, the second at
-   f_t 0.8 on the first's parameters with fact x 1.02; the 100k delta
+   f_t 0.8 on the first's parameters with fact x 1.02 (the catalogue wrapper,
+   C1 / C2, among every sampler path's kernels here and in 7h, one C1 call a
+   step, two C2 calls a step of MTM / MH); the 100k delta
    path (cycle_for(1024, 4) as the runner builds it) for MAIN_STEPS then
    128 steps (one graph for both lengths), the second chunk at f_t 0.8
    with fact x 1.02; the same for 4 tempered chains (M = 20, per-chain
@@ -299,7 +321,7 @@ written. "share" is the bound over the device time.
 12. Last lines: the nvidia-smi line, one JSON line on the kernels run, and
    {"ok": true, "device": {...}}. Each kernel's entry has the contract's
    keys (launches, max_abs_err, ms, plain_ms, bound_ms, bound_by,
-   library_ms: null, as no single PyTorch call computes any of the four)
+   library_ms: null, as no single PyTorch call computes any of the six)
    and device_ms and share, at its flagship shape (B1: B = 65, K = 1,152,
    true candidates; B3: S = 1,152; B2 / B4: the 100k path at R = 1,024;
    B4 also grid_ms / grid_device_ms, the step's whole observed-grid
@@ -316,8 +338,13 @@ written. "share" is the bound over the device time.
    tiers' main paths run_top_8192, run_top_16384 (8b), run_chains_top_8192
    and run_chains_top_16384 (11e), whose launches join it too); B2's and
    B4's chains shapes (M = 20 at R = 1,024, at the run's bucket, at 8,192
-   and at 16,384) under "by_shape". Before them, a JSON line of phase 5c's
-   routes.
+   and at 16,384) under "by_shape". C1 (em_catalogue) and C2 (mh_catalogue)
+   mirror graal_tpu/core/candidates.py:48 and :86 (no Pallas kernel: XLA
+   fuses them in the jitted step) at the EM step's B = 5 and an MTM pass's
+   B = 7, with phase 3c's other shapes under "by_shape" and each main
+   path's launches under "by_path" (phases 4, 4b, 7, 7b, every graphed
+   cycle of 7g / 7h), summed into the top-level count. Before them, a JSON
+   line of phase 5c's routes.
 """
 
 import contextlib
@@ -376,6 +403,11 @@ CHAIN_EQ_STEPS = 4          # chains steps held to single-chain steps (11a, 11b)
 CHAIN_CHUNK = 64            # the chains' chunk run under sync debug "error" (11a)
 CHAIN_STEPS = 256           # run_chains' main path: 1 cycle of 256 steps a chain (11a)
 B2_ABS_ERR = 0.0039         # B2 vs plain at per-chain params (the CLI paths' largest B2 error)
+CAT_PAIRS = 2000            # random (f_a, f_b) pairs each catalogue shape is held to plain on
+CAT_CHUNK_CELLS = 1 << 22   # genomes x fragments of one compared call (phase 3c)
+CAT_TIME_ITERS = 50
+# C1 / C2 launches of the main paths, by path: {"em": n, "mh": n} each
+CATALOGUE_PATHS = {}
 CLI_CHAIN_STEPS = 128       # scale --chains steps a chain a cycle (11c)
 SMALL_BINS = 576            # 11c's run --profile dataset (level 2 ~60 bins)
 CLI_WATCH_STEPS = 64        # the same with --watch --profile: a traced cycle is slow
@@ -927,7 +959,7 @@ def main_path_run(device, build, n_cycles):
     gen = torch.Generator(device=device).manual_seed(SEED)
     cur = mcmc.explode_genome(state)
     torch.cuda.synchronize()
-    scorer.n_launches = 0
+    scorer.n_launches = catalogue_wrapper().n_launches = 0
     l0 = scorer(GenomeState(*[x[None] for x in cur]), params)[0]
     l_t, par = l0, params
     seconds = []
@@ -948,7 +980,8 @@ def main_path_run(device, build, n_cycles):
               f"{int(m.success.sum())}/{n}")
     launches = scorer.n_launches
     return dict(state=state, scorer=scorer, cur=cur, par=par, l0=l0, l_t=l_t,
-                seconds=seconds, launches=launches, n=n, nb=nb)
+                seconds=seconds, launches=launches, n=n, nb=nb,
+                catalogue=dict(catalogue_wrapper().launches.by_key()))
 
 
 def dense_main_checks(r, n_cycles):
@@ -966,6 +999,8 @@ def dense_main_checks(r, n_cycles):
           f"{want_launches})")
     check(r["launches"] == want_launches,
           f"kernel launches {r['launches']} != {want_launches}")
+    print(f"  catalogue launches: {r['catalogue']} (one C1 a step: {steps})")
+    check(r["catalogue"] == {"em": steps}, f"C1 launches {r['catalogue']} != {steps}")
     check(check_invariants(r["cur"], raise_on_error=False) == [],
           "final state violates the invariants")
     rescored = scorer(GenomeState(*[x[None] for x in r["cur"]]), r["par"])[0]
@@ -1007,6 +1042,7 @@ def phase_main(device, n_bins=384):
     r = main_path_run(device, build, N_CYCLES)
     n = r["n"]
     dense_main_checks(r, N_CYCLES)
+    CATALOGUE_PATHS["dense_main"] = r["catalogue"]
     init_prev, init_next = derive_prev_next(r["state"])
     # every bin has 3 sub-fragments (orientable); nothing is skipped
     dist = dist_inter_genome(r["cur"], init_prev, init_next, np.ones(n, np.int32),
@@ -1140,6 +1176,7 @@ def phase_repeat_main(device, n_bins=384):
 
     r = main_path_run(device, build, REPEAT_CYCLES)
     dense_main_checks(r, REPEAT_CYCLES)
+    CATALOGUE_PATHS["dense_repeat_main"] = r["catalogue"]
     print(f"  n_contigs {int(r['cur'].n_contigs())}, active fragments "
           f"{int(r['cur'].activ.sum())}/{r['n']}")
     check_same_run(r, main_path_run(device, build, REPEAT_CYCLES))
@@ -1753,6 +1790,7 @@ def scale_main_run(sc):
     l0 = runner.anchor_fn()(shuf, params)
     torch.cuda.synchronize()
     runner.obs_grid.n_launches = runner.mini_grid.n_launches = 0
+    catalogue_wrapper().n_launches = 0
     t0 = time.perf_counter()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -1762,7 +1800,8 @@ def scale_main_run(sc):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     return dict(cur=cur, l0=l0, l_t=l_t, out=out, seconds=seconds,
-                launches=(runner.mini_grid.n_launches, runner.obs_grid.n_launches))
+                launches=(runner.mini_grid.n_launches, runner.obs_grid.n_launches),
+                catalogue=dict(catalogue_wrapper().launches.by_key()))
 
 
 def phase_scale_main(sc, label="delta main path"):
@@ -1785,6 +1824,9 @@ def phase_scale_main(sc, label="delta main path"):
     print(f"  launches: ll_mini {r['launches'][0]}, obsgrid {r['launches'][1]} "
           f"(path implies one of each per step: {MAIN_STEPS})")
     check(r["launches"] == (MAIN_STEPS, MAIN_STEPS), f"launches {r['launches']}")
+    print(f"  catalogue launches: {r['catalogue']} (one C1 a step: {MAIN_STEPS})")
+    check(r["catalogue"] == {"em": MAIN_STEPS}, f"C1 launches {r['catalogue']}")
+    CATALOGUE_PATHS[label.replace(" ", "_")] = r["catalogue"]
     per_step = n_slots(sc["runner"].nb, DELTA)
     ms = r["seconds"] * 1e3 / MAIN_STEPS
     print(f"  {ms:.4f} ms/step, {per_step * MAIN_STEPS / r['seconds']:.1f} candidate "
@@ -3456,7 +3498,7 @@ def dense_graph_case(device, n_bins=384):
         return mcmc.make_em_cycle(table, obs, nb, DELTA, sample_param=True, scorer=scorer,
                                   capture=capture)
 
-    return build, chunks, [scorer]
+    return build, chunks, [scorer, catalogue_wrapper()]
 
 
 def delta_graph_case(sc, chains=0, f_max=F_MAX, steps=(MAIN_STEPS, 128), start=None):
@@ -3512,7 +3554,279 @@ def delta_graph_case(sc, chains=0, f_max=F_MAX, steps=(MAIN_STEPS, 128), start=N
                                          obs_grid=grid, mini_grid=mini, rep=rep,
                                          capture=capture)
 
-    return build, chunks, [mini, grid]
+    return build, chunks, [mini, grid, catalogue_wrapper()]
+
+
+def catalogue_wrapper():
+    """The catalogue kernels' wrapper (C1 and C2, launches keyed "em" / "mh")."""
+    from graal_tpu_torch.ops.candidates_cuda import CATALOGUE
+
+    return CATALOGUE
+
+
+def catalogue_paths(records):
+    """Keep each graphed path's C1 / C2 launches (the graph run's, equal to
+    the eager run's) for the kernels line: the catalogue is the last kernel
+    of every sampler case."""
+    for name, rec in records.items():
+        if rec["graph"]["by_key"]:
+            CATALOGUE_PATHS[f"graph_{name}"] = rec["graph"]["by_key"][-1]
+
+
+def catalogue_vs_plain(label, state, fa, fb, max_id=None, kinds=("em", "mh"),
+                       with_base=False):
+    """Each catalogue kernel of ``kinds`` (C1 "em", C2 "mh") against its plain
+    version on the same inputs: all 11 fields bit for bit. Returns the
+    kernels' outputs by kind."""
+    import torch
+    from graal_tpu_torch.core.candidates import build_candidates_plain, mh_candidates_plain
+    from graal_tpu_torch.core.state import GenomeState
+    from graal_tpu_torch.ops.candidates_cuda import CATALOGUE
+
+    plain = {"em": build_candidates_plain, "mh": mh_candidates_plain}
+    out = {}
+    for kind in kinds:
+        got = GenomeState(*CATALOGUE(kind, state, fa, fb, max_id, with_base))
+        want = plain[kind](state, fa, fb, max_id, with_base)
+        for name, g, w in zip(GenomeState._fields, got, want):
+            check(g.shape == w.shape and g.dtype == w.dtype and torch.equal(g, w),
+                  f"{label}: the {kind} catalogue's {name} differs from its plain version")
+        out[kind] = got
+    return out
+
+
+def catalogue_pairs(label, state, gen, n_pairs=CAT_PAIRS, max_id=None, with_base=False,
+                    frags=None):
+    """C1 and C2 against their plain versions on ``n_pairs`` random (f_a,
+    f_b) pairs of ``state`` (fields (n,): one genome broadcast; (R, n):
+    pair k on row k mod R, with ``max_id`` (R,) the rows' maxima), one
+    pair in ten with f_a == f_b, ``frags`` (when given) the f_a of every
+    other pair; in calls of at most CAT_CHUNK_CELLS genome cells, the
+    maximum taken from the state (None), given as an integer and as a
+    tensor of one value a genome in turn. Returns the pairs compared."""
+    import torch
+    from graal_tpu_torch.core.state import GenomeState
+
+    n = state.n_frags
+    dev = state.pos.device
+    rows = 1 if state.pos.dim() == 1 else state.pos.shape[0]
+    chunk = max(1, min(-(-n_pairs // 3), CAT_CHUNK_CELLS // n))
+    for k0 in range(0, n_pairs, chunk):
+        b = min(chunk, n_pairs - k0)
+        fa = torch.randint(0, n, (b,), generator=gen, device=dev)
+        fb = torch.randint(0, n, (b,), generator=gen, device=dev)
+        if frags is not None:
+            pick = torch.randint(0, frags.numel(), (b,), generator=gen, device=dev)
+            fa[::2] = frags[pick][::2]
+        fb[::10] = fa[::10]
+        at = torch.arange(k0, k0 + b, device=dev) % rows
+        sub = state if rows == 1 else GenomeState(*[x.index_select(0, at) for x in state])
+        if isinstance(max_id, torch.Tensor):
+            mx = max_id.index_select(0, at)
+        elif rows == 1:
+            mx = (None, int(state.id_c.amax()) + 3,
+                  state.id_c.amax().expand(b).to(torch.int64).contiguous())[(k0 // chunk) % 3]
+        else:
+            mx = max_id
+        catalogue_vs_plain(f"{label}, pairs {k0}-{k0 + b}", sub, fa.to(torch.int32)
+                           if k0 // chunk % 2 else fa, fb, mx, with_base=with_base)
+    return n_pairs
+
+
+def mini_states(state, f_as, nb, gen, f_max):
+    """The delta engine's mini-states of a step at ``f_max``: for each chain
+    c (``state`` fields (C, n), ``f_as`` (C,)) the DELTA x copies
+    neighbours of f_as[c] drawn as the step draws them, their member rows
+    (extract_rows_each) and mini-states (gather_mini); returns (minis
+    (M, f_max), lf_a (M,), lf_b (M,), max_id (M,): each chain's maximum)."""
+    import torch
+    from graal_tpu_torch.core import delta, mcmc
+    from graal_tpu_torch.core.state import GenomeState
+
+    c = state.pos.shape[0]
+    ids = torch.stack([mcmc.sample_neighbours(gen, f_as[k], GenomeState(*[x[k] for x in state]),
+                                              nb, DELTA)[0] for k in range(c)])
+    rows, valid, _ = delta.extract_rows_each(state, f_as, ids, f_max)
+    mini = delta.gather_mini(state, rows, valid)
+    m = ids.shape[1]
+    mini = GenomeState(*[x.reshape(c * m, f_max) for x in mini])
+    lf_a = (rows == f_as[:, None, None]).int().argmax(-1).reshape(-1)
+    lf_b = (rows == ids[..., None]).int().argmax(-1).reshape(-1)
+    return mini, lf_a, lf_b, state.id_c.amax(-1).repeat_interleave(m)
+
+
+def collision_mini(device):
+    """ROADMAP section C's input: contig 3 = [f0, f1], contig 4 = [f2, f3],
+    the mini-state of rows [0, 1] (fA = f1, fB = f0) and the genome's
+    maximum 4."""
+    import torch
+    from graal_tpu_torch.core import delta
+    from graal_tpu_torch.core.state import GenomeState
+
+    state = GenomeState.from_soa(dict(pos=[0, 1, 0, 1], id_c=[3, 3, 4, 4],
+                                      start_bp=[0, 1000, 0, 1000], len_bp=[1000] * 4,
+                                      circ=[0] * 4, l_cont=[2] * 4, l_cont_bp=[2000] * 4),
+                                 device=device)
+    rows, valid, _ = delta.extract_rows_each(state, torch.tensor(1, device=device),
+                                             torch.tensor([0], device=device), 2)
+    mini, = delta.drop_chain(delta.gather_mini(*delta.lift_chain(state, rows, valid)))
+    return mini, torch.tensor([1], device=device), torch.tensor([0], device=device), \
+        state.id_c.amax()
+
+
+def graph_device_ms(fn, n_iter):
+    """ms per call of fn() on the device: fn captured once in a CUDA graph
+    and its replays timed as :func:`device_ms` times calls. A call of
+    hundreds of small kernels cannot be timed on the device by queueing
+    the calls themselves: the launch queue fills and the device waits for
+    the host; a replay is one launch, and its kernels run as a graphed
+    step runs them."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    try:
+        return device_ms(graph.replay, n_iter)
+    finally:
+        del graph
+
+
+def catalogue_record(kind, state, fa, fb, max_id=None, with_base=False):
+    """C1 or C2 timed at one shape: event ms as called and device ms, the
+    plain version's ms as called and on the device (its replays as a
+    captured graph: :func:`graph_device_ms`), and the bound: the state read
+    once (one row when broadcast), the indices and the (11, B, 13 or 14, n)
+    int32 output written once."""
+    from graal_tpu_torch.core.candidates import build_candidates_plain, mh_candidates_plain
+    from graal_tpu_torch.ops.candidates_cuda import CATALOGUE
+
+    plain = {"em": build_candidates_plain, "mh": mh_candidates_plain}[kind]
+    b, n = fb.shape[0], state.n_frags
+    rows = 1 if state.pos.dim() == 1 else state.pos.shape[0]
+    slots = 13 + bool(with_base)
+    t = timed(lambda: CATALOGUE(kind, state, fa, fb, max_id, with_base), CAT_TIME_ITERS)
+    t["plain_ms"] = cuda_ms(lambda: plain(state, fa, fb, max_id, with_base), 5, n_warm=1)
+    t["plain_device_ms"] = graph_device_ms(lambda: plain(state, fa, fb, max_id, with_base), 20)
+    idx = sum(x.numel() * x.element_size() for x in (fa, fb, max_id)
+              if hasattr(x, "numel"))
+    n_bytes = 11 * 4 * rows * n + idx + 11 * 4 * b * slots * n
+    return dict(with_share(t, bound(n_bytes)), B=b, n=n, state_rows=rows, slots=slots,
+                max_abs_err=0)
+
+
+def phase_catalogue(device, sc):
+    """3c. The catalogue kernels C1 (the EM catalogue) and C2 (the MH one)
+    against their plain versions, all 11 fields bit for bit, at every
+    shape a sampler path gives them, ~CAT_PAIRS random (f_a, f_b) pairs a
+    shape (one in ten with f_a == f_b) besides the steps' own neighbours;
+    then timed against the plain versions."""
+    import torch
+    from graal_tpu_torch.core import mcmc, mtm
+    from graal_tpu_torch.core.state import GenomeState
+    from graal_tpu_torch.entry import problem, problem_jump_table, repeat_problem
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 30)
+    state, table, _, obs, nb = problem(n_bins=384, device=device)
+    start = mcmc.explode_genome(state)
+    circ = circularised(state)
+    n = state.n_frags
+    pairs = 0
+    print(f"catalogue kernels C1 (em) and C2 (mh) vs plain, 11 fields bit for bit; "
+          f"{CAT_PAIRS} random pairs a shape")
+    # the EM step's call: one genome over its neighbour slots, f_a 0-d
+    for label, st in (("flagship", state), ("exploded", start), ("circularised", circ)):
+        for f in torch.randperm(n, generator=gen, device=device)[:8]:
+            ids, _ = mcmc.sample_neighbours(gen, f, st, nb, DELTA)
+            catalogue_vs_plain(f"{label} step at {int(f)}", st, f, ids)
+        pairs += catalogue_pairs(label, st, gen)
+    print(f"  flagship ({n} fragments): the true genome, its exploded start and a circularised "
+          "contig: steps of 8 fragments over their neighbour slots, random pairs")
+    # repeat copies: swap activity, inactive copies
+    rstate, _, _, _, rnb = repeat_problem(n_bins=384, device=device)
+    copies = torch.nonzero(rstate.rep == 1).reshape(-1)
+    inactive = rstate._replace(activ=torch.where(
+        (rstate.rep == 1) & (torch.arange(rstate.n_frags, device=device) % 2 == 0),
+        0, rstate.activ))
+    for label, st in (("repeat", rstate), ("repeat, inactive copies", inactive),
+                      ("repeat, circularised", circularised(inactive, 1))):
+        for f in copies[:4]:
+            ids, _ = mcmc.sample_neighbours(gen, f, st, rnb, DELTA)
+            catalogue_vs_plain(f"{label} step at copy {int(f)}", st, f, ids)
+        pairs += catalogue_pairs(label, st, gen, frags=copies)
+    print(f"  repeat table ({rstate.n_frags} copy rows, {copies.numel()} copies): active, every "
+          "other copy inactive, a circularised contig")
+    # 4 chains: one genome per (chain, neighbour) row, each chain's maximum
+    chains = GenomeState(*[torch.stack(xs) for xs in zip(state, start, circ, start)])
+    f_as = torch.randint(0, n, (CHAINS,), generator=gen, device=device)
+    ids = torch.stack([mcmc.sample_neighbours(gen, f_as[c], GenomeState(*[x[c] for x in chains]),
+                                              nb, DELTA)[0] for c in range(CHAINS)])
+    m = ids.shape[1]
+    per_nb = GenomeState(*[x.repeat_interleave(m, 0) for x in chains])
+    max_c = chains.id_c.amax(-1).repeat_interleave(m)
+    catalogue_vs_plain("4 chains step", per_nb, f_as.repeat_interleave(m), ids.reshape(-1),
+                       max_c)
+    pairs += catalogue_pairs("4 chains", per_nb, gen, max_id=max_c)
+    print(f"  {CHAINS} chains: {CHAINS * m} rows, each with its chain's maximum")
+    # the MH catalogue on the MTM passes' neighbour sets
+    jump = problem_jump_table(state, table, obs, MTM_DELTA)
+    for label, st in (("flagship", state), ("exploded", start)):
+        for f in torch.randperm(n, generator=gen, device=device)[:8]:
+            ids, _ = mtm._neighbour_set(st, f, jump)
+            catalogue_vs_plain(f"MTM pass of {label} at {int(f)}", st, f, ids)
+    mini, lf_a, lf_b, mx = collision_mini(device)
+    got = catalogue_vs_plain("section C's collision input", mini, lf_a, lf_b, mx)["mh"]
+    check(got.id_c[0, 10].tolist() == [4, 4] and got.circ[0, 10].tolist() == [1, 1],
+          f"section C's input: candidate 10 is {got.id_c[0, 10].tolist()}, "
+          f"circ {got.circ[0, 10].tolist()}")
+    print(f"  MTM / MH passes on the jump table ({MTM_DELTA} partners + prev / next), "
+          "and section C's collision input (candidate 10 relabelled 4, circular)")
+    # delta mini-states with the whole genome's maximum
+    deltas = {}
+    for f_max, starts in ((F_MAX, (sc["shuf"],)),
+                          (TOP_TIERS[1], (sc["truth"], sc["tiered"], sc["halves"], sc["shuf"]))):
+        st = GenomeState(*[torch.stack(xs) for xs in zip(*starts)])
+        f_as = torch.randint(0, sc["n"], (len(starts),), generator=gen, device=device)
+        minis, lf_a, lf_b, mx = mini_states(st, f_as, sc["runner"].nb, gen, f_max)
+        for wb in (False, True):
+            catalogue_vs_plain(f"delta step at R = {f_max}", minis, lf_a, lf_b, mx,
+                               with_base=wb)
+        pairs += catalogue_pairs(f"delta minis at R = {f_max}", minis, gen, max_id=mx,
+                                 with_base=True)
+        deltas[f_max] = (minis, lf_a, lf_b, mx)
+        print(f"  delta mini-states at R = {f_max}, M = {minis.pos.shape[0]} "
+              f"({len(starts)} chain(s)), the genome's maximum, with and without the base slot")
+    print(f"  {pairs} random pairs and every step's neighbours: C1 and C2 equal to their plain "
+          "versions bit for bit")
+
+    rec = {}
+    f = torch.tensor(int(torch.randint(0, n, (1,), generator=gen, device=device)), device=device)
+    ids, _ = mcmc.sample_neighbours(gen, f, state, nb, DELTA)
+    rec["em_flagship"] = catalogue_record("em", state, f, ids)
+    rows = per_nb.pos.shape[0]
+    rec[f"em_tempered_{CHAINS}_chains"] = catalogue_record(
+        "em", per_nb, torch.randint(0, n, (rows,), generator=gen, device=device),
+        torch.randint(0, n, (rows,), generator=gen, device=device), max_c)
+    mids, _ = mtm._neighbour_set(state, f, jump)
+    rec["mh_flagship"] = catalogue_record("mh", state, f, mids)
+    for f_max, (minis, lf_a, lf_b, mx) in deltas.items():
+        rec[f"em_delta_R{f_max}_M{minis.pos.shape[0]}"] = catalogue_record(
+            "em", minis, lf_a, lf_b, mx, with_base=True)
+    minis, lf_a, lf_b, mx = deltas[F_MAX]
+    sub = GenomeState(*[x[:len(lf_a)] for x in minis])
+    rec[f"mh_delta_R{F_MAX}_M{len(lf_a)}"] = catalogue_record("mh", sub, lf_a, lf_b, mx,
+                                                              with_base=True)
+    for name, r in rec.items():
+        print(f"  {name}: B = {r['B']}, n = {r['n']}, {r['slots']} slots: "
+              f"{r['device_ms']:.4f} device ms ({r['ms']:.4f} as called), plain "
+              f"{r['plain_device_ms']:.4f} device ms ({r['plain_ms']:.4f} as called); "
+              f"{fmt_bound(r)}")
+    return rec
 
 
 def phase_graphs(device, sc, rsc):
@@ -3533,6 +3847,12 @@ def phase_graphs(device, sc, rsc):
                                         *delta_graph_case(sc, chains=CHAINS))
     out["repeat_delta_20k"] = graph_vs_eager(f"20k repeat delta path, f_max {F_MAX}",
                                              *delta_graph_case(rsc))
+    # one C1 call a step: 2 cycles of the flagship's 384 fragments, 256 + 128 delta steps
+    for name, steps in (("dense_flagship", 2 * 384), ("delta_100k", MAIN_STEPS + 128),
+                        ("chains_100k", MAIN_STEPS + 128), ("repeat_delta_20k", MAIN_STEPS + 128)):
+        got = out[name]["graph"]["by_key"][-1]
+        check(got == {"em": steps}, f"{name}: C1 launches {got} != one a step ({steps})")
+    catalogue_paths(out)
     return out
 
 
@@ -3584,7 +3904,7 @@ def tempered_graph_case(device, n_bins=384):
         return tempering.make_tempered_cycle(table, obs, nb, DELTA, scorer=scorer,
                                              capture=capture)
 
-    return build, chunks, [scorer]
+    return build, chunks, [scorer, catalogue_wrapper()]
 
 
 def move_chunks(start, params, l0, jump, gen):
@@ -3631,7 +3951,7 @@ def mtm_graph_case(device, variant, n_bins=384):
         return mtm.make_mtm_cycle(table, obs, jump, variant=variant, scorer=scorer,
                                   capture=capture)
 
-    return build, move_chunks(start, params, l0, jump, gen), [scorer]
+    return build, move_chunks(start, params, l0, jump, gen), [scorer, catalogue_wrapper()]
 
 
 def delta_mtm_graph_case(sc, variant):
@@ -3654,7 +3974,7 @@ def delta_mtm_graph_case(sc, variant):
                                     band_w=runner.w, obs_grid=grid, mini_grid=mini,
                                     rep=start.rep, capture=capture)
 
-    return build, move_chunks(start, params, l0, jump, gen), [mini, grid]
+    return build, move_chunks(start, params, l0, jump, gen), [mini, grid, catalogue_wrapper()]
 
 
 def cycle_end_graph_case(sc, n_cycles=4):
@@ -3743,12 +4063,13 @@ def phase_graphs_samplers(device, sc, rsc):
     out["tempered_flagship"] = graph_vs_eager(
         f"tempered flagship (B1 at B = 260), {CHAINS} chains",
         *tempered_graph_case(device), sync_error=True)
-    launched(out["tempered_flagship"], [{str((260, k)): steps}], "tempered")
+    launched(out["tempered_flagship"], [{str((260, k)): steps}, {"em": steps}], "tempered")
     for variant in ("mtm", "mh"):
         out[f"{variant}_flagship"] = graph_vs_eager(
             f"dense {variant.upper()} flagship (B1 at B = {MTM_SLOTS})",
             *mtm_graph_case(device, variant), sync_error=True)
-        launched(out[f"{variant}_flagship"], [{str((MTM_SLOTS, k)): 2 * steps}], variant)
+        launched(out[f"{variant}_flagship"],
+                 [{str((MTM_SLOTS, k)): 2 * steps}, {"mh": 2 * steps}], variant)
     out["delta_mtm_100k"] = graph_vs_eager(
         f"100k delta MTM (B4 + B2, M = 7), f_max {F_MAX}", *delta_mtm_graph_case(sc, "mtm"),
         sync_error=True)
@@ -3756,7 +4077,8 @@ def phase_graphs_samplers(device, sc, rsc):
         f"20k repeat delta MH (B4 + B2, M = 7), f_max {F_MAX}",
         *delta_mtm_graph_case(rsc, "mh"), sync_error=True)
     for name in ("delta_mtm_100k", "delta_mh_repeat_20k"):
-        launched(out[name], [{"None": 2 * steps}] * 2, name)
+        launched(out[name], [{"None": 2 * steps}] * 2 + [{"mh": 2 * steps}], name)
+    catalogue_paths(out)
     out["cycle_end_100k"] = graph_vs_eager(
         "100k ScaleRunner.run cycle end (re-anchor + nuisance step)",
         *cycle_end_graph_case(sc), sync_error=True)
@@ -3786,8 +4108,29 @@ def kernel_record(name, source, replaces, launches, record):
                 replaces=replaces, launches=launches, library_ms=None, **record)
 
 
+def catalogue_records(catalogue):
+    """The kernels line's entries of C1 and C2: the flagship shape's numbers
+    (C1: the EM step's B = 5; C2: an MTM pass's B = 7), the other shapes of
+    phase 3c under "by_shape", and under "by_path" each main path's
+    launches counted on the card (phases 4, 4b, 7, 7b and every graphed
+    cycle of 7g / 7h, the graph's count, equal to the eager run's), whose
+    sum is the top-level count."""
+    out = []
+    for kind, flagship, line in (("em", "em_flagship", 48), ("mh", "mh_flagship", 86)):
+        paths = {name: by_key[kind] for name, by_key in CATALOGUE_PATHS.items()
+                 if by_key.get(kind)}
+        check(paths, f"no main path launched the {kind} catalogue")
+        out.append(kernel_record(
+            f"{kind}_catalogue", "candidates.cu", f"graal_tpu/core/candidates.py:{line}",
+            sum(paths.values()), dict(
+                catalogue[flagship], by_path=paths,
+                by_shape={k: v for k, v in catalogue.items()
+                          if k.startswith(kind) and k != flagship})))
+    return out
+
+
 def kernels_line(dense, dense_launches, repeat, repeat_launches, delta, mini_launches,
-                 repeat_delta, obs_launches, cli_runs, mtm_exact, chains, top):
+                 repeat_delta, obs_launches, cli_runs, mtm_exact, chains, top, catalogue):
     """The {"kernels": [...]} line from the phases' records; the B2 / B4
     launches are (100k path, 20k repeat path); ``cli_runs`` is
     :func:`phase_cli`'s record, whose counts and errors against the plain
@@ -3801,7 +4144,8 @@ def kernels_line(dense, dense_launches, repeat, repeat_launches, delta, mini_lau
     (M = 20) go under "by_shape". ``top`` (phase 8b) and ``chains["top"]``
     (phase 11e) are the main paths at the top tiers, run_top_R and
     run_chains_top_R under "by_path", whose launches join the top-level
-    count too."""
+    count too. ``catalogue`` (phase 3c) gives C1's and C2's entries
+    (:func:`catalogue_records`)."""
     c = cli_runs
     ch, chr_, cht = chains["main"], chains["repeat"], chains["top"]
     top_launches = [sum(r["launches"][i] for r in top.values())
@@ -3880,6 +4224,7 @@ def kernels_line(dense, dense_launches, repeat, repeat_launches, delta, mini_lau
                       repeat_launches, dict(repeat, by_path={
                           "dense_repeat_main": dict(launches=repeat_launches),
                           "cli_run_repeats": entry(c["repeat"])})),
+        *catalogue_records(catalogue),
     ]}
 
 
@@ -3901,11 +4246,12 @@ def main():
     import torch
 
     phase("1 build", phase_build)
+    sc = phase("set-up 100k", scale_setup, device)
+    catalogue = phase("3c C1 C2", phase_catalogue, device, sc)
     dense = phase("2-3 B1", phase_kernel, device)
     dense_launches = phase("4 dense main", phase_main, device)
     repeat = phase("4a B3", phase_repeat_kernel, device)
     repeat_launches = phase("4b repeat main", phase_repeat_main, device)
-    sc = phase("set-up 100k", scale_setup, device)
     delta_timing = phase("5 B2 B4", phase_delta_kernels, device, sc)
     crossover = phase("5c routes", phase_crossover, sc)
     phase("6 exactness", phase_exactness, device)
@@ -3934,7 +4280,7 @@ def main():
     kernels = kernels_line(dense, dense_launches, repeat, repeat_launches, delta_timing,
                            (mini_launches, r_mini), repeat_delta_timing, (obs_launches, r_obs),
                            cli_runs, mtm_exact, dict(main=chains, repeat=chains_rep,
-                                                     top=top_chains), top)
+                                                     top=top_chains), top, catalogue)
     print(json.dumps({"routes": crossover}))
     kernel_keys = ("ll_mini", "obsgrid", "b2_bucket", "b4_bucket")
     print(json.dumps({"chains": {

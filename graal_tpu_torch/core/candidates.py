@@ -16,16 +16,24 @@ mode  operation                                built from
 9-12  translocation (4 cut-direction combos)   split(A) o split(B) o paste
 ====  =======================================  =============================
 
-The m neighbours of one step are the batch dimension of every op, so the
-whole (m, 13) catalogue is built by one pass over the primitives.
+The m neighbours of one step are the batch dimension. On a card the
+catalogues are one hand-written kernel call each (C1 for the EM catalogue,
+C2 for the MH one: ``ops.candidates_cuda``, ``csrc/candidates.cu``); on
+any other device they are their plain versions,
+:func:`build_candidates_plain` and :func:`mh_candidates_plain`, one pass
+over the primitives of ``core.ops`` with the neighbours as the batch
+dimension of every op. Both give the same int32 fields bit for bit.
 """
 
 from __future__ import annotations
+
+import numbers
 
 import torch
 
 from graal_tpu_torch.core import ops
 from graal_tpu_torch.core.state import GenomeState
+from graal_tpu_torch.ops.candidates_cuda import CATALOGUE
 
 N_CANDIDATES = 13
 
@@ -64,8 +72,48 @@ def _stack(cands) -> GenomeState:
     return GenomeState(*[torch.stack(fields, dim=1) for fields in zip(*cands)])
 
 
-def build_candidates(state: GenomeState, f_a, f_b: torch.Tensor,
-                     max_id=None) -> GenomeState:
+def _on_card(kind, state: GenomeState, f_a, f_b, max_id, with_base):
+    """The catalogue ``kind`` of a state on a card, through its kernel
+    (indices and maxima on another device are moved to the state's, f_b
+    made contiguous)."""
+    dev = state.pos.device
+
+    def here(x):
+        if x is None or isinstance(x, numbers.Integral):
+            return x
+        x = torch.as_tensor(x, device=dev)
+        return x if x.dtype in (torch.int32, torch.int64) else x.long()
+
+    f_b = here(f_b)
+    return GenomeState(*CATALOGUE(kind, state, here(f_a), f_b.contiguous(), here(max_id),
+                                  with_base))
+
+
+def _with_base(batch: GenomeState, cands: GenomeState) -> GenomeState:
+    return GenomeState(*[torch.cat([a[:, None], b], 1) for a, b in zip(batch, cands)])
+
+
+def build_candidates(state: GenomeState, f_a, f_b: torch.Tensor, max_id=None,
+                     with_base: bool = False) -> GenomeState:
+    """Candidate genomes for moving fragment ``f_a`` relative to each of the
+    neighbours ``f_b`` (shape ``(m,)``): :func:`build_candidates_plain`'s
+    result, built by kernel C1 when the state is on a card."""
+    if state.pos.device.type == "cuda":
+        return _on_card("em", state, f_a, f_b, max_id, with_base)
+    return build_candidates_plain(state, f_a, f_b, max_id, with_base)
+
+
+def mh_candidates(state: GenomeState, f_a, f_b: torch.Tensor, max_id=None,
+                  with_base: bool = False) -> GenomeState:
+    """The Metropolis-Hastings / MTM catalogue: :func:`mh_candidates_plain`'s
+    result, built by kernel C2 when the state is on a card."""
+    if state.pos.device.type == "cuda":
+        return _on_card("mh", state, f_a, f_b, max_id, with_base)
+    return mh_candidates_plain(state, f_a, f_b, max_id, with_base)
+
+
+def build_candidates_plain(state: GenomeState, f_a, f_b: torch.Tensor, max_id=None,
+                           with_base: bool = False) -> GenomeState:
     """Candidate genomes for moving fragment ``f_a`` relative to each of the
     neighbours ``f_b`` (shape ``(m,)``).
 
@@ -76,7 +124,9 @@ def build_candidates(state: GenomeState, f_a, f_b: torch.Tensor,
     ``(m, 13, n)``. ``max_id``: the maximum contig id in use (defaults to
     the state's own maximum; pass the whole genome's maximum when ``state``
     holds mini-states, so that fresh contig ids never collide with contigs
-    outside the view), a scalar or one value per neighbour.
+    outside the view), a scalar or one value per neighbour. ``with_base``:
+    fields of shape ``(m, 14, n)``, each neighbour's base genome in slot 0
+    (the delta engine's layout).
     """
     batch, fa, f_b, max_id = _batch(state, f_a, f_b, max_id)
     popped = ops.pop_out(batch, fa, max_id)
@@ -102,14 +152,14 @@ def build_candidates(state: GenomeState, f_a, f_b: torch.Tensor,
             t2 = ops.split(t1, f_b, up_b, m1)
             mt = torch.maximum(t2.id_c.amax(-1), m1)
             cands.append(ops.paste(t2, fa, f_b, mt))
-    return _stack(cands)
+    return _with_base(batch, _stack(cands)) if with_base else _stack(cands)
 
 
-def mh_candidates(state: GenomeState, f_a, f_b: torch.Tensor,
-                  max_id=None) -> GenomeState:
+def mh_candidates_plain(state: GenomeState, f_a, f_b: torch.Tensor, max_id=None,
+                        with_base: bool = False) -> GenomeState:
     """The 13-candidate catalogue of the Metropolis-Hastings / MTM samplers,
-    with the calling convention of :func:`build_candidates` (fields of
-    shape ``(m, 13, n)``).
+    with the calling convention of :func:`build_candidates_plain` (fields
+    of shape ``(m, 13, n)``, or ``(m, 14, n)`` with the base).
 
     Modes: 0 eject, 1 flip, 2/3 insert right of B (pop_in_3 +/-), 4/5
     insert left of B (pop_in_4 +/-), 6/7 split at A (down / upstream), 8
@@ -156,4 +206,4 @@ def mh_candidates(state: GenomeState, f_a, f_b: torch.Tensor,
             t2 = ops.split(t1, f_b, up_b, m1)
             mt = t2.id_c.amax(-1)
             cands.append(ops._select(valid, ops.paste(t2, fa, f_b, mt), batch))   # 9-12
-    return _stack(cands)
+    return _with_base(batch, _stack(cands)) if with_base else _stack(cands)

@@ -280,9 +280,9 @@ class DeltaScorer:
     default), shared by a caller that counts launches.
 
     ``catalogue``: the 13-candidate builder applied to the mini-states,
-    with :func:`core.candidates.build_candidates`'s calling convention
-    (the EM catalogue, the default); the MTM / MH samplers pass
-    :func:`core.candidates.mh_candidates`.
+    with :func:`core.candidates.build_candidates`'s calling convention,
+    ``with_base`` included (the EM catalogue, the default); the MTM / MH
+    samplers pass :func:`core.candidates.mh_candidates`.
 
     ``data_keys``: an optional (n_subs,) map from copy rows to data subs.
     When set, ``sobs`` lies on the data grid and the CSR windows are fetched
@@ -398,11 +398,12 @@ class DeltaScorer:
         max_id = max_id.repeat_interleave(m)
         rows, valid = rows.reshape(c * m, f_max), valid.reshape(c * m, f_max)
         pvec = params_vector(params, self.log_nfpb).expand(c, N_PARAMS).repeat_interleave(m, 0)
-        cands = self.catalogue(mini, lf_a, lf_b, max_id=max_id)  # (M, 13, f_max)
+        # base + candidates (M, 14, f_max), written in place by the catalogue
+        full = self.catalogue(mini, lf_a, lf_b, max_id=max_id, with_base=True)
+        cands = GenomeState(*[x[:, 1:] for x in full])
 
         subs, sub_valid = self.sub_rows(rows, valid)
         subs_c = subs.clamp(0, self.k_subs - 1)
-        full = GenomeState(*[torch.cat([a[:, None], b], 1) for a, b in zip(mini, cands)])
         geo = self.geometry(full, subs_c, sub_valid)
         # ob is zeroed on inactive rows / columns (base activity is folded
         # into the keys): the expected side is masked through la = -1e9,

@@ -46,6 +46,12 @@ Prints one JSON line per path and mode (``mode``: graph or eager):
 - ``aten_calls_per_step``: host operator calls per step, views included
   (a graphed step makes none: its calls are the cycle's copies in and
   out, spread over the window's steps);
+- ``kernels``: the device-side rows summed by class, {class: [ms per
+  step, calls per step]}: ``catalogue`` (C1 / C2, the candidate
+  catalogues), ``scorers`` (B1-B4), ``gather`` (gathers, scatters and
+  index kernels), ``elementwise`` (torch's elementwise kernels),
+  ``reduce``, ``copy`` (memcpy, memset) and ``other``; a step's count of
+  each is its calls per step;
 - ``top``: the largest device-side rows, (name, ms per step, calls per
   step).
 
@@ -240,6 +246,34 @@ def chains_runner(device, repeat: bool, capture: bool):
                              for _ in range(N_CHAINS)])
 
 
+# the classes of ``kernels``, matched in this order on the lower-cased name
+KERNEL_CLASSES = (("catalogue", ("catalogue",)),
+                  ("scorers", ("ll_dense", "ll_mini", "ll_repeat", "obsgrid")),
+                  ("gather", ("gather", "scatter", "index")),
+                  ("elementwise", ("elementwise_kernel",)),
+                  ("reduce", ("reduce_kernel",)),
+                  ("copy", ("memcpy", "memset")))
+
+
+def kernel_class(name: str) -> str:
+    low = name.lower()
+    for cls, keys in KERNEL_CLASSES:
+        if any(k in low for k in keys):
+            return cls
+    return "other"
+
+
+def by_class(rows, steps: int) -> dict:
+    """Device-side rows summed by :func:`kernel_class`: {class: [ms per
+    step, calls per step]}."""
+    out = {}
+    for e in rows:
+        acc = out.setdefault(kernel_class(e.key), [0.0, 0.0])
+        acc[0] += self_device_us(e) / 1e3 / steps
+        acc[1] += e.count / steps
+    return {k: [round(ms, 4), round(calls, 2)] for k, (ms, calls) in sorted(out.items())}
+
+
 def device_rows(averages):
     """The device-side rows of ``key_averages()``: kernels, memcpy and
     memset, without user annotations."""
@@ -308,6 +342,7 @@ def profile_path(name: str, device, warm: int, steps: int, table_dir: Path | Non
             "device_busy": device_ms and round(device_ms / wall_ms, 4),
             "device_event_ms_per_step": event_ms and round(event_ms, 4),
             "aten_calls_per_step": round(aten, 1),
+            "kernels": by_class(dev_rows, steps),
             "top": [[e.key[:70], round(self_device_us(e) / 1e3 / steps, 4),
                      round(e.count / steps, 2)] for e in top]}
 
