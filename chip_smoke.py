@@ -72,6 +72,33 @@ written. "share" is the bound over the device time.
    (20 rows), an MTM pass's (B = 7) and the delta shapes (base slot on),
    with the bound: the state read once, the (11, B, 13 or 14, n) int32
    output written once.
+3d. Step kernels D1 (the nuisance move: nuisance_propose_kernel,
+   nuisance_accept_kernel), D2 (the neighbour draw: neighbours_kernel) and
+   D3 (the selection and commit: select_commit_dense_kernel,
+   select_commit_delta_kernel; csrc/step.cu) against their plain torch
+   versions (core/mcmc.py, core/delta.py ``*_plain``) on each EM-family
+   path's own inputs, STEP_DRAWS random draws a shape (after the 20k
+   repeat set-up, which moved here): the dense flagship (B = 65) and dense
+   repeat (B = 130) paths (the true genome and its exploded start, half the
+   fragments repeat copies), 4 tempered chains (per-chain f_t), a
+   copy-dense table's draw (15 extra copies of a bin, m = 80), the 100k
+   delta path (M = 5), its 4 chains (M = 20), the runner's cycle end (4
+   chains' own parameters, the d_max cap) and the 20k repeat twin (M = 10).
+   D2's ids and valid masks and D1's test parameters, in_support, the
+   dense scorers' parameter row, accepted parameters, l_t and accept bit for
+   bit (NaN equal to NaN); D3's drawn slot equal to the plain version's
+   except where the categorical draw decides and its two best keys lie
+   within SLOT_ULPS ulps of the best (the normaliser is summed in another
+   order; either of the two passes there, and those draws are counted and
+   printed), and wherever it agrees the new state (dense) or the written
+   rows (delta), score / d_sel, op, fb and n_over bit for bit; a quarter of
+   the calls with f_a blacklisted and, on the delta paths, a quarter with
+   every slot overflowing; each chain's valid member rows distinct on the
+   real steps' inputs (the delta commit's contract). Each kernel timed at
+   each path's shape as 3c times C1 (device ms; the plain version's as
+   graph replays) beside its bound. Phases 4, 4b, 7 and 7b count one D2 and
+   one D3 launch a step (and one D1 pair a step on the dense paths); 7g /
+   7h hold graph == eager with D1-D3's launches equal by key.
 3. Dense kernel B1 (ll_dense) vs plain: the dense scorer kernel against its
    plain torch version on the same inputs, rtol 1e-4 (bench.py's
    standard), at the flagship K = 1,152 on 65-candidate batches built on
@@ -343,13 +370,21 @@ written. "share" is the bound over the device time.
    fuses them in the jitted step) at the EM step's B = 5 and an MTM pass's
    B = 7, with phase 3c's other shapes under "by_shape" and each main
    path's launches under "by_path" (phases 4, 4b, 7, 7b, every graphed
-   cycle of 7g / 7h), summed into the top-level count. Before them, a JSON
-   line of phase 5c's routes.
+   cycle of 7g / 7h), summed into the top-level count. D1 (nuisance), D2
+   (neighbours) and D3 (select_commit) mirror graal_tpu/core/mcmc.py:297,
+   :144 and :178 (no Pallas kernel: XLA fuses them in the jitted step) at
+   the dense flagship's shape (D1 a proposal and its Metropolis test, D3
+   the dense entry), with phase 3d's other shapes under "by_shape" and each
+   main path's launches under "by_path" (phases 4, 4b, 7, 7b and the
+   graphed cycles of 7g / 7h). Before them, a JSON line of phase 5c's
+   routes. (``--top-tiers`` adds D3's delta entry on 4 chains at 16,384,
+   M = 20, to its line.)
 """
 
 import contextlib
 import functools
 import json
+import math
 import os
 import subprocess
 import sys
@@ -408,6 +443,12 @@ CAT_CHUNK_CELLS = 1 << 22   # genomes x fragments of one compared call (phase 3c
 CAT_TIME_ITERS = 50
 # C1 / C2 launches of the main paths, by path: {"em": n, "mh": n} each
 CATALOGUE_PATHS = {}
+STEP_DRAWS = 2000           # random draws a shape each step kernel is held to its plain version on
+STEP_CHUNK = 250            # draws of one compared dense selection (phase 3d)
+STEP_DELTA_CHUNK = 64       # draws of one compared delta commit, each into its own genome copy
+STEP_TIME_ITERS = 200
+SLOT_ULPS = 4               # the drawn slot's margin: its best two keys within 4 ulps of the best
+STEP_PATHS = {}             # each main path's D1-D3 launches by key (the kernels line)
 CLI_CHAIN_STEPS = 128       # scale --chains steps a chain a cycle (11c)
 SMALL_BINS = 576            # 11c's run --profile dataset (level 2 ~60 bins)
 CLI_WATCH_STEPS = 64        # the same with --watch --profile: a traced cycle is slow
@@ -959,7 +1000,7 @@ def main_path_run(device, build, n_cycles):
     gen = torch.Generator(device=device).manual_seed(SEED)
     cur = mcmc.explode_genome(state)
     torch.cuda.synchronize()
-    scorer.n_launches = catalogue_wrapper().n_launches = 0
+    scorer.n_launches = catalogue_wrapper().n_launches = step_wrapper().n_launches = 0
     l0 = scorer(GenomeState(*[x[None] for x in cur]), params)[0]
     l_t, par = l0, params
     seconds = []
@@ -981,7 +1022,7 @@ def main_path_run(device, build, n_cycles):
     launches = scorer.n_launches
     return dict(state=state, scorer=scorer, cur=cur, par=par, l0=l0, l_t=l_t,
                 seconds=seconds, launches=launches, n=n, nb=nb,
-                catalogue=dict(catalogue_wrapper().launches.by_key()))
+                catalogue=dict(catalogue_wrapper().launches.by_key()), step=step_launches())
 
 
 def dense_main_checks(r, n_cycles):
@@ -1043,6 +1084,7 @@ def phase_main(device, n_bins=384):
     n = r["n"]
     dense_main_checks(r, N_CYCLES)
     CATALOGUE_PATHS["dense_main"] = r["catalogue"]
+    want_step_launches("dense main", r["step"], N_CYCLES * n, nuisance=True)
     init_prev, init_next = derive_prev_next(r["state"])
     # every bin has 3 sub-fragments (orientable); nothing is skipped
     dist = dist_inter_genome(r["cur"], init_prev, init_next, np.ones(n, np.int32),
@@ -1177,6 +1219,7 @@ def phase_repeat_main(device, n_bins=384):
     r = main_path_run(device, build, REPEAT_CYCLES)
     dense_main_checks(r, REPEAT_CYCLES)
     CATALOGUE_PATHS["dense_repeat_main"] = r["catalogue"]
+    want_step_launches("dense repeat main", r["step"], REPEAT_CYCLES * r["n"], nuisance=True)
     print(f"  n_contigs {int(r['cur'].n_contigs())}, active fragments "
           f"{int(r['cur'].activ.sum())}/{r['n']}")
     check_same_run(r, main_path_run(device, build, REPEAT_CYCLES))
@@ -1790,7 +1833,7 @@ def scale_main_run(sc):
     l0 = runner.anchor_fn()(shuf, params)
     torch.cuda.synchronize()
     runner.obs_grid.n_launches = runner.mini_grid.n_launches = 0
-    catalogue_wrapper().n_launches = 0
+    catalogue_wrapper().n_launches = step_wrapper().n_launches = 0
     t0 = time.perf_counter()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -1801,7 +1844,7 @@ def scale_main_run(sc):
     seconds = time.perf_counter() - t0
     return dict(cur=cur, l0=l0, l_t=l_t, out=out, seconds=seconds,
                 launches=(runner.mini_grid.n_launches, runner.obs_grid.n_launches),
-                catalogue=dict(catalogue_wrapper().launches.by_key()))
+                catalogue=dict(catalogue_wrapper().launches.by_key()), step=step_launches())
 
 
 def phase_scale_main(sc, label="delta main path"):
@@ -1827,6 +1870,7 @@ def phase_scale_main(sc, label="delta main path"):
     print(f"  catalogue launches: {r['catalogue']} (one C1 a step: {MAIN_STEPS})")
     check(r["catalogue"] == {"em": MAIN_STEPS}, f"C1 launches {r['catalogue']}")
     CATALOGUE_PATHS[label.replace(" ", "_")] = r["catalogue"]
+    want_step_launches(label, r["step"], MAIN_STEPS, delta=True)
     per_step = n_slots(sc["runner"].nb, DELTA)
     ms = r["seconds"] * 1e3 / MAIN_STEPS
     print(f"  {ms:.4f} ms/step, {per_step * MAIN_STEPS / r['seconds']:.1f} candidate "
@@ -3498,7 +3542,7 @@ def dense_graph_case(device, n_bins=384):
         return mcmc.make_em_cycle(table, obs, nb, DELTA, sample_param=True, scorer=scorer,
                                   capture=capture)
 
-    return build, chunks, [scorer, catalogue_wrapper()]
+    return build, chunks, [scorer, step_wrapper(), catalogue_wrapper()]
 
 
 def delta_graph_case(sc, chains=0, f_max=F_MAX, steps=(MAIN_STEPS, 128), start=None):
@@ -3554,7 +3598,7 @@ def delta_graph_case(sc, chains=0, f_max=F_MAX, steps=(MAIN_STEPS, 128), start=N
                                          obs_grid=grid, mini_grid=mini, rep=rep,
                                          capture=capture)
 
-    return build, chunks, [mini, grid, catalogue_wrapper()]
+    return build, chunks, [mini, grid, step_wrapper(), catalogue_wrapper()]
 
 
 def catalogue_wrapper():
@@ -3829,6 +3873,681 @@ def phase_catalogue(device, sc):
     return rec
 
 
+def step_wrapper():
+    """The step kernels' wrapper (D1-D3, launches keyed by kind)."""
+    from graal_tpu_torch.ops.step_cuda import STEP
+
+    return STEP
+
+
+def step_launches():
+    """The step kernels' launches by key so far, read from the card."""
+    return {str(k): v for k, v in step_wrapper().launches.by_key().items()}
+
+
+def want_step_launches(label, got, steps, nuisance=False, delta=False):
+    """Check a main path's D1-D3 launches: one neighbour draw and one
+    selection a step (the delta or the dense one), and with ``nuisance`` one
+    proposal and one Metropolis test a step. Records them for the kernels
+    line."""
+    want = {"neighbours": steps, "select_delta" if delta else "select_dense": steps}
+    if nuisance:
+        want.update(nuisance_propose=steps, nuisance_accept=steps)
+    print(f"  step kernel launches: {got} (one of each a step: {steps})")
+    check(got == want, f"{label}: step kernel launches {got} != {want}")
+    STEP_PATHS[label.replace(" ", "_")] = got
+
+
+def gumbel_noise(shape, gen, device):
+    import torch
+
+    u = torch.rand(shape, generator=gen, device=device)
+    return -torch.log(-torch.log(u.clamp_min(torch.finfo(torch.float32).tiny)))
+
+
+def random_temperatures(c, gen, device, k):
+    """Draw ``k``'s temperature: a Python float in turn with a tensor of one
+    a draw in [0.3, 4] (the cycles' f_t buffers)."""
+    import torch
+
+    if k % 2 == 0:
+        return (1.0, 0.8, 2.5)[k // 2 % 3]
+    return 0.3 + 3.7 * torch.rand(c, generator=gen, device=device)
+
+
+def slot_margin(label, sel_k, sel_p, keys, n_pos):
+    """The drawn slots held to the margin rule: the kernel's slot must
+    equal the plain version's unless the categorical draw decides (more
+    than one slot in the window) and the two best keys lie within SLOT_ULPS
+    ulps of the best, where either of the two passes. Returns (the rows
+    whose slots agree, the rows under the margin)."""
+    import torch
+
+    top = torch.topk(keys, 2, dim=-1)
+    best, second = top.values[:, 0], top.values[:, 1]
+    ulp = torch.nextafter(best.abs(), torch.full_like(best, float("inf"))) - best.abs()
+    close = (n_pos > 1) & torch.isfinite(best) & (best - second <= SLOT_ULPS * ulp)
+    agree = sel_k == sel_p
+    either = (sel_k == top.indices[:, 0]) | (sel_k == top.indices[:, 1])
+    bad = ~agree & ~(close & either)
+    check(not bool(bad.any()), f"{label}: the drawn slot differs from the plain version's on "
+          f"{int(bad.sum())} draws outside the margin (first {bad.nonzero()[:4].tolist()})")
+    return agree, close
+
+
+def same_rows(label, what, got, want, rows):
+    """``got`` and ``want`` equal bit for bit (NaN equal to NaN) and of one
+    dtype on the rows ``rows``. Returns the largest absolute difference
+    measured on those rows (inf where a NaN meets a number)."""
+    import torch
+
+    check(got.dtype == want.dtype and got.shape == want.shape,
+          f"{label}: {what} is {got.dtype} {tuple(got.shape)}, plain {want.dtype} "
+          f"{tuple(want.shape)}")
+    g, w = got[rows], want[rows]
+    if g.is_floating_point():
+        same = (g == w) | (torch.isnan(g) & torch.isnan(w))
+        diff = (g.double() - w.double()).abs().nan_to_num(nan=math.inf)
+    else:
+        same = g == w
+        diff = (g.double() - w.double()).abs()
+    err = float(torch.where(same, 0.0, diff).max()) if same.numel() else 0.0
+    bad = ~same
+    n_bad = int(bad.flatten(1).any(-1).sum()) if bad.dim() > 1 else int(bad.sum())
+    check(bool(same.all()), f"{label}: {what} differs from the plain version on {n_bad} draws")
+    return err
+
+
+def step_draw_inputs(state, nb, gen, frags=None):
+    """(u, f_a) of a draw: uniforms and a fragment, half of them from
+    ``frags`` (repeat copies) when given."""
+    import torch
+
+    dev = state.pos.device
+    u = torch.rand(nb.pk.shape[1], generator=gen, device=dev)
+    f = torch.randint(0, state.n_frags, (), generator=gen, device=dev)
+    if frags is not None and len(frags) and bool(torch.rand((), generator=gen, device=dev) < 0.5):
+        f = frags[int(torch.randint(0, len(frags), (), generator=gen, device=dev))]
+    return u, f
+
+
+def check_neighbour_draws(label, state, nb, gen, n_draws=STEP_DRAWS, frags=None):
+    """D2 against its plain version on ``n_draws`` random (u, f_a) of
+    ``state`` (fields (n,): one genome; (C, n): the draws shared out over
+    the chains), each chain's draws in one call on a chains axis of its
+    genome broadcast; and one draw alone through sample_neighbours. Half
+    the fragments from ``frags`` (repeat copies) when given. Returns (the
+    draws compared, the largest difference measured on them)."""
+    import torch
+    from graal_tpu_torch.core import mcmc
+    from graal_tpu_torch.core.state import GenomeState
+
+    dev = state.pos.device
+    n = state.n_frags
+    chains = [state] if state.pos.dim() == 1 else [GenomeState(*[x[c] for x in state])
+                                                   for c in range(state.pos.shape[0])]
+    k = -(-n_draws // len(chains))
+    step = step_wrapper()
+    err = 0.0
+    for c, one in enumerate(chains):
+        f_a = torch.randint(0, n, (k,), generator=gen, device=dev)
+        if frags is not None and len(frags):
+            f_a[::2] = frags[torch.randint(0, len(frags), (k,), generator=gen,
+                                           device=dev)][::2]
+        u = torch.rand((k, nb.pk.shape[1]), generator=gen, device=dev)
+        st = GenomeState(*[x.expand(k, n) for x in one])
+        ids, valid = step.neighbours(u, f_a, st.id_d, st.rep, nb, DELTA)
+        want = mcmc.sample_neighbours_plain(u, f_a, st, nb, DELTA)
+        every = torch.ones(k, dtype=torch.bool, device=dev)
+        err = max(err, same_rows(f"{label}, chain {c}", "ids", ids, want[0], every),
+                  same_rows(f"{label}, chain {c}", "valid", valid, want[1], every))
+        got = mcmc.sample_neighbours(u[0], f_a[0], one, nb, DELTA)
+        want = mcmc.sample_neighbours_plain(u[0], f_a[0], one, nb, DELTA)
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              f"{label}: one draw through sample_neighbours differs from the plain version")
+    return k * len(chains), err
+
+
+def dense_steps(state, nb, scorer, params, gen, n_steps=4, chains=False, frags=None):
+    """The dense tail's real inputs: ``n_steps`` EM steps' neighbours (the
+    plain draw), catalogues (C1) and scores (the path's scorer); with
+    ``chains`` one step of every chain of ``state`` (C, n) at once."""
+    import torch
+    from graal_tpu_torch.core import mcmc
+    from graal_tpu_torch.core.candidates import N_CANDIDATES, build_candidates
+    from graal_tpu_torch.core.state import GenomeState
+
+    out = []
+    for _ in range(n_steps):
+        if chains:
+            c, n = state.pos.shape
+            u = torch.rand((c, nb.pk.shape[1]), generator=gen, device=state.pos.device)
+            f_a = torch.randint(0, n, (c,), generator=gen, device=state.pos.device)
+            ids, valid = mcmc.sample_neighbours_plain(u, f_a, state, nb, DELTA)
+            m = ids.shape[1]
+            per_nb = GenomeState(*[x.repeat_interleave(m, 0) for x in state])
+            cands = build_candidates(per_nb, f_a.repeat_interleave(m), ids.reshape(-1),
+                                     max_id=state.id_c.amax(-1).repeat_interleave(m))
+        else:
+            u, f_a = step_draw_inputs(state, nb, gen, frags)
+            ids, valid = mcmc.sample_neighbours_plain(u, f_a, state, nb, DELTA)
+            cands = build_candidates(state, f_a, ids)
+        flat = GenomeState(*[x.reshape(-1, state.n_frags) for x in cands])
+        ll = scorer(flat, params).reshape(ids.shape + (N_CANDIDATES,))
+        out.append(dict(state=state, flat=flat, ll=ll, ids=ids, valid=valid,
+                        f_a=f_a.long()))
+    return out
+
+
+def check_dense_tails(label, steps, blacklist, gen, n_draws=STEP_DRAWS):
+    """D3's dense entry against select_commit_dense_plain on ``n_draws``
+    draws (Gumbel noise, temperature) over the real steps ``steps``, in
+    calls of STEP_CHUNK draws (a chains axis of one step's genome, or of its
+    chains, repeated), a quarter of the calls with f_a blacklisted: the
+    drawn slot under the margin rule, and wherever it agrees the new state,
+    score, op and fb bit for bit. And one step through select_commit_dense,
+    under the same rule. Returns (draws, draws under the margin, the largest
+    difference measured where the slots agree)."""
+    import torch
+    from graal_tpu_torch.core import mcmc
+    from graal_tpu_torch.core.candidates import N_CANDIDATES
+    from graal_tpu_torch.core.state import GenomeState
+
+    step = step_wrapper()
+    done = close_n = 0
+    err = 0.0
+    k = 0
+    while done < n_draws:
+        s = steps[k % len(steps)]
+        state, ids = s["state"], s["ids"]
+        dev = ids.device
+        c0 = 1 if ids.dim() == 1 else ids.shape[0]
+        reps = max(1, STEP_CHUNK // c0)
+        c = c0 * reps
+        n = state.n_frags
+        m = ids.shape[-1]
+        sl = m * N_CANDIDATES
+
+        def tile(x):
+            if c0 == 1:     # one genome: its rows broadcast
+                return x[None].expand((c,) + tuple(x.shape))
+            return x.repeat((reps,) + (1,) * (x.dim() - 1))
+
+        st = GenomeState(*[tile(x) for x in state])
+        flat = GenomeState(*[tile(x.reshape(sl, n)) if c0 == 1 else
+                             tile(x.reshape(c0, sl, n)) for x in s["flat"]])
+        ll, ids_c, valid = tile(s["ll"]), tile(ids), tile(s["valid"])
+        f_a = tile(s["f_a"]).contiguous()
+        gum = gumbel_noise((c, sl), gen, dev)
+        f_t = random_temperatures(c, gen, dev, k)
+        bl = blacklist.clone()
+        if k % 4 == 3:
+            bl[f_a] = True
+        fields, score, op, fb, sel = step.select_dense(st, flat, ll, ids_c, valid, f_a, gum,
+                                                       f_t, bl, mcmc.THRESH_OVERFLOW)
+        want, (w_score, w_op, w_fb), w_sel = mcmc.select_commit_dense_plain(
+            st, GenomeState(*[x.reshape(c * sl, n) for x in flat]), ll, ids_c, valid, f_a,
+            gum, f_t, bl)
+        del flat
+        keys, n_pos, _ = mcmc.slot_keys(gum, ll, valid, f_t)
+        agree, close = slot_margin(f"{label}, call {k}", sel, w_sel, keys, n_pos)
+        for name, g, w in zip(GenomeState._fields, fields, want):
+            err = max(err, same_rows(f"{label}, call {k}", name, g, w, agree))
+        for name, g, w in (("score", score, w_score), ("op", op, w_op), ("fb", fb, w_fb),
+                           ("sel", sel, w_sel)):
+            err = max(err, same_rows(f"{label}, call {k}", name, g, w, agree))
+        done += c
+        close_n += int(close.sum())
+        k += 1
+    s = steps[0]
+    if s["ids"].dim() == 1:
+        gum = gumbel_noise((s["ids"].shape[0] * N_CANDIDATES,), gen, s["ids"].device)
+        args = (s["state"], s["flat"], s["ll"], s["ids"], s["valid"], s["f_a"], gum, 1.0,
+                blacklist)
+        got, want = mcmc.select_commit_dense(*args), mcmc.select_commit_dense_plain(*args)
+        keys, n_pos, _ = mcmc.slot_keys(gum, s["ll"], s["valid"], 1.0)
+        agree, close = slot_margin(f"{label}, one step through select_commit_dense",
+                                   got[2].reshape(1), want[2].reshape(1), keys.reshape(1, -1),
+                                   n_pos.reshape(1))
+        if bool(agree):
+            check(all(torch.equal(a, b) for a, b in zip(got[0], want[0]))
+                  and all(torch.equal(a, b) for a, b in zip(got[1], want[1])),
+                  f"{label}: one step through select_commit_dense differs from plain")
+        done += 1
+        close_n += int(close.sum())
+    return done, close_n, err
+
+
+def delta_steps(scorer, states, nb, params, extract, gen, f_as=None):
+    """One delta step's real tail inputs for every chain of ``states`` (C,
+    n): each chain's f_a (a contig extremity by default), its neighbours
+    (the plain draw), member rows (``extract``) and scored mini-states
+    (``scorer.score``); and the distinct-rows contract checked on them."""
+    import torch
+    from graal_tpu_torch.core import mcmc
+
+    dev = states.pos.device
+    c = states.pos.shape[0]
+    f_a = chain_extremities(states, 1) if f_as is None else f_as
+    u = torch.rand((c, nb.pk.shape[1]), generator=gen, device=dev)
+    ids, valid = mcmc.sample_neighbours_plain(u, f_a, states, nb, DELTA)
+    rows, rvalid, over = extract(states, f_a, ids, scorer.f_max)
+    dll, minis, rows, rows_valid, overflow = scorer.score(
+        states, f_a, ids, rows, rvalid, over, params, states.id_c.amax(-1))
+    # each chain's valid rows of a neighbour slot are distinct (the delta commit's contract)
+    f_max = rows.shape[-1]
+    tagged = torch.where(rows_valid, rows, -1 - torch.arange(f_max, device=dev))
+    ordered = tagged.sort(-1).values
+    check(bool((ordered[..., 1:] != ordered[..., :-1]).all()),
+          "a chain's valid member rows repeat: the delta commit's contract fails")
+    return dict(states=states, f_a=f_a.long(), ids=ids, valid=valid, dll=dll, minis=minis,
+                rows=rows, rows_valid=rows_valid, overflow=overflow)
+
+
+def check_delta_tails(label, s, blacklist, gen, n_draws=STEP_DRAWS):
+    """D3's delta entry against select_commit_delta_plain on ``n_draws``
+    draws over the real step ``s`` (from :func:`delta_steps`): in calls of
+    STEP_DELTA_CHUNK draws of one chain (its inputs repeated, the genome
+    copied so that the kernel writes each draw's own), a quarter of the
+    calls with f_a blacklisted and a quarter with every slot overflowing:
+    the drawn slot under the margin rule, and wherever it agrees the 8
+    written fields, d_sel, op, fb and n_over bit for bit. Returns (draws,
+    draws under the margin, the largest difference measured where the slots
+    agree)."""
+    import torch
+    from graal_tpu_torch.core import delta, mcmc
+    from graal_tpu_torch.core.state import MUTABLE_FIELDS, GenomeState
+
+    step = step_wrapper()
+    states = s["states"]
+    c0, n = states.pos.shape
+    dev = states.pos.device
+    k = done = close_n = 0
+    err = 0.0
+    while done < n_draws:
+        ch = k % c0
+        c = STEP_DELTA_CHUNK
+
+        def rep(x):
+            return x[ch:ch + 1].expand((c,) + tuple(x.shape[1:]))
+
+        st = GenomeState(*[rep(x) for x in states])
+        minis = GenomeState(*[rep(x) for x in s["minis"]])
+        rows, rows_valid = rep(s["rows"]).contiguous(), rep(s["rows_valid"]).contiguous()
+        dll, ids, valid, f_a = rep(s["dll"]), rep(s["ids"]), rep(s["valid"]), rep(s["f_a"])
+        overflow = rep(s["overflow"])
+        if k % 4 == 2:
+            overflow = torch.ones_like(overflow)
+        bl = blacklist.clone()
+        if k % 4 == 3:
+            bl[f_a] = True
+        gum = gumbel_noise((c, ids.shape[1] * 13), gen, dev)
+        f_t = random_temperatures(c, gen, dev, k)
+        dst = {f: x.clone() for f, x in st._asdict().items()}
+        d_sel, op, fb, n_over, sel = step.select_delta(
+            dst, minis._asdict(), rows, rows_valid, dll, ids, valid, overflow, f_a, gum, f_t,
+            bl, mcmc.THRESH_OVERFLOW)
+        want, w_dsel, (w_op, w_fb, w_over), w_sel = delta.select_commit_delta_plain(
+            st, minis, rows, rows_valid, dll, ids, valid, overflow, f_a, gum, f_t, bl,
+            mcmc.THRESH_OVERFLOW)
+        slot_ok = (~overflow)[..., None].expand(-1, -1, 13)
+        keys, n_pos, _ = mcmc.slot_keys(gum, dll, valid, f_t, slot_valid=slot_ok)
+        agree, close = slot_margin(f"{label}, call {k}", sel, w_sel, keys, n_pos)
+        for f in MUTABLE_FIELDS:
+            err = max(err, same_rows(f"{label}, call {k}", f, dst[f], getattr(want, f), agree))
+        for name, g, w in (("d_sel", d_sel, w_dsel), ("op", op, w_op), ("fb", fb, w_fb),
+                           ("n_over", n_over, w_over), ("sel", sel, w_sel)):
+            err = max(err, same_rows(f"{label}, call {k}", name, g, w, agree))
+        done += c
+        close_n += int(close.sum())
+        k += 1
+    return done, close_n, err
+
+
+def check_nuisance_moves(label, params, gen, n_draws=STEP_DRAWS, cap=None, log_nfpb=None,
+                         l_ref=-1.0e5):
+    """D1 against nuisance_propose_plain / nuisance_accept_plain on
+    ``n_draws`` draws (id_modif, eps, u; l_star around l_ref and a
+    temperature) of the parameters ``params`` (one set, or one a chain: the
+    draws cycle through the chains): the 5 test parameters, in_support and
+    the parameter row, then the accepted parameters, l_t and accept, bit for
+    bit (NaN equal to NaN); one move alone through the public functions.
+    Returns (draws, {test field: draws that differ}, the largest difference
+    measured) for the record."""
+    import torch
+    from graal_tpu_torch.core import mcmc
+    from graal_tpu_torch.core.model import RippeParams
+
+    step = step_wrapper()
+    dev = params.fact.device
+    c0 = params.fact.numel()
+    at = torch.arange(n_draws, device=dev) % c0
+    par = RippeParams(*[x.reshape(-1).index_select(0, at) for x in params])
+    idm = torch.randint(0, 4, (n_draws,), generator=gen, device=dev)
+    eps = torch.randn(n_draws, generator=gen, device=dev)
+    every = torch.ones(n_draws, dtype=torch.bool, device=dev)
+    (c1, slope, d_max, fact, v_inter), ok, row = step.nuisance_propose(idm, eps, par, cap,
+                                                                       log_nfpb)
+    got = par._replace(c1=c1, slope=slope, d_max=d_max, fact=fact, v_inter=v_inter)
+    want, w_ok, w_row = mcmc.nuisance_propose_plain(idm, eps, par, cap, log_nfpb)
+    diffs = {f: int((getattr(got, f) != getattr(want, f)).sum()) for f in
+             ("c1", "slope", "d_max", "fact", "v_inter")}
+    err = 0.0
+    for f in RippeParams._fields:
+        err = max(err, same_rows(label, f"test {f}", getattr(got, f), getattr(want, f), every))
+    err = max(err, same_rows(label, "in_support", ok, w_ok, every))
+    if log_nfpb is not None:
+        err = max(err, same_rows(label, "parameter row", row, w_row, every))
+    u = torch.rand(n_draws, generator=gen, device=dev)
+    l_t = l_ref + torch.randn(n_draws, generator=gen, device=dev)
+    l_star = l_t + 3.0 * torch.randn(n_draws, generator=gen, device=dev)
+    for k, f_t in enumerate((0.8, 0.5 + 3.0 * torch.rand(n_draws, generator=gen,
+                                                          device=dev))):
+        out, l_out, acc = step.nuisance_accept(u, got, par, l_star, l_t, f_t, ok)
+        w_out, w_l, w_acc = mcmc.nuisance_accept_plain(u, want, par, l_star, l_t, f_t, w_ok)
+        for f, g, w in zip(RippeParams._fields, out, w_out):
+            err = max(err, same_rows(f"{label}, accept {k}", f, g, w, every))
+        err = max(err, same_rows(f"{label}, accept {k}", "l_t", l_out, w_l, every),
+                  same_rows(f"{label}, accept {k}", "accept", acc, w_acc, every))
+        check(0 < int(acc.sum()) < n_draws, f"{label}: accepts {int(acc.sum())}/{n_draws}")
+    one = RippeParams(*[x[0] for x in par])
+    got1 = mcmc.nuisance_propose(idm[0], eps[0], one, cap, log_nfpb)
+    want1 = mcmc.nuisance_propose_plain(idm[0], eps[0], one, cap, log_nfpb)
+    check(all(bool((a == b) | (a != a)) for a, b in zip(got1[0], want1[0]))
+          and bool(got1[1] == want1[1]), f"{label}: one proposal through nuisance_propose "
+          "differs from the plain version")
+    return n_draws, diffs, err
+
+
+def step_bound(kind, c, m=0, n=0, f_max=0, n_top=10, mc=1, n_solve=0, n_rows=0):
+    """The least time of one call (bound()): bytes each input is read and
+    each output written once. D1 (propose + accept) also does the curve
+    evaluations that its output needs: one multisection solve (64 points x
+    5 passes, each ~16 FP32 and 4 special-function operations: two
+    exponentials and a power of two operations) for each of the ``n_solve``
+    chains whose id_modif needs one (the d_max proposal needs none), and a
+    chain's kuhn^-3 (a power) and Metropolis exponential once. D3's delta
+    entry reads the chosen slot's f_max row flags and, for each of the
+    ``n_rows`` valid rows it commits, the row index and the 8 fields, and
+    writes the 8 fields."""
+    s = 13 * m
+    if kind == "nuisance":        # propose + accept
+        n_bytes = c * (8 * 4 + 8 + 4 + 5 * 4 + 1 + 10 * 4) + c * (16 * 4 + 4 * 4 + 1 + 8 * 4 + 5)
+        return bound(n_bytes, fp32_ops=n_solve * 64 * 5 * 16,
+                     sfu_ops=n_solve * 64 * 5 * 4 + c * (2 + 1))
+    if kind == "neighbours":
+        n_bytes = c * (n_top * 4 + 8 + 8 + 2 * n_top * 4 + (DELTA + 1) * mc * 4 + m + m * 5)
+        return bound(n_bytes)
+    if kind == "select_dense":    # scores, noise, masks; the chosen candidate read, a state written
+        n_bytes = c * (2 * s * 4 + m * 5 + 8 + 1 + 2 * 11 * 4 * n + 4 * 8)
+        return bound(n_bytes)
+    # select_delta: the chosen slot's row flags; its valid rows' index and fields
+    n_bytes = c * (2 * s * 4 + m * 6 + 8 + 1 + f_max + 5 * 8) + n_rows * (8 + 2 * 8 * 4)
+    return bound(n_bytes)
+
+
+def step_record(kind, fn, plain, b, **shape):
+    """One step kernel timed at one shape: event ms as called and device ms,
+    the plain version's ms as called and on the device (as graph replays),
+    and the bound."""
+    t = timed(fn, STEP_TIME_ITERS)
+    t["plain_ms"] = cuda_ms(plain, 5, n_warm=1)
+    t["plain_device_ms"] = graph_device_ms(plain, 20)
+    return dict(with_share(t, b), kind=kind, **shape)
+
+
+def time_dense_step(kind, s, params, scorer, nb, blacklist, gen, cap=None, **shape):
+    """D1 (``kind`` "nuisance": propose and accept of the path's parameters,
+    the dense scorer's row) or D2 and D3 ("neighbours", "select_dense") at
+    one step's shape; each against its plain version."""
+    import torch
+    from graal_tpu_torch.core import mcmc
+    from graal_tpu_torch.core.candidates import N_CANDIDATES
+    from graal_tpu_torch.core.state import GenomeState
+
+    step = step_wrapper()
+    ids, state = s["ids"], s["state"]
+    dev = ids.device
+    single = ids.dim() == 1
+    c = 1 if single else ids.shape[0]
+    m = ids.shape[-1]
+    if kind == "nuisance":
+        lift = (lambda x: x) if params.fact.dim() else (lambda x: x.reshape(1))
+        par = type(params)(*[lift(x) for x in params])
+        idm = torch.randint(0, 4, (c,), generator=gen, device=dev)
+        eps = torch.randn(c, generator=gen, device=dev)
+        u = torch.rand(c, generator=gen, device=dev)
+        l_t = torch.full((c,), -1.0e5, device=dev)
+        l_star = l_t + 1.0
+        nfpb = getattr(scorer, "log_nfpb", None)
+
+        def fn():
+            (c1, sl, dm, fa, v), ok, _ = step.nuisance_propose(idm, eps, par, cap, nfpb)
+            test = par._replace(c1=c1, slope=sl, d_max=dm, fact=fa, v_inter=v)
+            step.nuisance_accept(u, test, par, l_star, l_t, 1.0, ok)
+
+        def plain():
+            test, ok, _ = mcmc.nuisance_propose_plain(idm, eps, par, cap, nfpb)
+            mcmc.nuisance_accept_plain(u, test, par, l_star, l_t, 1.0, ok)
+
+        n_solve = int((idm != 2).sum())
+        return step_record(kind, fn, plain, step_bound(kind, c, n_solve=n_solve), C=c,
+                           n_solve=n_solve, **shape)
+    if kind == "neighbours":
+        u = torch.rand((c, nb.pk.shape[1]), generator=gen, device=dev)
+        f_a = s["f_a"].reshape(c)
+        st = GenomeState(*[x.expand(c, -1) for x in state]) if single else state
+        return step_record(
+            kind, lambda: step.neighbours(u, f_a, st.id_d, st.rep, nb, DELTA),
+            lambda: mcmc.sample_neighbours_plain(u, f_a, st, nb, DELTA),
+            step_bound(kind, c, m=m, n_top=nb.pk.shape[1], mc=nb.max_copies), C=c, m=m,
+            **shape)
+    lift = (lambda x: x[None]) if single else (lambda x: x)
+    st = GenomeState(*[lift(x) for x in state])
+    flat = GenomeState(*[x.reshape(c, m * N_CANDIDATES, -1) for x in s["flat"]])
+    ll, idc, valid, f_a = lift(s["ll"]), lift(ids), lift(s["valid"]), s["f_a"].reshape(c)
+    gum = gumbel_noise((c, m * N_CANDIDATES), gen, dev)
+    return step_record(
+        kind, lambda: step.select_dense(st, flat, ll, idc, valid, f_a, gum, 1.0, blacklist,
+                                        mcmc.THRESH_OVERFLOW),
+        lambda: mcmc.select_commit_dense_plain(st, s["flat"], ll, idc, valid, f_a, gum, 1.0,
+                                               blacklist),
+        step_bound(kind, c, m=m, n=state.n_frags), C=c, m=m, n=state.n_frags, **shape)
+
+
+def time_delta_step(s, blacklist, gen, **shape):
+    """D3's delta entry at one real step's shape (every chain), into a copy
+    of the genome it rewrites each call, against its plain version; the
+    bound counts the valid rows of the slots the kernel drew."""
+    import torch
+    from graal_tpu_torch.core import delta, mcmc
+
+    step = step_wrapper()
+    c, m = s["ids"].shape
+    f_max = s["rows"].shape[-1]
+    gum = gumbel_noise((c, m * 13), gen, s["ids"].device)
+    dst = {f: x.clone() for f, x in s["states"]._asdict().items()}
+    minis = s["minis"]._asdict()
+    args = (s["rows"], s["rows_valid"], s["dll"], s["ids"], s["valid"], s["overflow"], s["f_a"],
+            gum, 1.0, blacklist, mcmc.THRESH_OVERFLOW)
+    _, op, _, _, sel = step.select_delta(dst, minis, *args)
+    chosen = s["rows_valid"][torch.arange(c, device=sel.device), sel // 13]
+    n_rows = int((chosen.sum(-1) * (op != -1)).sum())
+    return step_record("select_delta", lambda: step.select_delta(dst, minis, *args),
+                       lambda: delta.select_commit_delta_plain(s["states"], s["minis"], *args),
+                       step_bound("select_delta", c, m=m, f_max=f_max, n_rows=n_rows), C=c, m=m,
+                       f_max=f_max, n_rows=n_rows, **shape)
+
+
+def phase_step_kernels(device, sc, rsc, n_bins=384):
+    """3d. The step kernels D1 (nuisance move), D2 (neighbour draw) and D3
+    (selection and commit) against their plain versions on each EM-family
+    path's own inputs (the dense flagship, the dense repeat twin, 4
+    tempered chains, the copy-dense table's draw, the 100k delta path, its
+    4 chains, the runner's cycle end with the chains and the cap, the 20k
+    repeat twin), ~STEP_DRAWS random draws a shape, the drawn slot under
+    the margin rule; then each timed against its plain version at the
+    path's shape."""
+    import torch
+    from graal_tpu_torch.core import delta, delta_repeats, mcmc
+    from graal_tpu_torch.core.state import GenomeState
+    from graal_tpu_torch.entry import problem, repeat_problem
+    from graal_tpu_torch.ops.likelihood_cuda import make_dense_scorer
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 40)
+    print(f"step kernels D1 (nuisance), D2 (neighbours), D3 (select_commit) vs plain, "
+          f"{STEP_DRAWS} draws a shape; slots equal outside {SLOT_ULPS} ulps of the best key")
+    rec, close = {}, {}
+    nuis_diffs = {}
+    # the largest difference measured against the plain versions, by kernel
+    errs = dict(nuisance=0.0, neighbours=0.0, select_commit=0.0)
+
+    def measured(kernel, err):
+        errs[kernel] = max(errs[kernel], err)
+
+    def neighbour_draws(*args, **kw):
+        measured("neighbours", check_neighbour_draws(*args, **kw)[1])
+
+    def note(name, got):
+        draws, under, err = got
+        close[name] = under
+        measured("select_commit", err)
+        print(f"  {name}: {draws} draws, {under} under the margin")
+
+    # the dense flagship (B1, B = 65) and the dense repeat twin (B3, B = 130)
+    dense_cases = []
+    for name, build in (("dense_flagship", problem), ("dense_repeat", repeat_problem)):
+        state, table, params, obs, nb = build(n_bins=n_bins, device=device)
+        scorer = make_dense_scorer(table, obs, device)
+        start = mcmc.explode_genome(state)
+        copies = torch.nonzero(state.rep == 1).reshape(-1)
+        neighbour_draws(f"{name} D2", state, nb, gen, frags=copies)
+        neighbour_draws(f"{name} D2, exploded", start, nb, gen, frags=copies)
+        steps = (dense_steps(state, nb, scorer, params, gen, frags=copies)
+                 + dense_steps(start, nb, scorer, params, gen, frags=copies))
+        note(f"{name} D3", check_dense_tails(f"{name} D3", steps, nb.blacklist, gen))
+        n_d, nuis_diffs[name], err = check_nuisance_moves(f"{name} D1", params, gen,
+                                                          log_nfpb=scorer.log_nfpb)
+        measured("nuisance", err)
+        print(f"  {name} D1: {n_d} moves, test parameters bit for bit")
+        dense_cases.append((name, steps[0], params, scorer, nb))
+    # 4 tempered chains of the flagship (B1 at B = 260, per-chain f_t)
+    state, table, params, obs, nb = problem(n_bins=n_bins, device=device)
+    scorer = make_dense_scorer(table, obs, device)
+    chains = GenomeState(*[torch.stack(xs) for xs in zip(
+        state, mcmc.explode_genome(state), circularised(state), mcmc.explode_genome(state))])
+    neighbour_draws("tempered D2", chains, nb, gen)
+    t_steps = dense_steps(chains, nb, scorer, params, gen, chains=True)
+    note("tempered D3", check_dense_tails("tempered D3", t_steps, nb.blacklist, gen))
+    # the copy-dense table: 15 extra copies of a bin (max_copies 16, m = 80)
+    cd_state, _, _, _, cd_nb = copy_dense_problem(device)
+    check(cd_nb.max_copies == 16, f"copy-dense table: max_copies {cd_nb.max_copies}")
+    copies = torch.nonzero(cd_state.rep == 1).reshape(-1)
+    neighbour_draws("copy-dense D2 (m = 80)", cd_state, cd_nb, gen, frags=copies)
+    # the delta paths: 100k (M = 5), 4 chains (M = 20)
+    runner = sc["runner"]
+    scorer = delta.make_delta_scorer(sc["table"], None, F_MAX, sobs=sc["sobs"])
+    shuf = sc["shuf"]
+    neighbour_draws("100k D2", shuf, runner.nb, gen)
+    d100 = delta_steps(scorer, GenomeState(*[x[None] for x in shuf]), runner.nb, sc["params"],
+                       delta.extract_rows_union, gen)
+    note("100k delta D3", check_delta_tails("100k delta D3 (M = 5)", d100, runner.nb.blacklist,
+                                            gen))
+    states = chain_starts(sc)
+    pc = chain_params(sc["params"])
+    neighbour_draws("4 chains D2", states, runner.nb, gen)
+    d4 = delta_steps(scorer, states, runner.nb, pc, delta.extract_rows_union, gen)
+    note("4 chains D3", check_delta_tails("4 chains D3 (M = 20)", d4, runner.nb.blacklist, gen))
+    # the cycle end: 4 chains' own parameters, the cap, per-chain f_t
+    cap = runner.max_covered_d_max
+    l_ref = float(runner.chains_anchor_fn()(states, pc)[0])
+    n_d, nuis_diffs["cycle_end"], err = check_nuisance_moves(
+        "cycle end D1 (4 chains, cap)", pc, gen, cap=None if cap == float("inf") else cap,
+        l_ref=l_ref)
+    measured("nuisance", err)
+    print(f"  cycle end D1: {n_d} moves of {CHAINS} chains' parameters, cap {cap}")
+    # the 20k repeat twin (the repeat engine v2, extract_rows_each, M = 10)
+    engine = delta_repeats.make_repeat_delta_scorer_v2(rsc["table"], F_MAX, rsc["sobs"],
+                                                       rsc["shuf"].rep)
+    copies = torch.nonzero(rsc["shuf"].rep == 1).reshape(-1)
+    neighbour_draws("20k repeat D2", rsc["shuf"], rsc["runner"].nb, gen, frags=copies)
+    d20 = delta_steps(engine, GenomeState(*[x[None] for x in rsc["shuf"]]), rsc["runner"].nb,
+                      rsc["params"], delta.extract_rows_each, gen, f_as=copies[:1].long())
+    note("20k repeat D3", check_delta_tails("20k repeat D3 (M = 10)", d20,
+                                            rsc["runner"].nb.blacklist, gen))
+    print(f"  D1-D3 equal to their plain versions; drawn slots under the margin {close}; "
+          f"test parameters that differ {nuis_diffs}; largest differences measured {errs}")
+    # times at each path's shape
+    for name, s, d_params, d_scorer, d_nb in dense_cases:
+        for kind in ("nuisance", "neighbours", "select_dense"):
+            rec[f"{kind}_{name}"] = time_dense_step(kind, s, d_params, d_scorer, d_nb,
+                                                    d_nb.blacklist, gen, path=name)
+    for kind in ("neighbours", "select_dense"):
+        rec[f"{kind}_tempered"] = time_dense_step(kind, t_steps[0], None, None, nb,
+                                                  nb.blacklist, gen, path="tempered")
+    rec["nuisance_cycle_end"] = time_dense_step(
+        "nuisance", dict(ids=d4["ids"], state=states), pc, None, runner.nb, None, gen,
+        cap=None if cap == float("inf") else cap, path="cycle_end")
+    for name, s, nbt in (("100k", d100, runner.nb), ("chains_100k", d4, runner.nb),
+                         ("repeat_20k", d20, rsc["runner"].nb)):
+        rec[f"neighbours_{name}"] = time_dense_step(
+            "neighbours", dict(ids=s["ids"], state=s["states"], f_a=s["f_a"]), None, None, nbt,
+            None, gen, path=name)
+        rec[f"select_delta_{name}"] = time_delta_step(s, nbt.blacklist, gen, path=name)
+    for name, r in rec.items():
+        print(f"  {name}: C = {r['C']}: {r['device_ms']:.4f} device ms ({r['ms']:.4f} as "
+              f"called), plain {r['plain_device_ms']:.4f} device ms ({r['plain_ms']:.4f} as "
+              f"called); {fmt_bound(r)}")
+    return dict(records=rec, close=close, nuisance_diffs=nuis_diffs, errs=errs)
+
+
+def copy_dense_problem(device, n_bins=48, copies=15):
+    """A genome over ``n_bins`` bins with ``copies`` extra copies of bin 7
+    (max_copies 16: a step's m = 80 neighbour slots), its contacts and
+    neighbour table; every fragment of bin 7 flagged rep."""
+    import numpy as np
+    import torch
+    from graal_tpu_torch.core import mcmc
+    from graal_tpu_torch.core.state import GenomeState
+
+    rng = np.random.default_rng(SEED + 41)
+    id_d = np.concatenate([np.arange(n_bins), np.full(copies, 7)]).astype(np.int32)
+    n = len(id_d)
+    m = rng.poisson(2.0, (n_bins, n_bins)).astype(np.float32)
+    m = np.triu(m, 1) + np.triu(m, 1).T
+    per = 8
+    soa = dict(pos=np.arange(n) % per, id_c=np.arange(n) // per,
+               start_bp=(np.arange(n) % per) * 1000, len_bp=np.full(n, 1000),
+               circ=np.zeros(n), l_cont=np.minimum(per, n - (np.arange(n) // per) * per),
+               l_cont_bp=np.minimum(per, n - (np.arange(n) // per) * per) * 1000,
+               ori=np.ones(n), rep=(id_d == 7).astype(np.int32), activ=np.ones(n), id_d=id_d)
+    state = GenomeState.from_soa(soa, device=device)
+    nb = mcmc.build_neighbour_table(m, id_d, n, blacklisted=[3, n - 1], device=device)
+    return state, None, None, None, nb
+
+
+def phase_step_top(sc):
+    """(``--top-tiers``) D3's delta entry on 4 chains from the truth at
+    bucket 16,384 (M = 20) against its plain version, and timed there."""
+    import torch
+    from graal_tpu_torch.core import delta
+    from graal_tpu_torch.core.state import GenomeState
+
+    gen = torch.Generator(device=sc["truth"].pos.device).manual_seed(SEED + 42)
+    runner = sc["runner"]
+    scorer = delta.make_delta_scorer(sc["table"], None, TOP_TIERS[1], sobs=sc["sobs"])
+    states = GenomeState(*[x.expand(CHAINS, -1).contiguous() for x in sc["truth"]])
+    s = delta_steps(scorer, states, runner.nb, chain_params(sc["params"]),
+                    delta.extract_rows_union, gen)
+    draws, under, err = check_delta_tails(f"{CHAINS} chains D3 at {TOP_TIERS[1]} (M = 20)", s,
+                                          runner.nb.blacklist, gen)
+    rec = time_delta_step(s, runner.nb.blacklist, gen, path=f"chains_{TOP_TIERS[1]}")
+    print(f"  {CHAINS} chains at bucket {TOP_TIERS[1]}: {draws} draws, {under} under the "
+          f"margin, largest difference {err}; {rec['device_ms']:.4f} device ms, plain "
+          f"{rec['plain_device_ms']:.4f}; {fmt_bound(rec)}")
+    return dict(rec, draws=draws, close=under, max_abs_err=err)
+
+
 def phase_graphs(device, sc, rsc):
     """7g. Each main path's cycle as a captured graph against the same
     cycle run eagerly (capture=False), on the same inputs: the dense
@@ -3847,11 +4566,14 @@ def phase_graphs(device, sc, rsc):
                                         *delta_graph_case(sc, chains=CHAINS))
     out["repeat_delta_20k"] = graph_vs_eager(f"20k repeat delta path, f_max {F_MAX}",
                                              *delta_graph_case(rsc))
-    # one C1 call a step: 2 cycles of the flagship's 384 fragments, 256 + 128 delta steps
+    # one C1 call a step: 2 cycles of the flagship's 384 fragments, 256 + 128 delta steps;
+    # one D2 and one D3 launch a step, and on the dense path one D1 pair
     for name, steps in (("dense_flagship", 2 * 384), ("delta_100k", MAIN_STEPS + 128),
                         ("chains_100k", MAIN_STEPS + 128), ("repeat_delta_20k", MAIN_STEPS + 128)):
         got = out[name]["graph"]["by_key"][-1]
         check(got == {"em": steps}, f"{name}: C1 launches {got} != one a step ({steps})")
+        want_step_launches(f"graph {name}", out[name]["graph"]["by_key"][-2], steps,
+                           nuisance=name == "dense_flagship", delta=name != "dense_flagship")
     catalogue_paths(out)
     return out
 
@@ -3904,7 +4626,7 @@ def tempered_graph_case(device, n_bins=384):
         return tempering.make_tempered_cycle(table, obs, nb, DELTA, scorer=scorer,
                                              capture=capture)
 
-    return build, chunks, [scorer, catalogue_wrapper()]
+    return build, chunks, [scorer, step_wrapper(), catalogue_wrapper()]
 
 
 def move_chunks(start, params, l0, jump, gen):
@@ -3999,7 +4721,7 @@ def cycle_end_graph_case(sc, n_cycles=4):
     def build(capture):
         return runner.cycle_end(True, capture=capture)
 
-    return build, chunks, []
+    return build, chunks, [step_wrapper()]
 
 
 def run_mtm_memory(runner, start, steps, f_max_min, label):
@@ -4063,7 +4785,10 @@ def phase_graphs_samplers(device, sc, rsc):
     out["tempered_flagship"] = graph_vs_eager(
         f"tempered flagship (B1 at B = 260), {CHAINS} chains",
         *tempered_graph_case(device), sync_error=True)
-    launched(out["tempered_flagship"], [{str((260, k)): steps}, {"em": steps}], "tempered")
+    launched(out["tempered_flagship"], [{str((260, k)): steps},
+                                        {"neighbours": steps, "select_dense": steps},
+                                        {"em": steps}], "tempered")
+    STEP_PATHS["graph_tempered_flagship"] = out["tempered_flagship"]["graph"]["by_key"][1]
     for variant in ("mtm", "mh"):
         out[f"{variant}_flagship"] = graph_vs_eager(
             f"dense {variant.upper()} flagship (B1 at B = {MTM_SLOTS})",
@@ -4082,6 +4807,9 @@ def phase_graphs_samplers(device, sc, rsc):
     out["cycle_end_100k"] = graph_vs_eager(
         "100k ScaleRunner.run cycle end (re-anchor + nuisance step)",
         *cycle_end_graph_case(sc), sync_error=True)
+    launched(out["cycle_end_100k"], [{"nuisance_propose": 4, "nuisance_accept": 4}],
+             "cycle end")
+    STEP_PATHS["graph_cycle_end_100k"] = out["cycle_end_100k"]["graph"]["by_key"][0]
     sc["runner"].release_graphs()
     out["run_mtm_100k"] = run_mtm_memory(sc["runner"], sc["shuf"], SAMPLER_STEPS, F_MAX,
                                          "100k delta MTM")
@@ -4129,8 +4857,42 @@ def catalogue_records(catalogue):
     return out
 
 
+def step_records(step):
+    """The kernels line's entries of D1 (nuisance), D2 (neighbours) and D3
+    (select_commit): the dense flagship's numbers (D1: a proposal and its
+    Metropolis test; D3: the dense entry), the other shapes of phase 3d
+    under "by_shape", and under "by_path" each main path's launches
+    counted on the card (phases 4, 4b, 7, 7b and the graphed cycles of 7g
+    / 7h), whose sum is the top-level count; "max_abs_err" the largest
+    difference from the plain version that phase 3d measured on the
+    compared draws of every shape; "close" the draws of each shape whose
+    two best keys lay within SLOT_ULPS ulps (either slot passes there, and
+    the draw is compared only where the slots agree)."""
+    from graal_tpu_torch.ops.step_cuda import GROUPS
+
+    rec = step["records"]
+    out = []
+    for name, line, flagship in (("nuisance", 297, "nuisance_dense_flagship"),
+                                 ("neighbours", 144, "neighbours_dense_flagship"),
+                                 ("select_commit", 178, "select_dense_dense_flagship")):
+        kinds = GROUPS[name]
+        paths = {path: sum(by_key.get(k, 0) for k in kinds)
+                 for path, by_key in STEP_PATHS.items()}
+        paths = {k: v for k, v in paths.items() if v}
+        check(paths, f"no main path launched the {name} kernel")
+        shapes = {k: v for k, v in rec.items() if k != flagship and k.split("_")[0] in
+                  {kd.split("_")[0] for kd in kinds}}
+        out.append(kernel_record(name, "step.cu", f"graal_tpu/core/mcmc.py:{line}",
+                                 sum(paths.values()), dict(
+                                     rec[flagship], max_abs_err=step["errs"][name],
+                                     by_path=paths, by_shape=shapes,
+                                     close=step["close"] if name == "select_commit" else None)))
+    return out
+
+
 def kernels_line(dense, dense_launches, repeat, repeat_launches, delta, mini_launches,
-                 repeat_delta, obs_launches, cli_runs, mtm_exact, chains, top, catalogue):
+                 repeat_delta, obs_launches, cli_runs, mtm_exact, chains, top, catalogue,
+                 step):
     """The {"kernels": [...]} line from the phases' records; the B2 / B4
     launches are (100k path, 20k repeat path); ``cli_runs`` is
     :func:`phase_cli`'s record, whose counts and errors against the plain
@@ -4145,7 +4907,8 @@ def kernels_line(dense, dense_launches, repeat, repeat_launches, delta, mini_lau
     (phase 11e) are the main paths at the top tiers, run_top_R and
     run_chains_top_R under "by_path", whose launches join the top-level
     count too. ``catalogue`` (phase 3c) gives C1's and C2's entries
-    (:func:`catalogue_records`)."""
+    (:func:`catalogue_records`), ``step`` (phase 3d) D1's, D2's and D3's
+    (:func:`step_records`)."""
     c = cli_runs
     ch, chr_, cht = chains["main"], chains["repeat"], chains["top"]
     top_launches = [sum(r["launches"][i] for r in top.values())
@@ -4225,6 +4988,7 @@ def kernels_line(dense, dense_launches, repeat, repeat_launches, delta, mini_lau
                           "dense_repeat_main": dict(launches=repeat_launches),
                           "cli_run_repeats": entry(c["repeat"])})),
         *catalogue_records(catalogue),
+        *step_records(step),
     ]}
 
 
@@ -4248,6 +5012,8 @@ def main():
     phase("1 build", phase_build)
     sc = phase("set-up 100k", scale_setup, device)
     catalogue = phase("3c C1 C2", phase_catalogue, device, sc)
+    rsc = phase("set-up 20k repeat", scale_repeat_setup, device)
+    step = phase("3d D1 D2 D3", phase_step_kernels, device, sc, rsc)
     dense = phase("2-3 B1", phase_kernel, device)
     dense_launches = phase("4 dense main", phase_main, device)
     repeat = phase("4a B3", phase_repeat_kernel, device)
@@ -4257,7 +5023,6 @@ def main():
     phase("6 exactness", phase_exactness, device)
     phase("6a repeat exactness", phase_repeat_exactness, device)
     mini_launches, obs_launches = phase("7 delta main", phase_scale_main, sc)
-    rsc = phase("set-up 20k repeat", scale_repeat_setup, device)
     repeat_delta_timing = phase("7a repeat B2 B4", phase_repeat_delta_kernels, device, rsc)
     r_mini, r_obs = phase("7b repeat delta main", phase_scale_main, rsc,
                           "repeat delta main path")
@@ -4280,7 +5045,8 @@ def main():
     kernels = kernels_line(dense, dense_launches, repeat, repeat_launches, delta_timing,
                            (mini_launches, r_mini), repeat_delta_timing, (obs_launches, r_obs),
                            cli_runs, mtm_exact, dict(main=chains, repeat=chains_rep,
-                                                     top=top_chains), top, catalogue)
+                                                     top=top_chains), top, catalogue,
+                           step)
     print(json.dumps({"routes": crossover}))
     kernel_keys = ("ll_mini", "obsgrid", "b2_bucket", "b4_bucket")
     print(json.dumps({"chains": {
@@ -4313,12 +5079,13 @@ def main_top():
     top_chains = phase("11e chains top buckets", phase_chains_top, sc)
     graphs = phase("11g graph vs eager top", phase_graphs_top, sc)
     graphs["run_mtm_top"] = phase("11h run_mtm top", phase_mtm_top, sc)
+    step_top = phase("3d D3 top", phase_step_top, sc)
     crossover = phase("5c routes", phase_crossover, sc)
     print(f"smoke --top-tiers: {time.perf_counter() - t_start:.1f} s in all; phases "
           f"{json.dumps(PHASE_S)}", flush=True)
     print(json.dumps({"tiers": {k: delta_timing[k]["tiers"] for k in ("ll_mini", "obsgrid")},
                       "routes": crossover, "run_top": top, "run_chains_top": top_chains,
-                      "graphs": graphs}))
+                      "graphs": graphs, "step_top": step_top}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

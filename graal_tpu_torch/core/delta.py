@@ -61,6 +61,7 @@ from graal_tpu_torch.ops import mini_grid_cuda
 from graal_tpu_torch.ops.likelihood_cuda import N_PARAMS, params_vector
 from graal_tpu_torch.ops.mini_grid_cuda import MiniGridScorer, log_cis_plain
 from graal_tpu_torch.ops.obsgrid_cuda import WindowObsGrid
+from graal_tpu_torch.ops.step_cuda import STEP
 
 class MiniTable(NamedTuple):
     """Static fragment -> sub-fragment row ranges of a repeat-free table."""
@@ -221,6 +222,72 @@ def scatter_mini(state: GenomeState, mini: GenomeState, rows, valid) -> GenomeSt
     in_d = inv >= 0
     return state._replace(**{f: torch.where(in_d, got[..., k], getattr(state, f))
                              for k, f in enumerate(MUTABLE_FIELDS)})
+
+
+def select_commit_delta(state: GenomeState, minis: GenomeState, rows, rows_valid, dll, ids,
+                        valid, overflow, f_a, gumbel, f_t, blacklist, thresh_overflow,
+                        inplace: bool = False):
+    """The delta step's selection and commit, on a chains axis: draw a
+    (neighbour, op) slot of each chain's deltas ``dll`` (C, m, 13), the
+    overflowed neighbour slots excluded (:func:`core.mcmc.select_score_slot`),
+    and write the 8 mutable fields of that candidate mini-state (``minis``
+    fields (C, m, 13, f_max)) at its valid member rows (``rows`` /
+    ``rows_valid`` (C, m, f_max)) into the chain's genome (``state`` fields
+    (C, n)). A chain's step is a no-op when ``f_a`` is blacklisted or every
+    selectable slot overflows. ``ids`` / ``valid`` / ``overflow`` (C, m),
+    ``f_a`` (C,) int64, ``gumbel`` (C, m x 13), ``f_t`` a number or one a
+    chain.
+
+    Returns (new_state, d_sel (C,) f32: 0 on a no-op, (op, fb, n_over),
+    sel). :func:`select_commit_delta_plain`'s result, by kernel D3 when the
+    state is on a card (the drawn slot as :func:`core.mcmc.select_commit_dense`
+    says): the kernel writes O(f_max) entries, into ``state`` itself with
+    ``inplace`` (returned as the new state; a captured cycle's carry) and
+    else into a copy of its mutable fields."""
+    if state.pos.device.type != "cuda":
+        return select_commit_delta_plain(state, minis, rows, rows_valid, dll, ids, valid,
+                                         overflow, f_a, gumbel, f_t, blacklist, thresh_overflow)
+    return _delta_on_card(state, minis, rows, rows_valid, dll, ids, valid, overflow, f_a,
+                          gumbel, f_t, blacklist, thresh_overflow, inplace)
+
+
+def _delta_on_card(state: GenomeState, minis: GenomeState, rows, rows_valid, dll, ids, valid,
+                   overflow, f_a, gumbel, f_t, blacklist, thresh_overflow, inplace):
+    new = state if inplace else state._replace(
+        **{f: getattr(state, f).clone() for f in MUTABLE_FIELDS})
+    d_sel, op, fb, n_over, sel = STEP.select_delta(
+        new._asdict(), minis._asdict(), rows, rows_valid, dll, ids, valid, overflow, f_a, gumbel,
+        f_t, blacklist, thresh_overflow)
+    return new, d_sel, (op, fb, n_over), sel
+
+
+def select_commit_delta_plain(state: GenomeState, minis: GenomeState, rows, rows_valid, dll,
+                              ids, valid, overflow, f_a, gumbel, f_t, blacklist,
+                              thresh_overflow):
+    """:func:`select_commit_delta` in plain torch (the commit through
+    :func:`scatter_mini`)."""
+    dev = state.pos.device
+    n_ch, m = ids.shape
+    slot_ok = (~overflow)[..., None].expand(n_ch, m, N_CANDIDATES)
+    sel = select_score_slot(gumbel, dll, valid, f_t, slot_valid=slot_ok,
+                            thresh_overflow=thresh_overflow)
+    sel_nb = sel // N_CANDIDATES
+    sel_op = sel % N_CANDIDATES
+    sel_mini = GenomeState(*[_pick(x.reshape(n_ch, m * N_CANDIDATES, -1), sel) for x in minis])
+    new_state = scatter_mini(state, sel_mini, _pick(rows, sel_nb), _pick(rows_valid, sel_nb))
+
+    # no-op when every selectable slot overflows
+    op_idx = torch.arange(N_CANDIDATES, device=dev)[None, :]
+    nb_idx = torch.arange(m, device=dev)[:, None]
+    base_ok = (valid[..., None] | ((nb_idx == 0) & (op_idx < 2))) \
+        & ~((op_idx < 2) & (nb_idx > 0))
+    skip = blacklist.index_select(0, f_a) | ~(base_ok & slot_ok).flatten(-2).any(-1)
+    new_state = GenomeState(*[torch.where(skip[..., None], a, b)
+                              for a, b in zip(state, new_state)])
+    d_sel = torch.where(skip, 0.0, _pick(dll.reshape(n_ch, -1), sel))
+    return new_state, d_sel, (torch.where(skip, -1, sel_op),
+                              torch.where(skip, f_a, _pick(ids, sel_nb)),
+                              overflow.sum(-1)), sel
 
 
 def effective_band_w(band_w: int | None, table: SubFragTable, f_max: int,
@@ -577,46 +644,31 @@ def make_delta_em_step(table: SubFragTable, obs, nb, delta: int, f_max: int,
                                    obs_grid=obs_grid, mini_grid=mini_grid)
         extract = extract_rows_union
 
-    def step(state: GenomeState, rng, params: RippeParams, l_t, f_a, f_t):
+    def step(state: GenomeState, rng, params: RippeParams, l_t, f_a, f_t, inplace=False):
+        """``inplace``: on a card, commit into ``state``'s own tensors and
+        return it (the captured cycle's carry, which nothing else holds)."""
         dev = state.pos.device
         f_a = torch.as_tensor(f_a, device=dev).long()
         if isinstance(rng, torch.Generator):
             rng = draw_step_inputs(rng, nb, delta, f_a.shape)
         if f_a.dim() == 0:      # one chain: a chains axis of one
-            new_state, d_sel, out = chains_step(*lift_chain(state, rng, f_a), params, f_t)
-            return drop_chain(new_state)[0], l_t + d_sel[0], drop_chain(*out)
-        new_state, d_sel, out = chains_step(state, rng, f_a, params, f_t)
+            lifted, rng, f_a = lift_chain(state, rng, f_a)
+            new_state, d_sel, out = chains_step(lifted, rng, f_a, params, f_t, inplace)
+            new_state = state if new_state is lifted else drop_chain(new_state)[0]
+            return new_state, l_t + d_sel[0], drop_chain(*out)
+        new_state, d_sel, out = chains_step(state, rng, f_a, params, f_t, inplace)
         return new_state, l_t + d_sel, out
 
-    def chains_step(state: GenomeState, rng, f_a, params: RippeParams, f_t):
-        dev = state.pos.device
+    def chains_step(state: GenomeState, rng, f_a, params: RippeParams, f_t, inplace):
         ids, valid = sample_neighbours(rng.u_nb, f_a, state, nb, delta)
         max_id = state.id_c.amax(-1)
         rows_b, valid_b, over_b = extract(state, f_a, ids, scorer.f_max)
         dll, minis, rows, rows_valid, overflow = scorer.score(
             state, f_a, ids, rows_b, valid_b, over_b, params, max_id)
-        n_ch, m = ids.shape
-        slot_ok = (~overflow)[..., None].expand(n_ch, m, N_CANDIDATES)
-        sel = select_score_slot(rng.gumbel, dll, valid, f_t, slot_valid=slot_ok,
-                                thresh_overflow=thresh_overflow)
-        sel_nb = sel // N_CANDIDATES
-        sel_op = sel % N_CANDIDATES
-        sel_mini = GenomeState(*[_pick(x.reshape(n_ch, m * N_CANDIDATES, -1), sel)
-                                 for x in minis])
-        new_state = scatter_mini(state, sel_mini, _pick(rows, sel_nb), _pick(rows_valid, sel_nb))
-
-        # no-op when every selectable slot overflows
-        op_idx = torch.arange(N_CANDIDATES, device=dev)[None, :]
-        nb_idx = torch.arange(m, device=dev)[:, None]
-        base_ok = (valid[..., None] | ((nb_idx == 0) & (op_idx < 2))) \
-            & ~((op_idx < 2) & (nb_idx > 0))
-        skip = nb.blacklist.index_select(0, f_a) | ~(base_ok & slot_ok).flatten(-2).any(-1)
-        new_state = GenomeState(*[torch.where(skip[..., None], a, b)
-                                  for a, b in zip(state, new_state)])
-        d_sel = torch.where(skip, 0.0, _pick(dll.reshape(n_ch, -1), sel))
-        return new_state, d_sel, (torch.where(skip, -1, sel_op),
-                                  torch.where(skip, f_a, _pick(ids, sel_nb)),
-                                  overflow.sum(-1))
+        new_state, d_sel, out, _ = select_commit_delta(
+            state, minis, rows, rows_valid, dll, ids, valid, overflow, f_a, rng.gumbel, f_t,
+            nb.blacklist, thresh_overflow, inplace)
+        return new_state, d_sel, out
 
     return step
 
@@ -673,7 +725,7 @@ def make_delta_em_cycle(table: SubFragTable, obs, nb, delta: int, f_max: int,
         params, f_t = consts
         draws, f_a = x
         state, d_sel, (op, fb, n_over) = step(state, draws, params, torch.zeros_like(l_c),
-                                              f_a, f_t)
+                                              f_a, f_t, inplace=True)
         y = d_sel - l_c
         t = l_hi + y
         l_c = (t - l_hi) - y

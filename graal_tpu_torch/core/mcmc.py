@@ -12,6 +12,14 @@ The loop never reads a device value on the host: indices, scores and
 parameters stay tensors, and decisions are ``torch.where`` selects. The
 only host syncs are where a caller reads the cycle's metrics.
 
+On a card the step's scalar and control work runs on hand-written kernels
+(``ops.step_cuda``, ``csrc/step.cu``): the neighbour draw
+(:func:`sample_neighbours`, D2), the selection and commit
+(:func:`select_commit_dense`, D3) and the nuisance move
+(:func:`nuisance_propose` and :func:`nuisance_accept`, D1). Each public
+function sends tensors on a card to its kernel and any others to its plain
+version beside it (``*_plain``), which the kernels are held to.
+
 Randomness: every stochastic function takes either a ``torch.Generator``
 or its random inputs as tensors (:class:`StepDraws`), so that tests can
 feed it the draws the JAX package consumed. A cycle draws all its random
@@ -32,6 +40,8 @@ from graal_tpu_torch.core.likelihood import log_likelihood
 from graal_tpu_torch.core.model import RippeParams
 from graal_tpu_torch.core.state import GenomeState
 from graal_tpu_torch.core.subfrags import SubFragTable
+from graal_tpu_torch.ops.likelihood_cuda import CopyRowScorer, params_vector
+from graal_tpu_torch.ops.step_cuda import STEP
 
 # Score window below the best candidate kept for sampling.
 THRESH_OVERFLOW = 30.0
@@ -205,9 +215,25 @@ def sample_neighbours(u, f_a, state: GenomeState, nb: NeighbourTable,
     invalid entries last.
 
     With a leading chains axis (``u`` (C, n_top), ``f_a`` (C,), ``state``
-    fields (C, n)) every chain is sampled at once, row c as chain c alone."""
+    fields (C, n)) every chain is sampled at once, row c as chain c alone.
+
+    :func:`sample_neighbours_plain`'s result, drawn by kernel D2 when the
+    state is on a card."""
     if isinstance(u, torch.Generator):
         u = torch.rand(nb.pk.shape[1], generator=u, device=u.device)
+    f_a = torch.as_tensor(f_a, device=state.pos.device).long()
+    if state.pos.device.type == "cuda":
+        return _neighbours_on_card(u, f_a, state, nb, delta)
+    return sample_neighbours_plain(u, f_a, state, nb, delta)
+
+
+def _neighbours_on_card(u, f_a, state: GenomeState, nb: NeighbourTable, delta: int):
+    return STEP.neighbours(u, f_a, state.id_d, state.rep, nb, delta)
+
+
+def sample_neighbours_plain(u, f_a, state: GenomeState, nb: NeighbourTable,
+                            delta: int):
+    """:func:`sample_neighbours` in plain torch, ``u`` a tensor."""
     f_a = torch.as_tensor(f_a, device=state.pos.device).long()
     id_d, rep = state.id_d, state.rep
     single = f_a.dim() == 0
@@ -252,6 +278,16 @@ def select_score_slot(gumbel, score, valid_nb, f_t, slot_valid=None,
     Generator to draw it. With a leading chains axis (``score`` (C, m,
     n_ops), ``valid_nb`` (C, m), ``gumbel`` (C, m * n_ops), ``f_t`` (C,))
     every chain selects at once, as it would alone."""
+    keys, n_pos, best = slot_keys(gumbel, score, valid_nb, f_t, slot_valid, thresh_overflow)
+    return torch.where(n_pos <= 1, best, torch.argmax(keys, -1))
+
+
+def slot_keys(gumbel, score, valid_nb, f_t, slot_valid=None,
+              thresh_overflow=THRESH_OVERFLOW):
+    """What :func:`select_score_slot` draws from: (the keys log w + Gumbel
+    of every slot, flattened; the count of slots inside the window; the
+    best selectable slot). The drawn slot is the keys' argmax, or the best
+    slot when the count is at most 1."""
     m, n_ops = score.shape[-2:]
     lead = score.shape[:-2]
     dev = score.device
@@ -280,9 +316,8 @@ def select_score_slot(gumbel, score, valid_nb, f_t, slot_valid=None,
     f_t = f_t[..., None] if isinstance(f_t, torch.Tensor) else f_t
     # the p > 0 guard also maps the NaN of an all-zero sum to -inf
     logw = torch.where(p > 0, torch.log(p) / f_t, -math.inf)
-    cat = torch.argmax(logw + gumbel, -1)
     best = torch.argmax(torch.where(valid_flat, flat, -math.inf), -1)
-    return torch.where(n_pos <= 1, best, cat)
+    return logw + gumbel, n_pos, best
 
 
 def _default_scorer(table: SubFragTable, obs, ll_dtype):
@@ -344,27 +379,77 @@ def make_em_step(table: SubFragTable, obs, nb: NeighbourTable, delta: int,
                                      max_id=state.id_c.amax(-1).repeat_interleave(m))
         flat = GenomeState(*[x.reshape(c * m * N_CANDIDATES, n) for x in cands])
         ll = scorer(flat, params).reshape(ids.shape + (N_CANDIDATES,))
-
-        sel = select_score_slot(rng.gumbel, ll.float(), valid, f_t,
-                                thresh_overflow=thresh_overflow)
-        sel_nb = sel // N_CANDIDATES
-        sel_op = sel % N_CANDIDATES
-        pick = sel.reshape(c)
-        if c > 1:
-            pick = pick + torch.arange(0, c * m * N_CANDIDATES, m * N_CANDIDATES,
-                                       device=pick.device)
-        new_state = [x.index_select(0, pick).reshape(state.pos.shape) for x in flat]
-
-        # blacklisted fragments are skipped entirely
-        skip = nb.blacklist.index_select(0, f_a.reshape(c)).reshape(f_a.shape)
-        new_state = GenomeState(*[torch.where(skip[..., None], a, b)
-                                  for a, b in zip(state, new_state)])
-        score = ll.reshape(c, -1).gather(1, sel.reshape(c, 1)).reshape(sel.shape)
-        fb = ids.reshape(c, m).gather(1, sel_nb.reshape(c, 1)).reshape(sel.shape)
-        return new_state, (torch.where(skip, -math.inf, score),
-                           torch.where(skip, -1, sel_op), torch.where(skip, f_a, fb))
+        new_state, out, _ = select_commit_dense(state, flat, ll, ids, valid, f_a, rng.gumbel,
+                                                f_t, nb.blacklist, thresh_overflow)
+        return new_state, out
 
     return step
+
+
+def select_commit_dense(state: GenomeState, cands: GenomeState, ll, ids, valid, f_a, gumbel,
+                        f_t, blacklist, thresh_overflow=THRESH_OVERFLOW):
+    """The dense step's selection and commit: draw a (neighbour, op) slot
+    of the scores ``ll`` (:func:`select_score_slot`), take that candidate
+    of ``cands`` as the new state, or keep ``state`` when ``f_a`` is
+    blacklisted. One genome (``state`` fields (n,), ``cands`` (m x 13, n),
+    ``ll`` (m, 13), ``ids`` / ``valid`` (m,), ``f_a`` () int64, ``gumbel``
+    (m x 13,)) or a chains axis (C leading every one of them, ``cands``
+    (C x m x 13, n), ``f_t`` a number or one a chain). Returns (new_state,
+    (score, op, fb), sel): score -inf, op -1 and fb f_a on a blacklisted
+    fragment.
+
+    :func:`select_commit_dense_plain`'s result, by kernel D3 when the
+    state is on a card; the drawn slot may differ where the two best
+    tempered keys lie within a few ulps (``csrc/step.cu``)."""
+    if state.pos.device.type != "cuda":
+        return select_commit_dense_plain(state, cands, ll, ids, valid, f_a, gumbel, f_t,
+                                         blacklist, thresh_overflow)
+    return _dense_on_card(state, cands, ll, ids, valid, f_a, gumbel, f_t, blacklist,
+                          thresh_overflow)
+
+
+def _dense_on_card(state: GenomeState, cands: GenomeState, ll, ids, valid, f_a, gumbel, f_t,
+                   blacklist, thresh_overflow):
+    """:func:`select_commit_dense` through the kernel's wrapper, which takes
+    a chains axis (one genome is a chains axis of one)."""
+    single = f_a.dim() == 0
+    c, m = (1 if single else f_a.shape[0]), ids.shape[-1]
+
+    def lift(x):
+        return x[None] if single else x
+
+    fields, score, op, fb, sel = STEP.select_dense(
+        GenomeState(*[lift(x) for x in state]),
+        GenomeState(*[x.reshape(c, m * N_CANDIDATES, x.shape[-1]) for x in cands]),
+        lift(ll), lift(ids), lift(valid), f_a.reshape(c), lift(gumbel), f_t, blacklist,
+        thresh_overflow)
+    if single:
+        return GenomeState(*[x[0] for x in fields]), (score[0], op[0], fb[0]), sel[0]
+    return GenomeState(*fields), (score, op, fb), sel
+
+
+def select_commit_dense_plain(state: GenomeState, cands: GenomeState, ll, ids, valid, f_a,
+                              gumbel, f_t, blacklist, thresh_overflow=THRESH_OVERFLOW):
+    """:func:`select_commit_dense` in plain torch."""
+    single = f_a.dim() == 0
+    c, m = (1 if single else f_a.shape[0]), ids.shape[-1]
+    sel = select_score_slot(gumbel, ll.float(), valid, f_t, thresh_overflow=thresh_overflow)
+    sel_nb = sel // N_CANDIDATES
+    sel_op = sel % N_CANDIDATES
+    pick = sel.reshape(c)
+    if c > 1:
+        pick = pick + torch.arange(0, c * m * N_CANDIDATES, m * N_CANDIDATES,
+                                   device=pick.device)
+    new_state = [x.index_select(0, pick).reshape(state.pos.shape) for x in cands]
+
+    # blacklisted fragments are skipped entirely
+    skip = blacklist.index_select(0, f_a.reshape(c)).reshape(f_a.shape)
+    new_state = GenomeState(*[torch.where(skip[..., None], a, b)
+                              for a, b in zip(state, new_state)])
+    score = ll.reshape(c, -1).gather(1, sel.reshape(c, 1)).reshape(sel.shape)
+    fb = ids.reshape(c, m).gather(1, sel_nb.reshape(c, 1)).reshape(sel.shape)
+    return new_state, (torch.where(skip, -math.inf, score), torch.where(skip, -1, sel_op),
+                       torch.where(skip, f_a, fb)), sel
 
 
 # ---------------------------------------------------------------------------
@@ -409,19 +494,38 @@ def _pick4(x4, id_modif):
     return x4.gather(0, id_modif.long().reshape((1,) + x4.shape[1:]))[0]
 
 
-def make_nuisance_proposer(d_max_cap: float | None = None):
-    """Parameter-proposal half of the nuisance Metropolis step.
-
-    Returns ``propose(id_modif, eps, params) -> (test_params, in_support)``.
-    One of {fact, slope, d_max, v_inter} (``id_modif`` 0..3) is perturbed
+def nuisance_propose(id_modif, eps, params: RippeParams, d_max_cap: float | None = None,
+                     log_nfpb=None):
+    """One of {fact, slope, d_max, v_inter} (``id_modif`` 0..3) perturbed
     by ``eps`` times the reference's per-parameter sigma, dependent
-    parameters are re-derived, and the proposal is in support when the
-    perturbed parameter stays in its declared range. All four proposals
-    are built as one batch of four parameter sets and ``id_modif`` selects
-    one on the device. With a chains axis (``id_modif`` and ``eps`` (C,),
+    parameters re-derived; the proposal is in support when the perturbed
+    parameter stays in its declared range (and its d_max within
+    ``d_max_cap``). With a chains axis (``id_modif`` and ``eps`` (C,),
     params fields (C,)) each chain proposes from its own parameters, as it
     would alone (the JAX package's ``jax.vmap`` of the proposer).
-    """
+
+    Returns (test_params, in_support, row): ``row`` is the dense scorers'
+    parameter row of ``test_params`` (``ops.likelihood_cuda.params_vector``
+    with ``log_nfpb``), or None without ``log_nfpb``.
+    :func:`nuisance_propose_plain`'s result, by kernel D1 when the
+    parameters are on a card."""
+    if params.fact.device.type == "cuda":
+        return _propose_on_card(id_modif, eps, params, d_max_cap, log_nfpb)
+    return nuisance_propose_plain(id_modif, eps, params, d_max_cap, log_nfpb)
+
+
+def _propose_on_card(id_modif, eps, params: RippeParams, d_max_cap, log_nfpb):
+    (c1, slope, d_max, fact, v_inter), in_support, row = STEP.nuisance_propose(
+        torch.as_tensor(id_modif).long(), eps, params, d_max_cap, log_nfpb)
+    return params._replace(c1=c1, slope=slope, d_max=d_max, fact=fact,
+                           v_inter=v_inter), in_support, row
+
+
+def nuisance_propose_plain(id_modif, eps, params: RippeParams,
+                           d_max_cap: float | None = None, log_nfpb=None):
+    """:func:`nuisance_propose` in plain torch: all four proposals are built
+    as one batch of four parameter sets and ``id_modif`` selects one on the
+    device."""
     sigma_slope = 0.05
     sigma_d_max = 100.0
     sigma_d_nuc = 0.5
@@ -429,47 +533,62 @@ def make_nuisance_proposer(d_max_cap: float | None = None):
     d_max_range = (0.0, 10000.0)
     d_nuc_range = (0.0, 100.0)
 
-    def propose(id_modif, eps, params: RippeParams):
-        p = params
-        new_fact = p.fact + eps * torch.pow(10.0, torch.log10(p.fact) - 2.0)
-        new_slope = p.slope + eps * sigma_slope
-        c1_slope = (0.53 * torch.pow(p.lm / p.kuhn, new_slope)
-                    * torch.pow(p.kuhn, -3.0))
-        new_d_max = p.d_max + eps * sigma_d_max
-        v_d_max = _device_peval(new_d_max, p)
-        new_v = p.v_inter + eps * sigma_d_nuc
+    p = params
+    new_fact = p.fact + eps * torch.pow(10.0, torch.log10(p.fact) - 2.0)
+    new_slope = p.slope + eps * sigma_slope
+    c1_slope = (0.53 * torch.pow(p.lm / p.kuhn, new_slope)
+                * torch.pow(p.kuhn, -3.0))
+    new_d_max = p.d_max + eps * sigma_d_max
+    v_d_max = _device_peval(new_d_max, p)
+    new_v = p.v_inter + eps * sigma_d_nuc
 
-        # rows: 0 fact, 1 slope, 2 d_max, 3 v_inter
-        fact4 = torch.stack([new_fact, p.fact, p.fact, p.fact])
-        slope4 = torch.stack([p.slope, new_slope, p.slope, p.slope])
-        c1_4 = torch.stack([p.c1, c1_slope, p.c1, p.c1])
-        v4 = torch.stack([p.v_inter, p.v_inter, v_d_max, new_v])
-        four = p._replace(c1=c1_4, slope=slope4, fact=fact4, v_inter=v4)
-        solved = solve_d_max(four, v4)
-        d_max4 = torch.stack([solved[0], solved[1], new_d_max, solved[3]])
-        valid4 = torch.stack([
-            new_fact > 0.0,
-            (new_slope >= slope_range[0]) & (new_slope <= slope_range[1]),
-            (new_d_max > d_max_range[0]) & (new_d_max <= d_max_range[1]),
-            (new_v > d_nuc_range[0]) & (new_v <= d_nuc_range[1])])
+    # rows: 0 fact, 1 slope, 2 d_max, 3 v_inter
+    fact4 = torch.stack([new_fact, p.fact, p.fact, p.fact])
+    slope4 = torch.stack([p.slope, new_slope, p.slope, p.slope])
+    c1_4 = torch.stack([p.c1, c1_slope, p.c1, p.c1])
+    v4 = torch.stack([p.v_inter, p.v_inter, v_d_max, new_v])
+    four = p._replace(c1=c1_4, slope=slope4, fact=fact4, v_inter=v4)
+    solved = solve_d_max(four, v4)
+    d_max4 = torch.stack([solved[0], solved[1], new_d_max, solved[3]])
+    valid4 = torch.stack([
+        new_fact > 0.0,
+        (new_slope >= slope_range[0]) & (new_slope <= slope_range[1]),
+        (new_d_max > d_max_range[0]) & (new_d_max <= d_max_range[1]),
+        (new_v > d_nuc_range[0]) & (new_v <= d_nuc_range[1])])
 
-        test_params = p._replace(c1=_pick4(c1_4, id_modif),
-                                 slope=_pick4(slope4, id_modif),
-                                 d_max=_pick4(d_max4, id_modif),
-                                 fact=_pick4(fact4, id_modif),
-                                 v_inter=_pick4(v4, id_modif))
-        in_support = _pick4(valid4, id_modif)
-        if d_max_cap is not None:
-            in_support = in_support & (test_params.d_max <= d_max_cap)
-        return test_params, in_support
-
-    return propose
+    test_params = p._replace(c1=_pick4(c1_4, id_modif),
+                             slope=_pick4(slope4, id_modif),
+                             d_max=_pick4(d_max4, id_modif),
+                             fact=_pick4(fact4, id_modif),
+                             v_inter=_pick4(v4, id_modif))
+    in_support = _pick4(valid4, id_modif)
+    if d_max_cap is not None:
+        in_support = in_support & (test_params.d_max <= d_max_cap)
+    row = None if log_nfpb is None else params_vector(test_params, log_nfpb)
+    return test_params, in_support, row
 
 
 def nuisance_accept(u, test_params: RippeParams, params: RippeParams,
                     l_star, l_t, f_t, in_support):
     """Metropolis accept/reject half of the nuisance step; elementwise, so
-    a chains axis on every argument accepts each chain on its own."""
+    a chains axis on every argument accepts each chain on its own.
+    Returns (params, l_t, accepted): :func:`nuisance_accept_plain`'s
+    result, by kernel D1 when the parameters are on a card."""
+    if params.fact.device.type == "cuda":
+        return _accept_on_card(u, test_params, params, l_star, l_t, f_t, in_support)
+    return nuisance_accept_plain(u, test_params, params, l_star, l_t, f_t, in_support)
+
+
+def _accept_on_card(u, test_params: RippeParams, params: RippeParams, l_star, l_t, f_t,
+                    in_support):
+    fields, l_out, accept = STEP.nuisance_accept(u, test_params, params, l_star.float(), l_t,
+                                                 f_t, in_support)
+    return RippeParams(*fields), l_out, accept
+
+
+def nuisance_accept_plain(u, test_params: RippeParams, params: RippeParams,
+                          l_star, l_t, f_t, in_support):
+    """:func:`nuisance_accept` in plain torch."""
     ratio = torch.exp((l_star.float() - l_t) / f_t)
     accept = in_support & (ratio >= u)
     out = RippeParams(*[torch.where(accept, a, b)
@@ -491,14 +610,18 @@ def make_nuisance_step(table: SubFragTable, obs, ll_dtype=torch.float32,
     """
     if scorer is None:
         scorer = _default_scorer(table, obs, ll_dtype)
-    propose = make_nuisance_proposer(d_max_cap=d_max_cap)
+    # the dense scorers take the test set's parameter row from the proposal
+    log_nfpb = scorer.log_nfpb if isinstance(scorer, CopyRowScorer) else None
 
     def step(state: GenomeState, rng, params: RippeParams, l_t, f_t):
         if isinstance(rng, torch.Generator):
             rng = draw_nuisance_inputs(rng)
         id_modif, eps, u = rng.id_modif, rng.eps, rng.u_acc
-        test_params, in_support = propose(id_modif, eps, params)
-        l_star = scorer(GenomeState(*[x[None] for x in state]), test_params)[0]
+        test_params, in_support, row = nuisance_propose(id_modif, eps, params, d_max_cap,
+                                                        log_nfpb)
+        one = GenomeState(*[x[None] for x in state])
+        l_star = (scorer(one, test_params) if row is None
+                  else scorer(one, test_params, pvec=row))[0]
         return nuisance_accept(u, test_params, params, l_star, l_t, f_t,
                                in_support)
 

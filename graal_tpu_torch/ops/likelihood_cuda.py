@@ -272,10 +272,14 @@ class CopyRowScorer(Counted):
             raise ValueError(f"pvec: need shape ({N_PARAMS},), got {tuple(pvec.shape)}")
         return B
 
-    def __call__(self, states: GenomeState, params: RippeParams) -> torch.Tensor:
+    def __call__(self, states: GenomeState, params: RippeParams, pvec=None) -> torch.Tensor:
+        """``pvec``: the kernel's parameter row of ``params`` when the caller
+        has it (the nuisance proposal writes it, ``core.mcmc``); else it is
+        computed here (:func:`params_vector`)."""
         check_states(states, self.device)
         vecs = self.sub_vectors(states)
-        pvec = params_vector(params, self.log_nfpb)
+        if pvec is None:
+            pvec = params_vector(params, self.log_nfpb)
         if self.device.type == "cuda":
             return self.launch(*vecs, pvec)
         return self.plain(*vecs, pvec)

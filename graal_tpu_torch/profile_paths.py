@@ -48,7 +48,8 @@ Prints one JSON line per path and mode (``mode``: graph or eager):
   out, spread over the window's steps);
 - ``kernels``: the device-side rows summed by class, {class: [ms per
   step, calls per step]}: ``catalogue`` (C1 / C2, the candidate
-  catalogues), ``scorers`` (B1-B4), ``gather`` (gathers, scatters and
+  catalogues), ``step`` (D1-D3: the nuisance move, the neighbour draw, the
+  selection and commit), ``scorers`` (B1-B4), ``gather`` (gathers, scatters and
   index kernels), ``elementwise`` (torch's elementwise kernels),
   ``reduce``, ``copy`` (memcpy, memset) and ``other``; a step's count of
   each is its calls per step;
@@ -248,6 +249,8 @@ def chains_runner(device, repeat: bool, capture: bool):
 
 # the classes of ``kernels``, matched in this order on the lower-cased name
 KERNEL_CLASSES = (("catalogue", ("catalogue",)),
+                  ("step", ("nuisance_propose_kernel", "nuisance_accept_kernel",
+                            "neighbours_kernel", "select_commit_")),
                   ("scorers", ("ll_dense", "ll_mini", "ll_repeat", "obsgrid")),
                   ("gather", ("gather", "scatter", "index")),
                   ("elementwise", ("elementwise_kernel",)),

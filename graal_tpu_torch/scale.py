@@ -225,14 +225,14 @@ class ScaleRunner:
         key = ("end", sample_param, chains, capture)
         if key not in self._cycles:
             anchor = self.chains_anchor_fn() if chains else self.anchor_fn()
-            propose = mcmc.make_nuisance_proposer(d_max_cap=self.max_covered_d_max)
+            cap = self.max_covered_d_max
 
             def body(params, consts, draws):
                 states, f_t = consts
                 l_anchor = anchor(states, params)
                 if not sample_param:
                     return params, (l_anchor, l_anchor)
-                test, ok = propose(draws.id_modif, draws.eps, params)
+                test, ok, _ = mcmc.nuisance_propose(draws.id_modif, draws.eps, params, cap)
                 params, l_t, _ = mcmc.nuisance_accept(draws.u_acc, test, params,
                                                       anchor(states, test), l_anchor, f_t, ok)
                 return params, (l_anchor, l_t)

@@ -298,17 +298,16 @@ def test_chains_sparse_anchor_matches_jax_vmap(problem, repeat_problem, repeats)
 
 
 def test_nuisance_proposer_on_chains_equals_each_chain(problem):
-    propose = tm.make_nuisance_proposer(d_max_cap=5000.0)
     pc = chain_params(problem["params"], (1.0, 1.2, 0.8))
     id_modif = torch.tensor([0, 2, 3])
     eps = torch.tensor([0.3, -1.2, 0.7])
-    test, ok = propose(id_modif, eps, pc)
+    test, ok, _ = tm.nuisance_propose(id_modif, eps, pc, d_max_cap=5000.0)
     u = torch.tensor([0.1, 0.5, 0.9])
     l_star, l_t, f_t = torch.tensor([-10.0, -12.0, -9.0]), torch.tensor([-11.0, -11.0, -11.0]), \
         torch.tensor([1.0, 2.0, 4.0])
     out, l_out, acc = tm.nuisance_accept(u, test, pc, l_star, l_t, f_t, ok)
     for c in range(C):
-        t1, ok1 = propose(id_modif[c], eps[c], chain(pc, c))
+        t1, ok1, _ = tm.nuisance_propose(id_modif[c], eps[c], chain(pc, c), d_max_cap=5000.0)
         assert all(torch.equal(a[c], b) for a, b in zip(test, t1)) and torch.equal(ok[c], ok1)
         o1, l1, a1 = tm.nuisance_accept(u[c], t1, chain(pc, c), l_star[c], l_t[c], f_t[c], ok1)
         assert all(torch.equal(a[c], b) for a, b in zip(out, o1))

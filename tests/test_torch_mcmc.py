@@ -156,7 +156,10 @@ def test_solve_d_max_and_proposals(problem):
             float(tm.solve_d_max(tp, torch.tensor(np.float32(v)))),
             float(jm.solve_d_max(jp, jnp.float32(v))), rtol=RTOL)
     propose_j = jax.jit(jm.make_nuisance_proposer())
-    propose_t = tm.make_nuisance_proposer()
+
+    def propose_t(id_modif, eps, params):
+        return tm.nuisance_propose(id_modif, eps, params)[:2]
+
     key = jax.random.key(9)
     seen = set()
     for _ in range(24):
