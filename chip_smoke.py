@@ -99,6 +99,33 @@ written. "share" is the bound over the device time.
    graph replays) beside its bound. Phases 4, 4b, 7 and 7b count one D2 and
    one D3 launch a step (and one D1 pair a step on the dense paths); 7g /
    7h hold graph == eager with D1-D3's launches equal by key.
+3e. MTM / MH step kernels E1 (the neighbour set, its discard mask, the
+   largest contig id and the contig count: mtm_set_kernel), E2 (the
+   forward weights, the slot draw and g*: mtm_draw_kernel) and E3 (the
+   backward weights, the acceptance and the commit: mtm_accept_kernel;
+   csrc/mtm.cu) against their plain versions (core/mtm.py ``*_plain``)
+   on MOVE_DRAWS random draws a shape over MOVE_PIVOTS pivots (each pivot's
+   forward pass scored once by the path's scorer, the backward pass once a
+   drawn slot): the dense flagship's MTM from the truth, MH from the
+   exploded start and corrected MTM (B1 at B = 91, the flagship's jump
+   table, delta 5), MH with a circularised contig at the pivot, the dense
+   repeat twin's MTM (B3, pivots half among the copies), the 100k delta MTM
+   at f_max F_MAX and its corrected twin, and the 20k repeat delta MH (the
+   repeat engine v2); 10c adds the CLI dataset's level 1 (n = 972) and
+   ``--top-tiers`` the 100k truth at bucket 16,384. E1's outputs bit for
+   bit in both modes; E2's drawn slot equal to the plain version's except
+   where its two best keys lie within MOVE_ULPS ulps (either passes, the
+   draw is counted and not compared further), then f*, ll*, the forward
+   maximum, ok and g*'s 11 fields bit for bit; E3's acceptance equal except
+   where min(ratio, 1) lies within MOVE_ULPS ulps of u or u lies between
+   the two versions' ratios (the weight sums are summed in another order;
+   counted), then the new state, l_t and n_contigs bit for bit, and a
+   rejected delta step leaves the state it wrote equal to its input. One
+   draw in eight discards every forward slot, one in eight every backward
+   slot, one in eight of a delta shape has every neighbour overflow. Each
+   kernel timed at each shape (device ms; the plain version's as graph
+   replays) beside its bound. Phases 7h (graph == eager by key), 10a, 10e
+   and 11h count two E1, one E2 and one E3 launch a step.
 3. Dense kernel B1 (ll_dense) vs plain: the dense scorer kernel against its
    plain torch version on the same inputs, rtol 1e-4 (bench.py's
    standard), at the flagship K = 1,152 on 65-candidate batches built on
@@ -376,9 +403,14 @@ written. "share" is the bound over the device time.
    the dense flagship's shape (D1 a proposal and its Metropolis test, D3
    the dense entry), with phase 3d's other shapes under "by_shape" and each
    main path's launches under "by_path" (phases 4, 4b, 7, 7b and the
-   graphed cycles of 7g / 7h). Before them, a JSON line of phase 5c's
-   routes. (``--top-tiers`` adds D3's delta entry on 4 chains at 16,384,
-   M = 20, to its line.)
+   graphed cycles of 7g / 7h). E1 (mtm_set), E2 (mtm_draw) and E3
+   (mtm_accept) mirror graal_tpu/core/mtm.py:124, :181 and :198 (no Pallas
+   kernel: XLA fuses them in the jitted step) at the dense flagship MTM
+   shape, with phase 3e's other shapes under "by_shape" and each main
+   path's launches under "by_path" (7h's graphed cycles and run_mtm, 10a,
+   10e). Before them, a JSON line of phase 5c's routes. (``--top-tiers``
+   adds D3's delta entry on 4 chains at 16,384, M = 20, and E1-E3 at the
+   16,384 bucket to its line.)
 """
 
 import contextlib
@@ -449,6 +481,12 @@ STEP_DELTA_CHUNK = 64       # draws of one compared delta commit, each into its 
 STEP_TIME_ITERS = 200
 SLOT_ULPS = 4               # the drawn slot's margin: its best two keys within 4 ulps of the best
 STEP_PATHS = {}             # each main path's D1-D3 launches by key (the kernels line)
+MOVE_DRAWS = 2000           # random draws a shape each MTM / MH kernel is held to its plain one on
+MOVE_PIVOTS = 250           # pivots of those draws (one forward pass scored a pivot)
+MOVE_TIME_ITERS = 200
+MOVE_ULPS = 4               # the draw's and the acceptance's margin
+MOVE_PATHS = {}             # each main path's E1-E3 launches by key (the kernels line)
+MOVE_SHAPES = {}            # phase 3e's shapes, 10a's level-1 one and --top-tiers' 16,384 one
 CLI_CHAIN_STEPS = 128       # scale --chains steps a chain a cycle (11c)
 SMALL_BINS = 576            # 11c's run --profile dataset (level 2 ~60 bins)
 CLI_WATCH_STEPS = 64        # the same with --watch --profile: a traced cycle is slow
@@ -2398,8 +2436,10 @@ def phase_cli_stages(ds, root):
 
     print("cli run --sampler em,mtm,mh (B1): 1 cycle a stage at level 2, nuisance on in EM")
     out = os.path.join(root, "o10a")
+    move_wrapper().n_launches = 0
     runner, asm = cli(run_argv(ds, out, "--cycles", "1", "--sampler", "em,mtm,mh"))
     n, k = runner.state.n_frags, runner.table.n_subs
+    want_move_launches("cli_run_mtm", move_launches(), 2 * n)   # an MTM and an MH cycle
     launches = runner.scorer.n_launches
     shapes = runner.scorer.launch_shapes
     em_b = n_slots(runner.nb, runner.cfg.sampler.n_neighbours)
@@ -2506,6 +2546,13 @@ def phase_cli_multilevel(ds, root):
     t = with_share(timed(lambda: r1.scorer.launch(*vecs, pvec), 20,
                          lambda: r1.scorer.plain(*vecs, pvec), 2), dense_bound(vecs, pvec))
     print(f"  time B={vecs[0].shape[0]} K={k1}: {fmt_time(t)}; {fmt_bound(t)}")
+    # E1-E3 vs plain at the level-1 MTM shape (phase 3e's check)
+    from graal_tpu_torch.core import mtm
+
+    move_shape(move_case("cli_level1_mtm", "dense", "mtm", a1.state, r1.jump_table(MTM_DELTA),
+                         a1.params, mtm._make_scores_for(r1.table, r1.obs, torch.float32,
+                                                         r1.scorer),
+                         r1.l_t, torch.arange(n1, device=a1.state.pos.device)), gen)
     return dict(launches=sum(got), max_abs_err=err, K2901=t, cycle_s=cycle_s)
 
 
@@ -2615,10 +2662,12 @@ def phase_cli_scale_mtm(ds, root):
 
     print("cli scale --mtm-cycles 1: level 2, 1 cycle of 256 steps, then 1 MTM cycle")
     out = os.path.join(root, "o10e")
+    move_wrapper().n_launches = 0
     runner, final, m = cli(["scale", ds, "--size", "3", "--level", "2", "--cycles", "1",
                             "--steps-per-cycle", "256", "--mtm-cycles", "1", "--f-max-min",
                             "64", "--fasta", os.path.join(ds, "genome.fa"), "--out", out])
     n = final.n_frags
+    want_move_launches("cli_scale_mtm", move_launches(), n)
     mm = m["mtm"]
     bucket = mm["f_max"][0]
     banded = delta.effective_band_w(runner.w, runner.table, bucket) is not None
@@ -3610,11 +3659,12 @@ def catalogue_wrapper():
 
 def catalogue_paths(records):
     """Keep each graphed path's C1 / C2 launches (the graph run's, equal to
-    the eager run's) for the kernels line: the catalogue is the last kernel
-    of every sampler case."""
+    the eager run's) for the kernels line: the catalogue's are the counts
+    keyed by its kinds ("em", "mh")."""
     for name, rec in records.items():
-        if rec["graph"]["by_key"]:
-            CATALOGUE_PATHS[f"graph_{name}"] = rec["graph"]["by_key"][-1]
+        for by_key in rec["graph"]["by_key"]:
+            if by_key and set(by_key) <= {"em", "mh"}:
+                CATALOGUE_PATHS[f"graph_{name}"] = by_key
 
 
 def catalogue_vs_plain(label, state, fa, fb, max_id=None, kinds=("em", "mh"),
@@ -4548,6 +4598,547 @@ def phase_step_top(sc):
     return dict(rec, draws=draws, close=under, max_abs_err=err)
 
 
+def move_wrapper():
+    """The MTM / MH step kernels' wrapper (E1-E3, launches keyed by kind)."""
+    from graal_tpu_torch.ops.mtm_cuda import MOVE
+
+    return MOVE
+
+
+def move_launches():
+    """The MTM / MH step kernels' launches by key so far, read from the card."""
+    return {str(k): v for k, v in move_wrapper().launches.by_key().items()}
+
+
+def want_move_launches(label, got, steps):
+    """Check a main path's E1-E3 launches: two neighbour sets (the forward
+    set, the backward mask or set), one draw and one acceptance a step.
+    Records them for the kernels line."""
+    want = {"set": 2 * steps, "draw": steps, "accept": steps}
+    print(f"  MTM / MH kernel launches: {got} (two sets, one draw, one accept a step: "
+          f"{steps})")
+    check(got == want, f"{label}: MTM / MH kernel launches {got} != {want}")
+    MOVE_PATHS[label.replace(" ", "_")] = got
+
+
+def move_keys(variant, ll_flat, discard_flat, f_t, gumbel, clamp):
+    """The plain version's draw keys log(p, or 1e-30) + Gumbel of a forward
+    pass (the delta forms clamp the weights' sum at 1e-30)."""
+    import torch
+    from graal_tpu_torch.core import mtm
+
+    w, sw, _ = mtm._forward_weights(variant, ll_flat, discard_flat, f_t)
+    p = w / (sw.clamp_min(1e-30) if clamp else sw)
+    return torch.log(torch.where(p > 0, p, 1e-30)) + gumbel
+
+
+def draw_close(keys):
+    """The two best keys within MOVE_ULPS ulps of the best: the drawn slot
+    may be either of them."""
+    import numpy as np
+    import torch
+
+    top = torch.topk(keys, 2)
+    best, second = float(top.values[0]), float(top.values[1])
+    return math.isfinite(best) and best - second <= MOVE_ULPS * float(
+        np.spacing(np.float32(abs(best)))), top.indices.tolist()
+
+
+def accept_close(r_k, r_p, u):
+    """The acceptance may go either way: min(ratio, 1) of the plain version
+    within MOVE_ULPS ulps of u, or u between the kernel's and the plain
+    version's (their weight sums differ in the last ulps)."""
+    import numpy as np
+
+    ck, cp, u = min(float(r_k), 1.0), min(float(r_p), 1.0), float(u)
+    if math.isnan(ck) or math.isnan(cp):
+        return False
+    ulp = MOVE_ULPS * float(np.spacing(np.float32(u)))
+    return abs(cp - u) <= ulp or min(ck, cp) - ulp <= u <= max(ck, cp) + ulp
+
+
+def exact(label, what, got, want):
+    """``got`` and ``want`` equal bit for bit (NaN equal to NaN), of one
+    dtype and shape."""
+    import torch
+
+    check(got.dtype == want.dtype and got.shape == want.shape,
+          f"{label}: {what} is {got.dtype} {tuple(got.shape)}, plain {want.dtype} "
+          f"{tuple(want.shape)}")
+    same = (got == want) | (torch.isnan(got) & torch.isnan(want)) if got.is_floating_point() \
+        else got == want
+    check(bool(same.all()), f"{label}: {what} differs from the plain version")
+
+
+def rel_diff(a, b):
+    """|a - b| / max(|b|, 1e-30) in f64 on the card, 0 where a and b are
+    equal or both NaN."""
+    import torch
+
+    a, b = a.double(), b.double()
+    same = (a == b) | (torch.isnan(a) & torch.isnan(b))
+    return torch.where(same, 0.0, (a - b).abs() / b.abs().clamp_min(1e-30))
+
+
+def abs_diff(a, b):
+    """|a - b| in f64 on the card, 0 where a and b are equal or both NaN."""
+    import torch
+
+    a, b = a.double(), b.double()
+    return torch.where((a == b) | (torch.isnan(a) & torch.isnan(b)), 0.0, (a - b).abs())
+
+
+def same_on_card(label, pairs):
+    """A 0-d bool on the card: each (name, got, want) of ``pairs`` equal bit
+    for bit (NaN equal to NaN). Dtypes and shapes are checked here; the
+    pairs of one dtype and shape are compared as one stack. The value is
+    read later with the rest of a pivot's (:func:`read_all`); where it is
+    false, :func:`exact_pairs` names the pair."""
+    import torch
+
+    groups = {}
+    for name, g, w in pairs:
+        check(g.dtype == w.dtype and g.shape == w.shape,
+              f"{label}: {name} is {g.dtype} {tuple(g.shape)}, plain {w.dtype} {tuple(w.shape)}")
+        gs, ws = groups.setdefault((g.dtype, tuple(g.shape)), ([], []))
+        gs.append(g)
+        ws.append(w)
+    flags = []
+    for gs, ws in groups.values():
+        g, w = torch.stack(gs), torch.stack(ws)
+        same = g == w
+        if g.is_floating_point():
+            same |= torch.isnan(g) & torch.isnan(w)
+        flags.append(same.all())
+    return torch.stack(flags).all()
+
+
+def exact_pairs(label, pairs):
+    for name, g, w in pairs:
+        exact(label, name, g, w)
+
+
+def read_all(values):
+    """The 0-d tensors ``values`` as Python floats, in one read from the card."""
+    import torch
+
+    if not values:
+        return []
+    return torch.stack([v.reshape(()).to(torch.float64) for v in values]).tolist()
+
+
+def move_case(label, kind, variant, state, jump, params, score, l_t, pivots, corrected=False):
+    """One shape of phase 3e: ``score`` is the dense pass's scores_for or
+    the delta pass's score_set (core.mtm), ``pivots`` the fragments drawn
+    from (an int64 tensor on the card)."""
+    return dict(label=label, kind=kind, variant=variant, state=state, jump=jump, params=params,
+                score=score, l_t=l_t, pivots=pivots, corrected=corrected)
+
+
+def move_temperature(d, gen, device):
+    """Draw ``d``'s temperature: a Python float in turn with a 0-d f32
+    tensor in [0.3, 4] (a cycle's f_t buffer)."""
+    import torch
+
+    if d % 2 == 0:
+        return (1.0, 0.8, 2.5)[d // 2 % 3]
+    return 0.3 + 3.7 * torch.rand((), generator=gen, device=device)
+
+
+def check_move_kernels(case, gen, n_draws=MOVE_DRAWS, n_pivots=MOVE_PIVOTS):
+    """E1-E3 against their plain versions on ``n_draws`` random draws of a
+    shape: n_pivots pivots (E1 in its full mode on each, the forward pass
+    scored once by the path's scorer), n_draws / n_pivots draws on each
+    (Gumbel noise, uniform, temperature): E2 (the drawn slot under the
+    margin rule, then f*, ll*, the forward maximum, ok and g*'s 11 fields
+    bit for bit), E1 on g* (the mask-only mode, or the full one pivoted at
+    f* for corrected MTM), the backward pass scored once a drawn slot, and
+    E3 (the acceptance under its margin rule, then the new state, l_t and
+    n_contigs bit for bit; a rejected delta step leaves the state it was
+    written into equal to the input). One draw in eight discards every
+    forward slot, one in eight every backward slot, one in eight of a
+    delta shape has every neighbour overflow. The comparisons run on the
+    card and are read twice a pivot (after the forward halves of its
+    draws, after the backward halves); a draw whose slot or acceptance
+    differs goes through its margin rule, and a comparison that fails is
+    read again pair by pair to name it. Returns the record."""
+    import torch
+    from graal_tpu_torch.core import mtm
+
+    move = move_wrapper()
+    st, jump, params = case["state"], case["jump"], case["params"]
+    variant, corrected, label = case["variant"], case["corrected"], case["label"]
+    dense = case["kind"] == "dense"
+    dev = st.pos.device
+    l_t = case["l_t"]
+    per = max(1, n_draws // n_pivots)
+    stats = dict(draws=0, slot_close=0, accept_close=0, compared=0, accepted=0,
+                 all_discarded=0, empty_backward=0, all_overflow=0)
+    errs = dict(sw=0.0, p_fwd=0.0, ratio=0.0, p_fwd_abs=0.0, nonfinite=0)
+    set_names = ("ids", "valid", "discard", "max_id", "n_contigs")
+
+    def note(key, diff):
+        if math.isfinite(diff):
+            errs[key] = max(errs[key], diff)
+        else:
+            errs["nonfinite"] += 1
+
+    pivots = case["pivots"]
+    last = None
+    for k in range(n_pivots):
+        f_a = pivots[torch.randint(0, len(pivots), (), generator=gen, device=dev)]
+        got = move.set(st._asdict(), f_a, jump.frags, f_a)
+        want = mtm.move_set_plain(st, f_a, jump, f_a)
+        set_pairs = list(zip(set_names, got, want))
+        queued = [same_on_card(f"{label} E1", set_pairs)]
+        nb_ids, nb_valid, discard_f, max_id, n_c = got
+        if dense:
+            cands, ll = case["score"](st, f_a, nb_ids, params)
+        else:
+            dll, minis, rows, rvalid, over = case["score"](st, f_a, nb_ids, params, max_id)
+        # the forward halves of the pivot's draws, E2
+        draws = []
+        for j in range(per):
+            d = k * per + j
+            mode = d % 8
+            s = nb_ids.shape[0] * 13
+            gum = gumbel_noise((s,), gen, dev)
+            u = torch.rand((), generator=gen, device=dev)
+            f_t = move_temperature(d, gen, dev)
+            disc = torch.ones_like(discard_f) if mode == 5 else discard_f
+            stats["all_discarded"] += mode == 5
+            stats["draws"] += 1
+            if dense:
+                fk = mtm._draw_dense_on_card(variant, ll, disc, f_t, gum, nb_ids, cands)
+                fp = mtm.forward_dense_plain(variant, ll, disc, f_t, gum, nb_ids, cands)
+                ovf = None
+            else:
+                ovf = torch.ones_like(over) if mode == 6 else over
+                stats["all_overflow"] += mode == 6
+                fk = mtm._draw_delta_on_card(variant, dll, l_t, ovf, disc, f_t, gum, nb_ids,
+                                             minis, rows, rvalid, st, False)
+                fp = mtm.forward_delta_plain(variant, dll, l_t, ovf, disc, f_t, gum, nb_ids,
+                                             minis, rows, rvalid, st)
+            pairs = [(name, getattr(fk, name), getattr(fp, name))
+                     for name in ("f_star", "ll_star", "mx") + (() if dense else ("ok",))]
+            pairs += [(f"g* {name}", g, w) for name, g, w in zip(fk.g_star._fields, fk.g_star,
+                                                                   fp.g_star)]
+            draws.append(dict(d=d, mode=mode, gum=gum, u=u, f_t=f_t, disc=disc, ovf=ovf, fk=fk,
+                              fp=fp, pairs=pairs))
+            queued += [fk.omega, fp.omega, same_on_card(f"{label} E2, draw {d}", pairs),
+                       rel_diff(fk.sw, fp.sw), rel_diff(fk.p_fwd, fp.p_fwd),
+                       abs_diff(fk.p_fwd, fp.p_fwd)]
+        vals = read_all(queued)
+        if not vals[0]:
+            exact_pairs(f"{label} E1", set_pairs)
+        live = []
+        for r, (om_k, om_p, same, sw, p_fwd, p_abs) in zip(draws, zip(*[iter(vals[1:])] * 6)):
+            d, fk = r["d"], r["fk"]
+            if om_k != om_p:
+                if dense:
+                    keys = move_keys(variant, ll.reshape(-1), r["disc"].reshape(-1), r["f_t"],
+                                     r["gum"], False)
+                else:
+                    keys = move_keys(variant, (l_t + dll).reshape(-1),
+                                     (r["disc"] | r["ovf"][:, None]).reshape(-1), r["f_t"],
+                                     r["gum"], True)
+                close, top = draw_close(keys)
+                check(close and int(om_k) in top,
+                      f"{label}, draw {d}: slot {int(om_k)} != plain {int(om_p)} outside "
+                      f"the margin")
+                stats["slot_close"] += 1
+                continue
+            if not same:
+                exact_pairs(f"{label} E2, draw {d}", r["pairs"])
+            note("sw", sw)
+            note("p_fwd", p_fwd)
+            note("p_fwd_abs", p_abs)
+            r["omega"] = int(om_k)
+            live.append(r)
+        # the backward halves, E1 on g* and E3
+        backward = {}
+        queued = []
+        for r in live:
+            d, mode, fk, fp, u, f_t = r["d"], r["mode"], r["fk"], r["fp"], r["u"], r["f_t"]
+            if variant == "mtm" and corrected:
+                bk = move.set(fk.g_star._asdict(), fk.f_star, jump.frags, f_a)
+                bw = mtm.move_set_plain(fp.g_star, fp.f_star, jump, f_a)
+            else:
+                bk = move.set(fk.g_star._asdict(), None, jump.frags, f_a, (nb_ids, nb_valid))
+                bw = mtm.move_set_plain(fp.g_star, None, jump, f_a, (nb_ids, nb_valid))
+            r["set_pairs"] = list(zip(set_names, bk, bw))
+            pivot_b = fk.f_star if variant == "mtm" else f_a
+            omega = r["omega"]
+            if omega not in backward:      # the backward pass depends on the slot alone
+                backward[omega] = (case["score"](fk.g_star, pivot_b, bk[0], params)[1] if dense
+                                   else case["score"](fk.g_star, pivot_b, bk[0], params, bk[3]))
+            disc_b = torch.ones_like(bk[2]) if mode == 7 else bk[2]
+            stats["empty_backward"] += mode == 7
+            if dense:
+                ll_b = backward[omega]
+                ak = mtm._accept_dense_on_card(variant, ll_b, disc_b, fk, st, l_t, f_t, u,
+                                               corrected)
+                ap = mtm.accept_dense_plain(variant, ll_b, disc_b, fp, st, l_t, f_t, u, corrected)
+            else:
+                dll_b, _, _, _, over_b = backward[omega]
+                ak = mtm._accept_delta_on_card(variant, dll_b, over_b, disc_b, fk, l_t, f_t, u,
+                                               corrected, n_c)
+                ap = mtm.accept_delta_plain(variant, dll_b, over_b, disc_b, fp, l_t, f_t, u,
+                                            corrected)
+            r.update(bk=bk, ak=ak, ap=ap)
+            r["acc_pairs"] = list(zip(st._fields, ak[0], ap[0])) + [
+                ("l_t", ak[1], ap[1]), ("n_contigs", ak[3], ap[3])]
+            r["rest_pairs"] = [] if dense else list(zip(st._fields, ak[0], st))
+            queued += [same_on_card(f"{label} E1 backward, draw {d}", r["set_pairs"]), ak[2],
+                       ap[2], rel_diff(ak[4], ap[4]),
+                       same_on_card(f"{label} E3, draw {d}", r["acc_pairs"]),
+                       same_on_card(f"{label} E3 rejected, draw {d}", r["rest_pairs"])
+                       if r["rest_pairs"] else ak[2]]
+        vals = read_all(queued)
+        for r, (set_same, acc_k, acc_p, ratio, same, restored) in zip(live,
+                                                                     zip(*[iter(vals)] * 6)):
+            d, ak, ap, u = r["d"], r["ak"], r["ap"], r["u"]
+            if not set_same:
+                exact_pairs(f"{label} E1 backward, draw {d}", r["set_pairs"])
+            if bool(acc_k) != bool(acc_p):
+                check(accept_close(ak[4], ap[4], u),
+                      f"{label}, draw {d}: accepted {bool(acc_k)} != plain {bool(acc_p)} with "
+                      f"ratio {float(ak[4])} (plain {float(ap[4])}) and u {float(u)} outside "
+                      f"the margin")
+                stats["accept_close"] += 1
+                continue
+            note("ratio", ratio)
+            if not same:
+                exact_pairs(f"{label} E3, draw {d}", r["acc_pairs"])
+            if not dense and not acc_k and not restored:   # a rejection restores the input
+                exact_pairs(f"{label} E3 rejected, draw {d}", r["rest_pairs"])
+            stats["compared"] += 1
+            stats["accepted"] += bool(acc_k)
+            if r["mode"] < 5:
+                last = dict(f_a=f_a, nb=(nb_ids, nb_valid, discard_f, max_id, n_c), gum=r["gum"],
+                            u=u, fk=r["fk"], bk=r["bk"], backward=backward[r["omega"]],
+                            fwd_in=(ll, cands) if dense else (dll, minis, rows, rvalid, over))
+    check(stats["compared"] >= n_draws // 2,
+          f"{label}: only {stats['compared']} of {stats['draws']} draws compared")
+    print(f"  {label}: {stats}; largest differences of the values summed in another order "
+          f"(relative; p_fwd also absolute) {errs}")
+    return dict(stats=stats, errs=errs, last=last)
+
+
+def move_bound(kernel, s, m, n=0, f_max=0, n_rows=0, dense=True, restores=False):
+    """The least time of one call (bound()): the bytes the function must
+    move, each input read and each output written once. E1: the genome's
+    contig ids and positions (the pivot's and the m slots' own fields are a
+    few hundred bytes), the jump row and the outputs. E2: the m x 13
+    scores, discard flags and Gumbel noise and the m ids; dense: g*'s 11 x
+    n int32 read from the catalogue and written; delta: for each of the
+    ``n_rows`` rows written, its index, the 8 mini fields, the 8 old
+    values read and the 8 new and 8 saved values written. E3: the m x 13
+    scores and flags; dense: the chosen one of g* and the state read
+    (11 x n, chosen once the acceptance is known) and the new state
+    written; delta: the rows' positions and saved positions, and the
+    rows restored on a rejection."""
+    if kernel == "set":
+        return bound(8 * n + 4 * (m - 2) + 8 * m + m + 13 * m + 12)
+    if kernel == "draw":
+        b = 4 * s + s + 4 * s + 8 * m + 32
+        b += 2 * 11 * 4 * n if dense else f_max + n_rows * (8 + 4 * 8 * 4)
+        return bound(b)
+    b = 4 * s + s + 48
+    b += 2 * 11 * 4 * n if dense else f_max + n_rows * (8 + 2 * 4 + (8 * 4 * 2 if restores else 0))
+    return bound(b)
+
+
+def time_move_kernels(case, checked):
+    """E1, E2 and E3 timed at one shape on the inputs of its last compared
+    draw (as called and on the device), beside the plain versions' ms as
+    called and as graph replays, and their bounds."""
+    import torch
+    from graal_tpu_torch.core import mtm
+
+    move = move_wrapper()
+    last = checked["last"]
+    check(last is not None, f"{case['label']}: no draw to time")
+    st, jump, params = case["state"], case["jump"], case["params"]
+    variant, corrected, l_t = case["variant"], case["corrected"], case["l_t"]
+    dense = case["kind"] == "dense"
+    f_a, (nb_ids, nb_valid, discard_f, max_id, n_c) = last["f_a"], last["nb"]
+    gum, u, fk, bk = last["gum"], last["u"], last["fk"], last["bk"]
+    f_t = torch.ones((), device=st.pos.device)
+    m, n = nb_ids.shape[0], st.n_frags
+    s = 13 * m
+    out = {}
+
+    def record(kernel, fn, plain, b, **shape):
+        t = timed(fn, MOVE_TIME_ITERS)
+        t["plain_ms"] = cuda_ms(plain, 5, n_warm=1)
+        t["plain_device_ms"] = graph_device_ms(plain, 20)
+        out[kernel] = dict(with_share(t, b), **shape)
+
+    record("set", lambda: move.set(st._asdict(), f_a, jump.frags, f_a),
+           lambda: mtm.move_set_plain(st, f_a, jump, f_a), move_bound("set", s, m, n=n), n=n, m=m)
+    if dense:
+        ll, cands = last["fwd_in"]
+        ll_b = last["backward"]
+        record("draw", lambda: move.draw_dense(variant, ll, discard_f, gum, nb_ids, f_t,
+                                                tuple(cands)),
+               lambda: mtm.forward_dense_plain(variant, ll, discard_f, f_t, gum, nb_ids, cands),
+               move_bound("draw", s, m, n=n), n=n, m=m)
+        record("accept", lambda: move.accept_dense(variant, ll_b, bk[2], fk, tuple(fk.g_star),
+                                                    tuple(st), l_t, u, f_t, corrected),
+               lambda: mtm.accept_dense_plain(variant, ll_b, bk[2], fk, st, l_t, f_t, u,
+                                              corrected),
+               move_bound("accept", s, m, n=n), n=n, m=m)
+        return out
+    dll, minis, rows, rvalid, over = last["fwd_in"]
+    dll_b, _, _, _, over_b = last["backward"]
+    dst = {f: x.clone() for f, x in st._asdict().items()}
+    n_rows = int(rvalid[int(fk.omega) // 13].sum())
+    f_max = rows.shape[-1]
+    fwd = move.draw_delta(variant, dll, l_t, over, discard_f, gum, nb_ids, f_t, minis._asdict(),
+                          rows, rvalid, dst)
+    fk_t = fk._replace(omega=fwd[1], ll_star=fwd[3], p_fwd=fwd[4], sw=fwd[5], mx=fwd[6],
+                       ok=fwd[7], undo=fwd[0])
+    record("draw", lambda: move.draw_delta(variant, dll, l_t, over, discard_f, gum, nb_ids, f_t,
+                                           minis._asdict(), rows, rvalid, dst),
+           lambda: mtm.forward_delta_plain(variant, dll, l_t, over, discard_f, f_t, gum, nb_ids,
+                                           minis, rows, rvalid, st),
+           move_bound("draw", s, m, f_max=f_max, n_rows=n_rows, dense=False), n=n, m=m,
+           f_max=f_max, n_rows=n_rows)
+    restores = not bool(move.accept_delta(variant, dll_b, over_b, bk[2], fk_t, dst, rows, rvalid,
+                                          fk_t.undo, n_c, l_t, u, f_t, corrected)[1])
+    record("accept", lambda: move.accept_delta(variant, dll_b, over_b, bk[2], fk_t, dst, rows,
+                                               rvalid, fk_t.undo, n_c, l_t, u, f_t, corrected),
+           lambda: mtm.accept_delta_plain(variant, dll_b, over_b, bk[2],
+                                          fk._replace(undo=st), l_t, f_t, u, corrected),
+           move_bound("accept", s, m, f_max=f_max, n_rows=n_rows, dense=False,
+                      restores=restores), n=n, m=m, f_max=f_max, n_rows=n_rows, restores=restores)
+    return out
+
+
+def move_shape(case, gen, n_draws=MOVE_DRAWS):
+    """Phase 3e's check and timing of one shape; the record (kept in
+    MOVE_SHAPES under the shape's label) and its printed summary."""
+    checked = check_move_kernels(case, gen, n_draws)
+    times = time_move_kernels(case, checked)
+    for kernel, r in times.items():
+        print(f"    E{('set', 'draw', 'accept').index(kernel) + 1} {kernel}: "
+              f"{r['device_ms']:.4f} device ms ({r['ms']:.4f} as called), plain "
+              f"{r['plain_device_ms']:.4f} device ms as graph replays ({r['plain_ms']:.4f} as "
+              f"called); {fmt_bound(r)}")
+    rec = dict(stats=checked["stats"], errs=checked["errs"], kernels=times,
+               variant=case["variant"], corrected=case["corrected"], kind=case["kind"])
+    MOVE_SHAPES[case["label"]] = rec
+    return rec
+
+
+def dense_move_cases(device, n_bins=384):
+    """Phase 3e's dense shapes: the flagship (B1 at B = 91 a pass) from the
+    truth (MTM, and corrected MTM) and exploded (MH), with a circularised
+    contig (pivots among its members: its ends wrap), and the repeat twin
+    (B3) with pivots half among the copies."""
+    import numpy as np
+    import torch
+    from graal_tpu_torch.core import mcmc, mtm
+    from graal_tpu_torch.core.state import GenomeState
+    from graal_tpu_torch.entry import problem, problem_jump_table, repeat_problem
+    from graal_tpu_torch.ops.likelihood_cuda import make_dense_scorer
+
+    state, table, params, obs, _ = problem(n_bins=n_bins, device=device)
+    scorer = make_dense_scorer(table, obs, device)
+    jump = problem_jump_table(state, table, obs, MTM_DELTA)
+    score = mtm._make_scores_for(table, obs, torch.float32, scorer)
+
+    def like(st):
+        return scorer(GenomeState(*[x[None] for x in st]), params)[0]
+
+    every = torch.arange(state.n_frags, device=device)
+    exploded = mcmc.explode_genome(state)
+    circ = circularised(state, 0)
+    ring = torch.nonzero(circ.id_c == circ.id_c[torch.nonzero(circ.circ == 1)[0, 0]]).reshape(-1)
+    cases = [move_case("dense_flagship_mtm", "dense", "mtm", state, jump, params, score,
+                       like(state), every),
+             move_case("dense_flagship_mh", "dense", "mh", exploded, jump, params, score,
+                       like(exploded), every),
+             move_case("dense_flagship_mtm_corrected", "dense", "mtm", state, jump, params, score,
+                       like(state), every, corrected=True),
+             move_case("dense_circular_mh", "dense", "mh", circ, jump, params, score, like(circ),
+                       ring)]
+    rstate, rtable, rparams, robs, _ = repeat_problem(n_bins=n_bins, device=device)
+    k = robs.shape[0] // 3
+    bins = np.asarray(robs, np.float64).reshape(k, 3, k, 3).sum(axis=(1, 3))
+    rjump = mtm.build_jump_table(bins, np.ones(k), rstate.id_d.cpu().numpy(), rstate.n_frags,
+                                 MTM_DELTA, device=device)
+    rscorer = make_dense_scorer(rtable, robs, device)
+    copies = torch.nonzero(rstate.rep == 1).reshape(-1)
+    rpiv = torch.cat([copies.repeat(max(1, rstate.n_frags // max(len(copies), 1))),
+                      torch.arange(rstate.n_frags, device=device)])
+    cases.append(move_case("dense_repeat_mtm", "dense", "mtm", rstate, rjump, rparams,
+                           mtm._make_scores_for(rtable, robs, torch.float32, rscorer),
+                           rscorer(GenomeState(*[x[None] for x in rstate]), rparams)[0], rpiv))
+    return cases
+
+
+def delta_move_case(label, sc, variant, f_max, corrected=False, state=None, n_draws=None):
+    """A delta shape of phase 3e: ``sc``'s runner's jump table and engine
+    as ``ScaleRunner.run_mtm`` builds them at bucket ``f_max`` (B4 + B2
+    with the MH catalogue; the repeat engine v2 on a repeat table), from
+    its shuffled start (or ``state``); pivots half among repeat copies."""
+    import torch
+    from graal_tpu_torch.core import mtm
+    from graal_tpu_torch.ops.mini_grid_cuda import MiniGridScorer
+    from graal_tpu_torch.ops.obsgrid_cuda import WindowObsGrid
+
+    runner = sc["runner"]
+    st = sc["shuf"] if state is None else state
+    jump = runner.jump_table(MTM_DELTA, st.n_frags)
+    engine = mtm._delta_mh_scorer(sc["table"], f_max, sc["sobs"], runner.w, st.rep,
+                                  WindowObsGrid(), MiniGridScorer())
+    copies = torch.nonzero(st.rep == 1).reshape(-1)
+    every = torch.arange(st.n_frags, device=st.pos.device)
+    pivots = torch.cat([copies.repeat(max(1, st.n_frags // len(copies))), every]) \
+        if len(copies) else every
+    return move_case(label, "delta", variant, st, jump, sc["params"], mtm._delta_score_set(engine),
+                     runner.anchor_fn()(st, sc["params"]), pivots, corrected=corrected)
+
+
+def phase_move_kernels(device, sc, rsc, n_bins=384):
+    """3e. The MTM / MH step kernels E1 (the neighbour set and its masks),
+    E2 (the forward weights, the draw and g*) and E3 (the backward
+    weights, the acceptance and the commit) against their plain versions
+    on MOVE_DRAWS random draws at every refinement path's shape (the dense
+    flagship's MTM, MH and corrected MTM, a circular contig at the pivot,
+    the dense repeat twin on B3, the 100k delta MTM at f_max F_MAX and its
+    corrected twin, the 20k repeat delta MH), each timed against its plain
+    version. The CLI's level-1 shape is checked in phase 10a, the
+    16,384 bucket in --top-tiers."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 50)
+    print(f"MTM / MH step kernels E1 (set), E2 (draw), E3 (accept) vs plain, {MOVE_DRAWS} draws "
+          f"a shape on {MOVE_PIVOTS} pivots; slots and acceptances equal outside "
+          f"{MOVE_ULPS} ulps")
+    cases = dense_move_cases(device, n_bins) + [
+        delta_move_case("delta_100k_mtm", sc, "mtm", F_MAX),
+        delta_move_case("delta_100k_mtm_corrected", sc, "mtm", F_MAX, corrected=True),
+        delta_move_case("delta_repeat_20k_mh", rsc, "mh", F_MAX)]
+    out = {case["label"]: move_shape(case, gen) for case in cases}
+    accepted = sum(r["stats"]["accepted"] for r in out.values())
+    compared = sum(r["stats"]["compared"] for r in out.values())
+    check(0 < accepted < compared, f"E3: {accepted} of {compared} compared draws accepted")
+    return out
+
+
+def phase_move_top(sc):
+    """(``--top-tiers``) E1-E3 at 11h's run_mtm shape: the 100k truth at
+    bucket 16,384 (M = 7), against their plain versions and timed."""
+    import torch
+
+    gen = torch.Generator(device=sc["truth"].pos.device).manual_seed(SEED + 51)
+    return move_shape(delta_move_case(f"delta_{TOP_TIERS[1]}_mtm", sc, "mtm", TOP_TIERS[1],
+                                      state=sc["truth"]), gen)
+
+
 def phase_graphs(device, sc, rsc):
     """7g. Each main path's cycle as a captured graph against the same
     cycle run eagerly (capture=False), on the same inputs: the dense
@@ -4673,7 +5264,8 @@ def mtm_graph_case(device, variant, n_bins=384):
         return mtm.make_mtm_cycle(table, obs, jump, variant=variant, scorer=scorer,
                                   capture=capture)
 
-    return build, move_chunks(start, params, l0, jump, gen), [scorer, catalogue_wrapper()]
+    return build, move_chunks(start, params, l0, jump, gen), [scorer, catalogue_wrapper(),
+                                                               move_wrapper()]
 
 
 def delta_mtm_graph_case(sc, variant):
@@ -4696,7 +5288,8 @@ def delta_mtm_graph_case(sc, variant):
                                     band_w=runner.w, obs_grid=grid, mini_grid=mini,
                                     rep=start.rep, capture=capture)
 
-    return build, move_chunks(start, params, l0, jump, gen), [mini, grid, catalogue_wrapper()]
+    return build, move_chunks(start, params, l0, jump, gen), [mini, grid, catalogue_wrapper(),
+                                                               move_wrapper()]
 
 
 def cycle_end_graph_case(sc, n_cycles=4):
@@ -4736,11 +5329,13 @@ def run_mtm_memory(runner, start, steps, f_max_min, label):
     torch.cuda.empty_cache()
     before = torch.cuda.memory_allocated()
     peak = PeakMemory()
+    move_wrapper().n_launches = 0
     t0 = time.perf_counter()
     final, l_t, m = runner.run_mtm(start, n_cycles=1, steps_per_cycle=steps,
                                    f_max_min=f_max_min, progress=False)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
+    want_move_launches(f"run_mtm {label}", move_launches(), steps)
     peak_gb = peak.read(f"{label}, run_mtm at bucket {m['f_max'][0]}")[0]
     del final
     torch.cuda.empty_cache()
@@ -4776,6 +5371,7 @@ def phase_graphs_samplers(device, sc, rsc):
           "runner's cycle end, captured and run eagerly on the same inputs")
     steps = SAMPLER_STEPS + SAMPLER_STEPS // 2
     k = 3 * 384   # the flagship's K
+    move_want = {"set": 2 * steps, "draw": steps, "accept": steps}   # E1-E3 a step
 
     def launched(rec, want, label):
         got = rec["graph"]["by_key"]
@@ -4794,7 +5390,8 @@ def phase_graphs_samplers(device, sc, rsc):
             f"dense {variant.upper()} flagship (B1 at B = {MTM_SLOTS})",
             *mtm_graph_case(device, variant), sync_error=True)
         launched(out[f"{variant}_flagship"],
-                 [{str((MTM_SLOTS, k)): 2 * steps}, {"mh": 2 * steps}], variant)
+                 [{str((MTM_SLOTS, k)): 2 * steps}, {"mh": 2 * steps}, move_want], variant)
+        MOVE_PATHS[f"graph_{variant}_flagship"] = out[f"{variant}_flagship"]["graph"]["by_key"][2]
     out["delta_mtm_100k"] = graph_vs_eager(
         f"100k delta MTM (B4 + B2, M = 7), f_max {F_MAX}", *delta_mtm_graph_case(sc, "mtm"),
         sync_error=True)
@@ -4802,7 +5399,8 @@ def phase_graphs_samplers(device, sc, rsc):
         f"20k repeat delta MH (B4 + B2, M = 7), f_max {F_MAX}",
         *delta_mtm_graph_case(rsc, "mh"), sync_error=True)
     for name in ("delta_mtm_100k", "delta_mh_repeat_20k"):
-        launched(out[name], [{"None": 2 * steps}] * 2 + [{"mh": 2 * steps}], name)
+        launched(out[name], [{"None": 2 * steps}] * 2 + [{"mh": 2 * steps}, move_want], name)
+        MOVE_PATHS[f"graph_{name}"] = out[name]["graph"]["by_key"][3]
     catalogue_paths(out)
     out["cycle_end_100k"] = graph_vs_eager(
         "100k ScaleRunner.run cycle end (re-anchor + nuisance step)",
@@ -4890,9 +5488,39 @@ def step_records(step):
     return out
 
 
+def move_records(move):
+    """The kernels line's entries of E1 (mtm_set), E2 (mtm_draw) and E3
+    (mtm_accept): the dense flagship MTM shape's numbers, every other shape
+    of phase 3e (and 10c's level-1 one) under "by_shape", and under
+    "by_path" each main path's launches counted on the card (7h's graphed
+    cycles and run_mtm, 10a, 10e), whose sum is the top-level count;
+    "max_abs_err" the largest absolute difference from the plain version
+    measured on the compared draws of every shape (E1 and E3: 0, every
+    output bit for bit; E2: p_fwd, whose weight sum is summed in another
+    order), "close" each shape's draws under the margin rules."""
+    out = []
+    flagship = MOVE_SHAPES["dense_flagship_mtm"]
+    close = {label: dict(slot=r["stats"]["slot_close"], accept=r["stats"]["accept_close"])
+             for label, r in MOVE_SHAPES.items()}
+    rel = {label: r["errs"] for label, r in MOVE_SHAPES.items()}
+    for kernel, name, line in (("set", "mtm_set", 124), ("draw", "mtm_draw", 181),
+                               ("accept", "mtm_accept", 198)):
+        paths = {path: by_key[kernel] for path, by_key in MOVE_PATHS.items() if by_key.get(kernel)}
+        check(paths, f"no main path launched the {name} kernel")
+        err = max(r["errs"]["p_fwd_abs"] for r in MOVE_SHAPES.values()) if kernel == "draw" else 0.0
+        out.append(kernel_record(name, "mtm.cu", f"graal_tpu/core/mtm.py:{line}",
+                                 sum(paths.values()), dict(
+                                     flagship["kernels"][kernel], max_abs_err=err, by_path=paths,
+                                     by_shape={label: r["kernels"][kernel]
+                                               for label, r in MOVE_SHAPES.items()
+                                               if label != "dense_flagship_mtm"},
+                                     close=close, rel_err=rel)))
+    return out
+
+
 def kernels_line(dense, dense_launches, repeat, repeat_launches, delta, mini_launches,
                  repeat_delta, obs_launches, cli_runs, mtm_exact, chains, top, catalogue,
-                 step):
+                 step, move):
     """The {"kernels": [...]} line from the phases' records; the B2 / B4
     launches are (100k path, 20k repeat path); ``cli_runs`` is
     :func:`phase_cli`'s record, whose counts and errors against the plain
@@ -4908,7 +5536,8 @@ def kernels_line(dense, dense_launches, repeat, repeat_launches, delta, mini_lau
     run_chains_top_R under "by_path", whose launches join the top-level
     count too. ``catalogue`` (phase 3c) gives C1's and C2's entries
     (:func:`catalogue_records`), ``step`` (phase 3d) D1's, D2's and D3's
-    (:func:`step_records`)."""
+    (:func:`step_records`), ``move`` (phase 3e) E1's, E2's and E3's
+    (:func:`move_records`)."""
     c = cli_runs
     ch, chr_, cht = chains["main"], chains["repeat"], chains["top"]
     top_launches = [sum(r["launches"][i] for r in top.values())
@@ -4989,6 +5618,7 @@ def kernels_line(dense, dense_launches, repeat, repeat_launches, delta, mini_lau
                           "cli_run_repeats": entry(c["repeat"])})),
         *catalogue_records(catalogue),
         *step_records(step),
+        *move_records(move),
     ]}
 
 
@@ -5014,6 +5644,7 @@ def main():
     catalogue = phase("3c C1 C2", phase_catalogue, device, sc)
     rsc = phase("set-up 20k repeat", scale_repeat_setup, device)
     step = phase("3d D1 D2 D3", phase_step_kernels, device, sc, rsc)
+    move = phase("3e E1 E2 E3", phase_move_kernels, device, sc, rsc)
     dense = phase("2-3 B1", phase_kernel, device)
     dense_launches = phase("4 dense main", phase_main, device)
     repeat = phase("4a B3", phase_repeat_kernel, device)
@@ -5046,7 +5677,7 @@ def main():
                            (mini_launches, r_mini), repeat_delta_timing, (obs_launches, r_obs),
                            cli_runs, mtm_exact, dict(main=chains, repeat=chains_rep,
                                                      top=top_chains), top, catalogue,
-                           step)
+                           step, move)
     print(json.dumps({"routes": crossover}))
     kernel_keys = ("ll_mini", "obsgrid", "b2_bucket", "b4_bucket")
     print(json.dumps({"chains": {
@@ -5080,12 +5711,13 @@ def main_top():
     graphs = phase("11g graph vs eager top", phase_graphs_top, sc)
     graphs["run_mtm_top"] = phase("11h run_mtm top", phase_mtm_top, sc)
     step_top = phase("3d D3 top", phase_step_top, sc)
+    move_top = phase("3e E1-E3 top", phase_move_top, sc)
     crossover = phase("5c routes", phase_crossover, sc)
     print(f"smoke --top-tiers: {time.perf_counter() - t_start:.1f} s in all; phases "
           f"{json.dumps(PHASE_S)}", flush=True)
     print(json.dumps({"tiers": {k: delta_timing[k]["tiers"] for k in ("ll_mini", "obsgrid")},
                       "routes": crossover, "run_top": top, "run_chains_top": top_chains,
-                      "graphs": graphs, "step_top": step_top}))
+                      "graphs": graphs, "step_top": step_top, "move_top": move_top}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

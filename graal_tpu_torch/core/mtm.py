@@ -33,6 +33,19 @@ inside the exponent; the MH backward pass pivots at fA (in both modes, as
 the JAX package's ``corrected=True`` changes the MH ratio only).
 ``corrected=True`` gives the canonical MTM backward set and MH ratio.
 
+A step's control work is three public functions, each one kernel of
+``csrc/mtm.cu`` on a card (``ops.mtm_cuda``) and its plain version
+(``*_plain``) anywhere else: :func:`move_set` (E1: the neighbour set, its
+discard mask, the genome's largest contig id and contig count; twice a
+step, the backward pass in its mask-only mode or, corrected MTM, pivoted at
+f*), :func:`forward_dense` / :func:`forward_delta` (E2: the forward
+weights, the slot draw and the proposal g*) and :func:`accept_dense` /
+:func:`accept_delta` (E3: the backward weights, the ratio, the acceptance
+and the commit). On a card the delta step writes g* into the state in
+place (a captured cycle's carry, or a copy of the mutable fields when run
+eagerly) and a rejection writes the saved rows back: no genome-length copy
+is left on the delta step.
+
 Randomness: a step takes a ``torch.Generator`` or its draws as tensors
 (:class:`MoveDraws`: the Gumbel noise of the categorical over the slots
 and the acceptance uniform), so that tests can feed it the draws a JAX
@@ -43,6 +56,7 @@ package's jitted ``lax.scan``): a captured CUDA graph on the card.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
@@ -52,11 +66,9 @@ import torch
 from graal_tpu_torch.core import graphs
 from graal_tpu_torch.core.candidates import N_CANDIDATES, mh_candidates
 from graal_tpu_torch.core.mcmc import _default_scorer, _matrix_to_coo, _take, topk_rows
-from graal_tpu_torch.core.state import GenomeState
+from graal_tpu_torch.core.state import MUTABLE_FIELDS, GenomeState
 from graal_tpu_torch.core.subfrags import SubFragTable
-
-MTM_THRESH_OVERFLOW = 600.0   # step_mtm (cuda_lib_gl.py:2974)
-MH_THRESH_OVERFLOW = 10.0     # step_metropolis_hastings_s_a (:2871)
+from graal_tpu_torch.ops.mtm_cuda import MH_THRESH_OVERFLOW, MOVE, MTM_THRESH_OVERFLOW
 
 
 class JumpTable(NamedTuple):
@@ -185,15 +197,15 @@ def _mtm_weights(ll_flat, discard_flat, f_t, thresh=MTM_THRESH_OVERFLOW):
 def _mh_probs(ll_flat, discard_flat, f_t):
     """MH forward proposal probabilities: tempered scores clamped to a
     window of MH_THRESH_OVERFLOW below the best kept slot, shifted by
-    their minimum, exponentiated; returns (probabilities, their unnormalised
-    sum)."""
+    their minimum, exponentiated; returns (the unnormalised probabilities,
+    their sum, the best kept tempered score)."""
     s = ll_flat / f_t
     mx = torch.where(discard_flat, -math.inf, s).amax()
     s = torch.maximum(s, mx - MH_THRESH_OVERFLOW)
     s = s - s.amin()
     w = torch.where(discard_flat, 0.0, torch.exp(s))
     sw = w.sum()
-    return w, sw
+    return w, sw, mx
 
 
 def _mh_return_prob(ll_b_flat, discard_b_flat, l_t, f_t, clamp_sum: bool):
@@ -223,6 +235,233 @@ def _commit(accept, g_star: GenomeState, state: GenomeState, ll_star, l_t):
     new_state = GenomeState(*[torch.where(accept, a, b) for a, b in zip(g_star, state)])
     return new_state, torch.where(accept, ll_star, l_t), accept, new_state.n_contigs()
 
+
+# ---------------------------------------------------------------------------
+# A step's control work, one public function a kernel of csrc/mtm.cu: E1 the
+# neighbour set and its masks (move_set), E2 the forward weights, the draw
+# and the proposal (forward_dense / forward_delta), E3 the backward weights,
+# the acceptance and the commit (accept_dense / accept_delta). On a card each
+# runs its kernel (ops.mtm_cuda.MOVE), on any other device its plain version.
+# ---------------------------------------------------------------------------
+
+class Forward(NamedTuple):
+    """What a step's forward pass (E2) hands its acceptance (E3)."""
+
+    g_star: GenomeState        # the proposal (delta: the state it was written into)
+    omega: torch.Tensor        # () int64: the drawn slot
+    f_star: torch.Tensor       # () int64: its neighbour
+    ll_star: torch.Tensor      # () f32: its log-likelihood
+    p_fwd: torch.Tensor        # () f32: its probability
+    sw: torch.Tensor           # () f32: the forward weights' sum
+    mx: torch.Tensor           # () f32: the best kept tempered score
+    ok: torch.Tensor | None = None     # delta: sw > 0 and the chosen neighbour fits f_max
+    undo: object = None        # delta: the state before the move (plain) or E2's saved values
+    rows: torch.Tensor | None = None   # delta: the neighbours' member rows
+    rows_valid: torch.Tensor | None = None
+
+
+def _scalar(x, dev):
+    """A Python number as the 0-d f32 tensor the kernels take (torch rounds a
+    CPU scalar to f32 against f32 operands); a tensor as it is."""
+    if isinstance(x, torch.Tensor):
+        return x
+    return torch.full((), float(x), dtype=torch.float32, device=dev)
+
+
+def move_set(state: GenomeState, f_a, jump: JumpTable, mask_pivot, given=None):
+    """E1: the neighbour set of ``f_a`` (:func:`_neighbour_set`) with its
+    discard mask at ``mask_pivot`` (:func:`_impossibility_mask`, or an
+    invalid slot), the state's largest contig id and its contig count.
+    ``given`` = (ids, valid): the mask-only mode, the mask of those slots
+    (``f_a`` unused). Returns (ids (m,) int64, valid (m,), discard (m, 13),
+    max_id () int32, n_contigs () int64): :func:`move_set_plain`'s result,
+    by kernel E1 when the state is on a card."""
+    if state.pos.device.type == "cuda":
+        return _set_on_card(state, f_a, jump, mask_pivot, given)
+    return move_set_plain(state, f_a, jump, mask_pivot, given)
+
+
+def _set_on_card(state: GenomeState, f_a, jump: JumpTable, mask_pivot, given):
+    dev = state.pos.device
+    f_a = None if given is not None else torch.as_tensor(f_a, device=dev).long()
+    return MOVE.set(state._asdict(), f_a, jump.frags,
+                    torch.as_tensor(mask_pivot, device=dev).long(), given)
+
+
+def move_set_plain(state: GenomeState, f_a, jump: JumpTable, mask_pivot, given=None):
+    """:func:`move_set` in plain torch."""
+    ids, valid = _neighbour_set(state, f_a, jump) if given is None else given
+    discard = _impossibility_mask(state, mask_pivot, ids) | ~valid[:, None]
+    return ids, valid, discard, state.id_c.amax(), state.n_contigs()
+
+
+def _forward_weights(variant, ll_flat, discard_flat, f_t):
+    """(weights, their sum, the best kept tempered score) of a forward
+    pass: MTM weights or MH probabilities."""
+    if variant == "mtm":
+        w, mx = _mtm_weights(ll_flat, discard_flat, f_t)
+        return w, w.sum(), mx
+    return _mh_probs(ll_flat, discard_flat, f_t)
+
+
+def forward_dense(variant, ll, discard, f_t, gumbel, ids, cands: GenomeState) -> Forward:
+    """E2 on a dense step: the forward weights of the scores ``ll`` (m, 13)
+    (MTM weights or MH probabilities, ``variant``), the slot drawn by
+    argmax(log p + ``gumbel``), and that candidate of the flat catalogue
+    ``cands`` (fields (m x 13, n)) as g*. :func:`forward_dense_plain`'s
+    result, by kernel E2 when the scores are on a card (there the weights'
+    sum, and p with it, is summed in another order: the drawn slot may
+    differ where the two best keys lie within a few ulps,
+    ``csrc/mtm.cu``)."""
+    if ll.device.type == "cuda":
+        return _draw_dense_on_card(variant, ll, discard, f_t, gumbel, ids, cands)
+    return forward_dense_plain(variant, ll, discard, f_t, gumbel, ids, cands)
+
+
+def _draw_dense_on_card(variant, ll, discard, f_t, gumbel, ids, cands: GenomeState):
+    g_star, *out = MOVE.draw_dense(variant, ll, discard, gumbel, ids, f_t, tuple(cands))
+    return Forward(GenomeState(*g_star), *out)
+
+
+def forward_dense_plain(variant, ll, discard, f_t, gumbel, ids, cands: GenomeState) -> Forward:
+    """:func:`forward_dense` in plain torch."""
+    ll_flat = ll.reshape(-1)
+    w, sw, mx = _forward_weights(variant, ll_flat, discard.reshape(-1), f_t)
+    p = w / sw
+    omega = _categorical(p, gumbel)
+    return Forward(GenomeState(*[_take(x, omega) for x in cands]), omega,
+                   _take(ids, omega // N_CANDIDATES), _take(ll_flat, omega), _take(p, omega),
+                   sw, mx)
+
+
+def forward_delta(variant, dll, l_t, overflow, discard, f_t, gumbel, ids, minis: GenomeState,
+                  rows, rows_valid, state: GenomeState, inplace: bool = False) -> Forward:
+    """E2 on a delta step: the forward pass of the candidate likelihoods
+    ``l_t`` + ``dll`` (m, 13), the neighbour slots that overflow f_max
+    (``overflow`` (m,)) discarded, the weights' sum clamped at 1e-30 in p;
+    g* is ``state`` with the drawn mini-state of ``minis`` (fields (m, 13,
+    f_max)) written at its neighbour's valid ``rows``. On a card kernel E2
+    writes it into ``state`` itself with ``inplace`` (a captured cycle's
+    carry) and else into a copy of the mutable fields, and saves the values
+    it overwrote for E3; elsewhere :func:`forward_delta_plain` builds a new
+    genome (the rule of :func:`forward_dense` on the drawn slot)."""
+    if dll.device.type == "cuda":
+        return _draw_delta_on_card(variant, dll, l_t, overflow, discard, f_t, gumbel, ids, minis,
+                                   rows, rows_valid, state, inplace)
+    return forward_delta_plain(variant, dll, l_t, overflow, discard, f_t, gumbel, ids, minis,
+                               rows, rows_valid, state)
+
+
+def _draw_delta_on_card(variant, dll, l_t, overflow, discard, f_t, gumbel, ids,
+                        minis: GenomeState, rows, rows_valid, state: GenomeState, inplace):
+    g_star = state if inplace else state._replace(
+        **{f: getattr(state, f).clone() for f in MUTABLE_FIELDS})
+    undo, *out = MOVE.draw_delta(variant, dll, _scalar(l_t, dll.device), overflow, discard,
+                                 gumbel, ids, f_t, minis._asdict(), rows, rows_valid,
+                                 g_star._asdict())
+    return Forward(g_star, *out, undo=undo, rows=rows, rows_valid=rows_valid)
+
+
+def forward_delta_plain(variant, dll, l_t, overflow, discard, f_t, gumbel, ids,
+                        minis: GenomeState, rows, rows_valid, state: GenomeState) -> Forward:
+    """:func:`forward_delta` in plain torch (g* through
+    :func:`_delta_commit_candidate`; ``undo`` the state that came in)."""
+    ll_flat = (l_t + dll).reshape(-1)
+    w, sw, mx = _forward_weights(variant, ll_flat, (discard | overflow[:, None]).reshape(-1), f_t)
+    p = w / sw.clamp_min(1e-30)
+    omega = _categorical(p, gumbel)
+    sel_nb = omega // N_CANDIDATES
+    return Forward(_delta_commit_candidate(state, omega, minis, rows, rows_valid), omega,
+                   _take(ids, sel_nb), _take(ll_flat, omega), _take(p, omega), sw, mx,
+                   (sw > 0) & ~_take(overflow, sel_nb), undo=state, rows=rows,
+                   rows_valid=rows_valid)
+
+
+def accept_dense(variant, ll_b, discard_b, fwd: Forward, state: GenomeState, l_t, f_t, u,
+                 corrected: bool):
+    """E3 on a dense step: from the backward scores ``ll_b`` (m, 13), the
+    MTM ratio exp(max_f - max_b) sum(w_f) / sum(w_b) or the MH ratio with
+    the probability of returning to ``state`` (:func:`_mh_ratio`,
+    ``corrected`` its canonical form), the acceptance min(ratio, 1) >= ``u``
+    and the commit. Returns (new state, l_t, accepted, n_contigs, ratio):
+    :func:`accept_dense_plain`'s result, by kernel E3 when the scores are on
+    a card (there the backward sum, and the ratio with it, may differ in the
+    last ulps, and the decision where min(ratio, 1) lies that close to
+    ``u``)."""
+    if ll_b.device.type == "cuda":
+        return _accept_dense_on_card(variant, ll_b, discard_b, fwd, state, l_t, f_t, u,
+                                     corrected)
+    return accept_dense_plain(variant, ll_b, discard_b, fwd, state, l_t, f_t, u, corrected)
+
+
+def _accept_dense_on_card(variant, ll_b, discard_b, fwd: Forward, state: GenomeState, l_t, f_t,
+                          u, corrected):
+    fields, *out = MOVE.accept_dense(variant, ll_b, discard_b, fwd, tuple(fwd.g_star),
+                                     tuple(state), _scalar(l_t, ll_b.device), u, f_t, corrected)
+    return (GenomeState(*fields), *out)
+
+
+def accept_dense_plain(variant, ll_b, discard_b, fwd: Forward, state: GenomeState, l_t, f_t, u,
+                       corrected: bool):
+    """:func:`accept_dense` in plain torch."""
+    ll_flat, disc = ll_b.reshape(-1), discard_b.reshape(-1)
+    if variant == "mtm":
+        w_b, max_b = _mtm_weights(ll_flat, disc, f_t)
+        ratio = torch.exp(fwd.mx - max_b) * fwd.sw / w_b.sum()
+    else:
+        p_bwd, _ = _mh_return_prob(ll_flat, disc, l_t, f_t, clamp_sum=False)
+        ratio = _mh_ratio(fwd.ll_star, l_t, fwd.p_fwd, p_bwd, f_t, corrected)
+    accept = ratio.clamp_max(1.0) >= u
+    return (*_commit(accept, fwd.g_star, state, fwd.ll_star, l_t), ratio)
+
+
+def accept_delta(variant, dll_b, overflow_b, discard_b, fwd: Forward, l_t, f_t, u,
+                 corrected: bool, n_contigs):
+    """E3 on a delta step: :func:`accept_dense`'s ratio of the backward
+    candidates ``fwd.ll_star`` + ``dll_b`` (m, 13), the slots overflowing
+    f_max (``overflow_b``) discarded, the backward sum clamped at 1e-30; the
+    step is rejected when either pass has no weight or the chosen forward
+    neighbour overflows. The commit: on a card E3 writes E2's saved values
+    back into g* on a rejection (g* is then the state that came in) and
+    counts the contigs from ``n_contigs``, the count before the move (E1's),
+    over the rows the move wrote; elsewhere :func:`accept_delta_plain`'s
+    selects over the 11 fields. Returns (new state, l_t, accepted,
+    n_contigs, ratio)."""
+    if dll_b.device.type == "cuda":
+        return _accept_delta_on_card(variant, dll_b, overflow_b, discard_b, fwd, l_t, f_t, u,
+                                     corrected, n_contigs)
+    return accept_delta_plain(variant, dll_b, overflow_b, discard_b, fwd, l_t, f_t, u, corrected)
+
+
+def _accept_delta_on_card(variant, dll_b, overflow_b, discard_b, fwd: Forward, l_t, f_t, u,
+                          corrected, n_contigs):
+    g_star = fwd.g_star
+    out = MOVE.accept_delta(variant, dll_b, overflow_b, discard_b, fwd, g_star._asdict(),
+                            fwd.rows, fwd.rows_valid, fwd.undo, n_contigs,
+                            _scalar(l_t, dll_b.device), u, f_t, corrected)
+    return (g_star, *out)
+
+
+def accept_delta_plain(variant, dll_b, overflow_b, discard_b, fwd: Forward, l_t, f_t, u,
+                       corrected: bool):
+    """:func:`accept_delta` in plain torch (the state that came in is
+    ``fwd.undo``)."""
+    ll_flat = (fwd.ll_star + dll_b).reshape(-1)
+    disc = (discard_b | overflow_b[:, None]).reshape(-1)
+    if variant == "mtm":
+        w_b, max_b = _mtm_weights(ll_flat, disc, f_t)
+        sw_b = w_b.sum()
+        ratio = torch.exp(fwd.mx - max_b) * fwd.sw / sw_b.clamp_min(1e-30)
+    else:
+        p_bwd, sw_b = _mh_return_prob(ll_flat, disc, l_t, f_t, clamp_sum=True)
+        ratio = _mh_ratio(fwd.ll_star, l_t, fwd.p_fwd, p_bwd, f_t, corrected)
+    accept = fwd.ok & (sw_b > 0) & (ratio.clamp_max(1.0) >= u)
+    return (*_commit(accept, fwd.g_star, fwd.undo, fwd.ll_star, l_t), ratio)
+
+
+# ---------------------------------------------------------------------------
+# Dense steps and cycles
+# ---------------------------------------------------------------------------
 
 def _draws(rng, jump):
     return draw_move_inputs(rng, jump) if isinstance(rng, torch.Generator) else rng
@@ -261,29 +500,21 @@ def make_mtm_step(table: SubFragTable, obs, jump: JumpTable, ll_dtype=torch.floa
     def step(state: GenomeState, rng, params, l_t, f_a, f_t):
         rng = _draws(rng, jump)
         f_a = torch.as_tensor(f_a, device=state.pos.device)
-        nb_ids, nb_valid = _neighbour_set(state, f_a, jump)
+        nb_ids, nb_valid, discard_f, _, _ = move_set(state, f_a, jump, f_a)
 
         # ---- forward pass ----
         cands_f, ll_f = scores_for(state, f_a, nb_ids, params)
-        discard_f = _impossibility_mask(state, f_a, nb_ids) | ~nb_valid[:, None]
-        w_f, max_f = _mtm_weights(ll_f.reshape(-1), discard_f.reshape(-1), f_t)
-        omega = _categorical(w_f / w_f.sum(), rng.gumbel)
-        g_star = GenomeState(*[_take(x, omega) for x in cands_f])
-        ll_star = _take(ll_f.reshape(-1), omega)
-        f_star = _take(nb_ids, omega // N_CANDIDATES)
+        fwd = forward_dense("mtm", ll_f, discard_f, f_t, rng.gumbel, nb_ids, cands_f)
 
         # ---- backward pass: pivot at f* ----
         if corrected:
-            bk_ids, bk_valid = _neighbour_set(g_star, f_star, jump)
+            bk_ids, _, discard_b, _, _ = move_set(fwd.g_star, fwd.f_star, jump, f_a)
         else:
-            bk_ids, bk_valid = nb_ids, nb_valid
-        _, ll_b = scores_for(g_star, f_star, bk_ids, params)
-        discard_b = _impossibility_mask(g_star, f_a, bk_ids) | ~bk_valid[:, None]
-        w_b, max_b = _mtm_weights(ll_b.reshape(-1), discard_b.reshape(-1), f_t)
-
-        ratio = torch.exp(max_f - max_b) * w_f.sum() / w_b.sum()
-        accept = ratio.clamp_max(1.0) >= rng.u_acc
-        return _commit(accept, g_star, state, ll_star, l_t)
+            bk_ids = nb_ids
+            discard_b = move_set(fwd.g_star, None, jump, f_a, (nb_ids, nb_valid))[2]
+        _, ll_b = scores_for(fwd.g_star, fwd.f_star, bk_ids, params)
+        return accept_dense("mtm", ll_b, discard_b, fwd, state, l_t, f_t, rng.u_acc,
+                            corrected)[:4]
 
     return step
 
@@ -299,25 +530,16 @@ def make_mh_step(table: SubFragTable, obs, jump: JumpTable, ll_dtype=torch.float
     def step(state: GenomeState, rng, params, l_t, f_a, f_t):
         rng = _draws(rng, jump)
         f_a = torch.as_tensor(f_a, device=state.pos.device)
-        nb_ids, nb_valid = _neighbour_set(state, f_a, jump)
+        nb_ids, nb_valid, discard_f, _, _ = move_set(state, f_a, jump, f_a)
 
         cands_f, ll_f = scores_for(state, f_a, nb_ids, params)
-        discard_f = _impossibility_mask(state, f_a, nb_ids) | ~nb_valid[:, None]
-        w, sw = _mh_probs(ll_f.reshape(-1), discard_f.reshape(-1), f_t)
-        p = w / sw
-        omega = _categorical(p, rng.gumbel)
-        g_star = GenomeState(*[_take(x, omega) for x in cands_f])
-        ll_star = _take(ll_f.reshape(-1), omega)
-        p_fwd = _take(p, omega)
+        fwd = forward_dense("mh", ll_f, discard_f, f_t, rng.gumbel, nb_ids, cands_f)
 
         # backward probability of returning to the current genome
-        _, ll_b = scores_for(g_star, f_a, nb_ids, params)
-        discard_b = _impossibility_mask(g_star, f_a, nb_ids) | ~nb_valid[:, None]
-        p_bwd, _ = _mh_return_prob(ll_b.reshape(-1), discard_b.reshape(-1), l_t, f_t,
-                                   clamp_sum=False)
-        ratio = _mh_ratio(ll_star, l_t, p_fwd, p_bwd, f_t, corrected)
-        accept = ratio.clamp_max(1.0) >= rng.u_acc
-        return _commit(accept, g_star, state, ll_star, l_t)
+        _, ll_b = scores_for(fwd.g_star, f_a, nb_ids, params)
+        discard_b = move_set(fwd.g_star, None, jump, f_a, (nb_ids, nb_valid))[2]
+        return accept_dense("mh", ll_b, discard_b, fwd, state, l_t, f_t, rng.u_acc,
+                            corrected)[:4]
 
     return step
 
@@ -347,6 +569,7 @@ def _scan_cycle(step, jump, device, capture):
     Carry (state, l_t), constants (params, f_t: a Python f_t becomes a 0-d
     f32 buffer, reloaded by every call), per-step inputs (the draws, the
     fragment), outputs (l_t, accepted, n_contigs) stacked by the scan."""
+
     def body(carry, consts, x):
         state, l_t = carry
         params, f_t = consts
@@ -392,27 +615,17 @@ def _delta_mh_scorer(table: SubFragTable, f_max: int, sobs, band_w, rep, obs_gri
 
 
 def _delta_score_set(dscore):
-    """score_set(state, pivot, nb_ids, params) -> (dll (m, 13), minis (m,
-    13, f_max), rows, valid, overflow): every neighbour on its own member
-    rows, as the JAX package's per-neighbour spec extracts them."""
+    """score_set(state, pivot, nb_ids, params, max_id) -> (dll (m, 13),
+    minis (m, 13, f_max), rows, valid, overflow): every neighbour on its own
+    member rows, as the JAX package's per-neighbour spec extracts them;
+    ``max_id`` the state's largest contig id (E1's)."""
     from graal_tpu_torch.core.delta import extract_rows_each
 
-    def score_set(state, pivot, nb_ids, params):
+    def score_set(state, pivot, nb_ids, params, max_id):
         rows, valid, over = extract_rows_each(state, pivot, nb_ids, dscore.f_max)
-        return dscore.score(state, pivot, nb_ids, rows, valid, over, params,
-                            state.id_c.amax())
+        return dscore.score(state, pivot, nb_ids, rows, valid, over, params, max_id)
 
     return score_set
-
-
-def _delta_forward(state, f_a, jump, score_set, params, l_t):
-    """The forward pass shared by the delta steps: (nb_ids, nb_valid, ll_f
-    (m, 13), minis, rows, valid, overflow, discard (m, 13))."""
-    nb_ids, nb_valid = _neighbour_set(state, f_a, jump)
-    dll_f, minis_f, rows_f, rvalid_f, over_f = score_set(state, f_a, nb_ids, params)
-    discard_f = _impossibility_mask(state, f_a, nb_ids) | ~nb_valid[:, None] \
-        | over_f[:, None]
-    return nb_ids, nb_valid, l_t + dll_f, minis_f, rows_f, rvalid_f, over_f, discard_f
 
 
 def _delta_commit_candidate(state, omega, minis_f, rows_f, rvalid_f):
@@ -430,7 +643,9 @@ def make_delta_mtm_step(table: SubFragTable, jump: JumpTable, f_max: int, sobs,
                         band_w: int | None = None, corrected: bool = False,
                         obs_grid=None, mini_grid=None, rep=None):
     """MTM step with delta candidate scoring, the signature of
-    :func:`make_mtm_step` (``rng`` a Generator or :class:`MoveDraws`).
+    :func:`make_mtm_step` (``rng`` a Generator or :class:`MoveDraws`) and
+    ``inplace``: on a card, write the proposal into ``state``'s own tensors
+    (the captured cycle's carry, which nothing else holds).
 
     Candidate likelihoods are the carried l_t plus the engine's deltas. The
     chosen mini candidate is written into the full genome before the
@@ -442,34 +657,23 @@ def make_delta_mtm_step(table: SubFragTable, jump: JumpTable, f_max: int, sobs,
     dscore = _delta_mh_scorer(table, f_max, sobs, band_w, rep, obs_grid, mini_grid)
     score_set = _delta_score_set(dscore)
 
-    def step(state: GenomeState, rng, params, l_t, f_a, f_t):
+    def step(state: GenomeState, rng, params, l_t, f_a, f_t, inplace=False):
         rng = _draws(rng, jump)
         f_a = torch.as_tensor(f_a, device=state.pos.device)
-        nb_ids, nb_valid, ll_f, minis_f, rows_f, rvalid_f, over_f, discard_f = \
-            _delta_forward(state, f_a, jump, score_set, params, l_t)
-        w_f, max_f = _mtm_weights(ll_f.reshape(-1), discard_f.reshape(-1), f_t)
-        sw_f = w_f.sum()
-        omega = _categorical(w_f / sw_f.clamp_min(1e-30), rng.gumbel)
-        sel_nb = omega // N_CANDIDATES
-        g_star = _delta_commit_candidate(state, omega, minis_f, rows_f, rvalid_f)
-        ll_star = _take(ll_f.reshape(-1), omega)
-        f_star = _take(nb_ids, sel_nb)
+        nb_ids, nb_valid, discard_f, max_id, n_contigs = move_set(state, f_a, jump, f_a)
+        dll_f, minis_f, rows_f, rvalid_f, over_f = score_set(state, f_a, nb_ids, params, max_id)
+        fwd = forward_delta("mtm", dll_f, l_t, over_f, discard_f, f_t, rng.gumbel, nb_ids,
+                            minis_f, rows_f, rvalid_f, state, inplace)
 
         # ---- backward pass: pivot at f* from the committed genome ----
         if corrected:
-            bk_ids, bk_valid = _neighbour_set(g_star, f_star, jump)
+            bk_ids, _, discard_b, max_b, _ = move_set(fwd.g_star, fwd.f_star, jump, f_a)
         else:
-            bk_ids, bk_valid = nb_ids, nb_valid
-        dll_b, _, _, _, over_b = score_set(g_star, f_star, bk_ids, params)
-        discard_b = _impossibility_mask(g_star, f_a, bk_ids) | ~bk_valid[:, None] \
-            | over_b[:, None]
-        w_b, max_b = _mtm_weights((ll_star + dll_b).reshape(-1), discard_b.reshape(-1), f_t)
-        sw_b = w_b.sum()
-
-        ratio = torch.exp(max_f - max_b) * sw_f / sw_b.clamp_min(1e-30)
-        ok = (sw_f > 0) & ~_take(over_f, sel_nb) & (sw_b > 0)
-        accept = ok & (ratio.clamp_max(1.0) >= rng.u_acc)
-        return _commit(accept, g_star, state, ll_star, l_t)
+            bk_ids = nb_ids
+            _, _, discard_b, max_b, _ = move_set(fwd.g_star, None, jump, f_a, (nb_ids, nb_valid))
+        dll_b, _, _, _, over_b = score_set(fwd.g_star, fwd.f_star, bk_ids, params, max_b)
+        return accept_delta("mtm", dll_b, over_b, discard_b, fwd, l_t, f_t, rng.u_acc,
+                            corrected, n_contigs)[:4]
 
     return step
 
@@ -479,33 +683,24 @@ def make_delta_mh_step(table: SubFragTable, jump: JumpTable, f_max: int, sobs,
                        obs_grid=None, mini_grid=None, rep=None):
     """Plain Metropolis-Hastings with delta candidate scoring: the delta
     twin of :func:`make_mh_step`, with the arguments of
-    :func:`make_delta_mtm_step`. The backward pass pivots at fA."""
+    :func:`make_delta_mtm_step` and its step's ``inplace``. The backward
+    pass pivots at fA."""
     dscore = _delta_mh_scorer(table, f_max, sobs, band_w, rep, obs_grid, mini_grid)
     score_set = _delta_score_set(dscore)
 
-    def step(state: GenomeState, rng, params, l_t, f_a, f_t):
+    def step(state: GenomeState, rng, params, l_t, f_a, f_t, inplace=False):
         rng = _draws(rng, jump)
         f_a = torch.as_tensor(f_a, device=state.pos.device)
-        nb_ids, nb_valid, ll_f, minis_f, rows_f, rvalid_f, over_f, discard_f = \
-            _delta_forward(state, f_a, jump, score_set, params, l_t)
-        w, sw = _mh_probs(ll_f.reshape(-1), discard_f.reshape(-1), f_t)
-        p = w / sw.clamp_min(1e-30)
-        omega = _categorical(p, rng.gumbel)
-        sel_nb = omega // N_CANDIDATES
-        g_star = _delta_commit_candidate(state, omega, minis_f, rows_f, rvalid_f)
-        ll_star = _take(ll_f.reshape(-1), omega)
-        p_fwd = _take(p, omega)
+        nb_ids, nb_valid, discard_f, max_id, n_contigs = move_set(state, f_a, jump, f_a)
+        dll_f, minis_f, rows_f, rvalid_f, over_f = score_set(state, f_a, nb_ids, params, max_id)
+        fwd = forward_delta("mh", dll_f, l_t, over_f, discard_f, f_t, rng.gumbel, nb_ids,
+                            minis_f, rows_f, rvalid_f, state, inplace)
 
         # backward return probability, pivot fA
-        dll_b, _, _, _, over_b = score_set(g_star, f_a, nb_ids, params)
-        discard_b = _impossibility_mask(g_star, f_a, nb_ids) | ~nb_valid[:, None] \
-            | over_b[:, None]
-        p_bwd, swb = _mh_return_prob((ll_star + dll_b).reshape(-1), discard_b.reshape(-1),
-                                     l_t, f_t, clamp_sum=True)
-        ratio = _mh_ratio(ll_star, l_t, p_fwd, p_bwd, f_t, corrected)
-        ok = (sw > 0) & ~_take(over_f, sel_nb) & (swb > 0)
-        accept = ok & (ratio.clamp_max(1.0) >= rng.u_acc)
-        return _commit(accept, g_star, state, ll_star, l_t)
+        _, _, discard_b, max_b, _ = move_set(fwd.g_star, None, jump, f_a, (nb_ids, nb_valid))
+        dll_b, _, _, _, over_b = score_set(fwd.g_star, f_a, nb_ids, params, max_b)
+        return accept_delta("mh", dll_b, over_b, discard_b, fwd, l_t, f_t, rng.u_acc,
+                            corrected, n_contigs)[:4]
 
     return step
 
@@ -517,10 +712,11 @@ def make_delta_mtm_cycle(table: SubFragTable, jump: JumpTable, f_max: int, sobs,
     """A delta-scored MTM / MH cycle (a scan of steps, as
     :func:`make_mtm_cycle`'s), with its signature and outputs; no re-anchor
     (the caller anchors once per cycle). What a capture fixes, the bucket
-    ``f_max``, the jump table's delta, the engine, is fixed by this cycle."""
+    ``f_max``, the jump table's delta, the engine, is fixed by this cycle.
+    The steps write their proposals into the scan's carry in place."""
     if variant not in ("mtm", "mh"):
         raise ValueError(f"unknown variant {variant!r} (expected mtm or mh)")
     step = (make_delta_mtm_step if variant == "mtm" else make_delta_mh_step)(
         table, jump, f_max, sobs, band_w=band_w, corrected=corrected, obs_grid=obs_grid,
         mini_grid=mini_grid, rep=rep)
-    return _scan_cycle(step, jump, table.owner.device, capture)
+    return _scan_cycle(functools.partial(step, inplace=True), jump, table.owner.device, capture)

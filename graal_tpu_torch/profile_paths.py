@@ -48,8 +48,9 @@ Prints one JSON line per path and mode (``mode``: graph or eager):
   out, spread over the window's steps);
 - ``kernels``: the device-side rows summed by class, {class: [ms per
   step, calls per step]}: ``catalogue`` (C1 / C2, the candidate
-  catalogues), ``step`` (D1-D3: the nuisance move, the neighbour draw, the
-  selection and commit), ``scorers`` (B1-B4), ``gather`` (gathers, scatters and
+  catalogues), ``mtm`` (E1-E3: the MTM / MH step's neighbour set, draw
+  and acceptance), ``step`` (D1-D3: the nuisance move, the neighbour draw,
+  the selection and commit), ``scorers`` (B1-B4), ``gather`` (gathers, scatters and
   index kernels), ``elementwise`` (torch's elementwise kernels),
   ``reduce``, ``copy`` (memcpy, memset) and ``other``; a step's count of
   each is its calls per step;
@@ -249,6 +250,7 @@ def chains_runner(device, repeat: bool, capture: bool):
 
 # the classes of ``kernels``, matched in this order on the lower-cased name
 KERNEL_CLASSES = (("catalogue", ("catalogue",)),
+                  ("mtm", ("mtm_set_kernel", "mtm_draw_kernel", "mtm_accept_kernel")),
                   ("step", ("nuisance_propose_kernel", "nuisance_accept_kernel",
                             "neighbours_kernel", "select_commit_")),
                   ("scorers", ("ll_dense", "ll_mini", "ll_repeat", "obsgrid")),
