@@ -9,7 +9,8 @@ On a host with several cards, ``python3 chip_smoke.py --cards`` runs
 instead the across-cards checks (``phase_cards``): an NCCL world of one
 rank a card, and the CLI under ``torchrun`` against one process.
 ``python3 chip_smoke.py --top-tiers`` runs only the build, the 100k
-set-up and the phases of the top tiers (5, 8b, 11e, 11g, 11h, 5c).
+set-up and the phases of the top tiers (5, 8b, 11e, 11g, 11h, 5c), then
+the 20k repeat set-up and F1 / F2 at R = 8,192 (3f).
 
 Every sampler cycle (EM, delta EM, tempered, MTM / MH dense and delta)
 and every ScaleRunner cycle end runs as the entry points run it: a
@@ -126,6 +127,26 @@ written. "share" is the bound over the device time.
    kernel timed at each shape (device ms; the plain version's as graph
    replays) beside its bound. Phases 7h (graph == eager by key), 10a, 10e
    and 11h count two E1, one E2 and one E3 launch a step.
+3f. Copy-correction kernels F1 (the routing and frozen terms:
+   corr_frozen_kernel) and F2 (the per-genome sums and the delta:
+   corr_sums_kernel; csrc/repeat_corr.cu) against their plain version
+   (core/delta_repeats.py ``corrections_plain``) on CORR_DRAWS random
+   (f_a, neighbour) slots a shape, f_a half among repeat copies and
+   originals of duplicated bins, the neighbours as each path draws them
+   (D2's draw; E1's neighbour set for MH): the 20k repeat delta EM step
+   (m = 10), 4 chains (M = 40), 3 chains at bucket 4,096 (M = 30), the
+   20k repeat delta MH step (M = 7), the 12-dup exactness twin and the
+   20k problem with 2 to 12 copies a duplicated bin (c_max 12; the others
+   have 2) (``--top-tiers``: the truth at bucket 8,192). Each shape's line
+   gives its table's c_max. corr and cross within rtol CORR_RTOL (atol
+   CORR_ATOL), dll within max(DLL_ATOL, one f32 ulp): every f32 term is
+   the plain version's bit for bit (both fold a bin's copies left to
+   right), only the f64 sums' order differs. Each kernel timed at each shape (F1 and F2 alone from
+   one argument block, the pair through the wrapper; device ms; the plain
+   version's as graph replays) beside its bound, counted from the call's
+   records (``corr_bound``). Phases 7b, 7g / 7h (the repeat cycles), 8a,
+   11b and 9f's ``scale --allow-repeats`` count one F1 and one F2 launch
+   a scoring call; the repeat-free paths none.
 3. Dense kernel B1 (ll_dense) vs plain: the dense scorer kernel against its
    plain torch version on the same inputs, rtol 1e-4 (bench.py's
    standard), at the flagship K = 1,152 on 65-candidate batches built on
@@ -207,7 +228,8 @@ written. "share" is the bound over the device time.
    at a repeat copy, an original of a duplicated bin and a contig
    extremity, with the checks and times of phase 5 at R = 1,024.
 7b. Repeat delta main path on that problem: cycle_for(1024, 4) for 256
-   steps as in phase 7, with the drift bound max(2, 1e-5 |L|).
+   steps as in phase 7, with the drift bound max(2, 1e-5 |L|), and one F1
+   and one F2 launch a step.
 7g. Graph against eager: each main path's cycle built twice, captured
    (the default on the card) and with capture=False (the same step body
    run eagerly), run on the same inputs: the dense flagship (B1), 2 EM
@@ -248,7 +270,8 @@ written. "share" is the bound over the device time.
    4e-6 |L| of the cycle's re-anchor, the invariants, the second run
    identical; wall s/cycle and peak memory.
 8a. ScaleRunner.run with id_d on the 200-dup problem: 1 cycle of 256
-   extremity-first steps, the same checks.
+   extremity-first steps, the same checks, and one F1 and one F2 launch a
+   step of every cycle chunk (retries included).
 9. The CLI on a dataset directory, in this process through
    ``graal_tpu_torch.cli`` (a temporary directory, removed at the end):
    ``simulate`` 3,456 level-0 fragments on 16 contigs, ``pyramid --size 3``
@@ -284,7 +307,11 @@ written. "share" is the bound over the device time.
    B3, 1 + 2 x steps launches a stage (each MTM pass one launch at B = 91),
    each stage's carried likelihood equal to B3's rescoring bit for bit, the
    invariants and outputs; then B3 against its plain version as in 9a and
-   on an MTM pass's candidates, with the first repeat copy as fA.
+   on an MTM pass's candidates, with the first repeat copy as fA. Then
+   ``scale --allow-repeats`` on the same dataset at level 2, 1 cycle of
+   256 extremity-first steps: the repeat delta engine (its table's c_max
+   printed), one F1 and one F2 launch a step (every cycle chunk's steps
+   counted), a finite likelihood, the invariants and outputs.
 10a. ``run --sampler em,mtm,mh`` at level 2, 1 cycle a stage: B1 launches
    1 + 2 x steps a stage (EM at B = 65 and 1, every MTM / MH pass one
    launch at B = 91 = 7 neighbour slots x 13), after each stage the carried
@@ -338,7 +365,8 @@ written. "share" is the bound over the device time.
 11b. The same on the 20k repeat twin, 3 chains (M = 30): the chains steps
    held to single-chain steps, 10 chains steps each re-anchored
    (``bad_steps: 0``), and ``run_chains`` for 128 steps with the drift
-   bound max(2, 1e-5 |L|).
+   bound max(2, 1e-5 |L|), one F1 and one F2 launch a step for all
+   chains.
 11c. ``scale --chains 4 --t-max 4`` at level 1, 2 cycles of 128 steps a
    chain: one B2 and one B4 launch a step, the outputs; ``--cycles 1``
    then ``--cycles 2 --resume`` equals the uninterrupted run (final genome,
@@ -408,7 +436,14 @@ written. "share" is the bound over the device time.
    kernel: XLA fuses them in the jitted step) at the dense flagship MTM
    shape, with phase 3e's other shapes under "by_shape" and each main
    path's launches under "by_path" (7h's graphed cycles and run_mtm, 10a,
-   10e). Before them, a JSON line of phase 5c's routes. (``--top-tiers``
+   10e). F1 (repeat_corr_frozen) and F2 (repeat_corr_sums) mirror
+   graal_tpu/core/delta_repeats.py:590 and :748 (no Pallas kernel: XLA
+   fuses them in the jitted step) at the 20k repeat delta EM step's shape
+   (M = 10, R = 1,024), with phase 3f's other shapes under "by_shape" and
+   each repeat path's launches under "by_path" (7b, the graphed 20k
+   repeat delta and delta MH cycles of 7g / 7h, 8a, 11b's run_chains,
+   9f's scale), summed into the top-level count. Before them, a JSON line
+   of phase 5c's routes. (``--top-tiers``
    adds D3's delta entry on 4 chains at 16,384, M = 20, and E1-E3 at the
    16,384 bucket to its line.)
 """
@@ -487,6 +522,15 @@ MOVE_TIME_ITERS = 200
 MOVE_ULPS = 4               # the draw's and the acceptance's margin
 MOVE_PATHS = {}             # each main path's E1-E3 launches by key (the kernels line)
 MOVE_SHAPES = {}            # phase 3e's shapes, 10a's level-1 one and --top-tiers' 16,384 one
+MANY_COPIES = 12            # 3f: most copies of a bin in the many-copy shape (2 to 12)
+CORR_DRAWS = 2000           # random (f_a, neighbour) slots a shape F1 / F2 are held to plain on
+# F1 / F2 vs plain: corr and cross are f64 sums of the same f32 terms in
+# another order (rtol), dll their f32 rounding (DLL_ATOL or one ulp)
+CORR_RTOL, CORR_ATOL = 1e-12, 1e-9
+CORR_TIME_ITERS = 200
+N_GEN_ROWS = 14             # genomes a neighbour slot (base + 13 candidates)
+CORR_PATHS = {}             # each repeat path's F1 / F2 launches by key (the kernels line)
+CORR_SHAPES = {}            # phase 3f's shapes and --top-tiers' R = 8,192 one
 CLI_CHAIN_STEPS = 128       # scale --chains steps a chain a cycle (11c)
 SMALL_BINS = 576            # 11c's run --profile dataset (level 2 ~60 bins)
 CLI_WATCH_STEPS = 64        # the same with --watch --profile: a traced cycle is slow
@@ -1871,7 +1915,7 @@ def scale_main_run(sc):
     l0 = runner.anchor_fn()(shuf, params)
     torch.cuda.synchronize()
     runner.obs_grid.n_launches = runner.mini_grid.n_launches = 0
-    catalogue_wrapper().n_launches = step_wrapper().n_launches = 0
+    catalogue_wrapper().n_launches = step_wrapper().n_launches = corr_wrapper().n_launches = 0
     t0 = time.perf_counter()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -1882,7 +1926,8 @@ def scale_main_run(sc):
     seconds = time.perf_counter() - t0
     return dict(cur=cur, l0=l0, l_t=l_t, out=out, seconds=seconds,
                 launches=(runner.mini_grid.n_launches, runner.obs_grid.n_launches),
-                catalogue=dict(catalogue_wrapper().launches.by_key()), step=step_launches())
+                catalogue=dict(catalogue_wrapper().launches.by_key()), step=step_launches(),
+                corr=corr_launches())
 
 
 def phase_scale_main(sc, label="delta main path"):
@@ -1909,6 +1954,10 @@ def phase_scale_main(sc, label="delta main path"):
     check(r["catalogue"] == {"em": MAIN_STEPS}, f"C1 launches {r['catalogue']}")
     CATALOGUE_PATHS[label.replace(" ", "_")] = r["catalogue"]
     want_step_launches(label, r["step"], MAIN_STEPS, delta=True)
+    if sc["table"].has_repeats:
+        want_corr_launches("repeat_delta_main", r["corr"], MAIN_STEPS)
+    else:
+        check(r["corr"] == {}, f"{label}: a repeat-free path launched F1 / F2: {r['corr']}")
     per_step = n_slots(sc["runner"].nb, DELTA)
     ms = r["seconds"] * 1e3 / MAIN_STEPS
     print(f"  {ms:.4f} ms/step, {per_step * MAIN_STEPS / r['seconds']:.1f} candidate "
@@ -1934,6 +1983,9 @@ def phase_runner(sc, n_cycles=1, steps=512):
     runner = ScaleRunner(sc["table"], sc["sobs"], sc["params"], nb=sc["runner"].nb,
                          **sc["runner_kw"])
     l0 = runner.anchor_fn()(sc["shuf"], sc["params"]).item()
+    counted = count_cycles(runner)
+    torch.cuda.synchronize()
+    corr_wrapper().n_launches = 0
     t0 = time.perf_counter()
     final, params, m = runner.run(sc["shuf"], n_cycles=n_cycles, steps_per_cycle=steps,
                                   order_mode="extremity", f_max_min=256, sample_param=True,
@@ -1951,6 +2003,10 @@ def phase_runner(sc, n_cycles=1, steps=512):
     check(runner.mini_grid.n_launches > 0 and runner.obs_grid.n_launches > 0,
           "the runner launched no delta kernel")
     check(all(abs(x) < float("inf") for x in m["likelihood"]), "non-finite likelihood")
+    if sc["table"].has_repeats:       # one scoring call a step, retries included
+        want_corr_launches("repeat_runner", corr_launches(), counted["steps"])
+    else:
+        check(corr_launches() == {}, "a repeat-free runner launched F1 / F2")
     del final, params
 
 
@@ -1976,15 +2032,14 @@ def banded_calls():
 
 
 def count_cycles(runner):
-    """Wrap ``runner.cycle_for`` so that every cycle chunk it hands out
+    """Wrap ``runner.cycle_for`` (a runner's, or the ScaleRunner class's
+    for the runners made after) so that every cycle chunk it hands out
     counts its steps and tiers and keeps the carried likelihood it
     returned: the record it returns (steps, tiers, l_t)."""
     rec = dict(steps=0, tiers=set(), l_t=None)
     inner = runner.cycle_for
 
-    def cycle_for(f_max, delta_, rep=None):
-        cyc = inner(f_max, delta_, rep)
-
+    def counting(cyc, f_max):
         def counted(state, rng, params, order, l_t, f_t):
             out = cyc(state, rng, params, order, l_t, f_t)
             rec["steps"] += order.shape[-1]
@@ -1993,6 +2048,13 @@ def count_cycles(runner):
             return out
 
         return counted
+
+    if isinstance(runner, type):
+        def cycle_for(self, f_max, delta_, rep=None):
+            return counting(inner(self, f_max, delta_, rep), f_max)
+    else:
+        def cycle_for(f_max, delta_, rep=None):
+            return counting(inner(f_max, delta_, rep), f_max)
 
     runner.cycle_for = cycle_for
     return rec
@@ -2321,7 +2383,43 @@ def phase_cli_repeats(ds, root):
     err = dense_path_vs_plain("cli run --allow-repeats", runner, asm, runner.n_bins)
     err_mtm, _ = mtm_pass_vs_plain("cli run --allow-repeats, MTM pass", runner, asm,
                                    runner.n_bins)
-    return dict(launches=launches, max_abs_err=max(err, err_mtm), stages=stages)
+    return dict(launches=launches, max_abs_err=max(err, err_mtm), stages=stages,
+                scale=cli_scale_repeats(dsr, root))
+
+
+def cli_scale_repeats(dsr, root, steps=256):
+    """9f's dataset through ``scale --allow-repeats`` at level 2: the repeat
+    table goes to the repeat delta engine, whose copy corrections launch
+    F1 / F2 once a scoring call (every cycle chunk's steps counted, retries
+    included); a finite likelihood, the invariants and outputs."""
+    import math
+
+    from graal_tpu_torch.core.state import check_invariants
+    from graal_tpu_torch.scale import ScaleRunner
+
+    print(f"cli scale --allow-repeats: level 2, 1 cycle of {steps} extremity-first steps")
+    o7 = os.path.join(root, "o7")
+    corr_wrapper().n_launches = 0
+    inner = ScaleRunner.cycle_for
+    counted = count_cycles(ScaleRunner)
+    try:
+        runner, final, m = cli(["scale", dsr, "--size", "3", "--level", "2", "--cycles", "1",
+                                "--steps-per-cycle", str(steps), "--order", "extremity",
+                                "--f-max-min", "64", "--allow-repeats", "--fasta",
+                                os.path.join(dsr, "genome.fa"), "--out", o7])
+    finally:
+        ScaleRunner.cycle_for = inner
+    got = corr_launches()
+    c_max = int(runner.table.data_id.bincount().amax())
+    print(f"  {final.n_frags} fragments over {runner.table.n_data_sub} data subs, repeat table "
+          f"{runner.table.has_repeats} (c_max {c_max}); final_loglik {m['likelihood'][-1]:.3f}, "
+          f"tiers {m['tiers']}")
+    check(runner.table.has_repeats, "scale --allow-repeats found no repeat")
+    want_corr_launches("cli_scale_repeats", got, counted["steps"])
+    check(math.isfinite(m["likelihood"][-1]), f"final_loglik {m['likelihood'][-1]}")
+    check(check_invariants(final, raise_on_error=False) == [], "final state invariants")
+    check_outputs(o7, ["0list_likelihood.txt", "genome.fasta", "checkpoint.npz"])
+    return dict(launches=got, steps=counted["steps"], cycle_s=m["cycle_s"][-1])
 
 
 def amplify_fragment(pairs, frag, extra):
@@ -2983,6 +3081,7 @@ def chains_main(label, runner, state0, n_chains, steps, f_max_min, drift_bound,
     l0 = runner.anchor_fn()(state0, runner.params).item()
     torch.cuda.synchronize()
     runner.mini_grid.n_launches = runner.obs_grid.n_launches = 0
+    corr_wrapper().n_launches = 0
     t0 = time.perf_counter()
     final, best, m = runner.run_chains(state0, n_chains=n_chains, n_cycles=1,
                                        steps_per_cycle=steps, f_max_min=f_max_min, t_max=4.0,
@@ -3003,6 +3102,10 @@ def chains_main(label, runner, state0, n_chains, steps, f_max_min, drift_bound,
           f"{rel} |L|)); {seconds:.2f} s, cycle {m['cycle_s'][-1]:.3f} s "
           f"({m['cycle_s'][-1] * 1e3 / steps:.3f} ms/step for all chains)")
     check(launches == (steps, steps), f"{label}: launches {launches} != one each a step")
+    if runner.table.has_repeats:      # every chain's corrections in one pair a step
+        want_corr_launches("run_chains_repeat_20k", corr_launches(), steps)
+    else:
+        check(corr_launches() == {}, f"{label}: a repeat-free path launched F1 / F2")
     check(bad == 0, f"{label}: {bad} chains' carried likelihood drifted beyond the bound")
     check(best > l0 or not must_rise, f"{label}: best likelihood {best} did not rise above {l0}")
     for c in range(n_chains):
@@ -3647,7 +3750,7 @@ def delta_graph_case(sc, chains=0, f_max=F_MAX, steps=(MAIN_STEPS, 128), start=N
                                          obs_grid=grid, mini_grid=mini, rep=rep,
                                          capture=capture)
 
-    return build, chunks, [mini, grid, step_wrapper(), catalogue_wrapper()]
+    return build, chunks, repeat_kernels(sc) + [mini, grid, step_wrapper(), catalogue_wrapper()]
 
 
 def catalogue_wrapper():
@@ -3655,6 +3758,23 @@ def catalogue_wrapper():
     from graal_tpu_torch.ops.candidates_cuda import CATALOGUE
 
     return CATALOGUE
+
+
+def repeat_kernels(sc):
+    """The copy-correction wrapper (F1 / F2) on a repeat problem's paths,
+    first in a graph case's kernels; none on a repeat-free one."""
+    return [corr_wrapper()] if sc["table"].has_repeats else []
+
+
+def corr_paths(records, want_calls):
+    """Keep each graphed repeat path's F1 / F2 launches (the graph run's,
+    equal to the eager run's) for the kernels line, each one pair a scoring
+    call (``want_calls[name]``)."""
+    for name, calls in want_calls.items():
+        got = records[name]["graph"]["by_key"][0]
+        check(got == {"frozen": calls, "sums": calls},
+              f"{name}: F1 / F2 launches {got} != one pair a scoring call ({calls})")
+        CORR_PATHS[f"graph_{name}"] = got
 
 
 def catalogue_paths(records):
@@ -5139,6 +5259,324 @@ def phase_move_top(sc):
                                       state=sc["truth"]), gen)
 
 
+def corr_wrapper():
+    """The copy-correction kernels' wrapper (F1 and F2, launches keyed
+    "frozen" / "sums")."""
+    from graal_tpu_torch.ops.repeat_corr_cuda import CORR
+
+    return CORR
+
+
+def corr_launches():
+    return dict(corr_wrapper().launches.by_key())
+
+
+def want_corr_launches(path, got, calls):
+    """One F1 and one F2 launch a scoring call of a repeat path (``calls``
+    of them); the count goes to the kernels line under ``path``."""
+    want = {"frozen": calls, "sums": calls}
+    print(f"  copy-correction launches: {got} (one F1 + F2 pair a scoring call: {calls})")
+    check(got == want, f"{path}: F1 / F2 launches {got} != {want}")
+    CORR_PATHS[path] = got
+
+
+def corr_case(label, sc, f_max, chains=0, mh=False, state=None):
+    """A shape of phase 3f: the repeat engine v2 of ``sc`` at bucket
+    ``f_max`` as its path builds it (the EM catalogue, or the MH one with
+    E1's neighbour set from the runner's jump table), on ``chains`` chains
+    from distinct shuffles with their own parameters, or on one genome (the
+    shuffled start, or ``state``). ``draw(gen)`` draws a scoring call's
+    (f_a (C,), neighbours (C, m)): f_a half among repeat copies and
+    originals of duplicated bins, the neighbours as the path draws them."""
+    import torch
+    from graal_tpu_torch.core import delta_repeats, mcmc, mtm
+    from graal_tpu_torch.core.state import GenomeState
+
+    runner = sc["runner"]
+    st = sc["shuf"] if state is None else state
+    device = st.pos.device
+    if chains:
+        states, params = chain_starts(sc, chains), chain_params(sc["params"], chains)
+    else:
+        states, params = GenomeState(*[x[None] for x in st]), sc["params"]
+    engine = delta_repeats.make_repeat_delta_scorer_v2(
+        sc["table"], f_max, sc["sobs"], st.rep, catalogue=mtm.mh_candidates if mh else None)
+    rep = torch.nonzero(st.rep == 1).reshape(-1)
+    every = torch.arange(st.n_frags, device=device)
+    pivots = torch.cat([rep.repeat(max(1, st.n_frags // len(rep))), every])
+    jump = runner.jump_table(MTM_DELTA, st.n_frags) if mh else None
+    c = states.pos.shape[0]
+
+    def draw(gen):
+        f_a = pivots[torch.randint(len(pivots), (c,), generator=gen, device=device)]
+        if mh:
+            ids = mtm.move_set(GenomeState(*[x[0] for x in states]), f_a[0], jump, f_a[0])[0]
+            return f_a, ids[None]
+        u = mcmc.draw_step_inputs(gen, runner.nb, DELTA, (c,)).u_nb
+        return f_a, mcmc.sample_neighbours(u, f_a, states, runner.nb, DELTA)[0].long()
+
+    return dict(label=label, engine=engine, states=states, params=params, draw=draw,
+                f_max=engine.f_max, chains=c, mh=mh)
+
+
+def corr_args(case, f_a, ids):
+    """A scoring call's arguments of F1 / F2 (and of the plain version), as
+    the engine's ``score`` builds them: (state, f_a, rows, valid, geo,
+    accu_sub, pvec, dll1), B2's deltas from the engine's own B2."""
+    from graal_tpu_torch.core.delta import extract_rows_each
+
+    engine, states = case["engine"], case["states"]
+    p = engine.plain
+    rows, valid, _ = extract_rows_each(states, f_a, ids, engine.f_max)
+    _, geo, ob, accu_sub, pvec = p.inputs(states, f_a, ids, rows, valid, case["params"],
+                                          states.id_c.amax(-1))
+    _, dll1 = p.mini_grid(*p.mini_grid_args(geo, ob, accu_sub, pvec))
+    return states, f_a, rows, valid, geo, accu_sub, pvec, dll1
+
+
+def check_corr_kernels(case, gen, n_draws=CORR_DRAWS):
+    """F1 / F2 against the plain version on ~``n_draws`` random (f_a,
+    neighbour) slots of one shape: corr and cross within rtol CORR_RTOL
+    (atol CORR_ATOL), dll within max(DLL_ATOL, one f32 ulp); the largest
+    differences kept on the card and read once. Returns (stats, the last
+    call's arguments)."""
+    import torch
+
+    engine = case["engine"]
+    corr = corr_wrapper()
+    zero = torch.zeros((), dtype=torch.float64, device=case["states"].pos.device)
+    worst = dict(corr_rel=zero.clone(), cross_rel=zero.clone(), dll_abs=zero.clone(),
+                 dll_ulps=zero.clone())
+    bad = torch.zeros((), dtype=torch.int64, device=zero.device)
+    n_calls = 0
+    slots = 0
+    while slots < n_draws:
+        args = corr_args(case, *case["draw"](gen))
+        got = corr.corrections(engine.corr_tables, *args)
+        want = engine.corrections_plain(*args)
+        for name, k, p in (("corr_rel", got[0], want[0]), ("cross_rel", got[1], want[1])):
+            diff = (k - p).abs()
+            worst[name] = torch.maximum(worst[name],
+                                        (diff / p.abs().clamp_min(1e-300)).amax())
+            bad += (diff > CORR_RTOL * p.abs() + CORR_ATOL).sum()
+        d = (got[2].double() - want[2].double()).abs()
+        ulp = (torch.nextafter(want[2].abs(), torch.tensor(float("inf"), device=d.device))
+               - want[2].abs()).double()
+        worst["dll_abs"] = torch.maximum(worst["dll_abs"], d.amax())
+        worst["dll_ulps"] = torch.maximum(worst["dll_ulps"], (d / ulp).amax())
+        bad += (d > torch.clamp_min(ulp, DLL_ATOL)).sum()
+        bad += (~torch.isfinite(got[2])).sum() + (~torch.isfinite(got[0])).sum()
+        n_calls += 1
+        slots += args[2].shape[0] * args[2].shape[1]
+    stats = {k: v.item() for k, v in worst.items()}
+    stats.update(calls=n_calls, slots=slots, beyond_tolerance=int(bad))
+    return stats, args
+
+
+def corr_bound(case, args, scratch):
+    """The least time of F1 and of F2 on one call (:func:`bound`), counting
+    what this call's data needs: F1 reads each slot's rows, the table
+    entries of its D rows, the mixed windows and data-grid rows it routes
+    and the frozen state of the copy rows it reads (and, once a chain, the
+    K copy rows' activity and accu), writes its records, and evaluates the
+    frozen copy pairs of the multi-multi entries and of part 4; F2 reads
+    every row's activity and accu, the rest of the geometry at the rows
+    the records name, F1's records and their observed entries, writes
+    corr, cross and dll, and evaluates 14 genomes' in-D copy pairs and log
+    terms. A copy pair is 20 FP32 and 2 special-function
+    operations (a log and an exp), a log term 3 FP32 and 1; an f64
+    operation counts as two FP32 ones."""
+    import torch
+
+    t = case["engine"].corr_tables
+    states, f_a, rows, valid, geo, accu_sub, pvec, dll1 = args
+    big_m, r = geo.mid.shape[0], geo.mid.shape[2]
+    c = t.c_max
+    n_rec = scratch["n_rec"].long()
+    filled = torch.arange(scratch["mx_rec"].shape[1], device=n_rec.device) < n_rec[:, :1]
+    n_mx = int(n_rec[:, 0].sum())
+    mx_pairs = int(((scratch["mx_rec"][..., 2:] >= 0) & filled[..., None]).sum())
+    mx_frozen = int(((scratch["mx_rec"][..., 2:] < 0) & filled[..., None]).sum())
+    dd = scratch["dd_mini"]
+    dd_in_pairs = int(((dd[:, :, 0] >= 0).sum(-1) * (dd[:, :, 1] >= 0).sum(-1)).sum())
+    dd_out_pairs = int(((t.ddu_ok & (dd[:, :, 0] < 0)).sum(-1)
+                        * (t.ddv_ok & (dd[:, :, 1] < 0)).sum(-1)).sum()) if dd.numel() else 0
+    n_p4 = int((scratch["p4_ent"] >= 0).sum())
+    p4_pairs = n_p4 * c
+    n_sb = int(n_rec[:, 1].sum())
+    ndd = t.dd_ob.shape[0]
+    # the scratch F1 writes and F2 reads: the records in use, not their room
+    scratch_bytes = (big_m * 8 + n_mx * ((2 + c) * 4 + 4) + n_sb * 8 + big_m * r * 4
+                     + big_m * ndd * (12 + 8 * c) + big_m * t.s_max * (t.capd * 12 + c * 4)
+                     + states.pos.shape[0] * 8)
+    frozen_rows = mx_frozen + big_m * r * c + dd_out_pairs + p4_pairs
+    f1_bytes = (rows.numel() * 9 + big_m * r * (4 * 5 + 1 + 4 * c) + n_mx * (4 + 8 + 4 * c)
+                + big_m * t.s_max * t.capd * 12 + frozen_rows * 6 * 4
+                + states.pos.shape[0] * t.owner.shape[0] * 12 + scratch_bytes)
+    f1_fp32 = (dd_out_pairs + p4_pairs) * 20 + states.pos.shape[0] * t.owner.shape[0] * 2
+    f1_sfu = (dd_out_pairs + p4_pairs) * 2
+    # F2 reads every row's activity and accu (the cross term) and the rest
+    # of the geometry (mid, idc, circ, stot: 16 bytes a genome) at the rows
+    # its records name
+    named = torch.zeros((big_m, r), dtype=torch.bool, device=n_rec.device)
+    slot_ix = torch.arange(big_m, device=n_rec.device)[:, None]
+    rec = scratch["mx_rec"]
+    for col in range(rec.shape[-1]):
+        if col != 1:
+            named[slot_ix, torch.where(filled, rec[..., col], -1).clamp_min(0)] |= \
+                filled & (rec[..., col] >= 0)
+    pairs_sb = torch.arange(scratch["sb_pair"].shape[1], device=n_rec.device) < n_rec[:, 1:]
+    for col in range(2):
+        named[slot_ix, scratch["sb_pair"][..., col].clamp(0, r - 1)] |= pairs_sb
+    dd_rows = dd.reshape(big_m, -1)
+    named[slot_ix, dd_rows.clamp_min(0)] |= dd_rows >= 0
+    geo_bytes = big_m * N_GEN_ROWS * r + accu_sub.numel() * 4 \
+        + int(named.sum()) * N_GEN_ROWS * 16
+    f2_bytes = (geo_bytes + scratch_bytes + (n_mx + n_p4 + big_m * ndd) * 8
+                + dll1.numel() * 4 + pvec.numel() * 4 + big_m * (14 * 8 + 13 * 8 + 13 * 4))
+    pairs = 14 * (mx_pairs + dd_in_pairs + n_sb)
+    terms = 14 * (n_mx + big_m * ndd + n_p4)
+    f2_fp32 = pairs * 20 + terms * 3 + 2 * (terms + pairs) + 2 * 2 * 13 * big_m * r
+    f2_sfu = pairs * 2 + terms
+    counts = dict(mixed_records=n_mx, mixed_pairs=mx_pairs, dd_in_pairs=dd_in_pairs,
+                  dd_frozen_pairs=dd_out_pairs, part4_records=n_p4, same_bin_pairs=n_sb)
+    return (bound(f1_bytes, f1_fp32, f1_sfu), bound(f2_bytes, f2_fp32, f2_sfu), counts)
+
+
+def time_corr_kernels(case, args):
+    """F1 alone, F2 alone (each launched from one argument block, outside
+    the wrapper's count) and the pair through the wrapper, event ms as
+    called and device ms; the plain version's ms as called and on the
+    device (as graph replays); each kernel's bound."""
+    import ctypes
+
+    import torch
+    from graal_tpu_torch.ops import repeat_corr_cuda as rc
+
+    engine = case["engine"]
+    lib = rc.load_library()
+    a, keep, _ = rc.call_args(engine.corr_tables, *args)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def f1():
+        check(lib.repeat_corr_frozen(ctypes.byref(a), stream) == 0, "F1 launch failed")
+
+    def f2():
+        check(lib.repeat_corr_sums(ctypes.byref(a), stream) == 0, "F2 launch failed")
+
+    f1()
+    f2()
+    torch.cuda.synchronize()
+    b1, b2, counts = corr_bound(case, args, keep[-1])
+    plain = functools.partial(engine.corrections_plain, *args)
+    plain_ms = cuda_ms(plain, 5, n_warm=1)
+    plain_dev = graph_device_ms(plain, 20)
+    out = {}
+    for name, fn, b in (("frozen", f1, b1), ("sums", f2, b2)):
+        t = timed(fn, CORR_TIME_ITERS)
+        t.update(plain_ms=plain_ms, plain_device_ms=plain_dev)
+        out[name] = with_share(t, b)
+    pair = timed(lambda: corr_wrapper().corrections(engine.corr_tables, *args), CORR_TIME_ITERS)
+    del keep
+    return out, pair, counts
+
+
+def corr_shape(case, gen, n_draws=CORR_DRAWS):
+    """Phase 3f's check and timing of one shape; the record (kept in
+    CORR_SHAPES under the shape's label) and its printed summary."""
+    stats, args = check_corr_kernels(case, gen, n_draws)
+    times, pair, counts = time_corr_kernels(case, args)
+    big_m, r = args[4].mid.shape[0], args[4].mid.shape[2]
+    c_max = case["engine"].corr_tables.c_max
+    print(f"  {case['label']}: M = {big_m} ({case['chains']} chain(s)), R = {r}, c_max {c_max}, "
+          f"{stats['calls']} "
+          f"calls, {stats['slots']} slots; corr rel {stats['corr_rel']:.3g}, cross rel "
+          f"{stats['cross_rel']:.3g}, dll {stats['dll_abs']:.3g} ({stats['dll_ulps']:.2f} "
+          f"ulps), beyond tolerance {stats['beyond_tolerance']}; last call {json.dumps(counts)}")
+    for k, (name, rec) in enumerate(times.items()):
+        print(f"    F{k + 1} {name}: {rec['device_ms']:.4f} device ms ({rec['ms']:.4f} as called); "
+              f"{fmt_bound(rec)}")
+    print(f"    pair through the wrapper {pair['device_ms']:.4f} device ms ({pair['ms']:.4f} as "
+          f"called); plain {times['sums']['plain_device_ms']:.4f} device ms as graph replays "
+          f"({times['sums']['plain_ms']:.4f} as called)")
+    check(stats["beyond_tolerance"] == 0,
+          f"{case['label']}: {stats['beyond_tolerance']} values of F1 / F2 beyond tolerance")
+    rec = dict(stats=stats, kernels=times, pair=pair, counts=counts, M=big_m, R=r, c_max=c_max,
+               chains=case["chains"], mh=case["mh"])
+    CORR_SHAPES[case["label"]] = rec
+    return rec
+
+
+def phase_corr_kernels(device, rsc):
+    """3f. The copy-correction kernels F1 (routing and frozen terms) and F2
+    (the per-genome sums and the delta) against their plain version on
+    CORR_DRAWS random (f_a, neighbour) slots at every repeat path's shape:
+    the 20k repeat delta EM step (m = 10), 4 chains (M = 40), 3 chains at
+    bucket 4,096 (M = 30), the 20k repeat delta MH step (M = 7), the
+    12-dup exactness twin and the 20k problem with 2 to 12 copies a
+    duplicated bin (MANY_COPIES); each timed against the plain version."""
+    import torch
+    from graal_tpu_torch.entry import scale_repeat_problem
+    from graal_tpu_torch.scale import ScaleRunner
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 60)
+    print(f"copy-correction kernels F1 (frozen), F2 (sums) vs plain, ~{CORR_DRAWS} slots a "
+          f"shape: corr / cross rtol {CORR_RTOL} (atol {CORR_ATOL}), dll max({DLL_ATOL}, 1 ulp)")
+    truth, shuf, table, params, sobs, id_d = scale_repeat_problem(EXACT_BINS, EXACT_REPEAT_DUPS,
+                                                                  device=device)
+    twin = dict(truth=truth, shuf=shuf, table=table, params=params, sobs=sobs,
+                runner=ScaleRunner(table, sobs, params, id_d=id_d))
+    extra = [k % (MANY_COPIES - 1) + 1 for k in range(REPEAT_DUPS)]
+    truth, shuf, table, params, sobs, id_d = scale_repeat_problem(
+        EXACT_BINS, REPEAT_DUPS, copies=extra, device=device)
+    many = dict(truth=truth, shuf=shuf, table=table, params=params, sobs=sobs,
+                runner=ScaleRunner(table, sobs, params, id_d=id_d))
+    cases = [corr_case("repeat_20k_em", rsc, F_MAX),
+             corr_case("repeat_20k_em_4_chains", rsc, F_MAX, chains=CHAINS),
+             corr_case("repeat_20k_em_3_chains_4096", rsc, TOP_F_MAX, chains=3),
+             corr_case("repeat_20k_mh", rsc, F_MAX, mh=True),
+             corr_case("repeat_12dup_em", twin, F_MAX),
+             corr_case(f"repeat_20k_em_{MANY_COPIES}_copies", many, F_MAX)]
+    return {case["label"]: corr_shape(case, gen) for case in cases}
+
+
+def phase_corr_top(rsc):
+    """(``--top-tiers``) F1 / F2 at R = 8,192: the 20k repeat truth (contigs
+    of ~5,000 fragments) at bucket 8,192, one genome, m = 10."""
+    import torch
+
+    gen = torch.Generator(device=rsc["truth"].pos.device).manual_seed(SEED + 61)
+    return corr_shape(corr_case(f"repeat_20k_em_{TOP_TIERS[0]}", rsc, TOP_TIERS[0],
+                                state=rsc["truth"]), gen)
+
+
+def corr_records():
+    """The kernels line's entries of F1 (repeat_corr_frozen) and F2
+    (repeat_corr_sums): the 20k repeat delta EM step's numbers, phase 3f's
+    other shapes under "by_shape", and under "by_path" each repeat path's
+    launches counted on the card (7b, 7g / 7h's repeat cycles, 8a, 11b,
+    the CLI's repeat scale), whose sum is the top-level count;
+    "max_abs_err" the largest dll difference from the plain version over
+    every shape, "rel_err" each shape's corr / cross relative errors."""
+    out = []
+    flagship = CORR_SHAPES["repeat_20k_em"]
+    err = max(r["stats"]["dll_abs"] for r in CORR_SHAPES.values())
+    rel = {label: {k: r["stats"][k] for k in ("corr_rel", "cross_rel", "dll_ulps")}
+           for label, r in CORR_SHAPES.items()}
+    for kind, name, line in (("frozen", "repeat_corr_frozen", 590),
+                             ("sums", "repeat_corr_sums", 748)):
+        paths = {path: by_key[kind] for path, by_key in CORR_PATHS.items() if by_key.get(kind)}
+        check(paths, f"no main path launched the {name} kernel")
+        out.append(kernel_record(name, "repeat_corr.cu", f"graal_tpu/core/delta_repeats.py:{line}",
+                                 sum(paths.values()), dict(
+                                     flagship["kernels"][kind], max_abs_err=err, by_path=paths,
+                                     by_shape={label: r["kernels"][kind]
+                                               for label, r in CORR_SHAPES.items()
+                                               if label != "repeat_20k_em"},
+                                     rel_err=rel)))
+    return out
+
+
 def phase_graphs(device, sc, rsc):
     """7g. Each main path's cycle as a captured graph against the same
     cycle run eagerly (capture=False), on the same inputs: the dense
@@ -5166,6 +5604,7 @@ def phase_graphs(device, sc, rsc):
         want_step_launches(f"graph {name}", out[name]["graph"]["by_key"][-2], steps,
                            nuisance=name == "dense_flagship", delta=name != "dense_flagship")
     catalogue_paths(out)
+    corr_paths(out, {"repeat_delta_20k": MAIN_STEPS + 128})
     return out
 
 
@@ -5288,8 +5727,8 @@ def delta_mtm_graph_case(sc, variant):
                                     band_w=runner.w, obs_grid=grid, mini_grid=mini,
                                     rep=start.rep, capture=capture)
 
-    return build, move_chunks(start, params, l0, jump, gen), [mini, grid, catalogue_wrapper(),
-                                                               move_wrapper()]
+    return build, move_chunks(start, params, l0, jump, gen), repeat_kernels(sc) + [
+        mini, grid, catalogue_wrapper(), move_wrapper()]
 
 
 def cycle_end_graph_case(sc, n_cycles=4):
@@ -5398,10 +5837,13 @@ def phase_graphs_samplers(device, sc, rsc):
     out["delta_mh_repeat_20k"] = graph_vs_eager(
         f"20k repeat delta MH (B4 + B2, M = 7), f_max {F_MAX}",
         *delta_mtm_graph_case(rsc, "mh"), sync_error=True)
-    for name in ("delta_mtm_100k", "delta_mh_repeat_20k"):
-        launched(out[name], [{"None": 2 * steps}] * 2 + [{"mh": 2 * steps}, move_want], name)
-        MOVE_PATHS[f"graph_{name}"] = out[name]["graph"]["by_key"][3]
+    corr_want = [{"frozen": 2 * steps, "sums": 2 * steps}]   # two scoring calls a step
+    for name, corr in (("delta_mtm_100k", []), ("delta_mh_repeat_20k", corr_want)):
+        launched(out[name], corr + [{"None": 2 * steps}] * 2 + [{"mh": 2 * steps}, move_want],
+                 name)
+        MOVE_PATHS[f"graph_{name}"] = out[name]["graph"]["by_key"][-1]
     catalogue_paths(out)
+    corr_paths(out, {"delta_mh_repeat_20k": 2 * steps})
     out["cycle_end_100k"] = graph_vs_eager(
         "100k ScaleRunner.run cycle end (re-anchor + nuisance step)",
         *cycle_end_graph_case(sc), sync_error=True)
@@ -5619,6 +6061,7 @@ def kernels_line(dense, dense_launches, repeat, repeat_launches, delta, mini_lau
         *catalogue_records(catalogue),
         *step_records(step),
         *move_records(move),
+        *corr_records(),
     ]}
 
 
@@ -5645,6 +6088,7 @@ def main():
     rsc = phase("set-up 20k repeat", scale_repeat_setup, device)
     step = phase("3d D1 D2 D3", phase_step_kernels, device, sc, rsc)
     move = phase("3e E1 E2 E3", phase_move_kernels, device, sc, rsc)
+    phase("3f F1 F2", phase_corr_kernels, device, rsc)
     dense = phase("2-3 B1", phase_kernel, device)
     dense_launches = phase("4 dense main", phase_main, device)
     repeat = phase("4a B3", phase_repeat_kernel, device)
@@ -5713,11 +6157,15 @@ def main_top():
     step_top = phase("3d D3 top", phase_step_top, sc)
     move_top = phase("3e E1-E3 top", phase_move_top, sc)
     crossover = phase("5c routes", phase_crossover, sc)
+    del sc
+    rsc = phase("set-up 20k repeat", scale_repeat_setup, device)
+    corr_top = phase("3f F1 F2 top", phase_corr_top, rsc)
     print(f"smoke --top-tiers: {time.perf_counter() - t_start:.1f} s in all; phases "
           f"{json.dumps(PHASE_S)}", flush=True)
     print(json.dumps({"tiers": {k: delta_timing[k]["tiers"] for k in ("ll_mini", "obsgrid")},
                       "routes": crossover, "run_top": top, "run_chains_top": top_chains,
-                      "graphs": graphs, "step_top": step_top, "move_top": move_top}))
+                      "graphs": graphs, "step_top": step_top, "move_top": move_top,
+                      "corr_top": corr_top}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -34,8 +34,11 @@ constructions (``pipeline.extend_with_repeats``,
 when it is built and raises ValueError otherwise.
 
 Everything is batched over the m neighbours of a step and the 14 genomes
-(base + 13 candidates) of each; correction sums are taken in f64. Nothing
-reads a device value on the host.
+(base + 13 candidates) of each; correction sums are taken in f64. On a
+card the corrections of every chain and neighbour of a scoring call are one
+launch pair, kernels F1 / F2 (:mod:`graal_tpu_torch.ops.repeat_corr_cuda`);
+elsewhere the plain version takes them chain by chain. Nothing reads a
+device value on the host.
 """
 
 from __future__ import annotations
@@ -53,6 +56,7 @@ from graal_tpu_torch.core.sparse import (SparseObs, logfact_entries, sparse_dire
 from graal_tpu_torch.core.state import GenomeState
 from graal_tpu_torch.core.subfrags import SubFragTable, copy_csr
 from graal_tpu_torch.ops.mini_grid_cuda import log_cis_plain
+from graal_tpu_torch.ops.repeat_corr_cuda import CORR, make_tables
 
 
 class CopyTable(NamedTuple):
@@ -136,6 +140,17 @@ def _sum64(x, dims):
     return x.sum(dim=dims, dtype=torch.float64)
 
 
+def _copy_sum(x):
+    """The f32 sum over the last (copy) axis as a left fold, x[..., 0] +
+    x[..., 1] + ...: an order stated here, which kernels F1 / F2 take for
+    any number of copies (torch's own reduction order depends on the
+    device, the shape and the version)."""
+    acc = x[..., 0]
+    for c in range(1, x.shape[-1]):
+        acc = acc + x[..., c]
+    return acc
+
+
 class RepeatDeltaScorer:
     """The repeat-aware delta scorer v2, with the contract of
     :class:`core.delta.DeltaScorer`: ``score`` scores the m neighbours of a
@@ -180,6 +195,10 @@ class RepeatDeltaScorer:
         self.pre, self.suf = table.prefix_kb, table.suffix_kb
         self.half = table.len_kb * 0.5
         self.nfpb = float(np.float32(table.n_frags_per_bins))
+        self.corr_tables = make_tables(table, self.mt, self.ct, self.dup, mixed, self.mixed_lf,
+                                       sobs, self.sobs_lf, self.dd_ob, self.dd_lf,
+                                       (self.ddu_rows, self.ddu_ok),
+                                       (self.ddv_rows, self.ddv_ok))
 
     # ---- candidate-independent routing --------------------------------------
     def copy_rows_of(self, bins):
@@ -227,9 +246,9 @@ class RepeatDeltaScorer:
 
         With a chains axis (as :meth:`core.delta.DeltaScorer.score` takes
         it) the single-copy part of every chain's neighbours goes through
-        one obs-grid and one mini-grid launch; the copy corrections are
-        taken chain by chain, each on its own genome. dll and the
-        candidates come back as (C, m, 13) and (C, m, 13, f_max)."""
+        one obs-grid and one mini-grid launch, and their copy corrections
+        through one :meth:`corrections` call. dll and the candidates come
+        back as (C, m, 13) and (C, m, 13, f_max)."""
         p = self.plain
         f_a = torch.as_tensor(f_a, device=rows.device)
         args = (state, f_a, ids, rows, valid, max_id)
@@ -238,19 +257,43 @@ class RepeatDeltaScorer:
         st, fa, ids_c, rows_c, valid_c = args[:5]
         cands, geo, ob, accu_sub, pvec = p.inputs(*args[:5], params, args[5])
         _, dll1 = p.mini_grid(*p.mini_grid_args(geo, ob, accu_sub, pvec))
-        n_ch, m = ids_c.shape
+        _, _, dll = self.corrections(st, fa.long(), rows_c, valid_c, geo, accu_sub, pvec, dll1)
+        lead = ids.shape
+        return (dll.reshape(lead + dll.shape[1:]),
+                GenomeState(*[x.reshape(lead + x.shape[1:]) for x in cands]),
+                rows, valid, overflow)
+
+    def corrections(self, state: GenomeState, f_a, rows, valid, geo, accu_sub, pvec, dll1):
+        """The copy corrections of a scoring call's C x m neighbour slots
+        (M = C x m) on top of their single-copy deltas ``dll1`` (M, 13):
+        (corr (M, 14) f64 of every genome, cross (M, 13) f64, dll (M, 13)
+        f32). ``state`` fields (C, n), ``f_a`` (C,), ``rows`` / ``valid``
+        (C, m, f_max) (:func:`core.delta.extract_rows_each`), ``geo`` the
+        slots' 14 genomes (M, 14, R), ``accu_sub`` (M, R), ``pvec`` (M,
+        10). By kernels F1 / F2 (one launch pair) when the rows lie on a
+        card, else :meth:`corrections_plain`."""
+        if rows.device.type != "cuda":
+            return self.corrections_plain(state, f_a, rows, valid, geo, accu_sub, pvec, dll1)
+        return self._corrections_on_card(state, f_a, rows, valid, geo, accu_sub, pvec, dll1)
+
+    def _corrections_on_card(self, state, f_a, rows, valid, geo, accu_sub, pvec, dll1):
+        return CORR.corrections(self.corr_tables, state, f_a, rows, valid, geo, accu_sub, pvec,
+                                dll1)
+
+    def corrections_plain(self, state: GenomeState, f_a, rows, valid, geo, accu_sub, pvec,
+                          dll1):
+        """:meth:`corrections` in plain torch, chain by chain
+        (:meth:`_corrections`)."""
+        n_ch, m = rows.shape[:2]
         parts = []
         for k in range(n_ch):
             sl = slice(k * m, (k + 1) * m)
             parts.append(self._corrections(
-                GenomeState(*[x[k] for x in st]), fa[k], rows_c[k], valid_c[k],
+                GenomeState(*[x[k] for x in state]), f_a[k], rows[k], valid[k],
                 type(geo)(*[x[sl] for x in geo]), accu_sub[sl], pvec[k * m]))
         corr, cross = (torch.cat(x) for x in zip(*parts))
         dll = dll1.double() + (corr[:, 1:] - corr[:, :1]) - cross
-        lead = ids.shape
-        return (dll.float().reshape(lead + dll.shape[1:]),
-                GenomeState(*[x.reshape(lead + x.shape[1:]) for x in cands]),
-                rows, valid, overflow)
+        return corr, cross, dll.float()
 
     def _corrections(self, state: GenomeState, f_a, rows, valid, geo, accu_sub, pvec):
         """The copy corrections of one chain's m neighbours on top of the
@@ -301,9 +344,9 @@ class RepeatDeltaScorer:
             v_rows, v_ok = self.copy_rows_of(t_bin)                     # (m, R, capm, c)
             v_in, v_mini = self.route(inv_f, v_rows, shared=False)
             v_ok = v_ok & mwin[..., None]
-            a_out_t = torch.where(v_ok & ~v_in, self.frozen_a(smat, v_rows), 0.0).sum(-1)
+            a_out_t = _copy_sum(torch.where(v_ok & ~v_in, self.frozen_a(smat, v_rows), 0.0))
             gu = {k: x[..., None, None] for k, x in g.items()}
-            e_in = _pair_e(gu, pick(v_mini), (v_in & v_ok)[:, None], pvec, nfpb).sum(-1)
+            e_in = _copy_sum(_pair_e(gu, pick(v_mini), (v_in & v_ok)[:, None], pvec, nfpb))
             e_mix = e_in + vn * a_g[..., None] * a_out_t[:, None]       # (m, C, R, capm)
             term = ob_m[:, None] * torch.log(torch.where(e_mix > 0.0, e_mix, 1.0)) \
                 - lf_m[:, None]
@@ -317,21 +360,21 @@ class RepeatDeltaScorer:
             gu_f = self.frozen(smat, self.ddu_rows)                       # (ndd, c)
             gv_f = self.frozen(smat, self.ddv_rows)
             ff_ok = (self.ddu_ok & ~ddu_in)[..., :, None] & (self.ddv_ok & ~ddv_in)[..., None, :]
-            e_ff = _pair_e({k: x[:, :, None] for k, x in gu_f.items()},
-                           {k: x[:, None, :] for k, x in gv_f.items()},
-                           ff_ok, pvec, nfpb).sum((-1, -2))                # (m, ndd)
-            a_u_out = torch.where(self.ddu_ok & ~ddu_in, gu_f["a"], 0.0).sum(-1)
-            a_v_out = torch.where(self.ddv_ok & ~ddv_in, gv_f["a"], 0.0).sum(-1)
+            e_ff = _copy_sum(_copy_sum(_pair_e({k: x[:, :, None] for k, x in gu_f.items()},
+                                               {k: x[:, None, :] for k, x in gv_f.items()},
+                                               ff_ok, pvec, nfpb)))        # (m, ndd)
+            a_u_out = _copy_sum(torch.where(self.ddu_ok & ~ddu_in, gu_f["a"], 0.0))
+            a_v_out = _copy_sum(torch.where(self.ddv_ok & ~ddv_in, gv_f["a"], 0.0))
             gu_in, gv_in = pick(ddu_mini), pick(ddv_mini)                 # (m, C, ndd, c)
             u_in_ok = (self.ddu_ok & ddu_in)[:, None]
             v_in_ok = (self.ddv_ok & ddv_in)[:, None]
-            e_ii = _pair_e({k: x[..., :, None] for k, x in gu_in.items()},
-                           {k: x[..., None, :] for k, x in gv_in.items()},
-                           u_in_ok[..., :, None] & v_in_ok[..., None, :], pvec,
-                           nfpb).sum((-1, -2))                            # (m, C, ndd)
+            e_ii = _copy_sum(_copy_sum(_pair_e(
+                {k: x[..., :, None] for k, x in gu_in.items()},
+                {k: x[..., None, :] for k, x in gv_in.items()},
+                u_in_ok[..., :, None] & v_in_ok[..., None, :], pvec, nfpb)))  # (m, C, ndd)
             e_dd = e_ff[:, None] + e_ii + vn * (
-                torch.where(u_in_ok, gu_in["a"], 0.0).sum(-1) * a_v_out[:, None]
-                + a_u_out[:, None] * torch.where(v_in_ok, gv_in["a"], 0.0).sum(-1))
+                _copy_sum(torch.where(u_in_ok, gu_in["a"], 0.0)) * a_v_out[:, None]
+                + a_u_out[:, None] * _copy_sum(torch.where(v_in_ok, gv_in["a"], 0.0)))
             term = self.dd_ob * torch.log(torch.where(e_dd > 0.0, e_dd, 1.0)) - self.dd_lf
             corr = corr + _sum64(torch.where(e_dd > 0.0, term, 0.0), (2,))
 
@@ -358,11 +401,11 @@ class RepeatDeltaScorer:
             ca_in, ca_mini = self.route(inv_f, ca_rows, shared=True)      # (m, s_max, c)
             g_u4 = self.frozen(smat, ca_rows)
             u4_ok = (ca_ok & ~ca_in)[:, :, None, :] & valid4[..., None]
-            c_frozen4 = _pair_e({k: x[:, None, :] for k, x in g_u4.items()},
-                                {k: x[:, :, None] for k, x in g_t4.items()},
-                                u4_ok, pvec, nfpb).sum(-1)                # (m, s_max, capd)
+            c_frozen4 = _copy_sum(_pair_e({k: x[:, None, :] for k, x in g_u4.items()},
+                                          {k: x[:, :, None] for k, x in g_t4.items()},
+                                          u4_ok, pvec, nfpb))             # (m, s_max, capd)
             coef4 = torch.where(valid4, vn * g_t4["a"], 0.0)
-            a_in_d = torch.where((ca_in & ca_ok)[:, None], pick(ca_mini)["a"], 0.0).sum(-1)
+            a_in_d = _copy_sum(torch.where((ca_in & ca_ok)[:, None], pick(ca_mini)["a"], 0.0))
             e4 = c_frozen4[:, None] + coef4[:, None] * a_in_d[..., None]  # (m, C, s_max, capd)
             term = ob4 * torch.log(torch.where(e4 > 0.0, e4, 1.0)) - lf4
             corr = corr + _sum64(torch.where(valid4[:, None] & (e4 > 0.0), term, 0.0), (2, 3))
@@ -377,7 +420,7 @@ class RepeatDeltaScorer:
         corr = corr + _sum64(e_sb, (2, 3))
 
         # ---- swap_activity's trans mass against the frozen genome ----------
-        o_same = torch.where(sb_ok & ~sb_in, self.frozen_a(smat, sb_rows), 0.0).sum(-1)
+        o_same = _copy_sum(torch.where(sb_ok & ~sb_in, self.frozen_a(smat, sb_rows), 0.0))
         w_all = torch.where(state.activ[self.owner] == 1, self.accu, 0.0) \
             .sum(dtype=torch.float64)
         a_base = a_g[:, 0]

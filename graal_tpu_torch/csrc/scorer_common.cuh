@@ -55,6 +55,28 @@ struct RippeCell {
     return in_range ? fmaxf(out, log_v) : log_v;
   }
 
+  // log_cis with every operation rounded on its own, in the order of the
+  // plain torch version (ops/mini_grid_cuda.py log_cis_plain): nvcc never
+  // contracts the _rn intrinsics into an FMA, so the copy corrections
+  // (repeat_corr.cu) take torch's value term for term.
+  __device__ __forceinline__ float log_cis_rn(float s, bool circ_row, float stot) const {
+    if (!((s > 0.0f) && (s < d_max))) return log_v;
+    const float safe_s = fmaxf(s, 1e-9f);
+    const float d2 = __fsub_rn(d, 2.0f);
+    const float n_lin = __fmul_rn(safe_s, lmk);
+    const float log_lin = __fadd_rn(__fadd_rn(log_c1fact, __fmul_rn(slope, logf(safe_s))),
+                                    __fdiv_rn(d2, __fadd_rn(__fmul_rn(n_lin, n_lin), d)));
+    if (!circ_row) return fmaxf(log_lin, log_v);
+    const float n_circ = __fdiv_rn(__fmul_rn(__fmul_rn(lmk, safe_s),
+                                             fmaxf(__fsub_rn(stot, s), 1e-9f)),
+                                   fmaxf(stot, 1e-9f));
+    const float log_val_circ =
+        __fadd_rn(__fadd_rn(log_k3fact, __fmul_rn(slope, logf(n_circ))),
+                  __fdiv_rn(d2, __fadd_rn(__fmul_rn(n_circ, n_circ), d)));
+    return fmaxf(__fsub_rn(__fadd_rn(log_val_circ, fmaxf(log_lin, log_v)), log_norm_circ),
+                 log_v);
+  }
+
   // The same in linear space, as the copy-summing scorer takes it:
   // max(exp(raw), v_inter) inside (0, d_max), v_inter outside.
   __device__ __forceinline__ float cis(float s, bool circ_row, float stot) const {

@@ -145,19 +145,23 @@ def scale_problem(n_bins=100_000, n_contigs=None, n_pieces=None, seed=31,
     return truth, shuffled, table, params, sobs
 
 
-def scale_repeat_problem(n_bins=20_000, n_dups=200, seed=31, shuffle_seed=32,
+def scale_repeat_problem(n_bins=20_000, n_dups=200, seed=31, shuffle_seed=32, copies=1,
                          device="cuda"):
     """(truth, shuffled, table, params, sobs, id_d): the chr1-scale recipe
     of :func:`scale_problem` with ``n_dups`` bins, evenly spread over
-    [11, n_bins - 17], duplicated once (``add_scale_repeats``); contacts
-    are simulated on the repeat-free base genome, then the copy-expanded
-    genome is shuffled into max(n_bins // 250, 8) pieces. ``id_d`` maps
-    each copy-fragment to its data bin."""
+    [11, n_bins - 17], duplicated (``add_scale_repeats``); contacts are
+    simulated on the repeat-free base genome, then the copy-expanded genome
+    is shuffled into max(n_bins // 250, 8) pieces. ``copies``: the extra
+    copies of each duplicated bin, one count for all or one per bin (the
+    default 1 gives each two copies). ``id_d`` maps each copy-fragment to
+    its data bin."""
     params = scale_params(device=device)
     base, base_table = make_scale_genome(n_bins, max(n_bins // 5000, 4), seed=seed,
                                          device=device)
     sobs = simulate_sparse_contacts(base, base_table, params, seed=seed)
-    dup_bins = tuple(int(b) for b in np.linspace(11, n_bins - 17, n_dups).astype(int))
-    truth, table, id_d = add_scale_repeats(base, base_table, dup_bins)
+    dup_bins = np.linspace(11, n_bins - 17, n_dups).astype(int)
+    copies = np.broadcast_to(np.asarray(copies, np.int64), (n_dups,))
+    truth, table, id_d = add_scale_repeats(base, base_table,
+                                           tuple(int(b) for b in np.repeat(dup_bins, copies)))
     shuffled = shuffle_genome(truth, max(n_bins // 250, 8), seed=shuffle_seed)
     return truth, shuffled, table, params, sobs, id_d

@@ -26,7 +26,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "graal_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-KERNELS = ("ll_dense", "ll_mini", "obsgrid", "ll_repeat", "candidates", "step", "mtm")
+KERNELS = ("ll_dense", "ll_mini", "obsgrid", "ll_repeat", "candidates", "step", "mtm",
+           "repeat_corr")
 
 
 def find_nvcc() -> str:

@@ -17,9 +17,11 @@ tempered chains of the flagship dense problem, ``parallel.tempering``'s
 cycle, one B1 launch at B = 260 a step for all of them), ``mtm`` and
 ``mh`` (the flagship's dense MTM / MH cycles, ``core.mtm.make_mtm_cycle``
 with the jump table of ``entry.problem_jump_table``: two B1 launches at B
-= 91 a step) and ``delta_mtm`` (the 100k problem's delta MTM cycle at
+= 91 a step), ``delta_mtm`` (the 100k problem's delta MTM cycle at
 f_max 1,024 as ``ScaleRunner.run_mtm`` builds it: B4 and B2 twice a step,
-M = 7); all ten by default. Each path runs in each of ``--modes``: ``graph``, its cycle as
+M = 7) and ``delta_repeat_mh`` (the 20k repeat problem's delta MH cycle,
+the same way: the repeat engine v2, B4, B2 and the copy corrections F1 /
+F2 twice a step); all eleven by default. Each path runs in each of ``--modes``: ``graph``, its cycle as
 the captured CUDA graph the entry points run (``core.graphs.Scan``,
 replayed once a step), and ``eager``, the same step body run eagerly
 (``capture=False``). Each run takes ``--warm`` steps (the graph's first
@@ -49,7 +51,8 @@ Prints one JSON line per path and mode (``mode``: graph or eager):
 - ``kernels``: the device-side rows summed by class, {class: [ms per
   step, calls per step]}: ``catalogue`` (C1 / C2, the candidate
   catalogues), ``mtm`` (E1-E3: the MTM / MH step's neighbour set, draw
-  and acceptance), ``step`` (D1-D3: the nuisance move, the neighbour draw,
+  and acceptance), ``corr`` (F1 / F2: the repeat engine's copy
+  corrections), ``step`` (D1-D3: the nuisance move, the neighbour draw,
   the selection and commit), ``scorers`` (B1-B4), ``gather`` (gathers, scatters and
   index kernels), ``elementwise`` (torch's elementwise kernels),
   ``reduce``, ``copy`` (memcpy, memset) and ``other``; a step's count of
@@ -73,7 +76,7 @@ from graal_tpu_torch.entry import DELTA
 
 F_MAX = 1024
 PATHS = ("dense", "dense_repeat", "delta", "delta_repeat", "chains", "chains_repeat",
-         "tempered", "mtm", "mh", "delta_mtm")
+         "tempered", "mtm", "mh", "delta_mtm", "delta_repeat_mh")
 N_CHAINS = 4
 MTM_DELTA = 5     # the refinement stages' jump-table partners
 SPIN_HZ = 2.0e9   # torch.cuda._sleep cycles a second: above any H100 SM clock
@@ -155,19 +158,35 @@ def mtm_runner(device, variant: str, capture: bool):
     return run, torch.randperm(state.n_frags, generator=gen, device=device)
 
 
-def delta_mtm_runner(device, capture: bool):
-    """``run(order) -> None``: delta MTM steps of the chr1-class problem
-    from its shuffled start, at f_max 1,024 (``ScaleRunner.run_mtm``'s
-    cycle: the MH catalogue through the runner's B4 and B2)."""
-    from graal_tpu_torch.core.mtm import make_delta_mtm_cycle
-    from graal_tpu_torch.entry import scale_problem
+def problem_and_runner(device, repeat: bool):
+    """(truth, shuffled, table, params, sobs, runner): the chr1-class
+    problem, or with ``repeat`` the 20k repeat problem, and its
+    ScaleRunner."""
+    from graal_tpu_torch.entry import scale_problem, scale_repeat_problem
     from graal_tpu_torch.scale import ScaleRunner
 
-    _, shuf, table, params, sobs = scale_problem(device=device)
-    runner = ScaleRunner(table, sobs, params)
+    if repeat:
+        truth, shuf, table, params, sobs, id_d = scale_repeat_problem(device=device)
+        return truth, shuf, table, params, sobs, ScaleRunner(table, sobs, params, id_d=id_d)
+    truth, shuf, table, params, sobs = scale_problem(device=device)
+    return truth, shuf, table, params, sobs, ScaleRunner(table, sobs, params)
+
+
+def delta_mtm_runner(device, capture: bool, problem: str = "scale", variant: str = "mtm"):
+    """``run(order) -> None``: delta MTM (``variant`` "mtm") or MH ("mh")
+    steps from the shuffled start of the chr1-class problem (``problem``
+    "scale") or the 20k repeat problem ("repeat": the repeat engine v2,
+    its copy corrections by F1 / F2), at f_max 1,024
+    (``ScaleRunner.run_mtm``'s cycle: the MH catalogue through the
+    runner's B4 and B2)."""
+    from graal_tpu_torch.core.mtm import make_delta_mtm_cycle
+
+    repeat = {"scale": False, "repeat": True}[problem]
+    _, shuf, table, params, sobs, runner = problem_and_runner(device, repeat)
     cycle = make_delta_mtm_cycle(table, runner.jump_table(MTM_DELTA, shuf.n_frags), F_MAX,
-                                 sobs, band_w=runner.w, obs_grid=runner.obs_grid,
-                                 mini_grid=runner.mini_grid, rep=shuf.rep, capture=capture)
+                                 sobs, variant=variant, band_w=runner.w,
+                                 obs_grid=runner.obs_grid, mini_grid=runner.mini_grid,
+                                 rep=shuf.rep, capture=capture)
     gen = torch.Generator(device=device).manual_seed(0)
     carry = dict(state=shuf, l_t=runner.anchor_fn()(shuf, params))
 
@@ -192,15 +211,7 @@ def runner_cycle(runner, rep, capture: bool):
 def delta_runner(device, repeat: bool, capture: bool):
     """``run(order) -> None``: delta steps of cycle_for(1024, 4) from the
     shuffled start of the chr1-class problem (or the 20k repeat problem)."""
-    from graal_tpu_torch.entry import scale_problem, scale_repeat_problem
-    from graal_tpu_torch.scale import ScaleRunner
-
-    if repeat:
-        _, shuf, table, params, sobs, id_d = scale_repeat_problem(device=device)
-        runner = ScaleRunner(table, sobs, params, id_d=id_d)
-    else:
-        _, shuf, table, params, sobs = scale_problem(device=device)
-        runner = ScaleRunner(table, sobs, params)
+    _, shuf, table, params, sobs, runner = problem_and_runner(device, repeat)
     cycle = runner_cycle(runner, shuf.rep, capture)
     gen = torch.Generator(device=device).manual_seed(0)
     carry = dict(state=shuf, l_t=runner.anchor_fn()(shuf, params))
@@ -219,17 +230,10 @@ def chains_runner(device, repeat: bool, capture: bool):
     parameters (the problem's scaled by 1 + 0.01 c)."""
     from graal_tpu_torch.core.model import RippeParams
     from graal_tpu_torch.core.state import GenomeState
-    from graal_tpu_torch.entry import scale_problem, scale_repeat_problem
     from graal_tpu_torch.parallel.tempering import temperature_ladder
-    from graal_tpu_torch.scale import ScaleRunner
     from graal_tpu_torch.utils.synthetic_sparse import shuffle_genome
 
-    if repeat:
-        truth, shuf, table, params, sobs, id_d = scale_repeat_problem(device=device)
-        runner = ScaleRunner(table, sobs, params, id_d=id_d)
-    else:
-        truth, shuf, table, params, sobs = scale_problem(device=device)
-        runner = ScaleRunner(table, sobs, params)
+    truth, shuf, table, params, sobs, runner = problem_and_runner(device, repeat)
     pieces = int(shuf.n_contigs())
     starts = [shuf] + [shuffle_genome(truth, pieces, seed=100 + c) for c in range(N_CHAINS - 1)]
     states = GenomeState(*[torch.stack(xs) for xs in zip(*starts)])
@@ -251,6 +255,7 @@ def chains_runner(device, repeat: bool, capture: bool):
 # the classes of ``kernels``, matched in this order on the lower-cased name
 KERNEL_CLASSES = (("catalogue", ("catalogue",)),
                   ("mtm", ("mtm_set_kernel", "mtm_draw_kernel", "mtm_accept_kernel")),
+                  ("corr", ("corr_frozen_kernel", "corr_sums_kernel")),
                   ("step", ("nuisance_propose_kernel", "nuisance_accept_kernel",
                             "neighbours_kernel", "select_commit_")),
                   ("scorers", ("ll_dense", "ll_mini", "ll_repeat", "obsgrid")),
@@ -303,6 +308,8 @@ def profile_path(name: str, device, warm: int, steps: int, table_dir: Path | Non
     elif name in ("tempered", "delta_mtm"):
         run, order = {"tempered": tempered_runner, "delta_mtm": delta_mtm_runner}[name](
             device, capture)
+    elif name == "delta_repeat_mh":
+        run, order = delta_mtm_runner(device, capture, problem="repeat", variant="mh")
     else:
         make = {"delta": delta_runner, "chains": chains_runner}.get(name.split("_")[0],
                                                                      dense_runner)

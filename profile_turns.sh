@@ -7,7 +7,7 @@
 # parent commit: git archive <commit> | tar -x -C build/parent); this
 # tree's graal_tpu_torch/profile_paths.py is copied into it first, so both
 # print the same rows. Runs `python -m graal_tpu_torch.profile_paths
-# --modes graph` (all ten paths) on other, this, this, other, then
+# --modes graph` (all eleven paths) on other, this, this, other, then
 # `chip_smoke.py --top-tiers` on other and this; every output goes to
 # OUT_DIR (default build/profile_turns).
 set -euo pipefail
