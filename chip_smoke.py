@@ -9,8 +9,9 @@ On a host with several cards, ``python3 chip_smoke.py --cards`` runs
 instead the across-cards checks (``phase_cards``): an NCCL world of one
 rank a card, and the CLI under ``torchrun`` against one process.
 ``python3 chip_smoke.py --top-tiers`` runs only the build, the 100k
-set-up and the phases of the top tiers (5, 8b, 11e, 11g, 11h, 5c), then
-the 20k repeat set-up and F1 / F2 at R = 8,192 (3f).
+set-up and the phases of the top tiers (5, 8b, 11e, 11g, 11h, 3d, 3e, 3g
+at f_max 16,384, 5c), then the 20k repeat set-up and F1 / F2 at R = 8,192
+(3f).
 
 Every sampler cycle (EM, delta EM, tempered, MTM / MH dense and delta)
 and every ScaleRunner cycle end runs as the entry points run it: a
@@ -147,6 +148,33 @@ written. "share" is the bound over the device time.
    records (``corr_bound``). Phases 7b, 7g / 7h (the repeat cycles), 8a,
    11b and 9f's ``scale --allow-repeats`` count one F1 and one F2 launch
    a scoring call; the repeat-free paths none.
+3g. Member-row kernels G1 (the counts: rows_counts_kernel), G2 (the
+   ordered write: rows_write_kernel) and G3 (the mini-state gather:
+   rows_gather_kernel; csrc/rows.cu) against their plain versions
+   (core/delta.py ``extract_rows_union_plain``, ``extract_rows_each_plain``
+   with the chains' ``id_c.amax(-1)``, ``gather_mini_plain``) on
+   ROWS_DRAWS random (chain, slot) draws a shape, fA and the neighbours as
+   each path draws them, one call in eight with fA among its own
+   neighbours and one in eight with two slots on one contig: the 100k
+   delta EM step (union, M = 5, f_max F_MAX), its 4 chains (M = 20), the
+   100k delta MTM pass (each, m = 7, E1's neighbour set), the 20k repeat
+   step (each, M = 10) and 4 repeat chains (M = 40); the edge shapes: the
+   100k truth (every pair above f_max), f_max = n on an EDGE_N-fragment
+   cut of the repeat genome (each and union) and u_cap = n (union at
+   bucket 4,096 on the 20k genome); the repeat delta EM step at m = 80
+   slots (the 20k problem with 2 to ROW_COPIES copies a duplicated bin),
+   then that step driven on the card at the repeat exactness twin's
+   fragments, re-anchored, one G set and one F1 + F2 pair a step; 9d adds the CLI dataset's bucket (f_max
+   64, R = 192) on its run's final genome and ``--top-tiers`` f_max 16,384
+   for 4 chains of the truth (M = 20). rows (padding included), valid,
+   overflow, max_id and the 11 mini-state fields bit for bit. Each kernel
+   timed (device ms; the plain versions' as graph replays) beside its
+   bound in bytes (``rows_bound``), and torch.topk on the plain version's
+   genome-length key alone as the library call. Phases 4 and 4b count no
+   G launch; 7, 7b, 7g, 7h (the delta cycles and run_mtm), 8, 8a, 8b, 9d,
+   9e, 9f's ``scale --allow-repeats``, 11a, 11b, 11e, 11g and 11h count one
+   G1 + G2 pair and one G3 launch a scoring call (two a delta MTM / MH
+   step).
 3. Dense kernel B1 (ll_dense) vs plain: the dense scorer kernel against its
    plain torch version on the same inputs, rtol 1e-4 (bench.py's
    standard), at the flagship K = 1,152 on 65-candidate batches built on
@@ -403,7 +431,8 @@ written. "share" is the bound over the device time.
 12. Last lines: the nvidia-smi line, one JSON line on the kernels run, and
    {"ok": true, "device": {...}}. Each kernel's entry has the contract's
    keys (launches, max_abs_err, ms, plain_ms, bound_ms, bound_by,
-   library_ms: null, as no single PyTorch call computes any of the six)
+   library_ms: null where no single PyTorch call computes the kernel's
+   function; G2's is torch.topk's on the plain version's key)
    and device_ms and share, at its flagship shape (B1: B = 65, K = 1,152,
    true candidates; B3: S = 1,152; B2 / B4: the 100k path at R = 1,024;
    B4 also grid_ms / grid_device_ms, the step's whole observed-grid
@@ -442,7 +471,13 @@ written. "share" is the bound over the device time.
    (M = 10, R = 1,024), with phase 3f's other shapes under "by_shape" and
    each repeat path's launches under "by_path" (7b, the graphed 20k
    repeat delta and delta MH cycles of 7g / 7h, 8a, 11b's run_chains,
-   9f's scale), summed into the top-level count. Before them, a JSON line
+   9f's scale), summed into the top-level count. G1 (rows_counts), G2
+   (rows_write) and G3 (rows_gather) mirror graal_tpu/core/delta.py:100,
+   :121 and :179 (no Pallas kernel: XLA fuses them, its top_k lowered to a
+   sort, in the jitted step) at the 100k delta EM step's shape (union,
+   M = 5, f_max 1,024), with phase 3g's other shapes under "by_shape" and
+   each delta path's launches under "by_path", summed into the top-level
+   count. Before them, a JSON line
    of phase 5c's routes. (``--top-tiers``
    adds D3's delta entry on 4 chains at 16,384, M = 20, and E1-E3 at the
    16,384 bucket to its line.)
@@ -531,6 +566,12 @@ CORR_TIME_ITERS = 200
 N_GEN_ROWS = 14             # genomes a neighbour slot (base + 13 candidates)
 CORR_PATHS = {}             # each repeat path's F1 / F2 launches by key (the kernels line)
 CORR_SHAPES = {}            # phase 3f's shapes and --top-tiers' R = 8,192 one
+ROWS_DRAWS = 2000           # random (chain, slot) draws a shape G1-G3 are held to plain on
+ROWS_TIME_ITERS = 200
+EDGE_N = 2000               # 3g's f_max = n shapes: a cut of the 20k repeat genome
+ROW_COPIES = 16             # 3g: most copies of a bin in the m >= 65 shape (2 to 16: m = 80)
+ROWS_PATHS = {}             # each delta path's G1-G3 launches by key (the kernels line)
+ROWS_SHAPES = {}            # phase 3g's shapes and --top-tiers' f_max 16,384 one
 CLI_CHAIN_STEPS = 128       # scale --chains steps a chain a cycle (11c)
 SMALL_BINS = 576            # 11c's run --profile dataset (level 2 ~60 bins)
 CLI_WATCH_STEPS = 64        # the same with --watch --profile: a traced cycle is slow
@@ -1083,6 +1124,7 @@ def main_path_run(device, build, n_cycles):
     cur = mcmc.explode_genome(state)
     torch.cuda.synchronize()
     scorer.n_launches = catalogue_wrapper().n_launches = step_wrapper().n_launches = 0
+    rows_wrapper().n_launches = 0
     l0 = scorer(GenomeState(*[x[None] for x in cur]), params)[0]
     l_t, par = l0, params
     seconds = []
@@ -1104,7 +1146,8 @@ def main_path_run(device, build, n_cycles):
     launches = scorer.n_launches
     return dict(state=state, scorer=scorer, cur=cur, par=par, l0=l0, l_t=l_t,
                 seconds=seconds, launches=launches, n=n, nb=nb,
-                catalogue=dict(catalogue_wrapper().launches.by_key()), step=step_launches())
+                catalogue=dict(catalogue_wrapper().launches.by_key()), step=step_launches(),
+                rows=rows_launches())
 
 
 def dense_main_checks(r, n_cycles):
@@ -1166,6 +1209,7 @@ def phase_main(device, n_bins=384):
     n = r["n"]
     dense_main_checks(r, N_CYCLES)
     CATALOGUE_PATHS["dense_main"] = r["catalogue"]
+    check(r["rows"] == {}, f"the dense main path launched G1-G3: {r['rows']}")
     want_step_launches("dense main", r["step"], N_CYCLES * n, nuisance=True)
     init_prev, init_next = derive_prev_next(r["state"])
     # every bin has 3 sub-fragments (orientable); nothing is skipped
@@ -1301,6 +1345,7 @@ def phase_repeat_main(device, n_bins=384):
     r = main_path_run(device, build, REPEAT_CYCLES)
     dense_main_checks(r, REPEAT_CYCLES)
     CATALOGUE_PATHS["dense_repeat_main"] = r["catalogue"]
+    check(r["rows"] == {}, f"the dense repeat main path launched G1-G3: {r['rows']}")
     want_step_launches("dense repeat main", r["step"], REPEAT_CYCLES * r["n"], nuisance=True)
     print(f"  n_contigs {int(r['cur'].n_contigs())}, active fragments "
           f"{int(r['cur'].activ.sum())}/{r['n']}")
@@ -1916,6 +1961,7 @@ def scale_main_run(sc):
     torch.cuda.synchronize()
     runner.obs_grid.n_launches = runner.mini_grid.n_launches = 0
     catalogue_wrapper().n_launches = step_wrapper().n_launches = corr_wrapper().n_launches = 0
+    rows_wrapper().n_launches = 0
     t0 = time.perf_counter()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -1927,7 +1973,7 @@ def scale_main_run(sc):
     return dict(cur=cur, l0=l0, l_t=l_t, out=out, seconds=seconds,
                 launches=(runner.mini_grid.n_launches, runner.obs_grid.n_launches),
                 catalogue=dict(catalogue_wrapper().launches.by_key()), step=step_launches(),
-                corr=corr_launches())
+                corr=corr_launches(), rows=rows_launches())
 
 
 def phase_scale_main(sc, label="delta main path"):
@@ -1954,6 +2000,7 @@ def phase_scale_main(sc, label="delta main path"):
     check(r["catalogue"] == {"em": MAIN_STEPS}, f"C1 launches {r['catalogue']}")
     CATALOGUE_PATHS[label.replace(" ", "_")] = r["catalogue"]
     want_step_launches(label, r["step"], MAIN_STEPS, delta=True)
+    want_rows_launches(label.replace(" ", "_"), r["rows"], MAIN_STEPS)
     if sc["table"].has_repeats:
         want_corr_launches("repeat_delta_main", r["corr"], MAIN_STEPS)
     else:
@@ -1985,7 +2032,7 @@ def phase_runner(sc, n_cycles=1, steps=512):
     l0 = runner.anchor_fn()(sc["shuf"], sc["params"]).item()
     counted = count_cycles(runner)
     torch.cuda.synchronize()
-    corr_wrapper().n_launches = 0
+    corr_wrapper().n_launches = rows_wrapper().n_launches = 0
     t0 = time.perf_counter()
     final, params, m = runner.run(sc["shuf"], n_cycles=n_cycles, steps_per_cycle=steps,
                                   order_mode="extremity", f_max_min=256, sample_param=True,
@@ -2003,7 +2050,9 @@ def phase_runner(sc, n_cycles=1, steps=512):
     check(runner.mini_grid.n_launches > 0 and runner.obs_grid.n_launches > 0,
           "the runner launched no delta kernel")
     check(all(abs(x) < float("inf") for x in m["likelihood"]), "non-finite likelihood")
-    if sc["table"].has_repeats:       # one scoring call a step, retries included
+    want_rows_launches("repeat_runner" if sc["table"].has_repeats else "runner", rows_launches(),
+                       counted["steps"])    # one scoring call a step, retries included
+    if sc["table"].has_repeats:
         want_corr_launches("repeat_runner", corr_launches(), counted["steps"])
     else:
         check(corr_launches() == {}, "a repeat-free runner launched F1 / F2")
@@ -2070,6 +2119,7 @@ def top_run(sc, start, steps):
     runner = ScaleRunner(sc["table"], sc["sobs"], sc["params"], nb=sc["runner"].nb)
     rec = count_cycles(runner)
     peak = PeakMemory()
+    rows_wrapper().n_launches = 0
     t0 = time.perf_counter()
     with banded_calls() as banded:
         final, _, m = runner.run(start, n_cycles=1, steps_per_cycle=steps,
@@ -2078,6 +2128,7 @@ def top_run(sc, start, steps):
     torch.cuda.synchronize()
     return dict(final=final, m=m, seconds=time.perf_counter() - t0, banded=banded[0],
                 launches=(runner.mini_grid.n_launches, runner.obs_grid.n_launches),
+                rows=rows_launches(),
                 peak_gb=peak.read(f"ScaleRunner.run from {int(start.n_contigs())} contigs")[0],
                 **rec)
 
@@ -2116,6 +2167,7 @@ def phase_runner_top(sc, steps=None):
         check(a["launches"] == (a["steps"], a["steps"]),
               f"{name}: launches {a['launches']} for {a['steps']} steps")
         check(a["banded"] == 0, f"{name}: {a['banded']} calls of the banded mass")
+        want_rows_launches(f"run_top_{tier}", a["rows"], a["steps"])
         check(drift < bound, f"{name}: carried likelihood drifted {drift} > {bound}")
         check(check_invariants(a["final"], raise_on_error=False) == [], f"{name}: invariants")
         b = runs[1]
@@ -2271,6 +2323,7 @@ def phase_cli_delta(ds, root):
 
     print("cli run --scoring delta (B2 + B4, B1 anchor): 1 cycle, no nuisance")
     o4 = os.path.join(root, "o4")
+    rows_wrapper().n_launches = 0
     t0 = time.perf_counter()
     runner, asm = cli(run_argv(ds, o4, "--cycles", "1", "--scoring", "delta",
                                "--no-sample-param"))
@@ -2281,6 +2334,7 @@ def phase_cli_delta(ds, root):
     print(f"  launches: ll_mini {got[0]}, obsgrid {got[1]}, ll_dense {got[2]} "
           f"(path implies {n}, {n}, 2)")
     check(got == (n, n, 2), f"delta run launches {got}")
+    want_rows_launches("cli_run_delta", rows_launches(), n)
     lls, anchor = asm.metrics["likelihood"][-1], asm.metrics["anchor"][-1]
     drift = abs(lls - anchor)
     print(f"  carried {lls:.3f}, re-anchored {anchor:.3f}, drift {drift:.6g} "
@@ -2305,6 +2359,11 @@ def phase_cli_delta(ds, root):
         b2_err, b4_err = max(b2_err, errs[0]), max(b4_err, errs[1])
     _, dense_err = kernel_vs_plain(runner.scorer, GenomeState(*[x[None] for x in asm.state]),
                                    asm.params, "cli run --scoring delta, B1 anchor (B=1)")
+    # G1-G3 against their plain versions at the run's bucket on its final genome
+    gen = torch.Generator(device=runner.device).manual_seed(SEED + 72)
+    rows_shape(rows_case(f"cli_run_delta_{min(runner.delta_buckets)}", dict(runner=runner),
+                         min(runner.delta_buckets),
+                         states=GenomeState(*[x[None] for x in asm.state])), gen)
     return dict(mini=got[0], obs=got[1], dense=got[2], cycle_s=cycle_s, mini_err=b2_err,
                 obs_err=b4_err, dense_err=dense_err)
 
@@ -2315,13 +2374,21 @@ def phase_cli_scale(ds, root):
 
     from graal_tpu_torch.core import delta, mcmc
     from graal_tpu_torch.core.state import check_invariants
+    from graal_tpu_torch.scale import ScaleRunner
 
     print("cli scale: level 1, 1 cycle of 512 extremity-first steps, f_max_min 64")
     o5 = os.path.join(root, "o5")
-    runner, final, m = cli(["scale", ds, "--size", "3", "--level", "1", "--cycles", "1",
-                            "--steps-per-cycle", "512", "--order", "extremity",
-                            "--f-max-min", "64", "--fasta", os.path.join(ds, "genome.fa"),
-                            "--out", o5])
+    rows_wrapper().n_launches = 0
+    inner = ScaleRunner.cycle_for
+    counted = count_cycles(ScaleRunner)
+    try:
+        runner, final, m = cli(["scale", ds, "--size", "3", "--level", "1", "--cycles", "1",
+                                "--steps-per-cycle", "512", "--order", "extremity",
+                                "--f-max-min", "64", "--fasta", os.path.join(ds, "genome.fa"),
+                                "--out", o5])
+    finally:
+        ScaleRunner.cycle_for = inner
+    want_rows_launches("cli_scale", rows_launches(), counted["steps"])
     got = (runner.mini_grid.n_launches, runner.obs_grid.n_launches)
     print(f"  {final.n_frags} bins over {runner.table.n_data_sub} data subs; launches: "
           f"ll_mini {got[0]}, obsgrid {got[1]}; tiers {m['tiers']}")
@@ -2399,7 +2466,7 @@ def cli_scale_repeats(dsr, root, steps=256):
 
     print(f"cli scale --allow-repeats: level 2, 1 cycle of {steps} extremity-first steps")
     o7 = os.path.join(root, "o7")
-    corr_wrapper().n_launches = 0
+    corr_wrapper().n_launches = rows_wrapper().n_launches = 0
     inner = ScaleRunner.cycle_for
     counted = count_cycles(ScaleRunner)
     try:
@@ -2416,6 +2483,7 @@ def cli_scale_repeats(dsr, root, steps=256):
           f"tiers {m['tiers']}")
     check(runner.table.has_repeats, "scale --allow-repeats found no repeat")
     want_corr_launches("cli_scale_repeats", got, counted["steps"])
+    want_rows_launches("cli_scale_repeats", rows_launches(), counted["steps"])
     check(math.isfinite(m["likelihood"][-1]), f"final_loglik {m['likelihood'][-1]}")
     check(check_invariants(final, raise_on_error=False) == [], "final state invariants")
     check_outputs(o7, ["0list_likelihood.txt", "genome.fasta", "checkpoint.npz"])
@@ -3081,7 +3149,7 @@ def chains_main(label, runner, state0, n_chains, steps, f_max_min, drift_bound,
     l0 = runner.anchor_fn()(state0, runner.params).item()
     torch.cuda.synchronize()
     runner.mini_grid.n_launches = runner.obs_grid.n_launches = 0
-    corr_wrapper().n_launches = 0
+    corr_wrapper().n_launches = rows_wrapper().n_launches = 0
     t0 = time.perf_counter()
     final, best, m = runner.run_chains(state0, n_chains=n_chains, n_cycles=1,
                                        steps_per_cycle=steps, f_max_min=f_max_min, t_max=4.0,
@@ -3102,6 +3170,9 @@ def chains_main(label, runner, state0, n_chains, steps, f_max_min, drift_bound,
           f"{rel} |L|)); {seconds:.2f} s, cycle {m['cycle_s'][-1]:.3f} s "
           f"({m['cycle_s'][-1] * 1e3 / steps:.3f} ms/step for all chains)")
     check(launches == (steps, steps), f"{label}: launches {launches} != one each a step")
+    # every chain's rows in one G1 + G2 pair and one G3 a step
+    want_rows_launches("_".join(label.replace("(", "").replace(")", "").split()), rows_launches(),
+                       steps)
     if runner.table.has_repeats:      # every chain's corrections in one pair a step
         want_corr_launches("run_chains_repeat_20k", corr_launches(), steps)
     else:
@@ -3750,7 +3821,8 @@ def delta_graph_case(sc, chains=0, f_max=F_MAX, steps=(MAIN_STEPS, 128), start=N
                                          obs_grid=grid, mini_grid=mini, rep=rep,
                                          capture=capture)
 
-    return build, chunks, repeat_kernels(sc) + [mini, grid, step_wrapper(), catalogue_wrapper()]
+    return build, chunks, repeat_kernels(sc) + [rows_wrapper(), mini, grid, step_wrapper(),
+                                                catalogue_wrapper()]
 
 
 def catalogue_wrapper():
@@ -5577,6 +5649,367 @@ def corr_records():
     return out
 
 
+def rows_wrapper():
+    """The member-row kernels' wrapper (G1 / G2 / G3, launches keyed
+    "counts" / "write" / "gather")."""
+    from graal_tpu_torch.ops.rows_cuda import ROWS
+
+    return ROWS
+
+
+def rows_launches():
+    return dict(rows_wrapper().launches.by_key())
+
+
+def want_rows_launches(path, got, calls):
+    """One G1 + G2 pair and one G3 launch a scoring call of a delta path
+    (``calls`` of them); the count goes to the kernels line under
+    ``path``."""
+    want = {"counts": calls, "write": calls, "gather": calls}
+    print(f"  member-row launches: {got} (one G1 + G2 pair and one G3 a scoring call: {calls})")
+    check(got == want, f"{path}: G1-G3 launches {got} != {want}")
+    ROWS_PATHS[path] = got
+
+
+def rows_paths(records, want_calls):
+    """Keep each graphed delta path's G1-G3 launches (the graph run's,
+    equal to the eager run's) for the kernels line, one set a scoring call
+    (``want_calls[name]``)."""
+    for name, calls in want_calls.items():
+        got = [k for k in records[name]["graph"]["by_key"] if "write" in k]
+        check(got == [{"counts": calls, "write": calls, "gather": calls}],
+              f"{name}: G1-G3 launches {got} != one set a scoring call ({calls})")
+        ROWS_PATHS[f"graph_{name}"] = got[0]
+
+
+def rows_case(label, sc, f_max, states=None, union=True, mh=False, uniform_m=0):
+    """A shape of phase 3g: member rows at bucket ``f_max`` as a path
+    extracts them (``union``: the repeat-free delta EM step's; else each
+    neighbour on its own, the repeat engine's and the delta MTM / MH
+    steps') from ``states`` (fields (C, n); the set-up's shuffled start by
+    default). ``draw(gen)`` draws a scoring call's (f_a (C,), neighbours
+    (C, m)) as the path draws them (D2's draw from ``sc``'s runner; E1's
+    neighbour set for MH), or ``uniform_m`` neighbours uniform over the
+    genome; f_a half among repeat copies on a repeat genome; one call in
+    eight puts fA itself among the neighbours, one in eight puts two slots
+    on one contig."""
+    import torch
+    from graal_tpu_torch.core import mcmc, mtm
+    from graal_tpu_torch.core.state import GenomeState
+
+    runner = sc["runner"]
+    if states is None:
+        states = GenomeState(*[x[None] for x in sc["shuf"]])
+    one = GenomeState(*[x[0] for x in states])
+    n = one.n_frags
+    device = one.pos.device
+    rep = torch.nonzero(one.rep == 1).reshape(-1)
+    every = torch.arange(n, device=device)
+    pivots = torch.cat([rep.repeat(max(1, n // len(rep))), every]) if len(rep) else every
+    jump = runner.jump_table(MTM_DELTA, n) if mh else None
+    c = states.pos.shape[0]
+    calls = [0]
+
+    def draw(gen):
+        f_a = pivots[torch.randint(len(pivots), (c,), generator=gen, device=device)]
+        if uniform_m:
+            ids = torch.randint(n, (c, uniform_m), generator=gen, device=device)
+        elif mh:
+            ids = mtm.move_set(one, f_a[0], jump, f_a[0])[0][None].long()
+        else:
+            u = mcmc.draw_step_inputs(gen, runner.nb, DELTA, (c,)).u_nb
+            ids = mcmc.sample_neighbours(u, f_a, states, runner.nb, DELTA)[0].long()
+        calls[0] += 1
+        if calls[0] % 8 == 1:
+            ids[:, 0] = f_a
+        elif calls[0] % 8 == 5 and ids.shape[1] > 1:
+            ids[:, 1] = ids[:, 0]
+        return f_a, ids.contiguous()
+
+    return dict(label=label, states=states, f_max=min(f_max, n), union=union, draw=draw,
+                chains=c, n=n)
+
+
+def rows_plain(case, f_a, ids):
+    """The plain extraction of a shape's mode and the chains' maxima."""
+    from graal_tpu_torch.core import delta
+
+    fn = delta.extract_rows_union_plain if case["union"] else delta.extract_rows_each_plain
+    states = case["states"]
+    return (*fn(states, f_a, ids, case["f_max"]), states.id_c.amax(-1))
+
+
+def check_rows_kernels(case, gen, n_draws=ROWS_DRAWS):
+    """G1-G3 against their plain versions on ~``n_draws`` random (chain,
+    slot) draws of one shape: rows (padding included), valid, overflow,
+    max_id and the 11 mini-state fields bit for bit; the differences
+    counted on the card and read once. Returns (stats, the last call's
+    (f_a, ids))."""
+    import torch
+    from graal_tpu_torch.core import delta
+
+    states, f_max = case["states"], case["f_max"]
+    rows_k = rows_wrapper()
+    dev = states.pos.device
+    bad = torch.zeros((), dtype=torch.int64, device=dev)
+    over = torch.zeros((), dtype=torch.int64, device=dev)
+    partial = torch.zeros((), dtype=torch.int64, device=dev)
+    n_calls = slots = 0
+    while slots < n_draws:
+        f_a, ids = case["draw"](gen)
+        got = rows_k.extract(states.id_c, f_a, ids, f_max, case["union"])
+        want = rows_plain(case, f_a, ids)
+        for g, w in zip(got, want):
+            check(g.shape == w.shape and g.dtype == w.dtype,
+                  f"{case['label']}: {tuple(g.shape)} {g.dtype} != {tuple(w.shape)} {w.dtype}")
+            bad += (g != w).sum()
+        mini = rows_k.gather(states, got[0], got[1])
+        plain = delta.gather_mini_plain(states, got[0], got[1])
+        bad += (mini != torch.stack(list(plain))).sum()
+        over += got[2].sum()
+        partial += (got[1].sum(-1) < f_max).sum()
+        n_calls += 1
+        slots += ids.numel()
+    stats = dict(calls=n_calls, slots=slots, overflowed=int(over), padded=int(partial),
+                 differences=int(bad))
+    return stats, (f_a, ids)
+
+
+def rows_bound(case, out, chunk):
+    """The least time of G1, G2 and G3 on one call (:func:`bound`, bytes):
+    G1 reads the chains' id_c and writes its counts, sorted keys and chunk
+    maxima; G2
+    reads those and the id_c of the chunks that hold an output row, and
+    writes rows (8 bytes), valid, overflow and max_id; G3 reads rows and
+    valid and the 11 fields of each distinct (chain, row) it gathers, and
+    writes the (11, C, m, f_max) int32 mini-states."""
+    import torch
+
+    rows, valid = out[0], out[1]
+    c, m, f_max = rows.shape
+    n = case["n"]
+    n_chunks = -(-n // chunk)
+    scratch = c * ((m + 1) * (n_chunks + 1) + n_chunks) * 4   # counts, sorted keys, maxima
+    ch = torch.arange(c, device=rows.device)[:, None]
+    chunks = int(torch.unique(ch * n_chunks + (rows.reshape(c, -1) // chunk)).numel())
+    distinct = int(torch.unique(ch * n + rows.reshape(c, -1)).numel())
+    g1 = c * n * 4 + c * (m + 1) * 8 + scratch
+    g2 = scratch + chunks * chunk * 4 + c * (m + 1) * 8 + rows.numel() * 9 + c * m + c * 4
+    g3 = rows.numel() * 9 + distinct * 11 * 4 + rows.numel() * 11 * 4
+    return bound(g1), bound(g2), bound(g3), dict(chunks_read=chunks, distinct_rows=distinct)
+
+
+def time_rows_kernels(case, f_a, ids):
+    """G1, G2 and G3 alone (each launched from one argument block, outside
+    the wrapper's count), event ms as called and device ms; the plain
+    versions' ms as called and on the device (as graph replays: the
+    extraction with the chains' maxima, and gather_mini_plain); torch.topk
+    on the plain version's genome-length key alone, the library call
+    (mode each: the (C, m, n) members-first key, k = f_max; union: the
+    union's (C, n) key, k = min(n, (m + 1) f_max)); each kernel's bound."""
+    import ctypes
+
+    import torch
+    from graal_tpu_torch.core import delta
+    from graal_tpu_torch.ops import rows_cuda as rc
+
+    states, f_max, union = case["states"], case["f_max"], case["union"]
+    lib = rc.load_library()
+    a, keep, out = rc.extract_args(states.id_c, f_a, ids, f_max, union)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def g1():
+        check(lib.rows_counts(ctypes.byref(a), stream) == 0, "G1 launch failed")
+
+    def g2():
+        check(lib.rows_write(ctypes.byref(a), stream) == 0, "G2 launch failed")
+
+    g1()
+    g2()
+    torch.cuda.synchronize()
+    g, keep_g, _ = rc.gather_args(states, out[0], out[1])
+
+    def g3():
+        check(lib.rows_gather(ctypes.byref(g), stream) == 0, "G3 launch failed")
+
+    b1, b2, b3, counts = rows_bound(case, out, a.chunk)
+    plain_x = functools.partial(rows_plain, case, f_a, ids)
+    plain_g = functools.partial(delta.gather_mini_plain, states, out[0], out[1])
+    n, m = case["n"], ids.shape[1]
+    id_c = states.id_c
+    c_a = id_c.gather(1, f_a[:, None])
+    c_b = id_c.gather(1, ids)
+    if union:
+        memb = (id_c[:, :, None] == torch.cat([c_a, c_b], 1)[:, None, :])
+        fits = memb.sum(1, keepdim=True) <= f_max
+        key = delta._member_key((memb & fits).any(-1), n)
+        k = min(n, (m + 1) * f_max)
+    else:
+        member = (id_c[:, None, :] == c_a[:, :, None]) | (id_c[:, None, :] == c_b[:, :, None])
+        key, k = delta._member_key(member, n), f_max
+    library = timed(lambda: torch.topk(key, k, dim=-1, sorted=True), ROWS_TIME_ITERS)
+    rec = {}
+    for name, fn, b, plain in (("counts", g1, b1, plain_x), ("write", g2, b2, plain_x),
+                               ("gather", g3, b3, plain_g)):
+        t = timed(fn, ROWS_TIME_ITERS)
+        t.update(plain_ms=cuda_ms(plain, 5, n_warm=1), plain_device_ms=graph_device_ms(plain, 20),
+                 library_ms=library["ms"] if name == "write" else None,
+                 library_device_ms=library["device_ms"] if name == "write" else None)
+        rec[name] = with_share(t, b)
+    pair = timed(lambda: rows_wrapper().extract(states.id_c, f_a, ids, f_max, union),
+                 ROWS_TIME_ITERS)
+    del keep, keep_g
+    return rec, pair, library, dict(counts, chunk=a.chunk, n_chunks=a.n_chunks, k=k)
+
+
+def rows_shape(case, gen, n_draws=ROWS_DRAWS):
+    """Phase 3g's check and timing of one shape; the record (kept in
+    ROWS_SHAPES under the shape's label) and its printed summary."""
+    stats, (f_a, ids) = check_rows_kernels(case, gen, n_draws)
+    times, pair, library, counts = time_rows_kernels(case, f_a, ids)
+    c, m = ids.shape
+    mode = "union" if case["union"] else "each"
+    print(f"  {case['label']}: {mode}, n = {case['n']}, C = {c}, m = {m} (M = {c * m}), f_max "
+          f"{case['f_max']}; {stats['calls']} calls, {stats['slots']} slots, overflowed "
+          f"{stats['overflowed']}, padded {stats['padded']}; differences "
+          f"{stats['differences']}; last call {json.dumps(counts)}")
+    for k, (name, rec) in enumerate(times.items()):
+        print(f"    G{k + 1} {name}: {rec['device_ms']:.4f} device ms ({rec['ms']:.4f} as called); "
+              f"{fmt_bound(rec)}; plain {rec['plain_device_ms']:.4f} device ms as graph "
+              f"replays ({rec['plain_ms']:.4f} as called)")
+    print(f"    G1 + G2 through the wrapper {pair['device_ms']:.4f} device ms ({pair['ms']:.4f} "
+          f"as called); torch.topk on the plain version's key alone (k = {counts['k']}) "
+          f"{library['device_ms']:.4f} device ms ({library['ms']:.4f} as called)")
+    check(stats["differences"] == 0,
+          f"{case['label']}: {stats['differences']} values of G1-G3 differ from plain")
+    rec = dict(stats=stats, kernels=times, pair=pair, library=library, counts=counts, M=c * m,
+               f_max=case["f_max"], n=case["n"], chains=c, mode=mode)
+    ROWS_SHAPES[case["label"]] = rec
+    return rec
+
+
+def phase_rows_kernels(device, sc, rsc):
+    """3g. The member-row kernels G1 (counts), G2 (the ordered write) and
+    G3 (the mini-state gather) against their plain versions on ROWS_DRAWS
+    random (chain, slot) draws at every delta path's shape: the 100k delta
+    EM step (union, M = 5, f_max F_MAX), its 4 chains (M = 20), the 100k
+    delta MTM pass (each, m = 7), the 20k repeat step (each, M = 10) and 4
+    repeat chains (M = 40); the edge shapes: the 100k truth (contigs of
+    5,000 above f_max: every pair overflows), f_max = n on a 2,000-fragment
+    cut of the repeat problem's genome, and u_cap = n (the 20k repeat
+    genome in union mode at bucket 4,096, (m + 1) f_max > n), and the
+    repeat delta EM step at m = 80 (2 to ROW_COPIES copies a duplicated
+    bin: more keys than 64), which is then driven on the card
+    (:func:`rows_many_copies_steps`); each shape timed against the plain
+    versions and torch.topk."""
+    import torch
+    from graal_tpu_torch.core.state import GenomeState
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 70)
+    print(f"member-row kernels G1 (counts), G2 (write), G3 (gather) vs plain, ~{ROWS_DRAWS} "
+          "slots a shape, every output bit for bit")
+    cut = GenomeState(*[x[None, :EDGE_N] for x in rsc["shuf"]])
+    cases = [rows_case("delta_100k_em", sc, F_MAX),
+             rows_case("delta_100k_em_4_chains", sc, F_MAX, states=chain_starts(sc)),
+             rows_case("delta_100k_mtm", sc, F_MAX, union=False, mh=True),
+             rows_case("repeat_20k_em", rsc, F_MAX, union=False),
+             rows_case("repeat_20k_em_4_chains", rsc, F_MAX, states=chain_starts(rsc),
+                       union=False),
+             rows_case("delta_100k_truth", sc, F_MAX,
+                       states=GenomeState(*[x[None] for x in sc["truth"]])),
+             rows_case(f"f_max_n_{EDGE_N}", rsc, EDGE_N, states=cut, union=False, uniform_m=5),
+             rows_case(f"f_max_n_{EDGE_N}_union", rsc, EDGE_N, states=cut, uniform_m=5),
+             rows_case(f"u_cap_n_20k_{TOP_F_MAX}", rsc, TOP_F_MAX)]
+    many = many_copies_setup(device, ROW_COPIES)
+    cases.append(rows_case(f"repeat_20k_em_{ROW_COPIES}_copies", many, F_MAX, union=False))
+    out = {case["label"]: rows_shape(case, gen) for case in cases}
+    rows_many_copies_steps(many)
+    return out
+
+
+def many_copies_setup(device, most):
+    """The 20k repeat problem with 2 to ``most`` copies of each duplicated
+    bin, its runner, and the repeat delta EM step's slot count m = (DELTA
+    + 1) x most."""
+    from graal_tpu_torch.entry import scale_repeat_problem
+    from graal_tpu_torch.scale import ScaleRunner
+
+    extra = [k % (most - 1) + 1 for k in range(REPEAT_DUPS)]
+    truth, shuf, table, params, sobs, id_d = scale_repeat_problem(
+        EXACT_BINS, REPEAT_DUPS, copies=extra, device=device)
+    runner = ScaleRunner(table, sobs, params, id_d=id_d)
+    m = (DELTA + 1) * runner.nb.max_copies
+    check(runner.nb.max_copies == most and m >= 65,
+          f"{most} copies a bin: max_copies {runner.nb.max_copies}, m = {m}")
+    return dict(truth=truth, shuf=shuf, table=table, params=params, sobs=sobs, runner=runner,
+                n=truth.n_frags, m=m)
+
+
+def rows_many_copies_steps(mc):
+    """3g: the repeat delta EM step at m >= 65 neighbour slots on the card
+    (the many-copy problem): the repeat exactness twin's steps (4 repeat
+    copies, 3 originals, 3 contig extremities), each re-anchored (the
+    carried likelihood within max(0.5, 1e-6 |L|)), with one G1 + G2 pair
+    and one G3 launch a step and one F1 + F2 pair."""
+    import numpy as np
+    import torch
+    from graal_tpu_torch.core import delta
+
+    runner, truth, shuf = mc["runner"], mc["truth"], mc["shuf"]
+    step = delta.make_delta_em_step(mc["table"], None, runner.nb, DELTA, F_MAX, sobs=mc["sobs"],
+                                    rep=truth.rep)
+    rep = truth.rep.cpu().numpy()
+    rng = np.random.default_rng(SEED + 72)
+    copies = np.arange(EXACT_BINS, truth.n_frags)
+    originals = np.nonzero(rep[:EXACT_BINS] == 1)[0]
+    order = np.concatenate([rng.permutation(copies)[:4], rng.permutation(originals)[:3],
+                            rng.permutation(extremities(shuf))[:3]])
+    torch.cuda.synchronize()
+    rows_wrapper().n_launches = corr_wrapper().n_launches = 0
+    exactness_steps(f"repeat delta EM at m = {mc['m']} ({ROW_COPIES} copies a bin)", step,
+                    runner.anchor_fn(), shuf, mc["params"], order, rep=rep)
+    torch.cuda.synchronize()
+    path = f"repeat_em_{ROW_COPIES}_copies"
+    want_rows_launches(path, rows_launches(), len(order))
+    want_corr_launches(path, corr_launches(), len(order))
+
+
+def phase_rows_top(sc):
+    """(``--top-tiers``) G1-G3 at f_max 16,384: 4 chains from the truth
+    (M = 20), union mode as the chains' delta EM step extracts them."""
+    import torch
+    from graal_tpu_torch.core.state import GenomeState
+
+    gen = torch.Generator(device=sc["truth"].pos.device).manual_seed(SEED + 71)
+    states = GenomeState(*[x.expand(CHAINS, -1).contiguous() for x in sc["truth"]])
+    return rows_shape(rows_case(f"delta_100k_4_chains_{TOP_TIERS[1]}", sc, TOP_TIERS[1],
+                                states=states), gen)
+
+
+def rows_records():
+    """The kernels line's entries of G1 (rows_counts), G2 (rows_write) and
+    G3 (rows_gather): the 100k delta EM step's numbers, phase 3g's other
+    shapes under "by_shape", and under "by_path" each delta path's
+    launches counted on the card, whose sum is the top-level count;
+    "max_abs_err" 0 (every output bit for bit; a difference fails 3g);
+    G2's "library_ms" torch.topk's on the plain version's key."""
+    out = []
+    flagship = ROWS_SHAPES["delta_100k_em"]
+    for kind, name, line in (("counts", "rows_counts", 100), ("write", "rows_write", 121),
+                             ("gather", "rows_gather", 179)):
+        paths = {path: by_key[kind] for path, by_key in ROWS_PATHS.items() if by_key.get(kind)}
+        check(paths, f"no main path launched the {name} kernel")
+        rec = dict(flagship["kernels"][kind], max_abs_err=0, by_path=paths,
+                   by_shape={label: r["kernels"][kind] for label, r in ROWS_SHAPES.items()
+                             if label != "delta_100k_em"})
+        library = rec.pop("library_ms")
+        entry = kernel_record(name, "rows.cu", f"graal_tpu/core/delta.py:{line}",
+                              sum(paths.values()), rec)
+        entry["library_ms"] = library
+        out.append(entry)
+    return out
+
+
 def phase_graphs(device, sc, rsc):
     """7g. Each main path's cycle as a captured graph against the same
     cycle run eagerly (capture=False), on the same inputs: the dense
@@ -5605,6 +6038,8 @@ def phase_graphs(device, sc, rsc):
                            nuisance=name == "dense_flagship", delta=name != "dense_flagship")
     catalogue_paths(out)
     corr_paths(out, {"repeat_delta_20k": MAIN_STEPS + 128})
+    rows_paths(out, {name: MAIN_STEPS + 128
+                     for name in ("delta_100k", "chains_100k", "repeat_delta_20k")})
     return out
 
 
@@ -5612,11 +6047,14 @@ def phase_graphs_top(sc):
     """11g. Graph against eager on 11e's 4 chains at bucket 16,384 (the
     truth, M = 20), with the peak memory of each."""
     print(f"graph vs eager at bucket {TOP_TIERS[1]}: {CHAINS} chains from the truth")
-    return {f"chains_top_{TOP_TIERS[1]}": graph_vs_eager(
+    name = f"chains_top_{TOP_TIERS[1]}"
+    out = {name: graph_vs_eager(
         f"{CHAINS} chains at bucket {TOP_TIERS[1]} (M = 20)",
         *delta_graph_case(sc, chains=CHAINS, f_max=TOP_TIERS[1],
                           steps=(TOP16_CHAIN_STEPS, TOP16_CHAIN_STEPS // 2),
                           start=sc["truth"]))}
+    rows_paths(out, {name: TOP16_CHAIN_STEPS + TOP16_CHAIN_STEPS // 2})
+    return out
 
 
 def tempered_graph_case(device, n_bins=384):
@@ -5728,7 +6166,7 @@ def delta_mtm_graph_case(sc, variant):
                                     rep=start.rep, capture=capture)
 
     return build, move_chunks(start, params, l0, jump, gen), repeat_kernels(sc) + [
-        mini, grid, catalogue_wrapper(), move_wrapper()]
+        rows_wrapper(), mini, grid, catalogue_wrapper(), move_wrapper()]
 
 
 def cycle_end_graph_case(sc, n_cycles=4):
@@ -5768,13 +6206,14 @@ def run_mtm_memory(runner, start, steps, f_max_min, label):
     torch.cuda.empty_cache()
     before = torch.cuda.memory_allocated()
     peak = PeakMemory()
-    move_wrapper().n_launches = 0
+    move_wrapper().n_launches = rows_wrapper().n_launches = 0
     t0 = time.perf_counter()
     final, l_t, m = runner.run_mtm(start, n_cycles=1, steps_per_cycle=steps,
                                    f_max_min=f_max_min, progress=False)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     want_move_launches(f"run_mtm {label}", move_launches(), steps)
+    want_rows_launches(f"run_mtm {label}".replace(" ", "_"), rows_launches(), 2 * steps)
     peak_gb = peak.read(f"{label}, run_mtm at bucket {m['f_max'][0]}")[0]
     del final
     torch.cuda.empty_cache()
@@ -5838,12 +6277,14 @@ def phase_graphs_samplers(device, sc, rsc):
         f"20k repeat delta MH (B4 + B2, M = 7), f_max {F_MAX}",
         *delta_mtm_graph_case(rsc, "mh"), sync_error=True)
     corr_want = [{"frozen": 2 * steps, "sums": 2 * steps}]   # two scoring calls a step
+    rows_want = [{"counts": 2 * steps, "write": 2 * steps, "gather": 2 * steps}]
     for name, corr in (("delta_mtm_100k", []), ("delta_mh_repeat_20k", corr_want)):
-        launched(out[name], corr + [{"None": 2 * steps}] * 2 + [{"mh": 2 * steps}, move_want],
-                 name)
+        launched(out[name], corr + rows_want + [{"None": 2 * steps}] * 2
+                 + [{"mh": 2 * steps}, move_want], name)
         MOVE_PATHS[f"graph_{name}"] = out[name]["graph"]["by_key"][-1]
     catalogue_paths(out)
     corr_paths(out, {"delta_mh_repeat_20k": 2 * steps})
+    rows_paths(out, {name: 2 * steps for name in ("delta_mtm_100k", "delta_mh_repeat_20k")})
     out["cycle_end_100k"] = graph_vs_eager(
         "100k ScaleRunner.run cycle end (re-anchor + nuisance step)",
         *cycle_end_graph_case(sc), sync_error=True)
@@ -6062,6 +6503,7 @@ def kernels_line(dense, dense_launches, repeat, repeat_launches, delta, mini_lau
         *step_records(step),
         *move_records(move),
         *corr_records(),
+        *rows_records(),
     ]}
 
 
@@ -6089,6 +6531,7 @@ def main():
     step = phase("3d D1 D2 D3", phase_step_kernels, device, sc, rsc)
     move = phase("3e E1 E2 E3", phase_move_kernels, device, sc, rsc)
     phase("3f F1 F2", phase_corr_kernels, device, rsc)
+    phase("3g G1 G2 G3", phase_rows_kernels, device, sc, rsc)
     dense = phase("2-3 B1", phase_kernel, device)
     dense_launches = phase("4 dense main", phase_main, device)
     repeat = phase("4a B3", phase_repeat_kernel, device)
@@ -6156,6 +6599,7 @@ def main_top():
     graphs["run_mtm_top"] = phase("11h run_mtm top", phase_mtm_top, sc)
     step_top = phase("3d D3 top", phase_step_top, sc)
     move_top = phase("3e E1-E3 top", phase_move_top, sc)
+    rows_top = phase("3g G1-G3 top", phase_rows_top, sc)
     crossover = phase("5c routes", phase_crossover, sc)
     del sc
     rsc = phase("set-up 20k repeat", scale_repeat_setup, device)
@@ -6165,7 +6609,7 @@ def main_top():
     print(json.dumps({"tiers": {k: delta_timing[k]["tiers"] for k in ("ll_mini", "obsgrid")},
                       "routes": crossover, "run_top": top, "run_chains_top": top_chains,
                       "graphs": graphs, "step_top": step_top, "move_top": move_top,
-                      "corr_top": corr_top}))
+                      "corr_top": corr_top, "rows_top": rows_top}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -18,9 +18,12 @@ writes the winner back. Candidates whose contigs exceed ``f_max`` are
 excluded from selection through the validity mask; callers grow f_max
 between cycles as contigs coalesce.
 
-Two kernels carry the step on the card, each behind a wrapper that runs
-its plain torch version on CPU tensors:
+Kernels carry the step's scoring on the card, each behind a wrapper
+whose plain torch version runs on CPU tensors:
 
+- the member rows and mini-states (:data:`graal_tpu_torch.ops.rows_cuda.ROWS`,
+  G1-G3): each neighbour's rows in one ordered pass over the genome, and
+  the 11 fields gathered at them;
 - the window obs grid (:class:`graal_tpu_torch.ops.obsgrid_cuda.WindowObsGrid`):
   the D rows' CSR windows, read from the observed map in place, made dense
   over the D sub rows, with base activity folded into the keys;
@@ -61,6 +64,7 @@ from graal_tpu_torch.ops import mini_grid_cuda
 from graal_tpu_torch.ops.likelihood_cuda import N_PARAMS, params_vector
 from graal_tpu_torch.ops.mini_grid_cuda import MiniGridScorer, log_cis_plain
 from graal_tpu_torch.ops.obsgrid_cuda import WindowObsGrid
+from graal_tpu_torch.ops.rows_cuda import ROWS
 from graal_tpu_torch.ops.step_cuda import STEP
 
 class MiniTable(NamedTuple):
@@ -122,7 +126,17 @@ def extract_rows_each(state: GenomeState, f_a, ids, f_max: int):
     f_max), valid (m, f_max), overflow (m,)), each row equal to
     ``extract_rows(state, f_a, ids[i], f_max)``, padding included. With a
     chains axis (``state`` fields (C, n), ``f_a`` (C,), ``ids`` (C, m))
-    every chain at once: (C, m, f_max), (C, m, f_max), (C, m)."""
+    every chain at once: (C, m, f_max), (C, m, f_max), (C, m).
+    :func:`extract_rows_each_plain`'s result, by kernels G1 / G2 when the
+    state is on a card."""
+    if state.id_c.device.type != "cuda":
+        return extract_rows_each_plain(state, f_a, ids, f_max)
+    return _rows_on_card(state, f_a, ids, f_max, False)[:3]
+
+
+def extract_rows_each_plain(state: GenomeState, f_a, ids, f_max: int):
+    """:func:`extract_rows_each` in plain torch: a (C, m, n) membership
+    compare and a top-k of the members-first key over the genome."""
     single, id_c, c_a, ids = _chain_args(state, f_a, ids)
     c_b = id_c.gather(1, ids)                                  # (C, m)
     member = (id_c[:, None, :] == c_a[:, :, None]) | (id_c[:, None, :] == c_b[:, :, None])
@@ -142,7 +156,17 @@ def extract_rows_union(state: GenomeState, f_a, ids, f_max: int):
     with the member sets and order of :func:`extract_rows`; overflow comes
     from counted membership. With a chains axis, as
     :func:`extract_rows_each` takes it, each chain's union on its own in
-    one batched top-k: (C, m, f_max), (C, m, f_max), (C, m)."""
+    one batched top-k: (C, m, f_max), (C, m, f_max), (C, m).
+    :func:`extract_rows_union_plain`'s result, padding included, by kernels
+    G1 / G2 when the state is on a card."""
+    if state.id_c.device.type != "cuda":
+        return extract_rows_union_plain(state, f_a, ids, f_max)
+    return _rows_on_card(state, f_a, ids, f_max, True)[:3]
+
+
+def extract_rows_union_plain(state: GenomeState, f_a, ids, f_max: int):
+    """:func:`extract_rows_union` in plain torch: the union's top-k over
+    the genome, then each neighbour's top-k over the union."""
     n = state.n_frags
     dev = state.pos.device
     single, id_c, c_a, ids = _chain_args(state, f_a, ids)
@@ -169,6 +193,30 @@ def extract_rows_union(state: GenomeState, f_a, ids, f_max: int):
     return tuple(x[0] for x in out) if single else out
 
 
+def extract_rows_max(state: GenomeState, f_a, ids, f_max: int, union: bool):
+    """The delta EM step's extraction on a chains axis (``state`` fields
+    (C, n), ``f_a`` (C,), ``ids`` (C, m)): :func:`extract_rows_union`
+    (``union``) or :func:`extract_rows_each`, and each chain's largest
+    contig id (C,), the catalogue's ``max_id``. On a card one G1 / G2 pair
+    gives all four; elsewhere the extraction and ``id_c.amax(-1)``."""
+    if state.id_c.device.type != "cuda":
+        rows = (extract_rows_union_plain if union else extract_rows_each_plain)(
+            state, f_a, ids, f_max)
+        return (*rows, state.id_c.amax(-1))
+    return _rows_on_card(state, f_a, ids, f_max, union)
+
+
+def _rows_on_card(state: GenomeState, f_a, ids, f_max: int, union: bool):
+    """G1 / G2 through :data:`ROWS`: (rows, valid, overflow, max_id), one
+    chain (``f_a`` 0-d) lifted to a chains axis of one and dropped after."""
+    dev = state.id_c.device
+    f_a = torch.as_tensor(f_a, device=dev).long()
+    single = f_a.dim() == 0
+    id_c, ids = (state.id_c[None], ids[None]) if single else (state.id_c, ids)
+    out = ROWS.extract(id_c, f_a.reshape(-1), ids.long(), f_max, union)
+    return tuple(x[0] for x in out) if single else out
+
+
 _PAD_FIELDS = dict(pos=0, start_bp=0, l_cont=1, l_cont_bp=1, circ=0, ori=1,
                    activ=0, rep=0)
 
@@ -191,8 +239,21 @@ def gather_mini(state: GenomeState, rows, valid) -> GenomeState:
     """Gather each chain's mini-states at ``rows`` (C, ..., f_max) from its
     own genome (``state`` fields (C, n); a single genome goes through
     :func:`lift_chain`); padding rows become inert inactive singletons with
-    unique negative contig ids. All 11 fields ride one gather of a stacked
-    (C, n, 11) matrix."""
+    unique negative contig ids. :func:`gather_mini_plain`'s result, by
+    kernel G3 when the rows are on a card (each field a contiguous slice of
+    one (11, C, ..., f_max) output)."""
+    if rows.device.type != "cuda":
+        return gather_mini_plain(state, rows, valid)
+    return _gather_on_card(state, rows, valid)
+
+
+def _gather_on_card(state: GenomeState, rows, valid) -> GenomeState:
+    return GenomeState(*ROWS.gather(state, rows, valid).reshape((-1,) + rows.shape).unbind(0))
+
+
+def gather_mini_plain(state: GenomeState, rows, valid) -> GenomeState:
+    """:func:`gather_mini` in plain torch: all 11 fields ride one gather of
+    a stacked (C, n, 11) matrix, then the padding's fills."""
     f_max = rows.shape[-1]
     ch = torch.arange(rows.shape[0], device=rows.device)
     got = torch.stack(list(state), dim=-1)[ch.reshape((-1,) + (1,) * (rows.dim() - 1)),
@@ -637,12 +698,11 @@ def make_delta_em_step(table: SubFragTable, obs, nb, delta: int, f_max: int,
             sobs = sparse_from_dense(obs, device=table.owner.device)
         scorer = delta_repeats.make_repeat_delta_scorer_v2(
             table, f_max, sobs, rep, obs_grid=obs_grid, mini_grid=mini_grid)
-        extract = extract_rows_each
     else:
         scorer = make_delta_scorer(table, obs, f_max, sobs=sobs,
                                    band_w=effective_band_w(band_w, table, f_max),
                                    obs_grid=obs_grid, mini_grid=mini_grid)
-        extract = extract_rows_union
+    union = not table.has_repeats
 
     def step(state: GenomeState, rng, params: RippeParams, l_t, f_a, f_t, inplace=False):
         """``inplace``: on a card, commit into ``state``'s own tensors and
@@ -661,8 +721,7 @@ def make_delta_em_step(table: SubFragTable, obs, nb, delta: int, f_max: int,
 
     def chains_step(state: GenomeState, rng, f_a, params: RippeParams, f_t, inplace):
         ids, valid = sample_neighbours(rng.u_nb, f_a, state, nb, delta)
-        max_id = state.id_c.amax(-1)
-        rows_b, valid_b, over_b = extract(state, f_a, ids, scorer.f_max)
+        rows_b, valid_b, over_b, max_id = extract_rows_max(state, f_a, ids, scorer.f_max, union)
         dll, minis, rows, rows_valid, overflow = scorer.score(
             state, f_a, ids, rows_b, valid_b, over_b, params, max_id)
         new_state, d_sel, out, _ = select_commit_delta(

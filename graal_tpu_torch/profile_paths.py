@@ -52,7 +52,8 @@ Prints one JSON line per path and mode (``mode``: graph or eager):
   step, calls per step]}: ``catalogue`` (C1 / C2, the candidate
   catalogues), ``mtm`` (E1-E3: the MTM / MH step's neighbour set, draw
   and acceptance), ``corr`` (F1 / F2: the repeat engine's copy
-  corrections), ``step`` (D1-D3: the nuisance move, the neighbour draw,
+  corrections), ``rows`` (G1-G3: the delta steps' member rows and
+  mini-states), ``step`` (D1-D3: the nuisance move, the neighbour draw,
   the selection and commit), ``scorers`` (B1-B4), ``gather`` (gathers, scatters and
   index kernels), ``elementwise`` (torch's elementwise kernels),
   ``reduce``, ``copy`` (memcpy, memset) and ``other``; a step's count of
@@ -256,6 +257,7 @@ def chains_runner(device, repeat: bool, capture: bool):
 KERNEL_CLASSES = (("catalogue", ("catalogue",)),
                   ("mtm", ("mtm_set_kernel", "mtm_draw_kernel", "mtm_accept_kernel")),
                   ("corr", ("corr_frozen_kernel", "corr_sums_kernel")),
+                  ("rows", ("rows_counts_kernel", "rows_write_kernel", "rows_gather_kernel")),
                   ("step", ("nuisance_propose_kernel", "nuisance_accept_kernel",
                             "neighbours_kernel", "select_commit_")),
                   ("scorers", ("ll_dense", "ll_mini", "ll_repeat", "obsgrid")),
