@@ -175,6 +175,31 @@ written. "share" is the bound over the device time.
    9e, 9f's ``scale --allow-repeats``, 11a, 11b, 11e, 11g and 11h count one
    G1 + G2 pair and one G3 launch a scoring call (two a delta MTM / MH
    step).
+3h. The dense scorers' vector kernel H1 (vectors_kernel) and the captured
+   cycle's load and store kernels H2 (scan_load_kernel) and H3
+   (scan_store_kernel; csrc/vectors.cu, csrc/scan_io.cu). H1 against its
+   plain versions (the scorer's ``vectors_plain`` and ``params_vector``,
+   torch on the card) at every dense path's shape: the flagship EM step
+   (B = 65) and its nuisance call (B = 1, an ``x[None]`` view), the dense
+   repeat step (B3, B = 130, with the copy-order ``a`` column, and B = 1),
+   4 tempered chains (B = 260), an MTM pass at K = 972 (B = 91), K = 2,901
+   (B = 65) and K = 6,000 (B = 13): mid, idc, circ, stot, a and the
+   parameter row bit for bit, each shape timed (H1 alone from one argument
+   block; the plain version's ms as called and as graph replays) beside
+   its bound in bytes. H2 / H3 against ``scan_load_plain`` /
+   ``scan_store_plain`` on the trees every sampler's Scan builds (dense EM,
+   tempered, dense MTM and MH, the 100k delta EM cycle and its 4 chains,
+   the 20k repeat delta cycle, the 100k delta MTM and 20k repeat delta MH
+   cycles, the runner's cycle end): each cycle run eagerly on the card for
+   its first call, every step's load and store done by the kernels into
+   the scan's buffers and by the plain versions into copies of them, every
+   byte compared; one H2 and one H3 launch a step; each tree's first step
+   timed (H2 and H3 alone from their tables, the plain versions as called
+   and as graph replays, and for H3 ``torch._foreach_copy_`` on the same
+   carry leaves, the one PyTorch call for those copies) beside the bound
+   of the bytes copied. Phases 4, 4b, 7, 7b, 7g and 7h count one H2 and
+   one H3 launch a captured step and one H1 launch a dense scoring call
+   (graph == eager by key).
 3. Dense kernel B1 (ll_dense) vs plain: the dense scorer kernel against its
    plain torch version on the same inputs, rtol 1e-4 (bench.py's
    standard), at the flagship K = 1,152 on 65-candidate batches built on
@@ -477,7 +502,16 @@ written. "share" is the bound over the device time.
    sort, in the jitted step) at the 100k delta EM step's shape (union,
    M = 5, f_max 1,024), with phase 3g's other shapes under "by_shape" and
    each delta path's launches under "by_path", summed into the top-level
-   count. Before them, a JSON line
+   count. H1 (vectors) mirrors graal_tpu/ops/likelihood_pallas.py:259
+   (``sub_vectors``, with ``params_vector`` :215 and ``copy_vectors`` :666,
+   fused by XLA into the pallas_call's operands) at the dense flagship EM
+   step's B = 65, H2 (scan_load) and H3 (scan_store) graal_tpu/core/
+   mcmc.py:468 (``lax.scan``, which slices, stacks and aliases inside one
+   XLA program) at the dense flagship EM cycle's step, with phase 3h's
+   other shapes and trees under "by_shape" and each main path's launches
+   under "by_path" (phases 4, 4b, 7, 7b and the graphed cycles of 7g /
+   7h), summed into the top-level count; H3's library_ms is
+   torch._foreach_copy_'s on the same carry leaves. Before them, a JSON line
    of phase 5c's routes. (``--top-tiers``
    adds D3's delta entry on 4 chains at 16,384, M = 20, and E1-E3 at the
    16,384 bucket to its line.)
@@ -572,6 +606,11 @@ EDGE_N = 2000               # 3g's f_max = n shapes: a cut of the 20k repeat gen
 ROW_COPIES = 16             # 3g: most copies of a bin in the m >= 65 shape (2 to 16: m = 80)
 ROWS_PATHS = {}             # each delta path's G1-G3 launches by key (the kernels line)
 ROWS_SHAPES = {}            # phase 3g's shapes and --top-tiers' f_max 16,384 one
+VEC_TIME_ITERS = 200
+SCAN_TIME_ITERS = 200
+VEC_SHAPES = {}             # phase 3h's H1 shapes
+SCAN_TREES = {}             # phase 3h's H2 / H3 trees, one a sampler's Scan
+IO_PATHS = {}               # each main path's H1-H3 launches by key (the kernels line)
 CLI_CHAIN_STEPS = 128       # scale --chains steps a chain a cycle (11c)
 SMALL_BINS = 576            # 11c's run --profile dataset (level 2 ~60 bins)
 CLI_WATCH_STEPS = 64        # the same with --watch --profile: a traced cycle is slow
@@ -1124,7 +1163,7 @@ def main_path_run(device, build, n_cycles):
     cur = mcmc.explode_genome(state)
     torch.cuda.synchronize()
     scorer.n_launches = catalogue_wrapper().n_launches = step_wrapper().n_launches = 0
-    rows_wrapper().n_launches = 0
+    rows_wrapper().n_launches = vectors_wrapper().n_launches = scan_wrapper().n_launches = 0
     l0 = scorer(GenomeState(*[x[None] for x in cur]), params)[0]
     l_t, par = l0, params
     seconds = []
@@ -1147,7 +1186,7 @@ def main_path_run(device, build, n_cycles):
     return dict(state=state, scorer=scorer, cur=cur, par=par, l0=l0, l_t=l_t,
                 seconds=seconds, launches=launches, n=n, nb=nb,
                 catalogue=dict(catalogue_wrapper().launches.by_key()), step=step_launches(),
-                rows=rows_launches())
+                rows=rows_launches(), io=io_launches())
 
 
 def dense_main_checks(r, n_cycles):
@@ -1167,6 +1206,7 @@ def dense_main_checks(r, n_cycles):
           f"kernel launches {r['launches']} != {want_launches}")
     print(f"  catalogue launches: {r['catalogue']} (one C1 a step: {steps})")
     check(r["catalogue"] == {"em": steps}, f"C1 launches {r['catalogue']} != {steps}")
+    want_io_launches(r["path"], r["io"], steps, want_launches)
     check(check_invariants(r["cur"], raise_on_error=False) == [],
           "final state violates the invariants")
     rescored = scorer(GenomeState(*[x[None] for x in r["cur"]]), r["par"])[0]
@@ -1207,6 +1247,7 @@ def phase_main(device, n_bins=384):
 
     r = main_path_run(device, build, N_CYCLES)
     n = r["n"]
+    r["path"] = "dense_main"
     dense_main_checks(r, N_CYCLES)
     CATALOGUE_PATHS["dense_main"] = r["catalogue"]
     check(r["rows"] == {}, f"the dense main path launched G1-G3: {r['rows']}")
@@ -1343,6 +1384,7 @@ def phase_repeat_main(device, n_bins=384):
         return repeat_problem(n_bins=n_bins, device=dev)
 
     r = main_path_run(device, build, REPEAT_CYCLES)
+    r["path"] = "dense_repeat_main"
     dense_main_checks(r, REPEAT_CYCLES)
     CATALOGUE_PATHS["dense_repeat_main"] = r["catalogue"]
     check(r["rows"] == {}, f"the dense repeat main path launched G1-G3: {r['rows']}")
@@ -1961,7 +2003,7 @@ def scale_main_run(sc):
     torch.cuda.synchronize()
     runner.obs_grid.n_launches = runner.mini_grid.n_launches = 0
     catalogue_wrapper().n_launches = step_wrapper().n_launches = corr_wrapper().n_launches = 0
-    rows_wrapper().n_launches = 0
+    rows_wrapper().n_launches = vectors_wrapper().n_launches = scan_wrapper().n_launches = 0
     t0 = time.perf_counter()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -1973,7 +2015,7 @@ def scale_main_run(sc):
     return dict(cur=cur, l0=l0, l_t=l_t, out=out, seconds=seconds,
                 launches=(runner.mini_grid.n_launches, runner.obs_grid.n_launches),
                 catalogue=dict(catalogue_wrapper().launches.by_key()), step=step_launches(),
-                corr=corr_launches(), rows=rows_launches())
+                corr=corr_launches(), rows=rows_launches(), io=io_launches())
 
 
 def phase_scale_main(sc, label="delta main path"):
@@ -2001,6 +2043,7 @@ def phase_scale_main(sc, label="delta main path"):
     CATALOGUE_PATHS[label.replace(" ", "_")] = r["catalogue"]
     want_step_launches(label, r["step"], MAIN_STEPS, delta=True)
     want_rows_launches(label.replace(" ", "_"), r["rows"], MAIN_STEPS)
+    want_io_launches(label.replace(" ", "_"), r["io"], MAIN_STEPS, 0)
     if sc["table"].has_repeats:
         want_corr_launches("repeat_delta_main", r["corr"], MAIN_STEPS)
     else:
@@ -3699,7 +3742,7 @@ def graph_vs_eager(label, build, chunks, kernels, sync_error=False):
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        for k in kernels:
+        for k in kernels + [vectors_wrapper(), scan_wrapper()]:
             k.n_launches = 0
         cycle = build(capture)
         carry, got, ms = None, [], []
@@ -3711,6 +3754,7 @@ def graph_vs_eager(label, build, chunks, kernels, sync_error=False):
         rec[mode] = dict(ms_per_step=ms, launches=[k.n_launches for k in kernels],
                          by_key=[{str(key): v for key, v in k.launches.by_key().items()}
                                  for k in kernels],
+                         io=io_launches(),
                          peak_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
                          peak_reserved_gb=torch.cuda.max_memory_reserved() / 1e9)
         del cycle, carry, got
@@ -3724,9 +3768,10 @@ def graph_vs_eager(label, build, chunks, kernels, sync_error=False):
           f"{label}: the graphed run differs from the eager run")
     check(g["launches"] == e["launches"] and g["by_key"] == e["by_key"],
           f"{label}: launches {g['by_key']} (graph) != {e['by_key']} (eager)")
+    check(g["io"] == e["io"], f"{label}: H1-H3 launches {g['io']} (graph) != {e['io']} (eager)")
     check(all(x > 0 for x in g["launches"]), f"{label}: a kernel of the path never launched")
     print("    graph == eager bit for bit: states, likelihoods, parameters, metrics"
-          + (f"; launches by key {g['by_key']}" if kernels else "")
+          + (f"; launches by key {g['by_key']}" if kernels else "") + f"; H1-H3 {g['io']}"
           + ("; each run's first call under sync debug mode \"error\"" if sync_error else ""))
     return rec
 
@@ -6010,6 +6055,369 @@ def rows_records():
     return out
 
 
+def vectors_wrapper():
+    """The dense scorers' vector kernel's wrapper (H1, launches keyed
+    "vectors")."""
+    from graal_tpu_torch.ops.vectors_cuda import VECTORS
+
+    return VECTORS
+
+
+def scan_wrapper():
+    """The captured cycle's load / store kernels' wrapper (H2 / H3,
+    launches keyed "load" / "store")."""
+    from graal_tpu_torch.ops.scan_cuda import SCAN
+
+    return SCAN
+
+
+def io_launches():
+    """H1-H3's launches by key, read from the card."""
+    return dict(vectors_wrapper().launches.by_key()) | dict(scan_wrapper().launches.by_key())
+
+
+def want_io_launches(path, got, steps, scorer_calls):
+    """One H2 and one H3 launch a step of a captured cycle (``steps``), and
+    one H1 launch a dense scoring call (``scorer_calls``); the count goes to
+    the kernels line under ``path``."""
+    want = {"load": steps, "store": steps} | ({"vectors": scorer_calls} if scorer_calls else {})
+    print(f"  H1-H3 launches: {got} (one H2 and one H3 a step: {steps}; one H1 a dense "
+          f"scoring call: {scorer_calls})")
+    check(got == want, f"{path}: H1-H3 launches {got} != {want}")
+    IO_PATHS[path] = got
+
+
+def bit_diffs(got, want):
+    """Elements of ``got`` whose bits differ from ``want``'s (each pair of
+    one shape and dtype), counted on the card."""
+    import torch
+
+    bad = torch.zeros((), dtype=torch.int64, device=got[0].device)
+    for g, w in zip(got, want):
+        check(g.shape == w.shape and g.dtype == w.dtype,
+              f"{tuple(g.shape)} {g.dtype} != {tuple(w.shape)} {w.dtype}")
+        u = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}[g.element_size()]
+        bad += (g.contiguous().view(u) != w.contiguous().view(u)).sum()
+    return bad
+
+
+def vectors_bound(scorer, batch, with_row):
+    """H1's least time on one call (:func:`bound`, bytes): the fields it
+    reads of each genome (every fragment owns a sub row), the table's
+    vectors, the parameters, and the (B, K) planes and the row written."""
+    b, n = batch.pos.shape
+    with_a = scorer.accu_rows is not None
+    n_fields = 6 if with_a else 5
+    n_out = 5 if with_a else 4
+    n_bytes = n_fields * b * n * 4 + scorer.k * 4 * (n_out) \
+        + b * scorer.k * 4 * n_out + (10 * 4 + 9 * 4 if with_row else 0)
+    return bound(n_bytes)
+
+
+def vectors_shape(label, scorer, batch, params):
+    """Phase 3h's check and timing of H1 at one dense path's shape: the
+    vectors (``a`` included on a repeat table) and the parameter row, bit
+    for bit the plain versions (``vectors_plain``, ``params_vector``, torch
+    on the card), on the batch and on its first genome as an ``x[None]``
+    view (the nuisance call); then H1 alone from one argument block (event
+    ms as called, device ms), the plain version's ms as called and as graph
+    replays, and the bound."""
+    import ctypes
+
+    import torch
+    from graal_tpu_torch.core.state import GenomeState
+    from graal_tpu_torch.ops import vectors_cuda as vc
+    from graal_tpu_torch.ops.likelihood_cuda import params_vector
+
+    def plain():
+        return scorer.vectors_plain(batch), params_vector(params, scorer.log_nfpb)
+
+    vecs, row = scorer.vectors(batch, params)
+    want, prow = plain()
+    bad = bit_diffs(vecs + (row,), want + (prow,))
+    one = GenomeState(*[x[0][None] for x in batch])
+    bad += bit_diffs(scorer.vectors(one)[0], scorer.vectors_plain(one))
+    a, keep, _ = vc.vectors_args(batch, scorer.sub_rows, params, scorer.log_nfpb)
+    lib = vc.load_library()
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def h1():
+        check(lib.vectors(ctypes.byref(a), stream) == 0, "H1 launch failed")
+
+    t = timed(h1, VEC_TIME_ITERS)
+    t.update(plain_ms=cuda_ms(plain, 5, n_warm=1), plain_device_ms=graph_device_ms(plain, 20),
+             library_ms=None)
+    rec = with_share(t, vectors_bound(scorer, batch, True))
+    b, n = batch.pos.shape
+    differences = int(bad)
+    del keep
+    print(f"  {label}: B = {b}, n = {n}, K = {scorer.k}, vectors {', '.join(scorer.VECTORS)} + "
+          f"row; differences {differences}; H1 {rec['device_ms']:.4f} device ms "
+          f"({rec['ms']:.4f} as called); {fmt_bound(rec)}; plain {rec['plain_device_ms']:.4f} "
+          f"device ms as graph replays ({rec['plain_ms']:.4f} as called)")
+    check(differences == 0, f"{label}: {differences} values of H1 differ from plain")
+    VEC_SHAPES[label] = dict(rec, B=b, n=n, K=scorer.k, differences=differences)
+    return VEC_SHAPES[label]
+
+
+def vectors_cases(device):
+    """(label, scorer, batch, params) of every dense path's H1 shape: the
+    flagship EM step (B = 65 and the nuisance call's B = 1, K = 1,152), the
+    dense repeat step (B3, B = 130, and B = 1), 4 tempered chains (B =
+    260), an MTM pass at K = 972 (B = 91, the CLI's level-2 width), the
+    CLI's level-1 width K = 2,901 (B = 65) and K = 6,000 (B = 13)."""
+    import torch
+    from graal_tpu_torch.core import mcmc
+    from graal_tpu_torch.core.state import GenomeState
+    from graal_tpu_torch.entry import problem, problem_jump_table, repeat_problem
+    from graal_tpu_torch.ops.likelihood_cuda import make_dense_scorer
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 80)
+    state, table, params, obs, nb = problem(n_bins=384, device=device)
+    sc = make_dense_scorer(table, obs, device)
+    start = mcmc.explode_genome(state)
+    flag = candidate_batch(state, nb, 100, gen)
+    check(flag.pos.shape[0] == 65, f"flagship batch {tuple(flag.pos.shape)}")
+    chains = stack([candidate_batch(s, nb, f, gen) for s, f in
+                    ((state, 7), (start, 200), (circularised(state), 0), (start, 383))])
+    yield "dense_flagship_B65", sc, flag, params
+    yield "dense_flagship_B1", sc, GenomeState(*[x[None] for x in start]), params
+    yield "tempered_B260", sc, chains, params
+    rstate, rtable, rparams, robs, rnb = repeat_problem(n_bins=384, device=device)
+    rsc = make_dense_scorer(rtable, robs, device)
+    rep = torch.nonzero(rstate.rep == 1).reshape(-1)
+    rbatch = candidate_batch(rstate, rnb, int(rep[0]), gen)
+    check(rbatch.pos.shape[0] == 130, f"repeat batch {tuple(rbatch.pos.shape)}")
+    yield "dense_repeat_B130", rsc, rbatch, rparams
+    yield "dense_repeat_B1", rsc, GenomeState(*[x[None] for x in mcmc.explode_genome(rstate)]), \
+        rparams
+    mstate, mtable, mparams, mobs, _ = problem(n_bins=324, device=device)
+    jump = problem_jump_table(mstate, mtable, mobs, MTM_DELTA)
+    yield "mtm_B91_K972", make_dense_scorer(mtable, mobs, device), \
+        mtm_batch(mcmc.explode_genome(mstate), jump, 50), mparams
+    cstate, ctable, cparams, cobs, cnb = problem(n_bins=967, device=device)
+    yield "cli_K2901_B65", make_dense_scorer(ctable, cobs, device), \
+        candidate_batch(cstate, cnb, 500, gen), cparams
+    lstate, ltable, lparams, lobs, lnb = problem(n_bins=LARGE_BINS, device=device)
+    yield "large_K6000_B13", make_dense_scorer(ltable, lobs, device), \
+        candidate_batch(lstate, lnb, 11, gen, n_nb=1), lparams
+
+
+def scan_io_check(label, build, chunks):
+    """H2 and H3 against the plain versions on the trees one sampler's
+    Scan builds: its cycle built with capture=False (the body run eagerly
+    on the card, every step's tables built anew) and run for its first
+    call, each step's load and store done twice, by the kernels into the
+    scan's own slots and buffers and by ``scan_load_plain`` /
+    ``scan_store_plain`` into copies of them, every byte compared on the
+    card. The first step's tables and tensors are kept to time H2 and H3
+    alone. Returns the stats and the kept step."""
+    import torch
+    from graal_tpu_torch.core import graphs
+    from graal_tpu_torch.ops import scan_cuda as scu
+
+    diffs = []
+    stats = dict(steps=0, load_launches=0, store_launches=0)
+    kept = {}
+    orig_load, orig_store = graphs.Scan._load, graphs.Scan._store
+
+    def load(self):
+        slots = orig_load(self)
+        diffs.append(bit_diffs([self.step_cell] + list(slots),
+                               [self.idx] + scu.scan_load_plain(self.x_bufs, self.idx)))
+        return slots
+
+    def raw(b):
+        # a byte copy: a bool copy would turn the unwritten rows' bytes into 0 / 1
+        return b.view(torch.uint8).clone().view(torch.bool) if b.dtype == torch.bool \
+            else b.clone()
+
+    def store(self, ys, new):
+        y_c = [raw(b) for b in self.y_bufs]
+        c_c = [raw(b) for b in self.carry_bufs]
+        i_c = self.idx.clone()
+        mapped = [c if v is b else v for b, c, v in zip(self.carry_bufs, c_c, new)]
+        if stats["steps"] == 0:
+            c_k = [raw(b) for b in c_c]
+            kept.update(scan=self, ys=list(ys), new=list(new), y_c=[raw(b) for b in y_c],
+                        c_c=c_k, i_c=i_c.clone(),
+                        mapped=[c if v is b else v for b, c, v in zip(self.carry_bufs, c_k, new)],
+                        load=scu.load_tables(self.x_bufs, self.x_slots, self.idx,
+                                             self.step_cell),
+                        store=scu.store_tables(self.y_bufs, ys, self.carry_bufs, new, self.idx,
+                                               self.step_cell))
+        scu.scan_store_plain(y_c, ys, c_c, mapped, i_c)
+        orig_store(self, ys, new)
+        diffs.append(bit_diffs(self.y_bufs + self.carry_bufs + [self.idx], y_c + c_c + [i_c]))
+        stats["steps"] += 1
+
+    before = dict(scan_wrapper().launches.by_key())
+    graphs.Scan._load, graphs.Scan._store = load, store
+    try:
+        cycle = build(False)
+        call, _ = chunks[0]
+        call(cycle, None)
+        torch.cuda.synchronize()
+    finally:
+        graphs.Scan._load, graphs.Scan._store = orig_load, orig_store
+    after = dict(scan_wrapper().launches.by_key())
+    stats.update(load_launches=after.get("load", 0) - before.get("load", 0),
+                 store_launches=after.get("store", 0) - before.get("store", 0),
+                 differences=int(torch.stack(diffs).sum()))
+    return stats, kept
+
+
+def scan_entries_bytes(tables):
+    return sum(t.e[j].outer * t.e[j].inner for t in tables for j in range(t.n))
+
+
+def scan_io_times(kept):
+    """H2 and H3 alone at one kept step (each launched from its tables,
+    outside the wrapper's count; both are idempotent at a step), the plain
+    versions' ms as called and as graph replays (the plain store's index
+    reset to that step first), ``torch._foreach_copy_`` on the same carry
+    leaves (the library call of H3's carry copies), and each bound: the
+    bytes copied, read once and written once, with the step index."""
+    import ctypes
+
+    import torch
+    from graal_tpu_torch.ops import scan_cuda as scu
+
+    lib = scu.load_library()
+    stream = torch.cuda.current_stream().cuda_stream
+    scan = kept["scan"]
+    scan.idx.zero_()   # the kept step's row: H2 reads row 0, H3 writes it and idx = 1
+
+    def launch(fn, tables):
+        def go():
+            for t in tables:
+                check(fn(ctypes.byref(t), stream) == 0, "scan launch failed")
+        return go
+
+    i_l = kept["i_c"].clone()   # 0, the kept step
+    i_s = kept["i_c"].clone()
+
+    def plain_load():
+        return scu.scan_load_plain(scan.x_bufs, i_l)
+
+    def plain_store():
+        i_s.copy_(kept["i_c"])
+        scu.scan_store_plain(kept["y_c"], kept["ys"], kept["c_c"], kept["mapped"], i_s)
+
+    copies = [(c, v) for b, c, v in zip(scan.carry_bufs, kept["c_c"], kept["new"]) if v is not b]
+    rec = {}
+    for kind, fn, tables, plain in (("load", lib.scan_load, kept["load"], plain_load),
+                                    ("store", lib.scan_store, kept["store"], plain_store)):
+        t = timed(launch(fn, tables), SCAN_TIME_ITERS)
+        t.update(plain_ms=cuda_ms(plain, 5, n_warm=1), plain_device_ms=graph_device_ms(plain, 20),
+                 library_ms=None, launches_a_step=len(tables),
+                 entries=sum(x.n for x in tables))
+        if kind == "store" and copies:
+            dst, src = [c for c, _ in copies], [v for _, v in copies]
+            lib_t = timed(lambda: torch._foreach_copy_(dst, src), SCAN_TIME_ITERS)
+            t.update(library_ms=lib_t["ms"], library_device_ms=lib_t["device_ms"],
+                     library_leaves=len(copies))
+        rec[kind] = with_share(t, bound(2 * scan_entries_bytes(tables) + 16))
+    return rec
+
+
+def scan_cases(device, sc, rsc):
+    """(label, build, chunks) of every sampler's Scan: the dense EM cycle
+    (flagship), the tempered one (4 chains), dense MTM and MH, the 100k
+    delta EM cycle and its 4 chains, the 20k repeat delta cycle, the 100k
+    delta MTM and the 20k repeat delta MH cycles, and ScaleRunner.run's
+    cycle end (a body with no per-step inputs)."""
+    yield "dense_flagship", *dense_graph_case(device)[:2]
+    yield "tempered_flagship", *tempered_graph_case(device)[:2]
+    for variant in ("mtm", "mh"):
+        yield f"{variant}_flagship", *mtm_graph_case(device, variant)[:2]
+    yield "delta_100k", *delta_graph_case(sc)[:2]
+    yield "chains_100k", *delta_graph_case(sc, chains=CHAINS)[:2]
+    yield "repeat_delta_20k", *delta_graph_case(rsc)[:2]
+    yield "delta_mtm_100k", *delta_mtm_graph_case(sc, "mtm")[:2]
+    yield "delta_mh_repeat_20k", *delta_mtm_graph_case(rsc, "mh")[:2]
+    yield "cycle_end_100k", *cycle_end_graph_case(sc)[:2]
+
+
+def phase_io_kernels(device, sc, rsc):
+    """3h. H1 (the dense scorers' vectors and parameter row:
+    vectors_kernel) against its plain version at every dense path's shape,
+    bit for bit; H2 and H3 (the captured cycle's loads and stores:
+    scan_load_kernel, scan_store_kernel) against scan_load_plain /
+    scan_store_plain on every sampler's Scan trees, every byte; each timed
+    beside its bound."""
+    print("dense vectors H1 vs plain at every dense path's shape, bit for bit (vectors, "
+          "a, row)")
+    for label, scorer, batch, params in vectors_cases(device):
+        vectors_shape(label, scorer, batch, params)
+    print("scan loads / stores H2, H3 vs plain on every sampler's Scan trees, every byte")
+    for label, build, chunks in scan_cases(device, sc, rsc):
+        stats, kept = scan_io_check(label, build, chunks)
+        steps = stats["steps"]
+        check(stats["load_launches"] == steps and stats["store_launches"] == steps,
+              f"{label}: {stats} (one H2 and one H3 a step)")
+        rec = scan_io_times(kept)
+        n_x, n_y = len(kept["scan"].x_bufs), len(kept["ys"])
+        n_copy = sum(v is not b for b, v in zip(kept["scan"].carry_bufs, kept["new"]))
+        print(f"  {label}: {steps} steps, {n_x} inputs, {n_y} outputs, {n_copy} of "
+              f"{len(kept['new'])} carry leaves copied; differences {stats['differences']}")
+        for name, r in rec.items():
+            extra = (f"; torch._foreach_copy_ on the {r['library_leaves']} carry leaves "
+                     f"{r['library_device_ms']:.4f} device ms ({r['library_ms']:.4f} as called)"
+                     if r.get("library_leaves") else "")
+            print(f"    {'H2' if name == 'load' else 'H3'} {name}: {r['entries']} entries in "
+                  f"{r['launches_a_step']} launch(es); {r['device_ms']:.4f} device ms "
+                  f"({r['ms']:.4f} as called); {fmt_bound(r)}; plain {r['plain_device_ms']:.4f} "
+                  f"device ms as graph replays ({r['plain_ms']:.4f} as called){extra}")
+        check(stats["differences"] == 0,
+              f"{label}: {stats['differences']} values of H2 / H3 differ from plain")
+        SCAN_TREES[label] = dict(stats=stats, kernels=rec, inputs=n_x, outputs=n_y,
+                                 carry_copied=n_copy, carry=len(kept["new"]))
+        del kept
+    return dict(vectors=VEC_SHAPES, scan=SCAN_TREES)
+
+
+def io_records():
+    """The kernels line's entries of H1 (vectors), H2 (scan_load) and H3
+    (scan_store): the dense flagship's numbers (H1: its EM step's B = 65;
+    H2 / H3: its EM cycle's step), the other shapes of phase 3h under
+    "by_shape", and under "by_path" each main path's launches counted on
+    the card (phases 4, 4b, 7, 7b and the graphed cycles of 7g / 7h), whose
+    sum is the top-level count; "max_abs_err" 0 (every value bit for bit;
+    a difference fails 3h); H3's "library_ms" torch._foreach_copy_'s on
+    the same carry leaves."""
+    out = []
+    for kind, name, replaces, shapes, flagship in (
+            ("vectors", "vectors", "graal_tpu/ops/likelihood_pallas.py:259", VEC_SHAPES,
+             "dense_flagship_B65"),
+            ("load", "scan_load", "graal_tpu/core/mcmc.py:468", SCAN_TREES, "dense_flagship"),
+            ("store", "scan_store", "graal_tpu/core/mcmc.py:468", SCAN_TREES, "dense_flagship")):
+        def rec_of(r):
+            return r if kind == "vectors" else r["kernels"][kind]
+
+        paths = {path: by_key[kind] for path, by_key in IO_PATHS.items() if by_key.get(kind)}
+        check(paths, f"no main path launched the {name} kernel")
+        rec = dict(rec_of(shapes[flagship]), max_abs_err=0, by_path=paths,
+                   by_shape={label: rec_of(r) for label, r in shapes.items() if label != flagship})
+        library = rec.pop("library_ms")
+        source = "vectors.cu" if kind == "vectors" else "scan_io.cu"
+        entry = kernel_record(name, source, replaces, sum(paths.values()), rec)
+        entry["library_ms"] = library
+        out.append(entry)
+    return out
+
+
+def io_paths(records, want):
+    """Keep each graphed path's H1-H3 launches (the graph run's, equal to
+    the eager run's) for the kernels line: one H2 and one H3 a step and one
+    H1 a dense scoring call (``want[name]`` = (steps, scoring calls))."""
+    for name, (steps, calls) in want.items():
+        got = records[name]["graph"]["io"]
+        need = {"load": steps, "store": steps} | ({"vectors": calls} if calls else {})
+        check(got == need, f"{name}: H1-H3 launches {got} != {need}")
+        IO_PATHS[f"graph_{name}"] = got
+
+
 def phase_graphs(device, sc, rsc):
     """7g. Each main path's cycle as a captured graph against the same
     cycle run eagerly (capture=False), on the same inputs: the dense
@@ -6040,6 +6448,9 @@ def phase_graphs(device, sc, rsc):
     corr_paths(out, {"repeat_delta_20k": MAIN_STEPS + 128})
     rows_paths(out, {name: MAIN_STEPS + 128
                      for name in ("delta_100k", "chains_100k", "repeat_delta_20k")})
+    io_paths(out, {"dense_flagship": (2 * 384, 4 * 384),
+                   **{name: (MAIN_STEPS + 128, 0)
+                      for name in ("delta_100k", "chains_100k", "repeat_delta_20k")}})
     return out
 
 
@@ -6285,12 +6696,16 @@ def phase_graphs_samplers(device, sc, rsc):
     catalogue_paths(out)
     corr_paths(out, {"delta_mh_repeat_20k": 2 * steps})
     rows_paths(out, {name: 2 * steps for name in ("delta_mtm_100k", "delta_mh_repeat_20k")})
+    io_paths(out, {"tempered_flagship": (steps, steps), "mtm_flagship": (steps, 2 * steps),
+                   "mh_flagship": (steps, 2 * steps), "delta_mtm_100k": (steps, 0),
+                   "delta_mh_repeat_20k": (steps, 0)})
     out["cycle_end_100k"] = graph_vs_eager(
         "100k ScaleRunner.run cycle end (re-anchor + nuisance step)",
         *cycle_end_graph_case(sc), sync_error=True)
     launched(out["cycle_end_100k"], [{"nuisance_propose": 4, "nuisance_accept": 4}],
              "cycle end")
     STEP_PATHS["graph_cycle_end_100k"] = out["cycle_end_100k"]["graph"]["by_key"][0]
+    io_paths(out, {"cycle_end_100k": (4, 0)})
     sc["runner"].release_graphs()
     out["run_mtm_100k"] = run_mtm_memory(sc["runner"], sc["shuf"], SAMPLER_STEPS, F_MAX,
                                          "100k delta MTM")
@@ -6504,6 +6919,7 @@ def kernels_line(dense, dense_launches, repeat, repeat_launches, delta, mini_lau
         *move_records(move),
         *corr_records(),
         *rows_records(),
+        *io_records(),
     ]}
 
 
@@ -6532,6 +6948,7 @@ def main():
     move = phase("3e E1 E2 E3", phase_move_kernels, device, sc, rsc)
     phase("3f F1 F2", phase_corr_kernels, device, rsc)
     phase("3g G1 G2 G3", phase_rows_kernels, device, sc, rsc)
+    phase("3h H1 H2 H3", phase_io_kernels, device, sc, rsc)
     dense = phase("2-3 B1", phase_kernel, device)
     dense_launches = phase("4 dense main", phase_main, device)
     repeat = phase("4a B3", phase_repeat_kernel, device)

@@ -15,10 +15,16 @@ into them in place:
   and overwritten every step;
 - the constants of a call (parameters the step only reads, ``f_t``);
 - the per-step inputs (the draws and the fragment order) as (capacity,
-  ...) tensors, row ``idx`` taken by a gather at a device step index (a
-  body may have none: the runners' cycle end is one step of its scan);
+  ...) tensors, row ``idx`` copied into fixed per-step slots at a device
+  step index (a body may have none: the runners' cycle end is one step of
+  its scan);
 - the per-step outputs (the metrics) as (capacity, ...) tensors, written
   at row ``idx``; then ``idx += 1`` on the device.
+
+On a card a step's loads are one launch of kernel H2 and its stores (the
+outputs, the new carry, the index) one of H3 (``ops.scan_cuda.SCAN``); on
+the CPU the plain versions beside them (``scan_load_plain``,
+``scan_store_plain``) gather, index-copy and copy leaf by leaf.
 
 On a CUDA device the first step of the first call runs eagerly on a side
 stream: the kernel libraries' builds, occupancy queries, launch plans,
@@ -46,6 +52,8 @@ The first step's blocks do not stay beside a pool either:
 from __future__ import annotations
 
 import torch
+
+from graal_tpu_torch.ops.scan_cuda import SCAN, scan_load_plain, scan_store_plain
 
 # per CUDA device, the side stream every first step and capture runs on (a
 # device resource of the process, like the kernel libraries ops.build loads
@@ -147,7 +155,7 @@ class Scan:
         self.key = None
         self.cap = 0
         self.graph = None
-        self.carry_bufs = self.const_bufs = self.x_bufs = self.y_bufs = None
+        self.carry_bufs = self.const_bufs = self.x_bufs = self.x_slots = self.y_bufs = None
 
     # ---- buffers ------------------------------------------------------------
     def _alloc(self, carry, consts, x_spec, xs, cap):
@@ -162,19 +170,20 @@ class Scan:
         self.carry_bufs = [empty(x) for x in _leaves(carry)]
         self.const_bufs = [empty(x) for x in _leaves(consts)]
         self.x_bufs = [empty(x, (cap,)) for x in _leaves(xs)]
+        self.x_slots = [empty(x[0]) for x in _leaves(xs)]
         self.y_bufs = None
         self.y_spec = None
         self.idx = torch.zeros(1, dtype=torch.int64, device=self.device)
+        self.step_cell = torch.zeros(1, dtype=torch.int64, device=self.device)
         self.graph = None
 
     # ---- the step body ------------------------------------------------------
     def _step(self):
-        """One step on the buffers: gather row idx of the per-step inputs,
-        run the body, write row idx of the outputs and the new carry, idx
-        += 1. The first step allocates the output buffers from what it
-        returns."""
-        idx = self.idx
-        x = _build(self.x_spec, iter([b.index_select(0, idx)[0] for b in self.x_bufs]))
+        """One step on the buffers: load row idx of the per-step inputs, run
+        the body, store row idx of the outputs and the new carry, idx += 1
+        (:meth:`_load`, :meth:`_store`). The first step allocates the output
+        buffers from what it returns."""
+        x = _build(self.x_spec, iter(self._load()))
         carry = _build(self.carry_spec, iter(self.carry_bufs))
         consts = _build(self.const_spec, iter(self.const_bufs))
         new, y = self.body(carry, consts, x)
@@ -182,8 +191,6 @@ class Scan:
             self.y_spec = _spec(y)
             self.y_bufs = [torch.empty((self.cap,) + tuple(v.shape), dtype=v.dtype,
                                        device=self.device) for v in _leaves(y)]
-        for b, v in zip(self.y_bufs, _leaves(y)):
-            b.index_copy_(0, idx, v.reshape((1,) + tuple(b.shape[1:])))
         new = _leaves(new)
         if len(new) != len(self.carry_bufs):
             raise ValueError("the step changed the structure of its carry")
@@ -191,9 +198,29 @@ class Scan:
             if v.shape != b.shape:
                 raise ValueError(f"the step changed a carry leaf's shape: {tuple(b.shape)} "
                                  f"-> {tuple(v.shape)}")
-            if v is not b:
-                b.copy_(v)
-        idx.add_(1)
+        self._store(_leaves(y), new)
+
+    def _load(self):
+        """The step's per-step inputs: on a card H2 copies them into the
+        slots (and idx into the step cell), which the body reads; on the CPU
+        the plain gathers."""
+        if self.device.type == "cuda":
+            return self._load_on_card()
+        return scan_load_plain(self.x_bufs, self.idx)
+
+    def _load_on_card(self):
+        SCAN.load(self.x_bufs, self.x_slots, self.idx, self.step_cell)
+        return self.x_slots
+
+    def _store(self, ys, new):
+        """Write the outputs and the new carry, then idx += 1: on a card one
+        H3 launch, on the CPU the plain copies."""
+        if self.device.type == "cuda":
+            return self._store_on_card(ys, new)
+        scan_store_plain(self.y_bufs, ys, self.carry_bufs, new, self.idx)
+
+    def _store_on_card(self, ys, new):
+        SCAN.store(self.y_bufs, ys, self.carry_bufs, new, self.idx, self.step_cell)
 
     # ---- the graph ------------------------------------------------------------
     def _first_step(self):

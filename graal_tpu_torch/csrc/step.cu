@@ -43,7 +43,8 @@
 //    proposals' brackets shrink together as the plain version's batch
 //    does. Thread 0 picks the proposal id_modif names, applies the support
 //    test and the cap, and writes the test set's 10-float row of the dense
-//    scorers (ops/likelihood_cuda.py `params_vector`). `nuisance_accept`:
+//    scorers (ops/likelihood_cuda.py `params_vector`; the code is
+//    params_row.cuh's, which H1 in vectors.cu shares). `nuisance_accept`:
 //    one thread a chain, the Metropolis test and the selects.
 //  - D2 (`neighbours_kernel`): one block a chain. The Gumbel keys of the
 //    n_top partners, then a rank each (the number of keys before it in a
@@ -77,10 +78,11 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "params_row.cuh"
+
 namespace {
 
 constexpr int N_PARAMS = 8;          // RippeParams: kuhn lm c1 slope d d_max fact v_inter
-constexpr int N_ROW = 10;            // the dense scorers' parameter row
 constexpr int N_FIELDS = 11;         // GenomeState
 constexpr int N_MUTABLE = 8;         // core.state.MUTABLE_FIELDS
 constexpr int N_OPS = 13;            // candidates a neighbour slot
@@ -201,22 +203,10 @@ __global__ void __launch_bounds__(PROPOSE_THREADS) nuisance_propose_kernel(Propo
   a.out[4 * C + c] = v;
   a.ok[c] = ok;
   if (a.row == nullptr) return;
-  // ops/likelihood_cuda.py `params_vector` of the test set
-  const float kuhn = p[KUHN], lm = p[LM], d = p[D];
-  const float log_k3fact = logf(fmul(powf(kuhn, -3.0f), fact));
-  const float nmax = fdiv(lm, kuhn);
-  float* r = a.row + static_cast<long long>(c) * N_ROW;
-  r[0] = logf(fmul(c1, fact));
-  r[1] = slope;
-  r[2] = d;
-  r[3] = d_max;
-  r[4] = nmax;
-  r[5] = logf(v);
-  r[6] = v;
-  r[7] = fadd(fadd(log_k3fact, fmul(slope, logf(nmax))),
-              fdiv(fsub(d, 2.0f), fadd(fmul(nmax, nmax), d)));
-  r[8] = log_k3fact;
-  r[9] = *a.log_nfpb;
+  // ops/likelihood_cuda.py `params_vector` of the test set (params_row.cuh,
+  // which H1 in vectors.cu shares)
+  write_params_row(a.row + static_cast<long long>(c) * PARAMS_ROW, p[KUHN], p[LM], c1, slope,
+                   p[D], d_max, fact, v, *a.log_nfpb);
 }
 
 struct AcceptArgs {

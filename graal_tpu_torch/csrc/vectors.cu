@@ -1,0 +1,123 @@
+// The dense scorers' per-candidate sub-fragment vectors and their parameter
+// row, for NVIDIA Hopper (sm_90a): H1, one launch a scoring call of B1
+// (ll_dense.cu) or B3 (ll_repeat.cu).
+//
+// Replaces no Pallas kernel: the JAX package computes these as jnp code that
+// XLA fuses into the operands of its pallas_call (graal_tpu/ops/
+// likelihood_pallas.py `sub_vectors` :259-279, `params_vector` :215-225 and
+// :651 for repeats, `copy_vectors` :666-686). The plain torch versions
+// (graal_tpu_torch/ops/likelihood_cuda.py `CopyRowScorer.geometry`,
+// ops/repeat_cuda.py `RepeatScorer.vectors_plain`, which adds the copy-order
+// `a` column, and `params_vector`) take some twenty elementwise and gather
+// kernels a call: five gathers at `owner`, the int-to-float conversions,
+// the divisions by 1,000, the orientation select and the sums, and four
+// logs and some ten products for the row.
+//
+// The function, for candidate b and sub row k (in the scorer's `rows`
+// order), with f = owner[k]:
+//   mid[b, k]  = (start_bp[b, f] / 1000 + (ori[b, f] == 1 ? prefix[k]
+//                 : suffix[k])) + len_half[k]
+//   idc[b, k]  = id_c[b, f]
+//   circ[b, k] = circ[b, f]
+//   stot[b, k] = l_cont_bp[b, f] / 1000
+//   a[b, k]    = activ[b, f] == 1 ? accu[k] : 0         (B3 only)
+// and, when the call has no row yet, the 10 floats of params_vector.
+//
+// What bounds it on the card: bytes, and at these sizes latency. A call
+// reads 5 or 6 int32 fields of each of B genomes (B x n x 4 bytes each) and
+// 4 or 5 float vectors of the table, and writes 4 or 5 (B, K) planes: 1.5 MB
+// at B = 65, K = 1,152, half a microsecond at 3.35 TB/s; a launch costs
+// more than that.
+//
+// What the design does about it.
+//  - One launch a call: a block of 256 threads a (256-row chunk, genome),
+//    a thread an output (b, k); the genome's fields read at their strides
+//    (C1's (B, n) output or the nuisance call's x[None] view, both without
+//    a copy), the table's vectors read coalesced. Block (0, 0)'s thread 0
+//    also writes the parameter row (params_row.cuh, the code D1 writes its
+//    row with). No host read and no allocation: the wrapper passes fresh
+//    outputs, so a captured step (core.graphs.Scan) captures the launch.
+//  - Bit-identity with the plain version on the card. Each torch op rounds
+//    on its own, so every float operation is an explicit round-to-nearest
+//    intrinsic in the plain order: int32 -> float is cvt.rn
+//    (__int2float_rn, as .float()); the division by the Python float 1000.0
+//    is a product with its f32 reciprocal (torch on the card computes a
+//    division by a CPU scalar so; the wrapper passes the reciprocal, made in
+//    f32 on the host); the sum start_kb + w + len_half is taken left to
+//    right with __fadd_rn, so nvcc cannot contract it.
+//
+// Launch key (ops/counts.py): "vectors".
+
+#include <cuda_runtime.h>
+
+#include "params_row.cuh"
+
+namespace {
+
+constexpr int THREADS = 256;
+constexpr int N_PARAMS = 8;          // RippeParams: kuhn lm c1 slope d d_max fact v_inter
+enum Field { START_BP = 0, ORI, ID_C, CIRC, L_CONT_BP, ACTIV, N_READ };
+enum Param { KUHN = 0, LM, C1, SLOPE, D, D_MAX, FACT, V_INTER };
+
+struct VectorsArgs {
+  const int* st[N_READ];        // the genomes' fields read, (B, n) int32 at any strides
+  long long st_bs[N_READ];      // their strides between genomes
+  long long st_is[N_READ];      // and between fragments
+  const int* owner;             // (K,) the fragment of each sub row, in the scorer's order
+  const float* prefix;          // (K,) kb before the sub row on a forward fragment
+  const float* suffix;          // (K,) ... on a reversed one
+  const float* len_half;        // (K,) half the sub row's length, kb
+  const float* accu;            // (K,) B3's copy-order accu, or nullptr (no `a`)
+  float* mid;                   // (B, K) outputs
+  int* idc;
+  float* circ;
+  float* stot;
+  float* a;                     // (B, K), or nullptr
+  const float* par[N_PARAMS];   // 0-d f32 parameters, read when row is not nullptr
+  const float* log_nfpb;
+  float* row;                   // (10,) or nullptr
+  float inv_kb;                 // f32 1 / 1000
+  int B, K;
+  int pad;
+};
+
+__global__ void __launch_bounds__(THREADS) vectors_kernel(const __grid_constant__ VectorsArgs a) {
+  const int b = blockIdx.y;
+  const int k = blockIdx.x * THREADS + threadIdx.x;
+  if (a.row != nullptr && b == 0 && blockIdx.x == 0 && threadIdx.x == 0) {
+    const float* const* p = a.par;
+    write_params_row(a.row, *p[KUHN], *p[LM], *p[C1], *p[SLOPE], *p[D], *p[D_MAX], *p[FACT],
+                     *p[V_INTER], *a.log_nfpb);
+  }
+  if (k >= a.K) return;
+  const long long f = a.owner[k];
+  auto field = [&](int i) { return a.st[i][a.st_bs[i] * b + a.st_is[i] * f]; };
+  const long long e = static_cast<long long>(b) * a.K + k;
+  const float start_kb = __fmul_rn(__int2float_rn(field(START_BP)), a.inv_kb);
+  const float w = field(ORI) == 1 ? a.prefix[k] : a.suffix[k];
+  a.mid[e] = __fadd_rn(__fadd_rn(start_kb, w), a.len_half[k]);
+  a.idc[e] = field(ID_C);
+  a.circ[e] = __int2float_rn(field(CIRC));
+  a.stot[e] = __fmul_rn(__int2float_rn(field(L_CONT_BP)), a.inv_kb);
+  if (a.a != nullptr) a.a[e] = field(ACTIV) == 1 ? a.accu[k] : 0.0f;
+}
+
+}  // namespace
+
+extern "C" {
+
+// sizeof the argument block, for the wrapper's check of its ctypes mirror
+int vectors_args_size() { return (int)sizeof(VectorsArgs); }
+
+// Launches H1 on `stream` from the argument block the wrapper filled, does
+// not synchronise, and returns the cudaError_t of the launch
+// (cudaErrorInvalidValue for a block it refuses).
+int vectors(const void* args, void* stream) {
+  const VectorsArgs* a = static_cast<const VectorsArgs*>(args);
+  if (a->B < 1 || a->B > 65535 || a->K < 1) return (int)cudaErrorInvalidValue;
+  const dim3 grid((a->K + THREADS - 1) / THREADS, a->B);
+  vectors_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(*a);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

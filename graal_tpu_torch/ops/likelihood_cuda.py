@@ -38,6 +38,7 @@ from graal_tpu_torch.core.state import GenomeState
 from graal_tpu_torch.core.subfrags import SubFragTable
 from graal_tpu_torch.ops import build, persistent
 from graal_tpu_torch.ops.counts import Counted, LaunchCount
+from graal_tpu_torch.ops.vectors_cuda import VECTORS, SubRows
 
 N_PARAMS = 10
 ROWS = persistent.TILE // persistent.HALVES   # rows of a half tile
@@ -209,7 +210,9 @@ class CopyRowScorer(Counted):
     sub rows (in the order ``rows``, default table order), the checks of a
     kernel launch's arguments, and the dispatch of ``score(states (B, n),
     params) -> (B,) f32``: on a CUDA scorer :meth:`launch`, on a CPU one
-    :meth:`plain`, both over the vectors :meth:`sub_vectors` returns.
+    :meth:`plain`, both over the vectors and parameter row :meth:`vectors`
+    returns (on a card kernel H1, ``ops.vectors_cuda``; on the CPU
+    :meth:`vectors_plain` and :func:`params_vector`).
 
     ``n_launches`` counts the kernel's launches, and ``launch_shapes`` the
     same launches by their (B, K), on the card (``ops.counts``).
@@ -232,6 +235,7 @@ class CopyRowScorer(Counted):
         self.log_nfpb = torch.tensor(np.float32(np.log(table.n_frags_per_bins)),
                                      device=device)
         self.launches = LaunchCount()
+        self.accu_rows = None   # B3's copy-order accu: its `a` column
 
     @property
     def launch_shapes(self):
@@ -248,8 +252,33 @@ class CopyRowScorer(Counted):
         stot = states.l_cont_bp[:, own].float() / 1000.0
         return mid, idc, circ, stot
 
-    def sub_vectors(self, states: GenomeState):
+    def vectors_plain(self, states: GenomeState):
+        """The plain version of H1's vectors (named by ``VECTORS``)."""
         return self.geometry(states)
+
+    @functools.cached_property
+    def sub_rows(self) -> SubRows:
+        """The per-sub-row vectors H1 reads (int32 owner), made once."""
+        return SubRows(self.owner.int().contiguous(), self.prefix.contiguous(),
+                       self.suffix.contiguous(), self.len_half.contiguous(),
+                       None if self.accu_rows is None else self.accu_rows.contiguous())
+
+    def vectors(self, states: GenomeState, params: RippeParams | None = None):
+        """(the vectors named by ``VECTORS``, each (B, K); the parameter row
+        of ``params``, or None without them): on a card one H1 launch
+        (``ops.vectors_cuda.VECTORS``, no fallback), on the CPU
+        :meth:`vectors_plain` and :func:`params_vector`."""
+        if self.device.type == "cuda":
+            return self._vectors_on_card(states, params)
+        return (self.vectors_plain(states),
+                None if params is None else params_vector(params, self.log_nfpb))
+
+    def _vectors_on_card(self, states: GenomeState, params: RippeParams | None = None):
+        return VECTORS(states, self.sub_rows, params, None if params is None else self.log_nfpb)
+
+    def sub_vectors(self, states: GenomeState):
+        """The vectors of :meth:`vectors`, without a row."""
+        return self.vectors(states)[0]
 
     def check_launch(self, vecs, pvec) -> int:
         """Raise ValueError unless this scorer lies on a card and ``vecs``
@@ -274,12 +303,12 @@ class CopyRowScorer(Counted):
 
     def __call__(self, states: GenomeState, params: RippeParams, pvec=None) -> torch.Tensor:
         """``pvec``: the kernel's parameter row of ``params`` when the caller
-        has it (the nuisance proposal writes it, ``core.mcmc``); else it is
-        computed here (:func:`params_vector`)."""
+        has it (the nuisance proposal writes it, ``core.mcmc``); else
+        :meth:`vectors` computes it with the vectors."""
         check_states(states, self.device)
-        vecs = self.sub_vectors(states)
+        vecs, row = self.vectors(states, params if pvec is None else None)
         if pvec is None:
-            pvec = params_vector(params, self.log_nfpb)
+            pvec = row
         if self.device.type == "cuda":
             return self.launch(*vecs, pvec)
         return self.plain(*vecs, pvec)

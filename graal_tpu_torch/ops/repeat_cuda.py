@@ -178,11 +178,12 @@ class RepeatScorer(CopyRowScorer):
         self.slots = torch.as_tensor(slots, device=device)
         self.slot_ok = torch.as_tensor(slot_ok, device=device)
         self.accu = table.accu.to(device)[torch.as_tensor(order, device=device)]
+        self.accu_rows = self.accu
         self.nfpb = float(np.float32(table.n_frags_per_bins))
 
-    def sub_vectors(self, states: GenomeState):
+    def vectors_plain(self, states: GenomeState):
         """Per-candidate copy-row vectors in copy order (mid, idc, circ,
-        stot, a), shape (B, K)."""
+        stot, a), shape (B, K): the plain version of H1's."""
         a = torch.where(states.activ[:, self.owner] == 1, self.accu, 0.0)
         return self.geometry(states) + (a,)
 

@@ -1,0 +1,288 @@
+"""A captured cycle's per-step inputs, outputs and carry: hand-written CUDA
+kernels for Hopper.
+
+H2 (load) copies row ``idx`` of every per-step input buffer of a
+``core.graphs.Scan`` into that input's fixed per-step slot, and ``idx``
+into the scan's step cell; H3 (store) writes every per-step output into
+row ``step`` of its buffer, copies every new carry leaf that is not its
+buffer into it, and sets ``idx = step + 1``. They are the port of what
+``lax.scan`` does inside the JAX package's cycles (slice, stack, alias),
+for which the JAX package has no Pallas kernel. The kernel source is
+``graal_tpu_torch/csrc/scan_io.cu``; its header says what bounds them on
+the card and how the design answers that.
+
+The plain versions, :func:`scan_load_plain` and :func:`scan_store_plain`,
+are the scan's step as it was: one ``index_select`` an input, one
+``index_copy_`` an output, one ``copy_`` a new carry leaf. Unlike
+``copy_``, the kernels convert no dtype: a new carry leaf must have its
+buffer's dtype on a card.
+
+Each copy is an entry of a table of (source, destination, bytes) built from
+the tensors' addresses (:func:`load_tables`, :func:`store_tables`): once at
+a capture, each step when the body runs eagerly. A launch takes its table
+by value. Where one entry touches bytes another writes, the plain version's
+order decides the result, so the table is cut there into launches that run
+in order (:func:`segments`).
+
+:data:`SCAN` is the one wrapper: ``core.graphs.Scan`` sends a card's steps
+to it and a CPU's to the plain versions; the wrapper itself refuses tensors
+that are not on a card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+
+import torch
+
+from graal_tpu_torch.ops import build
+from graal_tpu_torch.ops.counts import Counted, LaunchCount
+
+MAX_ENTRIES = 60      # entries of one launch's table (scan_io.cu)
+CHUNK_WORDS = 1024    # words a block copies, at most (scan_io.cu)
+KINDS = ("load", "store")   # H2, H3: the launch keys
+
+_P, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+
+
+class Entry(ctypes.Structure):
+    _fields_ = [("src", _P), ("dst", _P), ("src_step", _I64), ("dst_step", _I64),
+                ("outer", _I64), ("outer_stride", _I64), ("inner", _I64),
+                ("first_block", _I32), ("log_w", _I32)]
+
+
+class Table(ctypes.Structure):
+    _fields_ = [("step_in", _P), ("step_out", _P), ("step_add", _I64), ("n", _I32),
+                ("n_blocks", _I32), ("e", Entry * MAX_ENTRIES)]
+
+
+@functools.cache
+def load_library():
+    """The kernel library (built at first use), its C functions typed and
+    its table checked against the ctypes mirror."""
+    lib = build.load("scan_io")
+    for name, want in (("scan_table_size", ctypes.sizeof(Table)),
+                       ("scan_max_entries", MAX_ENTRIES), ("scan_chunk_words", CHUNK_WORDS)):
+        fn = getattr(lib, name)
+        fn.restype = _I32
+        if fn() != want:
+            raise RuntimeError(f"scan_io.cu and ops/scan_cuda.py disagree on {name}: "
+                               f"{fn()} != {want}")
+    for name in ("scan_load", "scan_store"):
+        fn = getattr(lib, name)
+        fn.argtypes = [_P, _P]
+        fn.restype = _I32
+    return lib
+
+
+# ---- the plain versions ----------------------------------------------------
+
+def scan_load_plain(x_bufs, idx):
+    """Row ``idx`` (a (1,) int64 tensor) of every per-step input buffer, as
+    new tensors."""
+    return [b.index_select(0, idx)[0] for b in x_bufs]
+
+
+def scan_store_plain(y_bufs, ys, carry_bufs, new, idx):
+    """Write every output ``ys`` into row ``idx`` of its buffer, copy every
+    new carry leaf that is not its buffer into it (in order, converting its
+    dtype), then ``idx += 1``."""
+    for b, v in zip(y_bufs, ys):
+        b.index_copy_(0, idx, v.reshape((1,) + tuple(b.shape[1:])))
+    for b, v in zip(carry_bufs, new):
+        if v is not b:
+            b.copy_(v)
+    idx.add_(1)
+
+
+# ---- tables (pure functions: no launch, any device) ------------------------
+
+def runs(x: torch.Tensor):
+    """A tensor's bytes as (outer, outer_stride, inner): ``outer`` runs of
+    ``inner`` contiguous bytes, ``outer_stride`` bytes apart, in the
+    tensor's element order. Raises ValueError for a layout that needs more
+    than two levels."""
+    el = x.element_size()
+    dims = []   # (size, stride) from the innermost, size-1 dims dropped, contiguous ones merged
+    for size, stride in reversed(list(zip(x.shape, x.stride()))):
+        if size == 1:
+            continue
+        if dims and dims[-1][1] * dims[-1][0] == stride:
+            dims[-1] = (dims[-1][0] * size, dims[-1][1])
+        else:
+            dims.append((size, stride))
+    if not dims:
+        return 1, 0, el
+    if dims[0][1] == 1:
+        inner, rest = dims[0][0] * el, dims[1:]
+    else:
+        inner, rest = el, dims
+    if len(rest) > 1:
+        raise ValueError(f"a scan leaf of shape {tuple(x.shape)} and strides {x.stride()} "
+                         "is not two levels of runs")
+    return (rest[0][0], rest[0][1] * el, inner) if rest else (1, 0, inner)
+
+
+def _span(ptr, outer, outer_stride, inner):
+    return ptr, ptr + (outer - 1) * outer_stride + inner
+
+
+def _overlap(a, b):
+    return a[0] < b[1] and b[0] < a[1]
+
+
+def entry(src: torch.Tensor, dst: torch.Tensor, src_step=0, src_rows=1, dst_step=0,
+          dst_rows=1):
+    """One copy of ``src``'s elements (any layout :func:`runs` takes) into
+    the contiguous bytes at ``dst`` (a contiguous tensor; with ``dst_step``
+    its rows of ``dst_step`` bytes, ``dst_rows`` of them, one written a
+    step), with ``src`` advanced ``src_step`` bytes a step (``src_rows``
+    rows of them). Returns a dict with the entry's fields and the bytes it
+    may read and write, or None when it copies nothing."""
+    outer, ostride, inner = runs(src)
+    n = outer * inner
+    if n == 0:
+        return None
+    sp, dp = src.data_ptr(), dst.data_ptr()
+    parts = [sp, dp, inner, src_step, dst_step] + ([ostride] if outer > 1 else [])
+    w = 16
+    while w > 1 and any(p % w for p in parts):
+        w //= 2
+    read = (sp, sp + src_rows * src_step) if src_step else _span(sp, outer, ostride, inner)
+    write = (dp, dp + dst_rows * dst_step) if dst_step else (dp, dp + n)
+    return dict(src=sp, dst=dp, src_step=src_step, dst_step=dst_step, outer=outer,
+                outer_stride=ostride, inner=inner, log_w=int(math.log2(w)), words=n // w,
+                read=read, write=write)
+
+
+def segments(entries):
+    """Cut ``entries`` (in the plain version's order) into runs whose
+    entries touch disjoint bytes (no entry reads or writes what another of
+    its run writes) and that fit one table: launched in order, they give
+    the plain version's sequential result. An entry whose source overlaps
+    its own destination raises ValueError."""
+    out, cur = [], []
+    for e in entries:
+        if _overlap(e["read"], e["write"]):
+            raise ValueError("a scan copy reads bytes it writes: its source overlaps its "
+                             "destination")
+        clash = any(_overlap(e["write"], o["read"]) or _overlap(e["read"], o["write"])
+                    or _overlap(e["write"], o["write"]) for o in cur)
+        if cur and (clash or len(cur) == MAX_ENTRIES):
+            out.append(cur)
+            cur = []
+        cur.append(e)
+    if cur or not out:
+        out.append(cur)
+    return out
+
+
+def table(entries, step_in: torch.Tensor, step_out, step_add: int) -> Table:
+    """The kernel's table of one launch: its entries' blocks laid out in
+    order, CHUNK_WORDS words a block (one block for none)."""
+    t = Table(step_in=step_in.data_ptr(),
+              step_out=None if step_out is None else step_out.data_ptr(),
+              step_add=step_add, n=len(entries))
+    block = 0
+    for j, e in enumerate(entries):
+        t.e[j] = Entry(src=e["src"], dst=e["dst"], src_step=e["src_step"],
+                       dst_step=e["dst_step"], outer=e["outer"],
+                       outer_stride=e["outer_stride"], inner=e["inner"], first_block=block,
+                       log_w=e["log_w"])
+        block += -(-e["words"] // CHUNK_WORDS)
+    t.n_blocks = max(block, 1)
+    return t
+
+
+def check_same(label, b: torch.Tensor, v):
+    if not isinstance(v, torch.Tensor):
+        raise ValueError(f"{label}: need a tensor, got {type(v).__name__}")
+    if v.device != b.device or v.dtype != b.dtype:
+        raise ValueError(f"{label}: need {b.dtype} on {b.device} (the kernels convert no "
+                         f"dtype), got {v.dtype} on {v.device}")
+
+
+def load_tables(x_bufs, slots, idx, step):
+    """H2's tables: row ``idx`` of each per-step input buffer (contiguous,
+    (capacity, ...)) into its slot (contiguous, one row's shape), and idx
+    into ``step`` (the first launch's)."""
+    entries = []
+    for b, s in zip(x_bufs, slots):
+        check_same("per-step slot", b, s)
+        if not (b.is_contiguous() and s.is_contiguous()) or b[0].numel() != s.numel():
+            raise ValueError("per-step buffers and slots must be contiguous, a slot one row")
+        e = entry(b[0], s, src_step=b.stride(0) * b.element_size(), src_rows=b.shape[0])
+        if e is not None:
+            entries.append(e)
+    segs = segments(entries)
+    return [table(seg, idx, step if k == 0 else None, 0) for k, seg in enumerate(segs)]
+
+
+def store_tables(y_bufs, ys, carry_bufs, new, idx, step):
+    """H3's tables: each output into row ``step`` of its buffer, then each
+    new carry leaf that is not its buffer into it, in the plain version's
+    order; the last launch sets idx = step + 1."""
+    entries = []
+    for b, v in zip(y_bufs, ys):
+        check_same("per-step output", b, v)
+        if not b.is_contiguous() or v.numel() != b[0].numel():
+            raise ValueError(f"a per-step output of {v.numel()} elements for rows of "
+                             f"{b[0].numel()}")
+        e = entry(v, b, dst_step=b.stride(0) * b.element_size(), dst_rows=b.shape[0])
+        if e is not None:
+            entries.append(e)
+    for b, v in zip(carry_bufs, new):
+        if v is b:
+            continue
+        check_same("new carry leaf", b, v)
+        if not b.is_contiguous() or v.shape != b.shape:
+            raise ValueError("carry buffers must be contiguous and keep their shapes")
+        e = entry(v, b)
+        if e is not None and not (e["read"] == e["write"] and v.is_contiguous()):
+            entries.append(e)
+    segs = segments(entries)
+    return [table(seg, step, idx if k == len(segs) - 1 else None, 1)
+            for k, seg in enumerate(segs)]
+
+
+class ScanKernels(Counted):
+    """The captured cycle's load and store kernels H2 / H3 on a card; see
+    the module docstring. ``n_launches`` counts the launches on the card,
+    by kind (``KINDS``, ``ops.counts``)."""
+
+    def __init__(self):
+        self.launches = LaunchCount()
+
+    @staticmethod
+    def _card(dev):
+        if dev.type != "cuda":
+            raise ValueError(f"the CUDA scan kernels need tensors on a card, not on {dev}")
+
+    def _launch(self, kind, dev, t: Table):
+        lib = load_library()
+        fn = lib.scan_load if kind == "load" else lib.scan_store
+        rc = fn(ctypes.byref(t), torch.cuda.current_stream(dev).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"scan {kind} launch failed: cudaError {rc}")
+        self.launches.add(dev, kind)
+
+    def load(self, x_bufs, slots, idx, step):
+        """H2 (see :func:`load_tables`): one launch (more only past
+        MAX_ENTRIES inputs)."""
+        self._card(idx.device)
+        for t in load_tables(x_bufs, slots, idx, step):
+            self._launch("load", idx.device, t)
+
+    def store(self, y_bufs, ys, carry_bufs, new, idx, step):
+        """H3 (see :func:`store_tables`): one launch, more where copies
+        overlap or past MAX_ENTRIES leaves. The tensors must stay alive
+        until the launches run (the scan's buffers, and the body's outputs,
+        which the caller holds)."""
+        self._card(idx.device)
+        for t in store_tables(y_bufs, ys, carry_bufs, new, idx, step):
+            self._launch("store", idx.device, t)
+
+
+SCAN = ScanKernels()

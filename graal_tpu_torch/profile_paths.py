@@ -53,7 +53,9 @@ Prints one JSON line per path and mode (``mode``: graph or eager):
   catalogues), ``mtm`` (E1-E3: the MTM / MH step's neighbour set, draw
   and acceptance), ``corr`` (F1 / F2: the repeat engine's copy
   corrections), ``rows`` (G1-G3: the delta steps' member rows and
-  mini-states), ``step`` (D1-D3: the nuisance move, the neighbour draw,
+  mini-states), ``vectors`` (H1: the dense scorers' sub-fragment vectors
+  and parameter row), ``scan_io`` (H2 / H3: the captured cycle's per-step
+  loads and stores), ``step`` (D1-D3: the nuisance move, the neighbour draw,
   the selection and commit), ``scorers`` (B1-B4), ``gather`` (gathers, scatters and
   index kernels), ``elementwise`` (torch's elementwise kernels),
   ``reduce``, ``copy`` (memcpy, memset) and ``other``; a step's count of
@@ -258,6 +260,8 @@ KERNEL_CLASSES = (("catalogue", ("catalogue",)),
                   ("mtm", ("mtm_set_kernel", "mtm_draw_kernel", "mtm_accept_kernel")),
                   ("corr", ("corr_frozen_kernel", "corr_sums_kernel")),
                   ("rows", ("rows_counts_kernel", "rows_write_kernel", "rows_gather_kernel")),
+                  ("vectors", ("vectors_kernel",)),
+                  ("scan_io", ("scan_load_kernel", "scan_store_kernel")),
                   ("step", ("nuisance_propose_kernel", "nuisance_accept_kernel",
                             "neighbours_kernel", "select_commit_")),
                   ("scorers", ("ll_dense", "ll_mini", "ll_repeat", "obsgrid")),

@@ -18,6 +18,7 @@ scorer gives computing the row itself, bit for bit.
 import numpy as np
 import jax
 import jax.numpy as jnp
+import pytest
 import torch
 
 from graal_tpu.core import delta as jd
@@ -29,17 +30,20 @@ from graal_tpu_torch.core.state import GenomeState as TState
 from graal_tpu_torch.ops.likelihood_cuda import make_dense_scorer
 from tests.test_torch_delta import jax_delta_draws, walked_state
 from tests.test_torch_mcmc import RTOL, assert_params_close, jax_cycle_draws, port_draws
+from tests.test_torch_scan_io import route_to_card as route_scan_to_card
 from tests.test_torch_state import assert_states_equal, to_port
 from tests.test_torch_step_kernels import DELTA, dense, sparse, t  # noqa: F401  (fixtures)
 
+DELTA_F_MAX = 8
 
-def test_dense_cycle_with_nuisance_matches_jax(dense):
-    """A dense EM cycle, nuisance sampling on, f_t 0.8, against the JAX
-    cycle on shared draws: decisions, accepts and states bit for bit."""
+
+@pytest.fixture(scope="module")
+def dense_jax(dense):
+    """The JAX dense EM cycle (nuisance sampling on, f_t 0.8) and its
+    shared inputs, compiled and run once for this file's tests."""
     p = dense
     n = p["state"].n_frags
     cycle_j = jm.make_em_cycle(p["table"], p["obs"], p["nb"], DELTA, sample_param=True)
-    cycle_t = tm.make_em_cycle(p["t_table"], p["obs"], p["t_nb"], DELTA, sample_param=True)
     n_slots = tm.n_slots(p["t_nb"], DELTA)
     cur_j = jm.explode_genome(p["state"])
     l_j = jl.log_likelihood(cur_j, p["table"], p["obs"], p["params"])
@@ -47,8 +51,17 @@ def test_dense_cycle_with_nuisance_matches_jax(dense):
     k_cycle = jax.random.key(41)
     out_j = cycle_j(cur_j, k_cycle, p["params"], jnp.asarray(order), l_j, jnp.float32(0.8))
     draws = port_draws(jax_cycle_draws(k_cycle, n, p["nb"].pk.shape[1], n_slots))
-    out_t = cycle_t(to_port(cur_j), draws, p["t_params"], torch.as_tensor(order),
-                    torch.tensor(np.float32(l_j)), 0.8)
+    return dict(cur_j=cur_j, l_j=l_j, order=order, out_j=out_j, draws=draws)
+
+
+def check_dense_cycle(p, run):
+    """The port's dense EM cycle on ``run``'s shared inputs against JAX's:
+    decisions, accepts and states bit for bit."""
+    n = p["state"].n_frags
+    cycle_t = tm.make_em_cycle(p["t_table"], p["obs"], p["t_nb"], DELTA, sample_param=True)
+    out_t = cycle_t(to_port(run["cur_j"]), run["draws"], p["t_params"],
+                    torch.as_tensor(run["order"]), torch.tensor(np.float32(run["l_j"])), 0.8)
+    out_j = run["out_j"]
     for f in ("op_sampled", "id_f_sampled", "n_contigs", "success"):
         np.testing.assert_array_equal(getattr(out_t[3], f).numpy(),
                                       np.asarray(getattr(out_j[3], f)), err_msg=f)
@@ -56,6 +69,22 @@ def test_dense_cycle_with_nuisance_matches_jax(dense):
     assert_params_close(out_t[1], out_j[1])
     np.testing.assert_allclose(float(out_t[2]), float(out_j[2]), rtol=RTOL)
     assert 0 < int(out_t[3].success.sum()) < n
+
+
+def test_dense_cycle_with_nuisance_matches_jax(dense, dense_jax):
+    """A dense EM cycle, nuisance sampling on, f_t 0.8, against the JAX
+    cycle on shared draws: decisions, accepts and states bit for bit."""
+    check_dense_cycle(dense, dense_jax)
+
+
+def test_dense_cycle_through_the_scan_kernels_matches_jax(dense, dense_jax, monkeypatch):
+    """The same cycle with every step's loads and stores on the card's
+    route (kernels H2 / H3's tables, run by ``tests/test_torch_scan_io``'s
+    transcription): one load and one store a step."""
+    spy = route_scan_to_card(monkeypatch)
+    check_dense_cycle(dense, dense_jax)
+    n = dense["state"].n_frags
+    assert spy.launches.by_key() == {"load": n, "store": n}
 
 
 def test_parameter_row_reaches_the_dense_scorer(dense, monkeypatch):
@@ -91,29 +120,49 @@ def test_parameter_row_reaches_the_dense_scorer(dense, monkeypatch):
     assert all(torch.equal(a, b) for a, b in zip(m1, m2))
 
 
-def test_delta_cycle_with_overflow_matches_jax(sparse):
-    """A sparse delta cycle at f_max 8 (slots overflow), the blacklisted
-    fragment among the steps, against the JAX cycle on shared draws."""
+@pytest.fixture(scope="module")
+def delta_jax(sparse):
+    """The JAX delta EM cycle at f_max 8 (slots overflow), the blacklisted
+    fragment among its steps, and its shared inputs, run once."""
     p = sparse
-    f_max = 8
-    cycle_j = jd.make_delta_em_cycle(p["table"], None, p["nb"], DELTA, f_max, sobs=p["sobs"],
-                                     anchor_fn=False)
-    cycle_t = td.make_delta_em_cycle(p["t_table"], None, p["t_nb"], DELTA, f_max,
-                                     sobs=p["t_sobs"], anchor_fn=False)
+    cycle_j = jd.make_delta_em_cycle(p["table"], None, p["nb"], DELTA, DELTA_F_MAX,
+                                     sobs=p["sobs"], anchor_fn=False)
     cur_j = walked_state(p["state"], seed=2)
     order = np.concatenate([[9], np.random.default_rng(6).permutation(p["state"].n_frags)[:23]])
     order = order.astype(np.int32)
     key = jax.random.key(23)
-    l_j = jnp.float32(-5000.0)
-    cur_j2, l_j2, out_j = cycle_j(cur_j, key, p["params"], jnp.asarray(order), l_j,
-                                  jnp.float32(0.9))
+    out_j = cycle_j(cur_j, key, p["params"], jnp.asarray(order), jnp.float32(-5000.0),
+                    jnp.float32(0.9))
     u_nb, gum = jax_delta_draws(key, len(order), p["nb"].pk.shape[1], tm.n_slots(p["t_nb"],
                                                                                    DELTA))
-    draws = tm.StepDraws(t(u_nb), t(gum), None, None, None)
-    cur_t, l_t, out_t = cycle_t(to_port(cur_j), draws, p["t_params"], torch.as_tensor(order),
-                                torch.tensor(-5000.0), 0.9)
+    return dict(cur_j=cur_j, order=order, out_j=out_j,
+                draws=tm.StepDraws(t(u_nb), t(gum), None, None, None))
+
+
+def check_delta_cycle(p, run):
+    cycle_t = td.make_delta_em_cycle(p["t_table"], None, p["t_nb"], DELTA, DELTA_F_MAX,
+                                     sobs=p["t_sobs"], anchor_fn=False)
+    cur_j2, l_j2, out_j = run["out_j"]
+    cur_t, l_t, out_t = cycle_t(to_port(run["cur_j"]), run["draws"], p["t_params"],
+                                torch.as_tensor(run["order"]), torch.tensor(-5000.0), 0.9)
     for name, g, w in zip(("ops", "fbs", "overs", "ncs"), out_t[1:], out_j[1:]):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=name)
     assert int(out_t[1][0]) == -1 and int(out_t[3].sum()) > 0
     assert_states_equal(cur_t, cur_j2)
     np.testing.assert_allclose(float(l_t), float(l_j2), rtol=RTOL)
+
+
+def test_delta_cycle_with_overflow_matches_jax(sparse, delta_jax):
+    """A sparse delta cycle at f_max 8 (slots overflow), the blacklisted
+    fragment among the steps, against the JAX cycle on shared draws."""
+    check_delta_cycle(sparse, delta_jax)
+
+
+def test_delta_cycle_through_the_scan_kernels_matches_jax(sparse, delta_jax, monkeypatch):
+    """The same delta cycle with every step's loads and stores on the
+    card's route (H2 / H3's tables transcribed): one load and one store a
+    step."""
+    spy = route_scan_to_card(monkeypatch)
+    check_delta_cycle(sparse, delta_jax)
+    steps = len(delta_jax["order"])
+    assert spy.launches.by_key() == {"load": steps, "store": steps}
