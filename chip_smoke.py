@@ -10,7 +10,7 @@ instead the across-cards checks (``phase_cards``): an NCCL world of one
 rank a card, and the CLI under ``torchrun`` against one process.
 ``python3 chip_smoke.py --top-tiers`` runs only the build, the 100k
 set-up and the phases of the top tiers (5, 8b, 11e, 11g, 11h, 3d, 3e, 3g
-at f_max 16,384, 5c), then the 20k repeat set-up and F1 / F2 at R = 8,192
+and 3i at f_max 16,384, 5c), then the 20k repeat set-up and F1 / F2 at R = 8,192
 (3f).
 
 Every sampler cycle (EM, delta EM, tempered, MTM / MH dense and delta)
@@ -200,6 +200,25 @@ written. "share" is the bound over the device time.
    of the bytes copied. Phases 4, 4b, 7, 7b, 7g and 7h count one H2 and
    one H3 launch a captured step and one H1 launch a dense scoring call
    (graph == eager by key).
+3i. The delta engine's input kernels I1 (the slots' lf_a, lf_b, max_id
+   and parameter rows: delta_slots_kernel) and I2 (the sub-row vectors of
+   each slot's 14 genomes, B4's keys and the repeat engine's act / circ /
+   accu_sub: delta_vectors_kernel; csrc/delta_inputs.cu) against their
+   plain versions (core/delta.py ``slot_inputs_plain``,
+   ``sub_vectors_plain``, torch on the card) on INPUTS_DRAWS random (chain,
+   slot) draws at every delta path's shape, each call's rows, mini-states
+   and catalogue made on the card as the path makes them: the 100k delta
+   EM step (union, M = 5, f_max 1,024), its 4 chains with their own
+   parameters (M = 20), the 100k delta MTM pass (M = 7, C2's catalogue),
+   the 20k repeat step (M = 10, key_of) and its 4 chains (M = 40), and the
+   repeat step at m = 80 on 2-16 copies a bin; 9d adds the CLI dataset's
+   bucket (f_max 64, 1 to 3 sub rows a fragment) and ``--top-tiers`` f_max
+   16,384 (4 chains, M = 20). Every output byte compared (bools as bytes);
+   each shape timed (I1 and I2 alone from one argument block; the plain
+   versions as called and as graph replays) beside its bound in bytes.
+   Every delta path (7, 7b, 7g, 7h, 8, 8a, 8b, 9d-9f, 11a, 11b, 11e, 11g,
+   run_mtm) counts one I1 and one I2 launch a scoring call beside its G1-G3
+   launches (graph == eager by key).
 3. Dense kernel B1 (ll_dense) vs plain: the dense scorer kernel against its
    plain torch version on the same inputs, rtol 1e-4 (bench.py's
    standard), at the flagship K = 1,152 on 65-candidate batches built on
@@ -606,6 +625,11 @@ EDGE_N = 2000               # 3g's f_max = n shapes: a cut of the 20k repeat gen
 ROW_COPIES = 16             # 3g: most copies of a bin in the m >= 65 shape (2 to 16: m = 80)
 ROWS_PATHS = {}             # each delta path's G1-G3 launches by key (the kernels line)
 ROWS_SHAPES = {}            # phase 3g's shapes and --top-tiers' f_max 16,384 one
+INPUTS_DRAWS = 1000         # random (chain, slot) draws a shape I1 / I2 are held to plain on
+INPUTS_TOP_DRAWS = 200      # the same at f_max 16,384 (--top-tiers)
+INPUTS_TIME_ITERS = 200
+INPUTS_SHAPES = {}          # phase 3i's shapes, 9d's CLI one and --top-tiers' f_max 16,384 one
+SETUPS = {}                 # set-ups a later phase shares (3g's many-copy problem)
 VEC_TIME_ITERS = 200
 SCAN_TIME_ITERS = 200
 VEC_SHAPES = {}             # phase 3h's H1 shapes
@@ -1163,7 +1187,8 @@ def main_path_run(device, build, n_cycles):
     cur = mcmc.explode_genome(state)
     torch.cuda.synchronize()
     scorer.n_launches = catalogue_wrapper().n_launches = step_wrapper().n_launches = 0
-    rows_wrapper().n_launches = vectors_wrapper().n_launches = scan_wrapper().n_launches = 0
+    rows_wrapper().n_launches = inputs_wrapper().n_launches = 0
+    vectors_wrapper().n_launches = scan_wrapper().n_launches = 0
     l0 = scorer(GenomeState(*[x[None] for x in cur]), params)[0]
     l_t, par = l0, params
     seconds = []
@@ -1481,8 +1506,8 @@ def delta_inputs(state, nb, params, scorer, extract, f_a, gen):
     scorer's bucket, as the delta step builds them: the neighbours drawn
     from ``nb`` as the step draws them, their member rows by ``extract``
     (the step's row extraction). Returns (B4's arguments (row_start, cols,
-    vals, keys), the D sub rows and their base activity (subs, act0) from
-    which the step makes its observed grid, B2's arguments)."""
+    vals, keys), the arguments (keys,) from which the step makes its
+    observed grid, B2's arguments); the keys and B2's vectors are I2's."""
     import torch
     from graal_tpu_torch.core import mcmc
     from graal_tpu_torch.core.delta import lift_chain
@@ -1490,13 +1515,11 @@ def delta_inputs(state, nb, params, scorer, extract, f_a, gen):
     f_a = torch.tensor(f_a, device=state.pos.device)
     ids, _ = mcmc.sample_neighbours(gen, f_a, state, nb, DELTA)
     rows, valid, _ = extract(state, f_a, ids, scorer.f_max)
-    subs, _ = scorer.sub_rows(rows, valid)
-    _, geo, ob, accu_sub, pvec = scorer.inputs(*lift_chain(state, f_a, ids, rows, valid),
-                                               params, state.id_c.amax()[None])
-    act0 = geo.act[:, 0]
+    _, vec, ob, pvec = scorer.inputs(*lift_chain(state, f_a, ids, rows, valid), params,
+                                     state.id_c.amax()[None])
     sobs = scorer.sobs
-    b4 = (sobs.row_start, sobs.cols, sobs.vals, scorer.obs_keys(subs, act0))
-    return b4, (subs, act0), scorer.mini_grid_args(geo, ob, accu_sub, pvec)
+    b4 = (sobs.row_start, sobs.cols, sobs.vals, vec.keys)
+    return b4, (vec.keys,), scorer.mini_grid_args(vec, ob, pvec)
 
 
 def b4_vs_plain(grid, b4, label):
@@ -1621,7 +1644,7 @@ def check_delta_kernels(sc, scorer, extract, frags, gen, want_m):
     grid = timed(lambda: scorer.obs_grid(*rows_act), 50)
     r = b4[3].shape[1]
     print(f"  time B4 R={r} M={m}: {fmt_time(t4)}; {fmt_bound(t4)}")
-    print(f"  time of the step's masked observed grid (keys + B4): {fmt_time(grid)}")
+    print(f"  time of the step's masked observed grid (B4 on I2's keys): {fmt_time(grid)}")
     return dict(ll_mini=dict(max_abs_err=b2_err, classes=class_shares(cls), **t2),
                 obsgrid=dict(max_abs_err=b4_err, **t4, grid_ms=grid["ms"],
                              grid_device_ms=grid["device_ms"]))
@@ -2003,7 +2026,8 @@ def scale_main_run(sc):
     torch.cuda.synchronize()
     runner.obs_grid.n_launches = runner.mini_grid.n_launches = 0
     catalogue_wrapper().n_launches = step_wrapper().n_launches = corr_wrapper().n_launches = 0
-    rows_wrapper().n_launches = vectors_wrapper().n_launches = scan_wrapper().n_launches = 0
+    rows_wrapper().n_launches = inputs_wrapper().n_launches = 0
+    vectors_wrapper().n_launches = scan_wrapper().n_launches = 0
     t0 = time.perf_counter()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -2075,7 +2099,7 @@ def phase_runner(sc, n_cycles=1, steps=512):
     l0 = runner.anchor_fn()(sc["shuf"], sc["params"]).item()
     counted = count_cycles(runner)
     torch.cuda.synchronize()
-    corr_wrapper().n_launches = rows_wrapper().n_launches = 0
+    corr_wrapper().n_launches = rows_wrapper().n_launches = inputs_wrapper().n_launches = 0
     t0 = time.perf_counter()
     final, params, m = runner.run(sc["shuf"], n_cycles=n_cycles, steps_per_cycle=steps,
                                   order_mode="extremity", f_max_min=256, sample_param=True,
@@ -2162,7 +2186,7 @@ def top_run(sc, start, steps):
     runner = ScaleRunner(sc["table"], sc["sobs"], sc["params"], nb=sc["runner"].nb)
     rec = count_cycles(runner)
     peak = PeakMemory()
-    rows_wrapper().n_launches = 0
+    rows_wrapper().n_launches = inputs_wrapper().n_launches = 0
     t0 = time.perf_counter()
     with banded_calls() as banded:
         final, _, m = runner.run(start, n_cycles=1, steps_per_cycle=steps,
@@ -2366,7 +2390,7 @@ def phase_cli_delta(ds, root):
 
     print("cli run --scoring delta (B2 + B4, B1 anchor): 1 cycle, no nuisance")
     o4 = os.path.join(root, "o4")
-    rows_wrapper().n_launches = 0
+    rows_wrapper().n_launches = inputs_wrapper().n_launches = 0
     t0 = time.perf_counter()
     runner, asm = cli(run_argv(ds, o4, "--cycles", "1", "--scoring", "delta",
                                "--no-sample-param"))
@@ -2404,9 +2428,13 @@ def phase_cli_delta(ds, root):
                                    asm.params, "cli run --scoring delta, B1 anchor (B=1)")
     # G1-G3 against their plain versions at the run's bucket on its final genome
     gen = torch.Generator(device=runner.device).manual_seed(SEED + 72)
-    rows_shape(rows_case(f"cli_run_delta_{min(runner.delta_buckets)}", dict(runner=runner),
-                         min(runner.delta_buckets),
-                         states=GenomeState(*[x[None] for x in asm.state])), gen)
+    case = rows_case(f"cli_run_delta_{min(runner.delta_buckets)}", dict(runner=runner),
+                     min(runner.delta_buckets), states=GenomeState(*[x[None] for x in asm.state]))
+    rows_shape(case, gen)
+    # I1 and I2 against their plain versions at that bucket (the dataset's
+    # own sub rows, 1 to 3 a fragment)
+    inputs_shape(case, delta.make_delta_scorer(runner.table, None, case["f_max"], sobs=sobs),
+                 asm.params, gen)
     return dict(mini=got[0], obs=got[1], dense=got[2], cycle_s=cycle_s, mini_err=b2_err,
                 obs_err=b4_err, dense_err=dense_err)
 
@@ -2421,7 +2449,7 @@ def phase_cli_scale(ds, root):
 
     print("cli scale: level 1, 1 cycle of 512 extremity-first steps, f_max_min 64")
     o5 = os.path.join(root, "o5")
-    rows_wrapper().n_launches = 0
+    rows_wrapper().n_launches = inputs_wrapper().n_launches = 0
     inner = ScaleRunner.cycle_for
     counted = count_cycles(ScaleRunner)
     try:
@@ -2509,7 +2537,7 @@ def cli_scale_repeats(dsr, root, steps=256):
 
     print(f"cli scale --allow-repeats: level 2, 1 cycle of {steps} extremity-first steps")
     o7 = os.path.join(root, "o7")
-    corr_wrapper().n_launches = rows_wrapper().n_launches = 0
+    corr_wrapper().n_launches = rows_wrapper().n_launches = inputs_wrapper().n_launches = 0
     inner = ScaleRunner.cycle_for
     counted = count_cycles(ScaleRunner)
     try:
@@ -2822,12 +2850,10 @@ def mtm_delta_vs_plain(label, runner, state, bucket, f_a, n_time=0):
     f_a = torch.tensor(f_a, device=state.pos.device)
     ids, _ = mtm._neighbour_set(state, f_a, runner.jump_table(MTM_DELTA, state.n_frags))
     rows, valid, _ = delta.extract_rows_each(state, f_a, ids, scorer.f_max)
-    subs, _ = scorer.sub_rows(rows, valid)
-    _, geo, ob, accu_sub, pvec = scorer.inputs(*delta.lift_chain(state, f_a, ids, rows, valid),
-                                               runner.params, state.id_c.amax()[None])
-    b4 = (runner.sobs.row_start, runner.sobs.cols, runner.sobs.vals,
-          scorer.obs_keys(subs, geo.act[:, 0]))
-    args = scorer.mini_grid_args(geo, ob, accu_sub, pvec)
+    _, vec, ob, pvec = scorer.inputs(*delta.lift_chain(state, f_a, ids, rows, valid),
+                                     runner.params, state.id_c.amax()[None])
+    b4 = (runner.sobs.row_start, runner.sobs.cols, runner.sobs.vals, vec.keys)
+    args = scorer.mini_grid_args(vec, ob, pvec)
     tag = f"{label}, f_max={scorer.f_max} f_a={int(f_a)}"
     ob_k, err4 = b4_vs_plain(scorer.obs_grid_kernel, b4, tag)
     check(torch.equal(args[5], ob_k), f"{tag}: the step's observed grid is not B4's")
@@ -3075,12 +3101,10 @@ def chains_inputs(states, nb, params_c, scorer, extract, gen):
     u = torch.rand((n_chains, nb.pk.shape[1]), generator=gen, device=dev)
     ids, _ = mcmc.sample_neighbours(u, f_a, states, nb, DELTA)
     rows, valid, _ = extract(states, f_a, ids, scorer.f_max)
-    subs, _ = scorer.sub_rows(rows.reshape(-1, rows.shape[-1]), valid.reshape(-1, rows.shape[-1]))
-    _, geo, ob, accu_sub, pvec = scorer.inputs(states, f_a, ids, rows, valid, params_c,
-                                               states.id_c.amax(-1))
-    b4 = (scorer.sobs.row_start, scorer.sobs.cols, scorer.sobs.vals,
-          scorer.obs_keys(subs, geo.act[:, 0]))
-    return b4, scorer.mini_grid_args(geo, ob, accu_sub, pvec), ids.shape[1]
+    _, vec, ob, pvec = scorer.inputs(states, f_a, ids, rows, valid, params_c,
+                                     states.id_c.amax(-1))
+    b4 = (scorer.sobs.row_start, scorer.sobs.cols, scorer.sobs.vals, vec.keys)
+    return b4, scorer.mini_grid_args(vec, ob, pvec), ids.shape[1]
 
 
 def check_chains_kernels(label, scorer, b4, args, m_per_chain, abs_scores=True):
@@ -3192,7 +3216,7 @@ def chains_main(label, runner, state0, n_chains, steps, f_max_min, drift_bound,
     l0 = runner.anchor_fn()(state0, runner.params).item()
     torch.cuda.synchronize()
     runner.mini_grid.n_launches = runner.obs_grid.n_launches = 0
-    corr_wrapper().n_launches = rows_wrapper().n_launches = 0
+    corr_wrapper().n_launches = rows_wrapper().n_launches = inputs_wrapper().n_launches = 0
     t0 = time.perf_counter()
     final, best, m = runner.run_chains(state0, n_chains=n_chains, n_cycles=1,
                                        steps_per_cycle=steps, f_max_min=f_max_min, t_max=4.0,
@@ -3742,7 +3766,7 @@ def graph_vs_eager(label, build, chunks, kernels, sync_error=False):
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        for k in kernels + [vectors_wrapper(), scan_wrapper()]:
+        for k in kernels + [vectors_wrapper(), scan_wrapper(), inputs_wrapper()]:
             k.n_launches = 0
         cycle = build(capture)
         carry, got, ms = None, [], []
@@ -3754,7 +3778,7 @@ def graph_vs_eager(label, build, chunks, kernels, sync_error=False):
         rec[mode] = dict(ms_per_step=ms, launches=[k.n_launches for k in kernels],
                          by_key=[{str(key): v for key, v in k.launches.by_key().items()}
                                  for k in kernels],
-                         io=io_launches(),
+                         io=io_launches(), inputs=dict(inputs_wrapper().launches.by_key()),
                          peak_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
                          peak_reserved_gb=torch.cuda.max_memory_reserved() / 1e9)
         del cycle, carry, got
@@ -3769,9 +3793,12 @@ def graph_vs_eager(label, build, chunks, kernels, sync_error=False):
     check(g["launches"] == e["launches"] and g["by_key"] == e["by_key"],
           f"{label}: launches {g['by_key']} (graph) != {e['by_key']} (eager)")
     check(g["io"] == e["io"], f"{label}: H1-H3 launches {g['io']} (graph) != {e['io']} (eager)")
+    check(g["inputs"] == e["inputs"],
+          f"{label}: I1 / I2 launches {g['inputs']} (graph) != {e['inputs']} (eager)")
     check(all(x > 0 for x in g["launches"]), f"{label}: a kernel of the path never launched")
     print("    graph == eager bit for bit: states, likelihoods, parameters, metrics"
           + (f"; launches by key {g['by_key']}" if kernels else "") + f"; H1-H3 {g['io']}"
+          + (f"; I1 / I2 {g['inputs']}" if g["inputs"] else "")
           + ("; each run's first call under sync debug mode \"error\"" if sync_error else ""))
     return rec
 
@@ -5440,15 +5467,15 @@ def corr_args(case, f_a, ids):
     """A scoring call's arguments of F1 / F2 (and of the plain version), as
     the engine's ``score`` builds them: (state, f_a, rows, valid, geo,
     accu_sub, pvec, dll1), B2's deltas from the engine's own B2."""
-    from graal_tpu_torch.core.delta import extract_rows_each
+    from graal_tpu_torch.core.delta import extract_rows_each, geometry_of
 
     engine, states = case["engine"], case["states"]
     p = engine.plain
     rows, valid, _ = extract_rows_each(states, f_a, ids, engine.f_max)
-    _, geo, ob, accu_sub, pvec = p.inputs(states, f_a, ids, rows, valid, case["params"],
-                                          states.id_c.amax(-1))
-    _, dll1 = p.mini_grid(*p.mini_grid_args(geo, ob, accu_sub, pvec))
-    return states, f_a, rows, valid, geo, accu_sub, pvec, dll1
+    _, vec, ob, pvec = p.inputs(states, f_a, ids, rows, valid, case["params"],
+                                states.id_c.amax(-1))
+    _, dll1 = p.mini_grid(*p.mini_grid_args(vec, ob, pvec))
+    return states, f_a, rows, valid, geometry_of(vec), vec.accu_sub, pvec, dll1
 
 
 def check_corr_kernels(case, gen, n_draws=CORR_DRAWS):
@@ -5703,27 +5730,37 @@ def rows_wrapper():
 
 
 def rows_launches():
-    return dict(rows_wrapper().launches.by_key())
+    """G1-G3's and I1 / I2's launches by key, read from the card."""
+    return dict(rows_wrapper().launches.by_key()) | dict(inputs_wrapper().launches.by_key())
+
+
+def row_set(calls):
+    """The launches of ``calls`` delta scoring calls: one G1 + G2 pair, one
+    G3, one I1 and one I2 each."""
+    return {"counts": calls, "write": calls, "gather": calls, "delta_slots": calls,
+            "delta_vectors": calls}
 
 
 def want_rows_launches(path, got, calls):
-    """One G1 + G2 pair and one G3 launch a scoring call of a delta path
-    (``calls`` of them); the count goes to the kernels line under
-    ``path``."""
-    want = {"counts": calls, "write": calls, "gather": calls}
-    print(f"  member-row launches: {got} (one G1 + G2 pair and one G3 a scoring call: {calls})")
-    check(got == want, f"{path}: G1-G3 launches {got} != {want}")
+    """One G1 + G2 pair, one G3, one I1 and one I2 launch a scoring call of
+    a delta path (``calls`` of them); the count goes to the kernels line
+    under ``path``."""
+    want = row_set(calls)
+    print(f"  member-row and input launches: {got} (one G1 + G2 pair, one G3, one I1 and one "
+          f"I2 a scoring call: {calls})")
+    check(got == want, f"{path}: G1-G3, I1 / I2 launches {got} != {want}")
     ROWS_PATHS[path] = got
 
 
 def rows_paths(records, want_calls):
-    """Keep each graphed delta path's G1-G3 launches (the graph run's,
-    equal to the eager run's) for the kernels line, one set a scoring call
-    (``want_calls[name]``)."""
+    """Keep each graphed delta path's G1-G3 and I1 / I2 launches (the graph
+    run's, equal to the eager run's) for the kernels line, one set a
+    scoring call (``want_calls[name]``)."""
     for name, calls in want_calls.items():
         got = [k for k in records[name]["graph"]["by_key"] if "write" in k]
-        check(got == [{"counts": calls, "write": calls, "gather": calls}],
-              f"{name}: G1-G3 launches {got} != one set a scoring call ({calls})")
+        got = [got[0] | records[name]["graph"]["inputs"]] if len(got) == 1 else got
+        check(got == [row_set(calls)],
+              f"{name}: G1-G3, I1 / I2 launches {got} != one set a scoring call ({calls})")
         ROWS_PATHS[f"graph_{name}"] = got[0]
 
 
@@ -5965,7 +6002,7 @@ def phase_rows_kernels(device, sc, rsc):
              rows_case(f"f_max_n_{EDGE_N}", rsc, EDGE_N, states=cut, union=False, uniform_m=5),
              rows_case(f"f_max_n_{EDGE_N}_union", rsc, EDGE_N, states=cut, uniform_m=5),
              rows_case(f"u_cap_n_20k_{TOP_F_MAX}", rsc, TOP_F_MAX)]
-    many = many_copies_setup(device, ROW_COPIES)
+    many = SETUPS["many_copies"] = many_copies_setup(device, ROW_COPIES)
     cases.append(rows_case(f"repeat_20k_em_{ROW_COPIES}_copies", many, F_MAX, union=False))
     out = {case["label"]: rows_shape(case, gen) for case in cases}
     rows_many_copies_steps(many)
@@ -6010,7 +6047,7 @@ def rows_many_copies_steps(mc):
     order = np.concatenate([rng.permutation(copies)[:4], rng.permutation(originals)[:3],
                             rng.permutation(extremities(shuf))[:3]])
     torch.cuda.synchronize()
-    rows_wrapper().n_launches = corr_wrapper().n_launches = 0
+    rows_wrapper().n_launches = inputs_wrapper().n_launches = corr_wrapper().n_launches = 0
     exactness_steps(f"repeat delta EM at m = {mc['m']} ({ROW_COPIES} copies a bin)", step,
                     runner.anchor_fn(), shuf, mc["params"], order, rep=rep)
     torch.cuda.synchronize()
@@ -6049,6 +6086,255 @@ def rows_records():
                              if label != "delta_100k_em"})
         library = rec.pop("library_ms")
         entry = kernel_record(name, "rows.cu", f"graal_tpu/core/delta.py:{line}",
+                              sum(paths.values()), rec)
+        entry["library_ms"] = library
+        out.append(entry)
+    return out
+
+
+def inputs_wrapper():
+    """The delta engine's input kernels' wrapper (I1 / I2, launches keyed
+    "delta_slots" / "delta_vectors")."""
+    from graal_tpu_torch.ops.delta_inputs_cuda import INPUTS
+
+    return INPUTS
+
+
+def inputs_scorer(sc, f_max, mh=False):
+    """A delta scorer of ``sc``'s problem at bucket ``f_max`` as the path
+    builds it: the repeat engine's single-copy scorer (``key_of``, with
+    I2's extras) on a repeat table, else the plain engine (the MH catalogue
+    with ``mh``)."""
+    from graal_tpu_torch.core import delta, delta_repeats
+    from graal_tpu_torch.core.candidates import mh_candidates
+
+    cat = mh_candidates if mh else None
+    if sc["table"].has_repeats:
+        return delta_repeats.make_repeat_delta_scorer_v2(sc["table"], f_max, sc["sobs"],
+                                                         sc["truth"].rep, catalogue=cat).plain
+    return delta.make_delta_scorer(sc["table"], None, f_max, sobs=sc["sobs"], catalogue=cat)
+
+
+def inputs_call(case, scorer, params, f_a, ids):
+    """One scoring call's arguments of I1 (rows, f_a, ids, max_id, params)
+    and the member rows' validity, as the path makes them on the card (the
+    extraction and the chains' maxima by G1 / G2)."""
+    from graal_tpu_torch.core import delta
+
+    rows, valid, _, max_id = delta.extract_rows_max(case["states"], f_a, ids, scorer.f_max,
+                                                     case["union"])
+    return (rows, f_a, ids, max_id, params, scorer.log_nfpb), valid
+
+
+def inputs_full(case, scorer, slots, valid, lf):
+    """The slots' 14 genomes as the path builds them from I1's (lf_a, lf_b,
+    max_id): G3's mini-states and the catalogue (C1 / C2)."""
+    from graal_tpu_torch.core import delta
+    from graal_tpu_torch.core.state import GenomeState
+
+    rows = slots[0]
+    c, m, f_max = rows.shape
+    mini = delta.gather_mini(case["states"], rows, valid)
+    mini = GenomeState(*[x.reshape(c * m, f_max) for x in mini])
+    return scorer.catalogue(mini, lf[0], lf[1], max_id=lf[2], with_base=True)
+
+
+def check_inputs_kernels(case, scorer, params, gen, n_draws=INPUTS_DRAWS):
+    """I1 and I2 against their plain versions on ~``n_draws`` random (chain,
+    slot) draws of one shape, every output byte (bools as bytes); the
+    differences counted on the card and read once. Returns (stats, the last
+    call's (slot arguments, valid, 14 genomes))."""
+    import torch
+    from graal_tpu_torch.core import delta
+
+    ik = inputs_wrapper()
+    dev = case["states"].pos.device
+    bad = torch.zeros((), dtype=torch.int64, device=dev)
+    absent = torch.zeros((), dtype=torch.int64, device=dev)
+    live = torch.zeros((), dtype=torch.int64, device=dev)
+    n_calls = slots = 0
+    while slots < n_draws:
+        f_a, ids = case["draw"](gen)
+        args, valid = inputs_call(case, scorer, params, f_a, ids)
+        got = ik.slots(*args)
+        bad += bit_diffs(got, delta.slot_inputs_plain(*args))
+        full = inputs_full(case, scorer, args, valid, got)
+        vec = ik.vectors(full, args[0], valid, scorer.vt, scorer.extras)
+        want = delta.sub_vectors_plain(full, args[0], valid, scorer.vt, scorer.extras)
+        check(all((g is None) == (w is None) for g, w in zip(vec, want)),
+              f"{case['label']}: I2's outputs {[g is None for g in vec]} != plain's")
+        bad += bit_diffs([g for g in vec if g is not None], [w for w in want if w is not None])
+        absent += (~(args[0] == ids[..., None]).any(-1)).sum()
+        live += (vec.keys >= 0).sum()
+        n_calls += 1
+        slots += ids.numel()
+    stats = dict(calls=n_calls, slots=slots, neighbours_absent=int(absent),
+                 live_sub_rows=int(live), differences=int(bad))
+    return stats, (args, valid, full)
+
+
+def inputs_bound(args, valid, scorer, lf, vec):
+    """The least time of I1 and of I2 on one call (:func:`bound`): I1 reads
+    each slot's rows up to the later of its two first matches (all f_max
+    where one is absent), fA, the neighbours, max_id and the parameters,
+    and writes lf_a, lf_b, max_id and the 10-float rows; its 4 logs and a
+    pow a slot are special-function work. I2 reads the rows and their
+    validity, the mini table at the distinct rows, the 6 fields of the 14
+    genomes, the sub-row tables at the distinct sub rows (key_of too on the
+    repeat engine), and writes its planes (and extras); a log a live entry
+    (bytes bound it)."""
+    import torch
+
+    rows, f_a, ids, max_id = args[:4]
+    c, m, f_max = rows.shape
+    big_m = c * m
+    found = (rows == f_a[:, None, None]).any(-1) & (rows == ids[..., None]).any(-1)
+    scanned = torch.where(found.reshape(-1), torch.maximum(lf[0], lf[1]) + 1, f_max)
+    i1 = 8 * int(scanned.sum()) + c * (2 * f_a.element_size() + 8 * 4) \
+        + ids.numel() * ids.element_size() + big_m * (16 + max_id.element_size() + 40)
+    vt = scorer.vt
+    subs, _ = scorer.sub_rows(rows.reshape(big_m, f_max), valid.reshape(big_m, f_max))
+    distinct_subs = int(torch.unique(subs.clamp(0, scorer.k_subs - 1)).numel())
+    distinct_rows = int(torch.unique(rows).numel())
+    r = vec.mid.shape[-1]
+    per_sub = 16 + (8 if vt.key_of is not None else 0)
+    extras = vec.act is not None
+    i2 = big_m * f_max * 9 + distinct_rows * 16 + 6 * 4 * big_m * 14 * f_max \
+        + distinct_subs * per_sub + big_m * 14 * r * (20 + (5 if extras else 0)) \
+        + big_m * r * (4 + (4 if extras else 0))
+    live = int((vec.la > -1e9).sum())
+    return bound(i1, sfu_ops=5 * big_m), bound(i2, fp32_ops=4 * big_m * 14 * r, sfu_ops=live)
+
+
+def time_inputs_kernels(scorer, args, valid, full):
+    """I1 and I2 alone (each launched from one argument block, outside the
+    wrapper's count), event ms as called and device ms behind a spin kernel;
+    the plain versions' ms as called and on the device as graph replays;
+    each kernel's bound."""
+    import ctypes
+
+    import torch
+    from graal_tpu_torch.core import delta
+    from graal_tpu_torch.ops import delta_inputs_cuda as di
+
+    lib = di.load_library()
+    stream = torch.cuda.current_stream().cuda_stream
+    a1, keep1, lf = di.slot_args(*args)
+    a2, keep2, vec = di.vector_args(full, args[0], valid, scorer.vt, scorer.extras)
+
+    def i1():
+        check(lib.delta_slots(ctypes.byref(a1), stream) == 0, "I1 launch failed")
+
+    def i2():
+        check(lib.delta_vectors(ctypes.byref(a2), stream) == 0, "I2 launch failed")
+
+    i1()
+    i2()
+    torch.cuda.synchronize()
+    b1, b2 = inputs_bound(args, valid, scorer, lf, vec)
+    rec = {}
+    for kind, fn, b, plain in (
+            ("delta_slots", i1, b1, lambda: delta.slot_inputs_plain(*args)),
+            ("delta_vectors", i2, b2, lambda: delta.sub_vectors_plain(
+                full, args[0], valid, scorer.vt, scorer.extras))):
+        t = timed(fn, INPUTS_TIME_ITERS)
+        t.update(plain_ms=cuda_ms(plain, 5, n_warm=1), plain_device_ms=graph_device_ms(plain, 20),
+                 library_ms=None)
+        rec[kind] = with_share(t, b)
+    del keep1, keep2
+    return rec
+
+
+def inputs_shape(case, scorer, params, gen, n_draws=INPUTS_DRAWS):
+    """Phase 3i's check and timing of one shape; the record (kept in
+    INPUTS_SHAPES under the shape's label) and its printed summary."""
+    stats, (args, valid, full) = check_inputs_kernels(case, scorer, params, gen, n_draws)
+    times = time_inputs_kernels(scorer, args, valid, full)
+    c, m, f_max = args[0].shape
+    r = f_max * scorer.s_max
+    engine = "repeat (key_of, extras)" if scorer.vt.key_of is not None else \
+        ("plain, MH catalogue" if scorer.catalogue.__name__ == "mh_candidates" else "plain")
+    print(f"  {case['label']}: {engine}, {'union' if case['union'] else 'each'}, n = "
+          f"{case['n']}, C = {c}, m = {m} (M = {c * m}), f_max {f_max}, R = {r}; "
+          f"{stats['calls']} calls, {stats['slots']} slots, neighbours absent from their rows "
+          f"{stats['neighbours_absent']}, live sub rows {stats['live_sub_rows']}; differences "
+          f"{stats['differences']}")
+    for k, (kind, rec) in enumerate(times.items()):
+        print(f"    I{k + 1} {kind}: {rec['device_ms']:.4f} device ms ({rec['ms']:.4f} as "
+              f"called); {fmt_bound(rec)}; plain {rec['plain_device_ms']:.4f} device ms as graph "
+              f"replays ({rec['plain_ms']:.4f} as called)")
+    check(stats["differences"] == 0,
+          f"{case['label']}: {stats['differences']} values of I1 / I2 differ from plain")
+    check(stats["live_sub_rows"] > 0, f"{case['label']}: no live sub row in any call")
+    rec = dict(stats=stats, kernels=times, M=c * m, f_max=f_max, R=r, n=case["n"], chains=c,
+               mode="union" if case["union"] else "each", engine=engine)
+    INPUTS_SHAPES[case["label"]] = rec
+    return rec
+
+
+def phase_inputs_kernels(device, sc, rsc):
+    """3i. The delta engine's input kernels I1 (slot scalars and parameter
+    rows) and I2 (sub-row vectors and window keys) against their plain
+    versions on INPUTS_DRAWS random (chain, slot) draws at every delta
+    path's shape: the 100k delta EM step (union, M = 5, f_max F_MAX), its 4
+    chains with their own parameters (M = 20), the 100k delta MTM pass (M
+    = 7, C2's catalogue), the 20k repeat step (M = 10, key_of) and 4 repeat
+    chains (M = 40), and the repeat step at m = 80 on 2 to ROW_COPIES copies
+    a bin (3g's problem); each shape timed against the plain versions.
+    9d adds the CLI dataset's bucket, ``--top-tiers`` f_max 16,384."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 90)
+    print(f"delta input kernels I1 (slots), I2 (vectors) vs plain, ~{INPUTS_DRAWS} slots a "
+          "shape, every output byte")
+    shapes = [("delta_100k_em", sc, dict(), False, None),
+              ("delta_100k_em_4_chains", sc, dict(states=chain_starts(sc)), False, CHAINS),
+              ("delta_100k_mtm", sc, dict(union=False, mh=True), True, None),
+              ("repeat_20k_em", rsc, dict(union=False), False, None),
+              ("repeat_20k_em_4_chains", rsc, dict(states=chain_starts(rsc), union=False), False,
+               CHAINS),
+              (f"repeat_20k_em_{ROW_COPIES}_copies", SETUPS["many_copies"], dict(union=False),
+               False, None)]
+    out = {}
+    for label, s, kw, mh, chains in shapes:
+        case = rows_case(label, s, F_MAX, **kw)
+        params = chain_params(s["params"], chains) if chains else s["params"]
+        out[label] = inputs_shape(case, inputs_scorer(s, case["f_max"], mh), params, gen)
+    return out
+
+
+def phase_inputs_top(sc):
+    """(``--top-tiers``) I1 and I2 at f_max 16,384: 4 chains of the truth
+    with their own parameters (M = 20), union mode as the chains' delta EM
+    step extracts them."""
+    import torch
+    from graal_tpu_torch.core.state import GenomeState
+
+    gen = torch.Generator(device=sc["truth"].pos.device).manual_seed(SEED + 91)
+    states = GenomeState(*[x.expand(CHAINS, -1).contiguous() for x in sc["truth"]])
+    case = rows_case(f"delta_100k_4_chains_{TOP_TIERS[1]}", sc, TOP_TIERS[1], states=states)
+    return inputs_shape(case, inputs_scorer(sc, case["f_max"]),
+                        chain_params(sc["params"], CHAINS), gen, n_draws=INPUTS_TOP_DRAWS)
+
+
+def inputs_records():
+    """The kernels line's entries of I1 (delta_slots) and I2
+    (delta_vectors): the 100k delta EM step's numbers, phase 3i's other
+    shapes under "by_shape", and under "by_path" each delta path's
+    launches counted on the card (beside G1-G3's, one of each a scoring
+    call), whose sum is the top-level count; "max_abs_err" 0 (every output
+    byte; a difference fails 3i); no single PyTorch call computes either
+    function ("library_ms" null)."""
+    out = []
+    flagship = INPUTS_SHAPES["delta_100k_em"]
+    for kind, line in (("delta_slots", 637), ("delta_vectors", 386)):
+        paths = {path: by_key[kind] for path, by_key in ROWS_PATHS.items() if by_key.get(kind)}
+        check(paths, f"no main path launched the {kind} kernel")
+        rec = dict(flagship["kernels"][kind], max_abs_err=0, by_path=paths,
+                   by_shape={label: r["kernels"][kind] for label, r in INPUTS_SHAPES.items()
+                             if label != "delta_100k_em"})
+        library = rec.pop("library_ms")
+        entry = kernel_record(kind, "delta_inputs.cu", f"graal_tpu/core/delta.py:{line}",
                               sum(paths.values()), rec)
         entry["library_ms"] = library
         out.append(entry)
@@ -6617,7 +6903,7 @@ def run_mtm_memory(runner, start, steps, f_max_min, label):
     torch.cuda.empty_cache()
     before = torch.cuda.memory_allocated()
     peak = PeakMemory()
-    move_wrapper().n_launches = rows_wrapper().n_launches = 0
+    move_wrapper().n_launches = rows_wrapper().n_launches = inputs_wrapper().n_launches = 0
     t0 = time.perf_counter()
     final, l_t, m = runner.run_mtm(start, n_cycles=1, steps_per_cycle=steps,
                                    f_max_min=f_max_min, progress=False)
@@ -6919,6 +7205,7 @@ def kernels_line(dense, dense_launches, repeat, repeat_launches, delta, mini_lau
         *move_records(move),
         *corr_records(),
         *rows_records(),
+        *inputs_records(),
         *io_records(),
     ]}
 
@@ -6949,6 +7236,7 @@ def main():
     phase("3f F1 F2", phase_corr_kernels, device, rsc)
     phase("3g G1 G2 G3", phase_rows_kernels, device, sc, rsc)
     phase("3h H1 H2 H3", phase_io_kernels, device, sc, rsc)
+    phase("3i I1 I2", phase_inputs_kernels, device, sc, rsc)
     dense = phase("2-3 B1", phase_kernel, device)
     dense_launches = phase("4 dense main", phase_main, device)
     repeat = phase("4a B3", phase_repeat_kernel, device)
@@ -7017,6 +7305,7 @@ def main_top():
     step_top = phase("3d D3 top", phase_step_top, sc)
     move_top = phase("3e E1-E3 top", phase_move_top, sc)
     rows_top = phase("3g G1-G3 top", phase_rows_top, sc)
+    inputs_top = phase("3i I1 I2 top", phase_inputs_top, sc)
     crossover = phase("5c routes", phase_crossover, sc)
     del sc
     rsc = phase("set-up 20k repeat", scale_repeat_setup, device)
@@ -7026,7 +7315,8 @@ def main_top():
     print(json.dumps({"tiers": {k: delta_timing[k]["tiers"] for k in ("ll_mini", "obsgrid")},
                       "routes": crossover, "run_top": top, "run_chains_top": top_chains,
                       "graphs": graphs, "step_top": step_top, "move_top": move_top,
-                      "corr_top": corr_top, "rows_top": rows_top}))
+                      "corr_top": corr_top, "rows_top": rows_top,
+                      "inputs_top": inputs_top}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

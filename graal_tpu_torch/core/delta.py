@@ -24,6 +24,10 @@ whose plain torch version runs on CPU tensors:
 - the member rows and mini-states (:data:`graal_tpu_torch.ops.rows_cuda.ROWS`,
   G1-G3): each neighbour's rows in one ordered pass over the genome, and
   the 11 fields gathered at them;
+- the scorers' inputs (:data:`graal_tpu_torch.ops.delta_inputs_cuda.INPUTS`,
+  I1 / I2): each slot's local fA / neighbour indices, fresh-id maximum and
+  parameter row before the catalogue, then the sub-row vectors of its 14
+  genomes and the window keys;
 - the window obs grid (:class:`graal_tpu_torch.ops.obsgrid_cuda.WindowObsGrid`):
   the D rows' CSR windows, read from the observed map in place, made dense
   over the D sub rows, with base activity folded into the keys;
@@ -61,6 +65,7 @@ from graal_tpu_torch.core.sparse import SparseObs, lexsort2
 from graal_tpu_torch.core.state import MUTABLE_FIELDS, GenomeState
 from graal_tpu_torch.core.subfrags import SubFragTable
 from graal_tpu_torch.ops import mini_grid_cuda
+from graal_tpu_torch.ops.delta_inputs_cuda import INPUTS, SubVectors, VectorTables
 from graal_tpu_torch.ops.likelihood_cuda import N_PARAMS, params_vector
 from graal_tpu_torch.ops.mini_grid_cuda import MiniGridScorer, log_cis_plain
 from graal_tpu_torch.ops.obsgrid_cuda import WindowObsGrid
@@ -389,6 +394,66 @@ class Geometry(NamedTuple):
     stot: torch.Tensor
 
 
+def geometry_of(vec: SubVectors) -> Geometry:
+    """The :class:`Geometry` (circ int32) of sub-row vectors made with
+    their extras (``act``, ``circ_i``)."""
+    return Geometry(vec.mid, vec.idc, vec.act, vec.circ_i, vec.stot)
+
+
+def sub_rows_plain(vt: VectorTables, rows, valid):
+    """Global sub rows of mini fragments ``rows`` (m, f_max), (m, R), and
+    their validity."""
+    m, f_max = rows.shape
+    start = vt.sub_start[rows]                                   # (m, f_max)
+    count = vt.sub_count[rows]
+    slot = torch.arange(vt.s_max, device=rows.device)
+    subs = (start[..., None] + slot).reshape(m, f_max * vt.s_max)
+    sub_valid = (valid[..., None] & (slot < count[..., None])).reshape(m, f_max * vt.s_max)
+    return subs, sub_valid
+
+
+def slot_inputs_plain(rows, f_a, ids, max_id, params: RippeParams, log_nfpb):
+    """Kernel I1's function in plain torch: for the C x m neighbour slots of
+    ``rows`` (C, m, f_max) (``f_a`` and ``max_id`` (C,), ``ids`` (C, m),
+    params shared or one set a chain with fields (C,)), (lf_a, lf_b (M,)
+    int64: the first position of fA / the neighbour in the slot's rows, 0
+    where there is none; max_id (M,), each slot its chain's; the parameter
+    rows (M, 10), each slot its chain's)."""
+    c, m, _ = rows.shape
+    lf_a = (rows == f_a[:, None, None]).int().argmax(-1).reshape(-1)
+    lf_b = (rows == ids[..., None]).int().argmax(-1).reshape(-1)
+    pvec = params_vector(params, log_nfpb).expand(c, N_PARAMS).repeat_interleave(m, 0)
+    return lf_a, lf_b, max_id.repeat_interleave(m), pvec
+
+
+def sub_vectors_plain(full: GenomeState, rows, valid, vt: VectorTables,
+                      extras: bool) -> SubVectors:
+    """Kernel I2's function in plain torch: the :class:`SubVectors` of the
+    slots' 14 genomes ``full`` (fields (C x m, 14, f_max), the base first)
+    on their member rows ``rows`` / ``valid`` (C, m, f_max); ``extras``:
+    with act, circ_i and accu_sub."""
+    c, m, f_max = rows.shape
+    rows, valid = rows.reshape(c * m, f_max), valid.reshape(c * m, f_max)
+    subs, sub_valid = sub_rows_plain(vt, rows, valid)
+    subs_c = subs.clamp(0, vt.prefix.shape[0] - 1)
+    os_ = torch.arange(f_max, device=rows.device).repeat_interleave(vt.s_max)   # (R,)
+    ori = full.ori[..., os_]
+    mid = full.start_bp[..., os_].float() / 1000.0 \
+        + torch.where(ori == 1, vt.prefix[subs_c][:, None, :], vt.suffix[subs_c][:, None, :]) \
+        + vt.len_kb[subs_c][:, None, :] * 0.5
+    act = (full.activ[..., os_] == 1) & sub_valid[:, None, :]
+    circ = full.circ[..., os_]
+    accu_sub = vt.accu[subs_c]
+    la = torch.where(act, torch.log(accu_sub)[:, None, :], -1e9)
+    # the CSR windows' keys: the sub row, or its data sub under key_of,
+    # where the base row is active, and -1 (no window) elsewhere
+    keys = torch.where(act[:, 0], subs_c if vt.key_of is None else vt.key_of[subs_c], -1).int()
+    return SubVectors(mid=mid, idc=full.id_c[..., os_], circ=circ.float(),
+                      stot=full.l_cont_bp[..., os_].float() / 1000.0, la=la, keys=keys,
+                      act=act if extras else None, circ_i=circ if extras else None,
+                      accu_sub=accu_sub if extras else None)
+
+
 class DeltaScorer:
     """The per-neighbour delta scorer (``make_delta_scorer``).
 
@@ -433,7 +498,6 @@ class DeltaScorer:
         self.r_max = self.f_max * self.s_max
         self.k_subs = table.n_subs
         self.device = table.owner.device
-        self.table = table
         self.nfpb = float(np.float32(table.n_frags_per_bins))
         self.log_nfpb = torch.tensor(np.float32(np.log(table.n_frags_per_bins)),
                                      device=self.device)
@@ -453,55 +517,57 @@ class DeltaScorer:
         if band_w is not None:
             self.off_chunk = _off_chunk if _off_chunk is not None else \
                 max(8, min(band_w, (1 << 20) // max(self.r_max, 1)))
-        self.owner_slot = torch.arange(self.f_max, device=self.device) \
-            .repeat_interleave(self.s_max)                       # (R,)
+        mt = self.mt
+        self.vt = VectorTables(                                  # as kernel I2 reads them
+            sub_start=mt.sub_start.contiguous(), sub_count=mt.sub_count.contiguous(),
+            prefix=table.prefix_kb.contiguous(), suffix=table.suffix_kb.contiguous(),
+            len_kb=table.len_kb.contiguous(), accu=table.accu.contiguous(),
+            key_of=None if self.key_of is None else self.key_of.contiguous(), s_max=mt.s_max)
+        # the repeat engine's corrections and the banded route read the
+        # activity, the int32 circ and the sub rows' accu too
+        self.extras = self.key_of is not None or band_w is not None
 
     # ---- the D sub rows and their observed grid ---------------------------
     def sub_rows(self, rows, valid):
-        """Global sub rows of the mini fragments, (m, R), and their
-        validity."""
-        m = rows.shape[0]
-        start = self.mt.sub_start[rows]                          # (m, f_max)
-        count = self.mt.sub_count[rows]
-        slot = torch.arange(self.s_max, device=rows.device)
-        subs = (start[..., None] + slot).reshape(m, self.r_max)
-        sub_valid = (valid[..., None] & (slot < count[..., None])).reshape(m, self.r_max)
-        return subs, sub_valid
+        """Global sub rows of the mini fragments ``rows`` (m, f_max), (m,
+        R), and their validity."""
+        return sub_rows_plain(self.vt, rows, valid)
 
-    def obs_keys(self, subs, act):
-        """(m, R) int32 keys of the D sub rows' CSR windows: the sub row,
-        or its data sub under ``data_keys``, where ``act`` holds, and -1
-        (no window, matching no column) elsewhere."""
-        rc = subs.clamp(0, self.k_subs - 1)
-        if self.key_of is not None:
-            rc = self.key_of[rc]
-        return torch.where(act, rc, -1).int()
-
-    def obs_grid(self, subs, act):
-        """(m, R, R) strict-upper observed grid of the D sub rows, zero on
-        the rows and columns where ``act`` does not hold."""
+    def obs_grid(self, keys):
+        """(m, R, R) strict-upper observed grid of the D sub rows whose
+        ``keys`` (:class:`SubVectors`' keys) are not -1, zero on the other
+        rows and columns. On a dense observed map (no ``sobs``: small
+        problems) a torch gather; there ``keys`` are the sub rows
+        themselves where they are not -1."""
         if self.sobs is not None:
             sobs = self.sobs
-            return self.obs_grid_kernel(sobs.row_start, sobs.cols, sobs.vals,
-                                        self.obs_keys(subs, act))
-        sc = subs.clamp(0, self.k_subs - 1)
+            return self.obs_grid_kernel(sobs.row_start, sobs.cols, sobs.vals, keys)
+        act = keys >= 0
+        sc = keys.clamp_min(0).long()
         ob = self.obs[sc[:, :, None], sc[:, None, :]]
         return torch.where(self.upper & act[:, :, None] & act[:, None, :], ob, 0.0)
 
-    def geometry(self, genomes: GenomeState, subs_c, sub_valid) -> Geometry:
-        """Sub-row vectors (m, C, R) of genomes (m, C, f_max)."""
-        os_ = self.owner_slot
-        t = self.table
-        ori = genomes.ori[..., os_]
-        mid = genomes.start_bp[..., os_].float() / 1000.0 \
-            + torch.where(ori == 1, t.prefix_kb[subs_c][:, None, :],
-                          t.suffix_kb[subs_c][:, None, :]) \
-            + t.len_kb[subs_c][:, None, :] * 0.5
-        return Geometry(
-            mid=mid, idc=genomes.id_c[..., os_],
-            act=(genomes.activ[..., os_] == 1) & sub_valid[:, None, :],
-            circ=genomes.circ[..., os_],
-            stot=genomes.l_cont_bp[..., os_].float() / 1000.0)
+    def slot_inputs(self, rows, f_a, ids, max_id, params: RippeParams):
+        """The C x m slots' (lf_a, lf_b, max_id, parameter rows):
+        :func:`slot_inputs_plain`'s result, by kernel I1 when the rows lie
+        on a card."""
+        if rows.device.type != "cuda":
+            return slot_inputs_plain(rows, f_a, ids, max_id, params, self.log_nfpb)
+        return self._slots_on_card(rows, f_a, ids, max_id, params)
+
+    def _slots_on_card(self, rows, f_a, ids, max_id, params: RippeParams):
+        return INPUTS.slots(rows, f_a, ids, max_id, params, self.log_nfpb)
+
+    def sub_vectors(self, full: GenomeState, rows, valid) -> SubVectors:
+        """The slots' :class:`SubVectors` (extras as the engine needs
+        them): :func:`sub_vectors_plain`'s result, by kernel I2 when the
+        rows lie on a card."""
+        if rows.device.type != "cuda":
+            return sub_vectors_plain(full, rows, valid, self.vt, self.extras)
+        return self._vectors_on_card(full, rows, valid)
+
+    def _vectors_on_card(self, full: GenomeState, rows, valid) -> SubVectors:
+        return INPUTS.vectors(full, rows, valid, self.vt, self.extras)
 
     # ---- scoring -----------------------------------------------------------
     def inputs(self, state: GenomeState, f_a, ids, rows, valid, params: RippeParams,
@@ -514,25 +580,21 @@ class DeltaScorer:
         m), ``rows`` and ``valid`` (C, m, f_max) (one chain through
         :func:`lift_chain`); params shared, or one set per chain with
         fields (C,). The C x m neighbour slots are one batch of M = C x m:
-        (candidates (M, 13, f_max), geometry of base + candidates (M, 14,
-        R), observed grid (M, R, R), accu of the sub rows (M, R), kernel
-        parameter rows (M, 10), each slot its chain's)."""
+        (candidates (M, 13, f_max), the sub-row vectors of base +
+        candidates and the window keys (:class:`SubVectors`, R sub rows),
+        observed grid (M, R, R), kernel parameter rows (M, 10), each slot
+        its chain's). On a card one I1 launch before the catalogue and one
+        I2 launch after it make everything but the mini-states, the
+        catalogue and the grid."""
         c, m, f_max = rows.shape
         mini = gather_mini(state, rows, valid)
         mini = GenomeState(*[x.reshape(c * m, f_max) for x in mini])
         f_a = torch.as_tensor(f_a, device=rows.device)
-        lf_a = (rows == f_a[:, None, None]).int().argmax(-1).reshape(-1)
-        lf_b = (rows == ids[..., None]).int().argmax(-1).reshape(-1)
-        max_id = max_id.repeat_interleave(m)
-        rows, valid = rows.reshape(c * m, f_max), valid.reshape(c * m, f_max)
-        pvec = params_vector(params, self.log_nfpb).expand(c, N_PARAMS).repeat_interleave(m, 0)
+        lf_a, lf_b, max_id, pvec = self.slot_inputs(rows, f_a, ids, max_id, params)
         # base + candidates (M, 14, f_max), written in place by the catalogue
         full = self.catalogue(mini, lf_a, lf_b, max_id=max_id, with_base=True)
         cands = GenomeState(*[x[:, 1:] for x in full])
-
-        subs, sub_valid = self.sub_rows(rows, valid)
-        subs_c = subs.clamp(0, self.k_subs - 1)
-        geo = self.geometry(full, subs_c, sub_valid)
+        vec = self.sub_vectors(full, rows, valid)
         # ob is zeroed on inactive rows / columns (base activity is folded
         # into the keys): the expected side is masked through la = -1e9,
         # but an unmasked ob there would add ob * (-1e9) to every score and
@@ -543,16 +605,13 @@ class DeltaScorer:
         # and under data_keys the windows hold no entry of a multi-copy
         # bin, while only rep-flagged fragments, whose bins are all
         # multi-copy (core/delta_repeats.py), change activity.
-        ob = self.obs_grid(subs, geo.act[:, 0])
-        return cands, geo, ob, self.table.accu[subs_c], pvec
+        return cands, vec, self.obs_grid(vec.keys), pvec
 
     @staticmethod
-    def mini_grid_args(geo: Geometry, ob, accu_sub, pvec):
+    def mini_grid_args(vec: SubVectors, ob, pvec):
         """The mini-grid kernel's arguments (mid, idc, circ, stot, la, ob,
-        pvec); la is log accu, -1e9 on padding and inactive rows."""
-        la = torch.where(geo.act, torch.log(accu_sub)[:, None, :], -1e9)
-        return (geo.mid.contiguous(), geo.idc.contiguous(), geo.circ.float(),
-                geo.stot.contiguous(), la, ob.contiguous(), pvec)
+        pvec), as :meth:`inputs` made them."""
+        return vec.mid, vec.idc, vec.circ, vec.stot, vec.la, ob, pvec
 
     def score(self, state: GenomeState, f_a, ids, rows, valid, overflow,
               params: RippeParams, max_id):
@@ -566,11 +625,11 @@ class DeltaScorer:
         args = (state, f_a, ids, rows, valid, max_id)
         if ids.dim() == 1:
             args = lift_chain(*args)
-        cands, geo, ob, accu_sub, pvec = self.inputs(*args[:5], params, args[5])
+        cands, vec, ob, pvec = self.inputs(*args[:5], params, args[5])
         if self.band_w is None:
-            _, dll = self.mini_grid(*self.mini_grid_args(geo, ob, accu_sub, pvec))
+            _, dll = self.mini_grid(*self.mini_grid_args(vec, ob, pvec))
         else:
-            dll = self._banded_dll(geo, ob, accu_sub, pvec)
+            dll = self._banded_dll(geometry_of(vec), ob, vec.accu_sub, pvec)
         lead = ids.shape
         return (dll.reshape(lead + dll.shape[1:]),
                 GenomeState(*[x.reshape(lead + x.shape[1:]) for x in cands]),

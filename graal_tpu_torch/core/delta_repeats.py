@@ -13,7 +13,10 @@ observed pairs by whether an end's bin is multi-copy:
 - (single, single), the great majority: both bins have one copy, so
   E_data is the one copy pair's E. These entries go through the plain
   delta scorer (:class:`core.delta.DeltaScorer` with ``data_keys``), and
-  so through kernels B4 (window obs grid) and B2 (mini-grid scorer).
+  so through kernels I1 / I2 (the slots' inputs, the sub-row vectors and
+  the window keys by data bin), B4 (window obs grid) and B2 (mini-grid
+  scorer); I2 also writes the activity, circ and accu of the sub rows
+  that the copy corrections read.
 - (single, multi): listed once from the single-copy end in a directed side
   table; the multi end's in-D copies take candidate geometry, its frozen
   copies (other contigs) add an analytic trans term (a D contig id is
@@ -48,7 +51,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from graal_tpu_torch.core.delta import DeltaScorer, extract_rows, lift_chain
+from graal_tpu_torch.core.delta import DeltaScorer, extract_rows, geometry_of, lift_chain
 from graal_tpu_torch.core.mcmc import _take
 from graal_tpu_torch.core.model import RippeParams
 from graal_tpu_torch.core.sparse import (SparseObs, logfact_entries, sparse_directed,
@@ -255,9 +258,10 @@ class RepeatDeltaScorer:
         if ids.dim() == 1:      # one chain: a chains axis of one
             args = lift_chain(*args)
         st, fa, ids_c, rows_c, valid_c = args[:5]
-        cands, geo, ob, accu_sub, pvec = p.inputs(*args[:5], params, args[5])
-        _, dll1 = p.mini_grid(*p.mini_grid_args(geo, ob, accu_sub, pvec))
-        _, _, dll = self.corrections(st, fa.long(), rows_c, valid_c, geo, accu_sub, pvec, dll1)
+        cands, vec, ob, pvec = p.inputs(*args[:5], params, args[5])
+        _, dll1 = p.mini_grid(*p.mini_grid_args(vec, ob, pvec))
+        _, _, dll = self.corrections(st, fa.long(), rows_c, valid_c, geometry_of(vec),
+                                     vec.accu_sub, pvec, dll1)
         lead = ids.shape
         return (dll.reshape(lead + dll.shape[1:]),
                 GenomeState(*[x.reshape(lead + x.shape[1:]) for x in cands]),

@@ -44,13 +44,15 @@
 //    is a product with its f32 reciprocal (torch on the card computes a
 //    division by a CPU scalar so; the wrapper passes the reciprocal, made in
 //    f32 on the host); the sum start_kb + w + len_half is taken left to
-//    right with __fadd_rn, so nvcc cannot contract it.
+//    right with __fadd_rn, so nvcc cannot contract it (sub_geometry.cuh,
+//    which I2 in delta_inputs.cu shares).
 //
 // Launch key (ops/counts.py): "vectors".
 
 #include <cuda_runtime.h>
 
 #include "params_row.cuh"
+#include "sub_geometry.cuh"
 
 namespace {
 
@@ -93,12 +95,11 @@ __global__ void __launch_bounds__(THREADS) vectors_kernel(const __grid_constant_
   const long long f = a.owner[k];
   auto field = [&](int i) { return a.st[i][a.st_bs[i] * b + a.st_is[i] * f]; };
   const long long e = static_cast<long long>(b) * a.K + k;
-  const float start_kb = __fmul_rn(__int2float_rn(field(START_BP)), a.inv_kb);
-  const float w = field(ORI) == 1 ? a.prefix[k] : a.suffix[k];
-  a.mid[e] = __fadd_rn(__fadd_rn(start_kb, w), a.len_half[k]);
+  a.mid[e] = sub_mid(field(START_BP), field(ORI), a.prefix[k], a.suffix[k], a.len_half[k],
+                     a.inv_kb);
   a.idc[e] = field(ID_C);
   a.circ[e] = __int2float_rn(field(CIRC));
-  a.stot[e] = __fmul_rn(__int2float_rn(field(L_CONT_BP)), a.inv_kb);
+  a.stot[e] = kb_of(field(L_CONT_BP), a.inv_kb);
   if (a.a != nullptr) a.a[e] = field(ACTIV) == 1 ? a.accu[k] : 0.0f;
 }
 

@@ -27,7 +27,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "graal_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 KERNELS = ("ll_dense", "ll_mini", "obsgrid", "ll_repeat", "candidates", "step", "mtm",
-           "repeat_corr", "rows", "vectors", "scan_io")
+           "repeat_corr", "rows", "vectors", "scan_io", "delta_inputs")
 
 
 def find_nvcc() -> str:

@@ -53,8 +53,10 @@ Prints one JSON line per path and mode (``mode``: graph or eager):
   catalogues), ``mtm`` (E1-E3: the MTM / MH step's neighbour set, draw
   and acceptance), ``corr`` (F1 / F2: the repeat engine's copy
   corrections), ``rows`` (G1-G3: the delta steps' member rows and
-  mini-states), ``vectors`` (H1: the dense scorers' sub-fragment vectors
-  and parameter row), ``scan_io`` (H2 / H3: the captured cycle's per-step
+  mini-states), ``delta_inputs`` (I1 / I2: the delta scoring call's slot
+  scalars, parameter rows, sub-row vectors and window keys), ``vectors``
+  (H1: the dense scorers' sub-fragment vectors and parameter row),
+  ``scan_io`` (H2 / H3: the captured cycle's per-step
   loads and stores), ``step`` (D1-D3: the nuisance move, the neighbour draw,
   the selection and commit), ``scorers`` (B1-B4), ``gather`` (gathers, scatters and
   index kernels), ``elementwise`` (torch's elementwise kernels),
@@ -260,6 +262,8 @@ KERNEL_CLASSES = (("catalogue", ("catalogue",)),
                   ("mtm", ("mtm_set_kernel", "mtm_draw_kernel", "mtm_accept_kernel")),
                   ("corr", ("corr_frozen_kernel", "corr_sums_kernel")),
                   ("rows", ("rows_counts_kernel", "rows_write_kernel", "rows_gather_kernel")),
+                  # before "vectors": delta_vectors_kernel holds its key
+                  ("delta_inputs", ("delta_slots_kernel", "delta_vectors_kernel")),
                   ("vectors", ("vectors_kernel",)),
                   ("scan_io", ("scan_load_kernel", "scan_store_kernel")),
                   ("step", ("nuisance_propose_kernel", "nuisance_accept_kernel",

@@ -110,26 +110,24 @@ def dense_shapes(device, gen, build, name):
 def delta_shapes(sc, genome, scorer, extract, f_a, gen, label):
     """B2 and B4 on one step's inputs of fragment ``f_a`` of ``genome`` at
     the scorer's bucket; B4 alone and as the step's production of its
-    masked observed grid from the D rows and their base activity (the
-    keys, activity folded in, and the kernel)."""
+    masked observed grid (through the scorer, on I2's keys, activity
+    folded in)."""
     import torch
     from graal_tpu_torch.core import delta, mcmc
 
     f_a = torch.tensor(f_a, device=genome.pos.device)
     ids, _ = mcmc.sample_neighbours(gen, f_a, genome, sc["runner"].nb, smoke.DELTA)
     rows, valid, _ = extract(genome, f_a, ids, scorer.f_max)
-    subs, _ = scorer.sub_rows(rows, valid)
-    _, geo, ob, accu_sub, pvec = scorer.inputs(*delta.lift_chain(genome, f_a, ids, rows, valid),
-                                               sc["params"], genome.id_c.amax()[None])
-    args = scorer.mini_grid_args(geo, ob, accu_sub, pvec)
-    act0 = geo.act[:, 0]
+    _, vec, ob, pvec = scorer.inputs(*delta.lift_chain(genome, f_a, ids, rows, valid),
+                                     sc["params"], genome.id_c.amax()[None])
+    args = scorer.mini_grid_args(vec, ob, pvec)
     sobs = scorer.sobs
-    b4 = (sobs.row_start, sobs.cols, sobs.vals, scorer.obs_keys(subs, act0))
+    b4 = (sobs.row_start, sobs.cols, sobs.vals, vec.keys)
     m, _, r = args[0].shape
     return {f"B2 {label} R={r} M={m}": b2_times(scorer, args),
             f"B4 {label} R={r} M={m}": bounded(times(lambda: scorer.obs_grid_kernel.launch(*b4),
                                                      lambda res: res), smoke.obsgrid_bound(b4)),
-            f"B4 grid {label} R={r} M={m}": times(lambda: scorer.obs_grid(subs, act0),
+            f"B4 grid {label} R={r} M={m}": times(lambda: scorer.obs_grid(vec.keys),
                                                   lambda res: res)}
 
 

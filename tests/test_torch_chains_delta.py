@@ -180,11 +180,11 @@ def test_b2_plain_shared_vector_equals_broadcast_rows(problem):
                                                  generator=torch.Generator().manual_seed(2)),
                                       f_a, states, r.nb, DELTA)
     rows, rvalid, _ = td.extract_rows_union(states, f_a, ids, sc.f_max)
-    _, geo, ob, accu_sub, pvec = sc.inputs(states, f_a, ids, rows, rvalid, p["params"],
-                                           states.id_c.amax(-1))
+    _, vec, ob, pvec = sc.inputs(states, f_a, ids, rows, rvalid, p["params"],
+                                 states.id_c.amax(-1))
     one = pvec[0]
-    assert pvec.shape == (geo.mid.shape[0], 10) and torch.equal(pvec, one.expand_as(pvec))
-    args = td.DeltaScorer.mini_grid_args(geo, ob, accu_sub, pvec)
+    assert pvec.shape == (vec.mid.shape[0], 10) and torch.equal(pvec, one.expand_as(pvec))
+    args = td.DeltaScorer.mini_grid_args(vec, ob, pvec)
     for a, b in zip(mini_grid_cuda.mini_grid_plain(*args),
                     mini_grid_cuda.mini_grid_plain(*args[:-1], one)):
         assert torch.equal(a, b)

@@ -264,16 +264,17 @@ def test_activity_folded_into_obs_keys(problem):
     for f_a, ids in ((2, [5, 20, 2, 30, 11]), (20, [21, 19, 3, 2, 20]), (1, [2, 7, 8, 9, 10])):
         ids = torch.as_tensor(ids)
         rows, valid, _ = td.extract_rows_union(ts_, torch.tensor(f_a), ids, scorer.f_max)
-        _, geo, ob, _, _ = scorer.inputs(*td.lift_chain(ts_, torch.tensor(f_a), ids, rows,
-                                                        valid), p["t_params"], max_id[None])
+        _, vec, ob, _ = scorer.inputs(*td.lift_chain(ts_, torch.tensor(f_a), ids, rows,
+                                                     valid), p["t_params"], max_id[None])
         subs, sub_valid = scorer.sub_rows(rows, valid)
-        act0 = geo.act[:, 0]
+        act0 = (ts_.activ[rows].repeat_interleave(scorer.s_max, -1) == 1) & sub_valid
         n_checked += int((sub_valid & ~act0).sum())
         want = windows_grid_masked(p["t_sobs"], subs, sub_valid, act0, scorer.k_subs)
         assert torch.equal(ob, want)
         assert ob.sum() > 0
-        keys = scorer.obs_keys(subs, act0)
+        keys = vec.keys
         assert keys.dtype == torch.int32 and bool(((keys >= 0) == act0).all())
+        assert torch.equal(keys[act0], subs[act0].int())
     assert n_checked > 0                   # inactive rows inside D were masked
 
 

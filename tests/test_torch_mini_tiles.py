@@ -376,9 +376,9 @@ def test_engine_inputs_keep_the_contract():
         f_a = torch.tensor(f_a)
         ids, _ = mcmc.sample_neighbours(gen, f_a, state, nb, 4)
         rows, valid, _ = delta.extract_rows_union(state, f_a, ids, scorer.f_max)
-        _, geo, ob, accu_sub, pv = scorer.inputs(*delta.lift_chain(state, f_a, ids, rows, valid),
-                                                 p, state.id_c.amax()[None])
-        n_free += check_contract(scorer.mini_grid_args(geo, ob, accu_sub, pv))
+        _, vec, ob, pv = scorer.inputs(*delta.lift_chain(state, f_a, ids, rows, valid),
+                                       p, state.id_c.amax()[None])
+        n_free += check_contract(scorer.mini_grid_args(vec, ob, pv))
     assert n_free > 0
 
 

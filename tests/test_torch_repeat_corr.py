@@ -409,10 +409,10 @@ def call(small):
     ids = torch.tensor([[5, 9, 200], [41, 2, 3], [1, 90, 150]])
     rows, valid, _ = td.extract_rows_each(states, f_a, ids, scorer.f_max)
     p = scorer.plain
-    _, geo, ob, accu_sub, pvec = p.inputs(states, f_a, ids, rows, valid, s["params"],
-                                          states.id_c.amax(-1))
-    _, dll1 = p.mini_grid(*p.mini_grid_args(geo, ob, accu_sub, pvec))
-    return scorer, [states, f_a, rows, valid, geo, accu_sub, pvec, dll1]
+    _, vec, ob, pvec = p.inputs(states, f_a, ids, rows, valid, s["params"],
+                                states.id_c.amax(-1))
+    _, dll1 = p.mini_grid(*p.mini_grid_args(vec, ob, pvec))
+    return scorer, [states, f_a, rows, valid, td.geometry_of(vec), vec.accu_sub, pvec, dll1]
 
 
 def test_check_accepts_a_scoring_call(call):
