@@ -9,18 +9,20 @@ On a host with several cards, ``python3 chip_smoke.py --cards`` runs
 instead the across-cards checks (``phase_cards``): an NCCL world of one
 rank a card, and the CLI under ``torchrun`` against one process.
 ``python3 chip_smoke.py --top-tiers`` runs only the build, the 100k
-set-up and the phases of the top tiers (5, 8b, 11e, 11g, 11h, 3d, 3e, 3g
-and 3i at f_max 16,384, 5c), then the 20k repeat set-up and F1 / F2 at R = 8,192
-(3f).
+set-up and the phases of the top tiers (5, 8b, 11e, 11g, 11h, 3d, 3c, 3e,
+3g and 3i at f_max 16,384, 5c), then the 20k repeat set-up and F1 / F2 at
+R = 8,192 (3f).
 
 Every sampler cycle (EM, delta EM, tempered, MTM / MH dense and delta)
 and every ScaleRunner cycle end runs as the entry points run it: a
 captured CUDA graph replayed once a step (``graal_tpu_torch.core.graphs``).
-Each wrapper counts its launches on the card, with an add beside the
-launch that the graph captures with it (``graal_tpu_torch.ops.counts``),
-so a replay advances the counts the phases check (``n_launches``; B1's
-and B3's ``launch_shapes`` by (B, K)): phases 7g and 7h hold them, and
-the graphs' results, to the same cycles run eagerly.
+Each wrapper counts its launches on the card (``graal_tpu_torch.ops.counts``):
+C1 / C2 and D3 add one to their key's counter themselves, every other
+wrapper with an add beside the launch; the graph captures either with
+the launch, so a replay advances the counts the phases check
+(``n_launches``; B1's and B3's ``launch_shapes`` by (B, K)): phases 7g
+and 7h hold them, and the graphs' results, to the same cycles run
+eagerly.
 
 Phases, in order; any failure raises and exits non-zero. Every kernel is
 timed at the shapes its path gives it twice, with CUDA events around many
@@ -67,13 +69,20 @@ written. "share" is the bound over the device time.
    C's collision input (candidate 10 relabelled 4, circular); the delta
    engine's mini-states at R = 1,024 (M = 5) and R = 16,384 (4 chains,
    M = 20) with the whole genome's maximum, with and without the base
-   slot. Each shape also on CAT_PAIRS random (f_a, f_b) pairs, one in ten
+   slot; the edges of the kernels' partition (one cluster of K blocks a
+   genome, ``ops/candidates_cuda.plan``): genomes of n = 1, 257 (a second
+   block of one fragment) and 2,049 (8 blocks, block 0 looping to a
+   second chunk of one fragment) cut from the 100k truth, and 7 rows of
+   the 257 one with the whole state's maximum (each cluster reads every
+   row). Each shape also on CAT_PAIRS random (f_a, f_b) pairs, one in ten
    with f_a == f_b, the maximum taken from the state, given as an int and
-   as a tensor in turn. Timed against the plain versions (device ms of
-   both) at the EM step's shape (B = 5, n = 384), the tempered chains'
-   (20 rows), an MTM pass's (B = 7) and the delta shapes (base slot on),
-   with the bound: the state read once, the (11, B, 13 or 14, n) int32
-   output written once.
+   as a tensor in turn. The launches the kernels counted on the card
+   equal the calls made, by kind. Timed against the plain versions (device
+   ms of both) at the EM step's shape (B = 5, n = 384), the tempered
+   chains' (20 rows), an MTM pass's (B = 7) and the delta shapes (base
+   slot on), with the bound: the state read once, the (11, B, 13 or 14,
+   n) int32 output written once. ``--top-tiers`` repeats the R = 16,384
+   shape (B = 20, n = 16,384) alone, with its counts, and times C1 there.
 3d. Step kernels D1 (the nuisance move: nuisance_propose_kernel,
    nuisance_accept_kernel), D2 (the neighbour draw: neighbours_kernel) and
    D3 (the selection and commit: select_commit_dense_kernel,
@@ -85,7 +94,11 @@ written. "share" is the bound over the device time.
    fragments repeat copies), 4 tempered chains (per-chain f_t), a
    copy-dense table's draw (15 extra copies of a bin, m = 80), the 100k
    delta path (M = 5), its 4 chains (M = 20), the runner's cycle end (4
-   chains' own parameters, the d_max cap) and the 20k repeat twin (M = 10).
+   chains' own parameters, the d_max cap) and the 20k repeat twin (M = 10);
+   D3's cluster (``ops/step_cuda.select_cluster``) at its edges: dense
+   commits of n = 1, 257 and 2,049 fragments (K = 1, 2 and 8, block 0
+   looping) on random scores, and the 100k step at bucket 4,096 on the
+   tiered cut (K = 8, two rows a thread).
    D2's ids and valid masks and D1's test parameters, in_support, the
    dense scorers' parameter row, accepted parameters, l_t and accept bit for
    bit (NaN equal to NaN); D3's drawn slot equal to the plain version's
@@ -96,7 +109,8 @@ written. "share" is the bound over the device time.
    rows (delta), score / d_sel, op, fb and n_over bit for bit; a quarter of
    the calls with f_a blacklisted and, on the delta paths, a quarter with
    every slot overflowing; each chain's valid member rows distinct on the
-   real steps' inputs (the delta commit's contract). Each kernel timed at
+   real steps' inputs (the delta commit's contract); D3's launches counted
+   on the card equal to the calls made, by kind. Each kernel timed at
    each path's shape as 3c times C1 (device ms; the plain version's as
    graph replays) beside its bound. Phases 4, 4b, 7 and 7b count one D2 and
    one D3 launch a step (and one D1 pair a step on the dense paths); 7g /
@@ -598,6 +612,10 @@ CAT_CHUNK_CELLS = 1 << 22   # genomes x fragments of one compared call (phase 3c
 CAT_TIME_ITERS = 50
 # C1 / C2 launches of the main paths, by path: {"em": n, "mh": n} each
 CATALOGUE_PATHS = {}
+CAT_EDGE_N = (1, 257, 2049)  # 3c / 3d's edge genomes: one fragment; one past 1 and 8 blocks of 256
+CAT_EDGE_ROWS = 7           # 3c: one row a genome of the 257-fragment one, the whole state's maximum
+CAT_CALLS = {}              # calls made to C1 / C2 by kind since a phase reset their counters
+D3_CALLS = {}               # calls made to D3 by kind since a phase reset its counters
 STEP_DRAWS = 2000           # random draws a shape each step kernel is held to its plain version on
 STEP_CHUNK = 250            # draws of one compared dense selection (phase 3d)
 STEP_DELTA_CHUNK = 64       # draws of one compared delta commit, each into its own genome copy
@@ -3945,6 +3963,7 @@ def catalogue_vs_plain(label, state, fa, fb, max_id=None, kinds=("em", "mh"),
     out = {}
     for kind in kinds:
         got = GenomeState(*CATALOGUE(kind, state, fa, fb, max_id, with_base))
+        CAT_CALLS[kind] = CAT_CALLS.get(kind, 0) + 1
         want = plain[kind](state, fa, fb, max_id, with_base)
         for name, g, w in zip(GenomeState._fields, got, want):
             check(g.shape == w.shape and g.dtype == w.dtype and torch.equal(g, w),
@@ -4078,18 +4097,65 @@ def catalogue_record(kind, state, fa, fb, max_id=None, with_base=False):
                 max_abs_err=0)
 
 
+def prefix_genome(truth, n):
+    """A valid genome of the first ``n`` fragments of the true genome, cut
+    into three pieces (one piece when n < 3)."""
+    from graal_tpu_torch.core.state import GenomeState
+
+    return cut_truth(GenomeState(*[x[:n] for x in truth]), {0: [n // 3, 2 * n // 3]})
+
+
+def reset_counted(wrapper, calls):
+    """Set a self-counting wrapper's counters and the calls made to it to 0."""
+    wrapper.n_launches = 0
+    calls.clear()
+
+
+def check_counted(label, wrapper, calls):
+    """The launches a self-counting kernel kept on the card equal the calls
+    the phase made to it, by key."""
+    import torch
+
+    torch.cuda.synchronize()
+    got = {str(k): v for k, v in wrapper.launches.by_key().items() if str(k) in calls}
+    check(got == calls, f"{label}: the kernels counted {got} launches, the phase made {calls}")
+    print(f"  launches kept by the kernels on the card: {got}, equal to the calls made")
+
+
+def catalogue_deltas(sc, gen, f_max, starts):
+    """C1 and C2 on the delta engine's mini-states of a step of each chain
+    of ``starts`` at bucket ``f_max``, with the whole genome's maximum,
+    with and without the base slot, and on CAT_PAIRS random pairs of them.
+    Returns (the step's (minis, lf_a, lf_b, max_id), the pairs compared)."""
+    import torch
+    from graal_tpu_torch.core.state import GenomeState
+
+    st = GenomeState(*[torch.stack(xs) for xs in zip(*starts)])
+    f_as = torch.randint(0, sc["n"], (len(starts),), generator=gen, device=st.pos.device)
+    minis, lf_a, lf_b, mx = mini_states(st, f_as, sc["runner"].nb, gen, f_max)
+    for wb in (False, True):
+        catalogue_vs_plain(f"delta step at R = {f_max}", minis, lf_a, lf_b, mx, with_base=wb)
+    pairs = catalogue_pairs(f"delta minis at R = {f_max}", minis, gen, max_id=mx, with_base=True)
+    print(f"  delta mini-states at R = {f_max}, M = {minis.pos.shape[0]} ({len(starts)} "
+          "chain(s)), the genome's maximum, with and without the base slot")
+    return (minis, lf_a, lf_b, mx), pairs
+
+
 def phase_catalogue(device, sc):
     """3c. The catalogue kernels C1 (the EM catalogue) and C2 (the MH one)
     against their plain versions, all 11 fields bit for bit, at every
-    shape a sampler path gives them, ~CAT_PAIRS random (f_a, f_b) pairs a
-    shape (one in ten with f_a == f_b) besides the steps' own neighbours;
-    then timed against the plain versions."""
+    shape a sampler path gives them and at the edges of the kernels'
+    partition (CAT_EDGE_N), ~CAT_PAIRS random (f_a, f_b) pairs a shape (one
+    in ten with f_a == f_b) besides the steps' own neighbours; the
+    launches the kernels counted equal to the calls made; then timed
+    against the plain versions."""
     import torch
     from graal_tpu_torch.core import mcmc, mtm
     from graal_tpu_torch.core.state import GenomeState
     from graal_tpu_torch.entry import problem, problem_jump_table, repeat_problem
 
     gen = torch.Generator(device=device).manual_seed(SEED + 30)
+    reset_counted(catalogue_wrapper(), CAT_CALLS)
     state, table, _, obs, nb = problem(n_bins=384, device=device)
     start = mcmc.explode_genome(state)
     circ = circularised(state)
@@ -4105,6 +4171,23 @@ def phase_catalogue(device, sc):
         pairs += catalogue_pairs(label, st, gen)
     print(f"  flagship ({n} fragments): the true genome, its exploded start and a circularised "
           "contig: steps of 8 fragments over their neighbour slots, random pairs")
+    # the partition's edges: one fragment, one past a block (K = 2: the
+    # second block holds one fragment), one past eight blocks (K = 8: block
+    # 0 loops over two chunks, the second of one fragment); one row a
+    # genome, the whole state's maximum
+    for n_cut in CAT_EDGE_N:
+        st = prefix_genome(sc["truth"], n_cut)
+        for f in torch.randint(0, n_cut, (4,), generator=gen, device=device):
+            ids = torch.randint(0, n_cut, (DELTA + 1,), generator=gen, device=device)
+            catalogue_vs_plain(f"n = {n_cut} step at {int(f)}", st, f, ids)
+        pairs += catalogue_pairs(f"n = {n_cut}", st, gen)
+    st = prefix_genome(sc["truth"], CAT_EDGE_N[1])
+    rows = GenomeState(*[torch.stack(xs) for xs in zip(*[
+        (st, mcmc.explode_genome(st), circularised(st))[k % 3] for k in range(CAT_EDGE_ROWS)])])
+    pairs += catalogue_pairs(f"{CAT_EDGE_ROWS} rows of n = {CAT_EDGE_N[1]}", rows, gen)
+    print(f"  edges: n = {', '.join(map(str, CAT_EDGE_N))} cut from the 100k truth (K = "
+          f"{', '.join(str(catalogue_plan(k)) for k in CAT_EDGE_N)}); {CAT_EDGE_ROWS} rows of "
+          f"n = {CAT_EDGE_N[1]}, the maximum the whole state's")
     # repeat copies: swap activity, inactive copies
     rstate, _, _, _, rnb = repeat_problem(n_bins=384, device=device)
     copies = torch.nonzero(rstate.rep == 1).reshape(-1)
@@ -4148,19 +4231,11 @@ def phase_catalogue(device, sc):
     deltas = {}
     for f_max, starts in ((F_MAX, (sc["shuf"],)),
                           (TOP_TIERS[1], (sc["truth"], sc["tiered"], sc["halves"], sc["shuf"]))):
-        st = GenomeState(*[torch.stack(xs) for xs in zip(*starts)])
-        f_as = torch.randint(0, sc["n"], (len(starts),), generator=gen, device=device)
-        minis, lf_a, lf_b, mx = mini_states(st, f_as, sc["runner"].nb, gen, f_max)
-        for wb in (False, True):
-            catalogue_vs_plain(f"delta step at R = {f_max}", minis, lf_a, lf_b, mx,
-                               with_base=wb)
-        pairs += catalogue_pairs(f"delta minis at R = {f_max}", minis, gen, max_id=mx,
-                                 with_base=True)
-        deltas[f_max] = (minis, lf_a, lf_b, mx)
-        print(f"  delta mini-states at R = {f_max}, M = {minis.pos.shape[0]} "
-              f"({len(starts)} chain(s)), the genome's maximum, with and without the base slot")
+        deltas[f_max], got = catalogue_deltas(sc, gen, f_max, starts)
+        pairs += got
     print(f"  {pairs} random pairs and every step's neighbours: C1 and C2 equal to their plain "
           "versions bit for bit")
+    check_counted("3c", catalogue_wrapper(), CAT_CALLS)
 
     rec = {}
     f = torch.tensor(int(torch.randint(0, n, (1,), generator=gen, device=device)), device=device)
@@ -4185,6 +4260,39 @@ def phase_catalogue(device, sc):
               f"{r['plain_device_ms']:.4f} device ms ({r['plain_ms']:.4f} as called); "
               f"{fmt_bound(r)}")
     return rec
+
+
+def catalogue_plan(n):
+    """C1 / C2's blocks a genome for n fragments (ops/candidates_cuda.plan)."""
+    from graal_tpu_torch.ops.candidates_cuda import plan
+
+    return plan(n)
+
+
+def phase_catalogue_top(sc):
+    """(``--top-tiers``) C1 and C2 at B = 20, n = 16,384: the mini-states
+    of a step of 4 chains (the truth, the tiered and halved cuts, the
+    shuffle) at bucket 16,384, bit for bit as in 3c, the launches counted
+    equal to the calls made; C1 timed there against its plain version."""
+    import torch
+
+    gen = torch.Generator(device=sc["truth"].pos.device).manual_seed(SEED + 31)
+    reset_counted(catalogue_wrapper(), CAT_CALLS)
+    (minis, lf_a, lf_b, mx), pairs = catalogue_deltas(
+        sc, gen, TOP_TIERS[1], (sc["truth"], sc["tiered"], sc["halves"], sc["shuf"]))
+    check_counted("3c top", catalogue_wrapper(), CAT_CALLS)
+    rec = catalogue_record("em", minis, lf_a, lf_b, mx, with_base=True)
+    print(f"  C1 at B = {rec['B']}, n = {rec['n']}: {pairs} random pairs bit for bit; "
+          f"{rec['device_ms']:.4f} device ms, plain {rec['plain_device_ms']:.4f}; "
+          f"{fmt_bound(rec)}")
+    return dict(rec, pairs=pairs)
+
+
+def select_cluster(size):
+    """D3's blocks a chain (ops/step_cuda.select_cluster)."""
+    from graal_tpu_torch.ops.step_cuda import select_cluster as k
+
+    return k(size)
 
 
 def step_wrapper():
@@ -4353,6 +4461,28 @@ def dense_steps(state, nb, scorer, params, gen, n_steps=4, chains=False, frags=N
     return out
 
 
+def random_dense_steps(state, gen, n_steps=2):
+    """The dense tail's inputs without a scorer: DELTA + 1 random neighbour
+    slots of a random f_a of ``state`` (fields (n,)), four in five valid,
+    their catalogue (C1) and random scores about -1,000 with a spread of 5
+    (most slots inside the 30-window, as a step's)."""
+    import torch
+    from graal_tpu_torch.core.candidates import N_CANDIDATES, build_candidates
+    from graal_tpu_torch.core.state import GenomeState
+
+    dev = state.pos.device
+    n, m = state.n_frags, DELTA + 1
+    out = []
+    for _ in range(n_steps):
+        f_a = torch.randint(0, n, (), generator=gen, device=dev)
+        ids = torch.randint(0, n, (m,), generator=gen, device=dev, dtype=torch.int32)
+        valid = torch.rand(m, generator=gen, device=dev) < 0.8
+        flat = GenomeState(*[x.reshape(-1, n) for x in build_candidates(state, f_a, ids)])
+        ll = -1000.0 + 5.0 * torch.randn((m, N_CANDIDATES), generator=gen, device=dev)
+        out.append(dict(state=state, flat=flat, ll=ll, ids=ids, valid=valid, f_a=f_a.long()))
+    return out
+
+
 def check_dense_tails(label, steps, blacklist, gen, n_draws=STEP_DRAWS):
     """D3's dense entry against select_commit_dense_plain on ``n_draws``
     draws (Gumbel noise, temperature) over the real steps ``steps``, in
@@ -4399,6 +4529,7 @@ def check_dense_tails(label, steps, blacklist, gen, n_draws=STEP_DRAWS):
             bl[f_a] = True
         fields, score, op, fb, sel = step.select_dense(st, flat, ll, ids_c, valid, f_a, gum,
                                                        f_t, bl, mcmc.THRESH_OVERFLOW)
+        D3_CALLS["select_dense"] = D3_CALLS.get("select_dense", 0) + 1
         want, (w_score, w_op, w_fb), w_sel = mcmc.select_commit_dense_plain(
             st, GenomeState(*[x.reshape(c * sl, n) for x in flat]), ll, ids_c, valid, f_a,
             gum, f_t, bl)
@@ -4419,6 +4550,8 @@ def check_dense_tails(label, steps, blacklist, gen, n_draws=STEP_DRAWS):
         args = (s["state"], s["flat"], s["ll"], s["ids"], s["valid"], s["f_a"], gum, 1.0,
                 blacklist)
         got, want = mcmc.select_commit_dense(*args), mcmc.select_commit_dense_plain(*args)
+        # the public function launches D3 on a card only
+        D3_CALLS["select_dense"] = D3_CALLS.get("select_dense", 0) + s["ids"].is_cuda
         keys, n_pos, _ = mcmc.slot_keys(gum, s["ll"], s["valid"], 1.0)
         agree, close = slot_margin(f"{label}, one step through select_commit_dense",
                                    got[2].reshape(1), want[2].reshape(1), keys.reshape(1, -1),
@@ -4501,6 +4634,7 @@ def check_delta_tails(label, s, blacklist, gen, n_draws=STEP_DRAWS):
         d_sel, op, fb, n_over, sel = step.select_delta(
             dst, minis._asdict(), rows, rows_valid, dll, ids, valid, overflow, f_a, gum, f_t,
             bl, mcmc.THRESH_OVERFLOW)
+        D3_CALLS["select_delta"] = D3_CALLS.get("select_delta", 0) + 1
         want, w_dsel, (w_op, w_fb, w_over), w_sel = delta.select_commit_delta_plain(
             st, minis, rows, rows_valid, dll, ids, valid, overflow, f_a, gum, f_t, bl,
             mcmc.THRESH_OVERFLOW)
@@ -4709,6 +4843,7 @@ def phase_step_kernels(device, sc, rsc, n_bins=384):
     from graal_tpu_torch.ops.likelihood_cuda import make_dense_scorer
 
     gen = torch.Generator(device=device).manual_seed(SEED + 40)
+    reset_counted(step_wrapper(), D3_CALLS)
     print(f"step kernels D1 (nuisance), D2 (neighbours), D3 (select_commit) vs plain, "
           f"{STEP_DRAWS} draws a shape; slots equal outside {SLOT_ULPS} ulps of the best key")
     rec, close = {}, {}
@@ -4745,6 +4880,15 @@ def phase_step_kernels(device, sc, rsc, n_bins=384):
         measured("nuisance", err)
         print(f"  {name} D1: {n_d} moves, test parameters bit for bit")
         dense_cases.append((name, steps[0], params, scorer, nb))
+    # D3's partition at its edges: n = 1, 257 and 2,049 (K = 1, 2, 8: a
+    # second block of one fragment; block 0 looping to fragment 2,048),
+    # random scores
+    for n_cut in CAT_EDGE_N:
+        st = prefix_genome(sc["truth"], n_cut)
+        note(f"n = {n_cut} D3", check_dense_tails(
+            f"n = {n_cut} D3 (K = {select_cluster(n_cut)})",
+            random_dense_steps(st, gen), torch.zeros(n_cut, dtype=torch.bool, device=device),
+            gen))
     # 4 tempered chains of the flagship (B1 at B = 260, per-chain f_t)
     state, table, params, obs, nb = problem(n_bins=n_bins, device=device)
     scorer = make_dense_scorer(table, obs, device)
@@ -4772,6 +4916,15 @@ def phase_step_kernels(device, sc, rsc, n_bins=384):
     neighbour_draws("4 chains D2", states, runner.nb, gen)
     d4 = delta_steps(scorer, states, runner.nb, pc, delta.extract_rows_union, gen)
     note("4 chains D3", check_delta_tails("4 chains D3 (M = 20)", d4, runner.nb.blacklist, gen))
+    # the delta commit over a cluster: bucket 4,096 (K = 8, 2 rows a thread)
+    # on the tiered cut
+    scorer_top = delta.make_delta_scorer(sc["table"], None, TOP_F_MAX, sobs=sc["sobs"])
+    d_top = delta_steps(scorer_top, GenomeState(*[x[None] for x in sc["tiered"]]), runner.nb,
+                        sc["params"], delta.extract_rows_union, gen)
+    del scorer_top
+    k_top = select_cluster(TOP_F_MAX)
+    note(f"100k D3 at {TOP_F_MAX}", check_delta_tails(
+        f"100k D3 at {TOP_F_MAX} (M = 5, K = {k_top})", d_top, runner.nb.blacklist, gen))
     # the cycle end: 4 chains' own parameters, the cap, per-chain f_t
     cap = runner.max_covered_d_max
     l_ref = float(runner.chains_anchor_fn()(states, pc)[0])
@@ -4791,6 +4944,7 @@ def phase_step_kernels(device, sc, rsc, n_bins=384):
                                             rsc["runner"].nb.blacklist, gen))
     print(f"  D1-D3 equal to their plain versions; drawn slots under the margin {close}; "
           f"test parameters that differ {nuis_diffs}; largest differences measured {errs}")
+    check_counted("3d D3", step_wrapper(), D3_CALLS)
     # times at each path's shape
     for name, s, d_params, d_scorer, d_nb in dense_cases:
         for kind in ("nuisance", "neighbours", "select_dense"):
@@ -4803,6 +4957,7 @@ def phase_step_kernels(device, sc, rsc, n_bins=384):
         "nuisance", dict(ids=d4["ids"], state=states), pc, None, runner.nb, None, gen,
         cap=None if cap == float("inf") else cap, path="cycle_end")
     for name, s, nbt in (("100k", d100, runner.nb), ("chains_100k", d4, runner.nb),
+                         (f"100k_{TOP_F_MAX}", d_top, runner.nb),
                          ("repeat_20k", d20, rsc["runner"].nb)):
         rec[f"neighbours_{name}"] = time_dense_step(
             "neighbours", dict(ids=s["ids"], state=s["states"], f_a=s["f_a"]), None, None, nbt,
@@ -4848,6 +5003,7 @@ def phase_step_top(sc):
     from graal_tpu_torch.core.state import GenomeState
 
     gen = torch.Generator(device=sc["truth"].pos.device).manual_seed(SEED + 42)
+    reset_counted(step_wrapper(), D3_CALLS)
     runner = sc["runner"]
     scorer = delta.make_delta_scorer(sc["table"], None, TOP_TIERS[1], sobs=sc["sobs"])
     states = GenomeState(*[x.expand(CHAINS, -1).contiguous() for x in sc["truth"]])
@@ -4855,6 +5011,7 @@ def phase_step_top(sc):
                     delta.extract_rows_union, gen)
     draws, under, err = check_delta_tails(f"{CHAINS} chains D3 at {TOP_TIERS[1]} (M = 20)", s,
                                           runner.nb.blacklist, gen)
+    check_counted("3d top D3", step_wrapper(), D3_CALLS)
     rec = time_delta_step(s, runner.nb.blacklist, gen, path=f"chains_{TOP_TIERS[1]}")
     print(f"  {CHAINS} chains at bucket {TOP_TIERS[1]}: {draws} draws, {under} under the "
           f"margin, largest difference {err}; {rec['device_ms']:.4f} device ms, plain "
@@ -7303,6 +7460,7 @@ def main_top():
     graphs = phase("11g graph vs eager top", phase_graphs_top, sc)
     graphs["run_mtm_top"] = phase("11h run_mtm top", phase_mtm_top, sc)
     step_top = phase("3d D3 top", phase_step_top, sc)
+    catalogue_top = phase("3c C1 C2 top", phase_catalogue_top, sc)
     move_top = phase("3e E1-E3 top", phase_move_top, sc)
     rows_top = phase("3g G1-G3 top", phase_rows_top, sc)
     inputs_top = phase("3i I1 I2 top", phase_inputs_top, sc)
@@ -7314,7 +7472,8 @@ def main_top():
           f"{json.dumps(PHASE_S)}", flush=True)
     print(json.dumps({"tiers": {k: delta_timing[k]["tiers"] for k in ("ll_mini", "obsgrid")},
                       "routes": crossover, "run_top": top, "run_chains_top": top_chains,
-                      "graphs": graphs, "step_top": step_top, "move_top": move_top,
+                      "graphs": graphs, "step_top": step_top,
+                      "catalogue_top": catalogue_top, "move_top": move_top,
                       "corr_top": corr_top, "rows_top": rows_top,
                       "inputs_top": inputs_top}))
     print(gpu_line())

@@ -17,6 +17,9 @@
 // 11 x B x S x n x 4 bytes (187 MB at the top tier, B = 20, n = 16,384),
 // against n x 11 x 4 bytes of state read (B times that for per-genome
 // rows). The arithmetic is a few hundred integer operations a fragment.
+// At the main path's shapes (B = 5-20, n = 384-1,024) a call moves well
+// under a megabyte and its time is the launch's and the chain of
+// dependent steps inside it.
 //
 // What the design does about it.
 //  - Every primitive (ops.py: flip, swap_activity, pop_out, pop_in_1..4,
@@ -25,19 +28,33 @@
 //    fields. So a catalogue is per fragment once those per-genome scalars
 //    are known, and the chains pop_out -> pop_in_k and split(A) ->
 //    split(B) -> paste compose per fragment.
-//  - Two passes, one launch pair a call. (a) `*_scalars`, one block a
-//    genome: the records of f_a and f_b in the base, in the popped state,
-//    in both splits at f_a and in the four double splits, and the fresh-id
-//    maxima as exact block reductions over the intermediate contig ids
-//    (the base's maximum when max_id is not given, m2 = max of the popped
-//    state's ids, m1 = max of each split state's ids). The translocations'
-//    second maximum (mt) feeds paste, which takes no fresh id, so it is not
-//    computed. (b) `*_write`, a grid of (genome, 256-fragment chunk)
-//    blocks, so that the top tier's writes spread over every SM: each
-//    thread evaluates the 13 candidates of one fragment from the records
-//    (staged in shared memory) and stores each field at once; neighbouring
-//    threads store neighbouring fragments (128-byte warp stores). No
-//    intermediate state touches device memory.
+//  - One launch a call: a thread block cluster of K blocks of 256 threads
+//    a genome (`cudaLaunchKernelEx` with the cluster dimension; K from n,
+//    ops/candidates_cuda.py `plan`: one block a 256-fragment chunk, at
+//    most 8). Block r of a cluster owns the chunks r, r + K, r + 2K, ...
+//    Each block reads f_a's and f_b's records and its first fragments
+//    before anything waits on them, reduces its own chunks' contig ids to
+//    partial maxima (warp reductions, `__reduce_max_sync`, and one block
+//    barrier), and after one cluster barrier folds all K partials out of
+//    its peers' shared memory (DSMEM): every block then holds the same
+//    scalars. An integer maximum is exact in any order, so they are the
+//    plain version's bit for bit. The maxima: the base's maximum when
+//    max_id is not given (over the whole state: with one row a genome,
+//    each cluster reads every row, as the plain version's `amax` does);
+//    m2, the popped state's maximum; m1, each split state's. A fresh id
+//    mx + 1 enters a maximum only through fragments it relabels, so each
+//    partial is the maximum of the ids a fragment keeps plus a flag that
+//    some fragment takes mx + 1, and mx + 1 is folded in once mx is known.
+//    The translocations' second maximum (mt) feeds paste, which takes no
+//    fresh id, so it is not computed. Then the block builds the 14
+//    records (f_a and f_b in the base, in the popped state, in both
+//    splits at f_a and in the four double splits) in shared memory and
+//    writes its own chunks: each thread evaluates the 13 candidates of one
+//    fragment and stores each field at once; neighbouring threads store
+//    neighbouring fragments (128-byte warp stores). No intermediate state
+//    and no scalar touches device memory; a block signals that it is done
+//    reading its peers before its writes and waits for them only at its
+//    end, so no block leaves while a peer may still read it.
 //  - Exactness. Every field is int32 and the arithmetic is the plain
 //    version's, in the same order, on the same int32 values (indices are
 //    compared as integers), so the result is the plain version's bit for
@@ -51,23 +68,34 @@
 //    mini-states are views of one (M, f_max, 11) gather, so a field's
 //    fragments lie 11 elements apart; a broadcast genome has a row stride
 //    of 0. The 11 fields of a fragment share its cache lines.
+//  - The launch counts itself: block 0's thread 0 adds one to the launch
+//    key's int64 counter on the card (ops/counts.py `LaunchCount.counter`),
+//    so no counting kernel runs beside it and a captured launch counts at
+//    every replay.
 //  - Index widths: B <= 65,535 genomes, n < 2^31 fragments; output offsets
 //    are size_t products. f_a, f_b and max_id may be int32 or int64
 //    tensors (a stride of 0 broadcasts one value), or a value.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int THREADS = 256;
+constexpr int WARPS = THREADS / 32;
 constexpr int N_FIELDS = 11;
 constexpr int N_CANDIDATES = 13;
 constexpr int N_RECORDS = 14;          // A0 B0 PA PB T1B[2] T2A[4] T2B[4]
-constexpr int SCRATCH = N_RECORDS * N_FIELDS + 6;   // + fa fb mx m2 m1[2]
+constexpr int MAX_CLUSTER = 8;         // the portable cluster size
 constexpr int INT_MIN_ = -2147483647 - 1;
 
 enum Rec { A0 = 0, B0, PA, PB, T1B, T2A = T1B + 2, T2B = T2A + 4 };
-enum Tail { FA = N_RECORDS * N_FIELDS, FB, MX, M2, M1 };
+// a block's partial maxima: the state's ids (max_id not given), the ids
+// the popped state keeps, the ids each split state keeps, and whether some
+// fragment of each split state takes the fresh id
+enum Part { P_MX = 0, P_POP, P_T1, P_RIGHT = P_T1 + 2, N_PART = P_RIGHT + 2 };
 
 struct Frag {
   int pos, id_c, start_bp, len_bp, circ, l_cont, l_cont_bp, ori, rep, activ, id_d;
@@ -88,9 +116,10 @@ struct Args {
   int base_rows;              // rows the state holds: 1 (broadcast) or B
   Index fa, fb, mx;
   int mx_none;                // 1: max_id is the state's own maximum
-  int* scratch;               // (B, SCRATCH)
+  unsigned long long* counter;  // the launch key's int64 counter
   int* out;                   // (11, B, slots, n)
   int slots;                  // 13, or 14 with the base in slot 0
+  int cluster;                // K: blocks a genome
 };
 
 __device__ __forceinline__ long long load(const Index& x, int b) {
@@ -312,98 +341,35 @@ __device__ __forceinline__ bool is_extremity(const Frag& S) {
   return (S.pos == 0 || S.pos == S.l_cont - 1) && S.circ == 0;
 }
 
-// ---- pass (a): the per-genome records and maxima ----------------------
+// ---- the scalars: partial maxima, folded over the cluster ---------------
 
-__device__ __forceinline__ int block_max(int v, int* red) {
-  red[threadIdx.x] = v;
-  __syncthreads();
-  for (int s = THREADS / 2; s > 0; s >>= 1) {
-    if (threadIdx.x < s) red[threadIdx.x] = max(red[threadIdx.x], red[threadIdx.x + s]);
-    __syncthreads();
-  }
-  const int out = red[0];
-  __syncthreads();
-  return out;
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
 }
 
-template <bool MH>
-__device__ void scalars(const Args& a) {
-  __shared__ int red[THREADS];
-  const int b = blockIdx.x;
-  const int fa = static_cast<int>(load(a.fa, b));
-  const int fb = static_cast<int>(load(a.fb, b));
-  const Frag A = frag_at(a, b, fa), Bf = frag_at(a, b, fb);
-  const int* id_c = a.field[1] + a.row_stride[1] * b;
-  const int* pos = a.field[0] + a.row_stride[0] * b;
-  const long long id_step = a.col_stride[1], pos_step = a.col_stride[0];
-
-  int mx;
-  if (a.mx_none) {                 // the whole state's maximum, as amax()
-    int m = INT_MIN_;
-    const long long total = static_cast<long long>(a.base_rows) * a.n;
-    for (long long k = threadIdx.x; k < total; k += THREADS) {
-      const long long r = k / a.n, i = k - r * a.n;
-      m = max(m, a.field[1][a.row_stride[1] * r + id_step * i]);
-    }
-    mx = block_max(m, red);
-  } else {
-    mx = static_cast<int>(load(a.mx, b));
-  }
-
-  // the popped state's ids and both split states' ids, fragment by fragment
-  const bool popping = A.l_cont > 1, cutting = split_ok(A) && A.circ == 0;
-  int m_pop = INT_MIN_, m_t1[2] = {INT_MIN_, INT_MIN_};
-  for (int i = threadIdx.x; i < a.n; i += THREADS) {
-    const int c = id_c[id_step * i];
-    m_pop = max(m_pop, popping && i == fa ? mx + 1 : c);
-    Frag x;
-    x.id_c = c;
-    x.pos = pos[pos_step * i];
-#pragma unroll
-    for (int u = 0; u < 2; ++u)
-      m_t1[u] = max(m_t1[u], cutting && split_right(x, A, u) ? mx + 1 : c);
-  }
-  const int m2 = max(block_max(m_pop, red), mx);
-  int m1[2];
-#pragma unroll
-  for (int u = 0; u < 2; ++u) {
-    const int t = block_max(m_t1[u], red);
-    m1[u] = MH ? t : max(t, mx);
-  }
-
-  if (threadIdx.x == 0) {
-    int* s = a.scratch + static_cast<size_t>(b) * SCRATCH;
-    put(s + A0 * N_FIELDS, A);
-    put(s + B0 * N_FIELDS, Bf);
-    put(s + PA * N_FIELDS, pop_out(A, true, A, mx));
-    put(s + PB * N_FIELDS, pop_out(Bf, fb == fa, A, mx));
-#pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      const Frag t1a = split(A, A, u, mx), t1b = split(Bf, A, u, mx);
-      put(s + (T1B + u) * N_FIELDS, t1b);
-#pragma unroll
-      for (int v = 0; v < 2; ++v) {
-        put(s + (T2A + 2 * u + v) * N_FIELDS, split(t1a, t1b, v, m1[u]));
-        put(s + (T2B + 2 * u + v) * N_FIELDS, split(t1b, t1b, v, m1[u]));
-      }
-    }
-    s[FA] = fa; s[FB] = fb; s[MX] = mx; s[M2] = m2; s[M1] = m1[0]; s[M1 + 1] = m1[1];
-  }
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
 }
 
-// ---- pass (b): every candidate of every fragment -----------------------
+// record k of the 14 (enum Rec) from f_a's and f_b's base records
+__device__ __forceinline__ Frag record(int k, const Frag& A, const Frag& Bf, bool same, int mx,
+                                       const int* m1) {
+  if (k == A0) return A;
+  if (k == B0) return Bf;
+  if (k == PA) return pop_out(A, true, A, mx);
+  if (k == PB) return pop_out(Bf, same, A, mx);
+  if (k < T2A) return split(Bf, A, k - T1B, mx);
+  const int j = k < T2B ? k - T2A : k - T2B, u = j >> 1, v = j & 1;
+  const Frag t1b = split(Bf, A, u, mx);
+  return split(k < T2B ? split(A, A, u, mx) : t1b, t1b, v, m1[u]);
+}
+
+// ---- every candidate of one fragment ------------------------------------
 
 template <bool MH>
-__device__ void write(const Args& a) {
-  __shared__ int s[SCRATCH];
-  const int chunks = (a.n + THREADS - 1) / THREADS;
-  const int b = blockIdx.x / chunks;
-  const int i = (blockIdx.x - b * chunks) * THREADS + threadIdx.x;
-  for (int k = threadIdx.x; k < SCRATCH; k += THREADS)
-    s[k] = a.scratch[static_cast<size_t>(b) * SCRATCH + k];
-  __syncthreads();
-  if (i >= a.n) return;
-
+__device__ __forceinline__ void write_fragment(const Args& a, int b, int i, const Frag& x,
+                                               const int* rec, int fa, bool distinct, int mx,
+                                               int m2, const int* m1) {
   const size_t field_stride = static_cast<size_t>(a.B) * a.slots * a.n;
   int* out = a.out + static_cast<size_t>(b) * a.slots * a.n + i;
   int slot = 0;
@@ -416,12 +382,9 @@ __device__ void write(const Args& a) {
     o[9 * field_stride] = y.activ; o[10 * field_stride] = y.id_d;
   };
 
-  const Frag x = frag_at(a, b, i);
-  const bool is_a = i == s[FA];
-  const bool distinct = s[FA] != s[FB];
-  const int mx = s[MX], m2 = s[M2];
-  const Frag A = get(s + A0 * N_FIELDS), Bf = get(s + B0 * N_FIELDS);
-  const Frag Pa = get(s + PA * N_FIELDS), Pb = get(s + PB * N_FIELDS);
+  const bool is_a = i == fa;
+  const Frag A = get(rec + A0 * N_FIELDS), Bf = get(rec + B0 * N_FIELDS);
+  const Frag Pa = get(rec + PA * N_FIELDS), Pb = get(rec + PB * N_FIELDS);
 
   if (a.slots == N_CANDIDATES + 1) store(x);
   const Frag popped = pop_out(x, is_a, A, mx);
@@ -446,12 +409,12 @@ __device__ void write(const Args& a) {
   }
 #pragma unroll
   for (int u = 0; u < 2; ++u) {                                   // 9-12
-    const Frag t1 = split(x, A, u, mx), t1b = get(s + (T1B + u) * N_FIELDS);
+    const Frag t1 = split(x, A, u, mx), t1b = get(rec + (T1B + u) * N_FIELDS);
 #pragma unroll
     for (int v = 0; v < 2; ++v) {
-      const Frag t2 = split(t1, t1b, v, s[M1 + u]);
-      const Frag y = paste(t2, get(s + (T2A + 2 * u + v) * N_FIELDS),
-                           get(s + (T2B + 2 * u + v) * N_FIELDS), distinct);
+      const Frag t2 = split(t1, t1b, v, m1[u]);
+      const Frag y = paste(t2, get(rec + (T2A + 2 * u + v) * N_FIELDS),
+                           get(rec + (T2B + 2 * u + v) * N_FIELDS), distinct);
       if (!MH) {
         store(y);
       } else {
@@ -464,10 +427,95 @@ __device__ void write(const Args& a) {
   }
 }
 
-__global__ void __launch_bounds__(THREADS) em_catalogue_scalars(Args a) { scalars<false>(a); }
-__global__ void __launch_bounds__(THREADS) mh_catalogue_scalars(Args a) { scalars<true>(a); }
-__global__ void __launch_bounds__(THREADS) em_catalogue_write(Args a) { write<false>(a); }
-__global__ void __launch_bounds__(THREADS) mh_catalogue_write(Args a) { write<true>(a); }
+// ---- the kernel: a cluster of K blocks a genome ---------------------------
+
+template <bool MH>
+__global__ void __launch_bounds__(THREADS) catalogue_kernel(Args a) {
+  __shared__ int warp_part[WARPS][N_PART];
+  __shared__ int part[N_PART];          // this block's partials, read by its peers
+  __shared__ int whole[N_PART];         // the cluster's
+  __shared__ int rec[N_RECORDS * N_FIELDS];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int K = a.cluster;
+  const int b = blockIdx.x / K;
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int t = threadIdx.x, lane = t & 31;
+  if (blockIdx.x == 0 && t == 0) atomicAdd(a.counter, 1ULL);
+
+  // every load that does not wait for the maxima is issued first: f_a's
+  // and f_b's records, and this thread's fragment of the block's first chunk
+  const int fa = static_cast<int>(load(a.fa, b));
+  const int fb = static_cast<int>(load(a.fb, b));
+  const int mx_given = a.mx_none ? 0 : static_cast<int>(load(a.mx, b));
+  const Frag A = frag_at(a, b, fa), Bf = frag_at(a, b, fb);
+  const int first = rank * THREADS + t;
+  Frag x0{};
+  if (first < a.n) x0 = frag_at(a, b, first);
+
+  // this block's chunks: its partial maxima of the ids each state keeps
+  const bool popping = A.l_cont > 1, cutting = split_ok(A) && A.circ == 0;
+  const bool own_mx = a.mx_none && a.base_rows == 1;   // the state is this genome's row
+  int p[N_PART] = {INT_MIN_, INT_MIN_, INT_MIN_, INT_MIN_, 0, 0};
+  for (int i = first; i < a.n; i += K * THREADS) {
+    Frag x = x0;
+    if (i != first) {
+      x.id_c = a.field[1][a.row_stride[1] * b + a.col_stride[1] * i];
+      x.pos = a.field[0][a.row_stride[0] * b + a.col_stride[0] * i];
+    }
+    const int c = x.id_c;
+    if (own_mx) p[P_MX] = max(p[P_MX], c);
+    if (!(popping && i == fa)) p[P_POP] = max(p[P_POP], c);
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      if (cutting && split_right(x, A, u)) p[P_RIGHT + u] = 1;
+      else p[P_T1 + u] = max(p[P_T1 + u], c);
+    }
+  }
+  if (a.mx_none && a.base_rows != 1) {   // one row a genome: the whole state, as amax()
+    const long long total = static_cast<long long>(a.base_rows) * a.n;
+    for (long long k = first; k < total; k += static_cast<long long>(K) * THREADS) {
+      const long long r = k / a.n, i = k - r * a.n;
+      p[P_MX] = max(p[P_MX], a.field[1][a.row_stride[1] * r + a.col_stride[1] * i]);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < N_PART; ++k) p[k] = __reduce_max_sync(0xffffffffu, p[k]);
+  if (lane == 0) {
+#pragma unroll
+    for (int k = 0; k < N_PART; ++k) warp_part[t >> 5][k] = p[k];
+  }
+  __syncthreads();
+  if (t < N_PART) {
+    int v = warp_part[0][t];
+    for (int w = 1; w < WARPS; ++w) v = max(v, warp_part[w][t]);
+    part[t] = v;
+  }
+  cluster.sync();
+  if (t < N_PART) {
+    int v = part[t];
+    for (int r = 0; r < K; ++r)
+      if (r != rank) v = max(v, *cluster.map_shared_rank(&part[t], r));
+    whole[t] = v;
+  }
+  cluster_arrive();            // done reading the peers' shared memory
+  __syncthreads();
+
+  const int mx = a.mx_none ? whole[P_MX] : mx_given;
+  const int m2 = max(max(whole[P_POP], popping ? mx + 1 : INT_MIN_), mx);
+  int m1[2];
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    const int m = max(whole[P_T1 + u], whole[P_RIGHT + u] ? mx + 1 : INT_MIN_);
+    m1[u] = MH ? m : max(m, mx);
+  }
+  if (t < N_RECORDS) put(rec + t * N_FIELDS, record(t, A, Bf, fb == fa, mx, m1));
+  __syncthreads();
+
+  for (int i = first; i < a.n; i += K * THREADS)
+    write_fragment<MH>(a, b, i, i == first ? x0 : frag_at(a, b, i), rec, fa, fa != fb, mx, m2,
+                       m1);
+  cluster_wait();              // no block leaves while a peer may read it
+}
 
 Index make_index(const void* ptr, long long value, long long stride, int is64) {
   Index x;
@@ -475,11 +523,27 @@ Index make_index(const void* ptr, long long value, long long stride, int is64) {
   return x;
 }
 
+template <bool MH>
+cudaError_t launch(const Args& a, cudaStream_t s) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(a.B) * a.cluster, 1, 1);
+  cfg.blockDim = dim3(THREADS, 1, 1);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = a.cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, catalogue_kernel<MH>, a);
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
-
-int catalogue_scratch_ints() { return SCRATCH; }
 
 // Build the catalogue (mh = 0: C1, the EM one; 1: C2, the MH one) of B
 // genomes into out (11, B, slots, n) int32, slots 13 or 14 (base first).
@@ -487,18 +551,20 @@ int catalogue_scratch_ints() { return SCRATCH; }
 // elements between genomes (0: one state broadcast), col_strides between
 // fragments; base_rows 1 or B. f_a / f_b / max_id: a device pointer
 // (int64 when *_is64) with a stride of 0 or 1, or a null pointer and a
-// value; mx_none = 1 takes the state's own maximum instead. scratch: B x
-// catalogue_scratch_ints() int32. Indices must lie in [0, n). Launches
-// both passes on `stream`, does not synchronise, returns the cudaError_t
-// of the launches.
+// value; mx_none = 1 takes the state's own maximum instead. counter: the
+// launch key's int64 on the card, one added a launch. cluster: K blocks
+// of 256 threads a genome (1 to 8). Indices must lie in [0, n). Launches
+// one kernel on `stream`, does not synchronise, returns the cudaError_t of
+// the launch.
 int catalogue(int mh, const void* const* fields, const long long* row_strides,
               const long long* col_strides, int n, int B,
               int base_rows, const void* fa, long long fa_value, long long fa_stride,
               int fa_is64, const void* fb, int fb_is64, const void* mx, long long mx_value,
-              long long mx_stride, int mx_is64, int mx_none, int* scratch, int* out, int slots,
-              void* stream) {
+              long long mx_stride, int mx_is64, int mx_none, void* counter, int* out, int slots,
+              int cluster, void* stream) {
   if (n <= 0 || B <= 0 || B > 65535 || (base_rows != 1 && base_rows != B) || fb == nullptr ||
-      (slots != N_CANDIDATES && slots != N_CANDIDATES + 1))
+      counter == nullptr || (slots != N_CANDIDATES && slots != N_CANDIDATES + 1) ||
+      cluster < 1 || cluster > MAX_CLUSTER)
     return (int)cudaErrorInvalidValue;
   Args a;
   for (int f = 0; f < N_FIELDS; ++f) {
@@ -511,18 +577,10 @@ int catalogue(int mh, const void* const* fields, const long long* row_strides,
   a.fb = make_index(fb, 0, 1, fb_is64);
   a.mx = make_index(mx, mx_value, mx_stride, mx_is64);
   a.mx_none = mx_none;
-  a.scratch = scratch; a.out = out; a.slots = slots;
+  a.counter = static_cast<unsigned long long*>(counter);
+  a.out = out; a.slots = slots; a.cluster = cluster;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long chunks = (n + THREADS - 1) / THREADS;
-  if (chunks * B > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  if (mh) {
-    mh_catalogue_scalars<<<B, THREADS, 0, s>>>(a);
-    mh_catalogue_write<<<(unsigned)(chunks * B), THREADS, 0, s>>>(a);
-  } else {
-    em_catalogue_scalars<<<B, THREADS, 0, s>>>(a);
-    em_catalogue_write<<<(unsigned)(chunks * B), THREADS, 0, s>>>(a);
-  }
-  return (int)cudaGetLastError();
+  return (int)(mh ? launch<true>(a, s) : launch<false>(a, s));
 }
 
 }  // extern "C"

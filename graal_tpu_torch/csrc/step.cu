@@ -22,7 +22,8 @@
 //
 // What the design does about it.
 //  - One launch per entry point and step, every chain of a chains axis in
-//    one grid (one block a chain), no host read and no allocation: the
+//    one grid (D1, D2: one block a chain; D3: one cluster a chain), no
+//    host read and no allocation: the
 //    wrapper (ops/step_cuda.py) passes fresh outputs, so a captured step
 //    (core.graphs.Scan) captures each launch.
 //  - Bit-identity with the plain versions on the card. Each torch op rounds
@@ -55,22 +56,43 @@
 //    entries last. Ranks are O(m^2) with m = (delta + 1) x max_copies (80 on
 //    a copy-dense table), a few thousand comparisons spread over 128
 //    threads.
-//  - D3 (`select_commit_*`): one block a chain, 256 threads over the
-//    m x 13 slots. The validity mask, the minimum, the 30-window, the count
-//    of positive slots, the normaliser, the tempered log-weights plus Gumbel
-//    noise and both argmaxes (ties to the lower index, NaN greatest, as
-//    torch.argmax) are block reductions. The normaliser is a sum in a fixed
-//    order (thread-strided, then a shuffle tree), not torch's reduction
-//    order, so a slot's weight may differ from the plain version's by an
-//    ulp, and the drawn slot with it when the two best keys are that close;
-//    every other value is exact. Then the same block commits: the dense
-//    path writes the chosen candidate's 11 fields (or the state, for a
-//    blacklisted f_a) into a new state; the delta path writes the 8
-//    mutable fields of the chosen mini-state's valid rows into the state
-//    (O(f_max), the plain version's inverse map and selects are O(n)),
-//    nothing when f_a is blacklisted or every selectable slot overflows.
-//    A chain's valid rows are distinct (they are top-k indices), so the
-//    writes never collide.
+//  - D3 (`select_commit_*`): one launch a call, a thread block cluster of
+//    K blocks of 256 threads a chain (`cudaLaunchKernelEx` with the
+//    cluster dimension; K from what it commits, ops/step_cuda.py
+//    `select_cluster`: a block a chunk of 256 fragments on the dense path
+//    or of 256 rows of f_max on the delta path, at most 8). Every warp of
+//    every block selects, from the same inputs in the same order, so every
+//    warp draws the same slot with no block or cluster barrier (7-9%
+//    faster at every shape timed than block 0 selecting and its peers
+//    reading the slot through DSMEM between two cluster barriers; the
+//    cluster only schedules a chain's blocks together). A warp's 32 lanes
+//    take the m x 13 slots lane-strided (lane l: slots l, l + 32, ...; its
+//    first LANE_SLOTS loaded together into registers), and each quantity
+//    is a warp reduction by shuffles (a shuffle-down tree whose lane 0 is
+//    broadcast): the validity mask, the minimum, the 30-window, the count
+//    of positive slots, the normaliser, the tempered log-weights plus
+//    Gumbel noise and both argmaxes (ties to the lower index, NaN
+//    greatest, as torch.argmax). The normaliser's order: lane l sums its
+//    slots l, l + 32, l + 64, ... left to right from 0, then the 32 lane
+//    sums fold as s[l] += s[l + o] for o = 16, 8, 4, 2, 1, and s[0] is the
+//    total. That is not torch's reduction order, so a slot's weight may
+//    differ from the plain version's by an ulp, and the drawn slot with it
+//    when the two best keys are that close; every other value is exact
+//    (minima, maxima, counts and argmaxes are exact in any order). Then
+//    the cluster commits, thread t of block r the fragments (rows)
+//    r x 256 + t, stepping by K x 256, every load of a fragment (of
+//    ROWS_AHEAD rows, past the cap of 8 blocks) issued before its stores,
+//    so a thread waits on memory once a fragment (4 rows), not once a
+//    field. The dense path writes the chosen candidate's 11 fields (or the
+//    state, for a blacklisted f_a) into a new state; the delta path writes
+//    the 8 mutable fields of the chosen mini-state's valid rows into the
+//    state (O(f_max), the plain version's inverse map and selects are
+//    O(n)), nothing when f_a is blacklisted or every selectable slot
+//    overflows. A chain's valid rows are distinct (they are top-k
+//    indices), so the writes never collide. Block 0 of a chain, thread 0,
+//    writes sel, score / d_sel, op, fb and n_over; block 0 of the grid,
+//    thread 0, adds one to the launch key's int64 counter (ops/counts.py
+//    `LaunchCount.counter`), so no counting kernel runs beside D3.
 //
 // Launch keys (ops/counts.py): "nuisance_propose", "nuisance_accept",
 // "neighbours", "select_dense", "select_delta".
@@ -93,8 +115,11 @@ constexpr int PROPOSE_THREADS = PROPOSALS * WIDTH;
 constexpr int ACCEPT_THREADS = 128;
 constexpr int NB_THREADS = 128;
 constexpr int SELECT_THREADS = 256;
-constexpr int WARPS = SELECT_THREADS / 32;
+constexpr int MAX_SELECT_CLUSTER = 8;
+constexpr int ROWS_AHEAD = 4;        // D3's delta commit: rows a thread loads before storing
+constexpr int LANE_SLOTS = 8;        // D3's selection: slots a lane holds in registers (m <= 19)
 constexpr int INVALID_KEY = 1 << 30;
+constexpr unsigned FULL = 0xffffffffu;
 
 enum Param { KUHN = 0, LM, C1, SLOPE, D, D_MAX, FACT, V_INTER };
 
@@ -362,45 +387,20 @@ struct Add {
   __device__ float operator()(float a, float b) const { return fadd(a, b); }
 };
 
-struct Reduce {                 // block reduction scratch
-  float f[WARPS];
-  int n[WARPS];
-  Pick p[WARPS];
-};
-
+// warp reductions: a shuffle-down tree (lane l takes lane l + o for o = 16,
+// 8, 4, 2, 1), lane 0's value broadcast to every lane
 template <class Op>
-__device__ float reduce_f(float x, Op op, Reduce& r) {
-  for (int o = 16; o > 0; o >>= 1) x = op(x, __shfl_down_sync(0xffffffffu, x, o));
-  if ((threadIdx.x & 31) == 0) r.f[threadIdx.x >> 5] = x;
-  __syncthreads();
-  float out = r.f[0];
-  for (int w = 1; w < WARPS; ++w) out = op(out, r.f[w]);
-  __syncthreads();
-  return out;
+__device__ __forceinline__ float warp_f(float x, Op op) {
+  for (int o = 16; o > 0; o >>= 1) x = op(x, __shfl_down_sync(FULL, x, o));
+  return __shfl_sync(FULL, x, 0);
 }
 
-__device__ int reduce_n(int x, Reduce& r) {
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_down_sync(0xffffffffu, x, o);
-  if ((threadIdx.x & 31) == 0) r.n[threadIdx.x >> 5] = x;
-  __syncthreads();
-  int out = 0;
-  for (int w = 0; w < WARPS; ++w) out += r.n[w];
-  __syncthreads();
-  return out;
-}
-
-__device__ Pick reduce_pick(Pick x, Reduce& r) {
+__device__ __forceinline__ Pick warp_pick(Pick x) {
   for (int o = 16; o > 0; o >>= 1) {
-    Pick y{__shfl_down_sync(0xffffffffu, x.v, o), __shfl_down_sync(0xffffffffu, x.i, o)};
+    const Pick y{__shfl_down_sync(FULL, x.v, o), __shfl_down_sync(FULL, x.i, o)};
     if (beats(y, x)) x = y;
   }
-  if ((threadIdx.x & 31) == 0) r.p[threadIdx.x >> 5] = x;
-  __syncthreads();
-  Pick out = r.p[0];
-  for (int w = 1; w < WARPS; ++w)
-    if (beats(r.p[w], out)) out = r.p[w];
-  __syncthreads();
-  return out;
+  return Pick{__shfl_sync(FULL, x.v, 0), __shfl_sync(FULL, x.i, 0)};
 }
 
 struct SelectArgs {
@@ -421,7 +421,9 @@ struct SelectArgs {
   float* score_out;             // (C,) out: its score (dense) or delta (delta)
   long long* op;                // (C,) out
   long long* fb;                // (C,) out
+  unsigned long long* counter;  // the launch key's int64 counter
   int C, m;
+  int cluster;                  // K: blocks a chain
 };
 
 struct Selected {
@@ -429,10 +431,10 @@ struct Selected {
   bool any;                     // some slot was selectable
 };
 
-// mcmc.py `select_score_slot` for chain c, every thread of the block
-// taking part: the slot drawn (argmax of the tempered log-weights plus the
-// Gumbel noise; the best score when at most one slot survives the window).
-__device__ Selected select_slot(const SelectArgs& a, int c, Reduce& r) {
+// mcmc.py `select_score_slot` for chain c in one warp, every lane taking
+// part: the slot drawn (argmax of the tempered log-weights plus the Gumbel
+// noise; the best score when at most one slot survives the window).
+__device__ Selected select_warp(const SelectArgs& a, int c) {
   const int S = a.m * N_OPS;
   const float* score = a.score + static_cast<long long>(c) * S;
   const float* gumbel = a.gumbel + a.g_rs * c;
@@ -444,50 +446,69 @@ __device__ Selected select_slot(const SelectArgs& a, int c, Reduce& r) {
     const bool v = valid_nb[nb] || (nb == 0 && op < 2);
     return v && !(over && over[nb]);
   };
-  const int t = threadIdx.x;
+  const int lane = threadIdx.x & 31;
+  // a lane's first LANE_SLOTS slots (lane, lane + 32, ...), loaded together
+  // into registers; any further slots are read where they lie
+  float sv[LANE_SLOTS], gv[LANE_SLOTS];
+  bool okv[LANE_SLOTS];
+#pragma unroll
+  for (int j = 0; j < LANE_SLOTS; ++j) {
+    const int k = lane + 32 * j;
+    okv[j] = k < S && selectable(k);
+    sv[j] = k < S ? score[k] : 0.0f;
+    gv[j] = k < S ? gumbel[k] : 0.0f;
+  }
+  // f(slot, score, selectable, noise) over the lane's slots in ascending order
+  auto each = [&](auto&& f) {
+#pragma unroll
+    for (int j = 0; j < LANE_SLOTS; ++j)
+      if (lane + 32 * j < S) f(lane + 32 * j, sv[j], okv[j], gv[j]);
+    for (int k = lane + 32 * LANE_SLOTS; k < S; k += 32) f(k, score[k], selectable(k), gumbel[k]);
+  };
   float lo = INFINITY;
-  int any = 0;
-  for (int k = t; k < S; k += blockDim.x)
-    if (selectable(k)) {
-      lo = MinNaN()(lo, score[k]);
-      any = 1;
+  bool any = false;
+  Pick best{-INFINITY, 0x7fffffff};
+  each([&](int k, float x, bool ok, float) {
+    if (ok) {
+      lo = MinNaN()(lo, x);
+      any = true;
     }
-  lo = reduce_f(lo, MinNaN(), r);
-  any = reduce_n(any, r);
+    const Pick y{ok ? x : -INFINITY, k};
+    if (beats(y, best)) best = y;
+  });
+  lo = warp_f(lo, MinNaN());
+  any = __any_sync(FULL, any);
+  best = warp_pick(best);
   float hi = -INFINITY;
-  for (int k = t; k < S; k += blockDim.x)
-    hi = MaxNaN()(hi, selectable(k) ? fsub(score[k], lo) : 0.0f);
-  hi = reduce_f(hi, MaxNaN(), r);
+  each([&](int, float x, bool ok, float) { hi = MaxNaN()(hi, ok ? fsub(x, lo) : 0.0f); });
+  hi = warp_f(hi, MaxNaN());
   const float base = fsub(hi, a.thresh);
-  auto filtered = [&](int k) {
-    if (!selectable(k)) return 0.0f;
-    const float x = fsub(fsub(score[k], lo), base);
-    return isnan(x) ? x : (x < 0.0f ? 0.0f : x);
+  auto filtered = [&](float x, bool ok) {
+    if (!ok) return 0.0f;
+    const float y = fsub(fsub(x, lo), base);
+    return isnan(y) ? y : (y < 0.0f ? 0.0f : y);
   };
   float total = 0.0f;
   int n_pos = 0;
-  for (int k = t; k < S; k += blockDim.x) {
-    const float x = filtered(k);
-    total = fadd(total, x);
-    n_pos += x > 0.0f;
-  }
-  total = reduce_f(total, Add(), r);
-  n_pos = reduce_n(n_pos, r);
+  each([&](int, float x, bool ok, float) {
+    const float y = filtered(x, ok);
+    total = fadd(total, y);
+    n_pos += y > 0.0f;
+  });
+  total = warp_f(total, Add());
+  n_pos = __reduce_add_sync(FULL, n_pos);
   const float ft = a.ft ? a.ft[a.fts * c] : 0.0f;
-  Pick cat{-INFINITY, 0x7fffffff}, best{-INFINITY, 0x7fffffff};
-  for (int k = t; k < S; k += blockDim.x) {
-    const float pr = fdiv(filtered(k), total);
+  Pick cat{-INFINITY, 0x7fffffff};
+  each([&](int k, float x, bool ok, float g) {
+    const float pr = fdiv(filtered(x, ok), total);
     float lw = -INFINITY;
     if (pr > 0.0f) lw = a.ft ? fdiv(logf(pr), ft) : fmul(logf(pr), a.ft_inv);
-    const Pick x{fadd(lw, gumbel[k]), k};
-    if (beats(x, cat)) cat = x;
-    const Pick y{selectable(k) ? score[k] : -INFINITY, k};
-    if (beats(y, best)) best = y;
-  }
-  cat = reduce_pick(cat, r);
-  best = reduce_pick(best, r);
+    const Pick y{fadd(lw, g), k};
+    if (beats(y, cat)) cat = y;
+  });
+  cat = warp_pick(cat);
   const int sel = n_pos <= 1 ? best.i : cat.i;
-  return Selected{min(sel, S - 1), any != 0};
+  return Selected{min(sel, S - 1), any};
 }
 
 struct DenseArgs {
@@ -504,29 +525,35 @@ struct DenseArgs {
 };
 
 __global__ void __launch_bounds__(SELECT_THREADS) select_commit_dense_kernel(DenseArgs a) {
-  __shared__ Reduce r;
-  const int c = blockIdx.x;
-  const Selected s = select_slot(a.s, c, r);
+  const int K = a.s.cluster;
+  const int c = blockIdx.x / K, rank = blockIdx.x - c * K;
+  if (blockIdx.x == 0 && threadIdx.x == 0) atomicAdd(a.s.counter, 1ULL);
+  const Selected s = select_warp(a.s, c);
   const long long fa = a.s.fa[a.s.fa_s * c];
   const bool skip = a.s.blacklist[fa];
   const int nb = s.sel / N_OPS, op = s.sel % N_OPS;
-  if (threadIdx.x == 0) {
+  if (rank == 0 && threadIdx.x == 0) {
     const long long S = static_cast<long long>(a.s.m) * N_OPS;
     a.s.sel[c] = s.sel;
     a.s.score_out[c] = skip ? -INFINITY : a.s.score[c * S + s.sel];
     a.s.op[c] = skip ? -1 : op;
     a.s.fb[c] = skip ? fa : a.s.ids[static_cast<long long>(c) * a.s.m + nb];
   }
-  const long long n = a.n;
+  // a thread a fragment: its 11 fields loaded together, then stored
+  const int* src[N_FIELDS];
+  long long src_i[N_FIELDS];
+#pragma unroll
   for (int f = 0; f < N_FIELDS; ++f) {
-    int* dst = a.out + (static_cast<long long>(f) * a.s.C + c) * n;
-    if (skip) {
-      const int* src = a.state[f] + a.ss_c[f] * c;
-      for (long long i = threadIdx.x; i < n; i += blockDim.x) dst[i] = src[a.ss_i[f] * i];
-    } else {
-      const int* src = a.cand[f] + a.cs_c[f] * c + a.cs_k[f] * s.sel;
-      for (long long i = threadIdx.x; i < n; i += blockDim.x) dst[i] = src[a.cs_i[f] * i];
-    }
+    src[f] = skip ? a.state[f] + a.ss_c[f] * c : a.cand[f] + a.cs_c[f] * c + a.cs_k[f] * s.sel;
+    src_i[f] = skip ? a.ss_i[f] : a.cs_i[f];
+  }
+  const long long n = a.n, step = static_cast<long long>(K) * blockDim.x;
+  for (long long i = static_cast<long long>(rank) * blockDim.x + threadIdx.x; i < n; i += step) {
+    int v[N_FIELDS];
+#pragma unroll
+    for (int f = 0; f < N_FIELDS; ++f) v[f] = src[f][src_i[f] * i];
+#pragma unroll
+    for (int f = 0; f < N_FIELDS; ++f) a.out[(static_cast<long long>(f) * a.s.C + c) * n + i] = v[f];
   }
 }
 
@@ -547,14 +574,15 @@ struct DeltaArgs {
 };
 
 __global__ void __launch_bounds__(SELECT_THREADS) select_commit_delta_kernel(DeltaArgs a) {
-  __shared__ Reduce r;
-  const int c = blockIdx.x;
-  const Selected s = select_slot(a.s, c, r);
+  const int K = a.s.cluster;
+  const int c = blockIdx.x / K, rank = blockIdx.x - c * K;
+  if (blockIdx.x == 0 && threadIdx.x == 0) atomicAdd(a.s.counter, 1ULL);
+  const Selected s = select_warp(a.s, c);
   const long long fa = a.s.fa[a.s.fa_s * c];
   // a no-op when f_a is blacklisted or every selectable slot overflows
   const bool skip = a.s.blacklist[fa] || !s.any;
   const int nb = s.sel / N_OPS, op = s.sel % N_OPS;
-  if (threadIdx.x == 0) {
+  if (rank == 0 && threadIdx.x == 0) {
     const long long S = static_cast<long long>(a.s.m) * N_OPS;
     const unsigned char* over = a.s.overflow + static_cast<long long>(c) * a.s.m;
     long long n_over = 0;
@@ -566,15 +594,60 @@ __global__ void __launch_bounds__(SELECT_THREADS) select_commit_delta_kernel(Del
     a.n_over[c] = n_over;
   }
   if (skip) return;
+  // thread t of block r: rows r x 256 + t + j x K x 256; ROWS_AHEAD of
+  // them loaded together (flag, row, the 8 fields), then stored
   const long long at = (static_cast<long long>(c) * a.s.m + nb) * a.f_max;
-  for (int i = threadIdx.x; i < a.f_max; i += blockDim.x) {
-    if (!a.rows_valid[at + i]) continue;
-    const long long row = a.rows[at + i];
+  const int* src[N_MUTABLE];
 #pragma unroll
-    for (int f = 0; f < N_MUTABLE; ++f)
-      a.dst[f][a.ds_c[f] * c + a.ds_i[f] * row] =
-          a.cand[f][a.cs_c[f] * c + a.cs_j[f] * nb + a.cs_o[f] * op + a.cs_i[f] * i];
+  for (int f = 0; f < N_MUTABLE; ++f)
+    src[f] = a.cand[f] + a.cs_c[f] * c + a.cs_j[f] * nb + a.cs_o[f] * op;
+  const int step = K * blockDim.x;
+  for (int i0 = rank * blockDim.x + threadIdx.x; i0 < a.f_max; i0 += ROWS_AHEAD * step) {
+    bool ok[ROWS_AHEAD];
+    long long row[ROWS_AHEAD];
+    int v[ROWS_AHEAD][N_MUTABLE];
+#pragma unroll
+    for (int u = 0; u < ROWS_AHEAD; ++u) {
+      const int i = i0 + u * step;
+      ok[u] = false;
+      if (i < a.f_max) {
+        ok[u] = a.rows_valid[at + i];
+        row[u] = a.rows[at + i];
+#pragma unroll
+        for (int f = 0; f < N_MUTABLE; ++f) v[u][f] = src[f][a.cs_i[f] * i];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < ROWS_AHEAD; ++u) {
+      if (!ok[u]) continue;
+#pragma unroll
+      for (int f = 0; f < N_MUTABLE; ++f) a.dst[f][a.ds_c[f] * c + a.ds_i[f] * row[u]] = v[u][f];
+    }
   }
+}
+
+// D3's launch: K blocks a chain as one cluster
+template <class Args>
+cudaError_t launch_select(void (*kernel)(Args), const Args& a, cudaStream_t s) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(a.s.C) * a.s.cluster, 1, 1);
+  cfg.blockDim = dim3(SELECT_THREADS, 1, 1);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = a.s.cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, a);
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
+
+bool select_ok(const SelectArgs& s) {
+  return s.C > 0 && s.m > 0 && s.counter != nullptr && s.cluster >= 1 &&
+         s.cluster <= MAX_SELECT_CLUSTER && static_cast<long long>(s.C) * s.cluster <= 0x7fffffffLL;
 }
 
 // dynamic shared memory of neighbours_kernel: keys, top slots, 3 ints an entry
@@ -630,19 +703,15 @@ int neighbours(const void* args, int n_chains, void* stream) {
 
 int select_commit_dense(const void* args, void* stream) {
   const DenseArgs* a = static_cast<const DenseArgs*>(args);
-  if (a->s.C <= 0 || a->s.m <= 0 || a->n <= 0) return (int)cudaErrorInvalidValue;
-  select_commit_dense_kernel<<<a->s.C, SELECT_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      *a);
-  return (int)cudaGetLastError();
+  if (!select_ok(a->s) || a->n <= 0) return (int)cudaErrorInvalidValue;
+  return (int)launch_select(select_commit_dense_kernel, *a, static_cast<cudaStream_t>(stream));
 }
 
 int select_commit_delta(const void* args, void* stream) {
   const DeltaArgs* a = static_cast<const DeltaArgs*>(args);
-  if (a->s.C <= 0 || a->s.m <= 0 || a->f_max <= 0 || a->s.overflow == nullptr)
+  if (!select_ok(a->s) || a->f_max <= 0 || a->s.overflow == nullptr)
     return (int)cudaErrorInvalidValue;
-  select_commit_delta_kernel<<<a->s.C, SELECT_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      *a);
-  return (int)cudaGetLastError();
+  return (int)launch_select(select_commit_delta_kernel, *a, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

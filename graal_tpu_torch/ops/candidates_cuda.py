@@ -6,9 +6,10 @@ Metropolis-Hastings / MTM one (``mh_candidates``). The JAX package has no
 Pallas kernel for them: XLA fuses their primitives inside the jitted step.
 The kernel source is ``graal_tpu_torch/csrc/candidates.cu``; its header
 says what bounds it on the card and how the design answers that. One call
-is one launch pair (a per-genome scalar pass, then the write pass) on the
-current stream, with no synchronisation and no host read, so a captured
-step (``core.graphs.Scan``) captures it.
+is one launch (a thread block cluster a genome, :func:`plan`'s K blocks) on
+the current stream, with no synchronisation and no host read, so a
+captured step (``core.graphs.Scan``) captures it; the kernel adds one to
+its launch key's counter itself.
 
 :data:`CATALOGUE` is the one wrapper: ``core.candidates`` sends a CUDA
 state to it and any other state to the plain versions beside the
@@ -30,6 +31,8 @@ N_CANDIDATES = 13
 N_FIELDS = 11
 KINDS = ("em", "mh")      # C1, C2: the launch keys
 MAX_GENOMES = 65535
+MAX_CLUSTER = 8           # blocks a genome: the portable cluster size
+THREADS = 256             # a block's threads, one a fragment of its chunk
 
 
 @functools.cache
@@ -37,15 +40,21 @@ def load_library():
     """The kernel library (built at first use), its C functions typed."""
     lib = build.load("candidates")
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.catalogue_scratch_ints.argtypes = []
-    lib.catalogue_scratch_ints.restype = i32
     lib.catalogue.argtypes = [i32, ptr, ptr, ptr, i32, i32, i32,  # mh, fields, strides, n, B, rows
                               ptr, i64, i64, i32,                  # f_a
                               ptr, i32,                            # f_b
                               ptr, i64, i64, i32, i32,             # max_id
-                              ptr, ptr, i32, ptr]                  # scratch, out, slots, stream
+                              ptr, ptr, i32,                       # counter, out, slots
+                              i32, ptr]                            # cluster, stream
     lib.catalogue.restype = i32
     return lib
+
+
+def plan(n: int) -> int:
+    """K, the blocks of a genome's cluster for a state of ``n`` fragments:
+    one block of THREADS a chunk of THREADS fragments, at most MAX_CLUSTER
+    blocks; block r owns the chunks r, r + K, r + 2K, ..."""
+    return min(MAX_CLUSTER, -(-n // THREADS))
 
 
 def _index(x, name: str, b: int, dev):
@@ -123,21 +132,25 @@ class Catalogue(Counted):
     with ``with_base``, (m, 14, n) with the base genome in slot 0. Indices
     must lie in [0, n).
 
-    ``n_launches`` counts the calls (one launch pair each) on the card, by
-    kind (``ops.counts``)."""
+    ``n_launches`` counts the calls (one launch each) on the card, by kind
+    (``ops.counts``): the kernel adds one to its kind's counter itself."""
 
     def __init__(self):
         self.launches = LaunchCount()
 
-    def __call__(self, kind: str, state, f_a, f_b, max_id=None, with_base: bool = False):
-        dev = state[0].device
+    @staticmethod
+    def _card(dev):
         if dev.type != "cuda":
             raise ValueError(f"the CUDA catalogue needs a state on a card, not on {dev}")
+
+    def __call__(self, kind: str, state, f_a, f_b, max_id=None, with_base: bool = False):
+        dev = state[0].device
+        self._card(dev)
         n, m, rows, strides, fa, mx = check_args(kind, state, f_a, f_b, max_id)
         lib = load_library()
         slots = N_CANDIDATES + bool(with_base)
         out = torch.empty((N_FIELDS, m, slots, n), dtype=torch.int32, device=dev)
-        scratch = torch.empty((m, lib.catalogue_scratch_ints()), dtype=torch.int32, device=dev)
+        counter = self.launches.counter(dev, kind)
         fields = (ctypes.c_void_p * N_FIELDS)(*[x.data_ptr() for x in state])
         row_strides = (ctypes.c_longlong * N_FIELDS)(*strides[0])
         col_strides = (ctypes.c_longlong * N_FIELDS)(*strides[1])
@@ -147,11 +160,10 @@ class Catalogue(Counted):
         rc = lib.catalogue(KINDS.index(kind), fields, row_strides, col_strides, n, m, rows,
                            ptr(fa[0]), *fa[1:], f_b.data_ptr(), int(f_b.dtype == torch.int64),
                            ptr(mx[0]), *mx[1:], int(max_id is None),
-                           scratch.data_ptr(), out.data_ptr(), slots,
+                           counter.data_ptr(), out.data_ptr(), slots, plan(n),
                            torch.cuda.current_stream(dev).cuda_stream)
         if rc != 0:
             raise RuntimeError(f"{kind} catalogue launch failed: cudaError {rc}")
-        self.launches.add(dev, kind)
         return out.unbind(0)
 
 

@@ -1,10 +1,12 @@
 """Kernel launch counts kept on the card.
 
-A kernel wrapper counts each launch right beside it with an add to an
-int64 on the card, on the launch's stream. A CUDA graph captures that add
-with the launch, so every replay of a captured step counts its launches as
-the same step run eagerly does (``core.graphs``). Reading a count copies it
-to the host: a synchronisation, so a run reads its counts after it ends.
+A kernel wrapper counts each launch in an int64 on the card: either the
+kernel adds one to it itself (it is handed :meth:`LaunchCount.counter`'s
+tensor), or the wrapper adds one right beside the launch, on the launch's
+stream (:meth:`LaunchCount.add`). A CUDA graph captures either with the
+launch, so every replay of a captured step counts its launches as the same
+step run eagerly does (``core.graphs``). Reading a count copies it to the
+host: a synchronisation, so a run reads its counts after it ends.
 """
 
 from __future__ import annotations
@@ -21,10 +23,12 @@ class LaunchCount:
     def __init__(self):
         self.counters = {}
 
-    def add(self, device, key=None):
-        """Count one launch on ``device``; called beside the launch. A new
-        key's counter is made outside any capture (a capture's first step
-        runs eagerly, so its keys exist before the capture begins)."""
+    def counter(self, device, key=None) -> torch.Tensor:
+        """The int64 counter of ``key`` on ``device``, for a kernel that adds
+        one to it itself at each launch (its ``data_ptr()`` goes to the
+        kernel). A new key's counter is made outside any capture (a
+        capture's first step runs eagerly, so its keys exist before the
+        capture begins)."""
         slot = (device, key)
         counter = self.counters.get(slot)
         if counter is None:
@@ -32,7 +36,12 @@ class LaunchCount:
                 raise RuntimeError(f"the first launch counted under {key} is in a capture: "
                                    "run the step eagerly before capturing it")
             counter = self.counters[slot] = torch.zeros((), dtype=torch.int64, device=device)
-        counter.add_(1)
+        return counter
+
+    def add(self, device, key=None):
+        """Count one launch on ``device``; called beside the launch of a
+        kernel that does not count itself."""
+        self.counter(device, key).add_(1)
 
     def by_key(self) -> collections.Counter:
         """Launches by key on every device (keys at zero left out)."""

@@ -12,7 +12,9 @@ source is ``graal_tpu_torch/csrc/step.cu``; its header says what bounds
 them on the card and how the design answers that. Each call is one launch
 on the current stream, with no synchronisation and no host read, into
 fresh outputs (the delta commit writes the state it is given), so a
-captured step (``core.graphs.Scan``) captures it.
+captured step (``core.graphs.Scan``) captures it. D3 is a thread block
+cluster a chain (:func:`select_cluster`) and adds one to its launch key's
+counter itself; D1 and D2 are counted by the wrapper beside the launch.
 
 :data:`STEP` is the one wrapper: the public functions send tensors on a
 card to it and any others to their plain versions; the wrapper itself
@@ -46,6 +48,9 @@ SOLVE_WIDTH = 64
 LLO0 = float(np.float32(np.log(1e-2)))
 LHI0 = float(np.float32(np.log(1e6)))
 INV_W = float(np.float32(1.0) / np.float32(SOLVE_WIDTH - 1))
+SELECT_THREADS = 256      # D3's block: a thread a fragment (dense) or a row (delta) of a chunk
+MAX_SELECT_CLUSTER = 8    # D3's blocks a chain: the portable cluster size
+ROWS_AHEAD = 4            # D3's delta commit: rows a thread loads before it stores
 
 _P, _I64, _F32, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float, ctypes.c_int
 
@@ -76,7 +81,8 @@ class SelectArgs(ctypes.Structure):
     _fields_ = [("score", _P), ("gumbel", _P), ("g_rs", _I64), ("valid_nb", _P),
                 ("overflow", _P), ("ft", _P), ("fts", _I64), ("ft_inv", _F32), ("thresh", _F32),
                 ("blacklist", _P), ("fa", _P), ("fa_s", _I64), ("ids", _P), ("sel", _P),
-                ("score_out", _P), ("op", _P), ("fb", _P), ("C", _I32), ("m", _I32)]
+                ("score_out", _P), ("op", _P), ("fb", _P), ("counter", _P), ("C", _I32),
+                ("m", _I32), ("cluster", _I32)]
 
 
 class DenseArgs(ctypes.Structure):
@@ -115,6 +121,17 @@ def load_library():
     lib.neighbours.argtypes = [_P, _I32, _P]
     lib.neighbours.restype = _I32
     return lib
+
+
+def select_cluster(size: int) -> int:
+    """K, the blocks of D3's cluster a chain: a block a chunk of
+    SELECT_THREADS of what it commits (``size``: the dense path's n
+    fragments, a thread a fragment's 11 fields; the delta path's f_max
+    rows of the chosen slot), at least 1 and at most MAX_SELECT_CLUSTER.
+    Thread t of block r commits the fragments (rows) r x SELECT_THREADS +
+    t, stepping by K x SELECT_THREADS (the delta commit's rows ROWS_AHEAD
+    at a time)."""
+    return max(1, min(MAX_SELECT_CLUSTER, -(-size // SELECT_THREADS)))
 
 
 # ---- argument checks (pure functions: no launch, any device) -----------------
@@ -339,7 +356,8 @@ def _ptr(x):
     return None if x is None else x.data_ptr()
 
 
-def _select_args(score, ids, valid, f_a, gumbel, f_t, blacklist, thresh, overflow, outs):
+def _select_args(score, ids, valid, f_a, gumbel, f_t, blacklist, thresh, overflow, outs,
+                 counter, cluster):
     c, m, g_rs, (ft, fts, ft_inv) = check_select(score, ids, valid, f_a, gumbel, f_t, blacklist,
                                                   overflow)
     # contiguous copies (when they are copies) live until the launch is queued
@@ -352,13 +370,14 @@ def _select_args(score, ids, valid, f_a, gumbel, f_t, blacklist, thresh, overflo
         overflow=_ptr(overflow), ft=_ptr(ft), fts=fts,
         ft_inv=ft_inv, thresh=float(np.float32(thresh)), blacklist=blacklist.data_ptr(),
         fa=f_a.data_ptr(), fa_s=f_a.stride(0), ids=ids.data_ptr(), sel=sel.data_ptr(),
-        score_out=score_out.data_ptr(), op=op.data_ptr(), fb=fb.data_ptr(), C=c, m=m)
+        score_out=score_out.data_ptr(), op=op.data_ptr(), fb=fb.data_ptr(),
+        counter=counter.data_ptr(), C=c, m=m, cluster=cluster)
 
 
 class StepKernels(Counted):
     """The step kernels D1-D3 on a card; see the module docstring.
     ``n_launches`` counts the launches on the card, by kind (``KINDS``,
-    ``ops.counts``)."""
+    ``ops.counts``): D3 adds one to its kind's counter itself."""
 
     def __init__(self):
         self.launches = LaunchCount()
@@ -370,9 +389,15 @@ class StepKernels(Counted):
             raise ValueError(f"the CUDA step kernels need tensors on a card, not on {dev}")
         return dev
 
-    def _launch(self, kind, dev, rc):
+    @staticmethod
+    def _refused(kind, rc):
         if rc != 0:
             raise RuntimeError(f"{kind} launch failed: cudaError {rc}")
+
+    def _launch(self, kind, dev, rc):
+        """Raise on a refused launch, else count it (D1, D2: D3 counts
+        itself)."""
+        self._refused(kind, rc)
         self.launches.add(dev, kind)
 
     def nuisance_propose(self, id_modif, eps, params, d_max_cap=None, log_nfpb=None):
@@ -458,9 +483,10 @@ class StepKernels(Counted):
                 torch.empty(c, dtype=torch.float32, device=dev),
                 torch.empty(c, dtype=torch.int64, device=dev),
                 torch.empty(c, dtype=torch.int64, device=dev))
-        keep, s = _select_args(score, ids, valid, f_a, gumbel, f_t, blacklist, thresh, None,
-                               outs)
         n = check_dense(state, cands, c, m)
+        keep, s = _select_args(score, ids, valid, f_a, gumbel, f_t, blacklist, thresh, None,
+                               outs, self.launches.counter(dev, "select_dense"),
+                               select_cluster(n))
         lib = load_library()
         out = torch.empty((N_FIELDS, c, n), dtype=torch.int32, device=dev)
         a = DenseArgs(s=s, cand=(_P * N_FIELDS)(*[x.data_ptr() for x in cands]),
@@ -471,7 +497,7 @@ class StepKernels(Counted):
                       ss_c=(_I64 * N_FIELDS)(*[x.stride(0) for x in state]),
                       ss_i=(_I64 * N_FIELDS)(*[x.stride(1) for x in state]),
                       out=out.data_ptr(), n=n)
-        self._launch("select_dense", dev, lib.select_commit_dense(
+        self._refused("select_dense", lib.select_commit_dense(
             ctypes.byref(a), torch.cuda.current_stream(dev).cuda_stream))
         del keep
         sel, score_out, op, fb = outs
@@ -490,9 +516,10 @@ class StepKernels(Counted):
                 torch.empty(c, dtype=torch.int64, device=dev),
                 torch.empty(c, dtype=torch.int64, device=dev))
         n_over = torch.empty(c, dtype=torch.int64, device=dev)
-        keep, s = _select_args(score, ids, valid, f_a, gumbel, f_t, blacklist, thresh, overflow,
-                               outs)
         f_max = check_delta(dst, minis, rows, rows_valid, c, m)
+        keep, s = _select_args(score, ids, valid, f_a, gumbel, f_t, blacklist, thresh, overflow,
+                               outs, self.launches.counter(dev, "select_delta"),
+                               select_cluster(f_max))
         lib = load_library()
         cand = [minis[f] for f in MUTABLE]
         out = [dst[f] for f in MUTABLE]
@@ -506,7 +533,7 @@ class StepKernels(Counted):
                       ds_i=(_I64 * len(MUTABLE))(*[x.stride(1) for x in out]),
                       rows=rows.data_ptr(), rows_valid=rows_valid.data_ptr(),
                       n_over=n_over.data_ptr(), f_max=f_max)
-        self._launch("select_delta", dev, lib.select_commit_delta(
+        self._refused("select_delta", lib.select_commit_delta(
             ctypes.byref(a), torch.cuda.current_stream(dev).cuda_stream))
         del keep
         sel, d_sel, op, fb = outs

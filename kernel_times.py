@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Time the port's four CUDA kernels at the shapes their paths give them,
-to hold one tree's kernels against another's on one GPU.
+"""Time the port's CUDA kernels B1-B4, C1 and D3 at the shapes their paths
+give them, to hold one tree's kernels against another's on one GPU.
 
-    python3 kernel_times.py [--tree DIR]
+    python3 kernel_times.py [--tree DIR] [--kernels B,C,D] [--sweep]
 
 DIR holds a tree's ``graal_tpu_torch`` package (default: this checkout's).
 That tree's wrappers build and launch its kernels, and its own problem
@@ -31,7 +31,15 @@ M = 20 (4 chains) on the buckets 8,192 and 16,384, and at M = 10, R =
 1,024 on the 20k repeat problem; B4 at R = 1,024 on both, as the kernel
 alone and as the step's whole production of its masked observed grid
 from the CSR map and the keys ("B4 grid"), and at the top tiers and
-buckets beside B2.
+buckets beside B2. C1 (the EM catalogue) at the EM step's call (B = 5,
+n = 384), on the delta step's mini-states at bucket 1,024 (M = 5) and on
+4 chains' at 16,384 (M = 20), both with the base slot; D3 (the selection
+and commit) on the dense flagship step, the 100k delta step (M = 5) and
+4 chains' at 16,384 (M = 20), its "check" the drawn slots' sum.
+``--kernels`` keeps the named groups (B: B1-B4, C: C1, D: D3; default
+all). ``--sweep`` (a tree whose wrappers have them) also times C1 and D3
+under other cluster sizes (``candidates_cuda.plan``,
+``step_cuda.select_cluster``), as "SHAPE [K=k]" entries.
 """
 
 import json
@@ -148,9 +156,112 @@ def chains_shapes(sc, genome, r, gen):
                 smoke.obsgrid_bound(b4))}
 
 
+def catalogue_shapes(device, sc, gen, sweep):
+    """C1 at the EM step's call, and on the mini-states of a delta step at
+    bucket 1,024 (one chain) and 16,384 (4 chains); with ``sweep`` under
+    other cluster plans too."""
+    import torch
+    from graal_tpu_torch.core import mcmc
+    from graal_tpu_torch.core.state import GenomeState
+    from graal_tpu_torch.entry import problem
+    from graal_tpu_torch.ops import candidates_cuda
+    from graal_tpu_torch.ops.candidates_cuda import CATALOGUE
+
+    state, _, _, _, nb = problem(n_bins=384, device=device)
+    f = torch.tensor(7, device=device)
+    ids, _ = mcmc.sample_neighbours(gen, f, state, nb, smoke.DELTA)
+    shapes = {"C1 EM step B=5 n=384": (state, f, ids, None, False)}
+    for r, starts in ((smoke.F_MAX, (sc["shuf"],)),
+                      (smoke.TOP_TIERS[1], (sc["truth"], sc["tiered"], sc["halves"],
+                                            sc["shuf"]))):
+        st = GenomeState(*[torch.stack(xs) for xs in zip(*starts)])
+        f_as = torch.randint(0, sc["n"], (len(starts),), generator=gen, device=device)
+        minis, lf_a, lf_b, mx = smoke.mini_states(st, f_as, sc["runner"].nb, gen, r)
+        shapes[f"C1 delta R={r} M={minis.pos.shape[0]} base"] = (minis, lf_a, lf_b, mx, True)
+    plans = {"C1 EM step B=5 n=384": (1, 2),
+             f"C1 delta R={smoke.F_MAX} M=5 base": (1, 2, 4),
+             f"C1 delta R={smoke.TOP_TIERS[1]} M=20 base": (4, 8)}
+    out = {}
+    for label, (st, fa, fb, mx, wb) in shapes.items():
+        def call():
+            return CATALOGUE("em", st, fa, fb, mx, wb)
+
+        out[label] = times(call, lambda res: res[:2])
+        if not sweep:
+            continue
+        default = candidates_cuda.plan
+        for k in plans.get(label, ()):
+            candidates_cuda.plan = lambda n, k=k: k
+            try:
+                out[f"{label} [K={k}]"] = times(call, lambda res: res[:2])
+            finally:
+                candidates_cuda.plan = default
+    return out
+
+
+def select_shapes(device, sc, gen, sweep):
+    """D3 on the dense flagship step (C = 1), the 100k delta step (M = 5)
+    and 4 chains' at bucket 16,384 (M = 20), each commit into a copy of
+    the genome; with ``sweep`` other cluster sizes too."""
+    import torch
+    from graal_tpu_torch.core import delta, mcmc
+    from graal_tpu_torch.core.state import GenomeState
+    from graal_tpu_torch.entry import problem
+    from graal_tpu_torch.ops import step_cuda
+    from graal_tpu_torch.ops.likelihood_cuda import make_dense_scorer
+    from graal_tpu_torch.ops.step_cuda import STEP
+
+    state, table, params, obs, nb = problem(n_bins=384, device=device)
+    s = smoke.dense_steps(state, nb, make_dense_scorer(table, obs, device), params, gen,
+                          n_steps=1)[0]
+    m = s["ids"].shape[0]
+    st = GenomeState(*[x[None] for x in state])
+    flat = GenomeState(*[x.reshape(1, m * 13, -1) for x in s["flat"]])
+    gum = smoke.gumbel_noise((1, m * 13), gen, device)
+    calls = {"D3 dense flagship C=1 m=5": lambda: STEP.select_dense(
+        st, flat, s["ll"][None], s["ids"][None], s["valid"][None], s["f_a"].reshape(1), gum,
+        1.0, nb.blacklist, mcmc.THRESH_OVERFLOW)[4]}
+    runner = sc["runner"]
+    for label, r, states, pc in (
+            ("D3 delta 100k M=5", smoke.F_MAX, GenomeState(*[x[None] for x in sc["shuf"]]),
+             sc["params"]),
+            (f"D3 delta 4 chains R={smoke.TOP_TIERS[1]} M=20", smoke.TOP_TIERS[1],
+             GenomeState(*[x.expand(smoke.CHAINS, -1).contiguous() for x in sc["truth"]]),
+             smoke.chain_params(sc["params"]))):
+        scorer = delta.make_delta_scorer(sc["table"], None, r, sobs=sc["sobs"])
+        d = smoke.delta_steps(scorer, states, runner.nb, pc, delta.extract_rows_union, gen)
+        del scorer
+        c, m = d["ids"].shape
+        g = smoke.gumbel_noise((c, m * 13), gen, device)
+        dst = {f: x.clone() for f, x in d["states"]._asdict().items()}
+        calls[label] = (lambda d=d, g=g, dst=dst: STEP.select_delta(
+            dst, d["minis"]._asdict(), d["rows"], d["rows_valid"], d["dll"], d["ids"],
+            d["valid"], d["overflow"], d["f_a"], g, 1.0, runner.nb.blacklist,
+            mcmc.THRESH_OVERFLOW)[4])
+    out = {label: times(fn, lambda res: [res]) for label, fn in calls.items()}
+    if sweep:
+        default = step_cuda.select_cluster
+        for label, fn in calls.items():
+            for k in (1, 2, 4, 8):
+                step_cuda.select_cluster = lambda size, k=k: k
+                try:
+                    out[f"{label} [K={k}]"] = times(fn, lambda res: [res])
+                finally:
+                    step_cuda.select_cluster = default
+    return out
+
+
 def main(argv):
-    tree = Path(argv[1] if len(argv) == 2 and argv[0] == "--tree" else ".").resolve()
-    smoke.check(len(argv) in (0, 2), f"usage: kernel_times.py [--tree DIR], not {argv}")
+    import argparse
+
+    ap = argparse.ArgumentParser(prog="kernel_times.py")
+    ap.add_argument("--tree", default=".")
+    ap.add_argument("--kernels", default="B,C,D")
+    ap.add_argument("--sweep", action="store_true")
+    args = ap.parse_args(argv)
+    tree = Path(args.tree).resolve()
+    groups = set(args.kernels.split(","))
+    smoke.check(groups <= {"B", "C", "D"}, f"--kernels: B, C or D, not {args.kernels}")
     sys.path.insert(0, str(tree))
     import torch
     from graal_tpu_torch.core import delta, delta_repeats
@@ -162,11 +273,20 @@ def main(argv):
                 f"graal_tpu_torch came from {graal_tpu_torch.__file__}, not {tree}")
     smoke.phase_build()
     gen = torch.Generator(device=device).manual_seed(smoke.SEED)
-    out = dense_shapes(device, gen, lambda n: problem(n_bins=n, device=device), "B1")
-    out.update(dense_shapes(device, gen, lambda n: repeat_problem(n_bins=n, device=device),
-                            "B3"))
+    out = {}
+    if "B" in groups:
+        out.update(dense_shapes(device, gen, lambda n: problem(n_bins=n, device=device), "B1"))
+        out.update(dense_shapes(device, gen, lambda n: repeat_problem(n_bins=n, device=device),
+                                "B3"))
 
     sc = smoke.scale_setup(device)
+    if "C" in groups:
+        out.update(catalogue_shapes(device, sc, gen, args.sweep))
+    if "D" in groups:
+        out.update(select_shapes(device, sc, gen, args.sweep))
+    if "B" not in groups:
+        print(json.dumps({"tree": str(tree), "gpu": smoke.gpu_line(), "shapes": out}))
+        return
     for r in smoke.TIERS:
         # the flagship fragment at R = 1,024; elsewhere the largest contig
         # that half the tier holds, as chip_smoke.tiers picks it
