@@ -83,38 +83,47 @@ written. "share" is the bound over the device time.
    slot on), with the bound: the state read once, the (11, B, 13 or 14,
    n) int32 output written once. ``--top-tiers`` repeats the R = 16,384
    shape (B = 20, n = 16,384) alone, with its counts, and times C1 there.
-3d. Step kernels D1 (the nuisance move: nuisance_propose_kernel,
-   nuisance_accept_kernel), D2 (the neighbour draw: neighbours_kernel) and
-   D3 (the selection and commit: select_commit_dense_kernel,
-   select_commit_delta_kernel; csrc/step.cu) against their plain torch
-   versions (core/mcmc.py, core/delta.py ``*_plain``) on each EM-family
-   path's own inputs, STEP_DRAWS random draws a shape (after the 20k
-   repeat set-up, which moved here): the dense flagship (B = 65) and dense
-   repeat (B = 130) paths (the true genome and its exploded start, half the
-   fragments repeat copies), 4 tempered chains (per-chain f_t), a
-   copy-dense table's draw (15 extra copies of a bin, m = 80), the 100k
-   delta path (M = 5), its 4 chains (M = 20), the runner's cycle end (4
-   chains' own parameters, the d_max cap) and the 20k repeat twin (M = 10);
-   D3's cluster (``ops/step_cuda.select_cluster``) at its edges: dense
-   commits of n = 1, 257 and 2,049 fragments (K = 1, 2 and 8, block 0
-   looping) on random scores, and the 100k step at bucket 4,096 on the
-   tiered cut (K = 8, two rows a thread).
-   D2's ids and valid masks and D1's test parameters, in_support, the
-   dense scorers' parameter row, accepted parameters, l_t and accept bit for
-   bit (NaN equal to NaN); D3's drawn slot equal to the plain version's
-   except where the categorical draw decides and its two best keys lie
-   within SLOT_ULPS ulps of the best (the normaliser is summed in another
-   order; either of the two passes there, and those draws are counted and
-   printed), and wherever it agrees the new state (dense) or the written
-   rows (delta), score / d_sel, op, fb and n_over bit for bit; a quarter of
-   the calls with f_a blacklisted and, on the delta paths, a quarter with
-   every slot overflowing; each chain's valid member rows distinct on the
-   real steps' inputs (the delta commit's contract); D3's launches counted
-   on the card equal to the calls made, by kind. Each kernel timed at
-   each path's shape as 3c times C1 (device ms; the plain version's as
-   graph replays) beside its bound. Phases 4, 4b, 7 and 7b count one D2 and
-   one D3 launch a step (and one D1 pair a step on the dense paths); 7g /
-   7h hold graph == eager with D1-D3's launches equal by key.
+3d. The step kernels (csrc/step.cu): the step's head (step_head_kernel:
+   D2's neighbour draw with D1's nuisance proposal beside it, one launch;
+   either part alone), D3 (the selection and commit:
+   select_commit_dense_kernel, select_commit_delta_kernel) and the step's
+   tail (step_tail_kernel: the l_t select on D3's score, D1's Metropolis
+   test and the cycle metrics n_contigs / mean_len, each part optional)
+   against their plain torch versions (core/mcmc.py, core/delta.py
+   ``*_plain``) on each EM-family path's own inputs, STEP_DRAWS random
+   draws a shape (after the 20k repeat set-up): the dense flagship (B =
+   65) and dense repeat (B = 130) paths (the true genome and its exploded
+   start, half the fragments repeat copies: the head with both parts, the
+   tail with all three), 4 tempered chains (the draw alone; the tail's
+   select and metrics, per-chain f_t), a copy-dense table's draw (15
+   extra copies of a bin, m = 80; and with 40 partners a bin: the keys
+   ranked through shared memory, 656 candidate entries), the 100k delta
+   path (M = 5), its 4
+   chains (M = 20) and the 20k repeat twin (M = 10) (the draw alone), the
+   runner's cycle end (4 chains' own parameters, the d_max cap: the
+   proposal alone, the test alone), and the tail at CAT_EDGE_N's genome
+   sizes (n = 1, 257, 2,049: its block reduction's edges); D3's cluster
+   (``ops/step_cuda.select_cluster``) at its edges: dense commits of n =
+   1, 257 and 2,049 fragments (K = 1, 2 and 8, block 0 looping) on random
+   scores, and the 100k step at bucket 4,096 on the tiered cut (K = 8, two
+   rows a thread). The head's ids and valid masks, test parameters,
+   in_support and the dense scorers' parameter row, the tail's l_t,
+   parameters, accept, n_contigs and mean_len bit for bit (NaN equal to
+   NaN; a quarter of the scores -inf or NaN); D3's drawn slot equal to the
+   plain version's except where the categorical draw decides and its two
+   best keys lie within SLOT_ULPS ulps of the best (the normaliser is
+   summed in another order; either of the two passes there, and those
+   draws are counted and printed), and wherever it agrees the new state
+   (dense) or the written rows (delta), score / d_sel, op, fb and n_over
+   bit for bit; a quarter of the calls with f_a blacklisted and, on the
+   delta paths, a quarter with every slot overflowing; each chain's valid
+   member rows distinct on the real steps' inputs (the delta commit's
+   contract); the launches every step kernel counted on the card equal to
+   the calls made, by kind. Each kernel timed at each path's shape as 3c
+   times C1 (device ms; the plain version's as graph replays) beside its
+   bound. Phases 4, 4b, 7 and 7b count one head and one D3 launch a step
+   (and one tail a step on the dense paths); 7g / 7h hold graph == eager
+   with the step kernels' launches equal by key.
 3e. MTM / MH step kernels E1 (the neighbour set, its discard mask, the
    largest contig id and the contig count: mtm_set_kernel), E2 (the
    forward weights, the slot draw and g*: mtm_draw_kernel) and E3 (the
@@ -512,10 +521,12 @@ written. "share" is the bound over the device time.
    fuses them in the jitted step) at the EM step's B = 5 and an MTM pass's
    B = 7, with phase 3c's other shapes under "by_shape" and each main
    path's launches under "by_path" (phases 4, 4b, 7, 7b, every graphed
-   cycle of 7g / 7h), summed into the top-level count. D1 (nuisance), D2
-   (neighbours) and D3 (select_commit) mirror graal_tpu/core/mcmc.py:297,
-   :144 and :178 (no Pallas kernel: XLA fuses them in the jitted step) at
-   the dense flagship's shape (D1 a proposal and its Metropolis test, D3
+   cycle of 7g / 7h), summed into the top-level count. step_head (D2's
+   draw with D1's proposal), step_tail (D1's Metropolis test with the l_t
+   select and the metrics) and select_commit (D3) mirror
+   graal_tpu/core/mcmc.py:144 (with :297), :368 (with :444-468) and :178
+   (no Pallas kernel: XLA fuses them in the jitted step) at the dense
+   flagship's shape (the head with both parts, the tail with all three, D3
    the dense entry), with phase 3d's other shapes under "by_shape" and each
    main path's launches under "by_path" (phases 4, 4b, 7, 7b and the
    graphed cycles of 7g / 7h). E1 (mtm_set), E2 (mtm_draw) and E3
@@ -615,13 +626,13 @@ CATALOGUE_PATHS = {}
 CAT_EDGE_N = (1, 257, 2049)  # 3c / 3d's edge genomes: one fragment; one past 1 and 8 blocks of 256
 CAT_EDGE_ROWS = 7           # 3c: one row a genome of the 257-fragment one, the whole state's maximum
 CAT_CALLS = {}              # calls made to C1 / C2 by kind since a phase reset their counters
-D3_CALLS = {}               # calls made to D3 by kind since a phase reset its counters
+STEP_CALLS = {}             # calls made to the step kernels by kind since a phase reset them
 STEP_DRAWS = 2000           # random draws a shape each step kernel is held to its plain version on
 STEP_CHUNK = 250            # draws of one compared dense selection (phase 3d)
 STEP_DELTA_CHUNK = 64       # draws of one compared delta commit, each into its own genome copy
 STEP_TIME_ITERS = 200
 SLOT_ULPS = 4               # the drawn slot's margin: its best two keys within 4 ulps of the best
-STEP_PATHS = {}             # each main path's D1-D3 launches by key (the kernels line)
+STEP_PATHS = {}             # each main path's step kernel launches by key (the kernels line)
 MOVE_DRAWS = 2000           # random draws a shape each MTM / MH kernel is held to its plain one on
 MOVE_PIVOTS = 250           # pivots of those draws (one forward pass scored a pivot)
 MOVE_TIME_ITERS = 200
@@ -1294,7 +1305,7 @@ def phase_main(device, n_bins=384):
     dense_main_checks(r, N_CYCLES)
     CATALOGUE_PATHS["dense_main"] = r["catalogue"]
     check(r["rows"] == {}, f"the dense main path launched G1-G3: {r['rows']}")
-    want_step_launches("dense main", r["step"], N_CYCLES * n, nuisance=True)
+    want_step_launches("dense main", r["step"], N_CYCLES * n)
     init_prev, init_next = derive_prev_next(r["state"])
     # every bin has 3 sub-fragments (orientable); nothing is skipped
     dist = dist_inter_genome(r["cur"], init_prev, init_next, np.ones(n, np.int32),
@@ -1431,7 +1442,7 @@ def phase_repeat_main(device, n_bins=384):
     dense_main_checks(r, REPEAT_CYCLES)
     CATALOGUE_PATHS["dense_repeat_main"] = r["catalogue"]
     check(r["rows"] == {}, f"the dense repeat main path launched G1-G3: {r['rows']}")
-    want_step_launches("dense repeat main", r["step"], REPEAT_CYCLES * r["n"], nuisance=True)
+    want_step_launches("dense repeat main", r["step"], REPEAT_CYCLES * r["n"])
     print(f"  n_contigs {int(r['cur'].n_contigs())}, active fragments "
           f"{int(r['cur'].activ.sum())}/{r['n']}")
     check_same_run(r, main_path_run(device, build, REPEAT_CYCLES))
@@ -4296,7 +4307,8 @@ def select_cluster(size):
 
 
 def step_wrapper():
-    """The step kernels' wrapper (D1-D3, launches keyed by kind)."""
+    """The step kernels' wrapper (the head, D3, the tail; launches keyed by
+    kind)."""
     from graal_tpu_torch.ops.step_cuda import STEP
 
     return STEP
@@ -4307,17 +4319,23 @@ def step_launches():
     return {str(k): v for k, v in step_wrapper().launches.by_key().items()}
 
 
-def want_step_launches(label, got, steps, nuisance=False, delta=False):
-    """Check a main path's D1-D3 launches: one neighbour draw and one
-    selection a step (the delta or the dense one), and with ``nuisance`` one
-    proposal and one Metropolis test a step. Records them for the kernels
+def want_step_launches(label, got, steps, delta=False):
+    """Check a main path's step kernel launches: one head and one selection
+    a step (the delta or the dense one), and on a dense path one tail a
+    step (with or without the nuisance step). Records them for the kernels
     line."""
-    want = {"neighbours": steps, "select_delta" if delta else "select_dense": steps}
-    if nuisance:
-        want.update(nuisance_propose=steps, nuisance_accept=steps)
+    want = {"step_head": steps, "select_delta" if delta else "select_dense": steps}
+    if not delta:
+        want["step_tail"] = steps
     print(f"  step kernel launches: {got} (one of each a step: {steps})")
     check(got == want, f"{label}: step kernel launches {got} != {want}")
     STEP_PATHS[label.replace(" ", "_")] = got
+
+
+def step_called(kind, k=1):
+    """Record ``k`` calls made to the step kernel ``kind`` (each one launch
+    that the kernel counts itself)."""
+    STEP_CALLS[kind] = STEP_CALLS.get(kind, 0) + int(k)
 
 
 def gumbel_noise(shape, gen, device):
@@ -4394,7 +4412,8 @@ def step_draw_inputs(state, nb, gen, frags=None):
 
 
 def check_neighbour_draws(label, state, nb, gen, n_draws=STEP_DRAWS, frags=None):
-    """D2 against its plain version on ``n_draws`` random (u, f_a) of
+    """The head's draw alone against its plain version on ``n_draws``
+    random (u, f_a) of
     ``state`` (fields (n,): one genome; (C, n): the draws shared out over
     the chains), each chain's draws in one call on a chains axis of its
     genome broadcast; and one draw alone through sample_neighbours. Half
@@ -4419,11 +4438,13 @@ def check_neighbour_draws(label, state, nb, gen, n_draws=STEP_DRAWS, frags=None)
         u = torch.rand((k, nb.pk.shape[1]), generator=gen, device=dev)
         st = GenomeState(*[x.expand(k, n) for x in one])
         ids, valid = step.neighbours(u, f_a, st.id_d, st.rep, nb, DELTA)
+        step_called("step_head")
         want = mcmc.sample_neighbours_plain(u, f_a, st, nb, DELTA)
         every = torch.ones(k, dtype=torch.bool, device=dev)
         err = max(err, same_rows(f"{label}, chain {c}", "ids", ids, want[0], every),
                   same_rows(f"{label}, chain {c}", "valid", valid, want[1], every))
         got = mcmc.sample_neighbours(u[0], f_a[0], one, nb, DELTA)
+        step_called("step_head", f_a.is_cuda)
         want = mcmc.sample_neighbours_plain(u[0], f_a[0], one, nb, DELTA)
         check(all(torch.equal(a, b) for a, b in zip(got, want)),
               f"{label}: one draw through sample_neighbours differs from the plain version")
@@ -4529,7 +4550,7 @@ def check_dense_tails(label, steps, blacklist, gen, n_draws=STEP_DRAWS):
             bl[f_a] = True
         fields, score, op, fb, sel = step.select_dense(st, flat, ll, ids_c, valid, f_a, gum,
                                                        f_t, bl, mcmc.THRESH_OVERFLOW)
-        D3_CALLS["select_dense"] = D3_CALLS.get("select_dense", 0) + 1
+        STEP_CALLS["select_dense"] = STEP_CALLS.get("select_dense", 0) + 1
         want, (w_score, w_op, w_fb), w_sel = mcmc.select_commit_dense_plain(
             st, GenomeState(*[x.reshape(c * sl, n) for x in flat]), ll, ids_c, valid, f_a,
             gum, f_t, bl)
@@ -4551,7 +4572,7 @@ def check_dense_tails(label, steps, blacklist, gen, n_draws=STEP_DRAWS):
                 blacklist)
         got, want = mcmc.select_commit_dense(*args), mcmc.select_commit_dense_plain(*args)
         # the public function launches D3 on a card only
-        D3_CALLS["select_dense"] = D3_CALLS.get("select_dense", 0) + s["ids"].is_cuda
+        STEP_CALLS["select_dense"] = STEP_CALLS.get("select_dense", 0) + s["ids"].is_cuda
         keys, n_pos, _ = mcmc.slot_keys(gum, s["ll"], s["valid"], 1.0)
         agree, close = slot_margin(f"{label}, one step through select_commit_dense",
                                    got[2].reshape(1), want[2].reshape(1), keys.reshape(1, -1),
@@ -4634,7 +4655,7 @@ def check_delta_tails(label, s, blacklist, gen, n_draws=STEP_DRAWS):
         d_sel, op, fb, n_over, sel = step.select_delta(
             dst, minis._asdict(), rows, rows_valid, dll, ids, valid, overflow, f_a, gum, f_t,
             bl, mcmc.THRESH_OVERFLOW)
-        D3_CALLS["select_delta"] = D3_CALLS.get("select_delta", 0) + 1
+        STEP_CALLS["select_delta"] = STEP_CALLS.get("select_delta", 0) + 1
         want, w_dsel, (w_op, w_fb, w_over), w_sel = delta.select_commit_delta_plain(
             st, minis, rows, rows_valid, dll, ids, valid, overflow, f_a, gum, f_t, bl,
             mcmc.THRESH_OVERFLOW)
@@ -4654,7 +4675,9 @@ def check_delta_tails(label, s, blacklist, gen, n_draws=STEP_DRAWS):
 
 def check_nuisance_moves(label, params, gen, n_draws=STEP_DRAWS, cap=None, log_nfpb=None,
                          l_ref=-1.0e5):
-    """D1 against nuisance_propose_plain / nuisance_accept_plain on
+    """The head's proposal alone and the tail's Metropolis test alone (what
+    ``make_nuisance_step`` and the runners' cycle end launch) against
+    nuisance_propose_plain / nuisance_accept_plain on
     ``n_draws`` draws (id_modif, eps, u; l_star around l_ref and a
     temperature) of the parameters ``params`` (one set, or one a chain: the
     draws cycle through the chains): the 5 test parameters, in_support and
@@ -4676,6 +4699,7 @@ def check_nuisance_moves(label, params, gen, n_draws=STEP_DRAWS, cap=None, log_n
     every = torch.ones(n_draws, dtype=torch.bool, device=dev)
     (c1, slope, d_max, fact, v_inter), ok, row = step.nuisance_propose(idm, eps, par, cap,
                                                                        log_nfpb)
+    step_called("step_head")
     got = par._replace(c1=c1, slope=slope, d_max=d_max, fact=fact, v_inter=v_inter)
     want, w_ok, w_row = mcmc.nuisance_propose_plain(idm, eps, par, cap, log_nfpb)
     diffs = {f: int((getattr(got, f) != getattr(want, f)).sum()) for f in
@@ -4692,6 +4716,7 @@ def check_nuisance_moves(label, params, gen, n_draws=STEP_DRAWS, cap=None, log_n
     for k, f_t in enumerate((0.8, 0.5 + 3.0 * torch.rand(n_draws, generator=gen,
                                                           device=dev))):
         out, l_out, acc = step.nuisance_accept(u, got, par, l_star, l_t, f_t, ok)
+        step_called("step_tail")
         w_out, w_l, w_acc = mcmc.nuisance_accept_plain(u, want, par, l_star, l_t, f_t, w_ok)
         for f, g, w in zip(RippeParams._fields, out, w_out):
             err = max(err, same_rows(f"{label}, accept {k}", f, g, w, every))
@@ -4700,6 +4725,7 @@ def check_nuisance_moves(label, params, gen, n_draws=STEP_DRAWS, cap=None, log_n
         check(0 < int(acc.sum()) < n_draws, f"{label}: accepts {int(acc.sum())}/{n_draws}")
     one = RippeParams(*[x[0] for x in par])
     got1 = mcmc.nuisance_propose(idm[0], eps[0], one, cap, log_nfpb)
+    step_called("step_head", dev.type == "cuda")
     want1 = mcmc.nuisance_propose_plain(idm[0], eps[0], one, cap, log_nfpb)
     check(all(bool((a == b) | (a != a)) for a, b in zip(got1[0], want1[0]))
           and bool(got1[1] == want1[1]), f"{label}: one proposal through nuisance_propose "
@@ -4707,25 +4733,195 @@ def check_nuisance_moves(label, params, gen, n_draws=STEP_DRAWS, cap=None, log_n
     return n_draws, diffs, err
 
 
-def step_bound(kind, c, m=0, n=0, f_max=0, n_top=10, mc=1, n_solve=0, n_rows=0):
+def tail_genomes(one, k, gen):
+    """``k`` genomes for the tail's metrics: ``one``'s, every third one
+    exploded, each with its own random activity."""
+    import torch
+    from graal_tpu_torch.core import mcmc
+    from graal_tpu_torch.core.state import GenomeState
+
+    dev, n = one.pos.device, one.n_frags
+    third = (torch.arange(k, device=dev) % 3 == 2)[:, None]
+    ex = mcmc.explode_genome(one)
+    st = GenomeState(*[torch.where(third, b.expand(k, n), a.expand(k, n))
+                       for a, b in zip(one, ex)])
+    return st._replace(activ=(torch.rand((k, n), generator=gen, device=dev) < 0.8).int())
+
+
+def check_tail(label, l_t, score, accept, tails):
+    """The tail against step_tail_plain on one call's inputs (``tails``
+    the genomes of its metrics or None), every output bit for bit. Returns
+    the largest difference measured."""
+    import torch
+    from graal_tpu_torch.core import mcmc
+    from graal_tpu_torch.core.model import RippeParams
+
+    metrics = None if tails is None else (tails.pos, tails.activ, tails.len_bp)
+    fields, l_out, acc, n_contigs, mean_len = step_wrapper().step_tail(l_t, score, accept,
+                                                                       metrics)
+    step_called("step_tail")
+    want = mcmc.step_tail_plain(l_t, score, accept, tails)
+    every = torch.ones(l_out.numel(), dtype=torch.bool, device=l_out.device)
+    outs = [("l_t", l_out, want.l_t), ("accepted", acc, want.accepted)]
+    if tails is not None:
+        outs += [("n_contigs", n_contigs, want.n_contigs), ("mean_len", mean_len, want.mean_len)]
+    if accept is not None:
+        outs += [(f"accepted {f}", g, w) for f, g, w in zip(RippeParams._fields, fields,
+                                                             want.params)]
+    return max(same_rows(label, name, g.reshape(-1), w.reshape(-1), every)
+               for name, g, w in outs)
+
+
+def tail_scores(k, gen, dev, l_ref):
+    """(l_t, a score) of ``k`` chains around l_ref, the scores of a
+    seventh of them -inf and of a tenth NaN (D3's score of a skipped step;
+    the select keeps l_t)."""
+    import torch
+
+    l_t = l_ref + torch.randn(k, generator=gen, device=dev)
+    score = l_t + torch.randn(k, generator=gen, device=dev)
+    score[torch.rand(k, generator=gen, device=dev) < 0.15] = -math.inf
+    score[torch.rand(k, generator=gen, device=dev) < 0.1] = math.nan
+    return l_t, score
+
+
+def check_head_tail(label, state, nb, params, gen, n_draws=STEP_DRAWS, frags=None,
+                    log_nfpb=None, nuisance=True, l_ref=-1.0e5):
+    """A dense step's head and tail against their plain versions on
+    ``n_draws`` draws of ``state`` (fields (n,): one genome; (C, n): the
+    draws shared out over the chains), each chain's draws in one call on a
+    chains axis, half the fragments from ``frags`` when given: the head's
+    draw and, with ``nuisance``, its proposal of ``params`` (one set, or
+    one a chain: the draws cycle through them) in one launch; then the
+    tail's l_t select (tail_scores), the Metropolis test of that proposal
+    (random temperatures) and the metrics of tail_genomes; every output bit
+    for bit (NaN equal to NaN). And one step of one genome through the
+    public functions step_head / step_tail. Returns (the draws compared,
+    the head's and the tail's largest difference measured)."""
+    import torch
+    from graal_tpu_torch.core import mcmc
+    from graal_tpu_torch.core.model import RippeParams
+    from graal_tpu_torch.core.state import GenomeState
+
+    dev = state.pos.device
+    n = state.n_frags
+    chains = [state] if state.pos.dim() == 1 else [GenomeState(*[x[c] for x in state])
+                                                   for c in range(state.pos.shape[0])]
+    k = -(-n_draws // len(chains))
+    c0 = 1 if params is None else params.fact.numel()
+    step = step_wrapper()
+    every = torch.ones(k, dtype=torch.bool, device=dev)
+    err_head = err_tail = 0.0
+    for c, one in enumerate(chains):
+        lab = f"{label}, chain {c}"
+        f_a = torch.randint(0, n, (k,), generator=gen, device=dev)
+        if frags is not None and len(frags):
+            f_a[::2] = frags[torch.randint(0, len(frags), (k,), generator=gen,
+                                           device=dev)][::2]
+        u = torch.rand((k, nb.pk.shape[1]), generator=gen, device=dev)
+        st = GenomeState(*[x.expand(k, n) for x in one])
+        nuis = None
+        if nuisance:
+            at = (torch.arange(k, device=dev) + c * k) % c0
+            par = RippeParams(*[x.reshape(-1).index_select(0, at) for x in params])
+            nuis = (torch.randint(0, 4, (k,), generator=gen, device=dev),
+                    torch.randn(k, generator=gen, device=dev), par, None, log_nfpb)
+        drawn, proposed = step.step_head((u, f_a, st.id_d, st.rep, nb, DELTA), nuis)
+        step_called("step_head")
+        w_drawn, w_prop = mcmc.step_head_plain(u, f_a, st, nb, DELTA, nuis)
+        err_head = max(err_head, same_rows(lab, "ids", drawn[0], w_drawn[0], every),
+                       same_rows(lab, "valid", drawn[1], w_drawn[1], every))
+        l_t, score = tail_scores(k, gen, dev, l_ref)
+        accept = None
+        if nuisance:
+            test = par._replace(**dict(zip(("c1", "slope", "d_max", "fact", "v_inter"),
+                                           proposed[0])))
+            for f in RippeParams._fields:
+                err_head = max(err_head, same_rows(lab, f"test {f}", getattr(test, f),
+                                                   getattr(w_prop[0], f), every))
+            err_head = max(err_head, same_rows(lab, "in_support", proposed[1], w_prop[1], every))
+            if log_nfpb is not None:
+                err_head = max(err_head, same_rows(lab, "parameter row", proposed[2], w_prop[2],
+                                                   every))
+            accept = (torch.rand(k, generator=gen, device=dev), test, par,
+                      l_t + 3.0 * torch.randn(k, generator=gen, device=dev),
+                      random_temperatures(k, gen, dev, c), proposed[1])
+        err_tail = max(err_tail, check_tail(lab, l_t, score, accept, tail_genomes(one, k, gen)))
+    # one step of one genome through the public functions
+    one = chains[0]
+    u, f = step_draw_inputs(one, nb, gen, frags)
+    nuis = None if not nuisance else (
+        torch.randint(0, 4, (), generator=gen, device=dev),
+        torch.randn((), generator=gen, device=dev),
+        RippeParams(*[x.reshape(-1)[0] for x in params]), None, log_nfpb)
+    got, want = mcmc.step_head(u, f, one, nb, DELTA, nuis), mcmc.step_head_plain(
+        u, f.long(), one, nb, DELTA, nuis)
+    step_called("step_head", dev.type == "cuda")
+    same = all(torch.equal(a, b) for a, b in zip(got[0], want[0]))
+    if nuisance:
+        same = same and all(bool((a == b) | (a != a)) for a, b in zip(got[1][0], want[1][0]))
+    check(same, f"{label}: one step through step_head differs from the plain version")
+    l1 = torch.tensor(l_ref, device=dev)
+    acc1 = None if not nuisance else (torch.rand((), generator=gen, device=dev), want[1][0],
+                                      nuis[2], l1 + 0.5, 1.0, want[1][1])
+    got, want = mcmc.step_tail(l1, l1 + 1.0, acc1, one), mcmc.step_tail_plain(l1, l1 + 1.0,
+                                                                            acc1, one)
+    step_called("step_tail", dev.type == "cuda")
+    check(all(torch.equal(a, b) for a, b in zip(got, want) if isinstance(a, torch.Tensor)),
+          f"{label}: one step through step_tail differs from the plain version")
+    return k * len(chains), err_head, err_tail
+
+
+def check_tail_edges(label, one, params, gen, n_draws=STEP_CHUNK):
+    """The tail at a genome size that its block reduction has an edge at:
+    ``n_draws`` genomes of ``one`` (tail_genomes), their l_t select and a
+    Metropolis test of parameters 1% off ``params``, against the plain
+    version bit for bit. Returns the largest difference measured."""
+    import torch
+    from graal_tpu_torch.core.model import RippeParams
+
+    dev = one.pos.device
+    par = RippeParams(*[x.reshape(1).expand(n_draws).contiguous() for x in params])
+    test = RippeParams(*[x * 1.01 for x in par])
+    l_t, score = tail_scores(n_draws, gen, dev, -1.0e5)
+    accept = (torch.rand(n_draws, generator=gen, device=dev), test, par,
+              l_t + torch.randn(n_draws, generator=gen, device=dev), 0.8,
+              torch.rand(n_draws, generator=gen, device=dev) < 0.8)
+    return check_tail(label, l_t, score, accept, tail_genomes(one, n_draws, gen))
+
+
+def step_bound(kind, c, m=0, n=0, f_max=0, n_top=10, mc=1, n_solve=0, n_rows=0, c_prop=0,
+               row=False, score=False, c_acc=0, f_t_read=False):
     """The least time of one call (bound()): bytes each input is read and
-    each output written once. D1 (propose + accept) also does the curve
-    evaluations that its output needs: one multisection solve (64 points x
-    5 passes, each ~16 FP32 and 4 special-function operations: two
-    exponentials and a power of two operations) for each of the ``n_solve``
-    chains whose id_modif needs one (the d_max proposal needs none), and a
-    chain's kuhn^-3 (a power) and Metropolis exponential once. D3's delta
-    entry reads the chosen slot's f_max row flags and, for each of the
-    ``n_rows`` valid rows it commits, the row index and the 8 fields, and
-    writes the 8 fields."""
+    each output written once. The head: ``c`` chains' draws (their keys'
+    pk / xk / u, f_a's bin and rep, the drawn partners' copies, the entries'
+    blacklist flags, ids and valid written) and ``c_prop`` chains'
+    proposals (the parameter row written only with ``row``, when
+    log_nfpb is given), with the curve evaluations their outputs need: one
+    multisection solve (64 points x 5 passes, each ~16 FP32 and 4
+    special-function operations: two exponentials and a power of two
+    operations) for each of the ``n_solve`` chains whose id_modif needs one
+    (the d_max proposal needs none), and a chain's kuhn^-3 (a power). The
+    tail: ``c`` chains' l_t (and ``score``), ``c_acc`` chains' Metropolis
+    tests (the 16 parameters, u, l* and in_support read, f_t too when it
+    is a tensor (``f_t_read``; a number is folded into the launch's
+    arguments), one exponential, the 8 parameters written; l_t is counted
+    once, above) and, with ``n``, the three int32
+    fields of each chain's n fragments read and two metrics written. D3's
+    delta entry reads the chosen slot's f_max row flags and, for each of
+    the ``n_rows`` valid rows it commits, the row index and the 8 fields,
+    and writes the 8 fields."""
     s = 13 * m
-    if kind == "nuisance":        # propose + accept
-        n_bytes = c * (8 * 4 + 8 + 4 + 5 * 4 + 1 + 10 * 4) + c * (16 * 4 + 4 * 4 + 1 + 8 * 4 + 5)
+    if kind == "step_head":
+        n_bytes = c * (n_top * 4 + 8 + 8 + 2 * n_top * 4 + (DELTA + 1) * mc * 4 + m + m * 5) \
+            + c_prop * (8 * 4 + 8 + 4 + 5 * 4 + 1 + 10 * 4 * row)
         return bound(n_bytes, fp32_ops=n_solve * 64 * 5 * 16,
-                     sfu_ops=n_solve * 64 * 5 * 4 + c * (2 + 1))
-    if kind == "neighbours":
-        n_bytes = c * (n_top * 4 + 8 + 8 + 2 * n_top * 4 + (DELTA + 1) * mc * 4 + m + m * 5)
-        return bound(n_bytes)
+                     sfu_ops=n_solve * 64 * 5 * 4 + c_prop)
+    if kind == "step_tail":
+        n_bytes = c * (4 + 4 * score + 4 + 1) \
+            + c_acc * (16 * 4 + 2 * 4 + 4 * f_t_read + 1 + 8 * 4) \
+            + (c * (3 * 4 * n + 8 + 4) if n else 0)
+        return bound(n_bytes, sfu_ops=c_acc)
     if kind == "select_dense":    # scores, noise, masks; the chosen candidate read, a state written
         n_bytes = c * (2 * s * 4 + m * 5 + 8 + 1 + 2 * 11 * 4 * n + 4 * 8)
         return bound(n_bytes)
@@ -4744,10 +4940,76 @@ def step_record(kind, fn, plain, b, **shape):
     return dict(with_share(t, b), kind=kind, **shape)
 
 
-def time_dense_step(kind, s, params, scorer, nb, blacklist, gen, cap=None, **shape):
-    """D1 (``kind`` "nuisance": propose and accept of the path's parameters,
-    the dense scorer's row) or D2 and D3 ("neighbours", "select_dense") at
-    one step's shape; each against its plain version."""
+def time_head(s, params, nb, gen, draw=True, cap=None, log_nfpb=None, **shape):
+    """The head at one step's shape (``s``: the step's ids and state, one
+    genome or a chains axis): the draw (``draw``) and, with ``params`` (one
+    set or one a chain), the proposal beside it, against step_head_plain
+    (the proposal alone: nuisance_propose_plain)."""
+    import torch
+    from graal_tpu_torch.core import mcmc
+    from graal_tpu_torch.core.state import GenomeState
+
+    step = step_wrapper()
+    ids, state = s["ids"], s["state"]
+    dev = ids.device
+    c = 1 if ids.dim() == 1 else ids.shape[0]
+    m = ids.shape[-1]
+    dr = nuis = None
+    if draw:
+        u = torch.rand((c, nb.pk.shape[1]), generator=gen, device=dev)
+        f_a = s["f_a"].reshape(c)
+        st = GenomeState(*[x.expand(c, -1) for x in state]) if state.pos.dim() == 1 else state
+        dr = (u, f_a, st.id_d, st.rep, nb, DELTA)
+    n_solve = c_prop = 0
+    if params is not None:
+        c_prop = max(c, params.fact.numel())
+        par = type(params)(*[x.reshape(-1).expand(c_prop).contiguous() for x in params])
+        idm = torch.randint(0, 4, (c_prop,), generator=gen, device=dev)
+        nuis = (idm, torch.randn(c_prop, generator=gen, device=dev), par, cap, log_nfpb)
+        n_solve = int((idm != 2).sum())
+
+    def plain():
+        if dr is None:
+            return mcmc.nuisance_propose_plain(*nuis)
+        return mcmc.step_head_plain(u, f_a, st, nb, DELTA, nuis)
+
+    b = step_bound("step_head", c if draw else 0, m=m, n_top=nb.pk.shape[1] if draw else 0,
+                   mc=nb.max_copies if draw else 0, n_solve=n_solve, c_prop=c_prop,
+                   row=log_nfpb is not None)
+    return step_record("step_head", lambda: step.step_head(dr, nuis), plain, b,
+                       C=max(c if draw else 0, c_prop), m=m if draw else 0, n_solve=n_solve,
+                       draw=draw, propose=nuis is not None, **shape)
+
+
+def time_tail(c, gen, dev, params=None, tails=None, score=True, f_t=1.0, **shape):
+    """The tail of ``c`` chains: the l_t select on a score (``score``), the
+    Metropolis test of parameters 1% off ``params`` (one set or one a
+    chain) when given, the metrics of ``tails`` ((c, n) genomes) when
+    given; against step_tail_plain."""
+    import torch
+    from graal_tpu_torch.core import mcmc
+
+    step = step_wrapper()
+    l_t, sc_ = tail_scores(c, gen, dev, -1.0e5)
+    sc_ = sc_ if score else None
+    accept = None
+    if params is not None:
+        par = type(params)(*[x.reshape(-1).expand(c).contiguous() for x in params])
+        accept = (torch.rand(c, generator=gen, device=dev), type(params)(*[x * 1.01 for x in par]),
+                  par, l_t + torch.randn(c, generator=gen, device=dev), f_t,
+                  torch.ones(c, dtype=torch.bool, device=dev))
+    metrics = None if tails is None else (tails.pos, tails.activ, tails.len_bp)
+    n = 0 if tails is None else tails.n_frags
+    b = step_bound("step_tail", c, n=n, score=score, c_acc=c if accept else 0,
+                   f_t_read=isinstance(f_t, torch.Tensor))
+    return step_record("step_tail", lambda: step.step_tail(l_t, sc_, accept, metrics),
+                       lambda: mcmc.step_tail_plain(l_t, sc_, accept, tails), b, C=c, n=n,
+                       score=score, accept=accept is not None, metrics=tails is not None,
+                       **shape)
+
+
+def time_select_dense(s, blacklist, gen, **shape):
+    """D3's dense entry at one step's shape against its plain version."""
     import torch
     from graal_tpu_torch.core import mcmc
     from graal_tpu_torch.core.candidates import N_CANDIDATES
@@ -4759,48 +5021,18 @@ def time_dense_step(kind, s, params, scorer, nb, blacklist, gen, cap=None, **sha
     single = ids.dim() == 1
     c = 1 if single else ids.shape[0]
     m = ids.shape[-1]
-    if kind == "nuisance":
-        lift = (lambda x: x) if params.fact.dim() else (lambda x: x.reshape(1))
-        par = type(params)(*[lift(x) for x in params])
-        idm = torch.randint(0, 4, (c,), generator=gen, device=dev)
-        eps = torch.randn(c, generator=gen, device=dev)
-        u = torch.rand(c, generator=gen, device=dev)
-        l_t = torch.full((c,), -1.0e5, device=dev)
-        l_star = l_t + 1.0
-        nfpb = getattr(scorer, "log_nfpb", None)
-
-        def fn():
-            (c1, sl, dm, fa, v), ok, _ = step.nuisance_propose(idm, eps, par, cap, nfpb)
-            test = par._replace(c1=c1, slope=sl, d_max=dm, fact=fa, v_inter=v)
-            step.nuisance_accept(u, test, par, l_star, l_t, 1.0, ok)
-
-        def plain():
-            test, ok, _ = mcmc.nuisance_propose_plain(idm, eps, par, cap, nfpb)
-            mcmc.nuisance_accept_plain(u, test, par, l_star, l_t, 1.0, ok)
-
-        n_solve = int((idm != 2).sum())
-        return step_record(kind, fn, plain, step_bound(kind, c, n_solve=n_solve), C=c,
-                           n_solve=n_solve, **shape)
-    if kind == "neighbours":
-        u = torch.rand((c, nb.pk.shape[1]), generator=gen, device=dev)
-        f_a = s["f_a"].reshape(c)
-        st = GenomeState(*[x.expand(c, -1) for x in state]) if single else state
-        return step_record(
-            kind, lambda: step.neighbours(u, f_a, st.id_d, st.rep, nb, DELTA),
-            lambda: mcmc.sample_neighbours_plain(u, f_a, st, nb, DELTA),
-            step_bound(kind, c, m=m, n_top=nb.pk.shape[1], mc=nb.max_copies), C=c, m=m,
-            **shape)
     lift = (lambda x: x[None]) if single else (lambda x: x)
     st = GenomeState(*[lift(x) for x in state])
     flat = GenomeState(*[x.reshape(c, m * N_CANDIDATES, -1) for x in s["flat"]])
     ll, idc, valid, f_a = lift(s["ll"]), lift(ids), lift(s["valid"]), s["f_a"].reshape(c)
     gum = gumbel_noise((c, m * N_CANDIDATES), gen, dev)
     return step_record(
-        kind, lambda: step.select_dense(st, flat, ll, idc, valid, f_a, gum, 1.0, blacklist,
-                                        mcmc.THRESH_OVERFLOW),
+        "select_dense", lambda: step.select_dense(st, flat, ll, idc, valid, f_a, gum, 1.0,
+                                                  blacklist, mcmc.THRESH_OVERFLOW),
         lambda: mcmc.select_commit_dense_plain(st, s["flat"], ll, idc, valid, f_a, gum, 1.0,
                                                blacklist),
-        step_bound(kind, c, m=m, n=state.n_frags), C=c, m=m, n=state.n_frags, **shape)
+        step_bound("select_dense", c, m=m, n=state.n_frags), C=c, m=m, n=state.n_frags,
+        **shape)
 
 
 def time_delta_step(s, blacklist, gen, **shape):
@@ -4828,14 +5060,16 @@ def time_delta_step(s, blacklist, gen, **shape):
 
 
 def phase_step_kernels(device, sc, rsc, n_bins=384):
-    """3d. The step kernels D1 (nuisance move), D2 (neighbour draw) and D3
-    (selection and commit) against their plain versions on each EM-family
-    path's own inputs (the dense flagship, the dense repeat twin, 4
-    tempered chains, the copy-dense table's draw, the 100k delta path, its
-    4 chains, the runner's cycle end with the chains and the cap, the 20k
-    repeat twin), ~STEP_DRAWS random draws a shape, the drawn slot under
-    the margin rule; then each timed against its plain version at the
-    path's shape."""
+    """3d. The step kernels against their plain versions on each EM-family
+    path's own inputs: the head (draw and proposal) and the tail (l_t,
+    Metropolis test, metrics) on the dense flagship and the dense repeat
+    twin, the draw alone and the tail's select and metrics on 4 tempered
+    chains, the draw alone on the copy-dense table, the 100k delta path,
+    its 4 chains and the 20k repeat twin, the proposal alone and the test
+    alone at the runner's cycle end with the chains and the cap, the tail at
+    the edge genome sizes; D3 on every path and at its cluster's edges;
+    ~STEP_DRAWS random draws a shape, the drawn slot under the margin rule;
+    then each timed against its plain version at the path's shape."""
     import torch
     from graal_tpu_torch.core import delta, delta_repeats, mcmc
     from graal_tpu_torch.core.state import GenomeState
@@ -4843,19 +5077,26 @@ def phase_step_kernels(device, sc, rsc, n_bins=384):
     from graal_tpu_torch.ops.likelihood_cuda import make_dense_scorer
 
     gen = torch.Generator(device=device).manual_seed(SEED + 40)
-    reset_counted(step_wrapper(), D3_CALLS)
-    print(f"step kernels D1 (nuisance), D2 (neighbours), D3 (select_commit) vs plain, "
-          f"{STEP_DRAWS} draws a shape; slots equal outside {SLOT_ULPS} ulps of the best key")
+    reset_counted(step_wrapper(), STEP_CALLS)
+    print(f"step kernels: the head (draw, proposal), D3 (select_commit) and the tail (l_t, "
+          f"acceptance, metrics) vs plain, {STEP_DRAWS} draws a shape; slots equal outside "
+          f"{SLOT_ULPS} ulps of the best key")
     rec, close = {}, {}
     nuis_diffs = {}
     # the largest difference measured against the plain versions, by kernel
-    errs = dict(nuisance=0.0, neighbours=0.0, select_commit=0.0)
+    errs = dict(step_head=0.0, step_tail=0.0, select_commit=0.0)
 
     def measured(kernel, err):
         errs[kernel] = max(errs[kernel], err)
 
     def neighbour_draws(*args, **kw):
-        measured("neighbours", check_neighbour_draws(*args, **kw)[1])
+        measured("step_head", check_neighbour_draws(*args, **kw)[1])
+
+    def heads_tails(label, *args, **kw):
+        draws, e_head, e_tail = check_head_tail(label, *args, **kw)
+        measured("step_head", e_head)
+        measured("step_tail", e_tail)
+        print(f"  {label}: {draws} draws, head and tail bit for bit")
 
     def note(name, got):
         draws, under, err = got
@@ -4870,50 +5111,60 @@ def phase_step_kernels(device, sc, rsc, n_bins=384):
         scorer = make_dense_scorer(table, obs, device)
         start = mcmc.explode_genome(state)
         copies = torch.nonzero(state.rep == 1).reshape(-1)
-        neighbour_draws(f"{name} D2", state, nb, gen, frags=copies)
-        neighbour_draws(f"{name} D2, exploded", start, nb, gen, frags=copies)
+        for label, st in ((name, state), (f"{name}, exploded", start)):
+            heads_tails(f"{label} head / tail", st, nb, params, gen, n_draws=STEP_DRAWS // 2,
+                        frags=copies, log_nfpb=scorer.log_nfpb)
         steps = (dense_steps(state, nb, scorer, params, gen, frags=copies)
                  + dense_steps(start, nb, scorer, params, gen, frags=copies))
         note(f"{name} D3", check_dense_tails(f"{name} D3", steps, nb.blacklist, gen))
-        n_d, nuis_diffs[name], err = check_nuisance_moves(f"{name} D1", params, gen,
-                                                          log_nfpb=scorer.log_nfpb)
-        measured("nuisance", err)
-        print(f"  {name} D1: {n_d} moves, test parameters bit for bit")
+        n_d, nuis_diffs[name], err = check_nuisance_moves(f"{name} proposal / test alone",
+                                                          params, gen, log_nfpb=scorer.log_nfpb)
+        measured("step_head", err)
+        measured("step_tail", err)
+        print(f"  {name} proposal / test alone: {n_d} moves, bit for bit")
         dense_cases.append((name, steps[0], params, scorer, nb))
-    # D3's partition at its edges: n = 1, 257 and 2,049 (K = 1, 2, 8: a
-    # second block of one fragment; block 0 looping to fragment 2,048),
-    # random scores
+    # D3's partition and the tail's reduction at their edges: n = 1, 257 and
+    # 2,049 (D3: K = 1, 2, 8, a second block of one fragment, block 0 looping
+    # to fragment 2,048; the tail: one fragment, 256 threads' second round)
     for n_cut in CAT_EDGE_N:
         st = prefix_genome(sc["truth"], n_cut)
         note(f"n = {n_cut} D3", check_dense_tails(
             f"n = {n_cut} D3 (K = {select_cluster(n_cut)})",
             random_dense_steps(st, gen), torch.zeros(n_cut, dtype=torch.bool, device=device),
             gen))
-    # 4 tempered chains of the flagship (B1 at B = 260, per-chain f_t)
+        measured("step_tail", check_tail_edges(f"n = {n_cut} tail", st, sc["params"], gen))
+        print(f"  n = {n_cut} tail: {STEP_CHUNK} genomes bit for bit")
+    # 4 tempered chains of the flagship (B1 at B = 260, per-chain f_t): the
+    # draw alone, the tail's select and metrics
     state, table, params, obs, nb = problem(n_bins=n_bins, device=device)
     scorer = make_dense_scorer(table, obs, device)
     chains = GenomeState(*[torch.stack(xs) for xs in zip(
         state, mcmc.explode_genome(state), circularised(state), mcmc.explode_genome(state))])
-    neighbour_draws("tempered D2", chains, nb, gen)
+    heads_tails("tempered head / tail", chains, nb, None, gen, nuisance=False)
+    neighbour_draws("tempered draw", chains, nb, gen)
     t_steps = dense_steps(chains, nb, scorer, params, gen, chains=True)
     note("tempered D3", check_dense_tails("tempered D3", t_steps, nb.blacklist, gen))
     # the copy-dense table: 15 extra copies of a bin (max_copies 16, m = 80)
     cd_state, _, _, _, cd_nb = copy_dense_problem(device)
     check(cd_nb.max_copies == 16, f"copy-dense table: max_copies {cd_nb.max_copies}")
     copies = torch.nonzero(cd_state.rep == 1).reshape(-1)
-    neighbour_draws("copy-dense D2 (m = 80)", cd_state, cd_nb, gen, frags=copies)
+    neighbour_draws("copy-dense draw (m = 80)", cd_state, cd_nb, gen, frags=copies)
+    # and with 40 partners a bin: the keys ranked through shared memory, 41 x
+    # 16 candidate entries, 21 a lane
+    neighbour_draws("copy-dense draw, n_top 40", cd_state,
+                    copy_dense_problem(device, n_top=40)[4], gen, frags=copies)
     # the delta paths: 100k (M = 5), 4 chains (M = 20)
     runner = sc["runner"]
     scorer = delta.make_delta_scorer(sc["table"], None, F_MAX, sobs=sc["sobs"])
     shuf = sc["shuf"]
-    neighbour_draws("100k D2", shuf, runner.nb, gen)
+    neighbour_draws("100k draw", shuf, runner.nb, gen)
     d100 = delta_steps(scorer, GenomeState(*[x[None] for x in shuf]), runner.nb, sc["params"],
                        delta.extract_rows_union, gen)
     note("100k delta D3", check_delta_tails("100k delta D3 (M = 5)", d100, runner.nb.blacklist,
                                             gen))
     states = chain_starts(sc)
     pc = chain_params(sc["params"])
-    neighbour_draws("4 chains D2", states, runner.nb, gen)
+    neighbour_draws("4 chains draw", states, runner.nb, gen)
     d4 = delta_steps(scorer, states, runner.nb, pc, delta.extract_rows_union, gen)
     note("4 chains D3", check_delta_tails("4 chains D3 (M = 20)", d4, runner.nb.blacklist, gen))
     # the delta commit over a cluster: bucket 4,096 (K = 8, 2 rows a thread)
@@ -4925,43 +5176,50 @@ def phase_step_kernels(device, sc, rsc, n_bins=384):
     k_top = select_cluster(TOP_F_MAX)
     note(f"100k D3 at {TOP_F_MAX}", check_delta_tails(
         f"100k D3 at {TOP_F_MAX} (M = 5, K = {k_top})", d_top, runner.nb.blacklist, gen))
-    # the cycle end: 4 chains' own parameters, the cap, per-chain f_t
+    # the cycle end: 4 chains' own parameters, the cap, per-chain f_t (the
+    # proposal alone, the test alone)
     cap = runner.max_covered_d_max
+    cap = None if cap == float("inf") else cap
     l_ref = float(runner.chains_anchor_fn()(states, pc)[0])
     n_d, nuis_diffs["cycle_end"], err = check_nuisance_moves(
-        "cycle end D1 (4 chains, cap)", pc, gen, cap=None if cap == float("inf") else cap,
-        l_ref=l_ref)
-    measured("nuisance", err)
-    print(f"  cycle end D1: {n_d} moves of {CHAINS} chains' parameters, cap {cap}")
+        "cycle end proposal / test (4 chains, cap)", pc, gen, cap=cap, l_ref=l_ref)
+    measured("step_head", err)
+    measured("step_tail", err)
+    print(f"  cycle end: {n_d} moves of {CHAINS} chains' parameters, cap {cap}")
     # the 20k repeat twin (the repeat engine v2, extract_rows_each, M = 10)
     engine = delta_repeats.make_repeat_delta_scorer_v2(rsc["table"], F_MAX, rsc["sobs"],
                                                        rsc["shuf"].rep)
     copies = torch.nonzero(rsc["shuf"].rep == 1).reshape(-1)
-    neighbour_draws("20k repeat D2", rsc["shuf"], rsc["runner"].nb, gen, frags=copies)
+    neighbour_draws("20k repeat draw", rsc["shuf"], rsc["runner"].nb, gen, frags=copies)
     d20 = delta_steps(engine, GenomeState(*[x[None] for x in rsc["shuf"]]), rsc["runner"].nb,
                       rsc["params"], delta.extract_rows_each, gen, f_as=copies[:1].long())
     note("20k repeat D3", check_delta_tails("20k repeat D3 (M = 10)", d20,
                                             rsc["runner"].nb.blacklist, gen))
-    print(f"  D1-D3 equal to their plain versions; drawn slots under the margin {close}; "
-          f"test parameters that differ {nuis_diffs}; largest differences measured {errs}")
-    check_counted("3d D3", step_wrapper(), D3_CALLS)
+    print(f"  the head, D3 and the tail equal to their plain versions; drawn slots under the "
+          f"margin {close}; test parameters that differ {nuis_diffs}; largest differences "
+          f"measured {errs}")
+    check_counted("3d", step_wrapper(), STEP_CALLS)
     # times at each path's shape
     for name, s, d_params, d_scorer, d_nb in dense_cases:
-        for kind in ("nuisance", "neighbours", "select_dense"):
-            rec[f"{kind}_{name}"] = time_dense_step(kind, s, d_params, d_scorer, d_nb,
-                                                    d_nb.blacklist, gen, path=name)
-    for kind in ("neighbours", "select_dense"):
-        rec[f"{kind}_tempered"] = time_dense_step(kind, t_steps[0], None, None, nb,
-                                                  nb.blacklist, gen, path="tempered")
-    rec["nuisance_cycle_end"] = time_dense_step(
-        "nuisance", dict(ids=d4["ids"], state=states), pc, None, runner.nb, None, gen,
-        cap=None if cap == float("inf") else cap, path="cycle_end")
+        rec[f"step_head_{name}"] = time_head(s, d_params, d_nb, gen, log_nfpb=d_scorer.log_nfpb,
+                                             path=name)
+        rec[f"select_dense_{name}"] = time_select_dense(s, d_nb.blacklist, gen, path=name)
+        rec[f"step_tail_{name}"] = time_tail(1, gen, device, params=d_params,
+                                             tails=tail_genomes(s["state"], 1, gen), path=name)
+    rec["step_head_tempered"] = time_head(t_steps[0], None, nb, gen, path="tempered")
+    rec["select_dense_tempered"] = time_select_dense(t_steps[0], nb.blacklist, gen,
+                                                     path="tempered")
+    rec["step_tail_tempered"] = time_tail(CHAINS, gen, device, tails=chains,
+                                          path="tempered")
+    rec["step_head_cycle_end"] = time_head(dict(ids=d4["ids"], state=states), pc, runner.nb,
+                                           gen, draw=False, cap=cap, path="cycle_end")
+    rec["step_tail_cycle_end"] = time_tail(CHAINS, gen, device, params=pc, score=False,
+                                           path="cycle_end")
     for name, s, nbt in (("100k", d100, runner.nb), ("chains_100k", d4, runner.nb),
                          (f"100k_{TOP_F_MAX}", d_top, runner.nb),
                          ("repeat_20k", d20, rsc["runner"].nb)):
-        rec[f"neighbours_{name}"] = time_dense_step(
-            "neighbours", dict(ids=s["ids"], state=s["states"], f_a=s["f_a"]), None, None, nbt,
-            None, gen, path=name)
+        rec[f"step_head_{name}"] = time_head(
+            dict(ids=s["ids"], state=s["states"], f_a=s["f_a"]), None, nbt, gen, path=name)
         rec[f"select_delta_{name}"] = time_delta_step(s, nbt.blacklist, gen, path=name)
     for name, r in rec.items():
         print(f"  {name}: C = {r['C']}: {r['device_ms']:.4f} device ms ({r['ms']:.4f} as "
@@ -4970,10 +5228,11 @@ def phase_step_kernels(device, sc, rsc, n_bins=384):
     return dict(records=rec, close=close, nuisance_diffs=nuis_diffs, errs=errs)
 
 
-def copy_dense_problem(device, n_bins=48, copies=15):
+def copy_dense_problem(device, n_bins=48, copies=15, n_top=10):
     """A genome over ``n_bins`` bins with ``copies`` extra copies of bin 7
     (max_copies 16: a step's m = 80 neighbour slots), its contacts and
-    neighbour table; every fragment of bin 7 flagged rep."""
+    neighbour table of ``n_top`` partners a bin; every fragment of bin 7
+    flagged rep."""
     import numpy as np
     import torch
     from graal_tpu_torch.core import mcmc
@@ -4991,7 +5250,8 @@ def copy_dense_problem(device, n_bins=48, copies=15):
                l_cont_bp=np.minimum(per, n - (np.arange(n) // per) * per) * 1000,
                ori=np.ones(n), rep=(id_d == 7).astype(np.int32), activ=np.ones(n), id_d=id_d)
     state = GenomeState.from_soa(soa, device=device)
-    nb = mcmc.build_neighbour_table(m, id_d, n, blacklisted=[3, n - 1], device=device)
+    nb = mcmc.build_neighbour_table(m, id_d, n, blacklisted=[3, n - 1], n_top=n_top,
+                                    device=device)
     return state, None, None, None, nb
 
 
@@ -5003,7 +5263,7 @@ def phase_step_top(sc):
     from graal_tpu_torch.core.state import GenomeState
 
     gen = torch.Generator(device=sc["truth"].pos.device).manual_seed(SEED + 42)
-    reset_counted(step_wrapper(), D3_CALLS)
+    reset_counted(step_wrapper(), STEP_CALLS)
     runner = sc["runner"]
     scorer = delta.make_delta_scorer(sc["table"], None, TOP_TIERS[1], sobs=sc["sobs"])
     states = GenomeState(*[x.expand(CHAINS, -1).contiguous() for x in sc["truth"]])
@@ -5011,7 +5271,7 @@ def phase_step_top(sc):
                     delta.extract_rows_union, gen)
     draws, under, err = check_delta_tails(f"{CHAINS} chains D3 at {TOP_TIERS[1]} (M = 20)", s,
                                           runner.nb.blacklist, gen)
-    check_counted("3d top D3", step_wrapper(), D3_CALLS)
+    check_counted("3d top", step_wrapper(), STEP_CALLS)
     rec = time_delta_step(s, runner.nb.blacklist, gen, path=f"chains_{TOP_TIERS[1]}")
     print(f"  {CHAINS} chains at bucket {TOP_TIERS[1]}: {draws} draws, {under} under the "
           f"margin, largest difference {err}; {rec['device_ms']:.4f} device ms, plain "
@@ -6880,13 +7140,13 @@ def phase_graphs(device, sc, rsc):
     out["repeat_delta_20k"] = graph_vs_eager(f"20k repeat delta path, f_max {F_MAX}",
                                              *delta_graph_case(rsc))
     # one C1 call a step: 2 cycles of the flagship's 384 fragments, 256 + 128 delta steps;
-    # one D2 and one D3 launch a step, and on the dense path one D1 pair
+    # one head and one D3 launch a step, and on the dense path one tail
     for name, steps in (("dense_flagship", 2 * 384), ("delta_100k", MAIN_STEPS + 128),
                         ("chains_100k", MAIN_STEPS + 128), ("repeat_delta_20k", MAIN_STEPS + 128)):
         got = out[name]["graph"]["by_key"][-1]
         check(got == {"em": steps}, f"{name}: C1 launches {got} != one a step ({steps})")
         want_step_launches(f"graph {name}", out[name]["graph"]["by_key"][-2], steps,
-                           nuisance=name == "dense_flagship", delta=name != "dense_flagship")
+                           delta=name != "dense_flagship")
     catalogue_paths(out)
     corr_paths(out, {"repeat_delta_20k": MAIN_STEPS + 128})
     rows_paths(out, {name: MAIN_STEPS + 128
@@ -7114,7 +7374,8 @@ def phase_graphs_samplers(device, sc, rsc):
         f"tempered flagship (B1 at B = 260), {CHAINS} chains",
         *tempered_graph_case(device), sync_error=True)
     launched(out["tempered_flagship"], [{str((260, k)): steps},
-                                        {"neighbours": steps, "select_dense": steps},
+                                        {"step_head": steps, "select_dense": steps,
+                                         "step_tail": steps},
                                         {"em": steps}], "tempered")
     STEP_PATHS["graph_tempered_flagship"] = out["tempered_flagship"]["graph"]["by_key"][1]
     for variant in ("mtm", "mh"):
@@ -7145,7 +7406,7 @@ def phase_graphs_samplers(device, sc, rsc):
     out["cycle_end_100k"] = graph_vs_eager(
         "100k ScaleRunner.run cycle end (re-anchor + nuisance step)",
         *cycle_end_graph_case(sc), sync_error=True)
-    launched(out["cycle_end_100k"], [{"nuisance_propose": 4, "nuisance_accept": 4}],
+    launched(out["cycle_end_100k"], [{"step_head": 4, "step_tail": 4}],
              "cycle end")
     STEP_PATHS["graph_cycle_end_100k"] = out["cycle_end_100k"]["graph"]["by_key"][0]
     io_paths(out, {"cycle_end_100k": (4, 0)})
@@ -7197,30 +7458,32 @@ def catalogue_records(catalogue):
 
 
 def step_records(step):
-    """The kernels line's entries of D1 (nuisance), D2 (neighbours) and D3
-    (select_commit): the dense flagship's numbers (D1: a proposal and its
-    Metropolis test; D3: the dense entry), the other shapes of phase 3d
-    under "by_shape", and under "by_path" each main path's launches
-    counted on the card (phases 4, 4b, 7, 7b and the graphed cycles of 7g
-    / 7h), whose sum is the top-level count; "max_abs_err" the largest
-    difference from the plain version that phase 3d measured on the
-    compared draws of every shape; "close" the draws of each shape whose
-    two best keys lay within SLOT_ULPS ulps (either slot passes there, and
-    the draw is compared only where the slots agree)."""
+    """The kernels line's entries of the step's head (step_head: D2's draw
+    with D1's proposal), its tail (step_tail: D1's Metropolis test with the
+    l_t select and the metrics) and D3 (select_commit): the dense
+    flagship's numbers (the head with both parts, the tail with all three,
+    D3's dense entry), the other shapes of phase 3d under "by_shape", and
+    under "by_path" each main path's launches counted on the card (phases
+    4, 4b, 7, 7b and the graphed cycles of 7g / 7h), whose sum is the
+    top-level count; "max_abs_err" the largest difference from the plain
+    version that phase 3d measured on the compared draws of every shape;
+    "close" the draws of each shape whose two best keys lay within
+    SLOT_ULPS ulps (either slot passes there, and the draw is compared only
+    where the slots agree)."""
     from graal_tpu_torch.ops.step_cuda import GROUPS
 
     rec = step["records"]
     out = []
-    for name, line, flagship in (("nuisance", 297, "nuisance_dense_flagship"),
-                                 ("neighbours", 144, "neighbours_dense_flagship"),
+    for name, line, flagship in (("step_head", 144, "step_head_dense_flagship"),
+                                 ("step_tail", 368, "step_tail_dense_flagship"),
                                  ("select_commit", 178, "select_dense_dense_flagship")):
         kinds = GROUPS[name]
         paths = {path: sum(by_key.get(k, 0) for k in kinds)
                  for path, by_key in STEP_PATHS.items()}
         paths = {k: v for k, v in paths.items() if v}
         check(paths, f"no main path launched the {name} kernel")
-        shapes = {k: v for k, v in rec.items() if k != flagship and k.split("_")[0] in
-                  {kd.split("_")[0] for kd in kinds}}
+        shapes = {k: v for k, v in rec.items()
+                  if k != flagship and any(k.startswith(kd + "_") for kd in kinds)}
         out.append(kernel_record(name, "step.cu", f"graal_tpu/core/mcmc.py:{line}",
                                  sum(paths.values()), dict(
                                      rec[flagship], max_abs_err=step["errs"][name],
@@ -7276,7 +7539,8 @@ def kernels_line(dense, dense_launches, repeat, repeat_launches, delta, mini_lau
     (phase 11e) are the main paths at the top tiers, run_top_R and
     run_chains_top_R under "by_path", whose launches join the top-level
     count too. ``catalogue`` (phase 3c) gives C1's and C2's entries
-    (:func:`catalogue_records`), ``step`` (phase 3d) D1's, D2's and D3's
+    (:func:`catalogue_records`), ``step`` (phase 3d) the head's, the tail's
+    and D3's
     (:func:`step_records`), ``move`` (phase 3e) E1's, E2's and E3's
     (:func:`move_records`)."""
     c = cli_runs
@@ -7388,7 +7652,7 @@ def main():
     sc = phase("set-up 100k", scale_setup, device)
     catalogue = phase("3c C1 C2", phase_catalogue, device, sc)
     rsc = phase("set-up 20k repeat", scale_repeat_setup, device)
-    step = phase("3d D1 D2 D3", phase_step_kernels, device, sc, rsc)
+    step = phase("3d head D3 tail", phase_step_kernels, device, sc, rsc)
     move = phase("3e E1 E2 E3", phase_move_kernels, device, sc, rsc)
     phase("3f F1 F2", phase_corr_kernels, device, rsc)
     phase("3g G1 G2 G3", phase_rows_kernels, device, sc, rsc)

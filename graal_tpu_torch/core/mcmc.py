@@ -12,13 +12,17 @@ The loop never reads a device value on the host: indices, scores and
 parameters stay tensors, and decisions are ``torch.where`` selects. The
 only host syncs are where a caller reads the cycle's metrics.
 
-On a card the step's scalar and control work runs on hand-written kernels
-(``ops.step_cuda``, ``csrc/step.cu``): the neighbour draw
-(:func:`sample_neighbours`, D2), the selection and commit
-(:func:`select_commit_dense`, D3) and the nuisance move
-(:func:`nuisance_propose` and :func:`nuisance_accept`, D1). Each public
-function sends tensors on a card to its kernel and any others to its plain
-version beside it (``*_plain``), which the kernels are held to.
+On a card the step's scalar and control work runs on three hand-written
+kernels (``ops.step_cuda``, ``csrc/step.cu``): the step's head
+(:func:`step_head`: the neighbour draw, D2, with the nuisance proposal,
+D1, beside it), the selection and commit (:func:`select_commit_dense`,
+D3) and the step's tail (:func:`step_tail`: the l_t select, the nuisance
+Metropolis test and the cycle metrics). The draw and the proposal alone
+(:func:`sample_neighbours`, :func:`nuisance_propose`) are the head with
+the other part off, the test alone (:func:`nuisance_accept`) the tail.
+Each public function sends tensors on a card to its kernel and any others
+to its plain version beside it (``*_plain``), which the kernels are held
+to.
 
 Randomness: every stochastic function takes either a ``torch.Generator``
 or its random inputs as tensors (:class:`StepDraws`), so that tests can
@@ -217,8 +221,8 @@ def sample_neighbours(u, f_a, state: GenomeState, nb: NeighbourTable,
     With a leading chains axis (``u`` (C, n_top), ``f_a`` (C,), ``state``
     fields (C, n)) every chain is sampled at once, row c as chain c alone.
 
-    :func:`sample_neighbours_plain`'s result, drawn by kernel D2 when the
-    state is on a card."""
+    :func:`sample_neighbours_plain`'s result, drawn by the head kernel
+    (the draw alone) when the state is on a card."""
     if isinstance(u, torch.Generator):
         u = torch.rand(nb.pk.shape[1], generator=u, device=u.device)
     f_a = torch.as_tensor(f_a, device=state.pos.device).long()
@@ -229,6 +233,43 @@ def sample_neighbours(u, f_a, state: GenomeState, nb: NeighbourTable,
 
 def _neighbours_on_card(u, f_a, state: GenomeState, nb: NeighbourTable, delta: int):
     return STEP.neighbours(u, f_a, state.id_d, state.rep, nb, delta)
+
+
+def step_head(u, f_a, state: GenomeState, nb: NeighbourTable, delta: int, nuisance=None):
+    """The step's head: the neighbour draw of :func:`sample_neighbours`
+    (``u`` a tensor) and, with ``nuisance`` = (id_modif, eps, params,
+    d_max_cap, log_nfpb), the nuisance proposal of :func:`nuisance_propose`
+    beside it (it reads only the parameters and its draws, not the state
+    the step commits). Returns ((ids, valid), (test_params, in_support,
+    row) or None).
+
+    :func:`step_head_plain`'s result, by one launch of the head kernel
+    when the state is on a card."""
+    f_a = torch.as_tensor(f_a, device=state.pos.device).long()
+    if state.pos.device.type == "cuda":
+        return _head_on_card(u, f_a, state, nb, delta, nuisance)
+    return step_head_plain(u, f_a, state, nb, delta, nuisance)
+
+
+def _head_on_card(u, f_a, state: GenomeState, nb: NeighbourTable, delta: int, nuisance):
+    propose = None
+    if nuisance is not None:
+        id_modif, eps, params, d_max_cap, log_nfpb = nuisance
+        propose = (torch.as_tensor(id_modif).long(), eps, params, d_max_cap, log_nfpb)
+    drawn, proposed = STEP.step_head((u, f_a, state.id_d, state.rep, nb, delta), propose)
+    if proposed is not None:
+        (c1, slope, d_max, fact, v_inter), in_support, row = proposed
+        proposed = (nuisance[2]._replace(c1=c1, slope=slope, d_max=d_max, fact=fact,
+                                         v_inter=v_inter), in_support, row)
+    return drawn, proposed
+
+
+def step_head_plain(u, f_a, state: GenomeState, nb: NeighbourTable, delta: int,
+                    nuisance=None):
+    """:func:`step_head` in plain torch: the plain draw, then the plain
+    proposal."""
+    drawn = sample_neighbours_plain(u, f_a, state, nb, delta)
+    return drawn, None if nuisance is None else nuisance_propose_plain(*nuisance)
 
 
 def sample_neighbours_plain(u, f_a, state: GenomeState, nb: NeighbourTable,
@@ -342,10 +383,11 @@ def make_em_step(table: SubFragTable, obs, nb: NeighbourTable, delta: int,
                  thresh_overflow=THRESH_OVERFLOW):
     """Build the single-fragment EM step.
 
-    Returns step(state, rng, params, f_a, f_t) ->
+    Returns step(state, rng, params, f_a, f_t, neighbours=None) ->
     (new_state, (score_sel, op_sel, fb_sel)), where ``rng`` is a Generator
     or one step's :class:`StepDraws` (only its ``u_nb`` and ``gumbel`` are
-    read).
+    read); ``neighbours``: the step's (ids, valid), already drawn from
+    ``rng.u_nb`` (:func:`step_head`), or None to draw them.
 
     With a leading chains axis (``state`` fields (C, n), ``f_a`` (C,),
     draws (C, ...), ``f_t`` (C,) or a float) every chain takes its step at
@@ -359,12 +401,13 @@ def make_em_step(table: SubFragTable, obs, nb: NeighbourTable, delta: int,
     if scorer is None:
         scorer = _default_scorer(table, obs, ll_dtype)
 
-    def step(state: GenomeState, rng, params: RippeParams, f_a, f_t):
+    def step(state: GenomeState, rng, params: RippeParams, f_a, f_t, neighbours=None):
         f_a = torch.as_tensor(f_a, device=state.pos.device).long()
         single = f_a.dim() == 0
         if isinstance(rng, torch.Generator):
             rng = draw_step_inputs(rng, nb, delta, f_a.shape)
-        ids, valid = sample_neighbours(rng.u_nb, f_a, state, nb, delta)
+        ids, valid = (sample_neighbours(rng.u_nb, f_a, state, nb, delta) if neighbours is None
+                      else neighbours)
         m = ids.shape[-1]
         c = 1 if single else ids.shape[0]
         n = state.n_frags
@@ -507,8 +550,8 @@ def nuisance_propose(id_modif, eps, params: RippeParams, d_max_cap: float | None
     Returns (test_params, in_support, row): ``row`` is the dense scorers'
     parameter row of ``test_params`` (``ops.likelihood_cuda.params_vector``
     with ``log_nfpb``), or None without ``log_nfpb``.
-    :func:`nuisance_propose_plain`'s result, by kernel D1 when the
-    parameters are on a card."""
+    :func:`nuisance_propose_plain`'s result, by the head kernel (the
+    proposal alone) when the parameters are on a card."""
     if params.fact.device.type == "cuda":
         return _propose_on_card(id_modif, eps, params, d_max_cap, log_nfpb)
     return nuisance_propose_plain(id_modif, eps, params, d_max_cap, log_nfpb)
@@ -573,7 +616,8 @@ def nuisance_accept(u, test_params: RippeParams, params: RippeParams,
     """Metropolis accept/reject half of the nuisance step; elementwise, so
     a chains axis on every argument accepts each chain on its own.
     Returns (params, l_t, accepted): :func:`nuisance_accept_plain`'s
-    result, by kernel D1 when the parameters are on a card."""
+    result, by the tail kernel (the test alone) when the parameters are on
+    a card."""
     if params.fact.device.type == "cuda":
         return _accept_on_card(u, test_params, params, l_star, l_t, f_t, in_support)
     return nuisance_accept_plain(u, test_params, params, l_star, l_t, f_t, in_support)
@@ -595,6 +639,70 @@ def nuisance_accept_plain(u, test_params: RippeParams, params: RippeParams,
                         for a, b in zip(test_params, params)])
     l_out = torch.where(accept, l_star.float(), l_t)
     return out, l_out, accept
+
+
+class StepTail(NamedTuple):
+    """What :func:`step_tail` returns (None where its part was off)."""
+
+    params: RippeParams | None   # after the Metropolis test
+    l_t: torch.Tensor
+    accepted: torch.Tensor       # the cycle's ``success``: true without a test
+    n_contigs: torch.Tensor | None
+    mean_len: torch.Tensor | None
+
+
+def step_tail(l_t, score=None, accept=None, state: GenomeState | None = None) -> StepTail:
+    """The step's tail, in the cycle body's order: l_t <- ``score`` (the
+    selection's) where it is finite; with ``accept`` = (u, test_params,
+    params, l_star, f_t, in_support) the Metropolis test of
+    :func:`nuisance_accept` on that l_t; with ``state`` its metrics, the
+    contig count and the mean contig length over the active fragments.
+    A leading chains axis on every argument handles each chain on its own.
+
+    :func:`step_tail_plain`'s result, by one launch of the tail kernel when
+    ``l_t`` is on a card."""
+    if l_t.device.type == "cuda":
+        return _tail_on_card(l_t, score, accept, state)
+    return step_tail_plain(l_t, score, accept, state)
+
+
+def _tail_on_card(l_t, score, accept, state):
+    if accept is not None:
+        u, test_params, params, l_star, f_t, in_support = accept
+        accept = (u, test_params, params, l_star.float(), f_t, in_support)
+    metrics = None if state is None else (state.pos, state.activ, state.len_bp)
+    fields, l_out, accepted, n_contigs, mean_len = STEP.step_tail(l_t, score, accept, metrics)
+    return StepTail(None if fields is None else RippeParams(*fields), l_out, accepted, n_contigs,
+                    mean_len)
+
+
+def step_tail_plain(l_t, score=None, accept=None, state: GenomeState | None = None) -> StepTail:
+    """:func:`step_tail` in plain torch."""
+    if score is not None:
+        l_t = torch.where(torch.isfinite(score), score, l_t)
+    params = None
+    if accept is not None:
+        u, test_params, params, l_star, f_t, in_support = accept
+        params, l_t, success = nuisance_accept_plain(u, test_params, params, l_star, l_t, f_t,
+                                                     in_support)
+    else:
+        success = torch.ones(l_t.shape, dtype=torch.bool, device=l_t.device)
+    n_contigs = mean_len = None
+    if state is not None:
+        n_contigs = state.n_contigs()
+        # mean contig length over *active* fragments only
+        active_bp = torch.where(state.activ == 1, state.len_bp, 0).sum(-1)
+        mean_len = active_bp.float() / n_contigs
+    return StepTail(params, l_t, success, n_contigs, mean_len)
+
+
+def _score_test(scorer, state: GenomeState, test_params: RippeParams, row):
+    """l* of the nuisance test: ``test_params``' likelihood of ``state``
+    by the (batched) ``scorer`` at batch size 1, handed the test set's
+    parameter row where the proposal made one."""
+    one = GenomeState(*[x[None] for x in state])
+    return (scorer(one, test_params) if row is None
+            else scorer(one, test_params, pvec=row))[0]
 
 
 def make_nuisance_step(table: SubFragTable, obs, ll_dtype=torch.float32,
@@ -619,9 +727,7 @@ def make_nuisance_step(table: SubFragTable, obs, ll_dtype=torch.float32,
         id_modif, eps, u = rng.id_modif, rng.eps, rng.u_acc
         test_params, in_support, row = nuisance_propose(id_modif, eps, params, d_max_cap,
                                                         log_nfpb)
-        one = GenomeState(*[x[None] for x in state])
-        l_star = (scorer(one, test_params) if row is None
-                  else scorer(one, test_params, pvec=row))[0]
+        l_star = _score_test(scorer, state, test_params, row)
         return nuisance_accept(u, test_params, params, l_star, l_t, f_t,
                                in_support)
 
@@ -657,15 +763,19 @@ def make_em_cycle(table: SubFragTable, obs, nb: NeighbourTable, delta: int,
     fields are per-step tensors stacked over the cycle.
 
     The cycle is a :class:`graal_tpu_torch.core.graphs.Scan` of the step
-    (EM step, then the nuisance step): on a CUDA table a captured graph
-    replayed once a step, elsewhere the same body run step by step.
-    ``capture``: as the scan takes it (False runs eagerly on the card).
+    (the step's head: the neighbour draw and, with ``sample_param``, the
+    nuisance proposal; the EM step's catalogue, scoring and selection; the
+    test set's score; the step's tail: l_t, the Metropolis test and the
+    metrics): on a CUDA table a captured graph replayed once a step,
+    elsewhere the same body run step by step. ``capture``: as the scan
+    takes it (False runs eagerly on the card).
     """
     if scorer is None:
         scorer = _default_scorer(table, obs, ll_dtype)
     em_step = make_em_step(table, obs, nb, delta, ll_dtype, scorer=scorer,
                            thresh_overflow=thresh_overflow)
-    nuis_step = make_nuisance_step(table, obs, ll_dtype, scorer=scorer)
+    # the dense scorers take the test set's parameter row from the proposal
+    log_nfpb = scorer.log_nfpb if isinstance(scorer, CopyRowScorer) else None
 
     # the parameters are carried when the nuisance step moves them, else
     # constants of the call (and the cycle returns the caller's own)
@@ -675,21 +785,23 @@ def make_em_cycle(table: SubFragTable, obs, nb: NeighbourTable, delta: int,
         else:
             (state, l_t), (params, f_t) = carry, consts
         draws, f_a = x
-        state, (score, op, fb) = em_step(state, draws, params, f_a, f_t)
-        l_t = torch.where(torch.isfinite(score), score, l_t)
+        nuisance = (draws.id_modif, draws.eps, params, None, log_nfpb) if sample_param else None
+        drawn, proposal = step_head(draws.u_nb, f_a, state, nb, delta, nuisance)
+        state, (score, op, fb) = em_step(state, draws, params, f_a, f_t, neighbours=drawn)
+        accept = None
         if sample_param:
-            params, l_t, success = nuis_step(state, draws, params, l_t, f_t)
-        else:
-            success = torch.ones((), dtype=torch.bool, device=l_t.device)
-        n_contigs = state.n_contigs()
-        # mean contig length over *active* fragments only
-        active_bp = torch.where(state.activ == 1, state.len_bp, 0).sum()
+            test_params, in_support, row = proposal
+            accept = (draws.u_acc, test_params, params,
+                      _score_test(scorer, state, test_params, row), f_t, in_support)
+        tail = step_tail(l_t, score, accept, state)
+        if sample_param:
+            params = tail.params
+        l_t = tail.l_t
         return (state, params, l_t) if sample_param else (state, l_t), CycleMetrics(
-            likelihood=l_t, n_contigs=n_contigs,
-            mean_len=active_bp.float() / n_contigs,
+            likelihood=l_t, n_contigs=tail.n_contigs, mean_len=tail.mean_len,
             op_sampled=op, id_f_sampled=fb, id_f_a=f_a,
             fact=params.fact, slope=params.slope, d_max=params.d_max,
-            v_inter=params.v_inter, success=success)
+            v_inter=params.v_inter, success=tail.accepted)
 
     scan = graphs.Scan(body, table.owner.device, capture=capture)
 

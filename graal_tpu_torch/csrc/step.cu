@@ -1,6 +1,8 @@
 // The scalar and control work of a sampler step, for NVIDIA Hopper (sm_90a):
 // the nuisance move (D1), the neighbour draw (D2) and the selection and
-// commit (D3).
+// commit (D3), as three kernels: the step's head (D2 with D1's proposal),
+// the selection and commit (D3) and the step's tail (D1's acceptance with
+// the cycle body's l_t select and metrics).
 //
 // Replaces no Pallas kernel: the JAX package writes these as jnp code inside
 // its jitted step (graal_tpu/core/mcmc.py:444 jits the cycle, and XLA fuses
@@ -22,8 +24,8 @@
 //
 // What the design does about it.
 //  - One launch per entry point and step, every chain of a chains axis in
-//    one grid (D1, D2: one block a chain; D3: one cluster a chain), no
-//    host read and no allocation: the
+//    one grid (the head and the tail: one block a chain; D3: one cluster a
+//    chain), no host read and no allocation: the
 //    wrapper (ops/step_cuda.py) passes fresh outputs, so a captured step
 //    (core.graphs.Scan) captures each launch.
 //  - Bit-identity with the plain versions on the card. Each torch op rounds
@@ -38,24 +40,46 @@
 //    reciprocal, as torch does on the card with a CPU scalar (the wrapper
 //    computes it in f32), and a division by a device tensor is an IEEE
 //    division.
-//  - D1 (`nuisance_propose`): 256 threads a chain, 4 proposals x 64
-//    multisection points: each of solve_d_max's 5 passes is one curve
-//    evaluation a thread and a count of two warp ballots, so all four
-//    proposals' brackets shrink together as the plain version's batch
-//    does. Thread 0 picks the proposal id_modif names, applies the support
-//    test and the cap, and writes the test set's 10-float row of the dense
-//    scorers (ops/likelihood_cuda.py `params_vector`; the code is
-//    params_row.cuh's, which H1 in vectors.cu shares). `nuisance_accept`:
-//    one thread a chain, the Metropolis test and the selects.
-//  - D2 (`neighbours_kernel`): one block a chain. The Gumbel keys of the
-//    n_top partners, then a rank each (the number of keys before it in a
-//    stable ascending sort of -g: ties, the -inf entries among them, keep
-//    the lower index) gives the top delta; the copy expansion, the other
-//    copies of f_a's bin and the masks are per entry; a second rank by (id,
-//    or 2^30 when invalid; index) is the stable sort by id with invalid
-//    entries last. Ranks are O(m^2) with m = (delta + 1) x max_copies (80 on
-//    a copy-dense table), a few thousand comparisons spread over 128
-//    threads.
+//  - The step's head (`step_head_kernel`: D2's neighbour draw, with D1's
+//    proposal beside it). The nuisance proposal reads only the carried
+//    parameters and the step's own draws (id_modif, eps), not the state
+//    the step commits, so it runs at the start of the step in the same
+//    launch as the draw: a block a chain, warp 0 drawing and warp 1
+//    proposing, with no block barrier between them (either part can be off:
+//    the delta and tempered steps draw only, `make_nuisance_step` and the
+//    runners' cycle end propose only; the block is then one warp).
+//    The draw loads rep[f_a] and the n_top keys' pk / xk / u, and ranks
+//    the Gumbel keys by shuffles (n_top <= 32; a lane-strided loop over
+//    shared memory above): a key's rank is the number of keys before it in
+//    torch's stable ascending sort of -g (NaN greatest, ties to the lower
+//    index), and the d_eff lowest ranks are the partners. Only then does it
+//    load the m = (d_eff + 1) x max_copies entries it keeps (f_a's bin's
+//    dispatcher row and the drawn partners', and the blacklist at each
+//    id): 6% faster on the draw alone than loading every partner bin's row
+//    and flags before the ranks (n_top + 1 rows), 2% slower with the
+//    proposal beside it. The entries (80
+//    on a copy-dense table) are then ranked lane-strided by (id, or 2^30 when
+//    invalid; index), which is the stable sort by id with invalid entries
+//    last. The proposal solves only the bracket of the proposal id_modif
+//    names, none for a d_max proposal (id 2): each of solve_d_max's 5
+//    passes evaluates the curve at 64 points, lane l at points l and l +
+//    32, and counts them by __popc of two ballots. The arithmetic is the
+//    plain version's in its order, so the five test parameters, in_support
+//    and the dense scorers' 10-float parameter row (params_row.cuh, H1's
+//    code) are bit for bit the plain version's.
+//  - The step's tail (`step_tail_kernel`: D1's Metropolis test, with the
+//    dense cycle bodies' glue folded in). Per chain, in the plain body's
+//    order: l_t <- D3's score where it is finite; when a proposal exists,
+//    the test exp((l* - l_t) / F_t) >= u and the selects of the 8
+//    parameters and l_t; the metrics: n_contigs (the count of pos == 0),
+//    active_bp (the int64 sum of len_bp over activ == 1) and mean_len =
+//    active_bp / n_contigs (both rounded to f32, then an IEEE division), and
+//    success. A block of 256 a chain for the two reductions over n (exact
+//    in any order: they are integer sums), one warp when no metric is
+//    asked for (the cycle end and `nuisance_accept` alone).
+//  - Both count themselves: block 0 of the grid, thread 0, adds one to the
+//    launch key's int64 counter (ops/counts.py `LaunchCount.counter`), so
+//    no counting kernel runs beside them.
 //  - D3 (`select_commit_*`): one launch a call, a thread block cluster of
 //    K blocks of 256 threads a chain (`cudaLaunchKernelEx` with the
 //    cluster dimension; K from what it commits, ops/step_cuda.py
@@ -94,8 +118,8 @@
 //    thread 0, adds one to the launch key's int64 counter (ops/counts.py
 //    `LaunchCount.counter`), so no counting kernel runs beside D3.
 //
-// Launch keys (ops/counts.py): "nuisance_propose", "nuisance_accept",
-// "neighbours", "select_dense", "select_delta".
+// Launch keys (ops/counts.py): "step_head", "step_tail", "select_dense",
+// "select_delta".
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -110,10 +134,8 @@ constexpr int N_MUTABLE = 8;         // core.state.MUTABLE_FIELDS
 constexpr int N_OPS = 13;            // candidates a neighbour slot
 constexpr int WIDTH = 64;            // solve_d_max's multisection points
 constexpr int PASSES = 5;            // solve_d_max's passes
-constexpr int PROPOSALS = 4;         // fact, slope, d_max, v_inter
-constexpr int PROPOSE_THREADS = PROPOSALS * WIDTH;
-constexpr int ACCEPT_THREADS = 128;
-constexpr int NB_THREADS = 128;
+constexpr int TAIL_THREADS = 256;    // the tail's block when it reduces the metrics
+constexpr int MAX_SHUFFLE_KEYS = 32; // the head ranks up to this many keys by shuffles
 constexpr int SELECT_THREADS = 256;
 constexpr int MAX_SELECT_CLUSTER = 8;
 constexpr int ROWS_AHEAD = 4;        // D3's delta commit: rows a thread loads before storing
@@ -128,150 +150,7 @@ __device__ __forceinline__ float fsub(float a, float b) { return __fsub_rn(a, b)
 __device__ __forceinline__ float fmul(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ float fdiv(float a, float b) { return __fdiv_rn(a, b); }
 
-// ---- D1: the nuisance move ---------------------------------------------------
-
-struct ProposeArgs {
-  const float* p[N_PARAMS];     // the parameters, one value or one a chain
-  long long ps[N_PARAMS];       // their strides between chains (0: shared)
-  const long long* idm;         // id_modif, int64
-  long long idm_s;
-  const float* eps;
-  long long eps_s;
-  const float* log_nfpb;        // nullptr: no parameter row
-  float* out;                   // (5, C): c1, slope, d_max, fact, v_inter
-  unsigned char* ok;            // (C,) in_support
-  float* row;                   // (C, 10) or nullptr
-  float cap;                    // the d_max cap (f32), when has_cap
-  int has_cap;
-  float llo0, lhi0, inv_w;      // f32 log(1e-2), log(1e6) and 1 / (WIDTH - 1)
-  int C;
-};
-
-// mcmc.py `_device_peval`: fact * 0.53 * kuhn^-3 * n^slope * exp((d - 2) /
-// (n^2 + d)), n = s * lm / kuhn, each product rounded in that order.
-__device__ __forceinline__ float peval(float s, float kuhn, float lm, float slope, float d,
-                                       float fact) {
-  const float n = fdiv(fmul(s, lm), kuhn);
-  const float k3 = powf(kuhn, -3.0f);
-  const float e = expf(fdiv(fsub(d, 2.0f), fadd(fmul(n, n), d)));
-  return fmul(fmul(fmul(fmul(fact, 0.53f), k3), powf(n, slope)), e);
-}
-
-__global__ void __launch_bounds__(PROPOSE_THREADS) nuisance_propose_kernel(ProposeArgs a) {
-  __shared__ int counts[PROPOSE_THREADS / 32];
-  __shared__ float solved[PROPOSALS];
-  const int c = blockIdx.x;
-  const int t = threadIdx.x;
-  const int q = t / WIDTH;        // this thread's proposal
-  const int j = t % WIDTH;        // and multisection point
-  float p[N_PARAMS];
-#pragma unroll
-  for (int k = 0; k < N_PARAMS; ++k) p[k] = a.p[k][a.ps[k] * c];
-  const float e = a.eps[a.eps_s * c];
-  // the four proposals, built as the plain version builds them all
-  const float new_fact =
-      fadd(p[FACT], fmul(e, powf(10.0f, fsub(log10f(p[FACT]), 2.0f))));
-  const float new_slope = fadd(p[SLOPE], fmul(e, 0.05f));
-  const float new_d_max = fadd(p[D_MAX], fmul(e, 100.0f));
-  const float v_d_max = peval(new_d_max, p[KUHN], p[LM], p[SLOPE], p[D], p[FACT]);
-  const float new_v = fadd(p[V_INTER], fmul(e, 0.5f));
-  // solve_d_max on proposal q: rippe(s) == v on the decreasing branch
-  const float fact_q = q == 0 ? new_fact : p[FACT];
-  const float slope_q = q == 1 ? new_slope : p[SLOPE];
-  const float v_q = q == 2 ? v_d_max : (q == 3 ? new_v : p[V_INTER]);
-  const float frac = fmul(static_cast<float>(j), a.inv_w);
-  float llo = a.llo0, lhi = a.lhi0;
-  for (int pass = 0; pass < PASSES; ++pass) {
-    const float x = expf(fadd(llo, fmul(fsub(lhi, llo), frac)));
-    const bool above = peval(x, p[KUHN], p[LM], slope_q, p[D], fact_q) > v_q;
-    const unsigned votes = __ballot_sync(0xffffffffu, above);
-    if ((t & 31) == 0) counts[t >> 5] = __popc(votes);
-    __syncthreads();
-    const int n_above = counts[2 * q] + counts[2 * q + 1];
-    __syncthreads();
-    const int idx = min(max(n_above - 1, 0), WIDTH - 2);
-    const float step = fmul(fsub(lhi, llo), a.inv_w);
-    llo = fadd(llo, fmul(static_cast<float>(idx), step));
-    lhi = fadd(llo, step);
-  }
-  if (j == 0) solved[q] = expf(fmul(fadd(llo, lhi), 0.5f));
-  __syncthreads();
-  if (t != 0) return;
-  // the proposal id_modif names (0 fact, 1 slope, 2 d_max, 3 v_inter)
-  const long long idm = a.idm[a.idm_s * c];
-  float c1 = p[C1], slope = p[SLOPE], d_max, fact = p[FACT], v = p[V_INTER];
-  bool ok;
-  if (idm == 0) {
-    fact = new_fact;
-    d_max = solved[0];
-    ok = new_fact > 0.0f;
-  } else if (idm == 1) {
-    slope = new_slope;
-    c1 = fmul(fmul(0.53f, powf(fdiv(p[LM], p[KUHN]), new_slope)), powf(p[KUHN], -3.0f));
-    d_max = solved[1];
-    ok = new_slope >= -2.0f && new_slope <= -0.5f;
-  } else if (idm == 2) {
-    d_max = new_d_max;
-    v = v_d_max;
-    ok = new_d_max > 0.0f && new_d_max <= 10000.0f;
-  } else {
-    d_max = solved[3];
-    v = new_v;
-    ok = new_v > 0.0f && new_v <= 100.0f;
-  }
-  if (a.has_cap) ok = ok && d_max <= a.cap;
-  const int C = a.C;
-  a.out[c] = c1;
-  a.out[C + c] = slope;
-  a.out[2 * C + c] = d_max;
-  a.out[3 * C + c] = fact;
-  a.out[4 * C + c] = v;
-  a.ok[c] = ok;
-  if (a.row == nullptr) return;
-  // ops/likelihood_cuda.py `params_vector` of the test set (params_row.cuh,
-  // which H1 in vectors.cu shares)
-  write_params_row(a.row + static_cast<long long>(c) * PARAMS_ROW, p[KUHN], p[LM], c1, slope,
-                   p[D], d_max, fact, v, *a.log_nfpb);
-}
-
-struct AcceptArgs {
-  const float* test[N_PARAMS];  // the test parameters
-  long long ts[N_PARAMS];
-  const float* par[N_PARAMS];   // the current parameters
-  long long ps[N_PARAMS];
-  const float* u;
-  long long us;
-  const float* l_star;
-  long long lss;
-  const float* l_t;
-  long long lts;
-  const unsigned char* ok;      // in_support
-  long long oks;
-  const float* ft;              // nullptr: multiply by ft_inv
-  long long fts;
-  float ft_inv;
-  float* out;                   // (8, C) parameters
-  float* l_out;                 // (C,)
-  unsigned char* accept;        // (C,)
-  int C;
-};
-
-__global__ void __launch_bounds__(ACCEPT_THREADS) nuisance_accept_kernel(AcceptArgs a) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= a.C) return;
-  const float l_star = a.l_star[a.lss * c];
-  const float l_t = a.l_t[a.lts * c];
-  const float diff = fsub(l_star, l_t);
-  const float ratio = expf(a.ft ? fdiv(diff, a.ft[a.fts * c]) : fmul(diff, a.ft_inv));
-  const bool acc = a.ok[a.oks * c] && ratio >= a.u[a.us * c];
-#pragma unroll
-  for (int k = 0; k < N_PARAMS; ++k)
-    a.out[k * a.C + c] = acc ? a.test[k][a.ts[k] * c] : a.par[k][a.ps[k] * c];
-  a.l_out[c] = acc ? l_star : l_t;
-  a.accept[c] = acc;
-}
-
-// ---- D2: the neighbour draw --------------------------------------------------
+// ---- the step's head: D2's neighbour draw and D1's proposal ---------------------
 
 struct NeighbourArgs {
   const float* u;               // (C, n_top) uniforms
@@ -289,6 +168,30 @@ struct NeighbourArgs {
   int* ids;                     // (C, m) out
   unsigned char* valid;         // (C, m) out
   int n_top, mc, d_eff, m;      // d_eff = min(delta, n_top), m = (d_eff + 1) mc
+  int C;                        // chains drawn; 0: no draw
+};
+
+struct ProposeArgs {
+  const float* p[N_PARAMS];     // the parameters, one value or one a chain
+  long long ps[N_PARAMS];       // their strides between chains (0: shared)
+  const long long* idm;         // id_modif, int64
+  long long idm_s;
+  const float* eps;
+  long long eps_s;
+  const float* log_nfpb;        // nullptr: no parameter row
+  float* out;                   // (5, C): c1, slope, d_max, fact, v_inter
+  unsigned char* ok;            // (C,) in_support
+  float* row;                   // (C, 10) or nullptr
+  float cap;                    // the d_max cap (f32), when has_cap
+  int has_cap;
+  float llo0, lhi0, inv_w;      // f32 log(1e-2), log(1e6) and 1 / (WIDTH - 1)
+  int C;                        // chains proposing; 0: no proposal
+};
+
+struct HeadArgs {
+  NeighbourArgs nb;
+  ProposeArgs pr;
+  unsigned long long* counter;  // the launch key's int64 counter
 };
 
 // torch's sort comparator: NaN greatest
@@ -296,68 +199,285 @@ __device__ __forceinline__ bool before(float x, float y) {
   return x < y || (isnan(y) && !isnan(x));
 }
 
-__global__ void __launch_bounds__(NB_THREADS) neighbours_kernel(NeighbourArgs a) {
-  extern __shared__ int shared[];
-  float* key = reinterpret_cast<float*>(shared);   // n_top sort keys -g
-  int* top = shared + a.n_top;                      // d_eff partner slots
-  int* sid = top + a.d_eff;                         // m entries: id
-  int* skey = sid + a.m;                            //            sort key
-  int* sval = skey + a.m;                           //            valid
-  const int c = blockIdx.x;
-  const int t = threadIdx.x;
+// the draw's shared memory in ints: the keys (above MAX_SHUFFLE_KEYS only),
+// the d_eff partner slots, each output entry's id, sort key and flag
+int head_smem_ints(int n_top, int d_eff, int m) {
+  return (n_top > MAX_SHUFFLE_KEYS ? n_top : 0) + d_eff + 3 * m;
+}
+
+// mcmc.py `sample_neighbours_plain` for chain c on one warp
+__device__ void draw_warp(const NeighbourArgs& a, int c, int lane, int* smem) {
+  const int n_top = a.n_top, mc = a.mc, m = a.m;
+  const bool shuffled = n_top <= MAX_SHUFFLE_KEYS;
+  float* key = reinterpret_cast<float*>(smem);
+  int* top = smem + (shuffled ? 0 : n_top);
+  int* sid = top + a.d_eff;
+  int* skey = sid + m;
+  int* sval = skey + m;
   const long long fa = a.fa[a.fa_s * c];
   const int bin_a = a.id_d[a.idd_rs * c + a.idd_cs * fa];
-  const float* pk = a.pk + static_cast<long long>(bin_a) * a.n_top;
-  const int* xk = a.xk + static_cast<long long>(bin_a) * a.n_top;
-  for (int k = t; k < a.n_top; k += blockDim.x) {
+  const bool rep_a = a.rep[a.rep_rs * c + a.rep_cs * fa] == 1;
+  const float* pk = a.pk + static_cast<long long>(bin_a) * n_top;
+  const int* xk = a.xk + static_cast<long long>(bin_a) * n_top;
+  // the Gumbel keys -g of the n_top partners (lane k holds key k when
+  // shuffled, else they go to shared memory)
+  float v = 0.0f;
+  for (int k = lane; k < n_top; k += 32) {
     const float pv = pk[k];
     const float g = pv > 0.0f ? logf(pv) : -INFINITY;
     const float u = a.u[a.u_rs * c + a.u_cs * k];
-    key[k] = -fsub(g, logf(fadd(-logf(fadd(u, 1e-20f)), 1e-20f)));
+    const float x = -fsub(g, logf(fadd(-logf(fadd(u, 1e-20f)), 1e-20f)));
+    if (shuffled)
+      v = x;
+    else
+      key[k] = x;
   }
-  __syncthreads();
-  // top-d_eff of a stable ascending sort of -g
-  for (int k = t; k < a.n_top; k += blockDim.x) {
-    const float v = key[k];
+  // the top d_eff of a stable ascending sort of -g
+  if (shuffled) {
     int rank = 0;
-    for (int i = 0; i < a.n_top; ++i) {
-      const float w = key[i];
-      rank += before(w, v) || (i < k && !before(v, w));
+    for (int i = 0; i < n_top; ++i) {
+      const float w = __shfl_sync(FULL, v, i);
+      rank += before(w, v) || (i < lane && !before(v, w));
     }
-    if (rank < a.d_eff) top[rank] = k;
+    if (lane < n_top && rank < a.d_eff) top[rank] = lane;
+  } else {
+    __syncwarp();
+    for (int k = lane; k < n_top; k += 32) {
+      const float x = key[k];
+      int rank = 0;
+      for (int i = 0; i < n_top; ++i) {
+        const float w = key[i];
+        rank += before(w, x) || (i < k && !before(x, w));
+      }
+      if (rank < a.d_eff) top[rank] = k;
+    }
   }
-  __syncthreads();
-  const bool rep_a = a.rep[a.rep_rs * c + a.rep_cs * fa] == 1;
-  for (int e = t; e < a.m; e += blockDim.x) {
+  __syncwarp();
+  // the m entries, loaded once the partners are known: f_a's bin's copies,
+  // then the copies of each drawn partner, with their blacklist flags
+  for (int e = lane; e < m; e += 32) {
     int id;
     bool ok;
-    if (e < a.mc) {   // the other copies of f_a's own bin
-      id = a.disp[static_cast<long long>(bin_a) * a.mc + e];
-      ok = id >= 0 && id != fa && rep_a;
-    } else {          // the copies of the drawn partner bins
-      const int k = top[(e - a.mc) / a.mc];
-      id = a.disp[static_cast<long long>(xk[k]) * a.mc + (e - a.mc) % a.mc];
-      ok = id >= 0 && pk[k] > 0.0f;
+    if (e < mc) {
+      id = a.disp[static_cast<long long>(bin_a) * mc + e];
+      ok = rep_a;
+    } else {
+      const int k = top[(e - mc) / mc];
+      id = a.disp[static_cast<long long>(xk[k]) * mc + (e - mc) % mc];
+      ok = pk[k] > 0.0f;
     }
-    ok = ok && !a.blacklist[max(id, 0)] && id != fa;
-    id = max(id, 0);
-    sid[e] = id;
+    ok = ok && id >= 0 && id != fa && !a.blacklist[max(id, 0)];
+    sid[e] = max(id, 0);
     sval[e] = ok;
-    skey[e] = ok ? id : INVALID_KEY;
+    skey[e] = ok ? max(id, 0) : INVALID_KEY;
   }
-  __syncthreads();
+  __syncwarp();
   // stable sort by id, invalid entries last
-  for (int e = t; e < a.m; e += blockDim.x) {
-    const int v = skey[e];
+  for (int e = lane; e < m; e += 32) {
+    const int x = skey[e];
     int rank = 0;
-    for (int i = 0; i < a.m; ++i) {
+    for (int i = 0; i < m; ++i) {
       const int w = skey[i];
-      rank += w < v || (w == v && i < e);
+      rank += w < x || (w == x && i < e);
     }
-    const long long at = static_cast<long long>(c) * a.m + rank;
+    const long long at = static_cast<long long>(c) * m + rank;
     a.ids[at] = sid[e];
     a.valid[at] = sval[e];
   }
+}
+
+// mcmc.py `_device_peval`: fact * 0.53 * kuhn^-3 * n^slope * exp((d - 2) /
+// (n^2 + d)), n = s * lm / kuhn, each product rounded in that order.
+__device__ __forceinline__ float peval(float s, float kuhn, float lm, float slope, float d,
+                                       float fact) {
+  const float n = fdiv(fmul(s, lm), kuhn);
+  const float k3 = powf(kuhn, -3.0f);
+  const float e = expf(fdiv(fsub(d, 2.0f), fadd(fmul(n, n), d)));
+  return fmul(fmul(fmul(fmul(fact, 0.53f), k3), powf(n, slope)), e);
+}
+
+// mcmc.py `solve_d_max` of one parameter set on one warp: rippe(s) == v on
+// the decreasing branch, lane l at multisection points l and l + 32
+__device__ float solve_warp(const ProposeArgs& a, const float* p, float slope, float fact,
+                            float v, int lane) {
+  const float frac0 = fmul(static_cast<float>(lane), a.inv_w);
+  const float frac1 = fmul(static_cast<float>(lane + 32), a.inv_w);
+  float llo = a.llo0, lhi = a.lhi0;
+  for (int pass = 0; pass < PASSES; ++pass) {
+    const float x0 = expf(fadd(llo, fmul(fsub(lhi, llo), frac0)));
+    const float x1 = expf(fadd(llo, fmul(fsub(lhi, llo), frac1)));
+    const bool above0 = peval(x0, p[KUHN], p[LM], slope, p[D], fact) > v;
+    const bool above1 = peval(x1, p[KUHN], p[LM], slope, p[D], fact) > v;
+    const int n_above = __popc(__ballot_sync(FULL, above0)) + __popc(__ballot_sync(FULL, above1));
+    const int idx = min(max(n_above - 1, 0), WIDTH - 2);
+    const float step = fmul(fsub(lhi, llo), a.inv_w);
+    llo = fadd(llo, fmul(static_cast<float>(idx), step));
+    lhi = fadd(llo, step);
+  }
+  return expf(fmul(fadd(llo, lhi), 0.5f));
+}
+
+// mcmc.py `nuisance_propose_plain` for chain c on one warp: the proposal
+// id_modif names (0 fact, 1 slope, 2 d_max, 3 v_inter), built as the plain
+// version builds it, and only its bracket solved
+__device__ void propose_warp(const ProposeArgs& a, int c, int lane) {
+  float p[N_PARAMS];
+#pragma unroll
+  for (int k = 0; k < N_PARAMS; ++k) p[k] = a.p[k][a.ps[k] * c];
+  const float e = a.eps[a.eps_s * c];
+  const long long idm = a.idm[a.idm_s * c];
+  float c1 = p[C1], slope = p[SLOPE], d_max, fact = p[FACT], v = p[V_INTER];
+  bool ok;
+  if (idm == 2) {
+    d_max = fadd(p[D_MAX], fmul(e, 100.0f));
+    v = peval(d_max, p[KUHN], p[LM], p[SLOPE], p[D], p[FACT]);
+    ok = d_max > 0.0f && d_max <= 10000.0f;
+  } else {
+    if (idm == 0) {
+      fact = fadd(p[FACT], fmul(e, powf(10.0f, fsub(log10f(p[FACT]), 2.0f))));
+      ok = fact > 0.0f;
+    } else if (idm == 1) {
+      slope = fadd(p[SLOPE], fmul(e, 0.05f));
+      c1 = fmul(fmul(0.53f, powf(fdiv(p[LM], p[KUHN]), slope)), powf(p[KUHN], -3.0f));
+      ok = slope >= -2.0f && slope <= -0.5f;
+    } else {
+      v = fadd(p[V_INTER], fmul(e, 0.5f));
+      ok = v > 0.0f && v <= 100.0f;
+    }
+    d_max = solve_warp(a, p, slope, fact, v, lane);
+  }
+  if (lane != 0) return;
+  if (a.has_cap) ok = ok && d_max <= a.cap;
+  const int C = a.C;
+  a.out[c] = c1;
+  a.out[C + c] = slope;
+  a.out[2 * C + c] = d_max;
+  a.out[3 * C + c] = fact;
+  a.out[4 * C + c] = v;
+  a.ok[c] = ok;
+  if (a.row == nullptr) return;
+  // ops/likelihood_cuda.py `params_vector` of the test set (params_row.cuh,
+  // which H1 in vectors.cu shares)
+  write_params_row(a.row + static_cast<long long>(c) * PARAMS_ROW, p[KUHN], p[LM], c1, slope,
+                   p[D], d_max, fact, v, *a.log_nfpb);
+}
+
+// A block a chain: warp 0 draws when the draw is on, the other warp (or
+// warp 0 when the draw is off) proposes; no block barrier between them.
+__global__ void __launch_bounds__(64) step_head_kernel(HeadArgs a) {
+  extern __shared__ int smem[];
+  if (blockIdx.x == 0 && threadIdx.x == 0) atomicAdd(a.counter, 1ULL);
+  const int c = blockIdx.x, lane = threadIdx.x & 31;
+  if (a.nb.C > 0 && threadIdx.x < 32) {
+    if (c < a.nb.C) draw_warp(a.nb, c, lane, smem);
+  } else if (c < a.pr.C) {
+    propose_warp(a.pr, c, lane);
+  }
+}
+
+// ---- the step's tail: D1's acceptance, the l_t select and the metrics --------------
+
+struct AcceptArgs {
+  const float* test[N_PARAMS];  // the test parameters
+  long long ts[N_PARAMS];
+  const float* par[N_PARAMS];   // the current parameters
+  long long ps[N_PARAMS];
+  const float* u;               // nullptr: no proposal to test
+  long long us;
+  const float* l_star;
+  long long lss;
+  const float* l_t;             // the carried l_t
+  long long lts;
+  const unsigned char* ok;      // in_support
+  long long oks;
+  const float* ft;              // nullptr: multiply by ft_inv
+  long long fts;
+  float ft_inv;
+  float* out;                   // (8, C) parameters
+  float* l_out;                 // (C,)
+  unsigned char* accept;        // (C,) accepted (success: true without a proposal)
+  int C;
+};
+
+struct TailArgs {
+  AcceptArgs acc;
+  const float* score;           // D3's score, or nullptr: l_t kept
+  long long sc_s;
+  const int* pos;               // (C, n) at strides, or nullptr: no metrics
+  long long pos_rs, pos_cs;
+  const int* activ;
+  long long act_rs, act_cs;
+  const int* len_bp;
+  long long len_rs, len_cs;
+  long long* n_contigs;         // (C,) out
+  float* mean_len;              // (C,) out
+  unsigned long long* counter;  // the launch key's int64 counter
+  int n;
+};
+
+__global__ void __launch_bounds__(TAIL_THREADS) step_tail_kernel(TailArgs a) {
+  __shared__ long long parts[2][TAIL_THREADS / 32];
+  const int c = blockIdx.x, t = threadIdx.x;
+  if (c == 0 && t == 0) atomicAdd(a.counter, 1ULL);
+  // thread 0's inputs, loaded before the reductions so that they overlap
+  const AcceptArgs& r = a.acc;
+  const bool test = r.u != nullptr;
+  float l = 0.0f, s = 0.0f, l_star = 0.0f, u = 0.0f, ft = 0.0f;
+  float par[N_PARAMS], tst[N_PARAMS];
+  bool in_support = false;
+  if (t == 0) {
+    l = r.l_t[r.lts * c];
+    if (a.score != nullptr) s = a.score[a.sc_s * c];
+    if (test) {
+      l_star = r.l_star[r.lss * c];
+      u = r.u[r.us * c];
+      in_support = r.ok[r.oks * c];
+      if (r.ft != nullptr) ft = r.ft[r.fts * c];
+#pragma unroll
+      for (int k = 0; k < N_PARAMS; ++k) {
+        tst[k] = r.test[k][r.ts[k] * c];
+        par[k] = r.par[k][r.ps[k] * c];
+      }
+    }
+  }
+  long long n_contigs = 0, active_bp = 0;
+  if (a.pos != nullptr) {      // the same for the whole block
+    for (long long i = t; i < a.n; i += blockDim.x) {
+      n_contigs += a.pos[a.pos_rs * c + a.pos_cs * i] == 0;
+      if (a.activ[a.act_rs * c + a.act_cs * i] == 1) active_bp += a.len_bp[a.len_rs * c + a.len_cs * i];
+    }
+    for (int o = 16; o > 0; o >>= 1) {
+      n_contigs += __shfl_down_sync(FULL, n_contigs, o);
+      active_bp += __shfl_down_sync(FULL, active_bp, o);
+    }
+    if ((t & 31) == 0) {
+      parts[0][t >> 5] = n_contigs;
+      parts[1][t >> 5] = active_bp;
+    }
+    __syncthreads();
+    if (t == 0) {
+      for (int w = 1; w < static_cast<int>(blockDim.x >> 5); ++w) {
+        n_contigs += parts[0][w];
+        active_bp += parts[1][w];
+      }
+    }
+  }
+  if (t != 0) return;
+  if (a.score != nullptr && isfinite(s)) l = s;
+  bool acc = true;
+  if (test) {
+    const float diff = fsub(l_star, l);
+    const float ratio = expf(r.ft ? fdiv(diff, ft) : fmul(diff, r.ft_inv));
+    acc = in_support && ratio >= u;
+#pragma unroll
+    for (int k = 0; k < N_PARAMS; ++k) r.out[k * r.C + c] = acc ? tst[k] : par[k];
+    if (acc) l = l_star;
+  }
+  r.l_out[c] = l;
+  r.accept[c] = acc;
+  if (a.pos == nullptr) return;
+  a.n_contigs[c] = n_contigs;
+  a.mean_len[c] = fdiv(__ll2float_rn(active_bp), __ll2float_rn(n_contigs));
 }
 
 // ---- D3: the selection and the commit ----------------------------------------
@@ -650,15 +770,12 @@ bool select_ok(const SelectArgs& s) {
          s.cluster <= MAX_SELECT_CLUSTER && static_cast<long long>(s.C) * s.cluster <= 0x7fffffffLL;
 }
 
-// dynamic shared memory of neighbours_kernel: keys, top slots, 3 ints an entry
-int neighbours_smem(int n_top, int d_eff, int m) { return 4 * (n_top + d_eff + 3 * m); }
-
 }  // namespace
 
 extern "C" {
 
 // sizeof each argument block, for the wrapper's check of its ctypes mirror:
-// 0 propose, 1 accept, 2 neighbours, 3 dense, 4 delta
+// 0 propose, 1 accept, 2 neighbours, 3 dense, 4 delta, 5 head, 6 tail
 int step_args_size(int which) {
   switch (which) {
     case 0: return sizeof(ProposeArgs);
@@ -666,6 +783,8 @@ int step_args_size(int which) {
     case 2: return sizeof(NeighbourArgs);
     case 3: return sizeof(DenseArgs);
     case 4: return sizeof(DeltaArgs);
+    case 5: return sizeof(HeadArgs);
+    case 6: return sizeof(TailArgs);
   }
   return -1;
 }
@@ -675,29 +794,39 @@ int step_args_size(int which) {
 // *Args struct), does not synchronise, and returns the cudaError_t of the
 // launch (cudaErrorInvalidValue for a block it refuses).
 
-int nuisance_propose(const void* args, void* stream) {
-  const ProposeArgs* a = static_cast<const ProposeArgs*>(args);
-  if (a->C <= 0) return (int)cudaErrorInvalidValue;
-  nuisance_propose_kernel<<<a->C, PROPOSE_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(*a);
-  return (int)cudaGetLastError();
-}
-
-int nuisance_accept(const void* args, void* stream) {
-  const AcceptArgs* a = static_cast<const AcceptArgs*>(args);
-  if (a->C <= 0) return (int)cudaErrorInvalidValue;
-  const int blocks = (a->C + ACCEPT_THREADS - 1) / ACCEPT_THREADS;
-  nuisance_accept_kernel<<<blocks, ACCEPT_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(*a);
-  return (int)cudaGetLastError();
-}
-
-int neighbours(const void* args, int n_chains, void* stream) {
-  const NeighbourArgs* a = static_cast<const NeighbourArgs*>(args);
-  if (n_chains <= 0 || a->n_top <= 0 || a->mc <= 0 || a->d_eff < 0 || a->d_eff > a->n_top ||
-      a->m != (a->d_eff + 1) * a->mc)
+// the head: max(nb.C, pr.C) blocks of one warp a part that is on
+int step_head(const void* args, void* stream) {
+  const HeadArgs* a = static_cast<const HeadArgs*>(args);
+  const NeighbourArgs& nb = a->nb;
+  const bool draw = nb.C > 0, propose = a->pr.C > 0;
+  if ((!draw && !propose) || nb.C < 0 || a->pr.C < 0 || a->counter == nullptr)
     return (int)cudaErrorInvalidValue;
-  const int smem = neighbours_smem(a->n_top, a->d_eff, a->m);
-  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
-  neighbours_kernel<<<n_chains, NB_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(*a);
+  int smem = 0;
+  if (draw) {
+    if (nb.n_top <= 0 || nb.mc <= 0 || nb.d_eff < 1 || nb.d_eff > nb.n_top ||
+        nb.m != (nb.d_eff + 1) * nb.mc)
+      return (int)cudaErrorInvalidValue;
+    smem = 4 * head_smem_ints(nb.n_top, nb.d_eff, nb.m);
+    if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+  }
+  const int blocks = max(nb.C, a->pr.C);
+  step_head_kernel<<<blocks, 32 * (draw + propose), smem, static_cast<cudaStream_t>(stream)>>>(
+      *a);
+  return (int)cudaGetLastError();
+}
+
+// the tail: a block a chain, TAIL_THREADS with the metrics, one warp without
+int step_tail(const void* args, void* stream) {
+  const TailArgs* a = static_cast<const TailArgs*>(args);
+  const AcceptArgs& r = a->acc;
+  if (r.C <= 0 || a->counter == nullptr || r.l_t == nullptr || r.l_out == nullptr ||
+      r.accept == nullptr || (r.u != nullptr && (r.l_star == nullptr || r.ok == nullptr ||
+                                                 r.out == nullptr)) ||
+      (a->pos != nullptr && (a->n <= 0 || a->activ == nullptr || a->len_bp == nullptr ||
+                             a->n_contigs == nullptr || a->mean_len == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  const int threads = a->pos != nullptr ? TAIL_THREADS : 32;
+  step_tail_kernel<<<r.C, threads, 0, static_cast<cudaStream_t>(stream)>>>(*a);
   return (int)cudaGetLastError();
 }
 

@@ -7,14 +7,18 @@ D1 is the nuisance move (``core.mcmc.nuisance_propose`` and
 (``core.mcmc.sample_neighbours``), D3 the selection and commit of the dense
 step (``core.mcmc.select_commit_dense``) and of the delta step
 (``core.delta.select_commit_delta``). The JAX package has no Pallas kernel
-for them: XLA fuses their jnp code inside the jitted step. The kernel
-source is ``graal_tpu_torch/csrc/step.cu``; its header says what bounds
-them on the card and how the design answers that. Each call is one launch
-on the current stream, with no synchronisation and no host read, into
-fresh outputs (the delta commit writes the state it is given), so a
-captured step (``core.graphs.Scan``) captures it. D3 is a thread block
-cluster a chain (:func:`select_cluster`) and adds one to its launch key's
-counter itself; D1 and D2 are counted by the wrapper beside the launch.
+for them: XLA fuses their jnp code inside the jitted step. They run as
+three kernels of ``graal_tpu_torch/csrc/step.cu``, whose header says what
+bounds them on the card and how the design answers that: the step's head
+(:meth:`StepKernels.step_head`: D2's draw with D1's proposal beside it,
+either part on its own too), D3, and the step's tail
+(:meth:`StepKernels.step_tail`: D1's Metropolis test with the dense cycle
+bodies' l_t select and metrics, each part optional). Each call is one
+launch on the current stream, with no synchronisation and no host read,
+into fresh outputs (the delta commit writes the state it is given), so a
+captured step (``core.graphs.Scan``) captures it. Every kernel adds one to
+its launch key's counter itself (D3 is a thread block cluster a chain,
+:func:`select_cluster`).
 
 :data:`STEP` is the one wrapper: the public functions send tensors on a
 card to it and any others to their plain versions; the wrapper itself
@@ -41,8 +45,8 @@ N_FIELDS = 11         # GenomeState
 N_OPS = 13            # candidates a neighbour slot
 MUTABLE = ("pos", "id_c", "start_bp", "circ", "l_cont", "l_cont_bp", "ori", "activ")
 # the launch keys, and the kernels of the kernels line they make up
-KINDS = ("nuisance_propose", "nuisance_accept", "neighbours", "select_dense", "select_delta")
-GROUPS = {"nuisance": KINDS[:2], "neighbours": KINDS[2:3], "select_commit": KINDS[3:]}
+KINDS = ("step_head", "step_tail", "select_dense", "select_delta")
+GROUPS = {"step_head": KINDS[:1], "step_tail": KINDS[1:2], "select_commit": KINDS[2:]}
 # solve_d_max's bracket and step as the plain version holds them in f32
 SOLVE_WIDTH = 64
 LLO0 = float(np.float32(np.log(1e-2)))
@@ -74,7 +78,18 @@ class NeighbourArgs(ctypes.Structure):
                 ("id_d", _P), ("idd_rs", _I64), ("idd_cs", _I64), ("rep", _P), ("rep_rs", _I64),
                 ("rep_cs", _I64), ("pk", _P), ("xk", _P), ("disp", _P), ("blacklist", _P),
                 ("ids", _P), ("valid", _P), ("n_top", _I32), ("mc", _I32), ("d_eff", _I32),
-                ("m", _I32)]
+                ("m", _I32), ("C", _I32)]
+
+
+class HeadArgs(ctypes.Structure):
+    _fields_ = [("nb", NeighbourArgs), ("pr", ProposeArgs), ("counter", _P)]
+
+
+class TailArgs(ctypes.Structure):
+    _fields_ = [("acc", AcceptArgs), ("score", _P), ("sc_s", _I64), ("pos", _P),
+                ("pos_rs", _I64), ("pos_cs", _I64), ("activ", _P), ("act_rs", _I64),
+                ("act_cs", _I64), ("len_bp", _P), ("len_rs", _I64), ("len_cs", _I64),
+                ("n_contigs", _P), ("mean_len", _P), ("counter", _P), ("n", _I32)]
 
 
 class SelectArgs(ctypes.Structure):
@@ -99,7 +114,7 @@ class DeltaArgs(ctypes.Structure):
                 ("rows_valid", _P), ("n_over", _P), ("f_max", _I32)]
 
 
-ARGS = (ProposeArgs, AcceptArgs, NeighbourArgs, DenseArgs, DeltaArgs)
+ARGS = (ProposeArgs, AcceptArgs, NeighbourArgs, DenseArgs, DeltaArgs, HeadArgs, TailArgs)
 
 
 @functools.cache
@@ -113,13 +128,10 @@ def load_library():
         if lib.step_args_size(k) != ctypes.sizeof(cls):
             raise RuntimeError(f"step.cu and ops/step_cuda.py disagree on {cls.__name__}: "
                                f"{lib.step_args_size(k)} != {ctypes.sizeof(cls)} bytes")
-    for name in ("nuisance_propose", "nuisance_accept", "select_commit_dense",
-                 "select_commit_delta"):
+    for name in ("step_head", "step_tail", "select_commit_dense", "select_commit_delta"):
         fn = getattr(lib, name)
         fn.argtypes = [_P, _P]
         fn.restype = _I32
-    lib.neighbours.argtypes = [_P, _I32, _P]
-    lib.neighbours.restype = _I32
     return lib
 
 
@@ -274,6 +286,60 @@ def check_neighbours(u, f_a, id_d, rep, nb, delta: int):
         fields[0], fields[1]
 
 
+def check_tail(l_t, score=None, accept=None, metrics=None):
+    """What the step's tail takes: ``l_t`` f32; ``score`` None or f32;
+    ``accept`` None or (u, test, params, l_star, f_t, in_support) as
+    :func:`check_accept` takes them with ``l_t``; ``metrics`` None or the
+    state's (pos, activ, len_bp), int32 of one shape, (n,) or (C, n) at any
+    strides; all on one device, each per-chain input one value or one a
+    chain, their shapes broadcasting. Returns (C, the shape of l_t, accept
+    and the metrics out, each accepted parameter's shape or None, the flat
+    inputs); raises ValueError on anything else."""
+    if not isinstance(l_t, torch.Tensor):
+        raise ValueError("l_t: need a tensor")
+    dev = l_t.device
+    shapes, c_acc, par_shapes = [l_t.shape], 1, None
+    if score is not None:
+        if not isinstance(score, torch.Tensor):
+            raise ValueError("score: need a tensor")
+        shapes.append(score.shape)
+    if accept is not None:
+        if len(accept) != 6:
+            raise ValueError("accept: need (u, test, params, l_star, f_t, in_support)")
+        u, test, params, l_star, f_t, ok = accept
+        c_acc, acc_shape, par_shapes, _ = check_accept(u, test, params, l_star, l_t, f_t, ok)
+        shapes.append(acc_shape)
+    if metrics is not None:
+        if len(metrics) != 3:
+            raise ValueError("metrics: need (pos, activ, len_bp)")
+        for name, x in zip(("pos", "activ", "len_bp"), metrics):
+            if not isinstance(x, torch.Tensor) or x.device != dev or x.dtype != torch.int32 \
+                    or x.dim() not in (1, 2) or x.shape != metrics[0].shape or x.shape[-1] < 1:
+                raise ValueError(f"state.{name}: need int32 (n,) or (C, n) on {dev}, one "
+                                 "shape for pos, activ and len_bp")
+        shapes.append(metrics[0].shape[:-1])
+    try:
+        out_shape = torch.broadcast_shapes(*shapes)
+        if par_shapes is not None:
+            par_shapes = [torch.broadcast_shapes(x, out_shape) for x in par_shapes]
+    except RuntimeError as e:
+        raise ValueError(f"shapes do not broadcast: {e}") from None
+    c = max(math.prod(out_shape), c_acc, 1)
+    flat = dict(l_t=_per_chain(l_t, "l_t", c, torch.float32, dev))
+    if score is not None:
+        flat["score"] = _per_chain(score, "score", c, torch.float32, dev)
+    if accept is not None:
+        flat.update(u=_per_chain(u, "u", c, torch.float32, dev),
+                    l_star=_per_chain(l_star, "l_star", c, torch.float32, dev),
+                    ok=_per_chain(ok, "in_support", c, torch.bool, dev),
+                    ft=_temperature(f_t, c, dev), test=_params(test, "test", c, dev),
+                    par=_params(params, "params", c, dev))
+    if metrics is not None:
+        flat["metrics"] = [(x, x.stride(0) if x.dim() == 2 else 0, x.stride(-1))
+                           for x in metrics]
+    return c, out_shape, par_shapes, flat
+
+
 def check_select(score, ids, valid, f_a, gumbel, f_t, blacklist, overflow=None):
     """What the selection of ``select_commit_*`` takes, on a chains axis:
     ``score`` f32 (C, m, 13), ``ids`` int32 and ``valid`` bool (C, m),
@@ -375,9 +441,10 @@ def _select_args(score, ids, valid, f_a, gumbel, f_t, blacklist, thresh, overflo
 
 
 class StepKernels(Counted):
-    """The step kernels D1-D3 on a card; see the module docstring.
-    ``n_launches`` counts the launches on the card, by kind (``KINDS``,
-    ``ops.counts``): D3 adds one to its kind's counter itself."""
+    """The step kernels on a card (the head, D3, the tail); see the module
+    docstring. ``n_launches`` counts the launches on the card, by kind
+    (``KINDS``, ``ops.counts``): every kernel adds one to its kind's counter
+    itself, and nothing is counted beside a launch."""
 
     def __init__(self):
         self.launches = LaunchCount()
@@ -394,84 +461,134 @@ class StepKernels(Counted):
         if rc != 0:
             raise RuntimeError(f"{kind} launch failed: cudaError {rc}")
 
-    def _launch(self, kind, dev, rc):
-        """Raise on a refused launch, else count it (D1, D2: D3 counts
-        itself)."""
-        self._refused(kind, rc)
-        self.launches.add(dev, kind)
-
-    def nuisance_propose(self, id_modif, eps, params, d_max_cap=None, log_nfpb=None):
-        """D1's proposal: (test c1, slope, d_max, fact, v_inter each of
-        ``id_modif``'s shape, in_support, the test set's (..., 10) parameter
-        row or None without ``log_nfpb``)."""
-        dev = self._device(id_modif)
-        c, (idm, idm_s), (eps_f, eps_s), par = check_propose(id_modif, eps, params, d_max_cap,
-                                                             log_nfpb)
+    def step_head(self, draw=None, propose=None):
+        """The step's head, one launch: ``draw`` None or the neighbour
+        draw's (u, f_a, id_d, rep, nb, delta) as :func:`check_neighbours`
+        takes them; ``propose`` None or the nuisance proposal's (id_modif,
+        eps, params, d_max_cap, log_nfpb) as :func:`check_propose` takes
+        them; at least one, on one card. Returns (the draw's (ids int32,
+        valid bool), (m,) for a 0-d ``f_a`` or (C, m), or None; the
+        proposal's (test c1, slope, d_max, fact, v_inter each of
+        ``id_modif``'s shape, in_support, the test set's (..., 10)
+        parameter row or None without ``log_nfpb``), or None)."""
+        if draw is None and propose is None:
+            raise ValueError("step_head: neither a draw nor a proposal")
+        dev = self._device(draw[1] if draw is not None else propose[0])
+        nb_args, pr_args = NeighbourArgs(C=0), ProposeArgs(C=0)
+        drawn = proposed = None
+        if draw is not None:
+            u, f_a, id_d, rep, nb, delta = draw
+            c, m, d_eff, (u, u_rs, u_cs), (fa, fa_s), (idd, idd_rs, idd_cs), \
+                (rp, rep_rs, rep_cs) = check_neighbours(u, f_a, id_d, rep, nb, delta)
+            ids = torch.empty((c, m), dtype=torch.int32, device=dev)
+            valid = torch.empty((c, m), dtype=torch.bool, device=dev)
+            nb_args = NeighbourArgs(
+                u=u.data_ptr(), u_rs=u_rs, u_cs=u_cs, fa=fa.data_ptr(), fa_s=fa_s,
+                id_d=idd.data_ptr(), idd_rs=idd_rs, idd_cs=idd_cs, rep=rp.data_ptr(),
+                rep_rs=rep_rs, rep_cs=rep_cs, pk=nb.pk.data_ptr(), xk=nb.xk.data_ptr(),
+                disp=nb.dispatcher.data_ptr(), blacklist=nb.blacklist.data_ptr(),
+                ids=ids.data_ptr(), valid=valid.data_ptr(), n_top=nb.pk.shape[1],
+                mc=nb.dispatcher.shape[1], d_eff=d_eff, m=m, C=c)
+            drawn = (ids[0], valid[0]) if f_a.dim() == 0 else (ids, valid)
+        if propose is not None:
+            id_modif, eps, params, d_max_cap, log_nfpb = propose
+            if id_modif.device != dev:
+                raise ValueError(f"id_modif: need a tensor on {dev}, got {id_modif.device}")
+            c, (idm, idm_s), (eps_f, eps_s), par = check_propose(id_modif, eps, params,
+                                                                 d_max_cap, log_nfpb)
+            out = torch.empty((5, c), dtype=torch.float32, device=dev)
+            ok = torch.empty(c, dtype=torch.bool, device=dev)
+            row = None if log_nfpb is None else torch.empty((c, N_ROW), dtype=torch.float32,
+                                                            device=dev)
+            pr_args = ProposeArgs(
+                p=(_P * N_PARAMS)(*[x.data_ptr() for x, _ in par]),
+                ps=(_I64 * N_PARAMS)(*[s for _, s in par]), idm=idm.data_ptr(), idm_s=idm_s,
+                eps=eps_f.data_ptr(), eps_s=eps_s, log_nfpb=_ptr(log_nfpb),
+                out=out.data_ptr(), ok=ok.data_ptr(), row=_ptr(row),
+                cap=float(np.float32(d_max_cap)) if d_max_cap is not None else 0.0,
+                has_cap=int(d_max_cap is not None), llo0=LLO0, lhi0=LHI0, inv_w=INV_W, C=c)
+            shape = id_modif.shape
+            proposed = (tuple(x.reshape(shape) for x in out.unbind(0)), ok.reshape(shape),
+                        None if row is None else row.reshape(tuple(shape) + (N_ROW,)))
         lib = load_library()
-        out = torch.empty((5, c), dtype=torch.float32, device=dev)
-        ok = torch.empty(c, dtype=torch.bool, device=dev)
-        row = None if log_nfpb is None else torch.empty((c, N_ROW), dtype=torch.float32,
-                                                        device=dev)
-        a = ProposeArgs(p=(_P * N_PARAMS)(*[x.data_ptr() for x, _ in par]),
-                        ps=(_I64 * N_PARAMS)(*[s for _, s in par]), idm=idm.data_ptr(),
-                        idm_s=idm_s, eps=eps_f.data_ptr(), eps_s=eps_s, log_nfpb=_ptr(log_nfpb),
-                        out=out.data_ptr(), ok=ok.data_ptr(), row=_ptr(row),
-                        cap=float(np.float32(d_max_cap)) if d_max_cap is not None else 0.0,
-                        has_cap=int(d_max_cap is not None), llo0=LLO0, lhi0=LHI0, inv_w=INV_W,
-                        C=c)
-        self._launch("nuisance_propose", dev, lib.nuisance_propose(
-            ctypes.byref(a), torch.cuda.current_stream(dev).cuda_stream))
-        shape = id_modif.shape
-        if row is not None:
-            row = row.reshape(tuple(shape) + (N_ROW,))
-        return tuple(x.reshape(shape) for x in out.unbind(0)), ok.reshape(shape), row
-
-    def nuisance_accept(self, u, test, params, l_star, l_t, f_t, in_support):
-        """D1's Metropolis test: (the 8 parameters, each of its broadcast
-        shape, l_out, accept)."""
-        dev = self._device(u)
-        c, acc_shape, shapes, f = check_accept(u, test, params, l_star, l_t, f_t, in_support)
-        lib = load_library()
-        out = torch.empty((N_PARAMS, c), dtype=torch.float32, device=dev)
-        l_out = torch.empty(c, dtype=torch.float32, device=dev)
-        acc = torch.empty(c, dtype=torch.bool, device=dev)
-        ft, fts, ft_inv = f["ft"]
-        a = AcceptArgs(test=(_P * N_PARAMS)(*[x.data_ptr() for x, _ in f["test"]]),
-                       ts=(_I64 * N_PARAMS)(*[s for _, s in f["test"]]),
-                       par=(_P * N_PARAMS)(*[x.data_ptr() for x, _ in f["par"]]),
-                       ps=(_I64 * N_PARAMS)(*[s for _, s in f["par"]]),
-                       u=f["u"][0].data_ptr(), us=f["u"][1], l_star=f["l_star"][0].data_ptr(),
-                       lss=f["l_star"][1], l_t=f["l_t"][0].data_ptr(), lts=f["l_t"][1],
-                       ok=f["ok"][0].data_ptr(), oks=f["ok"][1], ft=_ptr(ft), fts=fts,
-                       ft_inv=ft_inv, out=out.data_ptr(), l_out=l_out.data_ptr(),
-                       accept=acc.data_ptr(), C=c)
-        self._launch("nuisance_accept", dev, lib.nuisance_accept(
-            ctypes.byref(a), torch.cuda.current_stream(dev).cuda_stream))
-
-        def shaped(x, shape):
-            return (x if x.numel() == math.prod(shape) else x[:1]).reshape(shape)
-
-        return (tuple(shaped(x, s) for x, s in zip(out.unbind(0), shapes)),
-                shaped(l_out, acc_shape), shaped(acc, acc_shape))
+        a = HeadArgs(nb=nb_args, pr=pr_args,
+                     counter=self.launches.counter(dev, "step_head").data_ptr())
+        self._refused("step_head", lib.step_head(ctypes.byref(a),
+                                                 torch.cuda.current_stream(dev).cuda_stream))
+        return drawn, proposed
 
     def neighbours(self, u, f_a, id_d, rep, nb, delta: int):
-        """D2: (ids int32, valid bool), (m,) for a 0-d ``f_a`` or (C, m)."""
-        dev = self._device(f_a)
-        c, m, d_eff, (u, u_rs, u_cs), (fa, fa_s), (idd, idd_rs, idd_cs), \
-            (rp, rep_rs, rep_cs) = check_neighbours(u, f_a, id_d, rep, nb, delta)
+        """D2 alone (the head with no proposal): (ids int32, valid bool),
+        (m,) for a 0-d ``f_a`` or (C, m)."""
+        return self.step_head(draw=(u, f_a, id_d, rep, nb, delta))[0]
+
+    def nuisance_propose(self, id_modif, eps, params, d_max_cap=None, log_nfpb=None):
+        """D1's proposal alone (the head with no draw): (test c1, slope,
+        d_max, fact, v_inter each of ``id_modif``'s shape, in_support, the
+        test set's (..., 10) parameter row or None without ``log_nfpb``)."""
+        return self.step_head(propose=(id_modif, eps, params, d_max_cap, log_nfpb))[1]
+
+    def step_tail(self, l_t, score=None, accept=None, metrics=None):
+        """The step's tail, one launch, as :func:`check_tail` takes its
+        arguments: l_t <- ``score`` where it is finite; with ``accept`` the
+        Metropolis test and its selects; with ``metrics`` each chain's
+        n_contigs and mean_len. Returns (the 8 parameters, each of its
+        broadcast shape, or None without ``accept``; l_out; accepted (true
+        without ``accept``); n_contigs int64 and mean_len f32, or None
+        without ``metrics``), l_out and the rest of the broadcast shape of
+        l_t, score, the acceptance and the metrics' chains."""
+        dev = self._device(l_t)
+        c, shape, par_shapes, f = check_tail(l_t, score, accept, metrics)
+        l_out = torch.empty(c, dtype=torch.float32, device=dev)
+        acc = torch.empty(c, dtype=torch.bool, device=dev)
+        out = None if accept is None else torch.empty((N_PARAMS, c), dtype=torch.float32,
+                                                      device=dev)
+        n_contigs = mean_len = None
+        if metrics is not None:
+            n_contigs = torch.empty(c, dtype=torch.int64, device=dev)
+            mean_len = torch.empty(c, dtype=torch.float32, device=dev)
+        acc_args = AcceptArgs(l_t=f["l_t"][0].data_ptr(), lts=f["l_t"][1], l_out=l_out.data_ptr(),
+                              accept=acc.data_ptr(), C=c)
+        if accept is not None:
+            ft, fts, ft_inv = f["ft"]
+            acc_args = AcceptArgs(
+                test=(_P * N_PARAMS)(*[x.data_ptr() for x, _ in f["test"]]),
+                ts=(_I64 * N_PARAMS)(*[s for _, s in f["test"]]),
+                par=(_P * N_PARAMS)(*[x.data_ptr() for x, _ in f["par"]]),
+                ps=(_I64 * N_PARAMS)(*[s for _, s in f["par"]]),
+                u=f["u"][0].data_ptr(), us=f["u"][1], l_star=f["l_star"][0].data_ptr(),
+                lss=f["l_star"][1], l_t=f["l_t"][0].data_ptr(), lts=f["l_t"][1],
+                ok=f["ok"][0].data_ptr(), oks=f["ok"][1], ft=_ptr(ft), fts=fts, ft_inv=ft_inv,
+                out=out.data_ptr(), l_out=l_out.data_ptr(), accept=acc.data_ptr(), C=c)
+        a = TailArgs(acc=acc_args, counter=self.launches.counter(dev, "step_tail").data_ptr())
+        if score is not None:
+            a.score, a.sc_s = f["score"][0].data_ptr(), f["score"][1]
+        if metrics is not None:
+            (pos, a.pos_rs, a.pos_cs), (act, a.act_rs, a.act_cs), (lbp, a.len_rs, a.len_cs) = \
+                f["metrics"]
+            a.pos, a.activ, a.len_bp = pos.data_ptr(), act.data_ptr(), lbp.data_ptr()
+            a.n_contigs, a.mean_len, a.n = n_contigs.data_ptr(), mean_len.data_ptr(), \
+                pos.shape[-1]
         lib = load_library()
-        ids = torch.empty((c, m), dtype=torch.int32, device=dev)
-        valid = torch.empty((c, m), dtype=torch.bool, device=dev)
-        a = NeighbourArgs(u=u.data_ptr(), u_rs=u_rs, u_cs=u_cs, fa=fa.data_ptr(), fa_s=fa_s,
-                          id_d=idd.data_ptr(), idd_rs=idd_rs, idd_cs=idd_cs, rep=rp.data_ptr(),
-                          rep_rs=rep_rs, rep_cs=rep_cs, pk=nb.pk.data_ptr(),
-                          xk=nb.xk.data_ptr(), disp=nb.dispatcher.data_ptr(),
-                          blacklist=nb.blacklist.data_ptr(), ids=ids.data_ptr(),
-                          valid=valid.data_ptr(), n_top=nb.pk.shape[1],
-                          mc=nb.dispatcher.shape[1], d_eff=d_eff, m=m)
-        self._launch("neighbours", dev, lib.neighbours(
-            ctypes.byref(a), c, torch.cuda.current_stream(dev).cuda_stream))
-        return (ids[0], valid[0]) if f_a.dim() == 0 else (ids, valid)
+        self._refused("step_tail", lib.step_tail(ctypes.byref(a),
+                                                 torch.cuda.current_stream(dev).cuda_stream))
+
+        def shaped(x, to):
+            return (x if x.numel() == math.prod(to) else x[:1]).reshape(to)
+
+        fields = None if out is None else tuple(shaped(x, s)
+                                                for x, s in zip(out.unbind(0), par_shapes))
+        return (fields, shaped(l_out, shape), shaped(acc, shape),
+                None if n_contigs is None else shaped(n_contigs, shape),
+                None if mean_len is None else shaped(mean_len, shape))
+
+    def nuisance_accept(self, u, test, params, l_star, l_t, f_t, in_support):
+        """D1's Metropolis test alone (the tail with no score and no
+        metrics): (the 8 parameters, each of its broadcast shape, l_out,
+        accept)."""
+        fields, l_out, acc, _, _ = self.step_tail(l_t, accept=(u, test, params, l_star, f_t,
+                                                               in_support))
+        return fields, l_out, acc
 
     def select_dense(self, state, cands, score, ids, valid, f_a, gumbel, f_t, blacklist,
                      thresh):

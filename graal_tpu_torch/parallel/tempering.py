@@ -80,8 +80,8 @@ def make_tempered_cycle(table, obs, nb: mcmc.NeighbourTable, delta: int, scorer=
         params, f_ts = consts
         draws, f_a = x
         states, (score, _, _) = step(states, draws, params, f_a, f_ts)
-        l_ts = torch.where(torch.isfinite(score), score, l_ts)
-        return (states, l_ts), states.n_contigs()
+        tail = mcmc.step_tail(l_ts, score, state=states)   # l_ts and the contig counts
+        return (states, tail.l_t), tail.n_contigs
 
     scan = graphs.Scan(body, table.owner.device, capture=capture)
 

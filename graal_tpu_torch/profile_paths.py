@@ -57,8 +57,9 @@ Prints one JSON line per path and mode (``mode``: graph or eager):
   scalars, parameter rows, sub-row vectors and window keys), ``vectors``
   (H1: the dense scorers' sub-fragment vectors and parameter row),
   ``scan_io`` (H2 / H3: the captured cycle's per-step
-  loads and stores), ``step`` (D1-D3: the nuisance move, the neighbour draw,
-  the selection and commit), ``scorers`` (B1-B4), ``gather`` (gathers, scatters and
+  loads and stores), ``step`` (the step's head, the selection and commit
+  D3, the step's tail; an earlier tree's nuisance move and neighbour draw
+  D1 / D2 class here too), ``scorers`` (B1-B4), ``gather`` (gathers, scatters and
   index kernels), ``elementwise`` (torch's elementwise kernels),
   ``reduce``, ``copy`` (memcpy, memset) and ``other``; a step's count of
   each is its calls per step;
@@ -266,8 +267,11 @@ KERNEL_CLASSES = (("catalogue", ("catalogue",)),
                   ("delta_inputs", ("delta_slots_kernel", "delta_vectors_kernel")),
                   ("vectors", ("vectors_kernel",)),
                   ("scan_io", ("scan_load_kernel", "scan_store_kernel")),
-                  ("step", ("nuisance_propose_kernel", "nuisance_accept_kernel",
-                            "neighbours_kernel", "select_commit_")),
+                  # the step's head and tail, D3; and the kernels the head and tail
+                  # replaced, so that an earlier tree's rows class the same way
+                  ("step", ("step_head_kernel", "step_tail_kernel", "select_commit_",
+                            "nuisance_propose_kernel", "nuisance_accept_kernel",
+                            "neighbours_kernel")),
                   ("scorers", ("ll_dense", "ll_mini", "ll_repeat", "obsgrid")),
                   ("gather", ("gather", "scatter", "index")),
                   ("elementwise", ("elementwise_kernel",)),

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time the port's CUDA kernels B1-B4, C1 and D3 at the shapes their paths
-give them, to hold one tree's kernels against another's on one GPU.
+"""Time the port's CUDA kernels B1-B4, C1, D3 and the step's head and tail
+at the shapes their paths give them, to hold one tree's kernels against
+another's on one GPU.
 
     python3 kernel_times.py [--tree DIR] [--kernels B,C,D] [--sweep]
 
@@ -35,9 +36,19 @@ buckets beside B2. C1 (the EM catalogue) at the EM step's call (B = 5,
 n = 384), on the delta step's mini-states at bucket 1,024 (M = 5) and on
 4 chains' at 16,384 (M = 20), both with the base slot; D3 (the selection
 and commit) on the dense flagship step, the 100k delta step (M = 5) and
-4 chains' at 16,384 (M = 20), its "check" the drawn slots' sum.
-``--kernels`` keeps the named groups (B: B1-B4, C: C1, D: D3; default
-all). ``--sweep`` (a tree whose wrappers have them) also times C1 and D3
+4 chains' at 16,384 (M = 20), its "check" the drawn slots' sum. The
+step's head and tail ("head ..." / "tail ..."): a tree whose wrapper has
+``step_head`` launches them; an earlier tree does the same work with its
+own calls, so the two designs are timed on the same inputs: the dense EM
+step's head (the draw and the nuisance proposal: D2 and D1's proposal
+before) and tail (the l_t select, the Metropolis test and the cycle
+metrics: D1's test and the body's torch glue before), the tempered
+chains' head (the draw, C = 4) and tail (the select and the contig
+counts), the cycle end's head (the proposal, 4 chains) and tail (the
+test), and the 100k delta step's head (the draw); "check" sums their
+outputs (equal across the two designs but on the tempered tail, which
+computes mean_len beside the earlier body's count). ``--kernels`` keeps the named groups (B: B1-B4, C: C1, D: D3
+and the head and tail; default all). ``--sweep`` (a tree whose wrappers have them) also times C1 and D3
 under other cluster sizes (``candidates_cuda.plan``,
 ``step_cuda.select_cluster``), as "SHAPE [K=k]" entries.
 """
@@ -251,6 +262,94 @@ def select_shapes(device, sc, gen, sweep):
     return out
 
 
+def step_part_shapes(device, sc, gen):
+    """The step's head and tail at the dense EM step's, the tempered
+    chains', the cycle end's and the 100k delta step's shapes: one launch
+    each on a tree whose wrapper has ``step_head``, else the earlier
+    design's calls for the same work (see the module docstring)."""
+    import torch
+    from graal_tpu_torch.core import mcmc
+    from graal_tpu_torch.core.state import GenomeState
+    from graal_tpu_torch.entry import problem
+    from graal_tpu_torch.ops.likelihood_cuda import make_dense_scorer
+    from graal_tpu_torch.ops.step_cuda import STEP
+
+    new = hasattr(STEP, "step_head")
+    state, table, params, obs, nb = problem(n_bins=384, device=device)
+    nfpb = make_dense_scorer(table, obs, device).log_nfpb
+    chains = GenomeState(*[torch.stack(xs) for xs in zip(
+        state, mcmc.explode_genome(state), state, mcmc.explode_genome(state))])
+    c = smoke.CHAINS
+    u1 = torch.rand(nb.pk.shape[1], generator=gen, device=device)
+    f1 = torch.tensor(7, device=device)
+    uc = torch.rand((c, nb.pk.shape[1]), generator=gen, device=device)
+    fc = torch.randint(0, state.n_frags, (c,), generator=gen, device=device)
+    idm, eps = torch.tensor(0, device=device), torch.tensor(0.3, device=device)
+    pc = smoke.chain_params(sc["params"])
+    idm_c = torch.arange(c, device=device) % 4
+    eps_c = torch.randn(c, generator=gen, device=device)
+    l1, s1 = torch.tensor(-1.0e5, device=device), torch.tensor(-0.99999e5, device=device)
+    test1 = params._replace(fact=params.fact * 1.01)
+    ok1 = torch.tensor(True, device=device)
+    lc = torch.full((c,), -1.0e5, device=device)
+    sc_ = lc + torch.randn(c, generator=gen, device=device)
+    testc = pc._replace(fact=pc.fact * 1.01)
+    okc = torch.ones(c, dtype=torch.bool, device=device)
+    shuf = sc["shuf"]
+    f100 = torch.tensor(7, device=device)
+
+    def old_tail(l_t, score, accept, st):
+        """The earlier dense body's tail: its torch glue around D1's test."""
+        l_t = torch.where(torch.isfinite(score), score, l_t)
+        out = mcmc.nuisance_accept(*accept[:3], accept[3], l_t, *accept[4:])
+        n_contigs = st.n_contigs()
+        active_bp = torch.where(st.activ == 1, st.len_bp, 0).sum()
+        return tuple(out[0]), out[1], out[2], n_contigs, active_bp.float() / n_contigs
+
+    if new:
+        calls = {
+            "head dense EM C=1": lambda: STEP.step_head(
+                (u1, f1, state.id_d, state.rep, nb, smoke.DELTA), (idm, eps, params, None, nfpb)),
+            "tail dense EM C=1": lambda: STEP.step_tail(
+                l1, s1, (u1[0], test1, params, s1, 1.0, ok1),
+                (state.pos, state.activ, state.len_bp)),
+            "head tempered C=4": lambda: STEP.step_head(
+                (uc, fc, chains.id_d, chains.rep, nb, smoke.DELTA)),
+            "tail tempered C=4": lambda: STEP.step_tail(
+                lc, sc_, None, (chains.pos, chains.activ, chains.len_bp)),
+            "head cycle end C=4": lambda: STEP.step_head(None, (idm_c, eps_c, pc, None, None)),
+            "tail cycle end C=4": lambda: STEP.step_tail(
+                lc, None, (uc[:, 0], testc, pc, sc_, 1.0, okc)),
+            "head 100k M=5": lambda: STEP.step_head(
+                (u1, f100, shuf.id_d, shuf.rep, sc["runner"].nb, smoke.DELTA)),
+        }
+    else:
+        calls = {
+            "head dense EM C=1": lambda: (
+                STEP.neighbours(u1, f1, state.id_d, state.rep, nb, smoke.DELTA),
+                STEP.nuisance_propose(idm, eps, params, None, nfpb)),
+            "tail dense EM C=1": lambda: old_tail(l1, s1, (u1[0], test1, params, s1, 1.0, ok1),
+                                                  state),
+            "head tempered C=4": lambda: STEP.neighbours(uc, fc, chains.id_d, chains.rep, nb,
+                                                         smoke.DELTA),
+            "tail tempered C=4": lambda: (torch.where(torch.isfinite(sc_), sc_, lc),
+                                          chains.n_contigs()),
+            "head cycle end C=4": lambda: STEP.nuisance_propose(idm_c, eps_c, pc, None, None),
+            "tail cycle end C=4": lambda: STEP.nuisance_accept(uc[:, 0], testc, pc, sc_, lc, 1.0,
+                                                               okc),
+            "head 100k M=5": lambda: STEP.neighbours(u1, f100, shuf.id_d, shuf.rep,
+                                                     sc["runner"].nb, smoke.DELTA),
+        }
+
+    def flat(res):
+        if isinstance(res, torch.Tensor):
+            return [res]
+        return [x for r in res if r is not None for x in flat(r)]
+
+    return {label: times(fn, lambda res: [x for x in flat(res) if not x.dtype.is_complex])
+            for label, fn in calls.items()}
+
+
 def main(argv):
     import argparse
 
@@ -284,6 +383,7 @@ def main(argv):
         out.update(catalogue_shapes(device, sc, gen, args.sweep))
     if "D" in groups:
         out.update(select_shapes(device, sc, gen, args.sweep))
+        out.update(step_part_shapes(device, sc, gen))
     if "B" not in groups:
         print(json.dumps({"tree": str(tree), "gpu": smoke.gpu_line(), "shapes": out}))
         return

@@ -472,7 +472,7 @@ def select_inputs(rng, c=2, m=5, n=40, f_max=8):
 def test_select_card_branch_counts_in_the_kernel(path, monkeypatch):
     """D3's wrapper hands the kernel its kind's counter and K =
     select_cluster(...) in the argument block, one launch a call, and adds
-    nothing itself; D2 beside it is still counted by the wrapper."""
+    nothing itself (no step kernel is counted beside its launch any more)."""
     rng = np.random.default_rng(12)
     x = select_inputs(rng)
     step = sc.StepKernels()
