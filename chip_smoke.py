@@ -220,9 +220,13 @@ written. "share" is the bound over the device time.
    timed (H2 and H3 alone from their tables, the plain versions as called
    and as graph replays, and for H3 ``torch._foreach_copy_`` on the same
    carry leaves, the one PyTorch call for those copies) beside the bound
-   of the bytes copied. Phases 4, 4b, 7, 7b, 7g and 7h count one H2 and
-   one H3 launch a captured step and one H1 launch a dense scoring call
-   (graph == eager by key).
+   of the bytes copied (the timed launches counted on scratch counters).
+   The three kernels count their own launches on the card (block 0's
+   thread 0): the counts equal the calls made to H1's wrapper and the
+   launches H2 / H3's made, cut launches included (``check_counted``).
+   Phases 4, 4b, 7, 7b, 7g and 7h count one H2 and one H3 launch a
+   captured step and one H1 launch a dense scoring call (graph == eager by
+   key).
 3i. The delta engine's input kernels I1 (the slots' lf_a, lf_b, max_id
    and parameter rows: delta_slots_kernel) and I2 (the sub-row vectors of
    each slot's 14 genomes, B4's keys and the repeat engine's act / circ /
@@ -6817,6 +6821,67 @@ def vectors_bound(scorer, batch, with_row):
     return bound(n_bytes)
 
 
+def scratch_counter():
+    """An int64 on the card for launches made to time a self-counting
+    kernel outside its wrapper, so they stay out of the wrapper's count."""
+    import torch
+
+    return torch.zeros((), dtype=torch.int64, device="cuda")
+
+
+def h1_args(batch, scorer, params):
+    """H1's argument block of one scoring call, its launches counted on a
+    scratch counter (a tree whose block has none counts nothing)."""
+    from graal_tpu_torch.ops import vectors_cuda as vc
+
+    a, keep, out = vc.vectors_args(batch, scorer.sub_rows, params, scorer.log_nfpb)
+    if any(name == "counter" for name, _ in vc.VectorsArgs._fields_):
+        counter = scratch_counter()
+        a.counter = counter.data_ptr()
+        keep = (keep, counter)
+    return a, keep, out
+
+
+def scan_scratch(tables):
+    """``tables`` with their launches counted on a scratch counter (tables
+    without one count nothing); returns what must stay alive."""
+    counter = scratch_counter()
+    for t in tables:
+        if hasattr(t, "counter"):
+            t.counter = counter.data_ptr()
+    return counter
+
+
+def counting_io_calls(calls):
+    """A context in which every call made to H1's wrapper and every launch
+    H2 / H3's wrapper makes (cut launches included) is counted on the host
+    into ``calls`` by key, to hold the kernels' own counts to."""
+    import contextlib
+
+    from graal_tpu_torch.ops import scan_cuda, vectors_cuda
+
+    @contextlib.contextmanager
+    def ctx():
+        vcall, launch = vectors_cuda.VectorKernels.__call__, scan_cuda.ScanKernels._launch
+
+        def counted_call(self, *args, **kwargs):
+            calls["vectors"] = calls.get("vectors", 0) + 1
+            return vcall(self, *args, **kwargs)
+
+        def counted_launch(self, kind, dev, t):
+            calls[kind] = calls.get(kind, 0) + 1
+            return launch(self, kind, dev, t)
+
+        vectors_cuda.VectorKernels.__call__ = counted_call
+        scan_cuda.ScanKernels._launch = counted_launch
+        try:
+            yield
+        finally:
+            vectors_cuda.VectorKernels.__call__ = vcall
+            scan_cuda.ScanKernels._launch = launch
+    return ctx()
+
+
 def vectors_shape(label, scorer, batch, params):
     """Phase 3h's check and timing of H1 at one dense path's shape: the
     vectors (``a`` included on a repeat table) and the parameter row, bit
@@ -6840,7 +6905,7 @@ def vectors_shape(label, scorer, batch, params):
     bad = bit_diffs(vecs + (row,), want + (prow,))
     one = GenomeState(*[x[0][None] for x in batch])
     bad += bit_diffs(scorer.vectors(one)[0], scorer.vectors_plain(one))
-    a, keep, _ = vc.vectors_args(batch, scorer.sub_rows, params, scorer.log_nfpb)
+    a, keep, _ = h1_args(batch, scorer, params)
     lib = vc.load_library()
     stream = torch.cuda.current_stream().cuda_stream
 
@@ -6990,6 +7055,7 @@ def scan_io_times(kept):
     stream = torch.cuda.current_stream().cuda_stream
     scan = kept["scan"]
     scan.idx.zero_()   # the kept step's row: H2 reads row 0, H3 writes it and idx = 1
+    scratch = scan_scratch(kept["load"] + kept["store"])
 
     def launch(fn, tables):
         def go():
@@ -7021,6 +7087,7 @@ def scan_io_times(kept):
             t.update(library_ms=lib_t["ms"], library_device_ms=lib_t["device_ms"],
                      library_leaves=len(copies))
         rec[kind] = with_share(t, bound(2 * scan_entries_bytes(tables) + 16))
+    del scratch
     return rec
 
 
@@ -7048,7 +7115,21 @@ def phase_io_kernels(device, sc, rsc):
     bit for bit; H2 and H3 (the captured cycle's loads and stores:
     scan_load_kernel, scan_store_kernel) against scan_load_plain /
     scan_store_plain on every sampler's Scan trees, every byte; each timed
-    beside its bound."""
+    beside its bound (the timed launches counted on scratch counters); the
+    launches the three kernels counted on the card equal the calls made to
+    H1's wrapper and the launches H2 / H3's made, by key."""
+    calls = {}
+    reset_counted(vectors_wrapper(), calls)
+    scan_wrapper().n_launches = 0
+    with counting_io_calls(calls):
+        phase_io_checks(device, sc, rsc)
+    check_counted("3h H1", vectors_wrapper(), {"vectors": calls.get("vectors", 0)})
+    check_counted("3h H2 H3", scan_wrapper(), {k: calls.get(k, 0) for k in ("load", "store")})
+    return dict(vectors=VEC_SHAPES, scan=SCAN_TREES, calls=calls)
+
+
+def phase_io_checks(device, sc, rsc):
+    """Phase 3h's checks and timings (see :func:`phase_io_kernels`)."""
     print("dense vectors H1 vs plain at every dense path's shape, bit for bit (vectors, "
           "a, row)")
     for label, scorer, batch, params in vectors_cases(device):
@@ -7077,7 +7158,6 @@ def phase_io_kernels(device, sc, rsc):
         SCAN_TREES[label] = dict(stats=stats, kernels=rec, inputs=n_x, outputs=n_y,
                                  carry_copied=n_copy, carry=len(kept["new"]))
         del kept
-    return dict(vectors=VEC_SHAPES, scan=SCAN_TREES)
 
 
 def io_records():

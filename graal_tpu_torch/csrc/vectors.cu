@@ -26,16 +26,27 @@
 // What bounds it on the card: bytes, and at these sizes latency. A call
 // reads 5 or 6 int32 fields of each of B genomes (B x n x 4 bytes each) and
 // 4 or 5 float vectors of the table, and writes 4 or 5 (B, K) planes: 1.5 MB
-// at B = 65, K = 1,152, half a microsecond at 3.35 TB/s; a launch costs
-// more than that.
+// at B = 65, K = 1,152, half a microsecond at 3.35 TB/s; a launch and two
+// dependent loads (owner[k], then the fields at f) cost more than that.
 //
 // What the design does about it.
-//  - One launch a call: a block of 256 threads a (256-row chunk, genome),
-//    a thread an output (b, k); the genome's fields read at their strides
-//    (C1's (B, n) output or the nuisance call's x[None] view, both without
-//    a copy), the table's vectors read coalesced. Block (0, 0)'s thread 0
-//    also writes the parameter row (params_row.cuh, the code D1 writes its
-//    row with). No host read and no allocation: the wrapper passes fresh
+//  - One launch a call, shaped for latency: a block of `threads` threads
+//    takes a chunk of sub rows for a group of G genomes (the wrapper's
+//    `plan` picks both from (B, K)). Each thread loads owner, prefix,
+//    suffix, len_half (and accu) once for its k, then issues all G
+//    genomes' field loads before any store, so they are in flight
+//    together; the stores are coalesced along k. The plan keeps G = 1 (128
+//    threads, 32 registers, 16 blocks an SM) wherever the grid fits one
+//    wave of resident blocks, and takes G = 2 or 4 only past that
+//    (tempered chains, B = 260): measured on the card, more genomes a
+//    thread (G = 8 or 16, 66 and 120 registers) left too few warps to hide
+//    the latency and were slower at every shape (PERF.md §6).
+//  - The genomes' fields are read at their strides (C1's (B, n) output or
+//    the nuisance call's x[None] view, both without a copy). Block (0, 0)'s
+//    thread 0 also writes the parameter row (params_row.cuh, the code D1
+//    writes its row with) and adds one to the launch key's int64 counter
+//    (ops/counts.py `LaunchCount.counter`), so no counting kernel runs
+//    beside H1. No host read and no allocation: the wrapper passes fresh
 //    outputs, so a captured step (core.graphs.Scan) captures the launch.
 //  - Bit-identity with the plain version on the card. Each torch op rounds
 //    on its own, so every float operation is an explicit round-to-nearest
@@ -56,7 +67,7 @@
 
 namespace {
 
-constexpr int THREADS = 256;
+constexpr int MAX_THREADS = 256;
 constexpr int N_PARAMS = 8;          // RippeParams: kuhn lm c1 slope d d_max fact v_inter
 enum Field { START_BP = 0, ORI, ID_C, CIRC, L_CONT_BP, ACTIV, N_READ };
 enum Param { KUHN = 0, LM, C1, SLOPE, D, D_MAX, FACT, V_INTER };
@@ -78,29 +89,65 @@ struct VectorsArgs {
   const float* par[N_PARAMS];   // 0-d f32 parameters, read when row is not nullptr
   const float* log_nfpb;
   float* row;                   // (10,) or nullptr
+  unsigned long long* counter;  // the launch key's int64 counter
   float inv_kb;                 // f32 1 / 1000
   int B, K;
+  int threads;                  // a block's threads: its chunk of sub rows
+  int group;                    // G: a block's genomes
   int pad;
 };
 
-__global__ void __launch_bounds__(THREADS) vectors_kernel(const __grid_constant__ VectorsArgs a) {
-  const int b = blockIdx.y;
-  const int k = blockIdx.x * THREADS + threadIdx.x;
-  if (a.row != nullptr && b == 0 && blockIdx.x == 0 && threadIdx.x == 0) {
-    const float* const* p = a.par;
-    write_params_row(a.row, *p[KUHN], *p[LM], *p[C1], *p[SLOPE], *p[D], *p[D_MAX], *p[FACT],
-                     *p[V_INTER], *a.log_nfpb);
+// Block (x, y): sub rows [x * threads, (x + 1) * threads), genomes
+// [y * G, (y + 1) * G) clipped to B; a thread one sub row k of G genomes.
+template <int G>
+__global__ void __launch_bounds__(MAX_THREADS)
+    vectors_kernel(const __grid_constant__ VectorsArgs a) {
+  const int k = blockIdx.x * blockDim.x + threadIdx.x;
+  const int b0 = blockIdx.y * G;
+  if (blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x == 0) {
+    atomicAdd(a.counter, 1ULL);
+    if (a.row != nullptr) {
+      const float* const* p = a.par;
+      write_params_row(a.row, *p[KUHN], *p[LM], *p[C1], *p[SLOPE], *p[D], *p[D_MAX], *p[FACT],
+                       *p[V_INTER], *a.log_nfpb);
+    }
   }
   if (k >= a.K) return;
+  const bool with_a = a.a != nullptr;
   const long long f = a.owner[k];
-  auto field = [&](int i) { return a.st[i][a.st_bs[i] * b + a.st_is[i] * f]; };
-  const long long e = static_cast<long long>(b) * a.K + k;
-  a.mid[e] = sub_mid(field(START_BP), field(ORI), a.prefix[k], a.suffix[k], a.len_half[k],
-                     a.inv_kb);
-  a.idc[e] = field(ID_C);
-  a.circ[e] = __int2float_rn(field(CIRC));
-  a.stot[e] = kb_of(field(L_CONT_BP), a.inv_kb);
-  if (a.a != nullptr) a.a[e] = field(ACTIV) == 1 ? a.accu[k] : 0.0f;
+  const float prefix = a.prefix[k], suffix = a.suffix[k], len_half = a.len_half[k];
+  const float accu = with_a ? a.accu[k] : 0.0f;
+  const int n_read = with_a ? N_READ : ACTIV;
+  // every genome's fields first, so that the G x 5 or 6 loads are in flight together
+  int v[G][N_READ];
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    const long long b = b0 + g;
+    if (b < a.B) {
+#pragma unroll
+      for (int i = 0; i < N_READ; ++i)
+        if (i < n_read) v[g][i] = a.st[i][a.st_bs[i] * b + a.st_is[i] * f];
+    }
+  }
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    const long long b = b0 + g;
+    if (b < a.B) {
+      const long long e = b * a.K + k;
+      a.mid[e] = sub_mid(v[g][START_BP], v[g][ORI], prefix, suffix, len_half, a.inv_kb);
+      a.idc[e] = v[g][ID_C];
+      a.circ[e] = __int2float_rn(v[g][CIRC]);
+      a.stot[e] = kb_of(v[g][L_CONT_BP], a.inv_kb);
+      if (with_a) a.a[e] = v[g][ACTIV] == 1 ? accu : 0.0f;
+    }
+  }
+}
+
+template <int G>
+int launch(const VectorsArgs* a, cudaStream_t stream) {
+  const dim3 grid((a->K + a->threads - 1) / a->threads, (a->B + G - 1) / G);
+  vectors_kernel<G><<<grid, a->threads, 0, stream>>>(*a);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -112,13 +159,21 @@ int vectors_args_size() { return (int)sizeof(VectorsArgs); }
 
 // Launches H1 on `stream` from the argument block the wrapper filled, does
 // not synchronise, and returns the cudaError_t of the launch
-// (cudaErrorInvalidValue for a block it refuses).
+// (cudaErrorInvalidValue for a block it refuses: G other than 1, 2 or 4,
+// threads not a multiple of 32 in [32, 256], no counter).
 int vectors(const void* args, void* stream) {
   const VectorsArgs* a = static_cast<const VectorsArgs*>(args);
-  if (a->B < 1 || a->B > 65535 || a->K < 1) return (int)cudaErrorInvalidValue;
-  const dim3 grid((a->K + THREADS - 1) / THREADS, a->B);
-  vectors_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(*a);
-  return (int)cudaGetLastError();
+  if (a->B < 1 || a->K < 1 || a->counter == nullptr || a->threads < 32
+      || a->threads > MAX_THREADS || a->threads % 32 != 0 || a->group < 1
+      || (a->B + a->group - 1) / a->group > 65535)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (a->group) {
+    case 1: return launch<1>(a, s);
+    case 2: return launch<2>(a, s);
+    case 4: return launch<4>(a, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

@@ -20,9 +20,12 @@ buffer's dtype on a card.
 Each copy is an entry of a table of (source, destination, bytes) built from
 the tensors' addresses (:func:`load_tables`, :func:`store_tables`): once at
 a capture, each step when the body runs eagerly. A launch takes its table
-by value. Where one entry touches bytes another writes, the plain version's
-order decides the result, so the table is cut there into launches that run
-in order (:func:`segments`).
+by value; :func:`table` cuts each entry into warp units of UNIT_WORDS
+words, WARPS units a block, and a warp finds its entry by a binary search
+of the table's ``first`` column. Where one entry touches bytes another
+writes, the plain version's order decides the result, so the table is cut
+there into launches that run in order (:func:`segments`). Every launch
+adds one to its kind's counter on the card itself.
 
 :data:`SCAN` is the one wrapper: ``core.graphs.Scan`` sends a card's steps
 to it and a CPU's to the plain versions; the wrapper itself refuses tensors
@@ -40,8 +43,10 @@ import torch
 from graal_tpu_torch.ops import build
 from graal_tpu_torch.ops.counts import Counted, LaunchCount
 
-MAX_ENTRIES = 60      # entries of one launch's table (scan_io.cu)
-CHUNK_WORDS = 1024    # words a block copies, at most (scan_io.cu)
+MAX_ENTRIES = 64      # entries of one launch's table (scan_io.cu)
+UNIT_WORDS = 128      # words a warp copies, at most (scan_io.cu)
+WARPS = 8             # warps (units) a block (scan_io.cu)
+NO_ENTRY = 2**31 - 1  # the first column past the table's entries
 KINDS = ("load", "store")   # H2, H3: the launch keys
 
 _P, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
@@ -49,13 +54,13 @@ _P, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 
 class Entry(ctypes.Structure):
     _fields_ = [("src", _P), ("dst", _P), ("src_step", _I64), ("dst_step", _I64),
-                ("outer", _I64), ("outer_stride", _I64), ("inner", _I64),
-                ("first_block", _I32), ("log_w", _I32)]
+                ("outer_stride", _I64), ("inner", _I64), ("outer", _I32), ("log_w", _I32)]
 
 
 class Table(ctypes.Structure):
-    _fields_ = [("step_in", _P), ("step_out", _P), ("step_add", _I64), ("n", _I32),
-                ("n_blocks", _I32), ("e", Entry * MAX_ENTRIES)]
+    _fields_ = [("step_in", _P), ("step_out", _P), ("step_add", _I64), ("counter", _P),
+                ("n", _I32), ("n_units", _I32), ("first", _I32 * MAX_ENTRIES),
+                ("e", Entry * MAX_ENTRIES)]
 
 
 @functools.cache
@@ -64,7 +69,8 @@ def load_library():
     its table checked against the ctypes mirror."""
     lib = build.load("scan_io")
     for name, want in (("scan_table_size", ctypes.sizeof(Table)),
-                       ("scan_max_entries", MAX_ENTRIES), ("scan_chunk_words", CHUNK_WORDS)):
+                       ("scan_max_entries", MAX_ENTRIES), ("scan_unit_words", UNIT_WORDS),
+                       ("scan_warps", WARPS)):
         fn = getattr(lib, name)
         fn.restype = _I32
         if fn() != want:
@@ -145,6 +151,8 @@ def entry(src: torch.Tensor, dst: torch.Tensor, src_step=0, src_rows=1, dst_step
     n = outer * inner
     if n == 0:
         return None
+    if outer > NO_ENTRY:
+        raise ValueError(f"a scan leaf of {outer} runs: the kernels take at most {NO_ENTRY}")
     sp, dp = src.data_ptr(), dst.data_ptr()
     parts = [sp, dp, inner, src_step, dst_step] + ([ostride] if outer > 1 else [])
     w = 16
@@ -180,20 +188,29 @@ def segments(entries):
 
 
 def table(entries, step_in: torch.Tensor, step_out, step_add: int) -> Table:
-    """The kernel's table of one launch: its entries' blocks laid out in
-    order, CHUNK_WORDS words a block (one block for none)."""
+    """The kernel's table of one launch: its entries' warp units laid out
+    in order, UNIT_WORDS words a unit, each entry's first unit in the
+    ``first`` column (NO_ENTRY past the entries); the launch has
+    :func:`blocks` blocks of WARPS units. The counter is set at launch."""
     t = Table(step_in=step_in.data_ptr(),
               step_out=None if step_out is None else step_out.data_ptr(),
               step_add=step_add, n=len(entries))
-    block = 0
+    unit = 0
     for j, e in enumerate(entries):
         t.e[j] = Entry(src=e["src"], dst=e["dst"], src_step=e["src_step"],
-                       dst_step=e["dst_step"], outer=e["outer"],
-                       outer_stride=e["outer_stride"], inner=e["inner"], first_block=block,
-                       log_w=e["log_w"])
-        block += -(-e["words"] // CHUNK_WORDS)
-    t.n_blocks = max(block, 1)
+                       dst_step=e["dst_step"], outer_stride=e["outer_stride"], inner=e["inner"],
+                       outer=e["outer"], log_w=e["log_w"])
+        t.first[j] = unit
+        unit += -(-e["words"] // UNIT_WORDS)
+    for j in range(len(entries), MAX_ENTRIES):
+        t.first[j] = NO_ENTRY
+    t.n_units = unit
     return t
+
+
+def blocks(t: Table) -> int:
+    """The blocks of a launch of ``t``: WARPS units each, one for none."""
+    return max(-(-t.n_units // WARPS), 1)
 
 
 def check_same(label, b: torch.Tensor, v):
@@ -250,7 +267,8 @@ def store_tables(y_bufs, ys, carry_bufs, new, idx, step):
 class ScanKernels(Counted):
     """The captured cycle's load and store kernels H2 / H3 on a card; see
     the module docstring. ``n_launches`` counts the launches on the card,
-    by kind (``KINDS``, ``ops.counts``)."""
+    by kind (``KINDS``, ``ops.counts``): each kernel adds one to its kind's
+    counter itself."""
 
     def __init__(self):
         self.launches = LaunchCount()
@@ -263,10 +281,10 @@ class ScanKernels(Counted):
     def _launch(self, kind, dev, t: Table):
         lib = load_library()
         fn = lib.scan_load if kind == "load" else lib.scan_store
+        t.counter = self.launches.counter(dev, kind).data_ptr()
         rc = fn(ctypes.byref(t), torch.cuda.current_stream(dev).cuda_stream)
         if rc != 0:
             raise RuntimeError(f"scan {kind} launch failed: cudaError {rc}")
-        self.launches.add(dev, kind)
 
     def load(self, x_bufs, slots, idx, step):
         """H2 (see :func:`load_tables`): one launch (more only past

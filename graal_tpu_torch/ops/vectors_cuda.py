@@ -15,9 +15,11 @@ versions bit for bit.
 
 :data:`VECTORS` is the one wrapper: a scorer on a card sends its calls to
 it (``CopyRowScorer.vectors``), a scorer on the CPU to the plain versions;
-the wrapper itself refuses tensors that are not on a card.
-:func:`check_vectors` is what the kernel takes, checked without touching
-the card.
+the wrapper itself refuses tensors that are not on a card; the kernel
+counts its own launches on its key's counter. :func:`check_vectors` is
+what the kernel takes, checked without touching the card, and
+:func:`plan` the launch's shape: the sub rows a block takes and the
+genomes of its group.
 """
 
 from __future__ import annotations
@@ -40,6 +42,10 @@ READ = ("start_bp", "ori", "id_c", "circ", "l_cont_bp", "activ")   # the fields 
 # reciprocal; the kernel takes the same f32
 INV_KB = float(np.float32(1.0) / np.float32(1000.0))
 MAX_B = 65535
+GROUPS = (1, 2, 4)          # the genomes a block can take (vectors.cu's instances)
+THREADS = 128               # sub rows a block takes
+N_SM = 132                  # streaming multiprocessors of an H100 SXM
+RESIDENT = 16               # blocks of 128 threads an SM holds at G = 1 (32 registers)
 
 _P, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 
@@ -49,7 +55,8 @@ class VectorsArgs(ctypes.Structure):
                 ("st_is", _I64 * len(READ)), ("owner", _P), ("prefix", _P), ("suffix", _P),
                 ("len_half", _P), ("accu", _P), ("mid", _P), ("idc", _P), ("circ", _P),
                 ("stot", _P), ("a", _P), ("par", _P * N_PARAMS), ("log_nfpb", _P), ("row", _P),
-                ("inv_kb", ctypes.c_float), ("B", _I32), ("K", _I32), ("pad", _I32)]
+                ("counter", _P), ("inv_kb", ctypes.c_float), ("B", _I32), ("K", _I32),
+                ("threads", _I32), ("group", _I32), ("pad", _I32)]
 
 
 class SubRows(NamedTuple):
@@ -77,6 +84,21 @@ def load_library():
     lib.vectors.argtypes = [_P, _P]
     lib.vectors.restype = _I32
     return lib
+
+
+def plan(b: int, k: int):
+    """(threads, G) of a launch at B genomes and K sub rows: THREADS sub
+    rows a block, and the fewest genomes a block (of GROUPS) that keep the
+    grid within one wave of resident blocks (N_SM x RESIDENT), so no block
+    waits for another to finish. Measured on the card (``kernel_times.py
+    --kernels H --sweep``): one genome a thread was the fastest or within
+    0.0002 ms of it wherever the grid fits a wave; past it G = 2 won (B =
+    260 at 64 threads a block, 2.2 waves at G = 1: 0.0044 against 0.0055
+    ms); G = 8 or 16 (66 and 120 registers, so far fewer warps to hide the
+    loads' latency) was slower at every shape."""
+    chunks = -(-k // THREADS)
+    group = next((g for g in GROUPS if chunks * -(-b // g) <= N_SM * RESIDENT), GROUPS[-1])
+    return THREADS, group
 
 
 def _need(x, name, dtype, shape, dev, contiguous=False):
@@ -116,12 +138,15 @@ def check_vectors(states, sub: SubRows, params=None, log_nfpb=None):
     return b, n, k
 
 
-def vectors_args(states, sub: SubRows, params=None, log_nfpb=None):
-    """The argument block of one call (see :func:`check_vectors`), the
-    tensors it points into (kept alive until the launch is queued) and the
-    outputs ((mid, idc, circ, stot[, a]) (B, K), the row (10,) f32 or None),
-    allocated on the call's device."""
+def vectors_args(states, sub: SubRows, params=None, log_nfpb=None, counter=None):
+    """The argument block of one call (see :func:`check_vectors`; its shape
+    from :func:`plan`), the tensors it points into (kept alive until the
+    launch is queued) and the outputs ((mid, idc, circ, stot[, a]) (B, K),
+    the row (10,) f32 or None), allocated on the call's device. ``counter``
+    is the int64 the kernel adds one to (None leaves the block without one,
+    which the kernel refuses)."""
     b, _, k = check_vectors(states, sub, params, log_nfpb)
+    threads, group = plan(b, k)
     dev = sub.owner.device
     with_a = sub.accu is not None
     planes = torch.empty((4 if with_a else 3, b, k), dtype=torch.float32, device=dev)
@@ -141,30 +166,37 @@ def vectors_args(states, sub: SubRows, params=None, log_nfpb=None):
         stot=vecs[3].data_ptr(), a=vecs[4].data_ptr() if with_a else None,
         par=(_P * N_PARAMS)(*[None if p is None else p.data_ptr() for p in par]),
         log_nfpb=None if params is None else log_nfpb.data_ptr(),
-        row=None if row is None else row.data_ptr(), inv_kb=INV_KB, B=b, K=k, pad=0)
+        row=None if row is None else row.data_ptr(),
+        counter=None if counter is None else counter.data_ptr(), inv_kb=INV_KB, B=b, K=k,
+        threads=threads, group=group, pad=0)
     return a, (fields, sub, par, log_nfpb), (vecs, row)
 
 
 class VectorKernels(Counted):
     """The dense scorers' vector kernel H1 on a card; see the module
     docstring. ``n_launches`` counts its launches on the card (key
-    "vectors", ``ops.counts``)."""
+    "vectors", ``ops.counts``): the kernel adds one to the key's counter
+    itself."""
 
     def __init__(self):
         self.launches = LaunchCount()
+
+    @staticmethod
+    def _card(dev):
+        if dev.type != "cuda":
+            raise ValueError(f"the CUDA vector kernel needs tensors on a card, not on {dev}")
 
     def __call__(self, states, sub: SubRows, params=None, log_nfpb=None):
         """H1 (see :func:`check_vectors`): ((mid, idc, circ, stot[, a]) each
         (B, K), the parameter row of ``params`` or None), bit for bit the
         plain versions."""
         dev = sub.owner.device
-        if dev.type != "cuda":
-            raise ValueError(f"the CUDA vector kernel needs tensors on a card, not on {dev}")
-        a, keep, out = vectors_args(states, sub, params, log_nfpb)
+        self._card(dev)
+        a, keep, out = vectors_args(states, sub, params, log_nfpb,
+                                     self.launches.counter(dev, "vectors"))
         rc = load_library().vectors(ctypes.byref(a), torch.cuda.current_stream(dev).cuda_stream)
         if rc != 0:
             raise RuntimeError(f"vectors launch failed: cudaError {rc}")
-        self.launches.add(dev, "vectors")
         del keep
         return out
 

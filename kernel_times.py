@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""Time the port's CUDA kernels B1-B4, C1, D3 and the step's head and tail
-at the shapes their paths give them, to hold one tree's kernels against
-another's on one GPU.
+"""Time the port's CUDA kernels B1-B4, C1, D3, the step's head and tail and
+H1-H3 at the shapes their paths give them, to hold one tree's kernels
+against another's on one GPU.
 
-    python3 kernel_times.py [--tree DIR] [--kernels B,C,D] [--sweep]
+    python3 kernel_times.py [--tree DIR] [--kernels B,C,D,H] [--sweep]
 
 DIR holds a tree's ``graal_tpu_torch`` package (default: this checkout's).
 That tree's wrappers build and launch its kernels, and its own problem
@@ -47,10 +47,19 @@ chains' head (the draw, C = 4) and tail (the select and the contig
 counts), the cycle end's head (the proposal, 4 chains) and tail (the
 test), and the 100k delta step's head (the draw); "check" sums their
 outputs (equal across the two designs but on the tempered tail, which
-computes mean_len beside the earlier body's count). ``--kernels`` keeps the named groups (B: B1-B4, C: C1, D: D3
-and the head and tail; default all). ``--sweep`` (a tree whose wrappers have them) also times C1 and D3
+computes mean_len beside the earlier body's count). H1 (the dense
+scorers' vectors, "H1 ...") at phase 3h's eight shapes
+(``chip_smoke.vectors_cases``), alone from one argument block and through
+the scorer's wrapper ("... wrapper"); H2 / H3 ("H2 ..." / "H3 ...") alone
+on the tables of each sampler's captured step (``chip_smoke.scan_cases``,
+the first step's tables), H3 also through its wrapper; and H3 alone on
+stores of 1-60 int32 carry leaves at 32 KB in all and of one scalar each
+("H3 sweep ..."), the cost an entry adds. ``--kernels`` keeps the named
+groups (B: B1-B4, C: C1, D: D3 and the head and tail, H: H1-H3; default
+all). ``--sweep`` (a tree whose wrappers have them) also times C1 and D3
 under other cluster sizes (``candidates_cuda.plan``,
-``step_cuda.select_cluster``), as "SHAPE [K=k]" entries.
+``step_cuda.select_cluster``), as "SHAPE [K=k]" entries, and H1 under
+every (threads, G) plan (``vectors_cuda.plan``), as "SHAPE [t=T G=g]".
 """
 
 import json
@@ -350,17 +359,141 @@ def step_part_shapes(device, sc, gen):
             for label, fn in calls.items()}
 
 
+def vectors_shapes(device, sweep):
+    """H1 at phase 3h's shapes (``chip_smoke.vectors_cases``): the kernel
+    alone from one argument block (its launches on a scratch counter, where
+    the tree's block has one), and the scoring call's wrapper as a scorer
+    calls it ("... wrapper": an earlier tree's torch counter add included);
+    with ``sweep`` (a tree whose wrapper has ``plan``) the kernel alone
+    under every (threads, G) plan too, as "H1 SHAPE [t=T G=g]" entries."""
+    import ctypes
+
+    import torch
+    from graal_tpu_torch.ops import vectors_cuda as vc
+
+    lib = vc.load_library()
+    out = {}
+    for label, scorer, batch, params in smoke.vectors_cases(device):
+        def launch(a):
+            stream = torch.cuda.current_stream().cuda_stream
+            return lambda: smoke.check(lib.vectors(ctypes.byref(a), stream) == 0,
+                                       "H1 launch failed")
+
+        a, keep, outs = smoke.h1_args(batch, scorer, params)
+        check_of = (lambda res, outs=outs: [x for x in outs[0]] + [outs[1]])
+        b, k = batch.pos.shape[0], scorer.k
+        out[f"H1 {label}"] = dict(times(launch(a), check_of), B=b, K=k)
+        out[f"H1 {label} wrapper"] = times(lambda: scorer.vectors(batch, params),
+                                           lambda res: list(res[0]) + [res[1]])
+        if sweep and hasattr(vc, "plan"):
+            default = vc.plan
+            for threads in (64, 128, 256):
+                for group in vc.GROUPS:
+                    vc.plan = lambda b_, k_, t=threads, g=group: (t, g)
+                    try:
+                        a2, keep2, outs2 = smoke.h1_args(batch, scorer, params)
+                    finally:
+                        vc.plan = default
+                    out[f"H1 {label} [t={threads} G={group}]"] = times(
+                        launch(a2), lambda res, outs2=outs2: list(outs2[0]) + [outs2[1]])
+                    del keep2
+        del keep
+    return out
+
+
+def scan_shapes(device, sc, rsc):
+    """H2 and H3 alone on the tables of each sampler's Scan step
+    (``chip_smoke.scan_cases``: the first step's, kept by
+    ``scan_io_check``), each launch on a scratch counter where the tree's
+    table has one; and H3 through its wrapper on the same step ("...
+    wrapper": an earlier tree's torch counter add included)."""
+    import ctypes
+
+    import torch
+    from graal_tpu_torch.ops import scan_cuda as scu
+
+    lib = scu.load_library()
+    stream = torch.cuda.current_stream().cuda_stream
+    out = {}
+
+    def launch(fn, tables):
+        def go():
+            for t in tables:
+                smoke.check(fn(ctypes.byref(t), stream) == 0, "scan launch failed")
+        return go
+
+    for label, build, chunks in smoke.scan_cases(device, sc, rsc):
+        _, kept = smoke.scan_io_check(label, build, chunks)
+        scan = kept["scan"]
+        scan.idx.zero_()
+        scratch = smoke.scan_scratch(kept["load"] + kept["store"])
+        for kind, fn in (("load", lib.scan_load), ("store", lib.scan_store)):
+            tables = kept[kind]
+            bufs = scan.x_slots if kind == "load" else scan.y_bufs + scan.carry_bufs
+            out[f"{'H2' if kind == 'load' else 'H3'} {label}"] = dict(
+                times(launch(fn, tables), lambda res, bufs=bufs: [b for b in bufs
+                                                                   if not b.dtype.is_complex]),
+                entries=sum(t.n for t in tables), launches=len(tables),
+                bytes=smoke.scan_entries_bytes(tables))
+        step = scan.step_cell
+
+        def wrapper_store():
+            # idempotent at a step: row `step` written, idx = step + 1
+            smoke.scan_wrapper().store(scan.y_bufs, kept["ys"], scan.carry_bufs, kept["new"],
+                                       scan.idx, step)
+
+        out[f"H3 {label} wrapper"] = times(wrapper_store, lambda res: [scan.idx])
+        del kept, scan, scratch
+    return out
+
+
+def store_sweep(device, total_bytes=32768, counts=(1, 2, 4, 8, 16, 31, 48, 60)):
+    """H3 alone on stores of n carry leaves (int32, contiguous) for each n
+    of ``counts``: at ``total_bytes`` bytes in all ("H3 sweep n=N bytes=B")
+    and of one 4-byte scalar each ("H3 sweep n=N scalars"), to measure the
+    cost an entry adds at fixed bytes."""
+    import ctypes
+
+    import torch
+    from graal_tpu_torch.ops import scan_cuda as scu
+
+    lib = scu.load_library()
+    stream = torch.cuda.current_stream().cuda_stream
+    idx = torch.zeros(1, dtype=torch.int64, device=device)
+    step = torch.zeros(1, dtype=torch.int64, device=device)
+    out = {}
+    for n in counts:
+        for label, size in ((f"bytes={total_bytes}", total_bytes // 4 // n), ("scalars", 1)):
+            gen = torch.Generator(device=device).manual_seed(n)
+            new = [torch.randint(-99, 99, (size,), generator=gen, device=device,
+                                 dtype=torch.int32) for _ in range(n)]
+            bufs = [torch.zeros_like(v) for v in new]
+            tables = scu.store_tables([], [], bufs, new, idx, step)
+            scratch = smoke.scan_scratch(tables)
+
+            def go(tables=tables):
+                for t in tables:
+                    smoke.check(lib.scan_store(ctypes.byref(t), stream) == 0,
+                                "scan launch failed")
+
+            out[f"H3 sweep n={n} {label}"] = dict(times(go, lambda res, bufs=bufs: bufs),
+                                                  entries=n, launches=len(tables),
+                                                  bytes=smoke.scan_entries_bytes(tables))
+            del scratch
+    return out
+
+
 def main(argv):
     import argparse
 
     ap = argparse.ArgumentParser(prog="kernel_times.py")
     ap.add_argument("--tree", default=".")
-    ap.add_argument("--kernels", default="B,C,D")
+    ap.add_argument("--kernels", default="B,C,D,H")
     ap.add_argument("--sweep", action="store_true")
     args = ap.parse_args(argv)
     tree = Path(args.tree).resolve()
     groups = set(args.kernels.split(","))
-    smoke.check(groups <= {"B", "C", "D"}, f"--kernels: B, C or D, not {args.kernels}")
+    smoke.check(groups <= {"B", "C", "D", "H"}, f"--kernels: B, C, D or H, not {args.kernels}")
     sys.path.insert(0, str(tree))
     import torch
     from graal_tpu_torch.core import delta, delta_repeats
@@ -384,6 +517,10 @@ def main(argv):
     if "D" in groups:
         out.update(select_shapes(device, sc, gen, args.sweep))
         out.update(step_part_shapes(device, sc, gen))
+    if "H" in groups:
+        out.update(vectors_shapes(device, args.sweep))
+        out.update(scan_shapes(device, sc, smoke.scale_repeat_setup(device)))
+        out.update(store_sweep(device))
     if "B" not in groups:
         print(json.dumps({"tree": str(tree), "gpu": smoke.gpu_line(), "shapes": out}))
         return

@@ -8,19 +8,27 @@ graal_tpu_torch/csrc/scan_io.cu, wrapper ops/scan_cuda.py) on the CPU.
   no per-step inputs, capacity growth, a carry leaf that is another carry
   buffer, an output that is a carry buffer overwritten after it, and
   leaves at other strides.
-- The card's route, the wrapper's own tables run by :func:`run_table` (a
-  transcription of the kernels: every source of a launch read before any
-  destination is written, as the kernels' parallel blocks may), gives the
-  same results bit for bit, with one H2 and one H3 launch a step where
-  nothing aliases and the store cut into ordered launches where it does.
+- The card's route, the wrapper itself launching the tables it builds into
+  a stand-in library that runs :func:`run_table` (a transcription of the
+  kernels: every block's warps look their entries up by a binary search,
+  every source of a launch read before any destination is written, as the
+  kernels' parallel blocks may, and the launch counted on the counter the
+  wrapper hands it), gives the same results bit for bit, with one H2 and
+  one H3 launch a step where nothing aliases and the store cut into
+  ordered launches where it does; no torch add counts a launch.
   ``tests/test_torch_step_cycles.py`` runs an EM and a delta cycle through
   the same route against the JAX package's ``lax.scan`` cycles.
+- The block / warp layout on random tables (1 to MAX_ENTRIES entries, 1
+  byte to a few MB, every word width, two-level strides) and on the dense
+  EM store's 31 entries: every word of every entry copied exactly once,
+  equal to the plain versions.
 - The tables: layouts, word widths, the cuts, the checks, and the ctypes
   mirrors parsed from the .cu.
 """
 
 import ctypes
 import re
+import types
 from pathlib import Path
 from typing import NamedTuple
 
@@ -31,62 +39,146 @@ import torch
 import tests.test_torch_state  # noqa: F401  (one torch thread per worker)
 from graal_tpu_torch.core import graphs
 from graal_tpu_torch.ops import scan_cuda as scu
+from graal_tpu_torch.ops.counts import LaunchCount
 
 CSRC = Path(__file__).resolve().parents[1] / "graal_tpu_torch" / "csrc"
 
 
 def _bytes(ptr, count):
-    return (ctypes.c_ubyte * count).from_address(ptr)
+    return np.ctypeslib.as_array((ctypes.c_ubyte * count).from_address(ptr))
+
+
+def bump(counter):
+    """What block 0's thread 0 does: one more launch on the key's counter."""
+    c = ctypes.c_int64.from_address(counter)
+    c.value += 1
+
+
+def entry_of(t: scu.Table, unit):
+    """A warp's lookup, as the kernels make it: a binary search of the
+    ``first`` column for the last entry that starts at or before the
+    warp's unit."""
+    j, hi = 0, t.n - 1
+    while j < hi:
+        mid = (j + hi + 1) // 2
+        if t.first[mid] <= unit:
+            j = mid
+        else:
+            hi = mid - 1
+    return j
+
+
+def unit_words(t: scu.Table):
+    """The table's layout as the kernels walk it: for every block, every
+    warp's unit, its entry and the words its lanes copy (lane l the words
+    q0 + l + 32 i, i < LANE_WORDS, below the entry's words). Returns, per
+    entry, the words in the order the units copy them."""
+    lane_words = (scu.UNIT_WORDS // 32)
+    offs = (np.arange(32)[:, None] + 32 * np.arange(lane_words)[None, :]).reshape(-1)
+    out = [[] for _ in range(t.n)]
+    for block in range(scu.blocks(t)):
+        for warp in range(scu.WARPS):
+            unit = block * scu.WARPS + warp
+            if unit >= t.n_units:
+                continue
+            j = entry_of(t, unit)
+            e = t.e[j]
+            words = e.outer * e.inner >> e.log_w
+            q = (unit - t.first[j]) * scu.UNIT_WORDS + offs
+            out[j].append(q[q < words])
+    return [np.concatenate(q) if q else np.zeros(0, np.int64) for q in out]
 
 
 def run_table(t: scu.Table):
-    """One launch of H2 / H3 on CPU memory, from its table: every entry's
-    source read first, then every destination written (the kernels' blocks
-    run in no order), then the step cell. Holds each entry's word width to
-    its addresses and the blocks to its words."""
+    """One launch of H2 / H3 on CPU memory, from its table: every warp's
+    unit looked up and its words read first, then every destination written
+    (the kernels' blocks run in no order), then the step cell and the
+    launch's counter. Holds each entry's word width to its addresses and
+    the layout to copy every word of every entry exactly once."""
     step = ctypes.c_longlong.from_address(t.step_in).value
+    assert t.n <= scu.MAX_ENTRIES and list(t.first[t.n:]) == [scu.NO_ENTRY] * (
+        scu.MAX_ENTRIES - t.n)
     reads = []
-    block = 0
-    for j in range(t.n):
+    for j, q in enumerate(unit_words(t)):
         e = t.e[j]
         w = 1 << e.log_w
-        assert e.first_block == block and e.inner % w == 0 and e.src % w == 0 \
-            and e.dst % w == 0 and e.src_step % w == 0 and e.dst_step % w == 0
+        assert e.inner % w == 0 and e.src % w == 0 and e.dst % w == 0 \
+            and e.src_step % w == 0 and e.dst_step % w == 0
         assert e.outer == 1 or e.outer_stride % w == 0
-        block += -(-(e.outer * e.inner // w) // scu.CHUNK_WORDS)
-        src = e.src + step * e.src_step
-        reads.append(b"".join(bytes(_bytes(src + r * e.outer_stride, e.inner))
-                              for r in range(e.outer)))
-    assert t.n_blocks == max(block, 1)
-    for j, data in enumerate(reads):
+        words = e.outer * e.inner // w
+        assert t.first[j] == (0 if j == 0 else t.first[j - 1] + -(-(
+            t.e[j - 1].outer * t.e[j - 1].inner >> t.e[j - 1].log_w) // scu.UNIT_WORDS))
+        assert np.array_equal(np.bincount(q, minlength=words), np.ones(words, np.int64))
+        per_run = e.inner // w
+        r = q // per_run
+        at = r * e.outer_stride + (q - r * per_run) * w
+        src = _bytes(e.src + step * e.src_step, (e.outer - 1) * e.outer_stride + e.inner)
+        reads.append((q, src[at[:, None] + np.arange(w)[None, :]]))
+    for j, (q, data) in enumerate(reads):
         e = t.e[j]
-        ctypes.memmove(e.dst + step * e.dst_step, data, len(data))
+        w = 1 << e.log_w
+        dst = _bytes(e.dst + step * e.dst_step, e.outer * e.inner)
+        dst[(q * w)[:, None] + np.arange(w)[None, :]] = data
     if t.step_out:
         ctypes.c_longlong.from_address(t.step_out).value = step + t.step_add
+    bump(t.counter)
+
+
+class StandInLibrary:
+    """The scan library's entry points run as :func:`run_table`, each
+    launch counted on the counter the wrapper handed it, as block 0's
+    thread 0 does."""
+
+    def __init__(self):
+        self.tables = []
+
+    def _run(self, kind, ref):
+        t = ref._obj
+        self.tables.append((kind, t.n))
+        assert t.counter, "a launch without its counter"
+        run_table(t)
+        return 0
+
+    def scan_load(self, ref, stream):
+        return self._run("load", ref)
+
+    def scan_store(self, ref, stream):
+        return self._run("store", ref)
 
 
 class StandIn(scu.ScanKernels):
-    """The wrapper with its launch replaced by :func:`run_table`: the
-    tables are the wrapper's own, on CPU tensors."""
+    """The wrapper itself, its tables on CPU tensors, launching into a
+    :class:`StandInLibrary`."""
 
-    def __init__(self):
+    def __init__(self, lib):
         super().__init__()
-        self.tables = []
+        self.lib = lib
+
+    @property
+    def tables(self):
+        return self.lib.tables
 
     @staticmethod
     def _card(dev):
         pass
 
-    def _launch(self, kind, dev, t):
-        self.tables.append((kind, t.n))
-        run_table(t)
-        self.launches.add(dev, kind)
+
+def no_torch_add(monkeypatch):
+    def refuse(self, device, key=None):
+        raise AssertionError(f"a torch add counted {key} beside a self-counting kernel")
+
+    monkeypatch.setattr(LaunchCount, "add", refuse)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(cuda_stream=None))
 
 
 def route_to_card(monkeypatch):
     """Send every scan's loads and stores through their card branches and
     a stand-in wrapper; returns the stand-in."""
-    spy = StandIn()
+    lib = StandInLibrary()
+    spy = StandIn(lib)
+    no_torch_add(monkeypatch)
+    monkeypatch.setattr(scu, "load_library", lambda: lib)
     monkeypatch.setattr(graphs, "SCAN", spy)
     monkeypatch.setattr(graphs.Scan, "_load", graphs.Scan._load_on_card)
     monkeypatch.setattr(graphs.Scan, "_store", graphs.Scan._store_on_card)
@@ -326,7 +418,7 @@ def test_store_tables_check_what_the_kernels_take():
     assert t.n == 1 and t.e[0].src_step == 16 and t.step_out == step.data_ptr() \
         and t.step_add == 0
     (t,) = scu.load_tables([], [], idx, step)
-    assert t.n == 0 and t.n_blocks == 1
+    assert t.n == 0 and t.n_units == 0 and scu.blocks(t) == 1
     with pytest.raises(ValueError, match="on a card"):
         scu.SCAN.load([xb], [slot], idx, step)
     with pytest.raises(ValueError, match="on a card"):
@@ -349,5 +441,189 @@ def test_ctypes_mirrors_follow_the_source():
     assert _struct_fields(src, "Table") == [f for f, _ in scu.Table._fields_]
     const = dict(re.findall(r"constexpr int (\w+) = ([^;]+);", src))
     assert int(const["MAX_ENTRIES"]) == scu.MAX_ENTRIES
-    assert const["CHUNK_WORDS"] == "4 * THREADS" and 4 * int(const["THREADS"]) == scu.CHUNK_WORDS
-    assert ctypes.sizeof(scu.Table) <= 4096   # passed by value: the kernel-parameter limit
+    assert const["WARPS"] == "THREADS / 32" and int(const["THREADS"]) // 32 == scu.WARPS
+    assert const["UNIT_WORDS"] == "32 * LANE_WORDS" \
+        and 32 * int(const["LANE_WORDS"]) == scu.UNIT_WORDS
+    assert ctypes.sizeof(scu.Table) == 3880 <= 4096   # by value: the kernel-parameter limit
+
+
+# ---------------------------------------------------------------------------
+# The block / warp layout on random tables
+# ---------------------------------------------------------------------------
+
+DTYPES = (torch.uint8, torch.int16, torch.int32, torch.float32, torch.int64, torch.float64)
+
+
+def _leaf(rng, nbytes, dtype):
+    """A tensor of about ``nbytes`` bytes of ``dtype``: contiguous, at an odd
+    offset of a byte pool (uint8), or a two-level view (a column block or a
+    column of a matrix)."""
+    el = torch.empty((), dtype=dtype).element_size()
+    n = max(1, nbytes // el)
+    form = rng.integers(0, 3) if n > 1 else 0
+    if dtype == torch.uint8 and form == 0:
+        off = int(rng.integers(0, 16))
+        pool = torch.as_tensor(rng.integers(0, 256, n + 16, dtype=np.uint8))
+        return pool[off:off + n]
+    if form == 0:
+        return _rng_tensor(rng, (n,), dtype) if dtype != torch.uint8 else \
+            torch.as_tensor(rng.integers(0, 256, n, dtype=np.uint8))
+    rows = int(rng.integers(2, 9))
+    cols = max(1, n // rows)
+    wide = torch.as_tensor(rng.integers(-100, 100, (rows, cols + 3))).to(dtype)
+    return wide[:, 1:cols + 1] if form == 1 else wide[:, 2]
+
+
+def _size(rng, big):
+    """Bytes of a leaf: mostly 1 byte to a few KB, a few MB when ``big``."""
+    if big:
+        return int(rng.integers(1 << 20, 3 << 20))
+    return int(rng.choice([1, 2, 4, 8, 16, 48, 1536, int(rng.integers(1, 5000))]))
+
+
+def random_store_tree(rng, n_entries, big=False):
+    """``n_entries`` copies of a store: outputs (a row of a (cap, ...) buffer
+    each) and new carry leaves, of every width, two-level views among them;
+    one leaf of a few MB when ``big``."""
+    cap = 3
+    y_bufs, ys, carry_bufs, new = [], [], [], []
+    for k in range(n_entries):
+        dtype = DTYPES[int(rng.integers(0, len(DTYPES)))]
+        v = _leaf(rng, _size(rng, big and k == 0), dtype)
+        if rng.random() < 0.4:
+            y_bufs.append(torch.zeros((cap,) + tuple(v.shape), dtype=dtype))
+            ys.append(v)
+        else:
+            carry_bufs.append(torch.zeros(tuple(v.shape), dtype=dtype))
+            new.append(v)
+    return y_bufs, ys, carry_bufs, new
+
+
+def random_load_tree(rng, n_entries, big=False):
+    """``n_entries`` per-step input buffers (cap rows each) and their slots."""
+    cap = 4
+    x_bufs, slots = [], []
+    for k in range(n_entries):
+        dtype = DTYPES[int(rng.integers(0, len(DTYPES)))]
+        el = torch.empty((), dtype=dtype).element_size()
+        n = max(1, _size(rng, big and k == 0) // el)
+        x_bufs.append(_rng_tensor(rng, (cap, n), dtype) if dtype != torch.uint8 else
+                      torch.as_tensor(rng.integers(0, 256, (cap, n), dtype=np.uint8)))
+        slots.append(torch.zeros(n, dtype=dtype))
+    return x_bufs, slots
+
+
+def dense_em_store_tree(rng, n=384):
+    """The dense EM store's 31 entries: the step's 11 metrics (scalars) into
+    their rows, and 20 carry leaves (the genome's 11 (n,) int32 fields, the
+    8 parameters and l_t)."""
+    cap = 8
+    ys = [torch.tensor(float(rng.normal()), dtype=torch.float32) for _ in range(6)] \
+        + [torch.tensor(int(rng.integers(0, 99)), dtype=torch.int32) for _ in range(3)] \
+        + [torch.tensor(bool(rng.random() < 0.5)), torch.tensor(7, dtype=torch.int64)]
+    y_bufs = [torch.zeros((cap,), dtype=v.dtype) for v in ys]
+    new = [_rng_tensor(rng, (n,), torch.int32) for _ in range(11)] \
+        + [torch.tensor(float(rng.normal()), dtype=torch.float32) for _ in range(9)]
+    carry_bufs = [torch.zeros_like(v) for v in new]
+    return y_bufs, ys, carry_bufs, new
+
+
+def clone_raw(bufs):
+    return [b.clone() for b in bufs]
+
+
+def store_both_ways(y_bufs, ys, carry_bufs, new, row):
+    """The store's tables run as the kernels run them, and the plain store,
+    each into its own copies of the buffers; returns (kernel, plain) buffers
+    and the tables."""
+    yk, ck = clone_raw(y_bufs), clone_raw(carry_bufs)
+    yp, cp = clone_raw(y_bufs), clone_raw(carry_bufs)
+    step, idx = torch.tensor([row]), torch.tensor([row])
+    tables = scu.store_tables(yk, ys, ck, new, idx, step)
+    counter = torch.zeros((), dtype=torch.int64)
+    for t in tables:
+        t.counter = counter.data_ptr()
+        run_table(t)
+    scu.scan_store_plain(yp, ys, cp, new, torch.tensor([row]))
+    assert int(idx) == row + 1 and int(counter) == len(tables)
+    return yk + ck, yp + cp, tables
+
+
+@pytest.mark.parametrize("n_entries,big,seed", [(1, False, 0), (1, True, 1), (2, False, 2),
+                                                (7, True, 3), (31, False, 4), (40, False, 5),
+                                                (63, False, 6), (64, True, 7), (64, False, 8)])
+def test_layout_copies_every_word_once(n_entries, big, seed):
+    """Random stores and loads of 1 to MAX_ENTRIES entries, 1 byte to a few
+    MB, every word width and two-level strides: every warp unit finds its
+    entry by the binary search, the units of every entry copy each of its
+    words exactly once (:func:`run_table`), and the results equal
+    ``scan_store_plain`` / ``scan_load_plain`` bit for bit."""
+    rng = np.random.default_rng(seed)
+    tree = random_store_tree(rng, n_entries, big)
+    got, want, tables = store_both_ways(*tree, row=int(rng.integers(0, 3)))
+    assert len(tables) == 1 and tables[0].n == n_entries
+    assert_trees_equal(got, want)
+    widths = {tables[0].e[j].log_w for j in range(n_entries)}
+    if n_entries >= 31:
+        assert widths == {0, 1, 2, 3, 4} and any(tables[0].e[j].outer > 1
+                                                 for j in range(n_entries))
+    x_bufs, slots = random_load_tree(rng, n_entries, big)
+    row = int(rng.integers(0, 4))
+    idx, step = torch.tensor([row]), torch.tensor([-1])
+    (t,) = scu.load_tables(x_bufs, slots, idx, step)
+    counter = torch.zeros((), dtype=torch.int64)
+    t.counter = counter.data_ptr()
+    run_table(t)
+    assert int(step) == row and int(counter) == 1
+    assert_trees_equal(slots, scu.scan_load_plain(x_bufs, idx))
+
+
+def test_dense_em_store_packs_its_scalars_into_shared_blocks():
+    """The dense EM store's 31 entries take 31 warp units, so 4 blocks of 8
+    warps (one block an entry before), and equal the plain store."""
+    rng = np.random.default_rng(11)
+    got, want, tables = store_both_ways(*dense_em_store_tree(rng), row=5)
+    (t,) = tables
+    assert t.n == 31 and t.n_units == 31 and scu.blocks(t) == 4
+    assert list(t.first[:31]) == list(range(31))
+    assert_trees_equal(got, want)
+
+
+def test_lookup_finds_each_units_entry():
+    """The binary search gives the entry whose units hold the warp's, for
+    every unit of tables of 1 to MAX_ENTRIES entries of 1 to 300 units."""
+    rng = np.random.default_rng(3)
+    for n in (1, 2, 31, 32, 33, 63, 64):
+        units = rng.integers(1, 300, n)
+        t = scu.Table(n=n, n_units=int(units.sum()))
+        first = np.concatenate([[0], np.cumsum(units)[:-1]])
+        t.first[:] = list(first) + [scu.NO_ENTRY] * (scu.MAX_ENTRIES - n)
+        for u in range(t.n_units):
+            assert entry_of(t, u) == int(np.searchsorted(first, u, side="right")) - 1
+
+
+def test_wrapper_counts_in_the_kernel_not_beside_it(monkeypatch):
+    """Neither kernel's wrapper calls ``LaunchCount.add``: each launch, a
+    cut one too, adds one to its kind's counter in the kernel (the stand-in
+    library as block 0's thread 0), and ``n_launches`` equals the launches
+    made: a store of MAX_ENTRIES + 6 leaves (two launches), a store whose
+    leaves are each other's buffers (cut into ordered launches, the plain
+    store's result), and a load."""
+    lib = StandInLibrary()
+    spy = StandIn(lib)
+    no_torch_add(monkeypatch)
+    monkeypatch.setattr(scu, "load_library", lambda: lib)
+    rng = np.random.default_rng(5)
+    idx, step = torch.zeros(1, dtype=torch.int64), torch.zeros(1, dtype=torch.int64)
+    n = scu.MAX_ENTRIES + 6
+    bufs = [torch.zeros(3, dtype=torch.int32) for _ in range(n)]
+    spy.store([], [], bufs, [_rng_tensor(rng, (3,), torch.int32) for _ in range(n)], idx, step)
+    p, q = _rng_tensor(rng, (4,), torch.int32), _rng_tensor(rng, (4,), torch.int32)
+    wp, wq = p.clone(), q.clone()
+    scu.scan_store_plain([], [], [wp, wq], [wq, wp], torch.zeros(1, dtype=torch.int64))
+    spy.store([], [], [p, q], [q, p], idx, step)
+    x_bufs, slots = random_load_tree(rng, 5)
+    spy.load(x_bufs, slots, idx, step)
+    assert [k for k, _ in lib.tables] == ["store", "store", "store", "store", "load"]
+    assert spy.launches.by_key() == {"store": 4, "load": 1} and spy.n_launches == 5
+    assert torch.equal(p, wp) and torch.equal(q, wq) and int(idx) == int(step) == 1

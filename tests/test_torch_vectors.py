@@ -3,7 +3,9 @@ graal_tpu_torch/csrc/vectors.cu, wrapper ops/vectors_cuda.py) on the CPU.
 
 A CUDA kernel cannot run here, so H1's function is held through a numpy
 transcription that reads the wrapper's own argument block (pointers and
-strides, as the kernel does) and rounds in the kernel's order:
+strides, as the kernel does), walks its grid block by block (a chunk of
+sub rows for a group of G genomes, the shape the wrapper's ``plan`` picks)
+and rounds in the kernel's order:
 
 - bit for bit against the plain vectors (``CopyRowScorer.geometry``,
   ``RepeatScorer.vectors_plain``) on random genomes with circular contigs,
@@ -14,16 +16,24 @@ strides, as the kernel does) and rounds in the kernel's order:
   operations in that form;
 - the parameter row equal to the nuisance proposal's (kernel D1's), whose
   code H1 shares (``csrc/params_row.cuh``);
-- the plain scorers fed through the card's dispatch (a stand-in wrapper
-  that runs the transcription) against the JAX package's
-  ``make_pallas_scorer`` / ``make_repeat_pallas_scorer`` in the Pallas
-  interpreter at the existing tolerances;
+- the layout at B = 1, 65, 130 (with ``a``) and 260, on broadcast
+  ``x[None]`` views and (B, n) views at other strides, under the plan and
+  every group size: every output written once, equal to the plain vectors
+  and row and to the JAX package's own ``sub_vectors`` / ``copy_vectors``
+  / ``params_vector`` (taken from its Pallas scorers' closures);
+- the plain scorers fed through the card's dispatch (the wrapper itself,
+  launching into a stand-in library that runs the transcription and counts
+  the launch on the counter the wrapper hands it, as the kernel does)
+  against the JAX package's ``make_pallas_scorer`` /
+  ``make_repeat_pallas_scorer`` in the Pallas interpreter at the existing
+  tolerances; no torch add counts a launch;
 - the wrapper's checks, its refusal of CPU tensors, and the ctypes mirror
   of the argument block parsed from the .cu.
 """
 
 import ctypes
 import re
+import types
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -36,9 +46,11 @@ from graal_tpu.ops import likelihood_pallas as lp
 from graal_tpu.utils.synthetic import default_params, make_genome, simulate_contacts
 from graal_tpu_torch import convert
 from graal_tpu_torch.core import mcmc as tm
+from graal_tpu_torch.core.model import RippeParams
 from graal_tpu_torch.core.state import GenomeState as TState
 from graal_tpu_torch.ops import likelihood_cuda as lc
 from graal_tpu_torch.ops import vectors_cuda as vc
+from graal_tpu_torch.ops.counts import LaunchCount
 from tests.test_pallas import _repeat_problem
 from tests.test_torch_likelihood import SCORER_RTOL, stack_port, variants
 from tests.test_torch_repeat_scorer import ATOL as REPEAT_ATOL
@@ -56,35 +68,58 @@ def _arr(ptr, dtype, count):
 
 
 def h1_transcribed(a: vc.VectorsArgs, reciprocal: bool):
-    """H1 in numpy from its argument block: each output (b, k) from the
-    fields at owner[k] read at their strides, in the kernel's operation
-    order (int32 -> f32 rounding to nearest, then the scale by 1 / 1000,
-    then (start_kb + w) + len_half). ``reciprocal``: scale by the block's
-    f32 reciprocal (the kernel, torch on the card) instead of dividing by
-    1,000 (torch on the CPU). Writes the block's outputs."""
-    b_n, k_n = a.B, a.K
+    """H1 in numpy from its argument block, as its blocks run it: block (x,
+    y) takes sub rows [x * threads, (x + 1) * threads) of genomes [y * G,
+    (y + 1) * G) (``threads``, ``group`` from the block, the grid as the C
+    entry point makes it); a thread loads owner[k] and the table's vectors
+    at k once, then every genome's fields at owner[k] at their strides,
+    then stores each genome's outputs, in the kernel's operation order
+    (int32 -> f32 rounding to nearest, then the scale by 1 / 1000, then
+    (start_kb + w) + len_half). ``reciprocal``: scale by the block's f32
+    reciprocal (the kernel, torch on the card) instead of dividing by 1,000
+    (torch on the CPU). Writes the block's outputs; holds the grid to write
+    every output exactly once. Returns the grid."""
+    b_n, k_n, threads, group = a.B, a.K, a.threads, a.group
+    assert threads % 32 == 0 and 32 <= threads <= 256 and group in vc.GROUPS
+    grid = (-(-k_n // threads), -(-b_n // group))
     owner = _arr(a.owner, np.int32, k_n).astype(np.int64)
-    b = np.arange(b_n)[:, None]
-
-    def field(i):
-        idx = a.st_bs[i] * b + a.st_is[i] * owner[None, :]
-        return _arr(a.st[i], np.int32, int(idx.max()) + 1)[idx]
+    prefix, suffix, len_half = (_arr(p, np.float32, k_n) for p in (a.prefix, a.suffix,
+                                                                    a.len_half))
+    accu = _arr(a.accu, np.float32, k_n) if a.a else None
+    n_read = len(vc.READ) if a.a else len(vc.READ) - 1
+    fields = []
+    for i in range(n_read):
+        last = a.st_bs[i] * (b_n - 1) + a.st_is[i] * int(owner.max())
+        fields.append(_arr(a.st[i], np.int32, last + 1))
+    outs = dict(mid=_arr(a.mid, np.float32, b_n * k_n), idc=_arr(a.idc, np.int32, b_n * k_n),
+                circ=_arr(a.circ, np.float32, b_n * k_n), stot=_arr(a.stot, np.float32, b_n * k_n))
+    if a.a:
+        outs["a"] = _arr(a.a, np.float32, b_n * k_n)
+    written = np.zeros(b_n * k_n, np.int64)
 
     def kb(x):
         x = x.astype(np.float32)
         return x * np.float32(a.inv_kb) if reciprocal else x / np.float32(1000.0)
 
-    prefix, suffix, len_half = (_arr(p, np.float32, k_n) for p in (a.prefix, a.suffix,
-                                                                    a.len_half))
-    w = np.where(field(1) == 1, prefix[None, :], suffix[None, :])
-    mid = (kb(field(0)) + w) + len_half[None, :]
-    outs = [(a.mid, mid), (a.idc, field(2)), (a.circ, field(3).astype(np.float32)),
-            (a.stot, kb(field(4)))]
-    if a.a:
-        accu = _arr(a.accu, np.float32, k_n)
-        outs.append((a.a, np.where(field(5) == 1, accu[None, :], np.float32(0.0))))
-    for ptr, x in outs:
-        _arr(ptr, x.dtype, b_n * k_n)[:] = x.reshape(-1)
+    for y in range(grid[1]):
+        b = y * group + np.arange(group)
+        b = b[b < b_n][:, None]
+        for x in range(grid[0]):
+            k = x * threads + np.arange(threads)
+            k = k[k < k_n]
+            f = owner[k][None, :]
+            v = [fields[i][a.st_bs[i] * b + a.st_is[i] * f] for i in range(n_read)]
+            e = (b * k_n + k[None, :]).reshape(-1)
+            w = np.where(v[1] == 1, prefix[k][None, :], suffix[k][None, :])
+            outs["mid"][e] = ((kb(v[0]) + w) + len_half[k][None, :]).reshape(-1)
+            outs["idc"][e] = v[2].reshape(-1)
+            outs["circ"][e] = v[3].astype(np.float32).reshape(-1)
+            outs["stot"][e] = kb(v[4]).reshape(-1)
+            if a.a:
+                outs["a"][e] = np.where(v[5] == 1, accu[k][None, :], np.float32(0.0)).reshape(-1)
+            written[e] += 1
+    assert (written == 1).all()
+    return grid
 
 
 def params_row_transcribed(p, log_nfpb):
@@ -99,28 +134,75 @@ def params_row_transcribed(p, log_nfpb):
                      np.float32(float(log_nfpb))], np.float32)
 
 
-class StandIn(vc.VectorKernels):
-    """The wrapper with its launch replaced by the transcription: the
-    checks and the argument block are the wrapper's own, on CPU tensors;
-    the row is the plain version's."""
+def bump(counter):
+    """What block (0, 0)'s thread 0 does: one more launch on the key's
+    counter."""
+    c = ctypes.c_int64.from_address(counter)
+    c.value += 1
+
+
+def row_of(a: vc.VectorsArgs):
+    """The parameter row the block asks for, as the plain version makes it
+    from the parameters it points to (the kernel's code is
+    params_row.cuh's, which D1 shares: see
+    :func:`test_parameter_row_is_the_nuisance_proposals`)."""
+    par = RippeParams(*[torch.tensor(_arr(p, np.float32, 1)[0]) for p in a.par])
+    return lc.params_vector(par, torch.tensor(_arr(a.log_nfpb, np.float32, 1)[0]))
+
+
+class StandInLibrary:
+    """The vector library's entry point run as :func:`h1_transcribed`
+    (dividing by 1,000, as torch on the CPU), the row as the plain
+    version's, each launch counted on the counter the wrapper handed it, as
+    block (0, 0)'s thread 0 does."""
 
     def __init__(self):
-        super().__init__()
         self.calls = []
 
-    def __call__(self, states, sub, params=None, log_nfpb=None):
-        a, keep, (vecs, row) = vc.vectors_args(states, sub, params, log_nfpb)
+    def vectors(self, ref, stream):
+        a = ref._obj
+        assert a.counter, "a launch without its counter"
+        bump(a.counter)
         h1_transcribed(a, reciprocal=False)
-        if row is not None:
-            row.copy_(lc.params_vector(params, log_nfpb))
-        self.calls.append((tuple(states.pos.shape), params is not None))
-        del keep
-        return vecs, row
+        if a.row:
+            _arr(a.row, np.float32, vc.N_ROW)[:] = row_of(a).numpy()
+        self.calls.append((a.B, bool(a.row)))
+        return 0
+
+
+class StandIn(vc.VectorKernels):
+    """The wrapper itself (its checks, plan, argument block and counter, on
+    CPU tensors), launching into a :class:`StandInLibrary`."""
+
+    def __init__(self, lib):
+        super().__init__()
+        self.lib = lib
+
+    @property
+    def calls(self):
+        return self.lib.calls
+
+    @staticmethod
+    def _card(dev):
+        pass
+
+
+def no_torch_add(monkeypatch):
+    def refuse(self, device, key=None):
+        raise AssertionError(f"a torch add counted {key} beside a self-counting kernel")
+
+    monkeypatch.setattr(LaunchCount, "add", refuse)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(cuda_stream=None))
 
 
 def route_to_card(monkeypatch, scorer):
-    """Send ``scorer``'s vectors through its card branch and a stand-in."""
-    spy = StandIn()
+    """Send ``scorer``'s vectors through its card branch and the wrapper
+    into a stand-in library; no torch add may count a launch."""
+    lib = StandInLibrary()
+    spy = StandIn(lib)
+    no_torch_add(monkeypatch)
+    monkeypatch.setattr(vc, "load_library", lambda: lib)
     monkeypatch.setattr(lc, "VECTORS", spy)
     monkeypatch.setattr(type(scorer), "vectors", type(scorer)._vectors_on_card)
     return spy
@@ -228,7 +310,7 @@ def test_scores_through_the_card_dispatch_match_pallas(scorers, monkeypatch):
     want = dense(batch, tp)
     spy = route_to_card(monkeypatch, dense)
     got = dense(batch, tp)
-    assert spy.calls == [(batch.pos.shape, True)]
+    assert spy.calls == [(batch.pos.shape[0], True)]
     np.testing.assert_allclose(got.numpy(), pallas, rtol=SCORER_RTOL)
     assert torch.equal(got, want)
     # the nuisance call: a handed row, the genome an x[None] view
@@ -247,9 +329,113 @@ def test_scores_through_the_card_dispatch_match_pallas(scorers, monkeypatch):
     rwant = rscorer(tb, rtp)
     spy = route_to_card(monkeypatch, rscorer)
     rgot = rscorer(tb, rtp)
-    assert spy.calls == [(tb.pos.shape, True)]
+    assert spy.calls == [(tb.pos.shape[0], True)]
     np.testing.assert_allclose(rgot.numpy(), rpallas, rtol=REPEAT_RTOL, atol=REPEAT_ATOL)
     assert torch.equal(rgot, rwant)
+
+
+def jax_closure(score):
+    """The named inner functions of a JAX package scorer (``sub_vectors``,
+    ``params_vector``, ``copy_vectors`` and the tables they close over)."""
+    return dict(zip(score.__code__.co_freevars, (c.cell_contents for c in score.__closure__)))
+
+
+def strided_batch(states: TState):
+    """The batch with every field a (B, n) view at other strides: a column
+    block of a wider matrix, so both strides differ from a copy's."""
+    def view(x):
+        wide = torch.zeros((x.shape[0], x.shape[1] + 5), dtype=x.dtype)
+        wide[:, 2:2 + x.shape[1]] = x
+        return wide[:, 2:2 + x.shape[1]]
+    return TState(*[view(x) for x in states])
+
+
+def plans(b, k):
+    """The grids to hold the layout on: the wrapper's own plan, and every
+    group size at 32 and 256 threads a block."""
+    yield vc.plan(b, k)
+    for threads in (32, 256):
+        for group in vc.GROUPS:
+            yield threads, group
+
+
+@pytest.mark.parametrize("b,kind", [(1, "dense"), (65, "dense"), (130, "repeat"),
+                                    (260, "dense")])
+@pytest.mark.parametrize("layout", ("x[None]", "strided"))
+def test_layout_matches_plain_and_jax(scorers, monkeypatch, b, kind, layout):
+    """H1's (chunk, genome group) layout, transcribed block by block at the
+    wrapper's plan and at every group size: each output written once, bit
+    for bit the plain vectors (the ``a`` column on the repeat table) and
+    the plain parameter row, at B = 1, 65, 130 and 260, on the nuisance
+    call's ``x[None]`` view of one genome (broadcast to B at a genome
+    stride of 0) or on a (B, n) view at other strides; and
+    held to the JAX package's own ``sub_vectors`` / ``copy_vectors`` (every
+    value equal, the JAX package dividing by 1,000 as torch on the CPU
+    does) and ``params_vector`` (to an ulp: XLA's logs and powers are not
+    torch's)."""
+    scorer, state = scorers[kind]
+    par = scorers["params"]
+    batch = random_states(state, b, seed=b)
+    # x[None]: the nuisance call's view of one genome (B = 1), broadcast to
+    # B genomes at a genome stride of 0
+    st = TState(*[x[0][None].expand(b, -1) for x in batch]) if layout == "x[None]" \
+        else strided_batch(batch)
+    assert layout != "strided" or st.start_bp.stride() == (state.n_frags + 5, 1)
+    want = scorer.vectors_plain(st)
+    want_row = lc.params_vector(par, scorer.log_nfpb)
+    grids = set()
+    for threads, group in plans(st.pos.shape[0], scorer.k):
+        monkeypatch.setattr(vc, "plan", lambda b_, k_, t=threads, g=group: (t, g))
+        a, keep, (vecs, row) = vc.vectors_args(st, scorer.sub_rows, par, scorer.log_nfpb)
+        grids.add(h1_transcribed(a, reciprocal=False))
+        _arr(a.row, np.float32, vc.N_ROW)[:] = row_of(a).numpy()
+        for label, g, w in zip(scorer.VECTORS, vecs, want):
+            assert g.dtype == w.dtype and torch.equal(g, w), (label, threads, group)
+        assert torch.equal(row, want_row)
+        del keep
+    assert len(grids) > 1
+    # the JAX package's own functions, closed over by its Pallas scorers
+    jstate, jtable, jparams, jobs = scorers[f"jax_{kind}"]
+    if kind == "dense":
+        inner = jax_closure(lp.make_pallas_scorer(jtable, jobs, interpret=True))
+    else:
+        inner = jax_closure(lp.make_repeat_pallas_scorer(jtable, jobs, interpret=True))
+    jrow = np.asarray(inner["params_vector"](jparams))
+    if kind == "repeat":
+        # the repeat Pallas row ends in nfpb itself; the port's B3 reads it
+        # from its scorer, and its row ends in log nfpb as B1's does
+        jrow = np.append(jrow[:9], np.log(jrow[9]))
+    np.testing.assert_allclose(want_row.numpy(), jrow, rtol=4e-7)
+    for g in range(min(st.pos.shape[0], 3)):
+        one = JState(*[jnp.asarray(x[g].numpy()) for x in st])
+        if kind == "dense":
+            j = [np.asarray(x)[:scorer.k] for x in inner["sub_vectors"](one)[:4]]
+            for label, got, w in zip(scorer.VECTORS, vecs, j):
+                np.testing.assert_array_equal(got[g].numpy(), w, err_msg=label)
+        else:
+            cv = [np.asarray(x) for x in inner["copy_vectors"](one)]   # (mc, S_pad) each
+            slots, ok = scorer.slots.numpy(), scorer.slot_ok.numpy()
+            s_idx, c_idx = np.nonzero(ok)
+            pos = slots[s_idx, c_idx]
+            for i, label in enumerate(("mid", "idc", "circ", "stot")):
+                np.testing.assert_array_equal(vecs[i][g].numpy()[pos],
+                                              cv[i][c_idx, s_idx], err_msg=label)
+            np.testing.assert_array_equal(vecs[4][g].numpy()[pos],
+                                          (cv[4] * cv[5])[c_idx, s_idx], err_msg="a")
+
+
+def test_wrapper_counts_in_the_kernel_not_beside_it(scorers, monkeypatch):
+    """The wrapper calls no ``LaunchCount.add``: the kernel adds one to the
+    "vectors" counter itself (the stand-in library as block (0, 0)'s thread
+    0), so ``n_launches`` equals the calls, with and without a row."""
+    scorer, state = scorers["repeat"]
+    spy = route_to_card(monkeypatch, scorer)
+    batch = random_states(state, 9, seed=1)
+    for k in range(5):
+        scorer.vectors(batch if k % 2 else TState(*[x[:1] for x in batch]),
+                       scorers["params"] if k < 3 else None)
+    assert spy.calls == [(1, True), (9, True), (1, True), (9, False), (1, False)]
+    assert spy.launches.by_key() == {"vectors": 5} and spy.n_launches == 5
 
 
 def _bad(scorers, name):
@@ -314,6 +500,6 @@ def test_ctypes_mirror_follows_the_source():
             names.append(re.sub(r"\[.*?\]", "", head).replace("*", " ").split()[-1])
             names += [r.strip() for r in rest]
     assert names == [f for f, _ in vc.VectorsArgs._fields_]
-    assert ctypes.sizeof(vc.VectorsArgs) == 320
+    assert ctypes.sizeof(vc.VectorsArgs) == 336
     assert vc.READ == tuple(re.search(r"enum Field \{(.*?)\}", src).group(1).lower()
                             .replace(" = 0", "").replace(" ", "").split(",")[:-1])
