@@ -161,16 +161,20 @@ written. "share" is the bound over the device time.
    (m = 10), 4 chains (M = 40), 3 chains at bucket 4,096 (M = 30), the
    20k repeat delta MH step (M = 7), the 12-dup exactness twin and the
    20k problem with 2 to 12 copies a duplicated bin (c_max 12; the others
-   have 2) (``--top-tiers``: the truth at bucket 8,192). Each shape's line
-   gives its table's c_max. corr and cross within rtol CORR_RTOL (atol
+   have 2) and the 20k truth at bucket 8,192 (valid rows above 4,096;
+   ``--top-tiers`` times it again). Each shape's line gives its table's
+   c_max and its most valid rows. corr and cross within rtol CORR_RTOL (atol
    CORR_ATOL), dll within max(DLL_ATOL, one f32 ulp): every f32 term is
    the plain version's bit for bit (both fold a bin's copies left to
    right), only the f64 sums' order differs. Each kernel timed at each shape (F1 and F2 alone from
    one argument block, the pair through the wrapper; device ms; the plain
    version's as graph replays) beside its bound, counted from the call's
-   records (``corr_bound``). Phases 7b, 7g / 7h (the repeat cycles), 8a,
-   11b and 9f's ``scale --allow-repeats`` count one F1 and one F2 launch
-   a scoring call; the repeat-free paths none.
+   records (``corr_bound``). The launches F1 and F2 counted themselves on
+   the card equal the wrapper's calls counted on the host
+   (``check_counted``; the timed launches alone on a scratch counter).
+   Phases 7b, 7g / 7h (the repeat cycles), 8a, 11b and 9f's ``scale
+   --allow-repeats`` count one F1 and one F2 launch a scoring call; the
+   repeat-free paths none.
 3g. Member-row kernels G1 (the counts: rows_counts_kernel), G2 (the
    ordered write: rows_write_kernel) and G3 (the mini-state gather:
    rows_gather_kernel; csrc/rows.cu) against their plain versions
@@ -187,15 +191,19 @@ written. "share" is the bound over the device time.
    bucket 4,096 on the 20k genome); the repeat delta EM step at m = 80
    slots (the 20k problem with 2 to ROW_COPIES copies a duplicated bin),
    then that step driven on the card at the repeat exactness twin's
-   fragments, re-anchored, one G set and one F1 + F2 pair a step; 9d adds the CLI dataset's bucket (f_max
-   64, R = 192) on its run's final genome and ``--top-tiers`` f_max 16,384
-   for 4 chains of the truth (M = 20). rows (padding included), valid,
+   fragments, re-anchored, one G set and one F1 + F2 pair a step, and at m
+   = 320 slots (2 to SLOT_COPIES copies, drawn as D2 draws them); 9d adds
+   the CLI dataset's bucket (f_max 64, R = 192) on its run's final genome
+   and ``--top-tiers`` f_max 16,384 for 4 chains of the truth (M = 20).
+   rows (padding included), valid,
    overflow, max_id and the 11 mini-state fields bit for bit. Each kernel
    timed (device ms; the plain versions' as graph replays) beside its
    bound in bytes (``rows_bound``), and torch.topk on the plain version's
-   genome-length key alone as the library call. Phases 4 and 4b count no
-   G launch; 7, 7b, 7g, 7h (the delta cycles and run_mtm), 8, 8a, 8b, 9d,
-   9e, 9f's ``scale --allow-repeats``, 11a, 11b, 11e, 11g and 11h count one
+   genome-length key alone as the library call. The launches G1-G3
+   counted themselves on the card equal the wrapper's calls counted on the
+   host (``check_counted``). Phases 4 and 4b count no G launch; 7, 7b,
+   7g, 7h (the delta cycles and run_mtm), 8, 8a, 8b, 9d, 9e, 9f's ``scale
+   --allow-repeats``, 11a, 11b, 11e, 11g and 11h count one
    G1 + G2 pair and one G3 launch a scoring call (two a delta MTM / MH
    step).
 3h. The dense scorers' vector kernel H1 (vectors_kernel) and the captured
@@ -656,6 +664,7 @@ ROWS_DRAWS = 2000           # random (chain, slot) draws a shape G1-G3 are held 
 ROWS_TIME_ITERS = 200
 EDGE_N = 2000               # 3g's f_max = n shapes: a cut of the 20k repeat genome
 ROW_COPIES = 16             # 3g: most copies of a bin in the m >= 65 shape (2 to 16: m = 80)
+SLOT_COPIES = 64            # 3g: most copies of a bin in the m in the hundreds shape (m = 320)
 ROWS_PATHS = {}             # each delta path's G1-G3 launches by key (the kernels line)
 ROWS_SHAPES = {}            # phase 3g's shapes and --top-tiers' f_max 16,384 one
 INPUTS_DRAWS = 1000         # random (chain, slot) draws a shape I1 / I2 are held to plain on
@@ -5913,10 +5922,12 @@ def check_corr_kernels(case, gen, n_draws=CORR_DRAWS):
     worst = dict(corr_rel=zero.clone(), cross_rel=zero.clone(), dll_abs=zero.clone(),
                  dll_ulps=zero.clone())
     bad = torch.zeros((), dtype=torch.int64, device=zero.device)
+    most_valid = torch.zeros((), dtype=torch.int64, device=zero.device)
     n_calls = 0
     slots = 0
     while slots < n_draws:
         args = corr_args(case, *case["draw"](gen))
+        most_valid = torch.maximum(most_valid, args[3].sum(-1).amax())
         got = corr.corrections(engine.corr_tables, *args)
         want = engine.corrections_plain(*args)
         for name, k, p in (("corr_rel", got[0], want[0]), ("cross_rel", got[1], want[1])):
@@ -5934,7 +5945,8 @@ def check_corr_kernels(case, gen, n_draws=CORR_DRAWS):
         n_calls += 1
         slots += args[2].shape[0] * args[2].shape[1]
     stats = {k: v.item() for k, v in worst.items()}
-    stats.update(calls=n_calls, slots=slots, beyond_tolerance=int(bad))
+    stats.update(calls=n_calls, slots=slots, beyond_tolerance=int(bad),
+                 most_valid=int(most_valid))
     return stats, args
 
 
@@ -6021,6 +6033,7 @@ def time_corr_kernels(case, args):
     engine = case["engine"]
     lib = rc.load_library()
     a, keep, _ = rc.call_args(engine.corr_tables, *args)
+    counter = scratch_fields(a, ("frozen_counter", "sums_counter"))
     stream = torch.cuda.current_stream().cuda_stream
 
     def f1():
@@ -6032,7 +6045,7 @@ def time_corr_kernels(case, args):
     f1()
     f2()
     torch.cuda.synchronize()
-    b1, b2, counts = corr_bound(case, args, keep[-1])
+    b1, b2, counts = corr_bound(case, args, next(x for x in keep if isinstance(x, dict)))
     plain = functools.partial(engine.corrections_plain, *args)
     plain_ms = cuda_ms(plain, 5, n_warm=1)
     plain_dev = graph_device_ms(plain, 20)
@@ -6042,7 +6055,7 @@ def time_corr_kernels(case, args):
         t.update(plain_ms=plain_ms, plain_device_ms=plain_dev)
         out[name] = with_share(t, b)
     pair = timed(lambda: corr_wrapper().corrections(engine.corr_tables, *args), CORR_TIME_ITERS)
-    del keep
+    del keep, counter
     return out, pair, counts
 
 
@@ -6055,7 +6068,8 @@ def corr_shape(case, gen, n_draws=CORR_DRAWS):
     c_max = case["engine"].corr_tables.c_max
     print(f"  {case['label']}: M = {big_m} ({case['chains']} chain(s)), R = {r}, c_max {c_max}, "
           f"{stats['calls']} "
-          f"calls, {stats['slots']} slots; corr rel {stats['corr_rel']:.3g}, cross rel "
+          f"calls, {stats['slots']} slots, valid rows up to {stats['most_valid']}; corr rel "
+          f"{stats['corr_rel']:.3g}, cross rel "
           f"{stats['cross_rel']:.3g}, dll {stats['dll_abs']:.3g} ({stats['dll_ulps']:.2f} "
           f"ulps), beyond tolerance {stats['beyond_tolerance']}; last call {json.dumps(counts)}")
     for k, (name, rec) in enumerate(times.items()):
@@ -6079,14 +6093,33 @@ def phase_corr_kernels(device, rsc):
     the 20k repeat delta EM step (m = 10), 4 chains (M = 40), 3 chains at
     bucket 4,096 (M = 30), the 20k repeat delta MH step (M = 7), the
     12-dup exactness twin and the 20k problem with 2 to 12 copies a
-    duplicated bin (MANY_COPIES); each timed against the plain version."""
+    duplicated bin (MANY_COPIES), and the truth at bucket 8,192 (valid rows
+    above 4,096, the large-R routing; ``--top-tiers`` times it again); each
+    timed against the plain version. The launches F1 and F2 counted on the
+    card equal the wrapper's calls counted on the host."""
     import torch
-    from graal_tpu_torch.entry import scale_repeat_problem
-    from graal_tpu_torch.scale import ScaleRunner
 
     gen = torch.Generator(device=device).manual_seed(SEED + 60)
     print(f"copy-correction kernels F1 (frozen), F2 (sums) vs plain, ~{CORR_DRAWS} slots a "
           f"shape: corr / cross rtol {CORR_RTOL} (atol {CORR_ATOL}), dll max({DLL_ATOL}, 1 ulp)")
+    cases = corr_cases(device, rsc)
+    calls = {}
+    reset_counted(corr_wrapper(), calls)
+    from graal_tpu_torch.ops.repeat_corr_cuda import RepeatCorrKernels
+
+    with counting_calls(calls, RepeatCorrKernels, "corrections", ("frozen", "sums")):
+        out = {case["label"]: corr_shape(case, gen) for case in cases}
+    big = out[f"repeat_20k_em_truth_{TOP_TIERS[0]}"]["stats"]["most_valid"]
+    check(big > 4096, f"3f's large-R shape has {big} valid rows, not above 4,096")
+    check_counted("3f", corr_wrapper(), {k: calls.get(k, 0) for k in ("frozen", "sums")})
+    return out
+
+
+def corr_cases(device, rsc):
+    """Phase 3f's shapes (:func:`corr_case`), in order."""
+    from graal_tpu_torch.entry import scale_repeat_problem
+    from graal_tpu_torch.scale import ScaleRunner
+
     truth, shuf, table, params, sobs, id_d = scale_repeat_problem(EXACT_BINS, EXACT_REPEAT_DUPS,
                                                                   device=device)
     twin = dict(truth=truth, shuf=shuf, table=table, params=params, sobs=sobs,
@@ -6101,8 +6134,10 @@ def phase_corr_kernels(device, rsc):
              corr_case("repeat_20k_em_3_chains_4096", rsc, TOP_F_MAX, chains=3),
              corr_case("repeat_20k_mh", rsc, F_MAX, mh=True),
              corr_case("repeat_12dup_em", twin, F_MAX),
-             corr_case(f"repeat_20k_em_{MANY_COPIES}_copies", many, F_MAX)]
-    return {case["label"]: corr_shape(case, gen) for case in cases}
+             corr_case(f"repeat_20k_em_{MANY_COPIES}_copies", many, F_MAX),
+             corr_case(f"repeat_20k_em_truth_{TOP_TIERS[0]}", rsc, TOP_TIERS[0],
+                       state=rsc["truth"])]
+    return cases
 
 
 def phase_corr_top(rsc):
@@ -6319,6 +6354,7 @@ def time_rows_kernels(case, f_a, ids):
     states, f_max, union = case["states"], case["f_max"], case["union"]
     lib = rc.load_library()
     a, keep, out = rc.extract_args(states.id_c, f_a, ids, f_max, union)
+    counter = scratch_fields(a, ("counts_counter", "write_counter"))
     stream = torch.cuda.current_stream().cuda_stream
 
     def g1():
@@ -6331,6 +6367,7 @@ def time_rows_kernels(case, f_a, ids):
     g2()
     torch.cuda.synchronize()
     g, keep_g, _ = rc.gather_args(states, out[0], out[1])
+    counter_g = scratch_fields(g, ("counter",))
 
     def g3():
         check(lib.rows_gather(ctypes.byref(g), stream) == 0, "G3 launch failed")
@@ -6361,7 +6398,7 @@ def time_rows_kernels(case, f_a, ids):
         rec[name] = with_share(t, b)
     pair = timed(lambda: rows_wrapper().extract(states.id_c, f_a, ids, f_max, union),
                  ROWS_TIME_ITERS)
-    del keep, keep_g
+    del keep, keep_g, counter, counter_g
     return rec, pair, library, dict(counts, chunk=a.chunk, n_chunks=a.n_chunks, k=k)
 
 
@@ -6403,14 +6440,34 @@ def phase_rows_kernels(device, sc, rsc):
     genome in union mode at bucket 4,096, (m + 1) f_max > n), and the
     repeat delta EM step at m = 80 (2 to ROW_COPIES copies a duplicated
     bin: more keys than 64), which is then driven on the card
-    (:func:`rows_many_copies_steps`); each shape timed against the plain
-    versions and torch.topk."""
+    (:func:`rows_many_copies_steps`), and at m = 320 (2 to SLOT_COPIES
+    copies, the slots drawn as D2 draws them); each shape timed against
+    the plain versions and torch.topk. The launches G1-G3 counted on the
+    card equal the wrapper's calls counted on the host."""
     import torch
-    from graal_tpu_torch.core.state import GenomeState
 
     gen = torch.Generator(device=device).manual_seed(SEED + 70)
     print(f"member-row kernels G1 (counts), G2 (write), G3 (gather) vs plain, ~{ROWS_DRAWS} "
           "slots a shape, every output bit for bit")
+    cases = rows_cases(device, sc, rsc)
+    calls = {}
+    reset_counted(rows_wrapper(), calls)
+    from graal_tpu_torch.ops.rows_cuda import RowKernels
+
+    with counting_calls(calls, RowKernels, "extract", ("counts", "write")), \
+            counting_calls(calls, RowKernels, "gather", ("gather",)):
+        out = {case["label"]: rows_shape(case, gen) for case in cases}
+    check_counted("3g", rows_wrapper(),
+                  {k: calls.get(k, 0) for k in ("counts", "write", "gather")})
+    rows_many_copies_steps(SETUPS["many_copies"])
+    return out
+
+
+def rows_cases(device, sc, rsc):
+    """Phase 3g's shapes (:func:`rows_case`), in order; the m = 80 set-up
+    kept in SETUPS["many_copies"]."""
+    from graal_tpu_torch.core.state import GenomeState
+
     cut = GenomeState(*[x[None, :EDGE_N] for x in rsc["shuf"]])
     cases = [rows_case("delta_100k_em", sc, F_MAX),
              rows_case("delta_100k_em_4_chains", sc, F_MAX, states=chain_starts(sc)),
@@ -6425,9 +6482,9 @@ def phase_rows_kernels(device, sc, rsc):
              rows_case(f"u_cap_n_20k_{TOP_F_MAX}", rsc, TOP_F_MAX)]
     many = SETUPS["many_copies"] = many_copies_setup(device, ROW_COPIES)
     cases.append(rows_case(f"repeat_20k_em_{ROW_COPIES}_copies", many, F_MAX, union=False))
-    out = {case["label"]: rows_shape(case, gen) for case in cases}
-    rows_many_copies_steps(many)
-    return out
+    slots = many_copies_setup(device, SLOT_COPIES)
+    cases.append(rows_case(f"repeat_20k_em_{SLOT_COPIES}_copies", slots, F_MAX, union=False))
+    return cases
 
 
 def many_copies_setup(device, most):
@@ -6827,6 +6884,41 @@ def scratch_counter():
     import torch
 
     return torch.zeros((), dtype=torch.int64, device="cuda")
+
+
+def scratch_fields(block, names):
+    """Point the counter fields ``names`` of an argument block, where its
+    struct has them, at one scratch counter (an earlier tree's block has
+    none and counts nothing); returns the counter, to keep alive."""
+    counter = scratch_counter()
+    have = {name for name, _ in type(block)._fields_}
+    for name in names:
+        if name in have:
+            setattr(block, name, counter.data_ptr())
+    return counter
+
+
+def counting_calls(calls, cls, method, keys):
+    """A context in which every call of ``cls.method`` counts one launch of
+    each of ``keys`` on the host into ``calls``, to hold the kernels' own
+    counts to."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def ctx():
+        orig = getattr(cls, method)
+
+        def counted(self, *args, **kwargs):
+            for key in keys:
+                calls[key] = calls.get(key, 0) + 1
+            return orig(self, *args, **kwargs)
+
+        setattr(cls, method, counted)
+        try:
+            yield
+        finally:
+            setattr(cls, method, orig)
+    return ctx()
 
 
 def h1_args(batch, scorer, params):

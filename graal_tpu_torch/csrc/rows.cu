@@ -49,42 +49,59 @@
 //    the chunk's largest id. It writes them to scratch: the sorted keys
 //    (C, m + 1), counts (C, m + 1, n_chunks) and the chunk maxima (C,
 //    n_chunks).
-//  - G2 (`rows_write_kernel`): one block a (chunk, slot, chain). Two warps
-//    sum ka's and kb's counts over every chunk and over the chunks before
-//    the block's own (lanes over the chunks); in union mode the warps do so
-//    for every place of the sorted keys, which gives the union (the
-//    contigs that fit f_max) and its sums. That gives each stream's total
-//    and the place of the chunk's first row in each stream. A block none
-//    of whose streams can still land below f_max exits. The others walk
-//    their chunk in tiles of THREADS rows: each row's stream by comparison
-//    with ka and kb (in union mode, then a binary search of the sorted
-//    keys), its rank in the tile by three warp ballots and the warps'
-//    totals, and its output place, written where below f_max. Every output
-//    place gets exactly one row (the streams hold all n >= f_max rows).
-//    Block (0, slot, chain) writes the slot's overflow, and block (0, 0,
-//    chain) the chain's max_id from G1's chunk maxima.
-//  - Shared memory follows m + 1 (8 bytes a key in G1, 5 in G2's union
-//    mode), so any slot count up to MAX_KEYS - 1 runs: every count D2 and
-//    E1 take.
+//  - G2 (`rows_write_kernel`): one block a (chunk, slot, chain). Its
+//    prologue issues every load that waits for nothing at once: the
+//    slot's keys ka and kb, the chain's sorted keys into shared memory in
+//    one coalesced read and, in union mode or where they are few
+//    (every_place), every place's counts, summed over every chunk and over
+//    the chunks before the block's own by a group of lanes a place; that
+//    gives the union (the contigs that fit f_max) and its sums. One
+//    barrier (a second one where only ka's and kb's places are summed, by
+//    two warps, once the keys are in shared memory). Each stream's total
+//    and the place of the chunk's first row in it follow; a chunk none of
+//    whose streams can still land below f_max exits. A live block loads
+//    its chunk (L2-resident: G1 has just read it) a pass of THREADS x RPT
+//    rows at a time, RPT contiguous rows a thread (two 16-byte loads where
+//    id_c is contiguous and aligned), all before any ranking; each thread
+//    classes its rows into the three streams (by comparison with ka and
+//    kb; union membership by a binary search of the shared keys) and counts
+//    each class; one block scan of the three counts (warp shuffles, then
+//    the warp totals: one barrier) gives each thread its first place in
+//    each stream. The pass's rows go to shared memory in output order and,
+//    after a barrier, consecutive threads write consecutive places (where
+//    below f_max), so the stores coalesce. Every output place gets exactly
+//    one row (the streams hold all n >= f_max rows). Block (0, slot,
+//    chain) writes the slot's overflow, and block (0, 0, chain) the
+//    chain's max_id from G1's chunk maxima. One block walking its chunk
+//    for all m slots (a barrier a slot) was slower at every shape
+//    measured, by 2-40x (PERF.md), and is not kept.
+//  - Shared memory follows m + 1 (8 bytes a key in G1; 4 in G2, 12 more
+//    for the place sums and 1 more in union mode), so any slot count up to
+//    MAX_KEYS - 1 runs: every count D2 and E1 take (G2 opted in above 48
+//    KB once a device, `rows_init`).
 //  - G3 (`rows_gather_kernel`): one thread an output row: the 11 fields of
 //    its genome row, read at their strides (no (C, n, 11) stack), the
 //    padding's fills where the row is not valid (id_c -(slot + 2)), written
 //    to one (11, C, m, f_max) int32 tensor.
-//  - Three launches a scoring call however many chains, on the current
-//    stream, with no host read, into fresh outputs and scratch whose sizes
-//    follow (C, m, f_max, n) alone, so a captured step (core.graphs.Scan)
-//    captures them. Integers only: the output is the plain version's bit
-//    for bit, padding included.
+//  - Three launches a scoring call however many chains, each counting
+//    itself (block 0's thread 0 adds one to the launch key's int64 on the
+//    card, ops/counts.py), on the current stream, with no host read, into
+//    fresh outputs and scratch whose sizes follow (C, m, f_max, n) alone,
+//    so a captured step (core.graphs.Scan) captures them. Integers only:
+//    the output is the plain version's bit for bit, padding included.
 //
 // Launch keys (ops/counts.py): "counts" (G1), "write" (G2), "gather" (G3).
 
 #include <climits>
+#include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int THREADS = 256;
 constexpr int N_WARPS = THREADS / 32;
+constexpr int RPT = 8;             // G2: contiguous rows a thread a pass
+constexpr int PASS = THREADS * RPT;  // G2: rows a block a pass (the wrapper's CHUNK)
 // m + 1 contig keys a chain (fA's and one a neighbour slot), at most: D2
 // (step.cu `neighbours`) takes at most 4,095 slots, E1 (mtm.cu) 64
 constexpr int MAX_KEYS = 4096;
@@ -104,6 +121,8 @@ struct RowsArgs {
   unsigned char* valid;       // (C, m, f_max)
   unsigned char* overflow;    // (C, m)
   int* max_id;                // (C,)
+  unsigned long long* counts_counter;  // the launch keys' int64s (ops/counts.py)
+  unsigned long long* write_counter;
   long long id_cs, id_is, fa_s;
   int C, m, n, f_max, chunk, n_chunks, union_mode, pad;
 };
@@ -116,6 +135,7 @@ struct GatherArgs {
   const long long* rows;      // (C, m, f_max)
   const unsigned char* valid; // (C, m, f_max)
   int* out;                   // (11, C, m, f_max)
+  unsigned long long* counter;  // the launch key's int64
   int C, m, f_max, pad;
 };
 
@@ -166,6 +186,7 @@ __global__ void __launch_bounds__(THREADS) rows_counts_kernel(RowsArgs a) {
   __shared__ int s_max[N_WARPS];
   const int b = blockIdx.x, c = blockIdx.y, t = threadIdx.x;
   const int lane = t & 31, warp = t >> 5;
+  if (b == 0 && c == 0 && t == 0) atomicAdd(a.counts_counter, 1ULL);
   for (int k = t; k < n_keys; k += THREADS) s_cnt[k] = key_of(a, c, k);
   __syncthreads();
   // rank sort: key k goes after the smaller keys and its equals before it
@@ -211,26 +232,128 @@ __global__ void __launch_bounds__(THREADS) rows_counts_kernel(RowsArgs a) {
   }
 }
 
+// A thread's RPT contiguous rows of a pass from r0 (ids of rows at or past
+// hi are not read): two 16-byte loads where id_c is contiguous and aligned.
+__device__ __forceinline__ void load_pass(const RowsArgs& a, const int* idc, int r0, int hi,
+                                          int (&id)[RPT]) {
+  const int* p = idc + r0;
+  if (a.id_is == 1 && r0 + RPT <= hi && (reinterpret_cast<uintptr_t>(p) & 15) == 0) {
+    const int4 x = reinterpret_cast<const int4*>(p)[0], y = reinterpret_cast<const int4*>(p)[1];
+    id[0] = x.x; id[1] = x.y; id[2] = x.z; id[3] = x.w;
+    id[4] = y.x; id[5] = y.y; id[6] = y.z; id[7] = y.w;
+    return;
+  }
+#pragma unroll
+  for (int k = 0; k < RPT; ++k) id[k] = r0 + k < hi ? idc[(long long)(r0 + k) * a.id_is] : 0;
+}
+
+// In the union: each row's contig found in the shared sorted keys with its
+// place in the union (union mode; false otherwise)
+__device__ __forceinline__ void union_flags(const RowsArgs& a, const int (&id)[RPT],
+                                            const int* s_sorted, const unsigned char* s_inc,
+                                            bool (&in_u)[RPT]) {
+  const int n_keys = a.m + 1;
+#pragma unroll
+  for (int k = 0; k < RPT; ++k) {
+    in_u[k] = false;
+    if (a.union_mode) {
+      const int r = lower_bound(s_sorted, n_keys, id[k]);
+      in_u[k] = r < n_keys && s_sorted[r] == id[k] && s_inc[r];
+    }
+  }
+}
+
+// G2 sums every place's counts (else only ka's and kb's, once the keys are
+// in shared memory): in union mode, or where that is at most SUMS_ALL
+// counts a block
+constexpr int SUMS_ALL = 2048;
+__host__ __device__ __forceinline__ bool every_place(const RowsArgs& a) {
+  return a.union_mode || (long long)(a.m + 1) * a.n_chunks <= SUMS_ALL;
+}
+
+// Inclusive scans over the warp of three counts
+__device__ __forceinline__ void warp_scan3(int& x, int& y, int& z, int lane) {
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int ux = __shfl_up_sync(FULL, x, off), uy = __shfl_up_sync(FULL, y, off),
+              uz = __shfl_up_sync(FULL, z, off);
+    if (lane >= off) {
+      x += ux;
+      y += uy;
+      z += uz;
+    }
+  }
+}
+
 __global__ void __launch_bounds__(THREADS) rows_write_kernel(RowsArgs a) {
   extern __shared__ int smem[];     // sized from m + 1 (write_smem)
   const int n_keys = a.m + 1;
-  int* s_sorted = smem;             // union mode: the chain's keys, ascending
-  unsigned char* s_inc = reinterpret_cast<unsigned char*>(smem + n_keys);   // ... in the union
-  __shared__ int s_pair[2][3];      // ka's and kb's rows: in all, before the chunk, in it
-  __shared__ int s_u[N_WARPS][3];   // the union's, each warp's part
-  __shared__ int s_w[N_WARPS][3];
+  const bool all_sums = every_place(a);
+  int* s_sorted = smem;             // the chain's keys, ascending
+  int* s_sum = smem + n_keys;       // all_sums: each place's (total, before the chunk, in it)
+  unsigned char* s_inc = reinterpret_cast<unsigned char*>(s_sum + (all_sums ? 3 * n_keys : 0));
+  __shared__ int s_key[2];          // ka, kb
+  __shared__ int s_pair[2][3];      // otherwise: ka's and kb's sums
+  __shared__ int s_u[N_WARPS][3];   // the union's sums, each warp's part
+  __shared__ int s_w[N_WARPS][3];   // the class counts, each warp's
+  __shared__ int s_out[PASS];       // a pass's rows, stream by stream, in output order
   const int b = blockIdx.x, j = blockIdx.y, c = blockIdx.z, t = threadIdx.x;
   const int lane = t & 31, warp = t >> 5;
-  const int ka = key_of(a, c, 0), kb = key_of(a, c, j + 1);
+  if (b == 0 && j == 0 && c == 0 && t == 0) atomicAdd(a.write_counter, 1ULL);
+
+  // ---- the loads that wait for nothing: keys, sorted keys, sums ----------
+  if (t < 2) s_key[t] = key_of(a, c, t == 0 ? 0 : j + 1);
   const int* keys = a.skeys + (long long)c * n_keys;
+  for (int k = t; k < n_keys; k += THREADS) s_sorted[k] = keys[k];
   const int* cnt = a.counts + (long long)c * n_keys * a.n_chunks;
-  if (warp < 2) {
-    int tot, bef, in;
-    place_sums(a, cnt, lower_bound(keys, n_keys, warp == 0 ? ka : kb), b, lane, tot, bef, in);
-    if (lane == 0) {
-      s_pair[warp][0] = tot;
-      s_pair[warp][1] = bef;
-      s_pair[warp][2] = in;
+  if (all_sums) {
+    // every place's sums, `span` lanes a place (lanes over the chunks): as
+    // few lanes as give each of the block's places a group of lanes. A
+    // place's counts stand at its contig's first place (its other places
+    // hold 0), so the union's sums need no deduplication.
+    int span = 32;
+    while (span > 1 && THREADS / span < n_keys) span >>= 1;
+    const int sl = lane & (span - 1);
+    int ut = 0, ub = 0, ui = 0;
+    for (int base = 0; base < n_keys; base += THREADS / span) {
+      const int r = base + t / span;
+      const int* row = cnt + (long long)min(r, n_keys - 1) * a.n_chunks;
+      int tot = 0, bef = 0, in = 0;
+      if (r < n_keys) {
+        if (sl == 0) in = row[b];
+        for (int q = sl; q < a.n_chunks; q += span) {
+          const int v = row[q];
+          tot += v;
+          bef += q < b ? v : 0;
+        }
+      }
+      for (int off = span / 2; off > 0; off >>= 1) {
+        tot += __shfl_xor_sync(FULL, tot, off);
+        bef += __shfl_xor_sync(FULL, bef, off);
+      }
+      if (r < n_keys && sl == 0) {
+        s_sum[3 * r] = tot;
+        s_sum[3 * r + 1] = bef;
+        s_sum[3 * r + 2] = in;
+        if (a.union_mode) {
+          s_inc[r] = tot <= a.f_max;
+          if (tot <= a.f_max) {
+            ut += tot;
+            ub += bef;
+            ui += in;
+          }
+        }
+      }
+    }
+    if (a.union_mode) {
+      ut = __reduce_add_sync(FULL, ut);
+      ub = __reduce_add_sync(FULL, ub);
+      ui = __reduce_add_sync(FULL, ui);
+      if (lane == 0) {
+        s_u[warp][0] = ut;
+        s_u[warp][1] = ub;
+        s_u[warp][2] = ui;
+      }
     }
   }
   if (b == 0 && j == 0 && warp == N_WARPS - 1) {
@@ -239,40 +362,37 @@ __global__ void __launch_bounds__(THREADS) rows_write_kernel(RowsArgs a) {
     for (int off = 16; off > 0; off >>= 1) mx = max(mx, __shfl_xor_sync(FULL, mx, off));
     if (lane == 0) a.max_id[c] = mx;
   }
-  if (a.union_mode) {
-    // a contig's counts stand at its first place (its other places hold 0),
-    // so the union's sums need no deduplication
-    for (int k = t; k < n_keys; k += THREADS) s_sorted[k] = keys[k];
-    int ut = 0, ub = 0, ui = 0;
-    for (int r = warp; r < n_keys; r += N_WARPS) {
-      int tot, bef, in;
-      place_sums(a, cnt, r, b, lane, tot, bef, in);
-      const bool inc = tot <= a.f_max;
-      if (lane == 0) {
-        s_inc[r] = inc;
-        if (inc) {
-          ut += tot;
-          ub += bef;
-          ui += in;
-        }
-      }
-    }
-    if (lane == 0) {
-      s_u[warp][0] = ut;
-      s_u[warp][1] = ub;
-      s_u[warp][2] = ui;
-    }
-  }
   __syncthreads();
 
-  // the three streams' totals and this chunk's counts and first places
+  const int ka = s_key[0], kb = s_key[1];
   const bool same = kb == ka;
-  const int tot_a = s_pair[0][0], tot_b = s_pair[1][0];
+  int tot_a, bef_a, in_a, tot_b, bef_b, in_b;
+  if (all_sums) {
+    const int* sa = s_sum + 3 * lower_bound(s_sorted, n_keys, ka);
+    const int* sb = s_sum + 3 * lower_bound(s_sorted, n_keys, kb);
+    tot_a = sa[0], bef_a = sa[1], in_a = sa[2];
+    tot_b = sb[0], bef_b = sb[1], in_b = sb[2];
+  } else {                          // many places: two warps sum ka's and kb's
+    if (warp < 2) {
+      int tot, bef, in;
+      place_sums(a, cnt, lower_bound(s_sorted, n_keys, warp == 0 ? ka : kb), b, lane, tot, bef,
+                 in);
+      if (lane == 0) {
+        s_pair[warp][0] = tot;
+        s_pair[warp][1] = bef;
+        s_pair[warp][2] = in;
+      }
+    }
+    __syncthreads();
+    tot_a = s_pair[0][0], bef_a = s_pair[0][1], in_a = s_pair[0][2];
+    tot_b = s_pair[1][0], bef_b = s_pair[1][1], in_b = s_pair[1][2];
+  }
+  // the three streams' totals and this chunk's counts and first places
   const bool inc_a = !a.union_mode || tot_a <= a.f_max;
   const bool inc_b = !same && (!a.union_mode || tot_b <= a.f_max);
   const int a_tot = (inc_a ? tot_a : 0) + (inc_b ? tot_b : 0);
-  const int a_bef = (inc_a ? s_pair[0][1] : 0) + (inc_b ? s_pair[1][1] : 0);
-  const int a_in = (inc_a ? s_pair[0][2] : 0) + (inc_b ? s_pair[1][2] : 0);
+  const int a_bef = (inc_a ? bef_a : 0) + (inc_b ? bef_b : 0);
+  const int a_in = (inc_a ? in_a : 0) + (inc_b ? in_b : 0);
   int u_tot = a_tot, u_bef = a_bef, u_in = a_in;   // the union (each mode: A)
   if (a.union_mode) {
     u_tot = u_bef = u_in = 0;
@@ -286,67 +406,77 @@ __global__ void __launch_bounds__(THREADS) rows_write_kernel(RowsArgs a) {
   if (b == 0 && t == 0) a.overflow[(long long)c * a.m + j] = tot_a + (same ? 0 : tot_b) > a.f_max;
   // each stream's next output place
   int run0 = a_bef, run1 = a_tot + (u_bef - a_bef), run2 = u_tot + (lo - u_bef);
-  const bool live = (a_in > 0 && run0 < a.f_max) || (u_in > a_in && run1 < a.f_max)
-      || ((hi - lo) > u_in && run2 < a.f_max);
-  if (!live) return;
+  // a chunk none of whose streams can still land below f_max writes nothing
+  if (!((a_in > 0 && run0 < a.f_max) || (u_in > a_in && run1 < a.f_max)
+        || (hi - lo > u_in && run2 < a.f_max)))
+    return;
 
   const long long out0 = ((long long)c * a.m + j) * a.f_max;
   const int* idc = a.id_c + c * a.id_cs;
-  const unsigned below = (1u << lane) - 1u;
-  for (int base = lo; base < hi; base += THREADS) {
-    const int i = base + t;
-    int cls = -1;                         // 0: A, 1: B, 2: C
-    if (i < hi) {
-      const int id = idc[i * a.id_is];
-      if ((id == ka && inc_a) || (id == kb && inc_b)) {
-        cls = 0;
-      } else {
-        cls = 2;
-        if (a.union_mode) {
-          const int r = lower_bound(s_sorted, n_keys, id);
-          if (r < n_keys && s_sorted[r] == id && s_inc[r]) cls = 1;
-        }
+  for (int base = lo; base < hi; base += PASS) {
+    const int r0 = base + t * RPT;
+    int id[RPT];
+    bool in_u[RPT];
+    load_pass(a, idc, r0, hi, id);
+    union_flags(a, id, s_sorted, s_inc, in_u);
+    unsigned char cls[RPT];         // 0: A, 1: B, 2: C, 3: past the chunk
+    int n0 = 0, n1 = 0, n2 = 0;
+#pragma unroll
+    for (int k = 0; k < RPT; ++k) {
+      cls[k] = 3;
+      if (r0 + k < hi) {
+        cls[k] = ((id[k] == ka && inc_a) || (id[k] == kb && inc_b)) ? 0 : in_u[k] ? 1 : 2;
+        n0 += cls[k] == 0;
+        n1 += cls[k] == 1;
+        n2 += cls[k] == 2;
       }
     }
-    const unsigned v0 = __ballot_sync(FULL, cls == 0), v1 = __ballot_sync(FULL, cls == 1),
-                   v2 = __ballot_sync(FULL, cls == 2);
-    if (lane == 0) {
-      s_w[warp][0] = __popc(v0);
-      s_w[warp][1] = __popc(v1);
-      s_w[warp][2] = __popc(v2);
+    // one block scan of the three counts: this thread's first place in
+    // each stream of the pass
+    int i0 = n0, i1 = n1, i2 = n2;
+    warp_scan3(i0, i1, i2, lane);
+    if (lane == 31) {
+      s_w[warp][0] = i0;
+      s_w[warp][1] = i1;
+      s_w[warp][2] = i2;
     }
     __syncthreads();
-    int before0 = 0, before1 = 0, before2 = 0, tile0 = 0, tile1 = 0, tile2 = 0;
-    for (int w = 0; w < N_WARPS; ++w) {
-      tile0 += s_w[w][0];
-      tile1 += s_w[w][1];
-      tile2 += s_w[w][2];
-      if (w < warp) {
-        before0 += s_w[w][0];
-        before1 += s_w[w][1];
-        before2 += s_w[w][2];
-      }
+    int w0 = lane < N_WARPS ? s_w[lane][0] : 0;
+    int w1 = lane < N_WARPS ? s_w[lane][1] : 0;
+    int w2 = lane < N_WARPS ? s_w[lane][2] : 0;
+    warp_scan3(w0, w1, w2, lane);
+    const int src = (warp + 31) & 31;
+    const int t0 = __shfl_sync(FULL, w0, N_WARPS - 1), t1 = __shfl_sync(FULL, w1, N_WARPS - 1),
+              t2 = __shfl_sync(FULL, w2, N_WARPS - 1);
+    // the pass's rows to shared memory, stream 0, then 1, then 2, each in
+    // output order; then written out by consecutive threads
+    int e0 = (warp > 0 ? __shfl_sync(FULL, w0, src) : 0) + i0 - n0;
+    int e1 = t0 + (warp > 0 ? __shfl_sync(FULL, w1, src) : 0) + i1 - n1;
+    int e2 = t0 + t1 + (warp > 0 ? __shfl_sync(FULL, w2, src) : 0) + i2 - n2;
+#pragma unroll
+    for (int k = 0; k < RPT; ++k) {
+      if (cls[k] == 3) continue;
+      s_out[cls[k] == 0 ? e0++ : cls[k] == 1 ? e1++ : e2++] = r0 + k;
     }
-    if (cls >= 0) {
-      const int p = cls == 0 ? run0 + before0 + __popc(v0 & below)
-                  : cls == 1 ? run1 + before1 + __popc(v1 & below)
-                             : run2 + before2 + __popc(v2 & below);
+    __syncthreads();
+    for (int q = t; q < t0 + t1 + t2; q += THREADS) {
+      const int p = q < t0 ? run0 + q : q < t0 + t1 ? run1 + (q - t0) : run2 + (q - t0 - t1);
       if (p < a.f_max) {
-        a.rows[out0 + p] = i;
-        a.valid[out0 + p] = cls == 0;
+        a.rows[out0 + p] = s_out[q];
+        a.valid[out0 + p] = q < t0;
       }
     }
-    run0 += tile0;
-    run1 += tile1;
-    run2 += tile2;
-    __syncthreads();                      // s_w is the next tile's
-    if (run0 >= a.f_max && run1 >= a.f_max && run2 >= a.f_max) break;
+    run0 += t0;
+    run1 += t1;
+    run2 += t2;
+    if (base + PASS < hi) __syncthreads();   // s_w and s_out are the next pass's
   }
 }
 
 __global__ void __launch_bounds__(THREADS) rows_gather_kernel(GatherArgs g) {
   const long long total = (long long)g.C * g.m * g.f_max;
   const long long e = (long long)blockIdx.x * THREADS + threadIdx.x;
+  if (e == 0) atomicAdd(g.counter, 1ULL);
   if (e >= total) return;
   const int pos = (int)(e % g.f_max);
   const int c = (int)(e / ((long long)g.m * g.f_max));
@@ -366,15 +496,20 @@ __global__ void __launch_bounds__(THREADS) rows_gather_kernel(GatherArgs g) {
 int launched() { return (int)cudaGetLastError(); }
 
 // Dynamic shared memory of G1 (the sorted keys and a count a place) and G2
-// (union mode: the sorted keys and a byte a place), within the default 48 KB.
+// (the sorted keys; in union mode or where they are few each place's three
+// sums; in union mode a byte a place).
 int counts_smem(int n_keys) { return 8 * n_keys; }
-int write_smem(const RowsArgs* a) { return a->union_mode ? 5 * (a->m + 1) : 0; }
+inline long long write_smem(const RowsArgs& a) {
+  const long long n_keys = a.m + 1;
+  return 4 * (n_keys + (every_place(a) ? 3 * n_keys : 0)) + (a.union_mode ? n_keys : 0);
+}
 static_assert(8 * MAX_KEYS <= 48 * 1024, "G1's keys must fit in 48 KB of shared memory");
 
 int check_rows(const RowsArgs* a) {
   if (a->C < 1 || a->m < 1 || a->m + 1 > MAX_KEYS || a->f_max < 1 || a->f_max > a->n
       || a->chunk < 1 || a->n_chunks != (a->n + a->chunk - 1) / a->chunk
-      || a->C > 65535 || a->m > 65535)
+      || a->C > 65535 || a->m > 65535 || a->counts_counter == nullptr
+      || a->write_counter == nullptr)
     return (int)cudaErrorInvalidValue;
   return 0;
 }
@@ -387,6 +522,27 @@ extern "C" {
 int rows_args_size() { return (int)sizeof(RowsArgs); }
 
 int rows_gather_args_size() { return (int)sizeof(GatherArgs); }
+
+// G2's dynamic shared memory (bytes) for the block's shapes
+long long rows_write_smem(const void* args) {
+  return write_smem(*static_cast<const RowsArgs*>(args));
+}
+
+// Opt G2 in to the current device's largest dynamic shared memory: once a
+// device, outside any capture. Returns the bytes a launch may now ask (the
+// opt-in limit less G2's static shared memory), or -cudaError_t.
+long long rows_init() {
+  int dev = 0, optin = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  cudaFuncAttributes fa;
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, rows_write_kernel);
+  const int dyn = optin - static_cast<int>(fa.sharedSizeBytes);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(rows_write_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dyn);
+  return e == cudaSuccess ? dyn : -static_cast<long long>(e);
+}
 
 // Each entry point launches its kernel on `stream` from the argument block
 // the wrapper filled, does not synchronise, and returns the cudaError_t of
@@ -403,7 +559,7 @@ int rows_counts(const void* args, void* stream) {
 int rows_write(const void* args, void* stream) {
   const RowsArgs* a = static_cast<const RowsArgs*>(args);
   if (int rc = check_rows(a)) return rc;
-  rows_write_kernel<<<dim3(a->n_chunks, a->m, a->C), THREADS, write_smem(a),
+  rows_write_kernel<<<dim3(a->n_chunks, a->m, a->C), THREADS, (size_t)write_smem(*a),
                       (cudaStream_t)stream>>>(*a);
   return launched();
 }
@@ -411,7 +567,7 @@ int rows_write(const void* args, void* stream) {
 int rows_gather(const void* args, void* stream) {
   const GatherArgs* g = static_cast<const GatherArgs*>(args);
   const long long total = (long long)g->C * g->m * g->f_max;
-  if (total < 1) return (int)cudaErrorInvalidValue;
+  if (total < 1 || g->counter == nullptr) return (int)cudaErrorInvalidValue;
   const long long blocks = (total + THREADS - 1) / THREADS;
   rows_gather_kernel<<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(*g);
   return launched();

@@ -13,6 +13,7 @@ each, all started together. A missing ``nvcc`` or a failed build raises.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -85,3 +86,28 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library of kernel ``name``, built first if needed."""
     build((name,))
     return ctypes.CDLL(str(library_path(name)))
+
+
+_OPTED_IN = {}
+
+
+def opted_in(name: str, init, dev) -> int:
+    """The dynamic shared memory a launch of library ``name``'s kernels may
+    ask on ``dev``. ``init`` (the library's C function) opts its kernels in
+    to the device's largest and returns the bytes, or -cudaError_t; it runs
+    once a device, on the library's first call there, which must not be
+    captured (a capture's first step runs eagerly, ``core.graphs``)."""
+    import torch
+
+    key = (name, dev.type, dev.index)
+    if key not in _OPTED_IN:
+        card = dev.type == "cuda"
+        if card and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"{name}'s first call on a device is in a capture: run the step "
+                               "eagerly before capturing it")
+        with torch.cuda.device(dev) if card else contextlib.nullcontext():
+            got = init()
+        if got < 0:
+            raise RuntimeError(f"{name}: opting in to shared memory failed: cudaError {-got}")
+        _OPTED_IN[key] = got
+    return _OPTED_IN[key]

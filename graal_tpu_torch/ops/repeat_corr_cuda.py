@@ -13,13 +13,15 @@ fuses their jnp code inside the jitted step. The kernel source is
 on the card and how the design answers that. Each call is two launches on
 the current stream, with no synchronisation and no host read, into fresh
 outputs and scratch, so a captured step (``core.graphs.Scan``) captures it.
+Each kernel counts its own launches on its key's counter.
 
 :data:`CORR` is the one wrapper: ``RepeatDeltaScorer.corrections`` sends
 tensors on a card to it and any others to the plain version; the wrapper
 itself refuses tensors that are not on a card. :func:`make_tables` puts the
 engine's constant tables in the kernels' layout once, when the engine is
 built; :func:`check_corrections` is what the kernels take, checked without
-touching the card.
+touching the card; :func:`plan` is F1's cluster size and router for a
+call's shapes.
 """
 
 from __future__ import annotations
@@ -39,6 +41,13 @@ N_OPS = 13
 N_ROW = 10            # the scorers' parameter row (likelihood_cuda.params_vector)
 STATE_FIELDS = ("start_bp", "ori", "id_c", "circ", "l_cont_bp", "activ")
 KINDS = ("frozen", "sums")   # F1, F2: the launch keys
+THREADS = 1024               # F1's block
+MAX_CLUSTER = 8              # F1's blocks a cluster, at most (the portable size)
+ROUTERS = ("staged", "bitmap")   # F1's routers (csrc/repeat_corr.cu RouterKind)
+ROUTER = "bitmap"            # the one plan() picks (measured faster, PERF.md)
+ROWS_A_THREAD = 2            # plan(): D rows a thread of a D-row cluster
+SMEM_MOST = 216 * 1024       # F1's dynamic shared memory plan() keeps within (an H100's
+                             # opt-in 227 KB less F1's static 8.3 KB)
 
 _P, _I64, _F32, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float, ctypes.c_int
 
@@ -124,7 +133,7 @@ class Tables(ctypes.Structure):
 
 
 SCRATCH = ("n_rec", "mx_rec", "mx_aout", "sb_pair", "o_same", "dd_f", "dd_mini", "p4_f",
-           "p4_ent", "ca_mini", "w_all")
+           "p4_ent", "ca_mini", "w_all", "sb_stage")
 
 
 class CorrArgs(ctypes.Structure):
@@ -132,7 +141,8 @@ class CorrArgs(ctypes.Structure):
                 ("st_is", _I64 * 6), ("fa", _P), ("fa_s", _I64), ("mid", _P), ("idc", _P),
                 ("act", _P), ("circ", _P), ("stot", _P), ("accu_sub", _P), ("pvec", _P),
                 ("dll1", _P), *[(name, _P) for name in SCRATCH], ("corr", _P), ("cross", _P),
-                ("dll", _P), ("C", _I32), ("m", _I32), ("f_max", _I32), ("R", _I32)]
+                ("dll", _P), ("frozen_counter", _P), ("sums_counter", _P), ("C", _I32),
+                ("m", _I32), ("f_max", _I32), ("R", _I32), ("cluster", _I32), ("router", _I32)]
 
 
 @functools.cache
@@ -148,7 +158,37 @@ def load_library():
         fn = getattr(lib, name)
         fn.argtypes = [_P, _P]
         fn.restype = _I32
+    lib.repeat_corr_frozen_smem.argtypes = [_P]
+    lib.repeat_corr_frozen_smem.restype = _I64
+    lib.repeat_corr_init.argtypes = []
+    lib.repeat_corr_init.restype = _I64
     return lib
+
+
+def frozen_smem(r: int, f_max: int, n: int, cluster: int, router: str) -> int:
+    """F1's dynamic shared memory (bytes, csrc/repeat_corr.cu ``f1_smem``):
+    the router (the staged prefix, f_max ints, or the bitmap and its
+    ranks, two ints a 32 fragments) and three ints a D row of a block's
+    run of ceil(R / K)."""
+    routed = f_max if router == "staged" else 2 * -(-n // 32)
+    return 4 * (routed + 3 * -(-r // cluster))
+
+
+def plan(r: int, f_max: int, n: int):
+    """F1's (cluster size K, router) for a slot of R = ``r`` mini rows at
+    bucket ``f_max`` on an ``n``-fragment genome: the fewest blocks (of
+    THREADS, at most MAX_CLUSTER) that give a thread of a D-row cluster at
+    most ROWS_A_THREAD rows, more while the shared memory asked would pass
+    SMEM_MOST; the router ROUTER, or the other where ROUTER's does not
+    fit."""
+    k = min(MAX_CLUSTER, max(1, -(-r // (THREADS * ROWS_A_THREAD))))
+    routers = (ROUTER,) + tuple(x for x in ROUTERS if x != ROUTER)
+    for k_try in range(k, MAX_CLUSTER + 1):
+        for router in routers:
+            if frozen_smem(r, f_max, n, k_try, router) <= SMEM_MOST:
+                return k_try, router
+    raise ValueError(f"F1 cannot route R = {r} rows at f_max {f_max} on {n} fragments in "
+                     f"{SMEM_MOST} bytes of shared memory")
 
 
 # ---- argument checks (pure functions: no launch, any device) -----------------
@@ -214,10 +254,16 @@ class RepeatCorrKernels(Counted):
     def __init__(self):
         self.launches = LaunchCount()
 
-    def _launch(self, kind, dev, rc):
+    @staticmethod
+    def _card(dev):
+        if dev.type != "cuda":
+            raise ValueError(f"the CUDA copy-correction kernels need tensors on a card, not "
+                             f"on {dev}")
+
+    @staticmethod
+    def _launched(kind, rc):
         if rc != 0:
             raise RuntimeError(f"repeat_corr {kind} launch failed: cudaError {rc}")
-        self.launches.add(dev, kind)
 
     def corrections(self, tables: CorrTables, state, f_a, rows, valid, geo, accu_sub, pvec,
                     dll1):
@@ -225,22 +271,28 @@ class RepeatCorrKernels(Counted):
         :func:`check_corrections`): (corr (M, 14) f64, cross (M, 13) f64,
         dll (M, 13) f32)."""
         dev = rows.device
-        if dev.type != "cuda":
-            raise ValueError(f"the CUDA copy-correction kernels need tensors on a card, not "
-                             f"on {dev}")
-        a, keep, out = call_args(tables, state, f_a, rows, valid, geo, accu_sub, pvec, dll1)
+        self._card(dev)
+        a, keep, out = call_args(tables, state, f_a, rows, valid, geo, accu_sub, pvec, dll1,
+                                 [self.launches.counter(dev, kind) for kind in KINDS])
         lib = load_library()
+        need = lib.repeat_corr_frozen_smem(ctypes.byref(a))
+        most = build.opted_in("repeat_corr", lib.repeat_corr_init, dev)
+        if need > most:
+            raise RuntimeError(f"F1 asks {need} bytes of shared memory, the device allows {most}")
         stream = torch.cuda.current_stream(dev).cuda_stream
-        self._launch("frozen", dev, lib.repeat_corr_frozen(ctypes.byref(a), stream))
-        self._launch("sums", dev, lib.repeat_corr_sums(ctypes.byref(a), stream))
+        self._launched("frozen", lib.repeat_corr_frozen(ctypes.byref(a), stream))
+        self._launched("sums", lib.repeat_corr_sums(ctypes.byref(a), stream))
         del keep
         return out
 
 
-def call_args(tables: CorrTables, state, f_a, rows, valid, geo, accu_sub, pvec, dll1):
+def call_args(tables: CorrTables, state, f_a, rows, valid, geo, accu_sub, pvec, dll1,
+              counters=None):
     """The argument block of one call (see :func:`check_corrections`), the
     tensors it points into (kept alive until the launches are queued) and
-    the outputs (corr, cross, dll), allocated on the call's device."""
+    the outputs (corr, cross, dll), allocated on the call's device; F1's
+    plan from :func:`plan`. ``counters``: the int64s F1 and F2 add one to a
+    launch (the block's are null without them: a launch refuses it)."""
     dev = rows.device
     geo = type(geo)(*[x.contiguous() for x in geo])
     accu_sub, pvec, dll1 = accu_sub.contiguous(), pvec.contiguous(), dll1.contiguous()
@@ -263,10 +315,12 @@ def call_args(tables: CorrTables, state, f_a, rows, valid, geo, accu_sub, pvec, 
         dd_f=empty(torch.float32, big_m, ndd, 3), dd_mini=empty(torch.int32, big_m, ndd, 2, cm),
         p4_f=empty(torch.float32, big_m, s_max, tables.capd, 2),
         p4_ent=empty(torch.int32, big_m, s_max, tables.capd),
-        ca_mini=empty(torch.int32, big_m, s_max, cm), w_all=empty(torch.float64, c))
+        ca_mini=empty(torch.int32, big_m, s_max, cm), w_all=empty(torch.float64, c),
+        sb_stage=empty(torch.int32, big_m, r, cm))
     out = (empty(torch.float64, big_m, N_GEN), empty(torch.float64, big_m, N_OPS),
            empty(torch.float32, big_m, N_OPS))
     fields = [getattr(state, name) for name in STATE_FIELDS]
+    k, router = plan(r, f_max, tables.sub_start.shape[0])
     t = Tables(*[_ptr(x) for x in tables[:25]], tables.inv_nfpb, tables.inv_kb,
                tables.owner.shape[0], tables.dup.shape[0], tables.sub_start.shape[0], s_max, cm,
                tables.capm, tables.capd, ndd)
@@ -278,9 +332,11 @@ def call_args(tables: CorrTables, state, f_a, rows, valid, geo, accu_sub, pvec, 
                  idc=geo.idc.data_ptr(), act=geo.act.data_ptr(), circ=geo.circ.data_ptr(),
                  stot=geo.stot.data_ptr(), accu_sub=accu_sub.data_ptr(), pvec=pvec.data_ptr(),
                  dll1=dll1.data_ptr(), **{name: _ptr(x) for name, x in scratch.items()},
-                 corr=out[0].data_ptr(), cross=out[1].data_ptr(), dll=out[2].data_ptr(), C=c,
-                 m=m, f_max=f_max, R=r)
-    return a, (geo, accu_sub, pvec, dll1, rows, valid, scratch), out
+                 corr=out[0].data_ptr(), cross=out[1].data_ptr(), dll=out[2].data_ptr(),
+                 frozen_counter=None if counters is None else counters[0].data_ptr(),
+                 sums_counter=None if counters is None else counters[1].data_ptr(), C=c,
+                 m=m, f_max=f_max, R=r, cluster=k, router=ROUTERS.index(router))
+    return a, (geo, accu_sub, pvec, dll1, rows, valid, scratch, counters), out
 
 
 CORR = RepeatCorrKernels()

@@ -13,7 +13,8 @@ sorts) inside the jitted step. The kernel source is
 card and how the design answers that. An extraction is two launches and a
 gather one, on the current stream, with no synchronisation and no host
 read, into fresh outputs and scratch, so a captured step
-(``core.graphs.Scan``) captures them.
+(``core.graphs.Scan``) captures them. Each kernel counts its own launches
+on its key's counter.
 
 :data:`ROWS` is the one wrapper: ``core.delta`` sends tensors on a card to
 it and any others to the plain versions; the wrapper itself refuses
@@ -49,6 +50,7 @@ _P, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 class RowsArgs(ctypes.Structure):
     _fields_ = [("id_c", _P), ("f_a", _P), ("ids", _P), ("counts", _P), ("cmax", _P),
                 ("skeys", _P), ("rows", _P), ("valid", _P), ("overflow", _P), ("max_id", _P),
+                ("counts_counter", _P), ("write_counter", _P),
                 ("id_cs", _I64), ("id_is", _I64), ("fa_s", _I64),
                 ("C", _I32), ("m", _I32), ("n", _I32), ("f_max", _I32), ("chunk", _I32),
                 ("n_chunks", _I32), ("union_mode", _I32), ("pad", _I32)]
@@ -56,8 +58,8 @@ class RowsArgs(ctypes.Structure):
 
 class GatherArgs(ctypes.Structure):
     _fields_ = [("st", _P * N_FIELDS), ("st_cs", _I64 * N_FIELDS), ("st_is", _I64 * N_FIELDS),
-                ("rows", _P), ("valid", _P), ("out", _P), ("C", _I32), ("m", _I32),
-                ("f_max", _I32), ("pad", _I32)]
+                ("rows", _P), ("valid", _P), ("out", _P), ("counter", _P), ("C", _I32),
+                ("m", _I32), ("f_max", _I32), ("pad", _I32)]
 
 
 @functools.cache
@@ -75,7 +77,23 @@ def load_library():
         fn = getattr(lib, name)
         fn.argtypes = [_P, _P]
         fn.restype = _I32
+    lib.rows_write_smem.argtypes = [_P]
+    lib.rows_write_smem.restype = _I64
+    lib.rows_init.argtypes = []
+    lib.rows_init.restype = _I64
     return lib
+
+
+SUMS_ALL = 2048      # G2 sums every place's counts where m + 1 places x n_chunks is at most this
+
+
+def write_smem(m: int, union: bool, n_chunks: int) -> int:
+    """G2's dynamic shared memory (bytes, csrc/rows.cu ``write_smem``): the
+    sorted keys; with every place's three sums in union mode or where (m +
+    1) n_chunks <= SUMS_ALL; in union mode a byte a place."""
+    n_keys = m + 1
+    every = union or n_keys * n_chunks <= SUMS_ALL
+    return 4 * (n_keys + (3 * n_keys if every else 0)) + (n_keys if union else 0)
 
 
 def chunk_size(n: int) -> int:
@@ -143,13 +161,14 @@ def check_gather(state, rows, valid):
     return c, slots, f_max
 
 
-def extract_args(id_c, f_a, ids, f_max, union: bool):
+def extract_args(id_c, f_a, ids, f_max, union: bool, counters=None):
     """The argument block of one extraction (see :func:`check_extract`),
     the tensors it points into (kept alive until the launches are queued)
     and the outputs (rows (C, m, f_max) int64, valid (C, m, f_max) bool,
     overflow (C, m) bool, max_id (C,) int32), allocated on the call's
     device. The kernels take any chunk of at least one row;
-    :func:`chunk_size` picks it."""
+    :func:`chunk_size` picks it. ``counters``: the int64s G1 and G2 add
+    one to a launch (null without them: a launch refuses it)."""
     c, m, n = check_extract(id_c, f_a, ids, f_max)
     f_max = int(f_max)
     dev = id_c.device
@@ -167,15 +186,19 @@ def extract_args(id_c, f_a, ids, f_max, union: bool):
                  counts=scratch[0].data_ptr(), cmax=scratch[1].data_ptr(),
                  skeys=scratch[2].data_ptr(),
                  rows=out[0].data_ptr(), valid=out[1].data_ptr(), overflow=out[2].data_ptr(),
-                 max_id=out[3].data_ptr(), id_cs=id_c.stride(0), id_is=id_c.stride(1),
+                 max_id=out[3].data_ptr(),
+                 counts_counter=None if counters is None else counters[0].data_ptr(),
+                 write_counter=None if counters is None else counters[1].data_ptr(),
+                 id_cs=id_c.stride(0), id_is=id_c.stride(1),
                  fa_s=f_a.stride(0), C=c, m=m, n=n, f_max=f_max, chunk=chunk,
                  n_chunks=n_chunks, union_mode=int(union), pad=0)
-    return a, (id_c, f_a, ids, scratch), out
+    return a, (id_c, f_a, ids, scratch, counters), out
 
 
-def gather_args(state, rows, valid):
+def gather_args(state, rows, valid, counter=None):
     """The argument block of one gather (see :func:`check_gather`), the
-    tensors it points into and the output (11, C, slots, f_max) int32."""
+    tensors it points into and the output (11, C, slots, f_max) int32;
+    ``counter`` the int64 G3 adds one to a launch."""
     c, slots, f_max = check_gather(state, rows, valid)
     rows, valid = rows.contiguous(), valid.contiguous()
     out = torch.empty((N_FIELDS, c, slots, f_max), dtype=torch.int32, device=rows.device)
@@ -183,23 +206,25 @@ def gather_args(state, rows, valid):
     g = GatherArgs(st=(_P * N_FIELDS)(*[x.data_ptr() for x in fields]),
                    st_cs=(_I64 * N_FIELDS)(*[x.stride(0) for x in fields]),
                    st_is=(_I64 * N_FIELDS)(*[x.stride(1) for x in fields]),
-                   rows=rows.data_ptr(), valid=valid.data_ptr(), out=out.data_ptr(), C=c,
-                   m=slots, f_max=f_max, pad=0)
-    return g, (fields, rows, valid), out
+                   rows=rows.data_ptr(), valid=valid.data_ptr(), out=out.data_ptr(),
+                   counter=None if counter is None else counter.data_ptr(), C=c, m=slots,
+                   f_max=f_max, pad=0)
+    return g, (fields, rows, valid, counter), out
 
 
 class RowKernels(Counted):
     """The member-row and mini-state kernels G1-G3 on a card; see the
     module docstring. ``n_launches`` counts the launches on the card, by
-    kind (``KINDS``, ``ops.counts``)."""
+    kind (``KINDS``, ``ops.counts``): each kernel adds one to its kind's
+    counter itself."""
 
     def __init__(self):
         self.launches = LaunchCount()
 
-    def _launch(self, kind, dev, rc):
+    @staticmethod
+    def _launched(kind, rc):
         if rc != 0:
             raise RuntimeError(f"rows {kind} launch failed: cudaError {rc}")
-        self.launches.add(dev, kind)
 
     @staticmethod
     def _card(dev):
@@ -212,13 +237,18 @@ class RowKernels(Counted):
         or "each" (``extract_rows_each_plain``), and the chain's largest
         contig id: (rows (C, m, f_max) int64, valid (C, m, f_max) bool,
         overflow (C, m) bool, max_id (C,) int32)."""
-        self._card(id_c.device)
-        a, keep, out = extract_args(id_c, f_a, ids, f_max, union)
-        lib = load_library()
         dev = id_c.device
+        self._card(dev)
+        a, keep, out = extract_args(id_c, f_a, ids, f_max, union,
+                                    [self.launches.counter(dev, k) for k in KINDS[:2]])
+        lib = load_library()
+        need = lib.rows_write_smem(ctypes.byref(a))
+        most = build.opted_in("rows", lib.rows_init, dev)
+        if need > most:
+            raise RuntimeError(f"G2 asks {need} bytes of shared memory, the device allows {most}")
         stream = torch.cuda.current_stream(dev).cuda_stream
-        self._launch("counts", dev, lib.rows_counts(ctypes.byref(a), stream))
-        self._launch("write", dev, lib.rows_write(ctypes.byref(a), stream))
+        self._launched("counts", lib.rows_counts(ctypes.byref(a), stream))
+        self._launched("write", lib.rows_write(ctypes.byref(a), stream))
         del keep
         return out
 
@@ -226,11 +256,12 @@ class RowKernels(Counted):
         """G3 (see :func:`check_gather`): the (11, C, slots, f_max) int32
         mini-state fields at ``rows``, padding rows inert singletons
         (``gather_mini_plain``'s values bit for bit)."""
-        self._card(rows.device)
-        g, keep, out = gather_args(state, rows, valid)
+        dev = rows.device
+        self._card(dev)
+        g, keep, out = gather_args(state, rows, valid, self.launches.counter(dev, "gather"))
         lib = load_library()
-        stream = torch.cuda.current_stream(rows.device).cuda_stream
-        self._launch("gather", rows.device, lib.rows_gather(ctypes.byref(g), stream))
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        self._launched("gather", lib.rows_gather(ctypes.byref(g), stream))
         del keep
         return out
 

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""Time the port's CUDA kernels B1-B4, C1, D3, the step's head and tail and
-H1-H3 at the shapes their paths give them, to hold one tree's kernels
-against another's on one GPU.
+"""Time the port's CUDA kernels B1-B4, C1, D3, the step's head and tail,
+F1 / F2, G1-G3 and H1-H3 at the shapes their paths give them, to hold one
+tree's kernels against another's on one GPU.
 
-    python3 kernel_times.py [--tree DIR] [--kernels B,C,D,H] [--sweep]
+    python3 kernel_times.py [--tree DIR] [--kernels B,C,D,F,G,H] [--sweep]
 
 DIR holds a tree's ``graal_tpu_torch`` package (default: this checkout's).
 That tree's wrappers build and launch its kernels, and its own problem
@@ -54,12 +54,20 @@ the scorer's wrapper ("... wrapper"); H2 / H3 ("H2 ..." / "H3 ...") alone
 on the tables of each sampler's captured step (``chip_smoke.scan_cases``,
 the first step's tables), H3 also through its wrapper; and H3 alone on
 stores of 1-60 int32 carry leaves at 32 KB in all and of one scalar each
-("H3 sweep ..."), the cost an entry adds. ``--kernels`` keeps the named
-groups (B: B1-B4, C: C1, D: D3 and the head and tail, H: H1-H3; default
+("H3 sweep ..."), the cost an entry adds. F1 and F2 ("F1 ...", "F2 ...",
+"F1+F2 ...") at phase 3f's shapes (``chip_smoke.corr_cases``) and G1-G3
+("G1 ...", ..., "G1+G2 ...") at phase 3g's (``chip_smoke.rows_cases``)
+and ``--top-tiers``' f_max 16,384 for 4 chains, one scoring call a shape:
+each kernel alone from one argument block and the pair through its
+wrapper, whose "digest" (sha256 of the outputs) must be equal across
+trees, bit for bit. ``--kernels`` keeps the named groups (B: B1-B4, C:
+C1, D: D3 and the head and tail, F: F1 / F2, G: G1-G3, H: H1-H3; default
 all). ``--sweep`` (a tree whose wrappers have them) also times C1 and D3
 under other cluster sizes (``candidates_cuda.plan``,
-``step_cuda.select_cluster``), as "SHAPE [K=k]" entries, and H1 under
-every (threads, G) plan (``vectors_cuda.plan``), as "SHAPE [t=T G=g]".
+``step_cuda.select_cluster``), as "SHAPE [K=k]" entries, H1 under every
+(threads, G) plan (``vectors_cuda.plan``), as "SHAPE [t=T G=g]", F1 under
+every (K, router) plan (``repeat_corr_cuda.plan``), as "SHAPE [K=k
+router]", each with "same": its outputs equal to the default plan's.
 """
 
 import json
@@ -483,17 +491,148 @@ def store_sweep(device, total_bytes=32768, counts=(1, 2, 4, 8, 16, 31, 48, 60)):
     return out
 
 
+def digest(tensors):
+    """sha256 of the tensors' bytes, to hold two trees' outputs equal bit
+    for bit."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for x in tensors:
+        h.update(x.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def corr_shapes(device, rsc, gen, sweep):
+    """F1 and F2 at phase 3f's shapes (``chip_smoke.corr_cases``), on one
+    scoring call a shape drawn from ``gen``: F1 alone and F2 alone from one
+    argument block (their launches on a scratch counter where the tree's
+    block has one) and the pair through the wrapper ("F1+F2 ..."), whose
+    "digest" (sha256 of corr, cross and dll) two trees must share; with
+    ``sweep`` (a tree whose wrapper has ``plan``) F1 alone under every
+    (K, router) plan that fits, as "F1 SHAPE [K=k router]", each with
+    "same": its F1 + F2 outputs equal to the default plan's."""
+    import ctypes
+
+    import torch
+    from graal_tpu_torch.ops import repeat_corr_cuda as rc
+
+    lib = rc.load_library()
+    stream = torch.cuda.current_stream().cuda_stream
+    out = {}
+
+    def launch(fn, a, what):
+        return lambda: smoke.check(fn(ctypes.byref(a), stream) == 0, f"{what} launch failed")
+
+    for case in smoke.corr_cases(device, rsc):
+        args = smoke.corr_args(case, *case["draw"](gen))
+        tables = case["engine"].corr_tables
+        label = f"{case['label']} M={args[4].mid.shape[0]} R={args[4].mid.shape[2]}"
+        pair = lambda: smoke.corr_wrapper().corrections(tables, *args)   # noqa: E731
+        want = digest(pair())
+        out[f"F1+F2 {label}"] = dict(times(pair, lambda res: list(res)), digest=want)
+
+        def block():
+            a, keep, outs = rc.call_args(tables, *args)
+            counter = smoke.scratch_fields(a, ("frozen_counter", "sums_counter"))
+            scratch = next(x for x in keep if isinstance(x, dict))
+            return a, (keep, counter), outs, scratch
+
+        a, keep, outs, scratch = block()
+        f1, f2 = launch(lib.repeat_corr_frozen, a, "F1"), launch(lib.repeat_corr_sums, a, "F2")
+        f1()
+        f2()
+        out[f"F1 {label}"] = times(f1, lambda res: [scratch["n_rec"]])
+        out[f"F2 {label}"] = dict(times(f2, lambda res: list(outs)), digest=digest(outs))
+        if sweep and hasattr(rc, "plan"):
+            default = rc.plan
+            r, f_max, n = args[4].mid.shape[2], args[2].shape[2], tables.sub_start.shape[0]
+            for k in (1, 2, 4, 8):
+                for router in rc.ROUTERS:
+                    if rc.frozen_smem(r, f_max, n, k, router) > rc.SMEM_MOST:
+                        continue
+                    rc.plan = lambda r_, f_, n_, k=k, router=router: (k, router)
+                    try:
+                        a2, keep2, outs2, _ = block()
+                    finally:
+                        rc.plan = default
+                    g1, g2 = launch(lib.repeat_corr_frozen, a2, "F1"), \
+                        launch(lib.repeat_corr_sums, a2, "F2")
+                    g1()
+                    g2()
+                    same = digest(outs2) == want
+                    out[f"F1 {label} [K={k} {router}]"] = dict(
+                        times(g1, lambda res, outs2=outs2: list(outs2)), same=same)
+                    del keep2
+        del keep
+    return out
+
+
+def rows_shapes(device, sc, rsc, gen):
+    """G1-G3 at phase 3g's shapes (``chip_smoke.rows_cases``) and
+    ``--top-tiers``' f_max 16,384 for 4 chains, on one extraction a shape
+    drawn from ``gen``: G1, G2 and G3 alone from one argument block (their
+    launches on a scratch counter where the tree's block has one) and G1 +
+    G2 through the wrapper ("G1+G2 ..."), whose "digest" (sha256 of rows,
+    valid, overflow and max_id) two trees must share."""
+    import ctypes
+
+    import torch
+    from graal_tpu_torch.core.state import GenomeState
+    from graal_tpu_torch.ops import rows_cuda as rc
+
+    lib = rc.load_library()
+    stream = torch.cuda.current_stream().cuda_stream
+    cases = smoke.rows_cases(device, sc, rsc)
+    states = GenomeState(*[x.expand(smoke.CHAINS, -1).contiguous() for x in sc["truth"]])
+    cases.append(smoke.rows_case(f"delta_100k_4_chains_{smoke.TOP_TIERS[1]}", sc,
+                                 smoke.TOP_TIERS[1], states=states))
+    out = {}
+
+    def launch(fn, a, what):
+        return lambda: smoke.check(fn(ctypes.byref(a), stream) == 0, f"{what} launch failed")
+
+    for case in cases:
+        f_a, ids = case["draw"](gen)
+        st, f_max, union = case["states"], case["f_max"], case["union"]
+        c, m = ids.shape
+        label = (f"{case['label']} {'union' if union else 'each'} C={c} m={m} n={case['n']} "
+                 f"f_max={f_max}")
+        pair = lambda: smoke.rows_wrapper().extract(st.id_c, f_a, ids, f_max, union)  # noqa: E731
+        want = digest(pair())
+        out[f"G1+G2 {label}"] = dict(times(pair, lambda res: list(res)), digest=want)
+
+        def block():
+            a, keep, outs = rc.extract_args(st.id_c, f_a, ids, f_max, union)
+            counter = smoke.scratch_fields(a, ("counts_counter", "write_counter"))
+            return a, (keep, counter), outs
+
+        a, keep, outs = block()
+        g1, g2 = launch(lib.rows_counts, a, "G1"), launch(lib.rows_write, a, "G2")
+        g1()
+        g2()
+        g, keep_g, mini = rc.gather_args(st, outs[0], outs[1])
+        counter_g = smoke.scratch_fields(g, ("counter",))
+        g3 = launch(lib.rows_gather, g, "G3")
+        out[f"G1 {label}"] = times(g1, lambda res: [outs[3]])
+        out[f"G2 {label}"] = dict(times(g2, lambda res: list(outs)), digest=digest(outs),
+                                  chunks=a.n_chunks)
+        out[f"G3 {label}"] = times(g3, lambda res: [mini])
+        del keep, keep_g, counter_g
+    return out
+
+
 def main(argv):
     import argparse
 
     ap = argparse.ArgumentParser(prog="kernel_times.py")
     ap.add_argument("--tree", default=".")
-    ap.add_argument("--kernels", default="B,C,D,H")
+    ap.add_argument("--kernels", default="B,C,D,F,G,H")
     ap.add_argument("--sweep", action="store_true")
     args = ap.parse_args(argv)
     tree = Path(args.tree).resolve()
     groups = set(args.kernels.split(","))
-    smoke.check(groups <= {"B", "C", "D", "H"}, f"--kernels: B, C, D or H, not {args.kernels}")
+    smoke.check(groups <= {"B", "C", "D", "F", "G", "H"},
+                f"--kernels: B, C, D, F, G or H, not {args.kernels}")
     sys.path.insert(0, str(tree))
     import torch
     from graal_tpu_torch.core import delta, delta_repeats
@@ -521,6 +660,15 @@ def main(argv):
         out.update(vectors_shapes(device, args.sweep))
         out.update(scan_shapes(device, sc, smoke.scale_repeat_setup(device)))
         out.update(store_sweep(device))
+    if "F" in groups or "G" in groups:
+        rsc = smoke.scale_repeat_setup(device)
+        if "F" in groups:
+            out.update(corr_shapes(device, rsc, torch.Generator(device=device).manual_seed(
+                smoke.SEED + 60), args.sweep))
+        if "G" in groups:
+            out.update(rows_shapes(device, sc, rsc, torch.Generator(device=device).manual_seed(
+                smoke.SEED + 70)))
+        del rsc
     if "B" not in groups:
         print(json.dumps({"tree": str(tree), "gpu": smoke.gpu_line(), "shapes": out}))
         return

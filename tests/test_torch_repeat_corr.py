@@ -17,10 +17,12 @@ where the kernels cannot run: what surrounds them.
   (one chain and a chains axis), the delta MH step, the delta cycle and
   ``ScaleRunner.run`` give the plain runs' results bit for bit, with one
   wrapper call a scoring call and no call of ``_corrections`` outside it.
-- F1's routing, transcribed: the valid prefix's length and each copy row's
-  slot by binary search over the ascending valid member rows equal the
-  plain version's (n + 1) scatter ``inv_f``, padding rows and rows outside
-  D included, at buckets that overflow and that do not.
+- F1's staged routing, transcribed: the valid prefix's length (the count
+  of valid rows) and each copy row's slot by binary search over the
+  ascending valid member rows equal the plain version's (n + 1) scatter
+  ``inv_f``, padding rows and rows outside D included, at buckets that
+  overflow and that do not (the bitmap router:
+  tests/test_torch_f1_g2_design.py).
 - Edge tables: no mixed entry, no multi-multi entry, pairs that overflow,
   fA with two subs a fragment (s_max 2), twelve copies a duplicated bin
   (the kernels take any number), each against JAX and through the
@@ -297,18 +299,11 @@ def test_card_branch_through_stand_in(small, monkeypatch, path):
 # ---- F1's routing, transcribed -------------------------------------------------
 
 def search_slots(rows, valid, frags):
-    """F1's routing (csrc/repeat_corr.cu ``Router``), transcribed: the
-    valid prefix's length by binary search over ``valid``, then each
-    fragment's slot by a lower-bound binary search over the ascending valid
-    rows (-1: not a member)."""
-    lo, hi = 0, len(valid)
-    while lo < hi:
-        mid = (lo + hi) >> 1
-        if valid[mid]:
-            lo = mid + 1
-        else:
-            hi = mid
-    nvalid = lo
+    """F1's staged routing (csrc/repeat_corr.cu ``Router<STAGED>``),
+    transcribed: the valid prefix's length as the count of valid rows, then
+    each fragment's slot by a lower-bound binary search over the ascending
+    valid rows (-1: not a member)."""
+    nvalid = sum(bool(v) for v in valid)
     out = []
     for g in frags:
         lo, hi = 0, nvalid
@@ -341,6 +336,7 @@ def test_routing_by_binary_search_equals_inv_f(small, f_max, genome):
         inv_f.scatter_(0, torch.where(valid[i], rows[i], n), torch.arange(rows.shape[1]))
         nvalid, slots = search_slots(rows[i].tolist(), valid[i].tolist(), range(n))
         assert nvalid == int(valid[i].sum())
+        assert bool(valid[i][:nvalid].all()) and not bool(valid[i][nvalid:].any())  # a prefix
         assert slots == inv_f[:n].tolist(), (genome, f_max, i)
         # the mini rows of every copy row, as F1 forms them from the slot
         in_d, mrow = scorer.route(inv_f[None, :n], krows, shared=True)
