@@ -206,35 +206,43 @@ written. "share" is the bound over the device time.
    --allow-repeats``, 11a, 11b, 11e, 11g and 11h count one
    G1 + G2 pair and one G3 launch a scoring call (two a delta MTM / MH
    step).
+   G1's scratch (each contig's counts at its first place, the chunk
+   maxima, the sorted keys) is also held to a plain count on the card at
+   every shape.
 3h. The dense scorers' vector kernel H1 (vectors_kernel) and the captured
-   cycle's load and store kernels H2 (scan_load_kernel) and H3
-   (scan_store_kernel; csrc/vectors.cu, csrc/scan_io.cu). H1 against its
-   plain versions (the scorer's ``vectors_plain`` and ``params_vector``,
-   torch on the card) at every dense path's shape: the flagship EM step
-   (B = 65) and its nuisance call (B = 1, an ``x[None]`` view), the dense
-   repeat step (B3, B = 130, with the copy-order ``a`` column, and B = 1),
-   4 tempered chains (B = 260), an MTM pass at K = 972 (B = 91), K = 2,901
+   cycle's kernels H2 (scan_load_kernel: a call's first load) and H3
+   (scan_store_kernel: a step's stores and the next step's loads in one
+   launch; csrc/vectors.cu, csrc/scan_io.cu). H1 against its plain
+   versions (the scorer's ``vectors_plain`` and ``params_vector``, torch
+   on the card) at every dense path's shape: the flagship EM step (B = 65)
+   and its nuisance call (B = 1, an ``x[None]`` view), the dense repeat
+   step (B3, B = 130, with the copy-order ``a`` column, and B = 1), 4
+   tempered chains (B = 260), an MTM pass at K = 972 (B = 91), K = 2,901
    (B = 65) and K = 6,000 (B = 13): mid, idc, circ, stot, a and the
    parameter row bit for bit, each shape timed (H1 alone from one argument
    block; the plain version's ms as called and as graph replays) beside
-   its bound in bytes. H2 / H3 against ``scan_load_plain`` /
-   ``scan_store_plain`` on the trees every sampler's Scan builds (dense EM,
-   tempered, dense MTM and MH, the 100k delta EM cycle and its 4 chains,
-   the 20k repeat delta cycle, the 100k delta MTM and 20k repeat delta MH
-   cycles, the runner's cycle end): each cycle run eagerly on the card for
-   its first call, every step's load and store done by the kernels into
-   the scan's buffers and by the plain versions into copies of them, every
-   byte compared; one H2 and one H3 launch a step; each tree's first step
-   timed (H2 and H3 alone from their tables, the plain versions as called
-   and as graph replays, and for H3 ``torch._foreach_copy_`` on the same
-   carry leaves, the one PyTorch call for those copies) beside the bound
-   of the bytes copied (the timed launches counted on scratch counters).
-   The three kernels count their own launches on the card (block 0's
-   thread 0): the counts equal the calls made to H1's wrapper and the
-   launches H2 / H3's made, cut launches included (``check_counted``).
-   Phases 4, 4b, 7, 7b, 7g and 7h count one H2 and one H3 launch a
-   captured step and one H1 launch a dense scoring call (graph == eager by
-   key).
+   its bound in bytes. H2 / H3 against the plain sequence on the trees
+   every sampler's Scan builds (dense EM, tempered, dense MTM and MH, the
+   100k delta EM cycle and its 4 chains, the 20k repeat delta cycle, the
+   100k delta MTM and 20k repeat delta MH cycles, the runner's cycle end):
+   each cycle run eagerly on the card for its first call (whose steps fill
+   the buffers' capacity), the call's first load checked against
+   ``scan_load_plain``, and every step, the last included, against
+   ``scan_store_plain`` then ``scan_load_plain`` of the next row (none
+   past the capacity) done into copies of the scan's buffers, index and
+   slots, every byte compared; one H2 launch a call and one H3 launch a
+   step (none cut); each tree's first step timed: H3 alone from its
+   tables, H2 alone, the same step's work as the separate store-only and
+   load-only launches of before, the plain versions as called and as graph
+   replays, and ``torch._foreach_copy_`` on the same carry leaves (the one
+   PyTorch call for those copies), beside the bound of the bytes copied
+   (the timed launches counted on scratch counters, their index written to
+   a scratch cell). The three kernels count their own launches on the
+   card (block 0's thread 0): the counts equal the calls made to H1's
+   wrapper and the launches H2 / H3's made (``check_counted``). Phases 4,
+   4b, 7, 7b, 7g and 7h count one H3 launch a captured step, one H2 launch
+   a call with per-step inputs and one H1 launch a dense scoring call
+   (graph == eager by key).
 3i. The delta engine's input kernels I1 (the slots' lf_a, lf_b, max_id
    and parameter rows: delta_slots_kernel) and I2 (the sub-row vectors of
    each slot's 14 genomes, B4's keys and the repeat engine's act / circ /
@@ -561,13 +569,16 @@ written. "share" is the bound over the device time.
    count. H1 (vectors) mirrors graal_tpu/ops/likelihood_pallas.py:259
    (``sub_vectors``, with ``params_vector`` :215 and ``copy_vectors`` :666,
    fused by XLA into the pallas_call's operands) at the dense flagship EM
-   step's B = 65, H2 (scan_load) and H3 (scan_store) graal_tpu/core/
-   mcmc.py:468 (``lax.scan``, which slices, stacks and aliases inside one
-   XLA program) at the dense flagship EM cycle's step, with phase 3h's
+   step's B = 65, H2 (scan_load: a call's first load) and H3 (scan_store:
+   a step's stores and the next step's loads) graal_tpu/core/mcmc.py:468
+   (``lax.scan``, which slices, stacks and aliases inside one XLA program)
+   at the dense flagship EM cycle's step, with phase 3h's
    other shapes and trees under "by_shape" and each main path's launches
    under "by_path" (phases 4, 4b, 7, 7b and the graphed cycles of 7g /
    7h), summed into the top-level count; H3's library_ms is
-   torch._foreach_copy_'s on the same carry leaves. Before them, a JSON line
+   torch._foreach_copy_'s on the same carry leaves, and it carries the
+   separate store-only and load-only launches' times as separate_ms /
+   separate_device_ms. Before them, a JSON line
    of phase 5c's routes. (``--top-tiers``
    adds D3's delta entry on 4 chains at 16,384, M = 20, and E1-E3 at the
    16,384 bucket to its line.)
@@ -1273,7 +1284,7 @@ def dense_main_checks(r, n_cycles):
           f"kernel launches {r['launches']} != {want_launches}")
     print(f"  catalogue launches: {r['catalogue']} (one C1 a step: {steps})")
     check(r["catalogue"] == {"em": steps}, f"C1 launches {r['catalogue']} != {steps}")
-    want_io_launches(r["path"], r["io"], steps, want_launches)
+    want_io_launches(r["path"], r["io"], steps, want_launches, n_cycles)
     check(check_invariants(r["cur"], raise_on_error=False) == [],
           "final state violates the invariants")
     rescored = scorer(GenomeState(*[x[None] for x in r["cur"]]), r["par"])[0]
@@ -2109,7 +2120,7 @@ def phase_scale_main(sc, label="delta main path"):
     CATALOGUE_PATHS[label.replace(" ", "_")] = r["catalogue"]
     want_step_launches(label, r["step"], MAIN_STEPS, delta=True)
     want_rows_launches(label.replace(" ", "_"), r["rows"], MAIN_STEPS)
-    want_io_launches(label.replace(" ", "_"), r["io"], MAIN_STEPS, 0)
+    want_io_launches(label.replace(" ", "_"), r["io"], MAIN_STEPS, 0, 1)
     if sc["table"].has_repeats:
         want_corr_launches("repeat_delta_main", r["corr"], MAIN_STEPS)
     else:
@@ -6337,6 +6348,28 @@ def rows_bound(case, out, chunk):
     return bound(g1), bound(g2), bound(g3), dict(chunks_read=chunks, distinct_rows=distinct)
 
 
+def g1_plain(id_c, f_a, ids, chunk):
+    """What G1 writes to its scratch, in plain torch: each contig's rows in
+    a chunk at its first place in the chain's sorted keys (C, m + 1,
+    n_chunks), each chunk's largest id (C, n_chunks), the sorted keys (C, m
+    + 1); int32, as the wrapper allocates them."""
+    import torch
+
+    c, n = id_c.shape
+    dev = id_c.device
+    skeys = torch.cat([id_c.gather(1, f_a[:, None]), id_c.gather(1, ids)], 1).sort(1).values
+    n_keys, n_chunks = skeys.shape[1], -(-n // chunk)
+    place = torch.searchsorted(skeys, id_c.contiguous())   # the first place not below
+    hit = (place < n_keys) & (skeys.gather(1, place.clamp(max=n_keys - 1)) == id_c)
+    chunk_of = (torch.arange(n, device=dev) // chunk).expand(c, n)
+    flat = (torch.arange(c, device=dev)[:, None] * n_keys + place) * n_chunks + chunk_of
+    counts = torch.zeros(c * n_keys * n_chunks, dtype=torch.int64, device=dev)
+    counts.index_add_(0, flat[hit], torch.ones_like(flat[hit]))
+    cmax = torch.full((c, n_chunks), -2 ** 31, dtype=torch.int32, device=dev).scatter_reduce(
+        1, chunk_of, id_c.contiguous(), "amax")
+    return [counts.view(c, n_keys, n_chunks).int(), cmax, skeys]
+
+
 def time_rows_kernels(case, f_a, ids):
     """G1, G2 and G3 alone (each launched from one argument block, outside
     the wrapper's count), event ms as called and device ms; the plain
@@ -6366,6 +6399,9 @@ def time_rows_kernels(case, f_a, ids):
     g1()
     g2()
     torch.cuda.synchronize()
+    g1_diffs = int(bit_diffs(list(keep[3]), g1_plain(states.id_c, f_a, ids, a.chunk)))
+    check(g1_diffs == 0, f"{case['label']}: {g1_diffs} values of G1's scratch (counts, chunk "
+          "maxima, sorted keys) differ from its plain count")
     g, keep_g, _ = rc.gather_args(states, out[0], out[1])
     counter_g = scratch_fields(g, ("counter",))
 
@@ -6840,13 +6876,23 @@ def io_launches():
     return dict(vectors_wrapper().launches.by_key()) | dict(scan_wrapper().launches.by_key())
 
 
-def want_io_launches(path, got, steps, scorer_calls):
-    """One H2 and one H3 launch a step of a captured cycle (``steps``), and
-    one H1 launch a dense scoring call (``scorer_calls``); the count goes to
-    the kernels line under ``path``."""
-    want = {"load": steps, "store": steps} | ({"vectors": scorer_calls} if scorer_calls else {})
-    print(f"  H1-H3 launches: {got} (one H2 and one H3 a step: {steps}; one H1 a dense "
-          f"scoring call: {scorer_calls})")
+def io_want(steps, scorer_calls, calls):
+    """H1-H3's launches by key on a path: one H3 a step of a captured cycle
+    (its stores and the next step's loads), one H2 a call of a scan with
+    per-step inputs (the call's first load), one H1 a dense scoring
+    call."""
+    return {"store": steps} | ({"load": calls} if calls else {}) \
+        | ({"vectors": scorer_calls} if scorer_calls else {})
+
+
+def want_io_launches(path, got, steps, scorer_calls, calls):
+    """One H3 launch a step of a captured cycle (``steps``), one H2 launch
+    a call (``calls``) and one H1 launch a dense scoring call
+    (``scorer_calls``); the count goes to the kernels line under
+    ``path``."""
+    want = io_want(steps, scorer_calls, calls)
+    print(f"  H1-H3 launches: {got} (one H3 a step: {steps}; one H2 a call: {calls}; one H1 "
+          f"a dense scoring call: {scorer_calls})")
     check(got == want, f"{path}: H1-H3 launches {got} != {want}")
     IO_PATHS[path] = got
 
@@ -7067,25 +7113,27 @@ def scan_io_check(label, build, chunks):
     """H2 and H3 against the plain versions on the trees one sampler's
     Scan builds: its cycle built with capture=False (the body run eagerly
     on the card, every step's tables built anew) and run for its first
-    call, each step's load and store done twice, by the kernels into the
-    scan's own slots and buffers and by ``scan_load_plain`` /
-    ``scan_store_plain`` into copies of them, every byte compared on the
-    card. The first step's tables and tensors are kept to time H2 and H3
-    alone. Returns the stats and the kept step."""
+    call, whose steps fill the buffers' capacity. The call's first load is
+    held to ``scan_load_plain`` of row 0; each step's H3 launch to the
+    plain sequence done first into copies of the scan's buffers, index and
+    slots: ``scan_store_plain``, then ``scan_load_plain`` of the next row
+    while it is below the capacity (else the slots as they were); every
+    byte compared on the card. The first step's tensors and tables are kept
+    to time the kernels alone: H2's, H3's, and the separate store-only and
+    load-only tables of the same step. Returns the stats and the kept
+    step."""
     import torch
     from graal_tpu_torch.core import graphs
     from graal_tpu_torch.ops import scan_cuda as scu
 
     diffs = []
-    stats = dict(steps=0, load_launches=0, store_launches=0)
+    stats = dict(steps=0, load_launches=0, store_launches=0, last_at_capacity=False)
     kept = {}
-    orig_load, orig_store = graphs.Scan._load, graphs.Scan._store
+    orig_preload, orig_store = graphs.Scan._preload, graphs.Scan._store
 
-    def load(self):
-        slots = orig_load(self)
-        diffs.append(bit_diffs([self.step_cell] + list(slots),
-                               [self.idx] + scu.scan_load_plain(self.x_bufs, self.idx)))
-        return slots
+    def preload(self):
+        orig_preload(self)
+        diffs.append(bit_diffs(list(self.x_slots), scu.scan_load_plain(self.x_bufs, self.idx)))
 
     def raw(b):
         # a byte copy: a bool copy would turn the unwritten rows' bytes into 0 / 1
@@ -7096,30 +7144,37 @@ def scan_io_check(label, build, chunks):
         y_c = [raw(b) for b in self.y_bufs]
         c_c = [raw(b) for b in self.carry_bufs]
         i_c = self.idx.clone()
-        mapped = [c if v is b else v for b, c, v in zip(self.carry_bufs, c_c, new)]
+        copy_of = {id(b): c for b, c in zip(self.carry_bufs, c_c)}
+        mapped = [copy_of.get(id(v), v) for v in new]
         if stats["steps"] == 0:
             c_k = [raw(b) for b in c_c]
+            copy_k = {id(b): c for b, c in zip(self.carry_bufs, c_k)}
             kept.update(scan=self, ys=list(ys), new=list(new), y_c=[raw(b) for b in y_c],
-                        c_c=c_k, i_c=i_c.clone(),
-                        mapped=[c if v is b else v for b, c, v in zip(self.carry_bufs, c_k, new)],
-                        load=scu.load_tables(self.x_bufs, self.x_slots, self.idx,
-                                             self.step_cell),
-                        store=scu.store_tables(self.y_bufs, ys, self.carry_bufs, new, self.idx,
-                                               self.step_cell))
+                        c_c=c_k, i_c=i_c.clone(), mapped=[copy_k.get(id(v), v) for v in new],
+                        load=scu.load_tables(self.x_bufs, self.x_slots, self.idx),
+                        step=scu.step_tables(self.y_bufs, ys, self.carry_bufs, new,
+                                             self.x_bufs, self.x_slots, self.idx, self.ticket),
+                        store_only=scu.step_tables(self.y_bufs, ys, self.carry_bufs, new, [],
+                                                   [], self.idx, self.ticket))
         scu.scan_store_plain(y_c, ys, c_c, mapped, i_c)
+        at_capacity = stats["steps"] + 1 == self.cap
+        s_c = [raw(s) for s in self.x_slots] if at_capacity else \
+            scu.scan_load_plain(self.x_bufs, i_c)
         orig_store(self, ys, new)
-        diffs.append(bit_diffs(self.y_bufs + self.carry_bufs + [self.idx], y_c + c_c + [i_c]))
+        diffs.append(bit_diffs(self.y_bufs + self.carry_bufs + [self.idx] + list(self.x_slots),
+                               y_c + c_c + [i_c] + s_c))
         stats["steps"] += 1
+        stats["last_at_capacity"] = at_capacity
 
     before = dict(scan_wrapper().launches.by_key())
-    graphs.Scan._load, graphs.Scan._store = load, store
+    graphs.Scan._preload, graphs.Scan._store = preload, store
     try:
         cycle = build(False)
         call, _ = chunks[0]
         call(cycle, None)
         torch.cuda.synchronize()
     finally:
-        graphs.Scan._load, graphs.Scan._store = orig_load, orig_store
+        graphs.Scan._preload, graphs.Scan._store = orig_preload, orig_store
     after = dict(scan_wrapper().launches.by_key())
     stats.update(load_launches=after.get("load", 0) - before.get("load", 0),
                  store_launches=after.get("store", 0) - before.get("store", 0),
@@ -7131,13 +7186,30 @@ def scan_entries_bytes(tables):
     return sum(t.e[j].outer * t.e[j].inner for t in tables for j in range(t.n))
 
 
+def idle_step(tables, device):
+    """``tables`` with the step index each advances written to a scratch
+    cell (their ticket a scratch one), so that launching them again and
+    again copies at one step; returns what must stay alive."""
+    import torch
+
+    cells = (torch.zeros(1, dtype=torch.int64, device=device),
+             torch.zeros(1, dtype=torch.int32, device=device))
+    for t in tables:
+        if t.step_out:
+            t.step_out, t.ticket = cells[0].data_ptr(), cells[1].data_ptr()
+    return cells
+
+
 def scan_io_times(kept):
     """H2 and H3 alone at one kept step (each launched from its tables,
-    outside the wrapper's count; both are idempotent at a step), the plain
+    outside the wrapper's count, the index H3 advances written to a scratch
+    cell, so each launch repeats the step), the same step's work as the
+    separate store-only and load-only launches of before, the plain
     versions' ms as called and as graph replays (the plain store's index
-    reset to that step first), ``torch._foreach_copy_`` on the same carry
-    leaves (the library call of H3's carry copies), and each bound: the
-    bytes copied, read once and written once, with the step index."""
+    reset to that step first; H3's plain version the store then the next
+    row's load), ``torch._foreach_copy_`` on the same carry leaves (the
+    library call of H3's carry copies), and each bound: the bytes copied,
+    read once and written once, with the step index."""
     import ctypes
 
     import torch
@@ -7146,13 +7218,15 @@ def scan_io_times(kept):
     lib = scu.load_library()
     stream = torch.cuda.current_stream().cuda_stream
     scan = kept["scan"]
-    scan.idx.zero_()   # the kept step's row: H2 reads row 0, H3 writes it and idx = 1
-    scratch = scan_scratch(kept["load"] + kept["store"])
+    scan.idx.zero_()   # the kept step's row: H2 reads row 0, H3 writes it and loads row 1
+    scratch = scan_scratch(kept["load"] + kept["step"] + kept["store_only"])
+    cells = idle_step(kept["step"] + kept["store_only"], scan.idx.device)
 
-    def launch(fn, tables):
+    def launch(*parts):
         def go():
-            for t in tables:
-                check(fn(ctypes.byref(t), stream) == 0, "scan launch failed")
+            for fn, tables in parts:
+                for t in tables:
+                    check(fn(ctypes.byref(t), stream) == 0, "scan launch failed")
         return go
 
     i_l = kept["i_c"].clone()   # 0, the kept step
@@ -7161,25 +7235,32 @@ def scan_io_times(kept):
     def plain_load():
         return scu.scan_load_plain(scan.x_bufs, i_l)
 
-    def plain_store():
+    def plain_step():
         i_s.copy_(kept["i_c"])
         scu.scan_store_plain(kept["y_c"], kept["ys"], kept["c_c"], kept["mapped"], i_s)
+        return scu.scan_load_plain(scan.x_bufs, i_s) if 1 < scan.cap else None
 
     copies = [(c, v) for b, c, v in zip(scan.carry_bufs, kept["c_c"], kept["new"]) if v is not b]
     rec = {}
-    for kind, fn, tables, plain in (("load", lib.scan_load, kept["load"], plain_load),
-                                    ("store", lib.scan_store, kept["store"], plain_store)):
-        t = timed(launch(fn, tables), SCAN_TIME_ITERS)
+    for kind, go, tables, plain in (
+            ("load", launch((lib.scan_load, kept["load"])), kept["load"], plain_load),
+            ("store", launch((lib.scan_store, kept["step"])), kept["step"], plain_step)):
+        t = timed(go, SCAN_TIME_ITERS)
         t.update(plain_ms=cuda_ms(plain, 5, n_warm=1), plain_device_ms=graph_device_ms(plain, 20),
                  library_ms=None, launches_a_step=len(tables),
                  entries=sum(x.n for x in tables))
-        if kind == "store" and copies:
-            dst, src = [c for c, _ in copies], [v for _, v in copies]
-            lib_t = timed(lambda: torch._foreach_copy_(dst, src), SCAN_TIME_ITERS)
-            t.update(library_ms=lib_t["ms"], library_device_ms=lib_t["device_ms"],
-                     library_leaves=len(copies))
+        if kind == "store":
+            sep = timed(launch((lib.scan_store, kept["store_only"]),
+                               (lib.scan_load, kept["load"])), SCAN_TIME_ITERS)
+            t.update(separate_ms=sep["ms"], separate_device_ms=sep["device_ms"],
+                     separate_launches=len(kept["store_only"]) + len(kept["load"]))
+            if copies:
+                dst, src = [c for c, _ in copies], [v for _, v in copies]
+                lib_t = timed(lambda: torch._foreach_copy_(dst, src), SCAN_TIME_ITERS)
+                t.update(library_ms=lib_t["ms"], library_device_ms=lib_t["device_ms"],
+                         library_leaves=len(copies))
         rec[kind] = with_share(t, bound(2 * scan_entries_bytes(tables) + 16))
-    del scratch
+    del scratch, cells
     return rec
 
 
@@ -7226,41 +7307,54 @@ def phase_io_checks(device, sc, rsc):
           "a, row)")
     for label, scorer, batch, params in vectors_cases(device):
         vectors_shape(label, scorer, batch, params)
-    print("scan loads / stores H2, H3 vs plain on every sampler's Scan trees, every byte")
+    print("scan loads / steps H2, H3 vs the plain store-then-load on every sampler's Scan "
+          "trees, every step, every byte")
     for label, build, chunks in scan_cases(device, sc, rsc):
         stats, kept = scan_io_check(label, build, chunks)
         steps = stats["steps"]
-        check(stats["load_launches"] == steps and stats["store_launches"] == steps,
-              f"{label}: {stats} (one H2 and one H3 a step)")
+        loads = 1 if kept["scan"].x_bufs else 0
+        check(stats["load_launches"] == loads and stats["store_launches"] == steps,
+              f"{label}: {stats} (one H2 a call, one H3 a step)")
+        check(stats["last_at_capacity"], f"{label}: the call's last step was not at capacity")
         rec = scan_io_times(kept)
         n_x, n_y = len(kept["scan"].x_bufs), len(kept["ys"])
         n_copy = sum(v is not b for b, v in zip(kept["scan"].carry_bufs, kept["new"]))
         print(f"  {label}: {steps} steps, {n_x} inputs, {n_y} outputs, {n_copy} of "
               f"{len(kept['new'])} carry leaves copied; differences {stats['differences']}")
         for name, r in rec.items():
-            extra = (f"; torch._foreach_copy_ on the {r['library_leaves']} carry leaves "
-                     f"{r['library_device_ms']:.4f} device ms ({r['library_ms']:.4f} as called)"
-                     if r.get("library_leaves") else "")
-            print(f"    {'H2' if name == 'load' else 'H3'} {name}: {r['entries']} entries in "
+            extra = ""
+            if name == "store":
+                extra = (f"; the separate store-only and load-only launches "
+                         f"({r['separate_launches']}) {r['separate_device_ms']:.4f} device ms "
+                         f"({r['separate_ms']:.4f} as called)")
+            if r.get("library_leaves"):
+                extra += (f"; torch._foreach_copy_ on the {r['library_leaves']} carry leaves "
+                          f"{r['library_device_ms']:.4f} device ms ({r['library_ms']:.4f} as "
+                          "called)")
+            print(f"    {'H2 load' if name == 'load' else 'H3 step'}: {r['entries']} entries in "
                   f"{r['launches_a_step']} launch(es); {r['device_ms']:.4f} device ms "
                   f"({r['ms']:.4f} as called); {fmt_bound(r)}; plain {r['plain_device_ms']:.4f} "
                   f"device ms as graph replays ({r['plain_ms']:.4f} as called){extra}")
         check(stats["differences"] == 0,
               f"{label}: {stats['differences']} values of H2 / H3 differ from plain")
+        check(rec["store"]["launches_a_step"] == 1, f"{label}: H3's step was cut into "
+              f"{rec['store']['launches_a_step']} launches")
         SCAN_TREES[label] = dict(stats=stats, kernels=rec, inputs=n_x, outputs=n_y,
                                  carry_copied=n_copy, carry=len(kept["new"]))
         del kept
 
 
 def io_records():
-    """The kernels line's entries of H1 (vectors), H2 (scan_load) and H3
-    (scan_store): the dense flagship's numbers (H1: its EM step's B = 65;
-    H2 / H3: its EM cycle's step), the other shapes of phase 3h under
+    """The kernels line's entries of H1 (vectors), H2 (scan_load: a call's
+    first load) and H3 (scan_store: a step's stores and the next step's
+    loads): the dense flagship's numbers (H1: its EM step's B = 65; H2 /
+    H3: its EM cycle's step), the other shapes of phase 3h under
     "by_shape", and under "by_path" each main path's launches counted on
     the card (phases 4, 4b, 7, 7b and the graphed cycles of 7g / 7h), whose
     sum is the top-level count; "max_abs_err" 0 (every value bit for bit;
     a difference fails 3h); H3's "library_ms" torch._foreach_copy_'s on
-    the same carry leaves."""
+    the same carry leaves, and its "separate_ms" the same step as separate
+    store-only and load-only launches."""
     out = []
     for kind, name, replaces, shapes, flagship in (
             ("vectors", "vectors", "graal_tpu/ops/likelihood_pallas.py:259", VEC_SHAPES,
@@ -7284,11 +7378,12 @@ def io_records():
 
 def io_paths(records, want):
     """Keep each graphed path's H1-H3 launches (the graph run's, equal to
-    the eager run's) for the kernels line: one H2 and one H3 a step and one
-    H1 a dense scoring call (``want[name]`` = (steps, scoring calls))."""
-    for name, (steps, calls) in want.items():
+    the eager run's) for the kernels line: one H3 a step, one H2 a call
+    and one H1 a dense scoring call (``want[name]`` = (steps, scoring
+    calls, scan calls with per-step inputs))."""
+    for name, (steps, scorer_calls, calls) in want.items():
         got = records[name]["graph"]["io"]
-        need = {"load": steps, "store": steps} | ({"vectors": calls} if calls else {})
+        need = io_want(steps, scorer_calls, calls)
         check(got == need, f"{name}: H1-H3 launches {got} != {need}")
         IO_PATHS[f"graph_{name}"] = got
 
@@ -7323,8 +7418,8 @@ def phase_graphs(device, sc, rsc):
     corr_paths(out, {"repeat_delta_20k": MAIN_STEPS + 128})
     rows_paths(out, {name: MAIN_STEPS + 128
                      for name in ("delta_100k", "chains_100k", "repeat_delta_20k")})
-    io_paths(out, {"dense_flagship": (2 * 384, 4 * 384),
-                   **{name: (MAIN_STEPS + 128, 0)
+    io_paths(out, {"dense_flagship": (2 * 384, 4 * 384, 2),
+                   **{name: (MAIN_STEPS + 128, 0, 2)
                       for name in ("delta_100k", "chains_100k", "repeat_delta_20k")}})
     return out
 
@@ -7572,16 +7667,16 @@ def phase_graphs_samplers(device, sc, rsc):
     catalogue_paths(out)
     corr_paths(out, {"delta_mh_repeat_20k": 2 * steps})
     rows_paths(out, {name: 2 * steps for name in ("delta_mtm_100k", "delta_mh_repeat_20k")})
-    io_paths(out, {"tempered_flagship": (steps, steps), "mtm_flagship": (steps, 2 * steps),
-                   "mh_flagship": (steps, 2 * steps), "delta_mtm_100k": (steps, 0),
-                   "delta_mh_repeat_20k": (steps, 0)})
+    io_paths(out, {"tempered_flagship": (steps, steps, 2),
+                   "mtm_flagship": (steps, 2 * steps, 2), "mh_flagship": (steps, 2 * steps, 2),
+                   "delta_mtm_100k": (steps, 0, 2), "delta_mh_repeat_20k": (steps, 0, 2)})
     out["cycle_end_100k"] = graph_vs_eager(
         "100k ScaleRunner.run cycle end (re-anchor + nuisance step)",
         *cycle_end_graph_case(sc), sync_error=True)
     launched(out["cycle_end_100k"], [{"step_head": 4, "step_tail": 4}],
              "cycle end")
     STEP_PATHS["graph_cycle_end_100k"] = out["cycle_end_100k"]["graph"]["by_key"][0]
-    io_paths(out, {"cycle_end_100k": (4, 0)})
+    io_paths(out, {"cycle_end_100k": (4, 0, 4)})
     sc["runner"].release_graphs()
     out["run_mtm_100k"] = run_mtm_memory(sc["runner"], sc["shuf"], SAMPLER_STEPS, F_MAX,
                                          "100k delta MTM")

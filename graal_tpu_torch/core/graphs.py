@@ -21,10 +21,15 @@ into them in place:
 - the per-step outputs (the metrics) as (capacity, ...) tensors, written
   at row ``idx``; then ``idx += 1`` on the device.
 
-On a card a step's loads are one launch of kernel H2 and its stores (the
-outputs, the new carry, the index) one of H3 (``ops.scan_cuda.SCAN``); on
-the CPU the plain versions beside them (``scan_load_plain``,
-``scan_store_plain``) gather, index-copy and copy leaf by leaf.
+On a card a step is the body and one launch of kernel H3
+(``ops.scan_cuda.SCAN``): the step's stores (the outputs, the new carry),
+the next step's loads (row ``idx + 1`` into the slots) and the index. A
+call's first step finds its inputs loaded by one launch of kernel H2
+before it (none for a body without per-step inputs). The eager route on a
+card (``capture=False``, and the first step before a capture) takes the
+same launches. On the CPU the plain versions (``scan_load_plain``,
+``scan_store_plain``) gather before the body and index-copy and copy leaf
+by leaf after it.
 
 On a CUDA device the first step of the first call runs eagerly on a side
 stream: the kernel libraries' builds, occupancy queries, launch plans,
@@ -53,7 +58,7 @@ from __future__ import annotations
 
 import torch
 
-from graal_tpu_torch.ops.scan_cuda import SCAN, scan_load_plain, scan_store_plain
+from graal_tpu_torch.ops.scan_cuda import SCAN, load_tables, scan_load_plain, scan_store_plain
 
 # per CUDA device, the side stream every first step and capture runs on (a
 # device resource of the process, like the kernel libraries ops.build loads
@@ -156,6 +161,7 @@ class Scan:
         self.cap = 0
         self.graph = None
         self.carry_bufs = self.const_bufs = self.x_bufs = self.x_slots = self.y_bufs = None
+        self.preload_tables = None
 
     # ---- buffers ------------------------------------------------------------
     def _alloc(self, carry, consts, x_spec, xs, cap):
@@ -174,15 +180,17 @@ class Scan:
         self.y_bufs = None
         self.y_spec = None
         self.idx = torch.zeros(1, dtype=torch.int64, device=self.device)
-        self.step_cell = torch.zeros(1, dtype=torch.int64, device=self.device)
+        # H3's count of the blocks done with idx (0 between launches)
+        self.ticket = torch.zeros(1, dtype=torch.int32, device=self.device)
+        self.preload_tables = None   # H2's tables for these buffers, built at the first call
         self.graph = None
 
     # ---- the step body ------------------------------------------------------
     def _step(self):
-        """One step on the buffers: load row idx of the per-step inputs, run
-        the body, store row idx of the outputs and the new carry, idx += 1
-        (:meth:`_load`, :meth:`_store`). The first step allocates the output
-        buffers from what it returns."""
+        """One step on the buffers: the step's per-step inputs, the body,
+        then the outputs stored at row idx, the new carry, the next step's
+        inputs and idx += 1 (:meth:`_load`, :meth:`_store`). The first step
+        allocates the output buffers from what it returns."""
         x = _build(self.x_spec, iter(self._load()))
         carry = _build(self.carry_spec, iter(self.carry_bufs))
         consts = _build(self.const_spec, iter(self.const_bufs))
@@ -200,27 +208,39 @@ class Scan:
                                  f"-> {tuple(v.shape)}")
         self._store(_leaves(y), new)
 
+    def _preload(self):
+        """Before a call's first step: on a card H2 copies row idx (0) of the
+        per-step inputs into the slots; the CPU gathers in :meth:`_load`."""
+        if self.device.type == "cuda":
+            self._preload_on_card()
+
+    def _preload_on_card(self):
+        if self.x_bufs:
+            if self.preload_tables is None:
+                self.preload_tables = load_tables(self.x_bufs, self.x_slots, self.idx)
+            SCAN.load(self.x_bufs, self.x_slots, self.idx, self.preload_tables)
+
     def _load(self):
-        """The step's per-step inputs: on a card H2 copies them into the
-        slots (and idx into the step cell), which the body reads; on the CPU
-        the plain gathers."""
+        """The step's per-step inputs: on a card the slots, which the call's
+        H2 or the previous step's H3 loaded; on the CPU the plain gathers."""
         if self.device.type == "cuda":
             return self._load_on_card()
         return scan_load_plain(self.x_bufs, self.idx)
 
     def _load_on_card(self):
-        SCAN.load(self.x_bufs, self.x_slots, self.idx, self.step_cell)
         return self.x_slots
 
     def _store(self, ys, new):
         """Write the outputs and the new carry, then idx += 1: on a card one
-        H3 launch, on the CPU the plain copies."""
+        H3 launch, which also loads the next step's inputs into the slots;
+        on the CPU the plain copies."""
         if self.device.type == "cuda":
             return self._store_on_card(ys, new)
         scan_store_plain(self.y_bufs, ys, self.carry_bufs, new, self.idx)
 
     def _store_on_card(self, ys, new):
-        SCAN.store(self.y_bufs, ys, self.carry_bufs, new, self.idx, self.step_cell)
+        SCAN.step(self.y_bufs, ys, self.carry_bufs, new, self.x_bufs, self.x_slots, self.idx,
+                  self.ticket)
 
     # ---- the graph ------------------------------------------------------------
     def _first_step(self):
@@ -273,6 +293,7 @@ class Scan:
         for b, x in zip(self.x_bufs, x_leaves):
             b[:n].copy_(x)
         self.idx.zero_()
+        self._preload()
         done = 0
         if self.capture and self.graph is None:
             self._first_step()

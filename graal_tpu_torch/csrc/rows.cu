@@ -40,15 +40,27 @@
 // into chunks across blocks.
 //
 // What the design does about it.
-//  - G1 (`rows_counts_kernel`): one block a (chunk, chain). The block
-//    sorts the chain's m + 1 contig keys (ka, then each slot's kb) in
-//    shared memory sized from m + 1 (a rank sort), and counts, over its
-//    chunk, the rows of each contig (a binary search a row, the warp's
-//    equal places merged by a match, one shared atomic a place) at the
-//    contig's first place in the sorted keys (its other places stay 0), and
-//    the chunk's largest id. It writes them to scratch: the sorted keys
-//    (C, m + 1), counts (C, m + 1, n_chunks) and the chunk maxima (C,
-//    n_chunks).
+//  - G1 (`rows_counts_kernel`): one block a (chunk, chain). It counts,
+//    over its chunk, the rows of each of the chain's m + 1 contig keys (ka,
+//    then each slot's kb) at the contig's first place in the sorted keys
+//    (its other places stay 0), and the chunk's largest id, and writes them
+//    to scratch: the sorted keys (C, m + 1), counts (C, m + 1, n_chunks)
+//    and the chunk maxima (C, n_chunks). A chunk's walk used to wait for
+//    the keys' two dependent loads and their sort, and each of its passes
+//    for the one before. Now every thread first issues all RPT loads of
+//    its rows of the chunk's first pass (a warp's 32 consecutive ids a
+//    load, so each coalesces), and they stay in flight while the keys load
+//    and sort; the keys sort by a bitonic network over one warp's shuffles
+//    up to 32 keys, by a rank a thread (m + 1 compares) up to THREADS keys,
+//    and by a bitonic network in shared memory (sized from m + 1) above, so
+//    no thread does (m + 1)^2 compares; then each step of a warp's 32 rows
+//    finds the rows' places (a binary search a row) and merges the warp's
+//    equal places by a match, one shared atomic a place, as many as
+//    before. The chunk's maximum comes from the same registers. Chunks over
+//    THREADS x RPT rows take more passes. RPT contiguous rows a thread
+//    (16-byte loads, runs of one place folded, a reduce over each match's
+//    lanes) and the shared-memory network at m + 1 = 81 were measured
+//    slower (PERF.md §6).
 //  - G2 (`rows_write_kernel`): one block a (chunk, slot, chain). Its
 //    prologue issues every load that waits for nothing at once: the
 //    slot's keys ka and kb, the chain's sorted keys into shared memory in
@@ -75,7 +87,8 @@
 //    chain's max_id from G1's chunk maxima. One block walking its chunk
 //    for all m slots (a barrier a slot) was slower at every shape
 //    measured, by 2-40x (PERF.md), and is not kept.
-//  - Shared memory follows m + 1 (8 bytes a key in G1; 4 in G2, 12 more
+//  - Shared memory follows m + 1 (8 bytes a key in G1, its sorting width
+//    padded to a power of two; 4 in G2, 12 more
 //    for the place sums and 1 more in union mode), so any slot count up to
 //    MAX_KEYS - 1 runs: every count D2 and E1 take (G2 opted in above 48
 //    KB once a device, `rows_init`).
@@ -100,8 +113,8 @@ namespace {
 
 constexpr int THREADS = 256;
 constexpr int N_WARPS = THREADS / 32;
-constexpr int RPT = 8;             // G2: contiguous rows a thread a pass
-constexpr int PASS = THREADS * RPT;  // G2: rows a block a pass (the wrapper's CHUNK)
+constexpr int RPT = 8;             // G1 / G2: contiguous rows a thread a pass
+constexpr int PASS = THREADS * RPT;  // G1 / G2: rows a block a pass (the wrapper's CHUNK)
 // m + 1 contig keys a chain (fA's and one a neighbour slot), at most: D2
 // (step.cu `neighbours`) takes at most 4,095 slots, E1 (mtm.cu) 64
 constexpr int MAX_KEYS = 4096;
@@ -178,60 +191,6 @@ __device__ __forceinline__ void place_sums(const RowsArgs& a, const int* cnt, in
   in = row[b];
 }
 
-__global__ void __launch_bounds__(THREADS) rows_counts_kernel(RowsArgs a) {
-  extern __shared__ int smem[];     // sized from m + 1 (counts_smem)
-  const int n_keys = a.m + 1;
-  int* s_sorted = smem;             // the chain's keys, ascending
-  int* s_cnt = smem + n_keys;       // the keys as given, then each place's count
-  __shared__ int s_max[N_WARPS];
-  const int b = blockIdx.x, c = blockIdx.y, t = threadIdx.x;
-  const int lane = t & 31, warp = t >> 5;
-  if (b == 0 && c == 0 && t == 0) atomicAdd(a.counts_counter, 1ULL);
-  for (int k = t; k < n_keys; k += THREADS) s_cnt[k] = key_of(a, c, k);
-  __syncthreads();
-  // rank sort: key k goes after the smaller keys and its equals before it
-  for (int k = t; k < n_keys; k += THREADS) {
-    const int v = s_cnt[k];
-    int r = 0;
-    for (int k2 = 0; k2 < n_keys; ++k2) {
-      const int w = s_cnt[k2];
-      r += w < v || (w == v && k2 < k);
-    }
-    s_sorted[r] = v;
-  }
-  __syncthreads();
-  for (int k = t; k < n_keys; k += THREADS) {
-    s_cnt[k] = 0;
-    if (b == 0) a.skeys[(long long)c * n_keys + k] = s_sorted[k];
-  }
-  __syncthreads();
-  const int lo = b * a.chunk, hi = min(lo + a.chunk, a.n);
-  const int* idc = a.id_c + c * a.id_cs;
-  int mx = INT_MIN;
-  for (int base = lo; base < hi; base += THREADS) {
-    const int i = base + t;
-    int place = -1;                       // the first place of the row's key
-    if (i < hi) {
-      const int id = idc[i * a.id_is];
-      mx = max(mx, id);
-      const int r = lower_bound(s_sorted, n_keys, id);
-      if (r < n_keys && s_sorted[r] == id) place = r;
-    }
-    const unsigned peers = __match_any_sync(FULL, place);
-    if (place >= 0 && lane == __ffs(peers) - 1) atomicAdd(&s_cnt[place], __popc(peers));
-  }
-  for (int off = 16; off > 0; off >>= 1) mx = max(mx, __shfl_xor_sync(FULL, mx, off));
-  if (lane == 0) s_max[warp] = mx;
-  __syncthreads();
-  for (int k = t; k < n_keys; k += THREADS)
-    a.counts[((long long)c * n_keys + k) * a.n_chunks + b] = s_cnt[k];
-  if (t == 0) {
-    int m = s_max[0];
-    for (int w = 1; w < N_WARPS; ++w) m = max(m, s_max[w]);
-    a.cmax[(long long)c * a.n_chunks + b] = m;
-  }
-}
-
 // A thread's RPT contiguous rows of a pass from r0 (ids of rows at or past
 // hi are not read): two 16-byte loads where id_c is contiguous and aligned.
 __device__ __forceinline__ void load_pass(const RowsArgs& a, const int* idc, int r0, int hi,
@@ -245,6 +204,141 @@ __device__ __forceinline__ void load_pass(const RowsArgs& a, const int* idc, int
   }
 #pragma unroll
   for (int k = 0; k < RPT; ++k) id[k] = r0 + k < hi ? idc[(long long)(r0 + k) * a.id_is] : 0;
+}
+
+// G1's rows of a pass from r0 = the pass's first row + t: thread t's k-th
+// row r0 + k THREADS (a warp's loads, 32 consecutive ids, coalesce), all
+// issued at once (ids of rows at or past hi are not read)
+__device__ __forceinline__ void load_rows(const RowsArgs& a, const int* idc, int r0, int hi,
+                                          int (&id)[RPT]) {
+#pragma unroll
+  for (int k = 0; k < RPT; ++k) {
+    const int r = r0 + k * THREADS;
+    id[k] = r < hi ? idc[(long long)r * a.id_is] : 0;
+  }
+}
+
+// G1's keys sorted ascending where they fit a warp: a bitonic network over
+// the 32 lanes' values, by shuffles
+__device__ __forceinline__ int warp_sort(int v, int lane) {
+#pragma unroll
+  for (int k = 2; k <= 32; k <<= 1) {
+#pragma unroll
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      const int o = __shfl_xor_sync(FULL, v, j);
+      v = ((lane & j) == 0) == ((lane & k) == 0) ? min(v, o) : max(v, o);
+    }
+  }
+  return v;
+}
+
+// ... and above THREADS keys: a bitonic network over the p (a power of
+// two) values of s in shared memory, the block's threads a
+// compare-exchange each (pair i = t + THREADS r). A stage of distance j <=
+// 32 keeps each warp's 32 consecutive pairs inside 64 values of its own,
+// so it needs only the warp's barrier; the block's barrier stands around
+// stages of distance 64 and more (at m + 1 = 321, width 512: 9 of 45
+// stages; at 4,096: 27 of 78)
+__device__ __forceinline__ void block_sort(int* s, int p, int t) {
+  for (int k = 2; k <= p; k <<= 1) {
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      for (int i = t; i < p / 2; i += THREADS) {
+        const int lo = ((i & ~(j - 1)) << 1) | (i & (j - 1)), hi = lo + j;
+        const int x = s[lo], y = s[hi];
+        if ((x > y) == ((lo & k) == 0)) {
+          s[lo] = y;
+          s[hi] = x;
+        }
+      }
+      const int next = j > 1 ? j >> 1 : (k < p ? k : 0);   // the next stage's distance
+      if (j >= 64 || next >= 64) __syncthreads();
+      else __syncwarp();
+    }
+  }
+}
+
+// The keys' sorting width: a warp's 32, or the power of two at or above them
+__host__ __device__ __forceinline__ int sort_width(int n_keys) {
+  int p = 32;
+  while (p < n_keys) p <<= 1;
+  return p;
+}
+
+__global__ void __launch_bounds__(THREADS) rows_counts_kernel(RowsArgs a) {
+  extern __shared__ int smem[];     // sized from m + 1 (counts_smem)
+  const int n_keys = a.m + 1;
+  const int p = sort_width(n_keys);
+  int* s_sorted = smem;             // the chain's keys, ascending (INT_MAX past n_keys)
+  int* s_cnt = smem + p;            // each place's count in the chunk
+  __shared__ int s_max[N_WARPS];
+  const int b = blockIdx.x, c = blockIdx.y, t = threadIdx.x;
+  const int lane = t & 31, warp = t >> 5;
+  if (b == 0 && c == 0 && t == 0) atomicAdd(a.counts_counter, 1ULL);
+  const int lo = b * a.chunk, hi = min(lo + a.chunk, a.n);
+  const int* idc = a.id_c + c * a.id_cs;
+  // the chunk's first pass of rows, in flight while the keys load and sort
+  int id[RPT];
+  load_rows(a, idc, lo + t, hi, id);
+  if (p == 32) {
+    if (t < n_keys) s_cnt[t] = 0;
+    if (warp == 0) s_sorted[lane] = warp_sort(lane < n_keys ? key_of(a, c, lane) : INT_MAX, lane);
+  } else if (n_keys <= THREADS) {
+    // a rank a thread, n_keys compares: key t goes after the smaller keys
+    // and its equals before it (the keys staged where the counts go)
+    if (t < n_keys) s_cnt[t] = key_of(a, c, t);
+    __syncthreads();
+    int v = 0, r = 0;
+    if (t < n_keys) {
+      v = s_cnt[t];
+      for (int k = 0; k < n_keys; ++k) {
+        const int w = s_cnt[k];
+        r += w < v || (w == v && k < t);
+      }
+    }
+    __syncthreads();
+    if (t < n_keys) {
+      s_sorted[r] = v;
+      s_cnt[t] = 0;
+    }
+  } else {
+    for (int k = t; k < n_keys; k += THREADS) s_cnt[k] = 0;
+    for (int k = t; k < p; k += THREADS) s_sorted[k] = k < n_keys ? key_of(a, c, k) : INT_MAX;
+    __syncthreads();
+    block_sort(s_sorted, p, t);
+  }
+  __syncthreads();
+  if (b == 0)
+    for (int k = t; k < n_keys; k += THREADS) a.skeys[(long long)c * n_keys + k] = s_sorted[k];
+  int mx = INT_MIN;
+  for (int base = lo; base < hi; base += PASS) {
+    if (base > lo) load_rows(a, idc, base + t, hi, id);
+    // a warp's 32 consecutive rows a step: each row's first place in the
+    // sorted keys (-1: not a key), the warp's equal places merged by a
+    // match, one shared atomic a place (a step with no key row skipped)
+#pragma unroll
+    for (int k = 0; k < RPT; ++k) {
+      int place = -1;
+      if (base + k * THREADS + t < hi) {
+        mx = max(mx, id[k]);
+        const int r = lower_bound(s_sorted, n_keys, id[k]);
+        if (r < n_keys && s_sorted[r] == id[k]) place = r;
+      }
+      if (__any_sync(FULL, place >= 0)) {
+        const unsigned peers = __match_any_sync(FULL, place);
+        if (place >= 0 && lane == __ffs(peers) - 1) atomicAdd(&s_cnt[place], __popc(peers));
+      }
+    }
+  }
+  for (int off = 16; off > 0; off >>= 1) mx = max(mx, __shfl_xor_sync(FULL, mx, off));
+  if (lane == 0) s_max[warp] = mx;
+  __syncthreads();
+  for (int k = t; k < n_keys; k += THREADS)
+    a.counts[((long long)c * n_keys + k) * a.n_chunks + b] = s_cnt[k];
+  if (t == 0) {
+    int m = s_max[0];
+    for (int w = 1; w < N_WARPS; ++w) m = max(m, s_max[w]);
+    a.cmax[(long long)c * a.n_chunks + b] = m;
+  }
 }
 
 // In the union: each row's contig found in the shared sorted keys with its
@@ -495,15 +589,17 @@ __global__ void __launch_bounds__(THREADS) rows_gather_kernel(GatherArgs g) {
 
 int launched() { return (int)cudaGetLastError(); }
 
-// Dynamic shared memory of G1 (the sorted keys and a count a place) and G2
+// Dynamic shared memory of G1 (the keys at their sorting width and a count
+// a place) and G2
 // (the sorted keys; in union mode or where they are few each place's three
 // sums; in union mode a byte a place).
-int counts_smem(int n_keys) { return 8 * n_keys; }
+int counts_smem(int n_keys) { return 4 * (sort_width(n_keys) + n_keys); }
 inline long long write_smem(const RowsArgs& a) {
   const long long n_keys = a.m + 1;
   return 4 * (n_keys + (every_place(a) ? 3 * n_keys : 0)) + (a.union_mode ? n_keys : 0);
 }
-static_assert(8 * MAX_KEYS <= 48 * 1024, "G1's keys must fit in 48 KB of shared memory");
+static_assert(8 * MAX_KEYS <= 48 * 1024 && (MAX_KEYS & (MAX_KEYS - 1)) == 0,
+              "G1's sorting width and counts must fit in 48 KB of shared memory");
 
 int check_rows(const RowsArgs* a) {
   if (a->C < 1 || a->m < 1 || a->m + 1 > MAX_KEYS || a->f_max < 1 || a->f_max > a->n

@@ -1,6 +1,7 @@
 // A captured cycle's per-step inputs, outputs and carry, for NVIDIA Hopper
-// (sm_90a): H2 (load) and H3 (store), one launch each a step of every
-// core.graphs.Scan (every sampler cycle and the runners' cycle end).
+// (sm_90a): H2 (the load of a call's first step) and H3 (a step's store
+// and the next step's load, in one launch), for every core.graphs.Scan
+// (every sampler cycle and the runners' cycle end).
 //
 // Replaces no Pallas kernel: in the JAX package `lax.scan`
 // (graal_tpu/core/mcmc.py:468 and every other cycle) slices the per-step
@@ -17,29 +18,52 @@
 // body runs eagerly. An entry's source is `src + step * src_step`, read as
 // `outer` runs of `inner` bytes `outer_stride` apart (a leaf at any strides
 // that coalesce to at most two levels); its destination `dst + step *
-// dst_step`, written contiguously. `step` is the scan's device step index:
-//   H2: row `idx` of every per-step input buffer -> its fixed per-step slot,
-//       and idx -> the step-local cell `step`;
-//   H3: every output leaf -> row `step` of its (capacity, ...) buffer; every
-//       new carry leaf that is not its buffer -> its buffer; idx = step + 1.
-// Every block reads the step it copies at from a cell that no block of the
-// same launch writes (H2 reads idx and writes the step cell; H3 reads the
-// step cell and writes idx), so no block can see an advanced index.
+// dst_step`, written contiguously. `step` is the scan's device step index
+// idx, read by every block at its start:
+//   H2 (once a call, before its first step): row idx (0) of every per-step
+//       input buffer -> its fixed per-step slot;
+//   H3 (once a step, after the body): every output leaf -> row idx of its
+//       (capacity, ...) buffer; every new carry leaf that is not its buffer
+//       -> its buffer; then row idx + 1 of every per-step input -> its slot
+//       (the load entries, from `first_load` on, copy only while idx + 1 is
+//       below the buffers' capacity: `load_last`); then idx = idx + 1.
+// The plain sequence is the store, then the next step's load: an output or
+// new carry leaf that lies in a slot (the dense EM body returns its f_a slot
+// as a metric) is read by the wrapper from the slot's input buffer at row
+// idx, which no entry writes, so the load may overwrite the slot in the
+// same launch.
+//
+// The step index. H3 reads idx in every block and leaves idx + 1 for the
+// next step, written once every block has read idx. A launch of one block
+// writes it after a barrier. In a launch of more blocks each block, once
+// all its threads have read idx (a barrier), takes a ticket
+// (`__threadfence`, then an atomicAdd on the scan's int32 ticket cell); the
+// one that draws the last ticket resets the cell to 0 and writes idx + 1.
+// Only a table with `step_out` does this (H3's last launch of a step); H2
+// writes no index.
 //
 // What bounds it on the card: bytes, and at these sizes latency. A dense EM
 // step moves a few kilobytes (the state's 11 x n int32 fields and the
 // metrics' rows); a 4-chain delta step a few megabytes at most. Most
-// entries are small: 20 of the dense EM store's 31 are 4-8 byte scalars.
+// entries are small: 20 of the dense EM store's 31 are 4-8 byte scalars. At
+// these sizes a launch costs about as much as its copies, so the step's
+// load rides in its store's launch: one launch a step of a graph, not two.
 //
 // What the design does about it.
-//  - One launch for all of a step's loads and one for all of its stores:
-//    the table is passed by value (at most MAX_ENTRIES entries within the
-//    4 KB kernel-parameter limit, read in place as a __grid_constant__).
+//  - One launch for all of a step's stores and the next step's loads: the
+//    table is passed by value (at most MAX_ENTRIES entries within the 4 KB
+//    kernel-parameter limit, read in place as a __grid_constant__).
 //  - A warp a unit: an entry is cut into units of UNIT_WORDS words (32
-//    lanes x LANE_WORDS), and a block's WARPS warps take WARPS consecutive
-//    units, so an entry small enough for one warp takes a warp, not a
-//    block, and the dense store's scalars share blocks. The wrapper lays
-//    the units out on the host (`first`: each entry's first unit).
+//    lanes x LANE_WORDS), and a block's warps take consecutive units, so an
+//    entry small enough for one warp takes a warp, not a block, and the
+//    dense store's scalars share blocks. The wrapper lays the units out on
+//    the host (`first`: each entry's first unit). A launch takes as few
+//    blocks as hold its units at MAX_WARPS warps a block, the units spread
+//    evenly over them (`launch_blocks`, `launch_warps`): a table of up to
+//    32 units (every delta step's, the cycle end's) is one block, whose
+//    index needs no ticket; the dense EM step's 37 are two blocks of 19
+//    warps. Measured against blocks of 8 warps with a ticket in every
+//    launch (PERF.md §6).
 //  - A short lookup: a warp finds its entry by a binary search of the
 //    compact `first` column at the head of the table (at most 6 loads for
 //    64 entries, each one address for the whole warp, a broadcast from the
@@ -58,13 +82,14 @@
 //    depends on that order. The wrapper cuts the table there into launches
 //    that run one after the other, so each launch's entries touch disjoint
 //    bytes and the sequence equals the plain version's; an entry whose
-//    source overlaps its own destination is refused. No path so far
-//    aliases, so every step is one H2 and one H3 launch.
+//    source overlaps its own destination is refused. No sampler's step
+//    aliases once slot sources are read from their rows, so every step is
+//    one H3 launch.
 //  - Block 0's thread 0 adds one to the launch key's int64 counter
 //    (ops/counts.py `LaunchCount.counter`), so no counting kernel runs
 //    beside H2 or H3; every launch of a cut counts itself.
 //
-// Launch keys (ops/counts.py): "load", "store".
+// Launch keys (ops/counts.py): "load" (H2), "store" (H3).
 
 #include <climits>
 
@@ -72,8 +97,7 @@
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
+constexpr int MAX_WARPS = 32;                  // warps (units) a block, at most
 constexpr int LANE_WORDS = 4;                  // words a lane copies, at most
 constexpr int UNIT_WORDS = 32 * LANE_WORDS;    // words a warp copies, at most
 constexpr int MAX_ENTRIES = 64;
@@ -81,8 +105,8 @@ constexpr int MAX_ENTRIES = 64;
 struct Entry {
   const char* src;
   char* dst;
-  long long src_step;        // bytes added to src a step index (H2's inputs)
-  long long dst_step;        // bytes added to dst a step index (H3's outputs)
+  long long src_step;        // bytes added to src a step index (inputs, slot sources)
+  long long dst_step;        // bytes added to dst a step index (outputs)
   long long outer_stride;    // bytes between the source's runs
   long long inner;           // bytes a run; the destination is contiguous
   int outer;                 // runs of the source
@@ -90,12 +114,15 @@ struct Entry {
 };
 
 struct Table {
-  const long long* step_in;  // the step the copies are at
-  long long* step_out;       // written with *step_in + step_add, or nullptr
-  long long step_add;
+  const long long* step_in;  // the step the copies are at (the scan's idx)
+  long long* step_out;       // written with *step_in + 1 by the last block, or nullptr
+  unsigned int* ticket;      // with step_out: the blocks done (0 between launches)
+  long long load_last;       // entries from first_load on copy only at a step <= load_last
   unsigned long long* counter;   // the launch key's int64 counter
   int n;                     // entries
   int n_units;               // warp units of all entries
+  int first_load;            // the first load entry (n: none)
+  int pad;
   int first[MAX_ENTRIES];    // each entry's first unit, ascending; INT_MAX past n
   Entry e[MAX_ENTRIES];
 };
@@ -129,46 +156,67 @@ __device__ __forceinline__ void copy_words(const Entry& e, const char* src, char
 
 __device__ __forceinline__ void copy_table(const Table& t) {
   const long long step = *t.step_in;
-  if (blockIdx.x == 0 && threadIdx.x == 0) {
-    atomicAdd(t.counter, 1ULL);
-    if (t.step_out != nullptr) *t.step_out = step + t.step_add;
+  if (blockIdx.x == 0 && threadIdx.x == 0) atomicAdd(t.counter, 1ULL);
+  const int warps = static_cast<int>(blockDim.x / 32);
+  const int unit = blockIdx.x * warps + static_cast<int>(threadIdx.x / 32);
+  if (unit < t.n_units) {   // the same for the whole warp
+    const int lane = threadIdx.x % 32;
+    // the warp's entry, the last whose first unit is at or before its unit:
+    // a binary search, each load one address for the whole warp
+    int j = 0;
+    for (int hi = t.n - 1; j < hi;) {
+      const int mid = (j + hi + 1) / 2;
+      if (t.first[mid] <= unit) j = mid; else hi = mid - 1;
+    }
+    const Entry& e = t.e[j];
+    if (j < t.first_load || step <= t.load_last) {
+      const long long words = (static_cast<long long>(e.outer) * e.inner) >> e.log_w;
+      const long long q0 = static_cast<long long>(unit - t.first[j]) * UNIT_WORDS;
+      const long long q1 = min(q0 + UNIT_WORDS, words);
+      const char* src = e.src + step * e.src_step;
+      char* dst = e.dst + step * e.dst_step;
+      switch (e.log_w) {
+        case 4: copy_words<uint4>(e, src, dst, q0 + lane, q1); break;
+        case 3: copy_words<unsigned long long>(e, src, dst, q0 + lane, q1); break;
+        case 2: copy_words<unsigned int>(e, src, dst, q0 + lane, q1); break;
+        case 1: copy_words<unsigned short>(e, src, dst, q0 + lane, q1); break;
+        default: copy_words<unsigned char>(e, src, dst, q0 + lane, q1); break;
+      }
+    }
   }
-  const int unit = blockIdx.x * WARPS + static_cast<int>(threadIdx.x / 32);
-  if (unit >= t.n_units) return;   // the same for the whole warp
-  const int lane = threadIdx.x % 32;
-  // the warp's entry, the last whose first unit is at or before its unit:
-  // a binary search, each load one address for the whole warp
-  int j = 0;
-  for (int hi = t.n - 1; j < hi;) {
-    const int mid = (j + hi + 1) / 2;
-    if (t.first[mid] <= unit) j = mid; else hi = mid - 1;
-  }
-  const Entry& e = t.e[j];
-  const long long words = (static_cast<long long>(e.outer) * e.inner) >> e.log_w;
-  const long long q0 = static_cast<long long>(unit - t.first[j]) * UNIT_WORDS;
-  const long long q1 = min(q0 + UNIT_WORDS, words);
-  const char* src = e.src + step * e.src_step;
-  char* dst = e.dst + step * e.dst_step;
-  switch (e.log_w) {
-    case 4: copy_words<uint4>(e, src, dst, q0 + lane, q1); break;
-    case 3: copy_words<unsigned long long>(e, src, dst, q0 + lane, q1); break;
-    case 2: copy_words<unsigned int>(e, src, dst, q0 + lane, q1); break;
-    case 1: copy_words<unsigned short>(e, src, dst, q0 + lane, q1); break;
-    default: copy_words<unsigned char>(e, src, dst, q0 + lane, q1); break;
+  if (t.step_out != nullptr) {
+    // idx + 1 once every block has read idx (every thread of a block read it
+    // before the barrier): at once in a launch of one block, else by the
+    // block that finishes last
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      if (gridDim.x == 1) {
+        *t.step_out = step + 1;
+      } else {
+        __threadfence();
+        if (atomicAdd(t.ticket, 1u) == gridDim.x - 1) {
+          *t.ticket = 0;
+          *t.step_out = step + 1;
+        }
+      }
+    }
   }
 }
 
-__global__ void __launch_bounds__(THREADS) scan_load_kernel(const __grid_constant__ Table t) {
+__global__ void __launch_bounds__(MAX_WARPS * 32)
+scan_load_kernel(const __grid_constant__ Table t) {
   copy_table(t);
 }
 
-__global__ void __launch_bounds__(THREADS) scan_store_kernel(const __grid_constant__ Table t) {
+__global__ void __launch_bounds__(MAX_WARPS * 32)
+scan_store_kernel(const __grid_constant__ Table t) {
   copy_table(t);
 }
 
 int check_table(const Table* t) {
   if (t->n < 0 || t->n > MAX_ENTRIES || t->n_units < 0 || t->counter == nullptr
-      || (t->n == 0) != (t->n_units == 0))
+      || (t->n == 0) != (t->n_units == 0) || t->first_load < 0 || t->first_load > t->n
+      || (t->step_out != nullptr && t->ticket == nullptr))
     return (int)cudaErrorInvalidValue;
   for (int j = 0; j < MAX_ENTRIES; ++j) {
     if (j >= t->n) {
@@ -188,7 +236,15 @@ int check_table(const Table* t) {
   return 0;
 }
 
-int blocks(const Table* t) { return t->n_units > 0 ? (t->n_units + WARPS - 1) / WARPS : 1; }
+// A launch's blocks: as few as hold the units at MAX_WARPS a block; and its
+// warps a block: the units spread evenly over them (one for none)
+int launch_blocks(const Table* t) {
+  return t->n_units > 0 ? (t->n_units + MAX_WARPS - 1) / MAX_WARPS : 1;
+}
+int launch_warps(const Table* t) {
+  const int b = launch_blocks(t);
+  return t->n_units > 0 ? (t->n_units + b - 1) / b : 1;
+}
 
 }  // namespace
 
@@ -199,7 +255,7 @@ extern "C" {
 int scan_table_size() { return (int)sizeof(Table); }
 int scan_max_entries() { return MAX_ENTRIES; }
 int scan_unit_words() { return UNIT_WORDS; }
-int scan_warps() { return WARPS; }
+int scan_max_warps() { return MAX_WARPS; }
 
 // Each entry point launches its kernel on `stream` from the table the
 // wrapper filled, does not synchronise, and returns the cudaError_t of the
@@ -207,14 +263,14 @@ int scan_warps() { return WARPS; }
 int scan_load(const void* table, void* stream) {
   const Table* t = static_cast<const Table*>(table);
   if (int rc = check_table(t)) return rc;
-  scan_load_kernel<<<blocks(t), THREADS, 0, (cudaStream_t)stream>>>(*t);
+  scan_load_kernel<<<launch_blocks(t), 32 * launch_warps(t), 0, (cudaStream_t)stream>>>(*t);
   return (int)cudaGetLastError();
 }
 
 int scan_store(const void* table, void* stream) {
   const Table* t = static_cast<const Table*>(table);
   if (int rc = check_table(t)) return rc;
-  scan_store_kernel<<<blocks(t), THREADS, 0, (cudaStream_t)stream>>>(*t);
+  scan_store_kernel<<<launch_blocks(t), 32 * launch_warps(t), 0, (cudaStream_t)stream>>>(*t);
   return (int)cudaGetLastError();
 }
 

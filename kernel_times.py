@@ -50,11 +50,14 @@ outputs (equal across the two designs but on the tempered tail, which
 computes mean_len beside the earlier body's count). H1 (the dense
 scorers' vectors, "H1 ...") at phase 3h's eight shapes
 (``chip_smoke.vectors_cases``), alone from one argument block and through
-the scorer's wrapper ("... wrapper"); H2 / H3 ("H2 ..." / "H3 ...") alone
+the scorer's wrapper ("... wrapper"); H2 / H3 ("H2 ..." / "H3 ...")
 on the tables of each sampler's captured step (``chip_smoke.scan_cases``,
-the first step's tables), H3 also through its wrapper; and H3 alone on
-stores of 1-60 int32 carry leaves at 32 KB in all and of one scalar each
-("H3 sweep ..."), the cost an entry adds. F1 and F2 ("F1 ...", "F2 ...",
+the first step's): "H3" a step's launches as the tree makes them (one H3
+launch: the stores and the next step's loads; an earlier tree: its H2
+then its H3), "H2" the call's first load, each with a "digest" (the
+outputs' and carry buffers, the slots) two trees must share; and H3
+alone on stores of 1-60 int32 carry leaves at 32 KB in all and of one
+scalar each ("H3 sweep ..."), the cost an entry adds. F1 and F2 ("F1 ...", "F2 ...",
 "F1+F2 ...") at phase 3f's shapes (``chip_smoke.corr_cases``) and G1-G3
 ("G1 ...", ..., "G1+G2 ...") at phase 3g's (``chip_smoke.rows_cases``)
 and ``--top-tiers``' f_max 16,384 for 4 chains, one scoring call a shape:
@@ -409,49 +412,99 @@ def vectors_shapes(device, sweep):
     return out
 
 
+def scan_tables(scu, scan, ys, new):
+    """A captured step's scan launches as (kind, table) in order, and the
+    call's first load, from the tables this tree's package builds: one H3
+    launch a step (its stores and the next step's loads) where the package
+    has ``step_tables``; an earlier tree's H2 then H3 (a step's load, then
+    its stores)."""
+    if hasattr(scu, "step_tables"):
+        first = scu.load_tables(scan.x_bufs, scan.x_slots, scan.idx)
+        return [("store", t) for t in scu.step_tables(
+            scan.y_bufs, ys, scan.carry_bufs, new, scan.x_bufs, scan.x_slots, scan.idx,
+            scan.ticket)], first
+    first = scu.load_tables(scan.x_bufs, scan.x_slots, scan.idx, scan.step_cell)
+    return [("load", t) for t in first] + [("store", t) for t in scu.store_tables(
+        scan.y_bufs, ys, scan.carry_bufs, new, scan.idx, scan.step_cell)], first
+
+
+def idle(tables):
+    """Point the step index that ``tables`` advance (and this tree's ticket
+    cell) at scratch cells, so that each launch repeats the same step;
+    returns the cells, to keep alive."""
+    import torch
+
+    cells = (torch.zeros(1, dtype=torch.int64, device="cuda"),
+             torch.zeros(1, dtype=torch.int32, device="cuda"))
+    for t in tables:
+        if t.step_out:
+            t.step_out = cells[0].data_ptr()
+            if any(name == "ticket" for name, _ in type(t)._fields_):
+                t.ticket = cells[1].data_ptr()
+    return cells
+
+
 def scan_shapes(device, sc, rsc):
-    """H2 and H3 alone on the tables of each sampler's Scan step
-    (``chip_smoke.scan_cases``: the first step's, kept by
-    ``scan_io_check``), each launch on a scratch counter where the tree's
-    table has one; and H3 through its wrapper on the same step ("...
-    wrapper": an earlier tree's torch counter add included)."""
+    """The scan I/O of a captured step on the tables of each sampler's Scan
+    (``chip_smoke.scan_cases``, the first step's tensors), as this tree's
+    package builds them: "H3 ..." a step's launches (one H3 launch: the
+    stores and the next step's loads; an earlier tree: its H2 then its H3),
+    "H2 ..." the call's first load; each launch on a scratch counter where
+    the tree's table has one, the index it advances written to a scratch
+    cell, so each repeat copies at step 0. "digest": sha256 of the outputs'
+    and carry buffers after the step (H3) and of the slots after the load
+    (H2), equal across trees."""
     import ctypes
 
     import torch
+    from graal_tpu_torch.core import graphs
     from graal_tpu_torch.ops import scan_cuda as scu
 
     lib = scu.load_library()
     stream = torch.cuda.current_stream().cuda_stream
+    fns = {"load": lib.scan_load, "store": lib.scan_store}
     out = {}
 
-    def launch(fn, tables):
+    def launch(parts):
         def go():
-            for t in tables:
-                smoke.check(fn(ctypes.byref(t), stream) == 0, "scan launch failed")
+            for kind, t in parts:
+                smoke.check(fns[kind](ctypes.byref(t), stream) == 0, "scan launch failed")
         return go
 
     for label, build, chunks in smoke.scan_cases(device, sc, rsc):
-        _, kept = smoke.scan_io_check(label, build, chunks)
+        kept = {}
+        orig = graphs.Scan._store
+
+        def store(self, ys, new, kept=kept, orig=orig):
+            if not kept:
+                kept.update(scan=self, ys=list(ys), new=list(new),
+                            tables=scan_tables(scu, self, ys, new))
+            orig(self, ys, new)
+
+        graphs.Scan._store = store
+        try:
+            call, _ = chunks[0]
+            call(build(False), None)
+            torch.cuda.synchronize()
+        finally:
+            graphs.Scan._store = orig
         scan = kept["scan"]
+        step, first = kept["tables"]
         scan.idx.zero_()
-        scratch = smoke.scan_scratch(kept["load"] + kept["store"])
-        for kind, fn in (("load", lib.scan_load), ("store", lib.scan_store)):
-            tables = kept[kind]
-            bufs = scan.x_slots if kind == "load" else scan.y_bufs + scan.carry_bufs
-            out[f"{'H2' if kind == 'load' else 'H3'} {label}"] = dict(
-                times(launch(fn, tables), lambda res, bufs=bufs: [b for b in bufs
-                                                                   if not b.dtype.is_complex]),
-                entries=sum(t.n for t in tables), launches=len(tables),
-                bytes=smoke.scan_entries_bytes(tables))
-        step = scan.step_cell
-
-        def wrapper_store():
-            # idempotent at a step: row `step` written, idx = step + 1
-            smoke.scan_wrapper().store(scan.y_bufs, kept["ys"], scan.carry_bufs, kept["new"],
-                                       scan.idx, step)
-
-        out[f"H3 {label} wrapper"] = times(wrapper_store, lambda res: [scan.idx])
-        del kept, scan, scratch
+        scratch = smoke.scan_scratch([t for _, t in step] + first)
+        cells = idle([t for kind, t in step if kind == "store"])
+        for name, parts, bufs in (
+                ("H3", step, scan.y_bufs + scan.carry_bufs),
+                ("H2", [("load", t) for t in first], scan.x_slots)):
+            go = launch(parts)
+            rec = times(go, lambda res, bufs=bufs: [b for b in bufs if not b.dtype.is_complex])
+            go()
+            torch.cuda.synchronize()
+            out[f"{name} {label}"] = dict(
+                rec, digest=digest(bufs), launches=len(parts),
+                entries=sum(t.n for _, t in parts),
+                bytes=smoke.scan_entries_bytes([t for _, t in parts]))
+        del kept, scan, scratch, cells
     return out
 
 
@@ -459,7 +512,8 @@ def store_sweep(device, total_bytes=32768, counts=(1, 2, 4, 8, 16, 31, 48, 60)):
     """H3 alone on stores of n carry leaves (int32, contiguous) for each n
     of ``counts``: at ``total_bytes`` bytes in all ("H3 sweep n=N bytes=B")
     and of one 4-byte scalar each ("H3 sweep n=N scalars"), to measure the
-    cost an entry adds at fixed bytes."""
+    cost an entry adds at fixed bytes; the index each launch advances
+    written to a scratch cell."""
     import ctypes
 
     import torch
@@ -469,6 +523,7 @@ def store_sweep(device, total_bytes=32768, counts=(1, 2, 4, 8, 16, 31, 48, 60)):
     stream = torch.cuda.current_stream().cuda_stream
     idx = torch.zeros(1, dtype=torch.int64, device=device)
     step = torch.zeros(1, dtype=torch.int64, device=device)
+    ticket = torch.zeros(1, dtype=torch.int32, device=device)
     out = {}
     for n in counts:
         for label, size in ((f"bytes={total_bytes}", total_bytes // 4 // n), ("scalars", 1)):
@@ -476,8 +531,12 @@ def store_sweep(device, total_bytes=32768, counts=(1, 2, 4, 8, 16, 31, 48, 60)):
             new = [torch.randint(-99, 99, (size,), generator=gen, device=device,
                                  dtype=torch.int32) for _ in range(n)]
             bufs = [torch.zeros_like(v) for v in new]
-            tables = scu.store_tables([], [], bufs, new, idx, step)
+            if hasattr(scu, "step_tables"):
+                tables = scu.step_tables([], [], bufs, new, [], [], idx, ticket)
+            else:
+                tables = scu.store_tables([], [], bufs, new, idx, step)
             scratch = smoke.scan_scratch(tables)
+            cells = idle(tables)
 
             def go(tables=tables):
                 for t in tables:
@@ -487,7 +546,7 @@ def store_sweep(device, total_bytes=32768, counts=(1, 2, 4, 8, 16, 31, 48, 60)):
             out[f"H3 sweep n={n} {label}"] = dict(times(go, lambda res, bufs=bufs: bufs),
                                                   entries=n, launches=len(tables),
                                                   bytes=smoke.scan_entries_bytes(tables))
-            del scratch
+            del scratch, cells
     return out
 
 

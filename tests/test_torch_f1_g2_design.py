@@ -1,6 +1,6 @@
-"""The designs of F1 (``csrc/repeat_corr.cu`` ``corr_frozen_kernel``) and G2
-(``csrc/rows.cu`` ``rows_write_kernel``), held on the CPU, where the
-kernels cannot run.
+"""The designs of F1 (``csrc/repeat_corr.cu`` ``corr_frozen_kernel``), G1
+(``csrc/rows.cu`` ``rows_counts_kernel``) and G2 (``rows_write_kernel``),
+held on the CPU, where the kernels cannot run.
 
 Their parts are transcribed in numpy and held to the plain versions and
 the JAX package on inputs made from numpy seeds:
@@ -30,6 +30,19 @@ the JAX package on inputs made from numpy seeds:
   ``extract_rows`` / ``extract_rows_union``, with chunk edges (a last
   partial pass), the f_max cut inside each of the three streams, kb == ka,
   a contig larger than f_max in union mode and m + 1 = 4,096 keys;
+- G1's chunk loaded before its keys and counted in registers: the keys
+  padded to their sorting width and sorted by the warp's shuffle network
+  (up to 32) or the block's shared-memory network (up to 4,096; its
+  barriers where a stage crosses a warp's values), each step of a warp's
+  32 consecutive rows placed by a lower bound, the warp's equal places
+  counted by one shared atomic, the chunk maxima from the same rows; equal
+  to a direct count at m = 1 to 4,095, repeated and equal keys, fA among
+  its own slots, chunks of 7 rows, of CHUNK, above CHUNK and above n with
+  a shorter last chunk, with as many shared atomics as the earlier design;
+  and
+  ``core.delta``'s card branch through the wrapper and a stand-in library
+  running the G1 and G2 transcriptions (G2 reading G1's scratch), equal to
+  the plain extractions and JAX's;
 - the wrappers' card branches through stand-in libraries: the argument
   blocks' sizes, the counters handed to the kernels (no torch add beside a
   launch), F1's plan in its block, and the dynamic shared memory F1 and
@@ -336,7 +349,7 @@ def test_multi_multi_fold_by_lanes(c):
 
 # ---- G2: a chunk ranked in one scan ------------------------------------------------
 
-def g2_transcription(id_c, f_a, ids, f_max, union, chunk, threads, rpt):
+def g2_transcription(id_c, f_a, ids, f_max, union, chunk, threads, rpt, scratch=None):
     """csrc/rows.cu's G2 over G1's scratch, transcribed: a block a (chunk,
     slot, chain); each place's sums (ka's and kb's: the same numbers), the
     streams' runs, a chunk none of whose streams can land below f_max
@@ -344,7 +357,9 @@ def g2_transcription(id_c, f_a, ids, f_max, union, chunk, threads, rpt):
     rows classed and counted, an exclusive scan over the threads, the rows
     staged stream by stream in output order, then written by consecutive
     threads at the stream's run plus their place in the stage, where below
-    f_max. Returns (rows, valid, overflow)."""
+    f_max. ``scratch``: G1's (sorted keys (C, m + 1), counts (C, m + 1,
+    n_chunks)) to read, else counted here. Returns (rows, valid,
+    overflow)."""
     c_n, n = id_c.shape
     m = ids.shape[1]
     n_chunks = -(-n // chunk)
@@ -360,6 +375,9 @@ def g2_transcription(id_c, f_a, ids, f_max, union, chunk, threads, rpt):
             part = id_c[c, b * chunk:(b + 1) * chunk]
             for r in np.unique(np.searchsorted(skeys, keys)):
                 counts[r, b] = (part == skeys[r]).sum()
+        if scratch is not None:
+            assert np.array_equal(scratch[0][c], skeys)
+            counts = scratch[1][c]
         tot = counts.sum(-1)
         fits = tot <= f_max
         for b in range(n_chunks):
@@ -490,6 +508,227 @@ def test_g2_scan_at_4096_keys():
             for g, w in zip(got, plain):
                 np.testing.assert_array_equal(g, w.numpy())
     assert rwc.write_smem(4095, True, 1) > 48 * 1024 >= rwc.write_smem(4095, False, 3)
+
+
+# ---- G1: the chunk's loads issued at once, the keys sorted by a network ------------
+
+INT_MIN, INT_MAX = -2 ** 31, 2 ** 31 - 1
+
+
+def sort_width(n_keys):
+    """rows.cu's ``sort_width``: 32, or the power of two at or above n_keys."""
+    p = 32
+    while p < n_keys:
+        p <<= 1
+    return p
+
+
+def warp_sort(v):
+    """rows.cu's ``warp_sort``: the bitonic network over a warp's 32 lanes,
+    lane l taking the min or the max of its value and lane l ^ j's."""
+    v, lane = np.asarray(v, np.int64), np.arange(32)
+    k = 2
+    while k <= 32:
+        j = k >> 1
+        while j:
+            o = v[lane ^ j]
+            v = np.where(((lane & j) == 0) == ((lane & k) == 0), np.minimum(v, o),
+                         np.maximum(v, o))
+            j >>= 1
+        k <<= 1
+    return v
+
+
+def block_sort(s):
+    """rows.cu's ``block_sort``: the bitonic network over p values in shared
+    memory, compare-exchange i of a stage on (lo, lo + j) with lo the i-th
+    index whose bit j is 0, swapped where its order is not the stage's."""
+    s, p = np.array(s, np.int64), len(s)
+    k = 2
+    while k <= p:
+        j = k >> 1
+        while j:
+            i = np.arange(p // 2)
+            lo = ((i & ~(j - 1)) << 1) | (i & (j - 1))
+            x, y = s[lo], s[lo + j]
+            swap = (x > y) == ((lo & k) == 0)
+            s[lo], s[lo + j] = np.where(swap, y, x), np.where(swap, x, y)
+            j >>= 1
+        k <<= 1
+    return s
+
+
+def rank_sort(keys, n_keys):
+    """rows.cu's rank sort (33 to THREADS keys): key t at the count of the
+    keys below it and of its equals before it."""
+    v = np.asarray(keys[:n_keys], np.int64)
+    t = np.arange(n_keys)
+    below = v[None, :] < v[:, None]
+    r = (below | ((v[None, :] == v[:, None]) & (t[None, :] < t[:, None]))).sum(1)
+    out = np.empty(n_keys, np.int64)
+    out[r] = v
+    return out
+
+
+def g1_transcription(id_c, f_a, ids, chunk, threads=256, rpt=8):
+    """csrc/rows.cu's G1, transcribed: a block a (chunk, chain); the keys
+    (fA's, then each slot's) padded with INT_MAX to their sorting width and
+    sorted by the warp's network (up to 32 keys), a rank a thread (up to
+    ``threads``) or the block's network; each pass of threads x rpt
+    rows, loaded before the keys, thread t's k-th row k threads + t (a
+    warp's 32 consecutive rows a step); each row's first place in the
+    sorted keys by a lower bound, the warp's (warp, k) rows of one place
+    counted by one shared atomic; the chunk's largest id over the same
+    rows. Returns (sorted keys (C, m + 1), counts (C, m + 1, n_chunks),
+    chunk maxima (C, n_chunks), the shared atomics, and those of the
+    earlier design: a warp's 32 consecutive rows of a pass, one atomic a
+    place among them)."""
+    c_n, n = id_c.shape
+    m = ids.shape[1]
+    n_keys, n_chunks = m + 1, -(-n // chunk)
+    p = sort_width(n_keys)
+    skeys = np.zeros((c_n, n_keys), np.int64)
+    counts = np.zeros((c_n, n_keys, n_chunks), np.int64)
+    cmax = np.zeros((c_n, n_chunks), np.int64)
+    atomics = earlier = 0
+    warp_k = (np.arange(threads)[:, None] // 32) * rpt + np.arange(rpt)[None, :]
+    for c in range(c_n):
+        keys = np.full(p, INT_MAX, np.int64)
+        keys[:n_keys] = id_c[c, np.concatenate([[f_a[c]], ids[c]])]
+        sk = (warp_sort(keys) if p == 32 else rank_sort(keys, n_keys) if n_keys <= threads
+              else block_sort(keys))[:n_keys]
+        skeys[c] = sk
+
+        def places(x, live):
+            pos = np.searchsorted(sk, x)
+            hit = live & (pos < n_keys) & (sk[np.minimum(pos, n_keys - 1)] == x)
+            return np.where(hit, pos, -1)
+
+        for b in range(n_chunks):
+            lo, hi = b * chunk, min((b + 1) * chunk, n)
+            mx = INT_MIN
+            for base in range(lo, hi, threads * rpt):
+                r = base + np.arange(rpt)[None, :] * threads + np.arange(threads)[:, None]
+                live = r < hi
+                x = id_c[c, np.minimum(r, n - 1)]
+                place = places(x, live)
+                sel = place >= 0
+                np.add.at(counts[c, :, b], place[sel], 1)
+                atomics += len(np.unique(warp_k[sel] * n_keys + place[sel]))
+                mx = max(mx, int(x[live].max()))
+            cmax[c, b] = mx
+            for base in range(lo, hi, 32):
+                part = id_c[c, base:min(base + 32, hi)]
+                got = places(part, np.ones(len(part), bool))
+                earlier += len(np.unique(got[got >= 0]))
+    return skeys, counts, cmax, atomics, earlier
+
+
+def direct_counts(id_c, f_a, ids, chunk):
+    """What G1 writes, counted directly: each chain's keys sorted, each
+    contig's rows in a chunk at its first place in them (0 elsewhere), each
+    chunk's largest id."""
+    c_n, n = id_c.shape
+    n_chunks = -(-n // chunk)
+    skeys = np.sort(id_c[np.arange(c_n)[:, None], np.concatenate([f_a[:, None], ids], 1)], 1)
+    counts = np.zeros(skeys.shape + (n_chunks,), np.int64)
+    cmax = np.zeros((c_n, n_chunks), np.int64)
+    for c in range(c_n):
+        first = np.unique(np.searchsorted(skeys[c], skeys[c]))
+        for b in range(n_chunks):
+            part = id_c[c, b * chunk:(b + 1) * chunk]
+            counts[c, first, b] = (part[None, :] == skeys[c, first][:, None]).sum(1)
+            cmax[c, b] = part.max()
+    return skeys, counts, cmax
+
+
+def g1_case(m, n, seed, ordered):
+    """Two chains of n rows whose contigs (12-400 rows) lie in order
+    (``ordered``) or scattered, m slots drawn from a few contigs (repeated
+    and equal keys), fA among its own slots in chain 0."""
+    rng = np.random.default_rng(seed)
+    gens, f_as, idss = [], [], []
+    for k in range(2):
+        sizes = []
+        while sum(sizes) < n:
+            sizes.append(int(min(rng.integers(12, 400), n - sum(sizes))))
+        g, labels = genome(rng, sizes, scatter=not ordered)
+        gens.append(g)
+        pool = rng.choice(n, size=min(n, 9), replace=False)
+        ids = rng.choice(pool, size=m) if m > 1 else pool[:1]
+        f_as.append(int(pool[0]))
+        if k == 0:
+            ids[0] = f_as[-1]
+        idss.append(ids)
+    id_c = np.stack([g["id_c"] for g in gens]).astype(np.int64)
+    return gens, id_c, np.array(f_as), np.stack(idss)
+
+
+@pytest.mark.parametrize("m", [1, 5, 31, 32, 33, 80, 255, 256, 320, 1000, 4095])
+def test_g1_transcription_equals_a_direct_count(m):
+    """G1's design at every sorting path (m + 1 up to 32 on a warp's
+    shuffles, up to 256 by ranks, above on the block's network, up to
+    MAX_KEYS), at chunks of
+    7 rows, of CHUNK, above CHUNK (several passes a chunk) and above n, each
+    with a last chunk shorter than the rest, on genomes in contig order and
+    scattered: the sorted keys, each contig's count at its first place and
+    the chunk maxima equal a direct count, with as many shared atomics as
+    the earlier design (a warp's 32 consecutive rows a pass)."""
+    n = 6000
+    for ordered in (True, False):
+        _, id_c, f_a, ids = g1_case(m, n, seed=m + ordered, ordered=ordered)
+        for chunk in (7, rwc.CHUNK, rwc.CHUNK + 2 * rwc.THREADS, n + 5):
+            skeys, counts, cmax, atomics, earlier = g1_transcription(id_c, f_a, ids, chunk)
+            want = direct_counts(id_c, f_a, ids, chunk)
+            for g, w, what in zip((skeys, counts, cmax), want, ("skeys", "counts", "cmax")):
+                np.testing.assert_array_equal(g, w, err_msg=f"m {m} chunk {chunk} {what}")
+            assert atomics == earlier, (m, chunk, atomics, earlier)
+
+
+def test_g1_sorting_networks_sort():
+    """The warp's and the block's networks sort every width they take,
+    duplicates and INT_MAX / INT_MIN among the values."""
+    rng = np.random.default_rng(9)
+    for p in (32, 64, 128, 512, 4096):
+        for v in (rng.integers(-5, 5, p), rng.integers(INT_MIN, INT_MAX, p, endpoint=True),
+                  np.arange(p)[::-1]):
+            want = np.sort(v)
+            assert np.array_equal(block_sort(v), want)
+            if p == 32:
+                assert np.array_equal(warp_sort(v), want)
+    assert [sort_width(k) for k in (1, 32, 33, 64, 65, 4096)] == [32, 32, 64, 64, 128, 4096]
+    for n in (33, 81, 256):
+        v = rng.integers(-3, 3, n)
+        assert np.array_equal(rank_sort(v, n), np.sort(v))
+
+
+def test_g1_block_sort_barriers_cover_every_crossing():
+    """``block_sort``'s barriers: a stage of distance j <= 32 keeps warp w's
+    pairs (32 consecutive pair indices a warp, i = t + 256 r) inside 64
+    values of its own, so a warp's barrier orders it; wherever one of two
+    consecutive stages moves values across those ranges (j >= 64), the
+    block's barrier stands between them, as rows.cu's rule (j >= 64 or the
+    next stage's distance >= 64) places it."""
+    threads = 256
+    for p in (64, 128, 512, 4096):
+        stages = []
+        k = 2
+        while k <= p:
+            j = k >> 1
+            while j:
+                stages.append((k, j))
+                j >>= 1
+            k <<= 1
+        i = np.arange(p // 2)
+        warp = (i % threads) // 32 + 8 * (i // threads)
+        for s, (k, j) in enumerate(stages):
+            lo = ((i & ~(j - 1)) << 1) | (i & (j - 1))
+            local = np.array_equal(lo // 64, warp) and np.array_equal((lo + j) // 64, warp)
+            assert local == (j <= 32), (p, k, j)
+            nxt = j >> 1 if j > 1 else (k if k < p else 0)
+            block = j >= 64 or nxt >= 64
+            if s + 1 < len(stages):
+                assert block == (not local or stages[s + 1][1] >= 64), (p, k, j)
 
 
 # ---- the wrappers' card branches through stand-in libraries -----------------------
@@ -651,3 +890,104 @@ def test_rows_card_branch_counts_in_the_kernels(monkeypatch):
     wrapper.gather(GenomeState(*port), got[0], got[1])
     assert calls == ["counts", "write"] * 2 + ["gather"]
     assert wrapper.launches.by_key() == {"counts": 2, "write": 2, "gather": 1}
+
+
+def _read(ptr, ctype, count):
+    return np.ctypeslib.as_array((ctype * count).from_address(ptr)).astype(np.int64)
+
+
+def _write(ptr, x, ctype):
+    buf = np.ascontiguousarray(x).astype(np.dtype(ctype))
+    ctypes.memmove(ptr, buf.ctypes.data, buf.nbytes)
+
+
+def g1_g2_library(calls):
+    """A stand-in rows library: ``rows_counts`` runs :func:`g1_transcription`
+    on its argument block's inputs (read at their addresses and strides)
+    into the block's scratch, ``rows_write`` :func:`g2_transcription` over
+    that scratch into the outputs and each chain's max_id from the chunk
+    maxima, each adding one to the counter handed to it."""
+    def inputs(a):
+        flat = _read(a.id_c, ctypes.c_int32, (a.C - 1) * a.id_cs + (a.n - 1) * a.id_is + 1)
+        id_c = flat[np.arange(a.C)[:, None] * a.id_cs + np.arange(a.n)[None, :] * a.id_is]
+        f_a = _read(a.f_a, ctypes.c_int64, (a.C - 1) * a.fa_s + 1)[np.arange(a.C) * a.fa_s]
+        return id_c, f_a, _read(a.ids, ctypes.c_int64, a.C * a.m).reshape(a.C, a.m)
+
+    def counts(block, stream):
+        a = block._obj
+        calls.append("counts")
+        bump(a.counts_counter)
+        skeys, cnt, cmax, _, _ = g1_transcription(*inputs(a), a.chunk)
+        assert cnt.shape[-1] == a.n_chunks
+        for ptr, x in ((a.skeys, skeys), (a.counts, cnt), (a.cmax, cmax)):
+            _write(ptr, x, np.int32)
+        return 0
+
+    def write(block, stream):
+        a = block._obj
+        calls.append("write")
+        bump(a.write_counter)
+        id_c, f_a, ids = inputs(a)
+        n_keys = a.m + 1
+        skeys = _read(a.skeys, ctypes.c_int32, a.C * n_keys).reshape(a.C, n_keys)
+        cnt = _read(a.counts, ctypes.c_int32, a.C * n_keys * a.n_chunks).reshape(
+            a.C, n_keys, a.n_chunks)
+        cmax = _read(a.cmax, ctypes.c_int32, a.C * a.n_chunks).reshape(a.C, a.n_chunks)
+        rows, valid, over = g2_transcription(id_c, f_a, ids, a.f_max, bool(a.union_mode),
+                                             a.chunk, 32, 8, scratch=(skeys, cnt))
+        _write(a.rows, rows, np.int64)
+        _write(a.valid, valid, np.uint8)
+        _write(a.overflow, over, np.uint8)
+        _write(a.max_id, cmax.max(1), np.int32)
+        return 0
+
+    def write_smem(block):
+        a = block._obj
+        return rwc.write_smem(a.m, bool(a.union_mode), a.n_chunks)
+
+    return types.SimpleNamespace(rows_counts=counts, rows_write=write, rows_write_smem=write_smem,
+                                 rows_init=lambda: 48 * 1024)
+
+
+@pytest.mark.parametrize("chunk", ["wrapper's", "7 rows"])
+def test_g1_g2_card_branch_equals_plain_and_jax(chunk, monkeypatch):
+    """``core.delta``'s card branch of the extraction, through the wrapper
+    and a stand-in library running the G1 and G2 transcriptions (G2 reading
+    G1's scratch): rows, valid, overflow and max_id equal
+    ``extract_rows_union_plain`` / ``extract_rows_each_plain`` (with
+    ``id_c.amax``) and JAX's ``extract_rows`` / ``extract_rows_union`` at
+    the G2 edge cases, and the plain versions at f_max = n, with one G1 and
+    one G2 launch an extraction counted in the kernels."""
+    calls = []
+    wrapper = rwc.RowKernels()
+    no_torch_add(monkeypatch)
+    monkeypatch.setattr(build, "_OPTED_IN", {})
+    monkeypatch.setattr(rwc, "load_library", lambda: g1_g2_library(calls))
+    monkeypatch.setattr(rwc.RowKernels, "_card", staticmethod(lambda dev: None))
+    monkeypatch.setattr(td, "ROWS", wrapper)
+    if chunk == "7 rows":
+        monkeypatch.setattr(rwc, "chunk_size", lambda n: 7)
+    n_calls = 0
+    for name in ("cut_a", "cut_b", "same_contig", "big_union", "f_max_n"):
+        gens, f_a, ids, f_max = g2_case("cut_c" if name == "f_max_n" else name)
+        jstates, port = chains_of(gens)
+        if name == "f_max_n":
+            f_max = port.n_frags
+        for union in (False, True):
+            got = td._rows_on_card(port, f_a, ids, f_max, union)
+            n_calls += 1
+            plain = (td.extract_rows_union_plain if union else td.extract_rows_each_plain)(
+                port, f_a, ids, f_max)
+            for g, w, what in zip(got, (*plain, port.id_c.amax(-1)),
+                                  ("rows", "valid", "overflow", "max_id")):
+                assert g.dtype == w.dtype and torch.equal(g, w), (name, union, what)
+            if name == "f_max_n":
+                continue
+            for k, js in enumerate(jstates):
+                fn = j_union(f_max) if union else j_each(f_max)
+                want = fn(js, int(f_a[k]), jnp.asarray(ids[k].numpy(), jnp.int32))
+                for g, w in zip(got, want):
+                    np.testing.assert_array_equal(g[k].numpy(), np.asarray(w),
+                                                  err_msg=f"{name} {k} jax")
+    assert calls == ["counts", "write"] * n_calls
+    assert wrapper.launches.by_key() == {"counts": n_calls, "write": n_calls}

@@ -6,24 +6,30 @@ graal_tpu_torch/csrc/scan_io.cu, wrapper ops/scan_cuda.py) on the CPU.
   before them (:func:`old_step`, kept here verbatim) on random trees:
   int32, int64, f32 and bool leaves, 0-d leaves, a chains axis, a body with
   no per-step inputs, capacity growth, a carry leaf that is another carry
-  buffer, an output that is a carry buffer overwritten after it, and
-  leaves at other strides.
+  buffer, an output that is a carry buffer overwritten after it, leaves at
+  other strides, an output that is a per-step slot (as the dense EM body's
+  ``id_f_a``), a new carry leaf that views a slot, and calls whose steps
+  fill the buffers' capacity, on one scan.
 - The card's route, the wrapper itself launching the tables it builds into
   a stand-in library that runs :func:`run_table` (a transcription of the
   kernels: every block's warps look their entries up by a binary search,
   every source of a launch read before any destination is written, as the
-  kernels' parallel blocks may, and the launch counted on the counter the
-  wrapper hands it), gives the same results bit for bit, with one H2 and
-  one H3 launch a step where nothing aliases and the store cut into
-  ordered launches where it does; no torch add counts a launch.
+  kernels' parallel blocks may, the load entries skipped past the
+  capacity, the step index advanced by the launch's last block, and the
+  launch counted on the counter the wrapper hands it), gives the same
+  results bit for bit as the plain store-then-load sequence, the slots
+  included after every step (the last too), with one H2 launch a call (a
+  call's first load) and one H3 launch a step (its stores and the next
+  step's loads) where nothing aliases, and the store cut into ordered
+  launches where it does; no torch add counts a launch.
   ``tests/test_torch_step_cycles.py`` runs an EM and a delta cycle through
   the same route against the JAX package's ``lax.scan`` cycles.
 - The block / warp layout on random tables (1 to MAX_ENTRIES entries, 1
   byte to a few MB, every word width, two-level strides) and on the dense
-  EM store's 31 entries: every word of every entry copied exactly once,
-  equal to the plain versions.
-- The tables: layouts, word widths, the cuts, the checks, and the ctypes
-  mirrors parsed from the .cu.
+  EM step's 31 store and 6 load entries: every word of every entry copied
+  exactly once, equal to the plain versions.
+- The tables: layouts, word widths, the cuts, the slot sources, the
+  capacity guard, the checks, and the ctypes mirrors parsed from the .cu.
 """
 
 import ctypes
@@ -77,8 +83,8 @@ def unit_words(t: scu.Table):
     offs = (np.arange(32)[:, None] + 32 * np.arange(lane_words)[None, :]).reshape(-1)
     out = [[] for _ in range(t.n)]
     for block in range(scu.blocks(t)):
-        for warp in range(scu.WARPS):
-            unit = block * scu.WARPS + warp
+        for warp in range(scu.warps(t)):
+            unit = block * scu.warps(t) + warp
             if unit >= t.n_units:
                 continue
             j = entry_of(t, unit)
@@ -91,13 +97,16 @@ def unit_words(t: scu.Table):
 
 def run_table(t: scu.Table):
     """One launch of H2 / H3 on CPU memory, from its table: every warp's
-    unit looked up and its words read first, then every destination written
-    (the kernels' blocks run in no order), then the step cell and the
-    launch's counter. Holds each entry's word width to its addresses and
-    the layout to copy every word of every entry exactly once."""
+    unit looked up and its words read first (a load entry's only while the
+    step is at most ``load_last``), then every destination written (the
+    kernels' blocks run in no order), then, where the table advances the
+    step, the index (its ticket cell 0 before and after), and the launch's
+    counter. Holds each entry's word width to its addresses and the layout
+    to copy every word of every entry exactly once."""
     step = ctypes.c_longlong.from_address(t.step_in).value
     assert t.n <= scu.MAX_ENTRIES and list(t.first[t.n:]) == [scu.NO_ENTRY] * (
         scu.MAX_ENTRIES - t.n)
+    assert 0 <= t.first_load <= t.n
     reads = []
     for j, q in enumerate(unit_words(t)):
         e = t.e[j]
@@ -109,18 +118,21 @@ def run_table(t: scu.Table):
         assert t.first[j] == (0 if j == 0 else t.first[j - 1] + -(-(
             t.e[j - 1].outer * t.e[j - 1].inner >> t.e[j - 1].log_w) // scu.UNIT_WORDS))
         assert np.array_equal(np.bincount(q, minlength=words), np.ones(words, np.int64))
+        if j >= t.first_load and step > t.load_last:
+            continue
         per_run = e.inner // w
         r = q // per_run
         at = r * e.outer_stride + (q - r * per_run) * w
         src = _bytes(e.src + step * e.src_step, (e.outer - 1) * e.outer_stride + e.inner)
-        reads.append((q, src[at[:, None] + np.arange(w)[None, :]]))
-    for j, (q, data) in enumerate(reads):
+        reads.append((j, q, src[at[:, None] + np.arange(w)[None, :]]))
+    for j, q, data in reads:
         e = t.e[j]
         w = 1 << e.log_w
         dst = _bytes(e.dst + step * e.dst_step, e.outer * e.inner)
         dst[(q * w)[:, None] + np.arange(w)[None, :]] = data
     if t.step_out:
-        ctypes.c_longlong.from_address(t.step_out).value = step + t.step_add
+        assert t.ticket and ctypes.c_uint32.from_address(t.ticket).value == 0
+        ctypes.c_longlong.from_address(t.step_out).value = step + 1
     bump(t.counter)
 
 
@@ -180,6 +192,7 @@ def route_to_card(monkeypatch):
     no_torch_add(monkeypatch)
     monkeypatch.setattr(scu, "load_library", lambda: lib)
     monkeypatch.setattr(graphs, "SCAN", spy)
+    monkeypatch.setattr(graphs.Scan, "_preload", graphs.Scan._preload_on_card)
     monkeypatch.setattr(graphs.Scan, "_load", graphs.Scan._load_on_card)
     monkeypatch.setattr(graphs.Scan, "_store", graphs.Scan._store_on_card)
     return spy
@@ -303,7 +316,59 @@ def strided_case(rng):
     return body, [(carry(), None, _rng_tensor(rng, (5, 2), torch.float32), None)]
 
 
-CASES = {"mixed": mixed_case, "no_xs": no_xs_case, "alias": alias_case, "strided": strided_case}
+def slot_output_case(rng):
+    """Outputs that lie in per-step slots: a slot itself (as the dense EM
+    body returns its f_a slot as the metric ``id_f_a``) and a column of one,
+    which the card's route reads from the inputs' rows while it loads the
+    next step's into the slots."""
+    def body(carry, consts, x):
+        (a,) = carry
+        f_a, m = x
+        return (a + f_a * consts,), (f_a, m[:, 1], (a * 2).sum(), m)
+
+    def xs(n):
+        return (_rng_tensor(rng, (n,), torch.int64), _rng_tensor(rng, (n, C, 3), torch.float32))
+
+    return body, [((_rng_tensor(rng, (C,), torch.int64),), torch.tensor(3), xs(6), None),
+                  (None, torch.tensor(-2), xs(4), None)]
+
+
+def slot_carry_case(rng):
+    """New carry leaves that are a per-step slot and a view of one (a row
+    of a (2, 2) slot)."""
+    def body(carry, consts, x):
+        v, w = carry
+        xv, xw = x
+        return (xv, xw[1]), (v.sum(), w.sum(), xw[0, 1])
+
+    def carry():
+        return (_rng_tensor(rng, (C,), torch.float32), _rng_tensor(rng, (2,), torch.int32))
+
+    def xs(n):
+        return (_rng_tensor(rng, (n, C), torch.float32), _rng_tensor(rng, (n, 2, 2), torch.int32))
+
+    return body, [(carry(), None, xs(5), None), (None, None, xs(5), None)]
+
+
+def full_capacity_case(rng):
+    """Calls whose steps fill the buffers' capacity (the first call's, and a
+    second call of as many steps on the same scan: its last step loads no
+    row past the buffers), then a shorter one."""
+    def body(carry, consts, x):
+        a, b = carry
+        xi, xf = x
+        return (a * 2 + xi, b + xf), (xi + a.sum(), xf.sum(), b.sum())
+
+    def xs(n):
+        return (_rng_tensor(rng, (n, C), torch.int64), _rng_tensor(rng, (n, 4), torch.float32))
+
+    init = (_rng_tensor(rng, (C,), torch.int64), _rng_tensor(rng, (4,), torch.float32))
+    return body, [(init, None, xs(6), None), (None, None, xs(6), None), (None, None, xs(3), None)]
+
+
+CASES = {"mixed": mixed_case, "no_xs": no_xs_case, "alias": alias_case, "strided": strided_case,
+         "slot_output": slot_output_case, "slot_carry": slot_carry_case,
+         "full_capacity": full_capacity_case}
 
 
 def run_case(name, seed=0):
@@ -337,27 +402,109 @@ def test_plain_versions_equal_the_old_step(name, monkeypatch):
     assert_trees_equal(run_case(name), want)
 
 
+def raw(b):
+    """A copy of ``b``'s bytes (a typed ``clone`` would turn unwritten bool
+    bytes into 0 / 1, and NaN bits compare unequal)."""
+    return b.reshape(-1).view(torch.uint8).clone()
+
+
+def typed(r, b):
+    """The bytes ``r`` (from :func:`raw`) as a tensor of ``b``'s dtype and shape."""
+    return r.view(b.dtype).reshape(b.shape)
+
+
+def same_bytes(got, want):
+    return all(torch.equal(raw(g), w) for g, w in zip(got, want))
+
+
+def checked_steps(monkeypatch):
+    """Hold every card-route step to the plain sequence: the plain store
+    into copies of the buffers and the index, then the plain load of row
+    idx (while below the capacity; else the slots unchanged); after the
+    step's launches, the buffers, the index and the slots equal the copies
+    byte for byte. Returns the list of steps checked."""
+    seen = []
+    orig = graphs.Scan._store_on_card
+
+    def store(self, ys, new):
+        y_c, c_c, i_c = [raw(b) for b in self.y_bufs], [raw(b) for b in self.carry_bufs], \
+            self.idx.clone()
+        c_t = [typed(c, b) for b, c in zip(self.carry_bufs, c_c)]
+        copy_of = {id(b): c for b, c in zip(self.carry_bufs, c_t)}
+        mapped = [copy_of.get(id(v), v) for v in new]
+        scu.scan_store_plain([typed(c, b) for b, c in zip(self.y_bufs, y_c)], ys, c_t, mapped,
+                             i_c)
+        s_c = [raw(s) for s in (scu.scan_load_plain(self.x_bufs, i_c) if int(i_c) < self.cap
+                                else self.x_slots)]
+        orig(self, ys, new)
+        assert same_bytes(self.y_bufs, y_c) and same_bytes(self.carry_bufs, c_c)
+        assert torch.equal(self.idx, i_c) and same_bytes(self.x_slots, s_c)
+        seen.append((int(i_c), self.cap))
+
+    monkeypatch.setattr(graphs.Scan, "_store", store)
+    return seen
+
+
 @pytest.mark.parametrize("name", tuple(CASES))
 def test_card_route_equals_plain(name, monkeypatch):
     """The wrapper's tables, run as the kernels run them, give the plain
-    results; one load and one store a step where nothing aliases."""
+    results, and after every step the plain store-then-load sequence's
+    buffers, index and slots byte for byte (the last step of a call that
+    fills the capacity loads nothing); one H2 launch a call with per-step
+    inputs and one H3 launch a step where nothing aliases."""
     want = run_case(name)
     spy = route_to_card(monkeypatch)
+    seen = checked_steps(monkeypatch)
     got = run_case(name)
     assert_trees_equal(got, want)
+    _, calls = CASES[name](np.random.default_rng(0))
     steps = sum(ys_leaf.shape[0] for _, ys in got for ys_leaf in leaves(ys)[:1])
+    assert len(seen) == steps
     loads = [n for kind, n in spy.tables if kind == "load"]
     stores = [n for kind, n in spy.tables if kind == "store"]
-    assert len(loads) == steps
-    assert spy.launches.by_key() == {"load": steps, "store": len(stores)}
+    assert len(loads) == sum(xs is not None for _, _, xs, _ in calls)
+    assert spy.launches.by_key() == {"store": len(stores)} | ({"load": len(loads)} if loads
+                                                               else {})
     if name == "alias":
-        # the outputs (one reads p), then p <- q, then q <- p and r: three launches
-        assert stores == [2, 1, 2] * steps
+        # the outputs (one reads p), then p <- q, then q <- p, r and the next row's load
+        assert stores == [2, 1, 3] * steps
     elif name == "no_xs":
         # an output is the carry buffer b, which the last copy overwrites
         assert stores == [3, 1] * steps
     else:
         assert len(stores) == steps and len(set(stores)) == 1
+    if name == "full_capacity":
+        # both full calls end at the capacity, the short one below it
+        assert [s for s in seen if s[0] == s[1]] == [(6, 6), (6, 6)]
+
+
+def test_slot_sources_read_the_inputs_rows():
+    """A store entry whose source lies in a slot reads the slot's input
+    buffer at row idx (the slot's offset kept), a row a step; the load
+    entries read row idx + 1, last in the table, guarded at capacity - 2,
+    and one launch takes them all: nothing reads what another writes."""
+    cap = 5
+    xb, xm = torch.zeros((cap, 4), dtype=torch.int64), torch.zeros((cap, 2, 3))
+    slots = [torch.zeros(4, dtype=torch.int64), torch.zeros((2, 3))]
+    y_bufs = [torch.zeros((cap, 4), dtype=torch.int64), torch.zeros((cap, 2))]
+    carry = [torch.zeros(3)]
+    idx, ticket = torch.zeros(1, dtype=torch.int64), torch.zeros(1, dtype=torch.int32)
+    (t,) = scu.step_tables(y_bufs, [slots[0], slots[1][:, 1]], carry, [slots[1][1]],
+                           [xb, xm], slots, idx, ticket)
+    assert t.n == 5 and t.first_load == 3 and t.load_last == cap - 2
+    assert t.step_out == idx.data_ptr() and t.ticket == ticket.data_ptr()
+    e = t.e
+    assert (e[0].src, e[0].src_step) == (xb.data_ptr(), 32)
+    assert (e[1].src, e[1].src_step, e[1].outer, e[1].outer_stride) == (
+        xm.data_ptr() + 4, 24, 2, 12)
+    assert (e[2].src, e[2].src_step) == (xm.data_ptr() + 12, 24)
+    assert (e[3].src, e[3].src_step, e[3].dst) == (xb.data_ptr() + 32, 32, slots[0].data_ptr())
+    assert (e[4].src, e[4].src_step, e[4].dst) == (xm.data_ptr() + 24, 24, slots[1].data_ptr())
+    (t0,) = scu.load_tables([xb, xm], slots, idx)
+    assert t0.n == 2 and t0.first_load == 0 and t0.load_last == cap - 1 and not t0.step_out
+    assert (t0.e[0].src, t0.e[1].src) == (xb.data_ptr(), xm.data_ptr())
+    with pytest.raises(ValueError, match="ticket"):
+        scu.table([], idx, idx)
 
 
 def test_runs_and_word_widths():
@@ -398,31 +545,40 @@ def test_segments_cut_where_copies_touch():
 
 
 def test_store_tables_check_what_the_kernels_take():
-    idx, step = torch.zeros(1, dtype=torch.int64), torch.zeros(1, dtype=torch.int64)
+    idx, ticket = torch.zeros(1, dtype=torch.int64), torch.zeros(1, dtype=torch.int32)
     ybuf, buf = torch.zeros((4, 3)), torch.zeros(5, dtype=torch.int32)
-    ts = scu.store_tables([ybuf], [torch.ones(3)], [buf], [torch.ones(5, dtype=torch.int32)],
-                          idx, step)
+
+    def tables(y_bufs, ys, carry_bufs, new, x_bufs=(), slots=()):
+        return scu.step_tables(y_bufs, ys, carry_bufs, new, list(x_bufs), list(slots), idx,
+                               ticket)
+
+    ts = tables([ybuf], [torch.ones(3)], [buf], [torch.ones(5, dtype=torch.int32)])
     assert len(ts) == 1 and ts[0].n == 2 and ts[0].step_out == idx.data_ptr()
-    assert ts[0].step_add == 1 and ts[0].step_in == step.data_ptr()
+    assert ts[0].step_in == idx.data_ptr() and ts[0].ticket == ticket.data_ptr()
+    assert ts[0].first_load == 2
     # a leaf that is its buffer, or the same bytes, is no copy
-    assert scu.store_tables([], [], [buf], [buf], idx, step)[0].n == 0
-    assert scu.store_tables([], [], [buf], [buf[:]], idx, step)[0].n == 0
+    assert tables([], [], [buf], [buf])[0].n == 0
+    assert tables([], [], [buf], [buf[:]])[0].n == 0
     with pytest.raises(ValueError, match="convert no dtype"):
-        scu.store_tables([], [], [buf], [torch.ones(5, dtype=torch.int64)], idx, step)
+        tables([], [], [buf], [torch.ones(5, dtype=torch.int64)])
     with pytest.raises(ValueError, match="elements"):
-        scu.store_tables([ybuf], [torch.ones(4)], [], [], idx, step)
+        tables([ybuf], [torch.ones(4)], [], [])
     with pytest.raises(ValueError, match="two levels"):
-        scu.store_tables([], [], [torch.zeros((3, 5))], [torch.zeros((5, 3)).T], idx, step)
+        tables([], [], [torch.zeros((3, 5))], [torch.zeros((5, 3)).T])
     xb, slot = torch.zeros((6, 2, 2)), torch.zeros((2, 2))
-    (t,) = scu.load_tables([xb], [slot], idx, step)
-    assert t.n == 1 and t.e[0].src_step == 16 and t.step_out == step.data_ptr() \
-        and t.step_add == 0
-    (t,) = scu.load_tables([], [], idx, step)
+    (t,) = scu.load_tables([xb], [slot], idx)
+    assert t.n == 1 and t.e[0].src_step == 16 and not t.step_out and t.load_last == 5
+    (t,) = tables([], [], [], [], [xb], [slot])
+    assert t.n == 1 and t.first_load == 0 and t.e[0].src == xb.data_ptr() + 16 \
+        and t.load_last == 4
+    (t,) = scu.load_tables([], [], idx)
     assert t.n == 0 and t.n_units == 0 and scu.blocks(t) == 1
+    with pytest.raises(ValueError, match="slot one row"):
+        scu.load_tables([xb], [torch.zeros(3)], idx)
     with pytest.raises(ValueError, match="on a card"):
-        scu.SCAN.load([xb], [slot], idx, step)
+        scu.SCAN.load([xb], [slot], idx)
     with pytest.raises(ValueError, match="on a card"):
-        scu.SCAN.store([], [], [buf], [buf], idx, step)
+        scu.SCAN.step([], [], [buf], [buf], [], [], idx, ticket)
     assert scu.SCAN.n_launches == 0
 
 
@@ -441,10 +597,10 @@ def test_ctypes_mirrors_follow_the_source():
     assert _struct_fields(src, "Table") == [f for f, _ in scu.Table._fields_]
     const = dict(re.findall(r"constexpr int (\w+) = ([^;]+);", src))
     assert int(const["MAX_ENTRIES"]) == scu.MAX_ENTRIES
-    assert const["WARPS"] == "THREADS / 32" and int(const["THREADS"]) // 32 == scu.WARPS
+    assert int(const["MAX_WARPS"]) == scu.MAX_WARPS
     assert const["UNIT_WORDS"] == "32 * LANE_WORDS" \
         and 32 * int(const["LANE_WORDS"]) == scu.UNIT_WORDS
-    assert ctypes.sizeof(scu.Table) == 3880 <= 4096   # by value: the kernel-parameter limit
+    assert ctypes.sizeof(scu.Table) == 3896 <= 4096   # by value: the kernel-parameter limit
 
 
 # ---------------------------------------------------------------------------
@@ -532,21 +688,26 @@ def clone_raw(bufs):
     return [b.clone() for b in bufs]
 
 
-def store_both_ways(y_bufs, ys, carry_bufs, new, row):
-    """The store's tables run as the kernels run them, and the plain store,
-    each into its own copies of the buffers; returns (kernel, plain) buffers
-    and the tables."""
-    yk, ck = clone_raw(y_bufs), clone_raw(carry_bufs)
+def store_both_ways(y_bufs, ys, carry_bufs, new, row, x_bufs=(), slots=()):
+    """A step's plain store then plain load of the next row into copies of
+    the buffers, then the step's tables run as the kernels run them into
+    other copies and ``slots`` themselves (an output may be a slot, read
+    before it is loaded); returns (kernel, plain) buffers and slots, and
+    the tables."""
     yp, cp = clone_raw(y_bufs), clone_raw(carry_bufs)
-    step, idx = torch.tensor([row]), torch.tensor([row])
-    tables = scu.store_tables(yk, ys, ck, new, idx, step)
+    ip = torch.tensor([row])
+    scu.scan_store_plain(yp, ys, cp, new, ip)
+    sp = scu.scan_load_plain(list(x_bufs), ip) if x_bufs and row + 1 < x_bufs[0].shape[0] \
+        else clone_raw(slots)
+    yk, ck = clone_raw(y_bufs), clone_raw(carry_bufs)
+    idx, ticket = torch.tensor([row]), torch.zeros(1, dtype=torch.int32)
+    tables = scu.step_tables(yk, ys, ck, new, list(x_bufs), list(slots), idx, ticket)
     counter = torch.zeros((), dtype=torch.int64)
     for t in tables:
         t.counter = counter.data_ptr()
         run_table(t)
-    scu.scan_store_plain(yp, ys, cp, new, torch.tensor([row]))
-    assert int(idx) == row + 1 and int(counter) == len(tables)
-    return yk + ck, yp + cp, tables
+    assert int(idx) == row + 1 and int(counter) == len(tables) and int(ticket) == 0
+    return yk + ck + list(slots), yp + cp + sp, tables
 
 
 @pytest.mark.parametrize("n_entries,big,seed", [(1, False, 0), (1, True, 1), (2, False, 2),
@@ -569,24 +730,62 @@ def test_layout_copies_every_word_once(n_entries, big, seed):
                                                  for j in range(n_entries))
     x_bufs, slots = random_load_tree(rng, n_entries, big)
     row = int(rng.integers(0, 4))
-    idx, step = torch.tensor([row]), torch.tensor([-1])
-    (t,) = scu.load_tables(x_bufs, slots, idx, step)
+    idx = torch.tensor([row])
+    (t,) = scu.load_tables(x_bufs, slots, idx)
     counter = torch.zeros((), dtype=torch.int64)
     t.counter = counter.data_ptr()
     run_table(t)
-    assert int(step) == row and int(counter) == 1
+    assert int(idx) == row and int(counter) == 1
     assert_trees_equal(slots, scu.scan_load_plain(x_bufs, idx))
+    # the next row's loads in a step's table, the last step at the capacity included
+    for row in (int(rng.integers(0, 3)), 3):
+        got, want, tables = store_both_ways([], [], [], [], row, x_bufs, slots)
+        assert len(tables) == 1 and tables[0].first_load == 0
+        assert_trees_equal(got, want)
 
 
 def test_dense_em_store_packs_its_scalars_into_shared_blocks():
-    """The dense EM store's 31 entries take 31 warp units, so 4 blocks of 8
-    warps (one block an entry before), and equal the plain store."""
+    """The dense EM store's 31 entries take 31 warp units, so one block of
+    31 warps, and equal the plain store; with the step's 6 per-step inputs
+    (the next row's loads, one a slot read back as the metric ``id_f_a``)
+    37 entries, two blocks of 19 warps, one launch, equal to the plain
+    store then load."""
     rng = np.random.default_rng(11)
     got, want, tables = store_both_ways(*dense_em_store_tree(rng), row=5)
     (t,) = tables
-    assert t.n == 31 and t.n_units == 31 and scu.blocks(t) == 4
+    assert t.n == 31 and t.n_units == 31 and (scu.blocks(t), scu.warps(t)) == (1, 31)
     assert list(t.first[:31]) == list(range(31))
     assert_trees_equal(got, want)
+    y_bufs, ys, carry_bufs, new = dense_em_store_tree(rng)
+    cap = y_bufs[0].shape[0]
+    x_bufs = [_rng_tensor(rng, (cap,), torch.int64), _rng_tensor(rng, (cap, 4), torch.float32),
+              _rng_tensor(rng, (cap, 13), torch.float32), _rng_tensor(rng, (cap,), torch.float32),
+              _rng_tensor(rng, (cap,), torch.float32), _rng_tensor(rng, (cap, 2), torch.float32)]
+    slots = [b[0].clone() for b in x_bufs]
+    ys[-1] = slots[0]   # id_f_a: the step's f_a slot itself
+    for row in (5, cap - 1):
+        for s, b in zip(slots, x_bufs):   # what the step found in its slots
+            s.copy_(b[row])
+        got, want, tables = store_both_ways(y_bufs, ys, carry_bufs, new, row, x_bufs, slots)
+        (t,) = tables
+        assert t.n == 37 and t.first_load == 31 and (scu.blocks(t), scu.warps(t)) == (2, 19)
+        assert t.e[10].src_step == 8 and t.e[10].src == x_bufs[0].data_ptr()
+        assert_trees_equal(got, want)
+
+
+def test_launch_shape_spreads_the_units():
+    """A launch takes as few blocks as hold its units at MAX_WARPS a block
+    and spreads the units evenly over them: every unit has a warp, no block
+    is a warp short of another by more than one unit, and up to MAX_WARPS
+    units are one block (its index written without a ticket)."""
+    for n_units in (0, 1, 13, 31, 32, 33, 37, 64, 65, 260, 5000):
+        t = scu.Table(n_units=n_units)
+        b, w = scu.blocks(t), scu.warps(t)
+        assert w <= scu.MAX_WARPS and b * w >= n_units and (b == 1) == (n_units <= scu.MAX_WARPS)
+        assert n_units == 0 or (b - 1) * w < n_units
+    src = (CSRC / "scan_io.cu").read_text()
+    assert "return t->n_units > 0 ? (t->n_units + MAX_WARPS - 1) / MAX_WARPS : 1;" in src
+    assert "return t->n_units > 0 ? (t->n_units + b - 1) / b : 1;" in src
 
 
 def test_lookup_finds_each_units_entry():
@@ -606,24 +805,27 @@ def test_wrapper_counts_in_the_kernel_not_beside_it(monkeypatch):
     """Neither kernel's wrapper calls ``LaunchCount.add``: each launch, a
     cut one too, adds one to its kind's counter in the kernel (the stand-in
     library as block 0's thread 0), and ``n_launches`` equals the launches
-    made: a store of MAX_ENTRIES + 6 leaves (two launches), a store whose
+    made: a step of MAX_ENTRIES + 6 leaves (two launches), a step whose
     leaves are each other's buffers (cut into ordered launches, the plain
-    store's result), and a load."""
+    store's result), and a load; only a step's last launch advances the
+    index."""
     lib = StandInLibrary()
     spy = StandIn(lib)
     no_torch_add(monkeypatch)
     monkeypatch.setattr(scu, "load_library", lambda: lib)
     rng = np.random.default_rng(5)
-    idx, step = torch.zeros(1, dtype=torch.int64), torch.zeros(1, dtype=torch.int64)
+    idx, ticket = torch.zeros(1, dtype=torch.int64), torch.zeros(1, dtype=torch.int32)
     n = scu.MAX_ENTRIES + 6
     bufs = [torch.zeros(3, dtype=torch.int32) for _ in range(n)]
-    spy.store([], [], bufs, [_rng_tensor(rng, (3,), torch.int32) for _ in range(n)], idx, step)
+    spy.step([], [], bufs, [_rng_tensor(rng, (3,), torch.int32) for _ in range(n)], [], [], idx,
+             ticket)
+    assert int(idx) == 1
     p, q = _rng_tensor(rng, (4,), torch.int32), _rng_tensor(rng, (4,), torch.int32)
     wp, wq = p.clone(), q.clone()
     scu.scan_store_plain([], [], [wp, wq], [wq, wp], torch.zeros(1, dtype=torch.int64))
-    spy.store([], [], [p, q], [q, p], idx, step)
+    spy.step([], [], [p, q], [q, p], [], [], idx, ticket)
     x_bufs, slots = random_load_tree(rng, 5)
-    spy.load(x_bufs, slots, idx, step)
+    spy.load(x_bufs, slots, idx)
     assert [k for k, _ in lib.tables] == ["store", "store", "store", "store", "load"]
     assert spy.launches.by_key() == {"store": 4, "load": 1} and spy.n_launches == 5
-    assert torch.equal(p, wp) and torch.equal(q, wq) and int(idx) == int(step) == 1
+    assert torch.equal(p, wp) and torch.equal(q, wq) and int(idx) == 2 and int(ticket) == 0

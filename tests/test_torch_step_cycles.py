@@ -80,11 +80,12 @@ def test_dense_cycle_with_nuisance_matches_jax(dense, dense_jax):
 def test_dense_cycle_through_the_scan_kernels_matches_jax(dense, dense_jax, monkeypatch):
     """The same cycle with every step's loads and stores on the card's
     route (kernels H2 / H3's tables, run by ``tests/test_torch_scan_io``'s
-    transcription): one load and one store a step."""
+    transcription): one load (H2) for the call and one step launch (H3: the
+    stores and the next step's loads) a step."""
     spy = route_scan_to_card(monkeypatch)
     check_dense_cycle(dense, dense_jax)
     n = dense["state"].n_frags
-    assert spy.launches.by_key() == {"load": n, "store": n}
+    assert spy.launches.by_key() == {"load": 1, "store": n}
 
 
 def test_parameter_row_reaches_the_dense_scorer(dense, monkeypatch):
@@ -160,9 +161,9 @@ def test_delta_cycle_with_overflow_matches_jax(sparse, delta_jax):
 
 def test_delta_cycle_through_the_scan_kernels_matches_jax(sparse, delta_jax, monkeypatch):
     """The same delta cycle with every step's loads and stores on the
-    card's route (H2 / H3's tables transcribed): one load and one store a
-    step."""
+    card's route (H2 / H3's tables transcribed): one load for the call and
+    one step launch a step."""
     spy = route_scan_to_card(monkeypatch)
     check_delta_cycle(sparse, delta_jax)
     steps = len(delta_jax["order"])
-    assert spy.launches.by_key() == {"load": steps, "store": steps}
+    assert spy.launches.by_key() == {"load": 1, "store": steps}
