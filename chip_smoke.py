@@ -166,10 +166,14 @@ written. "share" is the bound over the device time.
    c_max and its most valid rows. corr and cross within rtol CORR_RTOL (atol
    CORR_ATOL), dll within max(DLL_ATOL, one f32 ulp): every f32 term is
    the plain version's bit for bit (both fold a bin's copies left to
-   right), only the f64 sums' order differs. Each kernel timed at each shape (F1 and F2 alone from
-   one argument block, the pair through the wrapper; device ms; the plain
-   version's as graph replays) beside its bound, counted from the call's
-   records (``corr_bound``). The launches F1 and F2 counted themselves on
+   right), only the f64 sums' order differs (F2 folds in its fixed order,
+   torch in its own); each shape's line says whether this run's draws came
+   out bit-identical to the plain version or only within the tolerances.
+   Each kernel timed at each shape (F1 and F2 alone from one argument
+   block, the pair through the wrapper; device ms; the plain version's as
+   graph replays) beside its bound, counted from the call's records
+   (``corr_bound``); F2's line names the layout its wrapper picked
+   (``repeat_corr_cuda.sums_plan``). The launches F1 and F2 counted themselves on
    the card equal the wrapper's calls counted on the host
    (``check_counted``; the timed launches alone on a scratch counter).
    Phases 7b, 7g / 7h (the repeat cycles), 8a, 11b and 9f's ``scale
@@ -259,6 +263,9 @@ written. "share" is the bound over the device time.
    16,384 (4 chains, M = 20). Every output byte compared (bools as bytes);
    each shape timed (I1 and I2 alone from one argument block; the plain
    versions as called and as graph replays) beside its bound in bytes.
+   The launches I1 and I2 counted themselves on the card equal the
+   wrapper's calls counted on the host (``check_counted``; the timed
+   launches alone on a scratch counter).
    Every delta path (7, 7b, 7g, 7h, 8, 8a, 8b, 9d-9f, 11a, 11b, 11e, 11g,
    run_mtm) counts one I1 and one I2 launch a scoring call beside its G1-G3
    launches (graph == eager by key).
@@ -6065,6 +6072,7 @@ def time_corr_kernels(case, args):
         t = timed(fn, CORR_TIME_ITERS)
         t.update(plain_ms=plain_ms, plain_device_ms=plain_dev)
         out[name] = with_share(t, b)
+    out["sums"]["layout"] = rc.SUMS_PLANS[a.sums_plan]
     pair = timed(lambda: corr_wrapper().corrections(engine.corr_tables, *args), CORR_TIME_ITERS)
     del keep, counter
     return out, pair, counts
@@ -6077,15 +6085,21 @@ def corr_shape(case, gen, n_draws=CORR_DRAWS):
     times, pair, counts = time_corr_kernels(case, args)
     big_m, r = args[4].mid.shape[0], args[4].mid.shape[2]
     c_max = case["engine"].corr_tables.c_max
+    same = stats["corr_rel"] == stats["cross_rel"] == stats["dll_abs"] == 0
     print(f"  {case['label']}: M = {big_m} ({case['chains']} chain(s)), R = {r}, c_max {c_max}, "
           f"{stats['calls']} "
           f"calls, {stats['slots']} slots, valid rows up to {stats['most_valid']}; corr rel "
           f"{stats['corr_rel']:.3g}, cross rel "
           f"{stats['cross_rel']:.3g}, dll {stats['dll_abs']:.3g} ({stats['dll_ulps']:.2f} "
-          f"ulps), beyond tolerance {stats['beyond_tolerance']}; last call {json.dumps(counts)}")
+          f"ulps): "
+          + ("bit-identical to the plain version's sums on these draws" if same else
+             f"within rtol {CORR_RTOL} and one ulp, not bit-identical (F2's fixed f64 order, "
+             "not torch's)")
+          + f"; beyond tolerance {stats['beyond_tolerance']}; last call {json.dumps(counts)}")
     for k, (name, rec) in enumerate(times.items()):
+        layout = f", layout {rec['layout']}" if "layout" in rec else ""
         print(f"    F{k + 1} {name}: {rec['device_ms']:.4f} device ms ({rec['ms']:.4f} as called); "
-              f"{fmt_bound(rec)}")
+              f"{fmt_bound(rec)}{layout}")
     print(f"    pair through the wrapper {pair['device_ms']:.4f} device ms ({pair['ms']:.4f} as "
           f"called); plain {times['sums']['plain_device_ms']:.4f} device ms as graph replays "
           f"({times['sums']['plain_ms']:.4f} as called)")
@@ -6735,6 +6749,7 @@ def time_inputs_kernels(scorer, args, valid, full):
     stream = torch.cuda.current_stream().cuda_stream
     a1, keep1, lf = di.slot_args(*args)
     a2, keep2, vec = di.vector_args(full, args[0], valid, scorer.vt, scorer.extras)
+    counter = [scratch_fields(a, ("counter",)) for a in (a1, a2)]
 
     def i1():
         check(lib.delta_slots(ctypes.byref(a1), stream) == 0, "I1 launch failed")
@@ -6755,7 +6770,7 @@ def time_inputs_kernels(scorer, args, valid, full):
         t.update(plain_ms=cuda_ms(plain, 5, n_warm=1), plain_device_ms=graph_device_ms(plain, 20),
                  library_ms=None)
         rec[kind] = with_share(t, b)
-    del keep1, keep2
+    del keep1, keep2, counter
     return rec
 
 
@@ -6801,34 +6816,69 @@ def phase_inputs_kernels(device, sc, rsc):
     gen = torch.Generator(device=device).manual_seed(SEED + 90)
     print(f"delta input kernels I1 (slots), I2 (vectors) vs plain, ~{INPUTS_DRAWS} slots a "
           "shape, every output byte")
+    return inputs_counted("3i", lambda: {
+        case["label"]: inputs_shape(case, scorer, params, gen)
+        for case, scorer, params in inputs_cases(sc, rsc, SETUPS["many_copies"])})
+
+
+def inputs_counted(label, run):
+    """``run()``, the launches I1 and I2 counted themselves on the card held
+    to the calls it made to them."""
+    from graal_tpu_torch.ops.delta_inputs_cuda import DeltaInputKernels
+
+    calls = {}
+    reset_counted(inputs_wrapper(), calls)
+    with counting_calls(calls, DeltaInputKernels, "slots", ("delta_slots",)), \
+            counting_calls(calls, DeltaInputKernels, "vectors", ("delta_vectors",)):
+        out = run()
+    check_counted(label, inputs_wrapper(),
+                  {k: calls.get(k, 0) for k in ("delta_slots", "delta_vectors")})
+    return out
+
+
+def inputs_cases(sc, rsc, many=None):
+    """Phase 3i's shapes in order, each (case (:func:`rows_case`), scorer,
+    params): the 100k delta EM step (union, M = 5), its 4 chains with their
+    own parameters, the 100k delta MTM pass (M = 7, C2), the 20k repeat
+    step (M = 10, key_of) and its 4 chains (M = 40), and, given ``many``
+    (3g's problem of 2 to ROW_COPIES copies a bin), the repeat step at m =
+    80."""
     shapes = [("delta_100k_em", sc, dict(), False, None),
               ("delta_100k_em_4_chains", sc, dict(states=chain_starts(sc)), False, CHAINS),
               ("delta_100k_mtm", sc, dict(union=False, mh=True), True, None),
               ("repeat_20k_em", rsc, dict(union=False), False, None),
               ("repeat_20k_em_4_chains", rsc, dict(states=chain_starts(rsc), union=False), False,
-               CHAINS),
-              (f"repeat_20k_em_{ROW_COPIES}_copies", SETUPS["many_copies"], dict(union=False),
-               False, None)]
-    out = {}
+               CHAINS)]
+    if many is not None:
+        shapes.append((f"repeat_20k_em_{ROW_COPIES}_copies", many, dict(union=False), False,
+                       None))
+    out = []
     for label, s, kw, mh, chains in shapes:
         case = rows_case(label, s, F_MAX, **kw)
         params = chain_params(s["params"], chains) if chains else s["params"]
-        out[label] = inputs_shape(case, inputs_scorer(s, case["f_max"], mh), params, gen)
+        out.append((case, inputs_scorer(s, case["f_max"], mh), params))
     return out
 
 
-def phase_inputs_top(sc):
-    """(``--top-tiers``) I1 and I2 at f_max 16,384: 4 chains of the truth
-    with their own parameters (M = 20), union mode as the chains' delta EM
-    step extracts them."""
-    import torch
+def inputs_top_case(sc):
+    """``--top-tiers``' I1 / I2 shape, (case, scorer, params): 4 chains of
+    the truth with their own parameters (M = 20) at f_max 16,384, union
+    mode as the chains' delta EM step extracts them."""
     from graal_tpu_torch.core.state import GenomeState
 
-    gen = torch.Generator(device=sc["truth"].pos.device).manual_seed(SEED + 91)
     states = GenomeState(*[x.expand(CHAINS, -1).contiguous() for x in sc["truth"]])
     case = rows_case(f"delta_100k_4_chains_{TOP_TIERS[1]}", sc, TOP_TIERS[1], states=states)
-    return inputs_shape(case, inputs_scorer(sc, case["f_max"]),
-                        chain_params(sc["params"], CHAINS), gen, n_draws=INPUTS_TOP_DRAWS)
+    return case, inputs_scorer(sc, case["f_max"]), chain_params(sc["params"], CHAINS)
+
+
+def phase_inputs_top(sc):
+    """(``--top-tiers``) I1 and I2 at f_max 16,384 (:func:`inputs_top_case`),
+    their launches counted on the card equal to the calls made."""
+    import torch
+
+    gen = torch.Generator(device=sc["truth"].pos.device).manual_seed(SEED + 91)
+    return inputs_counted("3i top", lambda: inputs_shape(*inputs_top_case(sc), gen,
+                                                         n_draws=INPUTS_TOP_DRAWS))
 
 
 def inputs_records():

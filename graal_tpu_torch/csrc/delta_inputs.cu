@@ -42,14 +42,25 @@
 // matches and writes 15 words a slot.
 //
 // What the design does about it.
-//  - I1: a block of 256 threads a slot, each thread scanning its strided
-//    share of the slot's rows up to its own first match of f_a and of the
-//    neighbour (its positions rise, so its first match is its least), then
-//    a min-reduction in shared memory; thread 0 writes the scalars and the
-//    parameter row (params_row.cuh, the code D1 and H1 write theirs with).
+//  - I1: a block a slot, of as many warps as hold its f_max rows at up to
+//    SLOT_ROWS a thread (1 to 32 warps: `slot_threads`). Warp w takes the
+//    run of 32 x SLOT_ROWS rows from w x 32 x SLOT_ROWS (past 32 warps'
+//    rows, the next runs in turn), pass q of it the 32 consecutive rows
+//    from q x 32: every thread issues all its row loads of a run before
+//    the first compare. Then, pass by pass in row order, a ballot of
+//    the lanes whose row is f_a (and one for the neighbour) and the lowest
+//    set bit give the warp's first match; the warps' runs rise with w, so
+//    the least over the warps (one shared-memory round, one barrier, a
+//    warp's __reduce_min_sync) is the slot's first match. The scalars do
+//    not wait for the scan: the last warp's lane 0 loads max_id and the
+//    parameters at the start and writes max_id and the parameter row
+//    (params_row.cuh, the code D1 and H1 write theirs with) beside it.
 //  - I2: a thread an output (slot, genome, sub row), the sub rows of a
 //    slot consecutive across threads, so every plane is written coalesced;
 //    the base genome's threads also write the keys and accu_sub.
+//  - Each counts its own launches: block 0's thread 0 adds one to its
+//    launch key's int64 on the card (ops/counts.py), so no counting kernel
+//    runs beside them.
 //  - Both read their inputs in place at their strides (the extraction's
 //    (C, m, f_max) rows and valid, eager or graphed; the catalogue's (M, 14,
 //    f_max) views of one buffer), make no host read and allocate nothing:
@@ -69,7 +80,8 @@
 
 namespace {
 
-constexpr int SLOT_THREADS = 256;
+constexpr int SLOT_ROWS = 16;        // I1: rows a thread loads at once, at most
+constexpr int MAX_SLOT_THREADS = 1024;
 constexpr int VEC_THREADS = 256;
 constexpr int N_GEN = 14;            // the base genome and its 13 candidates
 constexpr int N_PARAMS = 8;          // RippeParams: kuhn lm c1 slope d d_max fact v_inter
@@ -91,6 +103,7 @@ struct SlotArgs {
   long long* lf;                // (2, M) int64 outputs: lf_a, then lf_b
   void* max_id_out;             // (M,) of max_id's type
   float* pvec;                  // (M, 10)
+  unsigned long long* counter;  // the launch key's int64 (ops/counts.py)
   int C, m, f_max;
   int fa64, ids64, mx64;
 };
@@ -120,6 +133,7 @@ struct VecArgs {
   unsigned char* act;              // (M, 14, R), or nullptr (with circ_i and accu_sub)
   int* circ_i;                     // (M, 14, R)
   float* accu_sub;                 // (M, R)
+  unsigned long long* counter;     // the launch key's int64 (ops/counts.py)
   float inv_kb;                    // f32 1 / 1000
   int C, m, f_max, s_max, R, K;
   int pad;
@@ -129,45 +143,70 @@ __device__ __forceinline__ long long load_index(const void* p, long long i, int 
   return is64 ? static_cast<const long long*>(p)[i] : static_cast<const int*>(p)[i];
 }
 
-__global__ void __launch_bounds__(SLOT_THREADS) delta_slots_kernel(const __grid_constant__ SlotArgs a) {
-  __shared__ int first[2][SLOT_THREADS];
+// I1's threads for f_max rows: the warps that hold them at SLOT_ROWS a
+// thread, 1 to 32
+__host__ __device__ __forceinline__ int slot_threads(int f_max) {
+  const int warps = (f_max + 32 * SLOT_ROWS - 1) / (32 * SLOT_ROWS);
+  return 32 * (warps < 1 ? 1 : (warps > MAX_SLOT_THREADS / 32 ? MAX_SLOT_THREADS / 32 : warps));
+}
+
+__global__ void __launch_bounds__(MAX_SLOT_THREADS)
+    delta_slots_kernel(const __grid_constant__ SlotArgs a) {
+  __shared__ int first[2][MAX_SLOT_THREADS / 32];
   const int s = blockIdx.x;
   const int c = s / a.m, j = s - c * a.m;
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, n_warps = blockDim.x >> 5;
+  if (s == 0 && tid == 0) atomicAdd(a.counter, 1ULL);
+  const long long* row = a.rows + a.rows_cs * c + a.rows_ms * j;
   const long long fa = load_index(a.f_a, a.fa_s * c, a.fa64);
   const long long fb = load_index(a.ids, a.ids_cs * c + a.ids_ms * j, a.ids64);
-  const long long* row = a.rows + a.rows_cs * c + a.rows_ms * j;
-  int ia = NO_MATCH, ib = NO_MATCH;
-  for (int i = tid; i < a.f_max && (ia == NO_MATCH || ib == NO_MATCH); i += SLOT_THREADS) {
-    const long long r = row[a.rows_is * i];
-    if (ia == NO_MATCH && r == fa) ia = i;
-    if (ib == NO_MATCH && r == fb) ib = i;
+  if (warp == n_warps - 1 && lane == 0) {   // the scalars, beside the scan
+    const long long mx = load_index(a.max_id, a.mx_s * c, a.mx64);
+    auto p = [&](int k) { return a.par[k][a.par_s[k] * c]; };
+    if (a.mx64) static_cast<long long*>(a.max_id_out)[s] = mx;
+    else static_cast<int*>(a.max_id_out)[s] = static_cast<int>(mx);
+    write_params_row(a.pvec + static_cast<long long>(PARAMS_ROW) * s, p(KUHN), p(LM), p(C1),
+                     p(SLOPE), p(D), p(D_MAX), p(FACT), p(V_INTER), *a.log_nfpb);
   }
-  first[0][tid] = ia;
-  first[1][tid] = ib;
-  __syncthreads();
-  for (int w = SLOT_THREADS / 2; w > 0; w >>= 1) {
-    if (tid < w) {
-      const int xa = first[0][tid + w], xb = first[1][tid + w];
-      if (xa < first[0][tid]) first[0][tid] = xa;
-      if (xb < first[1][tid]) first[1][tid] = xb;
+  // the warp's first matches: the first pass with a hit, its lowest lane;
+  // past 32 warps' rows the warps take the next runs, in order
+  int ia = NO_MATCH, ib = NO_MATCH;
+  for (int run = warp * 32 * SLOT_ROWS; run < a.f_max && (ia == NO_MATCH || ib == NO_MATCH);
+       run += n_warps * 32 * SLOT_ROWS) {
+    long long r[SLOT_ROWS];                 // every row of the run loaded before any compare
+#pragma unroll
+    for (int q = 0; q < SLOT_ROWS; ++q) {
+      const int i = run + q * 32 + lane;
+      r[q] = i < a.f_max ? row[a.rows_is * i] : 0;
+    }
+#pragma unroll
+    for (int q = 0; q < SLOT_ROWS; ++q) {
+      const bool in = run + q * 32 + lane < a.f_max;
+      const unsigned ha = __ballot_sync(0xffffffffu, in && r[q] == fa);
+      const unsigned hb = __ballot_sync(0xffffffffu, in && r[q] == fb);
+      if (ia == NO_MATCH && ha) ia = run + q * 32 + __ffs(ha) - 1;
+      if (ib == NO_MATCH && hb) ib = run + q * 32 + __ffs(hb) - 1;
+    }
+  }
+  if (n_warps > 1) {
+    if (lane == 0) {
+      first[0][warp] = ia;
+      first[1][warp] = ib;
     }
     __syncthreads();
+    if (warp != 0) return;
+    ia = __reduce_min_sync(0xffffffffu, lane < n_warps ? first[0][lane] : NO_MATCH);
+    ib = __reduce_min_sync(0xffffffffu, lane < n_warps ? first[1][lane] : NO_MATCH);
   }
   if (tid != 0) return;
   const long long big_m = static_cast<long long>(a.C) * a.m;
-  a.lf[s] = first[0][0] == NO_MATCH ? 0 : first[0][0];
-  a.lf[big_m + s] = first[1][0] == NO_MATCH ? 0 : first[1][0];
-  const long long mx = load_index(a.max_id, a.mx_s * c, a.mx64);
-  if (a.mx64) static_cast<long long*>(a.max_id_out)[s] = mx;
-  else static_cast<int*>(a.max_id_out)[s] = static_cast<int>(mx);
-  auto p = [&](int k) { return a.par[k][a.par_s[k] * c]; };
-  write_params_row(a.pvec + static_cast<long long>(PARAMS_ROW) * s, p(KUHN), p(LM), p(C1),
-                   p(SLOPE), p(D), p(D_MAX), p(FACT), p(V_INTER), *a.log_nfpb);
+  a.lf[s] = ia == NO_MATCH ? 0 : ia;
+  a.lf[big_m + s] = ib == NO_MATCH ? 0 : ib;
 }
 
 __global__ void __launch_bounds__(VEC_THREADS) delta_vectors_kernel(const __grid_constant__ VecArgs a) {
   const int k = blockIdx.x * VEC_THREADS + threadIdx.x;
+  if (k == 0 && blockIdx.y == 0 && blockIdx.z == 0) atomicAdd(a.counter, 1ULL);
   if (k >= a.R) return;
   const int gen = blockIdx.y;
   const int s = blockIdx.z;
@@ -208,12 +247,13 @@ int delta_vector_args_size() { return (int)sizeof(VecArgs); }
 
 // Launch I1 / I2 on `stream` from the argument block the wrapper filled; do
 // not synchronise; return the cudaError_t of the launch
-// (cudaErrorInvalidValue for a block they refuse).
+// (cudaErrorInvalidValue for a block they refuse, a null counter among it).
 int delta_slots(const void* args, void* stream) {
   const SlotArgs* a = static_cast<const SlotArgs*>(args);
   const long long big_m = static_cast<long long>(a->C) * a->m;
-  if (a->C < 1 || a->m < 1 || a->f_max < 1 || big_m > 65535) return (int)cudaErrorInvalidValue;
-  delta_slots_kernel<<<(int)big_m, SLOT_THREADS, 0, (cudaStream_t)stream>>>(*a);
+  if (a->C < 1 || a->m < 1 || a->f_max < 1 || big_m > 65535 || a->counter == nullptr)
+    return (int)cudaErrorInvalidValue;
+  delta_slots_kernel<<<(int)big_m, slot_threads(a->f_max), 0, (cudaStream_t)stream>>>(*a);
   return (int)cudaGetLastError();
 }
 
@@ -221,7 +261,7 @@ int delta_vectors(const void* args, void* stream) {
   const VecArgs* a = static_cast<const VecArgs*>(args);
   const long long big_m = static_cast<long long>(a->C) * a->m;
   if (a->C < 1 || a->m < 1 || a->f_max < 1 || a->s_max < 1 || a->K < 1 || big_m > 65535
-      || a->R != static_cast<long long>(a->f_max) * a->s_max)
+      || a->R != static_cast<long long>(a->f_max) * a->s_max || a->counter == nullptr)
     return (int)cudaErrorInvalidValue;
   const dim3 grid((a->R + VEC_THREADS - 1) / VEC_THREADS, N_GEN, (unsigned)big_m);
   delta_vectors_kernel<<<grid, VEC_THREADS, 0, (cudaStream_t)stream>>>(*a);

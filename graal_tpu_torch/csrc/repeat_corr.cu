@@ -83,13 +83,53 @@
 //    v end's frozen geometry passed by shuffles; the rows fold into the
 //    entry's sum in cu order. So every f32 term is still the plain
 //    version's left fold.
-//  - F2 (`corr_sums_kernel`): one block of 256 threads a (slot, candidate);
-//    threads 0-127 sum the base genome's terms, 128-255 the candidate's,
-//    each over the packed records, in f64, folded by a fixed tree. Every
-//    block sums the base the same way, so corr[0] is one value. The order
-//    is not torch's, so a correction agrees with the plain version to f64
-//    rounding (rtol 1e-12 in chip_smoke.py 3f) and dll to one f32 ulp.
-//    Then the candidate's cross term over the D rows, and its delta.
+//  - F2 (`corr_sums_kernel<TG, PLACES>`): a thread block cluster a slot,
+//    14 blocks of TG threads, a genome a block. Every genome is summed
+//    once: the base genome by block 0, which also sums its D mass and w_out
+//    once a slot and hands corr[0] and w_out to the candidates through
+//    distributed shared memory.
+//  - Terms computed wide, folded in a fixed order. The slot's records are
+//    laid out as one sequence: the mixed records, the multi-multi entries,
+//    part 4's (s_max x capd) places and the same-bin pairs, each group
+//    padded with zeros to a multiple of 128. A pass stages F2_TILE places
+//    of it in shared memory as f32 terms (0 where the parent skips a term
+//    or a place is padding): place q by thread q mod TG, PLACES places of
+//    a thread at a time in three steps (all their ints: the records' rows,
+//    entries and first F2_COPIES copies; then all those rows' geometry and
+//    the entries' ob and log(ob!); then the terms, a place's further
+//    copies loaded F2_COPIES at a time); and the multi-multi entries a
+//    group of GW lanes an entry (GW the power of two that holds a bin's
+//    copies, at most 32: lane l takes copy row cu = l (+ GW, ...) of the u
+//    end, folds it over cv left to right, the v end passed by shuffles,
+//    and the rows fold in cu order). After a barrier fold lane th (0-127)
+//    adds places th, th + 128, ... of the pass in f64. As every group
+//    starts at a multiple of 128, lane th adds the records th, th + 128,
+//    ... of each group in turn, and an added zero leaves an f64 sum's bits
+//    unchanged; so with the fixed tree over the 128 partials (64, 32 in
+//    shared memory, then a warp's shuffles) every corr is bit for bit the
+//    sum of the earlier design (a block of 256 a (slot, candidate), 128
+//    threads a genome walking its records). The D mass and the cross sum
+//    keep that design's order too: lane r (0-255) adds rows r, r + 256,
+//    ..., then a 256-wide tree. So corr, cross and dll are that design's to
+//    the bit; the order is not torch's, so they agree with the plain
+//    version to f64 rounding (rtol 1e-12 in chip_smoke.py 3f) and dll to
+//    one f32 ulp.
+//  - Layouts (`SumsPlan`, picked a call by the wrapper's `sums_plan`): TG
+//    512, 256 or 128, and PLACES 2 or 1. Two places a thread have two
+//    records' chains of loads in flight at once, but need up to 128
+//    registers a thread (512 threads a multiprocessor); one place fits 64
+//    (1,024 threads). So two places win where a call leaves the card
+//    mostly idle (few slots, R up to 1,024 rows) and lose where it fills
+//    the card, whose resident warps then hide the latency (PERF.md). The
+//    wrapper takes the most threads whose clusters the card holds all at
+//    once for the call's slots (`repeat_corr_sums_fit`), of two places
+//    where R <= 1,024 and one fits, else of one place, so a call of many
+//    slots runs in one wave of smaller blocks rather than in waves of
+//    large ones (at 128 a thread holds two of the 256 cross lanes).
+//  - Latency: the base genome loads its D mass beside its terms; a
+//    candidate loads its first cross rows (its activity, the base's,
+//    o_same) after its terms, while the sums fold and block 0 finds w_out
+//    (loaded before the terms, they held 8-16 registers the places need).
 //  - Rounding. Each f32 term follows the plain version op for op: explicit
 //    round-to-nearest intrinsics in the plain order (never contracted into
 //    an FMA), expf and logf as torch's CUDA kernels call them (no fast-math),
@@ -118,8 +158,11 @@ namespace {
 
 constexpr int F1_THREADS = 1024;
 constexpr int F1_WARPS = F1_THREADS / 32;
-constexpr int F2_THREADS = 256;
-constexpr int HALF = F2_THREADS / 2;  // F2: the threads of one genome
+constexpr int F2_TILE = 2048;         // F2: the places of the record sequence staged a pass
+constexpr int F2_FOLD = 128;          // F2: the fold lanes of a genome (each group padded to it)
+constexpr int F2_CROSS = 256;         // F2: the lanes of the D mass and the cross sum
+constexpr int F2_PRE = 4;             // F2: cross rows a lane loads before w_out is known
+constexpr int F2_COPIES = 2;          // F2: a place's copies loaded with it (then as many a time)
 constexpr int N_GEN = 14;             // base + 13 candidates a neighbour slot
 constexpr int N_OPS = 13;
 constexpr int N_STATE = 6;
@@ -128,6 +171,13 @@ constexpr unsigned FULL = 0xffffffffu;
 
 enum StateField { START = 0, ORI, IDC, CIRC, LCONT, ACTIV };
 enum RouterKind { STAGED = 0, BITMAP = 1 };   // F1's routers (CorrArgs.router)
+// F2's layouts (CorrArgs.sums_plan): the threads of a genome's block and
+// the places a thread loads at once (two: W, one: D)
+enum SumsPlan { W512 = 0, W256, W128, D512, D256, D128 };
+
+// F2's threads a multiprocessor holds at PLACES places a thread at once:
+// one place fits 64 registers (1,024 threads); two take up to 128 (512)
+__host__ __device__ constexpr int sums_sm_threads(int places) { return places == 1 ? 1024 : 512; }
 
 // The engine's constant tables, on the card once per engine.
 struct Tables {
@@ -198,6 +248,7 @@ struct CorrArgs {
   unsigned long long* sums_counter;
   int C, m, f_max, R;
   int cluster, router;        // F1's plan: K blocks a cluster, its router
+  int sums_plan, pad;         // F2's layout (SumsPlan)
 };
 
 __device__ __forceinline__ int clampi(int x, int lo, int hi) { return min(max(x, lo), hi); }
@@ -275,8 +326,10 @@ struct Mini {
   const float* accu;
   int R;
 
+  // accu is loaded beside act, not after it
   __device__ __forceinline__ float a(int k, int r) const {
-    return act[k * R + r] ? accu[r] : 0.0f;
+    const float ac = accu[r];
+    return act[k * R + r] ? ac : 0.0f;
   }
   __device__ __forceinline__ Geo at(int k, int r) const {
     const int i = k * R + r;
@@ -285,7 +338,8 @@ struct Mini {
     g.idc = idc[i];
     g.circ = circ[i] == 1;
     g.stot = stot[i];
-    g.a = act[i] ? accu[r] : 0.0f;
+    const float ac = accu[r];
+    g.a = act[i] ? ac : 0.0f;
     return g;
   }
 };
@@ -740,126 +794,422 @@ __global__ void __launch_bounds__(F1_THREADS) corr_frozen_kernel(CorrArgs a) {
   }
 }
 
-// The terms of genome k of one slot, this thread's share (records th,
-// th + HALF, ...), summed in f64.
-__device__ double genome_terms(const CorrArgs& a, const Mini& g, int k, int slot,
-                               const RippeCell& p, float vn, int th) {
+// ---- F2 --------------------------------------------------------------------
+
+// n rounded up to a multiple of the fold lanes: where a group of F2's record
+// sequence ends
+__device__ __forceinline__ int pad_fold(int n) { return (n + F2_FOLD - 1) / F2_FOLD * F2_FOLD; }
+
+// The genome geometry Geo of lane `src` of this lane's group of `width`
+__device__ __forceinline__ Geo shfl_geo_w(const Geo& g, int src, int width) {
+  Geo out;
+  out.mid = __shfl_sync(FULL, g.mid, src, width);
+  out.stot = __shfl_sync(FULL, g.stot, src, width);
+  out.a = __shfl_sync(FULL, g.a, src, width);
+  out.idc = __shfl_sync(FULL, g.idc, src, width);
+  out.circ = __shfl_sync(FULL, (int)g.circ, src, width) != 0;
+  return out;
+}
+
+// A place of F2's record sequence as a thread stages it: first its ints
+// (`load_ints`), then its rows' geometry and its entry's (ob, lf)
+// (`load_rows`), then its f32 term (`term`); a thread takes PLACES
+// places through each step before the next, so their loads are in flight
+// together. Copies past F2_COPIES are loaded F2_COPIES at a time as the
+// term is folded.
+enum PlaceKind { P_ZERO = 0, P_MIXED, P_PART4, P_SAME, P_ENTRY };
+
+struct Place {
+  int kind, i;               // i: the place's index in its group
+  int u, ent;                // mixed: D row, entry; part 4: -, entry; same-bin: first row
+  int v[F2_COPIES];          // mixed / part 4: the copies' mini rows; same-bin: v[0]
+  float s0, s1;              // mixed: aout; part 4: f0, f1
+  float ob, lf;
+  Geo gu;
+  Geo gv[F2_COPIES];         // mid, idc and a (part 4: a alone)
+};
+
+// The geometry pair_e reads of a v end: mid, idc, a (every load issued)
+__device__ __forceinline__ Geo v_end(const Mini& g, int k, int r) {
+  const int i = k * g.R + r;
+  Geo out;
+  out.mid = g.mid[i];
+  out.idc = g.idc[i];
+  const float ac = g.accu[r];
+  out.a = g.act[i] ? ac : 0.0f;
+  out.stot = 0.0f;
+  out.circ = false;
+  return out;
+}
+
+// Place q of the sequence (laid out as in corr_sums_kernel); q < 0: none
+__device__ __forceinline__ void load_ints(const CorrArgs& a, int slot, int q, int n_mx, int p_dd,
+                                          int ndd, int p_p4, int n4, int p_sb, int n_sb,
+                                          Place& pl) {
   const Tables& t = a.t;
-  const int R = a.R, C = t.c_max;
-  const float inv_nfpb = t.inv_nfpb;
-  double acc = 0.0;
-  // mixed windows
-  const int n_mx = a.n_rec[slot * 2];
-  for (int i = th; i < n_mx; i += HALF) {
-    const long long at = (long long)slot * R * t.capm + i;
+  const int C = t.c_max;
+  pl.kind = P_ZERO;
+  if (q < 0) return;
+  if (q < p_dd) {
+    if (q >= n_mx) return;
+    pl.kind = P_MIXED;
+    pl.i = q;
+    const long long at = (long long)slot * a.R * t.capm + q;
     const int* rec = a.mx_rec + at * (2 + C);
-    const int ent = rec[1];
-    const Geo u = g.at(k, rec[0]);
-    Fold e;
-    for (int c = 0; c < C; ++c) {
-      const int vm = rec[2 + c];
-      e.add(vm >= 0 ? pair_e(u, g.at(k, vm), p, inv_nfpb) : 0.0f);
-    }
-    const float e_mix = __fadd_rn(e.v, __fmul_rn(__fmul_rn(vn, u.a), a.mx_aout[at]));
-    if (e_mix > 0.0f)
-      acc = __dadd_rn(acc, (double)__fsub_rn(__fmul_rn(t.mx_vals[ent], logf(e_mix)),
-                                             t.mx_lf[ent]));
+    pl.u = rec[0];
+    pl.ent = rec[1];
+#pragma unroll
+    for (int c = 0; c < F2_COPIES; ++c) pl.v[c] = c < C ? rec[2 + c] : -1;
+    pl.s0 = a.mx_aout[at];
+  } else if (q < p_p4) {
+    if (q - p_dd < ndd) pl.kind = P_ENTRY;
+  } else if (q < p_sb) {
+    const int i = q - p_p4;
+    if (i >= n4) return;
+    pl.kind = P_PART4;
+    pl.i = i;
+    const long long at = (long long)slot * t.s_max * t.capd + i;
+    const int* cm = a.ca_mini + ((long long)slot * t.s_max + i / t.capd) * C;
+    pl.ent = a.p4_ent[at];
+#pragma unroll
+    for (int c = 0; c < F2_COPIES; ++c) pl.v[c] = c < C ? cm[c] : -1;
+    pl.s0 = a.p4_f[at * 2];
+    pl.s1 = a.p4_f[at * 2 + 1];
+  } else if (q - p_sb < n_sb) {
+    pl.kind = P_SAME;
+    pl.i = q - p_sb;
+    const int* pair = a.sb_pair + ((long long)slot * a.R * t.c_max + pl.i) * 2;
+    pl.u = pair[0];
+    pl.v[0] = pair[1];
   }
-  // multi-multi entries
-  for (int d = th; d < t.ndd; d += HALF) {
-    const long long at = (long long)slot * t.ndd + d;
+}
+
+__device__ __forceinline__ void load_rows(const CorrArgs& a, const Mini& g, int k, Place& pl) {
+  const Tables& t = a.t;
+  if (pl.kind == P_MIXED) {
+    pl.ob = t.mx_vals[pl.ent];
+    pl.lf = t.mx_lf[pl.ent];
+    pl.gu = g.at(k, pl.u);
+#pragma unroll
+    for (int c = 0; c < F2_COPIES; ++c) pl.gv[c] = v_end(g, k, max(pl.v[c], 0));
+  } else if (pl.kind == P_PART4) {
+    if (pl.ent >= 0) {
+      pl.ob = t.so_vals[pl.ent];
+      pl.lf = t.so_lf[pl.ent];
+    }
+#pragma unroll
+    for (int c = 0; c < F2_COPIES; ++c) pl.gv[c].a = g.a(k, max(pl.v[c], 0));
+  } else if (pl.kind == P_SAME) {
+    pl.gu = g.at(k, pl.u);
+    pl.gv[0] = v_end(g, k, pl.v[0]);
+  }
+}
+
+// The place's f32 term, op for op the plain version's: mixed, its copies'
+// left fold plus the frozen trans mass, ob log e - lf where e > 0; part 4,
+// f0 + f1 x the left fold of the bin's copies' activity; same-bin, the
+// pair's linear contacts. 0 for a padding place.
+__device__ __forceinline__ float term(const CorrArgs& a, const Mini& g, int k, int slot,
+                                     const RippeCell& p, float vn, const Place& pl) {
+  const Tables& t = a.t;
+  const int C = t.c_max;
+  if (pl.kind == P_MIXED) {
+    Fold e;
+#pragma unroll
+    for (int c = 0; c < F2_COPIES; ++c)
+      if (c < C) e.add(pl.v[c] >= 0 ? pair_e(pl.gu, pl.gv[c], p, t.inv_nfpb) : 0.0f);
+    if (C > F2_COPIES) {
+      const int* rec = a.mx_rec + ((long long)slot * a.R * t.capm + pl.i) * (2 + C);
+      for (int c0 = F2_COPIES; c0 < C; c0 += F2_COPIES) {
+        int vm[F2_COPIES];
+        Geo gv[F2_COPIES];
+#pragma unroll
+        for (int j = 0; j < F2_COPIES; ++j) vm[j] = c0 + j < C ? rec[2 + c0 + j] : -1;
+#pragma unroll
+        for (int j = 0; j < F2_COPIES; ++j) gv[j] = v_end(g, k, max(vm[j], 0));
+#pragma unroll
+        for (int j = 0; j < F2_COPIES; ++j)
+          if (c0 + j < C) e.add(vm[j] >= 0 ? pair_e(pl.gu, gv[j], p, t.inv_nfpb) : 0.0f);
+      }
+    }
+    const float e_mix = __fadd_rn(e.v, __fmul_rn(__fmul_rn(vn, pl.gu.a), pl.s0));
+    return e_mix > 0.0f ? __fsub_rn(__fmul_rn(pl.ob, logf(e_mix)), pl.lf) : 0.0f;
+  }
+  if (pl.kind == P_PART4) {
+    if (pl.ent < 0) return 0.0f;
+    Fold ad;
+#pragma unroll
+    for (int c = 0; c < F2_COPIES; ++c)
+      if (c < C) ad.add(pl.v[c] >= 0 ? pl.gv[c].a : 0.0f);
+    if (C > F2_COPIES) {
+      const int* cm = a.ca_mini + ((long long)slot * t.s_max + pl.i / t.capd) * C;
+      for (int c0 = F2_COPIES; c0 < C; c0 += F2_COPIES) {
+        int vm[F2_COPIES];
+        float av[F2_COPIES];
+#pragma unroll
+        for (int j = 0; j < F2_COPIES; ++j) vm[j] = c0 + j < C ? cm[c0 + j] : -1;
+#pragma unroll
+        for (int j = 0; j < F2_COPIES; ++j) av[j] = g.a(k, max(vm[j], 0));
+#pragma unroll
+        for (int j = 0; j < F2_COPIES; ++j)
+          if (c0 + j < C) ad.add(vm[j] >= 0 ? av[j] : 0.0f);
+      }
+    }
+    const float e4 = __fadd_rn(pl.s0, __fmul_rn(pl.s1, ad.v));
+    return e4 > 0.0f ? __fsub_rn(__fmul_rn(pl.ob, logf(e4)), pl.lf) : 0.0f;
+  }
+  if (pl.kind == P_SAME) return pair_e(pl.gu, pl.gv[0], p, t.inv_nfpb);
+  return 0.0f;
+}
+
+// The multi-multi entries [d0, d1) of the slot for genome k, staged at
+// stage[d + off]: a group of GW lanes an entry, lane l of a group copy row
+// cu = l (+ GW, ...) of the u end, each row folded over cv left to right
+// with the v end's geometry passed by shuffles, the rows folded in cu
+// order; so every sum is the plain left fold. Called by every thread of
+// the genome's TG (warp-uniform loops).
+template <int TG>
+__device__ void multi_multi_terms(const CorrArgs& a, const Mini& g, int k, int slot,
+                                  const RippeCell& p, float vn, int d0, int d1, float* stage,
+                                  int off, int th) {
+  const Tables& t = a.t;
+  const int C = t.c_max;
+  int gw = 1;
+  while (gw < C && gw < 32) gw <<= 1;
+  const int per_warp = 32 / gw;
+  const int lane = th & 31, sub = lane & (gw - 1), grp = lane / gw;
+  for (int base = d0 + (th >> 5) * per_warp; base < d1; base += (TG / 32) * per_warp) {
+    const int d = base + grp;
+    const bool live = d < d1;
+    const long long at = (long long)slot * t.ndd + (live ? d : d0);
     const int* um = a.dd_mini + (at * 2) * C;
     const int* vm = a.dd_mini + (at * 2 + 1) * C;
     Fold ee, au, av;
-    for (int cu = 0; cu < C; ++cu) {
-      const Geo gu = g.at(k, max(um[cu], 0));
+    for (int ub = 0; ub < C; ub += gw) {
+      const int cu = ub + sub, nu = min(gw, C - ub);
+      const int u = cu < C ? um[cu] : -1;
+      const Geo gu = g.at(k, max(u, 0));
       Fold row;
-      for (int cv = 0; cv < C; ++cv)
-        row.add((um[cu] >= 0 && vm[cv] >= 0) ? pair_e(gu, g.at(k, vm[cv]), p, inv_nfpb) : 0.0f);
-      ee.add(row.v);
+      for (int vb = 0; vb < C; vb += gw) {
+        const int cv = vb + sub, nv = min(gw, C - vb);
+        const int v = cv < C ? vm[cv] : -1;
+        const Geo gv = g.at(k, max(v, 0));
+        if (ub == 0)
+          for (int q = 0; q < nv; ++q) {        // every lane shuffles, then selects
+            const int vq = __shfl_sync(FULL, v, q, gw);
+            const float aq = __shfl_sync(FULL, gv.a, q, gw);
+            av.add(vq >= 0 ? aq : 0.0f);
+          }
+        for (int q = 0; q < nv; ++q) {
+          const Geo gq = shfl_geo_w(gv, q, gw);
+          const bool vq = __shfl_sync(FULL, v, q, gw) >= 0;
+          row.add((u >= 0 && vq) ? pair_e(gu, gq, p, t.inv_nfpb) : 0.0f);
+        }
+      }
+      for (int q = 0; q < nu; ++q) {
+        ee.add(__shfl_sync(FULL, row.v, q, gw));
+        const int uq = __shfl_sync(FULL, u, q, gw);
+        const float aq = __shfl_sync(FULL, gu.a, q, gw);
+        au.add(uq >= 0 ? aq : 0.0f);
+      }
     }
-    for (int c = 0; c < C; ++c) {
-      au.add(um[c] >= 0 ? g.a(k, um[c]) : 0.0f);
-      av.add(vm[c] >= 0 ? g.a(k, vm[c]) : 0.0f);
+    if (live && sub == 0) {
+      const float e_dd = __fadd_rn(
+          __fadd_rn(a.dd_f[at * 3], ee.v),
+          __fmul_rn(vn, __fadd_rn(__fmul_rn(au.v, a.dd_f[at * 3 + 2]),
+                                  __fmul_rn(a.dd_f[at * 3 + 1], av.v))));
+      stage[d + off] = e_dd > 0.0f
+                           ? __fsub_rn(__fmul_rn(t.dd_ob[d], logf(e_dd)), t.dd_lf[d])
+                           : 0.0f;
     }
-    const float e_dd = __fadd_rn(
-        __fadd_rn(a.dd_f[at * 3], ee.v),
-        __fmul_rn(vn, __fadd_rn(__fmul_rn(au.v, a.dd_f[at * 3 + 2]),
-                                __fmul_rn(a.dd_f[at * 3 + 1], av.v))));
-    if (e_dd > 0.0f)
-      acc = __dadd_rn(acc, (double)__fsub_rn(__fmul_rn(t.dd_ob[d], logf(e_dd)), t.dd_lf[d]));
   }
-  // part 4
-  const int n4 = t.s_max * t.capd;
-  for (int i = th; i < n4; i += HALF) {
-    const long long at = (long long)slot * n4 + i;
-    const int ent = a.p4_ent[at];
-    if (ent < 0) continue;
-    const int si = i / t.capd;
-    Fold ad;
-    for (int c = 0; c < C; ++c) {
-      const int cm = a.ca_mini[((long long)slot * t.s_max + si) * C + c];
-      ad.add(cm >= 0 ? g.a(k, cm) : 0.0f);
-    }
-    const float e4 = __fadd_rn(a.p4_f[at * 2], __fmul_rn(a.p4_f[at * 2 + 1], ad.v));
-    if (e4 > 0.0f)
-      acc = __dadd_rn(acc, (double)__fsub_rn(__fmul_rn(t.so_vals[ent], logf(e4)),
-                                             t.so_lf[ent]));
-  }
-  // same-bin pairs
-  const int n_sb = a.n_rec[slot * 2 + 1];
-  for (int i = th; i < n_sb; i += HALF) {
-    const int* pair = a.sb_pair + ((long long)slot * R * C + i) * 2;
-    acc = __dadd_rn(acc, (double)pair_e(g.at(k, pair[0]), g.at(k, pair[1]), p, inv_nfpb));
-  }
-  return acc;
 }
 
-// One block a (slot, candidate j): threads 0-127 sum the base genome's
-// terms, 128-255 candidate j's; then the candidate's cross term and delta.
-// Every block sums the base genome in the same order, so corr[0] is one
-// value whichever block writes it.
-__global__ void __launch_bounds__(F2_THREADS) corr_sums_kernel(CorrArgs a) {
-  const int slot = blockIdx.x / N_OPS, j = blockIdx.x - slot * N_OPS;
-  const int chain = slot / a.m, tid = threadIdx.x;
-  if (blockIdx.x == 0 && tid == 0) atomicAdd(a.sums_counter, 1ULL);
-  const int half = tid / HALF, th = tid - half * HALF;
-  const int k = half ? j + 1 : 0;
-  const int R = a.R;
+// The fixed tree over 128 f64 partials p[0..127] as the earlier design
+// folded them (strides 64, 32 in shared memory, then 16 ... 1): called by
+// one warp, lane 0 gets the sum.
+__device__ __forceinline__ double tree128(const double* p, int lane) {
+  double s = __dadd_rn(__dadd_rn(p[lane], p[lane + 64]), __dadd_rn(p[lane + 32], p[lane + 96]));
+  for (int o = 16; o > 0; o >>= 1) s = __dadd_rn(s, __shfl_down_sync(FULL, s, o));
+  return s;
+}
+
+// The same over 256 partials (strides 128, 64, 32, then 16 ... 1).
+__device__ __forceinline__ double tree256(const double* p, int lane) {
+  const double a0 = __dadd_rn(__dadd_rn(p[lane], p[lane + 128]),
+                              __dadd_rn(p[lane + 64], p[lane + 192]));
+  const double a1 = __dadd_rn(__dadd_rn(p[lane + 32], p[lane + 160]),
+                              __dadd_rn(p[lane + 96], p[lane + 224]));
+  double s = __dadd_rn(a0, a1);
+  for (int o = 16; o > 0; o >>= 1) s = __dadd_rn(s, __shfl_down_sync(FULL, s, o));
+  return s;
+}
+
+// F2: a grid (14, M) in clusters of (14, 1, 1), a cluster a slot; block
+// k sums genome k (0 the base) with TG threads.
+template <int TG, int PLACES>
+__global__ void __launch_bounds__(TG, sums_sm_threads(PLACES) / TG)
+    corr_sums_kernel(CorrArgs a) {
+  constexpr int LANES = TG >= F2_CROSS ? 1 : F2_CROSS / TG;   // cross lanes a thread
+  __shared__ float stage[F2_TILE];
+  __shared__ double red[F2_CROSS];
+  __shared__ double s_base[2];             // block 0: corr[0] and w_out, read by the peers
+  static_assert(TG >= F2_FOLD && TG % 32 == 0 && (TG % F2_CROSS == 0 || F2_CROSS % TG == 0),
+                "F2's layout");
+  cg::cluster_group cluster = cg::this_cluster();
+  const Tables& t = a.t;
+  const int k = (int)blockIdx.x, slot = (int)blockIdx.y, th = threadIdx.x;
+  const int chain = slot / a.m, R = a.R;
+  if (k == 0 && slot == 0 && th == 0) atomicAdd(a.sums_counter, 1ULL);
   const RippeCell p(a.pvec + (long long)slot * N_PARAMS);
-  const float vn = __fmul_rn(p.v_inter, a.t.inv_nfpb);
+  const float vn = __fmul_rn(p.v_inter, t.inv_nfpb);
   const long long off = (long long)slot * N_GEN * R;
   const Mini g{a.mid + off, a.idc + off, a.act + off, a.circ + off, a.stot + off,
                a.accu_sub + (long long)slot * R, R};
-  __shared__ double red[F2_THREADS];
+  const float* o_same = a.o_same + (long long)slot * R;
 
-  red[tid] = genome_terms(a, g, k, slot, p, vn, th);
-  __syncthreads();
-  for (int stride = HALF / 2; stride > 0; stride >>= 1) {
-    if (th < stride) red[tid] = __dadd_rn(red[tid], red[tid + stride]);
+  // first the base genome's D mass, which waits for nothing; thread th
+  // holds lanes th (+ TG) of the 256
+  double dmass[LANES];
+#pragma unroll
+  for (int l = 0; l < LANES; ++l) {
+    const int lane = th + l * TG;
+    dmass[l] = 0.0;
+    if (k == 0 && th < F2_CROSS) {
+#pragma unroll 4
+      for (int r = lane; r < R; r += F2_CROSS) dmass[l] = __dadd_rn(dmass[l], (double)g.a(0, r));
+    }
+  }
+
+  // the record sequence: mixed, multi-multi, part 4, same-bin, each padded
+  const int n_mx = a.n_rec[slot * 2], n_sb = a.n_rec[slot * 2 + 1];
+  const int n4 = t.s_max * t.capd, ndd = t.ndd;
+  const int p_dd = pad_fold(n_mx), p_p4 = p_dd + pad_fold(ndd), p_sb = p_p4 + pad_fold(n4);
+  const int n_seq = p_sb + pad_fold(n_sb);
+  double acc = 0.0;
+  for (int t0 = 0; t0 < n_seq; t0 += F2_TILE) {
+    const int t1 = min(n_seq, t0 + F2_TILE);
+    for (int b = t0 + th; b < t1; b += TG * PLACES) {
+      Place pl[PLACES];
+#pragma unroll
+      for (int j = 0; j < PLACES; ++j) {
+        const int q = b + j * TG;
+        load_ints(a, slot, q < t1 ? q : -1, n_mx, p_dd, ndd, p_p4, n4, p_sb, n_sb, pl[j]);
+      }
+#pragma unroll
+      for (int j = 0; j < PLACES; ++j) load_rows(a, g, k, pl[j]);
+#pragma unroll
+      for (int j = 0; j < PLACES; ++j) {
+        const int q = b + j * TG;
+        if (q < t1 && pl[j].kind != P_ENTRY) stage[q - t0] = term(a, g, k, slot, p, vn, pl[j]);
+      }
+    }
+    const int d0 = max(t0 - p_dd, 0), d1 = min(t1 - p_dd, ndd);
+    if (d0 < d1) multi_multi_terms<TG>(a, g, k, slot, p, vn, d0, d1, stage, p_dd - t0, th);
+    __syncthreads();
+    if (th < F2_FOLD)
+      for (int q = th; q < t1 - t0; q += F2_FOLD) acc = __dadd_rn(acc, (double)stage[q]);
     __syncthreads();
   }
-  const double corr0 = red[0], corr_k = red[HALF];
-  __syncthreads();
-
-  // the cross term: w_out = w_all - the base genome's D mass
-  double base = 0.0;
-  for (int r = tid; r < R; r += F2_THREADS) base = __dadd_rn(base, (double)g.a(0, r));
-  const double w_out = __dsub_rn(a.w_all[chain], block_sum(base, red));
-  const float* o_same = a.o_same + (long long)slot * R;
-  double x = 0.0;
-  for (int r = tid; r < R; r += F2_THREADS)
-    x = __dadd_rn(x, __dmul_rn((double)__fsub_rn(g.a(j + 1, r), g.a(0, r)),
-                               __dsub_rn(w_out, (double)o_same[r])));
-  const double cross = __dmul_rn((double)vn, block_sum(x, red));
-
-  if (tid == 0) {
-    const long long o = (long long)slot * N_OPS + j;
-    a.corr[(long long)slot * N_GEN + j + 1] = corr_k;
-    if (j == 0) a.corr[(long long)slot * N_GEN] = corr0;
-    a.cross[o] = cross;
-    a.dll[o] = (float)__dsub_rn(__dadd_rn((double)a.dll1[o], __dsub_rn(corr_k, corr0)), cross);
+  // a candidate's first cross rows, loaded while the sums fold and block 0
+  // finds w_out (not before the terms: registers the places use)
+  float da[LANES][F2_PRE], os[LANES][F2_PRE];
+  if (k > 0 && th < F2_CROSS) {
+#pragma unroll
+    for (int l = 0; l < LANES; ++l)
+#pragma unroll
+      for (int q = 0; q < F2_PRE; ++q) {
+        const int r = th + l * TG + q * F2_CROSS;
+        da[l][q] = r < R ? __fsub_rn(g.a(k, r), g.a(0, r)) : 0.0f;
+        os[l][q] = r < R ? o_same[r] : 0.0f;
+      }
   }
+  if (th < F2_FOLD) red[th] = acc;
+  __syncthreads();
+  double corr_k = 0.0;
+  if (th < 32) corr_k = tree128(red, th);
+  __syncthreads();
+  if (k == 0) {
+    if (th < F2_CROSS)
+#pragma unroll
+      for (int l = 0; l < LANES; ++l) red[th + l * TG] = dmass[l];
+    __syncthreads();
+    if (th < 32) {
+      const double w_out = __dsub_rn(a.w_all[chain], tree256(red, th));
+      if (th == 0) {
+        s_base[0] = corr_k;
+        s_base[1] = w_out;
+        a.corr[(long long)slot * N_GEN] = corr_k;
+      }
+    }
+  }
+  cluster.sync();                          // corr[0] and w_out in block 0's shared memory
+
+  if (k > 0 && th < F2_CROSS) {
+    const double w_out = *cluster.map_shared_rank(&s_base[1], 0);
+#pragma unroll
+    for (int l = 0; l < LANES; ++l) {
+      const int lane = th + l * TG;
+      double x = 0.0;
+#pragma unroll
+      for (int q = 0; q < F2_PRE; ++q)
+        if (lane + q * F2_CROSS < R)
+          x = __dadd_rn(x, __dmul_rn((double)da[l][q], __dsub_rn(w_out, (double)os[l][q])));
+      for (int r = lane + F2_PRE * F2_CROSS; r < R; r += F2_CROSS)
+        x = __dadd_rn(x, __dmul_rn((double)__fsub_rn(g.a(k, r), g.a(0, r)),
+                                   __dsub_rn(w_out, (double)o_same[r])));
+      red[lane] = x;
+    }
+  }
+  const double corr0 = *cluster.map_shared_rank(&s_base[0], 0);
+  cluster_arrive();                        // done reading block 0's shared memory
+  __syncthreads();
+  if (k > 0 && th < 32) {
+    const double cross = __dmul_rn((double)vn, tree256(red, th));
+    if (th == 0) {
+      const long long o = (long long)slot * N_OPS + k - 1;
+      a.corr[(long long)slot * N_GEN + k] = corr_k;
+      a.cross[o] = cross;
+      a.dll[o] = (float)__dsub_rn(__dadd_rn((double)a.dll1[o], __dsub_rn(corr_k, corr0)), cross);
+    }
+  }
+  cluster_wait();                          // no block leaves while a peer may read it
+}
+
+// F2's launch configuration: `slots` clusters of 14 blocks of TG threads
+template <int TG>
+struct SumsLaunch {
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  SumsLaunch(int slots, cudaStream_t s) {
+    cfg.gridDim = dim3(N_GEN, static_cast<unsigned>(slots), 1);
+    cfg.blockDim = dim3(TG, 1, 1);
+    cfg.stream = s;
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = N_GEN;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+};
+
+template <int TG, int PLACES>
+cudaError_t launch_sums(const CorrArgs& a, cudaStream_t s) {
+  SumsLaunch<TG> l(a.C * a.m, s);
+  const cudaError_t e = cudaLaunchKernelEx(&l.cfg, corr_sums_kernel<TG, PLACES>, a);
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
+
+// The clusters of F2's layout the current device holds at once, or
+// -cudaError_t
+template <int TG, int PLACES>
+long long sums_fit() {
+  SumsLaunch<TG> l(1, nullptr);
+  int n = 0;
+  const cudaError_t e = cudaOccupancyMaxActiveClusters(
+      &n, reinterpret_cast<const void*>(corr_sums_kernel<TG, PLACES>), &l.cfg);
+  return e == cudaSuccess ? n : -static_cast<long long>(e);
 }
 
 template <int KIND>
@@ -886,9 +1236,16 @@ int launch(bool sums, const void* args, void* stream) {
   const int slots = a->C * a->m;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (sums) {
-    if (a->sums_counter == nullptr) return (int)cudaErrorInvalidValue;
-    corr_sums_kernel<<<slots * N_OPS, F2_THREADS, 0, s>>>(*a);
-    return (int)cudaGetLastError();
+    if (a->sums_counter == nullptr || slots > 65535) return (int)cudaErrorInvalidValue;
+    switch (a->sums_plan) {
+      case W512: return (int)launch_sums<512, 2>(*a, s);
+      case W256: return (int)launch_sums<256, 2>(*a, s);
+      case W128: return (int)launch_sums<128, 2>(*a, s);
+      case D512: return (int)launch_sums<512, 1>(*a, s);
+      case D256: return (int)launch_sums<256, 1>(*a, s);
+      case D128: return (int)launch_sums<128, 1>(*a, s);
+      default: return (int)cudaErrorInvalidValue;
+    }
   }
   if (a->frozen_counter == nullptr || a->cluster < 1 || a->cluster > MAX_CLUSTER
       || (a->router != STAGED && a->router != BITMAP) || 2LL * slots + a->C > 65535)
@@ -908,7 +1265,8 @@ long long repeat_corr_frozen_smem(const void* args) {
   return f1_smem(*static_cast<const CorrArgs*>(args));
 }
 
-// Opt F1 in to the current device's largest dynamic shared memory: once a
+// Opt F1 in to the current device's largest dynamic shared memory, and F2's
+// 14-block clusters in to a cluster size past the portable one: once a
 // device, outside any capture. Returns the bytes a launch may now ask (the
 // opt-in limit less F1's static shared memory), or -cudaError_t.
 long long repeat_corr_init() {
@@ -927,16 +1285,40 @@ long long repeat_corr_init() {
     e = cudaFuncSetAttribute(fns[k], cudaFuncAttributeMaxDynamicSharedMemorySize, dyn);
     most = most < dyn ? most : dyn;
   }
+  // F2's clusters of 14 blocks pass the portable size of 8
+  const void* wide[6] = {reinterpret_cast<const void*>(corr_sums_kernel<512, 2>),
+                         reinterpret_cast<const void*>(corr_sums_kernel<256, 2>),
+                         reinterpret_cast<const void*>(corr_sums_kernel<128, 2>),
+                         reinterpret_cast<const void*>(corr_sums_kernel<512, 1>),
+                         reinterpret_cast<const void*>(corr_sums_kernel<256, 1>),
+                         reinterpret_cast<const void*>(corr_sums_kernel<128, 1>)};
+  for (int k = 0; k < 6 && e == cudaSuccess; ++k)
+    e = cudaFuncSetAttribute(wide[k], cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   return e == cudaSuccess ? most : -static_cast<long long>(e);
 }
 
 // Each entry point launches its kernel on `stream` (F1: the clusters of
-// its plan; F2: one block a (slot, candidate)) from the argument block the
+// its plan; F2: a cluster a slot, of its layout) from the argument block the
 // wrapper filled, does not synchronise, and returns the cudaError_t of the
 // launch (cudaErrorInvalidValue for a block it refuses). F2 reads what F1
 // wrote: launch them in that order on one stream.
 int repeat_corr_frozen(const void* args, void* stream) { return launch(false, args, stream); }
 
 int repeat_corr_sums(const void* args, void* stream) { return launch(true, args, stream); }
+
+// The clusters of F2's layout `plan` (SumsPlan) the current device holds at
+// once (cudaOccupancyMaxActiveClusters; after repeat_corr_init), or
+// -cudaError_t.
+long long repeat_corr_sums_fit(int plan) {
+  switch (plan) {
+    case W512: return sums_fit<512, 2>();
+    case W256: return sums_fit<256, 2>();
+    case W128: return sums_fit<128, 2>();
+    case D512: return sums_fit<512, 1>();
+    case D256: return sums_fit<256, 1>();
+    case D128: return sums_fit<128, 1>();
+    default: return -static_cast<long long>(cudaErrorInvalidValue);
+  }
+}
 
 }  // extern "C"

@@ -56,8 +56,8 @@ class SlotArgs(ctypes.Structure):
                 ("f_a", _P), ("ids", _P), ("max_id", _P), ("fa_s", _I64), ("ids_cs", _I64),
                 ("ids_ms", _I64), ("mx_s", _I64), ("par", _P * N_PARAMS),
                 ("par_s", _I64 * N_PARAMS), ("log_nfpb", _P), ("lf", _P), ("max_id_out", _P),
-                ("pvec", _P), ("C", _I32), ("m", _I32), ("f_max", _I32), ("fa64", _I32),
-                ("ids64", _I32), ("mx64", _I32)]
+                ("pvec", _P), ("counter", _P), ("C", _I32), ("m", _I32), ("f_max", _I32),
+                ("fa64", _I32), ("ids64", _I32), ("mx64", _I32)]
 
 
 class VecArgs(ctypes.Structure):
@@ -67,9 +67,9 @@ class VecArgs(ctypes.Structure):
                 ("valid_is", _I64), ("sub_start", _P), ("sub_count", _P), ("prefix", _P),
                 ("suffix", _P), ("len_kb", _P), ("accu", _P), ("key_of", _P), ("mid", _P),
                 ("idc", _P), ("circ", _P), ("stot", _P), ("la", _P), ("keys", _P), ("act", _P),
-                ("circ_i", _P), ("accu_sub", _P), ("inv_kb", ctypes.c_float), ("C", _I32),
-                ("m", _I32), ("f_max", _I32), ("s_max", _I32), ("R", _I32), ("K", _I32),
-                ("pad", _I32)]
+                ("circ_i", _P), ("accu_sub", _P), ("counter", _P), ("inv_kb", ctypes.c_float),
+                ("C", _I32), ("m", _I32), ("f_max", _I32), ("s_max", _I32), ("R", _I32),
+                ("K", _I32), ("pad", _I32)]
 
 
 class VectorTables(NamedTuple):
@@ -177,11 +177,12 @@ def check_slots(rows, f_a, ids, max_id, params, log_nfpb):
     return c, m, f_max
 
 
-def slot_args(rows, f_a, ids, max_id, params, log_nfpb):
+def slot_args(rows, f_a, ids, max_id, params, log_nfpb, counter=None):
     """The argument block of one I1 call (see :func:`check_slots`), the
     tensors it points into (kept alive until the launch is queued) and the
     outputs (lf_a, lf_b (M,) int64, max_id (M,) of ``max_id``'s dtype, pvec
-    (M, 10) f32), allocated on the call's device."""
+    (M, 10) f32), allocated on the call's device. ``counter``: the int64 I1
+    adds one to a launch (null without it: a launch refuses the block)."""
     c, m, f_max = check_slots(rows, f_a, ids, max_id, params, log_nfpb)
     dev = rows.device
     big_m = c * m
@@ -197,9 +198,10 @@ def slot_args(rows, f_a, ids, max_id, params, log_nfpb):
         par=(_P * N_PARAMS)(*[p.data_ptr() for p in par]),
         par_s=(_I64 * N_PARAMS)(*[p.stride(0) if p.numel() > 1 else 0 for p in par]),
         log_nfpb=log_nfpb.data_ptr(), lf=lf.data_ptr(), max_id_out=mx.data_ptr(),
-        pvec=pvec.data_ptr(), C=c, m=m, f_max=f_max, fa64=int(f_a.dtype == torch.int64),
+        pvec=pvec.data_ptr(), counter=None if counter is None else counter.data_ptr(), C=c,
+        m=m, f_max=f_max, fa64=int(f_a.dtype == torch.int64),
         ids64=int(ids.dtype == torch.int64), mx64=int(max_id.dtype == torch.int64))
-    return a, (rows, f_a, ids, max_id, par, log_nfpb), (lf[0], lf[1], mx, pvec)
+    return a, (rows, f_a, ids, max_id, par, log_nfpb, counter), (lf[0], lf[1], mx, pvec)
 
 
 def check_vectors(full, rows, valid, tables: VectorTables):
@@ -231,11 +233,12 @@ def check_vectors(full, rows, valid, tables: VectorTables):
     return c, m, f_max, r, k
 
 
-def vector_args(full, rows, valid, tables: VectorTables, extras: bool):
+def vector_args(full, rows, valid, tables: VectorTables, extras: bool, counter=None):
     """The argument block of one I2 call (see :func:`check_vectors`), the
     tensors it points into and the outputs (a :class:`SubVectors`; act,
     circ_i and accu_sub only with ``extras``), allocated on the call's
-    device."""
+    device. ``counter``: the int64 I2 adds one to a launch (null without
+    it: a launch refuses the block)."""
     c, m, f_max, r, k = check_vectors(full, rows, valid, tables)
     dev = rows.device
     big_m = c * m
@@ -265,15 +268,16 @@ def vector_args(full, rows, valid, tables: VectorTables, extras: bool):
         len_kb=tables.len_kb.data_ptr(), accu=tables.accu.data_ptr(), key_of=ptr(tables.key_of),
         mid=out.mid.data_ptr(), idc=idc.data_ptr(), circ=out.circ.data_ptr(),
         stot=out.stot.data_ptr(), la=out.la.data_ptr(), keys=keys.data_ptr(), act=ptr(act),
-        circ_i=ptr(circ_i), accu_sub=ptr(accu_sub), inv_kb=INV_KB, C=c, m=m, f_max=f_max,
-        s_max=tables.s_max, R=r, K=k, pad=0)
-    return a, (fields, rows, valid, tables), out
+        circ_i=ptr(circ_i), accu_sub=ptr(accu_sub), counter=ptr(counter), inv_kb=INV_KB, C=c,
+        m=m, f_max=f_max, s_max=tables.s_max, R=r, K=k, pad=0)
+    return a, (fields, rows, valid, tables, counter), out
 
 
 class DeltaInputKernels(Counted):
     """The delta engine's input kernels I1 and I2 on a card; see the module
     docstring. ``n_launches`` counts their launches on the card, by key
-    ("delta_slots", "delta_vectors"; ``ops.counts``)."""
+    ("delta_slots", "delta_vectors"; ``ops.counts``): each kernel adds one
+    to its key's counter itself."""
 
     def __init__(self):
         self.launches = LaunchCount()
@@ -283,27 +287,31 @@ class DeltaInputKernels(Counted):
         if dev.type != "cuda":
             raise ValueError(f"the CUDA delta input kernels need tensors on a card, not on {dev}")
 
-    def _launch(self, kind, dev, fn, a):
+    @staticmethod
+    def _launch(kind, dev, fn, a):
         rc = fn(ctypes.byref(a), torch.cuda.current_stream(dev).cuda_stream)
         if rc != 0:
             raise RuntimeError(f"{kind} launch failed: cudaError {rc}")
-        self.launches.add(dev, kind)
 
     def slots(self, rows, f_a, ids, max_id, params, log_nfpb):
         """I1 (see :func:`check_slots`): (lf_a, lf_b, max_id, pvec) of the C
         x m slots, bit for bit ``core.delta.slot_inputs_plain``."""
-        self._card(rows.device)
-        a, keep, out = slot_args(rows, f_a, ids, max_id, params, log_nfpb)
-        self._launch("delta_slots", rows.device, load_library().delta_slots, a)
+        dev = rows.device
+        self._card(dev)
+        a, keep, out = slot_args(rows, f_a, ids, max_id, params, log_nfpb,
+                                 self.launches.counter(dev, "delta_slots"))
+        self._launch("delta_slots", dev, load_library().delta_slots, a)
         del keep
         return out
 
     def vectors(self, full, rows, valid, tables: VectorTables, extras: bool) -> SubVectors:
         """I2 (see :func:`check_vectors`): the slots' :class:`SubVectors`,
         bit for bit ``core.delta.sub_vectors_plain``."""
-        self._card(rows.device)
-        a, keep, out = vector_args(full, rows, valid, tables, extras)
-        self._launch("delta_vectors", rows.device, load_library().delta_vectors, a)
+        dev = rows.device
+        self._card(dev)
+        a, keep, out = vector_args(full, rows, valid, tables, extras,
+                                   self.launches.counter(dev, "delta_vectors"))
+        self._launch("delta_vectors", dev, load_library().delta_vectors, a)
         del keep
         return out
 

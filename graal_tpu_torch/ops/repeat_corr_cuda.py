@@ -21,7 +21,8 @@ itself refuses tensors that are not on a card. :func:`make_tables` puts the
 engine's constant tables in the kernels' layout once, when the engine is
 built; :func:`check_corrections` is what the kernels take, checked without
 touching the card; :func:`plan` is F1's cluster size and router for a
-call's shapes.
+call's shapes; :func:`sums_plan` is F2's layout (a thread block cluster a
+slot) for a call's slots on a card.
 """
 
 from __future__ import annotations
@@ -46,6 +47,12 @@ MAX_CLUSTER = 8              # F1's blocks a cluster, at most (the portable size
 ROUTERS = ("staged", "bitmap")   # F1's routers (csrc/repeat_corr.cu RouterKind)
 ROUTER = "bitmap"            # the one plan() picks (measured faster, PERF.md)
 ROWS_A_THREAD = 2            # plan(): D rows a thread of a D-row cluster
+# F2's layouts (csrc/repeat_corr.cu SumsPlan): a cluster a slot of 14 blocks,
+# a genome a block, of 512, 256 or 128 threads, each loading two places of
+# the record sequence at once ("/2", 128 registers a thread) or one ("/1",
+# 64); most threads first within each
+SUMS_PLANS = ("14x512/2", "14x256/2", "14x128/2", "14x512/1", "14x256/1", "14x128/1")
+SUMS_TWO_ROWS = 1024         # sums_plan(): the most rows a slot at which two places pay
 SMEM_MOST = 216 * 1024       # F1's dynamic shared memory plan() keeps within (an H100's
                              # opt-in 227 KB less F1's static 8.3 KB)
 
@@ -142,7 +149,8 @@ class CorrArgs(ctypes.Structure):
                 ("act", _P), ("circ", _P), ("stot", _P), ("accu_sub", _P), ("pvec", _P),
                 ("dll1", _P), *[(name, _P) for name in SCRATCH], ("corr", _P), ("cross", _P),
                 ("dll", _P), ("frozen_counter", _P), ("sums_counter", _P), ("C", _I32),
-                ("m", _I32), ("f_max", _I32), ("R", _I32), ("cluster", _I32), ("router", _I32)]
+                ("m", _I32), ("f_max", _I32), ("R", _I32), ("cluster", _I32), ("router", _I32),
+                ("sums_plan", _I32), ("pad", _I32)]
 
 
 @functools.cache
@@ -162,7 +170,47 @@ def load_library():
     lib.repeat_corr_frozen_smem.restype = _I64
     lib.repeat_corr_init.argtypes = []
     lib.repeat_corr_init.restype = _I64
+    lib.repeat_corr_sums_fit.argtypes = [_I32]
+    lib.repeat_corr_sums_fit.restype = _I64
     return lib
+
+
+def sums_plan(slots: int, rows: int, fit) -> int:
+    """F2's layout for ``slots`` clusters of ``rows`` sub rows a slot (an
+    index of SUMS_PLANS): the most threads a genome whose clusters the card
+    holds all at once (``fit``: :func:`sums_fit`), of two places a thread
+    where ``rows`` <= SUMS_TWO_ROWS and one such fits, else of one place,
+    else the fewest threads of one place; the first off a card (``fit``
+    None). Two places a thread overlap two records' loads but halve the
+    threads a multiprocessor holds: they gained only on calls that leave the
+    card mostly idle (PERF.md)."""
+    if fit is None:
+        return 0
+    two = [k for k, name in enumerate(SUMS_PLANS) if name.endswith("/2")]
+    one = [k for k, name in enumerate(SUMS_PLANS) if name.endswith("/1")]
+    order = (two if rows <= SUMS_TWO_ROWS else []) + one
+    return next((k for k in order if fit[k] >= slots), one[-1])
+
+
+def sums_fit(dev):
+    """The clusters of each F2 layout the card ``dev`` holds at once
+    (``cudaOccupancyMaxActiveClusters``), asked once a device outside any
+    capture; None off a card."""
+    if dev.type != "cuda":
+        return None
+    return _sums_fit(dev.index if dev.index is not None else torch.cuda.current_device())
+
+
+@functools.cache
+def _sums_fit(index: int):
+    lib = load_library()
+    dev = torch.device("cuda", index)
+    build.opted_in("repeat_corr", lib.repeat_corr_init, dev)
+    with torch.cuda.device(dev):
+        fit = tuple(int(lib.repeat_corr_sums_fit(k)) for k in range(len(SUMS_PLANS)))
+    if min(fit) < 1:
+        raise RuntimeError(f"F2's layouts {SUMS_PLANS} fit {fit} clusters on {dev}")
+    return fit
 
 
 def frozen_smem(r: int, f_max: int, n: int, cluster: int, router: str) -> int:
@@ -291,8 +339,10 @@ def call_args(tables: CorrTables, state, f_a, rows, valid, geo, accu_sub, pvec, 
     """The argument block of one call (see :func:`check_corrections`), the
     tensors it points into (kept alive until the launches are queued) and
     the outputs (corr, cross, dll), allocated on the call's device; F1's
-    plan from :func:`plan`. ``counters``: the int64s F1 and F2 add one to a
-    launch (the block's are null without them: a launch refuses it)."""
+    plan from :func:`plan`, F2's layout from :func:`sums_plan` (on a card,
+    by :func:`sums_fit`). ``counters``: the int64s
+    F1 and F2 add one to a launch (the block's are null without them: a
+    launch refuses it)."""
     dev = rows.device
     geo = type(geo)(*[x.contiguous() for x in geo])
     accu_sub, pvec, dll1 = accu_sub.contiguous(), pvec.contiguous(), dll1.contiguous()
@@ -335,7 +385,8 @@ def call_args(tables: CorrTables, state, f_a, rows, valid, geo, accu_sub, pvec, 
                  corr=out[0].data_ptr(), cross=out[1].data_ptr(), dll=out[2].data_ptr(),
                  frozen_counter=None if counters is None else counters[0].data_ptr(),
                  sums_counter=None if counters is None else counters[1].data_ptr(), C=c,
-                 m=m, f_max=f_max, R=r, cluster=k, router=ROUTERS.index(router))
+                 m=m, f_max=f_max, R=r, cluster=k, router=ROUTERS.index(router),
+                 sums_plan=sums_plan(c * m, r, sums_fit(dev)), pad=0)
     return a, (geo, accu_sub, pvec, dll1, rows, valid, scratch, counters), out
 
 

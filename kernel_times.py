@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Time the port's CUDA kernels B1-B4, C1, D3, the step's head and tail,
-F1 / F2, G1-G3 and H1-H3 at the shapes their paths give them, to hold one
-tree's kernels against another's on one GPU.
+F1 / F2, G1-G3, H1-H3 and I1 / I2 at the shapes their paths give them, to
+hold one tree's kernels against another's on one GPU.
 
-    python3 kernel_times.py [--tree DIR] [--kernels B,C,D,F,G,H] [--sweep]
+    python3 kernel_times.py [--tree DIR] [--kernels B,C,D,F,G,H,I] [--sweep]
 
 DIR holds a tree's ``graal_tpu_torch`` package (default: this checkout's).
 That tree's wrappers build and launch its kernels, and its own problem
@@ -63,14 +63,21 @@ scalar each ("H3 sweep ..."), the cost an entry adds. F1 and F2 ("F1 ...", "F2 .
 and ``--top-tiers``' f_max 16,384 for 4 chains, one scoring call a shape:
 each kernel alone from one argument block and the pair through its
 wrapper, whose "digest" (sha256 of the outputs) must be equal across
-trees, bit for bit. ``--kernels`` keeps the named groups (B: B1-B4, C:
-C1, D: D3 and the head and tail, F: F1 / F2, G: G1-G3, H: H1-H3; default
-all). ``--sweep`` (a tree whose wrappers have them) also times C1 and D3
+trees, bit for bit; the "F2 ..." entries' digests cover corr, cross and
+dll. I1 and I2 ("I1 ...", "I2 ...") at phase 3i's shapes
+(``chip_smoke.inputs_cases``, the m = 80 one on 3g's many-copy problem)
+and ``--top-tiers``' f_max 16,384 for 4 chains, one scoring call a shape,
+each alone from one argument block with a "digest" of its outputs two
+trees must share. ``--kernels`` keeps the named groups (B: B1-B4, C:
+C1, D: D3 and the head and tail, F: F1 / F2, G: G1-G3, H: H1-H3, I: I1 /
+I2; default all). ``--sweep`` (a tree whose wrappers have them) also times C1 and D3
 under other cluster sizes (``candidates_cuda.plan``,
 ``step_cuda.select_cluster``), as "SHAPE [K=k]" entries, H1 under every
 (threads, G) plan (``vectors_cuda.plan``), as "SHAPE [t=T G=g]", F1 under
 every (K, router) plan (``repeat_corr_cuda.plan``), as "SHAPE [K=k
-router]", each with "same": its outputs equal to the default plan's.
+router]", F2 under every layout (``repeat_corr_cuda.SUMS_PLANS``), as "F2
+SHAPE [layout]", each with "same": its outputs equal to the default
+plan's.
 """
 
 import json
@@ -568,8 +575,11 @@ def corr_shapes(device, rsc, gen, sweep):
     block has one) and the pair through the wrapper ("F1+F2 ..."), whose
     "digest" (sha256 of corr, cross and dll) two trees must share; with
     ``sweep`` (a tree whose wrapper has ``plan``) F1 alone under every
-    (K, router) plan that fits, as "F1 SHAPE [K=k router]", each with
-    "same": its F1 + F2 outputs equal to the default plan's."""
+    (K, router) plan that fits, as "F1 SHAPE [K=k router]", and (a tree
+    whose wrapper has ``sums_plan``) F2 alone under every layout, as "F2
+    SHAPE [layout]", each with "same": its F1 + F2 outputs equal to the
+    default plan's. A tree with ``sums_plan`` also names F2's layout and
+    the card's fit ("layout", "fit")."""
     import ctypes
 
     import torch
@@ -602,6 +612,8 @@ def corr_shapes(device, rsc, gen, sweep):
         f2()
         out[f"F1 {label}"] = times(f1, lambda res: [scratch["n_rec"]])
         out[f"F2 {label}"] = dict(times(f2, lambda res: list(outs)), digest=digest(outs))
+        if hasattr(rc, "sums_plan"):
+            out[f"F2 {label}"].update(layout=rc.SUMS_PLANS[a.sums_plan], fit=rc.sums_fit(device))
         if sweep and hasattr(rc, "plan"):
             default = rc.plan
             r, f_max, n = args[4].mid.shape[2], args[2].shape[2], tables.sub_start.shape[0]
@@ -622,6 +634,21 @@ def corr_shapes(device, rsc, gen, sweep):
                     out[f"F1 {label} [K={k} {router}]"] = dict(
                         times(g1, lambda res, outs2=outs2: list(outs2)), same=same)
                     del keep2
+        if sweep and hasattr(rc, "sums_plan"):
+            default_sums = rc.sums_plan
+            for k, layout in enumerate(rc.SUMS_PLANS):
+                rc.sums_plan = lambda *_, k=k: k
+                try:
+                    a2, keep2, outs2, _ = block()
+                finally:
+                    rc.sums_plan = default_sums
+                g1, g2 = launch(lib.repeat_corr_frozen, a2, "F1"), \
+                    launch(lib.repeat_corr_sums, a2, "F2")
+                g1()
+                g2()
+                out[f"F2 {label} [{layout}]"] = dict(
+                    times(g2, lambda res, outs2=outs2: list(outs2)), same=digest(outs2) == want)
+                del keep2
         del keep
     return out
 
@@ -680,18 +707,63 @@ def rows_shapes(device, sc, rsc, gen):
     return out
 
 
+def inputs_shapes(device, sc, rsc, gen):
+    """I1 and I2 at phase 3i's shapes (``chip_smoke.inputs_cases``, the m =
+    80 one on 3g's many-copy problem) and ``--top-tiers``' f_max 16,384 for
+    4 chains, on one scoring call a shape drawn from ``gen``, its rows,
+    mini-states and catalogue made on the card as the path makes them: I1
+    and I2 alone from one argument block each (their launches on a scratch
+    counter where the tree's block has one), each with a "digest" (sha256
+    of its outputs) two trees must share."""
+    import ctypes
+
+    import torch
+    from graal_tpu_torch.core import delta
+    from graal_tpu_torch.ops import delta_inputs_cuda as di
+
+    lib = di.load_library()
+    stream = torch.cuda.current_stream().cuda_stream
+    many = smoke.many_copies_setup(device, smoke.ROW_COPIES)
+    cases = smoke.inputs_cases(sc, rsc, many) + [smoke.inputs_top_case(sc)]
+    out = {}
+
+    def launch(fn, a, what):
+        return lambda: smoke.check(fn(ctypes.byref(a), stream) == 0, f"{what} launch failed")
+
+    for case, scorer, params in cases:
+        f_a, ids = case["draw"](gen)
+        args, valid = smoke.inputs_call(case, scorer, params, f_a, ids)
+        full = smoke.inputs_full(case, scorer, args, valid, delta.slot_inputs_plain(*args))
+        c, m, f_max = args[0].shape
+        label = f"{case['label']} C={c} m={m} f_max={f_max}"
+        a1, keep1, lf = di.slot_args(*args)
+        a2, keep2, vec = di.vector_args(full, args[0], valid, scorer.vt, scorer.extras)
+        counter = [smoke.scratch_fields(a, ("counter",)) for a in (a1, a2)]
+        i1, i2 = launch(lib.delta_slots, a1, "I1"), launch(lib.delta_vectors, a2, "I2")
+        i1()
+        i2()
+        planes = [x for x in vec if x is not None]
+        out[f"I1 {label}"] = dict(times(i1, lambda res: [x.double() for x in lf]),
+                                  digest=digest(lf))
+        out[f"I2 {label}"] = dict(times(i2, lambda res: [x[..., :1].double() for x in planes]),
+                                  digest=digest(planes))
+        del keep1, keep2, counter
+    del many
+    return out
+
+
 def main(argv):
     import argparse
 
     ap = argparse.ArgumentParser(prog="kernel_times.py")
     ap.add_argument("--tree", default=".")
-    ap.add_argument("--kernels", default="B,C,D,F,G,H")
+    ap.add_argument("--kernels", default="B,C,D,F,G,H,I")
     ap.add_argument("--sweep", action="store_true")
     args = ap.parse_args(argv)
     tree = Path(args.tree).resolve()
     groups = set(args.kernels.split(","))
-    smoke.check(groups <= {"B", "C", "D", "F", "G", "H"},
-                f"--kernels: B, C, D, F, G or H, not {args.kernels}")
+    smoke.check(groups <= {"B", "C", "D", "F", "G", "H", "I"},
+                f"--kernels: B, C, D, F, G, H or I, not {args.kernels}")
     sys.path.insert(0, str(tree))
     import torch
     from graal_tpu_torch.core import delta, delta_repeats
@@ -719,7 +791,7 @@ def main(argv):
         out.update(vectors_shapes(device, args.sweep))
         out.update(scan_shapes(device, sc, smoke.scale_repeat_setup(device)))
         out.update(store_sweep(device))
-    if "F" in groups or "G" in groups:
+    if "F" in groups or "G" in groups or "I" in groups:
         rsc = smoke.scale_repeat_setup(device)
         if "F" in groups:
             out.update(corr_shapes(device, rsc, torch.Generator(device=device).manual_seed(
@@ -727,6 +799,9 @@ def main(argv):
         if "G" in groups:
             out.update(rows_shapes(device, sc, rsc, torch.Generator(device=device).manual_seed(
                 smoke.SEED + 70)))
+        if "I" in groups:
+            out.update(inputs_shapes(device, sc, rsc, torch.Generator(device=device).manual_seed(
+                smoke.SEED + 90)))
         del rsc
     if "B" not in groups:
         print(json.dumps({"tree": str(tree), "gpu": smoke.gpu_line(), "shapes": out}))

@@ -15,8 +15,10 @@ and strides, as the kernels do):
   reciprocal as the kernel and torch on the card do, against the plain
   version's operations in that form;
 - the plain engine, the repeat engine and the delta MH catalogue fed
-  through the card's dispatch (a stand-in wrapper that runs the
-  transcriptions) against the JAX package's ``make_delta_scorer`` /
+  through the card's dispatch (the wrapper over a stand-in library whose
+  entry points run the transcriptions and add one to the counter each
+  block hands them, as the kernels do; no torch add counts a launch)
+  against the JAX package's ``make_delta_scorer`` /
   ``make_repeat_delta_scorer_v2`` (the jnp oracles of tests/test_torch_delta.py
   and tests/test_torch_delta_repeats.py) at rtol 1e-4, atol 1e-2, with the
   candidates, rows and overflow bit-equal, and the scorers' own CPU path bit
@@ -27,6 +29,7 @@ and strides, as the kernels do):
 
 import ctypes
 import re
+import types
 from pathlib import Path
 
 import jax
@@ -48,6 +51,7 @@ from graal_tpu_torch.core.model import RippeParams
 from graal_tpu_torch.core.state import GenomeState as TState
 from graal_tpu_torch.ops import delta_inputs_cuda as di
 from graal_tpu_torch.ops import likelihood_cuda as lc
+from graal_tpu_torch.ops.counts import LaunchCount
 from tests.test_delta_repeats import _repeat_problem
 from tests.test_torch_delta import _case_states
 from tests.test_torch_state import assert_states_equal, to_port
@@ -156,30 +160,53 @@ def i2_transcribed(a: di.VecArgs, reciprocal: bool):
         _arr(ptr, dt, x.size)[:] = x.reshape(-1)
 
 
+def _bump(ptr):
+    ctypes.c_int64.from_address(ptr).value += 1
+
+
+def _stand_in_slots(block, stream):
+    """I1's entry point as the stand-in library runs it: the transcription,
+    then one added to the block's counter, as the kernel adds it."""
+    a = block._obj
+    i1_transcribed(a)
+    _bump(a.counter)
+    return 0
+
+
+def _stand_in_vectors(block, stream):
+    """I2's, dividing by 1,000 as the plain version does on the CPU."""
+    a = block._obj
+    i2_transcribed(a, reciprocal=False)
+    _bump(a.counter)
+    return 0
+
+
+STAND_IN = types.SimpleNamespace(delta_slots=_stand_in_slots, delta_vectors=_stand_in_vectors)
+
+
 class StandIn(di.DeltaInputKernels):
-    """The wrapper with its launches replaced by the transcriptions: the
-    checks and the argument blocks are the wrapper's own, on CPU tensors;
-    I2 divides by 1,000 as the plain version does on the CPU."""
+    """The wrapper itself on CPU tensors (its checks, argument blocks and
+    counters), its library replaced by :data:`STAND_IN`, whose entry points
+    run the transcriptions and count the launches in the blocks' counters
+    as the kernels do."""
 
-    def slots(self, rows, f_a, ids, max_id, params, log_nfpb):
-        a, keep, out = di.slot_args(rows, f_a, ids, max_id, params, log_nfpb)
-        i1_transcribed(a)
-        self.launches.add(rows.device, "delta_slots")
-        del keep
-        return out
-
-    def vectors(self, full, rows, valid, tables, extras):
-        a, keep, out = di.vector_args(full, rows, valid, tables, extras)
-        i2_transcribed(a, reciprocal=False)
-        self.launches.add(rows.device, "delta_vectors")
-        del keep
-        return out
+    @staticmethod
+    def _card(dev):
+        pass
 
 
 def route_to_card(monkeypatch):
     """Send every delta scorer's inputs through its card branches and a
-    stand-in wrapper."""
+    stand-in wrapper over the stand-in library; a torch add counting a
+    launch beside the kernels fails the test."""
+    def refuse(self, device, key=None):
+        raise AssertionError(f"a torch add counted {key} beside a self-counting kernel")
+
     spy = StandIn()
+    monkeypatch.setattr(di, "load_library", lambda: STAND_IN)
+    monkeypatch.setattr(LaunchCount, "add", refuse)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(cuda_stream=None))
     monkeypatch.setattr(td, "INPUTS", spy)
     monkeypatch.setattr(td.DeltaScorer, "slot_inputs", td.DeltaScorer._slots_on_card)
     monkeypatch.setattr(td.DeltaScorer, "sub_vectors", td.DeltaScorer._vectors_on_card)
@@ -487,8 +514,8 @@ def _c_fields(struct):
     return names
 
 
-@pytest.mark.parametrize("struct, mirror, size", [("SlotArgs", di.SlotArgs, 272),
-                                                  ("VecArgs", di.VecArgs, 416)])
+@pytest.mark.parametrize("struct, mirror, size", [("SlotArgs", di.SlotArgs, 280),
+                                                  ("VecArgs", di.VecArgs, 424)])
 def test_ctypes_mirrors_follow_the_c_structs(struct, mirror, size):
     assert _c_fields(struct) == [name for name, _ in mirror._fields_]
     assert ctypes.sizeof(mirror) == size

@@ -756,7 +756,7 @@ def test_argument_blocks_follow_the_c_structs():
     """The ctypes mirrors' sizes as the C structs lay them out (pointers
     and int64s 8 bytes, int32s and floats 4)."""
     assert ctypes.sizeof(rcc.Tables) == 25 * 8 + 2 * 4 + 8 * 4
-    assert ctypes.sizeof(rcc.CorrArgs) == 640
+    assert ctypes.sizeof(rcc.CorrArgs) == 648
     assert ctypes.sizeof(rwc.RowsArgs) == 12 * 8 + 3 * 8 + 8 * 4
     assert ctypes.sizeof(rwc.GatherArgs) == 11 * 8 * 3 + 4 * 8 + 4 * 4
 
@@ -777,7 +777,7 @@ def test_corr_card_branch_counts_in_the_kernels(call, monkeypatch, limit):
 
     def frozen(block, stream):
         a = block._obj
-        assert ctypes.sizeof(a) == 640
+        assert ctypes.sizeof(a) == 648
         assert a.frozen_counter == wrapper.launches.counter(dev, "frozen").data_ptr()
         assert (a.cluster, rcc.ROUTERS[a.router]) == rcc.plan(a.R, a.f_max, a.t.n)
         calls.append("frozen")
